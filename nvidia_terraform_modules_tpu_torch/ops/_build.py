@@ -1,0 +1,160 @@
+# SPDX-FileCopyrightText: Copyright (c) 2026 tpu-terraform-modules authors. All rights reserved.
+# SPDX-License-Identifier: Apache-2.0
+"""Build and bind the port's CUDA kernels (``csrc/*.cu``).
+
+Each source compiles with ``nvcc`` for ``sm_90a`` into an object file —
+all sources at once, one ``nvcc`` each — and the objects link into
+``build/torch_kernels/libkernels.so`` at the repository root, which is
+loaded with ``ctypes``. The sources include no PyTorch header: a plain C
+interface builds in seconds, where an extension that includes PyTorch's
+headers takes minutes. The library is rebuilt when the sources or the
+flags change (a stamp file holds their digest).
+
+Nothing here runs at import: the first kernel call builds and loads. The
+C entry points take device pointers and the stream as ``c_void_p`` and
+return ``cudaGetLastError()`` after the launch; :func:`check` raises on a
+non-zero code, so a refused launch can never pass silently.
+
+``launches`` holds one launch count per kernel: each wrapper adds one
+where it launches its kernel, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_BUILD = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+_LIB_NAME = "libkernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC")
+
+launches: dict[str, int] = {"flash_fwd": 0, "paged_decode": 0}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+_SIGNATURES = {
+    # q, k, v, o, lse, B, S, H, KV, D, 4×3 strides (q, k, v, o: b, s, h),
+    # scale, mask kind, window, dtype code, stream
+    "tk_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
+    + [_L] * 12 + [_F, _I, _I, _I, _P],
+    # q, k_pool, v_pool, tables, pos, out, B, H, KV, D, block size,
+    # table width, scale, dtype code, stream
+    "tk_paged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _F, _I, _P],
+}
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for name in launches:
+        launches[name] = 0
+
+
+def sources() -> list[Path]:
+    return sorted(_CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       "csrc/ with the CUDA toolkit's nvcc (PATH or "
+                       "CUDA_HOME)")
+
+
+def _digest(srcs: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in srcs + sorted(_CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` (in parallel) and link the shared library;
+    a no-op when the stamp matches. Returns the library path."""
+    srcs = sources()
+    lib_path = _BUILD / _LIB_NAME
+    stamp = _BUILD / "stamp"
+    digest = _digest(srcs)
+    if lib_path.exists() and stamp.exists() \
+            and stamp.read_text() == digest:
+        return lib_path
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for src in srcs:
+        obj = _BUILD / (src.stem + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-c", str(src),
+               "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    errors = []
+    for src, _obj, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode:
+            errors.append(f"{src.name}:\n{out.decode(errors='replace')}")
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    tmp = _BUILD / (_LIB_NAME + f".tmp{os.getpid()}")
+    link = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+         *[str(obj) for _src, obj, _p in procs]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    if link.returncode:
+        raise RuntimeError("nvcc link failed:\n"
+                           + link.stdout.decode(errors="replace"))
+    os.replace(tmp, lib_path)
+    stamp.write_text(digest)
+    return lib_path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            handle.tk_error_string.argtypes = [ctypes.c_int]
+            handle.tk_error_string.restype = ctypes.c_char_p
+            _lib = handle
+        return _lib
+
+
+def check(rc: int, kernel: str) -> None:
+    """Raise when a launch returned a CUDA error code."""
+    if rc:
+        msg = lib().tk_error_string(rc).decode(errors="replace")
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error "
+                           f"{rc} ({msg})")
+
+
+def dtype_code(dtype) -> int:
+    """The C side's element-type code: 0 = float32, 1 = bfloat16."""
+    import torch
+
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    if dtype not in codes:
+        raise ValueError(f"the CUDA kernels take float32 or bfloat16, got "
+                         f"{dtype}")
+    return codes[dtype]
