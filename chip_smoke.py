@@ -8,15 +8,24 @@ Run from the repository root on a machine with one NVIDIA GPU::
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``csrc/`` with nvcc (into
-``build/torch_kernels/``), holds each kernel against its plain PyTorch
-version at the serve path's shapes, checks the engine's exactness
-contract on the card, then drives the main path — the continuous-batching
-serve engine at the flagship width — and shows through the launch counts
-that it went through both kernels; last it profiles one more run of the
-same traffic to show where the serve time goes (device time by kernel
-against the host clock). Every phase prints one JSON line; any
-failure raises and the script exits non-zero. Without a CUDA device it
-exits 1 and prints no result; it imports nothing of JAX.
+``build/torch_kernels/``), and drives the port's two main paths:
+
+- serve: holds K1 (flash forward) and K7 (paged decode) against their plain
+  PyTorch versions at the serve path's shapes, checks the engine's
+  exactness contract on the card, serves at the flagship width (the launch
+  counts show it went through both kernels) and profiles one more run of
+  the same traffic (device time by kernel against the host clock);
+- train: holds K5 (fused flash backward) and K3/K4 (the split pair)
+  against their plain versions, up to the flagship's per-layer
+  ``[2, 4096, 16, 128]``; checks the train step's gradients on the card
+  against the dense model, fused against split, remat and accumulation;
+  runs SGD and AdamW steps of the flagship burn-in step at full width and
+  depth (the launch counts show it went through K1 and K5, or K3 + K4);
+  and profiles one step.
+
+Every phase prints one JSON line; any failure raises and the script exits
+non-zero. Without a CUDA device it exits 1 and prints no result; it
+imports nothing of JAX.
 
 The last three lines are: the kernels' JSON record (times, bounds, launch
 counts), the card's ``name, power.limit`` as nvidia-smi reports them, and
@@ -34,9 +43,21 @@ H100_BYTES_PER_S = 3.35e12          # HBM3, SXM data sheet
 H100_PEAK = {"bf16": 989e12,        # dense tensor-core rate
              "f32": 67e12}          # CUDA cores (the f32 kernels' route)
 
-FLAGSHIP = dict(vocab=8192, d_model=2048, n_heads=16, d_ff=8192,
-                n_layers=8, attn="flash")          # bench.py's flagship
 N_REQUESTS, SLOTS, KV_BLOCK, N_NEW, SEED = 8, 4, 16, 32, 0
+# the flagship's SGD rate: at make_train_step's default of 1e-3, lr·g is
+# below half a bf16 step of most weights (a weight near 0.02 moves only for
+# |g| > 0.06), so most of the update rounds away
+TRAIN_LR = 0.1
+WARM_STEPS, TIMED_STEPS, ADAMW_STEPS = 2, 10, 3
+# the backward kernels' FLOPs as multiples of the forward's (tile products:
+# 5, 3 and 4 against the forward's 2) and the [B, S, H, D] tensors each
+# writes
+BWD_FACTOR = {"flash_bwd_fused": 2.5, "flash_dq": 1.5, "flash_dkv": 2.0}
+BWD_OUTPUTS = {"flash_bwd_fused": 3, "flash_dq": 1, "flash_dkv": 2}
+# the backward kernels' limits: max-abs error over max(1, max|ref|), and
+# the relative L2 error ||got - ref|| / ||ref||, which holds the many small
+# gradients of a long sequence that the max-abs limit is loose for
+BWD_TOL = {"bf16": (2e-2, 1e-2), "f32": (1e-4, 1e-4)}
 
 
 def emit(phase: str, **fields) -> None:
@@ -50,6 +71,387 @@ def bound(flops: float, nbytes: float, kind: str) -> tuple[float, str]:
     t_bytes = nbytes / H100_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def profile_summary(prof, wall_ms: float) -> dict:
+    """Device time summed by kernel name from a ``torch.profiler`` run,
+    against the run's wall clock. An empty trace means the profiler saw no
+    device activity: the device numbers are then "not measured" (null)."""
+    kernels_us: dict[str, list] = {}
+    for evt in prof.key_averages():
+        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            acc = kernels_us.setdefault(evt.key, [0.0, 0])
+            acc[0] += evt.self_device_time_total
+            acc[1] += evt.count
+    device_ms = (sum(us for us, _ in kernels_us.values()) / 1e3
+                 if kernels_us else None)
+    top = sorted(kernels_us.items(), key=lambda kv_: -kv_[1][0])[:12]
+    # cuBLAS's GEMM kernels on Hopper are named nvjet_*, older ones *gemm*
+    gemm_us = sum(us for name, (us, _) in kernels_us.items()
+                  if name.startswith("nvjet") or "gemm" in name.lower())
+    return dict(wall_ms=wall_ms, device_ms=device_ms,
+                busy_share_profiled=(device_ms / wall_ms
+                                     if device_ms is not None else None),
+                gemm_ms=gemm_us / 1e3 if kernels_us else None,
+                kernel_launches=sum(c for _, c in kernels_us.values()),
+                top_kernels=[{"name": k[:90], "ms": us / 1e3, "count": c}
+                             for k, (us, c) in top])
+
+
+def max_rel_err(got, want, floor: float | None = 1.0) -> float:
+    """Max over the leaves of two params-shaped trees of
+    ``max|got - want| / max(floor, max|want|)`` (``floor=None``: purely
+    relative)."""
+    from nvidia_terraform_modules_tpu_torch.models import tree_leaves
+
+    worst = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        mag = b.float().abs().max().item()
+        den = mag if floor is None else max(floor, mag)
+        err = (a.float() - b.float()).abs().max().item()
+        worst = max(worst, err / den if den else err)
+    return worst
+
+
+def grad_errors(got, ref, kind: str, what: str) -> tuple[float, float]:
+    """The max-abs and the relative L2 error of each output of ``got``
+    against ``ref``; raises where either passes its ``BWD_TOL`` limit.
+    Returns the largest of each."""
+    tol_abs, tol_l2 = BWD_TOL[kind]
+    worst_abs, worst_l2 = 0.0, 0.0
+    for i, (a, r) in enumerate(zip(got, ref)):
+        diff, r = a.float() - r.float(), r.float()
+        err = diff.abs().max().item()
+        lim = tol_abs * max(1.0, r.abs().max().item())
+        l2 = (diff.norm() / r.norm()).item()
+        if not (err <= lim and l2 <= tol_l2):
+            raise AssertionError(f"{what} output {i}: max-abs err {err} "
+                                 f"(limit {lim}), relative L2 {l2} "
+                                 f"(limit {tol_l2})")
+        worst_abs, worst_l2 = max(worst_abs, err), max(worst_l2, l2)
+    return worst_abs, worst_l2
+
+
+def planted_faults(got, ref, kind: str) -> list[dict]:
+    """The check of :func:`grad_errors` against known faults: each of dQ,
+    dK and dV with its rows from S/2 on halved (a kernel wrong only far
+    along the sequence) must fail it. Records, for each, the max-abs error
+    against its limit and the relative L2 error."""
+    tol_abs = BWD_TOL[kind][0]
+    out = []
+    for i, name in enumerate(("dq", "dk", "dv")):
+        bad = [g.clone() for g in got]
+        bad[i][:, bad[i].shape[1] // 2:] *= 0.5
+        r = ref[i].float()
+        diff = bad[i].float() - r
+        rec = dict(fault=f"{name} x 0.5 on rows >= S/2",
+                   max_abs_err=diff.abs().max().item(),
+                   max_abs_limit=tol_abs * max(1.0, r.abs().max().item()),
+                   rel_l2=(diff.norm() / r.norm()).item())
+        try:
+            grad_errors(bad, ref, kind, "planted fault")
+        except AssertionError:
+            out.append({**rec, "caught": True})
+            continue
+        raise AssertionError(f"planted fault not caught: {rec}")
+    return out
+
+
+def kernel_flash_bwd(randn, dev, train_shape) -> dict:
+    """K5 and K3 + K4 against their plain versions, fused against split,
+    each timed beside its bound; returns the main-path shape's record of
+    each kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from nvidia_terraform_modules_tpu_torch.ops.flash_attention import (
+        flash_attention_fwd,
+        flash_dkv,
+        flash_dkv_ref,
+        flash_dq,
+        flash_dq_ref,
+        flash_dqdkv,
+        flash_dqdkv_ref,
+    )
+    from nvidia_terraform_modules_tpu_torch.utils.timing import (
+        cuda_median_ms,
+        sync,
+    )
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    h, d = 16, 128
+    kernel_of = {"flash_bwd_fused": flash_dqdkv, "flash_dq": flash_dq,
+                 "flash_dkv": flash_dkv}
+    plain_of = {"flash_bwd_fused": flash_dqdkv_ref, "flash_dq": flash_dq_ref,
+                "flash_dkv": flash_dkv_ref}
+    cases = [(1, s, bf16, "causal", False) for s in (128, 512, 136)]
+    cases += [(1, 512, bf16, ("window", 128), False),
+              (1, 512, bf16, "full", False), (1, 256, f32, "causal", False),
+              (*train_shape, bf16, "causal", True)]
+    main: dict = {}
+    for b, s, dtype, mask, on_path in cases:
+        q, k, v, do = (randn((b, s, h, d), dtype) for _ in range(4))
+        o, lse = flash_attention_fwd(q, k, v, mask=mask)
+        delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1) \
+            .contiguous()
+        args = (q, k, v, do, lse, delta)
+        kw = dict(scale=d ** -0.5, mask=mask)
+        got = {"flash_bwd_fused": flash_dqdkv(*args, **kw),
+               "flash_dq": (flash_dq(*args, **kw),),
+               "flash_dkv": flash_dkv(*args, **kw)}
+        ref = flash_dqdkv_ref(*args, **kw)
+        sync()
+        ref_of = {"flash_bwd_fused": ref, "flash_dq": ref[:1],
+                  "flash_dkv": ref[1:]}
+        kind = "bf16" if dtype == bf16 else "f32"
+        case = f"{[b, s, h, d]} {dtype} {mask}"
+        errs = {name: grad_errors(outs, ref_of[name], kind, f"{name} {case}")
+                for name, outs in got.items()}
+        grad_errors(got["flash_bwd_fused"],
+                    got["flash_dq"] + got["flash_dkv"], kind,
+                    f"fused vs split {case}")
+        if on_path:
+            emit("kernel_flash_bwd_check", shape=[b, s, h, d],
+                 ref_median_abs=[r.float().abs().median().item()
+                                 for r in ref],
+                 ref_max_abs=[r.float().abs().max().item() for r in ref],
+                 tolerance=dict(zip(("max_abs", "rel_l2"), BWD_TOL[kind])),
+                 planted_faults=planted_faults(got["flash_bwd_fused"], ref,
+                                               kind))
+        del got, ref, ref_of
+        # yardstick: SDPA's own backward on the same inputs, timed alone
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        if mask == "causal":
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            live = s * (s + 1) / 2
+        elif mask == "full":
+            out = F.scaled_dot_product_attention(qt, kt, vt)
+            live = float(s * s)
+        else:
+            w = mask[1]
+            idx = torch.arange(s, device=dev)
+            amask = (idx[:, None] >= idx[None, :]) & (
+                idx[:, None] - idx[None, :] < w)
+            out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask)
+            live = float(sum(min(i + 1, w) for i in range(s)))
+        dot = do.transpose(1, 2)
+        library_ms = cuda_median_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True))
+        del out, qt, kt, vt
+        fwd_flops = 4.0 * b * h * d * live
+        n, elt = b * s * h * d, q.element_size()
+        for name, kernel in kernel_of.items():
+            ms = cuda_median_ms(lambda kernel=kernel: kernel(*args, **kw))
+            plain_ms = cuda_median_ms(
+                lambda name=name: plain_of[name](*args, **kw), iters=5,
+                warmup=1)
+            nbytes = (4 + BWD_OUTPUTS[name]) * n * elt + 2 * b * h * s * 4
+            bound_ms, bound_by = bound(BWD_FACTOR[name] * fwd_flops, nbytes,
+                                       "bf16" if dtype == bf16 else "f32")
+            rec = dict(kernel=name, shape=[b, s, h, d], dtype=str(dtype),
+                       mask=mask, main_path=on_path,
+                       max_abs_err=errs[name][0], rel_l2_err=errs[name][1],
+                       ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=bound_ms,
+                       bound_by=bound_by)
+            emit("kernel_flash_bwd", **rec)
+            if on_path:
+                main[name] = rec
+    return main
+
+
+def train_exact(dev) -> None:
+    """The train step's gradients on the card, f32 at head_dim 128: the
+    kernels (fused and split) against the dense model, fused against
+    split, remat and accumulation against the plain pass; then five SGD and
+    five AdamW steps each lower the loss (the reference's burnin_ok)."""
+    import dataclasses
+
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        BurnInConfig,
+        init_params,
+        make_adamw_train_step,
+        make_grads_fn,
+        make_train_step,
+        synthetic_batch,
+    )
+
+    cfg = BurnInConfig(vocab=512, d_model=256, n_heads=2, d_ff=512,
+                       n_layers=2, seq_len=128, batch=2, attn="flash",
+                       dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(3),
+                         device=dev)
+    batch = synthetic_batch(torch.Generator(device=dev).manual_seed(4), cfg,
+                            device=dev)
+
+    def grads(accum_steps=1, **over):
+        return make_grads_fn(dataclasses.replace(cfg, **over),
+                             accum_steps=accum_steps)(params, batch)
+
+    runs = {"fused": grads(), "split": grads(flash_backward="split"),
+            "dense": grads(attn="dense"), "remat": grads(remat=True),
+            "accum2": grads(accum_steps=2)}
+    checks = {  # name: (got, want, limit, floor of the magnitude)
+        "fused_vs_dense": ("fused", "dense", 1e-4, 1.0),
+        "split_vs_dense": ("split", "dense", 1e-4, 1.0),
+        "fused_vs_split": ("fused", "split", 1e-5, 1.0),
+        "remat_vs_plain": ("remat", "fused", 1e-6, None),
+        "accum2_vs_full": ("accum2", "fused", 1e-5, 1.0),
+    }
+    errs = {}
+    for name, (a, b, lim, floor) in checks.items():
+        (la, ga), (lb, gb) = runs[a], runs[b]
+        loss_err = abs(la.item() - lb.item()) / max(1.0, abs(lb.item()))
+        errs[name] = max(loss_err, max_rel_err(ga, gb, floor))
+        if not errs[name] <= lim:
+            raise AssertionError(f"train_exact {name}: {errs[name]} > {lim}")
+    sgd = make_train_step(cfg, device=dev)
+    init, adamw = make_adamw_train_step(cfg, device=dev)
+    p, losses_sgd = params, []
+    for _ in range(5):
+        p, loss = sgd(p, batch)
+        losses_sgd.append(loss.item())
+    p, state, losses_adamw = params, init(params), []
+    for _ in range(5):
+        p, state, loss = adamw(p, state, batch)
+        losses_adamw.append(loss.item())
+    emit("train_exact", errors=errs, losses_sgd=losses_sgd,
+         losses_adamw=losses_adamw)
+    for name, ls in (("sgd", losses_sgd), ("adamw", losses_adamw)):
+        if not ls[-1] < ls[0]:
+            raise AssertionError(f"train_exact: {name} loss did not fall "
+                                 f"{ls}")
+
+
+def _flagship_train(dev):
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        FLAGSHIP_TRAIN,
+        BurnInConfig,
+        synthetic_batch,
+    )
+
+    cfg = BurnInConfig(**FLAGSHIP_TRAIN, dtype=torch.bfloat16)
+    batch = synthetic_batch(torch.Generator(device=dev).manual_seed(SEED + 2),
+                            cfg, device=dev)
+    return cfg, batch
+
+
+def train_flagship(params, dev) -> tuple[dict, dict]:
+    """The flagship burn-in step at full width and depth: SGD steps timed
+    on the host clock (each ending in a synchronise), the launch counts of
+    one fused and one split step, then AdamW steps. Returns the phase
+    record and the timed run's launch counts."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        FLAGSHIP_TRAIN,
+        make_adamw_train_step,
+        make_train_step,
+        train_step_flops,
+        tree_leaves,
+    )
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+    from nvidia_terraform_modules_tpu_torch.utils.timing import (
+        sync,
+        synced_ms,
+    )
+
+    cfg, batch = _flagship_train(dev)
+    state = {"p": params}
+
+    def timed(fn, n):
+        losses, ms = synced_ms(fn, n)
+        return [loss.item() for loss in losses], ms
+
+    def make_sgd(**over):
+        step = make_train_step(dataclasses.replace(cfg, **over), lr=TRAIN_LR,
+                               device=dev)
+
+        def run():
+            state["p"], loss = step(state["p"], batch)
+            return loss
+        return run
+
+    def counted(fn):
+        _build.reset_launches()
+        fn()
+        sync()
+        return dict(_build.launches)
+
+    sgd = make_sgd()
+    timed(sgd, WARM_STEPS)
+    expect = {"flash_fwd": cfg.n_layers, "paged_decode": 0,
+              "flash_bwd_fused": cfg.n_layers, "flash_dq": 0, "flash_dkv": 0}
+    fused_launches = counted(sgd)
+    if fused_launches != expect:
+        raise AssertionError(f"fused step launches {fused_launches}, "
+                             f"expected {expect}")
+    split_launches = counted(make_sgd(flash_backward="split"))
+    if split_launches != {**expect, "flash_bwd_fused": 0,
+                          "flash_dq": cfg.n_layers,
+                          "flash_dkv": cfg.n_layers}:
+        raise AssertionError(f"split step launches {split_launches}")
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    losses, step_ms = timed(sgd, TIMED_STEPS)
+    launches = dict(_build.launches)
+    peak_sgd = torch.cuda.max_memory_allocated()
+    if launches != {k: c * TIMED_STEPS for k, c in expect.items()}:
+        raise AssertionError(f"timed steps launched {launches}")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"flagship SGD loss did not fall: {losses}")
+
+    init, adamw = make_adamw_train_step(cfg, device=dev)
+    opt = {"s": init(state["p"])}
+
+    def adamw_step():
+        state["p"], opt["s"], loss = adamw(state["p"], opt["s"], batch)
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    adamw_losses, adamw_ms = timed(adamw_step, ADAMW_STEPS)
+    flops = train_step_flops(cfg)
+    rec = dict(config={**FLAGSHIP_TRAIN, "dtype": "bfloat16"},
+               params=sum(p.numel() for p in tree_leaves(params)),
+               train_step_flops=flops, lr=TRAIN_LR, step_ms=step_ms,
+               burnin_tokens_per_s=cfg.batch * cfg.seq_len / step_ms * 1e3,
+               burnin_mfu=flops / (step_ms / 1e3) / H100_PEAK["bf16"],
+               max_memory_allocated=peak_sgd, first_loss=losses[0],
+               last_loss=losses[-1], losses=losses, launches=launches,
+               fused_step_launches=fused_launches,
+               split_step_launches=split_launches, adamw_step_ms=adamw_ms,
+               adamw_max_memory_allocated=torch.cuda.max_memory_allocated(),
+               adamw_losses=adamw_losses)
+    return rec, launches
+
+
+def train_profile(params, dev) -> dict:
+    """One flagship SGD step under torch.profiler: device time by kernel
+    against the step's wall clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nvidia_terraform_modules_tpu_torch.models import make_train_step
+    from nvidia_terraform_modules_tpu_torch.utils.timing import sync
+
+    cfg, batch = _flagship_train(dev)
+    step = make_train_step(cfg, lr=TRAIN_LR, device=dev)
+    step(params, batch)                    # warm: allocator, cuBLAS plans
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        step(params, batch)
+        sync()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    return profile_summary(prof, wall_ms)
 
 
 def flagship_lengths() -> list[int]:
@@ -71,6 +473,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from nvidia_terraform_modules_tpu_torch.models import (
+        FLAGSHIP_TRAIN,
         BurnInConfig,
         forward_cached,
         forward_paged,
@@ -79,6 +482,7 @@ def main() -> int:
         init_paged_cache,
         init_params,
         make_serve_engine,
+        tree_leaves,
     )
     from nvidia_terraform_modules_tpu_torch.ops import _build
     from nvidia_terraform_modules_tpu_torch.ops.decode_attention import (
@@ -96,6 +500,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     bf16, f32 = torch.bfloat16, torch.float32
+    train_shape = (FLAGSHIP_TRAIN["batch"], FLAGSHIP_TRAIN["seq_len"])
 
     # ------------------------------------------------------------ device
     smi = subprocess.run(
@@ -122,14 +527,17 @@ def main() -> int:
 
     # -------------------------------------------------- kernel_flash_fwd
     lens = flagship_lengths()
-    cases = [(s, bf16, "causal", 16, False) for s in (128, 512, 136)]
-    cases += [(64, f32, "causal", 1, False),
-              (512, bf16, ("window", 128), 16, False)]
-    cases += [(s, bf16, "causal", 16, True) for s in sorted(set(lens))]
+    # (batch, S, dtype, mask, KV heads, main path); K1 runs on both paths:
+    # at the serve prompts' shapes and at the train step's per-layer shape
+    cases = [(1, s, bf16, "causal", 16, False) for s in (128, 512, 136)]
+    cases += [(1, 64, f32, "causal", 1, False),
+              (1, 512, bf16, ("window", 128), 16, False)]
+    cases += [(1, s, bf16, "causal", 16, "serve") for s in sorted(set(lens))]
+    cases += [(*train_shape, bf16, "causal", 16, "train")]
     k1_main = []
-    for s, dtype, mask, kv, on_path in cases:
+    for b, s, dtype, mask, kv, on_path in cases:
         h, d = (16, 128) if kv == 16 else (2, 128)
-        q, k, v = (randn((1, s, n, d), dtype) for n in (h, kv, kv))
+        q, k, v = (randn((b, s, n, d), dtype) for n in (h, kv, kv))
         o, lse = flash_attention_fwd(q, k, v, mask=mask)
         o_ref, lse_ref = flash_attention_ref(q, k, v, mask=mask)
         sync()
@@ -161,16 +569,16 @@ def main() -> int:
             live = sum(min(i + 1, w) for i in range(s))
         library_ms = cuda_median_ms(lib_call)
         elt = q.element_size()
-        nbytes = (2 * h + 2 * kv) * s * d * elt + h * s * 4
-        bound_ms, bound_by = bound(4.0 * h * d * live, nbytes,
+        nbytes = b * ((2 * h + 2 * kv) * s * d * elt + h * s * 4)
+        bound_ms, bound_by = bound(4.0 * b * h * d * live, nbytes,
                                    "bf16" if dtype == bf16 else "f32")
-        rec = dict(shape=[1, s, h, d], kv_heads=kv, dtype=str(dtype),
+        rec = dict(shape=[b, s, h, d], kv_heads=kv, dtype=str(dtype),
                    mask=mask, main_path=on_path, max_abs_err=err_o,
                    lse_err=err_l, ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound_ms,
                    bound_by=bound_by)
         emit("kernel_flash_fwd", **rec)
-        if on_path:
+        if on_path == "serve":
             k1_main.append((lens.count(s), rec))
 
     # ----------------------------------------------- kernel_paged_decode
@@ -262,12 +670,10 @@ def main() -> int:
 
     # ---------------------------------------------------- serve_flagship
     nt = -(-max_len // KV_BLOCK)
-    cfg = BurnInConfig(**FLAGSHIP, dtype=bf16)
+    cfg = BurnInConfig(**FLAGSHIP_TRAIN, dtype=bf16)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
                          device=dev)
-    n_params = sum(p.numel() for p in [params["embed"], params["out_norm"]]
-                   + [t for layer in params["layers"]
-                      for t in layer.values()])
+    n_params = sum(p.numel() for p in tree_leaves(params))
     pg = torch.Generator().manual_seed(SEED + 1)
     prompts = [torch.randint(0, cfg.vocab, (n,), generator=pg).to(dev)
                for n in lens]
@@ -366,25 +772,23 @@ def main() -> int:
         engine(prompts, N_NEW, slots=SLOTS)
         sync()
         prof_wall_ms = (time.monotonic() - t0) * 1e3
-    kernels_us: dict[str, list] = {}
-    for evt in prof.key_averages():
-        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
-            acc = kernels_us.setdefault(evt.key, [0.0, 0])
-            acc[0] += evt.self_device_time_total
-            acc[1] += evt.count
-    # an empty trace means the profiler saw no device activity there:
-    # the device numbers are then "not measured" (null), not zero
-    device_ms = (sum(us for us, _ in kernels_us.values()) / 1e3
-                 if kernels_us else None)
-    top = sorted(kernels_us.items(), key=lambda kv_: -kv_[1][0])[:12]
-    emit("serve_profile", wall_ms=prof_wall_ms, device_ms=device_ms,
-         busy_share_profiled=(device_ms / prof_wall_ms
-                              if device_ms is not None else None),
+    summary = profile_summary(prof, prof_wall_ms)
+    device_ms = summary["device_ms"]
+    emit("serve_profile", **summary,
          busy_share_of_unprofiled_wall=(device_ms / (wall_s * 1e3)
-                                        if device_ms is not None else None),
-         kernel_launches=sum(c for _, c in kernels_us.values()),
-         top_kernels=[{"name": k[:90], "ms": us / 1e3, "count": c}
-                      for k, (us, c) in top])
+                                        if device_ms is not None else None))
+
+    # ------------------------------------------------------------- train
+    # the second main path: the flagship burn-in train step. The serve
+    # state goes first (the train step needs the card's memory); the
+    # weights are the same seeded flagship draw.
+    del engine, poolw, pool1
+    torch.cuda.empty_cache()
+    bwd = kernel_flash_bwd(randn, dev, train_shape)
+    train_exact(dev)
+    rec, train_launches = train_flagship(params, dev)
+    emit("train_flagship", **rec)
+    emit("train_profile", **train_profile(params, dev))
 
     # --------------------------------------------------------- summary
     n_k1 = sum(c for c, _ in k1_main)
@@ -412,6 +816,21 @@ def main() -> int:
          "bound_by": k7_rec["bound_by"],
          "library_ms": k7_rec["library_ms"]},
     ]
+    for name, line in (("flash_bwd_fused", 724), ("flash_dq", 657),
+                       ("flash_dkv", 688)):
+        r = bwd[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "nvidia_terraform_modules_tpu_torch/csrc/flash_bwd.cu",
+            "replaces":
+                f"nvidia_terraform_modules_tpu/ops/flash_attention.py:{line}",
+            # K5's count is the timed fused steps'; K3's and K4's the
+            # split step's of the same phase
+            "launches": (train_launches[name] if name == "flash_bwd_fused"
+                         else rec["split_step_launches"][name]),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

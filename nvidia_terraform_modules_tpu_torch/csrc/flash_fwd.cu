@@ -35,124 +35,13 @@
 // after the product, P rounded to the value dtype before the PV product.
 // Not yet done (later work): wgmma, TMA, a multi-stage K/V pipeline.
 
-#include <mma.h>
-
-#include "common.cuh"
-
-using namespace nvcuda;
+#include "flash_tiles.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;             // query rows per CTA
-constexpr int kBK = 64;             // key rows per tile
-constexpr int kWarps = 4;
+constexpr int kWarps = 4;   // one 16-row band of the q block each
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRowsPerWarp = kBQ / kWarps;   // 16: one wmma row band
-enum Mask { kCausal = 0, kFull = 1, kWindow = 2 };
-
-struct Strides {   // element strides of the b, s and h dimensions
-  long long b, s, h;
-};
-
-// Stage rows [row0, row0 + 64) of one head into a dense [64, d] tile,
-// zero-filling rows past the sequence end.
-template <typename T>
-__device__ void load_tile(T* dst, const T* base, long long row_stride,
-                          int row0, int seq, int d) {
-  constexpr int kVec = 16 / sizeof(T);
-  const int vpr = d / kVec;
-  for (int i = threadIdx.x; i < kBK * vpr; i += kThreads) {
-    const int r = i / vpr;
-    const int c = (i - r * vpr) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < seq)
-      val = *reinterpret_cast<const uint4*>(
-          base + static_cast<long long>(row0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * d + c) = val;
-  }
-}
-
-// S[16 rows of this warp, 64] = Q_w · K^T (f32), bf16 on the tensor cores.
-__device__ void tile_scores(const __nv_bfloat16* qs, const __nv_bfloat16* ks,
-                            float* ss, int d, int warp, int /*lane*/) {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kBK / 16];
-#pragma unroll
-  for (int n = 0; n < kBK / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-  const __nv_bfloat16* qw = qs + warp * kRowsPerWarp * d;
-  for (int kk = 0; kk < d; kk += 16) {
-    wmma::load_matrix_sync(a, qw + kk, d);
-#pragma unroll
-    for (int n = 0; n < kBK / 16; ++n) {
-      // K^T as a col-major matrix: element (dim, key) at ks[key * d + dim]
-      wmma::load_matrix_sync(b, ks + n * 16 * d + kk, d);
-      wmma::mma_sync(acc[n], a, b, acc[n]);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < kBK / 16; ++n)
-    wmma::store_matrix_sync(ss + warp * kRowsPerWarp * kBK + n * 16, acc[n],
-                            kBK, wmma::mem_row_major);
-}
-
-// The f32 variant on the CUDA cores. Each lane walks the head dim from its
-// own offset, so the 32 lanes' K rows hit 32 different banks.
-__device__ void tile_scores(const float* qs, const float* ks, float* ss,
-                            int d, int warp, int lane) {
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int r = warp * kRowsPerWarp + rr;
-    const float* qr = qs + r * d;
-#pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      const int j = lane + 32 * jj;
-      const float* kr = ks + j * d;
-      float acc = 0.f;
-      int c = lane % d;
-      for (int t = 0; t < d; ++t) {
-        acc = fmaf(qr[c], kr[c], acc);
-        c = (c + 1 == d) ? 0 : c + 1;
-      }
-      ss[r * kBK + j] = acc;
-    }
-  }
-}
-
-// O_w[16, d] += P_w[16, 64] · V[64, d], accumulator kept in shared memory.
-__device__ void tile_pv(const __nv_bfloat16* ps, const __nv_bfloat16* vs,
-                        float* os, int d, int warp, int /*lane*/) {
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-      a[kBK / 16];
-#pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk)
-    wmma::load_matrix_sync(a[kk], ps + warp * kRowsPerWarp * kBK + kk * 16,
-                           kBK);
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-  float* ow = os + warp * kRowsPerWarp * d;
-  for (int n = 0; n < d; n += 16) {
-    wmma::load_matrix_sync(o, ow + n, d, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      wmma::load_matrix_sync(b, vs + kk * 16 * d + n, d);
-      wmma::mma_sync(o, a[kk], b, o);
-    }
-    wmma::store_matrix_sync(ow + n, o, d, wmma::mem_row_major);
-  }
-}
-
-__device__ void tile_pv(const float* ps, const float* vs, float* os, int d,
-                        int warp, int lane) {
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int r = warp * kRowsPerWarp + rr;
-    const float* pr = ps + r * kBK;
-    for (int c = lane; c < d; c += 32) {
-      float acc = os[r * d + c];
-      for (int j = 0; j < kBK; ++j) acc = fmaf(pr[j], vs[j * d + c], acc);
-      os[r * d + c] = acc;
-    }
-  }
-}
+constexpr int kRowsPerWarp = kBQ / kWarps;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -161,14 +50,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  float* __restrict__ lse, int seq, int heads, int kv_heads,
                  int d, Strides tq, Strides tk, Strides tv, Strides to,
                  float scale, int mask, int window) {
+  const int ldt = ld_tile<T>(d), lda = ld_acc<T>(d);
+  constexpr int lds = ld_score<T>(), ldp = ld_prob<T>();
   extern __shared__ __align__(128) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
-  T* ks = qs + kBQ * d;
-  T* vs = ks + kBK * d;
-  float* ss = reinterpret_cast<float*>(vs + kBK * d);
-  T* ps = reinterpret_cast<T*>(ss + kBQ * kBK);
-  float* os = reinterpret_cast<float*>(ps + kBQ * kBK);
-  float* m_s = os + kBQ * d;
+  T* ks = qs + kBQ * ldt;
+  T* vs = ks + kBK * ldt;
+  float* ss = reinterpret_cast<float*>(vs + kBK * ldt);
+  T* ps = reinterpret_cast<T*>(ss + kBQ * lds);
+  float* os = reinterpret_cast<float*>(ps + kBQ * ldp);
+  float* m_s = os + kBQ * lda;
   float* l_s = m_s + kBQ;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -180,12 +71,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + b * tk.b + kvh * tk.h;
   const T* vb = v + b * tv.b + kvh * tv.h;
 
-  for (int i = threadIdx.x; i < kBQ * d; i += kThreads) os[i] = 0.f;
+  for (int i = threadIdx.x; i < kBQ * lda; i += kThreads) os[i] = 0.f;
   for (int i = threadIdx.x; i < kBQ; i += kThreads) {
     m_s[i] = kNegInf;
     l_s[i] = 0.f;
   }
-  load_tile(qs, qb, tq.s, q0, seq, d);
+  load_tile<kThreads>(qs, qb, tq.s, q0, seq, d, ldt);
 
   // keys any row of this block can see: [k_lo, k_hi)
   const int q_last = min(q0 + kBQ, seq) - 1;
@@ -195,10 +86,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = k_lo / kBK; kt * kBK < k_hi; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();   // the previous tile's readers are done
-    load_tile(ks, kb, tk.s, k0, seq, d);
-    load_tile(vs, vb, tv.s, k0, seq, d);
+    load_tile<kThreads>(ks, kb, tk.s, k0, seq, d, ldt);
+    load_tile<kThreads>(vs, vb, tv.s, k0, seq, d, ldt);
     __syncthreads();
-    tile_scores(qs, ks, ss, d, warp, lane);
+    tile_scores<kBK / 16>(qs, ks, ss, d, ldt, lds, warp, 0, lane);
     __syncwarp();
     // online-softmax fold of this warp's 16 rows; lane owns keys lane and
     // lane + 32 of the tile
@@ -212,7 +103,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         bool keep = kp < seq;
         if (mask != kFull) keep = keep && kp <= qp;
         if (mask == kWindow) keep = keep && (qp - kp) < window;
-        const float x = ss[r * kBK + lane + 32 * jj] * scale;
+        const float x = ss[r * lds + lane + 32 * jj] * scale;
         s[jj] = keep ? x : kNegInf;
       }
       const float m_prev = m_s[r];
@@ -222,18 +113,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int jj = 0; jj < 2; ++jj) {
         const float p = (s[jj] <= kNegInf * 0.5f) ? 0.f : expf(s[jj] - m_new);
         psum += p;
-        ps[r * kBK + lane + 32 * jj] = from_f32<T>(p);
+        ps[r * ldp + lane + 32 * jj] = from_f32<T>(p);
       }
       psum = warp_sum(psum);
       const float corr = expf(m_prev - m_new);
-      for (int c = lane; c < d; c += 32) os[r * d + c] *= corr;
+      for (int c = lane; c < d; c += 32) os[r * lda + c] *= corr;
       if (lane == 0) {
         l_s[r] = l_s[r] * corr + psum;
         m_s[r] = m_new;
       }
     }
     __syncwarp();
-    tile_pv(ps, vs, os, d, warp, lane);
+    tile_pv(ps, vs, os, ldp, ldt, lda, warp, 0, d, lane);
   }
   __syncwarp();
   for (int rr = 0; rr < kRowsPerWarp; ++rr) {
@@ -242,7 +133,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (qp >= seq) break;
     const float l = fmaxf(l_s[r], 1e-30f);
     T* orow = o + b * to.b + static_cast<long long>(qp) * to.s + h * to.h;
-    for (int c = lane; c < d; c += 32) orow[c] = from_f32<T>(os[r * d + c] / l);
+    for (int c = lane; c < d; c += 32) orow[c] = from_f32<T>(os[r * lda + c] / l);
     if (lane == 0) lse[static_cast<long long>(bh) * seq + qp] = m_s[r] + logf(l);
   }
 }
@@ -253,10 +144,12 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            Strides tk, Strides tv, Strides to, float scale, int mask,
            int window, cudaStream_t stream) {
   const size_t elt = sizeof(T);
-  const size_t smem = static_cast<size_t>(kBQ + 2 * kBK) * d * elt  // Q, K, V
-                      + static_cast<size_t>(kBQ) * kBK * (4 + elt)  // S, P
-                      + static_cast<size_t>(kBQ) * d * 4            // O acc
-                      + 2 * kBQ * 4;                                // m, l
+  const size_t smem =
+      static_cast<size_t>(kBQ + 2 * kBK) * ld_tile<T>(d) * elt   // Q, K, V
+      + static_cast<size_t>(kBQ) * ld_score<T>() * 4              // S
+      + static_cast<size_t>(kBQ) * ld_prob<T>() * elt             // P
+      + static_cast<size_t>(kBQ) * ld_acc<T>(d) * 4               // O acc
+      + 2 * kBQ * 4;                                              // m, l
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

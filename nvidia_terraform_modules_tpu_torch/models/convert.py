@@ -1,6 +1,6 @@
 # SPDX-FileCopyrightText: Copyright (c) 2026 tpu-terraform-modules authors. All rights reserved.
 # SPDX-License-Identifier: Apache-2.0
-"""Load the reference package's parameter tree into the port.
+"""Carry state between the reference package's trees and the port.
 
 ``params_from_numpy(tree, cfg, device)`` takes the reference's tree
 (``embed``, ``out_norm``, ``layers[i]`` dicts) with numpy leaves — e.g.
@@ -11,6 +11,10 @@ different numbers from one seed). Leaves may be float32 or bfloat16
 (``ml_dtypes.bfloat16``, what ``numpy.asarray`` yields for a bf16 JAX
 array); bf16 → f32 → bf16 is exact, so an f32 copy of bf16 weights loads
 bit-identically.
+
+``params_to_numpy`` goes the other way (params, gradients: any dict of
+the same shape → f32 numpy leaves), and ``opt_state_from_numpy`` loads the
+reference's AdamW state ``{"step", "mu", "nu"}``.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .burnin import BurnInConfig, check_device
+from .burnin import BurnInConfig, _tree_map, check_device
 
 _LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "up",
                "down")
@@ -55,3 +59,21 @@ def params_from_numpy(tree, cfg: BurnInConfig, device="cuda") -> dict:
         out["layers"].append({k: _leaf(layer[k], cfg.dtype, dev)
                               for k in _LAYER_KEYS})
     return out
+
+
+def params_to_numpy(tree) -> dict:
+    """A params-shaped tree of tensors → the same tree of f32 numpy arrays
+    (the reference's layout)."""
+    return _tree_map(lambda t: t.detach().float().cpu().numpy(), tree)
+
+
+def opt_state_from_numpy(tree, device="cuda") -> dict:
+    """The reference's AdamW state (numpy leaves) → the port's: an int32
+    step counter and f32 moments on ``device``."""
+    dev = check_device(device)
+    return {
+        "step": torch.tensor(int(np.asarray(tree["step"])),
+                             dtype=torch.int32, device=dev),
+        "mu": _tree_map(lambda x: _leaf(x, torch.float32, dev), tree["mu"]),
+        "nu": _tree_map(lambda x: _leaf(x, torch.float32, dev), tree["nu"]),
+    }

@@ -35,14 +35,13 @@ import torch
 from ..ops.decode_attention import paged_decode_attention
 from ..ops.flash_attention import NEG_INF, flash_attention, pick_impl
 from ..utils.layers import rmsnorm as _rmsnorm
-from .burnin import BurnInConfig, apply_rope, check_device, mlp
-
-
-def _check_params(params: dict, dev: torch.device) -> None:
-    have = params["embed"].device
-    if have.type != dev.type:
-        raise ValueError(f"params live on {have}, the call targets {dev} "
-                         f"(move them, or pass device={have.type!r})")
+from .burnin import (
+    BurnInConfig,
+    _check_params,
+    apply_rope,
+    check_device,
+    mlp,
+)
 
 
 def cache_rows(max_len: int, cache_dtype: str = "bf16") -> int:

@@ -35,7 +35,9 @@ _LIB_NAME = "libkernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-launches: dict[str, int] = {"flash_fwd": 0, "paged_decode": 0}
+launches: dict[str, int] = {"flash_fwd": 0, "paged_decode": 0,
+                            "flash_bwd_fused": 0, "flash_dq": 0,
+                            "flash_dkv": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -53,6 +55,15 @@ _SIGNATURES = {
     # table width, scale, dtype code, stream
     "tk_paged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _F, _I, _P],
+    # q, k, v, dout, lse, delta, ws, dq, dk, dv, B, S, H, D, scale,
+    # mask kind, window, dtype code, stream
+    "tk_flash_bwd_fused": [_P] * 10 + [_I] * 4 + [_F, _I, _I, _I, _P],
+    # q, k, v, dout, lse, delta, dk, dv, B, S, H, D, scale, mask kind,
+    # window, dtype code, stream
+    "tk_flash_dkv": [_P] * 8 + [_I] * 4 + [_F, _I, _I, _I, _P],
+    # q, k, v, dout, lse, delta, dq, B, S, H, D, scale, mask kind, window,
+    # dtype code, stream
+    "tk_flash_dq": [_P] * 7 + [_I] * 4 + [_F, _I, _I, _I, _P],
 }
 
 

@@ -1,12 +1,16 @@
 # SPDX-FileCopyrightText: Copyright (c) 2026 tpu-terraform-modules authors. All rights reserved.
 # SPDX-License-Identifier: Apache-2.0
-"""Flash attention forward on ``[B, S, H, D]`` — the port of the reference's
-``ops/flash_attention.py`` forward (``flash_attention`` → ``_fwd``).
+"""Flash attention on ``[B, S, H, D]`` — the port of the reference's
+``ops/flash_attention.py``: the forward (``flash_attention`` → ``_fwd``),
+the backward kernels (``flash_dqdkv``, ``flash_dq``, ``flash_dkv``) and the
+``custom_vjp`` that joins them (:class:`FlashAttention`).
 
-:func:`flash_attention_fwd` is the kernel wrapper: on a CUDA tensor it
-launches the hand-written kernel ``csrc/flash_fwd.cu`` (or raises), on a
-CPU tensor it runs :func:`flash_attention_ref`, the plain PyTorch version
-of the same function. There is no other dispatch and no fallback.
+Each kernel wrapper — :func:`flash_attention_fwd` (``csrc/flash_fwd.cu``),
+:func:`flash_dqdkv`, :func:`flash_dq` and :func:`flash_dkv`
+(``csrc/flash_bwd.cu``) — launches its hand-written kernel on a CUDA
+tensor (or raises) and runs its plain PyTorch version (the ``*_ref``
+function of the same name) on a CPU tensor. There is no other dispatch and
+no fallback.
 
 Kept as numpy copies of the reference, because the flash/dense SELECTION
 changes numerics and must match it: :class:`MaskSpec` /
@@ -99,6 +103,19 @@ def block_liveness(spec: MaskSpec, nq: int, nk: int,
                             np.int32)
     live.setflags(write=False)
     return live
+
+
+def mask_live_frac(spec: MaskSpec, s: int) -> float:
+    """Fraction of the [S, S] score matrix the mask keeps live — the FLOP
+    billing factor of ``train_step_flops``. Causal keeps the reference's
+    0.5 convention."""
+    if spec.kind == "full":
+        return 1.0
+    if spec.kind == "causal":
+        return 0.5
+    w = min(spec.window, s)
+    live = w * (w + 1) // 2 + (s - w) * w
+    return live / float(s * s)
 
 
 def _fit_block(s: int, want: int | None) -> int:
@@ -225,9 +242,223 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     return _flash_cuda(q, k, v, scale, spec)
 
 
+# ------------------------------------------------------------- backward
+
+def _check_bwd(q, k, v, do, lse, delta):
+    _check_qkv(q, k, v)
+    if k.shape[2] != q.shape[2]:
+        raise ValueError(f"the flash backward takes MHA shapes: q has "
+                         f"{q.shape[2]} heads, k/v {k.shape[2]} (repeat K/V "
+                         f"for GQA first, as the training forward does)")
+    b, s, h, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"dO {tuple(do.shape)} {do.dtype} does not match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (b, h, s) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be [B, H, S] float32 "
+                             f"{(b, h, s)}, got {tuple(t.shape)} {t.dtype}")
+    if any(t.device != q.device for t in (do, lse, delta)):
+        raise ValueError("the backward's inputs must be on one device")
+
+
+def _bwd_tile_ref(q, k, v, do, lse, delta, scale: float, spec: MaskSpec):
+    """``_bwd_tile`` over the whole sequence as one tile → ``(p, ds)``
+    ``[B, H, Sq, Sk]`` f32: scores from input-dtype operands, the scale
+    after the product, finite -1e30 masking, P from the saved LSE (0 where
+    masked), ``dP = dO·Vᵀ`` and ``dS = P·(dP − delta)`` in f32."""
+    s = q.shape[1]
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if spec.kind != "full":
+        idx = torch.arange(s, device=q.device)
+        keep = idx[:, None] >= idx[None, :]
+        if spec.kind == "window":
+            keep &= (idx[:, None] - idx[None, :]) < spec.window
+        sc = torch.where(keep, sc, torch.full_like(sc, NEG_INF))
+    p = torch.where(sc <= NEG_INF / 2, torch.zeros_like(sc),
+                    torch.exp(sc - lse[..., None]))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    return p, p * (dp - delta[..., None])
+
+
+def _dq_of(ds, k, scale):
+    return (torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(),
+                         k.float()) * scale)
+
+
+def _dk_of(ds, q, scale):
+    return (torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(),
+                         q.float()) * scale)
+
+
+def _dv_of(p, do):
+    return torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(),
+                        do.float())
+
+
+def flash_dq_ref(q, k, v, do, lse, delta, *, scale: float, mask=None,
+                 causal: bool = True):
+    """The plain version of K3 (``flash_dq``): ``dQ = (dS→k.dtype)·K·scale``
+    in q's dtype. ``lse`` and ``delta`` are ``[B, H, S]`` f32."""
+    _check_bwd(q, k, v, do, lse, delta)
+    _, ds = _bwd_tile_ref(q, k, v, do, lse, delta, scale,
+                          as_mask_spec(mask, causal))
+    return _dq_of(ds, k, scale).to(q.dtype)
+
+
+def flash_dkv_ref(q, k, v, do, lse, delta, *, scale: float, mask=None,
+                  causal: bool = True):
+    """The plain version of K4 (``flash_dkv``): ``(dK, dV)`` with
+    ``dK = (dS→q.dtype)ᵀ·Q·scale`` and ``dV = (P→dO.dtype)ᵀ·dO``."""
+    _check_bwd(q, k, v, do, lse, delta)
+    p, ds = _bwd_tile_ref(q, k, v, do, lse, delta, scale,
+                          as_mask_spec(mask, causal))
+    return _dk_of(ds, q, scale).to(k.dtype), _dv_of(p, do).to(v.dtype)
+
+
+def flash_dqdkv_ref(q, k, v, do, lse, delta, *, scale: float, mask=None,
+                    causal: bool = True):
+    """The plain version of K5 (``flash_dqdkv``): ``(dQ, dK, dV)`` from one
+    P/dS — the same numbers as :func:`flash_dq_ref` and
+    :func:`flash_dkv_ref`."""
+    _check_bwd(q, k, v, do, lse, delta)
+    p, ds = _bwd_tile_ref(q, k, v, do, lse, delta, scale,
+                          as_mask_spec(mask, causal))
+    return (_dq_of(ds, k, scale).to(q.dtype), _dk_of(ds, q, scale).to(
+        k.dtype), _dv_of(p, do).to(v.dtype))
+
+
+def _bwd_cuda(kernel: str, q, k, v, do, lse, delta, scale: float,
+              spec: MaskSpec):
+    """Launch one of the backward kernels of ``csrc/flash_bwd.cu`` on
+    contiguous inputs; outputs are allocated here, in q's layout."""
+    b, s, h, d = q.shape
+    if d % 16 or d > 128:
+        raise ValueError(f"the flash backward kernels take head_dim % 16 == "
+                         f"0 and <= 128, got {d}")
+    code = _build.dtype_code(q.dtype)
+    q, k, v, do, lse, delta = (t.contiguous()
+                               for t in (q, k, v, do, lse, delta))
+    ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
+    tail = [b, s, h, d, float(scale), _MASK_CODE[spec.kind],
+            spec.window if spec.kind == "window" else 0, code,
+            torch.cuda.current_stream(q.device).cuda_stream]
+    lib = _build.lib()
+    if kernel == "flash_bwd_fused":
+        ws = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        out = tuple(torch.empty_like(t) for t in (q, k, v))
+        rc = lib.tk_flash_bwd_fused(*ptrs, ws.data_ptr(),
+                                    *[t.data_ptr() for t in out], *tail)
+    elif kernel == "flash_dkv":
+        out = (torch.empty_like(k), torch.empty_like(v))
+        rc = lib.tk_flash_dkv(*ptrs, *[t.data_ptr() for t in out], *tail)
+    else:
+        out = torch.empty_like(q)
+        rc = lib.tk_flash_dq(*ptrs, out.data_ptr(), *tail)
+    _build.check(rc, kernel)
+    _build.launches[kernel] += 1
+    return out
+
+
+def _bwd_dispatch(kernel, ref, q, k, v, do, lse, delta, scale, mask,
+                  causal):
+    _check_bwd(q, k, v, do, lse, delta)
+    spec = as_mask_spec(mask, causal)
+    if q.device.type == "cpu":
+        return ref(q, k, v, do, lse, delta, scale=scale, mask=spec)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash backward kernel for device {q.device}")
+    return _bwd_cuda(kernel, q, k, v, do, lse, delta, scale, spec)
+
+
+def flash_dq(q, k, v, do, lse, delta, *, scale: float, mask=None,
+             causal: bool = True):
+    """K3: dQ of the split backward. A CUDA tensor launches
+    ``csrc/flash_bwd.cu``'s ``flash_dq_kernel`` (bf16 or f32,
+    ``head_dim % 16 == 0`` and ``<= 128``); a CPU tensor runs
+    :func:`flash_dq_ref`."""
+    return _bwd_dispatch("flash_dq", flash_dq_ref, q, k, v, do, lse, delta,
+                         scale, mask, causal)
+
+
+def flash_dkv(q, k, v, do, lse, delta, *, scale: float, mask=None,
+              causal: bool = True):
+    """K4: ``(dK, dV)`` of the split backward (``flash_bwd_kv_kernel``
+    without the dQ atomics); a CPU tensor runs :func:`flash_dkv_ref`."""
+    return _bwd_dispatch("flash_dkv", flash_dkv_ref, q, k, v, do, lse,
+                         delta, scale, mask, causal)
+
+
+def flash_dqdkv(q, k, v, do, lse, delta, *, scale: float, mask=None,
+                causal: bool = True):
+    """K5: ``(dQ, dK, dV)`` from the fused single-pass kernel (dQ summed
+    with atomics, so its rounding order varies from run to run); a CPU
+    tensor runs :func:`flash_dqdkv_ref`."""
+    return _bwd_dispatch("flash_bwd_fused", flash_dqdkv_ref, q, k, v, do,
+                         lse, delta, scale, mask, causal)
+
+
+def _check_backward(backward: str) -> None:
+    if backward not in ("fused", "split"):
+        raise ValueError(
+            f"unknown backward impl {backward!r}; use fused|split")
+
+
+def flash_backward(q, k, v, o, do, lse, *, scale: float, mask=None,
+                   causal: bool = True, backward: str = "fused"):
+    """Full flash backward → ``(dQ, dK, dV)``: the delta reduction
+    ``rowsum(dO·O)`` in f32 (plain PyTorch, as the reference leaves it to
+    XLA), then the fused kernel (K5) or the split pair (K3, K4)."""
+    _check_backward(backward)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    kw = dict(scale=scale, mask=mask, causal=causal)
+    if backward == "fused":
+        return flash_dqdkv(q, k, v, do, lse, delta, **kw)
+    dq = flash_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_dkv(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The counterpart of the reference's ``_flash_bhsd`` ``custom_vjp``:
+    forward through :func:`flash_attention_fwd` (K1), saving
+    ``(q, k, v, o, lse)``; backward through :func:`flash_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, spec: MaskSpec, backward: str):
+        o, lse = flash_attention_fwd(q, k, v, scale=scale, mask=spec)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale, ctx.spec, ctx.backward = scale, spec, backward
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, o, do.contiguous(), lse,
+                                    scale=ctx.scale, mask=ctx.spec,
+                                    backward=ctx.backward)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
-                    scale: float | None = None, mask=None):
+                    scale: float | None = None, mask=None,
+                    backward: str = "fused"):
     """Fused flash attention on ``[B, S, H, D]`` inputs; returns the output
-    in the input dtype (see :func:`flash_attention_fwd`)."""
-    return flash_attention_fwd(q, k, v, causal=causal, scale=scale,
-                               mask=mask)[0]
+    in the input dtype (see :func:`flash_attention_fwd`). When an input
+    requires a gradient it runs through :class:`FlashAttention`, whose
+    backward is ``backward``: ``"fused"`` (K5) or ``"split"`` (K3 + K4);
+    that path takes MHA shapes (GQA inputs raise)."""
+    _check_backward(backward)
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        return flash_attention_fwd(q, k, v, causal=causal, scale=scale,
+                                   mask=mask)[0]
+    _check_qkv(q, k, v)
+    if k.shape[2] != q.shape[2]:
+        raise ValueError(f"flash attention with gradients takes MHA shapes: "
+                         f"q has {q.shape[2]} heads, k/v {k.shape[2]} "
+                         f"(repeat K/V to the query heads first)")
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    return FlashAttention.apply(q, k, v, scale, as_mask_spec(mask, causal),
+                                backward)

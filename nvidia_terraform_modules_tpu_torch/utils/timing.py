@@ -9,7 +9,8 @@ with the device held in a spin (``torch.cuda._sleep``) while the host
 enqueues, so the interval between the events holds no host gaps. Without
 that, a call whose host work (Python, argument checks, many small
 launches) outlasts its kernels would be timed at its host cost.
-:func:`host_ms` is the other half: the host time to issue ``fn``. A
+:func:`host_ms` is the other half: the host time to issue ``fn``.
+:func:`synced_ms` times whole steps on the host clock, synchronised. A
 measurement with no card fails: it never falls back to the CPU.
 """
 
@@ -47,6 +48,21 @@ def host_ms(fn: Callable[[], Any], *, iters: int = 10,
     sync()
     times.sort()
     return times[len(times) // 2]
+
+
+def synced_ms(fn: Callable[[], Any], n: int) -> tuple[list, float]:
+    """Run ``fn()`` ``n`` times, each timed on the host clock from a
+    synchronise to a synchronise (a whole step, device work included);
+    returns the results and the median milliseconds."""
+    results, times = [], []
+    for _ in range(n):
+        sync()
+        t0 = time.perf_counter()
+        results.append(fn())
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return results, times[len(times) // 2]
 
 
 def cuda_median_ms(fn: Callable[[], Any], *, iters: int = 10,

@@ -12,8 +12,14 @@ without JAX, run them with::
 Tolerances: bf16 outputs within 2e-2 (O) / 1e-3 (LSE) and 1e-2 (decode) —
 the kernel rounds the UNNORMALISED probabilities to bf16 per tile where the
 plain version rounds them once over the row; f32 within 1e-4 / 1e-5
-(summation order only).
+(summation order only). The backward kernels hold dQ/dK/dV within
+2e-2 (bf16) / 1e-4 (f32) of max(1, max|plain|), and within a relative L2
+error ||got - plain|| / ||plain|| of 1e-2 (bf16) / 1e-4 (f32): bf16 products
+accumulate in another order, and the fused kernel's dQ atomics in an order
+that changes from run to run.
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -22,11 +28,18 @@ from nvidia_terraform_modules_tpu_torch.models import (
     BurnInConfig,
     greedy_decode,
     init_params,
+    make_grads_fn,
     make_serve_engine,
+    synthetic_batch,
+    tree_leaves,
 )
 from nvidia_terraform_modules_tpu_torch.ops import (
     flash_attention_fwd,
     flash_attention_ref,
+    flash_dkv,
+    flash_dq,
+    flash_dqdkv,
+    flash_dqdkv_ref,
     launches,
     paged_decode_attention,
     paged_decode_attention_ref,
@@ -103,6 +116,47 @@ def test_paged_decode_matches_plain(cuda, b, h, kv, d, bs, dtype):
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
+def _bwd_inputs(g, b, s, h, d, dtype, dev, mask):
+    q, k, v, do = (_randn(g, (b, s, h, d), dtype, dev) for _ in range(4))
+    o, lse = flash_attention_fwd(q, k, v, mask=mask)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    return q, k, v, do, lse, delta
+
+
+@pytest.mark.parametrize("b,s,h,d,dtype,mask", [
+    (1, 128, 16, 128, torch.bfloat16, None),
+    (1, 512, 16, 128, torch.bfloat16, None),
+    (1, 136, 16, 128, torch.bfloat16, None),
+    (1, 512, 16, 128, torch.bfloat16, ("window", 128)),
+    (1, 70, 2, 32, torch.bfloat16, ("window", 20)),
+    (1, 200, 4, 128, torch.float32, "full"),
+    (2, 100, 4, 64, torch.float32, None),
+])
+def test_flash_backward_kernels_match_plain(cuda, b, s, h, d, dtype, mask):
+    g = torch.Generator().manual_seed(s * 5 + d)
+    args = _bwd_inputs(g, b, s, h, d, dtype, cuda, mask)
+    kw = dict(scale=d ** -0.5, mask=mask)
+    before = {n: launches[n] for n in ("flash_bwd_fused", "flash_dq",
+                                       "flash_dkv")}
+    fused = flash_dqdkv(*args, **kw)
+    split = (flash_dq(*args, **kw), *flash_dkv(*args, **kw))
+    torch.cuda.synchronize()
+    assert {n: launches[n] - c for n, c in before.items()} == {
+        "flash_bwd_fused": 1, "flash_dq": 1, "flash_dkv": 1}
+    ref = flash_dqdkv_ref(*args, **kw)
+    tol, tol_l2 = (2e-2, 1e-2) if dtype == torch.bfloat16 else (1e-4, 1e-4)
+    for name, f, sp, r in zip("qkv", fused, split, ref):
+        assert f.dtype == sp.dtype == dtype and f.shape == r.shape
+        r = r.float()
+        lim = tol * max(1.0, r.abs().max().item())
+        for got, want in ((f, r), (sp, r), (f, sp.float())):
+            diff = got.float() - want
+            err = diff.abs().max().item()
+            assert err <= lim, f"d{name}: {err} > {lim}"
+            l2 = (diff.norm() / want.norm()).item()
+            assert l2 <= tol_l2, f"d{name}: relative L2 {l2} > {tol_l2}"
+
+
 def test_kernels_refuse_unsupported_shapes(cuda):
     q = torch.zeros((1, 16, 2, 136), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
@@ -132,3 +186,33 @@ def test_serve_engine_on_card_matches_solo_greedy(cuda):
     for p, a, c in zip(prompts, got, got_off):
         solo = greedy_decode(params, p[None], 8, cfg, device=cuda)[0]
         assert torch.equal(a, solo) and torch.equal(c, solo)
+
+
+@pytest.mark.parametrize("backward", ["fused", "split"])
+def test_train_grads_on_card_match_dense(cuda, backward):
+    """The autograd path through the kernels (K1 forward; K5, or K3 + K4,
+    backward) against the same model on the dense path, f32 at head_dim
+    128, GQA and a window: loss and every gradient within 1e-4 of
+    max(1, max|g|)."""
+    cfg = BurnInConfig(vocab=256, d_model=256, n_heads=2, n_kv_heads=1,
+                       d_ff=256, n_layers=2, seq_len=136, batch=2,
+                       attn="flash", flash_backward=backward,
+                       flash_window=100, dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(5),
+                         device=cuda)
+    batch = synthetic_batch(torch.Generator(device=cuda).manual_seed(6), cfg,
+                            device=cuda)
+    names = ("flash_fwd", "flash_bwd_fused", "flash_dq", "flash_dkv")
+    before = {n: launches[n] for n in names}
+    loss, grads = make_grads_fn(cfg)(params, batch)
+    torch.cuda.synchronize()
+    fused = backward == "fused"
+    assert {n: launches[n] - c for n, c in before.items()} == {
+        "flash_fwd": 2, "flash_bwd_fused": 2 * fused,
+        "flash_dq": 2 * (not fused), "flash_dkv": 2 * (not fused)}
+    dloss, dgrads = make_grads_fn(dataclasses.replace(cfg, attn="dense"))(
+        params, batch)
+    assert abs(loss.item() - dloss.item()) <= 1e-4 * max(1.0, dloss.item())
+    for g, w in zip(tree_leaves(grads), tree_leaves(dgrads)):
+        lim = 1e-4 * max(1.0, w.abs().max().item())
+        assert (g - w).abs().max().item() <= lim

@@ -23,7 +23,12 @@ from nvidia_terraform_modules_tpu_torch.models import (
     init_cache,
     init_paged_cache,
     init_params,
+    make_adamw_train_step,
     make_serve_engine,
+    make_train_step,
+    opt_state_from_numpy,
+    params_from_numpy,
+    synthetic_batch,
 )
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -76,12 +81,14 @@ def test_importing_the_whole_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 14    # every module was imported
+    assert int(out.stdout.split()[-1]) >= 15    # every module was imported
 
 
 @pytest.mark.parametrize("fn", [init_params, greedy_decode,
                                 make_serve_engine, init_paged_cache,
-                                init_cache])
+                                init_cache, make_train_step,
+                                make_adamw_train_step, synthetic_batch,
+                                params_from_numpy, opt_state_from_numpy])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -97,11 +104,17 @@ def test_default_device_raises_without_a_card():
         lambda: greedy_decode(cpu_params, torch.zeros((1, 4), dtype=int), 2,
                               cfg),
         lambda: init_paged_cache(cfg, 1, 8, block_size=4, num_blocks=3),
+        lambda: make_train_step(cfg),
+        lambda: make_adamw_train_step(cfg),
+        lambda: synthetic_batch(torch.Generator().manual_seed(0), cfg),
     ]
     if torch.cuda.is_available():
         assert init_params(cfg)["embed"].device.type == "cuda"
         with pytest.raises(ValueError, match="params live on cpu"):
             calls[1]()
+        batch = synthetic_batch(torch.Generator(device="cuda"), cfg)
+        with pytest.raises(ValueError, match="params live on cpu"):
+            make_train_step(cfg)(cpu_params, batch)
         return
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
