@@ -8,13 +8,20 @@ Run from the repository root on a machine with one NVIDIA GPU::
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``csrc/`` with nvcc (into
-``build/torch_kernels/``), and drives the port's two main paths:
+``build/torch_kernels/``), and drives the port's three main paths:
 
 - serve: holds K1 (flash forward) and K7 (paged decode) against their plain
   PyTorch versions at the serve path's shapes, checks the engine's
   exactness contract on the card, serves at the flagship width (the launch
   counts show it went through both kernels) and profiles one more run of
   the same traffic (device time by kernel against the host clock);
+- int8 serving: holds K8 (int8-weight matmul), K6 (contiguous int8
+  decode) and K7-int8 (the paged kernel on an int8 pool) against their
+  plain versions, checks the int8 engine's exactness on the card, serves
+  the flagship traffic with int8 weights and an int8 pool (the launch
+  counts show every wave went through K7-int8 and K8), profiles it, and
+  times ``make_quantized_decoder`` at the flagship's decode shape (batch 8,
+  prompt 512, 64 new tokens; K6 and K8 on every step) and at 3584 + 32;
 - train: holds K5 (fused flash backward) and K3/K4 (the split pair)
   against their plain versions, up to the flagship's per-layer
   ``[2, 4096, 16, 128]``; checks the train step's gradients on the card
@@ -49,6 +56,20 @@ N_REQUESTS, SLOTS, KV_BLOCK, N_NEW, SEED = 8, 4, 16, 32, 0
 # |g| > 0.06), so most of the update rounds away
 TRAIN_LR = 0.1
 WARM_STEPS, TIMED_STEPS, ADAMW_STEPS = 2, 10, 3
+# make_quantized_decoder at bench.py section_decode_int8's shape, and its
+# long-context pair
+DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 8, 512, 64
+LONG_PROMPT, LONG_NEW = 3584, 32
+# the int8 kernels' limits: max-abs error over max(1, max|ref|) — an int8
+# decode output over a few keys reaches |out| > 2, where one bf16 rounding
+# is 0.0156, and the int8 matmul's plain version scales before the
+# product, the kernel after it
+INT8_TOL = {"bf16": 1e-2, "f32": 1e-5}
+# the int8 weight products of one flagship wave or decode step:
+# (name, K, N, transposed storage, calls) — per layer wq/wk/wv/wo, up,
+# down, and once the tied head x @ embed.T over the [8192, 2048] embedding
+WAVE_MATMULS = [("square", 2048, 2048, False, 32), ("up", 2048, 8192, False, 8),
+                ("down", 8192, 2048, False, 8), ("head", 2048, 8192, True, 1)]
 # the backward kernels' FLOPs as multiples of the forward's (tile products:
 # 5, 3 and 4 against the forward's 2) and the [B, S, H, D] tensors each
 # writes
@@ -78,10 +99,15 @@ def profile_summary(prof, wall_ms: float) -> dict:
     against the run's wall clock. An empty trace means the profiler saw no
     device activity: the device numbers are then "not measured" (null)."""
     kernels_us: dict[str, list] = {}
+    host_us: dict[str, list] = {}
     for evt in prof.key_averages():
         if str(getattr(evt, "device_type", "")).endswith("CUDA"):
             acc = kernels_us.setdefault(evt.key, [0.0, 0])
             acc[0] += evt.self_device_time_total
+            acc[1] += evt.count
+        elif evt.self_cpu_time_total > 0:
+            acc = host_us.setdefault(evt.key, [0.0, 0])
+            acc[0] += evt.self_cpu_time_total
             acc[1] += evt.count
     device_ms = (sum(us for us, _ in kernels_us.values()) / 1e3
                  if kernels_us else None)
@@ -95,7 +121,13 @@ def profile_summary(prof, wall_ms: float) -> dict:
                 gemm_ms=gemm_us / 1e3 if kernels_us else None,
                 kernel_launches=sum(c for _, c in kernels_us.values()),
                 top_kernels=[{"name": k[:90], "ms": us / 1e3, "count": c}
-                             for k, (us, c) in top])
+                             for k, (us, c) in top],
+                # host time by operator (self time; under the profiler,
+                # which adds its own cost per operator)
+                top_host_ops=[{"name": k[:60], "ms": us / 1e3, "count": c}
+                              for k, (us, c) in sorted(
+                                  host_us.items(),
+                                  key=lambda kv_: -kv_[1][0])[:10]])
 
 
 def max_rel_err(got, want, floor: float | None = 1.0) -> float:
@@ -155,6 +187,335 @@ def planted_faults(got, ref, kind: str) -> list[dict]:
             continue
         raise AssertionError(f"planted fault not caught: {rec}")
     return out
+
+
+def limit_err(got, ref, kind: str, what: str) -> float:
+    """Max-abs error of ``got`` against ``ref``; raises past the int8
+    kernels' limit ``INT8_TOL[kind] · max(1, max|ref|)``."""
+    ref = ref.float()
+    err = (got.float() - ref).abs().max().item()
+    lim = INT8_TOL[kind] * max(1.0, ref.abs().max().item())
+    if not err <= lim:
+        raise AssertionError(f"{what}: max-abs err {err} (limit {lim})")
+    return err
+
+
+def kernel_int8_matmul(randn, dev) -> dict:
+    """K8 against its plain version at the wave's shapes (M = 4, and M = 8
+    at the square projection) and off the path (M = 1, M = 64, f32 x),
+    rows of an M = 4 call against M = 1 calls bit for bit, and a K the
+    kernel cannot take, which must raise; returns the main-path records by
+    shape name."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.ops.int8_matmul import (
+        int8_matmul,
+        int8_matmul_ref,
+    )
+    from nvidia_terraform_modules_tpu_torch.utils.timing import (
+        cuda_median_ms,
+        sync,
+    )
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(name, SLOTS, k, n, trans, bf16, True)
+             for name, k, n, trans, _ in WAVE_MATMULS]
+    cases += [("square", 8, 2048, 2048, False, bf16, False),
+              ("square", 1, 2048, 2048, False, bf16, False),
+              ("square", 64, 2048, 2048, False, bf16, False),
+              ("square", 4, 2048, 2048, False, f32, False)]
+    main: dict = {}
+    for name, m, k, n, trans, dtype, on_path in cases:
+        w = torch.randint(-127, 128, (n, k) if trans else (k, n),
+                          generator=randn.gen, device=dev,
+                          dtype=torch.int8)
+        scale = torch.rand((n,), generator=randn.gen, device=dev) * 2e-3 \
+            + 1e-4
+        x = randn((m, k), dtype)
+        out = int8_matmul(x, w, scale, transpose_rhs=trans)
+        ref = int8_matmul_ref(x, w, scale, transpose_rhs=trans)
+        sync()
+        kind = "bf16" if dtype == bf16 else "f32"
+        err = limit_err(out, ref, kind, f"int8_matmul {name} M={m}")
+        if m > 1:
+            rows = torch.cat([int8_matmul(x[i:i + 1], w, scale,
+                                          transpose_rhs=trans)
+                              for i in range(m)])
+            if not torch.equal(rows, out):
+                raise AssertionError(f"int8_matmul {name} M={m}: rows "
+                                     f"differ from M=1 calls")
+        ms = cuda_median_ms(lambda: int8_matmul(x, w, scale,
+                                                transpose_rhs=trans))
+        plain_ms = cuda_median_ms(lambda: int8_matmul_ref(
+            x, w, scale, transpose_rhs=trans))
+        # yardstick: cuBLAS on the dequantised weight (dequant untimed)
+        wd = (w.float() * scale.reshape((-1, 1) if trans else (1, -1))
+              ).to(dtype)
+        wd_op = wd.T if trans else wd
+        library_ms = cuda_median_ms(lambda: torch.matmul(x, wd_op))
+        elt = x.element_size()
+        nbytes = k * n + 4 * n + m * k * elt + m * n * elt
+        bound_ms, bound_by = bound(2.0 * m * k * n, nbytes, kind)
+        rec = dict(shape=name, m=m, k=k, n=n, transposed=trans,
+                   dtype=str(dtype), main_path=on_path, max_abs_err=err,
+                   rows_bitwise=m > 1, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, ctas=(n // 64) * (k // (
+                       256 if k % 256 == 0 else 128)))
+        emit("kernel_int8_matmul", **rec)
+        if on_path:
+            main[name] = rec
+        del w, wd, wd_op
+    x = randn((4, 2048), bf16)
+    w = torch.zeros((2048, 2048), dtype=torch.int8, device=dev)
+    s = torch.ones((2048,), device=dev)
+    try:
+        int8_matmul(x[:, :100].contiguous(), w[:100], s)
+    except ValueError as exc:
+        emit("kernel_int8_matmul_refusal", k=100, raised=str(exc)[:80])
+    else:
+        raise AssertionError("int8_matmul took K = 100")
+    return main
+
+
+def wave_mean(main: dict, key: str) -> float:
+    """The mean per launch of a wave's 49 int8 products."""
+    calls = {name: c for name, _, _, _, c in WAVE_MATMULS}
+    return (sum(calls[n] * main[n][key] for n in calls)
+            / sum(calls.values()))
+
+
+def kernel_kv_decode(randn, dev) -> dict:
+    """K6 against its plain version at the flagship decode step (batch 8,
+    16 heads, int8 over 768 rows at positions 512-575, and over 3840 rows
+    at 3584-3615) and off the path (GQA, ragged positions with 0, bf16
+    and f32 caches); rows past each position hold planted values (int8
+    127 with scale 1e4, or 1e4) that a read would show. Returns the
+    main-path records."""
+    import torch
+    import torch.nn.functional as F
+
+    from nvidia_terraform_modules_tpu_torch.models import quantize_kv
+    from nvidia_terraform_modules_tpu_torch.ops.decode_attention import (
+        kv_decode_attention,
+        kv_decode_attention_ref,
+    )
+    from nvidia_terraform_modules_tpu_torch.utils.timing import (
+        cuda_median_ms,
+        sync,
+    )
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    b = DECODE_BATCH
+    mid = [DECODE_PROMPT + 8 * i for i in range(b)]          # 512 .. 568
+    long_pos = [LONG_PROMPT + 4 * i for i in range(b)]       # 3584 .. 3612
+    # (batch, heads, kv heads, rows, positions, q dtype, int8, main path)
+    cases = [(b, 16, 16, 768, mid, bf16, True, "step"),
+             (b, 16, 16, 3840, long_pos, bf16, True, "long"),
+             (3, 8, 2, 300, [0, 131, 299], bf16, True, False),
+             (2, 8, 2, 300, [17, 0], f32, True, False),
+             (3, 8, 2, 300, [0, 131, 299], bf16, False, False),
+             (2, 4, 4, 200, [199, 0], f32, False, False)]
+    main: dict = {}
+    d = 128
+    for bb, h, kv, s, pos_list, dtype, quant, on_path in cases:
+        q = randn((bb, h, d), dtype)
+        k, v = randn((bb, s, kv, d), f32), randn((bb, s, kv, d), f32)
+        ks = vs = None
+        if quant:
+            (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        else:
+            k, v = k.to(dtype), v.to(dtype)
+        for i, p in enumerate(pos_list):       # rows past pos: planted
+            for t in (k, v):
+                t[i, p + 1:] = 127 if quant else 1e4
+            if quant:
+                ks[i, p + 1:] = 1e4
+                vs[i, p + 1:] = 1e4
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+        kw = dict(scale=d ** -0.5, k_scale=ks, v_scale=vs)
+        out = kv_decode_attention(q, k, v, pos, **kw)
+        ref = kv_decode_attention_ref(q, k, v, pos, **kw)
+        sync()
+        kind = "bf16" if dtype == bf16 else "f32"
+        err = limit_err(out, ref, kind, f"kv_decode S={s} int8={quant}")
+        ms = cuda_median_ms(lambda: kv_decode_attention(q, k, v, pos, **kw))
+        plain_ms = cuda_median_ms(lambda: kv_decode_attention_ref(
+            q, k, v, pos, **kw), iters=5, warmup=1)
+        # yardstick: SDPA over the dequantised cache (dequant untimed)
+        # with the position mask
+        kd, vd = k.float(), v.float()
+        if quant:
+            kd, vd = kd * ks[..., None], vd * vs[..., None]
+        kd, vd = (t.to(dtype).transpose(1, 2).contiguous() for t in (kd, vd))
+        amask = (torch.arange(s, device=dev)[None, :]
+                 <= pos.long()[:, None])[:, None, None, :]
+        library_ms = cuda_median_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kd, vd, attn_mask=amask, scale=d ** -0.5,
+            enable_gqa=kv != h))
+        live = int((pos.long() + 1).sum())
+        elt = q.element_size()
+        row_bytes = d * (1 if quant else elt) + (4 if quant else 0)
+        nbytes = 2 * live * kv * row_bytes + 2 * bb * h * d * elt + bb * 4
+        bound_ms, bound_by = bound(4.0 * h * d * live, nbytes, kind)
+        rec = dict(b=bb, heads=h, kv_heads=kv, d=d, rows=s, pos=pos_list,
+                   dtype=str(dtype), int8=quant, main_path=on_path,
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, ctas=bb * kv)
+        emit("kernel_kv_decode", **rec)
+        if on_path:
+            main[on_path] = rec
+        del k, v, kd, vd, ks, vs
+    return main
+
+
+def serve_int8_exact(dev) -> None:
+    """The int8 engine's exactness on the card at f32 (serve_exact's
+    config): int8 weights (``quantize_params``) and an int8 pool. The
+    engine through K7-int8, the engine through the gather path (K6), and
+    solo ``greedy_decode`` (K6) must give EQUAL tokens, for two prompt
+    sets. Prompts longer than 64 tokens take the same dequantised product
+    in the solo prefill as in the engine's admissions (``_kernel_ok``:
+    M > 64), so those are equal by construction; the short prompts' solo
+    prefill runs K8 where the admission runs cuBLAS, so theirs hold only
+    while that difference moves no token."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        BurnInConfig,
+        greedy_decode,
+        init_params,
+        make_serve_engine,
+        quantize_params,
+    )
+
+    f32 = torch.float32
+    cfg = BurnInConfig(vocab=512, d_model=256, n_heads=2, n_kv_heads=1,
+                       d_ff=512, n_layers=2, dtype=f32, attn="flash")
+    qparams = quantize_params(init_params(
+        cfg, torch.Generator(device=dev).manual_seed(1), device=dev),
+        dtype=f32)
+    pg = torch.Generator().manual_seed(2)
+    sets = {"long": [torch.randint(0, cfg.vocab, (n,), generator=pg)
+                     for n in (80, 96, 72, 128, 88)],
+            "short": [torch.randint(0, cfg.vocab, (n,), generator=pg)
+                      for n in (16, 24, 8, 32, 16)]}
+    rec = {}
+    for name, prompts in sets.items():
+        kw = dict(max_len=144, kv_block=KV_BLOCK, cache_dtype="int8",
+                  device=dev)
+        with_kernels = make_serve_engine(qparams, cfg, **kw)(prompts, 8,
+                                                             slots=2)
+        gather = make_serve_engine(qparams, cfg, paged_kernel="off", **kw)(
+            prompts, 8, slots=2)
+        solo = [greedy_decode(qparams, p[None], 8, cfg, cache_dtype="int8",
+                              device=dev)[0] for p in prompts]
+        rec[name] = [torch.equal(a, c) and torch.equal(g, c)
+                     for a, g, c in zip(with_kernels, gather, solo)]
+    emit("serve_int8_exact", requests=len(sets["long"]), equal=rec["long"],
+         short_prompts_equal=rec["short"])
+    if not all(rec["long"] + rec["short"]):
+        raise AssertionError(f"serve_int8_exact: tokens differ {rec}")
+
+
+def decode_int8_flagship(params, cfg, dev) -> tuple[dict, dict]:
+    """``make_quantized_decoder`` at the flagship's decode shape (batch 8,
+    prompt 512, 64 new tokens, dense prefill) with the int8 cache and the
+    bf16 cache, beside the bf16 weights' ``greedy_decode``; decode
+    tokens/s by the two-point method (the decoder at ``n_new`` minus a
+    prefill-only twin at ``n_new=1``); the launch counts of each run; then
+    the long-context pair (prompt 3584, 32 new, flash prefill), bf16 cache
+    against int8 cache. Returns the phase record and the int8 run's
+    launch counts."""
+    import dataclasses
+
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        greedy_decode,
+        make_quantized_decoder,
+        quantize_params,
+    )
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+    from nvidia_terraform_modules_tpu_torch.utils.timing import synced_ms
+
+    bf16 = torch.bfloat16
+    qparams = quantize_params(params, dtype=bf16)
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    steps_per_wave = len(params["layers"]) * 6 + 1
+
+    def two_point(run, n_new, prompt):
+        """Decode tokens/s: (decoder - prefill twin) over n_new - 1 steps;
+        the median of 3 timed runs of each after one warm run."""
+        synced_ms(lambda: run(n_new, prompt), 1)
+        synced_ms(lambda: run(1, prompt), 1)
+        _, total = synced_ms(lambda: run(n_new, prompt), 3)
+        _, pre = synced_ms(lambda: run(1, prompt), 3)
+        return (prompt.shape[0] * (n_new - 1) / ((total - pre) / 1e3),
+                total, pre)
+
+    def counted(run, n_new, prompt):
+        _build.reset_launches()
+        toks = run(n_new, prompt)
+        torch.cuda.synchronize()
+        return dict(_build.launches), toks
+
+    def variant(cfg_, cache_dtype, weights):
+        if weights == "bf16":
+            return lambda n, p: greedy_decode(params, p, n, cfg_,
+                                              cache_dtype=cache_dtype,
+                                              device=dev)
+        return lambda n, p: make_quantized_decoder(
+            cfg_, n_new=n, dtype=bf16, cache_dtype=cache_dtype,
+            device=dev)(qparams, p)
+
+    dcfg = dataclasses.replace(cfg, attn="dense", batch=DECODE_BATCH)
+    prompt = torch.randint(0, cfg.vocab, (DECODE_BATCH, DECODE_PROMPT),
+                           generator=g, device=dev)
+    rec: dict = {"batch": DECODE_BATCH, "prompt": DECODE_PROMPT,
+                 "n_new": DECODE_NEW}
+    toks = {}
+    int8_launches = None
+    for name, cache_dtype, weights in (("int8_weights_int8_cache", "int8",
+                                        "int8"),
+                                       ("int8_weights_bf16_cache", "bf16",
+                                        "int8"),
+                                       ("bf16_weights_bf16_cache", "bf16",
+                                        "bf16")):
+        run = variant(dcfg, cache_dtype, weights)
+        launches, toks[name] = counted(run, DECODE_NEW, prompt)
+        steps = DECODE_NEW - 1
+        want = {"int8_matmul": steps * steps_per_wave if weights == "int8"
+                else 0,
+                "kv_decode": steps * dcfg.n_layers
+                if cache_dtype == "int8" else 0}
+        got = {k_: launches[k_] for k_ in want}
+        if got != want or launches["flash_fwd"] or launches["paged_decode"] \
+                or launches["paged_decode_int8"]:
+            raise AssertionError(f"decode {name} launched {launches}, "
+                                 f"expected {want}")
+        if cache_dtype == "int8" and weights == "int8":
+            int8_launches = launches
+        tps, total_ms, pre_ms = two_point(run, DECODE_NEW, prompt)
+        rec[name] = dict(tokens_per_s=tps, decoder_ms=total_ms,
+                         prefill_ms=pre_ms, launches=got)
+    rec["int8_cache_tokens_match_bf16_cache_frac"] = (
+        toks["int8_weights_int8_cache"] == toks["int8_weights_bf16_cache"]
+    ).float().mean().item()
+    rec["int8_weights_tokens_match_bf16_weights_frac"] = (
+        toks["int8_weights_bf16_cache"] == toks["bf16_weights_bf16_cache"]
+    ).float().mean().item()
+    lcfg = dataclasses.replace(cfg, attn="flash", batch=DECODE_BATCH)
+    lprompt = torch.randint(0, cfg.vocab, (DECODE_BATCH, LONG_PROMPT),
+                            generator=g, device=dev)
+    for cache_dtype in ("bf16", "int8"):
+        tps, total_ms, pre_ms = two_point(variant(lcfg, cache_dtype, "int8"),
+                                          LONG_NEW, lprompt)
+        rec[f"long_{cache_dtype}_cache"] = dict(
+            prompt=LONG_PROMPT, n_new=LONG_NEW, tokens_per_s=tps,
+            decoder_ms=total_ms, prefill_ms=pre_ms)
+    return rec, int8_launches
 
 
 def kernel_flash_bwd(randn, dev, train_shape) -> dict:
@@ -388,8 +749,8 @@ def train_flagship(params, dev) -> tuple[dict, dict]:
 
     sgd = make_sgd()
     timed(sgd, WARM_STEPS)
-    expect = {"flash_fwd": cfg.n_layers, "paged_decode": 0,
-              "flash_bwd_fused": cfg.n_layers, "flash_dq": 0, "flash_dkv": 0}
+    expect = {**{name: 0 for name in _build.launches},
+              "flash_fwd": cfg.n_layers, "flash_bwd_fused": cfg.n_layers}
     fused_launches = counted(sgd)
     if fused_launches != expect:
         raise AssertionError(f"fused step launches {fused_launches}, "
@@ -475,6 +836,7 @@ def main() -> int:
     from nvidia_terraform_modules_tpu_torch.models import (
         FLAGSHIP_TRAIN,
         BurnInConfig,
+        cache_rows,
         forward_cached,
         forward_paged,
         greedy_decode,
@@ -482,10 +844,14 @@ def main() -> int:
         init_paged_cache,
         init_params,
         make_serve_engine,
+        quantize_kv,
+        quantize_params,
         tree_leaves,
     )
     from nvidia_terraform_modules_tpu_torch.ops import _build
     from nvidia_terraform_modules_tpu_torch.ops.decode_attention import (
+        gather_logical,
+        kv_decode_attention,
         paged_decode_attention,
         paged_decode_attention_ref,
     )
@@ -495,6 +861,7 @@ def main() -> int:
     )
     from nvidia_terraform_modules_tpu_torch.utils.timing import (
         cuda_median_ms,
+        host_ms,
         sync,
     )
 
@@ -524,6 +891,7 @@ def main() -> int:
 
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    randn.gen = gen
 
     # -------------------------------------------------- kernel_flash_fwd
     lens = flagship_lengths()
@@ -587,16 +955,33 @@ def main() -> int:
     max_len = max(lens) + N_NEW
     wave_pos = [n + N_NEW // 2 for n in lens[:SLOTS]]
     b, h, kv, d, bs = SLOTS, 16, 16, 128, KV_BLOCK
-    k7_cases = [(bf16, 1e-2, [559, 301, 77, 130], -(-576 // bs), False),
-                (f32, 1e-5, [559, 301, 77, 130], -(-576 // bs), False),
-                (bf16, 1e-2, wave_pos, -(-max_len // bs), True)]
-    k7_rec = None
-    for dtype, tol, pos_list, nt, on_path in k7_cases:
+    nt_int8 = cache_rows(max_len, "int8") // bs     # the int8 engine's
+    # (q dtype, limit, positions, table width, int8 pool, main path): an
+    # int8 pool's table covers cache_rows' 256-row grain
+    k7_cases = [(bf16, 1e-2, [559, 301, 77, 130], -(-576 // bs), False,
+                 False),
+                (f32, 1e-5, [559, 301, 77, 130], -(-576 // bs), False,
+                 False),
+                (bf16, 1e-2, wave_pos, -(-max_len // bs), False, True),
+                (bf16, None, [559, 301, 77, 130], 768 // bs, True, False),
+                (f32, None, [559, 301, 77, 130], 768 // bs, True, False),
+                (bf16, None, wave_pos, nt_int8, True, True)]
+    k7_rec = k7i8_rec = None
+    for dtype, tol, pos_list, nt, quant, on_path in k7_cases:
         nb = 1 + b * nt
         k_pool, v_pool = randn((nb, bs, kv, d), dtype), \
             randn((nb, bs, kv, d), dtype)
-        k_pool[0] = 1e4              # garbage block: a read would show
-        v_pool[0] = 1e4
+        ks = vs = None
+        if quant:
+            (k_pool, ks), (v_pool, vs) = (quantize_kv(t.float()) for t in
+                                          (k_pool, v_pool))
+            k_pool[0] = 127          # garbage block and its sidecars: a
+            v_pool[0] = 127          # read would show
+            ks[0] = 1e4
+            vs[0] = 1e4
+        else:
+            k_pool[0] = 1e4          # garbage block: a read would show
+            v_pool[0] = 1e4
         pos = torch.tensor(pos_list, dtype=torch.int32)
         tables = torch.zeros((b, nt), dtype=torch.int32)
         for i in range(b):
@@ -609,23 +994,45 @@ def main() -> int:
         tables, pos = tables.to(dev), pos.to(dev)
         q = randn((b, h, d), dtype)
         scale = d ** -0.5
-        out = paged_decode_attention(q, k_pool, v_pool, tables, pos,
-                                     scale=scale)
+        kw = dict(scale=scale, k_scale=ks, v_scale=vs)
+        out = paged_decode_attention(q, k_pool, v_pool, tables, pos, **kw)
         ref = paged_decode_attention_ref(q, k_pool, v_pool, tables, pos,
-                                         scale=scale)
+                                         **kw)
         sync()
-        err = (out.float() - ref.float()).abs().max().item()
-        if not err <= tol:
-            raise AssertionError(f"paged_decode {dtype}: err {err} "
-                                 f"(tol {tol})")
+        kind = "bf16" if dtype == bf16 else "f32"
+        if quant:
+            err = limit_err(out, ref, kind, f"paged_decode_int8 {dtype}")
+            # the int8 fold is K6's: the same kernel math on the gathered
+            # logical view must give the same bits
+            rows = nt * bs
+            flat = kv_decode_attention(
+                q, gather_logical(k_pool, tables, rows),
+                gather_logical(v_pool, tables, rows), pos, scale=scale,
+                k_scale=gather_logical(ks, tables, rows),
+                v_scale=gather_logical(vs, tables, rows))
+            sync()
+            vs_k6 = (out.float() - flat.float()).abs().max().item()
+            if vs_k6 != 0.0:
+                raise AssertionError(f"paged_decode_int8 vs kv_decode on "
+                                     f"the gathered view: {vs_k6}")
+        else:
+            err = (out.float() - ref.float()).abs().max().item()
+            if not err <= tol:
+                raise AssertionError(f"paged_decode {dtype}: err {err} "
+                                     f"(tol {tol})")
         ms = cuda_median_ms(lambda: paged_decode_attention(
-            q, k_pool, v_pool, tables, pos, scale=scale))
+            q, k_pool, v_pool, tables, pos, **kw))
         plain_ms = cuda_median_ms(lambda: paged_decode_attention_ref(
-            q, k_pool, v_pool, tables, pos, scale=scale))
-        # yardstick: SDPA over the PRE-GATHERED logical view (the gather
-        # itself is not timed) with the position mask
+            q, k_pool, v_pool, tables, pos, **kw))
+        # yardstick: SDPA over the PRE-GATHERED (and dequantised) logical
+        # view (neither is timed) with the position mask
         k_log = k_pool[tables.long()].reshape(b, nt * bs, kv, d)
         v_log = v_pool[tables.long()].reshape(b, nt * bs, kv, d)
+        if quant:
+            k_log = (k_log.float() * ks[tables.long()].reshape(
+                b, nt * bs, kv, 1)).to(dtype)
+            v_log = (v_log.float() * vs[tables.long()].reshape(
+                b, nt * bs, kv, 1)).to(dtype)
         k_log, v_log = (x.transpose(1, 2).contiguous() for x in
                         (k_log, v_log))
         amask = (torch.arange(nt * bs, device=dev)[None, :]
@@ -634,18 +1041,26 @@ def main() -> int:
             q[:, :, None], k_log, v_log, attn_mask=amask, scale=scale))
         live = int((pos.long() + 1).sum())
         elt = q.element_size()
-        nbytes = 2 * live * kv * d * elt + 2 * b * h * d * elt \
+        row_bytes = d + 4 if quant else d * elt
+        nbytes = 2 * live * kv * row_bytes + 2 * b * h * d * elt \
             + tables.numel() * 4 + b * 4
         bound_ms, bound_by = bound(4.0 * (h // kv) * kv * d * live, nbytes,
-                                   "bf16" if dtype == bf16 else "f32")
+                                   kind)
         rec = dict(b=b, heads=h, kv_heads=kv, d=d, block_size=bs,
                    table_width=nt, pos=pos.tolist(), dtype=str(dtype),
-                   main_path=on_path, max_abs_err=err, ms=ms,
+                   int8=quant, main_path=on_path, max_abs_err=err, ms=ms,
                    plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bound_ms, bound_by=bound_by, ctas=b * kv)
+        if quant:
+            rec["vs_kv_decode_on_gathered_view"] = vs_k6
         emit("kernel_paged_decode", **rec)
-        if on_path:
+        if on_path and quant:
+            k7i8_rec = rec
+        elif on_path:
             k7_rec = rec
+
+    k6_main = kernel_kv_decode(randn, dev)
+    k8_main = kernel_int8_matmul(randn, dev)
 
     # ------------------------------------------------------- serve_exact
     cfg = BurnInConfig(vocab=512, d_model=256, n_heads=2, n_kv_heads=1,
@@ -667,6 +1082,7 @@ def main() -> int:
     if not all(equal):
         raise AssertionError(f"serve_exact: tokens differ {equal}")
     del params
+    serve_int8_exact(dev)
 
     # ---------------------------------------------------- serve_flagship
     nt = -(-max_len // KV_BLOCK)
@@ -750,10 +1166,11 @@ def main() -> int:
         poolw["pos"][:] = mean_len + N_NEW // 2
         engine.step(toks, active, poolw)
     wave_ms = cuda_median_ms(wave_once)
+    wave_host_ms = host_ms(wave_once)          # the host's side: issue time
     emit("serve_flagship", params=n_params, prompt_lens=lens,
          requests=admissions, generated=st["generated"], waves=waves,
          wall_s=wall_s, tokens_per_s=st["generated"] / wall_s,
-         ms_per_wave=wave_ms,
+         ms_per_wave=wave_ms, host_ms_per_wave=wave_host_ms,
          prefill_ms_per_admission=sum(prefill_ms) / len(prefill_ms),
          launches=launches, prefill_logit_max_abs_err=logit_err,
          prefill_logit_max_abs=logit_mag,
@@ -777,13 +1194,89 @@ def main() -> int:
     emit("serve_profile", **summary,
          busy_share_of_unprofiled_wall=(device_ms / (wall_s * 1e3)
                                         if device_ms is not None else None))
+    del engine, poolw, pool1
+
+    # ----------------------------------------------- serve_int8_flagship
+    # the same traffic served with int8 weights and an int8 pool: each
+    # admission prefills from the dequantised copy (K1), each wave runs
+    # K7-int8 per layer and K8 for each of its 49 weight products
+    qparams = quantize_params(params, dtype=bf16)
+    engine8 = make_serve_engine(qparams, cfg, max_len=max_len,
+                                kv_block=KV_BLOCK, cache_dtype="int8",
+                                device=dev)
+    engine8(prompts[:SLOTS], 4, slots=SLOTS)       # warm-up, not counted
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.monotonic()
+    outs8 = engine8(prompts, N_NEW, slots=SLOTS)
+    sync()
+    wall8_s = time.monotonic() - t0
+    launches8 = dict(_build.launches)
+    peak8 = torch.cuda.max_memory_allocated()
+    st8 = engine8.last_stats
+    adm8, waves8 = st8["requests"], st8["waves"]
+    per_wave = len(params["layers"]) * 6 + 1
+    want8 = {**{name: 0 for name in launches8},
+             "flash_fwd": adm8 * cfg.n_layers,
+             "paged_decode_int8": waves8 * cfg.n_layers,
+             "int8_matmul": waves8 * per_wave}
+    if launches8 != want8:
+        raise AssertionError(f"serve_int8_flagship launched {launches8}, "
+                             f"expected {want8}")
+    for o in outs8:
+        if o.shape != (N_NEW,) or int(o.min()) < 0 \
+                or int(o.max()) >= cfg.vocab:
+            raise AssertionError(f"bad int8 output {o.shape} {o}")
+    same8 = sum(torch.equal(a, b_) for a, b_ in zip(outs8, outs))
+    tok_frac8 = sum((a == b_).float().mean().item()
+                    for a, b_ in zip(outs8, outs)) / len(outs)
+    nt8 = nt_int8
+    poolw8 = init_paged_cache(cfg, SLOTS, max_len, block_size=KV_BLOCK,
+                              num_blocks=1 + SLOTS * nt8,
+                              cache_dtype="int8", device=dev)
+    for i in range(SLOTS):
+        poolw8["block_tables"][i] = torch.arange(
+            1 + i * nt8, 1 + (i + 1) * nt8, dtype=torch.int32)
+
+    def wave8_once():
+        poolw8["pos"][:] = mean_len + N_NEW // 2
+        engine8.step(toks, active, poolw8)
+    wave8_ms = cuda_median_ms(wave8_once)
+    wave8_host_ms = host_ms(wave8_once)
+    emit("serve_int8_flagship", requests=adm8, generated=st8["generated"],
+         waves=waves8, wall_s=wall8_s, tokens_per_s=st8["generated"] / wall8_s,
+         bf16_tokens_per_s=st["generated"] / wall_s, ms_per_wave=wave8_ms,
+         bf16_ms_per_wave=wave_ms, host_ms_per_wave=wave8_host_ms,
+         bf16_host_ms_per_wave=wave_host_ms, launches=launches8,
+         requests_equal_to_bf16_engine_frac=same8 / len(outs),
+         tokens_equal_to_bf16_engine_frac=tok_frac8,
+         latency_ms=st8["latency_ms"], kv=st8["kv"],
+         max_memory_allocated=peak8)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        engine8(prompts, N_NEW, slots=SLOTS)
+        sync()
+        prof_wall_ms = (time.monotonic() - t0) * 1e3
+    summary = profile_summary(prof, prof_wall_ms)
+    device_ms = summary["device_ms"]
+    emit("serve_int8_profile", **summary,
+         busy_share_of_unprofiled_wall=(device_ms / (wall8_s * 1e3)
+                                        if device_ms is not None else None))
+    del engine8, poolw8, qparams
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------- decode_int8_flagship
+    decode_rec, decode_launches = decode_int8_flagship(params, cfg, dev)
+    emit("decode_int8_flagship", **decode_rec)
+    torch.cuda.empty_cache()
 
     # ------------------------------------------------------------- train
-    # the second main path: the flagship burn-in train step. The serve
+    # the last main path: the flagship burn-in train step. The serve
     # state goes first (the train step needs the card's memory); the
     # weights are the same seeded flagship draw.
-    del engine, poolw, pool1
-    torch.cuda.empty_cache()
     bwd = kernel_flash_bwd(randn, dev, train_shape)
     train_exact(dev)
     rec, train_launches = train_flagship(params, dev)
@@ -815,6 +1308,31 @@ def main() -> int:
          "plain_ms": k7_rec["plain_ms"], "bound_ms": k7_rec["bound_ms"],
          "bound_by": k7_rec["bound_by"],
          "library_ms": k7_rec["library_ms"]},
+        {"name": "paged_decode_int8", "route": "cuda",
+         "source": "nvidia_terraform_modules_tpu_torch/csrc/paged_decode.cu",
+         "replaces":
+             "nvidia_terraform_modules_tpu/ops/decode_attention.py:332",
+         "launches": launches8["paged_decode_int8"],
+         **{key: k7i8_rec[key] for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")}},
+        {"name": "kv_decode", "route": "cuda",
+         "source": "nvidia_terraform_modules_tpu_torch/csrc/kv_decode.cu",
+         "replaces":
+             "nvidia_terraform_modules_tpu/ops/decode_attention.py:196",
+         "launches": decode_launches["kv_decode"],
+         **{key: k6_main["step"][key] for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")}},
+        # K8: the mean per launch over a wave's 49 products
+        {"name": "int8_matmul", "route": "cuda",
+         "source": "nvidia_terraform_modules_tpu_torch/csrc/int8_matmul.cu",
+         "replaces": "nvidia_terraform_modules_tpu/ops/int8_matmul.py:90",
+         "launches": launches8["int8_matmul"],
+         "max_abs_err": max(r["max_abs_err"] for r in k8_main.values()),
+         **{key: wave_mean(k8_main, key) for key in (
+             "ms", "plain_ms", "bound_ms", "library_ms")},
+         "bound_by": k8_main["square"]["bound_by"]},
     ]
     for name, line in (("flash_bwd_fused", 724), ("flash_dq", 657),
                        ("flash_dkv", 688)):

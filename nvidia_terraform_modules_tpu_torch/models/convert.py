@@ -13,8 +13,12 @@ array); bf16 → f32 → bf16 is exact, so an f32 copy of bf16 weights loads
 bit-identically.
 
 ``params_to_numpy`` goes the other way (params, gradients: any dict of
-the same shape → f32 numpy leaves), and ``opt_state_from_numpy`` loads the
-reference's AdamW state ``{"step", "mu", "nu"}``.
+the same shape → f32 numpy leaves), ``opt_state_from_numpy`` loads the
+reference's AdamW state ``{"step", "mu", "nu"}``, and
+``qparams_from_numpy`` the reference's ``quantize_params`` tree, each
+quantised leaf given as ``{"q": int8 array, "scale": f32 array,
+"scale_axis": int}`` — so both sides hold the same int8 weights and
+scales.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 
 from .burnin import BurnInConfig, _tree_map, check_device
+from .quantize import QTensor
 
 _LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "up",
                "down")
@@ -77,3 +82,31 @@ def opt_state_from_numpy(tree, device="cuda") -> dict:
         "mu": _tree_map(lambda x: _leaf(x, torch.float32, dev), tree["mu"]),
         "nu": _tree_map(lambda x: _leaf(x, torch.float32, dev), tree["nu"]),
     }
+
+
+def _qleaf(x, dtype: torch.dtype, device: torch.device):
+    if not isinstance(x, dict):
+        return _leaf(x, dtype, device)
+    q = np.asarray(x["q"])
+    if q.dtype != np.int8:
+        raise TypeError(f"quantised values must be int8, got {q.dtype}")
+    scale = np.asarray(x["scale"], dtype=np.float32).reshape(-1)
+    return QTensor(torch.from_numpy(q.copy()).to(device),
+                   torch.from_numpy(scale.copy()).to(device),
+                   scale_axis=int(x["scale_axis"]), dtype=dtype)
+
+
+def qparams_from_numpy(tree, cfg: BurnInConfig, device="cuda") -> dict:
+    """The reference's ``quantize_params`` tree → the port's QTensor tree
+    on ``device``: ``{"q", "scale", "scale_axis"}`` leaves become
+    :class:`QTensor` leaves computing in ``cfg.dtype``, every other leaf
+    loads as in :func:`params_from_numpy`."""
+    dev = check_device(device)
+    layers = tree["layers"]
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"tree has {len(layers)} layers, cfg "
+                         f"{cfg.n_layers}")
+    return {"embed": _qleaf(tree["embed"], cfg.dtype, dev),
+            "out_norm": _qleaf(tree["out_norm"], cfg.dtype, dev),
+            "layers": [{k: _qleaf(layer[k], cfg.dtype, dev)
+                        for k in _LAYER_KEYS} for layer in layers]}

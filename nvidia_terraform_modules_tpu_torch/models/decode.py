@@ -1,7 +1,9 @@
 # SPDX-FileCopyrightText: Copyright (c) 2026 tpu-terraform-modules authors. All rights reserved.
 # SPDX-License-Identifier: Apache-2.0
 """KV-cache decoding for the burn-in transformer — the port of the
-reference's ``models/decode.py`` for the bf16 cache.
+reference's ``models/decode.py``, for the bf16 cache and the int8 cache
+(``cache_dtype="int8"``: symmetric per-vector int8 rows with an f32 scale
+per cached vector, quantised on write, rounded up to a 256-row grain).
 
 Two storage layouts share ONE trunk (:func:`_transformer_body`), so their
 math cannot drift: :func:`forward_cached` over dense ``[B, S_max, KV, D]``
@@ -13,17 +15,26 @@ effect) and run under ``torch.no_grad``.
 Attention paths:
 
 - prompt prefill (``pos == 0``, T > 1) with ``prefill_impl="flash"`` runs
-  the flash kernel (``ops/flash_attention``) on the prompt alone;
+  the flash kernel (``ops/flash_attention``) on the prompt alone; with
+  ``"dense"`` under an int8 cache, the masked softmax over the prompt's
+  full-precision k/v (only later steps read quantised rows);
 - the T=1 wave step of :func:`forward_paged` reads through the block
-  tables with the paged decode kernel (``ops/decode_attention``) whenever
-  the pool is on the card (``paged_kernel="auto"``);
-- everything else — dense prefill, the gather read path
-  (``paged_kernel="off"``), the CPU — is :func:`_cached_attention`, the
-  masked softmax over the cache.
+  tables with the paged decode kernel (``ops/decode_attention``, K7 or its
+  int8 variant) whenever the pool is on the card (``paged_kernel="auto"``);
+- the T=1 step over an int8 cache — contiguous, or the gathered view of
+  the pool — goes through ``int8_kv_decode_attention`` (K6 on the card,
+  its plain version on the CPU);
+- everything else — dense prefill, the bf16 gather read path
+  (``paged_kernel="off"``), the CPU — is the masked softmax over the
+  cache (``ops/decode_attention.masked_attention``).
 
-Exactness contract (as the reference's): with the dense prefill, greedy
-tokens from the cache equal greedy tokens from re-running the full
-forward; the flash prefill matches within kernel float tolerance.
+The reference's ``int8_kernel`` flag (the T=1 int8 kernel off for
+mesh-sharded pools) has no counterpart: the port has no sharded pools yet.
+
+Exactness contract (as the reference's): with the dense prefill and the
+bf16 cache, greedy tokens from the cache equal greedy tokens from
+re-running the full forward; the flash prefill matches within kernel float
+tolerance. The int8 cache is lossy by construction.
 """
 
 from __future__ import annotations
@@ -32,8 +43,13 @@ from typing import Any
 
 import torch
 
-from ..ops.decode_attention import paged_decode_attention
-from ..ops.flash_attention import NEG_INF, flash_attention, pick_impl
+from ..ops.decode_attention import gather_logical as _gather_logical
+from ..ops.decode_attention import (
+    int8_kv_decode_attention,
+    masked_attention,
+    paged_decode_attention,
+)
+from ..ops.flash_attention import flash_attention, pick_impl
 from ..utils.layers import rmsnorm as _rmsnorm
 from .burnin import (
     BurnInConfig,
@@ -44,54 +60,79 @@ from .burnin import (
 )
 
 
+CACHE_DTYPES = ("bf16", "int8")
+
+
+def check_cache_dtype(cache_dtype: str) -> bool:
+    """Validate ``cache_dtype``; True for the int8 cache."""
+    if cache_dtype not in CACHE_DTYPES:
+        raise ValueError(f"unknown cache_dtype {cache_dtype!r}: use "
+                         f"bf16|int8")
+    return cache_dtype == "int8"
+
+
 def cache_rows(max_len: int, cache_dtype: str = "bf16") -> int:
-    """Buffer row count for a cache of logical length ``max_len`` (the
-    bf16 cache keeps exactly ``max_len``)."""
-    if cache_dtype != "bf16":
-        raise NotImplementedError(
-            f"cache_dtype {cache_dtype!r} is not ported yet — ROADMAP.md, "
-            f"Queue B: the int8 cache (K6 and the int8 variant of K7)")
+    """Buffer row count for a cache of logical length ``max_len``: the
+    bf16 cache keeps exactly ``max_len``, the int8 cache rounds up to the
+    reference's 256-row kernel grain (rows past ``max_len`` sit above
+    ``pos`` forever). Every cache constructor (``init_cache``, the paged
+    pool) agrees on this one number."""
+    if cache_dtype == "int8":
+        return -(-max_len // 256) * 256
     return max_len
 
 
+def quantize_kv(x):
+    """Per-vector symmetric int8 for cache rows: ``[..., D]`` → ``(q int8,
+    scale f32 [...])`` with ``|dequant - x| <= scale / 2``."""
+    x32 = x.float()
+    scale = x32.abs().amax(dim=-1).clamp_min(1e-12) / 127.0
+    q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
 def init_cache(cfg: BurnInConfig, batch: int, max_len: int, *,
-               device="cuda") -> dict[str, Any]:
-    """Zeroed KV cache: per layer ``[B, S_max, KV, D]`` k/v buffers in
-    ``cfg.dtype``; ``pos`` (a host int) is the number of valid rows."""
+               cache_dtype: str = "bf16", device="cuda") -> dict[str, Any]:
+    """Zeroed KV cache: per layer ``[B, cache_rows(max_len), KV, D]`` k/v
+    buffers in ``cfg.dtype``, or int8 with f32 ``k_scale``/``v_scale``
+    ``[B, rows, KV]`` sidecars under ``cache_dtype="int8"``; ``pos`` (a
+    host int) is the number of valid rows."""
     dev = check_device(device)
-    shape = (batch, cache_rows(max_len), cfg.kv_heads, cfg.head_dim)
-    return {
-        "k": [torch.zeros(shape, dtype=cfg.dtype, device=dev)
+    quant = check_cache_dtype(cache_dtype)
+    shape = (batch, cache_rows(max_len, cache_dtype), cfg.kv_heads,
+             cfg.head_dim)
+    buf = torch.int8 if quant else cfg.dtype
+    cache: dict[str, Any] = {
+        "k": [torch.zeros(shape, dtype=buf, device=dev)
               for _ in range(cfg.n_layers)],
-        "v": [torch.zeros(shape, dtype=cfg.dtype, device=dev)
+        "v": [torch.zeros(shape, dtype=buf, device=dev)
               for _ in range(cfg.n_layers)],
         "pos": 0,
     }
+    if quant:
+        for key in ("k_scale", "v_scale"):
+            cache[key] = [torch.zeros(shape[:3], dtype=torch.float32,
+                                      device=dev)
+                          for _ in range(cfg.n_layers)]
+    return cache
 
 
-def _cached_attention(q, k_cache, v_cache, q_pos, scale: float):
+def _cached_attention(q, k_cache, v_cache, q_pos, scale: float,
+                      k_scale=None, v_scale=None):
     """Attention of ``q`` ``[B, T, H, D]`` over the whole cache buffer,
     keys at positions ``> q_pos`` masked (``q_pos`` ``[T]`` shared or
-    ``[B, T]`` per row). GQA: queries reshape into their KV groups and
-    contract against the un-repeated cache. Scores and the PV product
-    accumulate in f32 from input-dtype operands; the probabilities are
-    cast to ``q.dtype`` first — the reference's bf16 branch."""
-    b, t, h, d = q.shape
-    kv = k_cache.shape[2]
-    rep = h // kv
-    qg = q.reshape(b, t, kv, rep, d)
-    s = torch.einsum("btkgd,bskd->bkgts", qg.float(),
-                     k_cache.float()) * scale
-    k_pos = torch.arange(k_cache.shape[1], device=q.device)
-    if q_pos.dim() == 1:
-        mask = (q_pos[:, None] >= k_pos[None, :])[None, None, None]
-    else:
-        mask = (q_pos[:, :, None] >= k_pos[None, None, :])[:, None, None]
-    s = torch.where(mask, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgts,bskd->btkgd", p.to(q.dtype).float(),
-                       v_cache.float())
-    return out.reshape(b, t, h, d).to(q.dtype)
+    ``[B, T]`` per row): ``ops/decode_attention.masked_attention``. The
+    T=1 step over an int8 cache (``k_scale``/``v_scale`` given) goes
+    through ``int8_kv_decode_attention`` on every device — K6 on the card,
+    the same masked softmax on the CPU."""
+    b, t = q.shape[:2]
+    if k_scale is not None and t == 1:
+        pos_b = q_pos.expand(b) if q_pos.dim() == 1 else q_pos[:, 0]
+        return int8_kv_decode_attention(
+            q[:, 0], k_cache, k_scale, v_cache, v_scale,
+            pos_b.to(torch.int32).contiguous(), scale=scale)[:, None]
+    return masked_attention(q, k_cache, v_cache, q_pos, scale, k_scale,
+                            v_scale)
 
 
 def _transformer_body(params, tokens, cfg: BurnInConfig, q_pos, store,
@@ -121,13 +162,21 @@ def _transformer_body(params, tokens, cfg: BurnInConfig, q_pos, store,
     return x @ params["embed"].T
 
 
-def _prompt_attention(q, k, v, scale: float, prefill_impl: str):
-    """The ``pos == 0`` prompt branch shared by both layouts: with
-    ``"flash"`` and T > 1, causal attention over the prompt alone through
-    the flash kernel (K/V un-repeated — the kernel indexes the KV group).
-    ``None`` → the caller attends over its stored context instead."""
+def _prompt_attention(q, k, v, q_pos, scale: float, prefill_impl: str,
+                      quant: bool):
+    """The ``pos == 0`` prompt branches shared by both layouts (``None`` →
+    the caller attends over its stored context instead):
+
+    - ``"flash"`` and T > 1: causal attention over the prompt alone through
+      the flash kernel (K/V un-repeated — the kernel indexes the KV group),
+      on the full-precision k/v even under an int8 cache;
+    - ``"dense"`` and T > 1 under an int8 cache: the masked softmax over
+      the just-computed full-precision k/v, so a pure prefill matches the
+      flash branch's precision — only later steps read quantised rows."""
     if q.shape[1] > 1 and prefill_impl == "flash":
         return flash_attention(q, k, v, causal=True, scale=scale)
+    if q.shape[1] > 1 and prefill_impl == "dense" and quant:
+        return _cached_attention(q, k, v, q_pos, scale)
     return None
 
 
@@ -146,17 +195,26 @@ def forward_cached(params, tokens, cache, cfg: BurnInConfig, *,
                          f"{s_max} rows")
     q_pos = torch.arange(pos0, pos0 + t, device=tokens.device)
     scale = 1.0 / (cfg.head_dim ** 0.5)
+    quant = "k_scale" in cache
 
     def store(li, k, v):
+        if quant:
+            # the cache never holds the full-precision rows
+            k, k_s = quantize_kv(k)
+            v, v_s = quantize_kv(v)
+            cache["k_scale"][li][:, pos0:pos0 + t] = k_s
+            cache["v_scale"][li][:, pos0:pos0 + t] = v_s
         cache["k"][li][:, pos0:pos0 + t] = k
         cache["v"][li][:, pos0:pos0 + t] = v
 
     def attend(li, q, k, v, handle):
-        attn = _prompt_attention(q, k, v, scale, prefill_impl)
+        attn = _prompt_attention(q, k, v, q_pos, scale, prefill_impl, quant)
         if attn is not None:
             return attn
-        return _cached_attention(q, cache["k"][li], cache["v"][li], q_pos,
-                                 scale)
+        return _cached_attention(
+            q, cache["k"][li], cache["v"][li], q_pos, scale,
+            cache["k_scale"][li] if quant else None,
+            cache["v_scale"][li] if quant else None)
 
     logits = _transformer_body(params, tokens, cfg, q_pos, store, attend)
     cache["pos"] = pos0 + t
@@ -176,13 +234,6 @@ def _paged_kernel_on(paged_kernel: str, t: int, device: torch.device) -> bool:
     return paged_kernel == "on" or device.type == "cuda"
 
 
-def _gather_logical(buf, tables, rows: int):
-    """``buf[tables]`` flattened to ``rows`` logical rows — the reference
-    read path the paged kernel replaces."""
-    shp = (tables.shape[0], rows) + tuple(buf.shape[2:])
-    return buf[tables.long()].reshape(shp)
-
-
 @torch.no_grad()
 def forward_paged(params, tokens, cache, cfg: BurnInConfig, *,
                   prefill_impl: str = "cached", active=None,
@@ -192,7 +243,10 @@ def forward_paged(params, tokens, cache, cfg: BurnInConfig, *,
     ``[B]``), writing the fresh rows to ``(table[pos // bs], pos % bs)``
     in place. ``active`` ``[B]`` bool (default all true) fences dead
     rows: their writes go to garbage block 0 and their ``pos`` freezes.
-    Reads: see the module docstring. Precondition (the caller's): each
+    An int8 pool (``k_scale``/``v_scale`` ``[num_blocks, block_size,
+    KV]`` sidecars) quantises the fresh rows on write and stores their
+    scales at the same places. Reads: see the module docstring; the
+    sidecars ride the same tables. Precondition (the caller's): each
     active row's ``pos + T`` stays within its allocated rows."""
     b, t = tokens.shape
     tables = cache["block_tables"]
@@ -202,6 +256,7 @@ def forward_paged(params, tokens, cache, cfg: BurnInConfig, *,
     dev = tokens.device
     q_pos = pos0.long()[:, None] + torch.arange(t, device=dev)[None, :]
     scale = 1.0 / (cfg.head_dim ** 0.5)
+    quant = "k_scale" in cache
     kernel_on = _paged_kernel_on(paged_kernel, t, dev)
     if active is None:
         active = torch.ones((b,), dtype=torch.bool, device=dev)
@@ -211,23 +266,34 @@ def forward_paged(params, tokens, cache, cfg: BurnInConfig, *,
     pr = q_pos % bs
 
     def store(li, k, v):
+        if quant:
+            k, k_s = quantize_kv(k)
+            v, v_s = quantize_kv(v)
+            cache["k_scale"][li][pb, pr] = k_s
+            cache["v_scale"][li][pb, pr] = v_s
         cache["k"][li][pb, pr] = k
         cache["v"][li][pb, pr] = v
 
     def attend(li, q, k, v, handle):
-        attn = _prompt_attention(q, k, v, scale, prefill_impl)
+        attn = _prompt_attention(q, k, v, q_pos, scale, prefill_impl, quant)
         if attn is not None:
             return attn
+        ks = cache["k_scale"][li] if quant else None
+        vs = cache["v_scale"][li] if quant else None
         if kernel_on:
             # through the tables, after this step's store: a frozen row
             # reads what the gather path would (same tables, same pos)
             return paged_decode_attention(
                 q[:, 0], cache["k"][li], cache["v"][li], tables, pos0,
-                scale=scale)[:, None]
+                scale=scale, k_scale=ks, v_scale=vs)[:, None]
         rows = nt * bs
+        if quant:
+            ks = _gather_logical(ks, tables, rows)
+            vs = _gather_logical(vs, tables, rows)
         return _cached_attention(
             q, _gather_logical(cache["k"][li], tables, rows),
-            _gather_logical(cache["v"][li], tables, rows), q_pos, scale)
+            _gather_logical(cache["v"][li], tables, rows), q_pos, scale,
+            ks, vs)
 
     logits = _transformer_body(params, tokens, cfg, q_pos, store, attend)
     cache["pos"] = torch.where(active, pos0 + t, pos0)
@@ -257,11 +323,12 @@ def _select_prefill_impl(cfg: BurnInConfig, t: int, prefill: str) -> str:
 
 @torch.no_grad()
 def greedy_decode(params, prompt, n_new: int, cfg: BurnInConfig,
-                  max_len: int | None = None, prefill: str = "auto", *,
-                  device="cuda"):
+                  max_len: int | None = None, prefill: str = "auto",
+                  cache_dtype: str = "bf16", *, device="cuda"):
     """Greedy generation: prefill ``prompt`` ``[B, T]``, then ``n_new - 1``
-    cached steps. Returns the ``[B, n_new]`` generated tokens (int64, on
-    ``device``)."""
+    cached steps over a ``cache_dtype`` cache. ``params`` may hold int8
+    ``QTensor`` weights (``models/quantize.py``). Returns the ``[B,
+    n_new]`` generated tokens (int64, on ``device``)."""
     dev = check_device(device)
     _check_params(params, dev)
     prompt = torch.as_tensor(prompt, device=dev).long()
@@ -273,7 +340,7 @@ def greedy_decode(params, prompt, n_new: int, cfg: BurnInConfig,
     if t + n_new > max_len:
         raise ValueError(f"prompt ({t}) + n_new ({n_new}) exceeds "
                          f"max_len ({max_len})")
-    cache = init_cache(cfg, b, max_len, device=dev)
+    cache = init_cache(cfg, b, max_len, cache_dtype=cache_dtype, device=dev)
     logits, cache = forward_cached(
         params, prompt, cache, cfg,
         prefill_impl=_select_prefill_impl(cfg, t, prefill))

@@ -2,7 +2,7 @@
 # SPDX-License-Identifier: Apache-2.0
 """Block/paged KV-cache allocation — the port of the reference's
 ``models/paging.py`` (``blocks_for_rows``, :class:`BlockAllocator`,
-``paged_pool_spec``, ``init_paged_cache`` for the bf16 pool).
+``paged_pool_spec``, ``init_paged_cache`` for the bf16 and the int8 pool).
 
 The physical cache is one ``[num_blocks, block_size, kv_heads, D]`` buffer
 per layer shared by every request; each request owns a block table (the
@@ -21,6 +21,7 @@ from typing import Any, Sequence
 import torch
 
 from .burnin import BurnInConfig, check_device
+from .decode import cache_rows, check_cache_dtype
 
 
 def blocks_for_rows(rows: int, block_size: int) -> int:
@@ -114,13 +115,14 @@ class BlockAllocator:
         }
 
 
-def paged_pool_spec(cfg: BurnInConfig, max_len: int,
-                    block_size: int) -> dict[str, int]:
-    """Static pool geometry: ``rows`` (the bf16 cache keeps ``max_len``
-    rows), ``tables`` the per-slot block-table width covering them."""
+def paged_pool_spec(cfg: BurnInConfig, max_len: int, block_size: int,
+                    cache_dtype: str = "bf16") -> dict[str, int]:
+    """Static pool geometry: ``rows`` is ``decode.cache_rows``'s buffer
+    length for ``max_len`` (int8 keeps its 256-row grain), ``tables`` the
+    per-slot block-table width covering them."""
     if block_size < 1:
         raise ValueError(f"block_size must be >= 1, got {block_size}")
-    rows = max_len
+    rows = cache_rows(max_len, cache_dtype)
     tables = blocks_for_rows(rows, block_size)
     return {"rows": rows, "tables": tables, "block_size": block_size,
             "logical_rows": tables * block_size}
@@ -128,24 +130,34 @@ def paged_pool_spec(cfg: BurnInConfig, max_len: int,
 
 def init_paged_cache(cfg: BurnInConfig, slots: int, max_len: int, *,
                      block_size: int, num_blocks: int,
+                     cache_dtype: str = "bf16",
                      device="cuda") -> dict[str, Any]:
     """Zeroed paged pool on ``device``: per layer ``k``/``v``
-    ``[num_blocks, block_size, kv, D]`` in ``cfg.dtype``, ``block_tables``
-    ``[slots, tables]`` int32 (all 0: every slot points at the garbage
-    block until its first admission) and ``pos`` ``[slots]`` int32.
-    The forwards update the pool IN PLACE (the reference's functional
-    update donated the buffers for the same effect)."""
+    ``[num_blocks, block_size, kv, D]`` in ``cfg.dtype`` — int8 under
+    ``cache_dtype="int8"``, with f32 ``k_scale``/``v_scale`` ``[num_blocks,
+    block_size, kv]`` sidecars — ``block_tables`` ``[slots, tables]`` int32
+    (all 0: every slot points at the garbage block until its first
+    admission) and ``pos`` ``[slots]`` int32. The forwards update the pool
+    IN PLACE (the reference's functional update donated the buffers for
+    the same effect)."""
     dev = check_device(device)
-    spec = paged_pool_spec(cfg, max_len, block_size)
+    quant = check_cache_dtype(cache_dtype)
+    spec = paged_pool_spec(cfg, max_len, block_size, cache_dtype)
     kv_shape = (num_blocks, block_size, cfg.kv_heads, cfg.head_dim)
 
-    def zeros():
-        return torch.zeros(kv_shape, dtype=cfg.dtype, device=dev)
+    def zeros(shape, dtype):
+        return [torch.zeros(shape, dtype=dtype, device=dev)
+                for _ in range(cfg.n_layers)]
 
-    return {
-        "k": [zeros() for _ in range(cfg.n_layers)],
-        "v": [zeros() for _ in range(cfg.n_layers)],
+    buf = torch.int8 if quant else cfg.dtype
+    pool: dict[str, Any] = {
+        "k": zeros(kv_shape, buf),
+        "v": zeros(kv_shape, buf),
         "block_tables": torch.zeros((slots, spec["tables"]),
                                     dtype=torch.int32, device=dev),
         "pos": torch.zeros((slots,), dtype=torch.int32, device=dev),
     }
+    if quant:
+        pool["k_scale"] = zeros(kv_shape[:3], torch.float32)
+        pool["v_scale"] = zeros(kv_shape[:3], torch.float32)
+    return pool

@@ -20,10 +20,22 @@ blocks it holds (plain integers); the device owns the math. Without
 card and outputs are assembled after the schedule. With ``eos_id`` each
 wave reads its ``[slots]`` token vector back.
 
+Int8 serving: ``cache_dtype="int8"`` keeps the pool int8 with f32 scale
+sidecars riding the block tables (the wave step then reads through the
+int8 paged kernel), and int8-weight params (``quantize_params`` trees with
+``QTensor`` leaves) serve through the PREFILL/DECODE PHASE SPLIT: the
+engine dequantises them once at build into a compute-dtype tree that every
+admission runs from (prompt-width products are compute-bound), while the
+wave steps run from the int8 tree (weight-bound: the int8 matmul kernel).
+
 Exactness contract (the reference's, ``models/serving.py:87-94``): each
 request's tokens EQUAL ``greedy_decode`` run alone on that request —
 batching, paging, slot recycling and arrival schedules are scheduling,
-never a different model.
+never a different model. Under an int8 cache the engine quantises the same
+rows at the same positions as a solo int8-cache decode, so this holds int8
+against int8; with int8 weights it holds at f32 compute dtype wherever the
+solo prefill also takes the dequantised product (prompts longer than 64
+tokens: ``quantize._kernel_ok``).
 
 The reference engine's other levers are not ported yet; passing one
 raises ``NotImplementedError`` naming its ROADMAP item.
@@ -37,21 +49,27 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from .burnin import BurnInConfig, check_device
-from .decode import _check_params, _select_prefill_impl, forward_paged
+from .burnin import BurnInConfig, check_device, tree_leaves
+from .decode import (
+    _check_params,
+    _select_prefill_impl,
+    check_cache_dtype,
+    forward_paged,
+)
 from .paging import (
     BlockAllocator,
     blocks_for_rows,
     init_paged_cache,
     paged_pool_spec,
 )
+from .quantize import QTensor, dequantize_params
 
 # levers of the reference engine this slice leaves out → their ROADMAP item
 _LATER = {
     "prefix": "Queue A item 3 (serve levers): template prefix caching",
     "sampler": "Queue A item 3 (serve levers): sampled serving",
     "prefill_chunk": "Queue A item 3 (serve levers): chunked prefill",
-    "spec_k": "Queue A item 4 (quantized + speculative serving)",
+    "spec_k": "Queue A item 4 (speculative serving: models/speculative.py)",
     "share_prefix": "Queue A item 3 (serve levers): prefix sharing",
     "lazy_growth": "Queue A item 3 (serve levers): lazy block growth",
     "host_spill": "Queue A item 9 (fleet stack): host KV tier",
@@ -60,7 +78,6 @@ _LATER = {
     "telemetry": "Queue A item 10 (bench + tracing)",
     "policy": "Queue A item 3 (serve levers): sjf/priority policies",
     "admission": "Queue A item 3 (serve levers): the AdmissionSource seam",
-    "cache_dtype": "Queue A item 4: the int8 KV cache",
 }
 
 
@@ -70,8 +87,6 @@ def _refuse_levers(levers: dict, where: str) -> None:
             raise TypeError(f"{where}() got an unexpected keyword argument "
                             f"{name!r}")
         if name == "policy" and value == "fifo":
-            continue
-        if name == "cache_dtype" and value == "bf16":
             continue
         if value is None or value is False:
             continue
@@ -135,7 +150,7 @@ class _Sched:
 
 def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                       kv_block: int = 16, paged_kernel: str = "auto",
-                      device="cuda", **levers):
+                      cache_dtype: str = "bf16", device="cuda", **levers):
     """Reusable engine: ``run(prompts, n_new, *, slots, eos_id, arrivals,
     kv_blocks, static_batching) → list of [n_i] int64 token tensors``.
 
@@ -151,8 +166,9 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
     (admission → retirement, host clock) and ``kv`` (allocator high-water
     and utilisation against the dense ``slots × max_len`` reservation).
 
-    ``params`` must live on ``device`` (``"cuda"`` unless the caller asks
-    for the CPU)."""
+    ``cache_dtype="int8"`` serves from an int8 pool; ``QTensor`` params
+    serve through the phase split (module docstring). ``params`` must live
+    on ``device`` (``"cuda"`` unless the caller asks for the CPU)."""
     _refuse_levers(levers, "make_serve_engine")
     dev = check_device(device)
     _check_params(params, dev)
@@ -161,9 +177,14 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
     if paged_kernel not in ("auto", "on", "off"):
         raise ValueError(f"unknown paged_kernel {paged_kernel!r}: "
                          f"use auto|on|off")
-    geom = paged_pool_spec(cfg, max_len, kv_block)
+    check_cache_dtype(cache_dtype)
+    geom = paged_pool_spec(cfg, max_len, kv_block, cache_dtype)
     bs, nt = kv_block, geom["tables"]
     step = make_serve_step(params, cfg, paged_kernel=paged_kernel)
+    # the phase split: admissions from a dequantised copy, built once
+    prefill_params = params
+    if any(isinstance(x, QTensor) for x in tree_leaves(params)):
+        prefill_params = dequantize_params(params)
 
     @torch.no_grad()
     def admit(pool, slot: int, prompt, row: np.ndarray):
@@ -174,8 +195,9 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
         sub = dict(pool, block_tables=pool["block_tables"][slot:slot + 1],
                    pos=torch.zeros((1,), dtype=torch.int32, device=dev))
         impl = _select_prefill_impl(cfg, length, "auto")
-        logits, sub = forward_paged(params, prompt[None, :], sub, cfg,
-                                    prefill_impl=impl, paged_kernel="off")
+        logits, sub = forward_paged(prefill_params, prompt[None, :], sub,
+                                    cfg, prefill_impl=impl,
+                                    paged_kernel="off")
         pool["pos"][slot] = sub["pos"][0]
         return logits[0, -1].argmax(dim=-1)
 
@@ -234,7 +256,8 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
 
         alloc = BlockAllocator(kv_blocks)
         pool = init_paged_cache(cfg, slots, max_len, block_size=bs,
-                                num_blocks=kv_blocks, device=dev)
+                                num_blocks=kv_blocks,
+                                cache_dtype=cache_dtype, device=dev)
         sched = _Sched(len(toks), arrivals, time.monotonic())
         tokens = torch.zeros((slots,), dtype=torch.long, device=dev)
         owned: dict[int, list[int]] = {}         # req → blocks

@@ -6,6 +6,9 @@ plain PyTorch version (``*_ref``) on a CPU tensor."""
 
 from ._build import launches, reset_launches
 from .decode_attention import (
+    int8_kv_decode_attention,
+    kv_decode_attention,
+    kv_decode_attention_ref,
     paged_decode_attention,
     paged_decode_attention_ref,
 )
@@ -22,6 +25,7 @@ from .flash_attention import (
     flash_dqdkv,
     flash_dqdkv_ref,
 )
+from .int8_matmul import int8_matmul, int8_matmul_ref
 
 __all__ = [
     "FlashAttention",
@@ -35,6 +39,11 @@ __all__ = [
     "flash_dq_ref",
     "flash_dqdkv",
     "flash_dqdkv_ref",
+    "int8_kv_decode_attention",
+    "int8_matmul",
+    "int8_matmul_ref",
+    "kv_decode_attention",
+    "kv_decode_attention_ref",
     "launches",
     "paged_decode_attention",
     "paged_decode_attention_ref",

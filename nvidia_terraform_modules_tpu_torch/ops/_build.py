@@ -36,8 +36,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 launches: dict[str, int] = {"flash_fwd": 0, "paged_decode": 0,
-                            "flash_bwd_fused": 0, "flash_dq": 0,
-                            "flash_dkv": 0}
+                            "paged_decode_int8": 0, "kv_decode": 0,
+                            "int8_matmul": 0, "flash_bwd_fused": 0,
+                            "flash_dq": 0, "flash_dkv": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -51,10 +52,16 @@ _SIGNATURES = {
     # scale, mask kind, window, dtype code, stream
     "tk_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
     + [_L] * 12 + [_F, _I, _I, _I, _P],
-    # q, k_pool, v_pool, tables, pos, out, B, H, KV, D, block size,
-    # table width, scale, dtype code, stream
-    "tk_paged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _F, _I, _P],
+    # q, k_pool, v_pool, k_scale, v_scale (None: a bf16/f32 pool), tables,
+    # pos, out, B, H, KV, D, block size, table width, scale, dtype code,
+    # stream
+    "tk_paged_decode": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
+    # q, k, v, k_scale, v_scale (None unless int8), pos, out, B, H, KV, D,
+    # S, scale, dtype code, int8 flag, stream
+    "tk_kv_decode": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P],
+    # x, w, scale, f32 partials, out, M, K, N, K slice, transpose, dtype
+    # code, stream
+    "tk_int8_matmul": [_P] * 5 + [_I] * 6 + [_P],
     # q, k, v, dout, lse, delta, ws, dq, dk, dv, B, S, H, D, scale,
     # mask kind, window, dtype code, stream
     "tk_flash_bwd_fused": [_P] * 10 + [_I] * 4 + [_F, _I, _I, _I, _P],

@@ -11,10 +11,11 @@ directory, and ``.``). The trees run in turns — OLD, NEW, NEW, OLD — each
 in its own process with its own kernel build, so both versions are
 compared on one card and the spread shows beside the difference. Each run
 prints one JSON line: K1 at two serve prompt shapes and the train step's
-per-layer ``[2, 4096, 16, 128]``, K5/K3/K4 at that shape (CUDA-event
-medians, cold L2), and the median host time of a flagship bf16 SGD step
-ending in a synchronise. A tree without the backward kernels (the serve
-slice alone) reports K1 only.
+per-layer ``[2, 4096, 16, 128]``, K7 (bf16 paged decode) at a flagship
+wave of 4 slots, K5/K3/K4 at the train shape (CUDA-event medians, cold
+L2), and the median host time of a flagship bf16 SGD step ending in a
+synchronise. A tree without the backward kernels (the serve slice alone)
+reports K1 and K7 only.
 """
 
 from __future__ import annotations
@@ -45,6 +46,17 @@ def measure(tree: str) -> dict:
                                    device=dev).bfloat16() for _ in range(4))
         out[f"flash_fwd_{b}x{s}_ms"] = timing.cuda_median_ms(
             lambda: fa.flash_attention_fwd(q, k, v))
+    da = importlib.import_module(
+        "nvidia_terraform_modules_tpu_torch.ops.decode_attention")
+    pool = [torch.randn((1 + 4 * 34, 16, 16, 128), generator=g,
+                        device=dev).bfloat16() for _ in range(2)]
+    tables = torch.arange(1, 1 + 4 * 34, dtype=torch.int32,
+                          device=dev).reshape(4, 34)
+    pos = torch.tensor([320, 208, 176, 240], dtype=torch.int32, device=dev)
+    qd = torch.randn((4, 16, 128), generator=g, device=dev).bfloat16()
+    out["paged_decode_4x16_ms"] = timing.cuda_median_ms(
+        lambda: da.paged_decode_attention(qd, *pool, tables, pos,
+                                          scale=128 ** -0.5))
     if not hasattr(fa, "flash_dqdkv"):   # a tree from before the train step
         return out
     o, lse = fa.flash_attention_fwd(q, k, v)

@@ -12,7 +12,11 @@ without JAX, run them with::
 Tolerances: bf16 outputs within 2e-2 (O) / 1e-3 (LSE) and 1e-2 (decode) —
 the kernel rounds the UNNORMALISED probabilities to bf16 per tile where the
 plain version rounds them once over the row; f32 within 1e-4 / 1e-5
-(summation order only). The backward kernels hold dQ/dK/dV within
+(summation order only). The int8 kernels hold bf16 within 1e-2 of max(1,
+max|plain|) — the int8 decode outputs of a row over a few keys reach
+|out| > 2, where one bf16 rounding is 0.0156 — and f32 within 1e-5 of it;
+the int8 matmul's plain version scales before the product, the kernel
+after it. The backward kernels hold dQ/dK/dV within
 2e-2 (bf16) / 1e-4 (f32) of max(1, max|plain|), and within a relative L2
 error ||got - plain|| / ||plain|| of 1e-2 (bf16) / 1e-4 (f32): bf16 products
 accumulate in another order, and the fused kernel's dQ atomics in an order
@@ -30,6 +34,8 @@ from nvidia_terraform_modules_tpu_torch.models import (
     init_params,
     make_grads_fn,
     make_serve_engine,
+    quantize_kv,
+    quantize_params,
     synthetic_batch,
     tree_leaves,
 )
@@ -40,9 +46,16 @@ from nvidia_terraform_modules_tpu_torch.ops import (
     flash_dq,
     flash_dqdkv,
     flash_dqdkv_ref,
+    int8_matmul,
+    int8_matmul_ref,
+    kv_decode_attention,
+    kv_decode_attention_ref,
     launches,
     paged_decode_attention,
     paged_decode_attention_ref,
+)
+from nvidia_terraform_modules_tpu_torch.ops.decode_attention import (
+    gather_logical,
 )
 
 pytestmark = pytest.mark.cuda
@@ -114,6 +127,158 @@ def test_paged_decode_matches_plain(cuda, b, h, kv, d, bs, dtype):
                                      scale=scale)
     tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
     assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("b,h,kv,d,s,qdtype,quant", [
+    (8, 16, 16, 128, 768, torch.bfloat16, True),   # the int8 decode step
+    (3, 8, 2, 128, 300, torch.bfloat16, True),     # GQA, ragged pos
+    (2, 4, 1, 64, 130, torch.float32, True),
+    (3, 8, 2, 64, 200, torch.bfloat16, False),     # bf16 cache
+    (2, 4, 4, 32, 70, torch.float32, False),       # f32 cache
+])
+def test_kv_decode_matches_plain(cuda, b, h, kv, d, s, qdtype, quant):
+    g = torch.Generator().manual_seed(b * 7 + d + s)
+    q = _randn(g, (b, h, d), qdtype, cuda)
+    pos = torch.randint(0, s, (b,), generator=g).to(torch.int32)
+    pos[0] = 0                              # a row that sees one key
+    k, v = (_randn(g, (b, s, kv, d), torch.float32, cuda) for _ in range(2))
+    ks = vs = None
+    if quant:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+    else:
+        k, v = k.to(qdtype), v.to(qdtype)
+    for i in range(b):                      # rows past pos: a read shows
+        k[i, int(pos[i]) + 1:] = 127 if quant else 1e4
+        v[i, int(pos[i]) + 1:] = 127 if quant else 1e4
+        if quant:
+            ks[i, int(pos[i]) + 1:] = 1e4
+            vs[i, int(pos[i]) + 1:] = 1e4
+    pos = pos.to(cuda)
+    before = launches["kv_decode"]
+    out = kv_decode_attention(q, k, v, pos, scale=d ** -0.5, k_scale=ks,
+                              v_scale=vs)
+    torch.cuda.synchronize()
+    assert launches["kv_decode"] == before + 1
+    ref = kv_decode_attention_ref(q, k, v, pos, scale=d ** -0.5, k_scale=ks,
+                                  v_scale=vs)
+    tol = 1e-2 if qdtype == torch.bfloat16 else 1e-5
+    assert out.dtype == qdtype
+    lim = tol * max(1.0, ref.float().abs().max().item())
+    assert (out.float() - ref.float()).abs().max().item() <= lim
+
+
+@pytest.mark.parametrize("b,h,kv,d,bs", [(4, 16, 16, 128, 16),
+                                         (3, 8, 2, 64, 5)])
+def test_paged_decode_int8_matches_plain_and_contiguous(cuda, b, h, kv, d,
+                                                        bs):
+    """The int8 pool through the tables: against the plain version, and bit
+    for bit against the contiguous kernel on the gathered view (one fold);
+    the garbage block's rows (127) and scales (1e4) are never read."""
+    g = torch.Generator().manual_seed(b * 13 + bs)
+    nt = -(-600 // bs)
+    nb = 1 + b * nt
+    k, ks = quantize_kv(_randn(g, (nb, bs, kv, d), torch.float32, cuda))
+    v, vs = quantize_kv(_randn(g, (nb, bs, kv, d), torch.float32, cuda))
+    for t in (k, v):
+        t[0] = 127
+    for t in (ks, vs):
+        t[0] = 1e4
+    tables = (torch.randperm(nb - 1, generator=g) + 1).reshape(b, nt)
+    tables = tables.to(torch.int32)
+    pos = torch.randint(0, 560, (b,), generator=g).to(torch.int32)
+    pos[-1] = 3
+    for i in range(b):
+        tables[i, int(pos[i]) // bs + 1:] = 0
+    tables, pos = tables.to(cuda), pos.to(cuda)
+    q = _randn(g, (b, h, d), torch.bfloat16, cuda)
+    before = dict(launches)
+    out = paged_decode_attention(q, k, v, tables, pos, scale=d ** -0.5,
+                                 k_scale=ks, v_scale=vs)
+    rows = nt * bs
+    flat = kv_decode_attention(
+        q, gather_logical(k, tables, rows), gather_logical(v, tables, rows),
+        pos, scale=d ** -0.5, k_scale=gather_logical(ks, tables, rows),
+        v_scale=gather_logical(vs, tables, rows))
+    torch.cuda.synchronize()
+    assert launches["paged_decode_int8"] == before["paged_decode_int8"] + 1
+    assert launches["paged_decode"] == before["paged_decode"]
+    ref = paged_decode_attention_ref(q, k, v, tables, pos, scale=d ** -0.5,
+                                     k_scale=ks, v_scale=vs)
+    lim = 1e-2 * max(1.0, ref.float().abs().max().item())
+    assert (out.float() - ref.float()).abs().max().item() <= lim
+    assert torch.equal(out, flat)
+
+
+@pytest.mark.parametrize("m,k,n,trans,dtype", [
+    (4, 2048, 2048, False, torch.bfloat16),
+    (4, 2048, 8192, False, torch.bfloat16),
+    (4, 8192, 2048, False, torch.bfloat16),
+    (4, 2048, 8192, True, torch.bfloat16),     # the tied head, [N, K]
+    (64, 384, 640, False, torch.bfloat16),
+    (1, 256, 128, True, torch.float32),
+    (7, 640, 192, False, torch.float32),
+])
+def test_int8_matmul_matches_plain(cuda, m, k, n, trans, dtype):
+    g = torch.Generator().manual_seed(m * 3 + k + n)
+    w = torch.randint(-127, 128, (n, k) if trans else (k, n), generator=g,
+                      dtype=torch.int8).to(cuda)
+    scale = (torch.rand((n,), generator=g) * 0.02 + 1e-3).to(cuda)
+    x = _randn(g, (m, k), dtype, cuda)
+    before = launches["int8_matmul"]
+    out = int8_matmul(x, w, scale, transpose_rhs=trans)
+    rows = torch.cat([int8_matmul(x[i:i + 1], w, scale, transpose_rhs=trans)
+                      for i in range(m)])
+    torch.cuda.synchronize()
+    assert launches["int8_matmul"] == before + 1 + m
+    ref = int8_matmul_ref(x, w, scale, transpose_rhs=trans).float()
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    lim = tol * max(1.0, ref.abs().max().item())
+    assert out.dtype == dtype and out.shape == (m, n)
+    assert (out.float() - ref).abs().max().item() <= lim
+    assert torch.equal(out, rows)            # a row's bits do not depend on M
+
+
+def test_int8_kernels_refuse_what_they_cannot_take(cuda):
+    w = torch.zeros((256, 256), dtype=torch.int8, device=cuda)
+    s = torch.ones((256,), device=cuda)
+    x = torch.zeros((65, 256), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="M <= 64"):
+        int8_matmul(x, w, s)
+    with pytest.raises(ValueError, match="K % 128"):
+        int8_matmul(x[:4, :100], w[:100], s)
+    with pytest.raises(ValueError, match="N % 64"):
+        int8_matmul(x[:4], w[:, :100], s[:100])
+    q = torch.zeros((1, 2, 24), dtype=torch.bfloat16, device=cuda)
+    cache = torch.zeros((1, 8, 2, 24), dtype=torch.int8, device=cuda)
+    sc = torch.ones((1, 8, 2), device=cuda)
+    pos = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        kv_decode_attention(q, cache, cache, pos, scale=1.0, k_scale=sc,
+                            v_scale=sc)
+
+
+def test_int8_serve_engine_on_card_matches_solo(cuda):
+    """f32 int8 weights and an int8 cache through all three kernels: the
+    engine (K7-int8 waves, and the gather path's K6) equals solo decode
+    (K6). Prompts are longer than 64 tokens, so the solo prefill takes the
+    same dequantised product as the engine's admissions."""
+    cfg = BurnInConfig(vocab=512, d_model=256, n_heads=2, n_kv_heads=1,
+                       d_ff=512, n_layers=2, dtype=torch.float32,
+                       attn="flash")
+    params = quantize_params(init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(3), device=cuda),
+        dtype=torch.float32)
+    g = torch.Generator().manual_seed(4)
+    prompts = [torch.randint(0, cfg.vocab, (72 + 8 * i,), generator=g)
+               for i in range(4)]
+    kw = dict(max_len=112, kv_block=16, cache_dtype="int8", device=cuda)
+    got = make_serve_engine(params, cfg, **kw)(prompts, 8, slots=2)
+    off = make_serve_engine(params, cfg, paged_kernel="off", **kw)(
+        prompts, 8, slots=2)
+    for p, a, c in zip(prompts, got, off):
+        solo = greedy_decode(params, p[None], 8, cfg, cache_dtype="int8",
+                             device=cuda)[0]
+        assert torch.equal(a, solo) and torch.equal(c, solo)
 
 
 def _bwd_inputs(g, b, s, h, d, dtype, dev, mask):

@@ -8,7 +8,9 @@ within 1e-5, greedy tokens EQUAL — for the dense prefill and for the flash
 prefill (the reference's flash runs its Pallas kernel in interpret mode).
 Inside the port, ``forward_paged`` through scattered blocks reproduces
 ``forward_cached`` bit for bit, through the gather path and through the
-paged kernel's plain version.
+paged kernel's plain version. The int8 cache: its structure and 256-row
+grain, the full-precision prefill, and its step logits and greedy tokens
+against the reference's int8-cache decode.
 """
 
 import jax
@@ -21,6 +23,7 @@ from nvidia_terraform_modules_tpu.models import burnin as jburnin
 from nvidia_terraform_modules_tpu.models import decode as jdecode
 from nvidia_terraform_modules_tpu_torch.models import (
     BurnInConfig,
+    cache_rows,
     forward,
     forward_cached,
     forward_paged,
@@ -172,3 +175,67 @@ def test_prefill_selection_matches_reference():
                 except ValueError:
                     got = ValueError
                 assert got == want, (attn, t, prefill)
+
+
+@pytest.mark.parametrize("max_len", [1, 12, 256, 257])
+def test_int8_cache_structure_and_rows_match_reference(max_len):
+    jcfg, _, tcfg, _ = _pair(n_kv_heads=2)
+    for cache_dtype in ("bf16", "int8"):
+        assert cache_rows(max_len, cache_dtype) == jdecode.cache_rows(
+            max_len, cache_dtype)
+    tc = init_cache(tcfg, 2, max_len, cache_dtype="int8", device="cpu")
+    jc = jdecode.init_cache(jcfg, 2, max_len, cache_dtype="int8")
+    assert set(tc) == set(jc) == {"k", "v", "k_scale", "v_scale", "pos"}
+    for key, dtype in (("k", torch.int8), ("v", torch.int8),
+                       ("k_scale", torch.float32), ("v_scale", torch.float32)):
+        assert len(tc[key]) == tcfg.n_layers
+        for t, j in zip(tc[key], jc[key]):
+            assert tuple(t.shape) == j.shape and t.dtype == dtype
+            assert not t.any()
+    with pytest.raises(ValueError, match="cache_dtype"):
+        init_cache(tcfg, 1, 4, cache_dtype="fp8", device="cpu")
+
+
+@pytest.mark.parametrize("prefill", ["dense", "flash"])
+def test_int8_prefill_is_full_precision_and_steps_match_reference(prefill):
+    """A pure prefill attends its full-precision k/v under an int8 cache
+    (the dense + int8 branch), so its logits are the bf16 cache's; the
+    later steps read the quantised rows (K6's plain version on the CPU),
+    and every logit matches the reference's int8-cache forward."""
+    jcfg, jp, tcfg, tp = _pair(seed=9, n_kv_heads=2, rope=True)
+    prompt = _tokens((2, 8), seed=10)
+    tprompt = torch.from_numpy(prompt).long()
+    full, _ = forward_cached(tp, tprompt, init_cache(tcfg, 2, 12,
+                                                     device="cpu"),
+                             tcfg, prefill_impl=prefill)
+    tc = init_cache(tcfg, 2, 12, cache_dtype="int8", device="cpu")
+    tl, tc = forward_cached(tp, tprompt, tc, tcfg, prefill_impl=prefill)
+    torch.testing.assert_close(tl, full, atol=1e-6, rtol=0)
+    jc = jdecode.init_cache(jcfg, 2, 12, cache_dtype="int8")
+    jl, jc = jdecode.forward_cached(jp, jnp.asarray(prompt), jc, jcfg,
+                                    prefill_impl=prefill)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(tc["k_scale"][1].numpy(),
+                               np.asarray(jc["k_scale"][1]), rtol=1e-5,
+                               atol=0)
+    for seed in (11, 12):
+        step = _tokens((2, 1), seed=seed)
+        jl, jc = jdecode.forward_cached(jp, jnp.asarray(step), jc, jcfg)
+        tl, tc = forward_cached(tp, torch.from_numpy(step).long(), tc, tcfg)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-5,
+                                   rtol=0)
+    assert tc["pos"] == 10
+
+
+@pytest.mark.parametrize("attn,over", [
+    ("dense", {"n_kv_heads": 2, "rope": True}),
+    ("flash", {}),
+])
+def test_int8_cache_greedy_tokens_equal_reference(attn, over):
+    jcfg, jp, tcfg, tp = _pair(seed=13, attn=attn, **over)
+    prompt = _tokens((2, 16), seed=14)
+    want = np.asarray(jdecode.greedy_decode(jp, jnp.asarray(prompt), 6,
+                                            jcfg, cache_dtype="int8"))
+    got = greedy_decode(tp, torch.from_numpy(prompt), 6, tcfg,
+                        cache_dtype="int8", device="cpu")
+    assert np.array_equal(got.numpy(), want)

@@ -24,10 +24,12 @@ from nvidia_terraform_modules_tpu_torch.models import (
     init_paged_cache,
     init_params,
     make_adamw_train_step,
+    make_quantized_decoder,
     make_serve_engine,
     make_train_step,
     opt_state_from_numpy,
     params_from_numpy,
+    qparams_from_numpy,
     synthetic_batch,
 )
 
@@ -88,7 +90,8 @@ def test_importing_the_whole_port_loads_no_jax():
                                 make_serve_engine, init_paged_cache,
                                 init_cache, make_train_step,
                                 make_adamw_train_step, synthetic_batch,
-                                params_from_numpy, opt_state_from_numpy])
+                                params_from_numpy, opt_state_from_numpy,
+                                make_quantized_decoder, qparams_from_numpy])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -107,6 +110,7 @@ def test_default_device_raises_without_a_card():
         lambda: make_train_step(cfg),
         lambda: make_adamw_train_step(cfg),
         lambda: synthetic_batch(torch.Generator().manual_seed(0), cfg),
+        lambda: make_quantized_decoder(cfg),
     ]
     if torch.cuda.is_available():
         assert init_params(cfg)["embed"].device.type == "cuda"

@@ -130,3 +130,81 @@ def test_paged_pool_spec_and_pool_layout_match_reference():
     assert tuple(pool["block_tables"].shape) == want["block_tables"].shape
     assert pool["block_tables"].dtype == torch.int32
     assert pool["pos"].dtype == torch.int32 and not pool["pos"].any()
+
+
+def test_int8_pool_spec_and_layout_match_reference():
+    kw = dict(vocab=64, d_model=32, n_heads=4, n_kv_heads=2, n_layers=2)
+    cfg = BurnInConfig(**kw, dtype=torch.bfloat16)
+    jcfg = jburnin.BurnInConfig(**kw, dtype=jnp.bfloat16)
+    for max_len, bs in ((16, 4), (300, 16), (256, 16), (5, 8)):
+        assert paged_pool_spec(cfg, max_len, bs, "int8") == \
+            jpaging.paged_pool_spec(jcfg, max_len, bs, "int8")
+    pool = init_paged_cache(cfg, 3, 17, block_size=4, num_blocks=9,
+                            cache_dtype="int8", device="cpu")
+    want = jpaging.init_paged_cache(jcfg, 3, 17, block_size=4, num_blocks=9,
+                                    cache_dtype="int8")
+    assert set(pool) == set(want)
+    for key, dtype in (("k", torch.int8), ("v", torch.int8),
+                       ("k_scale", torch.float32), ("v_scale", torch.float32)):
+        for t, j in zip(pool[key], want[key]):
+            assert tuple(t.shape) == j.shape and t.dtype == dtype
+            assert not t.any()
+    assert tuple(pool["block_tables"].shape) == want["block_tables"].shape
+
+
+@pytest.mark.parametrize("paged_kernel", ["off", "on"])
+def test_forward_paged_int8_scales_ride_the_tables(paged_kernel):
+    """An int8 pool through scattered blocks: the fresh rows and their
+    scales land at the table's positions, equal to the dense int8 cache's,
+    and the logits equal both the dense int8 cache's and the reference's
+    paged int8 forward ("on" reads through the int8 paged kernel's plain
+    version, "off" gathers rows and sidecars and runs K6's)."""
+    import jax
+
+    from nvidia_terraform_modules_tpu.models import decode as jdecode
+    from nvidia_terraform_modules_tpu_torch.models import (
+        forward_cached,
+        forward_paged,
+        init_cache,
+        params_from_numpy,
+    )
+
+    kw = dict(vocab=64, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64,
+              n_layers=2, rope=True)
+    jcfg = jburnin.BurnInConfig(**kw, dtype=jnp.float32)
+    cfg = BurnInConfig(**kw, dtype=torch.float32)
+    jp = jburnin.init_params(jax.random.PRNGKey(3), jcfg)
+    params = params_from_numpy(jax.tree.map(np.asarray, jp), cfg,
+                               device="cpu")
+    prompt = np.random.default_rng(4).integers(0, 64, (1, 6)).astype(np.int32)
+    table = np.array([[7, 2, 5, 3]], np.int32)
+    dense = init_cache(cfg, 1, 16, cache_dtype="int8", device="cpu")
+    pool = init_paged_cache(cfg, 1, 16, block_size=4, num_blocks=9,
+                            cache_dtype="int8", device="cpu")
+    # the int8 grain: 256 rows, a 64-entry table; the rest point at block 0
+    assert tuple(pool["block_tables"].shape) == (1, 64)
+    pool["block_tables"][0, :4] = torch.from_numpy(table[0])
+    jpool = jpaging.init_paged_cache(jcfg, 1, 16, block_size=4,
+                                     num_blocks=9, cache_dtype="int8")
+    jpool["block_tables"] = jnp.asarray(pool["block_tables"].numpy())
+    toks = torch.from_numpy(prompt).long()
+    jtoks = jnp.asarray(prompt)
+    for step in range(4):
+        d_logits, dense = forward_cached(params, toks, dense, cfg)
+        p_logits, pool = forward_paged(params, toks, pool, cfg,
+                                       prefill_impl="dense",
+                                       paged_kernel=paged_kernel)
+        j_logits, jpool = jdecode.forward_paged(jp, jtoks, jpool, jcfg,
+                                                prefill_impl="dense")
+        torch.testing.assert_close(p_logits, d_logits, atol=1e-6, rtol=0)
+        np.testing.assert_allclose(p_logits.numpy(), np.asarray(j_logits),
+                                   atol=1e-5, rtol=0)
+        toks = d_logits[:, -1:].argmax(-1)
+        jtoks = jnp.asarray(toks.numpy())
+    n = int(pool["pos"][0])
+    assert n == dense["pos"] == 9
+    for li in range(cfg.n_layers):
+        for key in ("k", "k_scale", "v", "v_scale"):
+            logical = pool[key][li][torch.from_numpy(table[0]).long()]
+            logical = logical.reshape((16,) + tuple(logical.shape[2:]))
+            assert torch.equal(logical[:n], dense[key][li][0, :n]), key

@@ -5,7 +5,8 @@
 The engine's contract (the reference's ``models/serving.py:87-94``):
 batching, paging, slot recycling and arrival schedules are SCHEDULING —
 each request's tokens equal ``greedy_decode`` run alone. On top, on shared
-f32 weights, the port's engine emits exactly the JAX engine's tokens.
+f32 weights, the port's engine emits exactly the JAX engine's tokens — with
+the bf16 pool, the int8 pool, and int8 weights through the phase split.
 """
 
 import jax
@@ -144,3 +145,57 @@ def test_engine_validation_and_unported_levers():
         make_serve_engine(params, cfg, max_len=12, device="cpu", bogus=1)
     # the reference's baseline values of a lever are the engine as it is
     make_serve_engine(params, cfg, max_len=12, device="cpu", policy="fifo")
+
+
+@pytest.mark.parametrize("paged_kernel", ["auto", "on", "off"])
+def test_int8_engine_matches_solo_int8_decode_and_jax_engine(paged_kernel):
+    """The full int8 serving stack composes with batching: the engine
+    quantises the same rows at the same positions as a solo int8-cache
+    decode, so tokens are IDENTICAL, through every read path — and equal
+    the reference's int8 engine on the same weights."""
+    jcfg, jp, cfg, params, prompts = _setup(n=4, seed=11, n_kv_heads=2,
+                                            rope=True)
+    engine = make_serve_engine(params, cfg, max_len=16, kv_block=4,
+                               cache_dtype="int8",
+                               paged_kernel=paged_kernel, device="cpu")
+    got = engine(prompts, 5, slots=2)
+    solo = [greedy_decode(params, torch.from_numpy(p)[None], 5, cfg,
+                          cache_dtype="int8", device="cpu")[0]
+            for p in prompts]
+    want = jax_engine(jp, jcfg, max_len=16, kv_block=4, cache_dtype="int8")(
+        [jnp.asarray(p) for p in prompts], 5, slots=2)
+    for g, s, w in zip(got, solo, want):
+        assert torch.equal(g, s)
+        assert np.array_equal(g.numpy(), np.asarray(w))
+    # the int8 pool keeps the 256-row grain: one table spans 256 rows
+    assert engine.last_stats["kv"]["dense_rows"] == 2 * 256
+
+
+@pytest.mark.parametrize("cache_dtype", ["bf16", "int8"])
+def test_phase_split_engine_matches_solo_quantized_decode(cache_dtype):
+    """Int8-weight params: admissions from the dequantised tree, waves from
+    the int8 tree — at f32 compute dtype tokens EQUAL solo quantised greedy
+    decode and the reference's phase-split engine."""
+    from nvidia_terraform_modules_tpu.models import quantize as jquant
+    from nvidia_terraform_modules_tpu_torch.models import (
+        qparams_from_numpy,
+        quantize_params,
+    )
+    from test_torch_int8_matmul import jax_qtree_to_numpy
+
+    jcfg, jp, cfg, params, prompts = _setup(n=4, seed=13, n_kv_heads=2)
+    jqp = jquant.quantize_params(jp, dtype=jnp.float32)
+    qp = qparams_from_numpy(jax_qtree_to_numpy(jqp), cfg, device="cpu")
+    mine = quantize_params(params, dtype=torch.float32)
+    assert torch.equal(qp["layers"][0]["up"].q, mine["layers"][0]["up"].q)
+    got = make_serve_engine(qp, cfg, max_len=16, kv_block=4,
+                            cache_dtype=cache_dtype, device="cpu")(
+        prompts, 5, slots=2)
+    want = jax_engine(jqp, jcfg, max_len=16, kv_block=4,
+                      cache_dtype=cache_dtype)(
+        [jnp.asarray(p) for p in prompts], 5, slots=2)
+    for p, g, w in zip(prompts, got, want):
+        solo = greedy_decode(qp, torch.from_numpy(p)[None], 5, cfg,
+                             cache_dtype=cache_dtype, device="cpu")[0]
+        assert torch.equal(g, solo)
+        assert np.array_equal(g.numpy(), np.asarray(w))
