@@ -28,7 +28,17 @@ It builds the port's CUDA kernels from ``csrc/`` with nvcc (into
   against the dense model, fused against split, remat and accumulation;
   runs SGD and AdamW steps of the flagship burn-in step at full width and
   depth (the launch counts show it went through K1 and K5, or K3 + K4);
-  and profiles one step.
+  and profiles one step;
+- sequence-parallel train: holds K2 (the partial flash forward of ring
+  attention) against its plain version at the ring's flagship block
+  ``[2, 1024, 16, 128]`` (and, normalised, against K1 bit for bit), and
+  K5/K3/K4 with the f32 outputs the ring takes, timed beside bf16 ones;
+  checks the f32 ring (K2 + K5, and K2 + K3 + K4) and Ulysses (K1 + K5)
+  on meshes of sp = 2 and 4 against dense attention, forward and
+  gradients, with planted faults that the check must catch; runs the
+  flagship step with ``attn="ring"`` on a mesh of sp = 4 (four ring
+  members on the one card: the launch counts show every layer went
+  through K2 and K5, or K3 + K4) and profiles one step.
 
 Every phase prints one JSON line; any failure raises and the script exits
 non-zero. Without a CUDA device it exits 1 and prints no result; it
@@ -79,6 +89,17 @@ BWD_OUTPUTS = {"flash_bwd_fused": 3, "flash_dq": 1, "flash_dkv": 2}
 # the relative L2 error ||got - ref|| / ||ref||, which holds the many small
 # gradients of a long sequence that the max-abs limit is loose for
 BWD_TOL = {"bf16": (2e-2, 1e-2), "f32": (1e-4, 1e-4)}
+# K2's limits on acc, m and l: max-abs error over max(1, max|plain|) — the
+# kernel rounds P to bf16 per 64-key tile against its running max, the
+# plain version once per row against the row's max
+PARTIAL_TOL = {"bf16": 1e-2, "f32": 1e-5}
+# the sequence-parallel flagship: a ring of RING_SP members (on one card),
+# each holding seq_len / RING_SP rows; the f32 exactness shape
+RING_SP = 4
+RING_EXACT_SHAPE = (2, 512, 4, 128)
+# the flagship ring step's bf16 gradients: each no further (relative L2)
+# from the f32 step's than this many times the flash step's
+RING_VS_FLASH = 1.5
 
 
 def emit(phase: str, **fields) -> None:
@@ -815,6 +836,507 @@ def train_profile(params, dev) -> dict:
     return profile_summary(prof, wall_ms)
 
 
+def kernel_flash_partial(randn, dev, block) -> dict:
+    """K2 against its plain version at the ring's flagship block, bf16 and
+    f32, causal (the ring's diagonal block) and full (a visible block);
+    normalised, its output must equal K1's on the same inputs bit for bit
+    and its LSE K1's within 1e-6 of max(1, |LSE|). Returns the bf16
+    records by mask ("diag", "full")."""
+    import torch
+    import torch.nn.functional as F
+
+    from nvidia_terraform_modules_tpu_torch.ops.flash_attention import (
+        flash_attention_fwd,
+        flash_partial,
+        flash_partial_ref,
+    )
+    from nvidia_terraform_modules_tpu_torch.utils.timing import (
+        cuda_median_ms,
+        sync,
+    )
+
+    b, s, h, d = block
+    scale = d ** -0.5
+    main = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        for causal in (True, False):
+            q, k, v = (randn((b, s, h, d), dtype) for _ in range(3))
+            kw = dict(scale=scale, causal=causal)
+            got = flash_partial(q, k, v, **kw)
+            ref = flash_partial_ref(q, k, v, **kw)
+            o1, lse1 = flash_attention_fwd(q, k, v, **kw)
+            sync()
+            errs = {}
+            for name, a, r in zip(("acc", "m", "l"), got, ref):
+                errs[name] = (a - r).abs().max().item()
+                lim = PARTIAL_TOL[kind] * max(1.0, r.abs().max().item())
+                if not errs[name] <= lim:
+                    raise AssertionError(f"flash_partial {kind} causal="
+                                         f"{causal} {name}: err "
+                                         f"{errs[name]} (limit {lim})")
+            acc, m, l_ = got
+            lm = l_.clamp_min(1e-30)
+            norm = (acc / lm.transpose(1, 2)[..., None]).to(dtype)
+            vs_k1 = (norm.float() - o1.float()).abs().max().item()
+            lse_err = ((m + torch.log(lm) - lse1).abs()
+                       / lse1.abs().clamp_min(1.0)).max().item()
+            if vs_k1 != 0.0 or not lse_err <= 1e-6:
+                raise AssertionError(f"flash_partial {kind} causal={causal} "
+                                     f"vs flash_fwd: output {vs_k1} (must "
+                                     f"be 0), LSE {lse_err} (limit 1e-6)")
+            del got, ref, o1, lse1, norm
+            ms = cuda_median_ms(lambda: flash_partial(q, k, v, **kw))
+            plain_ms = cuda_median_ms(lambda: flash_partial_ref(q, k, v, **kw),
+                                      iters=5, warmup=1)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            library_ms = cuda_median_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal))
+            live = s * (s + 1) / 2 if causal else float(s * s)
+            elt = q.element_size()
+            nbytes = 3 * b * s * h * d * elt + b * s * h * d * 4 \
+                + 2 * b * h * s * 4
+            bound_ms, bound_by = bound(4.0 * b * h * d * live, nbytes, kind)
+            rec = dict(shape=[b, s, h, d], dtype=str(dtype), causal=causal,
+                       max_abs_err=errs["acc"], m_err=errs["m"],
+                       l_err=errs["l"], tolerance=PARTIAL_TOL[kind],
+                       normalised_vs_flash_fwd=vs_k1,
+                       lse_vs_flash_fwd=lse_err, ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=bound_ms,
+                       bound_by=bound_by)
+            emit("kernel_flash_partial", **rec)
+            if kind == "bf16":
+                main["diag" if causal else "full"] = rec
+    return main
+
+
+def kernel_flash_bwd_f32_out(randn, dev, block) -> dict:
+    """K5, K3 and K4 at the ring's block with f32 outputs (the ring's
+    per-block gradients) against their plain versions, causal (the ring's
+    diagonal block) and full (a visible block), each timed beside its
+    bound, its plain version, SDPA's backward on the same block and the
+    same kernel writing bf16. Returns the records by kernel, then by mask
+    ("diag", "full")."""
+    import torch
+    import torch.nn.functional as F
+
+    from nvidia_terraform_modules_tpu_torch.ops.flash_attention import (
+        flash_attention_fwd,
+        flash_dkv,
+        flash_dkv_ref,
+        flash_dq,
+        flash_dq_ref,
+        flash_dqdkv,
+        flash_dqdkv_ref,
+    )
+    from nvidia_terraform_modules_tpu_torch.utils.timing import (
+        cuda_median_ms,
+        sync,
+    )
+
+    kernel_of = {"flash_bwd_fused": flash_dqdkv, "flash_dq": flash_dq,
+                 "flash_dkv": flash_dkv}
+    plain_of = {"flash_bwd_fused": flash_dqdkv_ref, "flash_dq": flash_dq_ref,
+                "flash_dkv": flash_dkv_ref}
+    b, s, h, d = block
+    main: dict = {name: {} for name in kernel_of}
+    for causal in (True, False):
+        q, k, v, do = (randn((b, s, h, d), torch.bfloat16) for _ in range(4))
+        o, lse = flash_attention_fwd(q, k, v, causal=causal)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse, delta)
+        kw = dict(scale=d ** -0.5, causal=causal)
+        f32 = dict(kw, out_dtype=torch.float32)
+        ref = flash_dqdkv_ref(*args, **f32)
+        got = {"flash_bwd_fused": flash_dqdkv(*args, **f32),
+               "flash_dq": (flash_dq(*args, **f32),),
+               "flash_dkv": flash_dkv(*args, **f32)}
+        sync()
+        ref_of = {"flash_bwd_fused": ref, "flash_dq": ref[:1],
+                  "flash_dkv": ref[1:]}
+        errs = {}
+        for name in kernel_of:
+            if any(g.dtype != torch.float32 for g in got[name]):
+                raise AssertionError(f"{name}: out_dtype float32 ignored")
+            errs[name] = grad_errors(got[name], ref_of[name], "bf16",
+                                     f"{name} f32 out causal={causal}")
+        del got, ref, ref_of
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        dot = do.transpose(1, 2)
+        library_ms = cuda_median_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True))
+        del out, qt, kt, vt
+        live = s * (s + 1) / 2 if causal else float(s * s)
+        n = b * s * h * d
+        for name, kernel in kernel_of.items():
+            nbytes = 4 * n * q.element_size() + BWD_OUTPUTS[name] * n * 4 \
+                + 2 * b * h * s * 4
+            bound_ms, bound_by = bound(BWD_FACTOR[name] * 4.0 * b * h * d
+                                       * live, nbytes, "bf16")
+            rec = dict(
+                kernel=name, shape=list(block), causal=causal,
+                max_abs_err=errs[name][0], rel_l2_err=errs[name][1],
+                ms=cuda_median_ms(lambda kernel=kernel: kernel(*args, **f32)),
+                ms_bf16_out=cuda_median_ms(
+                    lambda kernel=kernel: kernel(*args, **kw)),
+                plain_ms=cuda_median_ms(
+                    lambda name=name: plain_of[name](*args, **f32), iters=5,
+                    warmup=1),
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+            emit("kernel_flash_bwd_f32_out", **rec)
+            main[name]["diag" if causal else "full"] = rec
+    return main
+
+
+def _sp_inputs(dev, shape, seed):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev) for _ in range(4)]
+
+
+def _attn_grads(fn, q, k, v, w):
+    """``fn(q, k, v)`` and the gradients of ``sum(out · w)``."""
+    import torch
+
+    q, k, v = (x.detach().requires_grad_(True) for x in (q, k, v))
+    out = fn(q, k, v)
+    return [out.detach(), *torch.autograd.grad((out * w).sum(), (q, k, v))]
+
+
+def _sp_check(name, fn, dev, sp, expect) -> dict:
+    """f32 sequence-parallel attention ``fn(q, k, v, mesh, causal=...,
+    backward=...)`` on a mesh of ``sp`` members of the one card against
+    dense attention: the output and dQ/dK/dV held to ``BWD_TOL["f32"]``'s
+    max-abs and relative-L2 limits, and the launch counts of one forward +
+    backward to ``expect(sp, causal, backward)``."""
+    from nvidia_terraform_modules_tpu_torch.ops import (
+        _build,
+        dense_reference_attention,
+    )
+    from nvidia_terraform_modules_tpu_torch.parallel import (
+        build_mesh,
+        plan_mesh,
+    )
+    from nvidia_terraform_modules_tpu_torch.utils.timing import sync
+
+    mesh = build_mesh(plan_mesh(sp, tp=1, sp=sp), devices=[dev] * sp)
+    q, k, v, w = _sp_inputs(dev, RING_EXACT_SHAPE, seed=20 + sp)
+    recs = {}
+    for causal in (True, False):
+        ref = _attn_grads(lambda *a: dense_reference_attention(
+            *a, causal=causal), q, k, v, w)
+        for backward in ("fused", "split"):
+            _build.reset_launches()
+            got = _attn_grads(lambda *a: fn(*a, mesh, causal=causal,
+                                            impl="flash", backward=backward),
+                              q, k, v, w)
+            sync()
+            launches = {n: c for n, c in _build.launches.items() if c}
+            want = expect(sp, causal, backward)
+            if launches != want:
+                raise AssertionError(f"{name} sp={sp} causal={causal} "
+                                     f"{backward}: launches {launches}, "
+                                     f"expected {want}")
+            err_abs, err_l2 = grad_errors(
+                got, ref, "f32", f"{name} sp={sp} causal={causal} "
+                                 f"{backward}")
+            recs[f"causal={causal} {backward}"] = dict(
+                max_abs_err=err_abs, rel_l2_err=err_l2, launches=launches)
+    return recs
+
+
+def _ring_visits(sp, causal):
+    return sp * (sp + 1) // 2 if causal else sp * sp
+
+
+def ring_exact(dev) -> dict:
+    """The f32 ring (K2 + K5, and K2 + K3 + K4) on sp = 2 and 4 against
+    dense attention, forward and gradients; then planted faults — the last
+    visited block dropped from the forward, the dK/dV accumulators not
+    sent home in the backward — must fail the same check."""
+    import functools
+
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.ops import (
+        dense_reference_attention,
+        ring_attention,
+        ring_self_attention,
+    )
+    from nvidia_terraform_modules_tpu_torch.parallel import (
+        build_mesh,
+        plan_mesh,
+        ring_permute,
+    )
+
+    def expect(sp, causal, backward):
+        n = _ring_visits(sp, causal)
+        bwd = ({"flash_bwd_fused": n} if backward == "fused"
+               else {"flash_dq": n, "flash_dkv": n})
+        return {"flash_partial": n, **bwd}
+
+    out = {f"sp={sp}": _sp_check("ring", ring_self_attention, dev, sp,
+                                 expect) for sp in (2, RING_SP)}
+    sp = RING_SP
+    mesh = build_mesh(plan_mesh(sp, tp=1, sp=sp), devices=[dev] * sp)
+    q, k, v, w = _sp_inputs(dev, RING_EXACT_SHAPE, seed=20 + sp)
+    scale = q.shape[-1] ** -0.5
+    ref = _attn_grads(lambda *a: dense_reference_attention(*a), q, k, v, w)
+    hop = functools.partial(ring_permute, mesh=mesh, axis="sp", coords={})
+    calls = {"hop": 0, "k2": 0}
+    real_k2 = ring_attention.flash_partial
+
+    def hop_not_home(blocks):
+        # the backward hops K, V, dK and dV at each of its sp - 1 steps;
+        # the two after those are the home hops of dK and dV: left out
+        calls["hop"] += 1
+        return blocks if calls["hop"] > 4 * (sp - 1) else hop(blocks)
+
+    def k2_last_dropped(q_, k_, v_, **kw):
+        # the forward's last visited block folds a zero state
+        calls["k2"] += 1
+        o_b, m_b, l_b = real_k2(q_, k_, v_, **kw)
+        if calls["k2"] == _ring_visits(sp, True):
+            return (torch.zeros_like(o_b), torch.full_like(m_b, -1e30),
+                    torch.zeros_like(l_b))
+        return o_b, m_b, l_b
+
+    def chunks(x):
+        return list(x.chunk(sp, dim=1))
+
+    fwd = ring_attention._ring_flash_fwd
+    with torch.no_grad():
+        outs, lse = fwd(chunks(q), chunks(k), chunks(v), hop, True, scale)
+        grads = ring_attention._ring_flash_bwd(
+            chunks(q), chunks(k), chunks(v), outs, lse, chunks(w),
+            hop_not_home, True, scale, "fused")
+        ring_attention.flash_partial = k2_last_dropped
+        try:
+            dropped, _ = fwd(chunks(q), chunks(k), chunks(v), hop, True,
+                             scale)
+        finally:
+            ring_attention.flash_partial = real_k2
+    if calls != {"hop": 4 * (sp - 1) + 2, "k2": _ring_visits(sp, True)}:
+        raise AssertionError(f"planted faults: unexpected calls {calls}")
+    faults = []
+    for what, got in (
+            ("last visited block dropped", [torch.cat(dropped, 1)]
+             + ref[1:]),
+            ("dK/dV not sent home", [ref[0]] + [torch.cat(g, 1)
+                                                for g in grads])):
+        diff = [(a - r).abs().max().item() for a, r in zip(got, ref)]
+        try:
+            grad_errors(got, ref, "f32", f"planted fault: {what}")
+        except AssertionError:
+            faults.append({"fault": what, "max_abs_err": max(diff),
+                           "caught": True})
+            continue
+        raise AssertionError(f"planted fault not caught: {what} {diff}")
+    out["planted_faults"] = faults
+    out["shape"] = list(RING_EXACT_SHAPE)
+    return out
+
+
+def ulysses_exact(dev) -> dict:
+    """f32 Ulysses (K1 + K5, and K1 + K3 + K4, at the full sequence on
+    H/sp heads per member) on sp = 2 and 4 against dense attention,
+    forward and gradients."""
+    from nvidia_terraform_modules_tpu_torch.ops import ulysses_self_attention
+
+    def expect(sp, causal, backward):
+        bwd = ({"flash_bwd_fused": sp} if backward == "fused"
+               else {"flash_dq": sp, "flash_dkv": sp})
+        return {"flash_fwd": sp, **bwd}
+
+    return {f"sp={sp}": _sp_check("ulysses", ulysses_self_attention, dev, sp,
+                                  expect)
+            for sp in (2, RING_SP)} | {"shape": list(RING_EXACT_SHAPE)}
+
+
+def _ring_train(dev):
+    import dataclasses
+
+    from nvidia_terraform_modules_tpu_torch.parallel import (
+        build_mesh,
+        make_rules,
+        plan_mesh,
+    )
+
+    cfg, batch = _flagship_train(dev)
+    cfg = dataclasses.replace(cfg, attn="ring")
+    rules = make_rules(build_mesh(plan_mesh(RING_SP, tp=1, sp=RING_SP),
+                                  devices=[dev] * RING_SP))
+    return cfg, batch, rules
+
+
+def _as_f32(tree):
+    """A params-shaped dict/list tree with every leaf cast to f32."""
+    if isinstance(tree, dict):
+        return {k: _as_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_as_f32(t) for t in tree]
+    return tree.float()
+
+
+def _leaf_names(tree, prefix=""):
+    """The paths of a params-shaped tree's leaves, in ``tree_leaves``'
+    order."""
+    if isinstance(tree, dict):
+        return [n for k in tree for n in _leaf_names(tree[k],
+                                                     f"{prefix}{k}.")]
+    if isinstance(tree, list):
+        return [n for i, t in enumerate(tree)
+                for n in _leaf_names(t, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def train_ring_flagship(params, dev, flash_step_ms) -> tuple[dict, dict]:
+    """The flagship burn-in step with ``attn="ring"`` on a mesh of
+    ``RING_SP`` ring members on the one card: its loss on the flash step's
+    params and batch held to the flash step's within ``BWD_TOL["bf16"]``
+    and its gradients to an f32 step's as closely as the flash step's
+    (``RING_VS_FLASH``), SGD steps timed on the host clock, the launch
+    counts of one fused and one split step. Returns the phase record and
+    the timed run's launch counts."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        make_grads_fn,
+        make_train_step,
+        train_step_flops,
+        tree_leaves,
+    )
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+    from nvidia_terraform_modules_tpu_torch.utils.timing import (
+        sync,
+        synced_ms,
+    )
+
+    cfg, batch, rules = _ring_train(dev)
+    state = {"p": params}
+
+    # one gradient pass of the ring, of the flash step and of the flash
+    # step in f32 on the same params and batch. Two bf16 passes differ by
+    # their roundings by about 1e-2 relative L2 on some gradients, so each
+    # gradient of the ring is held to be no further from the f32 pass
+    # than the flash step's is (RING_VS_FLASH), and the loss to the flash
+    # step's within BWD_TOL["bf16"]
+    def grads_of(cfg_, rules_=None, p=params):
+        loss, grads = make_grads_fn(cfg_, rules_)(p, batch)
+        return loss.float(), [g.float() for g in tree_leaves(grads)]
+
+    flash_cfg = dataclasses.replace(cfg, attn="flash")
+    loss32, g32 = grads_of(dataclasses.replace(flash_cfg,
+                                               dtype=torch.float32),
+                           p=_as_f32(params))
+    loss_f, g_flash = grads_of(flash_cfg)
+    loss_r, g_ring = grads_of(cfg, rules)
+    grad_errors([loss_r], [loss_f], "bf16", "ring vs flash step loss")
+    tol_abs = BWD_TOL["bf16"][0]
+    leaves = []
+    for name, r, f, t in zip(_leaf_names(params), g_ring, g_flash, g32):
+        t_norm = t.norm().item()
+        ring_l2 = ((r - t).norm().item() / t_norm) if t_norm else 0.0
+        flash_l2 = ((f - t).norm().item() / t_norm) if t_norm else 0.0
+        err = (r - t).abs().max().item()
+        lim = tol_abs * max(1.0, t.abs().max().item())
+        l2_lim = max(BWD_TOL["f32"][1], RING_VS_FLASH * flash_l2)
+        leaves.append(dict(leaf=name, ring_rel_l2=ring_l2,
+                           flash_rel_l2=flash_l2, ring_max_abs=err))
+        if not (err <= lim and ring_l2 <= l2_lim):
+            raise AssertionError(
+                f"ring step gradient {name} against the f32 step: max-abs "
+                f"{err} (limit {lim}), relative L2 {ring_l2} (limit "
+                f"{l2_lim}; the flash step's {flash_l2})")
+    vs_flash = dict(
+        loss_f32=loss32.item(), loss_flash=loss_f.item(),
+        loss_ring=loss_r.item(),
+        worst_ring_rel_l2=max(leaves, key=lambda x: x["ring_rel_l2"]),
+        worst_ratio=max(leaves, key=lambda x: x["ring_rel_l2"]
+                        / max(x["flash_rel_l2"], 1e-30)),
+        ring_vs_flash_limit=RING_VS_FLASH)
+    del g32, g_flash, g_ring
+
+    def make_sgd(**over):
+        step = make_train_step(dataclasses.replace(cfg, **over), rules,
+                               lr=TRAIN_LR)
+
+        def run():
+            state["p"], loss = step(state["p"], batch)
+            return loss
+        return run
+
+    def counted(fn):
+        _build.reset_launches()
+        fn()
+        sync()
+        return dict(_build.launches)
+
+    visits = cfg.n_layers * _ring_visits(RING_SP, True)
+    sgd = make_sgd()
+    synced_ms(sgd, WARM_STEPS)
+    expect = {**{name: 0 for name in _build.launches},
+              "flash_partial": visits, "flash_bwd_fused": visits}
+    fused_launches = counted(sgd)
+    if fused_launches != expect:
+        raise AssertionError(f"ring step launches {fused_launches}, "
+                             f"expected {expect}")
+    split_launches = counted(make_sgd(flash_backward="split"))
+    if split_launches != {**expect, "flash_bwd_fused": 0,
+                          "flash_dq": visits, "flash_dkv": visits}:
+        raise AssertionError(f"ring split step launches {split_launches}")
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    losses, step_ms = synced_ms(sgd, TIMED_STEPS)
+    launches = dict(_build.launches)
+    losses = [loss.item() for loss in losses]
+    if launches != {k: c * TIMED_STEPS for k, c in expect.items()}:
+        raise AssertionError(f"timed ring steps launched {launches}")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"ring SGD loss did not fall: {losses}")
+    flops = train_step_flops(cfg)
+    rec = dict(config={**dataclasses.asdict(cfg), "dtype": "bfloat16"},
+               mesh={"sp": RING_SP, "devices": [str(dev)] * RING_SP},
+               train_step_flops=flops, lr=TRAIN_LR, step_ms=step_ms,
+               burnin_tokens_per_s=cfg.batch * cfg.seq_len / step_ms * 1e3,
+               burnin_mfu=flops / (step_ms / 1e3) / H100_PEAK["bf16"],
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               first_loss=losses[0], last_loss=losses[-1], losses=losses,
+               launches=launches, fused_step_launches=fused_launches,
+               split_step_launches=split_launches,
+               flash_step_ms=flash_step_ms,
+               vs_flash_step=step_ms / flash_step_ms,
+               grads_vs_flash_step=vs_flash)
+    return rec, launches
+
+
+def train_ring_profile(params, dev) -> dict:
+    """One ring SGD step under torch.profiler: device time by kernel
+    against the step's wall clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nvidia_terraform_modules_tpu_torch.models import make_train_step
+    from nvidia_terraform_modules_tpu_torch.utils.timing import sync
+
+    cfg, batch, rules = _ring_train(dev)
+    step = make_train_step(cfg, rules, lr=TRAIN_LR)
+    step(params, batch)                    # warm: allocator, cuBLAS plans
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        step(params, batch)
+        sync()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    return profile_summary(prof, wall_ms)
+
+
 def flagship_lengths() -> list[int]:
     from nvidia_terraform_modules_tpu_torch.utils.traffic import (
         ragged_lengths,
@@ -1283,6 +1805,18 @@ def main() -> int:
     emit("train_flagship", **rec)
     emit("train_profile", **train_profile(params, dev))
 
+    # -------------------------------------------- sequence-parallel train
+    # the ring's per-member block at the flagship: [B, S / sp, H, D]
+    ring_block = (train_shape[0], train_shape[1] // RING_SP, 16, 128)
+    k2 = kernel_flash_partial(randn, dev, ring_block)
+    bwd_f32 = kernel_flash_bwd_f32_out(randn, dev, ring_block)
+    emit("ring_exact", **ring_exact(dev))
+    emit("ulysses_exact", **ulysses_exact(dev))
+    ring_rec, ring_launches = train_ring_flagship(params, dev,
+                                                  rec["step_ms"])
+    emit("train_ring_flagship", **ring_rec)
+    emit("train_ring_profile", **train_ring_profile(params, dev))
+
     # --------------------------------------------------------- summary
     n_k1 = sum(c for c, _ in k1_main)
 
@@ -1342,13 +1876,46 @@ def main() -> int:
             "source": "nvidia_terraform_modules_tpu_torch/csrc/flash_bwd.cu",
             "replaces":
                 f"nvidia_terraform_modules_tpu/ops/flash_attention.py:{line}",
-            # K5's count is the timed fused steps'; K3's and K4's the
-            # split step's of the same phase
+            # K5's count is the timed fused steps' of the flash train
+            # path; K3's and K4's its split step's
             "launches": (train_launches[name] if name == "flash_bwd_fused"
                          else rec["split_step_launches"][name]),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # the ring's kernels at its block: the step's mix per layer — RING_SP
+    # diagonal (causal) and the rest fully visible blocks — weights each
+    # kernel's two records
+    n_diag = RING_SP
+    n_full = _ring_visits(RING_SP, True) - n_diag
+
+    def ring_mix(recs, key):
+        return (n_diag * recs["diag"][key] + n_full * recs["full"][key]) / (
+            n_diag + n_full)
+
+    def ring_row(name, source, line, launches_, recs):
+        return {
+            "name": name, "route": "cuda",
+            "source": f"nvidia_terraform_modules_tpu_torch/csrc/{source}",
+            "replaces":
+                f"nvidia_terraform_modules_tpu/ops/flash_attention.py:{line}",
+            "launches": launches_,
+            "max_abs_err": max(r["max_abs_err"] for r in recs.values()),
+            **{key: ring_mix(recs, key) for key in (
+                "ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": recs["full"]["bound_by"]}
+
+    kernels.append(ring_row("flash_partial", "flash_fwd.cu", 420,
+                            ring_launches["flash_partial"], k2))
+    # K5, K3 and K4 writing f32 (the ring's per-block gradients): K5's
+    # count is the ring's timed fused steps', K3's and K4's its split
+    # step's
+    for name, line in (("flash_bwd_fused", 724), ("flash_dq", 657),
+                       ("flash_dkv", 688)):
+        kernels.append(ring_row(
+            f"{name}_f32_out", "flash_bwd.cu", line,
+            ring_launches[name] if name == "flash_bwd_fused"
+            else ring_rec["split_step_launches"][name], bwd_f32[name]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,20 +3,23 @@
 """nvidia_terraform_modules_tpu_torch — the PyTorch / NVIDIA H100 port.
 
 A second package beside the JAX reference ``nvidia_terraform_modules_tpu``.
-It mirrors the reference's module names (``models/``, ``ops/``, ``utils/``)
-so every counterpart is easy to find, and it imports ``torch`` and
-``numpy`` only: nothing of JAX and nothing of the reference package — what
-it needs from there it keeps as its own copy.
+It mirrors the reference's module names (``models/``, ``ops/``,
+``parallel/``, ``utils/``) so every counterpart is easy to find, and it
+imports ``torch`` and ``numpy`` only: nothing of JAX and nothing of the
+reference package — what it needs from there it keeps as its own copy.
 
-The slice ported so far is the continuous-batching paged serve path:
+The slices ported so far:
 
-- :mod:`.models.burnin` — config, parameters and the inference forward;
-- :mod:`.models.decode` — cached and paged forwards, ``greedy_decode``;
-- :mod:`.models.paging` — the block allocator and the paged pool;
-- :mod:`.models.serving` — ``make_serve_engine`` (continuous batching);
-- :mod:`.ops.flash_attention` / :mod:`.ops.decode_attention` — the two
-  hand-written CUDA kernels of that path (sources in ``csrc/``), each with
-  its plain PyTorch version beside it.
+- :mod:`.models.serving` — ``make_serve_engine`` (continuous batching over
+  the paged pool of :mod:`.models.paging`, the forwards of
+  :mod:`.models.decode`), in bf16 and with int8 weights and cache
+  (:mod:`.models.quantize`);
+- :mod:`.models.burnin` / :mod:`.models.optimizer` — the burn-in train
+  step (SGD, AdamW), unsharded or with the sequence sharded over a mesh's
+  ``sp`` axis (:mod:`.parallel`, ring and Ulysses attention);
+- :mod:`.ops` — the hand-written CUDA kernels of those paths (sources in
+  ``csrc/``), each with its plain PyTorch version beside it, and the ring
+  and Ulysses attention built on them.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for ``device="cpu"``; on a CPU tensor every kernel wrapper runs its plain

@@ -15,7 +15,11 @@
 // P is rounded to dO's dtype before dV = P^T dO, dS to q's / k's dtype
 // before dK = dS^T Q and dQ = dS K, and the scale multiplies dQ and dK at
 // finalize. Inputs are MHA [B, S, H, D] (contiguous); LSE and delta are
-// [B, H, S] f32.
+// [B, H, S] f32. The gradients are written in the inputs' dtype or, for
+// ring attention's per-block calls (`out_dtype=jnp.float32` in the
+// reference's ring backward), in f32: the output type TO is a template
+// parameter, so dq_finalize writes ws·scale as f32 and dK/dV leave their
+// f32 accumulators uncast.
 //
 // What bounds them on the H100: per (batch, head) the fused pass does five
 // 64x64xD tile products per live tile (2.5x the forward's FLOPs), the split
@@ -163,13 +167,13 @@ __device__ void load_rows(float* lse_s, float* delta_s, const float* lse,
 
 // flash_dkv (kFused = false) and flash_bwd_fused (kFused = true): one CTA per
 // (64-row k block, b·h).
-template <typename T, bool kFused>
+template <typename T, typename TO, bool kFused>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ ws,
-                    T* __restrict__ dk, T* __restrict__ dv, int seq,
+                    TO* __restrict__ dk, TO* __restrict__ dv, int seq,
                     int heads, int d, float scale, int mask, int window) {
   constexpr bool kInPlace = sizeof(T) == sizeof(float);
   const int ldt = ld_tile<T>(d), lda = ld_acc<T>(d);
@@ -249,18 +253,18 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = i / d, c = i - r * d;
     const int kp = k0 + r;
     if (kp >= seq) break;
-    dk[base + kp * ss + c] = from_f32<T>(dk_acc[r * lda + c] * scale);
-    dv[base + kp * ss + c] = from_f32<T>(dv_acc[r * lda + c]);
+    dk[base + kp * ss + c] = from_f32<TO>(dk_acc[r * lda + c] * scale);
+    dv[base + kp * ss + c] = from_f32<TO>(dv_acc[r * lda + c]);
   }
 }
 
 // flash_dq: one CTA per (64-row q block, b·h).
-template <typename T>
+template <typename T, typename TO>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
-                T* __restrict__ dq, int seq, int heads, int d, float scale,
+                TO* __restrict__ dq, int seq, int heads, int d, float scale,
                 int mask, int window) {
   constexpr bool kInPlace = sizeof(T) == sizeof(float);
   const int ldt = ld_tile<T>(d), lda = ld_acc<T>(d);
@@ -326,18 +330,18 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = i / d, c = i - r * d;
     const int qp = q0 + r;
     if (qp >= seq) break;
-    dq[base + qp * ss + c] = from_f32<T>(dq_acc[r * lda + c] * scale);
+    dq[base + qp * ss + c] = from_f32<TO>(dq_acc[r * lda + c] * scale);
   }
 }
 
-template <typename T>
+template <typename TO>
 __global__ void dq_finalize_kernel(const float* __restrict__ ws,
-                                   T* __restrict__ dq, long long n,
+                                   TO* __restrict__ dq, long long n,
                                    float scale) {
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        i < n; i += static_cast<long long>(gridDim.x) * blockDim.x)
-    dq[i] = from_f32<T>(ws[i] * scale);
+    dq[i] = from_f32<TO>(ws[i] * scale);
 }
 
 struct Args {
@@ -359,37 +363,37 @@ size_t kv_smem(int d) {
          + 2 * kBQ * 4;                                      // LSE, delta
 }
 
-template <typename T, bool kFused>
+template <typename T, typename TO, bool kFused>
 int launch_kv(const Args& a, float* ws, void* dk, void* dv) {
   const size_t smem = kv_smem<T>(a.d);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_kv_kernel<T, kFused>,
+      flash_bwd_kv_kernel<T, TO, kFused>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((a.seq + kBK - 1) / kBK, a.batch * a.heads);
-  flash_bwd_kv_kernel<T, kFused><<<grid, kThreads, smem, a.stream>>>(
+  flash_bwd_kv_kernel<T, TO, kFused><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, ws, static_cast<T*>(dk), static_cast<T*>(dv), a.seq, a.heads,
-      a.d, a.scale, a.mask, a.window);
+      a.delta, ws, static_cast<TO*>(dk), static_cast<TO*>(dv), a.seq,
+      a.heads, a.d, a.scale, a.mask, a.window);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, typename TO>
 int launch_fused(const Args& a, float* ws, void* dq, void* dk, void* dv) {
   const long long n = static_cast<long long>(a.batch) * a.seq * a.heads * a.d;
   cudaError_t e = cudaMemsetAsync(ws, 0, n * sizeof(float), a.stream);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int rc = launch_kv<T, true>(a, ws, dk, dv);
+  const int rc = launch_kv<T, TO, true>(a, ws, dk, dv);
   if (rc) return rc;
   const long long blocks = (n + 255) / 256;
-  dq_finalize_kernel<T><<<static_cast<int>(blocks < 4096 ? blocks : 4096),
-                          256, 0, a.stream>>>(ws, static_cast<T*>(dq), n,
-                                              a.scale);
+  dq_finalize_kernel<TO><<<static_cast<int>(blocks < 4096 ? blocks : 4096),
+                           256, 0, a.stream>>>(ws, static_cast<TO*>(dq), n,
+                                               a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, typename TO>
 int launch_dq(const Args& a, void* dq) {
   constexpr size_t elt = sizeof(T);
   const size_t smem =
@@ -399,67 +403,99 @@ int launch_dq(const Args& a, void* dq) {
       + static_cast<size_t>(kBQ) * ld_acc<T>(a.d) * 4          // dQ acc
       + 2 * kBQ * 4;                                           // LSE, delta
   cudaError_t e = cudaFuncSetAttribute(
-      flash_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_dq_kernel<T, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((a.seq + kBQ - 1) / kBQ, a.batch * a.heads);
-  flash_dq_kernel<T><<<grid, kThreads, smem, a.stream>>>(
+  flash_dq_kernel<T, TO><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(dq), a.seq, a.heads, a.d, a.scale, a.mask,
+      a.delta, static_cast<TO*>(dq), a.seq, a.heads, a.d, a.scale, a.mask,
       a.window);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool valid(const Args& a, int dtype) {
+// the inputs' dtype and the gradients': (bf16, bf16), (bf16, f32) or
+// (f32, f32)
+bool valid(const Args& a, int dtype, int out_dtype) {
   return a.d % 16 == 0 && a.d >= 16 && a.d <= 128 && a.seq >= 1 &&
          a.batch >= 1 && a.heads >= 1 && a.mask >= kCausal &&
          a.mask <= kWindow && (a.mask != kWindow || a.window >= 1) &&
-         (dtype == kF32 || dtype == kBF16);
+         (dtype == kF32 || dtype == kBF16) &&
+         (out_dtype == dtype || out_dtype == kF32);
 }
+
+// Instantiate `Launch` for the (input, output) element types of the codes.
+template <template <typename, typename> class Launch, typename... A>
+int dispatch(int dtype, int out_dtype, A&&... args) {
+  if (dtype == kF32) return Launch<float, float>::run(args...);
+  if (out_dtype == kF32)
+    return Launch<__nv_bfloat16, float>::run(args...);
+  return Launch<__nv_bfloat16, __nv_bfloat16>::run(args...);
+}
+
+template <typename T, typename TO>
+struct Fused {
+  static int run(const Args& a, float* ws, void* dq, void* dk, void* dv) {
+    return launch_fused<T, TO>(a, ws, dq, dk, dv);
+  }
+};
+template <typename T, typename TO>
+struct Dkv {
+  static int run(const Args& a, void* dk, void* dv) {
+    return launch_kv<T, TO, false>(a, nullptr, dk, dv);
+  }
+};
+template <typename T, typename TO>
+struct Dq {
+  static int run(const Args& a, void* dq) { return launch_dq<T, TO>(a, dq); }
+};
 
 }  // namespace
 
 // q, k, v, dout: contiguous [B, S, H, D]; lse, delta: [B, H, S] f32;
-// outputs in the inputs' layout and dtype; ws: f32 [B, S, H, D] scratch.
+// outputs in the inputs' layout, in the dtype of `out_dtype`; ws: f32
+// [B, S, H, D] scratch.
 extern "C" int tk_flash_bwd_fused(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta,
                                   void* ws, void* dq, void* dk, void* dv,
                                   int batch, int seq, int heads, int d,
                                   float scale, int mask, int window,
-                                  int dtype, void* stream) {
+                                  int dtype, int out_dtype, void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta), batch, seq, heads, d,
                scale, mask, window, static_cast<cudaStream_t>(stream)};
-  if (!valid(a, dtype)) return static_cast<int>(cudaErrorInvalidValue);
-  float* w = static_cast<float*>(ws);
-  return dtype == kBF16 ? launch_fused<__nv_bfloat16>(a, w, dq, dk, dv)
-                        : launch_fused<float>(a, w, dq, dk, dv);
+  if (!valid(a, dtype, out_dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<Fused>(dtype, out_dtype, a, static_cast<float*>(ws), dq,
+                         dk, dv);
 }
 
 extern "C" int tk_flash_dkv(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dk, void* dv, int batch,
                             int seq, int heads, int d, float scale, int mask,
-                            int window, int dtype, void* stream) {
+                            int window, int dtype, int out_dtype,
+                            void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta), batch, seq, heads, d,
                scale, mask, window, static_cast<cudaStream_t>(stream)};
-  if (!valid(a, dtype)) return static_cast<int>(cudaErrorInvalidValue);
-  return dtype == kBF16 ? launch_kv<__nv_bfloat16, false>(a, nullptr, dk, dv)
-                        : launch_kv<float, false>(a, nullptr, dk, dv);
+  if (!valid(a, dtype, out_dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<Dkv>(dtype, out_dtype, a, dk, dv);
 }
 
 extern "C" int tk_flash_dq(const void* q, const void* k, const void* v,
                            const void* dout, const void* lse,
                            const void* delta, void* dq, int batch, int seq,
                            int heads, int d, float scale, int mask,
-                           int window, int dtype, void* stream) {
+                           int window, int dtype, int out_dtype,
+                           void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta), batch, seq, heads, d,
                scale, mask, window, static_cast<cudaStream_t>(stream)};
-  if (!valid(a, dtype)) return static_cast<int>(cudaErrorInvalidValue);
-  return dtype == kBF16 ? launch_dq<__nv_bfloat16>(a, dq)
-                        : launch_dq<float>(a, dq);
+  if (!valid(a, dtype, out_dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<Dq>(dtype, out_dtype, a, dq);
 }

@@ -1,12 +1,12 @@
 # SPDX-FileCopyrightText: Copyright (c) 2026 tpu-terraform-modules authors. All rights reserved.
 # SPDX-License-Identifier: Apache-2.0
-"""The burn-in transformer — the port of the reference's ``models/burnin.py``,
-unsharded: :class:`BurnInConfig`, :func:`apply_rope`, :func:`init_params`
-(the same dict layout), the inference-only :func:`forward` (the decode
-oracle), and the training side — the differentiable
-:func:`forward_and_aux`, :func:`loss_fn`, :func:`synthetic_batch`,
-:func:`grad_accum` / :func:`make_grads_fn`, the SGD :func:`make_train_step`
-and :func:`train_step_flops` (AdamW is in ``models/optimizer.py``).
+"""The burn-in transformer — the port of the reference's ``models/burnin.py``:
+:class:`BurnInConfig`, :func:`apply_rope`, :func:`init_params` (the same
+dict layout), the inference-only :func:`forward` (the decode oracle), and
+the training side — the differentiable :func:`forward_and_aux`,
+:func:`loss_fn`, :func:`synthetic_batch`, :func:`grad_accum` /
+:func:`make_grads_fn`, the SGD :func:`make_train_step` and
+:func:`train_step_flops` (AdamW is in ``models/optimizer.py``).
 
 Parameters are a plain dict of tensors: ``embed [vocab, d]``, ``out_norm``
 and ``layers[i]`` holding ``attn_norm``/``wq``/``wk``/``wv``/``wo``/
@@ -14,9 +14,19 @@ and ``layers[i]`` holding ``attn_norm``/``wq``/``wk``/``wv``/``wo``/
 the same shape. A train step is functional, as the reference's jitted step
 is: it returns new parameters and leaves the caller's unchanged.
 
-Not carried from the reference: the sharded ``rules`` (raise
-``NotImplementedError``), the telemetry wrapper ``instrument_step``, and
-the TPU's tile levers ``flash_pipeline`` / ``flash_block_q`` /
+Sharding ``rules`` (``parallel.make_rules``) carry a mesh. With a mesh of
+``sp`` alone, ``attn="ring"`` runs ``ring_self_attention`` (K2 per
+visiting block, K5 or K3 + K4 in the backward) and ``attn="ulysses"``
+``ulysses_self_attention``, the sequence sharded over the mesh's devices;
+every other op runs on the global tensors on the mesh's first device, where
+the parameters and the batch live (the reference's activation constraints
+are layout only, so the numbers are the same). Without rules, ring and
+ulysses run dense attention, as in the reference. A mesh with ``dp`` or
+``tp`` (or any axis but ``sp``) above 1 raises ``NotImplementedError``: the
+port does not shard parameters or the batch yet.
+
+Not carried from the reference: the telemetry wrapper ``instrument_step``
+and the TPU's tile levers ``flash_pipeline`` / ``flash_block_q`` /
 ``flash_block_k`` (the CUDA kernels have one fixed 64x64 tiling).
 """
 
@@ -29,12 +39,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.flash_attention import (
-    NEG_INF,
-    MaskSpec,
-    flash_attention,
-    mask_live_frac,
-)
+from ..ops.flash_attention import MaskSpec, flash_attention, mask_live_frac
+from ..ops.ring_attention import dense_reference_attention, ring_self_attention
+from ..ops.ulysses_attention import ulysses_self_attention
 from ..utils.layers import dense_init
 from ..utils.layers import rmsnorm as _rmsnorm
 
@@ -161,13 +168,14 @@ def _check_params(params: dict, dev: torch.device) -> None:
 
 
 def init_params(cfg: BurnInConfig, generator: torch.Generator | None = None,
-                device="cuda") -> dict:
+                device="cuda", rules=None) -> dict:
     """Seeded parameters in the reference's dict layout, drawn in f32 from
     ``generator`` (default: seed 0 on ``device``) and cast to
-    ``cfg.dtype``. The draws differ from the reference's ``jax.random``
-    ones; parity tests load the reference's weights through
-    :func:`..convert.params_from_numpy` instead."""
-    dev = check_device(device)
+    ``cfg.dtype``; with ``rules``, on the mesh's first device. The draws
+    differ from the reference's ``jax.random`` ones; parity tests load the
+    reference's weights through :func:`..convert.params_from_numpy`
+    instead."""
+    dev = _device(device, rules)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     if generator.device.type != dev.type:
@@ -201,22 +209,6 @@ def mlp(h: torch.Tensor, layer: dict, dtype: torch.dtype) -> torch.Tensor:
     default of the reference's ``jax.nn.gelu`` — then back to ``dtype``."""
     u = F.gelu((h @ layer["up"]).float(), approximate="tanh").to(dtype)
     return u @ layer["down"]
-
-
-def dense_attention(q, k, v, scale: float, window: int | None = None):
-    """Causal softmax attention on ``[B, S, H, D]`` — the reference's
-    ``dense_reference_attention``: f32 scores, softmax, probabilities cast
-    to ``v.dtype`` for the PV product with f32 accumulation. ``window``
-    keeps only keys with ``q - k < window``."""
-    s = q.shape[1]
-    sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    keep = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
-    if window is not None:
-        keep = keep.triu(1 - window)
-    sc = torch.where(keep, sc, NEG_INF)
-    p = torch.softmax(sc, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
-    return out.to(q.dtype)
 
 
 @torch.inference_mode()
@@ -255,23 +247,43 @@ def _tree_unflatten(tree, leaves):
     return _tree_map(lambda _: next(it), tree)
 
 
-def _no_rules(rules) -> None:
-    if rules is not None:
+def _check_rules(rules) -> None:
+    """Refuse what the port cannot run yet: a mesh with an axis other than
+    ``sp`` above 1 (parameter and batch sharding)."""
+    if rules is None:
+        return
+    big = {a: n for a, n in rules.mesh.shape.items() if a != "sp" and n > 1}
+    if big:
         raise NotImplementedError(
-            "sharded training (rules=) is not ported yet — ROADMAP.md, "
-            "Queue A item 6: parallel/")
+            f"sharded training over {big} (parameters and batch over dp/tp) "
+            f"is not ported yet — ROADMAP.md, Queue A item 6: parallel/; "
+            f"the port's meshes shard the sequence (sp) alone")
+
+
+def _device(device, rules) -> torch.device:
+    """The entry point's device: with ``rules``, the mesh's first device
+    (where parameters and batch live), otherwise ``device``."""
+    _check_rules(rules)
+    if rules is not None:
+        device = rules.mesh.devices.flat[0]
+    return check_device(device)
 
 
 def forward_and_aux(params: dict, tokens: torch.Tensor, cfg: BurnInConfig,
                     rules=None):
-    """Differentiable, unsharded forward → ``(logits [B, S, vocab], aux)``;
-    ``aux`` (the MoE load-balance loss in the reference) is 0.0 for the
-    dense model. Attention runs through :class:`FlashAttention` (K1
-    forward; K5, or K3 + K4, backward) with ``attn="flash"`` and through
-    :func:`dense_attention` otherwise; GQA repeats K/V to the query heads
-    first, as the reference does, so autograd sums dK/dV over each group.
-    ``cfg.remat`` recomputes each block in the backward."""
-    _no_rules(rules)
+    """Differentiable forward → ``(logits [B, S, vocab], aux)``; ``aux``
+    (the MoE load-balance loss in the reference) is 0.0 for the dense
+    model. Attention runs through :class:`FlashAttention` (K1 forward; K5,
+    or K3 + K4, backward) with ``attn="flash"``, through the ring or
+    Ulysses over ``rules.mesh`` with ``attn="ring"``/``"ulysses"`` and
+    rules, and through :func:`dense_reference_attention` otherwise; GQA
+    repeats K/V to the query heads first, as the reference does, so
+    autograd sums dK/dV over each group. ``cfg.remat`` recomputes each
+    block in the backward."""
+    _check_rules(rules)
+    sharded = None if rules is None else {
+        "ring": ring_self_attention,
+        "ulysses": ulysses_self_attention}.get(cfg.attn)
     b, s = tokens.shape
     scale = 1.0 / (cfg.head_dim ** 0.5)
     rep = cfg.n_heads // cfg.kv_heads
@@ -290,11 +302,17 @@ def forward_and_aux(params: dict, tokens: torch.Tensor, cfg: BurnInConfig,
         if rep > 1:
             k = k.repeat_interleave(rep, dim=2)
             v = v.repeat_interleave(rep, dim=2)
-        if cfg.attn == "flash":
+        if sharded is not None:
+            attn = sharded(q, k, v, rules.mesh, causal=True, scale=scale,
+                           spec=rules.act("sp", "tp", None),
+                           backward=cfg.flash_backward)
+        elif cfg.attn == "flash":
             attn = flash_attention(q, k, v, causal=True, scale=scale,
                                    mask=mask, backward=cfg.flash_backward)
         else:
-            attn = dense_attention(q, k, v, scale, window=cfg.flash_window)
+            attn = dense_reference_attention(q, k, v, causal=True,
+                                             scale=scale,
+                                             window=cfg.flash_window)
         x = x + attn.reshape(b, s, cfg.d_model) @ layer["wo"]
         return x + mlp(_rmsnorm(x, layer["mlp_norm"]), layer, cfg.dtype)
 
@@ -338,12 +356,13 @@ def loss_fn(params: dict, batch, cfg: BurnInConfig,
 
 
 def synthetic_batch(generator: torch.Generator, cfg: BurnInConfig,
-                    device="cuda"):
+                    device="cuda", rules=None):
     """Deterministic synthetic LM batch ``(tokens, targets)``, each
     ``[batch, seq_len]`` int64: the next token of a random stream drawn
-    from ``generator`` (on ``device``). Its numbers differ from the
-    reference's ``jax.random`` ones."""
-    dev = check_device(device)
+    from ``generator`` (on ``device``; with ``rules``, on the mesh's first
+    device). Its numbers differ from the reference's ``jax.random``
+    ones."""
+    dev = _device(device, rules)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, batch on {dev}")
     stream = torch.randint(0, cfg.vocab, (cfg.batch, cfg.seq_len + 1),
@@ -351,7 +370,7 @@ def synthetic_batch(generator: torch.Generator, cfg: BurnInConfig,
     return stream[:, :-1], stream[:, 1:]
 
 
-def _value_and_grad(cfg: BurnInConfig) -> Callable:
+def _value_and_grad(cfg: BurnInConfig, rules=None) -> Callable:
     """``(params, batch) → (loss, grads)``: the loss (detached) and its
     gradient for every leaf, in the params' dict layout and dtype."""
 
@@ -359,7 +378,7 @@ def _value_and_grad(cfg: BurnInConfig) -> Callable:
         with torch.enable_grad():
             live = _tree_map(lambda p: p.detach().requires_grad_(True),
                              params)
-            loss = loss_fn(live, batch, cfg)
+            loss = loss_fn(live, batch, cfg, rules)
             grads = torch.autograd.grad(loss, tree_leaves(live))
         return loss.detach(), _tree_unflatten(params, grads)
 
@@ -401,18 +420,20 @@ def make_grads_fn(cfg: BurnInConfig, rules=None,
     """``(params, batch) → (loss, grads)`` — the gradient pass both train
     steps (SGD here, AdamW in ``models/optimizer.py``) share, with optional
     microbatch accumulation."""
-    _no_rules(rules)
-    vg = _value_and_grad(cfg)
+    _check_rules(rules)
+    vg = _value_and_grad(cfg, rules)
     return vg if accum_steps == 1 else grad_accum(vg, accum_steps)
 
 
 def make_train_step(cfg: BurnInConfig, rules=None, lr: float = 1e-3,
                     accum_steps: int = 1, *, device="cuda") -> Callable:
     """SGD train step ``step(params, batch) → (params, loss)`` on
-    ``device``: ``p − lr·g.to(p.dtype)`` for every leaf, into new tensors.
-    ``accum_steps > 1`` runs the batch as that many microbatches through
-    :func:`grad_accum`; it composes with ``cfg.remat``."""
-    dev = check_device(device)
+    ``device`` (with ``rules``: the mesh's first device, the attention
+    sharded over its ``sp`` axis): ``p − lr·g.to(p.dtype)`` for every leaf,
+    into new tensors. ``accum_steps > 1`` runs the batch as that many
+    microbatches through :func:`grad_accum`; it composes with
+    ``cfg.remat``."""
+    dev = _device(device, rules)
     grads_of = make_grads_fn(cfg, rules, accum_steps)
 
     def step(params, batch):

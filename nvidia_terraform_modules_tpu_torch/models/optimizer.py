@@ -108,6 +108,10 @@ def make_adamw_train_step(cfg: BurnInConfig, rules=None,
     """``(init_opt_state, step)`` on ``device``, with
     ``step(params, opt_state, batch) → (params, opt_state, loss)``;
     ``accum_steps > 1`` microbatches the gradient pass."""
+    if rules is not None:
+        raise NotImplementedError(
+            "the sharded AdamW step (rules=, ZeRO-1 moments over dp) is not "
+            "ported yet — ROADMAP.md, Queue A item 6: parallel/")
     dev = check_device(device)
     opt = opt or AdamWConfig()
     grads_of = make_grads_fn(cfg, rules, accum_steps)

@@ -1,8 +1,9 @@
 # SPDX-FileCopyrightText: Copyright (c) 2026 tpu-terraform-modules authors. All rights reserved.
 # SPDX-License-Identifier: Apache-2.0
-"""The port's kernel wrappers: each launches its hand-written CUDA kernel on
+"""The port's kernel wrappers — each launches its hand-written CUDA kernel on
 a CUDA tensor (sources in ``../csrc``, built by :mod:`._build`) and runs its
-plain PyTorch version (``*_ref``) on a CPU tensor."""
+plain PyTorch version (``*_ref``) on a CPU tensor — and the
+sequence-parallel attention built on them (ring and Ulysses)."""
 
 from ._build import launches, reset_launches
 from .decode_attention import (
@@ -24,11 +25,26 @@ from .flash_attention import (
     flash_dq_ref,
     flash_dqdkv,
     flash_dqdkv_ref,
+    flash_partial,
+    flash_partial_ref,
 )
 from .int8_matmul import int8_matmul, int8_matmul_ref
+from .ring_attention import (
+    RingFlash,
+    dense_reference_attention,
+    ring_attention_kernel,
+    ring_flash_attention_kernel,
+    ring_self_attention,
+)
+from .ulysses_attention import (
+    ulysses_attention_kernel,
+    ulysses_self_attention,
+)
 
 __all__ = [
     "FlashAttention",
+    "RingFlash",
+    "dense_reference_attention",
     "flash_attention",
     "flash_attention_fwd",
     "flash_attention_ref",
@@ -39,6 +55,8 @@ __all__ = [
     "flash_dq_ref",
     "flash_dqdkv",
     "flash_dqdkv_ref",
+    "flash_partial",
+    "flash_partial_ref",
     "int8_kv_decode_attention",
     "int8_matmul",
     "int8_matmul_ref",
@@ -48,4 +66,9 @@ __all__ = [
     "paged_decode_attention",
     "paged_decode_attention_ref",
     "reset_launches",
+    "ring_attention_kernel",
+    "ring_flash_attention_kernel",
+    "ring_self_attention",
+    "ulysses_attention_kernel",
+    "ulysses_self_attention",
 ]

@@ -35,7 +35,8 @@ _LIB_NAME = "libkernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-launches: dict[str, int] = {"flash_fwd": 0, "paged_decode": 0,
+launches: dict[str, int] = {"flash_fwd": 0, "flash_partial": 0,
+                            "paged_decode": 0,
                             "paged_decode_int8": 0, "kv_decode": 0,
                             "int8_matmul": 0, "flash_bwd_fused": 0,
                             "flash_dq": 0, "flash_dkv": 0}
@@ -52,6 +53,11 @@ _SIGNATURES = {
     # scale, mask kind, window, dtype code, stream
     "tk_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
     + [_L] * 12 + [_F, _I, _I, _I, _P],
+    # q, k, v, acc (f32, contiguous), m, l, B, Sq, Sk, H, KV, D, 3×3
+    # strides (q, k, v: b, s, h), scale, mask kind, window, dtype code,
+    # stream
+    "tk_flash_partial": [_P] * 6 + [_I] * 6 + [_L] * 9
+    + [_F, _I, _I, _I, _P],
     # q, k_pool, v_pool, k_scale, v_scale (None: a bf16/f32 pool), tables,
     # pos, out, B, H, KV, D, block size, table width, scale, dtype code,
     # stream
@@ -63,14 +69,14 @@ _SIGNATURES = {
     # code, stream
     "tk_int8_matmul": [_P] * 5 + [_I] * 6 + [_P],
     # q, k, v, dout, lse, delta, ws, dq, dk, dv, B, S, H, D, scale,
-    # mask kind, window, dtype code, stream
-    "tk_flash_bwd_fused": [_P] * 10 + [_I] * 4 + [_F, _I, _I, _I, _P],
+    # mask kind, window, dtype code, output dtype code, stream
+    "tk_flash_bwd_fused": [_P] * 10 + [_I] * 4 + [_F, _I, _I, _I, _I, _P],
     # q, k, v, dout, lse, delta, dk, dv, B, S, H, D, scale, mask kind,
-    # window, dtype code, stream
-    "tk_flash_dkv": [_P] * 8 + [_I] * 4 + [_F, _I, _I, _I, _P],
+    # window, dtype code, output dtype code, stream
+    "tk_flash_dkv": [_P] * 8 + [_I] * 4 + [_F, _I, _I, _I, _I, _P],
     # q, k, v, dout, lse, delta, dq, B, S, H, D, scale, mask kind, window,
-    # dtype code, stream
-    "tk_flash_dq": [_P] * 7 + [_I] * 4 + [_F, _I, _I, _I, _P],
+    # dtype code, output dtype code, stream
+    "tk_flash_dq": [_P] * 7 + [_I] * 4 + [_F, _I, _I, _I, _I, _P],
 }
 
 

@@ -2,12 +2,14 @@
 # SPDX-License-Identifier: Apache-2.0
 """Flash attention on ``[B, S, H, D]`` — the port of the reference's
 ``ops/flash_attention.py``: the forward (``flash_attention`` → ``_fwd``),
-the backward kernels (``flash_dqdkv``, ``flash_dq``, ``flash_dkv``) and the
-``custom_vjp`` that joins them (:class:`FlashAttention`).
+the partial forward of ring attention (``flash_partial``), the backward
+kernels (``flash_dqdkv``, ``flash_dq``, ``flash_dkv``, with ``out_dtype``
+for the ring's f32 per-block gradients) and the ``custom_vjp`` that joins
+them (:class:`FlashAttention`).
 
-Each kernel wrapper — :func:`flash_attention_fwd` (``csrc/flash_fwd.cu``),
-:func:`flash_dqdkv`, :func:`flash_dq` and :func:`flash_dkv`
-(``csrc/flash_bwd.cu``) — launches its hand-written kernel on a CUDA
+Each kernel wrapper — :func:`flash_attention_fwd` and
+:func:`flash_partial` (``csrc/flash_fwd.cu``), :func:`flash_dqdkv`,
+:func:`flash_dq` and :func:`flash_dkv` (``csrc/flash_bwd.cu``) — launches its hand-written kernel on a CUDA
 tensor (or raises) and runs its plain PyTorch version (the ``*_ref``
 function of the same name) on a CPU tensor. There is no other dispatch and
 no fallback.
@@ -131,25 +133,31 @@ def _fit_block(s: int, want: int | None) -> int:
     return b if b >= 8 else 0
 
 
-def pick_impl(impl: str | None, seq_len: int, what: str) -> str:
-    """The flash/dense selection: ``None`` picks "flash" when ``seq_len``
+def pick_impl(impl: str | None, seq_len: int, what: str,
+              device: torch.device | None = None) -> str:
+    """The flash/dense selection; an explicit impl is validated and passed
+    through. ``None`` on a CUDA ``device`` picks "flash" at every length:
+    the CUDA kernels zero-fill and mask ragged tails. Elsewhere it is the
+    reference's rule on its production device: "flash" when ``seq_len``
     tiles into 8-multiple blocks (every 8-multiple length), "dense"
-    otherwise; an explicit impl is validated and passed through. This is
-    the reference's rule on its production device; its extra clause for
-    the CPU interpreter (every ``seq_len <= 8`` counts as flash there) is
-    not carried, because the port's kernel is the production path."""
+    otherwise. The reference's extra clause for the CPU interpreter (every
+    ``seq_len <= 8`` counts as flash there) is not carried, because the
+    port's kernel is the production path."""
     if impl not in (None, "dense", "flash"):
         raise ValueError(f"unknown {what} impl {impl!r}; use dense|flash")
     if impl is not None:
         return impl
+    if device is not None and torch.device(device).type == "cuda":
+        return "flash"
     return "flash" if _fit_block(seq_len, None) >= 8 else "dense"
 
 
-def _check_qkv(q, k, v):
+def _check_qkv(q, k, v, same_len: bool = True):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash attention takes [B, S, H, D] tensors")
     b, s, h, d = q.shape
-    if k.shape != v.shape or k.shape[:2] != (b, s) or k.shape[3] != d:
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d or (
+            same_len and k.shape[1] != s):
         raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
     kv = k.shape[2]
@@ -162,40 +170,56 @@ def _check_qkv(q, k, v):
         raise ValueError("q, k and v must be on one device")
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True,
-                        scale: float | None = None, mask=None):
-    """The plain PyTorch version: ``(o [B,S,H,D] in q.dtype, lse [B,H,S]
-    f32)`` with the kernel's numerics in one tile — f32 scores from
-    input-dtype operands, the scale after the product, finite -1e30
-    masking, unnormalised P rounded to ``v.dtype`` before the PV product,
-    ``lse = m + log(max(l, 1e-30))``."""
-    _check_qkv(q, k, v)
+def flash_partial_ref(q, k, v, *, scale: float, causal: bool = True,
+                      mask=None):
+    """The plain version of K2 (:func:`flash_partial`): the UNNORMALISED
+    online-softmax state ``(acc f32 [B,Sq,H,D], m f32 [B,H,Sq], l f32
+    [B,H,Sq])`` in one tile — f32 scores from input-dtype operands, the
+    scale after the product, finite -1e30 masking in LOCAL positions
+    (query ``i`` against key ``j``), ``p = 0`` where ``s <= -1e30 / 2``,
+    P rounded to ``v.dtype`` before the PV product, no final division.
+    ``k``/``v`` may be longer or shorter than ``q``."""
+    _check_qkv(q, k, v, same_len=False)
     spec = as_mask_spec(mask, causal)
-    b, s, h, d = q.shape
-    if scale is None:
-        scale = 1.0 / (d ** 0.5)
-    rep = h // k.shape[2]
+    rep = q.shape[2] // k.shape[2]
     if rep > 1:
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
     sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if spec.kind != "full":
-        idx = torch.arange(s, device=q.device)
-        keep = idx[:, None] >= idx[None, :]
+        qi = torch.arange(q.shape[1], device=q.device)[:, None]
+        ki = torch.arange(k.shape[1], device=q.device)[None, :]
+        keep = qi >= ki
         if spec.kind == "window":
-            keep &= (idx[:, None] - idx[None, :]) < spec.window
+            keep &= (qi - ki) < spec.window
         sc = torch.where(keep, sc, torch.full_like(sc, NEG_INF))
-    m = sc.amax(dim=-1, keepdim=True)
+    m = sc.amax(dim=-1)
     p = torch.where(sc <= NEG_INF / 2, torch.zeros_like(sc),
-                    torch.exp(sc - m))
-    l_ = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+                    torch.exp(sc - m[..., None]))
     acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
-    o = (acc / l_.permute(0, 2, 1, 3)).to(q.dtype)
-    lse = (m + torch.log(l_)).squeeze(-1)
-    return o, lse
+    return acc, m, p.sum(dim=-1)
 
 
-def _flash_cuda(q, k, v, scale: float, spec: MaskSpec):
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        scale: float | None = None, mask=None):
+    """The plain version of K1: ``(o [B,S,H,D] in q.dtype, lse [B,H,S]
+    f32)`` — :func:`flash_partial_ref`'s state normalised, as the kernel's
+    epilogue does: ``o = acc / max(l, 1e-30)`` and
+    ``lse = m + log(max(l, 1e-30))``."""
+    _check_qkv(q, k, v)
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    acc, m, l_ = flash_partial_ref(q, k, v, scale=scale, causal=causal,
+                                   mask=mask)
+    l_ = l_.clamp_min(1e-30)
+    o = (acc / l_.permute(0, 2, 1)[..., None]).to(q.dtype)
+    return o, m + torch.log(l_)
+
+
+def _flash_cuda(q, k, v, scale: float, spec: MaskSpec, partial: bool):
+    """Launch K1 (``tk_flash_fwd`` → ``(o, lse)``) or, with ``partial``,
+    K2 (``tk_flash_partial`` → ``(acc, m, l)``) of ``csrc/flash_fwd.cu``;
+    the outputs are allocated here."""
     b, s, h, d = q.shape
     if d % 16 or d > 128:
         raise ValueError(f"the flash kernel takes head_dim % 16 == 0 and "
@@ -210,18 +234,29 @@ def _flash_cuda(q, k, v, scale: float, spec: MaskSpec):
         return t if ok else t.contiguous()
 
     q, k, v = aligned(q), aligned(k), aligned(v)
-    o = torch.empty_like(q, memory_format=torch.contiguous_format)
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    strides = [t.stride(i) for t in (q, k, v, o) for i in (0, 1, 2)]
+    strides = [t.stride(i) for t in (q, k, v) for i in (0, 1, 2)]
     window = spec.window if spec.kind == "window" else 0
+    tail = [float(scale), _MASK_CODE[spec.kind], window, code,
+            torch.cuda.current_stream(q.device).cuda_stream]
+    stats = [torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+             for _ in range(1 + partial)]
+    if partial:
+        acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        rc = _build.lib().tk_flash_partial(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
+            *[t.data_ptr() for t in stats], b, s, k.shape[1], h,
+            k.shape[2], d, *strides, *tail)
+        _build.check(rc, "flash_partial")
+        _build.launches["flash_partial"] += 1
+        return acc, *stats
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
     rc = _build.lib().tk_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), b, s, h, k.shape[2], d, *strides, float(scale),
-        _MASK_CODE[spec.kind], window, code,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        stats[0].data_ptr(), b, s, h, k.shape[2], d, *strides,
+        *[o.stride(i) for i in (0, 1, 2)], *tail)
     _build.check(rc, "flash_fwd")
     _build.launches["flash_fwd"] += 1
-    return o, lse
+    return o, stats[0]
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True,
@@ -239,7 +274,29 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
         return flash_attention_ref(q, k, v, scale=scale, mask=spec)
     if q.device.type != "cuda":
         raise ValueError(f"no flash kernel for device {q.device}")
-    return _flash_cuda(q, k, v, scale, spec)
+    return _flash_cuda(q, k, v, scale, spec, partial=False)
+
+
+def flash_partial(q, k, v, *, scale: float, causal: bool = True, mask=None):
+    """K2: one flash sweep of ``q`` over (``k``, ``v``) WITHOUT the final
+    normalisation → ``(acc f32 [B,Sq,H,D], m f32 [B,H,Sq], l f32
+    [B,H,Sq])``, the unnormalised accumulator, running max and running sum
+    — what ring attention folds across visiting K/V blocks. ``k``/``v``
+    may have another sequence length than ``q``; ``causal`` (and a window
+    ``mask``) work in LOCAL positions, right for the ring's diagonal
+    block.
+
+    A CUDA tensor launches ``csrc/flash_fwd.cu``'s partial instance of the
+    forward kernel (K1's sweep with another epilogue, so
+    ``acc / max(l, 1e-30)`` equals K1's output bit for bit); a CPU tensor
+    runs :func:`flash_partial_ref`."""
+    _check_qkv(q, k, v, same_len=False)
+    spec = as_mask_spec(mask, causal)
+    if q.device.type == "cpu":
+        return flash_partial_ref(q, k, v, scale=scale, mask=spec)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash kernel for device {q.device}")
+    return _flash_cuda(q, k, v, scale, spec, partial=True)
 
 
 # ------------------------------------------------------------- backward
@@ -296,64 +353,85 @@ def _dv_of(p, do):
                         do.float())
 
 
+def _out_dtype(q, out_dtype):
+    """The gradients' dtype: q's by default, or float32 (the ring's
+    per-block gradients, summed across ring steps before one cast)."""
+    if out_dtype is None:
+        return q.dtype
+    if out_dtype not in (q.dtype, torch.float32):
+        raise ValueError(f"out_dtype must be the inputs' dtype ({q.dtype}) "
+                         f"or torch.float32, got {out_dtype}")
+    return out_dtype
+
+
 def flash_dq_ref(q, k, v, do, lse, delta, *, scale: float, mask=None,
-                 causal: bool = True):
+                 causal: bool = True, out_dtype=None):
     """The plain version of K3 (``flash_dq``): ``dQ = (dS→k.dtype)·K·scale``
-    in q's dtype. ``lse`` and ``delta`` are ``[B, H, S]`` f32."""
+    in ``out_dtype`` (default q's). ``lse`` and ``delta`` are ``[B, H, S]``
+    f32."""
     _check_bwd(q, k, v, do, lse, delta)
     _, ds = _bwd_tile_ref(q, k, v, do, lse, delta, scale,
                           as_mask_spec(mask, causal))
-    return _dq_of(ds, k, scale).to(q.dtype)
+    return _dq_of(ds, k, scale).to(_out_dtype(q, out_dtype))
 
 
 def flash_dkv_ref(q, k, v, do, lse, delta, *, scale: float, mask=None,
-                  causal: bool = True):
+                  causal: bool = True, out_dtype=None):
     """The plain version of K4 (``flash_dkv``): ``(dK, dV)`` with
-    ``dK = (dS→q.dtype)ᵀ·Q·scale`` and ``dV = (P→dO.dtype)ᵀ·dO``."""
+    ``dK = (dS→q.dtype)ᵀ·Q·scale`` and ``dV = (P→dO.dtype)ᵀ·dO``, in
+    ``out_dtype`` (default the inputs')."""
     _check_bwd(q, k, v, do, lse, delta)
     p, ds = _bwd_tile_ref(q, k, v, do, lse, delta, scale,
                           as_mask_spec(mask, causal))
-    return _dk_of(ds, q, scale).to(k.dtype), _dv_of(p, do).to(v.dtype)
+    out = _out_dtype(q, out_dtype)
+    return _dk_of(ds, q, scale).to(out), _dv_of(p, do).to(out)
 
 
 def flash_dqdkv_ref(q, k, v, do, lse, delta, *, scale: float, mask=None,
-                    causal: bool = True):
+                    causal: bool = True, out_dtype=None):
     """The plain version of K5 (``flash_dqdkv``): ``(dQ, dK, dV)`` from one
     P/dS — the same numbers as :func:`flash_dq_ref` and
     :func:`flash_dkv_ref`."""
     _check_bwd(q, k, v, do, lse, delta)
     p, ds = _bwd_tile_ref(q, k, v, do, lse, delta, scale,
                           as_mask_spec(mask, causal))
-    return (_dq_of(ds, k, scale).to(q.dtype), _dk_of(ds, q, scale).to(
-        k.dtype), _dv_of(p, do).to(v.dtype))
+    out = _out_dtype(q, out_dtype)
+    return (_dq_of(ds, k, scale).to(out), _dk_of(ds, q, scale).to(out),
+            _dv_of(p, do).to(out))
 
 
 def _bwd_cuda(kernel: str, q, k, v, do, lse, delta, scale: float,
-              spec: MaskSpec):
+              spec: MaskSpec, out_dtype):
     """Launch one of the backward kernels of ``csrc/flash_bwd.cu`` on
-    contiguous inputs; outputs are allocated here, in q's layout."""
+    contiguous inputs; outputs are allocated here, in q's layout and
+    ``out_dtype``."""
     b, s, h, d = q.shape
     if d % 16 or d > 128:
         raise ValueError(f"the flash backward kernels take head_dim % 16 == "
                          f"0 and <= 128, got {d}")
-    code = _build.dtype_code(q.dtype)
     q, k, v, do, lse, delta = (t.contiguous()
                                for t in (q, k, v, do, lse, delta))
     ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
     tail = [b, s, h, d, float(scale), _MASK_CODE[spec.kind],
-            spec.window if spec.kind == "window" else 0, code,
+            spec.window if spec.kind == "window" else 0,
+            _build.dtype_code(q.dtype), _build.dtype_code(out_dtype),
             torch.cuda.current_stream(q.device).cuda_stream]
     lib = _build.lib()
+
+    def empty(n):
+        return tuple(torch.empty(q.shape, dtype=out_dtype, device=q.device)
+                     for _ in range(n))
+
     if kernel == "flash_bwd_fused":
         ws = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-        out = tuple(torch.empty_like(t) for t in (q, k, v))
+        out = empty(3)
         rc = lib.tk_flash_bwd_fused(*ptrs, ws.data_ptr(),
                                     *[t.data_ptr() for t in out], *tail)
     elif kernel == "flash_dkv":
-        out = (torch.empty_like(k), torch.empty_like(v))
+        out = empty(2)
         rc = lib.tk_flash_dkv(*ptrs, *[t.data_ptr() for t in out], *tail)
     else:
-        out = torch.empty_like(q)
+        (out,) = empty(1)
         rc = lib.tk_flash_dq(*ptrs, out.data_ptr(), *tail)
     _build.check(rc, kernel)
     _build.launches[kernel] += 1
@@ -361,41 +439,44 @@ def _bwd_cuda(kernel: str, q, k, v, do, lse, delta, scale: float,
 
 
 def _bwd_dispatch(kernel, ref, q, k, v, do, lse, delta, scale, mask,
-                  causal):
+                  causal, out_dtype):
     _check_bwd(q, k, v, do, lse, delta)
     spec = as_mask_spec(mask, causal)
+    out_dtype = _out_dtype(q, out_dtype)
     if q.device.type == "cpu":
-        return ref(q, k, v, do, lse, delta, scale=scale, mask=spec)
+        return ref(q, k, v, do, lse, delta, scale=scale, mask=spec,
+                   out_dtype=out_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"no flash backward kernel for device {q.device}")
-    return _bwd_cuda(kernel, q, k, v, do, lse, delta, scale, spec)
+    return _bwd_cuda(kernel, q, k, v, do, lse, delta, scale, spec,
+                     out_dtype)
 
 
 def flash_dq(q, k, v, do, lse, delta, *, scale: float, mask=None,
-             causal: bool = True):
-    """K3: dQ of the split backward. A CUDA tensor launches
-    ``csrc/flash_bwd.cu``'s ``flash_dq_kernel`` (bf16 or f32,
-    ``head_dim % 16 == 0`` and ``<= 128``); a CPU tensor runs
-    :func:`flash_dq_ref`."""
+             causal: bool = True, out_dtype=None):
+    """K3: dQ of the split backward, in ``out_dtype`` (q's, or float32).
+    A CUDA tensor launches ``csrc/flash_bwd.cu``'s ``flash_dq_kernel``
+    (bf16 or f32, ``head_dim % 16 == 0`` and ``<= 128``); a CPU tensor
+    runs :func:`flash_dq_ref`."""
     return _bwd_dispatch("flash_dq", flash_dq_ref, q, k, v, do, lse, delta,
-                         scale, mask, causal)
+                         scale, mask, causal, out_dtype)
 
 
 def flash_dkv(q, k, v, do, lse, delta, *, scale: float, mask=None,
-              causal: bool = True):
+              causal: bool = True, out_dtype=None):
     """K4: ``(dK, dV)`` of the split backward (``flash_bwd_kv_kernel``
     without the dQ atomics); a CPU tensor runs :func:`flash_dkv_ref`."""
     return _bwd_dispatch("flash_dkv", flash_dkv_ref, q, k, v, do, lse,
-                         delta, scale, mask, causal)
+                         delta, scale, mask, causal, out_dtype)
 
 
 def flash_dqdkv(q, k, v, do, lse, delta, *, scale: float, mask=None,
-                causal: bool = True):
+                causal: bool = True, out_dtype=None):
     """K5: ``(dQ, dK, dV)`` from the fused single-pass kernel (dQ summed
     with atomics, so its rounding order varies from run to run); a CPU
     tensor runs :func:`flash_dqdkv_ref`."""
     return _bwd_dispatch("flash_bwd_fused", flash_dqdkv_ref, q, k, v, do,
-                         lse, delta, scale, mask, causal)
+                         lse, delta, scale, mask, causal, out_dtype)
 
 
 def _check_backward(backward: str) -> None:

@@ -20,7 +20,9 @@ after it. The backward kernels hold dQ/dK/dV within
 2e-2 (bf16) / 1e-4 (f32) of max(1, max|plain|), and within a relative L2
 error ||got - plain|| / ||plain|| of 1e-2 (bf16) / 1e-4 (f32): bf16 products
 accumulate in another order, and the fused kernel's dQ atomics in an order
-that changes from run to run.
+that changes from run to run. K2 (the partial forward) holds acc, m and l
+within 1e-2 (bf16) / 1e-5 (f32) of max(1, max|plain|), and, normalised,
+equals K1 bit for bit (one sweep, two epilogues).
 """
 
 import dataclasses
@@ -46,6 +48,8 @@ from nvidia_terraform_modules_tpu_torch.ops import (
     flash_dq,
     flash_dqdkv,
     flash_dqdkv_ref,
+    flash_partial,
+    flash_partial_ref,
     int8_matmul,
     int8_matmul_ref,
     kv_decode_attention,
@@ -53,10 +57,16 @@ from nvidia_terraform_modules_tpu_torch.ops import (
     launches,
     paged_decode_attention,
     paged_decode_attention_ref,
+    ring_self_attention,
+    ulysses_self_attention,
 )
 from nvidia_terraform_modules_tpu_torch.ops.decode_attention import (
     gather_logical,
 )
+from nvidia_terraform_modules_tpu_torch.ops.ring_attention import (
+    dense_reference_attention,
+)
+from nvidia_terraform_modules_tpu_torch.parallel import build_mesh, plan_mesh
 
 pytestmark = pytest.mark.cuda
 
@@ -381,3 +391,112 @@ def test_train_grads_on_card_match_dense(cuda, backward):
     for g, w in zip(tree_leaves(grads), tree_leaves(dgrads)):
         lim = 1e-4 * max(1.0, w.abs().max().item())
         assert (g - w).abs().max().item() <= lim
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,dtype,mask", [
+    (2, 128, 128, 4, 4, 128, torch.bfloat16, "causal"),
+    (2, 128, 128, 4, 4, 128, torch.bfloat16, "full"),
+    (1, 136, 200, 4, 2, 64, torch.bfloat16, "full"),
+    (1, 200, 72, 2, 2, 128, torch.float32, "causal"),
+    (1, 256, 256, 2, 1, 32, torch.bfloat16, ("window", 50)),
+    (1, 96, 96, 2, 2, 128, torch.float32, "full"),
+])
+def test_flash_partial_matches_plain_and_flash_fwd(cuda, b, sq, sk, h, kv,
+                                                   d, dtype, mask):
+    g = torch.Generator().manual_seed(sq * 3 + sk)
+    q = _randn(g, (b, sq, h, d), dtype, cuda)
+    k = _randn(g, (b, sk, kv, d), dtype, cuda)
+    v = _randn(g, (b, sk, kv, d), dtype, cuda)
+    kw = dict(scale=d ** -0.5, mask=mask)
+    before = launches["flash_partial"]
+    got = flash_partial(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert launches["flash_partial"] == before + 1
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    for a, r in zip(got, flash_partial_ref(q, k, v, **kw)):
+        assert a.dtype == torch.float32 and a.shape == r.shape
+        lim = tol * max(1.0, r.abs().max().item())
+        assert (a - r).abs().max().item() <= lim
+    if sq == sk and kv == h:
+        acc, m, l_ = got
+        o, lse = flash_attention_fwd(q, k, v, **kw)
+        lm = l_.clamp_min(1e-30)
+        assert torch.equal((acc / lm.transpose(1, 2)[..., None]).to(dtype), o)
+        assert ((m + torch.log(lm) - lse).abs()
+                / lse.abs().clamp_min(1.0)).max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("mask", ["causal", "full"])
+def test_flash_backward_f32_outputs_match_plain(cuda, mask):
+    """``out_dtype=float32`` on bf16 inputs (the ring's per-block
+    gradients): K5, K3 and K4 against their plain versions."""
+    g = torch.Generator().manual_seed(17)
+    args = _bwd_inputs(g, 2, 256, 4, 128, torch.bfloat16, cuda, mask)
+    kw = dict(scale=128 ** -0.5, mask=mask, out_dtype=torch.float32)
+    fused = flash_dqdkv(*args, **kw)
+    split = (flash_dq(*args, **kw), *flash_dkv(*args, **kw))
+    torch.cuda.synchronize()
+    ref = flash_dqdkv_ref(*args, **kw)
+    for name, f, sp, r in zip("qkv", fused, split, ref):
+        assert f.dtype == sp.dtype == r.dtype == torch.float32
+        lim = 2e-2 * max(1.0, r.abs().max().item())
+        for got in (f, sp):
+            diff = got - r
+            assert diff.abs().max().item() <= lim, f"d{name}"
+            assert (diff.norm() / r.norm()).item() <= 1e-2, f"d{name}"
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+@pytest.mark.parametrize("fn", [ring_self_attention, ulysses_self_attention],
+                         ids=["ring", "ulysses"])
+def test_sequence_parallel_on_card_matches_dense(cuda, sp, fn):
+    """The f32 ring (K2; K5 or K3 + K4) and Ulysses (K1; K5 or K3 + K4) on
+    a mesh of ``sp`` members of the one card against dense attention:
+    output and gradients within 1e-4 of max(1, max|dense|)."""
+    mesh = build_mesh(plan_mesh(sp, tp=1, sp=sp), devices=[cuda] * sp)
+    g = torch.Generator().manual_seed(sp)
+    q, k, v, w = (_randn(g, (2, 256, 4, 128), torch.float32, cuda)
+                  for _ in range(4))
+
+    def run(f):
+        x = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = f(*x)
+        return [out.detach(), *torch.autograd.grad((out * w).sum(), x)]
+
+    ref = run(lambda *x: dense_reference_attention(*x, causal=True))
+    for backward in ("fused", "split"):
+        got = run(lambda *x: fn(*x, mesh, causal=True, impl="flash",
+                                backward=backward))
+        torch.cuda.synchronize()
+        for a, r in zip(got, ref):
+            lim = 1e-4 * max(1.0, r.abs().max().item())
+            assert (a - r).abs().max().item() <= lim
+
+
+@pytest.mark.parametrize("fn,kernel", [
+    (ring_self_attention, "flash_partial"),
+    (ulysses_self_attention, "flash_fwd")], ids=["ring", "ulysses"])
+def test_sequence_parallel_on_card_flash_at_ragged_lengths(cuda, fn, kernel):
+    """``impl=None`` on the card runs the kernels at a length with no
+    8-multiple block (S = 52: 13-row ring shards at sp = 4), and matches
+    dense attention, output and gradients, within 1e-4 of
+    max(1, max|dense|)."""
+    mesh = build_mesh(plan_mesh(4, tp=1, sp=4), devices=[cuda] * 4)
+    g = torch.Generator().manual_seed(52)
+    q, k, v, w = (_randn(g, (2, 52, 4, 64), torch.float32, cuda)
+                  for _ in range(4))
+
+    def run(f):
+        x = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = f(*x)
+        return [out.detach(), *torch.autograd.grad((out * w).sum(), x)]
+
+    ref = run(lambda *x: dense_reference_attention(*x, causal=True))
+    before = dict(launches)
+    got = run(lambda *x: fn(*x, mesh, causal=True))
+    torch.cuda.synchronize()
+    for name in (kernel, "flash_bwd_fused"):
+        assert launches[name] > before[name], name
+    for a, r in zip(got, ref):
+        lim = 1e-4 * max(1.0, r.abs().max().item())
+        assert (a - r).abs().max().item() <= lim

@@ -105,6 +105,38 @@ def test_plain_backward_matches_reference_kernels_bf16():
         np.testing.assert_allclose(f.float().numpy(), wf, atol=lim, rtol=0)
 
 
+@pytest.mark.parametrize("mask", ["causal", "full"])
+def test_plain_backward_f32_outputs_match_reference_kernels(mask):
+    """``out_dtype=float32`` (the ring's per-block gradients) on bf16
+    inputs: the reference's kernels with ``out_dtype=jnp.float32``."""
+    b, s, h, d = 2, 32, 2, 16
+    q, k, v, do = _inputs(b, s, h, d, seed=13)
+    spec = jfa.as_mask_spec(mask)
+    qj, kj, vj, doj, lse, delta, lse_t, delta_t = _residuals(
+        q, k, v, do, spec, jnp.bfloat16)
+    kw = dict(scale=d ** -0.5, causal=True, mask=spec, block_q=BLOCK,
+              block_k=BLOCK, interpret=True, out_dtype=jnp.float32)
+    want = (jfa.flash_dq(qj, kj, vj, doj, lse, delta, **kw),
+            *jfa.flash_dkv(qj, kj, vj, doj, lse, delta, **kw))
+    want_fused = jfa.flash_dqdkv(qj, kj, vj, doj, lse, delta, **kw)
+    args = (*(torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, do)),
+            torch.from_numpy(lse_t), torch.from_numpy(delta_t))
+    tkw = dict(scale=d ** -0.5, mask=mask, out_dtype=torch.float32)
+    split = (tfa.flash_dq(*args, **tkw), *tfa.flash_dkv(*args, **tkw))
+    fused = tfa.flash_dqdkv(*args, **tkw)
+    for w, wf, sp, f in zip(want, want_fused, split, fused):
+        assert w.dtype == jnp.float32
+        assert sp.dtype == f.dtype == torch.float32
+        w, wf = _bshd(w, b, h), _bshd(wf, b, h)
+        lim = 2e-2 * max(1.0, float(np.abs(w).max()))
+        np.testing.assert_allclose(sp.numpy(), w, atol=lim, rtol=0)
+        np.testing.assert_allclose(f.numpy(), wf, atol=lim, rtol=0)
+    # the default stays the inputs' dtype; any other dtype is refused
+    assert tfa.flash_dq(*args, scale=1.0).dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="out_dtype"):
+        tfa.flash_dqdkv(*args, scale=1.0, out_dtype=torch.float16)
+
+
 @pytest.mark.parametrize("mask", [None, ("window", 6)])
 @pytest.mark.parametrize("backward", ["fused", "split"])
 def test_autograd_function_matches_jax_grad(backward, mask):

@@ -33,6 +33,11 @@ from nvidia_terraform_modules_tpu_torch.models import (
     synthetic_batch,
     train_step_flops,
 )
+from nvidia_terraform_modules_tpu_torch.parallel import (
+    build_mesh,
+    make_rules,
+    plan_mesh,
+)
 
 BASE = dict(vocab=64, d_model=32, n_heads=4, d_ff=64, n_layers=2,
             seq_len=16, batch=4)
@@ -198,7 +203,10 @@ def test_config_validation_and_unported_levers():
         with pytest.raises(ValueError, match=match):
             jburnin.BurnInConfig(**kw)
     cfg = BurnInConfig(**BASE, dtype=torch.float32)
+    # rules over a mesh with dp = 2: the port does not shard the batch yet
+    rules = make_rules(build_mesh(plan_mesh(2, tp=1),
+                                  devices=[torch.device("cpu")] * 2))
     with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        make_grads_fn(cfg, rules=object())
+        make_grads_fn(cfg, rules=rules)
     with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        loss_fn({}, (None, None), cfg, rules=object())
+        loss_fn({}, (None, None), cfg, rules=rules)
