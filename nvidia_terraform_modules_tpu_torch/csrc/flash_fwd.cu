@@ -21,33 +21,68 @@
 // (batch, head) over the live part of the mask — compute-bound against the
 // 989 TFLOP/s bf16 tensor-core peak once S is in the hundreds; the bytes
 // (Q, K, V read once, O or the f32 accumulator written once) are a few MB
-// to tens of MB.
+// to tens of MB. Per 16-row warp band the sweep also reads every K and V
+// tile out of shared memory once (0.0625 B per FLOP at d = 128), which
+// caps it near half the tensor-core peak, and it spends one exp2 per score
+// on the SFU.
 //
-// What the design does about it:
-// - the TPU's sequential k grid becomes a loop inside the CTA: one CTA per
-//   (b·h, 64-row q block), 4 warps, each warp owning 16 query rows; K/V
-//   tiles of 64 rows are staged in shared memory and the [Sq, Sk] score
-//   matrix never reaches device memory;
-// - the loop stops at the causal diagonal and starts at the window's
-//   first live key: dead tiles (the reference's block_liveness DEAD class)
-//   are never loaded or multiplied;
-// - bf16 tile products run on the tensor cores (nvcuda::wmma 16x16x16,
-//   f32 accumulate); the f32 variant (the exactness path) uses CUDA-core
-//   FMAs, since wmma has no full-f32 mode;
-// - GQA reads KV head h / (H / KV) directly — K/V are never repeated;
-// - Q/K/V/O are read and written through their strides, so the [B,S,H,D]
-//   layout needs no transpose copy; a ragged Sq or Sk tail is zero-filled
-//   and masked.
-// Numerics follow `_fold_scores` / `_masked_exp` exactly: finite -1e30
-// masking, p = 0 where s <= -1e30 / 2, the scale applied to the f32 scores
-// after the product, P rounded to the value dtype before the PV product.
-// Not yet done (later work): wgmma, TMA, a multi-stage K/V pipeline.
+// The bf16 sweep (`flash_fwd_mma`):
+// - one CTA per (b·h, q block) of 16 rows per warp (4 or 8 warps: the
+//   tiling, chosen by the wrapper from the shape); each warp owns its 16
+//   query rows for the whole sweep. The TPU's sequential k grid is a loop
+//   inside the CTA over 64-key tiles;
+// - registers hold everything of the sweep: Q as mma A fragments (loaded
+//   once with ldmatrix), S and O as mma.sync m16n8k16 f32 accumulators.
+//   The online softmax runs on the S registers — a row lives in the 4
+//   lanes of a quad, so its max takes two __shfl_xor steps; each lane keeps
+//   its own partial row sum, reduced once at the end — the rescale
+//   multiplies the O registers, and P is packed from the S registers
+//   straight into bf16 A fragments (the m16n8k16 accumulator layout of two
+//   n-tiles is the A layout of one k-step). S, P and O never touch shared
+//   memory; K fragments come by ldmatrix, V fragments by ldmatrix.trans;
+// - K and V are double-buffered in shared memory and filled by cp.async.cg
+//   16-byte copies (commit_group / wait_group): tile t + 1 is in flight
+//   while tile t's products run. Rows are padded by 16 bytes, so the eight
+//   rows of every ldmatrix 8x8 fall in different banks;
+// - heaviest first: the linear block index runs (b, h) fastest and, under
+//   a causal or window mask, the q blocks from the last (most live tiles)
+//   down, so the long CTAs start first and the short ones fill the tail;
+// - each warp classifies every tile against its own 16 rows: dead tiles
+//   (past the diagonal, before the window) are skipped, fully visible
+//   tiles skip the mask arithmetic, and only a diagonal tile, a window's
+//   edge tile or a ragged key tail apply it. So a row's arithmetic does not
+//   depend on the tiling, the batch or the grid slot: every tiling gives
+//   the same bits (a masked tile folds as an exact identity);
+// - the scores are scaled by scale·log2(e) and exponentiated with exp2f;
+//   m is kept in that base-2 unit and turned back to natural log (m·ln 2)
+//   for the stored m and LSE;
+// - head dims: compile-time instances for 64 and 128; a smaller d (a
+//   multiple of 16) is zero-padded to the next one in shared memory — zero
+//   Q/K columns add nothing to the scores, zero V columns are not stored;
+// - K1's epilogue stages each warp's bf16 rows in its own Q rows of shared
+//   memory and stores 16-byte chunks; K2 stores its f32 accumulator
+//   directly (a quad writes whole 32-byte sectors);
+// - GQA reads KV head h / (H / KV) directly; Q/K/V/O are read and written
+//   through their strides; ragged Sq and Sk tails are zero-filled by the
+//   copies (src-size 0) and masked.
+// The f32 instance (CUDA cores; the exactness path of the ring and train
+// checks) keeps the first port's sweep, `flash_fwd_kernel`: 64-row tiles,
+// 4 warps, S, P and O in shared memory.
+// Numerics follow `_fold_scores` / `_masked_exp`: finite -1e30 masking,
+// p = 0 where s <= -1e30 / 2, the scale applied to the f32 scores after
+// the product, P rounded to bf16 before the PV product, l floored at
+// 1e-30, LSE in natural log. The bf16 sweep gets p = 0 for masked scores
+// by subtracting 0 instead of a row max that is itself masked: then every
+// masked score exponentiates to exactly 0, as with the reference's test.
+// Not done here (later work): wgmma, TMA, warp specialisation.
 
 #include <type_traits>
 
 #include "flash_tiles.cuh"
 
 namespace {
+
+// ------------------------------------------------------------------ f32
 
 constexpr int kWarps = 4;   // one 16-row band of the q block each
 constexpr int kThreads = 32 * kWarps;
@@ -163,6 +198,397 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ----------------------------------------------------------------- bf16
+
+using bf16 = __nv_bfloat16;
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global → shared, bypassing L1; src_bytes = 0 writes zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>   // wait until at most kPending groups are in flight
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// c[16x8 f32] += a[16x16 bf16, row] · b[16x8 bf16, col]
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats → one register of two bf16 (round to nearest even), lo first
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+struct FwdArgs {
+  const bf16 *q, *k, *v;
+  void* o;
+  float *lse, *l_out;
+  int batch, seq, kseq, heads, kv_heads, d, mask, window;
+  Strides tq, tk, tv, to;
+  float scale_log2;   // scale · log2(e)
+};
+
+// Copy rows [row0, row0 + kRows) of one head (row stride `stride`
+// elements, d valid columns) into a [kRows, kLd] shared tile with cp.async;
+// rows past `rows` and columns past d are zero-filled.
+template <int kRows, int kD, int kThreads>
+__device__ __forceinline__ void cp_tile(bf16* dst, const bf16* base,
+                                        long long stride, int row0, int rows,
+                                        int d) {
+  constexpr int kLd = kD + 8, kChunks = kD / 8;
+  static_assert(kRows * kChunks % kThreads == 0, "whole rounds of copies");
+#pragma unroll
+  for (int it = 0; it < kRows * kChunks / kThreads; ++it) {
+    const int i = it * kThreads + threadIdx.x;
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const bool ok = row0 + r < rows && c < d;
+    const bf16* src =
+        ok ? base + static_cast<long long>(row0 + r) * stride + c : base;
+    cp_async16(smem_addr(dst + r * kLd + c), src, ok);
+  }
+}
+
+// One tile's online-softmax fold on the S registers of a warp: thread
+// (g = lane / 4, t = lane % 4) holds rows g and g + 8 of the warp's band,
+// keys 8 j + 2 t + {0, 1} of n-tile j. Scales to base 2, masks when kMask
+// (key `k0 + ...` against query `r0 + ...`), folds the row max across the
+// quad, rescales O and the lane's partial sums, and leaves P in s.
+template <int kNT, int kOT, bool kMask>
+__device__ __forceinline__ void fold_tile(float (&s)[kNT][4],
+                                          float (&o)[kOT][4], float (&m)[2],
+                                          float (&l)[2], float scale_log2,
+                                          int r0, int k0, int kseq, int mask,
+                                          int window, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[j][e] * scale_log2;
+      if constexpr (kMask) {
+        const int qp = r0 + g + (e >> 1) * 8;
+        const int kp = k0 + 8 * j + 2 * t + (e & 1);
+        bool keep = kp < kseq;
+        if (mask != kFull) keep = keep && kp <= qp;
+        if (mask == kWindow) keep = keep && qp - kp < window;
+        x = keep ? x : kNegInf;
+      }
+      s[j][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+  float mu[2], corr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i]);
+    corr[i] = exp2f(m[i] - m_new);
+    m[i] = m_new;
+    // a row whose max is itself masked exponentiates against 0, so every
+    // masked score (-1e30) gives exactly 0 — the reference's p = 0 where
+    // s <= -1e30 / 2; a live max sends masked scores to 0 by itself
+    mu[i] = m_new <= kNegInf * 0.5f ? 0.f : m_new;
+    l[i] *= corr[i];
+  }
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(s[j][e] - mu[e >> 1]);
+      l[e >> 1] += p;
+      s[j][e] = p;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kOT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] *= corr[e >> 1];
+  }
+}
+
+// The bf16 sweep. kD: the padded head dim (64 or 128); kWarpsT warps of
+// 16 query rows each; kBKT keys per tile. K1 (kPartial = false) writes O
+// in bf16 through `to` and LSE [B, H, seq]; K2 writes the f32 accumulator
+// (contiguous [B, seq, H, d]), m into `lse` and l into `l_out`.
+template <int kD, int kWarpsT, int kBKT, bool kPartial>
+__global__ void __launch_bounds__(32 * kWarpsT)
+flash_fwd_mma(FwdArgs a) {
+  constexpr int kNThreads = 32 * kWarpsT, kBQT = 16 * kWarpsT;
+  constexpr int kLd = kD + 8;          // padded row: 16 bytes past kD
+  constexpr int kKS = kD / 16;         // k-steps of the QK^T product
+  constexpr int kNT = kBKT / 8;        // 8-key n-tiles of S
+  constexpr int kOT = kD / 8;          // 8-column n-tiles of O
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sq = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sk = sq + kBQT * kLd;          // [2][kBKT][kLd]
+  bf16* sv = sk + 2 * kBKT * kLd;      // [2][kBKT][kLd]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // heaviest first: (b, h) fastest; causal and window blocks from the last
+  const int bhn = a.batch * a.heads;
+  const int nq = (a.seq + kBQT - 1) / kBQT;
+  const int bh = blockIdx.x % bhn;
+  int qb = blockIdx.x / bhn;
+  if (a.mask != kFull) qb = nq - 1 - qb;
+  const int b = bh / a.heads, h = bh - b * a.heads;
+  const int kvh = h / (a.heads / a.kv_heads);
+  const int q0 = qb * kBQT;
+  const bf16* qbase = a.q + b * a.tq.b + h * a.tq.h;
+  const bf16* kbase = a.k + b * a.tk.b + kvh * a.tk.h;
+  const bf16* vbase = a.v + b * a.tv.b + kvh * a.tv.h;
+
+  // keys any row of this block can see: tiles [t_lo, t_hi)
+  const int q_last = min(q0 + kBQT, a.seq) - 1;
+  const int k_hi = a.mask == kFull ? a.kseq : min(a.kseq, q_last + 1);
+  const int k_lo = a.mask == kWindow ? max(0, q0 - (a.window - 1)) : 0;
+  const int t_lo = k_lo / kBKT;
+  const int t_hi = k_lo < k_hi ? (k_hi + kBKT - 1) / kBKT : t_lo;
+
+  // prologue: group 1 = Q and the first K tile, group 2 = the first V tile
+  cp_tile<kBQT, kD, kNThreads>(sq, qbase, a.tq.s, q0, a.seq, a.d);
+  if (t_lo < t_hi)
+    cp_tile<kBKT, kD, kNThreads>(sk, kbase, a.tk.s, t_lo * kBKT, a.kseq,
+                                 a.d);
+  cp_async_commit();
+  if (t_lo < t_hi)
+    cp_tile<kBKT, kD, kNThreads>(sv, vbase, a.tv.s, t_lo * kBKT, a.kseq,
+                                 a.d);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // this warp's rows [r0, r0 + 16): Q as A fragments, once
+  const int r0 = q0 + 16 * warp;
+  uint32_t qf[kKS][4];
+  {
+    const bf16* base = sq + (16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8)
+                       * kLd + (lane >> 4) * 8;
+#pragma unroll
+    for (int kk = 0; kk < kKS; ++kk) ldsm_x4(qf[kk], smem_addr(base + 16 * kk));
+  }
+  float o[kOT][4];
+#pragma unroll
+  for (int j = 0; j < kOT; ++j)
+    o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  // per-lane ldmatrix row offsets: K (non-transposed) and V (transposed)
+  const int k_row = (lane >> 4) * 8 + (lane & 7), k_col = ((lane >> 3) & 1) * 8;
+  const int v_row = ((lane >> 3) & 1) * 8 + (lane & 7), v_col = (lane >> 4) * 8;
+
+  for (int kt = t_lo; kt < t_hi; ++kt) {
+    const int stage = (kt - t_lo) & 1;
+    const bf16* ks = sk + stage * kBKT * kLd;
+    const bf16* vs = sv + stage * kBKT * kLd;
+    cp_async_wait<1>();   // K tile kt is here (this thread's copies)
+    __syncthreads();      // ... everyone's; and tile kt - 1 is read out
+    // prefetch tile kt + 1 into the other stage
+    if (kt + 1 < t_hi) {
+      cp_tile<kBKT, kD, kNThreads>(sk + (stage ^ 1) * kBKT * kLd, kbase,
+                                   a.tk.s, (kt + 1) * kBKT, a.kseq, a.d);
+    }
+    cp_async_commit();
+    if (kt + 1 < t_hi) {
+      cp_tile<kBKT, kD, kNThreads>(sv + (stage ^ 1) * kBKT * kLd, vbase,
+                                   a.tv.s, (kt + 1) * kBKT, a.kseq, a.d);
+    }
+    cp_async_commit();
+
+    // this warp against the tile: dead (skip), fully visible, or masked
+    const int k0 = kt * kBKT, k1 = k0 + kBKT - 1, r1 = r0 + 15;
+    const bool dead = r0 >= a.seq || (a.mask != kFull && k0 > r1) ||
+                      (a.mask == kWindow && r0 - k1 >= a.window);
+    const bool visible = k1 < a.kseq &&
+        (a.mask == kFull ||
+         (k1 <= r0 && (a.mask != kWindow || r1 - k0 < a.window)));
+    float s[kNT][4];
+    if (!dead) {
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKS; ++kk) {
+#pragma unroll
+        for (int np = 0; np < kNT / 2; ++np) {
+          uint32_t bk[4];
+          ldsm_x4(bk, smem_addr(ks + (16 * np + k_row) * kLd + 16 * kk + k_col));
+          mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
+          mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+        }
+      }
+      if (visible)
+        fold_tile<kNT, kOT, false>(s, o, m, l, a.scale_log2, r0, k0, a.kseq,
+                                   a.mask, a.window, lane);
+      else
+        fold_tile<kNT, kOT, true>(s, o, m, l, a.scale_log2, r0, k0, a.kseq,
+                                  a.mask, a.window, lane);
+    }
+    cp_async_wait<2>();   // V tile kt is here
+    __syncthreads();
+    if (!dead) {
+#pragma unroll
+      for (int kk = 0; kk < kBKT / 16; ++kk) {
+        uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int np = 0; np < kOT / 2; ++np) {
+          uint32_t bv[4];
+          ldsm_x4_trans(bv, smem_addr(vs + (16 * kk + v_row) * kLd + 16 * np
+                                      + v_col));
+          mma_bf16(o[2 * np], pa, bv[0], bv[1]);
+          mma_bf16(o[2 * np + 1], pa, bv[2], bv[3]);
+        }
+      }
+    }
+  }
+
+  // epilogue: the quad's partial sums, then the row's outputs
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  float m_nat[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    m_nat[i] = m[i] <= kNegInf * 0.5f ? kNegInf : m[i] * kLn2;
+  const long long stat_row = static_cast<long long>(bh) * a.seq;
+  if constexpr (kPartial) {
+    float* acc = static_cast<float*>(a.o);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qp = r0 + g + 8 * i;
+      if (qp >= a.seq) continue;
+      float* row = acc + b * a.to.b + static_cast<long long>(qp) * a.to.s
+                   + h * a.to.h;
+#pragma unroll
+      for (int j = 0; j < kOT; ++j) {
+        const int c = 8 * j + 2 * t;
+        if (c < a.d)
+          *reinterpret_cast<float2*>(row + c) =
+              make_float2(o[j][2 * i], o[j][2 * i + 1]);
+      }
+      if (t == 0) {
+        a.lse[stat_row + qp] = m_nat[i];
+        a.l_out[stat_row + qp] = l[i];
+      }
+    }
+  } else {
+    // this warp's Q rows are its own (read once above): stage O there
+    bf16* so = sq + 16 * warp * kLd;
+    float lf[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) lf[i] = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < kOT; ++j) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        *reinterpret_cast<uint32_t*>(so + (g + 8 * i) * kLd + 8 * j + 2 * t) =
+            pack_bf16(o[j][2 * i] / lf[i], o[j][2 * i + 1] / lf[i]);
+    }
+    if (t == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int qp = r0 + g + 8 * i;
+        if (qp < a.seq) a.lse[stat_row + qp] = m_nat[i] + logf(lf[i]);
+      }
+    }
+    __syncwarp();
+    bf16* out = static_cast<bf16*>(a.o);
+    constexpr int kChunks = kD / 8;
+#pragma unroll
+    for (int it = 0; it < 16 * kChunks / 32; ++it) {
+      const int i = it * 32 + lane;
+      const int r = i / kChunks, c = (i % kChunks) * 8;
+      const int qp = r0 + r;
+      if (qp < a.seq && c < a.d)
+        *reinterpret_cast<uint4*>(out + b * a.to.b +
+                                  static_cast<long long>(qp) * a.to.s +
+                                  h * a.to.h + c) =
+            *reinterpret_cast<const uint4*>(so + r * kLd + c);
+    }
+  }
+}
+
+template <int kD, int kWarpsT, int kBKT, bool kPartial>
+int launch_mma(const FwdArgs& a, cudaStream_t stream) {
+  constexpr int kBQT = 16 * kWarpsT;
+  const size_t smem = static_cast<size_t>(kBQT + 4 * kBKT) * (kD + 8) *
+                      sizeof(bf16);
+  auto kernel = flash_fwd_mma<kD, kWarpsT, kBKT, kPartial>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long blocks = static_cast<long long>(a.batch) * a.heads *
+                           ((a.seq + kBQT - 1) / kBQT);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), 32 * kWarpsT, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tilings of the bf16 sweep, by index: 64-row CTAs of 4 warps or
+// 128-row CTAs of 8, both over 64-key tiles, so both give the same bits.
+// The wrapper picks one from the shape (`ops/flash_attention.py`
+// `fwd_tiling`). 128-key tiles were measured too (`kernel_ab --tilings`,
+// PERF.md): at most 5 % faster at the train shape with 8 warps, 3x slower
+// with 4 (register spills), and another key tile gives other bits.
+template <int kD, bool kPartial>
+int launch_bf16(const FwdArgs& a, int tiling, cudaStream_t stream) {
+  switch (tiling) {
+    case 0: return launch_mma<kD, 4, 64, kPartial>(a, stream);
+    case 1: return launch_mma<kD, 8, 64, kPartial>(a, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <bool kPartial>
+int dispatch_bf16(const FwdArgs& a, int tiling, cudaStream_t stream) {
+  return a.d <= 64 ? launch_bf16<64, kPartial>(a, tiling, stream)
+                   : launch_bf16<128, kPartial>(a, tiling, stream);
+}
+
 template <typename T, bool kPartial>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            float* l_out, int batch, int seq, int kseq, int heads,
@@ -206,17 +632,21 @@ extern "C" int tk_flash_fwd(const void* q, const void* k, const void* v,
                             long long k_ss, long long k_sh, long long v_sb,
                             long long v_ss, long long v_sh, long long o_sb,
                             long long o_ss, long long o_sh, float scale,
-                            int mask, int window, int dtype, void* stream) {
+                            int mask, int window, int tiling, int dtype,
+                            void* stream) {
   if (!valid(batch, seq, seq, heads, kv_heads, d, mask, window))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides tq{q_sb, q_ss, q_sh}, tk{k_sb, k_ss, k_sh},
       tv{v_sb, v_ss, v_sh}, to{o_sb, o_ss, o_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (dtype == kBF16)
-    return launch<__nv_bfloat16, false>(q, k, v, o, l, nullptr, batch, seq,
-                                        seq, heads, kv_heads, d, tq, tk, tv,
-                                        to, scale, mask, window, st);
+  if (dtype == kBF16) {
+    const FwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                    static_cast<const bf16*>(v), o, l, nullptr, batch, seq,
+                    seq, heads, kv_heads, d, mask, window, tq, tk, tv, to,
+                    scale * kLog2e};
+    return dispatch_bf16<false>(a, tiling, st);
+  }
   if (dtype == kF32)
     return launch<float, false>(q, k, v, o, l, nullptr, batch, seq, seq,
                                 heads, kv_heads, d, tq, tk, tv, to, scale,
@@ -233,7 +663,8 @@ extern "C" int tk_flash_partial(const void* q, const void* k, const void* v,
                                 long long k_ss, long long k_sh,
                                 long long v_sb, long long v_ss,
                                 long long v_sh, float scale, int mask,
-                                int window, int dtype, void* stream) {
+                                int window, int tiling, int dtype,
+                                void* stream) {
   if (!valid(batch, seq, kseq, heads, kv_heads, d, mask, window))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides tq{q_sb, q_ss, q_sh}, tk{k_sb, k_ss, k_sh},
@@ -243,10 +674,13 @@ extern "C" int tk_flash_partial(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* mp = static_cast<float*>(m);
   float* lp = static_cast<float*>(l);
-  if (dtype == kBF16)
-    return launch<__nv_bfloat16, true>(q, k, v, acc, mp, lp, batch, seq,
-                                       kseq, heads, kv_heads, d, tq, tk, tv,
-                                       to, scale, mask, window, st);
+  if (dtype == kBF16) {
+    const FwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                    static_cast<const bf16*>(v), acc, mp, lp, batch, seq,
+                    kseq, heads, kv_heads, d, mask, window, tq, tk, tv, to,
+                    scale * kLog2e};
+    return dispatch_bf16<true>(a, tiling, st);
+  }
   if (dtype == kF32)
     return launch<float, true>(q, k, v, acc, mp, lp, batch, seq, kseq,
                                heads, kv_heads, d, tq, tk, tv, to, scale,

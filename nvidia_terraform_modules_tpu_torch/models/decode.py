@@ -300,18 +300,22 @@ def forward_paged(params, tokens, cache, cfg: BurnInConfig, *,
     return logits, cache
 
 
-def _select_prefill_impl(cfg: BurnInConfig, t: int, prefill: str) -> str:
+def _select_prefill_impl(cfg: BurnInConfig, t: int, prefill: str,
+                         device: torch.device | None = None) -> str:
     """Resolve the prefill attention: ``"auto"`` follows the training
     layout (dense-trained → the exact masked-cache path, every other
-    layout → flash); a non-tiling prompt under auto-resolved flash falls
-    back to dense up to 512 tokens and raises beyond, as does an explicit
-    ``"flash"`` request."""
+    layout → flash). On a CUDA ``device`` flash runs at every prompt
+    length (the kernel masks ragged tails, :func:`pick_impl`). Elsewhere
+    the reference's tile rule holds: a non-tiling prompt under
+    auto-resolved flash falls back to dense up to 512 tokens and raises
+    beyond, as does an explicit ``"flash"`` request."""
     if prefill not in ("auto", "dense", "flash"):
         raise ValueError(f"unknown prefill {prefill!r}; use auto|dense|flash")
     requested = prefill
     if prefill == "auto":
         prefill = "dense" if cfg.attn == "dense" else "flash"
-    if prefill == "flash" and pick_impl(None, t, "prefill") != "flash":
+    if prefill == "flash" and pick_impl(None, t, "prefill",
+                                        device) != "flash":
         if requested == "auto" and t <= 512:
             return "dense"
         raise ValueError(
@@ -343,7 +347,7 @@ def greedy_decode(params, prompt, n_new: int, cfg: BurnInConfig,
     cache = init_cache(cfg, b, max_len, cache_dtype=cache_dtype, device=dev)
     logits, cache = forward_cached(
         params, prompt, cache, cfg,
-        prefill_impl=_select_prefill_impl(cfg, t, prefill))
+        prefill_impl=_select_prefill_impl(cfg, t, prefill, dev))
     tok = logits[:, -1].argmax(dim=-1)
     toks = [tok]
     for _ in range(n_new - 1):

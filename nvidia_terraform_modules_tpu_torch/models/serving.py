@@ -194,7 +194,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
         pool["block_tables"][slot] = torch.as_tensor(row, device=dev)
         sub = dict(pool, block_tables=pool["block_tables"][slot:slot + 1],
                    pos=torch.zeros((1,), dtype=torch.int32, device=dev))
-        impl = _select_prefill_impl(cfg, length, "auto")
+        impl = _select_prefill_impl(cfg, length, "auto", dev)
         logits, sub = forward_paged(prefill_params, prompt[None, :], sub,
                                     cfg, prefill_impl=impl,
                                     paged_kernel="off")

@@ -1,9 +1,10 @@
 # SPDX-FileCopyrightText: Copyright (c) 2026 tpu-terraform-modules authors. All rights reserved.
 # SPDX-License-Identifier: Apache-2.0
-"""A/B timing of the attention kernels and the flagship train step across
-two source trees of the port, on one card.
+"""A/B timing of the attention kernels and the flagship train steps
+across two source trees of the port, on one card.
 
     python3 -m nvidia_terraform_modules_tpu_torch.utils.kernel_ab OLD NEW
+    python3 -m nvidia_terraform_modules_tpu_torch.utils.kernel_ab --tilings TREE
 
 ``OLD`` and ``NEW`` are directories that each hold a copy of the package
 (e.g. a ``git archive`` of the parent commit unpacked into an ignored
@@ -13,13 +14,22 @@ compared on one card and the spread shows beside the difference. Each run
 prints one JSON line: K1 at two serve prompt shapes and the train step's
 per-layer ``[2, 4096, 16, 128]``, K7 (bf16 paged decode) at a flagship
 wave of 4 slots, K5/K3/K4 at the train shape (CUDA-event medians, cold
-L2), and the median host time of a flagship bf16 SGD step ending in a
-synchronise. A tree without the backward kernels (the serve slice alone)
-reports K1 and K7 only.
+L2), the median host time of a flagship bf16 SGD step ending in a
+synchronise, and — in a tree with ring attention — K2 at the ring's block
+``[2, 1024, 16, 128]``, diagonal (causal) and visible (full), and the
+median host time of the flagship ring SGD step (sp = 4 on the one card).
+A tree without the backward kernels (the serve slice alone) reports K1
+and K7 only.
+
+``--tilings TREE`` times every tiling of the bf16 flash-forward sweep
+(``FWD_TILINGS``) of one tree, and the tiling its rule picks: K1 at the
+flagship serve prompts and at the train shape, K2 diagonal and visible at
+the ring's block — the sweep a change of the tiling rule rests on.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import json
 import subprocess
@@ -80,12 +90,72 @@ def measure(tree: str) -> dict:
     timing.synced_ms(run, 1)                # warm-up
     losses, out["train_step_ms"] = timing.synced_ms(run, 5)
     out["last_loss"] = losses[-1].item()
+    if not hasattr(fa, "flash_partial"):    # a tree from before the ring
+        return out
+    qr, kr, vr = (t[:, :1024].contiguous() for t in (q, k, v))
+    for name, causal in (("diag", True), ("visible", False)):
+        out[f"flash_partial_{name}_ms"] = timing.cuda_median_ms(
+            lambda causal=causal: fa.flash_partial(
+                qr, kr, vr, scale=128 ** -0.5, causal=causal))
+    parallel = importlib.import_module(
+        "nvidia_terraform_modules_tpu_torch.parallel")
+    rules = parallel.make_rules(parallel.build_mesh(
+        parallel.plan_mesh(4, tp=1, sp=4), devices=[dev] * 4))
+    ring_step = models.make_train_step(
+        dataclasses.replace(cfg, attn="ring"), rules, lr=0.1, device=dev)
+
+    def ring_run():
+        state["p"], loss = ring_step(state["p"], batch)
+        return loss
+
+    timing.synced_ms(ring_run, 1)           # warm-up
+    losses, out["ring_step_ms"] = timing.synced_ms(ring_run, 5)
+    out["ring_last_loss"] = losses[-1].item()
+    return out
+
+
+def tilings(tree: str) -> dict:
+    """Time each bf16 flash-forward tiling of the tree under ``tree``."""
+    sys.path.insert(0, str(Path(tree).resolve()))
+    import torch
+
+    fa = importlib.import_module(
+        "nvidia_terraform_modules_tpu_torch.ops.flash_attention")
+    traffic = importlib.import_module(
+        "nvidia_terraform_modules_tpu_torch.utils.traffic")
+    timing = importlib.import_module(
+        "nvidia_terraform_modules_tpu_torch.utils.timing")
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel_ab measures on a CUDA device")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    # the flagship serve prompts (chip_smoke.flagship_lengths)
+    serve = sorted({min(512, max(128, 8 * round(n / 8)))
+                    for n in traffic.ragged_lengths(8, 0, lo=128, hi=512)})
+    cases = [(f"flash_fwd_1x{s}", (1, s, s), True, False) for s in serve]
+    cases += [("flash_fwd_2x4096", (2, 4096, 4096), True, False),
+              ("flash_partial_diag", (2, 1024, 1024), True, True),
+              ("flash_partial_visible", (2, 1024, 1024), False, True)]
+    out: dict = {"tree": tree, "tilings": [list(t) for t in fa.FWD_TILINGS]}
+    for name, (b, s, sk), causal, partial in cases:
+        q = torch.randn((b, s, 16, 128), generator=g, device=dev).bfloat16()
+        k, v = (torch.randn((b, sk, 16, 128), generator=g,
+                            device=dev).bfloat16() for _ in range(2))
+        spec = fa.as_mask_spec(None, causal)
+        times = [timing.cuda_median_ms(
+            lambda i=i: fa._flash_cuda(q, k, v, 128 ** -0.5, spec, partial,
+                                       tiling=i))
+            for i in range(len(fa.FWD_TILINGS))]
+        out[name] = {"ms": times, "picked": fa.fwd_tiling(b, 16, s)}
     return out
 
 
 def main(argv: list[str]) -> int:
     if len(argv) == 2 and argv[0] == "--one":
         print(json.dumps(measure(argv[1])), flush=True)
+        return 0
+    if len(argv) == 2 and argv[0] == "--tilings":
+        print(json.dumps(tilings(argv[1])), flush=True)
         return 0
     if len(argv) != 2:
         print(__doc__, file=sys.stderr)

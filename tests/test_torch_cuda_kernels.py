@@ -63,6 +63,12 @@ from nvidia_terraform_modules_tpu_torch.ops import (
 from nvidia_terraform_modules_tpu_torch.ops.decode_attention import (
     gather_logical,
 )
+from nvidia_terraform_modules_tpu_torch.ops.flash_attention import (
+    FWD_TILINGS,
+    _flash_cuda,
+    as_mask_spec,
+    fwd_tiling,
+)
 from nvidia_terraform_modules_tpu_torch.ops.ring_attention import (
     dense_reference_attention,
 )
@@ -363,6 +369,27 @@ def test_serve_engine_on_card_matches_solo_greedy(cuda):
         assert torch.equal(a, solo) and torch.equal(c, solo)
 
 
+@pytest.mark.parametrize("t", [13, 521])
+def test_greedy_decode_ragged_prompt_runs_flash_prefill(cuda, t):
+    """A prompt with no 8-multiple block (521 raised before the prefill
+    rule became device-aware) prefills through K1 on the card and decodes
+    the same tokens as the dense prefill (f32, head_dim 128)."""
+    cfg = BurnInConfig(vocab=512, d_model=256, n_heads=2, n_kv_heads=1,
+                       d_ff=512, n_layers=2, dtype=torch.float32,
+                       attn="flash")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(7),
+                         device=cuda)
+    prompt = torch.randint(0, cfg.vocab, (1, t),
+                           generator=torch.Generator().manual_seed(t))
+    before = launches["flash_fwd"]
+    got = greedy_decode(params, prompt, 6, cfg, device=cuda)
+    torch.cuda.synchronize()
+    assert launches["flash_fwd"] == before + cfg.n_layers
+    want = greedy_decode(params, prompt, 6, cfg, prefill="dense",
+                         device=cuda)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("backward", ["fused", "split"])
 def test_train_grads_on_card_match_dense(cuda, backward):
     """The autograd path through the kernels (K1 forward; K5, or K3 + K4,
@@ -424,6 +451,95 @@ def test_flash_partial_matches_plain_and_flash_fwd(cuda, b, sq, sk, h, kv,
         assert torch.equal((acc / lm.transpose(1, 2)[..., None]).to(dtype), o)
         assert ((m + torch.log(lm) - lse).abs()
                 / lse.abs().clamp_min(1.0)).max().item() <= 1e-6
+
+
+def _k2_normalised_equals_k1(q, k, v, got, **kw):
+    acc, m, l_ = got
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    lm = l_.clamp_min(1e-30)
+    assert torch.equal((acc / lm.transpose(1, 2)[..., None]).to(q.dtype), o)
+    assert ((m + torch.log(lm) - lse).abs()
+            / lse.abs().clamp_min(1.0)).max().item() <= 1e-6
+    return o, lse
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,mask", [
+    (1, 1, 1, 16, 16, 128, "causal"),
+    (2, 65, 65, 4, 4, 64, "causal"),
+    (1, 129, 129, 16, 1, 128, "causal"),        # GQA 16:1
+    (2, 200, 200, 8, 2, 32, "causal"),          # GQA 8:2
+    (1, 4100, 4100, 2, 2, 128, "causal"),
+    (1, 200, 200, 4, 4, 128, ("window", 70)),   # edges inside 64-key tiles
+    (1, 129, 129, 4, 2, 64, "full"),
+    (1, 200, 72, 4, 4, 128, "causal"),          # K2: keys shorter than q
+    (1, 65, 300, 4, 4, 64, "causal"),           # K2: keys longer than q
+    (1, 129, 200, 8, 2, 32, "full"),
+    (1, 300, 129, 4, 4, 128, ("window", 50)),
+])
+def test_flash_forward_bf16_ragged_lengths_and_tilings(cuda, b, sq, sk, h,
+                                                       kv, d, mask):
+    """The bf16 sweep at lengths that are no multiple of its q block (64
+    or 128 rows) or of its 64-key tile, GQA, window edges inside a tile and
+    d = 32 / 64 / 128: K2 against its plain version (1e-2 of max(1,
+    max|plain|)); at equal lengths K1 against its plain version (2e-2 /
+    1e-3) and K2 normalised equal to K1 bit for bit; every tiling of
+    ``FWD_TILINGS`` gives the same bits."""
+    g = torch.Generator().manual_seed(sq * 5 + sk + d)
+    q = _randn(g, (b, sq, h, d), torch.bfloat16, cuda)
+    k = _randn(g, (b, sk, kv, d), torch.bfloat16, cuda)
+    v = _randn(g, (b, sk, kv, d), torch.bfloat16, cuda)
+    kw = dict(scale=d ** -0.5, mask=mask)
+    got = flash_partial(q, k, v, **kw)
+    for a, r in zip(got, flash_partial_ref(q, k, v, **kw)):
+        assert a.shape == r.shape
+        lim = 1e-2 * max(1.0, r.abs().max().item())
+        assert (a - r).abs().max().item() <= lim
+    spec = as_mask_spec(mask)
+    for tiling in range(len(FWD_TILINGS)):
+        other = _flash_cuda(q, k, v, d ** -0.5, spec, True, tiling=tiling)
+        assert all(torch.equal(x, y) for x, y in zip(got, other))
+    if sq != sk:
+        return
+    o, lse = _k2_normalised_equals_k1(q, k, v, got, **kw)
+    o_ref, lse_ref = flash_attention_ref(q, k, v, **kw)
+    assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    for tiling in range(len(FWD_TILINGS)):
+        o_t, lse_t = _flash_cuda(q, k, v, d ** -0.5, spec, False,
+                                 tiling=tiling)
+        assert torch.equal(o_t, o) and torch.equal(lse_t, lse)
+
+
+def test_flash_forward_bf16_is_deterministic(cuda):
+    """Two launches give the same bits, and row b of a batch-2 call equals
+    the same input run alone — here the batch of 2 takes 128-row CTAs and
+    the single row 64-row ones (``fwd_tiling``)."""
+    g = torch.Generator().manual_seed(11)
+    q, k, v = (_randn(g, (2, 520, 16, 128), torch.bfloat16, cuda)
+               for _ in range(3))
+    assert fwd_tiling(2, 16, 520) != fwd_tiling(1, 16, 520)
+    o, lse = flash_attention_fwd(q, k, v)
+    o2, lse2 = flash_attention_fwd(q, k, v)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    part = flash_partial(q, k, v, scale=128 ** -0.5)
+    assert all(torch.equal(x, y) for x, y in zip(
+        part, flash_partial(q, k, v, scale=128 ** -0.5)))
+    for row in range(2):
+        sl = slice(row, row + 1)
+        o1, lse1 = flash_attention_fwd(q[sl], k[sl], v[sl])
+        assert torch.equal(o1, o[sl]) and torch.equal(lse1, lse[sl])
+        p1 = flash_partial(q[sl], k[sl], v[sl], scale=128 ** -0.5)
+        assert all(torch.equal(x, y[sl]) for x, y in zip(p1, part))
+
+
+def test_flash_partial_equals_flash_fwd_at_causal_4096(cuda):
+    """K2 normalised equals K1 bit for bit at the train step's causal
+    length."""
+    g = torch.Generator().manual_seed(12)
+    q, k, v = (_randn(g, (1, 4096, 4, 128), torch.bfloat16, cuda)
+               for _ in range(3))
+    got = flash_partial(q, k, v, scale=128 ** -0.5, causal=True)
+    _k2_normalised_equals_k1(q, k, v, got, scale=128 ** -0.5, causal=True)
 
 
 @pytest.mark.parametrize("mask", ["causal", "full"])

@@ -177,6 +177,33 @@ def test_prefill_selection_matches_reference():
                 assert got == want, (attn, t, prefill)
 
 
+@pytest.mark.parametrize("t", [13, 300, 601])
+def test_prefill_selection_is_flash_at_every_length_on_cuda(t):
+    """On a CUDA device flash runs at every prompt length (the kernel masks
+    ragged tails); on the CPU, and with no device, the reference's tile
+    rule holds exactly as before."""
+    cuda = torch.device("cuda")
+    for attn in ("dense", "flash", "ring"):
+        kw = {**BASE, "attn": attn}
+        jcfg = jburnin.BurnInConfig(**kw)
+        tcfg = BurnInConfig(**kw)
+        for prefill in ("auto", "dense", "flash"):
+            want = "dense" if prefill == "dense" or (
+                prefill == "auto" and attn == "dense") else "flash"
+            assert tdecode._select_prefill_impl(tcfg, t, prefill,
+                                                cuda) == want
+            try:
+                ref = jdecode._select_prefill_impl(jcfg, t, prefill)
+            except ValueError:
+                ref = ValueError
+            for dev in (torch.device("cpu"), None):
+                try:
+                    got = tdecode._select_prefill_impl(tcfg, t, prefill, dev)
+                except ValueError:
+                    got = ValueError
+                assert got == ref, (attn, t, prefill, dev)
+
+
 @pytest.mark.parametrize("max_len", [1, 12, 256, 257])
 def test_int8_cache_structure_and_rows_match_reference(max_len):
     jcfg, _, tcfg, _ = _pair(n_kv_heads=2)
