@@ -31,7 +31,8 @@ It builds the port's CUDA kernels from ``csrc/`` with nvcc (into
   and profiles one step;
 - sequence-parallel train: holds K2 (the partial flash forward of ring
   attention) against its plain version at the ring's flagship block
-  ``[2, 1024, 16, 128]`` (and, normalised, against K1 bit for bit), and
+  ``[2, 1024, 16, 128]`` (and, normalised, against K1 bit for bit there
+  and at the train step's causal ``[2, 4096, 16, 128]``), and
   K5/K3/K4 with the f32 outputs the ring takes, timed beside bf16 ones;
   checks the f32 ring (K2 + K5, and K2 + K3 + K4) and Ulysses (K1 + K5)
   on meshes of sp = 2 and 4 against dense attention, forward and
@@ -113,6 +114,26 @@ def bound(flops: float, nbytes: float, kind: str) -> tuple[float, str]:
     t_bytes = nbytes / H100_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def achieved(flops: float, ms: float, bound_ms: float) -> dict:
+    """The rate a kernel reached and the share of its bound."""
+    return {"tflops": flops / ms / 1e9, "bound_share": bound_ms / ms}
+
+
+def tiling_of(b: int, h: int, s: int, dtype) -> str:
+    """The flash forward's tiling the launcher picks for a shape."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.ops.flash_attention import (
+        FWD_TILINGS,
+        fwd_tiling,
+    )
+
+    if dtype != torch.bfloat16:
+        return "f32: 64 rows x 64 keys, 4 warps"
+    warps, keys = FWD_TILINGS[fwd_tiling(b, h, s)]
+    return f"bf16: {16 * warps} rows x {keys} keys, {warps} warps"
 
 
 def profile_summary(prof, wall_ms: float) -> dict:
@@ -846,6 +867,8 @@ def kernel_flash_partial(randn, dev, block) -> dict:
     import torch.nn.functional as F
 
     from nvidia_terraform_modules_tpu_torch.ops.flash_attention import (
+        as_mask_spec,
+        block_liveness,
         flash_attention_fwd,
         flash_partial,
         flash_partial_ref,
@@ -896,17 +919,40 @@ def kernel_flash_partial(randn, dev, block) -> dict:
             elt = q.element_size()
             nbytes = 3 * b * s * h * d * elt + b * s * h * d * 4 \
                 + 2 * b * h * s * 4
-            bound_ms, bound_by = bound(4.0 * b * h * d * live, nbytes, kind)
+            flops = 4.0 * b * h * d * live
+            bound_ms, bound_by = bound(flops, nbytes, kind)
+            # live 64x64 tiles of one (batch, head): the sweep's columns
+            tiles = int((block_liveness(
+                as_mask_spec(None, causal), -(-s // 64), -(-s // 64), 64,
+                64) != 0).sum())
             rec = dict(shape=[b, s, h, d], dtype=str(dtype), causal=causal,
                        max_abs_err=errs["acc"], m_err=errs["m"],
                        l_err=errs["l"], tolerance=PARTIAL_TOL[kind],
                        normalised_vs_flash_fwd=vs_k1,
                        lse_vs_flash_fwd=lse_err, ms=ms, plain_ms=plain_ms,
                        library_ms=library_ms, bound_ms=bound_ms,
-                       bound_by=bound_by)
+                       bound_by=bound_by, **achieved(flops, ms, bound_ms),
+                       tiling=tiling_of(b, h, s, dtype), live_tiles=tiles,
+                       us_per_tile_column=ms * 1e3 / tiles)
             emit("kernel_flash_partial", **rec)
             if kind == "bf16":
                 main["diag" if causal else "full"] = rec
+    # and at the train step's causal length, where K1 runs 128-row CTAs
+    q, k, v = (randn((b, RING_SP * s, h, d), torch.bfloat16)
+               for _ in range(3))
+    acc, m, l_ = flash_partial(q, k, v, scale=scale, causal=True)
+    o1, lse1 = flash_attention_fwd(q, k, v, scale=scale, causal=True)
+    lm = l_.clamp_min(1e-30)
+    norm = (acc / lm.transpose(1, 2)[..., None]).to(q.dtype)
+    lse_err = ((m + torch.log(lm) - lse1).abs()
+               / lse1.abs().clamp_min(1.0)).max().item()
+    if not torch.equal(norm, o1) or not lse_err <= 1e-6:
+        raise AssertionError(f"flash_partial causal S={RING_SP * s} vs "
+                             f"flash_fwd: output equal "
+                             f"{torch.equal(norm, o1)} (must be), LSE "
+                             f"{lse_err} (limit 1e-6)")
+    emit("kernel_flash_partial_vs_fwd", shape=list(q.shape), causal=True,
+         normalised_equal=True, lse_vs_flash_fwd=lse_err)
     return main
 
 
@@ -1424,7 +1470,7 @@ def main() -> int:
               (1, 512, bf16, ("window", 128), 16, False)]
     cases += [(1, s, bf16, "causal", 16, "serve") for s in sorted(set(lens))]
     cases += [(*train_shape, bf16, "causal", 16, "train")]
-    k1_main = []
+    k1_main, k1_train = [], None
     for b, s, dtype, mask, kv, on_path in cases:
         h, d = (16, 128) if kv == 16 else (2, 128)
         q, k, v = (randn((b, s, n, d), dtype) for n in (h, kv, kv))
@@ -1460,16 +1506,20 @@ def main() -> int:
         library_ms = cuda_median_ms(lib_call)
         elt = q.element_size()
         nbytes = b * ((2 * h + 2 * kv) * s * d * elt + h * s * 4)
-        bound_ms, bound_by = bound(4.0 * b * h * d * live, nbytes,
+        flops = 4.0 * b * h * d * live
+        bound_ms, bound_by = bound(flops, nbytes,
                                    "bf16" if dtype == bf16 else "f32")
         rec = dict(shape=[b, s, h, d], kv_heads=kv, dtype=str(dtype),
                    mask=mask, main_path=on_path, max_abs_err=err_o,
                    lse_err=err_l, ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound_ms,
-                   bound_by=bound_by)
+                   bound_by=bound_by, **achieved(flops, ms, bound_ms),
+                   tiling=tiling_of(b, h, s, dtype))
         emit("kernel_flash_fwd", **rec)
         if on_path == "serve":
             k1_main.append((lens.count(s), rec))
+        elif on_path == "train":
+            k1_train = rec
 
     # ----------------------------------------------- kernel_paged_decode
     # the flagship wave: SLOTS rows at mid-generation of the first SLOTS
@@ -1832,7 +1882,13 @@ def main() -> int:
          "ms": k1_mean("ms"), "plain_ms": k1_mean("plain_ms"),
          "bound_ms": k1_mean("bound_ms"),
          "bound_by": k1_main[0][1]["bound_by"],
-         "library_ms": k1_mean("library_ms")},
+         "library_ms": k1_mean("library_ms"),
+         # the serve prompts' mean rate, and K1 at the train step's shape
+         "tflops": k1_mean("tflops"), "bound_share": k1_mean("bound_share"),
+         "tiling": sorted({r["tiling"] for _, r in k1_main}),
+         "train": {key: k1_train[key] for key in (
+             "shape", "ms", "plain_ms", "bound_ms", "library_ms", "tflops",
+             "bound_share", "tiling")}},
         {"name": "paged_decode", "route": "cuda",
          "source": "nvidia_terraform_modules_tpu_torch/csrc/paged_decode.cu",
          "replaces":
@@ -1905,8 +1961,14 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "library_ms")},
             "bound_by": recs["full"]["bound_by"]}
 
-    kernels.append(ring_row("flash_partial", "flash_fwd.cu", 420,
-                            ring_launches["flash_partial"], k2))
+    k2_row = ring_row("flash_partial", "flash_fwd.cu", 420,
+                      ring_launches["flash_partial"], k2)
+    k2_row.update(
+        {key: ring_mix(k2, key) for key in ("tflops", "bound_share")},
+        tiling=sorted({r["tiling"] for r in k2.values()}),
+        us_per_tile_column={name: k2[name]["us_per_tile_column"]
+                            for name in ("diag", "full")})
+    kernels.append(k2_row)
     # K5, K3 and K4 writing f32 (the ring's per-block gradients): K5's
     # count is the ring's timed fused steps', K3's and K4's its split
     # step's

@@ -266,17 +266,18 @@ struct FwdArgs {
 };
 
 // Copy rows [row0, row0 + kRows) of one head (row stride `stride`
-// elements, d valid columns) into a [kRows, kLd] shared tile with cp.async;
-// rows past `rows` and columns past d are zero-filled.
+// elements, d valid columns) into a [kRows, kLd] shared tile with cp.async,
+// by kThreads threads (this one is `tid`); rows past `rows` and columns
+// past d are zero-filled.
 template <int kRows, int kD, int kThreads>
 __device__ __forceinline__ void cp_tile(bf16* dst, const bf16* base,
                                         long long stride, int row0, int rows,
-                                        int d) {
+                                        int d, int tid) {
   constexpr int kLd = kD + 8, kChunks = kD / 8;
   static_assert(kRows * kChunks % kThreads == 0, "whole rounds of copies");
 #pragma unroll
   for (int it = 0; it < kRows * kChunks / kThreads; ++it) {
-    const int i = it * kThreads + threadIdx.x;
+    const int i = it * kThreads + tid;
     const int r = i / kChunks, c = (i % kChunks) * 8;
     const bool ok = row0 + r < rows && c < d;
     const bf16* src =
@@ -345,6 +346,83 @@ __device__ __forceinline__ void fold_tile(float (&s)[kNT][4],
   }
 }
 
+// The epilogue of both bf16 kernels for one warp's 16 rows from r0: the
+// quad's partial row sums, then K1's normalised bf16 O (staged through
+// `so`, the warp's own 16 Q rows of shared memory, read once at the start,
+// into 16-byte stores) and LSE, or K2's f32 accumulator, m and l.
+template <int kD, bool kPartial>
+__device__ __forceinline__ void store_fwd(const FwdArgs& a, bf16* so,
+                                          float (&o)[kD / 8][4],
+                                          float (&m)[2], float (&l)[2],
+                                          int r0, int b, int h, int bh,
+                                          int lane) {
+  constexpr int kLd = kD + 8, kOT = kD / 8;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  float m_nat[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    m_nat[i] = m[i] <= kNegInf * 0.5f ? kNegInf : m[i] * kLn2;
+  const long long stat_row = static_cast<long long>(bh) * a.seq;
+  if constexpr (kPartial) {
+    float* acc = static_cast<float*>(a.o);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qp = r0 + g + 8 * i;
+      if (qp >= a.seq) continue;
+      float* row = acc + b * a.to.b + static_cast<long long>(qp) * a.to.s
+                   + h * a.to.h;
+#pragma unroll
+      for (int j = 0; j < kOT; ++j) {
+        const int c = 8 * j + 2 * t;
+        if (c < a.d)
+          *reinterpret_cast<float2*>(row + c) =
+              make_float2(o[j][2 * i], o[j][2 * i + 1]);
+      }
+      if (t == 0) {
+        a.lse[stat_row + qp] = m_nat[i];
+        a.l_out[stat_row + qp] = l[i];
+      }
+    }
+  } else {
+    float lf[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) lf[i] = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < kOT; ++j) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        *reinterpret_cast<uint32_t*>(so + (g + 8 * i) * kLd + 8 * j + 2 * t) =
+            pack_bf16(o[j][2 * i] / lf[i], o[j][2 * i + 1] / lf[i]);
+    }
+    if (t == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int qp = r0 + g + 8 * i;
+        if (qp < a.seq) a.lse[stat_row + qp] = m_nat[i] + logf(lf[i]);
+      }
+    }
+    __syncwarp();
+    bf16* out = static_cast<bf16*>(a.o);
+    constexpr int kChunks = kD / 8;
+#pragma unroll
+    for (int it = 0; it < 16 * kChunks / 32; ++it) {
+      const int i = it * 32 + lane;
+      const int r = i / kChunks, c = (i % kChunks) * 8;
+      const int qp = r0 + r;
+      if (qp < a.seq && c < a.d)
+        *reinterpret_cast<uint4*>(out + b * a.to.b +
+                                  static_cast<long long>(qp) * a.to.s +
+                                  h * a.to.h + c) =
+            *reinterpret_cast<const uint4*>(so + r * kLd + c);
+    }
+  }
+}
+
 // The bf16 sweep. kD: the padded head dim (64 or 128); kWarpsT warps of
 // 16 query rows each; kBKT keys per tile. K1 (kPartial = false) writes O
 // in bf16 through `to` and LSE [B, H, seq]; K2 writes the f32 accumulator
@@ -363,7 +441,6 @@ flash_fwd_mma(FwdArgs a) {
   bf16* sv = sk + 2 * kBKT * kLd;      // [2][kBKT][kLd]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
   // heaviest first: (b, h) fastest; causal and window blocks from the last
   const int bhn = a.batch * a.heads;
   const int nq = (a.seq + kBQT - 1) / kBQT;
@@ -385,14 +462,15 @@ flash_fwd_mma(FwdArgs a) {
   const int t_hi = k_lo < k_hi ? (k_hi + kBKT - 1) / kBKT : t_lo;
 
   // prologue: group 1 = Q and the first K tile, group 2 = the first V tile
-  cp_tile<kBQT, kD, kNThreads>(sq, qbase, a.tq.s, q0, a.seq, a.d);
+  const int tid = threadIdx.x;
+  cp_tile<kBQT, kD, kNThreads>(sq, qbase, a.tq.s, q0, a.seq, a.d, tid);
   if (t_lo < t_hi)
     cp_tile<kBKT, kD, kNThreads>(sk, kbase, a.tk.s, t_lo * kBKT, a.kseq,
-                                 a.d);
+                                 a.d, tid);
   cp_async_commit();
   if (t_lo < t_hi)
     cp_tile<kBKT, kD, kNThreads>(sv, vbase, a.tv.s, t_lo * kBKT, a.kseq,
-                                 a.d);
+                                 a.d, tid);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
@@ -424,12 +502,14 @@ flash_fwd_mma(FwdArgs a) {
     // prefetch tile kt + 1 into the other stage
     if (kt + 1 < t_hi) {
       cp_tile<kBKT, kD, kNThreads>(sk + (stage ^ 1) * kBKT * kLd, kbase,
-                                   a.tk.s, (kt + 1) * kBKT, a.kseq, a.d);
+                                   a.tk.s, (kt + 1) * kBKT, a.kseq, a.d,
+                                   tid);
     }
     cp_async_commit();
     if (kt + 1 < t_hi) {
       cp_tile<kBKT, kD, kNThreads>(sv + (stage ^ 1) * kBKT * kLd, vbase,
-                                   a.tv.s, (kt + 1) * kBKT, a.kseq, a.d);
+                                   a.tv.s, (kt + 1) * kBKT, a.kseq, a.d,
+                                   tid);
     }
     cp_async_commit();
 
@@ -483,72 +563,444 @@ flash_fwd_mma(FwdArgs a) {
     }
   }
 
-  // epilogue: the quad's partial sums, then the row's outputs
+  store_fwd<kD, kPartial>(a, sq + 16 * warp * kLd, o, m, l, r0, b, h, bh,
+                          lane);
+}
+
+// ------------------------------------------------------- bf16, wgmma
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(kPending)
+               : "memory");
+}
+
+// this thread's cp.async writes, made visible to the async proxy that
+// wgmma reads shared memory through
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// pin registers that an asynchronous wgmma reads or writes: the compiler
+// neither moves their other uses across this point nor reuses them early
+template <int kN>
+__device__ __forceinline__ void reg_fence(float (&r)[kN][4]) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  for (int j = 0; j < kN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(r[j][e]) :: "memory");
+}
+
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[e]) :: "memory");
+}
+
+// A shared-memory matrix descriptor without swizzle: 8x8 core matrices of
+// 128 contiguous bytes (8 rows of 16 bytes), `lbo` bytes apart along the
+// product's K dimension and `sbo` bytes apart along M / N.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
+         static_cast<uint64_t>((lbo & 0x3ffff) >> 4) << 16 |
+         static_cast<uint64_t>((sbo & 0x3ffff) >> 4) << 32;
+}
+
+// d[8][4] (+)= a · B[desc], m64n64k16, A from registers; kTransB: B is
+// MN-major (1) or K-major (0); scale_d = 0 ignores d's old value
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %36, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %37, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d),
+        "l"(desc), "n"(kTransB));
+}
+
+// d[16][4] (+)= a · B[desc], m64n128k16, A from registers; kTransB: B is
+// MN-major (1) or K-major (0); scale_d = 0 ignores d's old value
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[16][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %68, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %69, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d),
+        "l"(desc), "n"(kTransB));
+}
+
+
+// Copy keys [row0, row0 + 64) of one head into a 64 x kD tile of core
+// matrices, by kThreads threads (this one is `tid`): element (key, c) at
+// byte (key / 8) * row_cm + (c / 8) * col_cm + (key % 8) * 16 + (c % 8) * 2.
+// Each 16-byte copy is one core-matrix row; eight neighbouring threads fill
+// one core matrix. Rows past `rows` and columns past d are zero-filled.
+template <int kD, int kThreads>
+__device__ __forceinline__ void cp_tile_cm(bf16* dst, const bf16* base,
+                                           long long stride, int row0,
+                                           int rows, int d, int row_cm,
+                                           int col_cm, int tid) {
+  constexpr int kChunks = kD / 8;
+  static_assert(64 * kChunks % kThreads == 0, "whole rounds of copies");
+  unsigned char* out = reinterpret_cast<unsigned char*>(dst);
+#pragma unroll
+  for (int it = 0; it < 64 * kChunks / kThreads; ++it) {
+    const int i = it * kThreads + tid;
+    const int r8 = i & 7, rest = i >> 3;
+    const int cc = rest % kChunks, r = (rest / kChunks) * 8 + r8;
+    const int c = cc * 8;
+    const bool ok = row0 + r < rows && c < d;
+    const bf16* src =
+        ok ? base + static_cast<long long>(row0 + r) * stride + c : base;
+    cp_async16(smem_addr(out + (r >> 3) * row_cm + cc * col_cm + r8 * 16),
+               src, ok);
   }
-  float m_nat[2];
+}
+
+// The shared-memory K/V tile layouts of the wgmma kernels (bytes): a K
+// tile (B of S = Q K^T, K-major) has its head-dim core matrices 128 B
+// apart and its key groups kD * 16 B apart; a V tile (B of O += P V,
+// MN-major, read transposed) has its key groups 128 B apart and its
+// head-dim groups 1 KB (64 keys) apart.
+template <int kD>
+struct WgTile {
+  static constexpr int kKCol = 128, kKRow = kD * 16;
+  static constexpr int kVRow = 128, kVCol = 64 * 16;
+  static constexpr int kBytes = 64 * kD * 2;
+
+  template <int kThreads>
+  __device__ static void load(unsigned char* kv, const FwdArgs& a,
+                              const bf16* kbase, const bf16* vbase, int k0,
+                              int tid) {
+    cp_tile_cm<kD, kThreads>(reinterpret_cast<bf16*>(kv), kbase, a.tk.s, k0,
+                             a.kseq, a.d, kKRow, kKCol, tid);
+    cp_tile_cm<kD, kThreads>(reinterpret_cast<bf16*>(kv + kBytes), vbase,
+                             a.tv.s, k0, a.kseq, a.d, kVRow, kVCol, tid);
+  }
+};
+
+// One warpgroup's fold of one 64-key tile (K at `kaddr`, V at `vaddr`):
+// S = Q K^T as wgmma m64n64k16 with Q's A fragments from registers, the
+// online softmax on the S registers (each warp masks only a tile that is
+// not fully visible to its 16 rows), then O += P V as m64n{kD}k16 with P
+// packed from the S registers. The accumulators have mma.sync's per-warp
+// layout, so `fold_tile` and the epilogue are the mma.sync kernel's.
+template <int kD>
+__device__ __forceinline__ void wgmma_tile(const uint32_t (&qf)[kD / 16][4],
+                                           uint32_t kaddr, uint32_t vaddr,
+                                           float (&o)[kD / 8][4],
+                                           float (&m)[2], float (&l)[2],
+                                           const FwdArgs& a, int r0, int k0,
+                                           int lane) {
+  using L = WgTile<kD>;
+  constexpr int kNT = 8, kOT = kD / 8, kKS = kD / 16;
+  const int k1 = k0 + 63;
+  const bool visible = k1 < a.kseq &&
+      (a.mask == kFull ||
+       (k1 <= r0 && (a.mask != kWindow || r0 + 15 - k0 < a.window)));
+  float s[kNT][4];
+  wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-    m_nat[i] = m[i] <= kNegInf * 0.5f ? kNegInf : m[i] * kLn2;
-  const long long stat_row = static_cast<long long>(bh) * a.seq;
-  if constexpr (kPartial) {
-    float* acc = static_cast<float*>(a.o);
+  for (int kk = 0; kk < kKS; ++kk)
+    wgmma_rs<0>(s, qf[kk],
+                smem_desc(kaddr + kk * 2 * L::kKCol, L::kKCol, L::kKRow),
+                kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(s);
+  if (visible)
+    fold_tile<kNT, kOT, false>(s, o, m, l, a.scale_log2, r0, k0, a.kseq,
+                               a.mask, a.window, lane);
+  else
+    fold_tile<kNT, kOT, true>(s, o, m, l, a.scale_log2, r0, k0, a.kseq,
+                              a.mask, a.window, lane);
+  uint32_t pa[4][4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int qp = r0 + g + 8 * i;
-      if (qp >= a.seq) continue;
-      float* row = acc + b * a.to.b + static_cast<long long>(qp) * a.to.s
-                   + h * a.to.h;
+  for (int kk = 0; kk < 4; ++kk) {
+    pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+    pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+    pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+  }
+  wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < kOT; ++j) {
-        const int c = 8 * j + 2 * t;
-        if (c < a.d)
-          *reinterpret_cast<float2*>(row + c) =
-              make_float2(o[j][2 * i], o[j][2 * i + 1]);
-      }
-      if (t == 0) {
-        a.lse[stat_row + qp] = m_nat[i];
-        a.l_out[stat_row + qp] = l[i];
-      }
-    }
-  } else {
-    // this warp's Q rows are its own (read once above): stage O there
-    bf16* so = sq + 16 * warp * kLd;
-    float lf[2];
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs<1>(o, pa[kk],
+                smem_desc(vaddr + kk * 2 * L::kVRow, L::kVRow, L::kVCol), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(o);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) lf[i] = fmaxf(l[i], 1e-30f);
+  for (int kk = 0; kk < 4; ++kk) reg_fence(pa[kk]);
+}
+
+// Q's A fragments of the warp's 16 rows from a padded [rows, kD + 8] tile
+template <int kD>
+__device__ __forceinline__ void load_q_frags(uint32_t (&qf)[kD / 16][4],
+                                             const bf16* sq, int warp,
+                                             int lane) {
+  const bf16* base = sq + (16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8)
+                     * (kD + 8) + (lane >> 4) * 8;
 #pragma unroll
-    for (int j = 0; j < kOT; ++j) {
+  for (int kk = 0; kk < kD / 16; ++kk) ldsm_x4(qf[kk], smem_addr(base + 16 * kk));
+}
+
+struct Block {   // a CTA's (b, h, first q row) and its tiles [t_lo, t_hi)
+  int b, h, bh, q0, t_lo, t_hi;
+};
+
+// heaviest first: (b, h) fastest; causal and window q blocks from the last
+__device__ __forceinline__ Block block_of(const FwdArgs& a, int rows) {
+  Block k;
+  const int bhn = a.batch * a.heads;
+  const int nq = (a.seq + rows - 1) / rows;
+  k.bh = blockIdx.x % bhn;
+  int qb = blockIdx.x / bhn;
+  if (a.mask != kFull) qb = nq - 1 - qb;
+  k.b = k.bh / a.heads;
+  k.h = k.bh - k.b * a.heads;
+  k.q0 = qb * rows;
+  const int q_last = min(k.q0 + rows, a.seq) - 1;
+  const int k_hi = a.mask == kFull ? a.kseq : min(a.kseq, q_last + 1);
+  const int k_lo = a.mask == kWindow ? max(0, k.q0 - (a.window - 1)) : 0;
+  k.t_lo = k_lo / 64;
+  k.t_hi = k_lo < k_hi ? (k_hi + 63) / 64 : k.t_lo;
+  return k;
+}
+
+// a 64-row warpgroup band [w0, w0 + 64) against the tile at k0: dead when
+// no row of it sees a key of the tile
+__device__ __forceinline__ bool band_dead(const FwdArgs& a, int w0, int k0) {
+  return w0 >= a.seq || (a.mask != kFull && k0 > w0 + 63) ||
+         (a.mask == kWindow && w0 - (k0 + 63) >= a.window);
+}
+
+// The bf16 sweep on Hopper's warpgroup products, kWG warpgroups of 64
+// query rows over shared 64-key K/V tiles in two cp.async stages, one
+// __syncthreads a tile (the short-prompt tiling).
+template <int kD, int kWG, bool kPartial>
+__global__ void __launch_bounds__(128 * kWG)
+flash_fwd_wgmma(FwdArgs a) {
+  using L = WgTile<kD>;
+  constexpr int kNThreads = 128 * kWG, kLd = kD + 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sq = reinterpret_cast<bf16*>(smem_raw);
+  unsigned char* ring = smem_raw + 64 * kWG * kLd * 2;   // [2][K, V]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const Block blk = block_of(a, 64 * kWG);
+  const int kvh = blk.h / (a.heads / a.kv_heads);
+  const bf16* qbase = a.q + blk.b * a.tq.b + blk.h * a.tq.h;
+  const bf16* kbase = a.k + blk.b * a.tk.b + kvh * a.tk.h;
+  const bf16* vbase = a.v + blk.b * a.tv.b + kvh * a.tv.h;
+
+  cp_tile<64 * kWG, kD, kNThreads>(sq, qbase, a.tq.s, blk.q0, a.seq, a.d,
+                                   tid);
+  if (blk.t_lo < blk.t_hi)
+    L::template load<kNThreads>(ring, a, kbase, vbase, blk.t_lo * 64, tid);
+  cp_async_commit();
+
+  const int r0 = blk.q0 + 16 * warp;
+  const int w0 = blk.q0 + 64 * (warp >> 2);
+  uint32_t qf[kD / 16][4];
+  float o[kD / 8][4];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        *reinterpret_cast<uint32_t*>(so + (g + 8 * i) * kLd + 8 * j + 2 * t) =
-            pack_bf16(o[j][2 * i] / lf[i], o[j][2 * i + 1] / lf[i]);
-    }
-    if (t == 0) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int qp = r0 + g + 8 * i;
-        if (qp < a.seq) a.lse[stat_row + qp] = m_nat[i] + logf(lf[i]);
-      }
-    }
-    __syncwarp();
-    bf16* out = static_cast<bf16*>(a.o);
-    constexpr int kChunks = kD / 8;
-#pragma unroll
-    for (int it = 0; it < 16 * kChunks / 32; ++it) {
-      const int i = it * 32 + lane;
-      const int r = i / kChunks, c = (i % kChunks) * 8;
-      const int qp = r0 + r;
-      if (qp < a.seq && c < a.d)
-        *reinterpret_cast<uint4*>(out + b * a.to.b +
-                                  static_cast<long long>(qp) * a.to.s +
-                                  h * a.to.h + c) =
-            *reinterpret_cast<const uint4*>(so + r * kLd + c);
+  for (int j = 0; j < kD / 8; ++j)
+    o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  for (int kt = blk.t_lo; kt < blk.t_hi; ++kt) {
+    const int stage = (kt - blk.t_lo) & 1;
+    cp_async_wait<0>();   // tile kt (and, first, Q) is here
+    fence_proxy_async();
+    __syncthreads();      // ... for every thread; tile kt - 1 is read out
+    if (kt == blk.t_lo) load_q_frags<kD>(qf, sq, warp, lane);
+    if (kt + 1 < blk.t_hi)
+      L::template load<kNThreads>(ring + (stage ^ 1) * 2 * L::kBytes, a,
+                                  kbase, vbase, (kt + 1) * 64, tid);
+    cp_async_commit();
+    if (!band_dead(a, w0, kt * 64)) {
+      const uint32_t kaddr = smem_addr(ring + stage * 2 * L::kBytes);
+      wgmma_tile<kD>(qf, kaddr, kaddr + L::kBytes, o, m, l, a, r0, kt * 64,
+                     lane);
     }
   }
+  if (blk.t_lo == blk.t_hi) {   // no tile: Q was never waited for
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  store_fwd<kD, kPartial>(a, sq + 16 * warp * kLd, o, m, l, r0, blk.b,
+                          blk.h, blk.bh, lane);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n.reg .b64 state;\n"
+               "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+// Wait until the barrier's phase of parity `parity` has completed. A wait
+// of seconds can only be a lost arrival: trap rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  const long long start = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - start > (1LL << 34)) __trap();
+  }
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// The bf16 sweep, warp-specialised (the long-sequence tiling): two
+// consumer warpgroups of 64 query rows and one producer warp. The producer
+// fills a ring of kStages K/V stages with cp.async; once a stage's copies
+// are complete it fences them to the async proxy and arrives on the
+// stage's `full` barrier. Each consumer thread waits on `full`, folds the
+// tile (`wgmma_tile`) and arrives on the stage's `empty` barrier, which
+// the producer waits on before refilling the stage. The two warpgroups
+// never wait for each other, so one's softmax overlaps the other's
+// products. The producer arrives on a stage one tile late (after issuing
+// the next), so kStages = 3 keeps two tiles ahead of the consumers.
+template <int kD, bool kPartial>
+__global__ void __launch_bounds__(288, 1)
+flash_fwd_wgmma_ws(FwdArgs a) {
+  using L = WgTile<kD>;
+  constexpr int kStages = 3, kLd = kD + 8, kConsumers = 256;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sq = reinterpret_cast<bf16*>(smem_raw);
+  unsigned char* ring = smem_raw + 128 * kLd * 2;        // [kStages][K, V]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * 2 * L::kBytes);
+  uint64_t* empty = full + kStages;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const Block blk = block_of(a, 128);
+  const int kvh = blk.h / (a.heads / a.kv_heads);
+  const bf16* qbase = a.q + blk.b * a.tq.b + blk.h * a.tq.h;
+  const bf16* kbase = a.k + blk.b * a.tk.b + kvh * a.tk.h;
+  const bf16* vbase = a.v + blk.b * a.tv.b + kvh * a.tv.h;
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full + i, 32);
+      mbar_init(empty + i, kConsumers);
+    }
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {   // the producer
+    const int n = blk.t_hi - blk.t_lo;
+    for (int i = 0; i < n; ++i) {
+      const int stage = i % kStages;
+      if (i >= kStages) mbar_wait(empty + stage, ((i / kStages) & 1) ^ 1);
+      L::template load<32>(ring + stage * 2 * L::kBytes, a, kbase, vbase,
+                           (blk.t_lo + i) * 64, lane);
+      cp_async_commit();
+      if (i > 0) {   // the previous tile's copies are complete
+        cp_async_wait<1>();
+        fence_proxy_async();
+        mbar_arrive(full + (i - 1) % kStages);
+      }
+    }
+    if (n > 0) {
+      cp_async_wait<0>();
+      fence_proxy_async();
+      mbar_arrive(full + (n - 1) % kStages);
+    }
+    return;
+  }
+
+  // consumers: each warpgroup stages its own 64 Q rows
+  const int wg = warp >> 2;
+  cp_tile<64, kD, 128>(sq + 64 * wg * kLd, qbase, a.tq.s, blk.q0 + 64 * wg,
+                       a.seq, a.d, tid & 127);
+  cp_async_commit();
+  cp_async_wait<0>();
+  named_sync(1 + wg, 128);
+  uint32_t qf[kD / 16][4];
+  load_q_frags<kD>(qf, sq, warp, lane);
+  const int r0 = blk.q0 + 16 * warp;
+  const int w0 = blk.q0 + 64 * wg;
+  float o[kD / 8][4];
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+    o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  for (int i = 0, kt = blk.t_lo; kt < blk.t_hi; ++i, ++kt) {
+    const int stage = i % kStages;
+    mbar_wait(full + stage, (i / kStages) & 1);
+    if (!band_dead(a, w0, kt * 64)) {
+      const uint32_t kaddr = smem_addr(ring + stage * 2 * L::kBytes);
+      wgmma_tile<kD>(qf, kaddr, kaddr + L::kBytes, o, m, l, a, r0, kt * 64,
+                     lane);
+    }
+    mbar_arrive(empty + stage);
+  }
+  store_fwd<kD, kPartial>(a, sq + 16 * warp * kLd, o, m, l, r0, blk.b,
+                          blk.h, blk.bh, lane);
 }
 
 template <int kD, int kWarpsT, int kBKT, bool kPartial>
@@ -568,6 +1020,38 @@ int launch_mma(const FwdArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kD, int kWG, bool kPartial>
+int launch_wgmma(const FwdArgs& a, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(64 * kWG) * (kD + 8) * 2 +
+                      4 * WgTile<kD>::kBytes;
+  auto kernel = flash_fwd_wgmma<kD, kWG, kPartial>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long blocks = static_cast<long long>(a.batch) * a.heads *
+                           ((a.seq + 64 * kWG - 1) / (64 * kWG));
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), 128 * kWG, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kD, bool kPartial>
+int launch_wgmma_ws(const FwdArgs& a, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(128) * (kD + 8) * 2 +
+                      3 * 2 * WgTile<kD>::kBytes + 6 * sizeof(uint64_t);
+  auto kernel = flash_fwd_wgmma_ws<kD, kPartial>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long blocks = static_cast<long long>(a.batch) * a.heads *
+                           ((a.seq + 127) / 128);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), 288, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The tilings of the bf16 sweep, by index: 64-row CTAs of 4 warps or
 // 128-row CTAs of 8, both over 64-key tiles, so both give the same bits.
 // The wrapper picks one from the shape (`ops/flash_attention.py`
@@ -579,6 +1063,9 @@ int launch_bf16(const FwdArgs& a, int tiling, cudaStream_t stream) {
   switch (tiling) {
     case 0: return launch_mma<kD, 4, 64, kPartial>(a, stream);
     case 1: return launch_mma<kD, 8, 64, kPartial>(a, stream);
+    case 2: return launch_wgmma<kD, 1, kPartial>(a, stream);
+    case 3: return launch_wgmma<kD, 2, kPartial>(a, stream);
+    case 4: return launch_wgmma_ws<kD, kPartial>(a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
