@@ -24,7 +24,7 @@
 // to tens of MB. Per 16-row warp band the sweep also reads every K and V
 // tile out of shared memory once (0.0625 B per FLOP at d = 128), which
 // caps it near half the tensor-core peak, and it spends one exp2 per score
-// on the SFU.
+// on the SFU. Short prompts (serve: 48–112 CTAs) are bound by latency.
 //
 // The bf16 sweep (`flash_fwd_mma`):
 // - one CTA per (b·h, q block) of 16 rows per warp (4 or 8 warps: the
@@ -36,14 +36,17 @@
 //   The online softmax runs on the S registers — a row lives in the 4
 //   lanes of a quad, so its max takes two __shfl_xor steps; each lane keeps
 //   its own partial row sum, reduced once at the end — the rescale
-//   multiplies the O registers, and P is packed from the S registers
-//   straight into bf16 A fragments (the m16n8k16 accumulator layout of two
-//   n-tiles is the A layout of one k-step). S, P and O never touch shared
-//   memory; K fragments come by ldmatrix, V fragments by ldmatrix.trans;
-// - K and V are double-buffered in shared memory and filled by cp.async.cg
-//   16-byte copies (commit_group / wait_group): tile t + 1 is in flight
-//   while tile t's products run. Rows are padded by 16 bytes, so the eight
-//   rows of every ldmatrix 8x8 fall in different banks;
+//   multiplies the O registers (skipped when no row max of the warp
+//   moved), and P is packed from the S registers straight into bf16 A
+//   fragments (the m16n8k16 accumulator layout of two n-tiles is the A
+//   layout of one k-step). S, P and O never touch shared memory; K
+//   fragments come by ldmatrix, V fragments by ldmatrix.trans;
+// - K and V go through a ring of three shared-memory stages filled by
+//   cp.async.cg 16-byte copies (commit_group / wait_group): tiles t + 1
+//   and t + 2 are in flight while tile t's products run, and one
+//   __syncthreads a tile hands the stages round. Q is staged once in the
+//   third stage before its first use. Rows are padded by 16 bytes, so the
+//   eight rows of every ldmatrix 8x8 fall in different banks;
 // - heaviest first: the linear block index runs (b, h) fastest and, under
 //   a causal or window mask, the q blocks from the last (most live tiles)
 //   down, so the long CTAs start first and the short ones fill the tail;
@@ -53,9 +56,10 @@
 //   edge tile or a ragged key tail apply it. So a row's arithmetic does not
 //   depend on the tiling, the batch or the grid slot: every tiling gives
 //   the same bits (a masked tile folds as an exact identity);
-// - the scores are scaled by scale·log2(e) and exponentiated with exp2f;
-//   m is kept in that base-2 unit and turned back to natural log (m·ln 2)
-//   for the stored m and LSE;
+// - the scores are scaled by scale·log2(e) and exponentiated with exp2f
+//   (on a fully visible tile as exp2f(fma(s, scale·log2 e, -m))); m is kept
+//   in that base-2 unit and turned back to natural log (m·ln 2) for the
+//   stored m and LSE;
 // - head dims: compile-time instances for 64 and 128; a smaller d (a
 //   multiple of 16) is zero-padded to the next one in shared memory — zero
 //   Q/K columns add nothing to the scores, zero V columns are not stored;
@@ -74,7 +78,11 @@
 // 1e-30, LSE in natural log. The bf16 sweep gets p = 0 for masked scores
 // by subtracting 0 instead of a row max that is itself masked: then every
 // masked score exponentiates to exactly 0, as with the reference's test.
-// Not done here (later work): wgmma, TMA, warp specialisation.
+// Not done here: wgmma (Hopper's warpgroup product) and TMA. A wgmma
+// version of this sweep (one or two consumer warpgroups, K/V in no-swizzle
+// core-matrix layouts, with and without a cp.async producer warp) was
+// measured and did not beat this one at the train shape; see PERF.md and
+// ROADMAP.md.
 
 #include <type_traits>
 
@@ -290,20 +298,25 @@ __device__ __forceinline__ void cp_tile(bf16* dst, const bf16* base,
 // (g = lane / 4, t = lane % 4) holds rows g and g + 8 of the warp's band,
 // keys 8 j + 2 t + {0, 1} of n-tile j. Scales to base 2, masks when kMask
 // (key `k0 + ...` against query `r0 + ...`), folds the row max across the
-// quad, rescales O and the lane's partial sums, and leaves P in s.
+// quad, rescales O and the lane's partial sums, and leaves P in s. A fully
+// visible tile (no kMask) takes its max on the raw scores (rounding is
+// monotonic, so max(fl(s c)) = fl(max(s) c)) and exponentiates
+// fma(s, c, -m) in one rounding. O is rescaled only when a row max of the
+// warp moved: multiplying by 1 changes nothing.
 template <int kNT, int kOT, bool kMask>
 __device__ __forceinline__ void fold_tile(float (&s)[kNT][4],
                                           float (&o)[kOT][4], float (&m)[2],
                                           float (&l)[2], float scale_log2,
                                           int r0, int k0, int kseq, int mask,
                                           int window, int lane) {
+  constexpr bool kRaw = !kMask;
   const int g = lane >> 2, t = lane & 3;
   float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
   for (int j = 0; j < kNT; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      float x = s[j][e] * scale_log2;
+      float x = kRaw ? s[j][e] : s[j][e] * scale_log2;
       if constexpr (kMask) {
         const int qp = r0 + g + (e >> 1) * 8;
         const int kp = k0 + 8 * j + 2 * t + (e & 1);
@@ -321,6 +334,7 @@ __device__ __forceinline__ void fold_tile(float (&s)[kNT][4],
   for (int i = 0; i < 2; ++i) {
     mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
     mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    if constexpr (kRaw) mx[i] *= scale_log2;
     const float m_new = fmaxf(m[i], mx[i]);
     corr[i] = exp2f(m[i] - m_new);
     m[i] = m_new;
@@ -334,15 +348,18 @@ __device__ __forceinline__ void fold_tile(float (&s)[kNT][4],
   for (int j = 0; j < kNT; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float p = exp2f(s[j][e] - mu[e >> 1]);
+      const float p = kRaw ? exp2f(fmaf(s[j][e], scale_log2, -mu[e >> 1]))
+                           : exp2f(s[j][e] - mu[e >> 1]);
       l[e >> 1] += p;
       s[j][e] = p;
     }
   }
+  if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
 #pragma unroll
-  for (int j = 0; j < kOT; ++j) {
+    for (int j = 0; j < kOT; ++j) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] *= corr[e >> 1];
+      for (int e = 0; e < 4; ++e) o[j][e] *= corr[e >> 1];
+    }
   }
 }
 
@@ -435,10 +452,14 @@ flash_fwd_mma(FwdArgs a) {
   constexpr int kKS = kD / 16;         // k-steps of the QK^T product
   constexpr int kNT = kBKT / 8;        // 8-key n-tiles of S
   constexpr int kOT = kD / 8;          // 8-column n-tiles of O
+  constexpr int kStages = 3;
+  constexpr int kStage = 2 * kBKT * kLd;   // one stage: K then V
+  static_assert(kBQT <= 2 * kBKT, "Q fits in a K/V stage");
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sq = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sk = sq + kBQT * kLd;          // [2][kBKT][kLd]
-  bf16* sv = sk + 2 * kBKT * kLd;      // [2][kBKT][kLd]
+  // a ring of 3 K/V stages; Q is staged in the third, which is free until
+  // the loop's first prefetch into it, after Q is in registers
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sq = ring + 2 * kStage;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // heaviest first: (b, h) fastest; causal and window blocks from the last
@@ -461,16 +482,26 @@ flash_fwd_mma(FwdArgs a) {
   const int t_lo = k_lo / kBKT;
   const int t_hi = k_lo < k_hi ? (k_hi + kBKT - 1) / kBKT : t_lo;
 
-  // prologue: group 1 = Q and the first K tile, group 2 = the first V tile
   const int tid = threadIdx.x;
+  auto load_k = [&](int kt, int stage) {
+    cp_tile<kBKT, kD, kNThreads>(ring + stage * kStage, kbase, a.tk.s,
+                                 kt * kBKT, a.kseq, a.d, tid);
+  };
+  auto load_v = [&](int kt, int stage) {
+    cp_tile<kBKT, kD, kNThreads>(ring + stage * kStage + kBKT * kLd, vbase,
+                                 a.tv.s, kt * kBKT, a.kseq, a.d, tid);
+  };
+  // prologue: group 1 = Q and tile t_lo, group 2 = tile t_lo + 1
   cp_tile<kBQT, kD, kNThreads>(sq, qbase, a.tq.s, q0, a.seq, a.d, tid);
-  if (t_lo < t_hi)
-    cp_tile<kBKT, kD, kNThreads>(sk, kbase, a.tk.s, t_lo * kBKT, a.kseq,
-                                 a.d, tid);
+  if (t_lo < t_hi) {
+    load_k(t_lo, 0);
+    load_v(t_lo, 0);
+  }
   cp_async_commit();
-  if (t_lo < t_hi)
-    cp_tile<kBKT, kD, kNThreads>(sv, vbase, a.tv.s, t_lo * kBKT, a.kseq,
-                                 a.d, tid);
+  if (t_lo + 1 < t_hi) {
+    load_k(t_lo + 1, 1);
+    load_v(t_lo + 1, 1);
+  }
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
@@ -494,22 +525,15 @@ flash_fwd_mma(FwdArgs a) {
   const int v_row = ((lane >> 3) & 1) * 8 + (lane & 7), v_col = (lane >> 4) * 8;
 
   for (int kt = t_lo; kt < t_hi; ++kt) {
-    const int stage = (kt - t_lo) & 1;
-    const bf16* ks = sk + stage * kBKT * kLd;
-    const bf16* vs = sv + stage * kBKT * kLd;
-    cp_async_wait<1>();   // K tile kt is here (this thread's copies)
+    const int stage = (kt - t_lo) % kStages;
+    const bf16* ks = ring + stage * kStage;
+    const bf16* vs = ks + kBKT * kLd;
+    cp_async_wait<1>();   // tile kt is here (this thread's copies)
     __syncthreads();      // ... everyone's; and tile kt - 1 is read out
-    // prefetch tile kt + 1 into the other stage
-    if (kt + 1 < t_hi) {
-      cp_tile<kBKT, kD, kNThreads>(sk + (stage ^ 1) * kBKT * kLd, kbase,
-                                   a.tk.s, (kt + 1) * kBKT, a.kseq, a.d,
-                                   tid);
-    }
-    cp_async_commit();
-    if (kt + 1 < t_hi) {
-      cp_tile<kBKT, kD, kNThreads>(sv + (stage ^ 1) * kBKT * kLd, vbase,
-                                   a.tv.s, (kt + 1) * kBKT, a.kseq, a.d,
-                                   tid);
+    // prefetch tile kt + 2 into tile kt - 1's stage
+    if (kt + 2 < t_hi) {
+      load_k(kt + 2, (stage + 2) % kStages);
+      load_v(kt + 2, (stage + 2) % kStages);
     }
     cp_async_commit();
 
@@ -542,8 +566,6 @@ flash_fwd_mma(FwdArgs a) {
         fold_tile<kNT, kOT, true>(s, o, m, l, a.scale_log2, r0, k0, a.kseq,
                                   a.mask, a.window, lane);
     }
-    cp_async_wait<2>();   // V tile kt is here
-    __syncthreads();
     if (!dead) {
 #pragma unroll
       for (int kk = 0; kk < kBKT / 16; ++kk) {
@@ -563,451 +585,19 @@ flash_fwd_mma(FwdArgs a) {
     }
   }
 
+  // K1 stages O in Q's rows, which lie in the ring that other warps may
+  // still read
+  cp_async_wait<0>();
+  __syncthreads();
   store_fwd<kD, kPartial>(a, sq + 16 * warp * kLd, o, m, l, r0, b, h, bh,
                           lane);
-}
-
-// ------------------------------------------------------- bf16, wgmma
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(kPending)
-               : "memory");
-}
-
-// this thread's cp.async writes, made visible to the async proxy that
-// wgmma reads shared memory through
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// pin registers that an asynchronous wgmma reads or writes: the compiler
-// neither moves their other uses across this point nor reuses them early
-template <int kN>
-__device__ __forceinline__ void reg_fence(float (&r)[kN][4]) {
-#pragma unroll
-  for (int j = 0; j < kN; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(r[j][e]) :: "memory");
-}
-
-__device__ __forceinline__ void reg_fence(uint32_t (&r)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[e]) :: "memory");
-}
-
-// A shared-memory matrix descriptor without swizzle: 8x8 core matrices of
-// 128 contiguous bytes (8 rows of 16 bytes), `lbo` bytes apart along the
-// product's K dimension and `sbo` bytes apart along M / N.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
-         static_cast<uint64_t>((lbo & 0x3ffff) >> 4) << 16 |
-         static_cast<uint64_t>((sbo & 0x3ffff) >> 4) << 32;
-}
-
-// d[8][4] (+)= a · B[desc], m64n64k16, A from registers; kTransB: B is
-// MN-major (1) or K-major (0); scale_d = 0 ignores d's old value
-template <int kTransB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
-                                         const uint32_t (&a)[4],
-                                         uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %36, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %37, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d),
-        "l"(desc), "n"(kTransB));
-}
-
-// d[16][4] (+)= a · B[desc], m64n128k16, A from registers; kTransB: B is
-// MN-major (1) or K-major (0); scale_d = 0 ignores d's old value
-template <int kTransB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[16][4],
-                                         const uint32_t (&a)[4],
-                                         uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %68, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %69, p, 1, 1, %70;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d),
-        "l"(desc), "n"(kTransB));
-}
-
-
-// Copy keys [row0, row0 + 64) of one head into a 64 x kD tile of core
-// matrices, by kThreads threads (this one is `tid`): element (key, c) at
-// byte (key / 8) * row_cm + (c / 8) * col_cm + (key % 8) * 16 + (c % 8) * 2.
-// Each 16-byte copy is one core-matrix row; eight neighbouring threads fill
-// one core matrix. Rows past `rows` and columns past d are zero-filled.
-template <int kD, int kThreads>
-__device__ __forceinline__ void cp_tile_cm(bf16* dst, const bf16* base,
-                                           long long stride, int row0,
-                                           int rows, int d, int row_cm,
-                                           int col_cm, int tid) {
-  constexpr int kChunks = kD / 8;
-  static_assert(64 * kChunks % kThreads == 0, "whole rounds of copies");
-  unsigned char* out = reinterpret_cast<unsigned char*>(dst);
-#pragma unroll
-  for (int it = 0; it < 64 * kChunks / kThreads; ++it) {
-    const int i = it * kThreads + tid;
-    const int r8 = i & 7, rest = i >> 3;
-    const int cc = rest % kChunks, r = (rest / kChunks) * 8 + r8;
-    const int c = cc * 8;
-    const bool ok = row0 + r < rows && c < d;
-    const bf16* src =
-        ok ? base + static_cast<long long>(row0 + r) * stride + c : base;
-    cp_async16(smem_addr(out + (r >> 3) * row_cm + cc * col_cm + r8 * 16),
-               src, ok);
-  }
-}
-
-// The shared-memory K/V tile layouts of the wgmma kernels (bytes): a K
-// tile (B of S = Q K^T, K-major) has its head-dim core matrices 128 B
-// apart and its key groups kD * 16 B apart; a V tile (B of O += P V,
-// MN-major, read transposed) has its key groups 128 B apart and its
-// head-dim groups 1 KB (64 keys) apart.
-template <int kD>
-struct WgTile {
-  static constexpr int kKCol = 128, kKRow = kD * 16;
-  static constexpr int kVRow = 128, kVCol = 64 * 16;
-  static constexpr int kBytes = 64 * kD * 2;
-
-  template <int kThreads>
-  __device__ static void load(unsigned char* kv, const FwdArgs& a,
-                              const bf16* kbase, const bf16* vbase, int k0,
-                              int tid) {
-    cp_tile_cm<kD, kThreads>(reinterpret_cast<bf16*>(kv), kbase, a.tk.s, k0,
-                             a.kseq, a.d, kKRow, kKCol, tid);
-    cp_tile_cm<kD, kThreads>(reinterpret_cast<bf16*>(kv + kBytes), vbase,
-                             a.tv.s, k0, a.kseq, a.d, kVRow, kVCol, tid);
-  }
-};
-
-// One warpgroup's fold of one 64-key tile (K at `kaddr`, V at `vaddr`):
-// S = Q K^T as wgmma m64n64k16 with Q's A fragments from registers, the
-// online softmax on the S registers (each warp masks only a tile that is
-// not fully visible to its 16 rows), then O += P V as m64n{kD}k16 with P
-// packed from the S registers. The accumulators have mma.sync's per-warp
-// layout, so `fold_tile` and the epilogue are the mma.sync kernel's.
-template <int kD>
-__device__ __forceinline__ void wgmma_tile(const uint32_t (&qf)[kD / 16][4],
-                                           uint32_t kaddr, uint32_t vaddr,
-                                           float (&o)[kD / 8][4],
-                                           float (&m)[2], float (&l)[2],
-                                           const FwdArgs& a, int r0, int k0,
-                                           int lane) {
-  using L = WgTile<kD>;
-  constexpr int kNT = 8, kOT = kD / 8, kKS = kD / 16;
-  const int k1 = k0 + 63;
-  const bool visible = k1 < a.kseq &&
-      (a.mask == kFull ||
-       (k1 <= r0 && (a.mask != kWindow || r0 + 15 - k0 < a.window)));
-  float s[kNT][4];
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < kKS; ++kk)
-    wgmma_rs<0>(s, qf[kk],
-                smem_desc(kaddr + kk * 2 * L::kKCol, L::kKCol, L::kKRow),
-                kk > 0);
-  wgmma_commit();
-  wgmma_wait<0>();
-  reg_fence(s);
-  if (visible)
-    fold_tile<kNT, kOT, false>(s, o, m, l, a.scale_log2, r0, k0, a.kseq,
-                               a.mask, a.window, lane);
-  else
-    fold_tile<kNT, kOT, true>(s, o, m, l, a.scale_log2, r0, k0, a.kseq,
-                              a.mask, a.window, lane);
-  uint32_t pa[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-    pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-    pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-  }
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_rs<1>(o, pa[kk],
-                smem_desc(vaddr + kk * 2 * L::kVRow, L::kVRow, L::kVCol), 1);
-  wgmma_commit();
-  wgmma_wait<0>();
-  reg_fence(o);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) reg_fence(pa[kk]);
-}
-
-// Q's A fragments of the warp's 16 rows from a padded [rows, kD + 8] tile
-template <int kD>
-__device__ __forceinline__ void load_q_frags(uint32_t (&qf)[kD / 16][4],
-                                             const bf16* sq, int warp,
-                                             int lane) {
-  const bf16* base = sq + (16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8)
-                     * (kD + 8) + (lane >> 4) * 8;
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) ldsm_x4(qf[kk], smem_addr(base + 16 * kk));
-}
-
-struct Block {   // a CTA's (b, h, first q row) and its tiles [t_lo, t_hi)
-  int b, h, bh, q0, t_lo, t_hi;
-};
-
-// heaviest first: (b, h) fastest; causal and window q blocks from the last
-__device__ __forceinline__ Block block_of(const FwdArgs& a, int rows) {
-  Block k;
-  const int bhn = a.batch * a.heads;
-  const int nq = (a.seq + rows - 1) / rows;
-  k.bh = blockIdx.x % bhn;
-  int qb = blockIdx.x / bhn;
-  if (a.mask != kFull) qb = nq - 1 - qb;
-  k.b = k.bh / a.heads;
-  k.h = k.bh - k.b * a.heads;
-  k.q0 = qb * rows;
-  const int q_last = min(k.q0 + rows, a.seq) - 1;
-  const int k_hi = a.mask == kFull ? a.kseq : min(a.kseq, q_last + 1);
-  const int k_lo = a.mask == kWindow ? max(0, k.q0 - (a.window - 1)) : 0;
-  k.t_lo = k_lo / 64;
-  k.t_hi = k_lo < k_hi ? (k_hi + 63) / 64 : k.t_lo;
-  return k;
-}
-
-// a 64-row warpgroup band [w0, w0 + 64) against the tile at k0: dead when
-// no row of it sees a key of the tile
-__device__ __forceinline__ bool band_dead(const FwdArgs& a, int w0, int k0) {
-  return w0 >= a.seq || (a.mask != kFull && k0 > w0 + 63) ||
-         (a.mask == kWindow && w0 - (k0 + 63) >= a.window);
-}
-
-// The bf16 sweep on Hopper's warpgroup products, kWG warpgroups of 64
-// query rows over shared 64-key K/V tiles in two cp.async stages, one
-// __syncthreads a tile (the short-prompt tiling).
-template <int kD, int kWG, bool kPartial>
-__global__ void __launch_bounds__(128 * kWG)
-flash_fwd_wgmma(FwdArgs a) {
-  using L = WgTile<kD>;
-  constexpr int kNThreads = 128 * kWG, kLd = kD + 8;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sq = reinterpret_cast<bf16*>(smem_raw);
-  unsigned char* ring = smem_raw + 64 * kWG * kLd * 2;   // [2][K, V]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const Block blk = block_of(a, 64 * kWG);
-  const int kvh = blk.h / (a.heads / a.kv_heads);
-  const bf16* qbase = a.q + blk.b * a.tq.b + blk.h * a.tq.h;
-  const bf16* kbase = a.k + blk.b * a.tk.b + kvh * a.tk.h;
-  const bf16* vbase = a.v + blk.b * a.tv.b + kvh * a.tv.h;
-
-  cp_tile<64 * kWG, kD, kNThreads>(sq, qbase, a.tq.s, blk.q0, a.seq, a.d,
-                                   tid);
-  if (blk.t_lo < blk.t_hi)
-    L::template load<kNThreads>(ring, a, kbase, vbase, blk.t_lo * 64, tid);
-  cp_async_commit();
-
-  const int r0 = blk.q0 + 16 * warp;
-  const int w0 = blk.q0 + 64 * (warp >> 2);
-  uint32_t qf[kD / 16][4];
-  float o[kD / 8][4];
-#pragma unroll
-  for (int j = 0; j < kD / 8; ++j)
-    o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  for (int kt = blk.t_lo; kt < blk.t_hi; ++kt) {
-    const int stage = (kt - blk.t_lo) & 1;
-    cp_async_wait<0>();   // tile kt (and, first, Q) is here
-    fence_proxy_async();
-    __syncthreads();      // ... for every thread; tile kt - 1 is read out
-    if (kt == blk.t_lo) load_q_frags<kD>(qf, sq, warp, lane);
-    if (kt + 1 < blk.t_hi)
-      L::template load<kNThreads>(ring + (stage ^ 1) * 2 * L::kBytes, a,
-                                  kbase, vbase, (kt + 1) * 64, tid);
-    cp_async_commit();
-    if (!band_dead(a, w0, kt * 64)) {
-      const uint32_t kaddr = smem_addr(ring + stage * 2 * L::kBytes);
-      wgmma_tile<kD>(qf, kaddr, kaddr + L::kBytes, o, m, l, a, r0, kt * 64,
-                     lane);
-    }
-  }
-  if (blk.t_lo == blk.t_hi) {   // no tile: Q was never waited for
-    cp_async_wait<0>();
-    __syncthreads();
-  }
-  store_fwd<kD, kPartial>(a, sq + 16 * warp * kLd, o, m, l, r0, blk.b,
-                          blk.h, blk.bh, lane);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("{\n.reg .b64 state;\n"
-               "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
-               :: "r"(smem_addr(bar)) : "memory");
-}
-
-// Wait until the barrier's phase of parity `parity` has completed. A wait
-// of seconds can only be a lost arrival: trap rather than hang the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  const long long start = clock64();
-  for (;;) {
-    uint32_t done;
-    asm volatile("{\n.reg .pred p;\n"
-                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                 "selp.u32 %0, 1, 0, p;\n}\n"
-                 : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    if (done) return;
-    if (clock64() - start > (1LL << 34)) __trap();
-  }
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
-}
-
-// The bf16 sweep, warp-specialised (the long-sequence tiling): two
-// consumer warpgroups of 64 query rows and one producer warp. The producer
-// fills a ring of kStages K/V stages with cp.async; once a stage's copies
-// are complete it fences them to the async proxy and arrives on the
-// stage's `full` barrier. Each consumer thread waits on `full`, folds the
-// tile (`wgmma_tile`) and arrives on the stage's `empty` barrier, which
-// the producer waits on before refilling the stage. The two warpgroups
-// never wait for each other, so one's softmax overlaps the other's
-// products. The producer arrives on a stage one tile late (after issuing
-// the next), so kStages = 3 keeps two tiles ahead of the consumers.
-template <int kD, bool kPartial>
-__global__ void __launch_bounds__(288, 1)
-flash_fwd_wgmma_ws(FwdArgs a) {
-  using L = WgTile<kD>;
-  constexpr int kStages = 3, kLd = kD + 8, kConsumers = 256;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sq = reinterpret_cast<bf16*>(smem_raw);
-  unsigned char* ring = smem_raw + 128 * kLd * 2;        // [kStages][K, V]
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * 2 * L::kBytes);
-  uint64_t* empty = full + kStages;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const Block blk = block_of(a, 128);
-  const int kvh = blk.h / (a.heads / a.kv_heads);
-  const bf16* qbase = a.q + blk.b * a.tq.b + blk.h * a.tq.h;
-  const bf16* kbase = a.k + blk.b * a.tk.b + kvh * a.tk.h;
-  const bf16* vbase = a.v + blk.b * a.tv.b + kvh * a.tv.h;
-  if (tid == 0) {
-    for (int i = 0; i < kStages; ++i) {
-      mbar_init(full + i, 32);
-      mbar_init(empty + i, kConsumers);
-    }
-  }
-  __syncthreads();
-
-  if (warp == kConsumers / 32) {   // the producer
-    const int n = blk.t_hi - blk.t_lo;
-    for (int i = 0; i < n; ++i) {
-      const int stage = i % kStages;
-      if (i >= kStages) mbar_wait(empty + stage, ((i / kStages) & 1) ^ 1);
-      L::template load<32>(ring + stage * 2 * L::kBytes, a, kbase, vbase,
-                           (blk.t_lo + i) * 64, lane);
-      cp_async_commit();
-      if (i > 0) {   // the previous tile's copies are complete
-        cp_async_wait<1>();
-        fence_proxy_async();
-        mbar_arrive(full + (i - 1) % kStages);
-      }
-    }
-    if (n > 0) {
-      cp_async_wait<0>();
-      fence_proxy_async();
-      mbar_arrive(full + (n - 1) % kStages);
-    }
-    return;
-  }
-
-  // consumers: each warpgroup stages its own 64 Q rows
-  const int wg = warp >> 2;
-  cp_tile<64, kD, 128>(sq + 64 * wg * kLd, qbase, a.tq.s, blk.q0 + 64 * wg,
-                       a.seq, a.d, tid & 127);
-  cp_async_commit();
-  cp_async_wait<0>();
-  named_sync(1 + wg, 128);
-  uint32_t qf[kD / 16][4];
-  load_q_frags<kD>(qf, sq, warp, lane);
-  const int r0 = blk.q0 + 16 * warp;
-  const int w0 = blk.q0 + 64 * wg;
-  float o[kD / 8][4];
-#pragma unroll
-  for (int j = 0; j < kD / 8; ++j)
-    o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  for (int i = 0, kt = blk.t_lo; kt < blk.t_hi; ++i, ++kt) {
-    const int stage = i % kStages;
-    mbar_wait(full + stage, (i / kStages) & 1);
-    if (!band_dead(a, w0, kt * 64)) {
-      const uint32_t kaddr = smem_addr(ring + stage * 2 * L::kBytes);
-      wgmma_tile<kD>(qf, kaddr, kaddr + L::kBytes, o, m, l, a, r0, kt * 64,
-                     lane);
-    }
-    mbar_arrive(empty + stage);
-  }
-  store_fwd<kD, kPartial>(a, sq + 16 * warp * kLd, o, m, l, r0, blk.b,
-                          blk.h, blk.bh, lane);
 }
 
 template <int kD, int kWarpsT, int kBKT, bool kPartial>
 int launch_mma(const FwdArgs& a, cudaStream_t stream) {
   constexpr int kBQT = 16 * kWarpsT;
-  const size_t smem = static_cast<size_t>(kBQT + 4 * kBKT) * (kD + 8) *
-                      sizeof(bf16);
+  const size_t smem = static_cast<size_t>(3 * 2 * kBKT) * (kD + 8) *
+                      sizeof(bf16);   // three K/V stages, Q in the third
   auto kernel = flash_fwd_mma<kD, kWarpsT, kBKT, kPartial>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1017,38 +607,6 @@ int launch_mma(const FwdArgs& a, cudaStream_t stream) {
                            ((a.seq + kBQT - 1) / kBQT);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   kernel<<<static_cast<unsigned>(blocks), 32 * kWarpsT, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int kD, int kWG, bool kPartial>
-int launch_wgmma(const FwdArgs& a, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(64 * kWG) * (kD + 8) * 2 +
-                      4 * WgTile<kD>::kBytes;
-  auto kernel = flash_fwd_wgmma<kD, kWG, kPartial>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long long blocks = static_cast<long long>(a.batch) * a.heads *
-                           ((a.seq + 64 * kWG - 1) / (64 * kWG));
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<static_cast<unsigned>(blocks), 128 * kWG, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int kD, bool kPartial>
-int launch_wgmma_ws(const FwdArgs& a, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(128) * (kD + 8) * 2 +
-                      3 * 2 * WgTile<kD>::kBytes + 6 * sizeof(uint64_t);
-  auto kernel = flash_fwd_wgmma_ws<kD, kPartial>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long long blocks = static_cast<long long>(a.batch) * a.heads *
-                           ((a.seq + 127) / 128);
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<static_cast<unsigned>(blocks), 288, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1063,9 +621,6 @@ int launch_bf16(const FwdArgs& a, int tiling, cudaStream_t stream) {
   switch (tiling) {
     case 0: return launch_mma<kD, 4, 64, kPartial>(a, stream);
     case 1: return launch_mma<kD, 8, 64, kPartial>(a, stream);
-    case 2: return launch_wgmma<kD, 1, kPartial>(a, stream);
-    case 3: return launch_wgmma<kD, 2, kPartial>(a, stream);
-    case 4: return launch_wgmma_ws<kD, kPartial>(a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

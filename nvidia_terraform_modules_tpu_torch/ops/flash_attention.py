@@ -219,7 +219,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
 
 # The bf16 sweep's tilings (``csrc/flash_fwd.cu`` ``launch_bf16``), by
 # index: (warps of 16 query rows, keys per tile).
-FWD_TILINGS = ((4, 64), (8, 64), (4, 64), (8, 64), (9, 64))
+FWD_TILINGS = ((4, 64), (8, 64))
 _SMS = 132   # the H100's SMs
 
 
