@@ -275,17 +275,17 @@ struct FwdArgs {
 
 // Copy rows [row0, row0 + kRows) of one head (row stride `stride`
 // elements, d valid columns) into a [kRows, kLd] shared tile with cp.async,
-// by kThreads threads (this one is `tid`); rows past `rows` and columns
-// past d are zero-filled.
+// by all kThreads threads of the CTA; rows past `rows` and columns past d
+// are zero-filled.
 template <int kRows, int kD, int kThreads>
 __device__ __forceinline__ void cp_tile(bf16* dst, const bf16* base,
                                         long long stride, int row0, int rows,
-                                        int d, int tid) {
+                                        int d) {
   constexpr int kLd = kD + 8, kChunks = kD / 8;
   static_assert(kRows * kChunks % kThreads == 0, "whole rounds of copies");
 #pragma unroll
   for (int it = 0; it < kRows * kChunks / kThreads; ++it) {
-    const int i = it * kThreads + tid;
+    const int i = it * kThreads + threadIdx.x;
     const int r = i / kChunks, c = (i % kChunks) * 8;
     const bool ok = row0 + r < rows && c < d;
     const bf16* src =
@@ -363,7 +363,7 @@ __device__ __forceinline__ void fold_tile(float (&s)[kNT][4],
   }
 }
 
-// The epilogue of both bf16 kernels for one warp's 16 rows from r0: the
+// The bf16 sweep's epilogue for one warp's 16 rows from r0: the
 // quad's partial row sums, then K1's normalised bf16 O (staged through
 // `so`, the warp's own 16 Q rows of shared memory, read once at the start,
 // into 16-byte stores) and LSE, or K2's f32 accumulator, m and l.
@@ -441,13 +441,13 @@ __device__ __forceinline__ void store_fwd(const FwdArgs& a, bf16* so,
 }
 
 // The bf16 sweep. kD: the padded head dim (64 or 128); kWarpsT warps of
-// 16 query rows each; kBKT keys per tile. K1 (kPartial = false) writes O
+// 16 query rows each; 64 keys per tile. K1 (kPartial = false) writes O
 // in bf16 through `to` and LSE [B, H, seq]; K2 writes the f32 accumulator
 // (contiguous [B, seq, H, d]), m into `lse` and l into `l_out`.
-template <int kD, int kWarpsT, int kBKT, bool kPartial>
+template <int kD, int kWarpsT, bool kPartial>
 __global__ void __launch_bounds__(32 * kWarpsT)
 flash_fwd_mma(FwdArgs a) {
-  constexpr int kNThreads = 32 * kWarpsT, kBQT = 16 * kWarpsT;
+  constexpr int kNThreads = 32 * kWarpsT, kBQT = 16 * kWarpsT, kBKT = 64;
   constexpr int kLd = kD + 8;          // padded row: 16 bytes past kD
   constexpr int kKS = kD / 16;         // k-steps of the QK^T product
   constexpr int kNT = kBKT / 8;        // 8-key n-tiles of S
@@ -482,17 +482,16 @@ flash_fwd_mma(FwdArgs a) {
   const int t_lo = k_lo / kBKT;
   const int t_hi = k_lo < k_hi ? (k_hi + kBKT - 1) / kBKT : t_lo;
 
-  const int tid = threadIdx.x;
   auto load_k = [&](int kt, int stage) {
     cp_tile<kBKT, kD, kNThreads>(ring + stage * kStage, kbase, a.tk.s,
-                                 kt * kBKT, a.kseq, a.d, tid);
+                                 kt * kBKT, a.kseq, a.d);
   };
   auto load_v = [&](int kt, int stage) {
     cp_tile<kBKT, kD, kNThreads>(ring + stage * kStage + kBKT * kLd, vbase,
-                                 a.tv.s, kt * kBKT, a.kseq, a.d, tid);
+                                 a.tv.s, kt * kBKT, a.kseq, a.d);
   };
   // prologue: group 1 = Q and tile t_lo, group 2 = tile t_lo + 1
-  cp_tile<kBQT, kD, kNThreads>(sq, qbase, a.tq.s, q0, a.seq, a.d, tid);
+  cp_tile<kBQT, kD, kNThreads>(sq, qbase, a.tq.s, q0, a.seq, a.d);
   if (t_lo < t_hi) {
     load_k(t_lo, 0);
     load_v(t_lo, 0);
@@ -593,12 +592,12 @@ flash_fwd_mma(FwdArgs a) {
                           lane);
 }
 
-template <int kD, int kWarpsT, int kBKT, bool kPartial>
+template <int kD, int kWarpsT, bool kPartial>
 int launch_mma(const FwdArgs& a, cudaStream_t stream) {
   constexpr int kBQT = 16 * kWarpsT;
-  const size_t smem = static_cast<size_t>(3 * 2 * kBKT) * (kD + 8) *
+  const size_t smem = static_cast<size_t>(3 * 2 * 64) * (kD + 8) *
                       sizeof(bf16);   // three K/V stages, Q in the third
-  auto kernel = flash_fwd_mma<kD, kWarpsT, kBKT, kPartial>;
+  auto kernel = flash_fwd_mma<kD, kWarpsT, kPartial>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -619,8 +618,8 @@ int launch_mma(const FwdArgs& a, cudaStream_t stream) {
 template <int kD, bool kPartial>
 int launch_bf16(const FwdArgs& a, int tiling, cudaStream_t stream) {
   switch (tiling) {
-    case 0: return launch_mma<kD, 4, 64, kPartial>(a, stream);
-    case 1: return launch_mma<kD, 8, 64, kPartial>(a, stream);
+    case 0: return launch_mma<kD, 4, kPartial>(a, stream);
+    case 1: return launch_mma<kD, 8, kPartial>(a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -94,6 +94,21 @@ def test_block_liveness_matches_reference(mask, nq, nk, bq, bk):
                           jfa.block_liveness(spec_j, nq, nk, bq, bk))
 
 
+@pytest.mark.parametrize("batch,heads,seq,warps", [
+    (1, 16, 152, 4), (1, 16, 424, 4),       # serve prompts: 32-64 CTAs
+    (2, 16, 1024, 8), (2, 16, 4096, 8),     # the ring's block, the train step
+    (1, 1, 1, 4), (4, 32, 300, 8),
+])
+def test_fwd_tiling_rule(batch, heads, seq, warps):
+    """The bf16 forward's tiling is a pure function of the shape: 128-row
+    CTAs (8 warps) once they fill the H100's 132 SMs, else 64-row ones;
+    every tiling takes 64-key tiles (so all give the same bits)."""
+    got = tfa.fwd_tiling(batch, heads, seq)
+    assert got == tfa.fwd_tiling(batch, heads, seq)
+    assert tfa.FWD_TILINGS[got] == (warps, 64)
+    assert {keys for _, keys in tfa.FWD_TILINGS} == {64}
+
+
 def test_selection_rules_match_reference():
     """_fit_block everywhere, pick_impl on every length the reference's
     production rule decides (above its CPU-interpreter clause)."""
