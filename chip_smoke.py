@@ -94,6 +94,8 @@ BWD_TOL = {"bf16": (2e-2, 1e-2), "f32": (1e-4, 1e-4)}
 # kernel rounds P to bf16 per 64-key tile against its running max, the
 # plain version once per row against the row's max
 PARTIAL_TOL = {"bf16": 1e-2, "f32": 1e-5}
+# the flash forward's one tiling (csrc/flash_fwd.cu), bf16 and f32 alike
+FWD_TILING = "64 q rows x 64 keys, 4 warps"
 # the sequence-parallel flagship: a ring of RING_SP members (on one card),
 # each holding seq_len / RING_SP rows; the f32 exactness shape
 RING_SP = 4
@@ -119,21 +121,6 @@ def bound(flops: float, nbytes: float, kind: str) -> tuple[float, str]:
 def achieved(flops: float, ms: float, bound_ms: float) -> dict:
     """The rate a kernel reached and the share of its bound."""
     return {"tflops": flops / ms / 1e9, "bound_share": bound_ms / ms}
-
-
-def tiling_of(b: int, h: int, s: int, dtype) -> str:
-    """The flash forward's tiling the launcher picks for a shape."""
-    import torch
-
-    from nvidia_terraform_modules_tpu_torch.ops.flash_attention import (
-        FWD_TILINGS,
-        fwd_tiling,
-    )
-
-    if dtype != torch.bfloat16:
-        return "f32: 64 rows x 64 keys, 4 warps"
-    warps, keys = FWD_TILINGS[fwd_tiling(b, h, s)]
-    return f"bf16: {16 * warps} rows x {keys} keys, {warps} warps"
 
 
 def profile_summary(prof, wall_ms: float) -> dict:
@@ -932,12 +919,12 @@ def kernel_flash_partial(randn, dev, block) -> dict:
                        lse_vs_flash_fwd=lse_err, ms=ms, plain_ms=plain_ms,
                        library_ms=library_ms, bound_ms=bound_ms,
                        bound_by=bound_by, **achieved(flops, ms, bound_ms),
-                       tiling=tiling_of(b, h, s, dtype), live_tiles=tiles,
+                       tiling=FWD_TILING, live_tiles=tiles,
                        us_per_tile_column=ms * 1e3 / tiles)
             emit("kernel_flash_partial", **rec)
             if kind == "bf16":
                 main["diag" if causal else "full"] = rec
-    # and at the train step's causal length, where K1 runs 128-row CTAs
+    # and at the train step's causal length
     q, k, v = (randn((b, RING_SP * s, h, d), torch.bfloat16)
                for _ in range(3))
     acc, m, l_ = flash_partial(q, k, v, scale=scale, causal=True)
@@ -1514,7 +1501,7 @@ def main() -> int:
                    lse_err=err_l, ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound_ms,
                    bound_by=bound_by, **achieved(flops, ms, bound_ms),
-                   tiling=tiling_of(b, h, s, dtype))
+                   tiling=FWD_TILING)
         emit("kernel_flash_fwd", **rec)
         if on_path == "serve":
             k1_main.append((lens.count(s), rec))
@@ -1885,7 +1872,7 @@ def main() -> int:
          "library_ms": k1_mean("library_ms"),
          # the serve prompts' mean rate, and K1 at the train step's shape
          "tflops": k1_mean("tflops"), "bound_share": k1_mean("bound_share"),
-         "tiling": sorted({r["tiling"] for _, r in k1_main}),
+         "tiling": FWD_TILING,
          "train": {key: k1_train[key] for key in (
              "shape", "ms", "plain_ms", "bound_ms", "library_ms", "tflops",
              "bound_share", "tiling")}},
@@ -1965,7 +1952,7 @@ def main() -> int:
                       ring_launches["flash_partial"], k2)
     k2_row.update(
         {key: ring_mix(k2, key) for key in ("tflops", "bound_share")},
-        tiling=sorted({r["tiling"] for r in k2.values()}),
+        tiling=FWD_TILING,
         us_per_tile_column={name: k2[name]["us_per_tile_column"]
                             for name in ("diag", "full")})
     kernels.append(k2_row)

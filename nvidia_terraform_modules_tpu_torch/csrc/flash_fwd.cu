@@ -27,10 +27,11 @@
 // on the SFU. Short prompts (serve: 48–112 CTAs) are bound by latency.
 //
 // The bf16 sweep (`flash_fwd_mma`):
-// - one CTA per (b·h, q block) of 16 rows per warp (4 or 8 warps: the
-//   tiling, chosen by the wrapper from the shape); each warp owns its 16
+// - one CTA of 4 warps per (b·h, 64-row q block); each warp owns its 16
 //   query rows for the whole sweep. The TPU's sequential k grid is a loop
-//   inside the CTA over 64-key tiles;
+//   inside the CTA over 64-key tiles. On the H100, 128-row CTAs of 8 warps
+//   were no faster at the train shape and 128-key tiles spilled registers
+//   (PERF.md);
 // - registers hold everything of the sweep: Q as mma A fragments (loaded
 //   once with ldmatrix), S and O as mma.sync m16n8k16 f32 accumulators.
 //   The online softmax runs on the S registers — a row lives in the 4
@@ -53,9 +54,8 @@
 // - each warp classifies every tile against its own 16 rows: dead tiles
 //   (past the diagonal, before the window) are skipped, fully visible
 //   tiles skip the mask arithmetic, and only a diagonal tile, a window's
-//   edge tile or a ragged key tail apply it. So a row's arithmetic does not
-//   depend on the tiling, the batch or the grid slot: every tiling gives
-//   the same bits (a masked tile folds as an exact identity);
+//   edge tile or a ragged key tail apply it. A row's arithmetic does not
+//   depend on the batch or the grid slot;
 // - the scores are scaled by scale·log2(e) and exponentiated with exp2f
 //   (on a fully visible tile as exp2f(fma(s, scale·log2 e, -m))); m is kept
 //   in that base-2 unit and turned back to natural log (m·ln 2) for the
@@ -84,39 +84,38 @@
 // measured and did not beat this one at the train shape; see PERF.md and
 // ROADMAP.md.
 
-#include <type_traits>
-
 #include "flash_tiles.cuh"
 
 namespace {
 
-// ------------------------------------------------------------------ f32
-
-constexpr int kWarps = 4;   // one 16-row band of the q block each
+// Both sweeps: CTAs of 4 warps, each one 16-row band of the 64-row q block.
+constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRowsPerWarp = kBQ / kWarps;
+static_assert(kRowsPerWarp == 16, "16 query rows a warp");
 
-// K1 (kPartial = false): o in T through the strides `to`, lse [B, H, seq].
-// K2 (kPartial = true): o is the f32 accumulator, contiguous [B, seq, H, d],
-// lse receives m and l_out l, both [B, H, seq].
-template <typename T, bool kPartial>
+// ------------------------------------------------------------------ f32
+
+// K1 (kPartial = false): o through the strides `to`, lse [B, H, seq].
+// K2 (kPartial = true): o is the accumulator, contiguous [B, seq, H, d],
+// lse receives m and l_out l, both [B, H, seq]. f32 tiles are unpadded.
+template <bool kPartial>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v,
-                 std::conditional_t<kPartial, float, T>* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, float* __restrict__ l_out,
                  int seq, int kseq, int heads, int kv_heads, int d,
                  Strides tq, Strides tk, Strides tv, Strides to, float scale,
                  int mask, int window) {
-  const int ldt = ld_tile<T>(d), lda = ld_acc<T>(d);
-  constexpr int lds = ld_score<T>(), ldp = ld_prob<T>();
+  const int ldt = d, lda = d;
+  constexpr int lds = kBK, ldp = kBK;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem);
-  T* ks = qs + kBQ * ldt;
-  T* vs = ks + kBK * ldt;
-  float* ss = reinterpret_cast<float*>(vs + kBK * ldt);
-  T* ps = reinterpret_cast<T*>(ss + kBQ * lds);
-  float* os = reinterpret_cast<float*>(ps + kBQ * ldp);
+  float* qs = reinterpret_cast<float*>(smem);
+  float* ks = qs + kBQ * ldt;
+  float* vs = ks + kBK * ldt;
+  float* ss = vs + kBK * ldt;
+  float* ps = ss + kBQ * lds;
+  float* os = ps + kBQ * ldp;
   float* m_s = os + kBQ * lda;
   float* l_s = m_s + kBQ;
 
@@ -125,9 +124,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = bh / heads, h = bh - b * heads;
   const int kvh = h / (heads / kv_heads);
   const int q0 = blockIdx.x * kBQ;
-  const T* qb = q + b * tq.b + h * tq.h;
-  const T* kb = k + b * tk.b + kvh * tk.h;
-  const T* vb = v + b * tv.b + kvh * tv.h;
+  const float* qb = q + b * tq.b + h * tq.h;
+  const float* kb = k + b * tk.b + kvh * tk.h;
+  const float* vb = v + b * tv.b + kvh * tv.h;
 
   for (int i = threadIdx.x; i < kBQ * lda; i += kThreads) os[i] = 0.f;
   for (int i = threadIdx.x; i < kBQ; i += kThreads) {
@@ -171,7 +170,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int jj = 0; jj < 2; ++jj) {
         const float p = (s[jj] <= kNegInf * 0.5f) ? 0.f : expf(s[jj] - m_new);
         psum += p;
-        ps[r * ldp + lane + 32 * jj] = from_f32<T>(p);
+        ps[r * ldp + lane + 32 * jj] = p;
       }
       psum = warp_sum(psum);
       const float corr = expf(m_prev - m_new);
@@ -189,7 +188,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = warp * kRowsPerWarp + rr;
     const int qp = q0 + r;
     if (qp >= seq) break;
-    auto* orow = o + b * to.b + static_cast<long long>(qp) * to.s + h * to.h;
+    float* orow = o + b * to.b + static_cast<long long>(qp) * to.s + h * to.h;
     const long long row = static_cast<long long>(bh) * seq + qp;
     if constexpr (kPartial) {
       for (int c = lane; c < d; c += 32) orow[c] = os[r * lda + c];
@@ -200,7 +199,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     } else {
       const float l = fmaxf(l_s[r], 1e-30f);
       for (int c = lane; c < d; c += 32)
-        orow[c] = from_f32<T>(os[r * lda + c] / l);
+        orow[c] = os[r * lda + c] / l;
       if (lane == 0) lse[row] = m_s[r] + logf(l);
     }
   }
@@ -440,21 +439,20 @@ __device__ __forceinline__ void store_fwd(const FwdArgs& a, bf16* so,
   }
 }
 
-// The bf16 sweep. kD: the padded head dim (64 or 128); kWarpsT warps of
-// 16 query rows each; 64 keys per tile. K1 (kPartial = false) writes O
+// The bf16 sweep. kD: the padded head dim (64 or 128); 4 warps of 16
+// query rows each; 64 keys per tile. K1 (kPartial = false) writes O
 // in bf16 through `to` and LSE [B, H, seq]; K2 writes the f32 accumulator
 // (contiguous [B, seq, H, d]), m into `lse` and l into `l_out`.
-template <int kD, int kWarpsT, bool kPartial>
-__global__ void __launch_bounds__(32 * kWarpsT)
+template <int kD, bool kPartial>
+__global__ void __launch_bounds__(kThreads)
 flash_fwd_mma(FwdArgs a) {
-  constexpr int kNThreads = 32 * kWarpsT, kBQT = 16 * kWarpsT, kBKT = 64;
   constexpr int kLd = kD + 8;          // padded row: 16 bytes past kD
   constexpr int kKS = kD / 16;         // k-steps of the QK^T product
-  constexpr int kNT = kBKT / 8;        // 8-key n-tiles of S
+  constexpr int kNT = kBK / 8;        // 8-key n-tiles of S
   constexpr int kOT = kD / 8;          // 8-column n-tiles of O
   constexpr int kStages = 3;
-  constexpr int kStage = 2 * kBKT * kLd;   // one stage: K then V
-  static_assert(kBQT <= 2 * kBKT, "Q fits in a K/V stage");
+  constexpr int kStage = 2 * kBK * kLd;   // one stage: K then V
+  static_assert(kBQ <= 2 * kBK, "Q fits in a K/V stage");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   // a ring of 3 K/V stages; Q is staged in the third, which is free until
   // the loop's first prefetch into it, after Q is in registers
@@ -464,34 +462,34 @@ flash_fwd_mma(FwdArgs a) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // heaviest first: (b, h) fastest; causal and window blocks from the last
   const int bhn = a.batch * a.heads;
-  const int nq = (a.seq + kBQT - 1) / kBQT;
+  const int nq = (a.seq + kBQ - 1) / kBQ;
   const int bh = blockIdx.x % bhn;
   int qb = blockIdx.x / bhn;
   if (a.mask != kFull) qb = nq - 1 - qb;
   const int b = bh / a.heads, h = bh - b * a.heads;
   const int kvh = h / (a.heads / a.kv_heads);
-  const int q0 = qb * kBQT;
+  const int q0 = qb * kBQ;
   const bf16* qbase = a.q + b * a.tq.b + h * a.tq.h;
   const bf16* kbase = a.k + b * a.tk.b + kvh * a.tk.h;
   const bf16* vbase = a.v + b * a.tv.b + kvh * a.tv.h;
 
   // keys any row of this block can see: tiles [t_lo, t_hi)
-  const int q_last = min(q0 + kBQT, a.seq) - 1;
+  const int q_last = min(q0 + kBQ, a.seq) - 1;
   const int k_hi = a.mask == kFull ? a.kseq : min(a.kseq, q_last + 1);
   const int k_lo = a.mask == kWindow ? max(0, q0 - (a.window - 1)) : 0;
-  const int t_lo = k_lo / kBKT;
-  const int t_hi = k_lo < k_hi ? (k_hi + kBKT - 1) / kBKT : t_lo;
+  const int t_lo = k_lo / kBK;
+  const int t_hi = k_lo < k_hi ? (k_hi + kBK - 1) / kBK : t_lo;
 
   auto load_k = [&](int kt, int stage) {
-    cp_tile<kBKT, kD, kNThreads>(ring + stage * kStage, kbase, a.tk.s,
-                                 kt * kBKT, a.kseq, a.d);
+    cp_tile<kBK, kD, kThreads>(ring + stage * kStage, kbase, a.tk.s,
+                                 kt * kBK, a.kseq, a.d);
   };
   auto load_v = [&](int kt, int stage) {
-    cp_tile<kBKT, kD, kNThreads>(ring + stage * kStage + kBKT * kLd, vbase,
-                                 a.tv.s, kt * kBKT, a.kseq, a.d);
+    cp_tile<kBK, kD, kThreads>(ring + stage * kStage + kBK * kLd, vbase,
+                                 a.tv.s, kt * kBK, a.kseq, a.d);
   };
   // prologue: group 1 = Q and tile t_lo, group 2 = tile t_lo + 1
-  cp_tile<kBQT, kD, kNThreads>(sq, qbase, a.tq.s, q0, a.seq, a.d);
+  cp_tile<kBQ, kD, kThreads>(sq, qbase, a.tq.s, q0, a.seq, a.d);
   if (t_lo < t_hi) {
     load_k(t_lo, 0);
     load_v(t_lo, 0);
@@ -526,7 +524,7 @@ flash_fwd_mma(FwdArgs a) {
   for (int kt = t_lo; kt < t_hi; ++kt) {
     const int stage = (kt - t_lo) % kStages;
     const bf16* ks = ring + stage * kStage;
-    const bf16* vs = ks + kBKT * kLd;
+    const bf16* vs = ks + kBK * kLd;
     cp_async_wait<1>();   // tile kt is here (this thread's copies)
     __syncthreads();      // ... everyone's; and tile kt - 1 is read out
     // prefetch tile kt + 2 into tile kt - 1's stage
@@ -537,14 +535,14 @@ flash_fwd_mma(FwdArgs a) {
     cp_async_commit();
 
     // this warp against the tile: dead (skip), fully visible, or masked
-    const int k0 = kt * kBKT, k1 = k0 + kBKT - 1, r1 = r0 + 15;
+    const int k0 = kt * kBK, k1 = k0 + kBK - 1, r1 = r0 + 15;
     const bool dead = r0 >= a.seq || (a.mask != kFull && k0 > r1) ||
                       (a.mask == kWindow && r0 - k1 >= a.window);
     const bool visible = k1 < a.kseq &&
         (a.mask == kFull ||
          (k1 <= r0 && (a.mask != kWindow || r1 - k0 < a.window)));
-    float s[kNT][4];
     if (!dead) {
+      float s[kNT][4];
 #pragma unroll
       for (int j = 0; j < kNT; ++j)
         s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
@@ -564,10 +562,8 @@ flash_fwd_mma(FwdArgs a) {
       else
         fold_tile<kNT, kOT, true>(s, o, m, l, a.scale_log2, r0, k0, a.kseq,
                                   a.mask, a.window, lane);
-    }
-    if (!dead) {
 #pragma unroll
-      for (int kk = 0; kk < kBKT / 16; ++kk) {
+      for (int kk = 0; kk < kBK / 16; ++kk) {
         uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
                           pack_bf16(s[2 * kk][2], s[2 * kk][3]),
                           pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
@@ -592,67 +588,47 @@ flash_fwd_mma(FwdArgs a) {
                           lane);
 }
 
-template <int kD, int kWarpsT, bool kPartial>
+template <int kD, bool kPartial>
 int launch_mma(const FwdArgs& a, cudaStream_t stream) {
-  constexpr int kBQT = 16 * kWarpsT;
-  const size_t smem = static_cast<size_t>(3 * 2 * 64) * (kD + 8) *
+  const size_t smem = static_cast<size_t>(3 * 2 * kBK) * (kD + 8) *
                       sizeof(bf16);   // three K/V stages, Q in the third
-  auto kernel = flash_fwd_mma<kD, kWarpsT, kPartial>;
+  auto kernel = flash_fwd_mma<kD, kPartial>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long blocks = static_cast<long long>(a.batch) * a.heads *
-                           ((a.seq + kBQT - 1) / kBQT);
+                           ((a.seq + kBQ - 1) / kBQ);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<static_cast<unsigned>(blocks), 32 * kWarpsT, smem, stream>>>(a);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tilings of the bf16 sweep, by index: 64-row CTAs of 4 warps or
-// 128-row CTAs of 8, both over 64-key tiles, so both give the same bits.
-// The wrapper picks one from the shape (`ops/flash_attention.py`
-// `fwd_tiling`). 128-key tiles were measured too (`kernel_ab --tilings`,
-// PERF.md): at most 5 % faster at the train shape with 8 warps, 3x slower
-// with 4 (register spills), and another key tile gives other bits.
-template <int kD, bool kPartial>
-int launch_bf16(const FwdArgs& a, int tiling, cudaStream_t stream) {
-  switch (tiling) {
-    case 0: return launch_mma<kD, 4, kPartial>(a, stream);
-    case 1: return launch_mma<kD, 8, kPartial>(a, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <bool kPartial>
+int dispatch_bf16(const FwdArgs& a, cudaStream_t stream) {
+  return a.d <= 64 ? launch_mma<64, kPartial>(a, stream)
+                   : launch_mma<128, kPartial>(a, stream);
 }
 
 template <bool kPartial>
-int dispatch_bf16(const FwdArgs& a, int tiling, cudaStream_t stream) {
-  return a.d <= 64 ? launch_bf16<64, kPartial>(a, tiling, stream)
-                   : launch_bf16<128, kPartial>(a, tiling, stream);
-}
-
-template <typename T, bool kPartial>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           float* l_out, int batch, int seq, int kseq, int heads,
-           int kv_heads, int d, Strides tq, Strides tk, Strides tv,
-           Strides to, float scale, int mask, int window,
-           cudaStream_t stream) {
-  const size_t elt = sizeof(T);
-  const size_t smem =
-      static_cast<size_t>(kBQ + 2 * kBK) * ld_tile<T>(d) * elt   // Q, K, V
-      + static_cast<size_t>(kBQ) * ld_score<T>() * 4              // S
-      + static_cast<size_t>(kBQ) * ld_prob<T>() * elt             // P
-      + static_cast<size_t>(kBQ) * ld_acc<T>(d) * 4               // O acc
-      + 2 * kBQ * 4;                                              // m, l
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, float* l_out, int batch, int seq, int kseq,
+               int heads, int kv_heads, int d, Strides tq, Strides tk,
+               Strides tv, Strides to, float scale, int mask, int window,
+               cudaStream_t stream) {
+  const size_t smem = (static_cast<size_t>(kBQ + 2 * kBK) * d  // Q, K, V
+                       + 2 * static_cast<size_t>(kBQ) * kBK     // S, P
+                       + static_cast<size_t>(kBQ) * d           // O acc
+                       + 2 * kBQ) * 4;                          // m, l
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, kPartial>,
+      flash_fwd_kernel<kPartial>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  using TO = std::conditional_t<kPartial, float, T>;
   const dim3 grid((seq + kBQ - 1) / kBQ, batch * heads);
-  flash_fwd_kernel<T, kPartial><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<TO*>(o), lse, l_out, seq, kseq,
-      heads, kv_heads, d, tq, tk, tv, to, scale, mask, window);
+  flash_fwd_kernel<kPartial><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, l_out, seq,
+      kseq, heads, kv_heads, d, tq, tk, tv, to, scale, mask, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -673,7 +649,7 @@ extern "C" int tk_flash_fwd(const void* q, const void* k, const void* v,
                             long long k_ss, long long k_sh, long long v_sb,
                             long long v_ss, long long v_sh, long long o_sb,
                             long long o_ss, long long o_sh, float scale,
-                            int mask, int window, int tiling, int dtype,
+                            int mask, int window, int dtype,
                             void* stream) {
   if (!valid(batch, seq, seq, heads, kv_heads, d, mask, window))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -686,12 +662,12 @@ extern "C" int tk_flash_fwd(const void* q, const void* k, const void* v,
                     static_cast<const bf16*>(v), o, l, nullptr, batch, seq,
                     seq, heads, kv_heads, d, mask, window, tq, tk, tv, to,
                     scale * kLog2e};
-    return dispatch_bf16<false>(a, tiling, st);
+    return dispatch_bf16<false>(a, st);
   }
   if (dtype == kF32)
-    return launch<float, false>(q, k, v, o, l, nullptr, batch, seq, seq,
-                                heads, kv_heads, d, tq, tk, tv, to, scale,
-                                mask, window, st);
+    return launch_f32<false>(q, k, v, o, l, nullptr, batch, seq, seq,
+                              heads, kv_heads, d, tq, tk, tv, to, scale,
+                              mask, window, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -704,7 +680,7 @@ extern "C" int tk_flash_partial(const void* q, const void* k, const void* v,
                                 long long k_ss, long long k_sh,
                                 long long v_sb, long long v_ss,
                                 long long v_sh, float scale, int mask,
-                                int window, int tiling, int dtype,
+                                int window, int dtype,
                                 void* stream) {
   if (!valid(batch, seq, kseq, heads, kv_heads, d, mask, window))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -720,12 +696,12 @@ extern "C" int tk_flash_partial(const void* q, const void* k, const void* v,
                     static_cast<const bf16*>(v), acc, mp, lp, batch, seq,
                     kseq, heads, kv_heads, d, mask, window, tq, tk, tv, to,
                     scale * kLog2e};
-    return dispatch_bf16<true>(a, tiling, st);
+    return dispatch_bf16<true>(a, st);
   }
   if (dtype == kF32)
-    return launch<float, true>(q, k, v, acc, mp, lp, batch, seq, kseq,
-                               heads, kv_heads, d, tq, tk, tv, to, scale,
-                               mask, window, st);
+    return launch_f32<true>(q, k, v, acc, mp, lp, batch, seq, kseq,
+                             heads, kv_heads, d, tq, tk, tv, to, scale,
+                             mask, window, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

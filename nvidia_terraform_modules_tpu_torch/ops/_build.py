@@ -50,14 +50,14 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     # q, k, v, o, lse, B, S, H, KV, D, 4×3 strides (q, k, v, o: b, s, h),
-    # scale, mask kind, window, bf16 tiling, dtype code, stream
+    # scale, mask kind, window, dtype code, stream
     "tk_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
-    + [_L] * 12 + [_F, _I, _I, _I, _I, _P],
+    + [_L] * 12 + [_F, _I, _I, _I, _P],
     # q, k, v, acc (f32, contiguous), m, l, B, Sq, Sk, H, KV, D, 3×3
-    # strides (q, k, v: b, s, h), scale, mask kind, window, bf16 tiling,
-    # dtype code, stream
+    # strides (q, k, v: b, s, h), scale, mask kind, window, dtype code,
+    # stream
     "tk_flash_partial": [_P] * 6 + [_I] * 6 + [_L] * 9
-    + [_F, _I, _I, _I, _I, _P],
+    + [_F, _I, _I, _I, _P],
     # q, k_pool, v_pool, k_scale, v_scale (None: a bf16/f32 pool), tables,
     # pos, out, B, H, KV, D, block size, table width, scale, dtype code,
     # stream

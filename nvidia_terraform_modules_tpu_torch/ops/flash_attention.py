@@ -18,9 +18,8 @@ Kept as numpy copies of the reference, because the flash/dense SELECTION
 changes numerics and must match it: :class:`MaskSpec` /
 :func:`as_mask_spec` / :func:`block_liveness`, ``NEG_INF``,
 :func:`_fit_block` and :func:`pick_impl`. The TPU's tile rules
-(``auto_blocks``, the VMEM budget) are not carried over: the CUDA kernels
-have their own tilings (64-key tiles; the bf16 forward's q block of 64 or
-128 rows from :func:`fwd_tiling`).
+(``auto_blocks``, the VMEM budget) are not carried over: the CUDA kernel
+has its own fixed 64x64 tiling.
 
 GQA: ``k``/``v`` may carry ``KV`` heads dividing ``H``; query head ``h``
 reads KV head ``h // (H // KV)`` — the same math as repeating K/V (the
@@ -86,8 +85,8 @@ def as_mask_spec(mask, causal: bool = True) -> MaskSpec:
 def block_liveness(spec: MaskSpec, nq: int, nk: int,
                    block_q: int, block_k: int) -> np.ndarray:
     """Per-(q-block, k-block) liveness map ``[nq, nk]`` of MASK_DEAD /
-    MASK_PARTIAL / MASK_FULL. The CUDA kernels visit exactly the non-dead
-    tiles of this map at their tiling."""
+    MASK_PARTIAL / MASK_FULL. The CUDA kernel's loop bounds visit exactly
+    the non-dead tiles of this map at its 64x64 tiling."""
     if spec.kind == "full":
         live = np.full((nq, nk), MASK_FULL, np.int32)
     else:
@@ -217,31 +216,11 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     return o, m + torch.log(l_)
 
 
-# The bf16 sweep's tilings (``csrc/flash_fwd.cu`` ``launch_bf16``), by
-# index: (warps of 16 query rows, keys per tile).
-FWD_TILINGS = ((4, 64), (8, 64))
-_SMS = 132   # the H100's SMs
-
-
-def fwd_tiling(batch: int, heads: int, seq: int) -> int:
-    """The bf16 flash-forward tiling for a shape — a pure function of it:
-    128-row CTAs (8 warps) once they fill the card's 132 SMs, else 64-row
-    CTAs (4 warps), which spread a short prompt over twice as many SMs.
-    Both take 64-key tiles and give the same bits, so the choice moves
-    time only, never a row's output (``kernel_ab --tilings``, PERF.md)."""
-    return 1 if batch * heads * -(-seq // 128) >= _SMS else 0
-
-
-def _flash_cuda(q, k, v, scale: float, spec: MaskSpec, partial: bool,
-                tiling: int | None = None):
+def _flash_cuda(q, k, v, scale: float, spec: MaskSpec, partial: bool):
     """Launch K1 (``tk_flash_fwd`` → ``(o, lse)``) or, with ``partial``,
     K2 (``tk_flash_partial`` → ``(acc, m, l)``) of ``csrc/flash_fwd.cu``;
-    the outputs are allocated here. ``tiling`` (an index of
-    :data:`FWD_TILINGS`) overrides :func:`fwd_tiling` for a tiling sweep;
-    the f32 kernel has one tiling and ignores it."""
+    the outputs are allocated here."""
     b, s, h, d = q.shape
-    if tiling is None:
-        tiling = fwd_tiling(b, h, s)
     if d % 16 or d > 128:
         raise ValueError(f"the flash kernel takes head_dim % 16 == 0 and "
                          f"<= 128, got {d}")
@@ -257,7 +236,7 @@ def _flash_cuda(q, k, v, scale: float, spec: MaskSpec, partial: bool,
     q, k, v = aligned(q), aligned(k), aligned(v)
     strides = [t.stride(i) for t in (q, k, v) for i in (0, 1, 2)]
     window = spec.window if spec.kind == "window" else 0
-    tail = [float(scale), _MASK_CODE[spec.kind], window, tiling, code,
+    tail = [float(scale), _MASK_CODE[spec.kind], window, code,
             torch.cuda.current_stream(q.device).cuda_stream]
     stats = [torch.empty((b, h, s), dtype=torch.float32, device=q.device)
              for _ in range(1 + partial)]

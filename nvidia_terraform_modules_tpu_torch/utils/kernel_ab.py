@@ -4,7 +4,6 @@
 across two source trees of the port, on one card.
 
     python3 -m nvidia_terraform_modules_tpu_torch.utils.kernel_ab OLD NEW
-    python3 -m nvidia_terraform_modules_tpu_torch.utils.kernel_ab --tilings TREE
 
 ``OLD`` and ``NEW`` are directories that each hold a copy of the package
 (e.g. a ``git archive`` of the parent commit unpacked into an ignored
@@ -20,11 +19,6 @@ synchronise, and — in a tree with ring attention — K2 at the ring's block
 median host time of the flagship ring SGD step (sp = 4 on the one card).
 A tree without the backward kernels (the serve slice alone) reports K1
 and K7 only.
-
-``--tilings TREE`` times every tiling of the bf16 flash-forward sweep
-(``FWD_TILINGS``) of one tree, and the tiling its rule picks: K1 at the
-flagship serve prompts and at the train shape, K2 diagonal and visible at
-the ring's block — the sweep a change of the tiling rule rests on.
 """
 
 from __future__ import annotations
@@ -114,48 +108,9 @@ def measure(tree: str) -> dict:
     return out
 
 
-def tilings(tree: str) -> dict:
-    """Time each bf16 flash-forward tiling of the tree under ``tree``."""
-    sys.path.insert(0, str(Path(tree).resolve()))
-    import torch
-
-    fa = importlib.import_module(
-        "nvidia_terraform_modules_tpu_torch.ops.flash_attention")
-    traffic = importlib.import_module(
-        "nvidia_terraform_modules_tpu_torch.utils.traffic")
-    timing = importlib.import_module(
-        "nvidia_terraform_modules_tpu_torch.utils.timing")
-    if not torch.cuda.is_available():
-        raise RuntimeError("kernel_ab measures on a CUDA device")
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(0)
-    # the flagship serve prompts (chip_smoke.flagship_lengths)
-    serve = sorted({min(512, max(128, 8 * round(n / 8)))
-                    for n in traffic.ragged_lengths(8, 0, lo=128, hi=512)})
-    cases = [(f"flash_fwd_1x{s}", (1, s, s), True, False) for s in serve]
-    cases += [("flash_fwd_2x4096", (2, 4096, 4096), True, False),
-              ("flash_partial_diag", (2, 1024, 1024), True, True),
-              ("flash_partial_visible", (2, 1024, 1024), False, True)]
-    out: dict = {"tree": tree, "tilings": [list(t) for t in fa.FWD_TILINGS]}
-    for name, (b, s, sk), causal, partial in cases:
-        q = torch.randn((b, s, 16, 128), generator=g, device=dev).bfloat16()
-        k, v = (torch.randn((b, sk, 16, 128), generator=g,
-                            device=dev).bfloat16() for _ in range(2))
-        spec = fa.as_mask_spec(None, causal)
-        times = [timing.cuda_median_ms(
-            lambda i=i: fa._flash_cuda(q, k, v, 128 ** -0.5, spec, partial,
-                                       tiling=i))
-            for i in range(len(fa.FWD_TILINGS))]
-        out[name] = {"ms": times, "picked": fa.fwd_tiling(b, 16, s)}
-    return out
-
-
 def main(argv: list[str]) -> int:
     if len(argv) == 2 and argv[0] == "--one":
         print(json.dumps(measure(argv[1])), flush=True)
-        return 0
-    if len(argv) == 2 and argv[0] == "--tilings":
-        print(json.dumps(tilings(argv[1])), flush=True)
         return 0
     if len(argv) != 2:
         print(__doc__, file=sys.stderr)

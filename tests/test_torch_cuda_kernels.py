@@ -63,12 +63,6 @@ from nvidia_terraform_modules_tpu_torch.ops import (
 from nvidia_terraform_modules_tpu_torch.ops.decode_attention import (
     gather_logical,
 )
-from nvidia_terraform_modules_tpu_torch.ops.flash_attention import (
-    FWD_TILINGS,
-    _flash_cuda,
-    as_mask_spec,
-    fwd_tiling,
-)
 from nvidia_terraform_modules_tpu_torch.ops.ring_attention import (
     dense_reference_attention,
 )
@@ -476,14 +470,13 @@ def _k2_normalised_equals_k1(q, k, v, got, **kw):
     (1, 129, 200, 8, 2, 32, "full"),
     (1, 300, 129, 4, 4, 128, ("window", 50)),
 ])
-def test_flash_forward_bf16_ragged_lengths_and_tilings(cuda, b, sq, sk, h,
-                                                       kv, d, mask):
-    """The bf16 sweep at lengths that are no multiple of its q block (64
-    or 128 rows) or of its 64-key tile, GQA, window edges inside a tile and
+def test_flash_forward_bf16_ragged_lengths(cuda, b, sq, sk, h, kv, d,
+                                           mask):
+    """The bf16 sweep at lengths that are no multiple of its 64-row q
+    block or of its 64-key tile, GQA, window edges inside a tile and
     d = 32 / 64 / 128: K2 against its plain version (1e-2 of max(1,
     max|plain|)); at equal lengths K1 against its plain version (2e-2 /
-    1e-3) and K2 normalised equal to K1 bit for bit; every tiling of
-    ``FWD_TILINGS`` gives the same bits."""
+    1e-3) and K2 normalised equal to K1 bit for bit."""
     g = torch.Generator().manual_seed(sq * 5 + sk + d)
     q = _randn(g, (b, sq, h, d), torch.bfloat16, cuda)
     k = _randn(g, (b, sk, kv, d), torch.bfloat16, cuda)
@@ -494,30 +487,21 @@ def test_flash_forward_bf16_ragged_lengths_and_tilings(cuda, b, sq, sk, h,
         assert a.shape == r.shape
         lim = 1e-2 * max(1.0, r.abs().max().item())
         assert (a - r).abs().max().item() <= lim
-    spec = as_mask_spec(mask)
-    for tiling in range(len(FWD_TILINGS)):
-        other = _flash_cuda(q, k, v, d ** -0.5, spec, True, tiling=tiling)
-        assert all(torch.equal(x, y) for x, y in zip(got, other))
     if sq != sk:
         return
     o, lse = _k2_normalised_equals_k1(q, k, v, got, **kw)
     o_ref, lse_ref = flash_attention_ref(q, k, v, **kw)
     assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2
     assert (lse - lse_ref).abs().max().item() <= 1e-3
-    for tiling in range(len(FWD_TILINGS)):
-        o_t, lse_t = _flash_cuda(q, k, v, d ** -0.5, spec, False,
-                                 tiling=tiling)
-        assert torch.equal(o_t, o) and torch.equal(lse_t, lse)
 
 
 def test_flash_forward_bf16_is_deterministic(cuda):
     """Two launches give the same bits, and row b of a batch-2 call equals
-    the same input run alone — here the batch of 2 takes 128-row CTAs and
-    the single row 64-row ones (``fwd_tiling``)."""
+    the same input run alone, though the two grids order their blocks
+    differently."""
     g = torch.Generator().manual_seed(11)
     q, k, v = (_randn(g, (2, 520, 16, 128), torch.bfloat16, cuda)
                for _ in range(3))
-    assert fwd_tiling(2, 16, 520) != fwd_tiling(1, 16, 520)
     o, lse = flash_attention_fwd(q, k, v)
     o2, lse2 = flash_attention_fwd(q, k, v)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)

@@ -94,19 +94,19 @@ def test_block_liveness_matches_reference(mask, nq, nk, bq, bk):
                           jfa.block_liveness(spec_j, nq, nk, bq, bk))
 
 
-@pytest.mark.parametrize("batch,heads,seq,warps", [
-    (1, 16, 152, 4), (1, 16, 424, 4),       # serve prompts: 32-64 CTAs
-    (2, 16, 1024, 8), (2, 16, 4096, 8),     # the ring's block, the train step
-    (1, 1, 1, 4), (4, 32, 300, 8),
-])
-def test_fwd_tiling_rule(batch, heads, seq, warps):
-    """The bf16 forward's tiling is a pure function of the shape: 128-row
-    CTAs (8 warps) once they fill the H100's 132 SMs, else 64-row ones;
-    every tiling takes 64-key tiles (so all give the same bits)."""
-    got = tfa.fwd_tiling(batch, heads, seq)
-    assert got == tfa.fwd_tiling(batch, heads, seq)
-    assert tfa.FWD_TILINGS[got] == (warps, 64)
-    assert {keys for _, keys in tfa.FWD_TILINGS} == {64}
+@pytest.mark.parametrize("mask", ["causal", ("window", 5)])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_ref_matches_reference_kernel_head_dims(mask, d):
+    """The plain version the card's kernel is held to, at each head dim
+    the bf16 sweep serves (32 zero-padded to 64; 64; 128), GQA 4:2."""
+    q, k, v = _inputs(1, 24, 4, 2, d, seed=d)
+    spec = jfa.as_mask_spec(mask)
+    want_o, want_lse = _jax_fwd(q, k, v, spec, jnp.float32, block=8)
+    got_o, got_lse = tfa.flash_attention_fwd(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        mask=mask)
+    np.testing.assert_allclose(got_o.numpy(), want_o, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got_lse.numpy(), want_lse, atol=1e-5, rtol=0)
 
 
 def test_selection_rules_match_reference():
