@@ -22,7 +22,9 @@ It builds the port's CUDA kernels from ``csrc/`` with nvcc (into
   counts show every wave went through K7-int8 and K8), profiles it, and
   times ``make_quantized_decoder`` at the flagship's decode shape (batch 8,
   prompt 512, 64 new tokens; K6 and K8 on every step) and at 3584 + 32;
-- train: holds K5 (fused flash backward) and K3/K4 (the split pair)
+- train: prints the registers, spills and CTAs per SM of each instance of
+  the bf16 key-block kernel that K5 and K4 share; holds K5 (fused flash
+  backward) and K3/K4 (the split pair)
   against their plain versions, up to the flagship's per-layer
   ``[2, 4096, 16, 128]``; checks the train step's gradients on the card
   against the dense model, fused against split, remat and accumulation;
@@ -545,6 +547,33 @@ def decode_int8_flagship(params, cfg, dev) -> tuple[dict, dict]:
             prompt=LONG_PROMPT, n_new=LONG_NEW, tokens_per_s=tps,
             decoder_ms=total_ms, prefill_ms=pre_ms)
     return rec, int8_launches
+
+
+def kernel_flash_bwd_resources() -> dict:
+    """One line per instance of the bf16 key-block kernel (K5 fused, K4
+    split; head dims 64 and 128; bf16 and f32 outputs): registers and
+    spilled bytes a thread (cudaFuncGetAttributes), dynamic shared memory
+    and CTAs per SM (the occupancy calculator). Returns the records by
+    (kernel name, output dtype) at head dim 128."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.ops.flash_attention import (
+        flash_bwd_kv_resources,
+    )
+
+    main = {}
+    for d in (64, 128):
+        for name, fused in (("flash_bwd_fused", True), ("flash_dkv", False)):
+            for out in (torch.bfloat16, torch.float32):
+                rec = flash_bwd_kv_resources(d, fused=fused, out_dtype=out)
+                emit("kernel_flash_bwd_resources", kernel=name, head_dim=d,
+                     out_dtype=str(out), **rec)
+                if rec["spill_bytes"]:
+                    raise AssertionError(f"{name} d={d} {out}: "
+                                         f"{rec['spill_bytes']} B spilled")
+                if d == 128:
+                    main[name, out] = rec
+    return main
 
 
 def kernel_flash_bwd(randn, dev, train_shape) -> dict:
@@ -1379,6 +1408,16 @@ def flagship_lengths() -> list[int]:
     return [min(512, max(128, 8 * round(n / 8))) for n in lens]
 
 
+def _resources(records: dict, name: str, out) -> dict:
+    """The key-block kernel's registers, spills and CTAs per SM for a K5 or
+    K4 row of the kernels line (none for K3, which keeps its kernel)."""
+    rec = records.get((name, out))
+    if rec is None:
+        return {}
+    return {key: rec[key] for key in ("registers", "spill_bytes",
+                                      "ctas_per_sm")}
+
+
 def main() -> int:
     import torch
 
@@ -1836,6 +1875,7 @@ def main() -> int:
     # the last main path: the flagship burn-in train step. The serve
     # state goes first (the train step needs the card's memory); the
     # weights are the same seeded flagship draw.
+    bwd_res = kernel_flash_bwd_resources()
     bwd = kernel_flash_bwd(randn, dev, train_shape)
     train_exact(dev)
     rec, train_launches = train_flagship(params, dev)
@@ -1925,7 +1965,8 @@ def main() -> int:
                          else rec["split_step_launches"][name]),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **_resources(bwd_res, name, bf16)})
     # the ring's kernels at its block: the step's mix per layer — RING_SP
     # diagonal (causal) and the rest fully visible blocks — weights each
     # kernel's two records
@@ -1961,10 +2002,11 @@ def main() -> int:
     # step's
     for name, line in (("flash_bwd_fused", 724), ("flash_dq", 657),
                        ("flash_dkv", 688)):
-        kernels.append(ring_row(
+        kernels.append({**ring_row(
             f"{name}_f32_out", "flash_bwd.cu", line,
             ring_launches[name] if name == "flash_bwd_fused"
-            else ring_rec["split_step_launches"][name], bwd_f32[name]))
+            else ring_rec["split_step_launches"][name], bwd_f32[name]),
+            **_resources(bwd_res, name, f32)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

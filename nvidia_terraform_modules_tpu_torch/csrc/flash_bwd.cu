@@ -26,42 +26,77 @@
 // pair seven (3 in flash_dq, 4 in flash_dkv); at the train step's
 // [2, 4096, 16, 128] that is 344 / 206 / 275 GFLOP against a few tens of MB
 // of Q, K, V, dO, dQ, dK, dV — compute-bound against the 989 TFLOP/s bf16
-// tensor-core peak.
+// tensor-core peak. Per warp and tile the bf16 sweep below also reads its
+// mma operands out of shared memory (ldmatrix), about as many bytes per
+// FLOP as the forward's, and K5 adds 64 x d f32 atomics per live tile.
 //
-// What the design does about it:
-// - the TPU's sequential grid becomes a loop inside the CTA. flash_dq: one
-//   CTA per (b·h, 64-row q block), Q/dO/LSE/delta staged once, a loop over
-//   the live k blocks. flash_dkv and flash_bwd_fused: one CTA per (b·h,
-//   64-row k block), K/V resident in shared memory, a loop over the live q
-//   blocks (for causal, from the block's diagonal to the end; for a window,
-//   up to the last query that sees the block). Dead tiles (block_liveness's
-//   DEAD class) are never loaded;
-// - the TPU keeps full-length f32 dK/dV scratch (2·S·d·4 B) in VMEM, which
-//   does not fit an SM at S = 4096. Here a CTA owns ONE k block, so its dK
-//   and dV accumulators are [64, d] f32 in shared memory; the fused kernel
-//   instead spreads dQ: each tile's dS K is added with atomicAdd into a
-//   zeroed f32 workspace [B, S, H, D], and dq_finalize writes
-//   (ws · scale) in q's dtype. The atomics make dQ's summation order vary
-//   from run to run: the fused dQ holds against its plain version at a
-//   tolerance, not bitwise. flash_dq and flash_dkv are deterministic;
-// - tiles are computed transposed where that keeps row ownership: the k-
-//   block kernels form S^T = K Q^T and dP^T = V dO^T, so the same warps own
-//   the same keys' rows in every product and in dK/dV; the fused dQ reads
-//   dS^T as a column-major operand;
-// - 8 warps per CTA: each 16-row band of a product is split between two
-//   warps by columns, so each SM scheduler has a second warp to switch to
-//   while the first waits on a synchronous wmma load from shared memory;
-// - bf16 products run on the tensor cores (wmma 16x16x16, f32 accumulate),
-//   the f32 variant (the exactness path) on the CUDA cores; f32 keeps 64-row
-//   tiles by writing P and dS over S and dP in place (224.5 KB of shared
-//   memory at d = 128, under the 227 KB a CTA may take). bf16 takes 186.5 KB
-//   with its rows padded against bank conflicts (flash_tiles.cuh): one CTA
-//   per SM, the first thing later perf work must change;
+// The bf16 key-block sweep (`flash_bwd_kv_mma`: K5, and K4 without the dQ;
+// bf16 or f32 outputs):
+// - one CTA of 4 warps per (b·h, 64-key block); each warp owns 16 keys for
+//   the whole sweep: their rows of S^T and dP^T and of dK and dV. The TPU's
+//   sequential q grid is a loop inside the CTA over the live 64-row q tiles
+//   (causal: from the block's diagonal to the end; window: up to the last
+//   query that sees the block);
+// - S^T = K Q^T and dP^T = V dO^T run on mma.sync m16n8k16 with f32
+//   accumulators in registers — the forward's S = Q K^T with the roles
+//   swapped: K and V are the A operands, taken by ldmatrix from the
+//   resident shared tiles, Q and dO the B operands. P = exp(S·scale - LSE)
+//   (base 2, the scale folded into one fma) and dS = P (dP - delta) are
+//   formed on those registers from the staged LSE and delta of each
+//   column's query, then packed into bf16 A fragments (the accumulators of
+//   two n-tiles are one k-step's A operand) for dV += P^T dO and
+//   dK += dS^T Q, whose B operands come by ldmatrix.trans. dK and dV
+//   (16 x d f32 a warp each) stay in registers for the whole sweep and are
+//   written once, dK · scale, in TO. S^T and dP^T are formed 32 queries at
+//   a time (a register sub-tile of the 64-row q tile);
+// - K5's dQ: each warp stores its dS^T rows (bf16) in a shared tile; after
+//   a barrier each warp forms dS K for 16 queries of the tile over the
+//   block's 64 keys (A by ldmatrix.trans from the dS^T tile, B by
+//   ldmatrix.trans from the resident K), 32 columns at a time, and adds the
+//   accumulators into a zeroed f32 workspace with vector atomics (atomicAdd
+//   on float2: red.global.add.v2.f32); dq_finalize writes ws · scale. The
+//   atomics make dQ's summation order vary from run to run: the fused dQ
+//   holds against its plain version at a tolerance, not bitwise. K4 is
+//   deterministic: each CTA sums its q tiles in a fixed order;
+// - Q, dO, LSE and delta come through two shared-memory stages filled by
+//   cp.async: tile t + 1 is in flight while tile t's products run, and one
+//   __syncthreads a tile hands the stages round (K5 adds one for its dS^T
+//   tile). Rows are padded by 16 bytes so that the eight rows of every
+//   ldmatrix 8x8 fall in different banks. At d = 128 that is 112 KB for K5
+//   (K and V 34 KB, two Q/dO stages 68 KB, LSE/delta 1 KB, dS^T 9 KB) and
+//   103 KB for K4: two CTAs per SM;
+// - heaviest first: the linear block index runs (b, h) fastest and the key
+//   blocks from the first, which under a causal mask sees every q tile, so
+//   the long CTAs start first and the short ones fill the tail;
+// - each warp classifies every sub-tile against its own 16 keys: dead
+//   (skipped; K5 writes its dS^T rows as zeros), fully visible (no mask
+//   arithmetic), or masked (a diagonal or window-edge tile, a ragged tail).
+//   A row's arithmetic does not depend on the batch or the grid slot;
+// - head dims: compile-time instances for 64 and 128; a smaller d (a
+//   multiple of 16) is zero-padded to the next one in shared memory — zero
+//   columns add nothing to S^T, dP^T or dQ and are never stored.
+//
+// The f32 instances of K5/K4 (CUDA cores: the exactness path of the train
+// and ring checks) and flash_dq (K3, both types) keep the first port's
+// kernels:
+// - one CTA of 8 warps per (b·h, 64-row block): flash_dq loops over the
+//   live k blocks with Q/dO/LSE/delta staged once; the f32 key-block kernel
+//   keeps K/V resident and loops over the live q blocks; dead tiles
+//   (block_liveness's DEAD class) are never loaded;
+// - the tiles are computed transposed where that keeps row ownership (S^T
+//   = K Q^T in the key-block kernel); the accumulators ([64, d] f32) live
+//   in shared memory; each 16-row band of a product is split between two
+//   warps by columns;
+// - bf16 products (flash_dq) run on wmma 16x16x16 out of shared memory,
+//   f32 ones on the CUDA cores; f32 keeps 64-row tiles by writing P and dS
+//   over S and dP in place (224.5 KB of shared memory at d = 128);
+// - the f32 fused dQ adds each tile's dS K with atomicAdd into the
+//   workspace, as above;
 // - a ragged S tail is zero-filled and masked; its rows are never written.
-// Not yet done (later work): wgmma, TMA, a pipelined Q/dO stage, the
-// accumulators in registers so that two CTAs fit an SM.
+// Not done here: wgmma and TMA; flash_dq's redesign on the sweep above.
 
 #include "flash_tiles.cuh"
+#include "mma_tiles.cuh"
 
 namespace {
 
@@ -82,42 +117,9 @@ __device__ __forceinline__ Share share_of(int warp, int d) {
           min(d, 16 * blocks * (half + 1))};
 }
 
-// dQ[16 q of the band, c0..c1) = dS[band, 64 k] · K[64 k, c0..c1), added
-// into the f32 workspace `ws` (row stride `ss`) with atomics. dS is read
-// column-major out of the dS^T tile; the product goes through `scr`.
-__device__ void dq_atomic(const __nv_bfloat16* dst, const __nv_bfloat16* ks,
-                          float* scr, float* ws, long long ss, int q0,
-                          int seq, int d, const Share& w, int lane) {
-  const int ldt = ld_tile<__nv_bfloat16>(d), lda = ld_acc<__nv_bfloat16>(d);
-  constexpr int ldp = ld_prob<__nv_bfloat16>();
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major>
-      a[kBK / 16];
-#pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk)
-    wmma::load_matrix_sync(a[kk], dst + kk * 16 * ldp + w.band * 16, ldp);
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-  float* sw = scr + w.band * 16 * lda;
-  for (int n = w.c0; n < w.c1; n += 16) {
-    wmma::fill_fragment(o, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      wmma::load_matrix_sync(b, ks + kk * 16 * ldt + n, ldt);
-      wmma::mma_sync(o, a[kk], b, o);
-    }
-    wmma::store_matrix_sync(sw + n, o, lda, wmma::mem_row_major);
-  }
-  __syncwarp();
-  for (int rr = 0; rr < 16; ++rr) {
-    const int qp = q0 + w.band * 16 + rr;
-    if (qp >= seq) break;
-    float* row = ws + qp * ss;
-    for (int c = w.c0 + lane; c < w.c1; c += 32)
-      atomicAdd(row + c, sw[rr * lda + c]);
-  }
-}
-
-// The f32 variant: each lane forms its own elements and adds them directly.
+// The f32 kernel's fused dQ: dQ[16 q of the band, c0..c1) = dS[band, 64 k]
+// · K[64 k, c0..c1), added into the f32 workspace `ws` (row stride `ss`)
+// with atomics; each lane forms its own elements from the dS^T tile.
 __device__ void dq_atomic(const float* dst, const float* ks, float* /*scr*/,
                           float* ws, long long ss, int q0, int seq, int d,
                           const Share& w, int lane) {
@@ -165,8 +167,8 @@ __device__ void load_rows(float* lse_s, float* delta_s, const float* lse,
   }
 }
 
-// flash_dkv (kFused = false) and flash_bwd_fused (kFused = true): one CTA per
-// (64-row k block, b·h).
+// The f32 instances of flash_dkv (kFused = false) and flash_bwd_fused
+// (kFused = true): one CTA per (64-row k block, b·h).
 template <typename T, typename TO, bool kFused>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -334,6 +336,340 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------------- bf16 key-block sweep
+
+// The bf16 instances of K5 (kFused) and K4: CTAs of 4 warps, each warp
+// owning 16 keys of the CTA's 64-key block for the whole sweep.
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+static_assert(16 * kMmaWarps == kBK, "a warp per 16 keys of the block");
+static_assert(kMmaThreads == 2 * kBQ, "a thread per LSE or delta row");
+// S^T and dP^T are formed 32 queries at a time (two sub-tiles of a q
+// tile): at d = 128 the dK/dV accumulators take 128 registers a thread,
+// and a whole 64-query tile of S^T and dP^T (64 more) made K5 5 % slower
+// at the train shape (PERF.md)
+constexpr int kQS = 32;
+
+struct BwdArgs {
+  const bf16 *q, *k, *v, *dout;
+  const float *lse, *delta;
+  float* ws;          // the fused dQ's f32 workspace (kFused only)
+  void *dk, *dv;
+  int batch, seq, heads, d, mask, window;
+  float scale, scale_log2;   // scale, and scale · log2(e)
+};
+
+// dynamic shared memory: K and V resident, two stages of Q and dO, two of
+// LSE and delta, and (fused) the bf16 dS^T tile
+template <int kD, bool kFused>
+constexpr size_t kv_mma_smem() {
+  return 6 * static_cast<size_t>(kBK) * (kD + 8) * sizeof(bf16) +
+         2 * 2 * kBQ * sizeof(float) +
+         (kFused ? static_cast<size_t>(kBK) * (kBQ + 8) * sizeof(bf16) : 0);
+}
+
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(bf16* p, float x, float y) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(x, y);
+}
+
+// `_bwd_tile`'s elementwise middle on one warp's S^T and dP^T registers:
+// thread (g = lane / 4, t = lane % 4) holds keys kw0 + g and kw0 + g + 8,
+// queries qa + 8 j + 2 t + {0, 1} of n-tile j. P = exp(S scale - LSE),
+// taken in base 2, and dS = P (dP - delta) overwrite s and dp; lse_s and
+// delta_s are the staged rows from query qa. With kMask, elements outside
+// the mask or past the sequence get P = 0 (the reference forces P to 0
+// where its masked score is -1e30); a fully visible tile skips the test.
+template <int kNT, bool kMask>
+__device__ __forceinline__ void p_ds_tile(float (&s)[kNT][4],
+                                          float (&dp)[kNT][4],
+                                          const float* lse_s,
+                                          const float* delta_s,
+                                          float scale_log2, int qa, int kw0,
+                                          int seq, int mask, int window,
+                                          int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    const float2 l2 =
+        *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t);
+    const float2 dl =
+        *reinterpret_cast<const float2*>(delta_s + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float lse = (e & 1) ? l2.y : l2.x;
+      const float delta = (e & 1) ? dl.y : dl.x;
+      float p = exp2f(fmaf(s[j][e], scale_log2, -lse * kLog2e));
+      if constexpr (kMask) {
+        const int qp = qa + 8 * j + 2 * t + (e & 1);
+        const int kp = kw0 + g + 8 * (e >> 1);
+        bool keep = qp < seq && kp < seq;
+        if (mask != kFull) keep = keep && kp <= qp;
+        if (mask == kWindow) keep = keep && qp - kp < window;
+        p = keep ? p : 0.f;
+      }
+      s[j][e] = p;
+      dp[j][e] = p * (dp[j][e] - delta);
+    }
+  }
+}
+
+// The fused dQ of one q tile: warp w's 16 queries [q0 + 16 w, +16) of
+// dS K over the block's 64 keys. A comes by ldmatrix.trans from the dS^T
+// tile, B by ldmatrix.trans from the resident K; each 32-column chunk is
+// added to the f32 workspace (row stride ss) straight from its
+// accumulators, one vector atomic (red.global.add.v2.f32) per pair.
+template <int kD>
+__device__ __forceinline__ void add_dq(const bf16* dst, const bf16* ks,
+                                       float* ws, long long ss, int q0,
+                                       int seq, int d, int warp, int lane) {
+  constexpr int kLd = kD + 8, kLdS = kBQ + 8;
+  const int g = lane >> 2, t = lane & 3;
+  const int qr = q0 + 16 * warp;
+  if (qr >= seq) return;
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_col = (lane >> 4) * 8;
+  const int b_row = (lane >> 4) * 8 + (lane & 7);
+  const int b_col = ((lane >> 3) & 1) * 8;
+  uint32_t da[kBK / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)
+    ldsm_x4_trans(da[kk], smem_addr(dst + (16 * kk + b_row) * kLdS +
+                                    16 * warp + b_col));
+#pragma unroll
+  for (int c = 0; c < kD; c += 32) {
+    if (c >= d) break;
+    float acc[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t bk[4];
+        ldsm_x4_trans(bk, smem_addr(ks + (16 * kk + a_row) * kLd + c +
+                                    16 * np + a_col));
+        mma_bf16(acc[2 * np], da[kk], bk[0], bk[1]);
+        mma_bf16(acc[2 * np + 1], da[kk], bk[2], bk[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = c + 8 * j + 2 * t;
+      if (col >= d) continue;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int qp = qr + g + 8 * i;
+        if (qp < seq)
+          atomicAdd(reinterpret_cast<float2*>(ws + qp * ss + col),
+                    make_float2(acc[j][2 * i], acc[j][2 * i + 1]));
+      }
+    }
+  }
+}
+
+// The bf16 key-block sweep. kD: the padded head dim (64 or 128); TO: the
+// gradients' type; kFused: K5 (dQ by atomics into a.ws) or K4.
+template <int kD, typename TO, bool kFused>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+flash_bwd_kv_mma(BwdArgs a) {
+  constexpr int kLd = kD + 8;          // padded row: 16 bytes past kD
+  constexpr int kTile = kBK * kLd;     // one [64, kD] tile
+  constexpr int kLdS = kBQ + 8;        // padded dS^T row
+  constexpr int kKS = kD / 16;         // k-steps over the head dim
+  constexpr int kNT = kQS / 8;         // 8-query n-tiles of a sub-tile
+  constexpr int kOT = kD / 8;          // 8-column n-tiles of dK, dV
+  static_assert(kBQ % kQS == 0 && kQS % 16 == 0, "whole sub-tiles");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* vs = ks + kTile;
+  bf16* ring = vs + kTile;             // two stages of [Q; dO]
+  float* rows = reinterpret_cast<float*>(ring + 2 * 2 * kTile);
+  bf16* dst = reinterpret_cast<bf16*>(rows + 2 * 2 * kBQ);   // dS^T
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // heaviest first: (b, h) fastest, then the key blocks from the first,
+  // which under a causal mask sees every q tile
+  const int bhn = a.batch * a.heads;
+  const int bh = blockIdx.x % bhn;
+  const int k0 = (blockIdx.x / bhn) * kBK;
+  const int b = bh / a.heads, h = bh - b * a.heads;
+  const long long ss = static_cast<long long>(a.heads) * a.d;
+  const long long base = static_cast<long long>(b) * a.seq * ss +
+                         static_cast<long long>(h) * a.d;
+  const long long row0 = static_cast<long long>(bh) * a.seq;
+  const int kw0 = k0 + 16 * warp;      // this warp's keys [kw0, kw0 + 16)
+
+  // queries that see any key of this block: tiles [t_lo, t_hi)
+  const int k_last = min(k0 + kBK, a.seq) - 1;
+  const int q_lo = a.mask == kFull ? 0 : k0;
+  const int q_hi = a.mask == kWindow ? min(a.seq, k_last + a.window) : a.seq;
+  const int t_lo = q_lo / kBQ, t_hi = (q_hi + kBQ - 1) / kBQ;
+
+  auto load_q = [&](int qt, int stage) {
+    bf16* st = ring + stage * 2 * kTile;
+    cp_tile<kBQ, kD, kMmaThreads>(st, a.q + base, ss, qt * kBQ, a.seq, a.d);
+    cp_tile<kBQ, kD, kMmaThreads>(st + kTile, a.dout + base, ss, qt * kBQ,
+                                  a.seq, a.d);
+    // LSE rows by threads [0, 64), delta rows by [64, 128)
+    const int i = threadIdx.x, qp = qt * kBQ + i % kBQ;
+    const bool ok = qp < a.seq;
+    const float* src = i < kBQ ? a.lse : a.delta;
+    cp_async4(smem_addr(rows + stage * 2 * kBQ + i),
+              ok ? src + row0 + qp : src, ok);
+  };
+  // prologue: K, V and the first q tile in one group
+  cp_tile<kBK, kD, kMmaThreads>(ks, a.k + base, ss, k0, a.seq, a.d);
+  cp_tile<kBK, kD, kMmaThreads>(vs, a.v + base, ss, k0, a.seq, a.d);
+  load_q(t_lo, 0);
+  cp_async_commit();
+
+  float dk[kOT][4], dv[kOT][4];
+#pragma unroll
+  for (int j = 0; j < kOT; ++j) {
+    dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.f;
+    dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.f;
+  }
+  // per-lane ldmatrix offsets, as flash_fwd_mma's: (a_row, a_col) the A
+  // fragment of a row-major tile, and with .trans two n-tiles' B fragments
+  // of a tile stored one k per row; (b_row, b_col) two n-tiles' B
+  // fragments of a tile stored one n per row
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_col = (lane >> 4) * 8;
+  const int b_row = (lane >> 4) * 8 + (lane & 7);
+  const int b_col = ((lane >> 3) & 1) * 8;
+
+  for (int qt = t_lo; qt < t_hi; ++qt) {
+    const int stage = (qt - t_lo) & 1;
+    cp_async_wait<0>();   // tile qt is here (this thread's copies)
+    __syncthreads();      // ... everyone's; tile qt - 1 is read out
+    if (qt + 1 < t_hi) load_q(qt + 1, stage ^ 1);
+    cp_async_commit();
+    const bf16* qs = ring + stage * 2 * kTile;
+    const bf16* dos = qs + kTile;
+    const float* lse_s = rows + stage * 2 * kBQ;
+    const float* delta_s = lse_s + kBQ;
+    const int q0 = qt * kBQ;
+#pragma unroll
+    for (int c0 = 0; c0 < kBQ; c0 += kQS) {
+      // this warp's keys against the sub-tile's queries [qa, qz]: dead
+      // (skip), fully visible, or masked
+      const int qa = q0 + c0, qz = qa + kQS - 1, kz = kw0 + 15;
+      const bool dead = kw0 >= a.seq || qa >= a.seq ||
+                        (a.mask != kFull && kw0 > qz) ||
+                        (a.mask == kWindow && qa - kz >= a.window);
+      if (dead) {
+        if constexpr (kFused) {   // its dS^T rows are zeros for the dQ
+#pragma unroll
+          for (int kk = 0; kk < kQS / 16; ++kk) {
+            bf16* row = dst + (16 * warp + g) * kLdS + c0 + 16 * kk + 2 * t;
+            *reinterpret_cast<uint32_t*>(row) = 0u;
+            *reinterpret_cast<uint32_t*>(row + 8 * kLdS) = 0u;
+            *reinterpret_cast<uint32_t*>(row + 8) = 0u;
+            *reinterpret_cast<uint32_t*>(row + 8 * kLdS + 8) = 0u;
+          }
+        }
+        continue;
+      }
+      const bool visible =
+          qz < a.seq && kz < a.seq &&
+          (a.mask == kFull ||
+           (kz <= qa && (a.mask != kWindow || qz - kw0 < a.window)));
+      // S^T = K Q^T and dP^T = V dO^T: 16 keys x kQS queries each
+      float s[kNT][4], dp[kNT][4];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < kKS; ++kk) {
+        uint32_t ka[4], va[4];
+        const int aoff = (16 * warp + a_row) * kLd + 16 * kk + a_col;
+        ldsm_x4(ka, smem_addr(ks + aoff));
+        ldsm_x4(va, smem_addr(vs + aoff));
+#pragma unroll
+        for (int np = 0; np < kNT / 2; ++np) {
+          uint32_t bq[4], bo[4];
+          const int boff = (c0 + 16 * np + b_row) * kLd + 16 * kk + b_col;
+          ldsm_x4(bq, smem_addr(qs + boff));
+          ldsm_x4(bo, smem_addr(dos + boff));
+          mma_bf16(s[2 * np], ka, bq[0], bq[1]);
+          mma_bf16(s[2 * np + 1], ka, bq[2], bq[3]);
+          mma_bf16(dp[2 * np], va, bo[0], bo[1]);
+          mma_bf16(dp[2 * np + 1], va, bo[2], bo[3]);
+        }
+      }
+      if (visible)
+        p_ds_tile<kNT, false>(s, dp, lse_s + c0, delta_s + c0, a.scale_log2,
+                              qa, kw0, a.seq, a.mask, a.window, lane);
+      else
+        p_ds_tile<kNT, true>(s, dp, lse_s + c0, delta_s + c0, a.scale_log2,
+                             qa, kw0, a.seq, a.mask, a.window, lane);
+      // dV += P^T dO and dK += dS^T Q, 16 queries a k-step: P^T and dS^T
+      // are packed from the accumulators into bf16 A fragments
+#pragma unroll
+      for (int kk = 0; kk < kQS / 16; ++kk) {
+        const uint32_t pa[4] = {
+            pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        const uint32_t da[4] = {
+            pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
+            pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
+            pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+            pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+        if constexpr (kFused) {   // dS^T into its tile for the dQ product
+          bf16* row = dst + (16 * warp + g) * kLdS + c0 + 16 * kk + 2 * t;
+          *reinterpret_cast<uint32_t*>(row) = da[0];
+          *reinterpret_cast<uint32_t*>(row + 8 * kLdS) = da[1];
+          *reinterpret_cast<uint32_t*>(row + 8) = da[2];
+          *reinterpret_cast<uint32_t*>(row + 8 * kLdS + 8) = da[3];
+        }
+#pragma unroll
+        for (int np = 0; np < kOT / 2; ++np) {
+          uint32_t bo[4], bq[4];
+          const int off = (c0 + 16 * kk + a_row) * kLd + 16 * np + a_col;
+          ldsm_x4_trans(bo, smem_addr(dos + off));
+          ldsm_x4_trans(bq, smem_addr(qs + off));
+          mma_bf16(dv[2 * np], pa, bo[0], bo[1]);
+          mma_bf16(dv[2 * np + 1], pa, bo[2], bo[3]);
+          mma_bf16(dk[2 * np], da, bq[0], bq[1]);
+          mma_bf16(dk[2 * np + 1], da, bq[2], bq[3]);
+        }
+      }
+    }
+    if constexpr (kFused) {
+      __syncthreads();   // every warp's dS^T rows are in place
+      add_dq<kD>(dst, ks, a.ws + base, ss, q0, a.seq, a.d, warp, lane);
+    }
+  }
+  cp_async_wait<0>();   // the last (empty) group
+
+  // dK · scale and dV in TO, straight from the accumulators
+  TO* dk_out = static_cast<TO*>(a.dk) + base;
+  TO* dv_out = static_cast<TO*>(a.dv) + base;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kp = kw0 + g + 8 * i;
+    if (kp >= a.seq) continue;
+#pragma unroll
+    for (int j = 0; j < kOT; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (col >= a.d) continue;
+      const long long off = kp * ss + col;
+      store2(dk_out + off, dk[j][2 * i] * a.scale,
+             dk[j][2 * i + 1] * a.scale);
+      store2(dv_out + off, dv[j][2 * i], dv[j][2 * i + 1]);
+    }
+  }
+}
+
 template <typename TO>
 __global__ void dq_finalize_kernel(const float* __restrict__ ws,
                                    TO* __restrict__ dq, long long n,
@@ -353,6 +689,65 @@ struct Args {
   cudaStream_t stream;
 };
 
+template <int kD, typename TO, bool kFused>
+cudaError_t kv_mma_attrs() {
+  auto kernel = flash_bwd_kv_mma<kD, TO, kFused>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kv_mma_smem<kD, kFused>()));
+  if (e != cudaSuccess) return e;
+  // all of the SM's 228 KB as shared memory: two CTAs of K5 need 2 x 113 KB
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <int kD, typename TO, bool kFused>
+int launch_kv_mma_at(const BwdArgs& a, cudaStream_t stream) {
+  cudaError_t e = kv_mma_attrs<kD, TO, kFused>();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long blocks = static_cast<long long>(a.batch) * a.heads *
+                           ((a.seq + kBK - 1) / kBK);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = kv_mma_smem<kD, kFused>();
+  flash_bwd_kv_mma<kD, TO, kFused>
+      <<<static_cast<unsigned>(blocks), kMmaThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TO, bool kFused>
+int launch_kv_mma(const Args& a, float* ws, void* dk, void* dv) {
+  const BwdArgs b{static_cast<const bf16*>(a.q),
+                  static_cast<const bf16*>(a.k),
+                  static_cast<const bf16*>(a.v),
+                  static_cast<const bf16*>(a.dout),
+                  a.lse, a.delta, ws, dk, dv, a.batch, a.seq, a.heads, a.d,
+                  a.mask, a.window, a.scale, a.scale * kLog2e};
+  return a.d <= 64 ? launch_kv_mma_at<64, TO, kFused>(b, a.stream)
+                   : launch_kv_mma_at<128, TO, kFused>(b, a.stream);
+}
+
+// registers a thread, local (spill) bytes a thread, dynamic shared memory
+// and resident CTAs per SM of one instance of the bf16 key-block sweep
+template <int kD, typename TO, bool kFused>
+int kv_mma_info(int* out) {
+  cudaError_t e = kv_mma_attrs<kD, TO, kFused>();
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess)
+    e = cudaFuncGetAttributes(&fa, flash_bwd_kv_mma<kD, TO, kFused>);
+  int ctas = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &ctas, flash_bwd_kv_mma<kD, TO, kFused>, kMmaThreads,
+        kv_mma_smem<kD, kFused>());
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = static_cast<int>(kv_mma_smem<kD, kFused>());
+  out[3] = ctas;
+  return 0;
+}
+
 template <typename T>
 size_t kv_smem(int d) {
   constexpr size_t elt = sizeof(T);
@@ -363,20 +758,25 @@ size_t kv_smem(int d) {
          + 2 * kBQ * 4;                                      // LSE, delta
 }
 
+// The key-block kernels: the bf16 sweep, or the f32 CUDA-core kernel.
 template <typename T, typename TO, bool kFused>
 int launch_kv(const Args& a, float* ws, void* dk, void* dv) {
-  const size_t smem = kv_smem<T>(a.d);
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_kv_kernel<T, TO, kFused>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((a.seq + kBK - 1) / kBK, a.batch * a.heads);
-  flash_bwd_kv_kernel<T, TO, kFused><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, ws, static_cast<TO*>(dk), static_cast<TO*>(dv), a.seq,
-      a.heads, a.d, a.scale, a.mask, a.window);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (sizeof(T) == 2) {
+    return launch_kv_mma<TO, kFused>(a, ws, dk, dv);
+  } else {
+    const size_t smem = kv_smem<T>(a.d);
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_kv_kernel<T, TO, kFused>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid((a.seq + kBK - 1) / kBK, a.batch * a.heads);
+    flash_bwd_kv_kernel<T, TO, kFused><<<grid, kThreads, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+        a.delta, ws, static_cast<TO*>(dk), static_cast<TO*>(dv), a.seq,
+        a.heads, a.d, a.scale, a.mask, a.window);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename T, typename TO>
@@ -498,4 +898,28 @@ extern "C" int tk_flash_dq(const void* q, const void* k, const void* v,
   if (!valid(a, dtype, out_dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<Dq>(dtype, out_dtype, a, dq);
+}
+
+// Resources of the bf16 key-block sweep's instance for head dim d (padded
+// to 64 or 128), fused (K5) or split (K4), with outputs of `out_dtype`:
+// out[0] registers a thread, out[1] local (spill) bytes a thread, out[2]
+// dynamic shared memory, out[3] resident CTAs per SM. Returns a CUDA error
+// code.
+extern "C" int tk_flash_bwd_kv_info(int d, int fused, int out_dtype,
+                                    int* out) {
+  if (d % 16 || d < 16 || d > 128 || (out_dtype != kF32 && out_dtype != kBF16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool f32 = out_dtype == kF32;
+  if (d <= 64) {
+    if (fused)
+      return f32 ? kv_mma_info<64, float, true>(out)
+                 : kv_mma_info<64, bf16, true>(out);
+    return f32 ? kv_mma_info<64, float, false>(out)
+               : kv_mma_info<64, bf16, false>(out);
+  }
+  if (fused)
+    return f32 ? kv_mma_info<128, float, true>(out)
+               : kv_mma_info<128, bf16, true>(out);
+  return f32 ? kv_mma_info<128, float, false>(out)
+             : kv_mma_info<128, bf16, false>(out);
 }

@@ -85,6 +85,7 @@
 // ROADMAP.md.
 
 #include "flash_tiles.cuh"
+#include "mma_tiles.cuh"
 
 namespace {
 
@@ -207,62 +208,6 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ----------------------------------------------------------------- bf16
 
-using bf16 = __nv_bfloat16;
-
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global → shared, bypassing L1; src_bytes = 0 writes zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>   // wait until at most kPending groups are in flight
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// c[16x8 f32] += a[16x16 bf16, row] · b[16x8 bf16, col]
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats → one register of two bf16 (round to nearest even), lo first
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 struct FwdArgs {
   const bf16 *q, *k, *v;
   void* o;
@@ -271,27 +216,6 @@ struct FwdArgs {
   Strides tq, tk, tv, to;
   float scale_log2;   // scale · log2(e)
 };
-
-// Copy rows [row0, row0 + kRows) of one head (row stride `stride`
-// elements, d valid columns) into a [kRows, kLd] shared tile with cp.async,
-// by all kThreads threads of the CTA; rows past `rows` and columns past d
-// are zero-filled.
-template <int kRows, int kD, int kThreads>
-__device__ __forceinline__ void cp_tile(bf16* dst, const bf16* base,
-                                        long long stride, int row0, int rows,
-                                        int d) {
-  constexpr int kLd = kD + 8, kChunks = kD / 8;
-  static_assert(kRows * kChunks % kThreads == 0, "whole rounds of copies");
-#pragma unroll
-  for (int it = 0; it < kRows * kChunks / kThreads; ++it) {
-    const int i = it * kThreads + threadIdx.x;
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    const bool ok = row0 + r < rows && c < d;
-    const bf16* src =
-        ok ? base + static_cast<long long>(row0 + r) * stride + c : base;
-    cp_async16(smem_addr(dst + r * kLd + c), src, ok);
-  }
-}
 
 // One tile's online-softmax fold on the S registers of a warp: thread
 // (g = lane / 4, t = lane % 4) holds rows g and g + 8 of the warp's band,

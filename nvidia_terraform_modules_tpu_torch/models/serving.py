@@ -37,8 +37,9 @@ against int8; with int8 weights it holds at f32 compute dtype wherever the
 solo prefill also takes the dequantised product (prompts longer than 64
 tokens: ``quantize._kernel_ok``).
 
-The reference engine's other levers are not ported yet; passing one
-raises ``NotImplementedError`` naming its ROADMAP item.
+The reference engine's other keyword arguments are not ported yet: each
+is accepted at the reference's default value, and any other value raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -64,35 +65,54 @@ from .paging import (
 )
 from .quantize import QTensor, dequantize_params
 
-# levers of the reference engine this slice leaves out → their ROADMAP item
-_LATER = {
-    "prefix": "Queue A item 3 (serve levers): template prefix caching",
-    "sampler": "Queue A item 3 (serve levers): sampled serving",
-    "prefill_chunk": "Queue A item 3 (serve levers): chunked prefill",
-    "spec_k": "Queue A item 4 (speculative serving: models/speculative.py)",
-    "share_prefix": "Queue A item 3 (serve levers): prefix sharing",
-    "lazy_growth": "Queue A item 3 (serve levers): lazy block growth",
-    "host_spill": "Queue A item 9 (fleet stack): host KV tier",
-    "shared_store": "Queue A item 9 (fleet stack): prefix CDN",
-    "aot_cache": "Queue A item 9 (fleet stack): warm compile cache",
-    "telemetry": "Queue A item 10 (bench + tracing)",
-    "policy": "Queue A item 3 (serve levers): sjf/priority policies",
-    "admission": "Queue A item 3 (serve levers): the AdmissionSource seam",
+# keyword arguments of the reference engine that this port does not serve
+# yet: name → (the reference's default, its ROADMAP item). The default is
+# the engine as it is and passes; any other value raises
+# NotImplementedError naming the item. make_serve_engine's and run's are
+# apart, as in the reference's signatures; any other keyword is a
+# TypeError.
+_ITEM3 = "Queue A item 3 (serve levers)"
+_ENGINE_LATER = {
+    "prefix": (None, f"{_ITEM3}: template prefix caching"),
+    "sampler": (None, f"{_ITEM3}: sampled serving"),
+    "prefill_chunk": (None, f"{_ITEM3}: chunked prefill"),
+    "spec_k": (None,
+               "Queue A item 4 (speculative serving: models/speculative.py)"),
+    "telemetry": (None, "Queue A item 10 (bench + tracing)"),
+    "policy": ("fifo", f"{_ITEM3}: sjf/priority policies"),
+    "aging": (None, f"{_ITEM3}: sjf/priority policies"),
+    "share_prefix": (False, f"{_ITEM3}: prefix sharing"),
+    "lazy_growth": (False, f"{_ITEM3}: lazy block growth"),
+    "prefix_keep_blocks": (64, f"{_ITEM3}: prefix sharing"),
+    "host_spill": (False, "Queue A item 9 (fleet stack): host KV tier"),
+    "host_blocks": (None, "Queue A item 9 (fleet stack): host KV tier"),
+    "host_swap": ("async", "Queue A item 9 (fleet stack): host KV tier"),
+    "shared_store": (None, "Queue A item 9 (fleet stack): prefix CDN"),
+    "aot_cache": (None, "Queue A item 9 (fleet stack): warm compile cache"),
+}
+_RUN_LATER = {
+    "rules": (None, "Queue A item 6 (parallel beyond sp)"),
+    "rng": (None, f"{_ITEM3}: sampled serving"),
+    "eos_check_every": (1, f"{_ITEM3}: eos_check_every"),
+    "priorities": (None, f"{_ITEM3}: sjf/priority policies"),
+    "admission": (None, f"{_ITEM3}: the AdmissionSource seam"),
 }
 
 
-def _refuse_levers(levers: dict, where: str) -> None:
+def _refuse_levers(levers: dict, later: dict, where: str) -> None:
     for name, value in levers.items():
-        if name not in _LATER:
+        if name not in later:
             raise TypeError(f"{where}() got an unexpected keyword argument "
                             f"{name!r}")
-        if name == "policy" and value == "fifo":
-            continue
-        if value is None or value is False:
-            continue
-        raise NotImplementedError(
-            f"{where}({name}=...) is not ported yet — ROADMAP.md, "
-            f"{_LATER[name]}")
+        default, item = later[name]
+        if default is None or isinstance(default, bool):
+            same = value is default
+        else:
+            same = type(value) is type(default) and value == default
+        if not same:
+            raise NotImplementedError(
+                f"{where}({name}=...) is not ported yet — ROADMAP.md, "
+                f"{item}")
 
 
 def make_serve_step(params, cfg: BurnInConfig, *,
@@ -169,7 +189,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
     ``cache_dtype="int8"`` serves from an int8 pool; ``QTensor`` params
     serve through the phase split (module docstring). ``params`` must live
     on ``device`` (``"cuda"`` unless the caller asks for the CPU)."""
-    _refuse_levers(levers, "make_serve_engine")
+    _refuse_levers(levers, _ENGINE_LATER, "make_serve_engine")
     dev = check_device(device)
     _check_params(params, dev)
     if kv_block < 1:
@@ -214,7 +234,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
             eos_id: int | None = None, arrivals=None,
             kv_blocks: int | None = None, static_batching: bool = False,
             **run_levers):
-        _refuse_levers(run_levers, "run")
+        _refuse_levers(run_levers, _RUN_LATER, "run")
         run.last_stats = None
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")

@@ -77,6 +77,9 @@ _SIGNATURES = {
     # q, k, v, dout, lse, delta, dq, B, S, H, D, scale, mask kind, window,
     # dtype code, output dtype code, stream
     "tk_flash_dq": [_P] * 7 + [_I] * 4 + [_F, _I, _I, _I, _I, _P],
+    # head dim, fused flag, output dtype code, int[4] out (registers,
+    # local bytes, dynamic shared memory, CTAs per SM)
+    "tk_flash_bwd_kv_info": [_I, _I, _I, _P],
 }
 
 

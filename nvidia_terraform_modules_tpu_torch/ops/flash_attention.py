@@ -28,6 +28,7 @@ reference's ``grow``), without the copy.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 
@@ -436,6 +437,23 @@ def _bwd_cuda(kernel: str, q, k, v, do, lse, delta, scale: float,
     _build.check(rc, kernel)
     _build.launches[kernel] += 1
     return out
+
+
+def flash_bwd_kv_resources(head_dim: int, *, fused: bool,
+                           out_dtype=torch.bfloat16) -> dict:
+    """What the bf16 key-block kernel (``csrc/flash_bwd.cu``
+    ``flash_bwd_kv_mma``) that K5 (``fused``) or K4 launches at
+    ``head_dim`` with gradients in ``out_dtype`` takes on the card:
+    ``registers`` a thread, ``spill_bytes`` (local memory) a thread,
+    ``smem_bytes`` of dynamic shared memory, and ``ctas_per_sm`` that fit
+    an SM. Builds the kernels on first use; needs a CUDA device."""
+    out = (ctypes.c_int * 4)()
+    rc = _build.lib().tk_flash_bwd_kv_info(
+        head_dim, int(fused), _build.dtype_code(out_dtype),
+        ctypes.addressof(out))
+    _build.check(rc, "flash_bwd_kv_info")
+    return dict(zip(("registers", "spill_bytes", "smem_bytes",
+                     "ctas_per_sm"), out))
 
 
 def _bwd_dispatch(kernel, ref, q, k, v, do, lse, delta, scale, mask,

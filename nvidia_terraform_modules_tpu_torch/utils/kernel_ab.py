@@ -14,7 +14,8 @@ prints one JSON line: K1 at two serve prompt shapes and the train step's
 per-layer ``[2, 4096, 16, 128]``, K7 (bf16 paged decode) at a flagship
 wave of 4 slots, K5/K3/K4 at the train shape (CUDA-event medians, cold
 L2), the median host time of a flagship bf16 SGD step ending in a
-synchronise, and — in a tree with ring attention — K2 at the ring's block
+synchronise, and — in a tree with ring attention — K2, and K5 and K4
+writing f32 (the ring's per-block gradients), at the ring's block
 ``[2, 1024, 16, 128]``, diagonal (causal) and visible (full), and the
 median host time of the flagship ring SGD step (sp = 4 on the one card).
 A tree without the backward kernels (the serve slice alone) reports K1
@@ -86,11 +87,21 @@ def measure(tree: str) -> dict:
     out["last_loss"] = losses[-1].item()
     if not hasattr(fa, "flash_partial"):    # a tree from before the ring
         return out
-    qr, kr, vr = (t[:, :1024].contiguous() for t in (q, k, v))
+    qr, kr, vr, dor = (t[:, :1024].contiguous() for t in (q, k, v, do))
     for name, causal in (("diag", True), ("visible", False)):
         out[f"flash_partial_{name}_ms"] = timing.cuda_median_ms(
             lambda causal=causal: fa.flash_partial(
                 qr, kr, vr, scale=128 ** -0.5, causal=causal))
+        # the ring's per-block backward: K5 and K4 writing f32
+        o_r, lse_r = fa.flash_attention_fwd(qr, kr, vr, causal=causal)
+        delta_r = (dor.float() * o_r.float()).sum(-1).permute(0, 2, 1) \
+            .contiguous()
+        args_r = (qr, kr, vr, dor, lse_r, delta_r)
+        for fn_name in ("flash_dqdkv", "flash_dkv"):
+            out[f"{fn_name}_f32_out_{name}_ms"] = timing.cuda_median_ms(
+                lambda fn=getattr(fa, fn_name), args_r=args_r,
+                causal=causal: fn(*args_r, scale=128 ** -0.5,
+                                  causal=causal, out_dtype=torch.float32))
     parallel = importlib.import_module(
         "nvidia_terraform_modules_tpu_torch.parallel")
     rules = parallel.make_rules(parallel.build_mesh(

@@ -304,6 +304,8 @@ def _bwd_inputs(g, b, s, h, d, dtype, dev, mask):
     (1, 136, 16, 128, torch.bfloat16, None),
     (1, 512, 16, 128, torch.bfloat16, ("window", 128)),
     (1, 70, 2, 32, torch.bfloat16, ("window", 20)),
+    (1, 256, 8, 64, torch.bfloat16, None),
+    (1, 200, 4, 128, torch.bfloat16, ("window", 64)),
     (1, 200, 4, 128, torch.float32, "full"),
     (2, 100, 4, 64, torch.float32, None),
 ])
@@ -526,12 +528,14 @@ def test_flash_partial_equals_flash_fwd_at_causal_4096(cuda):
     _k2_normalised_equals_k1(q, k, v, got, scale=128 ** -0.5, causal=True)
 
 
+@pytest.mark.parametrize("shape", [(2, 256, 4, 128), (2, 1024, 16, 128)])
 @pytest.mark.parametrize("mask", ["causal", "full"])
-def test_flash_backward_f32_outputs_match_plain(cuda, mask):
+def test_flash_backward_f32_outputs_match_plain(cuda, mask, shape):
     """``out_dtype=float32`` on bf16 inputs (the ring's per-block
-    gradients): K5, K3 and K4 against their plain versions."""
+    gradients, up to the flagship ring's block): K5, K3 and K4 against
+    their plain versions."""
     g = torch.Generator().manual_seed(17)
-    args = _bwd_inputs(g, 2, 256, 4, 128, torch.bfloat16, cuda, mask)
+    args = _bwd_inputs(g, *shape, torch.bfloat16, cuda, mask)
     kw = dict(scale=128 ** -0.5, mask=mask, out_dtype=torch.float32)
     fused = flash_dqdkv(*args, **kw)
     split = (flash_dq(*args, **kw), *flash_dkv(*args, **kw))
@@ -544,6 +548,21 @@ def test_flash_backward_f32_outputs_match_plain(cuda, mask):
             diff = got - r
             assert diff.abs().max().item() <= lim, f"d{name}"
             assert (diff.norm() / r.norm()).item() <= 1e-2, f"d{name}"
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_flash_dkv_bf16_is_deterministic(cuda, out_dtype):
+    """K4 has no atomics and sums its q tiles in a fixed order: two calls
+    give the same bits, and batch row 0 of a batch-2 call equals the same
+    row run alone, though the two grids order their blocks differently."""
+    g = torch.Generator().manual_seed(19)
+    args = _bwd_inputs(g, 2, 520, 16, 128, torch.bfloat16, cuda, None)
+    kw = dict(scale=128 ** -0.5, out_dtype=out_dtype)
+    dk, dv = flash_dkv(*args, **kw)
+    dk2, dv2 = flash_dkv(*args, **kw)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    dk1, dv1 = flash_dkv(*(t[:1].contiguous() for t in args), **kw)
+    assert torch.equal(dk1, dk[:1]) and torch.equal(dv1, dv[:1])
 
 
 @pytest.mark.parametrize("sp", [2, 4])

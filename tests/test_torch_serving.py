@@ -9,6 +9,8 @@ f32 weights, the port's engine emits exactly the JAX engine's tokens — with
 the bf16 pool, the int8 pool, and int8 weights through the phase split.
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -145,6 +147,60 @@ def test_engine_validation_and_unported_levers():
         make_serve_engine(params, cfg, max_len=12, device="cpu", bogus=1)
     # the reference's baseline values of a lever are the engine as it is
     make_serve_engine(params, cfg, max_len=12, device="cpu", policy="fifo")
+
+
+def _keyword_defaults(fn) -> dict:
+    return {name: p.default
+            for name, p in inspect.signature(fn).parameters.items()
+            if p.default is not inspect.Parameter.empty}
+
+
+# keywords the port accepts only at the reference's default: a value that
+# is not, and the ROADMAP item its NotImplementedError names
+_NOT_DEFAULT = {
+    "make_serve_engine": {"aging": (4, "item 3"),
+                          "prefix_keep_blocks": (32, "item 3"),
+                          "host_blocks": (8, "item 9"),
+                          "host_swap": ("sync", "item 9")},
+    "run": {"rules": (object(), "item 6"), "rng": (np.random.default_rng(0),
+                                                   "item 3"),
+            "eos_check_every": (4, "item 3"),
+            "priorities": ([0, 1, 2], "item 3")},
+}
+
+
+def test_reference_keywords_at_their_defaults_serve_the_same_tokens():
+    """The port's engine takes every keyword of the reference's
+    ``make_serve_engine`` and ``run`` (read from their signatures) at the
+    reference's default and serves the same tokens as without them; a
+    keyword it does not serve yet refuses any other value, naming its
+    ROADMAP item; a keyword the reference's function lacks is a TypeError."""
+    jcfg, jp, cfg, params, prompts = _setup(n=3, seed=11)
+    engine_kw = _keyword_defaults(jax_engine)
+    run_kw = _keyword_defaults(jax_engine(jp, jcfg, max_len=16, kv_block=4))
+    assert {"aging", "prefix_keep_blocks", "host_blocks",
+            "host_swap"} <= set(engine_kw)
+    assert {"rules", "rng", "eos_check_every", "priorities"} <= set(run_kw)
+    base = make_serve_engine(params, cfg, max_len=16, device="cpu")
+    want = base(prompts, 4)
+    engine = make_serve_engine(params, cfg, max_len=16, device="cpu",
+                               **engine_kw)
+    got = engine(prompts, 4, **run_kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for name, (value, item) in _NOT_DEFAULT["make_serve_engine"].items():
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md, Queue A {item}"):
+            make_serve_engine(params, cfg, max_len=16, device="cpu",
+                              **{name: value})
+    for name, (value, item) in _NOT_DEFAULT["run"].items():
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md, Queue A {item}"):
+            base(prompts, 4, **{name: value})
+    with pytest.raises(TypeError):
+        base(prompts, 4, aging=None)      # make_serve_engine's, not run's
+    with pytest.raises(TypeError):
+        make_serve_engine(params, cfg, max_len=16, device="cpu", rng=None)
 
 
 @pytest.mark.parametrize("paged_kernel", ["auto", "on", "off"])
