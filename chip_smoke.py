@@ -328,6 +328,7 @@ def kernel_kv_decode(randn, dev) -> dict:
 
     from nvidia_terraform_modules_tpu_torch.models import quantize_kv
     from nvidia_terraform_modules_tpu_torch.ops.decode_attention import (
+        decode_spans,
         kv_decode_attention,
         kv_decode_attention_ref,
     )
@@ -393,12 +394,99 @@ def kernel_kv_decode(randn, dev) -> dict:
                    dtype=str(dtype), int8=quant, main_path=on_path,
                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, ctas=bb * kv)
+                   bound_by=bound_by, ctas=bb * kv * decode_spans(s),
+                   live_ctas=kv * sum(decode_spans(p + 1)
+                                      for p in pos_list))
         emit("kernel_kv_decode", **rec)
         if on_path:
             main[on_path] = rec
         del k, v, kd, vd, ks, vs
     return main
+
+
+def kernel_decode_spans(randn, dev) -> None:
+    """The decode kernels' split at its seams, at the flagship's widths (16
+    heads, 16 KV heads, d = 128, blocks of KV_BLOCK): K7 (bf16 pool), K7-int8
+    and K6 (int8 and bf16 caches) with rows at positions 0, S - 1, S and
+    S + 1 for a span of S keys, each against its plain version and K7
+    against K6 on the gathered view bit for bit; then one row run alone and
+    inside a batch of 4 unrelated rows, with equal bits (K7, K7-int8)."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import quantize_kv
+    from nvidia_terraform_modules_tpu_torch.ops.decode_attention import (
+        DECODE_SPAN,
+        gather_logical,
+        kv_decode_attention,
+        kv_decode_attention_ref,
+        paged_decode_attention,
+        paged_decode_attention_ref,
+    )
+    from nvidia_terraform_modules_tpu_torch.utils.timing import sync
+
+    bf16 = torch.bfloat16
+    h, kv, d, bs = 16, 16, 128, KV_BLOCK
+    span = DECODE_SPAN
+    nt = -(-max(600, 2 * span) // bs)
+    rows = nt * bs
+    for quant in (False, True):
+        for pos_list in ([0, span - 1, span, span + 1], [559, 63, 64, 300]):
+            b = len(pos_list)
+            nb = 1 + b * nt
+            k_pool, v_pool = (randn((nb, bs, kv, d), torch.float32)
+                              for _ in range(2))
+            ks = vs = None
+            if quant:
+                (k_pool, ks), (v_pool, vs) = (quantize_kv(t) for t in
+                                              (k_pool, v_pool))
+                k_pool[0] = 127          # garbage block and its sidecars:
+                v_pool[0] = 127          # a read would show
+                ks[0] = 1e4
+                vs[0] = 1e4
+            else:
+                k_pool, v_pool = k_pool.to(bf16), v_pool.to(bf16)
+                k_pool[0] = 1e4
+                v_pool[0] = 1e4
+            pos = torch.tensor(pos_list, dtype=torch.int32)
+            tables = torch.zeros((b, nt), dtype=torch.int32)
+            for i in range(b):
+                n_live = int(pos[i]) // bs + 1
+                tables[i, :n_live] = 1 + i * nt + torch.randperm(
+                    nt, generator=torch.Generator().manual_seed(i))[:n_live]
+            tables, pos = tables.to(dev), pos.to(dev)
+            q = randn((b, h, d), bf16)
+            kw = dict(scale=d ** -0.5, k_scale=ks, v_scale=vs)
+            out = paged_decode_attention(q, k_pool, v_pool, tables, pos, **kw)
+            ref = paged_decode_attention_ref(q, k_pool, v_pool, tables, pos,
+                                             **kw)
+            flat_kw = dict(scale=d ** -0.5)
+            if quant:
+                flat_kw.update(k_scale=gather_logical(ks, tables, rows),
+                               v_scale=gather_logical(vs, tables, rows))
+            fk = gather_logical(k_pool, tables, rows)
+            fv = gather_logical(v_pool, tables, rows)
+            flat = kv_decode_attention(q, fk, fv, pos, **flat_kw)
+            flat_ref = kv_decode_attention_ref(q, fk, fv, pos, **flat_kw)
+            alone = [paged_decode_attention(
+                q[i:i + 1].clone(), k_pool, v_pool, tables[i:i + 1].clone(),
+                pos[i:i + 1].clone(), **kw) for i in range(b)]
+            sync()
+            name = "paged_decode_int8" if quant else "paged_decode"
+            err = limit_err(out, ref, "bf16", f"{name} pos={pos_list}")
+            err6 = limit_err(flat, flat_ref, "bf16",
+                             f"kv_decode int8={quant} pos={pos_list}")
+            if not torch.equal(out, flat):
+                raise AssertionError(f"{name} pos={pos_list}: differs from "
+                                     f"kv_decode on the gathered view")
+            for i in range(b):
+                if not torch.equal(alone[i][0], out[i]):
+                    raise AssertionError(f"{name} pos={pos_list}: row {i} "
+                                         f"alone differs from the batch")
+            emit("kernel_decode_spans", kernel=name, span=span,
+                 pos=pos_list, block_size=bs, table_width=nt,
+                 max_abs_err=err, kv_decode_max_abs_err=err6,
+                 paged_equals_contiguous=True, row_alone_equals_batch=True)
+            del k_pool, v_pool, ks, vs, fk, fv, flat_kw
 
 
 def serve_int8_exact(dev) -> None:
@@ -550,22 +638,23 @@ def decode_int8_flagship(params, cfg, dev) -> tuple[dict, dict]:
 
 
 def kernel_flash_bwd_resources() -> dict:
-    """One line per instance of the bf16 key-block kernel (K5 fused, K4
-    split; head dims 64 and 128; bf16 and f32 outputs): registers and
-    spilled bytes a thread (cudaFuncGetAttributes), dynamic shared memory
-    and CTAs per SM (the occupancy calculator). Returns the records by
+    """One line per instance of the bf16 backward sweeps (K5 fused and K4
+    split, the key-block kernel; K3, the query-block kernel; head dims 64
+    and 128; bf16 and f32 outputs): registers and spilled bytes a thread
+    (cudaFuncGetAttributes), dynamic shared memory and CTAs per SM (the
+    occupancy calculator). A spill fails the run. Returns the records by
     (kernel name, output dtype) at head dim 128."""
     import torch
 
     from nvidia_terraform_modules_tpu_torch.ops.flash_attention import (
-        flash_bwd_kv_resources,
+        flash_bwd_resources,
     )
 
     main = {}
     for d in (64, 128):
-        for name, fused in (("flash_bwd_fused", True), ("flash_dkv", False)):
+        for name in ("flash_bwd_fused", "flash_dkv", "flash_dq"):
             for out in (torch.bfloat16, torch.float32):
-                rec = flash_bwd_kv_resources(d, fused=fused, out_dtype=out)
+                rec = flash_bwd_resources(name, d, out_dtype=out)
                 emit("kernel_flash_bwd_resources", kernel=name, head_dim=d,
                      out_dtype=str(out), **rec)
                 if rec["spill_bytes"]:
@@ -574,6 +663,47 @@ def kernel_flash_bwd_resources() -> dict:
                 if d == 128:
                     main[name, out] = rec
     return main
+
+
+def kernel_flash_dq(randn, dev, train_shape, block) -> None:
+    """K3 on bf16 inputs at the train step's causal shape (bf16 dQ) and at
+    the ring's block (f32 dQ, causal and full): against its plain version,
+    twice on the same inputs with equal bits (no atomics, a fixed order),
+    and batch row 0 alone with the bits it has in the batch."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.ops.flash_attention import (
+        flash_attention_fwd,
+        flash_dq,
+        flash_dq_ref,
+    )
+    from nvidia_terraform_modules_tpu_torch.utils.timing import sync
+
+    cases = [((*train_shape, 16, 128), True, torch.bfloat16),
+             (block, True, torch.float32), (block, False, torch.float32)]
+    for shape, causal, out_dtype in cases:
+        q, k, v, do = (randn(shape, torch.bfloat16) for _ in range(4))
+        o, lse = flash_attention_fwd(q, k, v, causal=causal)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        del o
+        args = (q, k, v, do, lse, delta)
+        kw = dict(scale=shape[3] ** -0.5, causal=causal, out_dtype=out_dtype)
+        got = flash_dq(*args, **kw)
+        again = flash_dq(*args, **kw)
+        alone = flash_dq(*(t[:1].contiguous() for t in args), **kw)
+        ref = flash_dq_ref(*args, **kw)
+        sync()
+        err = grad_errors((got,), (ref,), "bf16",
+                          f"flash_dq {list(shape)} causal={causal}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"flash_dq {list(shape)}: two calls differ")
+        if not torch.equal(alone, got[:1]):
+            raise AssertionError(f"flash_dq {list(shape)}: row 0 alone "
+                                 f"differs from row 0 in the batch")
+        emit("kernel_flash_dq_check", shape=list(shape), causal=causal,
+             out_dtype=str(out_dtype), max_abs_err=err[0], rel_l2_err=err[1],
+             deterministic=True, row_alone_equal=True)
+        del args, got, again, alone, ref, q, k, v, do, lse, delta
 
 
 def kernel_flash_bwd(randn, dev, train_shape) -> dict:
@@ -1409,8 +1539,9 @@ def flagship_lengths() -> list[int]:
 
 
 def _resources(records: dict, name: str, out) -> dict:
-    """The key-block kernel's registers, spills and CTAs per SM for a K5 or
-    K4 row of the kernels line (none for K3, which keeps its kernel)."""
+    """The registers, spills and CTAs per SM of the bf16 sweep behind a K5,
+    K4 or K3 row of the kernels line (the key-block kernel for K5 and K4,
+    the query-block kernel for K3)."""
     rec = records.get((name, out))
     if rec is None:
         return {}
@@ -1444,6 +1575,7 @@ def main() -> int:
     )
     from nvidia_terraform_modules_tpu_torch.ops import _build
     from nvidia_terraform_modules_tpu_torch.ops.decode_attention import (
+        decode_spans,
         gather_logical,
         kv_decode_attention,
         paged_decode_attention,
@@ -1648,7 +1780,10 @@ def main() -> int:
                    table_width=nt, pos=pos.tolist(), dtype=str(dtype),
                    int8=quant, main_path=on_path, max_abs_err=err, ms=ms,
                    plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, ctas=b * kv)
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   ctas=b * kv * decode_spans(nt * bs),
+                   live_ctas=kv * sum(decode_spans(p + 1)
+                                      for p in pos.tolist()))
         if quant:
             rec["vs_kv_decode_on_gathered_view"] = vs_k6
         emit("kernel_paged_decode", **rec)
@@ -1658,6 +1793,7 @@ def main() -> int:
             k7_rec = rec
 
     k6_main = kernel_kv_decode(randn, dev)
+    kernel_decode_spans(randn, dev)
     k8_main = kernel_int8_matmul(randn, dev)
 
     # ------------------------------------------------------- serve_exact
@@ -1877,6 +2013,8 @@ def main() -> int:
     # weights are the same seeded flagship draw.
     bwd_res = kernel_flash_bwd_resources()
     bwd = kernel_flash_bwd(randn, dev, train_shape)
+    kernel_flash_dq(randn, dev, train_shape,
+                    (train_shape[0], train_shape[1] // RING_SP, 16, 128))
     train_exact(dev)
     rec, train_launches = train_flagship(params, dev)
     emit("train_flagship", **rec)

@@ -18,16 +18,16 @@
 // [B, H, S] f32. The gradients are written in the inputs' dtype or, for
 // ring attention's per-block calls (`out_dtype=jnp.float32` in the
 // reference's ring backward), in f32: the output type TO is a template
-// parameter, so dq_finalize writes ws·scale as f32 and dK/dV leave their
-// f32 accumulators uncast.
+// parameter, so dq_finalize writes ws·scale as f32 and the sweeps leave
+// their f32 accumulators uncast.
 //
 // What bounds them on the H100: per (batch, head) the fused pass does five
 // 64x64xD tile products per live tile (2.5x the forward's FLOPs), the split
 // pair seven (3 in flash_dq, 4 in flash_dkv); at the train step's
 // [2, 4096, 16, 128] that is 344 / 206 / 275 GFLOP against a few tens of MB
 // of Q, K, V, dO, dQ, dK, dV — compute-bound against the 989 TFLOP/s bf16
-// tensor-core peak. Per warp and tile the bf16 sweep below also reads its
-// mma operands out of shared memory (ldmatrix), about as many bytes per
+// tensor-core peak. Per warp and tile the bf16 sweeps below also read their
+// mma B operands out of shared memory (ldmatrix), about as many bytes per
 // FLOP as the forward's, and K5 adds 64 x d f32 atomics per live tile.
 //
 // The bf16 key-block sweep (`flash_bwd_kv_mma`: K5, and K4 without the dQ;
@@ -76,24 +76,52 @@
 //   multiple of 16) is zero-padded to the next one in shared memory — zero
 //   columns add nothing to S^T, dP^T or dQ and are never stored.
 //
-// The f32 instances of K5/K4 (CUDA cores: the exactness path of the train
-// and ring checks) and flash_dq (K3, both types) keep the first port's
-// kernels:
-// - one CTA of 8 warps per (b·h, 64-row block): flash_dq loops over the
-//   live k blocks with Q/dO/LSE/delta staged once; the f32 key-block kernel
-//   keeps K/V resident and loops over the live q blocks; dead tiles
-//   (block_liveness's DEAD class) are never loaded;
+// The bf16 query-block sweep (`flash_dq_mma`: K3; bf16 or f32 dQ), the
+// same sweep from the queries' side, laid out as the forward's
+// `flash_fwd_mma`:
+// - one CTA of 4 warps per (b·h, 64-query block); each warp owns 16
+//   queries for the whole sweep. The TPU's sequential k grid is a loop
+//   inside the CTA over the live 64-key tiles;
+// - S = Q K^T and dP = dO V^T run on mma.sync m16n8k16 with f32
+//   accumulators in registers; Q and dO are the A operands, re-read by
+//   ldmatrix from the resident Q/dO tiles every key tile, K and V the B
+//   operands by ldmatrix from the staged tile. At d = 128 dQ takes 64
+//   registers a thread and S and dP over the tile's 64 keys 64 more:
+//   holding Q and dO as well (64) spilled, even with S and dP formed 32
+//   keys at a time, and so did a fully unrolled head-dim loop; unrolled by
+//   2 it sits at 249 registers with nothing spilled (PERF.md). P =
+//   exp(S·scale - LSE) (base 2, the scale folded into one fma) and
+//   dS = P (dP - delta) are formed on those registers from the
+//   thread's own two rows of LSE and delta, loaded once; dS is packed into
+//   bf16 A fragments (q's dtype, as the reference rounds it) for
+//   dQ += dS K, whose B operand is K by ldmatrix.trans — laid out as V in
+//   the forward's O += P V. dQ (16 x d f32 a warp) stays in registers and
+//   is written once, dQ · scale, in TO. No atomics: each warp sums its key
+//   tiles in a fixed order, so K3 is bitwise deterministic;
+// - K and V go through two shared-memory stages filled by cp.async (tile
+//   t + 1 in flight while tile t's products run, one __syncthreads a tile);
+//   Q and dO stay resident. Rows are padded by 16 bytes (no ldmatrix bank
+//   conflicts). At d = 128 that is 102 KB: two CTAs per SM;
+// - heaviest first: (b, h) fastest and, under a causal or window mask, the
+//   q blocks from the last (which sees the most keys) down;
+// - each warp classifies every key tile against its own 16 queries: dead
+//   (skipped), fully visible (no mask arithmetic), or masked (diagonal,
+//   window edge, ragged tail); head dims as above.
+//
+// The f32 instances (CUDA cores; the exactness path of the train and ring
+// checks) keep the first port's kernels:
+// - one CTA of 8 warps per (b·h, 64-row block): flash_dq_kernel loops over
+//   the live k blocks with Q/dO/LSE/delta staged once; the key-block kernel
+//   keeps K/V resident and loops over the live q blocks; dead tiles are
+//   never loaded;
 // - the tiles are computed transposed where that keeps row ownership (S^T
 //   = K Q^T in the key-block kernel); the accumulators ([64, d] f32) live
-//   in shared memory; each 16-row band of a product is split between two
-//   warps by columns;
-// - bf16 products (flash_dq) run on wmma 16x16x16 out of shared memory,
-//   f32 ones on the CUDA cores; f32 keeps 64-row tiles by writing P and dS
-//   over S and dP in place (224.5 KB of shared memory at d = 128);
-// - the f32 fused dQ adds each tile's dS K with atomicAdd into the
-//   workspace, as above;
+//   in shared memory, P and dS overwrite S and dP in place (224.5 KB at
+//   d = 128); each 16-row band of a product is split between two warps by
+//   columns;
+// - the fused dQ adds each tile's dS K with atomicAdd into the workspace;
 // - a ragged S tail is zero-filled and masked; its rows are never written.
-// Not done here: wgmma and TMA; flash_dq's redesign on the sweep above.
+// Not done here: wgmma and TMA.
 
 #include "flash_tiles.cuh"
 #include "mma_tiles.cuh"
@@ -120,11 +148,9 @@ __device__ __forceinline__ Share share_of(int warp, int d) {
 // The f32 kernel's fused dQ: dQ[16 q of the band, c0..c1) = dS[band, 64 k]
 // · K[64 k, c0..c1), added into the f32 workspace `ws` (row stride `ss`)
 // with atomics; each lane forms its own elements from the dS^T tile.
-__device__ void dq_atomic(const float* dst, const float* ks, float* /*scr*/,
-                          float* ws, long long ss, int q0, int seq, int d,
+__device__ void dq_atomic(const float* dst, const float* ks, float* ws,
+                          long long ss, int q0, int seq, int d,
                           const Share& w, int lane) {
-  const int ldt = ld_tile<float>(d);
-  constexpr int ldp = ld_prob<float>();
   for (int rr = 0; rr < 16; ++rr) {
     const int r = w.band * 16 + rr;
     const int qp = q0 + r;
@@ -133,7 +159,7 @@ __device__ void dq_atomic(const float* dst, const float* ks, float* /*scr*/,
     for (int c = w.c0 + lane; c < w.c1; c += 32) {
       float acc = 0.f;
       for (int j = 0; j < kBK; ++j)
-        acc = fmaf(dst[j * ldp + r], ks[j * ldt + c], acc);
+        acc = fmaf(dst[j * kBQ + r], ks[j * d + c], acc);
       atomicAdd(row + c, acc);
     }
   }
@@ -168,34 +194,27 @@ __device__ void load_rows(float* lse_s, float* delta_s, const float* lse,
 }
 
 // The f32 instances of flash_dkv (kFused = false) and flash_bwd_fused
-// (kFused = true): one CTA per (64-row k block, b·h).
-template <typename T, typename TO, bool kFused>
+// (kFused = true): one CTA per (64-row k block, b·h). Tiles are unpadded;
+// P^T and dS^T overwrite S^T and dP^T in place.
+template <bool kFused>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ ws,
-                    TO* __restrict__ dk, TO* __restrict__ dv, int seq,
+                    float* __restrict__ dk, float* __restrict__ dv, int seq,
                     int heads, int d, float scale, int mask, int window) {
-  constexpr bool kInPlace = sizeof(T) == sizeof(float);
-  const int ldt = ld_tile<T>(d), lda = ld_acc<T>(d);
-  constexpr int lds = ld_score<T>(), ldp = ld_prob<T>();
-  static_assert(!kInPlace || lds == ldp, "P/dS overwrite S/dP in place");
   extern __shared__ __align__(128) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + kBK * ldt;
-  T* qs = vs + kBK * ldt;
-  T* dos = qs + kBQ * ldt;
-  float* st = reinterpret_cast<float*>(dos + kBQ * ldt);   // S^T  [k, q]
-  float* dpt = st + kBK * lds;                             // dP^T [k, q]
-  // P^T and dS^T in T: over S^T / dP^T for f32, beside them for bf16
-  T* pt = kInPlace ? reinterpret_cast<T*>(st)
-                   : reinterpret_cast<T*>(dpt + kBK * lds);
-  T* dst = kInPlace ? reinterpret_cast<T*>(dpt) : pt + kBK * ldp;
-  float* dk_acc = kInPlace ? dpt + kBK * lds
-                           : reinterpret_cast<float*>(dst + kBK * ldp);
-  float* dv_acc = dk_acc + kBK * lda;
-  float* lse_s = dv_acc + kBK * lda;
+  float* ks = reinterpret_cast<float*>(smem);
+  float* vs = ks + kBK * d;
+  float* qs = vs + kBK * d;
+  float* dos = qs + kBQ * d;
+  float* st = dos + kBQ * d;          // S^T [k, q], then P^T
+  float* dpt = st + kBK * kBQ;        // dP^T [k, q], then dS^T
+  float* dk_acc = dpt + kBK * kBQ;
+  float* dv_acc = dk_acc + kBK * d;
+  float* lse_s = dv_acc + kBK * d;
   float* delta_s = lse_s + kBQ;
 
   const int lane = threadIdx.x % 32;
@@ -207,12 +226,12 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long base = static_cast<long long>(b) * seq * ss + h * d;
   const long long row0 = static_cast<long long>(bh) * seq;  // LSE/delta row
 
-  for (int i = threadIdx.x; i < kBK * lda; i += kThreads) {
+  for (int i = threadIdx.x; i < kBK * d; i += kThreads) {
     dk_acc[i] = 0.f;
     dv_acc[i] = 0.f;
   }
-  load_tile<kThreads>(ks, k + base, ss, k0, seq, d, ldt);
-  load_tile<kThreads>(vs, v + base, ss, k0, seq, d, ldt);
+  load_tile<kThreads>(ks, k + base, ss, k0, seq, d, d);
+  load_tile<kThreads>(vs, v + base, ss, k0, seq, d, d);
 
   // queries that see any key of this block: [q_lo, q_hi)
   const int k_last = min(k0 + kBK, seq) - 1;
@@ -222,68 +241,59 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int qt = q_lo / kBQ; qt * kBQ < q_hi; ++qt) {
     const int q0 = qt * kBQ;
     __syncthreads();   // the previous tile's readers are done
-    load_tile<kThreads>(qs, q + base, ss, q0, seq, d, ldt);
-    load_tile<kThreads>(dos, dout + base, ss, q0, seq, d, ldt);
+    load_tile<kThreads>(qs, q + base, ss, q0, seq, d, d);
+    load_tile<kThreads>(dos, dout + base, ss, q0, seq, d, d);
     load_rows(lse_s, delta_s, lse, delta, row0, q0, seq);
     __syncthreads();
     // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 32 queries
-    tile_scores<2>(ks, qs, st, d, ldt, lds, w.band, w.nb0, lane);
-    tile_scores<2>(vs, dos, dpt, d, ldt, lds, w.band, w.nb0, lane);
+    tile_scores<2>(ks, qs, st, d, d, kBQ, w.band, w.nb0, lane);
+    tile_scores<2>(vs, dos, dpt, d, d, kBQ, w.band, w.nb0, lane);
     __syncwarp();
     // P and dS on the same elements; lane owns one query of each key row
     for (int rr = 0; rr < 16; ++rr) {
       const int r = w.band * 16 + rr;
       const int c = w.nb0 * 16 + lane;
       float p, ds;
-      p_ds(st[r * lds + c], dpt[r * lds + c],
+      p_ds(st[r * kBQ + c], dpt[r * kBQ + c],
            live(q0 + c, k0 + r, seq, mask, window), scale, lse_s[c],
            delta_s[c], p, ds);
-      pt[r * ldp + c] = from_f32<T>(p);
-      dst[r * ldp + c] = from_f32<T>(ds);
+      st[r * kBQ + c] = p;
+      dpt[r * kBQ + c] = ds;
     }
     __syncthreads();   // both halves of every P^T / dS^T row are in place
-    tile_pv(pt, dos, dv_acc, ldp, ldt, lda, w.band, w.c0, w.c1, lane);  // dV += P^T dO
-    tile_pv(dst, qs, dk_acc, ldp, ldt, lda, w.band, w.c0, w.c1, lane);  // dK += dS^T Q
-    if (kFused) {
-      // S^T / dP^T are dead since the barrier (bf16 keeps P, dS apart), so
-      // their 2·64·68 floats hold the [64, d + 4] dQ product
-      dq_atomic(dst, ks, st, ws + base, ss, q0, seq, d, w, lane);
-    }
+    // dV += P^T dO and dK += dS^T Q
+    tile_pv(st, dos, dv_acc, kBQ, d, d, w.band, w.c0, w.c1, lane);
+    tile_pv(dpt, qs, dk_acc, kBQ, d, d, w.band, w.c0, w.c1, lane);
+    if (kFused) dq_atomic(dpt, ks, ws + base, ss, q0, seq, d, w, lane);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < kBK * d; i += kThreads) {
     const int r = i / d, c = i - r * d;
     const int kp = k0 + r;
     if (kp >= seq) break;
-    dk[base + kp * ss + c] = from_f32<TO>(dk_acc[r * lda + c] * scale);
-    dv[base + kp * ss + c] = from_f32<TO>(dv_acc[r * lda + c]);
+    dk[base + kp * ss + c] = dk_acc[r * d + c] * scale;
+    dv[base + kp * ss + c] = dv_acc[r * d + c];
   }
 }
 
-// flash_dq: one CTA per (64-row q block, b·h).
-template <typename T, typename TO>
+// The f32 instance of flash_dq: one CTA per (64-row q block, b·h); dS
+// overwrites S in place.
 __global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                TO* __restrict__ dq, int seq, int heads, int d, float scale,
-                int mask, int window) {
-  constexpr bool kInPlace = sizeof(T) == sizeof(float);
-  const int ldt = ld_tile<T>(d), lda = ld_acc<T>(d);
-  constexpr int lds = ld_score<T>(), ldp = ld_prob<T>();
-  static_assert(!kInPlace || lds == ldp, "dS overwrites S in place");
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, float* __restrict__ dq,
+                int seq, int heads, int d, float scale, int mask,
+                int window) {
   extern __shared__ __align__(128) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem);
-  T* dos = qs + kBQ * ldt;
-  T* ks = dos + kBQ * ldt;
-  T* vs = ks + kBK * ldt;
-  float* ss_ = reinterpret_cast<float*>(vs + kBK * ldt);   // S  [q, k]
-  float* dps = ss_ + kBQ * lds;                             // dP [q, k]
-  T* dss = kInPlace ? reinterpret_cast<T*>(ss_)
-                    : reinterpret_cast<T*>(dps + kBQ * lds);
-  float* dq_acc = kInPlace ? dps + kBQ * lds
-                           : reinterpret_cast<float*>(dss + kBQ * ldp);
-  float* lse_s = dq_acc + kBQ * lda;
+  float* qs = reinterpret_cast<float*>(smem);
+  float* dos = qs + kBQ * d;
+  float* ks = dos + kBQ * d;
+  float* vs = ks + kBK * d;
+  float* ss_ = vs + kBK * d;            // S [q, k], then dS
+  float* dps = ss_ + kBQ * kBK;         // dP [q, k]
+  float* dq_acc = dps + kBQ * kBK;
+  float* lse_s = dq_acc + kBQ * d;
   float* delta_s = lse_s + kBQ;
 
   const int lane = threadIdx.x % 32;
@@ -295,9 +305,9 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long base = static_cast<long long>(b) * seq * ss + h * d;
   const long long row0 = static_cast<long long>(bh) * seq;
 
-  for (int i = threadIdx.x; i < kBQ * lda; i += kThreads) dq_acc[i] = 0.f;
-  load_tile<kThreads>(qs, q + base, ss, q0, seq, d, ldt);
-  load_tile<kThreads>(dos, dout + base, ss, q0, seq, d, ldt);
+  for (int i = threadIdx.x; i < kBQ * d; i += kThreads) dq_acc[i] = 0.f;
+  load_tile<kThreads>(qs, q + base, ss, q0, seq, d, d);
+  load_tile<kThreads>(dos, dout + base, ss, q0, seq, d, d);
   load_rows(lse_s, delta_s, lse, delta, row0, q0, seq);
 
   // keys any row of this block can see: [k_lo, k_hi)
@@ -308,31 +318,32 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = k_lo / kBK; kt * kBK < k_hi; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();   // the previous tile's readers are done
-    load_tile<kThreads>(ks, k + base, ss, k0, seq, d, ldt);
-    load_tile<kThreads>(vs, v + base, ss, k0, seq, d, ldt);
+    load_tile<kThreads>(ks, k + base, ss, k0, seq, d, d);
+    load_tile<kThreads>(vs, v + base, ss, k0, seq, d, d);
     __syncthreads();
     // S = Q K^T and dP = dO V^T: this warp's 16 queries x 32 keys
-    tile_scores<2>(qs, ks, ss_, d, ldt, lds, w.band, w.nb0, lane);
-    tile_scores<2>(dos, vs, dps, d, ldt, lds, w.band, w.nb0, lane);
+    tile_scores<2>(qs, ks, ss_, d, d, kBK, w.band, w.nb0, lane);
+    tile_scores<2>(dos, vs, dps, d, d, kBK, w.band, w.nb0, lane);
     __syncwarp();
     for (int rr = 0; rr < 16; ++rr) {
       const int r = w.band * 16 + rr;
       const int c = w.nb0 * 16 + lane;
       float p, ds;
-      p_ds(ss_[r * lds + c], dps[r * lds + c],
+      p_ds(ss_[r * kBK + c], dps[r * kBK + c],
            live(q0 + r, k0 + c, seq, mask, window), scale, lse_s[r],
            delta_s[r], p, ds);
-      dss[r * ldp + c] = from_f32<T>(ds);
+      ss_[r * kBK + c] = ds;
     }
     __syncthreads();   // both halves of every dS row are in place
-    tile_pv(dss, ks, dq_acc, ldp, ldt, lda, w.band, w.c0, w.c1, lane);  // dQ += dS K
+    // dQ += dS K
+    tile_pv(ss_, ks, dq_acc, kBK, d, d, w.band, w.c0, w.c1, lane);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < kBQ * d; i += kThreads) {
     const int r = i / d, c = i - r * d;
     const int qp = q0 + r;
     if (qp >= seq) break;
-    dq[base + qp * ss + c] = from_f32<TO>(dq_acc[r * lda + c] * scale);
+    dq[base + qp * ss + c] = dq_acc[r * d + c] * scale;
   }
 }
 
@@ -353,8 +364,8 @@ constexpr int kQS = 32;
 struct BwdArgs {
   const bf16 *q, *k, *v, *dout;
   const float *lse, *delta;
-  float* ws;          // the fused dQ's f32 workspace (kFused only)
-  void *dk, *dv;
+  float* ws;          // the fused dQ's f32 workspace (K5 only)
+  void *dq, *dk, *dv;   // K3 writes dq, K5 and K4 dk and dv
   int batch, seq, heads, d, mask, window;
   float scale, scale_log2;   // scale, and scale · log2(e)
 };
@@ -670,6 +681,188 @@ flash_bwd_kv_mma(BwdArgs a) {
   }
 }
 
+// ----------------------------------------------- bf16 query-block sweep
+
+// dynamic shared memory of K3: Q and dO resident, two stages of K and V
+template <int kD>
+constexpr size_t dq_mma_smem() {
+  return 6 * static_cast<size_t>(kBQ) * (kD + 8) * sizeof(bf16);
+}
+
+// The bf16 query-block sweep (K3). kD: the padded head dim (64 or 128); TO:
+// dQ's type. Writes dQ · scale into a.dq.
+template <int kD, typename TO>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+flash_dq_mma(BwdArgs a) {
+  constexpr int kLd = kD + 8;          // padded row: 16 bytes past kD
+  constexpr int kTile = kBQ * kLd;     // one [64, kD] tile
+  constexpr int kKS = kD / 16;         // k-steps over the head dim
+  constexpr int kNT = kBK / 8;         // 8-key n-tiles of S and dP
+  constexpr int kOT = kD / 8;          // 8-column n-tiles of dQ
+  static_assert(kBQ == kBK, "Q/dO and K/V tiles share one shape");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dos = qs + kTile;
+  bf16* ring = dos + kTile;            // two stages of [K; V]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // heaviest first: (b, h) fastest; causal and window blocks from the last
+  const int bhn = a.batch * a.heads;
+  const int nq = (a.seq + kBQ - 1) / kBQ;
+  const int bh = blockIdx.x % bhn;
+  int qb = blockIdx.x / bhn;
+  if (a.mask != kFull) qb = nq - 1 - qb;
+  const int b = bh / a.heads, h = bh - b * a.heads;
+  const long long ss = static_cast<long long>(a.heads) * a.d;
+  const long long base = static_cast<long long>(b) * a.seq * ss +
+                         static_cast<long long>(h) * a.d;
+  const long long row0 = static_cast<long long>(bh) * a.seq;
+  const int q0 = qb * kBQ;
+  const int r0 = q0 + 16 * warp;       // this warp's queries [r0, r0 + 16)
+  const int r1 = r0 + 15;
+
+  // keys any row of this block can see: tiles [t_lo, t_hi)
+  const int q_last = min(q0 + kBQ, a.seq) - 1;
+  const int k_hi = a.mask == kFull ? a.seq : q_last + 1;
+  const int k_lo = a.mask == kWindow ? max(0, q0 - (a.window - 1)) : 0;
+  const int t_lo = k_lo / kBK, t_hi = (k_hi + kBK - 1) / kBK;
+
+  auto load_kv = [&](int kt, int stage) {
+    bf16* st = ring + stage * 2 * kTile;
+    cp_tile<kBK, kD, kMmaThreads>(st, a.k + base, ss, kt * kBK, a.seq, a.d);
+    cp_tile<kBK, kD, kMmaThreads>(st + kTile, a.v + base, ss, kt * kBK,
+                                  a.seq, a.d);
+  };
+  // prologue: Q, dO and the first K/V tile in one group
+  cp_tile<kBQ, kD, kMmaThreads>(qs, a.q + base, ss, q0, a.seq, a.d);
+  cp_tile<kBQ, kD, kMmaThreads>(dos, a.dout + base, ss, q0, a.seq, a.d);
+  load_kv(t_lo, 0);
+  cp_async_commit();
+
+  // this thread's rows r0 + g and r0 + g + 8: LSE (base 2) and delta
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = r0 + g + 8 * i;
+    const bool ok = qp < a.seq;
+    lse2[i] = ok ? a.lse[row0 + qp] * kLog2e : 0.f;
+    dl[i] = ok ? a.delta[row0 + qp] : 0.f;
+  }
+  float dq[kOT][4];
+#pragma unroll
+  for (int j = 0; j < kOT; ++j)
+    dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+  // per-lane ldmatrix offsets, as flash_fwd_mma's: (a_row, a_col) the A
+  // fragment of a row-major tile, and with .trans two n-tiles' B fragments
+  // of a tile stored one k per row (K for dS K); (b_row, b_col) two
+  // n-tiles' B fragments of a tile stored one n per row (K and V for S, dP)
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_col = (lane >> 4) * 8;
+  const int b_row = (lane >> 4) * 8 + (lane & 7);
+  const int b_col = ((lane >> 3) & 1) * 8;
+  const int a_base = (16 * warp + a_row) * kLd + a_col;
+
+  for (int kt = t_lo; kt < t_hi; ++kt) {
+    const int stage = (kt - t_lo) & 1;
+    cp_async_wait<0>();   // tile kt is here (this thread's copies)
+    __syncthreads();      // ... everyone's; tile kt - 1 is read out
+    if (kt + 1 < t_hi) load_kv(kt + 1, stage ^ 1);
+    cp_async_commit();
+    const bf16* ks = ring + stage * 2 * kTile;
+    const bf16* vs = ks + kTile;
+    // this warp's queries against the tile's keys [k0, k1]: dead (skip),
+    // fully visible, or masked
+    const int k0 = kt * kBK, k1 = k0 + kBK - 1;
+    const bool dead = r0 >= a.seq || (a.mask != kFull && k0 > r1) ||
+                      (a.mask == kWindow && r0 - k1 >= a.window);
+    if (dead) continue;
+    const bool visible =
+        k1 < a.seq && r1 < a.seq &&
+        (a.mask == kFull ||
+         (k1 <= r0 && (a.mask != kWindow || r1 - k0 < a.window)));
+    // S = Q K^T and dP = dO V^T: 16 queries x 64 keys each. Q and dO come
+    // back by ldmatrix every k-step; the k-step loop is unrolled by 2 (a
+    // full unroll reaches 255 registers and spills at d = 128)
+    float s[kNT][4], dp[kNT][4];
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+    }
+#pragma unroll 2
+    for (int kk = 0; kk < kKS; ++kk) {
+      uint32_t qa[4], da[4];
+      ldsm_x4(qa, smem_addr(qs + a_base + 16 * kk));
+      ldsm_x4(da, smem_addr(dos + a_base + 16 * kk));
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        uint32_t bk[4], bv[4];
+        const int boff = (16 * np + b_row) * kLd + 16 * kk + b_col;
+        ldsm_x4(bk, smem_addr(ks + boff));
+        ldsm_x4(bv, smem_addr(vs + boff));
+        mma_bf16(s[2 * np], qa, bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
+        mma_bf16(dp[2 * np], da, bv[0], bv[1]);
+        mma_bf16(dp[2 * np + 1], da, bv[2], bv[3]);
+      }
+    }
+    // P = exp(S scale - LSE) and dS = P (dP - delta) on the registers:
+    // thread (g, t) holds queries r0 + g and r0 + g + 8, keys
+    // k0 + 8 j + 2 t + {0, 1} of n-tile j; masked elements get P = 0
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[j][e], a.scale_log2, -lse2[e >> 1]));
+        if (!visible) {
+          const int qp = r0 + g + 8 * (e >> 1);
+          const int kp = k0 + 8 * j + 2 * t + (e & 1);
+          bool keep = qp < a.seq && kp < a.seq;
+          if (a.mask != kFull) keep = keep && kp <= qp;
+          if (a.mask == kWindow) keep = keep && qp - kp < a.window;
+          p = keep ? p : 0.f;
+        }
+        dp[j][e] = p * (dp[j][e] - dl[e >> 1]);
+      }
+    }
+    // dQ += dS K, 16 keys a k-step: dS is packed from the accumulators into
+    // bf16 A fragments, K comes by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint32_t pa[4] = {
+          pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
+          pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
+          pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+          pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+      for (int np = 0; np < kOT / 2; ++np) {
+        uint32_t bk[4];
+        ldsm_x4_trans(bk, smem_addr(ks + (16 * kk + a_row) * kLd + 16 * np +
+                                    a_col));
+        mma_bf16(dq[2 * np], pa, bk[0], bk[1]);
+        mma_bf16(dq[2 * np + 1], pa, bk[2], bk[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();   // the last (empty) group
+
+  // dQ · scale in TO, straight from the accumulators
+  TO* out = static_cast<TO*>(a.dq) + base;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = r0 + g + 8 * i;
+    if (qp >= a.seq) continue;
+#pragma unroll
+    for (int j = 0; j < kOT; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (col < a.d)
+        store2(out + qp * ss + col, dq[j][2 * i] * a.scale,
+               dq[j][2 * i + 1] * a.scale);
+    }
+  }
+}
+
 template <typename TO>
 __global__ void dq_finalize_kernel(const float* __restrict__ ws,
                                    TO* __restrict__ dq, long long n,
@@ -689,92 +882,86 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int kD, typename TO, bool kFused>
-cudaError_t kv_mma_attrs() {
-  auto kernel = flash_bwd_kv_mma<kD, TO, kFused>;
+BwdArgs mma_args(const Args& a, float* ws, void* dq, void* dk, void* dv) {
+  return BwdArgs{static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+                 static_cast<const bf16*>(a.v),
+                 static_cast<const bf16*>(a.dout), a.lse, a.delta, ws, dq,
+                 dk, dv, a.batch, a.seq, a.heads, a.d, a.mask, a.window,
+                 a.scale, a.scale * kLog2e};
+}
+
+// The dynamic shared memory and the SM's carveout one bf16 sweep kernel
+// needs: all of the SM's 228 KB as shared memory, since two CTAs of K5
+// need 2 x 113 KB
+template <typename Kernel>
+cudaError_t mma_attrs(Kernel kernel, size_t smem) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kv_mma_smem<kD, kFused>()));
+      static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  // all of the SM's 228 KB as shared memory: two CTAs of K5 need 2 x 113 KB
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
 }
 
-template <int kD, typename TO, bool kFused>
-int launch_kv_mma_at(const BwdArgs& a, cudaStream_t stream) {
-  cudaError_t e = kv_mma_attrs<kD, TO, kFused>();
+// One bf16 sweep kernel over `blocks_per_bh` 64-row blocks of each (b, h).
+template <typename Kernel>
+int launch_mma(Kernel kernel, size_t smem, const BwdArgs& a,
+               cudaStream_t stream) {
+  cudaError_t e = mma_attrs(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long blocks = static_cast<long long>(a.batch) * a.heads *
                            ((a.seq + kBK - 1) / kBK);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr size_t smem = kv_mma_smem<kD, kFused>();
-  flash_bwd_kv_mma<kD, TO, kFused>
-      <<<static_cast<unsigned>(blocks), kMmaThreads, smem, stream>>>(a);
+  kernel<<<static_cast<unsigned>(blocks), kMmaThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TO, bool kFused>
-int launch_kv_mma(const Args& a, float* ws, void* dk, void* dv) {
-  const BwdArgs b{static_cast<const bf16*>(a.q),
-                  static_cast<const bf16*>(a.k),
-                  static_cast<const bf16*>(a.v),
-                  static_cast<const bf16*>(a.dout),
-                  a.lse, a.delta, ws, dk, dv, a.batch, a.seq, a.heads, a.d,
-                  a.mask, a.window, a.scale, a.scale * kLog2e};
-  return a.d <= 64 ? launch_kv_mma_at<64, TO, kFused>(b, a.stream)
-                   : launch_kv_mma_at<128, TO, kFused>(b, a.stream);
-}
-
 // registers a thread, local (spill) bytes a thread, dynamic shared memory
-// and resident CTAs per SM of one instance of the bf16 key-block sweep
-template <int kD, typename TO, bool kFused>
-int kv_mma_info(int* out) {
-  cudaError_t e = kv_mma_attrs<kD, TO, kFused>();
+// and resident CTAs per SM of one bf16 sweep kernel
+template <typename Kernel>
+int mma_info(Kernel kernel, size_t smem, int* out) {
+  cudaError_t e = mma_attrs(kernel, smem);
   cudaFuncAttributes fa;
-  if (e == cudaSuccess)
-    e = cudaFuncGetAttributes(&fa, flash_bwd_kv_mma<kD, TO, kFused>);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
   int ctas = 0;
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &ctas, flash_bwd_kv_mma<kD, TO, kFused>, kMmaThreads,
-        kv_mma_smem<kD, kFused>());
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel,
+                                                      kMmaThreads, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   out[0] = fa.numRegs;
   out[1] = static_cast<int>(fa.localSizeBytes);
-  out[2] = static_cast<int>(kv_mma_smem<kD, kFused>());
+  out[2] = static_cast<int>(smem);
   out[3] = ctas;
   return 0;
-}
-
-template <typename T>
-size_t kv_smem(int d) {
-  constexpr size_t elt = sizeof(T);
-  return 4 * static_cast<size_t>(kBK) * ld_tile<T>(d) * elt  // K, V, Q, dO
-         + 2 * static_cast<size_t>(kBK) * ld_score<T>() * 4  // S^T, dP^T
-         + (elt == 4 ? 0 : 2 * static_cast<size_t>(kBK) * ld_prob<T>() * elt)
-         + 2 * static_cast<size_t>(kBK) * ld_acc<T>(d) * 4   // dK, dV acc
-         + 2 * kBQ * 4;                                      // LSE, delta
 }
 
 // The key-block kernels: the bf16 sweep, or the f32 CUDA-core kernel.
 template <typename T, typename TO, bool kFused>
 int launch_kv(const Args& a, float* ws, void* dk, void* dv) {
   if constexpr (sizeof(T) == 2) {
-    return launch_kv_mma<TO, kFused>(a, ws, dk, dv);
+    const BwdArgs b = mma_args(a, ws, nullptr, dk, dv);
+    return a.d <= 64
+               ? launch_mma(flash_bwd_kv_mma<64, TO, kFused>,
+                            kv_mma_smem<64, kFused>(), b, a.stream)
+               : launch_mma(flash_bwd_kv_mma<128, TO, kFused>,
+                            kv_mma_smem<128, kFused>(), b, a.stream);
   } else {
-    const size_t smem = kv_smem<T>(a.d);
+    const size_t smem =
+        (6 * static_cast<size_t>(kBK) * a.d           // K, V, Q, dO, dK, dV
+         + 2 * static_cast<size_t>(kBK) * kBQ         // S^T, dP^T
+         + 2 * kBQ) * sizeof(float);                  // LSE, delta
     cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_kv_kernel<T, TO, kFused>,
+        flash_bwd_kv_kernel<kFused>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     const dim3 grid((a.seq + kBK - 1) / kBK, a.batch * a.heads);
-    flash_bwd_kv_kernel<T, TO, kFused><<<grid, kThreads, smem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-        static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-        a.delta, ws, static_cast<TO*>(dk), static_cast<TO*>(dv), a.seq,
-        a.heads, a.d, a.scale, a.mask, a.window);
+    flash_bwd_kv_kernel<kFused><<<grid, kThreads, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        a.lse, a.delta, ws, static_cast<float*>(dk),
+        static_cast<float*>(dv), a.seq, a.heads, a.d, a.scale, a.mask,
+        a.window);
     return static_cast<int>(cudaGetLastError());
   }
 }
@@ -793,26 +980,32 @@ int launch_fused(const Args& a, float* ws, void* dq, void* dk, void* dv) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// K3: the bf16 query-block sweep, or the f32 CUDA-core kernel.
 template <typename T, typename TO>
 int launch_dq(const Args& a, void* dq) {
-  constexpr size_t elt = sizeof(T);
-  const size_t smem =
-      4 * static_cast<size_t>(kBQ) * ld_tile<T>(a.d) * elt     // Q, dO, K, V
-      + 2 * static_cast<size_t>(kBQ) * ld_score<T>() * 4       // S, dP
-      + (elt == 4 ? 0 : static_cast<size_t>(kBQ) * ld_prob<T>() * elt)  // dS
-      + static_cast<size_t>(kBQ) * ld_acc<T>(a.d) * 4          // dQ acc
-      + 2 * kBQ * 4;                                           // LSE, delta
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_dq_kernel<T, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((a.seq + kBQ - 1) / kBQ, a.batch * a.heads);
-  flash_dq_kernel<T, TO><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<TO*>(dq), a.seq, a.heads, a.d, a.scale, a.mask,
-      a.window);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (sizeof(T) == 2) {
+    const BwdArgs b = mma_args(a, nullptr, dq, nullptr, nullptr);
+    return a.d <= 64 ? launch_mma(flash_dq_mma<64, TO>, dq_mma_smem<64>(), b,
+                                  a.stream)
+                     : launch_mma(flash_dq_mma<128, TO>, dq_mma_smem<128>(),
+                                  b, a.stream);
+  } else {
+    const size_t smem =
+        (5 * static_cast<size_t>(kBQ) * a.d           // Q, dO, K, V, dQ
+         + 2 * static_cast<size_t>(kBQ) * kBK         // S, dP
+         + 2 * kBQ) * sizeof(float);                  // LSE, delta
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid((a.seq + kBQ - 1) / kBQ, a.batch * a.heads);
+    flash_dq_kernel<<<grid, kThreads, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        a.lse, a.delta, static_cast<float*>(dq), a.seq, a.heads, a.d,
+        a.scale, a.mask, a.window);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 // the inputs' dtype and the gradients': (bf16, bf16), (bf16, f32) or
@@ -850,6 +1043,19 @@ template <typename T, typename TO>
 struct Dq {
   static int run(const Args& a, void* dq) { return launch_dq<T, TO>(a, dq); }
 };
+
+// The resources of one instance of a bf16 sweep: K5 (kKernel 0), K4 (1) or
+// K3 (2), at the padded head dim kD, with outputs of type TO.
+template <int kD, typename TO>
+int info_at(int kernel, int* out) {
+  if (kernel == 0)
+    return mma_info(flash_bwd_kv_mma<kD, TO, true>, kv_mma_smem<kD, true>(),
+                    out);
+  if (kernel == 1)
+    return mma_info(flash_bwd_kv_mma<kD, TO, false>,
+                    kv_mma_smem<kD, false>(), out);
+  return mma_info(flash_dq_mma<kD, TO>, dq_mma_smem<kD>(), out);
+}
 
 }  // namespace
 
@@ -900,26 +1106,21 @@ extern "C" int tk_flash_dq(const void* q, const void* k, const void* v,
   return dispatch<Dq>(dtype, out_dtype, a, dq);
 }
 
-// Resources of the bf16 key-block sweep's instance for head dim d (padded
-// to 64 or 128), fused (K5) or split (K4), with outputs of `out_dtype`:
-// out[0] registers a thread, out[1] local (spill) bytes a thread, out[2]
-// dynamic shared memory, out[3] resident CTAs per SM. Returns a CUDA error
-// code.
-extern "C" int tk_flash_bwd_kv_info(int d, int fused, int out_dtype,
-                                    int* out) {
-  if (d % 16 || d < 16 || d > 128 || (out_dtype != kF32 && out_dtype != kBF16))
+// Resources of one instance of the bf16 sweeps for head dim d (padded to
+// 64 or 128): kernel 0 the key-block sweep fused (K5), 1 the key-block
+// sweep split (K4), 2 the query-block sweep (K3), with outputs of
+// `out_dtype`: out[0] registers a thread, out[1] local (spill) bytes a
+// thread, out[2] dynamic shared memory, out[3] resident CTAs per SM.
+// Returns a CUDA error code.
+extern "C" int tk_flash_bwd_info(int kernel, int d, int out_dtype,
+                                 int* out) {
+  if (d % 16 || d < 16 || d > 128 || kernel < 0 || kernel > 2 ||
+      (out_dtype != kF32 && out_dtype != kBF16))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool f32 = out_dtype == kF32;
-  if (d <= 64) {
-    if (fused)
-      return f32 ? kv_mma_info<64, float, true>(out)
-                 : kv_mma_info<64, bf16, true>(out);
-    return f32 ? kv_mma_info<64, float, false>(out)
-               : kv_mma_info<64, bf16, false>(out);
-  }
-  if (fused)
-    return f32 ? kv_mma_info<128, float, true>(out)
-               : kv_mma_info<128, bf16, true>(out);
-  return f32 ? kv_mma_info<128, float, false>(out)
-             : kv_mma_info<128, bf16, false>(out);
+  if (d <= 64)
+    return f32 ? info_at<64, float>(kernel, out)
+               : info_at<64, bf16>(kernel, out);
+  return f32 ? info_at<128, float>(kernel, out)
+             : info_at<128, bf16>(kernel, out);
 }

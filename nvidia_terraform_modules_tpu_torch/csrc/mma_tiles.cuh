@@ -2,9 +2,10 @@
 // SPDX-License-Identifier: Apache-2.0
 //
 // Register-level helpers shared by the bf16 flash sweeps of flash_fwd.cu
-// (K1, K2) and flash_bwd.cu (K5, K4): cp.async staging into padded
-// shared-memory tiles, ldmatrix fragment loads, and the mma.sync m16n8k16
-// bf16 product with f32 accumulators.
+// (K1, K2) and flash_bwd.cu (K5, K4, K3): cp.async staging into padded
+// shared-memory tiles (the copies themselves are common.cuh's), ldmatrix
+// fragment loads, and the mma.sync m16n8k16 bf16 product with f32
+// accumulators.
 //
 // Fragment layouts of m16n8k16 (lane = 4 g + t): the A operand (16 x 16,
 // row-major) holds rows g and g + 8, columns 2t, 2t + 1 and 2t + 8, 2t + 9;
@@ -22,34 +23,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global → shared, bypassing L1; src_bytes = 0 writes zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0));
-}
-
-// 4 bytes global → shared (for rows whose start need not be 16-byte
-// aligned); src_bytes = 0 writes zeros
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>   // wait until at most kPending groups are in flight
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending));
-}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(

@@ -59,12 +59,13 @@ _SIGNATURES = {
     "tk_flash_partial": [_P] * 6 + [_I] * 6 + [_L] * 9
     + [_F, _I, _I, _I, _P],
     # q, k_pool, v_pool, k_scale, v_scale (None: a bf16/f32 pool), tables,
-    # pos, out, B, H, KV, D, block size, table width, scale, dtype code,
-    # stream
-    "tk_paged_decode": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
-    # q, k, v, k_scale, v_scale (None unless int8), pos, out, B, H, KV, D,
-    # S, scale, dtype code, int8 flag, stream
-    "tk_kv_decode": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P],
+    # pos, out, span partials (f32), span counters (int32), B, H, KV, D,
+    # block size, table width, spans, scale, dtype code, stream
+    "tk_paged_decode": [_P] * 10 + [_I] * 7 + [_F, _I, _P],
+    # q, k, v, k_scale, v_scale (None unless int8), pos, out, span
+    # partials, span counters, B, H, KV, D, S, spans, scale, dtype code,
+    # int8 flag, stream
+    "tk_kv_decode": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P],
     # x, w, scale, f32 partials, out, M, K, N, K slice, transpose, dtype
     # code, stream
     "tk_int8_matmul": [_P] * 5 + [_I] * 6 + [_P],
@@ -77,9 +78,9 @@ _SIGNATURES = {
     # q, k, v, dout, lse, delta, dq, B, S, H, D, scale, mask kind, window,
     # dtype code, output dtype code, stream
     "tk_flash_dq": [_P] * 7 + [_I] * 4 + [_F, _I, _I, _I, _I, _P],
-    # head dim, fused flag, output dtype code, int[4] out (registers,
-    # local bytes, dynamic shared memory, CTAs per SM)
-    "tk_flash_bwd_kv_info": [_I, _I, _I, _P],
+    # kernel (0 K5, 1 K4, 2 K3), head dim, output dtype code, int[4] out
+    # (registers, local bytes, dynamic shared memory, CTAs per SM)
+    "tk_flash_bwd_info": [_I, _I, _I, _P],
 }
 
 

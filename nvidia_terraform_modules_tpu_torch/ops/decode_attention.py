@@ -25,6 +25,16 @@ runs its plain version on a CPU tensor: :func:`kv_decode_attention_ref` /
 by :func:`masked_attention`, the masked softmax the kernels replace. The
 int8 paged kernel counts as ``paged_decode_int8``, apart from the bf16/f32
 ``paged_decode``.
+
+Both kernels split a row's keys into spans of :data:`DECODE_SPAN` keys
+(flash-decoding; the span rule is :func:`decode_spans`): the grid and the
+f32 partials of the spans (:func:`decode_workspace_shape`) follow from the
+buffer's width — the table's ``NT·bs`` or the cache's ``S`` — alone, never
+from ``pos``, so the host reads nothing back. The spans of a row are
+combined in span order inside the launch, by the last of its CTAs, which
+an int32 counter per (row, KV head) elects; the counters live in one
+zeroed buffer per device and stream (:func:`_span_counters`), which the
+kernel leaves at zero.
 """
 
 from __future__ import annotations
@@ -33,6 +43,45 @@ import torch
 
 from . import _build
 from .flash_attention import NEG_INF
+
+
+# Keys one CTA of the decode kernels folds: csrc/decode_tiles.cuh's kSpan
+# (the C entry points refuse a span count of any other split).
+DECODE_SPAN = 64
+
+# int32 span counters by (device index, stream): zero between launches
+_counters: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def decode_spans(rows: int) -> int:
+    """The spans of a buffer of ``rows`` keys (a table's ``NT·bs`` or a
+    cache's ``S``): ``ceil(rows / DECODE_SPAN)`` — the kernels' grid over
+    a row, whatever its position or the batch."""
+    if rows < 1:
+        raise ValueError(f"a decode buffer holds at least one key, got "
+                         f"{rows}")
+    return -(-rows // DECODE_SPAN)
+
+
+def decode_workspace_shape(batch: int, heads: int, kv_heads: int,
+                           head_dim: int, rows: int) -> tuple:
+    """The f32 span partials of one launch: ``[B, KV, spans, (H / KV)·(D
+    + 2)]`` — each span's unnormalised accumulator and its (m, l) per query
+    head of the group."""
+    return (batch, kv_heads, decode_spans(rows),
+            heads // kv_heads * (head_dim + 2))
+
+
+def _span_counters(device, stream, n: int) -> torch.Tensor:
+    """A zeroed int32 buffer of at least ``n`` counters for launches on
+    ``stream``, allocated once and grown when a launch needs more (the
+    kernels reset every counter they use)."""
+    key = (device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros((max(n, 256),), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
 
 
 def masked_attention(q, k_cache, v_cache, q_pos, scale: float,
@@ -159,13 +208,17 @@ def kv_decode_attention(q, k_cache, v_cache, pos, *, scale: float,
     _, h, d = q.shape
     s_total, kv = k_cache.shape[1:3]
     out = torch.empty_like(q)
+    ws = torch.empty(decode_workspace_shape(b, h, kv, d, s_total),
+                     dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    counters = _span_counters(q.device, stream, b * kv)
     rc = _build.lib().tk_kv_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None, pos.data_ptr(),
-        out.data_ptr(), b, h, kv, d, s_total, float(scale),
-        _build.dtype_code(q.dtype), int(quant),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), ws.data_ptr(), counters.data_ptr(), b, h, kv, d,
+        s_total, ws.shape[2], float(scale), _build.dtype_code(q.dtype),
+        int(quant), stream)
     _build.check(rc, "kv_decode")
     _build.launches["kv_decode"] += 1
     return out
@@ -222,14 +275,19 @@ def paged_decode_attention(q, k_pool, v_pool, tables, pos, *,
     _check_cuda(q, k_pool, quant, tensors)
     _, h, d = q.shape
     _, bs, kv, _ = k_pool.shape
+    nt = tables.shape[1]
     out = torch.empty_like(q)
+    ws = torch.empty(decode_workspace_shape(b, h, kv, d, nt * bs),
+                     dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    counters = _span_counters(q.device, stream, b * kv)
     rc = _build.lib().tk_paged_decode(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None, tables.data_ptr(),
-        pos.data_ptr(), out.data_ptr(), b, h, kv, d, bs, tables.shape[1],
-        float(scale), _build.dtype_code(q.dtype),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        pos.data_ptr(), out.data_ptr(), ws.data_ptr(), counters.data_ptr(),
+        b, h, kv, d, bs, nt, ws.shape[2], float(scale),
+        _build.dtype_code(q.dtype), stream)
     name = "paged_decode_int8" if quant else "paged_decode"
     _build.check(rc, name)
     _build.launches[name] += 1

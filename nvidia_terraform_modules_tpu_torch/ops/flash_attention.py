@@ -439,19 +439,28 @@ def _bwd_cuda(kernel: str, q, k, v, do, lse, delta, scale: float,
     return out
 
 
-def flash_bwd_kv_resources(head_dim: int, *, fused: bool,
-                           out_dtype=torch.bfloat16) -> dict:
-    """What the bf16 key-block kernel (``csrc/flash_bwd.cu``
-    ``flash_bwd_kv_mma``) that K5 (``fused``) or K4 launches at
-    ``head_dim`` with gradients in ``out_dtype`` takes on the card:
-    ``registers`` a thread, ``spill_bytes`` (local memory) a thread,
-    ``smem_bytes`` of dynamic shared memory, and ``ctas_per_sm`` that fit
-    an SM. Builds the kernels on first use; needs a CUDA device."""
+# the bf16 sweeps' codes in ``tk_flash_bwd_info``, by launch-count name
+_SWEEP_CODE = {"flash_bwd_fused": 0, "flash_dkv": 1, "flash_dq": 2}
+
+
+def flash_bwd_resources(kernel: str, head_dim: int, *,
+                        out_dtype=torch.bfloat16) -> dict:
+    """What the bf16 backward kernel ``kernel`` (``"flash_bwd_fused"``: K5
+    and ``"flash_dkv"``: K4, the key-block sweep ``flash_bwd_kv_mma`` of
+    ``csrc/flash_bwd.cu``; ``"flash_dq"``: K3, the query-block sweep
+    ``flash_dq_mma``) launches at ``head_dim`` with gradients in
+    ``out_dtype`` takes on the card: ``registers`` a thread,
+    ``spill_bytes`` (local memory) a thread, ``smem_bytes`` of dynamic
+    shared memory, and ``ctas_per_sm`` that fit an SM. Builds the kernels
+    on first use; needs a CUDA device."""
+    if kernel not in _SWEEP_CODE:
+        raise ValueError(f"kernel must be one of {sorted(_SWEEP_CODE)}, got "
+                         f"{kernel!r}")
     out = (ctypes.c_int * 4)()
-    rc = _build.lib().tk_flash_bwd_kv_info(
-        head_dim, int(fused), _build.dtype_code(out_dtype),
+    rc = _build.lib().tk_flash_bwd_info(
+        _SWEEP_CODE[kernel], head_dim, _build.dtype_code(out_dtype),
         ctypes.addressof(out))
-    _build.check(rc, "flash_bwd_kv_info")
+    _build.check(rc, "flash_bwd_info")
     return dict(zip(("registers", "spill_bytes", "smem_bytes",
                      "ctas_per_sm"), out))
 
@@ -473,9 +482,9 @@ def _bwd_dispatch(kernel, ref, q, k, v, do, lse, delta, scale, mask,
 def flash_dq(q, k, v, do, lse, delta, *, scale: float, mask=None,
              causal: bool = True, out_dtype=None):
     """K3: dQ of the split backward, in ``out_dtype`` (q's, or float32).
-    A CUDA tensor launches ``csrc/flash_bwd.cu``'s ``flash_dq_kernel``
-    (bf16 or f32, ``head_dim % 16 == 0`` and ``<= 128``); a CPU tensor
-    runs :func:`flash_dq_ref`."""
+    A CUDA tensor launches ``csrc/flash_bwd.cu``'s ``flash_dq_mma`` (bf16,
+    bitwise deterministic) or ``flash_dq_kernel`` (f32), ``head_dim % 16
+    == 0`` and ``<= 128``; a CPU tensor runs :func:`flash_dq_ref`."""
     return _bwd_dispatch("flash_dq", flash_dq_ref, q, k, v, do, lse, delta,
                          scale, mask, causal, out_dtype)
 

@@ -1,25 +1,38 @@
 # SPDX-FileCopyrightText: Copyright (c) 2026 tpu-terraform-modules authors. All rights reserved.
 # SPDX-License-Identifier: Apache-2.0
-"""A/B timing of the attention kernels and the flagship train steps
-across two source trees of the port, on one card.
+"""A/B timing of the port's kernels and the flagship train steps across
+source trees of the port, on one card.
 
-    python3 -m nvidia_terraform_modules_tpu_torch.utils.kernel_ab OLD NEW
+    python3 -m nvidia_terraform_modules_tpu_torch.utils.kernel_ab \\
+        [--only GROUP,...] TREE_A TREE_B [TREE_C ...]
 
-``OLD`` and ``NEW`` are directories that each hold a copy of the package
-(e.g. a ``git archive`` of the parent commit unpacked into an ignored
-directory, and ``.``). The trees run in turns — OLD, NEW, NEW, OLD — each
-in its own process with its own kernel build, so both versions are
-compared on one card and the spread shows beside the difference. Each run
-prints one JSON line: K1 at two serve prompt shapes and the train step's
-per-layer ``[2, 4096, 16, 128]``, K7 (bf16 paged decode) at a flagship
-wave of 4 slots, K5/K3/K4 at the train shape (CUDA-event medians, cold
-L2), the median host time of a flagship bf16 SGD step ending in a
-synchronise, and — in a tree with ring attention — K2, and K5 and K4
-writing f32 (the ring's per-block gradients), at the ring's block
-``[2, 1024, 16, 128]``, diagonal (causal) and visible (full), and the
-median host time of the flagship ring SGD step (sp = 4 on the one card).
-A tree without the backward kernels (the serve slice alone) reports K1
-and K7 only.
+Each TREE is a directory that holds a copy of the package (e.g. a ``git
+archive`` of the parent commit unpacked into an ignored directory, and
+``.``). The trees run in turns — A, B, ..., then the same in reverse (for
+two trees: OLD, NEW, NEW, OLD) — each in its own process with its own
+kernel build, so every version is compared on one card and the spread
+shows beside the difference. Each run prints one JSON line. The groups
+(``--only`` picks some; all by default):
+
+- ``fwd``: K1 at two serve prompt shapes and the train step's per-layer
+  ``[2, 4096, 16, 128]``;
+- ``decode``: K7 (bf16 paged decode) and K7-int8 at a flagship wave of 4
+  slots (table widths 34 and 32 blocks of 16, the int8 engine's 256-row
+  grain), and K6 at the int8 decode step (batch 8, 768 rows, positions
+  512–568);
+- ``bwd``: K5/K3/K4 at the train shape;
+- ``ring``: K2, and K5, K3 and K4 writing f32 (the ring's per-block
+  gradients), at the ring's block ``[2, 1024, 16, 128]``, diagonal
+  (causal) and visible (full);
+- ``serve``: one flagship serve wave (``engine.step`` on 4 slots at
+  position 305 of a 456-row buffer, bf16 and int8 weights and pools, as
+  ``chip_smoke.py`` times it): device ms (CUDA events) and the host's
+  median ms to issue it;
+- ``train``: the median host time of a flagship bf16 SGD step ending in a
+  synchronise, and of the flagship ring SGD step (sp = 4 on the one card).
+
+Kernel times are CUDA-event medians with a cold L2. A tree without a group's
+entry points (an earlier slice) skips that group.
 """
 
 from __future__ import annotations
@@ -31,8 +44,49 @@ import subprocess
 import sys
 from pathlib import Path
 
-def measure(tree: str) -> dict:
-    """Time the kernels and the train step of the package under ``tree``."""
+GROUPS = ("fwd", "decode", "bwd", "ring", "serve", "train")
+
+
+def serve_wave(models, timing, dev) -> dict:
+    """One flagship serve wave of the bf16 and the int8 engine: device and
+    host milliseconds."""
+    import torch
+
+    cfg = models.BurnInConfig(**models.FLAGSHIP_TRAIN, dtype=torch.bfloat16)
+    params = models.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    max_len, slots, bs = 456, 4, 16
+    toks = torch.zeros((slots,), dtype=torch.long, device=dev)
+    active = torch.ones((slots,), dtype=torch.bool, device=dev)
+    out = {}
+    for name, p, kw in (
+            ("serve", params, {}),
+            ("serve_int8", models.quantize_params(params, dtype=torch.bfloat16),
+             {"cache_dtype": "int8"})):
+        engine = models.make_serve_engine(p, cfg, max_len=max_len,
+                                          kv_block=bs, device=dev, **kw)
+        # the engine's table width: the int8 pool rounds to 256 rows
+        rows = models.cache_rows(max_len, "int8") if kw else max_len
+        nt = -(-rows // bs)
+        pool = models.init_paged_cache(cfg, slots, max_len, block_size=bs,
+                                       num_blocks=1 + slots * nt,
+                                       device=dev, **kw)
+        for i in range(slots):
+            pool["block_tables"][i] = torch.arange(
+                1 + i * nt, 1 + (i + 1) * nt, dtype=torch.int32)
+
+        def wave(engine=engine, pool=pool):
+            pool["pos"][:] = 305
+            engine.step(toks, active, pool)
+
+        out[f"{name}_ms_per_wave"] = timing.cuda_median_ms(wave)
+        out[f"{name}_host_ms_per_wave"] = timing.host_ms(wave, iters=30)
+        del engine, pool
+    return out
+
+
+def measure(tree: str, groups=GROUPS) -> dict:
+    """Time the chosen groups of the package under ``tree``."""
     sys.path.insert(0, str(Path(tree).resolve()))
     import torch
 
@@ -46,31 +100,79 @@ def measure(tree: str) -> dict:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     out: dict = {"tree": tree, "package": str(Path(fa.__file__).parents[1])}
-    for b, s in ((1, 304), (1, 512), (2, 4096)):
-        q, k, v, do = (torch.randn((b, s, 16, 128), generator=g,
-                                   device=dev).bfloat16() for _ in range(4))
-        out[f"flash_fwd_{b}x{s}_ms"] = timing.cuda_median_ms(
-            lambda: fa.flash_attention_fwd(q, k, v))
-    da = importlib.import_module(
-        "nvidia_terraform_modules_tpu_torch.ops.decode_attention")
-    pool = [torch.randn((1 + 4 * 34, 16, 16, 128), generator=g,
-                        device=dev).bfloat16() for _ in range(2)]
-    tables = torch.arange(1, 1 + 4 * 34, dtype=torch.int32,
-                          device=dev).reshape(4, 34)
-    pos = torch.tensor([320, 208, 176, 240], dtype=torch.int32, device=dev)
-    qd = torch.randn((4, 16, 128), generator=g, device=dev).bfloat16()
-    out["paged_decode_4x16_ms"] = timing.cuda_median_ms(
-        lambda: da.paged_decode_attention(qd, *pool, tables, pos,
-                                          scale=128 ** -0.5))
+
+    def randn(shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    if "fwd" in groups:
+        for b, s in ((1, 304), (1, 512), (2, 4096)):
+            q, k, v = (randn((b, s, 16, 128)) for _ in range(3))
+            out[f"flash_fwd_{b}x{s}_ms"] = timing.cuda_median_ms(
+                lambda: fa.flash_attention_fwd(q, k, v))
+    if "decode" in groups:
+        da = importlib.import_module(
+            "nvidia_terraform_modules_tpu_torch.ops.decode_attention")
+        pos = torch.tensor([320, 208, 176, 240], dtype=torch.int32,
+                           device=dev)
+        qd = randn((4, 16, 128))
+        for name, nt, int8 in (("paged_decode", 34, False),
+                               ("paged_decode_int8", 32, True)):
+            pool = [randn((1 + 4 * nt, 16, 16, 128), torch.float32)
+                    for _ in range(2)]
+            kw = {}
+            if int8:
+                (kp, ks), (vp, vs) = (models.quantize_kv(t) for t in pool)
+                pool, kw = [kp, vp], dict(k_scale=ks, v_scale=vs)
+            else:
+                pool = [t.bfloat16() for t in pool]
+            tables = torch.arange(1, 1 + 4 * nt, dtype=torch.int32,
+                                  device=dev).reshape(4, nt)
+            out[f"{name}_4x16_ms"] = timing.cuda_median_ms(
+                lambda pool=pool, tables=tables, kw=kw:
+                da.paged_decode_attention(qd, *pool, tables, pos,
+                                          scale=128 ** -0.5, **kw))
+        (kc, ks), (vc, vs) = (models.quantize_kv(
+            randn((8, 768, 16, 128), torch.float32)) for _ in range(2))
+        pos8 = torch.arange(512, 576, 8, dtype=torch.int32, device=dev)
+        q8 = randn((8, 16, 128))
+        out["kv_decode_int8_8x768_ms"] = timing.cuda_median_ms(
+            lambda: da.kv_decode_attention(q8, kc, vc, pos8,
+                                           scale=128 ** -0.5, k_scale=ks,
+                                           v_scale=vs))
+    if "serve" in groups:
+        out.update(serve_wave(models, timing, dev))
     if not hasattr(fa, "flash_dqdkv"):   # a tree from before the train step
         return out
-    o, lse = fa.flash_attention_fwd(q, k, v)
-    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
-    args = (q, k, v, do, lse, delta)
-    for name in ("flash_dqdkv", "flash_dq", "flash_dkv"):
-        fn = getattr(fa, name)
-        out[f"{name}_ms"] = timing.cuda_median_ms(
-            lambda fn=fn: fn(*args, scale=128 ** -0.5))
+    q, k, v, do = (randn((2, 4096, 16, 128)) for _ in range(4))
+    if "bwd" in groups:
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1) \
+            .contiguous()
+        args = (q, k, v, do, lse, delta)
+        for name in ("flash_dqdkv", "flash_dq", "flash_dkv"):
+            fn = getattr(fa, name)
+            out[f"{name}_ms"] = timing.cuda_median_ms(
+                lambda fn=fn: fn(*args, scale=128 ** -0.5))
+    if "ring" in groups and hasattr(fa, "flash_partial"):
+        qr, kr, vr, dor = (t[:, :1024].contiguous() for t in (q, k, v, do))
+        for name, causal in (("diag", True), ("visible", False)):
+            out[f"flash_partial_{name}_ms"] = timing.cuda_median_ms(
+                lambda causal=causal: fa.flash_partial(
+                    qr, kr, vr, scale=128 ** -0.5, causal=causal))
+            # the ring's per-block backward: K5, K3 and K4 writing f32
+            o_r, lse_r = fa.flash_attention_fwd(qr, kr, vr, causal=causal)
+            delta_r = (dor.float() * o_r.float()).sum(-1).permute(0, 2, 1) \
+                .contiguous()
+            args_r = (qr, kr, vr, dor, lse_r, delta_r)
+            for fn_name in ("flash_dqdkv", "flash_dq", "flash_dkv"):
+                out[f"{fn_name}_f32_out_{name}_ms"] = timing.cuda_median_ms(
+                    lambda fn=getattr(fa, fn_name), args_r=args_r,
+                    causal=causal: fn(*args_r, scale=128 ** -0.5,
+                                      causal=causal,
+                                      out_dtype=torch.float32))
+    if "train" not in groups:
+        return out
+    del q, k, v, do
     cfg = models.BurnInConfig(**models.FLAGSHIP_TRAIN, dtype=torch.bfloat16)
     state = {"p": models.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), device=dev)}
@@ -87,21 +189,6 @@ def measure(tree: str) -> dict:
     out["last_loss"] = losses[-1].item()
     if not hasattr(fa, "flash_partial"):    # a tree from before the ring
         return out
-    qr, kr, vr, dor = (t[:, :1024].contiguous() for t in (q, k, v, do))
-    for name, causal in (("diag", True), ("visible", False)):
-        out[f"flash_partial_{name}_ms"] = timing.cuda_median_ms(
-            lambda causal=causal: fa.flash_partial(
-                qr, kr, vr, scale=128 ** -0.5, causal=causal))
-        # the ring's per-block backward: K5 and K4 writing f32
-        o_r, lse_r = fa.flash_attention_fwd(qr, kr, vr, causal=causal)
-        delta_r = (dor.float() * o_r.float()).sum(-1).permute(0, 2, 1) \
-            .contiguous()
-        args_r = (qr, kr, vr, dor, lse_r, delta_r)
-        for fn_name in ("flash_dqdkv", "flash_dkv"):
-            out[f"{fn_name}_f32_out_{name}_ms"] = timing.cuda_median_ms(
-                lambda fn=getattr(fa, fn_name), args_r=args_r,
-                causal=causal: fn(*args_r, scale=128 ** -0.5,
-                                  causal=causal, out_dtype=torch.float32))
     parallel = importlib.import_module(
         "nvidia_terraform_modules_tpu_torch.parallel")
     rules = parallel.make_rules(parallel.build_mesh(
@@ -120,16 +207,23 @@ def measure(tree: str) -> dict:
 
 
 def main(argv: list[str]) -> int:
+    groups = GROUPS
+    if argv[:1] == ["--only"] and len(argv) > 1:
+        groups = tuple(argv[1].split(","))
+        argv = argv[2:]
+        if not set(groups) <= set(GROUPS):
+            print(f"--only takes groups of {GROUPS}", file=sys.stderr)
+            return 2
     if len(argv) == 2 and argv[0] == "--one":
-        print(json.dumps(measure(argv[1])), flush=True)
+        print(json.dumps(measure(argv[1], groups)), flush=True)
         return 0
-    if len(argv) != 2:
+    if len(argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
-    old, new = argv
-    for tree in (old, new, new, old):
-        run = subprocess.run([sys.executable, __file__, "--one", tree],
-                             capture_output=True, text=True, timeout=600)
+    for tree in argv + argv[::-1]:
+        run = subprocess.run([sys.executable, __file__, "--only",
+                              ",".join(groups), "--one", tree],
+                             capture_output=True, text=True, timeout=900)
         if run.returncode:
             print(run.stderr, file=sys.stderr)
             return run.returncode

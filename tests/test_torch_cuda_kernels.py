@@ -22,7 +22,11 @@ error ||got - plain|| / ||plain|| of 1e-2 (bf16) / 1e-4 (f32): bf16 products
 accumulate in another order, and the fused kernel's dQ atomics in an order
 that changes from run to run. K2 (the partial forward) holds acc, m and l
 within 1e-2 (bf16) / 1e-5 (f32) of max(1, max|plain|), and, normalised,
-equals K1 bit for bit (one sweep, two epilogues).
+equals K1 bit for bit (one sweep, two epilogues). K3 and K4 have no atomics:
+two calls, and a row alone against the same row in a batch, give the same
+bits. The decode kernels split a row's keys into fixed spans combined in
+span order, so the paged kernel equals the contiguous one on the gathered
+view, and a row alone equals the same row in a batch, bit for bit.
 """
 
 import dataclasses
@@ -47,6 +51,7 @@ from nvidia_terraform_modules_tpu_torch.ops import (
     flash_dkv,
     flash_dq,
     flash_dqdkv,
+    flash_dq_ref,
     flash_dqdkv_ref,
     flash_partial,
     flash_partial_ref,
@@ -61,6 +66,7 @@ from nvidia_terraform_modules_tpu_torch.ops import (
     ulysses_self_attention,
 )
 from nvidia_terraform_modules_tpu_torch.ops.decode_attention import (
+    DECODE_SPAN,
     gather_logical,
 )
 from nvidia_terraform_modules_tpu_torch.ops.ring_attention import (
@@ -217,6 +223,118 @@ def test_paged_decode_int8_matches_plain_and_contiguous(cuda, b, h, kv, d,
     lim = 1e-2 * max(1.0, ref.float().abs().max().item())
     assert (out.float() - ref.float()).abs().max().item() <= lim
     assert torch.equal(out, flat)
+
+
+def _paged_case(g, dev, b, h, kv, d, bs, nt, pos, dtype, quant):
+    """A pool of 1 + b·nt blocks (block 0 the garbage block, planted), each
+    row's live blocks at random, its entries past pos at block 0."""
+    nb = 1 + b * nt
+    k = _randn(g, (nb, bs, kv, d), torch.float32, dev)
+    v = _randn(g, (nb, bs, kv, d), torch.float32, dev)
+    ks = vs = None
+    if quant:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        for t in (k, v):
+            t[0] = 127
+        for t in (ks, vs):
+            t[0] = 1e4
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+        k[0] = 1e4
+        v[0] = 1e4
+    tables = (torch.randperm(nb - 1, generator=g) + 1).reshape(b, nt)
+    tables = tables.to(torch.int32)
+    pos = torch.tensor(pos, dtype=torch.int32)
+    for i in range(b):
+        tables[i, int(pos[i]) // bs + 1:] = 0
+    q = _randn(g, (b, h, d), dtype, dev)
+    return q, k, v, ks, vs, tables.to(dev), pos.to(dev)
+
+
+def _gathered(k, v, ks, vs, tables, rows):
+    flat = [gather_logical(t, tables, rows) for t in (k, v)]
+    if ks is None:
+        return flat + [None, None]
+    return flat + [gather_logical(t, tables, rows) for t in (ks, vs)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_decode_matches_contiguous_bitwise(cuda, dtype):
+    """The bf16/f32 pool through the tables equals the contiguous kernel on
+    the gathered view bit for bit (one fold, one split); garbage block 0
+    (1e4) is never read."""
+    g = torch.Generator().manual_seed(29)
+    b, h, kv, d, bs = 4, 16, 16, 128, 16
+    nt = -(-600 // bs)
+    q, k, v, _, _, tables, pos = _paged_case(
+        g, cuda, b, h, kv, d, bs, nt, [559, 301, 77, 130], dtype, False)
+    out = paged_decode_attention(q, k, v, tables, pos, scale=d ** -0.5)
+    fk, fv, _, _ = _gathered(k, v, None, None, tables, nt * bs)
+    flat = kv_decode_attention(q, fk, fv, pos, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    ref = paged_decode_attention_ref(q, k, v, tables, pos, scale=d ** -0.5)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert torch.equal(out, flat)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("bs", [16, 5])
+def test_decode_kernels_across_span_boundaries(cuda, quant, bs):
+    """K7 (bf16 or int8 pool) and K6 at positions on either side of the
+    span boundaries (0, S - 1, S, S + 1, 2 S, 3 S + 7 for a span of S
+    keys): against the plain version, and K7 against K6 on the gathered
+    view bit for bit."""
+    g = torch.Generator().manual_seed(31 + bs)
+    s = DECODE_SPAN
+    pos = [0, s - 1, s, s + 1, 2 * s, 3 * s + 7]
+    b, h, kv, d = len(pos), 8, 4, 128
+    nt = -(-(4 * s) // bs)
+    q, k, v, ks, vs, tables, pos_t = _paged_case(
+        g, cuda, b, h, kv, d, bs, nt, pos, torch.bfloat16, quant)
+    kw = dict(scale=d ** -0.5, k_scale=ks, v_scale=vs)
+    out = paged_decode_attention(q, k, v, tables, pos_t, **kw)
+    fk, fv, fks, fvs = _gathered(k, v, ks, vs, tables, nt * bs)
+    flat = kv_decode_attention(q, fk, fv, pos_t, scale=d ** -0.5,
+                               k_scale=fks, v_scale=fvs)
+    torch.cuda.synchronize()
+    ref = paged_decode_attention_ref(q, k, v, tables, pos_t, **kw).float()
+    lim = 1e-2 * (max(1.0, ref.abs().max().item()) if quant else 1.0)
+    assert (out.float() - ref).abs().max().item() <= lim
+    assert torch.equal(out, flat)
+
+
+@pytest.mark.parametrize("kernel", ["paged", "paged_int8", "contiguous",
+                                    "contiguous_int8"])
+def test_decode_row_alone_equals_row_in_batch(cuda, kernel):
+    """A row's bits depend only on its own keys and position: each row of a
+    batch of 4 unrelated rows equals the same row run alone."""
+    g = torch.Generator().manual_seed(37)
+    quant = kernel.endswith("int8")
+    b, h, kv, d, bs = 4, 16, 16, 128, 16
+    nt = -(-600 // bs)
+    q, k, v, ks, vs, tables, pos = _paged_case(
+        g, cuda, b, h, kv, d, bs, nt, [559, 63, 64, 300], torch.bfloat16,
+        quant)
+    def rows(i, *ts):        # row i alone (fresh, aligned copies), or all
+        sl = slice(i, i + 1) if i is not None else slice(None)
+        return [None if t is None else t[sl].clone() for t in ts]
+
+    if kernel.startswith("paged"):
+        def run(i):
+            qi, ti, pi = rows(i, q, tables, pos)
+            return paged_decode_attention(qi, k, v, ti, pi, scale=d ** -0.5,
+                                          k_scale=ks, v_scale=vs)
+    else:
+        flat = _gathered(k, v, ks, vs, tables, nt * bs)
+
+        def run(i):
+            qi, pi, fk, fv, fks, fvs = rows(i, q, pos, *flat)
+            return kv_decode_attention(qi, fk, fv, pi, scale=d ** -0.5,
+                                       k_scale=fks, v_scale=fvs)
+    batch = run(None)
+    for i in range(b):
+        assert torch.equal(run(i)[0], batch[i]), f"row {i}"
 
 
 @pytest.mark.parametrize("m,k,n,trans,dtype", [
@@ -563,6 +681,49 @@ def test_flash_dkv_bf16_is_deterministic(cuda, out_dtype):
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
     dk1, dv1 = flash_dkv(*(t[:1].contiguous() for t in args), **kw)
     assert torch.equal(dk1, dk[:1]) and torch.equal(dv1, dv[:1])
+
+
+@pytest.mark.parametrize("b,s,h,d,mask,out_dtype", [
+    (1, 200, 4, 64, None, torch.bfloat16),
+    (1, 200, 4, 128, None, torch.bfloat16),
+    (2, 136, 4, 128, "full", torch.bfloat16),            # a ragged tail
+    (1, 300, 4, 128, ("window", 64), torch.bfloat16),
+    (1, 70, 2, 32, ("window", 20), torch.bfloat16),      # d padded to 64
+    (1, 100, 4, 96, None, torch.bfloat16),               # d padded to 128
+    (2, 1024, 16, 128, None, torch.float32),             # the ring's block
+    (2, 1024, 16, 128, "full", torch.float32),
+])
+def test_flash_dq_bf16_matches_plain(cuda, b, s, h, d, mask, out_dtype):
+    """K3 on bf16 inputs (the query-block mma.sync sweep) against its plain
+    version: causal, full and window masks, ragged tails, padded head
+    dims, and the ring's block with f32 outputs."""
+    g = torch.Generator().manual_seed(s * 3 + d)
+    args = _bwd_inputs(g, b, s, h, d, torch.bfloat16, cuda, mask)
+    kw = dict(scale=d ** -0.5, mask=mask, out_dtype=out_dtype)
+    before = launches["flash_dq"]
+    got = flash_dq(*args, **kw)
+    torch.cuda.synchronize()
+    assert launches["flash_dq"] == before + 1
+    ref = flash_dq_ref(*args, **kw)
+    assert got.dtype == ref.dtype == out_dtype
+    ref = ref.float()
+    diff = got.float() - ref
+    assert diff.abs().max().item() <= 2e-2 * max(1.0, ref.abs().max().item())
+    assert (diff.norm() / ref.norm()).item() <= 1e-2
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_flash_dq_bf16_is_deterministic(cuda, out_dtype):
+    """K3 has no atomics and sums its key tiles in a fixed order: two calls
+    give the same bits, and batch row 0 of a batch-2 call equals the same
+    row run alone."""
+    g = torch.Generator().manual_seed(23)
+    args = _bwd_inputs(g, 2, 520, 16, 128, torch.bfloat16, cuda, None)
+    kw = dict(scale=128 ** -0.5, out_dtype=out_dtype)
+    dq = flash_dq(*args, **kw)
+    assert torch.equal(dq, flash_dq(*args, **kw))
+    dq1 = flash_dq(*(t[:1].contiguous() for t in args), **kw)
+    assert torch.equal(dq1, dq[:1])
 
 
 @pytest.mark.parametrize("sp", [2, 4])
