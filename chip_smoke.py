@@ -17,16 +17,20 @@ It builds the port's CUDA kernels from ``csrc/`` with nvcc (into
   the same traffic (device time by kernel against the host clock);
 - int8 serving: holds K8 (int8-weight matmul), K6 (contiguous int8
   decode) and K7-int8 (the paged kernel on an int8 pool) against their
-  plain versions, checks the int8 engine's exactness on the card, serves
+  plain versions, and the decode kernels' split at its seams (positions on
+  either side of a span boundary; the paged kernel equal to the contiguous
+  one on the gathered view, and a row alone equal to the same row in a
+  batch, bit for bit), checks the int8 engine's exactness on the card, serves
   the flagship traffic with int8 weights and an int8 pool (the launch
   counts show every wave went through K7-int8 and K8), profiles it, and
   times ``make_quantized_decoder`` at the flagship's decode shape (batch 8,
   prompt 512, 64 new tokens; K6 and K8 on every step) and at 3584 + 32;
 - train: prints the registers, spills and CTAs per SM of each instance of
-  the bf16 key-block kernel that K5 and K4 share; holds K5 (fused flash
-  backward) and K3/K4 (the split pair)
+  the bf16 key-block kernel that K5 and K4 share and of K3's query-block
+  kernel; holds K5 (fused flash backward) and K3/K4 (the split pair)
   against their plain versions, up to the flagship's per-layer
-  ``[2, 4096, 16, 128]``; checks the train step's gradients on the card
+  ``[2, 4096, 16, 128]``, and K3 to its own bits on a second call and for
+  a row run alone; checks the train step's gradients on the card
   against the dense model, fused against split, remat and accumulation;
   runs SGD and AdamW steps of the flagship burn-in step at full width and
   depth (the launch counts show it went through K1 and K5, or K3 + K4);
