@@ -32,9 +32,10 @@ f32 partials of the spans (:func:`decode_workspace_shape`) follow from the
 buffer's width — the table's ``NT·bs`` or the cache's ``S`` — alone, never
 from ``pos``, so the host reads nothing back. The spans of a row are
 combined in span order inside the launch, by the last of its CTAs, which
-an int32 counter per (row, KV head) elects; the counters live in one
-zeroed buffer per device and stream (:func:`_span_counters`), which the
-kernel leaves at zero.
+an int32 counter per (row, KV head) elects. The partials and the counters
+live in one scratch per device and stream (:func:`_span_scratch`),
+allocated once and grown to the widest launch: launches on one stream run
+in order, so they share it, and the kernels leave every counter at zero.
 """
 
 from __future__ import annotations
@@ -49,8 +50,9 @@ from .flash_attention import NEG_INF
 # (the C entry points refuse a span count of any other split).
 DECODE_SPAN = 64
 
-# int32 span counters by (device index, stream): zero between launches
-_counters: dict[tuple[int, int], torch.Tensor] = {}
+# span partials (f32) and counters (int32, zero between launches) by
+# (device index, stream)
+_scratch: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def decode_spans(rows: int) -> int:
@@ -72,16 +74,21 @@ def decode_workspace_shape(batch: int, heads: int, kv_heads: int,
             heads // kv_heads * (head_dim + 2))
 
 
-def _span_counters(device, stream, n: int) -> torch.Tensor:
-    """A zeroed int32 buffer of at least ``n`` counters for launches on
-    ``stream``, allocated once and grown when a launch needs more (the
-    kernels reset every counter they use)."""
+def _span_scratch(device, stream, shape: tuple, counters: int):
+    """The f32 span partials (room for ``shape``, a
+    :func:`decode_workspace_shape`) and at least ``counters`` zeroed int32
+    counters for launches on ``stream``: allocated once, and grown when a
+    launch needs more."""
     key = (device.index, stream)
-    buf = _counters.get(key)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros((max(n, 256),), dtype=torch.int32, device=device)
-        _counters[key] = buf
-    return buf
+    ws, cnt = _scratch.get(key, (None, None))
+    partials = shape[0] * shape[1] * shape[2] * shape[3]
+    if ws is None or ws.numel() < partials:
+        ws = torch.empty((partials,), dtype=torch.float32, device=device)
+    if cnt is None or cnt.numel() < counters:
+        cnt = torch.zeros((max(counters, 256),), dtype=torch.int32,
+                          device=device)
+    _scratch[key] = (ws, cnt)
+    return ws, cnt
 
 
 def masked_attention(q, k_cache, v_cache, q_pos, scale: float,
@@ -208,16 +215,15 @@ def kv_decode_attention(q, k_cache, v_cache, pos, *, scale: float,
     _, h, d = q.shape
     s_total, kv = k_cache.shape[1:3]
     out = torch.empty_like(q)
-    ws = torch.empty(decode_workspace_shape(b, h, kv, d, s_total),
-                     dtype=torch.float32, device=q.device)
+    shape = decode_workspace_shape(b, h, kv, d, s_total)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    counters = _span_counters(q.device, stream, b * kv)
+    ws, counters = _span_scratch(q.device, stream, shape, b * kv)
     rc = _build.lib().tk_kv_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None, pos.data_ptr(),
         out.data_ptr(), ws.data_ptr(), counters.data_ptr(), b, h, kv, d,
-        s_total, ws.shape[2], float(scale), _build.dtype_code(q.dtype),
+        s_total, shape[2], float(scale), _build.dtype_code(q.dtype),
         int(quant), stream)
     _build.check(rc, "kv_decode")
     _build.launches["kv_decode"] += 1
@@ -277,16 +283,15 @@ def paged_decode_attention(q, k_pool, v_pool, tables, pos, *,
     _, bs, kv, _ = k_pool.shape
     nt = tables.shape[1]
     out = torch.empty_like(q)
-    ws = torch.empty(decode_workspace_shape(b, h, kv, d, nt * bs),
-                     dtype=torch.float32, device=q.device)
+    shape = decode_workspace_shape(b, h, kv, d, nt * bs)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    counters = _span_counters(q.device, stream, b * kv)
+    ws, counters = _span_scratch(q.device, stream, shape, b * kv)
     rc = _build.lib().tk_paged_decode(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None, tables.data_ptr(),
         pos.data_ptr(), out.data_ptr(), ws.data_ptr(), counters.data_ptr(),
-        b, h, kv, d, bs, nt, ws.shape[2], float(scale),
+        b, h, kv, d, bs, nt, shape[2], float(scale),
         _build.dtype_code(q.dtype), stream)
     name = "paged_decode_int8" if quant else "paged_decode"
     _build.check(rc, name)

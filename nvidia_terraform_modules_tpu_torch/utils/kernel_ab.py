@@ -19,7 +19,7 @@ shows beside the difference. Each run prints one JSON line. The groups
 - ``decode``: K7 (bf16 paged decode) and K7-int8 at a flagship wave of 4
   slots (table widths 34 and 32 blocks of 16, the int8 engine's 256-row
   grain), and K6 at the int8 decode step (batch 8, 768 rows, positions
-  512–568);
+  512–568): device ms, and the host's median µs to issue one call;
 - ``bwd``: K5/K3/K4 at the train shape;
 - ``ring``: K2, and K5, K3 and K4 writing f32 (the ring's per-block
   gradients), at the ring's block ``[2, 1024, 16, 128]``, diagonal
@@ -127,18 +127,23 @@ def measure(tree: str, groups=GROUPS) -> dict:
                 pool = [t.bfloat16() for t in pool]
             tables = torch.arange(1, 1 + 4 * nt, dtype=torch.int32,
                                   device=dev).reshape(4, nt)
-            out[f"{name}_4x16_ms"] = timing.cuda_median_ms(
-                lambda pool=pool, tables=tables, kw=kw:
-                da.paged_decode_attention(qd, *pool, tables, pos,
-                                          scale=128 ** -0.5, **kw))
+            def call(pool=pool, tables=tables, kw=kw):
+                return da.paged_decode_attention(qd, *pool, tables, pos,
+                                                 scale=128 ** -0.5, **kw)
+
+            out[f"{name}_4x16_ms"] = timing.cuda_median_ms(call)
+            out[f"{name}_host_us"] = timing.host_ms(call, iters=50) * 1e3
         (kc, ks), (vc, vs) = (models.quantize_kv(
             randn((8, 768, 16, 128), torch.float32)) for _ in range(2))
         pos8 = torch.arange(512, 576, 8, dtype=torch.int32, device=dev)
         q8 = randn((8, 16, 128))
-        out["kv_decode_int8_8x768_ms"] = timing.cuda_median_ms(
-            lambda: da.kv_decode_attention(q8, kc, vc, pos8,
-                                           scale=128 ** -0.5, k_scale=ks,
-                                           v_scale=vs))
+        def call6():
+            return da.kv_decode_attention(q8, kc, vc, pos8,
+                                          scale=128 ** -0.5, k_scale=ks,
+                                          v_scale=vs)
+
+        out["kv_decode_int8_8x768_ms"] = timing.cuda_median_ms(call6)
+        out["kv_decode_int8_host_us"] = timing.host_ms(call6, iters=50) * 1e3
     if "serve" in groups:
         out.update(serve_wave(models, timing, dev))
     if not hasattr(fa, "flash_dqdkv"):   # a tree from before the train step

@@ -4,7 +4,7 @@
 over fixed spans, ``csrc/decode_tiles.cuh``), on the CPU: the host-side
 rule — the span count and the partials' shape follow from the buffer's
 width and ``DECODE_SPAN`` alone, never from ``pos`` or the batch — the
-counters' buffer, and the split fold's arithmetic (spans of
+scratch of partials and counters, and the split fold's arithmetic (spans of
 ``DECODE_SPAN`` keys, each folded by four warps over 8-key slices of
 32-key chunks, merged in warp order and combined in span order) against
 the plain version at positions on either side of each span boundary.
@@ -23,7 +23,7 @@ import torch
 from nvidia_terraform_modules_tpu_torch.ops import kv_decode_attention_ref
 from nvidia_terraform_modules_tpu_torch.ops.decode_attention import (
     DECODE_SPAN,
-    _span_counters,
+    _span_scratch,
     decode_spans,
     decode_workspace_shape,
 )
@@ -66,15 +66,25 @@ def test_decode_workspace_follows_width_and_span_alone(h, kv, d, rows):
     assert four == (4,) + one[1:]
 
 
-def test_span_counters_are_zeroed_once_and_grown():
+def test_span_scratch_is_allocated_once_and_grown():
+    """The partials and the counters: one scratch per device and stream,
+    reused while it is large enough, grown (counters zeroed) when a launch
+    needs more."""
     dev = torch.device("cpu")
-    buf = _span_counters(dev, 12345, 10)
-    assert buf.dtype == torch.int32 and buf.numel() >= 10
-    assert not buf.any()
-    assert _span_counters(dev, 12345, 5) is buf          # reused
-    bigger = _span_counters(dev, 12345, buf.numel() + 1)
-    assert bigger.numel() > buf.numel() and not bigger.any()
-    assert _span_counters(dev, 54321, 5) is not bigger   # per stream
+    shape = decode_workspace_shape(4, 16, 16, 128, 464)
+    ws, cnt = _span_scratch(dev, 12345, shape, 64)
+    assert ws.dtype == torch.float32 and ws.numel() == np.prod(shape)
+    assert cnt.dtype == torch.int32 and cnt.numel() >= 64
+    assert not cnt.any()
+    small = decode_workspace_shape(1, 16, 16, 128, 64)
+    again = _span_scratch(dev, 12345, small, 16)
+    assert again[0] is ws and again[1] is cnt             # reused
+    wide = decode_workspace_shape(4, 16, 16, 128, 3840)
+    ws2, cnt2 = _span_scratch(dev, 12345, wide, cnt.numel() + 1)
+    assert ws2.numel() == np.prod(wide) and cnt2.numel() > cnt.numel()
+    assert not cnt2.any()
+    other = _span_scratch(dev, 54321, small, 16)
+    assert other[0] is not ws2 and other[1] is not cnt2    # per stream
 
 
 def _split_fold(q, k, v, pos, scale, chunk=32, warps=4):
