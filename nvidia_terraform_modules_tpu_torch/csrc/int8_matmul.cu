@@ -3,8 +3,8 @@
 //
 // int8-weight matrix product for Hopper (sm_90a): out = (x @ w_int8) * scale,
 // x [M, K] bf16/f32 (M <= 64, the decode regime), w int8 in its storage
-// orientation — [K, N], or [N, K] for the tied head (transpose) — and one f32
-// scale per output channel, applied after the f32 accumulation.
+// orientation — [K, N], or [N, K] for the tied head (transpose) — and one
+// f32 scale per output channel, applied after the f32 accumulation.
 //
 // Replaces the TPU kernel nvidia_terraform_modules_tpu/ops/int8_matmul.py
 // `int8_matmul` (pallas_call of `_kernel`): int8 tiles converted in the
@@ -16,153 +16,421 @@
 // cores would set the pace, so the floor is the int8 weight bytes over
 // 3.35 TB/s — half of what a bf16 weight moves.
 //
-// What the design does about it:
-// - every weight byte crosses HBM once per call, whatever M is: a CTA owns
-//   a 64-column slice of N and a slice of K for ALL M rows, staging its
-//   [ks, 64] int8 tile in shared memory once (16-byte loads along the
-//   storage's contiguous axis: N for [K, N], K for the head's [N, K], which
-//   is transposed into the tile while staging);
-// - K is split across CTAs (ks = 256, or 128 when K is not a multiple of
-//   256) so the flagship shapes put 256 (N = 2048, K = 2048) to 1,024 CTAs
-//   on the 132 SMs where 64-column slices alone would give 32; a second
-//   pass sums the slices' f32 partials in slice order and applies the scale;
-// - each output element is one thread's f32 sum over its slice in
-//   ascending k, and the slices add in a fixed order, so a row's result is
-//   the same bits whatever M is (the serve wave's rows equal solo decode's).
+// What the design does about it — one launch a product:
+// - the grid is (channel blocks of kBN = 128, K slices, row groups of 8):
+//   the K split (int8_grid in ops/int8_matmul.py, a function of K and N
+//   alone) spreads the flagship's 4-16 MB weights over 128-256 CTAs;
+// - each CTA sweeps its slice in kBK = 128-deep tiles through kStages
+//   cp.async stages (16 KB of weight and x's 8 rows a stage), so three
+//   tiles are in flight while one is multiplied: up to 48 KB a CTA, three
+//   CTAs an SM;
+// - bf16 x: the products run on the tensor cores (mma.sync m16n8k16, bf16
+//   in, f32 out) with the output channels on the A side (16 a fragment)
+//   and x's rows on B's n = 8; each of the 4 warps takes 32 of a tile's
+//   128 k for all 128 channels. The int8 bytes are read from shared memory
+//   16 (or 8) at a time and converted to bf16 in registers (exactly: a
+//   bit trick of two LOP3s and one bf16x2 FMA for each pair);
+// - channels and k sit in a fixed permutation inside a tile, the same for
+//   A and B, chosen so the fragments fill from 16-byte reads of a [K, N]
+//   tile and 8-byte reads of an [N, K] tile (the head's rows are already
+//   k-contiguous: no transpose); the shared tiles are XOR-swizzled so those
+//   reads are free of bank conflicts;
+// - f32 x (off the main path) stays a CUDA-core sweep over the same stages:
+//   TF32 would break its 1e-5 limit;
+// - the K slices are combined inside the launch: each CTA writes its f32
+//   partial tile, then __threadfence(); an atomic counter per (row group,
+//   channel block) elects the last CTA, which resets the counter to 0 and
+//   sums the slices in ascending order with L1-bypassing loads, applies the
+//   scale and casts. With one slice the CTA writes the output at once.
+//
+// Bits: the split, the tile order and every accumulation order are
+// functions of K, N and the orientation only — a row's sum never depends
+// on M or on the other rows (each row group is its own computation, and an
+// mma's columns are independent) — so the rows of an M = 4 call equal
+// M = 1 calls bit for bit, and two calls give the same bits.
 
-#include "common.cuh"
+#include <atomic>
+#include <type_traits>
+
+#include "mma_tiles.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBN = 64;        // output columns per CTA
-constexpr int kBatch = 4;      // 16-byte loads in flight per thread
+constexpr int kThreads = 128;     // 4 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kBN = 128;          // output channels per CTA
+constexpr int kBK = 128;          // k per stage
+constexpr int kRows = 8;          // x rows per CTA: one n-tile of the mma
+constexpr int kStages = 4;
+constexpr int kWBytes = kBK * kBN;   // one stage's int8 weight tile
+static_assert(kBN == kThreads, "one output channel per thread at the end");
+static_assert(kBK == 32 * kWarps, "each warp takes 32 k of a stage");
 
-// One CTA: partial[slice][m][n0 .. n0+63] over k in [k0, k0 + ks).
+template <typename T>
+__host__ __device__ constexpr int stage_bytes() {
+  return kWBytes + kRows * kBK * static_cast<int>(sizeof(T));
+}
+template <typename T>
+__host__ __device__ constexpr int smem_bytes() {
+  return kStages * stage_bytes<T>();
+}
+static_assert(kWarps * kRows * kBN * 4 <= smem_bytes<bf16>(),
+              "the warps' sums fit the stages");
+
+// Byte offset of 16-byte chunk c (of 8) of row r of a weight tile (128
+// bytes a row). [K, N] rows are k: warp w reads rows 32w + 8t + 4s + e at
+// chunk g, so the chunk is XORed with 2·((r >> 3) & 3) = 2t; [N, K] rows
+// are channels: lanes read rows g (and g + 8) at chunk 2w + t / 2, so the
+// chunk is XORed with 2·(r & 3).
+template <bool kTrans>
+__device__ __forceinline__ int w_off(int r, int c) {
+  const int x = kTrans ? (r & 3) << 1 : ((r >> 3) & 3) << 1;
+  return r * 128 + ((c ^ x) << 4);
+}
+
+// Byte offset of 16-byte chunk c of row r of the x tile (kBK values of T a
+// row): odd rows XOR the chunk with 4, so the bf16 reads of rows g and g + 1
+// fall in other banks.
+template <typename T>
+__device__ __forceinline__ int x_off(int r, int c) {
+  return kWBytes + r * kBK * static_cast<int>(sizeof(T)) +
+         ((c ^ ((r & 1) << 2)) << 4);
+}
+
+// Stage the weight tile [k0, k0 + kBK) x [n0, n0 + kBN) and x's rows
+// [r0, r0 + kRows) at k0; channels past n and rows past m are zero-filled.
 template <typename T, bool kTrans>
-__global__ void __launch_bounds__(kThreads)
-int8_mm_partial(const T* __restrict__ x, const int8_t* __restrict__ w,
-                float* __restrict__ part, int m, int k, int n, int ks) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* ws = reinterpret_cast<int8_t*>(smem);             // [ks, kBN]
-  float* xs = reinterpret_cast<float*>(smem + ks * kBN);    // [m, ks]
-  const int n0 = blockIdx.x * kBN, k0 = blockIdx.y * ks;
+__device__ __forceinline__ void load_stage(unsigned char* st,
+                                           const int8_t* __restrict__ w,
+                                           const T* __restrict__ x, int m,
+                                           int k, int n, int n0, int k0,
+                                           int r0) {
   const int tid = threadIdx.x;
-
-  // the weight tile, 16 bytes a load, kBatch loads before the stores
-  const int total = ks * kBN / 16;
-  for (int base = 0; base < total; base += kThreads * kBatch) {
-    uint4 val[kBatch];
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int i = base + u * kThreads + tid;
-      val[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (i < total) {
-        const int8_t* src;
-        if (kTrans) {   // row n0 + r of [N, K], k0 + 16 c onwards
-          const int c = i / kBN, r = i - c * kBN;
-          src = w + static_cast<long long>(n0 + r) * k + k0 + 16 * c;
-        } else {        // row k0 + r of [K, N], n0 + 16 c onwards
-          const int r = i / (kBN / 16), c = i - r * (kBN / 16);
-          src = w + static_cast<long long>(k0 + r) * n + n0 + 16 * c;
-        }
-        val[u] = __ldg(reinterpret_cast<const uint4*>(src));
-      }
+  for (int it = 0; it < kWBytes / 16 / kThreads; ++it) {
+    const int i = it * kThreads + tid;
+    const int r = i >> 3, c = i & 7;
+    bool ok;
+    const int8_t* src;
+    if (kTrans) {      // row n0 + r of [N, K], k0 + 16 c onwards
+      ok = n0 + r < n;
+      src = w + static_cast<long long>(n0 + r) * k + k0 + 16 * c;
+    } else {           // row k0 + r of [K, N], n0 + 16 c onwards
+      ok = n0 + 16 * c < n;
+      src = w + static_cast<long long>(k0 + r) * n + n0 + 16 * c;
     }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int i = base + u * kThreads + tid;
-      if (i >= total) continue;
-      if (kTrans) {     // 16 consecutive k of column r: a column of ws
-        const int c = i / kBN, r = i - c * kBN;
-        const unsigned int word[4] = {val[u].x, val[u].y, val[u].z,
-                                      val[u].w};
-#pragma unroll
-        for (int e = 0; e < 16; ++e)   // byte e of the load (little endian)
-          ws[(16 * c + e) * kBN + r] =
-              static_cast<int8_t>((word[e / 4] >> (8 * (e % 4))) & 0xffu);
-      } else {
-        const int r = i / (kBN / 16), c = i - r * (kBN / 16);
-        *reinterpret_cast<uint4*>(ws + r * kBN + 16 * c) = val[u];
-      }
-    }
+    cp_async16(smem_addr(st + w_off<kTrans>(r, c)), ok ? src : w, ok);
   }
-  // x's slice, widened to f32 (exact)
-  for (int i = tid; i < m * ks; i += kThreads) {
-    const int r = i / ks;
-    xs[i] = to_f32(x[static_cast<long long>(r) * k + k0 + (i - r * ks)]);
-  }
-  __syncthreads();
-
-  const int col = tid % kBN;
-  for (int r = tid / kBN; r < m; r += kThreads / kBN) {
-    const float* xr = xs + r * ks;
-    float acc = 0.f;
-    for (int kk = 0; kk < ks; ++kk)
-      acc = fmaf(xr[kk], to_f32(ws[kk * kBN + col]), acc);
-    part[(static_cast<long long>(blockIdx.y) * m + r) * n + n0 + col] = acc;
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));   // values a chunk
+  constexpr int kChunks = kBK / kPer;                       // chunks a row
+#pragma unroll
+  for (int it = 0; it < kRows * kChunks / kThreads; ++it) {
+    const int i = it * kThreads + tid;
+    const int r = i / kChunks, c = i % kChunks;
+    const bool ok = r0 + r < m;
+    const T* src = x + static_cast<long long>(r0 + r) * k + k0 + c * kPer;
+    cp_async16(smem_addr(st + x_off<T>(r, c)), ok ? src : x, ok);
   }
 }
 
-// out[m][n] = (sum over slices, in order, of the partials) * scale[n]
-template <typename T>
-__global__ void int8_mm_finish(const float* __restrict__ part,
-                               const float* __restrict__ scale,
-                               T* __restrict__ out, int m, int n,
-                               int splits) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m * n) return;
-  float s = 0.f;
-  for (int p = 0; p < splits; ++p)
-    s += part[static_cast<long long>(p) * m * n + i];
-  out[i] = from_f32<T>(s * scale[i % n]);
+// Two int8 values at bytes 0 and 2 of v → two bf16, exactly: with l = v &
+// 127, bf16 0x4300 | l is 128 + l, and 0x4300 | (v & 128) is 128, or 256
+// when v < 0; their difference is v.
+__device__ __forceinline__ uint32_t i8x2_bf16x2(uint32_t v) {
+  const uint32_t lo = (v & 0x007f007fu) | 0x43004300u;
+  const uint32_t hi = (v & 0x00800080u) | 0x43004300u;
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(d) : "r"(hi), "r"(0xbf80bf80u), "r"(lo));   // lo - hi
+  return d;
+}
+
+// byte p of a at byte 0, byte q of b at byte 2, as a bf16 pair
+__device__ __forceinline__ uint32_t pair(uint32_t a, int p, uint32_t b,
+                                         int q) {
+  return i8x2_bf16x2(__byte_perm(a, b, p | ((4 + q) << 8)));
+}
+
+__device__ __forceinline__ uint4 lds128(const unsigned char* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+__device__ __forceinline__ uint2 lds64(const unsigned char* p) {
+  return *reinterpret_cast<const uint2*>(p);
+}
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// One stage on the tensor cores: warp w multiplies k [32w, 32w + 32) of the
+// tile, two k-steps of 16, into acc[i] (m-tile i: 16 channels by the 8 x
+// rows). Slot j of a k-step s maps to k = 8t + 4s + {0, 1, 2, 3} for slots
+// {2t, 2t + 1, 2t + 8, 2t + 9} — in A and B alike.
+//   [K, N]: m-tile i holds channels 16g + 2i (A row g) and 16g + 2i + 1
+//   (row g + 8): a lane's 16-byte read of row k, chunk g, serves 8 m-tiles.
+//   [N, K]: m-tile i holds channels 16i + g and 16i + g + 8: a lane's
+//   8-byte read of a channel row serves both k-steps.
+template <bool kTrans>
+__device__ __forceinline__ void mma_stage(const unsigned char* st,
+                                          float (&acc)[8][4], int warp,
+                                          int g, int t) {
+  const uint4 xv = lds128(st + x_off<bf16>(g, 4 * warp + t));
+  if (!kTrans) {
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      uint4 l[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        l[e] = lds128(st + (32 * warp + 8 * t + 4 * s + e) * 128 +
+                      ((g ^ (2 * t)) << 4));
+      const uint32_t b0 = s ? xv.z : xv.x, b1 = s ? xv.w : xv.y;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int q = i >> 1, p = 2 * (i & 1);
+        const uint32_t a[4] = {
+            pair(word(l[0], q), p, word(l[1], q), p),
+            pair(word(l[0], q), p + 1, word(l[1], q), p + 1),
+            pair(word(l[2], q), p, word(l[3], q), p),
+            pair(word(l[2], q), p + 1, word(l[3], q), p + 1)};
+        mma_bf16(acc[i], a, b0, b1);
+      }
+    }
+  } else {
+    const int c = 2 * warp + (t >> 1), half = (t & 1) << 3;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = 16 * i + g;
+      const uint2 lo = lds64(st + w_off<true>(r, c) + half);
+      const uint2 hi = lds64(st + w_off<true>(r + 8, c) + half);
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const uint32_t wl = s ? lo.y : lo.x, wh = s ? hi.y : hi.x;
+        const uint32_t a[4] = {pair(wl, 0, wl, 1), pair(wh, 0, wh, 1),
+                               pair(wl, 2, wl, 3), pair(wh, 2, wh, 3)};
+        mma_bf16(acc[i], a, s ? xv.z : xv.x, s ? xv.w : xv.y);
+      }
+    }
+  }
+}
+
+// One stage on the CUDA cores (f32 x): thread c owns channel c and sums
+// the tile's k in ascending order for the 8 rows.
+template <bool kTrans>
+__device__ __forceinline__ void fma_stage(const unsigned char* st,
+                                          float (&acc)[kRows], int c) {
+  const float* xs = reinterpret_cast<const float*>(st + kWBytes);
+#pragma unroll 4
+  for (int kk = 0; kk < kBK; ++kk) {
+    const int8_t wq = static_cast<int8_t>(
+        kTrans ? st[w_off<true>(c, kk >> 4) + (kk & 15)]
+               : st[w_off<false>(kk, c >> 4) + (c & 15)]);
+    const float wv = to_f32(wq);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      acc[r] = fmaf(xs[r * kBK + (((kk >> 2) ^ ((r & 1) << 2)) << 2) +
+                       (kk & 3)],
+                    wv, acc[r]);
+  }
+}
+
+// One CTA: channel block blockIdx.x, K slice blockIdx.y (of gridDim.y),
+// row group blockIdx.z.
+template <typename T, bool kTrans>
+__global__ void __launch_bounds__(kThreads)
+int8_mm(const T* __restrict__ x, const int8_t* __restrict__ w,
+        const float* __restrict__ scale, float* __restrict__ part,
+        int* __restrict__ counters, T* __restrict__ out, int m, int k,
+        int n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kMma = std::is_same<T, bf16>::value;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * kBN, r0 = blockIdx.z * kRows;
+  const int slices = gridDim.y;
+  const int tiles = k / kBK / slices;
+  const int kb = blockIdx.y * tiles * kBK;
+  constexpr int kStage = stage_bytes<T>();
+
+  float acc[8][4] = {};       // bf16: the warp's m-tiles
+  float facc[kRows] = {};     // f32: channel tid's rows
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < tiles)
+      load_stage<T, kTrans>(smem + i * kStage, w, x, m, k, n, n0,
+                            kb + i * kBK, r0);
+    cp_async_commit();
+  }
+  for (int i = 0; i < tiles; ++i) {
+    cp_async_wait<kStages - 2>();   // tile i is here (this thread's copies)
+    __syncthreads();                // ... everyone's; tile i - 1 is done
+    const int nx = i + kStages - 1;
+    if (nx < tiles)
+      load_stage<T, kTrans>(smem + nx % kStages * kStage, w, x, m, k, n,
+                            n0, kb + nx * kBK, r0);
+    cp_async_commit();
+    if constexpr (kMma)
+      mma_stage<kTrans>(smem + i % kStages * kStage, acc, warp, g, t);
+    else
+      fma_stage<kTrans>(smem + i % kStages * kStage, facc, tid);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // channel tid's sums over the slice: the warps' in warp order (bf16)
+  float v[kRows];
+  if constexpr (kMma) {
+    float* red = reinterpret_cast<float*>(smem);   // [warp][row][channel]
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int ca = kTrans ? 16 * i + g : 16 * g + 2 * i;
+      const int cb = kTrans ? ca + 8 : ca + 1;
+      float* rw = red + (warp * kRows + 2 * t) * kBN;
+      rw[ca] = acc[i][0];
+      rw[kBN + ca] = acc[i][1];
+      rw[cb] = acc[i][2];
+      rw[kBN + cb] = acc[i][3];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      float s = red[r * kBN + tid];
+#pragma unroll
+      for (int wi = 1; wi < kWarps; ++wi)
+        s += red[(wi * kRows + r) * kBN + tid];
+      v[r] = s;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) v[r] = facc[r];
+  }
+
+  const int col = n0 + tid;
+  const bool live = col < n;
+  const int rows = min(kRows, m - r0);
+  if (slices == 1) {
+    if (!live) return;
+    const float sc = scale[col];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      if (r < rows)
+        out[static_cast<long long>(r0 + r) * n + col] =
+            from_f32<T>(v[r] * sc);
+    return;
+  }
+  if (live) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      if (r < rows)
+        part[(static_cast<long long>(blockIdx.y) * m + r0 + r) * n + col] =
+            v[r];
+  }
+
+  // the last slice of this (row group, channel block) to arrive sums them
+  __shared__ int last;
+  __threadfence();      // this slice's partials are visible to the others
+  __syncthreads();
+  if (tid == 0) {
+    int* count = counters + blockIdx.z * gridDim.x + blockIdx.x;
+    last = atomicAdd(count, 1) == slices - 1;
+    if (last) *count = 0;   // every slice is in: ready for the next launch
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (!live) return;
+  const float sc = scale[col];
+  for (int r = 0; r < rows; ++r) {
+    const float* p = part + static_cast<long long>(r0 + r) * n + col;
+    const long long stride = static_cast<long long>(m) * n;
+    float s = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < slices; ++j) s += __ldcg(p + j * stride);
+    out[static_cast<long long>(r0 + r) * n + col] = from_f32<T>(s * sc);
+  }
+}
+
+// The dynamic shared memory attribute, set once per instance and device.
+template <typename T, bool kTrans>
+cudaError_t smem_attr() {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(int8_mm<T, kTrans>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem_bytes<T>());
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return e;
 }
 
 template <typename T, bool kTrans>
 int launch(const void* x, const void* w, const float* scale, float* part,
-           void* out, int m, int k, int n, int ks, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(ks) * kBN +
-                      static_cast<size_t>(m) * ks * 4;
-  cudaError_t e = cudaFuncSetAttribute(
-      int8_mm_partial<T, kTrans>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+           int* counters, void* out, int m, int k, int n, int slices,
+           cudaStream_t stream) {
+  const cudaError_t e = smem_attr<T, kTrans>();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(n / kBN, k / ks);
-  int8_mm_partial<T, kTrans><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const int8_t*>(w), part, m, k, n,
-      ks);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int outs = m * n;
-  int8_mm_finish<T><<<(outs + 255) / 256, 256, 0, stream>>>(
-      part, scale, static_cast<T*>(out), m, n, k / ks);
+  const dim3 grid((n + kBN - 1) / kBN, slices, (m + kRows - 1) / kRows);
+  int8_mm<T, kTrans><<<grid, kThreads, smem_bytes<T>(), stream>>>(
+      static_cast<const T*>(x), static_cast<const int8_t*>(w), scale, part,
+      counters, static_cast<T*>(out), m, k, n);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kTrans>
+int info(int* out) {
+  cudaError_t e = smem_attr<T, kTrans>();
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, int8_mm<T, kTrans>);
+  int ctas = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &ctas, int8_mm<T, kTrans>, kThreads, smem_bytes<T>());
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = smem_bytes<T>();
+  out[3] = ctas;
+  return 0;
 }
 
 }  // namespace
 
-// x, w, scale, part (f32 [K / ks, M, N] workspace), out; M, K, N, ks (the
-// K slice: 128 or 256, dividing K), transpose (w is [N, K]), dtype code of
-// x and out, stream.
+// x, w, scale, part (f32 [slices, M, N] partials; unused with one slice),
+// counters (int32, one per row group and channel block, zero between
+// launches), out; M, K, N, slices (K / 128 must be a multiple), transpose
+// (w is [N, K]), dtype code of x and out, stream.
 extern "C" int tk_int8_matmul(const void* x, const void* w, const void* scale,
-                              void* part, void* out, int m, int k, int n,
-                              int ks, int transpose, int dtype,
-                              void* stream) {
-  if (m < 1 || m > 64 || (ks != 128 && ks != 256) || k < ks || k % ks ||
-      n < kBN || n % kBN)
+                              void* part, void* counters, void* out, int m,
+                              int k, int n, int slices, int transpose,
+                              int dtype, void* stream) {
+  if (m < 1 || m > 64 || k < kBK || k % kBK || n < 64 || n % 64 ||
+      slices < 1 || slices > 65535 || (k / kBK) % slices)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* sc = static_cast<const float*>(scale);
   float* pt = static_cast<float*>(part);
+  int* cnt = static_cast<int*>(counters);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
-    return transpose
-               ? launch<__nv_bfloat16, true>(x, w, sc, pt, out, m, k, n, ks,
-                                             st)
-               : launch<__nv_bfloat16, false>(x, w, sc, pt, out, m, k, n, ks,
-                                              st);
+    return transpose ? launch<bf16, true>(x, w, sc, pt, cnt, out, m, k, n,
+                                          slices, st)
+                     : launch<bf16, false>(x, w, sc, pt, cnt, out, m, k, n,
+                                           slices, st);
   if (dtype == kF32)
-    return transpose
-               ? launch<float, true>(x, w, sc, pt, out, m, k, n, ks, st)
-               : launch<float, false>(x, w, sc, pt, out, m, k, n, ks, st);
+    return transpose ? launch<float, true>(x, w, sc, pt, cnt, out, m, k, n,
+                                           slices, st)
+                     : launch<float, false>(x, w, sc, pt, cnt, out, m, k, n,
+                                            slices, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// transpose, dtype code, int[4] out: registers a thread, local (spill)
+// bytes a thread, dynamic shared memory and resident CTAs per SM of the
+// instance that takes those operands.
+extern "C" int tk_int8_matmul_info(int transpose, int dtype, int* out) {
+  if (dtype == kBF16)
+    return transpose ? info<bf16, true>(out) : info<bf16, false>(out);
+  if (dtype == kF32)
+    return transpose ? info<float, true>(out) : info<float, false>(out);
   return static_cast<int>(cudaErrorInvalidValue);
 }

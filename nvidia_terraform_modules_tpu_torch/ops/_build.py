@@ -66,9 +66,12 @@ _SIGNATURES = {
     # partials, span counters, B, H, KV, D, S, spans, scale, dtype code,
     # int8 flag, stream
     "tk_kv_decode": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P],
-    # x, w, scale, f32 partials, out, M, K, N, K slice, transpose, dtype
-    # code, stream
-    "tk_int8_matmul": [_P] * 5 + [_I] * 6 + [_P],
+    # x, w, scale, f32 partials, int32 counters, out, M, K, N, K slices,
+    # transpose, dtype code, stream
+    "tk_int8_matmul": [_P] * 6 + [_I] * 6 + [_P],
+    # transpose, dtype code, int[4] out (registers, local bytes, dynamic
+    # shared memory, CTAs per SM)
+    "tk_int8_matmul_info": [_I, _I, _P],
     # q, k, v, dout, lse, delta, ws, dq, dk, dv, B, S, H, D, scale,
     # mask kind, window, dtype code, output dtype code, stream
     "tk_flash_bwd_fused": [_P] * 10 + [_I] * 4 + [_F, _I, _I, _I, _I, _P],

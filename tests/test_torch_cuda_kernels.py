@@ -65,6 +65,7 @@ from nvidia_terraform_modules_tpu_torch.ops import (
     ring_self_attention,
     ulysses_self_attention,
 )
+from nvidia_terraform_modules_tpu_torch.ops import _scratch
 from nvidia_terraform_modules_tpu_torch.ops.decode_attention import (
     DECODE_SPAN,
     gather_logical,
@@ -345,6 +346,22 @@ def test_decode_row_alone_equals_row_in_batch(cuda, kernel):
     (64, 384, 640, False, torch.bfloat16),
     (1, 256, 128, True, torch.float32),
     (7, 640, 192, False, torch.float32),
+    # M across the mma's 8-row n-tiles (row groups of 8)
+    (1, 2048, 2048, False, torch.bfloat16),
+    (8, 2048, 2048, False, torch.bfloat16),
+    (9, 2048, 2048, False, torch.bfloat16),
+    (16, 2048, 2048, False, torch.bfloat16),
+    (64, 2048, 2048, False, torch.bfloat16),
+    # K = 8192: 16 slices summed in the launch
+    (8, 8192, 2048, False, torch.bfloat16),
+    (9, 8192, 2048, False, torch.bfloat16),
+    (8, 2048, 8192, True, torch.bfloat16),     # the head at the decode M
+    # a half-filled last channel block, split over slices
+    (4, 2048, 192, False, torch.bfloat16),
+    (4, 2048, 320, True, torch.bfloat16),
+    # f32 x: the CUDA-core sweep through the same split
+    (4, 2048, 2048, False, torch.float32),
+    (9, 2048, 8192, True, torch.float32),
 ])
 def test_int8_matmul_matches_plain(cuda, m, k, n, trans, dtype):
     g = torch.Generator().manual_seed(m * 3 + k + n)
@@ -354,16 +371,68 @@ def test_int8_matmul_matches_plain(cuda, m, k, n, trans, dtype):
     x = _randn(g, (m, k), dtype, cuda)
     before = launches["int8_matmul"]
     out = int8_matmul(x, w, scale, transpose_rhs=trans)
+    again = int8_matmul(x, w, scale, transpose_rhs=trans)
     rows = torch.cat([int8_matmul(x[i:i + 1], w, scale, transpose_rhs=trans)
                       for i in range(m)])
     torch.cuda.synchronize()
-    assert launches["int8_matmul"] == before + 1 + m
+    assert launches["int8_matmul"] == before + 2 + m
     ref = int8_matmul_ref(x, w, scale, transpose_rhs=trans).float()
     tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
     lim = tol * max(1.0, ref.abs().max().item())
     assert out.dtype == dtype and out.shape == (m, n)
     assert (out.float() - ref).abs().max().item() <= lim
+    assert torch.equal(out, again)           # the same bits on a second call
     assert torch.equal(out, rows)            # a row's bits do not depend on M
+    assert not _int8_counters(x).any()       # every counter back at zero
+
+
+def _int8_counters(x):
+    """The int8 matmul's split counters for launches on x's device and the
+    current stream."""
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    return _scratch._scratch[("int8_matmul", x.device.index, stream)][1]
+
+
+def _int8_case(seed, m, k, n, trans, dev):
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randint(-127, 128, (n, k) if trans else (k, n), generator=g,
+                      dtype=torch.int8).to(dev)
+    scale = (torch.rand((n,), generator=g) * 0.02 + 1e-3).to(dev)
+    return _randn(g, (m, k), torch.bfloat16, dev), w, scale
+
+
+def test_int8_matmul_back_to_back_shapes_share_the_scratch(cuda):
+    """Two shapes with different splits (16 slices, then 8) queued on one
+    stream with no synchronise between them: each equals its own call run
+    alone, bit for bit, and the counters end at zero."""
+    a = _int8_case(1, 4, 8192, 2048, False, cuda)
+    b = _int8_case(2, 8, 2048, 8192, True, cuda)
+    alone_a = int8_matmul(*a)
+    torch.cuda.synchronize()
+    alone_b = int8_matmul(*b, transpose_rhs=True)
+    torch.cuda.synchronize()
+    got = [(int8_matmul(*a), int8_matmul(*b, transpose_rhs=True))
+           for _ in range(3)]
+    torch.cuda.synchronize()
+    for out_a, out_b in got:
+        assert torch.equal(out_a, alone_a) and torch.equal(out_b, alone_b)
+    assert not _int8_counters(a[0]).any()
+
+
+def test_int8_matmul_on_a_side_stream(cuda):
+    """A call on another stream takes that stream's scratch and gives the
+    default stream's bits."""
+    x, w, scale = _int8_case(3, 4, 2048, 2048, False, cuda)
+    want = int8_matmul(x, w, scale)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = int8_matmul(x, w, scale)
+        other = _int8_counters(x)
+    side.synchronize()
+    assert torch.equal(got, want)
+    assert other is not _int8_counters(x) and not other.any()
 
 
 def test_int8_kernels_refuse_what_they_cannot_take(cuda):
