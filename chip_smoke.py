@@ -22,7 +22,8 @@ It builds the port's CUDA kernels from ``csrc/`` with nvcc (into
   one on the gathered view, and a row alone equal to the same row in a
   batch, bit for bit), checks the int8 engine's exactness on the card, serves
   the flagship traffic with int8 weights and an int8 pool (the launch
-  counts show every wave went through K7-int8 and K8), profiles it, and
+  counts show every wave went through K7-int8 and K8), profiles it (one
+  K8 kernel a weight product), and
   times ``make_quantized_decoder`` at the flagship's decode shape (batch 8,
   prompt 512, 64 new tokens; K6 and K8 on every step) and at 3584 + 32;
 - train: prints the registers, spills and CTAs per SM of each instance of
@@ -235,39 +236,47 @@ def limit_err(got, ref, kind: str, what: str) -> float:
     return err
 
 
-def kernel_int8_matmul(randn, dev) -> dict:
-    """K8 against its plain version at the wave's shapes (M = 4, and M = 8
-    at the square projection) and off the path (M = 1, M = 64, f32 x),
-    rows of an M = 4 call against M = 1 calls bit for bit, and a K the
-    kernel cannot take, which must raise; returns the main-path records by
-    shape name."""
+def kernel_int8_matmul(randn, dev) -> tuple[dict, dict]:
+    """K8 against its plain version at the wave's shapes (M = 4) and the
+    decode step's (M = 8), and off the path (M = 1, M = 64, f32 x), rows of
+    each call with M > 1 against M = 1 calls bit for bit, and a K the
+    kernel cannot take, which must raise. Each record carries the grid the
+    wrapper launches (``int8_grid``), the host's µs to issue one call and
+    the instance's registers, shared memory and CTAs per SM. Returns the
+    main-path records of the wave and of the decode step, by shape name."""
     import torch
 
     from nvidia_terraform_modules_tpu_torch.ops.int8_matmul import (
+        int8_grid,
         int8_matmul,
         int8_matmul_ref,
+        int8_matmul_resources,
     )
     from nvidia_terraform_modules_tpu_torch.utils.timing import (
         cuda_median_ms,
+        host_ms,
         sync,
     )
 
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [(name, SLOTS, k, n, trans, bf16, True)
+    cases = [(name, m, k, n, trans, bf16, path)
+             for path, m in (("wave", SLOTS), ("decode", DECODE_BATCH))
              for name, k, n, trans, _ in WAVE_MATMULS]
-    cases += [("square", 8, 2048, 2048, False, bf16, False),
-              ("square", 1, 2048, 2048, False, bf16, False),
-              ("square", 64, 2048, 2048, False, bf16, False),
-              ("square", 4, 2048, 2048, False, f32, False)]
-    main: dict = {}
-    for name, m, k, n, trans, dtype, on_path in cases:
+    cases += [("square", 1, 2048, 2048, False, bf16, None),
+              ("square", 64, 2048, 2048, False, bf16, None),
+              ("square", 4, 2048, 2048, False, f32, None)]
+    main: dict = {"wave": {}, "decode": {}}
+    for name, m, k, n, trans, dtype, path in cases:
         w = torch.randint(-127, 128, (n, k) if trans else (k, n),
                           generator=randn.gen, device=dev,
                           dtype=torch.int8)
         scale = torch.rand((n,), generator=randn.gen, device=dev) * 2e-3 \
             + 1e-4
         x = randn((m, k), dtype)
-        out = int8_matmul(x, w, scale, transpose_rhs=trans)
+
+        def call(x=x, w=w, scale=scale, trans=trans):
+            return int8_matmul(x, w, scale, transpose_rhs=trans)
+        out = call()
         ref = int8_matmul_ref(x, w, scale, transpose_rhs=trans)
         sync()
         kind = "bf16" if dtype == bf16 else "f32"
@@ -279,8 +288,7 @@ def kernel_int8_matmul(randn, dev) -> dict:
             if not torch.equal(rows, out):
                 raise AssertionError(f"int8_matmul {name} M={m}: rows "
                                      f"differ from M=1 calls")
-        ms = cuda_median_ms(lambda: int8_matmul(x, w, scale,
-                                                transpose_rhs=trans))
+        ms = cuda_median_ms(call)
         plain_ms = cuda_median_ms(lambda: int8_matmul_ref(
             x, w, scale, transpose_rhs=trans))
         # yardstick: cuBLAS on the dequantised weight (dequant untimed)
@@ -291,15 +299,19 @@ def kernel_int8_matmul(randn, dev) -> dict:
         elt = x.element_size()
         nbytes = k * n + 4 * n + m * k * elt + m * n * elt
         bound_ms, bound_by = bound(2.0 * m * k * n, nbytes, kind)
+        blocks, slices, groups = int8_grid(m, k, n)
         rec = dict(shape=name, m=m, k=k, n=n, transposed=trans,
-                   dtype=str(dtype), main_path=on_path, max_abs_err=err,
+                   dtype=str(dtype), main_path=path, max_abs_err=err,
                    rows_bitwise=m > 1, ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, ctas=(n // 64) * (k // (
-                       256 if k % 256 == 0 else 128)))
+                   bound_by=bound_by, slices=slices,
+                   ctas=blocks * slices * groups,
+                   host_us=host_ms(call, iters=50) * 1e3,
+                   **int8_matmul_resources(transpose_rhs=trans,
+                                           dtype=dtype))
         emit("kernel_int8_matmul", **rec)
-        if on_path:
-            main[name] = rec
+        if path:
+            main[path][name] = rec
         del w, wd, wd_op
     x = randn((4, 2048), bf16)
     w = torch.zeros((2048, 2048), dtype=torch.int8, device=dev)
@@ -310,7 +322,7 @@ def kernel_int8_matmul(randn, dev) -> dict:
         emit("kernel_int8_matmul_refusal", k=100, raised=str(exc)[:80])
     else:
         raise AssertionError("int8_matmul took K = 100")
-    return main
+    return main["wave"], main["decode"]
 
 
 def wave_mean(main: dict, key: str) -> float:
@@ -1798,7 +1810,7 @@ def main() -> int:
 
     k6_main = kernel_kv_decode(randn, dev)
     kernel_decode_spans(randn, dev)
-    k8_main = kernel_int8_matmul(randn, dev)
+    k8_main, k8_decode = kernel_int8_matmul(randn, dev)
 
     # ------------------------------------------------------- serve_exact
     cfg = BurnInConfig(vocab=512, d_model=256, n_heads=2, n_kv_heads=1,
@@ -2000,9 +2012,19 @@ def main() -> int:
         prof_wall_ms = (time.monotonic() - t0) * 1e3
     summary = profile_summary(prof, prof_wall_ms)
     device_ms = summary["device_ms"]
+    # K8's kernels by name: one launch a product when the trace saw the
+    # device (an empty trace leaves it "not measured")
+    k8_kernels = {evt.key[:90]: evt.count for evt in prof.key_averages()
+                  if str(getattr(evt, "device_type", "")).endswith("CUDA")
+                  and "int8_mm" in evt.key}
+    products = engine8.last_stats["waves"] * per_wave
+    if device_ms is not None and sum(k8_kernels.values()) != products:
+        raise AssertionError(f"serve_int8_profile: K8 kernels {k8_kernels}"
+                             f", expected one a product ({products})")
     emit("serve_int8_profile", **summary,
          busy_share_of_unprofiled_wall=(device_ms / (wall8_s * 1e3)
-                                        if device_ms is not None else None))
+                                        if device_ms is not None else None),
+         int8_matmul_kernels=k8_kernels, int8_products=products)
     del engine8, poolw8, qparams
     torch.cuda.empty_cache()
 
@@ -2083,15 +2105,26 @@ def main() -> int:
          **{key: k6_main["step"][key] for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")}},
-        # K8: the mean per launch over a wave's 49 products
+        # K8: the mean per launch over a wave's 49 products, and over a
+        # decode step's (M = 8)
         {"name": "int8_matmul", "route": "cuda",
          "source": "nvidia_terraform_modules_tpu_torch/csrc/int8_matmul.cu",
          "replaces": "nvidia_terraform_modules_tpu/ops/int8_matmul.py:90",
          "launches": launches8["int8_matmul"],
          "max_abs_err": max(r["max_abs_err"] for r in k8_main.values()),
          **{key: wave_mean(k8_main, key) for key in (
-             "ms", "plain_ms", "bound_ms", "library_ms")},
-         "bound_by": k8_main["square"]["bound_by"]},
+             "ms", "plain_ms", "bound_ms", "library_ms", "host_us")},
+         "bound_by": k8_main["square"]["bound_by"],
+         "resources": {
+             layout: {key: k8_main[name][key] for key in (
+                 "registers", "spill_bytes", "smem_bytes", "ctas_per_sm")}
+             for layout, name in (("[K, N]", "square"), ("[N, K]", "head"))},
+         "decode": {"launches": decode_launches["int8_matmul"],
+                    "max_abs_err": max(r["max_abs_err"]
+                                       for r in k8_decode.values()),
+                    **{key: wave_mean(k8_decode, key) for key in (
+                        "ms", "plain_ms", "bound_ms", "library_ms",
+                        "host_us")}}},
     ]
     for name, line in (("flash_bwd_fused", 724), ("flash_dq", 657),
                        ("flash_dkv", 688)):

@@ -17,37 +17,45 @@
 // 3.35 TB/s — half of what a bf16 weight moves.
 //
 // What the design does about it — one launch a product:
-// - the grid is (channel blocks of kBN = 128, K slices, row groups of 8):
-//   the K split (int8_grid in ops/int8_matmul.py, a function of K and N
-//   alone) spreads the flagship's 4-16 MB weights over 128-256 CTAs;
-// - each CTA sweeps its slice in kBK = 128-deep tiles through kStages
-//   cp.async stages (16 KB of weight and x's 8 rows a stage), so three
-//   tiles are in flight while one is multiplied: up to 48 KB a CTA, three
-//   CTAs an SM;
+// - the grid is (channel blocks of kBN = 128, K slices, row groups of 8);
+//   the K split (int8_grid in ops/int8_matmul.py: a function of K and N
+//   alone, at most kMaxSlices, one CTA an SM) puts the flagship's 4-16 MB
+//   weights on 64-128 SMs;
+// - each CTA fills all kStages cp.async stages at once (16 KB of weight and
+//   x's 8 rows a stage) and refills a stage as soon as its tile is
+//   multiplied, so a slice of up to four tiles is requested in one go;
 // - bf16 x: the products run on the tensor cores (mma.sync m16n8k16, bf16
 //   in, f32 out) with the output channels on the A side (16 a fragment)
 //   and x's rows on B's n = 8; each of the 4 warps takes 32 of a tile's
-//   128 k for all 128 channels. The int8 bytes are read from shared memory
-//   16 (or 8) at a time and converted to bf16 in registers (exactly: a
-//   bit trick of two LOP3s and one bf16x2 FMA for each pair);
+//   128 k for all 128 channels, and the warps' sums add in warp order. The
+//   int8 bytes are read from shared memory 16 (or 8) at a time and
+//   converted to bf16 in registers, exactly, with one PRMT, two LOP3s and
+//   one bf16x2 FMA a pair — on this card the integer pipe, which runs at
+//   half the FMA pipe's rate, paces the tile;
 // - channels and k sit in a fixed permutation inside a tile, the same for
 //   A and B, chosen so the fragments fill from 16-byte reads of a [K, N]
 //   tile and 8-byte reads of an [N, K] tile (the head's rows are already
-//   k-contiguous: no transpose); the shared tiles are XOR-swizzled so those
-//   reads are free of bank conflicts;
+//   k-contiguous: no transpose); the shared tiles and the warps' sums are
+//   XOR-swizzled so those reads and stores are free of bank conflicts;
 // - f32 x (off the main path) stays a CUDA-core sweep over the same stages:
 //   TF32 would break its 1e-5 limit;
-// - the K slices are combined inside the launch: each CTA writes its f32
-//   partial tile, then __threadfence(); an atomic counter per (row group,
-//   channel block) elects the last CTA, which resets the counter to 0 and
-//   sums the slices in ascending order with L1-bypassing loads, applies the
-//   scale and casts. With one slice the CTA writes the output at once.
+// - the K slices of a channel block are one thread-block cluster and are
+//   combined inside the launch through distributed shared memory: CTA j of
+//   the cluster owns a share of the channels, every CTA stores its f32 sums
+//   of that share (and the first its scales, read while the weights
+//   stream in) into CTA j's shared memory, one cluster barrier, then CTA j
+//   adds the slices in ascending order, applies the scale and casts.
+//   Nothing but the operands and the output touches global memory: no
+//   partials, no counters, no fence. With one slice the CTA writes the
+//   output at once.
 //
 // Bits: the split, the tile order and every accumulation order are
 // functions of K, N and the orientation only — a row's sum never depends
 // on M or on the other rows (each row group is its own computation, and an
 // mma's columns are independent) — so the rows of an M = 4 call equal
 // M = 1 calls bit for bit, and two calls give the same bits.
+
+#include <cooperative_groups.h>
 
 #include <atomic>
 #include <type_traits>
@@ -62,9 +70,10 @@ constexpr int kBN = 128;          // output channels per CTA
 constexpr int kBK = 128;          // k per stage
 constexpr int kRows = 8;          // x rows per CTA: one n-tile of the mma
 constexpr int kStages = 4;
+constexpr int kMaxSlices = 8;     // a portable cluster: K slices a launch
 constexpr int kWBytes = kBK * kBN;   // one stage's int8 weight tile
-static_assert(kBN == kThreads, "one output channel per thread at the end");
-static_assert(kBK == 32 * kWarps, "each warp takes 32 k of a stage");
+static_assert(kBK == 32 * kWarps, "each warp takes two 16-deep k-steps");
+static_assert(kThreads == kBN, "one thread a channel at the end");
 
 template <typename T>
 __host__ __device__ constexpr int stage_bytes() {
@@ -80,8 +89,8 @@ static_assert(kWarps * kRows * kBN * 4 <= smem_bytes<bf16>(),
 // Byte offset of 16-byte chunk c (of 8) of row r of a weight tile (128
 // bytes a row). [K, N] rows are k: warp w reads rows 32w + 8t + 4s + e at
 // chunk g, so the chunk is XORed with 2·((r >> 3) & 3) = 2t; [N, K] rows
-// are channels: lanes read rows g (and g + 8) at chunk 2w + t / 2, so the
-// chunk is XORed with 2·(r & 3).
+// are channels: lanes read 8 bytes of rows g (and g + 8) at chunk 2w + t /
+// 2, so the chunk is XORed with 2·(r & 3).
 template <bool kTrans>
 __device__ __forceinline__ int w_off(int r, int c) {
   const int x = kTrans ? (r & 3) << 1 : ((r >> 3) & 3) << 1;
@@ -89,8 +98,8 @@ __device__ __forceinline__ int w_off(int r, int c) {
 }
 
 // Byte offset of 16-byte chunk c of row r of the x tile (kBK values of T a
-// row): odd rows XOR the chunk with 4, so the bf16 reads of rows g and g + 1
-// fall in other banks.
+// row). Lanes read 16 bytes of rows g at chunk 4w + t (bf16), so odd rows
+// XOR the chunk with 4.
 template <typename T>
 __device__ __forceinline__ int x_off(int r, int c) {
   return kWBytes + r * kBK * static_cast<int>(sizeof(T)) +
@@ -123,9 +132,7 @@ __device__ __forceinline__ void load_stage(unsigned char* st,
   }
   constexpr int kPer = 16 / static_cast<int>(sizeof(T));   // values a chunk
   constexpr int kChunks = kBK / kPer;                       // chunks a row
-#pragma unroll
-  for (int it = 0; it < kRows * kChunks / kThreads; ++it) {
-    const int i = it * kThreads + tid;
+  for (int i = tid; i < kRows * kChunks; i += kThreads) {
     const int r = i / kChunks, c = i % kChunks;
     const bool ok = r0 + r < m;
     const T* src = x + static_cast<long long>(r0 + r) * k + k0 + c * kPer;
@@ -136,9 +143,18 @@ __device__ __forceinline__ void load_stage(unsigned char* st,
 // Two int8 values at bytes 0 and 2 of v → two bf16, exactly: with l = v &
 // 127, bf16 0x4300 | l is 128 + l, and 0x4300 | (v & 128) is 128, or 256
 // when v < 0; their difference is v.
+// (a & b) | c in one LOP3: the integer pipe, half the FMA pipe's rate on
+// Hopper, is what the conversion spends most.
+__device__ __forceinline__ uint32_t and_or(uint32_t a, uint32_t b,
+                                          uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0xea;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
 __device__ __forceinline__ uint32_t i8x2_bf16x2(uint32_t v) {
-  const uint32_t lo = (v & 0x007f007fu) | 0x43004300u;
-  const uint32_t hi = (v & 0x00800080u) | 0x43004300u;
+  const uint32_t lo = and_or(v, 0x007f007fu, 0x43004300u);
+  const uint32_t hi = and_or(v, 0x00800080u, 0x43004300u);
   uint32_t d;
   asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
       : "=r"(d) : "r"(hi), "r"(0xbf80bf80u), "r"(lo));   // lo - hi
@@ -151,37 +167,33 @@ __device__ __forceinline__ uint32_t pair(uint32_t a, int p, uint32_t b,
   return i8x2_bf16x2(__byte_perm(a, b, p | ((4 + q) << 8)));
 }
 
-__device__ __forceinline__ uint4 lds128(const unsigned char* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-__device__ __forceinline__ uint2 lds64(const unsigned char* p) {
-  return *reinterpret_cast<const uint2*>(p);
-}
 __device__ __forceinline__ uint32_t word(const uint4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
 // One stage on the tensor cores: warp w multiplies k [32w, 32w + 32) of the
 // tile, two k-steps of 16, into acc[i] (m-tile i: 16 channels by the 8 x
-// rows). Slot j of a k-step s maps to k = 8t + 4s + {0, 1, 2, 3} for slots
-// {2t, 2t + 1, 2t + 8, 2t + 9} — in A and B alike.
+// rows). Slots {2t, 2t + 1, 2t + 8, 2t + 9} of k-step s hold k = 32w + 8t
+// + 4s + {0, 1, 2, 3} — in A and B alike.
 //   [K, N]: m-tile i holds channels 16g + 2i (A row g) and 16g + 2i + 1
-//   (row g + 8): a lane's 16-byte read of row k, chunk g, serves 8 m-tiles.
+//   (row g + 8): a lane's 16-byte read of row k, chunk g, serves 8
+//   m-tiles.
 //   [N, K]: m-tile i holds channels 16i + g and 16i + g + 8: a lane's
 //   8-byte read of a channel row serves both k-steps.
 template <bool kTrans>
 __device__ __forceinline__ void mma_stage(const unsigned char* st,
                                           float (&acc)[8][4], int warp,
                                           int g, int t) {
-  const uint4 xv = lds128(st + x_off<bf16>(g, 4 * warp + t));
+  const uint4 xv = *reinterpret_cast<const uint4*>(
+      st + x_off<bf16>(g, 4 * warp + t));
   if (!kTrans) {
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
       uint4 l[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        l[e] = lds128(st + (32 * warp + 8 * t + 4 * s + e) * 128 +
-                      ((g ^ (2 * t)) << 4));
+        l[e] = *reinterpret_cast<const uint4*>(
+            st + (32 * warp + 8 * t + 4 * s + e) * 128 + ((g ^ (2 * t)) << 4));
       const uint32_t b0 = s ? xv.z : xv.x, b1 = s ? xv.w : xv.y;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
@@ -199,8 +211,10 @@ __device__ __forceinline__ void mma_stage(const unsigned char* st,
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int r = 16 * i + g;
-      const uint2 lo = lds64(st + w_off<true>(r, c) + half);
-      const uint2 hi = lds64(st + w_off<true>(r + 8, c) + half);
+      const uint2 lo = *reinterpret_cast<const uint2*>(
+          st + w_off<true>(r, c) + half);
+      const uint2 hi = *reinterpret_cast<const uint2*>(
+          st + w_off<true>(r + 8, c) + half);
 #pragma unroll
       for (int s = 0; s < 2; ++s) {
         const uint32_t wl = s ? lo.y : lo.x, wh = s ? hi.y : hi.x;
@@ -232,50 +246,72 @@ __device__ __forceinline__ void fma_stage(const unsigned char* st,
   }
 }
 
+// Column of channel ch in row r of the warps' sums ([warp][row][channel]):
+// a permutation within the row that spreads a warp's stores of its
+// accumulators over the 32 banks (the reads, one channel a thread, stay
+// conflict-free).
+template <bool kTrans>
+__device__ __forceinline__ int red_col(int r, int ch) {
+  return ch ^ (kTrans ? ((r >> 1) & 3) << 3
+                      : (((ch >> 5) & 3) << 2) | ((r >> 1) & 3));
+}
+
+template <int kPending>
+__device__ __forceinline__ void wait_tiles(int pending) {
+  if constexpr (kPending > 0) {
+    if (pending < kPending) return wait_tiles<kPending - 1>(pending);
+  }
+  cp_async_wait<kPending>();
+}
+
 // One CTA: channel block blockIdx.x, K slice blockIdx.y (of gridDim.y),
 // row group blockIdx.z.
 template <typename T, bool kTrans>
 __global__ void __launch_bounds__(kThreads)
 int8_mm(const T* __restrict__ x, const int8_t* __restrict__ w,
-        const float* __restrict__ scale, float* __restrict__ part,
-        int* __restrict__ counters, T* __restrict__ out, int m, int k,
+        const float* __restrict__ scale, T* __restrict__ out, int m, int k,
         int n) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr bool kMma = std::is_same<T, bf16>::value;
+  constexpr int kStage = stage_bytes<T>();
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
+  const int c = tid;             // the epilogue's channel
   const int n0 = blockIdx.x * kBN, r0 = blockIdx.z * kRows;
   const int slices = gridDim.y;
   const int tiles = k / kBK / slices;
   const int kb = blockIdx.y * tiles * kBK;
-  constexpr int kStage = stage_bytes<T>();
+  // the scale of channel c, read while the weights stream in
+  const float sc = n0 + c < n ? __ldg(scale + n0 + c) : 0.f;
 
-  float acc[8][4] = {};       // bf16: the warp's m-tiles
-  float facc[kRows] = {};     // f32: channel tid's rows
-#pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
-    if (i < tiles)
-      load_stage<T, kTrans>(smem + i * kStage, w, x, m, k, n, n0,
-                            kb + i * kBK, r0);
+  // every stage is filled at once; a stage is refilled at the top of the
+  // sweep step after the one that read it
+  const int first = min(tiles, kStages);
+  for (int i = 0; i < first; ++i) {
+    load_stage<T, kTrans>(smem + i * kStage, w, x, m, k, n, n0,
+                          kb + i * kBK, r0);
     cp_async_commit();
   }
+  float acc[8][4] = {};           // bf16: the warp's m-tiles
+  float facc[kRows] = {};         // f32: channel c's rows
+  int issued = first;
   for (int i = 0; i < tiles; ++i) {
-    cp_async_wait<kStages - 2>();   // tile i is here (this thread's copies)
+    wait_tiles<kStages - 1>(issued - i - 1);   // tile i is here
     __syncthreads();                // ... everyone's; tile i - 1 is done
-    const int nx = i + kStages - 1;
-    if (nx < tiles)
-      load_stage<T, kTrans>(smem + nx % kStages * kStage, w, x, m, k, n,
-                            n0, kb + nx * kBK, r0);
-    cp_async_commit();
+    if (i > 0 && issued < tiles) {  // refill the stage tile i - 1 used
+      load_stage<T, kTrans>(smem + (issued % kStages) * kStage, w, x, m, k,
+                            n, n0, kb + issued * kBK, r0);
+      cp_async_commit();
+      ++issued;
+    }
     if constexpr (kMma)
-      mma_stage<kTrans>(smem + i % kStages * kStage, acc, warp, g, t);
+      mma_stage<kTrans>(smem + (i % kStages) * kStage, acc, warp, g, t);
     else
-      fma_stage<kTrans>(smem + i % kStages * kStage, facc, tid);
+      fma_stage<kTrans>(smem + (i % kStages) * kStage, facc, c);
   }
-  cp_async_wait<0>();
   __syncthreads();
 
-  // channel tid's sums over the slice: the warps' in warp order (bf16)
+  // channel c's sums over the slice: the warps' in warp order (bf16)
   float v[kRows];
   if constexpr (kMma) {
     float* red = reinterpret_cast<float*>(smem);   // [warp][row][channel]
@@ -284,18 +320,19 @@ int8_mm(const T* __restrict__ x, const int8_t* __restrict__ w,
       const int ca = kTrans ? 16 * i + g : 16 * g + 2 * i;
       const int cb = kTrans ? ca + 8 : ca + 1;
       float* rw = red + (warp * kRows + 2 * t) * kBN;
-      rw[ca] = acc[i][0];
-      rw[kBN + ca] = acc[i][1];
-      rw[cb] = acc[i][2];
-      rw[kBN + cb] = acc[i][3];
+      rw[red_col<kTrans>(2 * t, ca)] = acc[i][0];
+      rw[kBN + red_col<kTrans>(2 * t + 1, ca)] = acc[i][1];
+      rw[red_col<kTrans>(2 * t, cb)] = acc[i][2];
+      rw[kBN + red_col<kTrans>(2 * t + 1, cb)] = acc[i][3];
     }
     __syncthreads();
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      float s = red[r * kBN + tid];
+      const int col = red_col<kTrans>(r, c);
+      float s = red[r * kBN + col];
 #pragma unroll
       for (int wi = 1; wi < kWarps; ++wi)
-        s += red[(wi * kRows + r) * kBN + tid];
+        s += red[(wi * kRows + r) * kBN + col];
       v[r] = s;
     }
   } else {
@@ -303,48 +340,44 @@ int8_mm(const T* __restrict__ x, const int8_t* __restrict__ w,
     for (int r = 0; r < kRows; ++r) v[r] = facc[r];
   }
 
-  const int col = n0 + tid;
-  const bool live = col < n;
   const int rows = min(kRows, m - r0);
   if (slices == 1) {
-    if (!live) return;
-    const float sc = scale[col];
+    if (n0 + c >= n) return;
 #pragma unroll
     for (int r = 0; r < kRows; ++r)
       if (r < rows)
-        out[static_cast<long long>(r0 + r) * n + col] =
+        out[static_cast<long long>(r0 + r) * n + n0 + c] =
             from_f32<T>(v[r] * sc);
     return;
   }
-  if (live) {
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      if (r < rows)
-        part[(static_cast<long long>(blockIdx.y) * m + r0 + r) * n + col] =
-            v[r];
-  }
 
-  // the last slice of this (row group, channel block) to arrive sums them
-  __shared__ int last;
-  __threadfence();      // this slice's partials are visible to the others
-  __syncthreads();
-  if (tid == 0) {
-    int* count = counters + blockIdx.z * gridDim.x + blockIdx.x;
-    last = atomicAdd(count, 1) == slices - 1;
-    if (last) *count = 0;   // every slice is in: ready for the next launch
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  if (!live) return;
-  const float sc = scale[col];
-  for (int r = 0; r < rows; ++r) {
-    const float* p = part + static_cast<long long>(r0 + r) * n + col;
-    const long long stride = static_cast<long long>(m) * n;
-    float s = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < slices; ++j) s += __ldcg(p + j * stride);
-    out[static_cast<long long>(r0 + r) * n + col] = from_f32<T>(s * sc);
+  // The slices of a (channel block, row group) are one cluster. CTA j of
+  // the cluster owns channels [j·kBN / slices, (j + 1)·kBN / slices): every
+  // CTA stores its sums of those channels (and the first CTA their scales)
+  // into CTA j's shared memory, one cluster barrier, then CTA j adds the
+  // slices in ascending order.
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  __shared__ float recv[kRows * kBN + kBN];   // apart from the stages
+  const int own = ((c + 1) * slices - 1) / kBN;   // the owner of channel c
+  const int o0 = own * kBN / slices;
+  const int width = (own + 1) * kBN / slices - o0;
+  float* dst = cluster.map_shared_rank(recv, own) +
+               blockIdx.y * kRows * width + (c - o0);
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) dst[r * width] = v[r];
+  if (blockIdx.y == 0)
+    cluster.map_shared_rank(recv, own)[kRows * kBN + c] = sc;
+  cluster.sync();       // every slice's sums are in their owners' memory
+  const int j = blockIdx.y;
+  const int c0 = j * kBN / slices, w0 = (j + 1) * kBN / slices - c0;
+  for (int i = tid; i < w0 * kRows; i += kThreads) {
+    const int r = i / w0, cc = i % w0;
+    if (r >= rows || n0 + c0 + cc >= n) continue;
+    float sum = 0.f;
+    for (int q = 0; q < slices; ++q) sum += recv[(q * kRows + r) * w0 + cc];
+    out[static_cast<long long>(r0 + r) * n + n0 + c0 + cc] =
+        from_f32<T>(sum * recv[kRows * kBN + c0 + cc]);
   }
 }
 
@@ -365,15 +398,26 @@ cudaError_t smem_attr() {
 }
 
 template <typename T, bool kTrans>
-int launch(const void* x, const void* w, const float* scale, float* part,
-           int* counters, void* out, int m, int k, int n, int slices,
-           cudaStream_t stream) {
-  const cudaError_t e = smem_attr<T, kTrans>();
+int launch(const void* x, const void* w, const float* scale, void* out,
+           int m, int k, int n, int slices, cudaStream_t stream) {
+  cudaError_t e = smem_attr<T, kTrans>();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((n + kBN - 1) / kBN, slices, (m + kRows - 1) / kRows);
-  int8_mm<T, kTrans><<<grid, kThreads, smem_bytes<T>(), stream>>>(
-      static_cast<const T*>(x), static_cast<const int8_t*>(w), scale, part,
-      counters, static_cast<T*>(out), m, k, n);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n + kBN - 1) / kBN, slices, (m + kRows - 1) / kRows);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem_bytes<T>();
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = slices;   // the slices of a channel block
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, int8_mm<T, kTrans>, static_cast<const T*>(x),
+                         static_cast<const int8_t*>(w), scale,
+                         static_cast<T*>(out), m, k, n);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -389,44 +433,38 @@ int info(int* out) {
   if (e != cudaSuccess) return static_cast<int>(e);
   out[0] = fa.numRegs;
   out[1] = static_cast<int>(fa.localSizeBytes);
-  out[2] = smem_bytes<T>();
+  out[2] = smem_bytes<T>() + static_cast<int>(fa.sharedSizeBytes);
   out[3] = ctas;
   return 0;
 }
 
 }  // namespace
 
-// x, w, scale, part (f32 [slices, M, N] partials; unused with one slice),
-// counters (int32, one per row group and channel block, zero between
-// launches), out; M, K, N, slices (K / 128 must be a multiple), transpose
-// (w is [N, K]), dtype code of x and out, stream.
+// x, w, scale, out; M, K, N, slices (K / 128 must be a multiple, at most
+// kMaxSlices), transpose (w is [N, K]), dtype code of x and out, stream.
 extern "C" int tk_int8_matmul(const void* x, const void* w, const void* scale,
-                              void* part, void* counters, void* out, int m,
-                              int k, int n, int slices, int transpose,
-                              int dtype, void* stream) {
+                              void* out, int m, int k, int n, int slices,
+                              int transpose, int dtype, void* stream) {
   if (m < 1 || m > 64 || k < kBK || k % kBK || n < 64 || n % 64 ||
-      slices < 1 || slices > 65535 || (k / kBK) % slices)
+      slices < 1 || slices > kMaxSlices || (k / kBK) % slices)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* sc = static_cast<const float*>(scale);
-  float* pt = static_cast<float*>(part);
-  int* cnt = static_cast<int*>(counters);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
-    return transpose ? launch<bf16, true>(x, w, sc, pt, cnt, out, m, k, n,
-                                          slices, st)
-                     : launch<bf16, false>(x, w, sc, pt, cnt, out, m, k, n,
-                                           slices, st);
+    return transpose ? launch<bf16, true>(x, w, sc, out, m, k, n, slices, st)
+                     : launch<bf16, false>(x, w, sc, out, m, k, n, slices,
+                                           st);
   if (dtype == kF32)
-    return transpose ? launch<float, true>(x, w, sc, pt, cnt, out, m, k, n,
-                                           slices, st)
-                     : launch<float, false>(x, w, sc, pt, cnt, out, m, k, n,
-                                            slices, st);
+    return transpose ? launch<float, true>(x, w, sc, out, m, k, n, slices,
+                                           st)
+                     : launch<float, false>(x, w, sc, out, m, k, n, slices,
+                                            st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // transpose, dtype code, int[4] out: registers a thread, local (spill)
-// bytes a thread, dynamic shared memory and resident CTAs per SM of the
-// instance that takes those operands.
+// bytes a thread, shared memory (dynamic and static) and resident CTAs per
+// SM of the instance that takes those operands.
 extern "C" int tk_int8_matmul_info(int transpose, int dtype, int* out) {
   if (dtype == kBF16)
     return transpose ? info<bf16, true>(out) : info<bf16, false>(out);

@@ -66,9 +66,8 @@ _SIGNATURES = {
     # partials, span counters, B, H, KV, D, S, spans, scale, dtype code,
     # int8 flag, stream
     "tk_kv_decode": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P],
-    # x, w, scale, f32 partials, int32 counters, out, M, K, N, K slices,
-    # transpose, dtype code, stream
-    "tk_int8_matmul": [_P] * 6 + [_I] * 6 + [_P],
+    # x, w, scale, out, M, K, N, K slices, transpose, dtype code, stream
+    "tk_int8_matmul": [_P] * 4 + [_I] * 6 + [_P],
     # transpose, dtype code, int[4] out (registers, local bytes, dynamic
     # shared memory, CTAs per SM)
     "tk_int8_matmul_info": [_I, _I, _P],

@@ -43,13 +43,16 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._scratch import split_scratch
 from .flash_attention import NEG_INF
 
 
 # Keys one CTA of the decode kernels folds: csrc/decode_tiles.cuh's kSpan
 # (the C entry points refuse a span count of any other split).
 DECODE_SPAN = 64
+
+# span partials (f32) and counters (int32, zero between launches) by
+# (device index, stream)
+_scratch: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def decode_spans(rows: int) -> int:
@@ -75,9 +78,17 @@ def _span_scratch(device, stream, shape: tuple, counters: int):
     """The f32 span partials (room for ``shape``, a
     :func:`decode_workspace_shape`) and at least ``counters`` zeroed int32
     counters for launches on ``stream``: allocated once, and grown when a
-    launch needs more (``_scratch.split_scratch``)."""
-    return split_scratch("decode", device, stream,
-                         shape[0] * shape[1] * shape[2] * shape[3], counters)
+    launch needs more."""
+    key = (device.index, stream)
+    ws, cnt = _scratch.get(key, (None, None))
+    partials = shape[0] * shape[1] * shape[2] * shape[3]
+    if ws is None or ws.numel() < partials:
+        ws = torch.empty((partials,), dtype=torch.float32, device=device)
+    if cnt is None or cnt.numel() < counters:
+        cnt = torch.zeros((max(counters, 256),), dtype=torch.int32,
+                          device=device)
+    _scratch[key] = (ws, cnt)
+    return ws, cnt
 
 
 def masked_attention(q, k_cache, v_cache, q_pos, scale: float,

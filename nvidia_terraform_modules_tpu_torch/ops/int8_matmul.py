@@ -16,13 +16,12 @@ takes bf16/f32 ``x`` with ``M <= 64``, ``K % 128 == 0`` and ``N % 64 ==
 the reference's plain version does.
 
 K8 is one launch a product: its grid (:func:`int8_grid`) is channel blocks
-of :data:`K8_BN` by K slices by row groups of :data:`K8_ROWS`, and the
-slices' f32 partials are summed in slice order inside the launch by the
-last CTA of each (row group, channel block), which an int32 counter
-elects. The slice count follows from K and N alone, never from M, so a
-row's bits do not depend on the other rows. The partials and counters
-live in one scratch per device and stream (``_scratch.split_scratch``),
-allocated once and grown to the widest launch.
+of :data:`K8_BN` by K slices by row groups of :data:`K8_ROWS`. The slices
+of a channel block form one thread-block cluster and are summed in slice
+order inside the launch through the cluster's shared memory, so the
+kernel needs no scratch and keeps nothing between launches. The slice
+count follows from K and N alone, never from M, so a row's bits do not
+depend on the other rows.
 """
 
 from __future__ import annotations
@@ -33,16 +32,21 @@ import functools
 import torch
 
 from . import _build
-from ._scratch import split_scratch
 
 MAX_M = 64   # the decode regime the kernel is for (the caller's M rule)
 # csrc/int8_matmul.cu's tile: output channels a CTA, k a pipeline stage,
 # x rows a CTA (one n-tile of the mma)
 K8_BN, K8_BK, K8_ROWS = 128, 128, 8
-# the CTAs the K split aims at: two for each of the H100's 132 SMs (three
-# fit an SM). A constant, never read from the device, so the split — and
-# the bits — are the same on every card.
-K8_CTAS = 264
+# the CTAs the K split aims at: one for each of the H100's 132 SMs. A
+# constant, never read from the device, so the split — and the bits — are
+# the same on every card.
+K8_CTAS = 132
+# the fewest tiles a slice sweeps: each slice costs a CTA's start, its
+# share of the cluster's combine and the wait for the cluster's slowest CTA
+K8_MIN_TILES = 4
+# the most K slices: a cluster of the slices stays within the portable
+# cluster size (csrc/int8_matmul.cu kMaxSlices)
+K8_MAX_SLICES = 8
 
 
 def int8_matmul_ref(x, w, scale, *, transpose_rhs: bool = False):
@@ -69,24 +73,17 @@ def _dims(x, w, transpose_rhs: bool):
 @functools.lru_cache(maxsize=None)
 def int8_grid(m: int, k: int, n: int) -> tuple[int, int, int]:
     """K8's grid for ``x [M, K]`` and ``N`` output channels: ``(channel
-    blocks, K slices, row groups)``. The slices are the most that divide
-    K's ``K / K8_BK`` tiles while the channel blocks times the slices stay
-    within :data:`K8_CTAS` and each slice keeps two tiles to pipeline (one
-    slice when K holds a single tile) — a function of K and N alone."""
+    blocks, K slices, row groups)``. The slices are the most, up to
+    :data:`K8_MAX_SLICES`, that divide K's ``K / K8_BK`` tiles while the
+    channel blocks times the slices stay within :data:`K8_CTAS` and each
+    slice sweeps at least :data:`K8_MIN_TILES` tiles — a function of K and
+    N alone."""
     blocks = -(-n // K8_BN)
     tiles = k // K8_BK
-    slices = max(d for d in range(1, tiles + 1)
+    slices = max(d for d in range(1, min(tiles, K8_MAX_SLICES) + 1)
                  if tiles % d == 0 and (d == 1 or (
-                     blocks * d <= K8_CTAS and tiles // d >= 2)))
+                     blocks * d <= K8_CTAS and tiles // d >= K8_MIN_TILES)))
     return blocks, slices, -(-m // K8_ROWS)
-
-
-def int8_workspace(m: int, k: int, n: int) -> tuple[int, int]:
-    """What one K8 launch needs of the scratch: ``(f32 partials, int32
-    counters)`` — ``[slices, M, N]`` partials (none with one slice) and
-    one counter per row group and channel block."""
-    blocks, slices, groups = int8_grid(m, k, n)
-    return (slices * m * n if slices > 1 else 0), blocks * groups
 
 
 def int8_matmul_resources(*, transpose_rhs: bool = False,
@@ -127,15 +124,12 @@ def int8_matmul(x, w, scale, *, transpose_rhs: bool = False):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              f"aligned")
-    slices = int8_grid(m, k, n)[1]
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    part, counters = split_scratch("int8_matmul", x.device, stream,
-                                   *int8_workspace(m, k, n))
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     rc = _build.lib().tk_int8_matmul(
-        x.data_ptr(), w.data_ptr(), scale.data_ptr(), part.data_ptr(),
-        counters.data_ptr(), out.data_ptr(), m, k, n, slices,
-        int(transpose_rhs), _build.dtype_code(x.dtype), stream)
+        x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), m, k,
+        n, int8_grid(m, k, n)[1], int(transpose_rhs),
+        _build.dtype_code(x.dtype),
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "int8_matmul")
     _build.launches["int8_matmul"] += 1
     return out

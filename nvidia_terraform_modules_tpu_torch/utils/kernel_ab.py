@@ -20,6 +20,11 @@ shows beside the difference. Each run prints one JSON line. The groups
   slots (table widths 34 and 32 blocks of 16, the int8 engine's 256-row
   grain), and K6 at the int8 decode step (batch 8, 768 rows, positions
   512–568): device ms, and the host's median µs to issue one call;
+- ``int8``: K8 at the four weight products of a flagship wave (square
+  2048→2048, up 2048→8192, down 8192→2048, the tied head over ``[8192,
+  2048]``) at M = 4, and the square at the decode step's M = 8: device ms,
+  the host's median µs to issue one call, and the wave's mean per launch
+  (32 square, 8 up, 8 down, 1 head);
 - ``bwd``: K5/K3/K4 at the train shape;
 - ``ring``: K2, and K5, K3 and K4 writing f32 (the ring's per-block
   gradients), at the ring's block ``[2, 1024, 16, 128]``, diagonal
@@ -44,7 +49,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-GROUPS = ("fwd", "decode", "bwd", "ring", "serve", "train")
+GROUPS = ("fwd", "decode", "int8", "bwd", "ring", "serve", "train")
 
 
 def serve_wave(models, timing, dev) -> dict:
@@ -82,6 +87,41 @@ def serve_wave(models, timing, dev) -> dict:
         out[f"{name}_ms_per_wave"] = timing.cuda_median_ms(wave)
         out[f"{name}_host_ms_per_wave"] = timing.host_ms(wave, iters=30)
         del engine, pool
+    return out
+
+
+# K8 at a flagship wave: (name, M, K, N, [N, K] storage, products a wave)
+INT8_PRODUCTS = (("square", 4, 2048, 2048, False, 32),
+                 ("up", 4, 2048, 8192, False, 8),
+                 ("down", 4, 8192, 2048, False, 8),
+                 ("head", 4, 2048, 8192, True, 1),
+                 ("square", 8, 2048, 2048, False, 0))
+
+
+def int8_products(timing, dev) -> dict:
+    """K8 at the wave's products (M = 4) and the decode step's square (M =
+    8): device ms and the host's median µs a call; and the wave's mean per
+    launch."""
+    import torch
+
+    im = importlib.import_module(
+        "nvidia_terraform_modules_tpu_torch.ops.int8_matmul")
+    g = torch.Generator(device=dev).manual_seed(1)
+    out, wave = {}, 0.0
+    for name, m, k, n, trans, calls in INT8_PRODUCTS:
+        w = torch.randint(-127, 128, (n, k) if trans else (k, n),
+                          generator=g, device=dev, dtype=torch.int8)
+        scale = torch.rand((n,), generator=g, device=dev) * 2e-3 + 1e-4
+        x = torch.randn((m, k), generator=g, device=dev).bfloat16()
+
+        def call(x=x, w=w, scale=scale, trans=trans):
+            return im.int8_matmul(x, w, scale, transpose_rhs=trans)
+        key = f"int8_matmul_{name}_m{m}"
+        out[f"{key}_ms"] = timing.cuda_median_ms(call, iters=20)
+        out[f"{key}_host_us"] = timing.host_ms(call, iters=50) * 1e3
+        wave += calls * out[f"{key}_ms"]
+    out["int8_matmul_wave_mean_ms"] = wave / sum(
+        c for *_, c in INT8_PRODUCTS)
     return out
 
 
@@ -144,6 +184,8 @@ def measure(tree: str, groups=GROUPS) -> dict:
 
         out["kv_decode_int8_8x768_ms"] = timing.cuda_median_ms(call6)
         out["kv_decode_int8_host_us"] = timing.host_ms(call6, iters=50) * 1e3
+    if "int8" in groups:
+        out.update(int8_products(timing, dev))
     if "serve" in groups:
         out.update(serve_wave(models, timing, dev))
     if not hasattr(fa, "flash_dqdkv"):   # a tree from before the train step
