@@ -374,8 +374,14 @@ int8_mm(const T* __restrict__ x, const int8_t* __restrict__ w,
   for (int i = tid; i < w0 * kRows; i += kThreads) {
     const int r = i / w0, cc = i % w0;
     if (r >= rows || n0 + c0 + cc >= n) continue;
+    float sv[kMaxSlices];     // every slice's load in flight at once
+#pragma unroll
+    for (int q = 0; q < kMaxSlices; ++q)
+      if (q < slices) sv[q] = recv[(q * kRows + r) * w0 + cc];
     float sum = 0.f;
-    for (int q = 0; q < slices; ++q) sum += recv[(q * kRows + r) * w0 + cc];
+#pragma unroll
+    for (int q = 0; q < kMaxSlices; ++q)
+      if (q < slices) sum += sv[q];
     out[static_cast<long long>(r0 + r) * n + n0 + c0 + cc] =
         from_f32<T>(sum * recv[kRows * kBN + c0 + cc]);
   }

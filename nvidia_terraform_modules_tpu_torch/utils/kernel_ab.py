@@ -24,7 +24,9 @@ shows beside the difference. Each run prints one JSON line. The groups
   2048→2048, up 2048→8192, down 8192→2048, the tied head over ``[8192,
   2048]``) at M = 4, and the square at the decode step's M = 8: device ms,
   the host's median µs to issue one call, and the wave's mean per launch
-  (32 square, 8 up, 8 down, 1 head);
+  (32 square, 8 up, 8 down, 1 head); and the same timing of a
+  single-element add, the floor the method (cold L2, spin, events) puts
+  under every kernel;
 - ``bwd``: K5/K3/K4 at the train shape;
 - ``ring``: K2, and K5, K3 and K4 writing f32 (the ring's per-block
   gradients), at the ring's block ``[2, 1024, 16, 128]``, diagonal
@@ -100,8 +102,8 @@ INT8_PRODUCTS = (("square", 4, 2048, 2048, False, 32),
 
 def int8_products(timing, dev) -> dict:
     """K8 at the wave's products (M = 4) and the decode step's square (M =
-    8): device ms and the host's median µs a call; and the wave's mean per
-    launch."""
+    8): device ms and the host's median µs a call; the wave's mean per
+    launch; and the timing's floor."""
     import torch
 
     im = importlib.import_module(
@@ -122,6 +124,10 @@ def int8_products(timing, dev) -> dict:
         wave += calls * out[f"{key}_ms"]
     out["int8_matmul_wave_mean_ms"] = wave / sum(
         c for *_, c in INT8_PRODUCTS)
+    # what the timing itself costs a call: one single-element add
+    one = torch.zeros((1,), device=dev)
+    out["timing_floor_ms"] = timing.cuda_median_ms(lambda: one.add_(1),
+                                                   iters=20)
     return out
 
 

@@ -24,7 +24,8 @@ that changes from run to run. K2 (the partial forward) holds acc, m and l
 within 1e-2 (bf16) / 1e-5 (f32) of max(1, max|plain|), and, normalised,
 equals K1 bit for bit (one sweep, two epilogues). K3 and K4 have no atomics:
 two calls, and a row alone against the same row in a batch, give the same
-bits. The decode kernels split a row's keys into fixed spans combined in
+bits; so does K8, which sums its K slices in slice order inside a
+cluster, on any stream and with other shapes queued around it. The decode kernels split a row's keys into fixed spans combined in
 span order, so the paged kernel equals the contiguous one on the gathered
 view, and a row alone equals the same row in a batch, bit for bit.
 """
