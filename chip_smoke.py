@@ -241,7 +241,8 @@ def kernel_int8_matmul(randn, dev) -> tuple[dict, dict]:
     decode step's (M = 8), and off the path (M = 1, M = 64, f32 x), rows of
     each call with M > 1 against M = 1 calls bit for bit, and a K the
     kernel cannot take, which must raise. Each record carries the grid the
-    wrapper launches (``int8_grid``), the host's µs to issue one call and
+    kernel launches (``int8_grid``, read from the kernel: its K split is
+    the wrapper's ``int8_slices``), the host's µs to issue one call and
     the instance's registers, shared memory and CTAs per SM. Returns the
     main-path records of the wave and of the decode step, by shape name."""
     import torch
@@ -264,7 +265,9 @@ def kernel_int8_matmul(randn, dev) -> tuple[dict, dict]:
              for name, k, n, trans, _ in WAVE_MATMULS]
     cases += [("square", 1, 2048, 2048, False, bf16, None),
               ("square", 64, 2048, 2048, False, bf16, None),
-              ("square", 4, 2048, 2048, False, f32, None)]
+              ("square", 4, 2048, 2048, False, f32, None),
+              # 24 tiles: 8 slices of 3 (not a power of two)
+              ("k3072", 4, 3072, 2048, False, bf16, None)]
     main: dict = {"wave": {}, "decode": {}}
     for name, m, k, n, trans, dtype, path in cases:
         w = torch.randint(-127, 128, (n, k) if trans else (k, n),

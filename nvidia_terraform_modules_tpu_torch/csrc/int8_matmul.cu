@@ -18,9 +18,9 @@
 //
 // What the design does about it — one launch a product:
 // - the grid is (channel blocks of kBN = 128, K slices, row groups of 8);
-//   the K split (int8_grid in ops/int8_matmul.py: a function of K and N
-//   alone, at most kMaxSlices, one CTA an SM) puts the flagship's 4-16 MB
-//   weights on 64-128 SMs;
+//   the K split (int8_slices in ops/int8_matmul.py: a function of K and N
+//   alone, a divisor of kBN up to kMaxSlices, one CTA an SM) puts each of
+//   the flagship's 4-16 MB weights on 128 SMs;
 // - each CTA fills all kStages cp.async stages at once (16 KB of weight and
 //   x's 8 rows a stage) and refills a stage as soon as its tile is
 //   multiplied, so a slice of up to four tiles is requested in one go;
@@ -41,10 +41,14 @@
 //   TF32 would break its 1e-5 limit;
 // - the K slices of a channel block are one thread-block cluster and are
 //   combined inside the launch through distributed shared memory: CTA j of
-//   the cluster owns a share of the channels, every CTA stores its f32 sums
-//   of that share (and the first its scales, read while the weights
-//   stream in) into CTA j's shared memory, one cluster barrier, then CTA j
-//   adds the slices in ascending order, applies the scale and casts.
+//   the cluster owns kBN / slices of the channels, every CTA stores its
+//   f32 sums of that share (and the first its scales, read while the
+//   weights stream in) into CTA j's shared memory, one cluster barrier,
+//   then CTA j adds the slices in ascending order, applies the scale and
+//   casts. Each CTA arrives on the cluster barrier as it starts and waits
+//   on it before its first remote store, so no CTA writes into the shared
+//   memory of a CTA that has not started (the wait is met long before the
+//   sweep ends).
 //   Nothing but the operands and the output touches global memory: no
 //   partials, no counters, no fence. With one slice the CTA writes the
 //   output at once.
@@ -256,6 +260,15 @@ __device__ __forceinline__ int red_col(int r, int ch) {
                       : (((ch >> 5) & 3) << 2) | ((r >> 1) & 3));
 }
 
+// The cluster barrier in its two halves: arrive (relaxed: it orders no
+// memory, it only says this CTA runs) and wait.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
 template <int kPending>
 __device__ __forceinline__ void wait_tiles(int pending) {
   if constexpr (kPending > 0) {
@@ -279,6 +292,10 @@ int8_mm(const T* __restrict__ x, const int8_t* __restrict__ w,
   const int c = tid;             // the epilogue's channel
   const int n0 = blockIdx.x * kBN, r0 = blockIdx.z * kRows;
   const int slices = gridDim.y;
+  // every CTA of the cluster must run before another writes into its
+  // shared memory: announce this one now, check the others before the
+  // combine
+  if (slices > 1) cluster_arrive_relaxed();
   const int tiles = k / kBK / slices;
   const int kb = blockIdx.y * tiles * kBK;
   // the scale of channel c, read while the weights stream in
@@ -352,38 +369,38 @@ int8_mm(const T* __restrict__ x, const int8_t* __restrict__ w,
   }
 
   // The slices of a (channel block, row group) are one cluster. CTA j of
-  // the cluster owns channels [j·kBN / slices, (j + 1)·kBN / slices): every
-  // CTA stores its sums of those channels (and the first CTA their scales)
-  // into CTA j's shared memory, one cluster barrier, then CTA j adds the
-  // slices in ascending order.
+  // the cluster owns channels [j·width, (j + 1)·width), width = kBN /
+  // slices: every CTA stores its sums of those channels (and the first CTA
+  // their scales) into CTA j's shared memory, one cluster barrier, then
+  // CTA j adds the slices in ascending order. recv holds the slices'
+  // [slices][kRows][width] sums — kRows · kBN floats at any slice count —
+  // and then the share's scales.
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   __shared__ float recv[kRows * kBN + kBN];   // apart from the stages
-  const int own = ((c + 1) * slices - 1) / kBN;   // the owner of channel c
-  const int o0 = own * kBN / slices;
-  const int width = (own + 1) * kBN / slices - o0;
-  float* dst = cluster.map_shared_rank(recv, own) +
-               blockIdx.y * kRows * width + (c - o0);
+  const int width = kBN / slices;
+  const int own = c / width;                  // the owner of channel c
+  float* peer = cluster.map_shared_rank(recv, own);
+  float* dst = peer + blockIdx.y * kRows * width + (c - own * width);
+  cluster_wait();       // every CTA of the cluster has started
 #pragma unroll
   for (int r = 0; r < kRows; ++r) dst[r * width] = v[r];
-  if (blockIdx.y == 0)
-    cluster.map_shared_rank(recv, own)[kRows * kBN + c] = sc;
+  if (blockIdx.y == 0) peer[kRows * kBN + c - own * width] = sc;
   cluster.sync();       // every slice's sums are in their owners' memory
-  const int j = blockIdx.y;
-  const int c0 = j * kBN / slices, w0 = (j + 1) * kBN / slices - c0;
-  for (int i = tid; i < w0 * kRows; i += kThreads) {
-    const int r = i / w0, cc = i % w0;
+  const int c0 = blockIdx.y * width;
+  for (int i = tid; i < width * kRows; i += kThreads) {
+    const int r = i / width, cc = i % width;
     if (r >= rows || n0 + c0 + cc >= n) continue;
     float sv[kMaxSlices];     // every slice's load in flight at once
 #pragma unroll
     for (int q = 0; q < kMaxSlices; ++q)
-      if (q < slices) sv[q] = recv[(q * kRows + r) * w0 + cc];
+      if (q < slices) sv[q] = recv[(q * kRows + r) * width + cc];
     float sum = 0.f;
 #pragma unroll
     for (int q = 0; q < kMaxSlices; ++q)
       if (q < slices) sum += sv[q];
     out[static_cast<long long>(r0 + r) * n + n0 + c0 + cc] =
-        from_f32<T>(sum * recv[kRows * kBN + c0 + cc]);
+        from_f32<T>(sum * recv[kRows * kBN + cc]);
   }
 }
 
@@ -403,13 +420,26 @@ cudaError_t smem_attr() {
   return e;
 }
 
+// The shapes and slice counts the kernel takes: K in whole tiles split
+// evenly, and a slice count that divides kBN within one portable cluster.
+bool takes(int m, int k, int n, int slices) {
+  return m >= 1 && m <= 64 && k >= kBK && k % kBK == 0 && n >= 64 &&
+         n % 64 == 0 && slices >= 1 && slices <= kMaxSlices &&
+         kBN % slices == 0 && (k / kBK) % slices == 0;
+}
+
+// (channel blocks, K slices, row groups)
+dim3 launch_grid(int m, int n, int slices) {
+  return dim3((n + kBN - 1) / kBN, slices, (m + kRows - 1) / kRows);
+}
+
 template <typename T, bool kTrans>
 int launch(const void* x, const void* w, const float* scale, void* out,
            int m, int k, int n, int slices, cudaStream_t stream) {
   cudaError_t e = smem_attr<T, kTrans>();
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((n + kBN - 1) / kBN, slices, (m + kRows - 1) / kRows);
+  cfg.gridDim = launch_grid(m, n, slices);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem_bytes<T>();
   cfg.stream = stream;
@@ -446,14 +476,13 @@ int info(int* out) {
 
 }  // namespace
 
-// x, w, scale, out; M, K, N, slices (K / 128 must be a multiple, at most
-// kMaxSlices), transpose (w is [N, K]), dtype code of x and out, stream.
+// x, w, scale, out; M, K, N, slices (a divisor of kBN, at most kMaxSlices,
+// that divides K / kBK), transpose (w is [N, K]), dtype code of x and out,
+// stream.
 extern "C" int tk_int8_matmul(const void* x, const void* w, const void* scale,
                               void* out, int m, int k, int n, int slices,
                               int transpose, int dtype, void* stream) {
-  if (m < 1 || m > 64 || k < kBK || k % kBK || n < 64 || n % 64 ||
-      slices < 1 || slices > kMaxSlices || (k / kBK) % slices)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!takes(m, k, n, slices)) return static_cast<int>(cudaErrorInvalidValue);
   const float* sc = static_cast<const float*>(scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
@@ -466,6 +495,18 @@ extern "C" int tk_int8_matmul(const void* x, const void* w, const void* scale,
                      : launch<float, false>(x, w, sc, out, m, k, n, slices,
                                             st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// M, K, N, slices, int[3] out: the grid tk_int8_matmul launches for them
+// (channel blocks, K slices, row groups of kRows).
+extern "C" int tk_int8_matmul_grid(int m, int k, int n, int slices,
+                                   int* out) {
+  if (!takes(m, k, n, slices)) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 g = launch_grid(m, n, slices);
+  out[0] = static_cast<int>(g.x);
+  out[1] = static_cast<int>(g.y);
+  out[2] = static_cast<int>(g.z);
+  return 0;
 }
 
 // transpose, dtype code, int[4] out: registers a thread, local (spill)

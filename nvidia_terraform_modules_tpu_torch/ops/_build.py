@@ -68,6 +68,8 @@ _SIGNATURES = {
     "tk_kv_decode": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P],
     # x, w, scale, out, M, K, N, K slices, transpose, dtype code, stream
     "tk_int8_matmul": [_P] * 4 + [_I] * 6 + [_P],
+    # M, K, N, K slices, int[3] out (channel blocks, K slices, row groups)
+    "tk_int8_matmul_grid": [_I] * 4 + [_P],
     # transpose, dtype code, int[4] out (registers, local bytes, dynamic
     # shared memory, CTAs per SM)
     "tk_int8_matmul_info": [_I, _I, _P],

@@ -15,13 +15,13 @@ takes bf16/f32 ``x`` with ``M <= 64``, ``K % 128 == 0`` and ``N % 64 ==
 :func:`int8_matmul_ref`, which dequantises in f32 before the product, as
 the reference's plain version does.
 
-K8 is one launch a product: its grid (:func:`int8_grid`) is channel blocks
-of :data:`K8_BN` by K slices by row groups of :data:`K8_ROWS`. The slices
-of a channel block form one thread-block cluster and are summed in slice
-order inside the launch through the cluster's shared memory, so the
-kernel needs no scratch and keeps nothing between launches. The slice
-count follows from K and N alone, never from M, so a row's bits do not
-depend on the other rows.
+K8 is one launch a product: its grid is channel blocks by K slices by row
+groups (:func:`int8_grid` reads it from the kernel). The slices of a
+channel block form one thread-block cluster and are summed in slice order
+inside the launch through the cluster's shared memory, so the kernel needs
+no scratch and keeps nothing between launches. The slice count
+(:func:`int8_slices`) follows from K and N alone, never from M, so a row's
+bits do not depend on the other rows.
 """
 
 from __future__ import annotations
@@ -34,19 +34,22 @@ import torch
 from . import _build
 
 MAX_M = 64   # the decode regime the kernel is for (the caller's M rule)
-# csrc/int8_matmul.cu's tile: output channels a CTA, k a pipeline stage,
-# x rows a CTA (one n-tile of the mma)
-K8_BN, K8_BK, K8_ROWS = 128, 128, 8
+# csrc/int8_matmul.cu's tile, which the K split counts in: output channels
+# a CTA and k a pipeline stage
+K8_BN = K8_BK = 128
 # the CTAs the K split aims at: one for each of the H100's 132 SMs. A
 # constant, never read from the device, so the split — and the bits — are
 # the same on every card.
 K8_CTAS = 132
 # the fewest tiles a slice sweeps: each slice costs a CTA's start, its
-# share of the cluster's combine and the wait for the cluster's slowest CTA
-K8_MIN_TILES = 4
-# the most K slices: a cluster of the slices stays within the portable
-# cluster size (csrc/int8_matmul.cu kMaxSlices)
-K8_MAX_SLICES = 8
+# share of the cluster's combine and the wait for the cluster's slowest CTA.
+# 2 rather than 4 puts the 2048² products on 128 SMs instead of 64, which
+# timed faster on the H100 (PERF.md, K8 findings)
+K8_MIN_TILES = 2
+# the K slice counts the kernel takes: the divisors of K8_BN within the
+# portable cluster size of 8 (csrc/int8_matmul.cu kMaxSlices), so the CTAs
+# of a cluster own equal shares of the channels at the combine
+K8_SLICES = (1, 2, 4, 8)
 
 
 def int8_matmul_ref(x, w, scale, *, transpose_rhs: bool = False):
@@ -71,19 +74,27 @@ def _dims(x, w, transpose_rhs: bool):
 
 
 @functools.lru_cache(maxsize=None)
-def int8_grid(m: int, k: int, n: int) -> tuple[int, int, int]:
-    """K8's grid for ``x [M, K]`` and ``N`` output channels: ``(channel
-    blocks, K slices, row groups)``. The slices are the most, up to
-    :data:`K8_MAX_SLICES`, that divide K's ``K / K8_BK`` tiles while the
+def int8_slices(k: int, n: int) -> int:
+    """K8's K split for ``K`` and ``N`` output channels: the most of
+    :data:`K8_SLICES` that divide K's ``K / K8_BK`` tiles while the
     channel blocks times the slices stay within :data:`K8_CTAS` and each
-    slice sweeps at least :data:`K8_MIN_TILES` tiles — a function of K and
-    N alone."""
+    slice sweeps at least :data:`K8_MIN_TILES` tiles."""
     blocks = -(-n // K8_BN)
     tiles = k // K8_BK
-    slices = max(d for d in range(1, min(tiles, K8_MAX_SLICES) + 1)
-                 if tiles % d == 0 and (d == 1 or (
-                     blocks * d <= K8_CTAS and tiles // d >= K8_MIN_TILES)))
-    return blocks, slices, -(-m // K8_ROWS)
+    return max(d for d in K8_SLICES
+               if tiles % d == 0 and (d == 1 or (
+                   blocks * d <= K8_CTAS and tiles // d >= K8_MIN_TILES)))
+
+
+def int8_grid(m: int, k: int, n: int) -> tuple[int, int, int]:
+    """The grid K8 launches for ``x [M, K]`` and ``N`` output channels,
+    as the kernel reports it: ``(channel blocks, K slices, row groups)``.
+    Builds the kernels on first use; needs a CUDA device."""
+    out = (ctypes.c_int * 3)()
+    rc = _build.lib().tk_int8_matmul_grid(m, k, n, int8_slices(k, n),
+                                          ctypes.addressof(out))
+    _build.check(rc, "int8_matmul_grid")
+    return tuple(out)
 
 
 def int8_matmul_resources(*, transpose_rhs: bool = False,
@@ -127,7 +138,7 @@ def int8_matmul(x, w, scale, *, transpose_rhs: bool = False):
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     rc = _build.lib().tk_int8_matmul(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), m, k,
-        n, int8_grid(m, k, n)[1], int(transpose_rhs),
+        n, int8_slices(k, n), int(transpose_rhs),
         _build.dtype_code(x.dtype),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "int8_matmul")

@@ -70,6 +70,10 @@ from nvidia_terraform_modules_tpu_torch.ops.decode_attention import (
     DECODE_SPAN,
     gather_logical,
 )
+from nvidia_terraform_modules_tpu_torch.ops.int8_matmul import (
+    int8_grid,
+    int8_slices,
+)
 from nvidia_terraform_modules_tpu_torch.ops.ring_attention import (
     dense_reference_attention,
 )
@@ -362,6 +366,11 @@ def test_decode_row_alone_equals_row_in_batch(cuda, kernel):
     # f32 x: the CUDA-core sweep through the same split
     (4, 2048, 2048, False, torch.float32),
     (9, 2048, 8192, True, torch.float32),
+    # K whose tile count is not a power of two: 4 slices of 3 tiles, 8 of
+    # 3 and 4 of 7
+    (4, 1536, 2048, False, torch.bfloat16),
+    (4, 3072, 2048, False, torch.bfloat16),
+    (8, 3584, 2048, True, torch.bfloat16),
 ])
 def test_int8_matmul_matches_plain(cuda, m, k, n, trans, dtype):
     g = torch.Generator().manual_seed(m * 3 + k + n)
@@ -385,6 +394,16 @@ def test_int8_matmul_matches_plain(cuda, m, k, n, trans, dtype):
     assert torch.equal(out, rows)            # a row's bits do not depend on M
 
 
+@pytest.mark.parametrize("k,n", [(2048, 2048), (2048, 8192), (8192, 2048),
+                                 (1536, 2048), (3584, 640), (128, 64)])
+def test_int8_grid_is_the_launch(cuda, k, n):
+    """The grid the kernel reports: 128-channel blocks, the wrapper's K
+    split (the same at every M) and row groups of 8."""
+    for m in (1, 4, 8, 9, 64):
+        assert int8_grid(m, k, n) == (-(-n // 128), int8_slices(k, n),
+                                      -(-m // 8))
+
+
 def _int8_case(seed, m, k, n, trans, dev):
     g = torch.Generator().manual_seed(seed)
     w = torch.randint(-127, 128, (n, k) if trans else (k, n), generator=g,
@@ -394,7 +413,7 @@ def _int8_case(seed, m, k, n, trans, dev):
 
 
 def test_int8_matmul_back_to_back_shapes(cuda):
-    """Two shapes with different splits (8 slices of 8 tiles, then 4 of 4
+    """Two shapes with different splits (8 slices of 8 tiles, then 2 of 8
     on [N, K] weights) queued on one stream with no synchronise between
     them: each equals its own call run alone, bit for bit."""
     a = _int8_case(1, 4, 8192, 2048, False, cuda)

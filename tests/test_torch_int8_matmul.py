@@ -6,8 +6,8 @@ in interpret mode and its plain version; ``quantize`` / ``quantize_kv`` bit
 for bit against the reference's; ``QTensor`` (product, gather, ``.T``, the
 refusals, ``h @ qt`` dispatch) against the reference's ``QTensor``; the
 ``quantize_params`` layout and the ``qparams_from_numpy`` round trip; and
-K8's grid (``int8_grid``): its constants are the kernel's, and its K split
-follows from K and N alone.
+K8's K split (``int8_slices``): its constants are the kernel's, and the
+split follows from K and N alone.
 
 Tolerances: f32 max-abs within 1e-5 of max(1, max|ref|) against both the
 reference's plain version and its kernel (the sums run in another order;
@@ -48,10 +48,9 @@ from nvidia_terraform_modules_tpu_torch.ops.int8_matmul import (
     K8_BK,
     K8_BN,
     K8_CTAS,
-    K8_MAX_SLICES,
     K8_MIN_TILES,
-    K8_ROWS,
-    int8_grid,
+    K8_SLICES,
+    int8_slices,
 )
 
 BF16 = torch.bfloat16
@@ -281,51 +280,53 @@ def test_qparams_from_numpy_round_trip():
                                       "scale_axis": 0}}, cfg, device="cpu")
 
 
-# --- K8's grid (the wrapper's pure helper; the kernel runs only on a card)
+# --- K8's K split (the wrapper's pure helper; the kernel runs only on a
+# card, where tests/test_torch_cuda_kernels.py reads the launched grid)
 
 K8_SRC = (Path(__file__).resolve().parents[1] / "nvidia_terraform_modules_tpu_torch"
           / "csrc" / "int8_matmul.cu")
 
 
 def test_int8_grid_constants_are_the_kernels():
-    """The wrapper sizes the grid with the kernel's own tile, row group and
-    slice limit."""
+    """The wrapper splits K in the kernel's own tile, and into the slice
+    counts the kernel takes: the divisors of its channel block within its
+    cluster limit."""
     src = K8_SRC.read_text()
-    for name, value in (("kBN", K8_BN), ("kBK", K8_BK), ("kRows", K8_ROWS),
-                        ("kMaxSlices", K8_MAX_SLICES)):
-        (found,) = re.findall(rf"constexpr int {name} = (\d+);", src)
-        assert int(found) == value, name
+    found = {name: int(v) for name, v in re.findall(
+        r"constexpr int (kBN|kBK|kMaxSlices) = (\d+);", src)}
+    assert (found["kBN"], found["kBK"]) == (K8_BN, K8_BK)
+    assert K8_SLICES == tuple(d for d in range(1, found["kMaxSlices"] + 1)
+                              if K8_BN % d == 0)
 
 
 @pytest.mark.parametrize("k,n,want", [
-    (2048, 2048, (16, 4)),     # the square projections: 4 slices of 4 tiles
+    (2048, 2048, (16, 8)),     # the square projections: 8 slices of 2 tiles
     (2048, 8192, (64, 2)),     # up, and the tied head over [8192, 2048]
     (8192, 2048, (16, 8)),     # down: 8 slices of 8 tiles
     (384, 640, (5, 1)),        # three tiles: too few to split
-    (2048, 192, (2, 4)),       # a half-filled last channel block
+    (2048, 192, (2, 8)),       # a half-filled last channel block
 ])
 def test_int8_grid_at_the_flagship_shapes(k, n, want):
-    for m, groups in ((1, 1), (4, 1), (8, 1), (9, 2), (64, 8)):
-        assert int8_grid(m, k, n) == want + (groups,)
+    """(channel blocks, K slices)"""
+    assert (-(-n // K8_BN), int8_slices(k, n)) == want
 
 
 @pytest.mark.parametrize("k", [128, 256, 384, 768, 1024, 2048, 3072, 8192,
                                16384])
 @pytest.mark.parametrize("n", [64, 128, 640, 2048, 8192, 32768])
 def test_int8_grid_split_follows_k_and_n_alone(k, n):
-    """The K split never depends on M (a row's bits do not), divides K's
-    tiles, fits one cluster, keeps the CTAs to one an SM and each slice to
-    at least K8_MIN_TILES tiles — or does not split."""
-    blocks, slices, _ = int8_grid(1, k, n)
-    tiles = k // K8_BK
-    assert blocks == -(-n // K8_BN)
-    assert all(int8_grid(m, k, n)[:2] == (blocks, slices)
-               for m in range(1, 65))
-    assert tiles % slices == 0 and 1 <= slices <= K8_MAX_SLICES
+    """The K split takes K and N alone (never M, so a row's bits do not
+    depend on it), is one of the slice counts the kernel takes, divides
+    K's tiles, keeps the CTAs to one an SM and each slice to at least
+    K8_MIN_TILES tiles — or does not split."""
+    slices = int8_slices(k, n)
+    blocks, tiles = -(-n // K8_BN), k // K8_BK
+    assert slices in K8_SLICES and K8_BN % slices == 0
+    assert tiles % slices == 0
     if slices > 1:
         assert blocks * slices <= K8_CTAS
         assert tiles // slices >= K8_MIN_TILES
     # the most such slices
     assert not any(tiles % d == 0 and blocks * d <= K8_CTAS
                    and tiles // d >= K8_MIN_TILES
-                   for d in range(slices + 1, K8_MAX_SLICES + 1))
+                   for d in K8_SLICES if d > slices)
