@@ -12,9 +12,19 @@ It builds the port's CUDA kernels from ``csrc/`` with nvcc (into
 
 - serve: holds K1 (flash forward) and K7 (paged decode) against their plain
   PyTorch versions at the serve path's shapes, checks the engine's
-  exactness contract on the card, serves at the flagship width (the launch
-  counts show it went through both kernels) and profiles one more run of
-  the same traffic (device time by kernel against the host clock);
+  exactness contract on the card, holds the wave replayed from its
+  captured CUDA graph against the eager wave (tokens and pool bytes, bf16
+  and int8 pools; a second run captures nothing new), serves at the
+  flagship width — every wave one replay (the launch counts, the capture's
+  tally times the replays, show it went through both kernels), timed
+  beside the eager wave — and profiles one more run of the same traffic
+  (device time by kernel against the host clock; K7 by name);
+- serve levers: each of ``eos_check_every``, sjf/priority admission,
+  chunked prefill, the template prefix, cross-request prefix sharing and
+  lazy growth alone and composed, at f32 on the card, against the
+  unlevered engine and solo decode; then all of them composed at the
+  flagship width on Zipf template traffic with a pool at ~60 % of full
+  provisioning;
 - int8 serving: holds K8 (int8-weight matmul), K6 (contiguous int8
   decode) and K7-int8 (the paged kernel on an int8 pool) against their
   plain versions, and the decode kernels' split at its seams (positions on
@@ -69,6 +79,10 @@ H100_PEAK = {"bf16": 989e12,        # dense tensor-core rate
              "f32": 67e12}          # CUDA cores (the f32 kernels' route)
 
 N_REQUESTS, SLOTS, KV_BLOCK, N_NEW, SEED = 8, 4, 16, 32, 0
+# the flagship lever traffic: utils/traffic.shared_prefix_prompts' Zipf
+# templates, ragged budgets, chunked prefill and the pool's share of full
+# provisioning
+LEVER_REQUESTS, LEVER_CHUNK, LEVER_POOL_SHARE = 16, 64, 0.6
 # the flagship's SGD rate: at make_train_step's default of 1e-3, lr·g is
 # below half a bf16 step of most weights (a weight near 0.02 moves only for
 # |g| > 0.06), so most of the update rounds away
@@ -164,6 +178,14 @@ def profile_summary(prof, wall_ms: float) -> dict:
                               for k, (us, c) in sorted(
                                   host_us.items(),
                                   key=lambda kv_: -kv_[1][0])[:10]])
+
+
+def kernel_counts(prof, name: str) -> dict:
+    """Launches by device kernel whose name holds ``name`` in a
+    ``torch.profiler`` run (graph replays included)."""
+    return {evt.key[:90]: evt.count for evt in prof.key_averages()
+            if str(getattr(evt, "device_type", "")).endswith("CUDA")
+            and name in evt.key}
 
 
 def max_rel_err(got, want, floor: float | None = 1.0) -> float:
@@ -555,6 +577,321 @@ def serve_int8_exact(dev) -> None:
          short_prompts_equal=rec["short"])
     if not all(rec["long"] + rec["short"]):
         raise AssertionError(f"serve_int8_exact: tokens differ {rec}")
+
+
+def _exact_cfg(attn: str = "flash"):
+    """serve_exact's f32 configuration (head_dim 128, the kernels' widths
+    at a small size)."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import BurnInConfig
+
+    return BurnInConfig(vocab=512, d_model=256, n_heads=2, n_kv_heads=1,
+                        d_ff=512, n_layers=2, dtype=torch.float32, attn=attn)
+
+
+def _seeded_pool(cfg, dev, slots, max_len, cache_dtype, seed):
+    """A pool of seeded rows (int8 rows and scales in an int8 pool), slot i
+    mapped to its own blocks, one spare block, ragged positions."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        init_paged_cache,
+        paged_pool_spec,
+    )
+
+    nt = paged_pool_spec(cfg, max_len, KV_BLOCK, cache_dtype)["tables"]
+    pool = init_paged_cache(cfg, slots, max_len, block_size=KV_BLOCK,
+                            num_blocks=2 + slots * nt,
+                            cache_dtype=cache_dtype, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for key in ("k", "v"):
+        for buf in pool[key]:
+            if buf.dtype == torch.int8:
+                buf.copy_(torch.randint(-127, 128, buf.shape, generator=g,
+                                        device=dev))
+            else:
+                buf.copy_(torch.randn(buf.shape, generator=g, device=dev))
+    for key in ("k_scale", "v_scale"):
+        for buf in pool.get(key, []):
+            buf.copy_(torch.rand(buf.shape, generator=g, device=dev) / 64)
+    for i in range(slots):
+        pool["block_tables"][i] = torch.arange(1 + i * nt, 1 + (i + 1) * nt,
+                                               dtype=torch.int32)
+    pool["pos"].copy_(torch.arange(slots, dtype=torch.int32) * 13 + 5)
+    return pool
+
+
+def serve_graph_exact(dev) -> None:
+    """The wave replayed from its captured CUDA graph against the eager
+    wave, at f32 (serve_exact's config), with a bf16 pool and with int8
+    weights and an int8 pool. (1) The captured wave and the eager step on a
+    copy of the pool, fed the same tokens, a change of the active set and
+    a table rewrite between waves: equal tokens every wave, equal pool
+    bytes after. (2) The engine (every wave a replay) equals the gather
+    engine and solo ``greedy_decode``. (3) A second run of the engine
+    captures nothing new and gives the same tokens."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        greedy_decode,
+        init_params,
+        make_serve_engine,
+        quantize_params,
+    )
+
+    cfg = _exact_cfg()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                         device=dev)
+    pg = torch.Generator().manual_seed(2)
+    cases = {
+        "bf16": (params, "bf16", 48,
+                 [torch.randint(0, cfg.vocab, (n,), generator=pg)
+                  for n in (16, 24, 8, 32, 16)]),
+        "int8": (quantize_params(params, dtype=torch.float32), "int8", 144,
+                 [torch.randint(0, cfg.vocab, (n,), generator=pg)
+                  for n in (80, 96, 72, 128, 88)])}
+    for name, (p, cache_dtype, max_len, prompts) in cases.items():
+        kw = dict(max_len=max_len, kv_block=KV_BLOCK, cache_dtype=cache_dtype,
+                  device=dev)
+        engine = make_serve_engine(p, cfg, **kw)
+        pool = _seeded_pool(cfg, dev, 4, max_len, cache_dtype, seed=3)
+        graph = engine.capture(pool)   # its warm-up writes the garbage block
+        twin = {k: ([t.clone() for t in v] if isinstance(v, list)
+                    else v.clone()) for k, v in pool.items()}
+        toks = torch.tensor([3, 77, 501, 9], device=dev)
+        active = torch.tensor([True, True, False, True], device=dev)
+        graph.tokens.copy_(toks)
+        graph.active.copy_(active)
+        waves_equal = []
+        for wave in range(8):
+            if wave == 3:
+                active = torch.tensor([False, True, True, True], device=dev)
+                graph.active.copy_(active)
+            if wave == 5:
+                spare = pool["block_tables"].shape[1] * 4 + 1
+                for q in (pool, twin):
+                    q["block_tables"][1, 2] = spare
+            graph.replay()
+            toks = engine.step(toks, active, twin)
+            waves_equal.append(torch.equal(graph.tokens, toks))
+        pool_equal = all(
+            torch.equal(a, b)
+            for key, val in pool.items()
+            for a, b in zip(val if isinstance(val, list) else [val],
+                            twin[key] if isinstance(val, list)
+                            else [twin[key]]))
+        got = engine(prompts, 8, slots=2)
+        captures = engine.captures
+        again = engine(prompts, 8, slots=2)
+        gather = make_serve_engine(p, cfg, paged_kernel="off", **kw)(
+            prompts, 8, slots=2)
+        solo = [greedy_decode(p, x[None], 8, cfg, cache_dtype=cache_dtype,
+                              device=dev)[0] for x in prompts]
+        equal = [torch.equal(a, c) and torch.equal(g, c)
+                 and torch.equal(b, c)
+                 for a, b, g, c in zip(got, again, gather, solo)]
+        emit("serve_graph_exact", pool=name, replay_launches=graph.launches,
+             waves_equal=waves_equal, pool_bytes_equal=pool_equal,
+             engine_equal=equal, captures_after_first_run=captures,
+             captures_after_second_run=engine.captures)
+        if not (all(waves_equal) and pool_equal and all(equal)
+                and captures == engine.captures == 1):
+            raise AssertionError(f"serve_graph_exact {name}: replay differs "
+                                 f"from the eager wave")
+        del engine, pool, twin, graph
+
+
+def serve_levers_exact(dev) -> None:
+    """Each scheduler lever alone, and composed, at f32 on the card (every
+    wave a graph replay). On a dense-attention config every prefill path —
+    whole, chunked, shared-suffix, after a template — is the same exact
+    dense math, so each run's tokens must EQUAL the unlevered engine's and
+    solo ``greedy_decode``'s (the template prefix's: of ``concat(prefix,
+    prompt)``); on the flash config chunked prefill equals a solo decode
+    with ``prefill="dense"``. The pool drains (to the template's blocks
+    with a prefix); sharing must hit."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        greedy_decode,
+        init_params,
+        make_serve_engine,
+    )
+
+    cfg = _exact_cfg("dense")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(4),
+                         device=dev)
+    pg = torch.Generator().manual_seed(5)
+    tmpl = [torch.randint(0, cfg.vocab, (40,), generator=pg)
+            for _ in range(2)]
+    prompts = [torch.cat([tmpl[i % 2], torch.randint(
+        0, cfg.vocab, (3 + 7 * (i % 4),), generator=pg)]) for i in range(8)]
+    budgets = [6, 12, 4, 9, 7, 12, 5, 10]
+    max_len = 96
+    prefix = torch.randint(0, cfg.vocab, (21,), generator=pg)
+
+    def solo(prompt, n, eos=None, pre=None, prefill="auto", c=cfg, p=params):
+        full = prompt if pre is None else torch.cat([pre, prompt])
+        out = greedy_decode(p, full[None], n, c, prefill=prefill,
+                            device=dev)[0]
+        if eos is not None:
+            hit = (out == eos).nonzero()
+            out = out[:int(hit[0]) + 1] if len(hit) else out
+        return out
+
+    base = make_serve_engine(params, cfg, max_len=max_len, kv_block=KV_BLOCK,
+                             device=dev)
+    plain = base(prompts, budgets, slots=3)
+    eos = int(plain[1][4])
+    plain_eos = base(prompts, budgets, slots=3, eos_id=eos)
+    full = 1 + 3 * -(-max_len // KV_BLOCK)
+    tight = 1 + -(-max_len // KV_BLOCK) + 2
+    levers = {
+        "eos_check_every": ({}, dict(eos_id=eos, eos_check_every=4)),
+        "sjf": ({"policy": "sjf"}, {}),
+        "priority": ({"policy": "priority", "aging": 3},
+                     dict(priorities=[0, 0, 5, 1, 0, 9, 0, 2])),
+        "prefill_chunk": ({"prefill_chunk": 16}, {}),
+        "prefix": ({"prefix": prefix}, {}),
+        "prefix_chunked": ({"prefix": prefix, "prefill_chunk": 16}, {}),
+        "share_prefix": ({"share_prefix": True}, {}),
+        "prefix_keep_blocks_0": ({"share_prefix": True,
+                                  "prefix_keep_blocks": 0}, {}),
+        "lazy_growth": ({"lazy_growth": True}, dict(kv_blocks=tight)),
+        "composed": ({"share_prefix": True, "prefill_chunk": 16,
+                      "lazy_growth": True, "policy": "sjf"},
+                     dict(kv_blocks=tight, eos_id=eos)),
+        "composed_lagged": ({"share_prefix": True, "prefill_chunk": 16,
+                             "policy": "sjf"},
+                            dict(eos_id=eos, eos_check_every=4,
+                                 kv_blocks=(full + tight) // 2)),
+    }
+    records = {}
+    for name, (ekw, rkw) in levers.items():
+        engine = make_serve_engine(params, cfg, max_len=max_len + 32
+                                   if "prefix" in ekw else max_len,
+                                   kv_block=KV_BLOCK, device=dev, **ekw)
+        got = engine(prompts, budgets, slots=3, **rkw)
+        st = engine.last_stats
+        e = rkw.get("eos_id")
+        if "prefix" in ekw:
+            want = [solo(x, n, e, pre=prefix) for x, n in zip(prompts,
+                                                               budgets)]
+            drained = st["kv"]["in_use"] == -(-len(prefix) // KV_BLOCK)
+        else:
+            want = plain_eos if e is not None else plain
+            drained = st["kv"]["in_use"] == 0
+            solo_eq = all(torch.equal(g, solo(x, n, e)) for g, x, n in
+                          zip(got, prompts, budgets))
+        equal = [torch.equal(g, w) for g, w in zip(got, want)]
+        rec = dict(equal=equal, drained=drained, waves=st["waves"],
+                   hit_blocks=st["prefix"]["hit_blocks"],
+                   blocks_grown_lazy=st["kv"]["blocks_grown_lazy"],
+                   preempted=st["sched"]["preempted"],
+                   high_water=st["kv"]["high_water"])
+        if "prefix" not in ekw:
+            rec["solo_equal"] = solo_eq
+        records[name] = rec
+        ok = all(equal) and drained and rec.get("solo_equal", True) and (
+            not ekw.get("share_prefix") or rec["hit_blocks"] > 0)
+        if not ok:
+            emit("serve_levers_exact", levers=records)
+            raise AssertionError(f"serve_levers_exact {name}: {rec}")
+    # the reference's flash-config gate: chunked admission runs the exact
+    # dense math, so it equals solo decode with the dense prefill
+    fcfg = _exact_cfg("flash")
+    fparams = init_params(fcfg, torch.Generator(device=dev).manual_seed(6),
+                          device=dev)
+    got = make_serve_engine(fparams, fcfg, max_len=max_len,
+                            kv_block=KV_BLOCK, prefill_chunk=16,
+                            device=dev)(prompts, budgets, slots=3)
+    records["flash_chunked_vs_dense_solo"] = dict(equal=[
+        torch.equal(g, solo(x, n, prefill="dense", c=fcfg, p=fparams))
+        for g, x, n in zip(got, prompts, budgets)])
+    emit("serve_levers_exact", requests=len(prompts), eos_id=eos,
+         tight_kv_blocks=tight, levers=records)
+    if not all(records["flash_chunked_vs_dense_solo"]["equal"]):
+        raise AssertionError("serve_levers_exact: flash-config chunked "
+                             "prefill differs from dense solo decode")
+
+
+def serve_levers_flagship(params, cfg, dev) -> dict:
+    """All greedy levers composed at the flagship width (bf16): Zipf
+    template traffic (``shared_prefix_prompts``), ragged budgets, 4 slots,
+    a pool at ``LEVER_POOL_SHARE`` of full provisioning, cross-request
+    sharing, chunked prefill of ``LEVER_CHUNK``, lazy growth and sjf;
+    against the same traffic through the unlevered engine. bf16 products
+    differ between a chunked and a whole prefill, so the share of equal
+    tokens is reported, not held; the structure is held: every budget
+    served, tokens in the vocabulary, the pool drained, K7 once a layer a
+    wave."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        make_serve_engine,
+        tree_leaves,
+    )
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+    from nvidia_terraform_modules_tpu_torch.utils.timing import sync
+    from nvidia_terraform_modules_tpu_torch.utils.traffic import (
+        ragged_lengths,
+        shared_prefix_prompts,
+    )
+
+    pairs = shared_prefix_prompts(LEVER_REQUESTS, SEED, n_templates=4,
+                                  template_len=256, suffix_lo=16,
+                                  suffix_hi=128, vocab=cfg.vocab,
+                                  block_size=KV_BLOCK)
+    prompts = [torch.tensor(p, device=dev) for _, p in pairs]
+    budgets = ragged_lengths(LEVER_REQUESTS, SEED, lo=16, hi=64)
+    max_len = max(max(len(p) + n, -(-len(p) // LEVER_CHUNK) * LEVER_CHUNK)
+                  for (_, p), n in zip(pairs, budgets))
+    nt = -(-max_len // KV_BLOCK)
+    full = 1 + SLOTS * nt
+    kv_blocks = max(round(LEVER_POOL_SHARE * full), 1 + nt)
+    engine = make_serve_engine(params, cfg, max_len=max_len,
+                               kv_block=KV_BLOCK, share_prefix=True,
+                               prefill_chunk=LEVER_CHUNK, lazy_growth=True,
+                               policy="sjf", device=dev)
+    engine(prompts[:SLOTS], 4, slots=SLOTS, kv_blocks=kv_blocks)  # warm-up
+    sync()
+    _build.reset_launches()
+    t0 = time.monotonic()
+    outs = engine(prompts, budgets, slots=SLOTS, kv_blocks=kv_blocks)
+    sync()
+    wall_s = time.monotonic() - t0
+    launches = dict(_build.launches)
+    st = engine.last_stats
+    base = make_serve_engine(params, cfg, max_len=max_len,
+                             kv_block=KV_BLOCK, device=dev)
+    plain = base(prompts, budgets, slots=SLOTS)
+    if launches["paged_decode"] != st["waves"] * cfg.n_layers:
+        raise AssertionError(f"serve_levers_flagship: paged_decode launched "
+                             f"{launches['paged_decode']} times, expected "
+                             f"{st['waves']} waves x {cfg.n_layers} layers")
+    for o, n in zip(outs, budgets):
+        if o.shape != (n,) or int(o.min()) < 0 or int(o.max()) >= cfg.vocab:
+            raise AssertionError(f"serve_levers_flagship: bad output "
+                                 f"{o.shape} for budget {n}")
+    if st["kv"]["in_use"] != 0 or st["prefix"]["hit_blocks"] <= 0:
+        raise AssertionError(f"serve_levers_flagship: pool {st['kv']}, "
+                             f"prefix {st['prefix']}")
+    tok_eq = sum(int((a == b).sum()) for a, b in zip(outs, plain))
+    return dict(params=sum(p.numel() for p in tree_leaves(params)),
+                requests=st["requests"], generated=st["generated"],
+                prompt_lens=[len(p) for _, p in pairs],
+                templates=[t for t, _ in pairs], budgets=budgets,
+                max_len=max_len, kv_blocks=kv_blocks,
+                kv_blocks_full=full, waves=st["waves"], wall_s=wall_s,
+                tokens_per_s=st["generated"] / wall_s,
+                latency_ms=st["latency_ms"], prefix=st["prefix"],
+                kv=st["kv"], sched={k: v for k, v in st["sched"].items()
+                                    if k != "admit_wave_of"},
+                launches=launches,
+                tokens_equal_unlevered_frac=tok_eq / sum(budgets),
+                requests_equal_unlevered=sum(
+                    torch.equal(a, b) for a, b in zip(outs, plain)))
 
 
 def decode_int8_flagship(params, cfg, dev) -> tuple[dict, dict]:
@@ -1836,6 +2173,8 @@ def main() -> int:
         raise AssertionError(f"serve_exact: tokens differ {equal}")
     del params
     serve_int8_exact(dev)
+    serve_graph_exact(dev)
+    serve_levers_exact(dev)
 
     # ---------------------------------------------------- serve_flagship
     nt = -(-max_len // KV_BLOCK)
@@ -1911,19 +2250,32 @@ def main() -> int:
         poolw["block_tables"][i] = torch.arange(
             1 + i * nt, 1 + (i + 1) * nt, dtype=torch.int32)
     mean_len = sum(lens) // len(lens)
-    poolw["pos"][:] = mean_len + N_NEW // 2
+    poolw["pos"].fill_(mean_len + N_NEW // 2)
     toks = torch.zeros((SLOTS,), dtype=torch.long, device=dev)
     active = torch.ones((SLOTS,), dtype=torch.bool, device=dev)
 
     def wave_once():
-        poolw["pos"][:] = mean_len + N_NEW // 2
+        poolw["pos"].fill_(mean_len + N_NEW // 2)
         engine.step(toks, active, poolw)
-    wave_ms = cuda_median_ms(wave_once)
-    wave_host_ms = host_ms(wave_once)          # the host's side: issue time
+    # the wave as the engine runs it (one replay of its captured graph),
+    # and the eager step it replaced, timed in turns on the same pool
+    graphw = engine.capture(poolw)
+    graphw.active.fill_(True)
+
+    def wave_graph_once():
+        poolw["pos"].fill_(mean_len + N_NEW // 2)
+        graphw.replay()
+    eager_ms = cuda_median_ms(wave_once)
+    wave_ms = cuda_median_ms(wave_graph_once)
+    eager_host_ms = host_ms(wave_once)         # the host's side: issue time
+    wave_host_ms = host_ms(wave_graph_once)
     emit("serve_flagship", params=n_params, prompt_lens=lens,
          requests=admissions, generated=st["generated"], waves=waves,
          wall_s=wall_s, tokens_per_s=st["generated"] / wall_s,
          ms_per_wave=wave_ms, host_ms_per_wave=wave_host_ms,
+         eager_ms_per_wave=eager_ms, eager_host_ms_per_wave=eager_host_ms,
+         replay_launches_per_wave=graphw.launches,
+         captures=engine.captures,
          prefill_ms_per_admission=sum(prefill_ms) / len(prefill_ms),
          launches=launches, prefill_logit_max_abs_err=logit_err,
          prefill_logit_max_abs=logit_mag,
@@ -1944,10 +2296,22 @@ def main() -> int:
         prof_wall_ms = (time.monotonic() - t0) * 1e3
     summary = profile_summary(prof, prof_wall_ms)
     device_ms = summary["device_ms"]
+    # K7 by name: one kernel a layer a wave, replayed from the graph (an
+    # empty trace leaves it "not measured")
+    k7_kernels = kernel_counts(prof, "paged_decode_kernel")
+    k7_want = engine.last_stats["waves"] * cfg.n_layers
+    if device_ms is not None and sum(k7_kernels.values()) != k7_want:
+        raise AssertionError(f"serve_profile: K7 kernels {k7_kernels}, "
+                             f"expected one a layer a wave ({k7_want})")
     emit("serve_profile", **summary,
          busy_share_of_unprofiled_wall=(device_ms / (wall_s * 1e3)
-                                        if device_ms is not None else None))
-    del engine, poolw, pool1
+                                        if device_ms is not None else None),
+         paged_decode_kernels=k7_kernels, paged_decode_expected=k7_want)
+    del engine, poolw, pool1, graphw
+
+    # --------------------------------------------- serve_levers_flagship
+    emit("serve_levers_flagship", **serve_levers_flagship(params, cfg, dev))
+    torch.cuda.empty_cache()
 
     # ----------------------------------------------- serve_int8_flagship
     # the same traffic served with int8 weights and an int8 pool: each
@@ -1993,15 +2357,26 @@ def main() -> int:
             1 + i * nt8, 1 + (i + 1) * nt8, dtype=torch.int32)
 
     def wave8_once():
-        poolw8["pos"][:] = mean_len + N_NEW // 2
+        poolw8["pos"].fill_(mean_len + N_NEW // 2)
         engine8.step(toks, active, poolw8)
-    wave8_ms = cuda_median_ms(wave8_once)
-    wave8_host_ms = host_ms(wave8_once)
+    graphw8 = engine8.capture(poolw8)
+    graphw8.active.fill_(True)
+
+    def wave8_graph_once():
+        poolw8["pos"].fill_(mean_len + N_NEW // 2)
+        graphw8.replay()
+    eager8_ms = cuda_median_ms(wave8_once)
+    wave8_ms = cuda_median_ms(wave8_graph_once)
+    eager8_host_ms = host_ms(wave8_once)
+    wave8_host_ms = host_ms(wave8_graph_once)
     emit("serve_int8_flagship", requests=adm8, generated=st8["generated"],
          waves=waves8, wall_s=wall8_s, tokens_per_s=st8["generated"] / wall8_s,
          bf16_tokens_per_s=st["generated"] / wall_s, ms_per_wave=wave8_ms,
          bf16_ms_per_wave=wave_ms, host_ms_per_wave=wave8_host_ms,
-         bf16_host_ms_per_wave=wave_host_ms, launches=launches8,
+         bf16_host_ms_per_wave=wave_host_ms, eager_ms_per_wave=eager8_ms,
+         eager_host_ms_per_wave=eager8_host_ms,
+         replay_launches_per_wave=graphw8.launches,
+         captures=engine8.captures, launches=launches8,
          requests_equal_to_bf16_engine_frac=same8 / len(outs),
          tokens_equal_to_bf16_engine_frac=tok_frac8,
          latency_ms=st8["latency_ms"], kv=st8["kv"],
@@ -2017,9 +2392,7 @@ def main() -> int:
     device_ms = summary["device_ms"]
     # K8's kernels by name: one launch a product when the trace saw the
     # device (an empty trace leaves it "not measured")
-    k8_kernels = {evt.key[:90]: evt.count for evt in prof.key_averages()
-                  if str(getattr(evt, "device_type", "")).endswith("CUDA")
-                  and "int8_mm" in evt.key}
+    k8_kernels = kernel_counts(prof, "int8_mm")
     products = engine8.last_stats["waves"] * per_wave
     if device_ms is not None and sum(k8_kernels.values()) != products:
         raise AssertionError(f"serve_int8_profile: K8 kernels {k8_kernels}"
@@ -2028,7 +2401,7 @@ def main() -> int:
          busy_share_of_unprofiled_wall=(device_ms / (wall8_s * 1e3)
                                         if device_ms is not None else None),
          int8_matmul_kernels=k8_kernels, int8_products=products)
-    del engine8, poolw8, qparams
+    del engine8, poolw8, qparams, graphw8
     torch.cuda.empty_cache()
 
     # ---------------------------------------------- decode_int8_flagship

@@ -241,8 +241,9 @@ def forward_paged(params, tokens, cache, cfg: BurnInConfig, *,
     """Forward ``tokens`` ``[B, T]`` through the paged pool
     (``cache["block_tables"]`` ``[B, NT]``, per-row ``cache["pos"]``
     ``[B]``), writing the fresh rows to ``(table[pos // bs], pos % bs)``
-    in place. ``active`` ``[B]`` bool (default all true) fences dead
-    rows: their writes go to garbage block 0 and their ``pos`` freezes.
+    in place, and advances ``cache["pos"]`` in place. ``active`` ``[B]``
+    bool (default all true) fences dead rows: their writes go to garbage
+    block 0 and their ``pos`` freezes.
     An int8 pool (``k_scale``/``v_scale`` ``[num_blocks, block_size,
     KV]`` sidecars) quantises the fresh rows on write and stores their
     scales at the same places. Reads: see the module docstring; the
@@ -296,7 +297,9 @@ def forward_paged(params, tokens, cache, cfg: BurnInConfig, *,
             ks, vs)
 
     logits = _transformer_body(params, tokens, cfg, q_pos, store, attend)
-    cache["pos"] = torch.where(active, pos0 + t, pos0)
+    # in place: a captured CUDA graph of this step, and the engine's
+    # admissions, keep addressing the pool's own pos tensor
+    pos0.copy_(torch.where(active, pos0 + t, pos0))
     return logits, cache
 
 

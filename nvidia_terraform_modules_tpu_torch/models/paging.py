@@ -2,7 +2,9 @@
 # SPDX-License-Identifier: Apache-2.0
 """Block/paged KV-cache allocation — the port of the reference's
 ``models/paging.py`` (``blocks_for_rows``, :class:`BlockAllocator`,
-``paged_pool_spec``, ``init_paged_cache`` for the bf16 and the int8 pool).
+``paged_pool_spec``, ``init_paged_cache`` for the bf16 and the int8 pool,
+and the device tier of cross-request prefix sharing: ``chain_chunks``,
+``chunk_tokens_covered``, ``chain_key`` and :class:`PrefixIndex`).
 
 The physical cache is one ``[num_blocks, block_size, kv_heads, D]`` buffer
 per layer shared by every request; each request owns a block table (the
@@ -16,6 +18,8 @@ can never scribble over a block recycled to another request.
 
 from __future__ import annotations
 
+import hashlib
+from collections import OrderedDict
 from typing import Any, Sequence
 
 import torch
@@ -113,6 +117,197 @@ class BlockAllocator:
             "high_water": self.high_water,
             "refs_total": self.refs_total,
         }
+
+
+def chain_chunks(tokens: Sequence[int], block_size: int,
+                 offset: int = 0) -> list[tuple[int, ...]]:
+    """Split ``tokens`` into the FULL block-grid chunks of a request's own
+    blocks. ``offset`` is the number of leading rows of the first own block
+    already holding content identical across requests (the template
+    prefix's copied tail rows), so the first chunk covers ``block_size -
+    offset`` tokens and every later chunk ``block_size``. A partial tail
+    block is never a chunk: its remaining rows differ per request."""
+    if not 0 <= offset < block_size:
+        raise ValueError(
+            f"offset must be in [0, block_size), got {offset}")
+    out: list[tuple[int, ...]] = []
+    start, width = 0, block_size - offset
+    while start + width <= len(tokens):
+        out.append(tuple(int(t) for t in tokens[start:start + width]))
+        start += width
+        width = block_size
+    return out
+
+
+def chunk_tokens_covered(k: int, block_size: int, offset: int = 0) -> int:
+    """Prompt tokens covered by the first ``k`` full own-block chunks — the
+    prefill-start offset after sharing ``k`` blocks (0 for k=0)."""
+    return 0 if k == 0 else k * block_size - offset
+
+
+def chain_key(chunks: Sequence[tuple], upto: int | None = None) -> bytes:
+    """The :class:`PrefixIndex` key of ``chunks[:upto]``: it names the
+    ENTIRE token history through that chunk."""
+    if upto is None:
+        upto = len(chunks)
+    if upto < 1:
+        raise ValueError("chain_key needs >= 1 chunk")
+    parent: bytes | None = None
+    for chunk in chunks[:upto]:
+        parent = PrefixIndex._key(parent, chunk)
+    return parent
+
+
+class PrefixIndex:
+    """Host-side prefix lookup: block-aligned token-hash chains → physical
+    blocks, holding ONE allocator reference per indexed block.
+
+    The key of a request's ``i``-th full own block is ``H(key_{i-1},
+    tokens_i)`` (blake2b over the token text), so two requests share a key
+    iff their prompts agree on every row the block holds and on everything
+    before it — exactly when the cached K/V is identical. Each entry also
+    keeps its token chunk and a match compares tokens outright, so a hash
+    collision can never share a wrong block.
+
+    The index's own reference keeps an indexed block resident past its
+    writer's retirement until the LRU cap on retained-but-UNREFERENCED
+    blocks (refcount 1, the index's own) evicts it. A match touches its
+    entries leaf-first, so eviction takes chain suffixes before the
+    prefixes that reach them; evicting an entry drops its descendants too.
+    This is the reference's device tier; its host-RAM spill tier is not
+    ported."""
+
+    def __init__(self, alloc: BlockAllocator, capacity: int):
+        if capacity < 0:
+            raise ValueError(f"capacity must be >= 0, got {capacity}")
+        self.alloc = alloc
+        self.capacity = capacity
+        # key → (block, token chunk, parent key) in LRU order
+        self._entries: OrderedDict[bytes, tuple[int, tuple,
+                                                bytes | None]] = \
+            OrderedDict()
+        self._children: dict[bytes, set[bytes]] = {}
+        self.hit_blocks = 0
+        self.lookups = 0
+        # why the last reclaim() freed nothing (None after a fruitful
+        # one): "live" = indexed blocks exist but tables reference every
+        # one; "empty" = nothing indexed
+        self.reclaim_blocked: str | None = None
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    @property
+    def retained_unreferenced(self) -> list[bytes]:
+        """Indexed blocks no table references (refcount 1 = ours only), in
+        LRU order — the eviction candidates the cap bounds."""
+        return [k for k, (b, _t, _p) in self._entries.items()
+                if self.alloc.refcount(b) == 1]
+
+    @staticmethod
+    def _key(parent: bytes | None, chunk: tuple) -> bytes:
+        h = hashlib.blake2b(parent or b"root", digest_size=16)
+        h.update(",".join(str(t) for t in chunk).encode())
+        return h.digest()
+
+    def match(self, chunks: Sequence[tuple]) -> list[int]:
+        """Longest indexed chain prefix of ``chunks`` → its physical blocks,
+        with one reference ADDED to each (the caller maps them into a table
+        and frees them at retirement like any owned block). Matched entries
+        become most recent, the leaf last."""
+        self.lookups += 1
+        keys, blocks = [], []
+        parent: bytes | None = None
+        for chunk in chunks:
+            key = self._key(parent, chunk)
+            ent = self._entries.get(key)
+            if ent is None or ent[1] != chunk:
+                break
+            keys.append(key)
+            blocks.append(ent[0])
+            parent = key
+        for key in reversed(keys):              # leaf ends most recent
+            self._entries.move_to_end(key)
+        if blocks:
+            self.alloc.share(blocks)
+            self.hit_blocks += len(blocks)
+        return blocks
+
+    def register(self, chunks: Sequence[tuple],
+                 blocks: Sequence[int]) -> None:
+        """Index ``blocks[i]`` as holding ``chunks[i]`` (a prefilled
+        request's full own blocks, in chain order). Chain nodes already
+        indexed are skipped (the donor matched them); each new entry takes
+        one reference."""
+        if len(chunks) != len(blocks):
+            raise ValueError(
+                f"{len(chunks)} chunks for {len(blocks)} blocks")
+        parent: bytes | None = None
+        for chunk, block in zip(chunks, blocks):
+            key = self._key(parent, chunk)
+            if key not in self._entries:
+                self.alloc.share([block])
+                self._entries[key] = (block, chunk, parent)
+                if parent is not None:
+                    self._children.setdefault(parent, set()).add(key)
+            self._entries.move_to_end(key)
+            parent = key
+
+    def _drop(self, key: bytes) -> int:
+        """Drop ``key`` and every descendant (unreachable once the parent
+        is gone), freeing the index's reference on each. Returns the
+        number of entries dropped."""
+        n = 0
+        stack = [key]
+        while stack:
+            k = stack.pop()
+            ent = self._entries.pop(k, None)
+            if ent is None:
+                continue
+            block, _chunk, parent = ent
+            self.alloc.free([block])
+            if parent is not None and parent in self._children:
+                self._children[parent].discard(k)
+            stack.extend(self._children.pop(k, ()))
+            n += 1
+        return n
+
+    def trim(self) -> int:
+        """Enforce the LRU cap: evict least-recently-used retained-but-
+        unreferenced entries (NEVER a block a live table references) until
+        at most ``capacity`` remain. Returns the entries evicted."""
+        n = 0
+        while True:
+            cands = self.retained_unreferenced
+            if len(cands) <= self.capacity:
+                return n
+            n += self._drop(cands[0])
+
+    def reclaim(self, n: int) -> int:
+        """Evict up to ``n`` retained-but-unreferenced entries now
+        (allocation pressure: a block a new admission needs beats a
+        retained prefix, whatever the cap says). Returns the blocks
+        released; 0 means the caller should queue, and
+        :attr:`reclaim_blocked` says why."""
+        freed = 0
+        while freed < n:
+            cands = self.retained_unreferenced
+            if not cands:
+                break
+            freed += self._drop(cands[0])
+        if freed == 0:
+            self.reclaim_blocked = "live" if self._entries else "empty"
+        else:
+            self.reclaim_blocked = None
+        return freed
+
+    def release(self) -> int:
+        """Drop every entry (end of a run). Returns the entries dropped."""
+        n = 0
+        while self._entries:
+            n += self._drop(next(iter(self._entries)))
+        self._children.clear()
+        return n
 
 
 def paged_pool_spec(cfg: BurnInConfig, max_len: int, block_size: int,

@@ -1,55 +1,88 @@
 # SPDX-FileCopyrightText: Copyright (c) 2026 tpu-terraform-modules authors. All rights reserved.
 # SPDX-License-Identifier: Apache-2.0
 """Continuous-batching serve engine on the paged KV cache — the port of the
-core of the reference's ``models/serving.py``.
+reference's ``models/serving.py`` (greedy serving).
 
 Requests join in-flight decode at wave boundaries the moment a slot AND
 enough KV blocks are free (an optional per-request arrival time gates
-admission); each admission prefills its prompt alone, through its own
-freshly allocated blocks, and picks its first token; then every wave
-advances ALL busy slots with one batched ``[slots, 1]`` paged forward
-(:func:`make_serve_step`), reading the cache through the block tables with
-the paged decode kernel on the card. A request retires at its own
-``n_new`` or at ``eos_id``, its blocks return to the free list and its
-slot re-admits at the next wave. Dead slots keep computing (the static
-batch) but their writes are fenced to the garbage block.
+admission); each admission prefills its prompt through its own blocks and
+picks its first token; then every wave advances ALL busy slots with one
+batched ``[slots, 1]`` paged forward (:func:`make_serve_step`), reading the
+cache through the block tables with the paged decode kernel on the card. A
+request retires at its own ``n_new`` or at ``eos_id``, its blocks return to
+the free list and its slot re-admits at the next wave. Dead slots keep
+computing (the static batch) but their writes are fenced to the garbage
+block.
+
+On a CUDA device each wave is ONE replay of a CUDA graph
+(:class:`WaveGraph`), the counterpart of the reference's jitted step with
+the pool donated: the engine keeps one pool per ``(slots, kv_blocks)``
+across runs, captures the wave over it once, and resets the pool in place
+(zeros, as a fresh pool) at the start of each run. The graph reads the
+pool's own tensors, so the host's in-place writes between waves — table
+rows, positions, the slots' tokens and active mask in the graph's static
+buffers — reach the next replay. A capture or replay that fails raises:
+the card never falls back to eager waves. Admissions and prefill chunks
+stay eager (they are not the per-wave cost). On the CPU the eager wave is
+the path.
 
 Host/device split: the host owns WHICH request sits in a slot and WHICH
 blocks it holds (plain integers); the device owns the math. Without
-``eos_id`` the wave loop never waits on the device: tokens stay on the
-card and outputs are assembled after the schedule. With ``eos_id`` each
-wave reads its ``[slots]`` token vector back.
+``eos_id`` the wave loop never waits on the device: tokens stay on the card
+and outputs are assembled after the schedule. With ``eos_id`` the loop
+reads back one ``[slots]`` vector a wave, or one ``[W, slots]`` block every
+``eos_check_every=W`` waves (retirement then lags an eos by up to W - 1
+waves; the outputs are truncated at the first eos either way).
+
+The scheduler levers (each off by default, reproducing the baseline engine
+exactly):
+
+- ``policy="sjf"|"priority"`` with ``aging`` and ``run(priorities=)``:
+  admission order over the arrived requests (:class:`_Sched`);
+- ``prefill_chunk``: a prompt admits one ``[1, C]`` chunk per wave,
+  interleaved with the decode waves;
+- ``prefix``: a template prefix prefilled once per run into its own
+  blocks, mapped into every table (only its partial tail block is copied);
+- ``share_prefix`` with ``prefix_keep_blocks``: cross-request sharing of
+  full leading prompt blocks through a refcounted
+  :class:`..paging.PrefixIndex`;
+- ``lazy_growth``: admission grants the prompt's blocks plus one decode
+  block; a slot's table grows as it crosses block boundaries, stalls when
+  the pool is dry, and the youngest request is preempted (its tokens
+  regenerate identically) when every live request stalls.
 
 Int8 serving: ``cache_dtype="int8"`` keeps the pool int8 with f32 scale
-sidecars riding the block tables (the wave step then reads through the
-int8 paged kernel), and int8-weight params (``quantize_params`` trees with
+sidecars riding the block tables (the wave then reads through the int8
+paged kernel), and int8-weight params (``quantize_params`` trees with
 ``QTensor`` leaves) serve through the PREFILL/DECODE PHASE SPLIT: the
 engine dequantises them once at build into a compute-dtype tree that every
-admission runs from (prompt-width products are compute-bound), while the
-wave steps run from the int8 tree (weight-bound: the int8 matmul kernel).
+admission runs from, while the wave runs from the int8 tree (the int8
+matmul kernel).
 
 Exactness contract (the reference's, ``models/serving.py:87-94``): each
 request's tokens EQUAL ``greedy_decode`` run alone on that request —
-batching, paging, slot recycling and arrival schedules are scheduling,
-never a different model. Under an int8 cache the engine quantises the same
-rows at the same positions as a solo int8-cache decode, so this holds int8
-against int8; with int8 weights it holds at f32 compute dtype wherever the
-solo prefill also takes the dequantised product (prompts longer than 64
-tokens: ``quantize._kernel_ok``).
+batching, paging, slot recycling, arrival schedules, admission order,
+chunking, sharing, growth stalls and preemption are scheduling, never a
+different model. Chunked and shared-suffix prefills run the exact cached
+(dense) math, so on a flash config they equal a solo decode with
+``prefill="dense"``. Under an int8 cache the engine quantises the same rows
+at the same positions as a solo int8-cache decode.
 
-The reference engine's other keyword arguments are not ported yet: each
-is accepted at the reference's default value, and any other value raises
+Keyword arguments of the reference engine that are not ported yet are
+accepted at the reference's default value; any other value raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
+import bisect
 import time
 from typing import Any, Sequence
 
 import numpy as np
 import torch
 
+from ..ops import _build
 from .burnin import BurnInConfig, check_device, tree_leaves
 from .decode import (
     _check_params,
@@ -59,11 +92,17 @@ from .decode import (
 )
 from .paging import (
     BlockAllocator,
+    PrefixIndex,
     blocks_for_rows,
+    chain_chunks,
+    chunk_tokens_covered,
     init_paged_cache,
     paged_pool_spec,
 )
 from .quantize import QTensor, dequantize_params
+
+_POLICIES = ("fifo", "sjf", "priority")
+_DEFAULT_AGING = 512                   # waves; bounds starvation by default
 
 # keyword arguments of the reference engine that this port does not serve
 # yet: name → (the reference's default, its ROADMAP item). The default is
@@ -71,31 +110,23 @@ from .quantize import QTensor, dequantize_params
 # NotImplementedError naming the item. make_serve_engine's and run's are
 # apart, as in the reference's signatures; any other keyword is a
 # TypeError.
-_ITEM3 = "Queue A item 3 (serve levers)"
+_SAMPLED = "Queue A item 3 (sampled serving)"
+_FLEET = "Queue A item 9 (fleet stack)"
 _ENGINE_LATER = {
-    "prefix": (None, f"{_ITEM3}: template prefix caching"),
-    "sampler": (None, f"{_ITEM3}: sampled serving"),
-    "prefill_chunk": (None, f"{_ITEM3}: chunked prefill"),
+    "sampler": (None, _SAMPLED),
     "spec_k": (None,
                "Queue A item 4 (speculative serving: models/speculative.py)"),
     "telemetry": (None, "Queue A item 10 (bench + tracing)"),
-    "policy": ("fifo", f"{_ITEM3}: sjf/priority policies"),
-    "aging": (None, f"{_ITEM3}: sjf/priority policies"),
-    "share_prefix": (False, f"{_ITEM3}: prefix sharing"),
-    "lazy_growth": (False, f"{_ITEM3}: lazy block growth"),
-    "prefix_keep_blocks": (64, f"{_ITEM3}: prefix sharing"),
-    "host_spill": (False, "Queue A item 9 (fleet stack): host KV tier"),
-    "host_blocks": (None, "Queue A item 9 (fleet stack): host KV tier"),
-    "host_swap": ("async", "Queue A item 9 (fleet stack): host KV tier"),
-    "shared_store": (None, "Queue A item 9 (fleet stack): prefix CDN"),
-    "aot_cache": (None, "Queue A item 9 (fleet stack): warm compile cache"),
+    "host_spill": (False, f"{_FLEET}: host KV tier"),
+    "host_blocks": (None, f"{_FLEET}: host KV tier"),
+    "host_swap": ("async", f"{_FLEET}: host KV tier"),
+    "shared_store": (None, f"{_FLEET}: prefix CDN"),
+    "aot_cache": (None, f"{_FLEET}: warm compile cache"),
 }
 _RUN_LATER = {
     "rules": (None, "Queue A item 6 (parallel beyond sp)"),
-    "rng": (None, f"{_ITEM3}: sampled serving"),
-    "eos_check_every": (1, f"{_ITEM3}: eos_check_every"),
-    "priorities": (None, f"{_ITEM3}: sjf/priority policies"),
-    "admission": (None, f"{_ITEM3}: the AdmissionSource seam"),
+    "rng": (None, _SAMPLED),
+    "admission": (None, f"{_FLEET}: the AdmissionSource seam"),
 }
 
 
@@ -132,94 +163,605 @@ def make_serve_step(params, cfg: BurnInConfig, *,
     return wave
 
 
-class _Sched:
-    """FIFO admission order with optional arrival gating: the head is the
-    only candidate, and only once it has arrived (head-of-line blocking —
-    the reference's ``policy="fifo"`` exactly)."""
+class WaveGraph:
+    """The greedy wave ``step`` over one pool, captured once as a CUDA
+    graph and replayed each wave.
 
-    def __init__(self, n: int, arrivals, t0: float):
-        self.pending = list(range(n))
+    The graph reads the slots' tokens from :attr:`tokens` and the active
+    mask from :attr:`active` (static buffers the host writes in place
+    between waves) and the pool's own tensors, and writes the next tokens
+    back into :attr:`tokens`; a caller that keeps a wave's tokens must copy
+    them, since the next replay overwrites them.
+
+    It is captured, and must be replayed, on a stream of its own: the
+    decode kernels keep their span partials and counters in one scratch per
+    stream, so an eager launch on another stream can never race a replay
+    on them. Before capture the step runs eagerly on that stream with every
+    slot dead (the writes land in the garbage block, no position moves),
+    which builds the kernels and allocates that stream's scratch and cuBLAS
+    workspace outside the capture.
+
+    A replay calls no kernel wrapper, so the wrappers' launch counts
+    (``ops._build.launches``) would miss it: the counts the wrappers added
+    during capture — the kernels the graph holds — are taken back out and
+    added again at each replay."""
+
+    def __init__(self, step, pool: dict):
+        dev = pool["pos"].device
+        slots = pool["pos"].shape[0]
+        self.stream = torch.cuda.Stream(dev)
+        self.tokens = torch.zeros((slots,), dtype=torch.long, device=dev)
+        self.active = torch.zeros((slots,), dtype=torch.bool, device=dev)
+        cur = torch.cuda.current_stream(dev)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            for _ in range(2):
+                step(self.tokens, self.active, pool)
+        cur.wait_stream(self.stream)
+        before = dict(_build.launches)
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph, stream=self.stream):
+                self.tokens.copy_(step(self.tokens, self.active, pool))
+        finally:
+            self.launches = {k: n - before.get(k, 0)
+                             for k, n in _build.launches.items()
+                             if n != before.get(k, 0)}
+            _build.launches.update(before)
+
+    def replay(self) -> None:
+        """One wave: replay the graph on its stream, ordered after the
+        current stream's work and before the current stream's next."""
+        cur = torch.cuda.current_stream(self.tokens.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            self.graph.replay()
+        cur.wait_stream(self.stream)
+        for name, n in self.launches.items():
+            _build.launches[name] += n
+
+
+class AdmissionSource:
+    """The engine's admission/queue head as an interface (the reference's
+    ``AdmissionSource``): the engine polls :meth:`candidate` at every wave
+    boundary, :meth:`pop`\\ s what it admits, :meth:`requeue`\\ s what a
+    lazy-growth preemption returns, and keeps its wave loop alive until
+    :meth:`exhausted` says no candidate will ever come again.
+
+    - ``candidate()`` → the request index to try next, or ``None`` (empty,
+      or nothing has arrived). A candidate whose block grant does not fit
+      is HELD: the engine stops admitting for the wave without popping it.
+    - ``pop(req)``: the engine admitted ``req``.
+    - ``requeue(req)``: a preempted request goes back; its tokens
+      regenerate identically on re-admission.
+    - ``tick()``: one wave passed (aging hooks).
+    - ``exhausted()`` → True only when no candidate will ever come again.
+    - ``idle_wait()``: nothing admissible and nothing computing — block
+      until the next arrival instead of spinning.
+
+    The built-in :class:`_Sched` implements it. Handing the engine an
+    external source (the reference's ``run(admission=)``), and the hooks
+    only such a source needs (queue waits, retirement and drain
+    notifications, prefill→decode imports, warm chains), belong to the
+    fleet stack and are not ported."""
+
+    def candidate(self):
+        raise NotImplementedError
+
+    def pop(self, req):
+        raise NotImplementedError
+
+    def requeue(self, req):
+        raise NotImplementedError
+
+    def tick(self):
+        pass
+
+    def exhausted(self) -> bool:
+        raise NotImplementedError
+
+    def idle_wait(self) -> None:
+        pass
+
+
+class _Sched(AdmissionSource):
+    """Host-side admission ORDER over a fixed request list. ``fifo`` is
+    strict arrival order with head-of-line blocking; ``sjf`` picks the
+    shortest known job (prompt length + ``n_new`` budget) among ARRIVED
+    requests; ``priority`` the highest caller-supplied priority. Both
+    non-fifo policies run under an aging bound: a request that has waited
+    ``aging`` waves past its arrival jumps to the front (FIFO among the
+    aged). Whatever the policy, a candidate whose block grant does not fit
+    HOLDS admission for the wave (no skip-ahead)."""
+
+    def __init__(self, lens, n_new_of, policy, aging, priorities,
+                 arrivals, t0):
+        self.pending = list(range(len(lens)))     # arrival order
+        self.cost = [lens[i] + n_new_of[i] for i in range(len(lens))]
+        self.policy = policy
+        self.aging = aging
+        self.prio = priorities
         self.arrivals = arrivals
         self.t0 = t0
+        self.age = [0] * len(lens)                # waves arrived-unadmitted
 
-    def _arrived(self, req: int) -> bool:
-        return self.arrivals is None or \
-            self.arrivals[req] <= time.monotonic() - self.t0
+    def _now(self):
+        """One clock read per scan."""
+        return None if self.arrivals is None else \
+            time.monotonic() - self.t0
+
+    def _arrived(self, req, now):
+        return self.arrivals is None or self.arrivals[req] <= now
 
     def candidate(self):
         if not self.pending:
             return None
-        head = self.pending[0]
-        return head if self._arrived(head) else None
+        now = self._now()
+        if self.policy == "fifo":
+            head = self.pending[0]
+            return head if self._arrived(head, now) else None
+        arrived = [r for r in self.pending if self._arrived(r, now)]
+        if not arrived:
+            return None
+        aged = [r for r in arrived if self.age[r] >= self.aging]
+        if aged:
+            return aged[0]                        # FIFO among the aged
+        if self.policy == "sjf":
+            return min(arrived, key=lambda r: (self.cost[r], r))
+        return min(arrived, key=lambda r: (-self.prio[r], r))
 
-    def pop(self, req: int) -> None:
+    def pop(self, req):
         self.pending.remove(req)
+
+    def requeue(self, req):
+        """Re-insert a preempted request at its arrival-order position
+        (age kept: a preemption does not reset its aging)."""
+        bisect.insort(self.pending, req)
+
+    def tick(self):
+        now = self._now()
+        for r in self.pending:
+            if self._arrived(r, now):
+                self.age[r] += 1
+
+    def next_arrival(self):
+        """The request whose arrival unblocks admission: fifo's head, or
+        the earliest arrival under the other policies."""
+        if self.arrivals is None or self.policy == "fifo":
+            return self.pending[0]
+        return min(self.pending, key=lambda r: self.arrivals[r])
 
     def exhausted(self) -> bool:
         return not self.pending
 
     def idle_wait(self) -> None:
-        """Nothing to compute and the head has not arrived: sleep until it
-        does instead of spinning."""
+        """Sleep until the blocking request arrives instead of spinning."""
         if self.arrivals is None or not self.pending:
             return
-        wait = self.arrivals[self.pending[0]] - (time.monotonic() - self.t0)
+        wait = self.arrivals[self.next_arrival()] \
+            - (time.monotonic() - self.t0)
         if wait > 0:
             time.sleep(wait)
 
 
 def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
-                      kv_block: int = 16, paged_kernel: str = "auto",
-                      cache_dtype: str = "bf16", device="cuda", **levers):
-    """Reusable engine: ``run(prompts, n_new, *, slots, eos_id, arrivals,
-    kv_blocks, static_batching) → list of [n_i] int64 token tensors``.
+                      cache_dtype: str = "bf16", prefix=None,
+                      prefill_chunk: int | None = None, kv_block: int = 16,
+                      policy: str = "fifo", aging: int | None = None,
+                      share_prefix: bool = False, lazy_growth: bool = False,
+                      prefix_keep_blocks: int = 64,
+                      paged_kernel: str = "auto", device="cuda", **levers):
+    """Reusable engine: ``run(prompts, n_new, *, slots, eos_id,
+    eos_check_every, arrivals, kv_blocks, static_batching, priorities) →
+    list of [n_i] int64 token tensors``.
 
-    Every run builds a paged pool of ``kv_blocks`` blocks of ``kv_block``
-    rows (default: one full table per slot plus the garbage block, at
+    The pool has ``kv_blocks`` blocks of ``kv_block`` rows (default: one
+    full table per slot, plus the prefix's blocks and the garbage block, at
     which admission never waits on memory); a smaller ``kv_blocks`` turns
-    into admission control — the queue holds requests until blocks free.
-    ``n_new`` is an int or one budget per request; ``arrivals`` (seconds
-    from the run's start, e.g. ``utils/traffic.poisson_trace``) gates
-    admission; ``static_batching`` admits only when the engine is idle
-    (the run-to-completion baseline). After each call ``run.last_stats``
-    holds ``requests``, ``generated``, ``waves``, ``latency_ms``
-    (admission → retirement, host clock) and ``kv`` (allocator high-water
-    and utilisation against the dense ``slots × max_len`` reservation).
+    into admission control. ``n_new`` is an int or one budget per request;
+    ``arrivals`` (seconds from the run's start, e.g. ``utils/traffic``'s
+    traces) gates admission; ``static_batching`` admits only when the
+    engine is idle (the run-to-completion baseline). After each call
+    ``run.last_stats`` holds ``requests``, ``generated``, ``waves``,
+    ``latency_ms`` (admission → retirement, host clock), ``kv`` (allocator
+    high-water, physical and logical blocks, utilisation against the dense
+    ``slots × max_len`` reservation, lazily grown blocks), ``sched``
+    (policy, preemptions, admit and turnaround waves) and ``prefix``
+    (sharing's hit blocks and saved tokens).
+
+    ``prefix`` (``[L_p]`` tokens): every request decodes
+    ``concat(prefix, prompt)``; the prefix prefills once per run.
+    ``prefill_chunk``: chunked admission interleaved with the waves.
+    ``policy``/``aging``: admission order. ``share_prefix`` /
+    ``prefix_keep_blocks``: cross-request prefix-block sharing and the LRU
+    cap on retained blocks. ``lazy_growth``: per-wave block grants (needs
+    ``eos_check_every == 1``). See the module docstring.
 
     ``cache_dtype="int8"`` serves from an int8 pool; ``QTensor`` params
-    serve through the phase split (module docstring). ``params`` must live
-    on ``device`` (``"cuda"`` unless the caller asks for the CPU)."""
+    serve through the phase split. ``params`` must live on ``device``
+    (``"cuda"`` unless the caller asks for the CPU). On a CUDA device the
+    waves replay a captured graph (``run.captures`` counts the captures,
+    one per ``(slots, kv_blocks)``; ``run.capture(pool)`` captures the wave
+    over a caller's pool, for timing)."""
     _refuse_levers(levers, _ENGINE_LATER, "make_serve_engine")
     dev = check_device(device)
     _check_params(params, dev)
+    if prefill_chunk is not None and prefill_chunk < 1:
+        raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
     if kv_block < 1:
         raise ValueError(f"kv_block must be >= 1, got {kv_block}")
     if paged_kernel not in ("auto", "on", "off"):
         raise ValueError(f"unknown paged_kernel {paged_kernel!r}: "
                          f"use auto|on|off")
-    check_cache_dtype(cache_dtype)
+    if policy not in _POLICIES:
+        raise ValueError(
+            f"unknown policy {policy!r}: use {' | '.join(_POLICIES)}")
+    if aging is not None and aging < 1:
+        raise ValueError(f"aging must be >= 1 waves, got {aging}")
+    aging = _DEFAULT_AGING if aging is None else aging
+    if prefix_keep_blocks < 0:
+        raise ValueError(
+            f"prefix_keep_blocks must be >= 0, got {prefix_keep_blocks}")
+    quant = check_cache_dtype(cache_dtype)
     geom = paged_pool_spec(cfg, max_len, kv_block, cache_dtype)
     bs, nt = kv_block, geom["tables"]
+    pool_keys = ("k", "v") + (("k_scale", "v_scale") if quant else ())
     step = make_serve_step(params, cfg, paged_kernel=paged_kernel)
     # the phase split: admissions from a dequantised copy, built once
     prefill_params = params
     if any(isinstance(x, QTensor) for x in tree_leaves(params)):
         prefill_params = dequantize_params(params)
 
+    prefix_len = full_blocks = tail_rows = 0
+    if prefix is not None:
+        prefix = torch.as_tensor(prefix, device=dev).long().reshape(-1)
+        prefix_len = int(prefix.shape[0])
+        if prefix_len >= max_len:
+            raise ValueError(
+                f"prefix ({prefix_len}) must leave room under max_len "
+                f"({max_len})")
+        full_blocks = prefix_len // bs          # shared read-only
+        tail_rows = prefix_len % bs             # copied per admission
+        prefix_impl = _select_prefill_impl(cfg, prefix_len, "auto", dev)
+    need_prefix = full_blocks + (1 if tail_rows else 0)
+
+    # one pool (and, on the card, its captured wave) per (slots, kv_blocks)
+    pools: dict[tuple[int, int], tuple[dict, WaveGraph | None]] = {}
+
+    def pool_for(slots: int, kv_blocks: int):
+        """The run's pool, zeroed as a fresh one would be, and its graph."""
+        key = (slots, kv_blocks)
+        if key not in pools:
+            pool = init_paged_cache(cfg, slots, max_len, block_size=bs,
+                                    num_blocks=kv_blocks,
+                                    cache_dtype=cache_dtype, device=dev)
+            graph = None
+            if dev.type == "cuda":
+                graph = WaveGraph(step, pool)
+                run.captures += 1
+            pools[key] = (pool, graph)
+        pool, graph = pools[key]
+        for buf in tree_leaves(pool):
+            buf.zero_()
+        return pool, graph
+
+    def to_device(values, dtype):
+        """Host values on the engine's device. On the card the copy goes
+        from pinned memory without blocking: a pageable copy would make the
+        host wait for every wave it has queued (as would assigning a
+        Python number into a device tensor: single values go by
+        ``fill_``)."""
+        t = torch.as_tensor(values, dtype=dtype)
+        if dev.type == "cuda":
+            return t.pin_memory().to(dev, non_blocking=True)
+        return t
+
+    # ------------------------------------------------ admission pieces
+
+    def tail_copy(pool, src: int, dst: int) -> None:
+        """The prefix's partial tail block into an admission's first own
+        block — the only per-admission prefix bytes."""
+        for key in pool_keys:
+            for buf in pool[key]:
+                buf[dst] = buf[src]
+
+    def slot_view(pool, slot: int) -> dict:
+        """The one-row pool of ``slot``: its table row and a view of its
+        position, which ``forward_paged`` advances in place."""
+        return dict(pool, block_tables=pool["block_tables"][slot:slot + 1],
+                    pos=pool["pos"][slot:slot + 1])
+
+    def admit_table(pool, slot: int, row, tail, start: int) -> None:
+        """Map the slot's table row, copy the prefix tail (when the
+        admission shares no block carrying it), set the start position."""
+        pool["block_tables"][slot] = to_device(row, torch.int32)
+        if tail is not None:
+            tail_copy(pool, *tail)
+        pool["pos"][slot].fill_(start)
+
     @torch.no_grad()
-    def admit(pool, slot: int, prompt, row: np.ndarray):
-        """One admission: map the slot's table row, prefill the prompt
-        through its blocks at position 0, return the first token."""
-        length = int(prompt.shape[0])
-        pool["block_tables"][slot] = torch.as_tensor(row, device=dev)
-        sub = dict(pool, block_tables=pool["block_tables"][slot:slot + 1],
-                   pos=torch.zeros((1,), dtype=torch.int32, device=dev))
-        impl = _select_prefill_impl(cfg, length, "auto", dev)
-        logits, sub = forward_paged(prefill_params, prompt[None, :], sub,
-                                    cfg, prefill_impl=impl,
-                                    paged_kernel="off")
-        pool["pos"][slot] = sub["pos"][0]
+    def admit_full(pool, slot: int, prompt, impl: str, row, tail,
+                   start: int):
+        """One full admission: table, prefill of ``prompt`` (the unshared
+        suffix under sharing) from ``start``, the first token."""
+        admit_table(pool, slot, row, tail, start)
+        logits, _ = forward_paged(prefill_params, prompt[None],
+                                  slot_view(pool, slot), cfg,
+                                  prefill_impl=impl, paged_kernel="off")
         return logits[0, -1].argmax(dim=-1)
+
+    @torch.no_grad()
+    def chunk_step(pool, slot: int, chunk):
+        """One ``[1, C]`` prefill chunk at the slot's position. Pad rows of
+        the final chunk land in the cache but stay unreachable: the mask
+        hides keys past a query, and ``pos`` rewinds to the true length."""
+        logits, _ = forward_paged(prefill_params, chunk,
+                                  slot_view(pool, slot), cfg,
+                                  prefill_impl="cached", paged_kernel="off")
+        return logits[0]
+
+    def check_chunk_bound(length: int, start: int | None = None) -> int:
+        start = prefix_len if start is None else start
+        n = -(-length // prefill_chunk)
+        if start + n * prefill_chunk > max_len:
+            raise ValueError(
+                f"chunked prefill pads the prompt ({length}) to "
+                f"{n * prefill_chunk} rows, which after the start "
+                f"position ({start}) exceeds max_len ({max_len}) — "
+                f"raise max_len to >= {start + n * prefill_chunk} or "
+                f"shrink prefill_chunk")
+        return n
+
+    def chunk_split(prompt, length: int, start: int):
+        """Pad-to-C chunks of ``prompt`` (the tokens actually prefilled),
+        the true last token's offset in the final chunk, and the position
+        after the rewind."""
+        c = prefill_chunk
+        nc = check_chunk_bound(length, start)
+        padded = torch.zeros((nc * c,), dtype=torch.long, device=dev)
+        padded[:length] = prompt
+        chunks = [padded[i * c:(i + 1) * c][None] for i in range(nc)]
+        return chunks, length - 1 - (nc - 1) * c, start + length
+
+    def rows_needed(length: int, n_new_i: int) -> int:
+        rows = prefix_len + length + n_new_i
+        if prefill_chunk is not None:
+            padded = prefix_len + check_chunk_bound(length) * prefill_chunk
+            rows = max(rows, padded)
+        return min(rows, geom["rows"])
+
+    class _Run:
+        """Per-run scheduler state: the pool, the allocator, the prefix
+        index and the host-side request bookkeeping."""
+
+        def __init__(self, slots, kv_blocks, n_new_of, lens, host_toks):
+            self.slots = slots
+            self.n_new_of = n_new_of
+            self.host_toks = host_toks
+            if kv_blocks is None:
+                kv_blocks = 1 + need_prefix + slots * nt
+            # feasibility is the FULL budget, lazy growth or not: a request
+            # left alone in the pool (the preemption's end state) must be
+            # able to grow to its worst case
+            worst = max(blocks_for_rows(
+                rows_needed(lens[i], n_new_of[i]) - full_blocks * bs, bs)
+                for i in range(len(lens)))
+            if kv_blocks < 1 + need_prefix + worst:
+                raise ValueError(
+                    f"kv_blocks ({kv_blocks}) cannot hold the largest "
+                    f"request ({worst} blocks of {bs} rows"
+                    + (f" + {need_prefix} prefix blocks" if need_prefix
+                       else "")
+                    + " + the reserved garbage block) — the queue would "
+                    "deadlock; raise kv_blocks")
+            self.alloc = BlockAllocator(kv_blocks)
+            self.index = (PrefixIndex(self.alloc, prefix_keep_blocks)
+                          if share_prefix else None)
+            self.pool, self.graph = pool_for(slots, kv_blocks)
+            self.owned: dict[int, list[int]] = {}     # req → blocks
+            self.prefix_blocks: list[int] = []
+            self.tail_src = 0
+            self.in_use_sum = self.in_use_n = 0       # per-loop samples
+            self.logical: dict[int, int] = {}         # req → table blocks
+            self.logical_now = self.logical_peak = 0
+            self.logical_sum = self.live_sum = 0
+            self.grown_lazy = 0
+            self.preempted = 0
+            self.admit_wave: dict[int, int] = {}
+            self.retire_wave: dict[int, int] = {}
+            self.prefix_stats = {"hit_blocks": 0, "lookups": 0,
+                                 "prompt_blocks": 0, "tokens_saved": 0,
+                                 "reclaim_blocked_live": 0,
+                                 "reclaim_blocked_empty": 0}
+            self._row_np: dict[int, np.ndarray] = {}
+            if prefix is not None:
+                blocks = self.alloc.alloc(need_prefix)
+                self.prefix_blocks = blocks
+                row = torch.zeros((1, nt), dtype=torch.int32)
+                row[0, :need_prefix] = torch.tensor(blocks)
+                if tail_rows:
+                    self.tail_src = blocks[-1]
+                sub = dict(self.pool, block_tables=row.to(dev),
+                           pos=torch.zeros((1,), dtype=torch.int32,
+                                           device=dev))
+                forward_paged(prefill_params, prefix[None], sub, cfg,
+                              prefill_impl=prefix_impl, paged_kernel="off")
+
+        def _chunks_for(self, req: int, length: int) -> list:
+            """The prompt's candidate chain chunks; at least one prompt
+            token stays to forward (its logits pick the first token)."""
+            chunks = chain_chunks(self.host_toks[req], bs, tail_rows)
+            while chunks and chunk_tokens_covered(
+                    len(chunks), bs, tail_rows) > length - 1:
+                chunks.pop()
+            return chunks
+
+        def admit_blocks(self, req: int, length: int):
+            """Allocate the request's blocks, sharing indexed full leading
+            prompt blocks first (refcount++, read-only for this request);
+            None = hold in queue. Returns ``(row, tail, start, covered,
+            entries)``: the table row, the prefix tail copy ``(src, dst)``
+            or None, the prefill start position, the prompt tokens the
+            shared blocks cover, and the table entries granted."""
+            shared: list[int] = []
+            cov = n_chunks = 0
+            if self.index is not None:
+                chunks = self._chunks_for(req, length)
+                n_chunks = len(chunks)
+                shared = self.index.match(chunks)
+                cov = chunk_tokens_covered(len(shared), bs, tail_rows)
+                if prefill_chunk is not None:
+                    # the PADDED unshared suffix must stay within the
+                    # table: un-share blocks until it fits
+                    while shared and (prefix_len + cov + -(-(
+                            length - cov) // prefill_chunk)
+                            * prefill_chunk) > max_len:
+                        self.alloc.free([shared.pop()])
+                        cov = chunk_tokens_covered(len(shared), bs,
+                                                   tail_rows)
+            k = len(shared)
+            grant = prefix_len + length + (
+                1 if lazy_growth else self.n_new_of[req])
+            if prefill_chunk is not None:
+                padded_end = prefix_len + cov + -(-(
+                    length - cov) // prefill_chunk) * prefill_chunk
+                grant = max(grant, padded_end)
+            grant = min(grant, geom["rows"])
+            own_rows = grant - full_blocks * bs - k * bs
+            blocks = self._alloc_reclaiming(blocks_for_rows(own_rows, bs))
+            if blocks is None:
+                if shared:
+                    self.alloc.free(shared)       # undo the shares
+                return None
+            # stats count admissions, not the probes of a held request
+            if self.index is not None:
+                ps = self.prefix_stats
+                ps["lookups"] += 1
+                ps["prompt_blocks"] += n_chunks
+                ps["hit_blocks"] += k
+                ps["tokens_saved"] += cov
+            self.owned[req] = shared + blocks
+            row = np.zeros((nt,), np.int32)
+            row[:full_blocks] = self.prefix_blocks[:full_blocks]
+            row[full_blocks:full_blocks + k] = shared
+            row[full_blocks + k:full_blocks + k + len(blocks)] = blocks
+            # the template tail copy applies only when no shared block
+            # already carries those rows
+            tail = (self.tail_src, blocks[0]) if tail_rows and not k \
+                else None
+            entries = full_blocks + k + len(blocks)
+            self.logical[req] = entries
+            self.logical_now += entries
+            self.logical_peak = max(self.logical_peak, self.logical_now)
+            self._row_np[req] = row
+            return row, tail, prefix_len + cov, cov, entries
+
+        def register_prefix(self, req: int) -> None:
+            """Index the request's prefilled FULL prompt blocks so later
+            admissions can share them (no-op when sharing is off)."""
+            if self.index is None:
+                return
+            chunks = chain_chunks(self.host_toks[req], bs, tail_rows)
+            row = self._row_np[req]
+            self.index.register(
+                chunks, [int(row[full_blocks + j])
+                         for j in range(len(chunks))])
+
+        def _alloc_reclaiming(self, n: int):
+            """``alloc`` that evicts retained-but-unreferenced prefix
+            blocks under allocation pressure before giving up."""
+            blocks = self.alloc.alloc(n)
+            while blocks is None and self.index is not None:
+                if not self.index.reclaim(n - self.alloc.free_blocks):
+                    why = self.index.reclaim_blocked
+                    if why is not None:
+                        self.prefix_stats[f"reclaim_blocked_{why}"] += 1
+                    return None
+                blocks = self.alloc.alloc(n)
+            return blocks
+
+        def grow_block(self, req: int) -> int | None:
+            """One more block for a lazily granted request (None: the pool
+            is dry — the caller stalls the slot)."""
+            b = self._alloc_reclaiming(1)
+            if b is None:
+                return None
+            self.owned[req].append(b[0])
+            self.logical[req] += 1
+            self.logical_now += 1
+            self.logical_peak = max(self.logical_peak, self.logical_now)
+            self.grown_lazy += 1
+            return b[0]
+
+        def retire_blocks(self, req: int) -> None:
+            self.alloc.free(self.owned.pop(req))
+            self.logical_now -= self.logical.pop(req)
+            self._row_np.pop(req, None)
+            if self.index is not None:
+                self.index.trim()
+
+        def close(self) -> None:
+            """End of run: the index's retained blocks go back, so the
+            pool drains to its prefix blocks."""
+            if self.index is not None:
+                self.index.release()
+
+        def sample(self, live: int) -> None:
+            self.in_use_sum += self.alloc.in_use
+            self.in_use_n += 1
+            self.logical_sum += self.logical_now
+            self.live_sum += live
+
+        def kv_stats(self) -> dict:
+            s = self.alloc.stats()
+            dense = self.slots * geom["rows"]
+            mean_blocks = self.in_use_sum / max(self.in_use_n, 1)
+            return {
+                **s, "block_size": bs,
+                "peak_rows": s["high_water"] * bs,
+                "dense_rows": dense,
+                "utilisation": round(s["high_water"] * bs / max(dense, 1),
+                                     4),
+                "mean_utilisation": round(mean_blocks * bs / max(dense, 1),
+                                          4),
+                "kv_blocks_physical": s["high_water"],
+                "kv_blocks_logical": self.logical_peak,
+                "mean_logical_blocks": round(
+                    self.logical_sum / max(self.in_use_n, 1), 3),
+                "blocks_grown_lazy": self.grown_lazy,
+            }
+
+        def sched_stats(self) -> dict:
+            rw = sorted(self.retire_wave.values())
+            aw = sorted(self.admit_wave.values())
+
+            def mean(xs):
+                return round(sum(xs) / len(xs), 3) if xs else None
+
+            return {
+                "policy": policy,
+                "preempted": self.preempted,
+                "mean_admit_wave": mean(aw),
+                "mean_turnaround_waves": mean(rw),
+                "p50_turnaround_waves": rw[len(rw) // 2] if rw else None,
+                "mean_live_requests": round(
+                    self.live_sum / max(self.in_use_n, 1), 3),
+                "admit_wave_of": dict(self.admit_wave),
+            }
+
+        def prefix_summary(self) -> dict:
+            ps = self.prefix_stats
+            return {
+                "enabled": share_prefix,
+                "hit_blocks": ps["hit_blocks"],
+                "prompt_blocks": ps["prompt_blocks"],
+                "hit_frac": round(ps["hit_blocks"]
+                                  / max(ps["prompt_blocks"], 1), 4),
+                "tokens_saved": ps["tokens_saved"],
+                "lookups": ps["lookups"],
+                "reclaim_blocked": {"live": ps["reclaim_blocked_live"],
+                                    "empty": ps["reclaim_blocked_empty"]},
+            }
 
     def empty_stats() -> dict:
         return {"requests": 0, "generated": 0, "waves": 0,
@@ -227,20 +769,32 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                 "kv": {"num_blocks": 0, "reserved": 0, "in_use": 0,
                        "free": 0, "high_water": 0, "refs_total": 0,
                        "block_size": bs, "peak_rows": 0, "dense_rows": 0,
-                       "utilisation": 0.0, "mean_utilisation": 0.0}}
+                       "utilisation": 0.0, "mean_utilisation": 0.0,
+                       "kv_blocks_physical": 0, "kv_blocks_logical": 0,
+                       "mean_logical_blocks": 0.0, "blocks_grown_lazy": 0},
+                "sched": {"policy": policy, "preempted": 0,
+                          "mean_admit_wave": None,
+                          "mean_turnaround_waves": None,
+                          "p50_turnaround_waves": None,
+                          "mean_live_requests": 0.0, "admit_wave_of": {}},
+                "prefix": {"enabled": share_prefix, "hit_blocks": 0,
+                           "prompt_blocks": 0, "hit_frac": 0.0,
+                           "tokens_saved": 0, "lookups": 0,
+                           "reclaim_blocked": {"live": 0, "empty": 0}}}
 
     @torch.no_grad()
     def run(prompts: Sequence[Any], n_new, *, slots: int = 4,
-            eos_id: int | None = None, arrivals=None,
-            kv_blocks: int | None = None, static_batching: bool = False,
-            **run_levers):
+            eos_id: int | None = None, eos_check_every: int = 1,
+            arrivals=None, kv_blocks: int | None = None,
+            static_batching: bool = False, priorities=None, **run_levers):
         _refuse_levers(run_levers, _RUN_LATER, "run")
         run.last_stats = None
-        if slots < 1:
-            raise ValueError(f"slots must be >= 1, got {slots}")
         if not prompts:
             run.last_stats = empty_stats()
             return []
+        if eos_check_every < 1:
+            raise ValueError(
+                f"eos_check_every must be >= 1, got {eos_check_every}")
         n_new_of = ([int(n_new)] * len(prompts)
                     if isinstance(n_new, (int, np.integer))
                     else [int(n) for n in n_new])
@@ -254,135 +808,330 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
             if len(arrivals) != len(prompts):
                 raise ValueError(f"arrivals has {len(arrivals)} entries "
                                  f"for {len(prompts)} prompts")
-        toks = [torch.as_tensor(p, device=dev).long().reshape(-1)
-                for p in prompts]
-        lens = [int(t.shape[0]) for t in toks]
+        if priorities is not None:
+            if policy != "priority":
+                raise ValueError(
+                    f"priorities only apply to policy='priority' "
+                    f"(engine built with {policy!r})")
+            priorities = [float(p_) for p_ in priorities]
+            if len(priorities) != len(prompts):
+                raise ValueError(f"priorities has {len(priorities)} "
+                                 f"entries for {len(prompts)} prompts")
+        elif policy == "priority":
+            priorities = [0.0] * len(prompts)     # arrival order under aging
+        if lazy_growth and eos_check_every != 1:
+            raise ValueError(
+                "lazy_growth needs per-wave retirement accounting "
+                "(eos_check_every=1): the lagged scan's wave→token mapping "
+                "assumes uninterrupted slot tenancy, which a growth stall "
+                "breaks")
+        flat = [torch.as_tensor(p).long().reshape(-1) for p in prompts]
+        lens = [int(t.shape[0]) for t in flat]
         for i, length in enumerate(lens):
             if length < 1:
                 raise ValueError("prompts must have at least one token")
-            if length + n_new_of[i] > max_len:
-                raise ValueError(f"prompt ({length}) + n_new "
-                                 f"({n_new_of[i]}) exceeds max_len "
-                                 f"({max_len})")
-        need = [blocks_for_rows(min(lens[i] + n_new_of[i], geom["rows"]),
-                                bs) for i in range(len(toks))]
-        if kv_blocks is None:
-            kv_blocks = 1 + slots * nt
-        if kv_blocks < 1 + max(need):
-            raise ValueError(
-                f"kv_blocks ({kv_blocks}) cannot hold the largest request "
-                f"({max(need)} blocks of {bs} rows + the reserved garbage "
-                f"block) — the queue would deadlock; raise kv_blocks")
-
-        alloc = BlockAllocator(kv_blocks)
-        pool = init_paged_cache(cfg, slots, max_len, block_size=bs,
-                                num_blocks=kv_blocks,
-                                cache_dtype=cache_dtype, device=dev)
-        sched = _Sched(len(toks), arrivals, time.monotonic())
-        tokens = torch.zeros((slots,), dtype=torch.long, device=dev)
-        owned: dict[int, list[int]] = {}         # req → blocks
-        active: dict[int, int] = {}              # slot → req
+            if prefix_len + length + n_new_of[i] > max_len:
+                raise ValueError(
+                    f"prefix ({prefix_len}) + prompt ({length}) + n_new "
+                    f"({n_new_of[i]}) exceeds max_len ({max_len})")
+            if prefill_chunk is not None:
+                check_chunk_bound(length)      # before any work
+        if slots < 1:
+            raise ValueError(f"slots must be >= 1, got {slots}")
+        toks = [t.to(dev) for t in flat]
+        rstate = _Run(slots, kv_blocks, n_new_of, lens,
+                      [t.tolist() for t in flat] if share_prefix else None)
+        pool, graph = rstate.pool, rstate.graph
+        sched = _Sched(lens, n_new_of, policy, aging, priorities, arrivals,
+                       time.monotonic())
+        # the slots' current tokens: the graph's static buffer, written in
+        # place (hist holds copies); the eager wave's vector is replaced
+        # every wave, so a write goes to a copy (hist holds the old one)
+        tokens = graph.tokens if graph is not None else \
+            torch.zeros((slots,), dtype=torch.long, device=dev)
+        tokens.zero_()
+        mask = None
+        active: dict[int, int] = {}              # slot → request
         firsts: dict[int, Any] = {}              # req → prefill token
         span: dict[int, tuple] = {}              # req → (slot, first wave)
         count: dict[int, int] = {}               # req → tokens so far
         done_at: dict[int, int] = {}             # req → final token count
         admitted_at: dict[int, float] = {}
         latencies: list[float] = []
+        filling: dict[int, dict] = {}            # slot → chunked admission
+        granted: dict[int, int] = {}             # slot → table entries
+        stalled: dict[int, tuple] = {}           # slot → (req, token)
+        frag: dict[int, list] = {}               # req → its wave indices
+        admit_seq: dict[int, int] = {}           # req → admission order
+        admit_counter = 0
+        mask_key = None
         hist: list = []                          # one [slots] vector a wave
-        in_use_sum = in_use_n = 0                # per-loop occupancy samples
-        mask_key: list = [None, None]
+
+        def set_token(slot: int, tok) -> None:
+            nonlocal tokens
+            if graph is None:
+                tokens = tokens.clone()
+            tokens[slot] = tok
 
         def retire(req: int, ntok: int) -> None:
             done_at[req] = ntok
-            alloc.free(owned.pop(req))
+            rstate.retire_wave[req] = len(hist)
+            rstate.retire_blocks(req)
             latencies.append((time.monotonic() - admitted_at.pop(req)) * 1e3)
 
-        while not sched.exhausted() or active:
-            admit_ok = not static_batching or not active
+        def activate(slot: int, req: int, first, entries: int) -> None:
+            nonlocal admit_counter
+            set_token(slot, first)
+            firsts[req] = first
+            span[req] = (slot, len(hist))
+            count[req] = 1
+            granted[slot] = entries
+            rstate.admit_wave[req] = len(hist)
+            admit_seq[req] = admit_counter
+            admit_counter += 1
+            # a request the prefill token already satisfies retires before
+            # any step, or it would collect an extra token
+            if n_new_of[req] == 1 or (eos_id is not None
+                                      and eos_check_every == 1
+                                      and int(first) == eos_id):
+                retire(req, 1)
+                return
+            active[slot] = req
+
+        def mark_frag(req: int) -> None:
+            """A stall breaks the request's contiguous wave span: from now
+            on its emissions are listed wave by wave."""
+            if req not in frag:
+                sw = span[req][1]
+                frag[req] = list(range(sw, sw + count[req] - 1))
+
+        def try_grow(slot: int, req: int) -> bool:
+            """Make sure the slot's next write has a granted block; grow by
+            one when it crosses into a new one. False: the pool is dry."""
+            nxt = prefix_len + lens[req] + count[req] - 1
+            if nxt // bs < granted[slot]:
+                return True
+            b = rstate.grow_block(req)
+            if b is None:
+                return False
+            pool["block_tables"][slot, granted[slot]].fill_(b)
+            granted[slot] += 1
+            return True
+
+        eos_pending = 0                   # waves since the last eos scan
+        while not sched.exhausted() or active or filling or stalled:
+            if lazy_growth and stalled:
+                # stalled slots resume before admission: freed blocks reach
+                # the oldest stalled request first (or re-admissions could
+                # starve it)
+                for slot in list(stalled):
+                    req, tok = stalled[slot]
+                    if try_grow(slot, req):
+                        set_token(slot, tok)
+                        active[slot] = req
+                        del stalled[slot]
+            admit_ok = not static_batching or (not active and not filling
+                                               and not stalled)
             for slot in range(slots):
-                if not admit_ok or slot in active:
+                if not admit_ok or slot in active or slot in filling \
+                        or slot in stalled:
                     continue
                 req = sched.candidate()
                 if req is None:
-                    break                 # empty, or the head not arrived
-                blocks = alloc.alloc(need[req])
-                if blocks is None:
-                    break                 # blocks exhausted: hold the head
+                    break                 # empty, or nothing arrived yet
+                length = lens[req]
+                got = rstate.admit_blocks(req, length)
+                if got is None:
+                    break                 # blocks exhausted: hold
+                row, tail, start, cov, entries = got
                 sched.pop(req)
-                owned[req] = blocks
                 admitted_at[req] = time.monotonic()
-                row = np.zeros((nt,), np.int32)
-                row[:len(blocks)] = blocks
-                first = admit(pool, slot, toks[req], row)
-                # out of place: the previous vector is already in hist
-                tokens = tokens.clone()
-                tokens[slot] = first
-                firsts[req] = first
-                span[req] = (slot, len(hist))
-                count[req] = 1
-                # a request the prefill token already satisfies retires
-                # before any step, or it would collect an extra token
-                if n_new_of[req] == 1 or (eos_id is not None
-                                          and int(first) == eos_id):
-                    retire(req, 1)
+                suffix = toks[req][cov:]
+                if prefill_chunk is None:
+                    impl = ("cached" if prefix is not None or cov else
+                            _select_prefill_impl(cfg, length, "auto", dev))
+                    first = admit_full(pool, slot, suffix, impl, row, tail,
+                                       start)
+                    rstate.register_prefix(req)
+                    activate(slot, req, first, entries)
                 else:
-                    active[slot] = req
-            in_use_sum += alloc.in_use
-            in_use_n += 1
+                    admit_table(pool, slot, row, tail, start)
+                    chunks, last_idx, true_pos = chunk_split(
+                        suffix, length - cov, start)
+                    filling[slot] = {"req": req, "chunks": chunks,
+                                     "last_idx": last_idx,
+                                     "true_pos": true_pos,
+                                     "entries": entries, "next": 0}
+            # chunked prefill interleaved: ONE chunk per filling slot a
+            # wave, while the active slots keep decoding
+            for slot in list(filling):
+                f = filling[slot]
+                logits_c = chunk_step(pool, slot, f["chunks"][f["next"]])
+                f["next"] += 1
+                if f["next"] == len(f["chunks"]):
+                    pool["pos"][slot].fill_(f["true_pos"])  # past the pad
+                    first = logits_c[f["last_idx"]].argmax(dim=-1)
+                    req = f["req"]
+                    del filling[slot]
+                    rstate.register_prefix(req)
+                    activate(slot, req, first, f["entries"])
+            if lazy_growth:
+                # a slot whose next write crosses into an ungranted block
+                # grows, or stalls when the pool is dry (writes fenced,
+                # position frozen, token saved)
+                for slot, req in list(active.items()):
+                    if not try_grow(slot, req):
+                        mark_frag(req)
+                        stalled[slot] = (req, tokens[slot].clone())
+                        del active[slot]
+            sched.tick()
+            rstate.sample(len(active) + len(filling) + len(stalled))
             if not active:
-                if not sched.exhausted() and sched.candidate() is None:
+                if stalled and not filling:
+                    # every live request is stalled and nothing else can
+                    # free blocks: preempt the YOUNGEST back to the queue
+                    slot = max(stalled,
+                               key=lambda s: admit_seq[stalled[s][0]])
+                    req, _tok = stalled.pop(slot)
+                    rstate.preempted += 1
+                    rstate.retire_blocks(req)
+                    sched.requeue(req)
+                    del count[req], span[req]
+                    firsts.pop(req, None)
+                    frag.pop(req, None)
+                    admitted_at.pop(req, None)
+                    granted.pop(slot, None)
+                    continue
+                if not filling and not sched.exhausted() \
+                        and sched.candidate() is None:
                     sched.idle_wait()
                 continue
             key = tuple(sorted(active))
-            if key != mask_key[0]:
-                mask_key[0] = key
-                mask_key[1] = torch.tensor(
-                    [s in active for s in range(slots)], device=dev)
-            tokens = step(tokens, mask_key[1], pool)
-            hist.append(tokens)
+            if key != mask_key:
+                mask_key = key
+                mask = to_device([s in active for s in range(slots)],
+                                 torch.bool)
+                if graph is not None:
+                    graph.active.copy_(mask)
+            if graph is not None:
+                graph.replay()
+                hist.append(tokens.clone())
+            else:
+                tokens = step(tokens, mask, pool)
+                hist.append(tokens)
+            for slot, req in active.items():
+                if req in frag:
+                    frag[req].append(len(hist) - 1)
             for slot, req in list(active.items()):
                 count[req] += 1
                 if count[req] >= n_new_of[req]:
                     retire(req, count[req])
-                    del active[slot]
+                    del active[slot]          # the slot recycles next wave
             if eos_id is not None:
-                tok_h = hist[-1].cpu()
-                for slot, req in list(active.items()):
-                    if int(tok_h[slot]) == eos_id:
-                        retire(req, count[req])
-                        del active[slot]
+                eos_pending += 1
+                if eos_check_every == 1:
+                    tok_h = hist[-1].cpu()
+                    eos_pending = 0
+                    for slot, req in list(active.items()):
+                        if int(tok_h[slot]) == eos_id:
+                            retire(req, count[req])
+                            del active[slot]
+                elif eos_pending >= eos_check_every:
+                    # one [W, slots] readback: each active request's FIRST
+                    # eos since its admission fixes its length; only the
+                    # retirement is late
+                    block = torch.stack(hist[-eos_pending:]).cpu()
+                    base = len(hist) - eos_pending
+                    eos_pending = 0
+                    for slot, req in list(active.items()):
+                        sw = span[req][1]
+                        for j in range(block.shape[0]):
+                            h = base + j
+                            if h >= sw and int(block[j, slot]) == eos_id:
+                                retire(req, h - sw + 2)
+                                del active[slot]
+                                break
+        rstate.close()
 
         waves = torch.stack(hist) if hist else None      # [W, slots]
         outs = []
         for req in range(len(toks)):
             n, (slot, sw) = done_at[req], span[req]
             head = firsts[req].reshape(1)
-            outs.append(head if n == 1 else
-                        torch.cat([head, waves[sw:sw + n - 1, slot]]))
+            if n == 1:
+                outs.append(head)
+            elif req in frag:
+                idx = torch.tensor(frag[req][:n - 1], device=dev)
+                outs.append(torch.cat([head, waves[idx, slot]]))
+            else:
+                # the n - 1 waves while req held its slot: one emission each
+                outs.append(torch.cat([head, waves[sw:sw + n - 1, slot]]))
+        if eos_id is not None and eos_check_every > 1:
+            # a count-cap retirement can precede the scan that would have
+            # seen an eos (and a first-token eos is never scanned): cut at
+            # the first eos, as the per-wave check would have
+            for i, o in enumerate(outs):
+                vals = o.tolist()
+                n = next((j + 1 for j, t in enumerate(vals) if t == eos_id),
+                         len(vals))
+                outs[i] = o[:n]
         lat = sorted(latencies)
 
         def q(p):
             return round(lat[min(len(lat) - 1, int(p * len(lat)))], 3)
 
-        st = alloc.stats()
-        dense = slots * geom["rows"]
         run.last_stats = {
             "requests": len(outs),
             "generated": sum(int(o.shape[0]) for o in outs),
             "waves": len(hist),
             "latency_ms": {"p50": q(0.5), "p99": q(0.99),
                            "max": round(lat[-1], 3)},
-            "kv": {**st, "block_size": bs,
-                   "peak_rows": st["high_water"] * bs,
-                   "dense_rows": dense,
-                   "utilisation": round(st["high_water"] * bs
-                                        / max(dense, 1), 4),
-                   "mean_utilisation": round(
-                       in_use_sum / max(in_use_n, 1) * bs / max(dense, 1),
-                       4)},
+            "kv": rstate.kv_stats(),
+            "sched": rstate.sched_stats(),
+            "prefix": rstate.prefix_summary(),
         }
         return outs
 
+    def capture(pool: dict) -> WaveGraph:
+        """The greedy wave over ``pool`` (on the card), captured as a
+        :class:`WaveGraph` — what a run replays, for timing it alone."""
+        return WaveGraph(step, pool)
+
     run.last_stats = None
     run.step = step
+    run.captures = 0
+    run.capture = capture
     return run
+
+
+def serve(params, prompts: Sequence[Any], n_new, cfg: BurnInConfig, *,
+          slots: int = 4, max_len: int | None = None, rules=None,
+          cache_dtype: str = "bf16", eos_id: int | None = None,
+          eos_check_every: int = 1, prefill_chunk: int | None = None,
+          spec_k: int | None = None, kv_block: int = 16,
+          kv_blocks: int | None = None, arrivals=None,
+          static_batching: bool = False, device="cuda") -> list[Any]:
+    """Serve ``prompts`` (each ``[L_i]``) with continuous batching: one
+    token tensor per prompt, in request order (``[n_new]`` each, shorter
+    when ``eos_id`` fires). A one-shot convenience over
+    :func:`make_serve_engine` (which a caller timing or re-running
+    schedules should build once instead); ``max_len`` defaults to the
+    longest prompt (padded to ``prefill_chunk``) plus the largest
+    budget."""
+    if not prompts:
+        return []
+    if max_len is None:
+        n_max = n_new if isinstance(n_new, (int, np.integer)) \
+            else max(n_new)
+        longest = max(int(torch.as_tensor(p).reshape(-1).shape[0])
+                      for p in prompts)
+        if prefill_chunk:
+            longest = -(-longest // prefill_chunk) * prefill_chunk
+        max_len = longest + int(n_max) + (spec_k or 0)
+    engine = make_serve_engine(params, cfg, max_len=max_len,
+                               cache_dtype=cache_dtype,
+                               prefill_chunk=prefill_chunk, spec_k=spec_k,
+                               kv_block=kv_block, device=device)
+    return engine(prompts, n_new, slots=slots, rules=rules, eos_id=eos_id,
+                  eos_check_every=eos_check_every, kv_blocks=kv_blocks,
+                  arrivals=arrivals, static_batching=static_batching)

@@ -36,6 +36,9 @@ an int32 counter per (row, KV head) elects. The partials and the counters
 live in one scratch per device and stream (:func:`_span_scratch`),
 allocated once and grown to the widest launch: launches on one stream run
 in order, so they share it, and the kernels leave every counter at zero.
+Outgrown scratch is never freed, so a CUDA graph captured on a stream (the
+serve engine's wave) keeps valid addresses; it must be replayed on that
+stream.
 """
 
 from __future__ import annotations
@@ -53,6 +56,9 @@ DECODE_SPAN = 64
 # span partials (f32) and counters (int32, zero between launches) by
 # (device index, stream)
 _scratch: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+# scratch outgrown by a wider launch: kept alive, since a captured CUDA
+# graph replays the addresses it recorded
+_outgrown: list[torch.Tensor] = []
 
 
 def decode_spans(rows: int) -> int:
@@ -83,8 +89,12 @@ def _span_scratch(device, stream, shape: tuple, counters: int):
     ws, cnt = _scratch.get(key, (None, None))
     partials = shape[0] * shape[1] * shape[2] * shape[3]
     if ws is None or ws.numel() < partials:
+        if ws is not None:
+            _outgrown.append(ws)
         ws = torch.empty((partials,), dtype=torch.float32, device=device)
     if cnt is None or cnt.numel() < counters:
+        if cnt is not None:
+            _outgrown.append(cnt)
         cnt = torch.zeros((max(counters, 256),), dtype=torch.int32,
                           device=device)
     _scratch[key] = (ws, cnt)

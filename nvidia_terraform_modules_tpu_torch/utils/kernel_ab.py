@@ -31,10 +31,12 @@ shows beside the difference. Each run prints one JSON line. The groups
 - ``ring``: K2, and K5, K3 and K4 writing f32 (the ring's per-block
   gradients), at the ring's block ``[2, 1024, 16, 128]``, diagonal
   (causal) and visible (full);
-- ``serve``: one flagship serve wave (``engine.step`` on 4 slots at
-  position 305 of a 456-row buffer, bf16 and int8 weights and pools, as
-  ``chip_smoke.py`` times it): device ms (CUDA events) and the host's
-  median ms to issue it;
+- ``serve``: one flagship serve wave on 4 slots at position 305 of a
+  456-row buffer, bf16 and int8 weights and pools, as the tree's engine
+  runs it — one replay of the captured CUDA graph (``engine.capture``)
+  where the tree has one, else the eager ``engine.step`` — and, in a tree
+  with the graph, the eager step beside it: device ms (CUDA events) and
+  the host's median ms to issue it;
 - ``train``: the median host time of a flagship bf16 SGD step ending in a
   synchronise, and of the flagship ring SGD step (sp = 4 on the one card).
 
@@ -82,13 +84,26 @@ def serve_wave(models, timing, dev) -> dict:
             pool["block_tables"][i] = torch.arange(
                 1 + i * nt, 1 + (i + 1) * nt, dtype=torch.int32)
 
-        def wave(engine=engine, pool=pool):
-            pool["pos"][:] = 305
+        def eager(engine=engine, pool=pool):
+            pool["pos"].fill_(305)
             engine.step(toks, active, pool)
 
-        out[f"{name}_ms_per_wave"] = timing.cuda_median_ms(wave)
-        out[f"{name}_host_ms_per_wave"] = timing.host_ms(wave, iters=30)
-        del engine, pool
+        waves = {"eager": eager}
+        if hasattr(engine, "capture"):       # the wave as one replay
+            graph = engine.capture(pool)
+            graph.active.fill_(True)
+
+            def replay(graph=graph, pool=pool):
+                pool["pos"].fill_(305)
+                graph.replay()
+            waves = {"graph": replay, "eager": eager}
+        out[f"{name}_route"] = next(iter(waves))
+        for route, wave in waves.items():
+            tag = name if route == out[f"{name}_route"] else \
+                f"{name}_{route}"
+            out[f"{tag}_ms_per_wave"] = timing.cuda_median_ms(wave)
+            out[f"{tag}_host_ms_per_wave"] = timing.host_ms(wave, iters=30)
+        del engine, pool, waves
     return out
 
 

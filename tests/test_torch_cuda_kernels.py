@@ -27,7 +27,9 @@ two calls, and a row alone against the same row in a batch, give the same
 bits; so does K8, which sums its K slices in slice order inside a
 cluster, on any stream and with other shapes queued around it. The decode kernels split a row's keys into fixed spans combined in
 span order, so the paged kernel equals the contiguous one on the gathered
-view, and a row alone equals the same row in a batch, bit for bit.
+view, and a row alone equals the same row in a batch, bit for bit. The
+serve engine's wave replayed from its captured CUDA graph equals the eager
+wave bit for bit: tokens, and every byte of the pool.
 """
 
 import dataclasses
@@ -38,6 +40,7 @@ import torch
 from nvidia_terraform_modules_tpu_torch.models import (
     BurnInConfig,
     greedy_decode,
+    init_paged_cache,
     init_params,
     make_grads_fn,
     make_serve_engine,
@@ -859,3 +862,138 @@ def test_sequence_parallel_on_card_flash_at_ragged_lengths(cuda, fn, kernel):
     for a, r in zip(got, ref):
         lim = 1e-4 * max(1.0, r.abs().max().item())
         assert (a - r).abs().max().item() <= lim
+
+
+_SERVE_CFG = dict(vocab=512, d_model=256, n_heads=2, n_kv_heads=1,
+                  d_ff=512, n_layers=2, dtype=torch.float32, attn="flash")
+
+
+def _serve_params(dev, int8_weights):
+    cfg = BurnInConfig(**_SERVE_CFG)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(5),
+                         device=dev)
+    if int8_weights:
+        params = quantize_params(params, dtype=torch.float32)
+    return cfg, params
+
+
+def _filled_pool(cfg, dev, slots, max_len, bs, cache_dtype, seed):
+    """A pool whose rows hold seeded values (int8 rows and scales in an
+    int8 pool), slot i mapped to its own blocks, ragged positions."""
+    nt = -(-(256 if cache_dtype == "int8" else max_len) // bs)
+    pool = init_paged_cache(cfg, slots, max_len, block_size=bs,
+                            num_blocks=2 + slots * nt,
+                            cache_dtype=cache_dtype, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for key in ("k", "v"):
+        for buf in pool[key]:
+            if buf.dtype == torch.int8:
+                buf.copy_(torch.randint(-127, 128, buf.shape, generator=g,
+                                        device=dev))
+            else:
+                buf.copy_(torch.randn(buf.shape, generator=g, device=dev))
+    for key in ("k_scale", "v_scale"):
+        for buf in pool.get(key, []):
+            buf.copy_(torch.rand(buf.shape, generator=g, device=dev) / 64)
+    for i in range(slots):
+        pool["block_tables"][i] = torch.arange(1 + i * nt, 1 + (i + 1) * nt,
+                                               dtype=torch.int32)
+    pool["pos"].copy_(torch.tensor([5, 17, 30, 0][:slots]))
+    return pool
+
+
+@pytest.mark.parametrize("cache_dtype,int8_weights", [
+    ("bf16", False), ("int8", True)], ids=["bf16", "int8"])
+def test_wave_graph_replay_equals_eager_wave(cuda, cache_dtype,
+                                             int8_weights):
+    """The captured wave against the eager step on a copy of the pool: the
+    same tokens every wave and the same pool bytes after, through a change
+    of the active set and a table rewrite (lazy growth's) between replays;
+    the launch tally the capture took is K7 (or K7-int8) once a layer and,
+    with int8 weights, K8 once a weight product."""
+    cfg, params = _serve_params(cuda, int8_weights)
+    engine = make_serve_engine(params, cfg, max_len=64, kv_block=16,
+                               cache_dtype=cache_dtype, device=cuda)
+    pool = _filled_pool(cfg, cuda, 4, 64, 16, cache_dtype, seed=6)
+    graph = engine.capture(pool)   # its warm-up writes the garbage block
+    twin = {k: ([t.clone() for t in v] if isinstance(v, list)
+                else v.clone()) for k, v in pool.items()}
+    k7 = "paged_decode_int8" if cache_dtype == "int8" else "paged_decode"
+    want = {k7: cfg.n_layers}
+    if int8_weights:
+        want["int8_matmul"] = 6 * cfg.n_layers + 1
+    assert graph.launches == want
+    toks = torch.tensor([3, 77, 501, 9], device=cuda)
+    active = torch.tensor([True, True, False, True], device=cuda)
+    graph.tokens.copy_(toks)
+    graph.active.copy_(active)
+    before = dict(launches)
+    for wave in range(6):
+        if wave == 2:                        # the active set changes
+            active = torch.tensor([False, True, True, True], device=cuda)
+            graph.active.copy_(active)
+        if wave == 4:                        # a table entry is rewritten
+            for p in (pool, twin):
+                p["block_tables"][1, 2] = p["block_tables"].shape[1] * 4 + 1
+        graph.replay()
+        toks = engine.step(toks, active, twin)
+        assert torch.equal(graph.tokens, toks), wave
+    torch.cuda.synchronize()
+    for name, n in want.items():        # six replays and six eager steps
+        assert launches[name] - before[name] == 2 * 6 * n, name
+    for key, val in pool.items():
+        for a, b in zip(val if isinstance(val, list) else [val],
+                        twin[key] if isinstance(val, list) else [twin[key]]):
+            assert torch.equal(a, b), key
+
+
+def test_engine_keeps_its_graph_across_runs(cuda):
+    """One capture per (slots, kv_blocks): a second run resets the pool in
+    place and replays the same graph, with the same tokens; lazy growth on a
+    tight pool rewrites tables between replays and still equals solo
+    decode."""
+    cfg, params = _serve_params(cuda, False)
+    g = torch.Generator().manual_seed(8)
+    prompts = [torch.randint(0, cfg.vocab, (8 * (1 + i % 3),), generator=g)
+               for i in range(5)]
+    engine = make_serve_engine(params, cfg, max_len=48, kv_block=16,
+                               device=cuda)
+    first = engine(prompts, 12, slots=2)
+    assert engine.captures == 1
+    second = engine(prompts, 12, slots=2)
+    assert engine.captures == 1
+    for a, b, p in zip(first, second, prompts):
+        solo = greedy_decode(params, p[None], 12, cfg, device=cuda)[0]
+        assert torch.equal(a, b) and torch.equal(a, solo)
+    engine(prompts[:1], 2, slots=3)
+    assert engine.captures == 2
+    lazy = make_serve_engine(params, cfg, max_len=48, kv_block=16,
+                             lazy_growth=True, device=cuda)
+    got = lazy(prompts, 12, slots=2, kv_blocks=1 + 3 + 1)
+    st = lazy.last_stats
+    assert st["kv"]["blocks_grown_lazy"] > 0 and st["kv"]["in_use"] == 0
+    for a, b in zip(got, first):
+        assert torch.equal(a, b)
+
+
+def test_levers_on_card_match_solo(cuda):
+    """Sharing, chunked prefill, sjf and lazy growth in one engine on the
+    card: each request's tokens equal its solo decode with the dense
+    prefill (what chunked prefill computes)."""
+    cfg, params = _serve_params(cuda, False)
+    g = torch.Generator().manual_seed(9)
+    tmpl = torch.randint(0, cfg.vocab, (40,), generator=g)
+    prompts = [torch.cat([tmpl, torch.randint(0, cfg.vocab, (3 + 5 * i,),
+                                              generator=g)])
+               for i in range(5)]
+    budgets = [6, 9, 4, 8, 5]
+    engine = make_serve_engine(params, cfg, max_len=96, kv_block=16,
+                               share_prefix=True, prefill_chunk=16,
+                               policy="sjf", lazy_growth=True, device=cuda)
+    got = engine(prompts, budgets, slots=3, kv_blocks=12)
+    st = engine.last_stats
+    assert st["prefix"]["hit_blocks"] > 0 and st["kv"]["in_use"] == 0
+    for p, n, a in zip(prompts, budgets, got):
+        solo = greedy_decode(params, p[None], n, cfg, prefill="dense",
+                             device=cuda)[0]
+        assert torch.equal(a, solo)

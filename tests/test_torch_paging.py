@@ -4,7 +4,10 @@
 invariants of ``tests/test_paging.py`` (no double grant, all-or-nothing,
 block 0 never granted, LIFO recycling, refcounts, the fragmentation bound)
 held by the port's copy, which must also replay any seeded operation
-sequence exactly like the reference's allocator."""
+sequence exactly like the reference's allocator; and the prefix index's
+chains (``chain_chunks``, ``chain_key``, ``chunk_tokens_covered``) and
+``PrefixIndex``, whose match/register/trim/reclaim/release traces must
+equal the reference's device tier call for call."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +19,11 @@ from nvidia_terraform_modules_tpu.models import paging as jpaging
 from nvidia_terraform_modules_tpu_torch.models import BurnInConfig
 from nvidia_terraform_modules_tpu_torch.models.paging import (
     BlockAllocator,
+    PrefixIndex,
     blocks_for_rows,
+    chain_chunks,
+    chain_key,
+    chunk_tokens_covered,
     init_paged_cache,
     paged_pool_spec,
 )
@@ -208,3 +215,94 @@ def test_forward_paged_int8_scales_ride_the_tables(paged_kernel):
             logical = pool[key][li][torch.from_numpy(table[0]).long()]
             logical = logical.reshape((16,) + tuple(logical.shape[2:]))
             assert torch.equal(logical[:n], dense[key][li][0, :n]), key
+
+
+@pytest.mark.parametrize("bs,offset", [(4, 0), (4, 3), (16, 0), (16, 6)])
+@pytest.mark.parametrize("n", [0, 3, 17, 40])
+def test_chain_helpers_equal_the_reference(bs, offset, n):
+    toks = list(np.random.default_rng(n * 31 + bs).integers(0, 500, n))
+    chunks = chain_chunks(toks, bs, offset)
+    assert chunks == jpaging.chain_chunks(toks, bs, offset)
+    for k in range(len(chunks) + 1):
+        assert chunk_tokens_covered(k, bs, offset) == \
+            jpaging.chunk_tokens_covered(k, bs, offset)
+    for upto in range(1, len(chunks) + 1):
+        assert chain_key(chunks, upto) == jpaging.chain_key(chunks, upto)
+        assert chain_key(chunks[:upto]) == chain_key(chunks, upto)
+    with pytest.raises(ValueError, match="offset"):
+        chain_chunks(toks, bs, bs)
+    with pytest.raises(ValueError, match="chunk"):
+        chain_key(chunks, 0)
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("capacity", [0, 2, 6])
+def test_prefix_index_replays_reference_traces(seed, capacity):
+    """Seeded admissions over a few shared chains: each prompt matches,
+    allocates its unshared blocks, registers its chain, and retires later —
+    with trims, pressure reclaims and a final release. Every return value,
+    the index's size, its hit counters, why a reclaim came back empty and
+    the allocator's state equal the reference's after every call."""
+    rng = np.random.default_rng(seed)
+    bs = 4
+    stems = [list(rng.integers(0, 50, 12)) for _ in range(3)]
+    sides = []
+    for alloc_cls, index_cls in ((BlockAllocator, PrefixIndex),
+                                 (jpaging.BlockAllocator,
+                                  jpaging.PrefixIndex)):
+        a = alloc_cls(40)
+        sides.append((a, index_cls(a, capacity), {}, []))
+    ops = rng.integers(0, 4, 60)
+    for i, op in enumerate(ops):
+        got = []
+        for a, idx, owned, trace in sides:
+            if op <= 1:                           # an admission
+                stem = stems[i % 3][:4 + (i % 3) * 4]
+                toks = stem + list(np.random.default_rng(i).integers(
+                    0, 50, 1 + i % 5))
+                chunks = chain_chunks(toks, bs)
+                shared = idx.match(chunks)
+                need = len(chunks) - len(shared) + 1
+                own = a.alloc(need)
+                if own is None and idx.reclaim(need - a.free_blocks):
+                    own = a.alloc(need)
+                if own is None:
+                    a.free(shared)
+                    out = ("held", tuple(shared), idx.reclaim_blocked)
+                else:
+                    blocks = shared + own
+                    idx.register(chunks, blocks[:len(chunks)])
+                    owned[i] = blocks
+                    out = ("admitted", tuple(blocks))
+            elif op == 2 and owned:               # the oldest retires
+                req = min(owned)
+                a.free(owned.pop(req))
+                out = ("retired", req, idx.trim())
+            else:
+                out = ("reclaim", idx.reclaim(2), idx.reclaim_blocked)
+            got.append((out, len(idx), idx.hit_blocks, idx.lookups,
+                        a.stats(), sorted(idx.retained_unreferenced)))
+        assert got[0] == got[1], i
+    for a, idx, owned, _trace in sides:
+        for blocks in owned.values():
+            a.free(blocks)
+    assert sides[0][1].release() == sides[1][1].release()
+    assert sides[0][0].stats() == sides[1][0].stats()
+    assert sides[0][0].in_use == 0
+
+
+def test_prefix_index_never_evicts_a_referenced_block():
+    a = BlockAllocator(12)
+    idx = PrefixIndex(a, capacity=0)
+    chunks = chain_chunks(list(range(12)), 4)
+    blocks = a.alloc(3)
+    idx.register(chunks, blocks)
+    assert idx.trim() == 0 and len(idx) == 3      # the writer holds them
+    assert idx.match(chunks) == blocks            # + one reference each
+    a.free(blocks)
+    assert idx.trim() == 0                        # the matcher holds them
+    a.free(blocks)
+    assert idx.trim() == 3 and len(idx) == 0 and a.in_use == 0
+    assert idx.reclaim(1) == 0 and idx.reclaim_blocked == "empty"
+    with pytest.raises(ValueError, match="capacity"):
+        PrefixIndex(a, capacity=-1)

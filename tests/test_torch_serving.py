@@ -10,6 +10,7 @@ the bf16 pool, the int8 pool, and int8 weights through the phase split.
 """
 
 import inspect
+import re
 
 import jax
 import jax.numpy as jnp
@@ -134,14 +135,21 @@ def test_engine_validation_and_unported_levers():
         engine(prompts, 12)
     with pytest.raises(ValueError, match="n_new"):
         engine(prompts, 0)
-    for lever, value in (("spec_k", 2), ("prefix", [1, 2]),
-                         ("prefill_chunk", 4), ("policy", "sjf"),
-                         ("share_prefix", True), ("lazy_growth", True),
-                         ("sampler", {"top_k": 1})):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the ported levers build; the rest refuse, naming their item
+    for lever, value in (("prefix", [1, 2]), ("prefill_chunk", 4),
+                         ("policy", "sjf"), ("share_prefix", True),
+                         ("lazy_growth", True)):
+        make_serve_engine(params, cfg, max_len=12, device="cpu",
+                          **{lever: value})
+    for lever, value, item in (("spec_k", 2, "item 4"),
+                               ("sampler", {"top_k": 1},
+                                "item 3 (sampled serving)")):
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.*{re.escape(item)}"):
             make_serve_engine(params, cfg, max_len=12, device="cpu",
                               **{lever: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match="item 9 .fleet stack.: the AdmissionSource"):
         engine(prompts, 2, admission=object())
     with pytest.raises(TypeError):
         make_serve_engine(params, cfg, max_len=12, device="cpu", bogus=1)
@@ -158,14 +166,18 @@ def _keyword_defaults(fn) -> dict:
 # keywords the port accepts only at the reference's default: a value that
 # is not, and the ROADMAP item its NotImplementedError names
 _NOT_DEFAULT = {
-    "make_serve_engine": {"aging": (4, "item 3"),
-                          "prefix_keep_blocks": (32, "item 3"),
-                          "host_blocks": (8, "item 9"),
-                          "host_swap": ("sync", "item 9")},
+    "make_serve_engine": {"host_blocks": (8, "item 9"),
+                          "host_swap": ("sync", "item 9"),
+                          "telemetry": (object(), "item 10")},
     "run": {"rules": (object(), "item 6"), "rng": (np.random.default_rng(0),
                                                    "item 3"),
-            "eos_check_every": (4, "item 3"),
-            "priorities": ([0, 1, 2], "item 3")},
+            "admission": (object(), "item 9")},
+}
+# keywords the port now serves, at a value other than the reference's
+# default that leaves this traffic's tokens as they are
+_PORTED = {
+    "make_serve_engine": {"aging": 4, "prefix_keep_blocks": 32},
+    "run": {"eos_check_every": 4},
 }
 
 
@@ -173,8 +185,9 @@ def test_reference_keywords_at_their_defaults_serve_the_same_tokens():
     """The port's engine takes every keyword of the reference's
     ``make_serve_engine`` and ``run`` (read from their signatures) at the
     reference's default and serves the same tokens as without them; a
-    keyword it does not serve yet refuses any other value, naming its
-    ROADMAP item; a keyword the reference's function lacks is a TypeError."""
+    ported lever at another value serves them too; a keyword it does not
+    serve yet refuses any other value, naming its ROADMAP item; a keyword
+    the reference's function lacks is a TypeError."""
     jcfg, jp, cfg, params, prompts = _setup(n=3, seed=11)
     engine_kw = _keyword_defaults(jax_engine)
     run_kw = _keyword_defaults(jax_engine(jp, jcfg, max_len=16, kv_block=4))
@@ -187,6 +200,10 @@ def test_reference_keywords_at_their_defaults_serve_the_same_tokens():
                                **engine_kw)
     got = engine(prompts, 4, **run_kw)
     for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    ported = make_serve_engine(params, cfg, max_len=16, device="cpu",
+                               **_PORTED["make_serve_engine"])
+    for g, w in zip(ported(prompts, 4, **_PORTED["run"]), want):
         assert torch.equal(g, w)
     for name, (value, item) in _NOT_DEFAULT["make_serve_engine"].items():
         with pytest.raises(NotImplementedError,
