@@ -19,6 +19,17 @@ It builds the port's CUDA kernels from ``csrc/`` with nvcc (into
   tally times the replays, show it went through both kernels), timed
   beside the eager wave — and profiles one more run of the same traffic
   (device time by kernel against the host clock; K7 by name);
+- sampled and speculative serving: holds D1 (the keyed Gumbel-max draw,
+  not a TPU kernel: the reference draws in XLA) against the plain draw,
+  tokens and Gumbel scores bit for bit; checks the sampled engine's
+  contracts on the card (top-k = 1 is greedy, slots 1 = slots 3, the
+  replayed sampled wave = the eager one, a preempted request draws the
+  same tokens again) and the speculative engine's (greedy decode's
+  tokens, composed with sharing, chunking and lazy growth, int8); serves
+  the flagship traffic sampled (top-p, then top-k; D1 in every wave and
+  admission, timed beside the wave with the plain draw captured in its
+  place) and with ``spec_k=4`` on the template traffic beside the greedy
+  engine;
 - serve levers: each of ``eos_check_every``, sjf/priority admission,
   chunked prefill, the template prefix, cross-request prefix sharing and
   lazy growth alone and composed, at f32 on the card, against the
@@ -124,6 +135,11 @@ RING_EXACT_SHAPE = (2, 512, 4, 128)
 # the flagship ring step's bf16 gradients: each no further (relative L2)
 # from the f32 step's than this many times the flash step's
 RING_VS_FLASH = 1.5
+# D1's operations an element, for its bound: threefry's 20 rounds and 5 key
+# injections (~80 integer operations), two libdevice logf (~30), the
+# uniform's bit steps and the running argmax (~15); counted at the CUDA
+# cores' f32 rate
+DRAW_OPS_PER_ELEMENT = 125
 
 
 def emit(phase: str, **fields) -> None:
@@ -892,6 +908,434 @@ def serve_levers_flagship(params, cfg, dev) -> dict:
                 tokens_equal_unlevered_frac=tok_eq / sum(budgets),
                 requests_equal_unlevered=sum(
                     torch.equal(a, b) for a, b in zip(outs, plain)))
+
+
+def kernel_sample_draw(dev, card: str) -> dict:
+    """D1 (the keyed Gumbel-max draw) against the plain draw on the card:
+    seeded logits with -inf entries, a row of -inf only and an exact tie of
+    +inf logits, at the flagship wave's ``[4, 8192]``, at ``[8, 8192]``,
+    and at ``[1, 8192]`` with a row offset past 2^32; with a key a row and
+    with the engine's (request, position) fold. Tokens must be equal, and
+    the plain version's Gumbel scores must equal D1's debug copy bit for
+    bit (the first differing element is reported otherwise). Both timed;
+    returns the wave shape's record."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.ops import sampling
+    from nvidia_terraform_modules_tpu_torch.utils.timing import (
+        cuda_median_ms,
+        sync,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    main = None
+    for rows, offset, on_path in ((SLOTS, 0, True), (8, 0, False),
+                                  (1, 3 * 2 ** 32 - 5, False)):
+        v = 8192
+        lg = torch.randn((rows, v), generator=g, device=dev) * 3
+        lg[:, 5:50] = -torch.inf
+        lg[0, 100] = lg[0, 300] = torch.inf       # an exact tie → 100
+        if rows > 1:
+            lg[1] = -torch.inf                    # all -inf → 0
+        offs = torch.arange(rows, device=dev, dtype=torch.int64) * v + offset
+        keys = torch.tensor([[7, 1000 + i] for i in range(rows)], device=dev)
+        fold = torch.stack([torch.arange(rows), torch.arange(rows) + 9],
+                           1).to(dev)
+        for form, k, f in (("key_a_row", keys, None),
+                           ("fold", keys[0].contiguous(), fold)):
+            tok, sc = sampling.draw_scores(lg, k, offs, f)
+            ref, ref_sc = sampling.draw_ref(lg, k, offs, f, scores=True)
+            sync()
+            diff = (sc != ref_sc).nonzero()
+            if diff.numel() or not torch.equal(tok, ref) or tok[0] != 100 \
+                    or (rows > 1 and tok[1] != 0):
+                first = diff[0].tolist() if diff.numel() else None
+                raise AssertionError(
+                    f"sample_draw [{rows}, {v}] {form}: tokens {tok.tolist()}"
+                    f" vs plain {ref.tolist()}; first differing score "
+                    f"{first}" + (f" ({sc[tuple(first)].item()} vs "
+                                  f"{ref_sc[tuple(first)].item()})"
+                                  if first else ""))
+        ms = cuda_median_ms(lambda: sampling.draw(lg, keys[0].contiguous(),
+                                                  None, fold))
+        plain_ms = cuda_median_ms(lambda: sampling.draw_ref(
+            lg, keys[0].contiguous(), None, fold))
+        nbytes = rows * v * 4 + rows * (8 + 16 + 8)
+        bound_ms, bound_by = bound(DRAW_OPS_PER_ELEMENT * rows * v, nbytes,
+                                   "f32")
+        rec = dict(card=card, shape=[rows, v], offset=offset,
+                   main_path=on_path, tokens_equal=True, scores_equal=True,
+                   max_abs_err=0.0,
+                   ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=None)
+        emit("kernel_sample_draw", **rec)
+        if on_path:
+            main = rec
+    return main
+
+
+def serve_sampled_exact(dev) -> None:
+    """The sampled engine on the card at f32 (serve_exact's config), bf16
+    and int8 pools: a top-k = 1 sampler gives the greedy engine's tokens;
+    at temperature 5 slots 1 and 3 give the same tokens; the captured
+    sampled wave equals the eager sampled step on a copy of the pool
+    (tokens, (request, position) rows and pool bytes); a second run gives
+    the same tokens and captures nothing new; lazy growth with a
+    preemption on a tight pool gives the ample pool's tokens."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        init_params,
+        make_sampler,
+        make_serve_engine,
+        quantize_params,
+    )
+
+    cfg = _exact_cfg()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                         device=dev)
+    pg = torch.Generator().manual_seed(2)
+    cases = {
+        "bf16": (params, "bf16", 48,
+                 [torch.randint(0, cfg.vocab, (n,), generator=pg)
+                  for n in (16, 24, 8, 32, 16)]),
+        "int8": (quantize_params(params, dtype=torch.float32), "int8", 144,
+                 [torch.randint(0, cfg.vocab, (n,), generator=pg)
+                  for n in (80, 96, 72, 128, 88)])}
+    for name, (p, cache_dtype, max_len, prompts) in cases.items():
+        kw = dict(max_len=max_len, kv_block=KV_BLOCK,
+                  cache_dtype=cache_dtype, device=dev)
+        greedy = make_serve_engine(p, cfg, **kw)(prompts, 8, slots=2)
+        k1 = make_serve_engine(p, cfg, sampler=make_sampler(top_k=1), **kw)(
+            prompts, 8, slots=2, rng=3)
+        hot = make_serve_engine(p, cfg, sampler={"temperature": 5.0}, **kw)
+        one = hot(prompts, 8, slots=1, rng=3)
+        three = hot(prompts, 8, slots=3, rng=3)
+        captures = hot.captures
+        again = hot(prompts, 8, slots=3, rng=3)
+        second = hot.captures
+        # lazy growth: five 15-token prompts take one block each at
+        # admission and all cross into a second at the same wave; a pool
+        # of four blocks stalls them all, and the youngest is preempted
+        lazy_prompts = [torch.randint(0, cfg.vocab, (15,), generator=pg)
+                        for _ in range(5)]
+        ample = hot(lazy_prompts, 8, slots=SLOTS, rng=3)
+        lazy = make_serve_engine(p, cfg, sampler={"temperature": 5.0},
+                                 lazy_growth=True, **kw)
+        tight = lazy(lazy_prompts, 8, slots=SLOTS, rng=3, kv_blocks=1 + 4)
+        preempted = lazy.last_stats["sched"]["preempted"]
+        # the captured sampled wave against the eager one on a twin pool
+        pool = _seeded_pool(cfg, dev, 4, max_len, cache_dtype, seed=3)
+        graph = hot.capture(pool)
+        twin = {k: ([t.clone() for t in v] if isinstance(v, list)
+                    else v.clone()) for k, v in pool.items()}
+        toks = torch.tensor([3, 77, 501, 9], device=dev)
+        active = torch.tensor([True, True, False, True], device=dev)
+        fold = torch.tensor([[0, 1], [1, 4], [5, 0], [2, 2]], device=dev)
+        key = torch.tensor([0, 3], device=dev)
+        for buf, val in ((graph.tokens, toks), (graph.active, active),
+                         (graph.fold, fold), (graph.key, key)):
+            buf.copy_(val)
+        waves_equal = []
+        for wave in range(8):
+            if wave == 3:
+                active = torch.tensor([False, True, True, True], device=dev)
+                graph.active.copy_(active)
+            graph.replay()
+            toks = hot.step(toks, active, fold, key, twin)
+            waves_equal.append(torch.equal(graph.tokens, toks)
+                               and torch.equal(graph.fold, fold))
+        pool_equal = all(
+            torch.equal(a, b) for k_, val in pool.items()
+            for a, b in zip(val if isinstance(val, list) else [val],
+                            twin[k_] if isinstance(val, list)
+                            else [twin[k_]]))
+        rec = dict(pool=name, replay_launches=graph.launches,
+                   top_k1_equals_greedy=[torch.equal(a, b)
+                                         for a, b in zip(k1, greedy)],
+                   slots1_equals_slots3=[torch.equal(a, b)
+                                         for a, b in zip(one, three)],
+                   second_run_equal=[torch.equal(a, b)
+                                     for a, b in zip(three, again)],
+                   captures_after_first_runs=captures,
+                   captures_after_second_run=second,
+                   lazy_preempted=preempted,
+                   lazy_equals_ample=[torch.equal(a, b)
+                                      for a, b in zip(tight, ample)],
+                   differs_from_greedy=sum(not torch.equal(a, b)
+                                           for a, b in zip(three, greedy)),
+                   waves_equal=waves_equal, pool_bytes_equal=pool_equal)
+        emit("serve_sampled_exact", **rec)
+        ok = all(rec["top_k1_equals_greedy"] + rec["slots1_equals_slots3"]
+                 + rec["second_run_equal"] + rec["lazy_equals_ample"]
+                 + waves_equal) and pool_equal and preempted > 0 \
+            and captures == second == 2 \
+            and rec["differs_from_greedy"] > 0
+        if not ok:
+            raise AssertionError(f"serve_sampled_exact {name}: {rec}")
+        del hot, lazy, pool, twin, graph
+
+
+def serve_sampled_flagship(params, cfg, dev, prompts, max_len,
+                           greedy: dict, draw_ms: float, card: str) -> dict:
+    """The flagship traffic sampled (bf16, 4 slots), with
+    ``make_sampler(temperature=0.8, top_p=0.95)`` and then ``top_k=50``:
+    tokens/s, the wave's device and host ms beside the greedy wave's
+    (``greedy``, this call's serve_flagship), D1's share of the wave's
+    device time, and the wave with the plain draw captured in D1's place
+    (a debug graph, ``utils/kernel_ab.sampled_waves``). Launches: K7 once a
+    layer a wave, D1 once a wave and once an admission."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch import models
+    from nvidia_terraform_modules_tpu_torch.models import make_serve_engine
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+    from nvidia_terraform_modules_tpu_torch.utils import kernel_ab, timing
+
+    out = {"card": card}
+    for name, spec in (("top_p", {"temperature": 0.8, "top_p": 0.95}),
+                       ("top_k", {"temperature": 0.8, "top_k": 50})):
+        engine = make_serve_engine(params, cfg, max_len=max_len,
+                                   kv_block=KV_BLOCK, sampler=spec,
+                                   device=dev)
+        engine(prompts[:SLOTS], 4, slots=SLOTS, rng=SEED)   # warm-up
+        timing.sync()
+        _build.reset_launches()
+        t0 = time.monotonic()
+        outs = engine(prompts, N_NEW, slots=SLOTS, rng=SEED)
+        timing.sync()
+        wall_s = time.monotonic() - t0
+        launches = dict(_build.launches)
+        st = engine.last_stats
+        want = {**{k: 0 for k in launches},
+                "flash_fwd": st["requests"] * cfg.n_layers,
+                "paged_decode": st["waves"] * cfg.n_layers,
+                "sample_draw": st["waves"] + st["requests"]}
+        if launches != want:
+            raise AssertionError(f"serve_sampled_flagship {name} launched "
+                                 f"{launches}, expected {want}")
+        for o in outs:
+            if o.shape != (N_NEW,) or int(o.min()) < 0 \
+                    or int(o.max()) >= cfg.vocab:
+                raise AssertionError(f"bad sampled output {o.shape} {o}")
+        again = engine(prompts, N_NEW, slots=2, rng=SEED)
+        waves = kernel_ab.sampled_waves(models, timing, dev, params, cfg,
+                                        tuple(spec.items()))
+        out[name] = dict(
+            sampler=spec, requests=st["requests"],
+            generated=st["generated"], waves=st["waves"], wall_s=wall_s,
+            tokens_per_s=st["generated"] / wall_s,
+            greedy_tokens_per_s=greedy["tokens_per_s"],
+            ms_per_wave=waves["d1_ms_per_wave"],
+            host_ms_per_wave=(waves["d1_host_ms_per_wave_1"]
+                              + waves["d1_host_ms_per_wave_2"]) / 2,
+            plain_draw_ms_per_wave=waves["plain_ms_per_wave"],
+            plain_draw_host_ms_per_wave=(waves["plain_host_ms_per_wave_0"]
+                                         + waves["plain_host_ms_per_wave_3"])
+            / 2,
+            greedy_ms_per_wave=waves["greedy_ms_per_wave"],
+            greedy_host_ms_per_wave=waves["greedy_host_ms_per_wave"],
+            wave_turns_ms={k: v for k, v in waves.items()
+                           if "_ms_per_wave_" in k},
+            d1_share_of_wave=draw_ms / waves["d1_ms_per_wave"],
+            draw_d1_ms=waves["draw_d1_ms"],
+            draw_plain_ms=waves["draw_plain_ms"],
+            replay_launches_per_wave=waves["d1_launches_per_wave"],
+            plain_replay_launches_per_wave=waves["plain_launches_per_wave"],
+            launches=launches, captures=engine.captures,
+            schedule_invariant_slots2=sum(torch.equal(a, b)
+                                          for a, b in zip(outs, again))
+            / len(outs),
+            latency_ms=st["latency_ms"])
+        if out[name]["schedule_invariant_slots2"] != 1.0:
+            raise AssertionError(f"serve_sampled_flagship {name}: slots 2 "
+                                 f"changed tokens")
+        del engine
+    return out
+
+
+def serve_spec_exact(dev) -> None:
+    """The speculative engine on the card at f32 (every trip a replay),
+    on periodic prompts: tokens equal the greedy engine's and solo
+    ``greedy_decode``'s, with fewer verification slot-steps than tokens;
+    composed with ``share_prefix``, ``prefill_chunk`` and ``lazy_growth``
+    on a tight pool (dense config: every prefill path is the same dense
+    math); int8 pool and int8 weights against the int8 greedy engine on
+    the gather path."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        greedy_decode,
+        init_params,
+        make_serve_engine,
+        quantize_params,
+    )
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+
+    records = {}
+    for attn in ("flash", "dense"):
+        cfg = _exact_cfg(attn)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(7),
+                             device=dev)
+        pg = torch.Generator().manual_seed(8)
+        # a periodic 32-token template (two full blocks: sharing hits) and
+        # a periodic suffix a request
+        tmpl = torch.randint(0, cfg.vocab, (4,), generator=pg).repeat(8)
+        prompts = [torch.cat([tmpl, torch.randint(
+            0, cfg.vocab, (3,), generator=pg).repeat(4)[:4 + 3 * i]])
+            for i in range(5)]
+        budgets = [16, 24, 12, 20, 16]
+        max_len = max(len(x) + n for x, n in zip(prompts, budgets)) + 4
+        kw = dict(max_len=max_len, kv_block=KV_BLOCK, device=dev)
+        greedy = make_serve_engine(params, cfg, **kw)(prompts, budgets,
+                                                      slots=2)
+        solo = [greedy_decode(params, x[None], n, cfg, device=dev,
+                              prefill="dense" if attn == "dense" else "auto"
+                              )[0] for x, n in zip(prompts, budgets)]
+        full = -(-max_len // KV_BLOCK)
+        variants = {"plain": ({}, {})}
+        if attn == "dense":
+            variants.update({
+                "share_prefix": ({"share_prefix": True}, {}),
+                "prefill_chunk": ({"prefill_chunk": 16}, {}),
+                "lazy_growth": ({"lazy_growth": True},
+                                {"kv_blocks": 1 + full + 2}),
+                "composed": ({"share_prefix": True, "prefill_chunk": 16,
+                              "lazy_growth": True},
+                             {"kv_blocks": 1 + full + 2})})
+        for name, (ekw, rkw) in variants.items():
+            eng = make_serve_engine(params, cfg, spec_k=4, **kw, **ekw)
+            got = eng(prompts, budgets, slots=2, **rkw)
+            st = eng.last_stats
+            rec = dict(equal_greedy_engine=[torch.equal(a, b) for a, b in
+                                            zip(got, greedy)],
+                       equal_solo=[torch.equal(a, b)
+                                   for a, b in zip(got, solo)],
+                       slot_steps=st["slot_steps"],
+                       generated=st["generated"],
+                       accepted_per_step=st["accepted_per_step"],
+                       trips=st["trips"], waves=st["waves"],
+                       preempted=st["sched"]["preempted"],
+                       hit_blocks=st["prefix"]["hit_blocks"],
+                       grown=st["kv"]["blocks_grown_lazy"],
+                       drained=st["kv"]["in_use"] == 0,
+                       captures=eng.captures)
+            records[f"{attn}_{name}"] = rec
+            if not (all(rec["equal_greedy_engine"] + rec["equal_solo"])
+                    and rec["drained"]
+                    and (not ekw.get("share_prefix") or rec["hit_blocks"])
+                    and (not ekw.get("lazy_growth") or rec["grown"])
+                    and st["slot_steps"] < st["generated"] - len(prompts)):
+                emit("serve_spec_exact", cases=records)
+                raise AssertionError(f"serve_spec_exact {attn} {name}: "
+                                     f"{rec}")
+    # int8 weights and an int8 pool
+    qparams = quantize_params(params, dtype=torch.float32)
+    kw = dict(max_len=max_len, kv_block=KV_BLOCK, cache_dtype="int8",
+              device=dev)
+    want = make_serve_engine(qparams, cfg, paged_kernel="off", **kw)(
+        prompts, budgets, slots=2)
+    eng = make_serve_engine(qparams, cfg, spec_k=4, **kw)
+    before = _build.launches["int8_matmul"]
+    got = eng(prompts, budgets, slots=2)
+    records["int8"] = dict(
+        equal_int8_greedy_engine=[torch.equal(a, b)
+                                  for a, b in zip(got, want)],
+        int8_matmul_launches=_build.launches["int8_matmul"] - before,
+        slot_steps=eng.last_stats["slot_steps"],
+        accepted_per_step=eng.last_stats["accepted_per_step"])
+    emit("serve_spec_exact", requests=len(prompts), budgets=budgets,
+         cases=records)
+    if not all(records["int8"]["equal_int8_greedy_engine"]) \
+            or records["int8"]["int8_matmul_launches"] == 0:
+        raise AssertionError(f"serve_spec_exact int8: {records['int8']}")
+
+
+def serve_spec_flagship(params, cfg, dev, card: str) -> dict:
+    """``spec_k=4`` at the flagship width (bf16) on serve_levers_flagship's
+    template traffic (16 ``shared_prefix_prompts`` requests, ragged
+    budgets), beside the greedy engine on the same traffic in this call:
+    tokens/s, accepted tokens a verification slot-step, the trip's device
+    and host ms (``utils/kernel_ab.spec_trip``), trips and readbacks, and
+    one more run of the traffic under the profiler. bf16
+    ``[slots, k+1]`` and ``[slots, 1]`` products round differently, so
+    tokens equal to the greedy engine's are reported as a share, not
+    held."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch import models
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+    from nvidia_terraform_modules_tpu_torch.utils import kernel_ab, timing
+    from nvidia_terraform_modules_tpu_torch.utils.traffic import (
+        ragged_lengths,
+        shared_prefix_prompts,
+    )
+
+    k = 4
+    pairs = shared_prefix_prompts(LEVER_REQUESTS, SEED, n_templates=4,
+                                  template_len=256, suffix_lo=16,
+                                  suffix_hi=128, vocab=cfg.vocab,
+                                  block_size=KV_BLOCK)
+    prompts = [torch.tensor(p, device=dev) for _, p in pairs]
+    budgets = ragged_lengths(LEVER_REQUESTS, SEED, lo=16, hi=64)
+    max_len = max(len(p) + n for (_, p), n in zip(pairs, budgets)) + k
+    runs = {}
+    for name, kw in (("greedy", {}), ("spec", {"spec_k": k})):
+        engine = models.make_serve_engine(params, cfg, max_len=max_len,
+                                          kv_block=KV_BLOCK, device=dev,
+                                          **kw)
+        engine(prompts[:SLOTS], 4, slots=SLOTS)          # warm-up
+        timing.sync()
+        _build.reset_launches()
+        t0 = time.monotonic()
+        outs = engine(prompts, budgets, slots=SLOTS)
+        timing.sync()
+        wall_s = time.monotonic() - t0
+        runs[name] = (outs, engine.last_stats, wall_s,
+                      dict(_build.launches))
+        if name == "spec":
+            # where a run's time goes: the same traffic under the profiler
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.monotonic()
+                engine(prompts, budgets, slots=SLOTS)
+                timing.sync()
+                prof_wall_ms = (time.monotonic() - t0) * 1e3
+            spec_profile = profile_summary(prof, prof_wall_ms)
+        del engine
+    outs, st, wall_s, launches = runs["spec"]
+    g_outs, g_st, g_wall, _ = runs["greedy"]
+    for o, n in zip(outs, budgets):
+        if o.shape != (n,) or int(o.min()) < 0 or int(o.max()) >= cfg.vocab:
+            raise AssertionError(f"serve_spec_flagship: bad output "
+                                 f"{o.shape} for budget {n}")
+    want = {**{name: 0 for name in launches},
+            "flash_fwd": st["requests"] * cfg.n_layers}
+    if launches != want or st["kv"]["in_use"] != 0:
+        raise AssertionError(f"serve_spec_flagship launched {launches}, "
+                             f"expected {want}; kv {st['kv']}")
+    trip = kernel_ab.spec_trip(models, timing, dev, params, cfg, k)
+    tok_eq = sum(int((a == b).sum()) for a, b in zip(outs, g_outs))
+    return dict(card=card, spec_k=k, requests=st["requests"],
+                generated=st["generated"], budgets=budgets,
+                prompt_lens=[len(p) for _, p in pairs], max_len=max_len,
+                wall_s=wall_s, tokens_per_s=st["generated"] / wall_s,
+                greedy_tokens_per_s=g_st["generated"] / g_wall,
+                greedy_waves=g_st["waves"],
+                accepted_per_step=st["accepted_per_step"],
+                slot_steps=st["slot_steps"], multi_steps=st["waves"],
+                trips=st["trips"], readbacks_per_trip=1,
+                trip_ms=trip["spec_trip_ms"],
+                trip_host_ms=trip["spec_trip_host_ms"],
+                trip_launches=trip["spec_trip_launches"],
+                launches=launches, latency_ms=st["latency_ms"],
+                greedy_latency_ms=g_st["latency_ms"],
+                tokens_equal_greedy_frac=tok_eq / sum(budgets),
+                requests_equal_greedy=sum(torch.equal(a, b)
+                                          for a, b in zip(outs, g_outs)),
+                profile=spec_profile)
 
 
 def decode_int8_flagship(params, cfg, dev) -> tuple[dict, dict]:
@@ -2151,6 +2595,7 @@ def main() -> int:
     k6_main = kernel_kv_decode(randn, dev)
     kernel_decode_spans(randn, dev)
     k8_main, k8_decode = kernel_int8_matmul(randn, dev)
+    d1_main = kernel_sample_draw(dev, smi)
 
     # ------------------------------------------------------- serve_exact
     cfg = BurnInConfig(vocab=512, d_model=256, n_heads=2, n_kv_heads=1,
@@ -2175,6 +2620,8 @@ def main() -> int:
     serve_int8_exact(dev)
     serve_graph_exact(dev)
     serve_levers_exact(dev)
+    serve_sampled_exact(dev)
+    serve_spec_exact(dev)
 
     # ---------------------------------------------------- serve_flagship
     nt = -(-max_len // KV_BLOCK)
@@ -2311,6 +2758,16 @@ def main() -> int:
 
     # --------------------------------------------- serve_levers_flagship
     emit("serve_levers_flagship", **serve_levers_flagship(params, cfg, dev))
+    torch.cuda.empty_cache()
+
+    # ------------------------------------- sampled and speculative serving
+    # the flagship traffic sampled (D1 in every wave and admission), and
+    # spec_k on the template traffic
+    sampled = serve_sampled_flagship(
+        params, cfg, dev, prompts, max_len,
+        {"tokens_per_s": st["generated"] / wall_s}, d1_main["ms"], smi)
+    emit("serve_sampled_flagship", **sampled)
+    emit("serve_spec_flagship", **serve_spec_flagship(params, cfg, dev, smi))
     torch.cuda.empty_cache()
 
     # ----------------------------------------------- serve_int8_flagship
@@ -2558,6 +3015,20 @@ def main() -> int:
             ring_launches[name] if name == "flash_bwd_fused"
             else ring_rec["split_step_launches"][name], bwd_f32[name]),
             **_resources(bwd_res, name, f32)})
+    # D1 is not the port of a TPU kernel: the reference draws in XLA
+    # (jax.random.categorical in make_sampler); its launches are the
+    # sampled flagship run's (top-p)
+    kernels.append({
+        "name": "sample_draw", "route": "cuda",
+        "source": "nvidia_terraform_modules_tpu_torch/csrc/sample.cu",
+        "replaces": "nvidia_terraform_modules_tpu/models/decode.py:810",
+        "tpu_kernel": False,
+        "launches": sampled["top_p"]["launches"]["sample_draw"],
+        **{key: d1_main[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+        "plain_ms_in_wave": (sampled["top_p"]["plain_draw_ms_per_wave"]
+                             - sampled["top_p"]["ms_per_wave"])})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

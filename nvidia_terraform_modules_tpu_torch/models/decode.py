@@ -50,6 +50,7 @@ from ..ops.decode_attention import (
     paged_decode_attention,
 )
 from ..ops.flash_attention import flash_attention, pick_impl
+from ..ops.sampling import draw, key_data, split
 from ..utils.layers import rmsnorm as _rmsnorm
 from .burnin import (
     BurnInConfig,
@@ -328,15 +329,84 @@ def _select_prefill_impl(cfg: BurnInConfig, t: int, prefill: str,
     return prefill
 
 
+class Sampler:
+    """The ``pick(logits [B, V], key) → [B]`` sampling function of
+    :func:`make_sampler` (the reference's closure, as an object so that the
+    serve engine can reach its parts): temperature, then top-k, then top-p
+    over the tempered distribution, then the keyed Gumbel-max draw
+    (``ops/sampling.draw``: D1 on the card)."""
+
+    def __init__(self, temperature: float, top_k: int | None,
+                 top_p: float | None):
+        self.temperature = temperature
+        self.top_k = top_k
+        self.top_p = top_p
+
+    def filter(self, logits):
+        """The tempered, filtered f32 logits the draw reads: ``logits /
+        temperature`` (an f32 division, as the reference's), then the
+        top-k cut at the k-th value, then the rank-based nucleus."""
+        t = torch.full((), self.temperature, dtype=torch.float32,
+                       device=logits.device)
+        logits = logits.float() / t
+        k = self.top_k
+        if k is not None and k < logits.shape[-1]:
+            kth = torch.topk(logits, k, dim=-1).values[:, -1:]
+            logits = torch.where(logits < kth, -torch.inf, logits)
+        if self.top_p is not None and self.top_p < 1.0:
+            # keep ranks whose EXCLUSIVE prefix mass is < p: the first
+            # always survives, the one crossing p is included, and a logit
+            # tied with the boundary but ranked past it is cut
+            order = torch.argsort(-logits, dim=-1, stable=True)
+            probs = torch.softmax(torch.gather(logits, -1, order), dim=-1)
+            keep_sorted = torch.cumsum(probs, dim=-1) - probs < self.top_p
+            keep = torch.zeros_like(keep_sorted).scatter(-1, order,
+                                                         keep_sorted)
+            logits = torch.where(keep, logits, -torch.inf)
+        return logits
+
+    def __call__(self, logits, key):
+        """One ``[2]`` key for the whole ``[B, V]`` batch, as
+        ``jax.random.categorical(key, logits)``: row ``b`` counts its
+        elements from ``b·V``."""
+        logits = self.filter(logits)
+        if self.top_k == 1:
+            return logits.argmax(dim=-1)              # no tie-break draw
+        b, v = logits.shape
+        offsets = torch.arange(b, dtype=torch.int64,
+                               device=logits.device) * v
+        return draw(logits, key, offsets)
+
+    def rows(self, logits, key, fold):
+        """The serve engine's per-slot draw: row ``s`` keyed by
+        ``fold_in(fold_in(key, request), position)`` with ``fold[s] =
+        (request, position)``, each row a draw of its own (the reference
+        vmaps ``pick(row[None], key_s)``)."""
+        logits = self.filter(logits)
+        if self.top_k == 1:
+            return logits.argmax(dim=-1)
+        return draw(logits, key, None, fold)
+
+
+def make_sampler(temperature: float = 1.0, top_k: int | None = None,
+                 top_p: float | None = None) -> Sampler:
+    """Build the ``pick(logits [B, V], key) → [B]`` sampling function
+    shared by :func:`sample_decode` and the serve engine: temperature →
+    top-k → top-p in the mainstream order (temperature floored at 1e-6),
+    ``top_k=1`` recovering greedy exactly. ``key`` is ``[2]`` int64 key data
+    (``ops/sampling.key_data``)."""
+    if top_k is not None and top_k < 1:
+        raise ValueError(f"top_k must be >= 1, got {top_k}")
+    if top_p is not None and not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+    return Sampler(max(float(temperature), 1e-6), top_k, top_p)
+
+
 @torch.no_grad()
-def greedy_decode(params, prompt, n_new: int, cfg: BurnInConfig,
-                  max_len: int | None = None, prefill: str = "auto",
-                  cache_dtype: str = "bf16", *, device="cuda"):
-    """Greedy generation: prefill ``prompt`` ``[B, T]``, then ``n_new - 1``
-    cached steps over a ``cache_dtype`` cache. ``params`` may hold int8
-    ``QTensor`` weights (``models/quantize.py``). Returns the ``[B,
-    n_new]`` generated tokens (int64, on ``device``)."""
-    dev = check_device(device)
+def _generate(params, prompt, n_new: int, cfg: BurnInConfig, max_len,
+              pick_next, prefill: str, cache_dtype: str, dev):
+    """Shared prefill + decode loop; ``pick_next`` is None (greedy) or
+    ``(key, pick)``, token ``i`` drawn with ``split(key, n_new)[i]``."""
     _check_params(params, dev)
     prompt = torch.as_tensor(prompt, device=dev).long()
     b, t = prompt.shape
@@ -351,10 +421,44 @@ def greedy_decode(params, prompt, n_new: int, cfg: BurnInConfig,
     logits, cache = forward_cached(
         params, prompt, cache, cfg,
         prefill_impl=_select_prefill_impl(cfg, t, prefill, dev))
-    tok = logits[:, -1].argmax(dim=-1)
+    if pick_next is None:
+        def pick(lg, i):
+            return lg.argmax(dim=-1)
+    else:
+        keys = split(pick_next[0], n_new)             # one per token
+
+        def pick(lg, i):
+            return pick_next[1](lg, keys[i])
+    tok = pick(logits[:, -1], 0)
     toks = [tok]
-    for _ in range(n_new - 1):
+    for i in range(1, n_new):
         logits, cache = forward_cached(params, tok[:, None], cache, cfg)
-        tok = logits[:, -1].argmax(dim=-1)
+        tok = pick(logits[:, -1], i)
         toks.append(tok)
     return torch.stack(toks, dim=1)
+
+
+def greedy_decode(params, prompt, n_new: int, cfg: BurnInConfig,
+                  max_len: int | None = None, prefill: str = "auto",
+                  cache_dtype: str = "bf16", *, device="cuda"):
+    """Greedy generation: prefill ``prompt`` ``[B, T]``, then ``n_new - 1``
+    cached steps over a ``cache_dtype`` cache. ``params`` may hold int8
+    ``QTensor`` weights (``models/quantize.py``). Returns the ``[B,
+    n_new]`` generated tokens (int64, on ``device``)."""
+    return _generate(params, prompt, n_new, cfg, max_len, None, prefill,
+                     cache_dtype, check_device(device))
+
+
+def sample_decode(params, prompt, n_new: int, cfg: BurnInConfig, rng,
+                  max_len: int | None = None, temperature: float = 1.0,
+                  top_k: int | None = None, top_p: float | None = None,
+                  prefill: str = "auto", cache_dtype: str = "bf16", *,
+                  device="cuda"):
+    """Temperature / top-k / nucleus sampling over the cached loop
+    (:func:`make_sampler`'s filters). ``rng`` is an int seed or ``[2]`` key
+    data (``ops/sampling.key_data``); one key per generated token, split
+    from it, so the same ``rng`` gives the reference's tokens."""
+    dev = check_device(device)
+    pick = make_sampler(temperature=temperature, top_k=top_k, top_p=top_p)
+    return _generate(params, prompt, n_new, cfg, max_len,
+                     (key_data(rng, dev), pick), prefill, cache_dtype, dev)

@@ -1,7 +1,7 @@
 # SPDX-FileCopyrightText: Copyright (c) 2026 tpu-terraform-modules authors. All rights reserved.
 # SPDX-License-Identifier: Apache-2.0
 """Continuous-batching serve engine on the paged KV cache — the port of the
-reference's ``models/serving.py`` (greedy serving).
+reference's ``models/serving.py``: greedy, sampled and speculative serving.
 
 Requests join in-flight decode at wave boundaries the moment a slot AND
 enough KV blocks are free (an optional per-request arrival time gates
@@ -25,6 +25,24 @@ buffers — reach the next replay. A capture or replay that fails raises:
 the card never falls back to eager waves. Admissions and prefill chunks
 stay eager (they are not the per-wave cost). On the CPU the eager wave is
 the path.
+
+Sampled serving (``sampler=``, ``run(rng=)``): every token's key is the
+reference's ``fold_in(fold_in(rng, request), position)`` (threefry-2x32,
+``ops/sampling``), so a request's tokens never depend on the schedule and
+equal the JAX engine's at f32. The sampled wave keeps each slot's
+``(request, position)`` in a static ``[slots, 2]`` buffer beside the
+tokens and advances the positions of active slots itself; the host writes
+a slot's row only at admission, stall, resumption and retirement. The draw
+is D1 (``csrc/sample.cu``) inside the graph.
+
+Speculative serving (``spec_k``, greedy only): each slot drafts ``k``
+tokens by bigram lookup in its own context and one ``[slots, k+1]``
+forward verifies them (:func:`make_spec_step`). The reference loops on
+the device until enough slots finish; here one trip of that loop — the
+loop's test, then its body, gated on the test — is one replay of a
+captured graph over static context, position and count buffers, and the
+host replays it until the test fails, reading back one ``[6, slots]``
+report a trip.
 
 Host/device split: the host owns WHICH request sits in a slot and WHICH
 blocks it holds (plain integers); the device owns the math. Without
@@ -76,6 +94,7 @@ accepted at the reference's default value; any other value raises
 from __future__ import annotations
 
 import bisect
+import gc
 import time
 from typing import Any, Sequence
 
@@ -83,12 +102,15 @@ import numpy as np
 import torch
 
 from ..ops import _build
+from ..ops.sampling import MASK32, key_data, threefry2x32
 from .burnin import BurnInConfig, check_device, tree_leaves
 from .decode import (
+    Sampler,
     _check_params,
     _select_prefill_impl,
     check_cache_dtype,
     forward_paged,
+    make_sampler,
 )
 from .paging import (
     BlockAllocator,
@@ -100,6 +122,7 @@ from .paging import (
     paged_pool_spec,
 )
 from .quantize import QTensor, dequantize_params
+from .speculative import _ngram_draft, accept_drafts
 
 _POLICIES = ("fifo", "sjf", "priority")
 _DEFAULT_AGING = 512                   # waves; bounds starvation by default
@@ -110,12 +133,8 @@ _DEFAULT_AGING = 512                   # waves; bounds starvation by default
 # NotImplementedError naming the item. make_serve_engine's and run's are
 # apart, as in the reference's signatures; any other keyword is a
 # TypeError.
-_SAMPLED = "Queue A item 3 (sampled serving)"
 _FLEET = "Queue A item 9 (fleet stack)"
 _ENGINE_LATER = {
-    "sampler": (None, _SAMPLED),
-    "spec_k": (None,
-               "Queue A item 4 (speculative serving: models/speculative.py)"),
     "telemetry": (None, "Queue A item 10 (bench + tracing)"),
     "host_spill": (False, f"{_FLEET}: host KV tier"),
     "host_blocks": (None, f"{_FLEET}: host KV tier"),
@@ -125,7 +144,6 @@ _ENGINE_LATER = {
 }
 _RUN_LATER = {
     "rules": (None, "Queue A item 6 (parallel beyond sp)"),
-    "rng": (None, _SAMPLED),
     "admission": (None, f"{_FLEET}: the AdmissionSource seam"),
 }
 
@@ -146,79 +164,277 @@ def _refuse_levers(levers: dict, later: dict, where: str) -> None:
                 f"{item}")
 
 
-def make_serve_step(params, cfg: BurnInConfig, *,
-                    paged_kernel: str = "auto"):
-    """The all-slots greedy wave step: ``(tokens [slots], active [slots]
-    bool, pool) → next tokens [slots]``, one batched ``[slots, 1]``
-    ``forward_paged`` that updates the pool in place. ``paged_kernel``
-    picks the read path (``"auto"``: the paged decode kernel on the card;
-    ``"off"``: the gather reference)."""
+def _request_key(rng, req: int, pos: int) -> torch.Tensor:
+    """THE sampled-token key contract, as the reference's: ``fold_in(
+    fold_in(rng, request), position)`` — ``[2]`` int64 key data, computed
+    on the host's integers. The admissions draw with it; the wave folds
+    the same contract inside D1 (``ops/sampling.draw``'s ``fold``), so
+    the keys follow the request stream, never the schedule."""
+    k0, k1 = key_data(rng).tolist()
+    for data in (req, pos):
+        k0, k1 = threefry2x32(k0, k1, 0, int(data) & MASK32)
+    return torch.tensor([k0, k1], dtype=torch.int64)
 
-    def wave(tokens, active, pool):
+
+def _make_pick(sampler: Sampler | None):
+    """The admissions' token pick: ``pick(logits_row [V], key) → token`` —
+    the argmax when greedy (``key`` unused), the sampler over that one row
+    otherwise."""
+    if sampler is None:
+        def pick(logits_row, key):
+            return logits_row.argmax(dim=-1)
+    else:
+        def pick(logits_row, key):
+            return sampler(logits_row[None], key)[0]
+    return pick
+
+
+def make_serve_step(params, cfg: BurnInConfig, sampler: Sampler | None = None,
+                    *, paged_kernel: str = "auto"):
+    """The all-slots wave step, one batched ``[slots, 1]`` ``forward_paged``
+    that updates the pool in place. ``paged_kernel`` picks the read path
+    (``"auto"``: the paged decode kernel on the card; ``"off"``: the gather
+    reference).
+
+    Greedy (``sampler=None``): ``(tokens [slots], active [slots] bool,
+    pool) → next tokens [slots]``. Sampled: ``(tokens, active, fold
+    [slots, 2], key [2], pool) → next tokens``, slot ``s`` drawn with
+    ``fold_in(fold_in(key, fold[s, 0]), fold[s, 1])`` — its request and
+    position — after which the step advances the active slots' positions
+    in place (``fold[:, 1] += active``)."""
+
+    def last_logits(tokens, active, pool):
         logits, _ = forward_paged(params, tokens[:, None], pool, cfg,
                                   prefill_impl="cached", active=active,
                                   paged_kernel=paged_kernel)
-        return logits[:, -1].argmax(dim=-1)
+        return logits[:, -1]
 
-    return wave
+    if sampler is None:
+        def wave(tokens, active, pool):
+            return last_logits(tokens, active, pool).argmax(dim=-1)
+        return wave
+
+    def sampled_wave(tokens, active, fold, key, pool):
+        toks = sampler.rows(last_logits(tokens, active, pool), key, fold)
+        fold[:, 1].add_(active.long())
+        return toks
+
+    return sampled_wave
 
 
-class WaveGraph:
-    """The greedy wave ``step`` over one pool, captured once as a CUDA
-    graph and replayed each wave.
+class SpecState:
+    """The speculative iteration's static buffers over ``slots`` slots and
+    a context row of ``width`` tokens: ``ctx`` (prefix + prompt +
+    generated), ``cur`` (valid length), ``n_out`` (tokens generated),
+    ``fin`` and ``steps`` (per multi-step), the host's inputs ``n_new``,
+    ``eos`` (``-1``: none), ``active``, ``stop`` and ``granted`` (rows each
+    slot's table covers), and ``report``, which each trip fills with
+    ``fin``, ``n_out``, ``steps``, ``need_grow``, the pool's positions and
+    whether another trip would run."""
 
-    The graph reads the slots' tokens from :attr:`tokens` and the active
-    mask from :attr:`active` (static buffers the host writes in place
-    between waves) and the pool's own tensors, and writes the next tokens
-    back into :attr:`tokens`; a caller that keeps a wave's tokens must copy
-    them, since the next replay overwrites them.
+    def __init__(self, slots: int, width: int, dev):
+        def z(*shape, dtype=torch.long):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        self.ctx = z(slots, width)
+        self.cur, self.n_out, self.steps = z(slots), z(slots), z(slots)
+        self.n_new, self.granted = z(slots), z(slots)
+        self.fin = z(slots, dtype=torch.bool)
+        self.active = z(slots, dtype=torch.bool)
+        self.eos, self.stop = z(), z()
+        self.report = z(6, slots)
 
-    It is captured, and must be replayed, on a stream of its own: the
-    decode kernels keep their span partials and counters in one scratch per
+
+def make_spec_step(params, cfg: BurnInConfig, k: int, *,
+                   paged_kernel: str = "auto"):
+    """The all-slots SPECULATIVE trip on the paged pool: ``trip(state:
+    SpecState, pool)``, in place. One trip is one test and one body of the
+    reference's device loop (``make_spec_step``'s ``while_loop``): the loop
+    runs while fewer than ``stop`` active slots have finished and some
+    unfinished active slot is not growth-blocked, and the body runs gated
+    on that test — a trip after the test fails changes nothing — so the
+    host can replay trips until ``report[5]`` reads false.
+
+    The body: each slot drafts ``k`` tokens (:func:`_ngram_draft` in its
+    own context row), ONE ``[slots, k+1]`` ``forward_paged`` verifies them
+    (T = k + 1: the gather read path, as in the reference), and
+    :func:`accept_drafts` keeps the longest agreeing prefix plus the
+    model's token, capped at the slot's budget and cut after the first eos.
+    Frozen slots — finished, inactive, or growth-blocked (their grant does
+    not cover ``pos + k + 1`` rows) — write to the garbage block and keep
+    their state. The rollback ``pos = cur - 1`` is written into the pool's
+    own ``pos`` in place."""
+
+    def blocked_of(s, pos):
+        # the next verification writes pos..pos+k: a slot whose grant does
+        # not cover them waits for the host
+        return (pos.long() + (k + 1) > s.granted) & s.active & ~s.fin
+
+    def cond(s, pos):
+        runnable = s.active & ~s.fin & ~blocked_of(s, pos)
+        return ((s.fin & s.active).sum() < s.stop) & runnable.any()
+
+    def trip(s: SpecState, pool) -> None:
+        pos = pool["pos"]
+        go = cond(s, pos)
+        blocked = blocked_of(s, pos)
+        frozen = s.fin | ~s.active | blocked | ~go
+        last = torch.gather(s.ctx, 1, (s.cur - 1).clamp_min(0)[:, None])
+        draft = _ngram_draft(s.ctx, s.cur, k, cfg.vocab)        # [S, k]
+        logits, _ = forward_paged(params, torch.cat([last, draft], 1), pool,
+                                  cfg, prefill_impl="cached", active=~frozen,
+                                  paged_kernel=paged_kernel)
+        new_toks, n_acc = accept_drafts(draft, logits.argmax(dim=-1))
+        idx = torch.arange(k + 1, device=pos.device)
+        emit = torch.minimum(n_acc + 1, (s.n_new - s.n_out).clamp_min(0))
+        is_eos = (new_toks == s.eos) & (s.eos >= 0) & (idx < emit[:, None])
+        hit = is_eos.any(dim=1)
+        emit = torch.where(hit, is_eos.int().argmax(dim=1) + 1, emit)
+        # the window at cur, clamped into the row as the reference's
+        # dynamic slice is
+        at = s.cur.clamp(0, s.ctx.shape[1] - (k + 1))[:, None] + idx
+        keep = (idx < emit[:, None]) & ~frozen[:, None]
+        s.ctx.scatter_(1, at, torch.where(keep, new_toks,
+                                          torch.gather(s.ctx, 1, at)))
+        n_done = s.n_out + emit
+        done = (n_done >= s.n_new) | hit
+        cur = torch.where(frozen, s.cur, s.cur + emit)
+        s.cur.copy_(cur)
+        s.n_out.copy_(torch.where(frozen, s.n_out, n_done))
+        # the rollback, in place: the new last token is not forwarded yet
+        pos.copy_(torch.where(frozen, pos.long(), cur - 1))
+        # a slot's finishing trip counts; frozen trips do not
+        live = s.active & ~s.fin & ~blocked & go
+        s.steps.add_(live.long())
+        s.fin.logical_or_(done & live)
+        s.report.copy_(torch.stack([
+            s.fin.long(), s.n_out, s.steps, blocked_of(s, pos).long(),
+            pos.long(), cond(s, pos).long().expand_as(s.cur)]))
+
+    return trip
+
+
+class _Replayed:
+    """``fn()`` — a wave over static buffers and a pool — run eagerly
+    (``capture=False``, the CPU path) or captured once as a CUDA graph and
+    replayed.
+
+    It is captured, and replayed, on a stream of its own: the decode
+    kernels keep their span partials and counters in one scratch per
     stream, so an eager launch on another stream can never race a replay
-    on them. Before capture the step runs eagerly on that stream with every
-    slot dead (the writes land in the garbage block, no position moves),
-    which builds the kernels and allocates that stream's scratch and cuBLAS
-    workspace outside the capture.
+    on them. Before capture ``fn`` runs twice eagerly on that stream with
+    every slot dead (the writes land in the garbage block, no position
+    moves), which builds the kernels and allocates that stream's scratch
+    and cuBLAS workspace outside the capture. Python's cycle collector runs
+    before the capture and not during it: a collection inside it could
+    destroy an unreachable engine's graph, a call the capture forbids,
+    which invalidates it. A capture that fails raises.
 
     A replay calls no kernel wrapper, so the wrappers' launch counts
     (``ops._build.launches``) would miss it: the counts the wrappers added
-    during capture — the kernels the graph holds — are taken back out and
-    added again at each replay."""
+    during capture — the kernels the graph holds — are taken back out into
+    :attr:`launches` and added again at each replay."""
 
-    def __init__(self, step, pool: dict):
-        dev = pool["pos"].device
-        slots = pool["pos"].shape[0]
+    def __init__(self, fn, dev, capture: bool):
+        self.fn = fn
+        self.graph = None
+        self.launches: dict[str, int] = {}
+        if not capture:
+            return
         self.stream = torch.cuda.Stream(dev)
-        self.tokens = torch.zeros((slots,), dtype=torch.long, device=dev)
-        self.active = torch.zeros((slots,), dtype=torch.bool, device=dev)
         cur = torch.cuda.current_stream(dev)
         self.stream.wait_stream(cur)
         with torch.cuda.stream(self.stream):
             for _ in range(2):
-                step(self.tokens, self.active, pool)
+                fn()
         cur.wait_stream(self.stream)
         before = dict(_build.launches)
         self.graph = torch.cuda.CUDAGraph()
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(self.graph, stream=self.stream):
-                self.tokens.copy_(step(self.tokens, self.active, pool))
+                fn()
         finally:
-            self.launches = {k: n - before.get(k, 0)
-                             for k, n in _build.launches.items()
-                             if n != before.get(k, 0)}
+            if collecting:
+                gc.enable()
+            self.launches = {name: n - before.get(name, 0)
+                             for name, n in _build.launches.items()
+                             if n != before.get(name, 0)}
             _build.launches.update(before)
 
     def replay(self) -> None:
-        """One wave: replay the graph on its stream, ordered after the
-        current stream's work and before the current stream's next."""
-        cur = torch.cuda.current_stream(self.tokens.device)
+        """One wave: the graph's replay on its stream, ordered after the
+        current stream's work and before the current stream's next (or,
+        uncaptured, ``fn()``)."""
+        if self.graph is None:
+            self.fn()
+            return
+        cur = torch.cuda.current_stream(self.stream.device)
         self.stream.wait_stream(cur)
         with torch.cuda.stream(self.stream):
             self.graph.replay()
         cur.wait_stream(self.stream)
         for name, n in self.launches.items():
             _build.launches[name] += n
+
+
+class WaveGraph(_Replayed):
+    """The wave ``step`` over one pool, captured once as a CUDA graph and
+    replayed each wave (``capture=False``: run eagerly, the CPU path).
+
+    The graph reads the slots' tokens from :attr:`tokens` and the active
+    mask from :attr:`active` — and, sampled, their ``(request, position)``
+    rows from :attr:`fold` and the run's key from :attr:`key` — static
+    buffers the host writes in place between waves, and the pool's own
+    tensors; it writes the next tokens back into :attr:`tokens` (and
+    advances :attr:`fold`'s positions). A caller that keeps a wave's tokens
+    must copy them, since the next replay overwrites them."""
+
+    def __init__(self, step, pool: dict, *, sampled: bool = False,
+                 capture: bool = True):
+        dev = pool["pos"].device
+        slots = pool["pos"].shape[0]
+        self.tokens = torch.zeros((slots,), dtype=torch.long, device=dev)
+        self.active = torch.zeros((slots,), dtype=torch.bool, device=dev)
+        self.fold = self.key = None
+        args = (self.tokens, self.active)
+        if sampled:
+            self.fold = torch.zeros((slots, 2), dtype=torch.long, device=dev)
+            self.key = torch.zeros((2,), dtype=torch.long, device=dev)
+            args += (self.fold, self.key)
+
+        def wave():
+            self.tokens.copy_(step(*args, pool))
+
+        super().__init__(wave, dev, capture)
+
+
+class SpecGraph(_Replayed):
+    """The speculative trip (:func:`make_spec_step`) over one pool and one
+    :class:`SpecState` (:attr:`state`), captured once as a CUDA graph
+    (``capture=False``: run eagerly, the CPU path)."""
+
+    def __init__(self, trip, pool: dict, width: int, *,
+                 capture: bool = True):
+        dev = pool["pos"].device
+        self.state = SpecState(pool["pos"].shape[0], width, dev)
+        self.trips = 0
+        super().__init__(lambda: trip(self.state, pool), dev, capture)
+
+    def multi_step(self):
+        """The reference's device multi-step: trips until the loop's test
+        fails, one ``[6, slots]`` readback a trip. Returns the last
+        report on the host (``fin``, ``n_out``, ``steps``, ``need_grow``,
+        ``pos``, ``cont``)."""
+        self.state.fin.zero_()
+        self.state.steps.zero_()
+        while True:
+            self.replay()
+            self.trips += 1
+            report = self.state.report.to("cpu", copy=True)
+            if not int(report[5, 0]):
+                return report
 
 
 class AdmissionSource:
@@ -235,6 +451,8 @@ class AdmissionSource:
     - ``requeue(req)``: a preempted request goes back; its tokens
       regenerate identically on re-admission.
     - ``tick()``: one wave passed (aging hooks).
+    - ``waiting()`` → arrived, unadmitted requests (the speculative loop
+      sizes its multi-step by it).
     - ``exhausted()`` → True only when no candidate will ever come again.
     - ``idle_wait()``: nothing admissible and nothing computing — block
       until the next arrival instead of spinning.
@@ -256,6 +474,9 @@ class AdmissionSource:
 
     def tick(self):
         pass
+
+    def waiting(self) -> int:
+        return 0
 
     def exhausted(self) -> bool:
         raise NotImplementedError
@@ -324,6 +545,13 @@ class _Sched(AdmissionSource):
             if self._arrived(r, now):
                 self.age[r] += 1
 
+    def waiting(self) -> int:
+        """Arrived-but-unadmitted requests (one clock read)."""
+        if self.arrivals is None:
+            return len(self.pending)
+        now = self._now()
+        return sum(1 for r in self.pending if self.arrivals[r] <= now)
+
     def next_arrival(self):
         """The request whose arrival unblocks admission: fifo's head, or
         the earliest arrival under the other policies."""
@@ -345,8 +573,9 @@ class _Sched(AdmissionSource):
 
 
 def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
-                      cache_dtype: str = "bf16", prefix=None,
-                      prefill_chunk: int | None = None, kv_block: int = 16,
+                      cache_dtype: str = "bf16", prefix=None, sampler=None,
+                      prefill_chunk: int | None = None,
+                      spec_k: int | None = None, kv_block: int = 16,
                       policy: str = "fifo", aging: int | None = None,
                       share_prefix: bool = False, lazy_growth: bool = False,
                       prefix_keep_blocks: int = 64,
@@ -377,13 +606,44 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
     cap on retained blocks. ``lazy_growth``: per-wave block grants (needs
     ``eos_check_every == 1``). See the module docstring.
 
+    ``sampler`` (:func:`..decode.make_sampler`'s, or the dict of its
+    keyword arguments) makes the engine sampled; ``run`` then needs
+    ``rng`` (an int seed or ``[2]`` key data). Keys follow (request,
+    position), never the schedule, so slot count, arrivals, admission
+    order and preemption change no token; ``make_sampler(top_k=1)`` is the
+    greedy engine.
+
+    ``spec_k`` serves greedily through speculation (:func:`make_spec_step`;
+    not with ``sampler``): ``max_len`` must leave ``spec_k`` rows of
+    verification headroom, ``eos_check_every`` stays 1 and
+    ``static_batching`` off; ``run.last_stats`` adds ``slot_steps`` (the
+    verification slot-steps), ``accepted_per_step`` (tokens a slot-step,
+    admission tokens excluded), ``decode_steps`` (each request's) and
+    ``trips`` (replays, one readback each). It composes with ``prefix``,
+    ``prefill_chunk`` (admitted in one sweep, not interleaved),
+    ``share_prefix`` and ``lazy_growth`` (a slot whose next ``k + 1``-row
+    window leaves its grant freezes and the host grows it).
+
     ``cache_dtype="int8"`` serves from an int8 pool; ``QTensor`` params
     serve through the phase split. ``params`` must live on ``device``
     (``"cuda"`` unless the caller asks for the CPU). On a CUDA device the
-    waves replay a captured graph (``run.captures`` counts the captures,
-    one per ``(slots, kv_blocks)``; ``run.capture(pool)`` captures the wave
-    over a caller's pool, for timing)."""
+    waves (or speculative trips) replay a captured graph (``run.captures``
+    counts the captures, one per ``(slots, kv_blocks)``;
+    ``run.capture(pool)`` captures the wave over a caller's pool, for
+    timing)."""
     _refuse_levers(levers, _ENGINE_LATER, "make_serve_engine")
+    if isinstance(sampler, dict):
+        sampler = make_sampler(**sampler)
+    if sampler is not None and not isinstance(sampler, Sampler):
+        raise TypeError(f"sampler must come from make_sampler (or be the "
+                        f"dict of its arguments), got {type(sampler)}")
+    if spec_k is not None:
+        if spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+        if sampler is not None:
+            raise ValueError(
+                "speculative serving is greedy-only: acceptance tests the "
+                "model's argmax chain — drop sampler or spec_k")
     dev = check_device(device)
     _check_params(params, dev)
     if prefill_chunk is not None and prefill_chunk < 1:
@@ -406,7 +666,11 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
     geom = paged_pool_spec(cfg, max_len, kv_block, cache_dtype)
     bs, nt = kv_block, geom["tables"]
     pool_keys = ("k", "v") + (("k_scale", "v_scale") if quant else ())
-    step = make_serve_step(params, cfg, paged_kernel=paged_kernel)
+    step = make_serve_step(params, cfg, sampler, paged_kernel=paged_kernel)
+    trip = (None if spec_k is None else
+            make_spec_step(params, cfg, spec_k, paged_kernel=paged_kernel))
+    headroom = spec_k or 0
+    spec_width = max_len + headroom + 1     # the window at cur always fits
     # the phase split: admissions from a dequantised copy, built once
     prefill_params = params
     if any(isinstance(x, QTensor) for x in tree_leaves(params)):
@@ -425,21 +689,27 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
         prefix_impl = _select_prefill_impl(cfg, prefix_len, "auto", dev)
     need_prefix = full_blocks + (1 if tail_rows else 0)
 
-    # one pool (and, on the card, its captured wave) per (slots, kv_blocks)
-    pools: dict[tuple[int, int], tuple[dict, WaveGraph | None]] = {}
+    # one pool and its wave (on the card captured) per (slots, kv_blocks)
+    pools: dict[tuple[int, int], tuple[dict, Any]] = {}
+
+    def capture(pool: dict, on_card: bool = True):
+        """The engine's wave (the speculative trip under ``spec_k``) over
+        ``pool``: a :class:`WaveGraph` or :class:`SpecGraph`, captured on
+        the card — what a run replays, for timing it alone."""
+        if trip is not None:
+            return SpecGraph(trip, pool, spec_width, capture=on_card)
+        return WaveGraph(step, pool, sampled=sampler is not None,
+                         capture=on_card)
 
     def pool_for(slots: int, kv_blocks: int):
-        """The run's pool, zeroed as a fresh one would be, and its graph."""
+        """The run's pool, zeroed as a fresh one would be, and its wave."""
         key = (slots, kv_blocks)
         if key not in pools:
             pool = init_paged_cache(cfg, slots, max_len, block_size=bs,
                                     num_blocks=kv_blocks,
                                     cache_dtype=cache_dtype, device=dev)
-            graph = None
-            if dev.type == "cuda":
-                graph = WaveGraph(step, pool)
-                run.captures += 1
-            pools[key] = (pool, graph)
+            pools[key] = (pool, capture(pool, dev.type == "cuda"))
+            run.captures += dev.type == "cuda"
         pool, graph = pools[key]
         for buf in tree_leaves(pool):
             buf.zero_()
@@ -483,12 +753,22 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
     def admit_full(pool, slot: int, prompt, impl: str, row, tail,
                    start: int):
         """One full admission: table, prefill of ``prompt`` (the unshared
-        suffix under sharing) from ``start``, the first token."""
+        suffix under sharing) from ``start``; the last position's
+        logits."""
         admit_table(pool, slot, row, tail, start)
         logits, _ = forward_paged(prefill_params, prompt[None],
                                   slot_view(pool, slot), cfg,
                                   prefill_impl=impl, paged_kernel="off")
-        return logits[0, -1].argmax(dim=-1)
+        return logits[0, -1]
+
+    pick = _make_pick(sampler)
+
+    def pick_first(logits_row, req: int, rng):
+        """An admission's first token from its last prompt position's
+        logits, keyed at (request, position 0)."""
+        key = None if sampler is None else to_device(
+            _request_key(rng, req, 0), torch.long)
+        return pick(logits_row, key)
 
     @torch.no_grad()
     def chunk_step(pool, slot: int, chunk):
@@ -524,7 +804,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
         return chunks, length - 1 - (nc - 1) * c, start + length
 
     def rows_needed(length: int, n_new_i: int) -> int:
-        rows = prefix_len + length + n_new_i
+        rows = prefix_len + length + n_new_i + headroom
         if prefill_chunk is not None:
             padded = prefix_len + check_chunk_bound(length) * prefill_chunk
             rows = max(rows, padded)
@@ -620,7 +900,9 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                         cov = chunk_tokens_covered(len(shared), bs,
                                                    tail_rows)
             k = len(shared)
-            grant = prefix_len + length + (
+            # a lazy grant covers the first write window: one decode row,
+            # or the k + 1-row verification window under speculation
+            grant = prefix_len + length + headroom + (
                 1 if lazy_growth else self.n_new_of[req])
             if prefill_chunk is not None:
                 padded_end = prefix_len + cov + -(-(
@@ -782,9 +1064,203 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                            "tokens_saved": 0, "lookups": 0,
                            "reclaim_blocked": {"live": 0, "empty": 0}}}
 
+    def admit_spec(rstate, slot: int, req: int, prompt, length: int):
+        """A speculative admission (greedy): a whole prefill, or the chunks
+        swept one after another in this call (the speculative loop has no
+        per-wave boundary to interleave them into). Returns ``(first,
+        entries)``, or None when the blocks do not fit (hold)."""
+        got = rstate.admit_blocks(req, length)
+        if got is None:
+            return None
+        row, tail, start, cov, entries = got
+        suffix = prompt[cov:]
+        if prefill_chunk is None:
+            impl = ("cached" if prefix is not None or cov else
+                    _select_prefill_impl(cfg, length, "auto", dev))
+            logits_row = admit_full(rstate.pool, slot, suffix, impl, row,
+                                    tail, start)
+        else:
+            admit_table(rstate.pool, slot, row, tail, start)
+            chunks, last_idx, true_pos = chunk_split(suffix, length - cov,
+                                                     start)
+            for chunk in chunks:
+                logits_c = chunk_step(rstate.pool, slot, chunk)
+            rstate.pool["pos"][slot].fill_(true_pos)     # past the pad
+            logits_row = logits_c[last_idx]
+        rstate.register_prefix(req)
+        return logits_row.argmax(dim=-1), entries
+
+    def run_spec(rstate, sched, toks, lens, n_new_of, eos_id):
+        """The speculative schedule: the plain loop's admission and
+        retirement bookkeeping, but the tokens live in the device's context
+        rows (the draft source) and each trip may emit up to ``spec_k + 1``
+        tokens a slot. The host syncs once a trip; a multi-step ends when
+        enough slots finish — one while requests wait for a slot (so a slot
+        recycles promptly), as many as are waiting, or all active ones when
+        the queue is empty — or, under ``lazy_growth``, when every
+        unfinished slot needs blocks, which the host then grants ``spec_k +
+        1`` rows at a time (stalling a slot the pool cannot cover, and
+        preempting the youngest when all stall)."""
+        pool, graph = rstate.pool, rstate.graph
+        sb = graph.state
+        for buf in (sb.ctx, sb.cur, sb.n_out):
+            buf.zero_()
+        sb.eos.fill_(-1 if eos_id is None else eos_id)
+        slots = rstate.slots
+        active: dict[int, int] = {}
+        start_of: dict[int, int] = {}            # req → first output index
+        out: dict[int, Any] = {}
+        admitted_at: dict[int, float] = {}
+        latencies: list[float] = []
+        req_steps: dict[int, int] = {}           # req → its slot-steps
+        granted: dict[int, int] = {}             # slot → table entries
+        pos_h: dict[int, int] = {}               # slot → its device pos
+        stalled: dict[int, int] = {}             # slot → req
+        admit_seq: dict[int, int] = {}
+        admit_counter = slot_steps = waves = generated = admitted = 0
+        trips0 = graph.trips
+        ctx_pre = (prefix if prefix is not None
+                   else torch.zeros((0,), dtype=torch.long, device=dev))
+
+        def grow_to(slot: int, req: int, target_rows: int) -> bool:
+            """Grant blocks until the slot's table covers ``target_rows``
+            (False: the pool is dry — the caller stalls the slot)."""
+            while granted[slot] * bs < target_rows:
+                b = rstate.grow_block(req)
+                if b is None:
+                    return False
+                pool["block_tables"][slot, granted[slot]].fill_(b)
+                granted[slot] += 1
+            return True
+
+        def retire(req: int) -> None:
+            rstate.retire_wave[req] = waves
+            rstate.retire_blocks(req)
+            latencies.append((time.monotonic() - admitted_at.pop(req)) * 1e3)
+
+        while not sched.exhausted() or active or stalled:
+            if lazy_growth and stalled:
+                # stalled slots resume before admission: freed blocks reach
+                # the oldest stalled request first
+                for slot in list(stalled):
+                    req = stalled[slot]
+                    if grow_to(slot, req, pos_h[slot] + spec_k + 1):
+                        active[slot] = req
+                        del stalled[slot]
+            for slot in range(slots):
+                if slot in active or slot in stalled or sched.exhausted():
+                    continue
+                req = sched.candidate()
+                if req is None:
+                    break                 # nothing arrived yet
+                length = lens[req]
+                got = admit_spec(rstate, slot, req, toks[req], length)
+                if got is None:
+                    break                 # blocks exhausted: hold
+                first, entries = got
+                sched.pop(req)
+                admitted_at[req] = time.monotonic()
+                rstate.admit_wave[req] = waves
+                admit_seq[req] = admit_counter
+                admit_counter += 1
+                start_of[req] = prefix_len + length
+                granted[slot] = entries
+                pos_h[slot] = prefix_len + length
+                # the slot's context row: prefix, prompt, first token
+                row = torch.cat([ctx_pre, toks[req], first.reshape(1)])
+                sb.ctx[slot].zero_()
+                sb.ctx[slot, :row.shape[0]] = row
+                sb.cur[slot].fill_(row.shape[0])
+                sb.n_out[slot].fill_(1)
+                generated += 1
+                admitted += 1
+                # the prefill token may already satisfy the request
+                if n_new_of[req] == 1 or (eos_id is not None
+                                          and int(first) == eos_id):
+                    out[req] = first.reshape(1)
+                    req_steps[req] = 0
+                    retire(req)
+                    continue
+                active[slot] = req
+            waiting = sched.waiting()
+            sched.tick()
+            rstate.sample(len(active) + len(stalled))
+            if not active:
+                if lazy_growth and stalled:
+                    # every live request is stalled: preempt the YOUNGEST
+                    # back to the queue (its tokens regenerate identically)
+                    slot = max(stalled, key=lambda s_: admit_seq[stalled[s_]])
+                    req = stalled.pop(slot)
+                    rstate.preempted += 1
+                    rstate.retire_blocks(req)
+                    sched.requeue(req)
+                    admitted_at.pop(req, None)
+                    start_of.pop(req, None)
+                    granted.pop(slot, None)
+                    req_steps.pop(req, None)
+                    continue
+                if not sched.exhausted() and sched.candidate() is None:
+                    sched.idle_wait()
+                continue
+            sb.active.copy_(to_device([s_ in active for s_ in range(slots)],
+                                      torch.bool))
+            sb.n_new.copy_(to_device(
+                [n_new_of[active[s_]] if s_ in active else 0
+                 for s_ in range(slots)], torch.long))
+            sb.granted.copy_(to_device(
+                [granted.get(s_, 0) * bs if lazy_growth else nt * bs
+                 for s_ in range(slots)], torch.long))
+            # the multi-step's size follows the backlog: as many finishers
+            # as requests wait (at least one), all when none is queued
+            sb.stop.fill_(min(len(active), max(1, waiting))
+                          if not sched.exhausted() else len(active))
+            report = graph.multi_step().tolist()
+            fin_h, n_out_h, steps_h, need_h, pos_now = report[:5]
+            waves += 1
+            slot_steps += sum(steps_h)
+            for slot, req in active.items():
+                req_steps[req] = req_steps.get(req, 0) + steps_h[slot]
+                pos_h[slot] = pos_now[slot]
+            for slot, req in list(active.items()):
+                if fin_h[slot]:
+                    n, start = n_out_h[slot], start_of[req]
+                    out[req] = sb.ctx[slot, start:start + n].clone()
+                    generated += n - 1           # the first counted above
+                    retire(req)
+                    del active[slot]
+            if lazy_growth:
+                # growth after retirements: a slot at its boundary sees the
+                # blocks this wave's finishers freed
+                for slot, req in list(active.items()):
+                    if need_h[slot] and not grow_to(
+                            slot, req, pos_h[slot] + spec_k + 1):
+                        stalled[slot] = req       # state frozen meanwhile
+                        del active[slot]
+        rstate.close()
+        lat = sorted(latencies)
+
+        def q(p_):
+            return round(lat[min(len(lat) - 1, int(p_ * len(lat)))], 3)
+
+        run.last_stats = {
+            "requests": len(toks), "generated": generated, "waves": waves,
+            "latency_ms": {"p50": q(0.5), "p99": q(0.99),
+                           "max": round(lat[-1], 3)},
+            "kv": rstate.kv_stats(), "sched": rstate.sched_stats(),
+            "prefix": rstate.prefix_summary(),
+            "slot_steps": slot_steps,
+            # tokens a verification slot-step, admission tokens excluded:
+            # no accepted draft reads exactly 1.0
+            "accepted_per_step": (round((generated - admitted) / slot_steps,
+                                        3) if slot_steps else None),
+            "decode_steps": [req_steps[i] for i in range(len(toks))],
+            "trips": graph.trips - trips0,
+        }
+        return [out[i] for i in range(len(toks))]
+
     @torch.no_grad()
     def run(prompts: Sequence[Any], n_new, *, slots: int = 4,
-            eos_id: int | None = None, eos_check_every: int = 1,
+            eos_id: int | None = None, rng=None, eos_check_every: int = 1,
             arrivals=None, kv_blocks: int | None = None,
             static_batching: bool = False, priorities=None, **run_levers):
         _refuse_levers(run_levers, _RUN_LATER, "run")
@@ -795,6 +1271,13 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
         if eos_check_every < 1:
             raise ValueError(
                 f"eos_check_every must be >= 1, got {eos_check_every}")
+        if spec_k is not None and eos_check_every != 1:
+            raise ValueError(
+                "eos_check_every applies to the plain engine only — the "
+                "speculative loop checks eos on the device and reads back "
+                "once a trip already")
+        if sampler is not None and rng is None:
+            raise ValueError("a sampled engine needs rng (a PRNG key)")
         n_new_of = ([int(n_new)] * len(prompts)
                     if isinstance(n_new, (int, np.integer))
                     else [int(n) for n in n_new])
@@ -830,27 +1313,46 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
         for i, length in enumerate(lens):
             if length < 1:
                 raise ValueError("prompts must have at least one token")
-            if prefix_len + length + n_new_of[i] > max_len:
+            if prefix_len + length + n_new_of[i] + headroom > max_len:
                 raise ValueError(
                     f"prefix ({prefix_len}) + prompt ({length}) + n_new "
-                    f"({n_new_of[i]}) exceeds max_len ({max_len})")
+                    f"({n_new_of[i]})"
+                    + (f" + spec_k ({spec_k}) verification headroom"
+                       if headroom else "")
+                    + f" exceeds max_len ({max_len})")
             if prefill_chunk is not None:
                 check_chunk_bound(length)      # before any work
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
+        if static_batching and spec_k is not None:
+            raise ValueError(
+                "static_batching is the plain loop's run-to-completion "
+                "A/B baseline — drop spec_k to use it")
         toks = [t.to(dev) for t in flat]
         rstate = _Run(slots, kv_blocks, n_new_of, lens,
                       [t.tolist() for t in flat] if share_prefix else None)
-        pool, graph = rstate.pool, rstate.graph
         sched = _Sched(lens, n_new_of, policy, aging, priorities, arrivals,
                        time.monotonic())
-        # the slots' current tokens: the graph's static buffer, written in
-        # place (hist holds copies); the eager wave's vector is replaced
-        # every wave, so a write goes to a copy (hist holds the old one)
-        tokens = graph.tokens if graph is not None else \
-            torch.zeros((slots,), dtype=torch.long, device=dev)
+        if spec_k is not None:
+            return run_spec(rstate, sched, toks, lens, n_new_of, eos_id)
+        pool, graph = rstate.pool, rstate.graph
+        # the slots' current tokens: the wave's static buffer, written in
+        # place (hist holds copies)
+        tokens = graph.tokens
         tokens.zero_()
-        mask = None
+        if sampler is not None:
+            rng = key_data(rng)
+            graph.key.copy_(to_device(rng, torch.long))
+            # every slot dead: request len(prompts), position 0
+            dead = to_device([len(prompts), 0], torch.long)
+            graph.fold.copy_(dead.expand(slots, 2))
+
+        def set_fold(slot: int, req: int | None) -> None:
+            """Slot ``slot``'s (request, position) row: ``req``'s next
+            position, or the dead row (``req`` None)."""
+            if sampler is not None:
+                graph.fold[slot].copy_(dead if req is None else to_device(
+                    [req, count[req]], torch.long))
         active: dict[int, int] = {}              # slot → request
         firsts: dict[int, Any] = {}              # req → prefill token
         span: dict[int, tuple] = {}              # req → (slot, first wave)
@@ -867,24 +1369,20 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
         mask_key = None
         hist: list = []                          # one [slots] vector a wave
 
-        def set_token(slot: int, tok) -> None:
-            nonlocal tokens
-            if graph is None:
-                tokens = tokens.clone()
-            tokens[slot] = tok
-
         def retire(req: int, ntok: int) -> None:
             done_at[req] = ntok
             rstate.retire_wave[req] = len(hist)
             rstate.retire_blocks(req)
             latencies.append((time.monotonic() - admitted_at.pop(req)) * 1e3)
+            set_fold(span[req][0], None)
 
         def activate(slot: int, req: int, first, entries: int) -> None:
             nonlocal admit_counter
-            set_token(slot, first)
+            tokens[slot] = first
             firsts[req] = first
             span[req] = (slot, len(hist))
             count[req] = 1
+            set_fold(slot, req)
             granted[slot] = entries
             rstate.admit_wave[req] = len(hist)
             admit_seq[req] = admit_counter
@@ -927,7 +1425,8 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                 for slot in list(stalled):
                     req, tok = stalled[slot]
                     if try_grow(slot, req):
-                        set_token(slot, tok)
+                        tokens[slot] = tok
+                        set_fold(slot, req)
                         active[slot] = req
                         del stalled[slot]
             admit_ok = not static_batching or (not active and not filling
@@ -950,8 +1449,8 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                 if prefill_chunk is None:
                     impl = ("cached" if prefix is not None or cov else
                             _select_prefill_impl(cfg, length, "auto", dev))
-                    first = admit_full(pool, slot, suffix, impl, row, tail,
-                                       start)
+                    first = pick_first(admit_full(pool, slot, suffix, impl,
+                                                  row, tail, start), req, rng)
                     rstate.register_prefix(req)
                     activate(slot, req, first, entries)
                 else:
@@ -970,7 +1469,8 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                 f["next"] += 1
                 if f["next"] == len(f["chunks"]):
                     pool["pos"][slot].fill_(f["true_pos"])  # past the pad
-                    first = logits_c[f["last_idx"]].argmax(dim=-1)
+                    first = pick_first(logits_c[f["last_idx"]], f["req"],
+                                       rng)
                     req = f["req"]
                     del filling[slot]
                     rstate.register_prefix(req)
@@ -983,6 +1483,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                     if not try_grow(slot, req):
                         mark_frag(req)
                         stalled[slot] = (req, tokens[slot].clone())
+                        set_fold(slot, None)
                         del active[slot]
             sched.tick()
             rstate.sample(len(active) + len(filling) + len(stalled))
@@ -1006,19 +1507,13 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                         and sched.candidate() is None:
                     sched.idle_wait()
                 continue
-            key = tuple(sorted(active))
-            if key != mask_key:
-                mask_key = key
-                mask = to_device([s in active for s in range(slots)],
-                                 torch.bool)
-                if graph is not None:
-                    graph.active.copy_(mask)
-            if graph is not None:
-                graph.replay()
-                hist.append(tokens.clone())
-            else:
-                tokens = step(tokens, mask, pool)
-                hist.append(tokens)
+            live = tuple(sorted(active))
+            if live != mask_key:
+                mask_key = live
+                graph.active.copy_(to_device(
+                    [s in active for s in range(slots)], torch.bool))
+            graph.replay()
+            hist.append(tokens.clone())
             for slot, req in active.items():
                 if req in frag:
                     frag[req].append(len(hist) - 1)
@@ -1091,11 +1586,6 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
             "prefix": rstate.prefix_summary(),
         }
         return outs
-
-    def capture(pool: dict) -> WaveGraph:
-        """The greedy wave over ``pool`` (on the card), captured as a
-        :class:`WaveGraph` — what a run replays, for timing it alone."""
-        return WaveGraph(step, pool)
 
     run.last_stats = None
     run.step = step

@@ -3,7 +3,9 @@
 """The port's kernel wrappers — each launches its hand-written CUDA kernel on
 a CUDA tensor (sources in ``../csrc``, built by :mod:`._build`) and runs its
 plain PyTorch version (``*_ref``) on a CPU tensor — and the
-sequence-parallel attention built on them (ring and Ulysses)."""
+sequence-parallel attention built on them (ring and Ulysses) — and the
+keyed draw of the samplers (D1, ``sampling.draw``), which replaces no TPU
+kernel: the reference draws in XLA."""
 
 from ._build import launches, reset_launches
 from .decode_attention import (
@@ -29,6 +31,7 @@ from .flash_attention import (
     flash_partial_ref,
 )
 from .int8_matmul import int8_matmul, int8_matmul_ref
+from .sampling import draw, draw_ref
 from .ring_attention import (
     RingFlash,
     dense_reference_attention,
@@ -45,6 +48,8 @@ __all__ = [
     "FlashAttention",
     "RingFlash",
     "dense_reference_attention",
+    "draw",
+    "draw_ref",
     "flash_attention",
     "flash_attention_fwd",
     "flash_attention_ref",

@@ -39,7 +39,8 @@ launches: dict[str, int] = {"flash_fwd": 0, "flash_partial": 0,
                             "paged_decode": 0,
                             "paged_decode_int8": 0, "kv_decode": 0,
                             "int8_matmul": 0, "flash_bwd_fused": 0,
-                            "flash_dq": 0, "flash_dkv": 0}
+                            "flash_dq": 0, "flash_dkv": 0,
+                            "sample_draw": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -85,6 +86,11 @@ _SIGNATURES = {
     # kernel (0 K5, 1 K4, 2 K3), head dim, output dtype code, int[4] out
     # (registers, local bytes, dynamic shared memory, CTAs per SM)
     "tk_flash_bwd_info": [_I, _I, _I, _P],
+    # logits (f32 [S, V]), keys (int64), key row stride (0: one shared
+    # key, 2: a key a row), offsets (int64 [S] or None), fold (int64
+    # [S, 2] or None), out (int64 [S]), scores (f32 [S, V] or None), S, V,
+    # stream
+    "tk_sample_draw": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _P],
 }
 
 

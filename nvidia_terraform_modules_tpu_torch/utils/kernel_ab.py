@@ -36,7 +36,15 @@ shows beside the difference. Each run prints one JSON line. The groups
   runs it — one replay of the captured CUDA graph (``engine.capture``)
   where the tree has one, else the eager ``engine.step`` — and, in a tree
   with the graph, the eager step beside it: device ms (CUDA events) and
-  the host's median ms to issue it;
+  the host's median ms to issue it; in a tree with ``spec_k``, one
+  speculative trip (k = 4: a ``[4, 5]`` verification) replayed the same
+  way;
+- ``sample``: the flagship sampled wave (bf16, ``temperature=0.8,
+  top_p=0.95``) as the engine replays it, with D1 drawing, against the
+  same wave captured with the plain draw in D1's place (a graph built
+  here, not an engine path), timed in turns plain, D1, D1, plain in one
+  process, beside the greedy wave; and D1 and the plain draw alone on the
+  wave's ``[4, 8192]`` logits;
 - ``train``: the median host time of a flagship bf16 SGD step ending in a
   synchronise, and of the flagship ring SGD step (sp = 4 on the one card).
 
@@ -53,7 +61,133 @@ import subprocess
 import sys
 from pathlib import Path
 
-GROUPS = ("fwd", "decode", "int8", "bwd", "ring", "serve", "train")
+GROUPS = ("fwd", "decode", "int8", "bwd", "ring", "serve", "sample",
+          "train")
+# the flagship serve wave the serve and sample groups time: 4 slots at
+# position 305 of a 456-row buffer
+WAVE_SLOTS, WAVE_MAX_LEN, WAVE_POS, WAVE_BLOCK = 4, 456, 305, 16
+
+
+def flagship_pool(models, cfg, dev, **kw):
+    """A pool of the flagship wave: each slot mapped to a full table of its
+    own blocks (the engine's table width: an int8 pool rounds to 256
+    rows)."""
+    import torch
+
+    rows = models.cache_rows(WAVE_MAX_LEN, kw.get("cache_dtype", "bf16"))
+    nt = -(-rows // WAVE_BLOCK)
+    pool = models.init_paged_cache(cfg, WAVE_SLOTS, WAVE_MAX_LEN,
+                                   block_size=WAVE_BLOCK,
+                                   num_blocks=1 + WAVE_SLOTS * nt,
+                                   device=dev, **kw)
+    for i in range(WAVE_SLOTS):
+        pool["block_tables"][i] = torch.arange(
+            1 + i * nt, 1 + (i + 1) * nt, dtype=torch.int32)
+    return pool
+
+
+def sampled_waves(models, timing, dev, params, cfg,
+                  sampler_kw=(("temperature", 0.8), ("top_p", 0.95))):
+    """The flagship sampled wave replayed with D1 and with the plain draw
+    captured in its place (plain, D1, D1, plain), and the greedy wave:
+    device ms and host ms a wave; D1 and the plain draw alone on the
+    wave's logits."""
+    import torch
+
+    decode = importlib.import_module(
+        "nvidia_terraform_modules_tpu_torch.models.decode")
+    serving = importlib.import_module(
+        "nvidia_terraform_modules_tpu_torch.models.serving")
+    sampling = importlib.import_module(
+        "nvidia_terraform_modules_tpu_torch.ops.sampling")
+    sampler = decode.make_sampler(**dict(sampler_kw))
+
+    class PlainDraw(decode.Sampler):
+        """The same filters, the plain draw (a debug graph's sampler)."""
+
+        def rows(self, logits, key, fold):
+            return sampling.draw_ref(self.filter(logits), key, None, fold)
+
+    plain = PlainDraw(sampler.temperature, sampler.top_k, sampler.top_p)
+    graphs = {}
+    for name, smp in (("d1", sampler), ("plain", plain)):
+        pool = flagship_pool(models, cfg, dev)
+        step = serving.make_serve_step(params, cfg, smp)
+        g = serving.WaveGraph(step, pool, sampled=True)
+        g.active.fill_(True)
+        g.fold.copy_(torch.tensor([[i, 40 + i] for i in range(WAVE_SLOTS)]))
+        g.key.copy_(torch.tensor([0, 7]))
+        graphs[name] = (g, pool)
+    greedy_pool = flagship_pool(models, cfg, dev)
+    greedy = serving.WaveGraph(serving.make_serve_step(params, cfg),
+                               greedy_pool)
+    greedy.active.fill_(True)
+
+    def wave(g, pool):
+        def run():
+            pool["pos"].fill_(WAVE_POS)
+            g.replay()
+        return run
+
+    out: dict = {"sampler": dict(sampler_kw),
+                 "d1_launches_per_wave": graphs["d1"][0].launches,
+                 "plain_launches_per_wave": graphs["plain"][0].launches}
+    for turn, name in enumerate(("plain", "d1", "d1", "plain")):
+        run = wave(*graphs[name])
+        out[f"{name}_ms_per_wave_{turn}"] = timing.cuda_median_ms(run)
+        out[f"{name}_host_ms_per_wave_{turn}"] = timing.host_ms(run, iters=30)
+    for name in ("d1", "plain"):
+        out[f"{name}_ms_per_wave"] = (out[f"{name}_ms_per_wave_1"]
+                                      + out[f"{name}_ms_per_wave_2"]
+                                      if name == "d1" else
+                                      out[f"{name}_ms_per_wave_0"]
+                                      + out[f"{name}_ms_per_wave_3"]) / 2
+    run = wave(greedy, greedy_pool)
+    out["greedy_ms_per_wave"] = timing.cuda_median_ms(run)
+    out["greedy_host_ms_per_wave"] = timing.host_ms(run, iters=30)
+    # the draw alone, on the wave's filtered logits
+    g = torch.Generator(device=dev).manual_seed(3)
+    logits = sampler.filter(torch.randn((WAVE_SLOTS, cfg.vocab),
+                                        generator=g, device=dev) * 4)
+    key = torch.tensor([0, 7], device=dev)
+    fold = graphs["d1"][0].fold
+    out["draw_d1_ms"] = timing.cuda_median_ms(
+        lambda: sampling.draw(logits, key, None, fold))
+    out["draw_plain_ms"] = timing.cuda_median_ms(
+        lambda: sampling.draw_ref(logits, key, None, fold))
+    return out
+
+
+def spec_trip(models, timing, dev, params, cfg, k: int = 4) -> dict:
+    """One speculative trip of the flagship engine (``spec_k = k``) over
+    the wave's pool, every slot active: device and host ms a trip, as a
+    replay of the captured graph."""
+    import torch
+
+    engine = models.make_serve_engine(params, cfg, max_len=WAVE_MAX_LEN,
+                                      kv_block=WAVE_BLOCK, spec_k=k,
+                                      device=dev)
+    pool = flagship_pool(models, cfg, dev)
+    graph = engine.capture(pool)
+    st = graph.state
+    g = torch.Generator(device=dev).manual_seed(4)
+    st.ctx.copy_(torch.randint(0, cfg.vocab, st.ctx.shape, generator=g,
+                               device=dev))
+    st.active.fill_(True)
+    st.n_new.fill_(10 ** 6)
+    st.granted.fill_(WAVE_MAX_LEN)
+    st.eos.fill_(-1)
+    st.stop.fill_(WAVE_SLOTS)
+
+    def trip():
+        pool["pos"].fill_(WAVE_POS)
+        st.cur.fill_(WAVE_POS + 1)
+        st.n_out.fill_(1)
+        st.fin.zero_()
+        graph.replay()
+    return {"spec_k": k, "spec_trip_launches": graph.launches,
+            "spec_trip_ms": timing.cuda_median_ms(trip),
+            "spec_trip_host_ms": timing.host_ms(trip, iters=30)}
 
 
 def serve_wave(models, timing, dev) -> dict:
@@ -64,28 +198,20 @@ def serve_wave(models, timing, dev) -> dict:
     cfg = models.BurnInConfig(**models.FLAGSHIP_TRAIN, dtype=torch.bfloat16)
     params = models.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    max_len, slots, bs = 456, 4, 16
-    toks = torch.zeros((slots,), dtype=torch.long, device=dev)
-    active = torch.ones((slots,), dtype=torch.bool, device=dev)
+    toks = torch.zeros((WAVE_SLOTS,), dtype=torch.long, device=dev)
+    active = torch.ones((WAVE_SLOTS,), dtype=torch.bool, device=dev)
     out = {}
     for name, p, kw in (
             ("serve", params, {}),
             ("serve_int8", models.quantize_params(params, dtype=torch.bfloat16),
              {"cache_dtype": "int8"})):
-        engine = models.make_serve_engine(p, cfg, max_len=max_len,
-                                          kv_block=bs, device=dev, **kw)
-        # the engine's table width: the int8 pool rounds to 256 rows
-        rows = models.cache_rows(max_len, "int8") if kw else max_len
-        nt = -(-rows // bs)
-        pool = models.init_paged_cache(cfg, slots, max_len, block_size=bs,
-                                       num_blocks=1 + slots * nt,
-                                       device=dev, **kw)
-        for i in range(slots):
-            pool["block_tables"][i] = torch.arange(
-                1 + i * nt, 1 + (i + 1) * nt, dtype=torch.int32)
+        engine = models.make_serve_engine(p, cfg, max_len=WAVE_MAX_LEN,
+                                          kv_block=WAVE_BLOCK, device=dev,
+                                          **kw)
+        pool = flagship_pool(models, cfg, dev, **kw)
 
         def eager(engine=engine, pool=pool):
-            pool["pos"].fill_(305)
+            pool["pos"].fill_(WAVE_POS)
             engine.step(toks, active, pool)
 
         waves = {"eager": eager}
@@ -94,7 +220,7 @@ def serve_wave(models, timing, dev) -> dict:
             graph.active.fill_(True)
 
             def replay(graph=graph, pool=pool):
-                pool["pos"].fill_(305)
+                pool["pos"].fill_(WAVE_POS)
                 graph.replay()
             waves = {"graph": replay, "eager": eager}
         out[f"{name}_route"] = next(iter(waves))
@@ -104,6 +230,8 @@ def serve_wave(models, timing, dev) -> dict:
             out[f"{tag}_ms_per_wave"] = timing.cuda_median_ms(wave)
             out[f"{tag}_host_ms_per_wave"] = timing.host_ms(wave, iters=30)
         del engine, pool, waves
+    if hasattr(models, "make_spec_step"):
+        out.update(spec_trip(models, timing, dev, params, cfg))
     return out
 
 
@@ -209,6 +337,14 @@ def measure(tree: str, groups=GROUPS) -> dict:
         out.update(int8_products(timing, dev))
     if "serve" in groups:
         out.update(serve_wave(models, timing, dev))
+    if "sample" in groups and hasattr(models, "make_sampler"):
+        cfg = models.BurnInConfig(**models.FLAGSHIP_TRAIN,
+                                  dtype=torch.bfloat16)
+        params = models.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        out.update({f"sample_{k}": v for k, v in sampled_waves(
+            models, timing, dev, params, cfg).items()})
+        del params
     if not hasattr(fa, "flash_dqdkv"):   # a tree from before the train step
         return out
     q, k, v, do = (randn((2, 4096, 16, 128)) for _ in range(4))

@@ -29,7 +29,10 @@ cluster, on any stream and with other shapes queued around it. The decode kernel
 span order, so the paged kernel equals the contiguous one on the gathered
 view, and a row alone equals the same row in a batch, bit for bit. The
 serve engine's wave replayed from its captured CUDA graph equals the eager
-wave bit for bit: tokens, and every byte of the pool.
+wave bit for bit: tokens, and every byte of the pool; so do the sampled wave
+(tokens, the slots' (request, position) rows) and the speculative trip
+(context, counts, report). D1, the keyed draw, equals its plain version bit
+for bit, tokens and Gumbel scores: both take libdevice's ``logf``.
 """
 
 import dataclasses
@@ -997,3 +1000,214 @@ def test_levers_on_card_match_solo(cuda):
         solo = greedy_decode(params, p[None], n, cfg, prefill="dense",
                              device=cuda)[0]
         assert torch.equal(a, solo)
+
+
+# ------------------------------------------------ D1 and sampled serving
+
+@pytest.mark.parametrize("rows,v,offset", [(4, 8192, 0), (8, 8192, 0),
+                                           (1, 8192, 3 * 2**32 - 5),
+                                           (3, 1000, 7)])
+def test_sample_draw_matches_plain(cuda, rows, v, offset):
+    """D1 against the plain draw, tokens and every Gumbel score bit for
+    bit (libdevice's logf on both sides), with -inf entries, a row of
+    -inf only (index 0) and an exact tie of +inf logits (the lower index),
+    one shared key or a key a row, with and without the (request,
+    position) fold, counts past 2^32."""
+    from nvidia_terraform_modules_tpu_torch.ops import sampling
+
+    g = torch.Generator(device=cuda).manual_seed(rows + v)
+    lg = torch.randn((rows, v), generator=g, device=cuda) * 3
+    lg[:, 5:50] = -torch.inf
+    lg[0, 100] = lg[0, 300] = torch.inf
+    if rows > 1:
+        lg[1] = -torch.inf
+    offs = torch.arange(rows, device=cuda, dtype=torch.int64) * v + offset
+    keys = torch.tensor([[7, 1000 + i] for i in range(rows)], device=cuda)
+    fold = torch.stack([torch.arange(rows), torch.arange(rows) + 9],
+                       1).to(cuda)
+    before = launches["sample_draw"]
+    for k, f in ((keys, None), (keys[0].contiguous(), fold)):
+        tok, sc = sampling.draw_scores(lg, k, offs, f)
+        ref, ref_sc = sampling.draw_ref(lg, k, offs, f, scores=True)
+        assert torch.equal(tok, ref)
+        assert torch.equal(sc, ref_sc)
+        assert tok[0] == 100
+        if rows > 1:
+            assert tok[1] == 0
+        assert torch.equal(sampling.draw(lg, k, offs, f), ref)
+    assert launches["sample_draw"] - before == 4
+
+
+def test_sample_draw_refuses_what_it_cannot_take(cuda):
+    from nvidia_terraform_modules_tpu_torch.ops import sampling
+
+    lg = torch.zeros((2, 8), device=cuda)
+    key = torch.zeros((2,), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        sampling.draw(lg, key.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        sampling.draw(lg.t().contiguous().t(), key)
+    with pytest.raises(ValueError, match="f32"):
+        sampling.draw(lg.half(), key)
+
+
+@pytest.mark.parametrize("cache_dtype,int8_weights", [
+    ("bf16", False), ("int8", True)], ids=["bf16", "int8"])
+def test_sampled_wave_replay_equals_eager_wave(cuda, cache_dtype,
+                                               int8_weights):
+    """The captured sampled wave against the eager sampled step on a copy
+    of the pool: the same tokens every wave, the same (request, position)
+    rows (the graph advances active slots' positions itself), the same
+    pool bytes; the capture's tally is D1 once and K7 once a layer."""
+    from nvidia_terraform_modules_tpu_torch.models import make_sampler
+
+    cfg, params = _serve_params(cuda, int8_weights)
+    engine = make_serve_engine(params, cfg, max_len=64, kv_block=16,
+                               cache_dtype=cache_dtype, device=cuda,
+                               sampler=make_sampler(temperature=0.8,
+                                                    top_p=0.95))
+    pool = _filled_pool(cfg, cuda, 4, 64, 16, cache_dtype, seed=6)
+    graph = engine.capture(pool)
+    twin = {k: ([t.clone() for t in v] if isinstance(v, list)
+                else v.clone()) for k, v in pool.items()}
+    k7 = "paged_decode_int8" if cache_dtype == "int8" else "paged_decode"
+    want = {k7: cfg.n_layers, "sample_draw": 1}
+    if int8_weights:
+        want["int8_matmul"] = 6 * cfg.n_layers + 1
+    assert graph.launches == want
+    toks = torch.tensor([3, 77, 501, 9], device=cuda)
+    active = torch.tensor([True, True, False, True], device=cuda)
+    fold = torch.tensor([[0, 1], [1, 4], [5, 0], [2, 2]], device=cuda)
+    key = torch.tensor([0, 42], device=cuda)
+    graph.tokens.copy_(toks)
+    graph.active.copy_(active)
+    graph.fold.copy_(fold)
+    graph.key.copy_(key)
+    for wave in range(6):
+        if wave == 3:
+            active = torch.tensor([False, True, True, True], device=cuda)
+            graph.active.copy_(active)
+            fold[2] = torch.tensor([3, 1])
+            graph.fold[2] = torch.tensor([3, 1])
+        graph.replay()
+        toks = engine.step(toks, active, fold, key, twin)
+        assert torch.equal(graph.tokens, toks), wave
+        assert torch.equal(graph.fold, fold), wave
+    for k_, val in pool.items():
+        for a, b in zip(val if isinstance(val, list) else [val],
+                        twin[k_] if isinstance(val, list) else [twin[k_]]):
+            assert torch.equal(a, b), k_
+
+
+def test_sampled_engine_on_card_is_schedule_invariant(cuda):
+    """On the card: a top-k = 1 sampler is the greedy engine; at
+    temperature 5 slots 1 and 3 give the same tokens, and a second run
+    captures nothing new; lazy growth with a preemption on a tight pool
+    gives the ample pool's tokens."""
+    from nvidia_terraform_modules_tpu_torch.models import make_sampler
+
+    cfg, params = _serve_params(cuda, False)
+    g = torch.Generator().manual_seed(11)
+    prompts = [torch.randint(0, cfg.vocab, (8 * (1 + i % 3),), generator=g)
+               for i in range(5)]
+    greedy = make_serve_engine(params, cfg, max_len=48, kv_block=16,
+                               device=cuda)(prompts, 10, slots=2)
+    k1 = make_serve_engine(params, cfg, max_len=48, kv_block=16, device=cuda,
+                           sampler=make_sampler(top_k=1))
+    for a, b in zip(k1(prompts, 10, slots=2, rng=3), greedy):
+        assert torch.equal(a, b)
+    hot = make_serve_engine(params, cfg, max_len=48, kv_block=16,
+                            device=cuda, sampler={"temperature": 5.0})
+    one = hot(prompts, 10, slots=1, rng=3)
+    three = hot(prompts, 10, slots=3, rng=3)
+    captures = hot.captures
+    again = hot(prompts, 10, slots=3, rng=3)
+    assert hot.captures == captures == 2
+    for a, b, c in zip(one, three, again):
+        assert torch.equal(a, b) and torch.equal(b, c)
+    # five 15-token prompts take a block each and all cross into a second
+    # at the same wave: a pool of four blocks stalls them all
+    short = [torch.randint(0, cfg.vocab, (15,), generator=g)
+             for _ in range(5)]
+    ample = hot(short, 8, slots=4, rng=3)
+    lazy = make_serve_engine(params, cfg, max_len=48, kv_block=16,
+                             device=cuda, sampler={"temperature": 5.0},
+                             lazy_growth=True)
+    got = lazy(short, 8, slots=4, rng=3, kv_blocks=1 + 4)
+    assert lazy.last_stats["sched"]["preempted"] > 0
+    for a, b in zip(got, ample):
+        assert torch.equal(a, b)
+
+
+def test_spec_trip_replay_equals_eager_trip(cuda):
+    """The captured speculative trip against the eager trip on copies of
+    the pool and the state: the same context, counts and report after
+    every trip of a multi-step, the same pool bytes outside the garbage
+    block; the tally holds no K7 (T = k + 1 reads through the gather
+    path)."""
+    cfg, params = _serve_params(cuda, False)
+    engine = make_serve_engine(params, cfg, max_len=64, kv_block=16,
+                               spec_k=4, device=cuda)
+    pool = _filled_pool(cfg, cuda, 4, 64, 16, "bf16", seed=7)
+    graph = engine.capture(pool)
+    assert "paged_decode" not in graph.launches
+    twin_pool = {k: ([t.clone() for t in v] if isinstance(v, list)
+                     else v.clone()) for k, v in pool.items()}
+    eager = engine.capture(twin_pool, on_card=False)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for st in (graph.state, eager.state):
+        st.ctx.copy_(torch.randint(0, 8, st.ctx.shape, generator=g,
+                                   device=cuda))
+        st.cur.copy_(pool["pos"].long() + 1)
+        st.n_out.fill_(1)
+        st.n_new.copy_(torch.tensor([12, 20, 6, 9], device=cuda))
+        st.active.copy_(torch.tensor([True, True, False, True],
+                                     device=cuda))
+        st.granted.fill_(64)
+        st.eos.fill_(-1)
+        st.stop.fill_(2)
+        g.manual_seed(3)
+    for trip in range(12):
+        graph.replay()
+        eager.replay()
+        for a, b in ((graph.state.ctx, eager.state.ctx),
+                     (graph.state.report, eager.state.report)):
+            assert torch.equal(a, b), trip
+    # every block but the garbage block 0, where the frozen slots' k + 1
+    # rows land on the same few rows, in an order the scatter does not fix
+    for k_, val in pool.items():
+        for a, b in zip(val if isinstance(val, list) else [val],
+                        twin_pool[k_] if isinstance(val, list)
+                        else [twin_pool[k_]]):
+            if k_ in ("k", "v", "k_scale", "v_scale"):
+                a, b = a[1:], b[1:]
+            assert torch.equal(a, b), k_
+
+
+def test_spec_engine_on_card_matches_greedy(cuda):
+    """The speculative engine on the card (every trip a replay): solo
+    greedy decode's tokens, decode steps below the tokens on periodic
+    prompts; with int8 weights the verification runs K8 at M = slots x
+    (k + 1) and equals the gather-path greedy engine (whose rows K8 makes
+    at M = slots, bit for bit the same rows)."""
+    cfg, params = _serve_params(cuda, False)
+    prompts = [torch.tensor(([3, 7, 11, 5] * 8)[:20 + i]) for i in range(4)]
+    eng = make_serve_engine(params, cfg, max_len=64, kv_block=16, spec_k=4,
+                            device=cuda)
+    for a, p in zip(eng(prompts, 16, slots=2), prompts):
+        assert torch.equal(a, greedy_decode(params, p[None], 16, cfg,
+                                            device=cuda)[0])
+    st = eng.last_stats
+    assert st["slot_steps"] < st["generated"] - len(prompts)
+    assert eng.captures == 1
+    _, qparams = _serve_params(cuda, True)
+    q = make_serve_engine(qparams, cfg, max_len=64, kv_block=16, spec_k=4,
+                          device=cuda)
+    qgreedy = make_serve_engine(qparams, cfg, max_len=64, kv_block=16,
+                                paged_kernel="off", device=cuda)(
+        prompts, 16, slots=2)
+    before = launches["int8_matmul"]
+    got = q(prompts, 16, slots=2)
+    assert launches["int8_matmul"] > before
+    for a, b in zip(got, qgreedy):
+        assert torch.equal(a, b)

@@ -26,10 +26,13 @@ from nvidia_terraform_modules_tpu_torch.models import (
     make_adamw_train_step,
     make_quantized_decoder,
     make_serve_engine,
+    make_speculative_decoder,
     make_train_step,
     opt_state_from_numpy,
     params_from_numpy,
     qparams_from_numpy,
+    sample_decode,
+    speculative_greedy_decode,
     synthetic_batch,
 )
 
@@ -91,7 +94,9 @@ def test_importing_the_whole_port_loads_no_jax():
                                 init_cache, make_train_step,
                                 make_adamw_train_step, synthetic_batch,
                                 params_from_numpy, opt_state_from_numpy,
-                                make_quantized_decoder, qparams_from_numpy])
+                                make_quantized_decoder, qparams_from_numpy,
+                                sample_decode, speculative_greedy_decode,
+                                make_speculative_decoder])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 

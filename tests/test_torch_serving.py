@@ -138,12 +138,13 @@ def test_engine_validation_and_unported_levers():
     # the ported levers build; the rest refuse, naming their item
     for lever, value in (("prefix", [1, 2]), ("prefill_chunk", 4),
                          ("policy", "sjf"), ("share_prefix", True),
-                         ("lazy_growth", True)):
+                         ("lazy_growth", True), ("spec_k", 2),
+                         ("sampler", {"top_k": 1})):
         make_serve_engine(params, cfg, max_len=12, device="cpu",
                           **{lever: value})
-    for lever, value, item in (("spec_k", 2, "item 4"),
-                               ("sampler", {"top_k": 1},
-                                "item 3 (sampled serving)")):
+    for lever, value, item in (("telemetry", object(),
+                                "item 10 (bench + tracing)"),
+                               ("host_spill", True, "item 9 (fleet")):
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP.*{re.escape(item)}"):
             make_serve_engine(params, cfg, max_len=12, device="cpu",
@@ -169,16 +170,19 @@ _NOT_DEFAULT = {
     "make_serve_engine": {"host_blocks": (8, "item 9"),
                           "host_swap": ("sync", "item 9"),
                           "telemetry": (object(), "item 10")},
-    "run": {"rules": (object(), "item 6"), "rng": (np.random.default_rng(0),
-                                                   "item 3"),
+    "run": {"rules": (object(), "item 6"),
             "admission": (object(), "item 9")},
 }
 # keywords the port now serves, at a value other than the reference's
-# default that leaves this traffic's tokens as they are
+# default that leaves this traffic's tokens as they are (a top-k = 1
+# sampler is the greedy engine; speculation, greedy only and with per-trip
+# eos checks, is served by an engine of its own)
 _PORTED = {
-    "make_serve_engine": {"aging": 4, "prefix_keep_blocks": 32},
-    "run": {"eos_check_every": 4},
+    "make_serve_engine": {"aging": 4, "prefix_keep_blocks": 32,
+                          "sampler": {"top_k": 1}},
+    "run": {"eos_check_every": 4, "rng": 0},
 }
+_PORTED_SPEC = {"spec_k": 2}
 
 
 def test_reference_keywords_at_their_defaults_serve_the_same_tokens():
@@ -204,6 +208,10 @@ def test_reference_keywords_at_their_defaults_serve_the_same_tokens():
     ported = make_serve_engine(params, cfg, max_len=16, device="cpu",
                                **_PORTED["make_serve_engine"])
     for g, w in zip(ported(prompts, 4, **_PORTED["run"]), want):
+        assert torch.equal(g, w)
+    speculative = make_serve_engine(params, cfg, max_len=16, device="cpu",
+                                    **_PORTED_SPEC)
+    for g, w in zip(speculative(prompts, 4), want):
         assert torch.equal(g, w)
     for name, (value, item) in _NOT_DEFAULT["make_serve_engine"].items():
         with pytest.raises(NotImplementedError,

@@ -467,15 +467,13 @@ def test_serve_one_shot_matches_jax_serve():
     jcfg, jp, cfg, params, prompts = _setup(seed=10)
     assert serve(params, [], 4, cfg, device="cpu") == []
     for kw in ({}, {"prefill_chunk": 3}, {"kv_block": 4, "kv_blocks": 9},
-               {"cache_dtype": "int8"}):
+               {"cache_dtype": "int8"}, {"spec_k": 2}):
         want = jserving.serve(jp, [jnp.asarray(p) for p in prompts],
                               [3, 5, 2, 4, 6], jcfg, slots=2, **kw)
         got = serve(params, prompts, [3, 5, 2, 4, 6], cfg, slots=2,
                     device="cpu", **kw)
         for g, w in zip(got, want):
             assert np.array_equal(g.numpy(), np.asarray(w)), kw
-    with pytest.raises(NotImplementedError, match="item 4"):
-        serve(params, prompts, 4, cfg, spec_k=2, device="cpu")
 
 
 # ----------------------------------------------------------- the traffic
