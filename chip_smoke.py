@@ -44,9 +44,20 @@ It builds the port's CUDA kernels from ``csrc/`` with nvcc (into
   batch, bit for bit), checks the int8 engine's exactness on the card, serves
   the flagship traffic with int8 weights and an int8 pool (the launch
   counts show every wave went through K7-int8 and K8), profiles it (one
-  K8 kernel a weight product), and
-  times ``make_quantized_decoder`` at the flagship's decode shape (batch 8,
-  prompt 512, 64 new tokens; K6 and K8 on every step) and at 3584 + 32;
+  K8 kernel a weight product);
+- decode: holds ``make_decoder`` (an eager prefill, then ONE replay of a
+  captured CUDA graph of the steps a call) against the eager loop at f32,
+  bit for bit, for both cache and weight dtypes, and across a params swap
+  (each tree its own capture); times the replayed decoder beside the eager
+  loop at the flagship's decode shape (batch 8, prompt 512, 64 new tokens;
+  K6 and K8 on every step) and at 3584 + 32, each rate the median of
+  DECODE_RUNS turns with its min-max;
+- instruments: the probes (``ops/probes``: bf16 products, HBM read and
+  triad, as shares of ``utils/device``'s peaks, which every bound here
+  reads); the flagship traffic again through an engine with an enabled
+  telemetry registry, in turns with the untraced engine (equal tokens,
+  the tokens/s ratio, the Prometheus exposition); the flagship train step
+  under ``instrument_step`` (the flash probe, ``train_mfu``);
 - train: prints the registers, spills and CTAs per SM of each instance of
   the bf16 key-block kernel that K5 and K4 share and of K3's query-block
   kernel; holds K5 (fused flash backward) and K3/K4 (the split pair)
@@ -81,13 +92,10 @@ counts), the card's ``name, power.limit`` as nvidia-smi reports them, and
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
-
-H100_BYTES_PER_S = 3.35e12          # HBM3, SXM data sheet
-H100_PEAK = {"bf16": 989e12,        # dense tensor-core rate
-             "f32": 67e12}          # CUDA cores (the f32 kernels' route)
 
 N_REQUESTS, SLOTS, KV_BLOCK, N_NEW, SEED = 8, 4, 16, 32, 0
 # the flagship lever traffic: utils/traffic.shared_prefix_prompts' Zipf
@@ -103,6 +111,8 @@ WARM_STEPS, TIMED_STEPS, ADAMW_STEPS = 2, 10, 3
 # long-context pair
 DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 8, 512, 64
 LONG_PROMPT, LONG_NEW = 3584, 32
+# turns of each decode rate (replayed and eager): the median and min-max
+DECODE_RUNS = 5
 # the int8 kernels' limits: max-abs error over max(1, max|ref|) — an int8
 # decode output over a few keys reaches |out| > 2, where one bf16 rounding
 # is 0.0156, and the int8 matmul's plain version scales before the
@@ -146,11 +156,31 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
+def card_spec():
+    """The card's published peaks (``utils/device.PEAK_SPECS``): the dense
+    bf16 tensor-core rate, the f32 CUDA-core rate (the f32 kernels'
+    route) and the HBM rate. A card the table does not name fails the run:
+    its bounds would be the nominal stub's."""
+    from nvidia_terraform_modules_tpu_torch.utils.device import (
+        PEAK_SPECS,
+        device_spec,
+    )
+
+    spec = device_spec()
+    if spec.kind not in PEAK_SPECS:
+        raise RuntimeError(f"utils/device.PEAK_SPECS has no entry for "
+                           f"{spec.kind!r}: no bound can be computed")
+    return spec
+
+
 def bound(flops: float, nbytes: float, kind: str) -> tuple[float, str]:
     """Least time (ms) for the work: the larger of bytes over the memory
-    rate and operations over the peak rate for their type."""
-    t_ops = flops / H100_PEAK[kind]
-    t_bytes = nbytes / H100_BYTES_PER_S
+    rate and operations over the peak rate for their type (``"bf16"``:
+    tensor cores; ``"f32"``: CUDA cores)."""
+    spec = card_spec()
+    tflops = spec.bf16_tflops if kind == "bf16" else spec.f32_tflops
+    t_ops = flops / (tflops * 1e12)
+    t_bytes = nbytes / (spec.hbm_gbps * 1e9)
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -1338,21 +1368,256 @@ def serve_spec_flagship(params, cfg, dev, card: str) -> dict:
                 profile=spec_profile)
 
 
+def card_probes(smi: str) -> dict:
+    """``ops/probes``: chained bf16 ``[4096, 4096]`` products (cuBLAS) and
+    HBM streaming over two 512 MiB f32 vectors, read (a two-stream dot)
+    and triad (``acc = y + c·acc``), as shares of ``utils/device``'s
+    peaks — the card's own ceilings beside which the kernels' bounds
+    read."""
+    from nvidia_terraform_modules_tpu_torch.ops.probes import (
+        hbm_probe,
+        matmul_probe,
+    )
+
+    return dict(matmul=matmul_probe(), hbm_read=hbm_probe(mode="read"),
+                hbm_triad=hbm_probe(mode="triad"), nvidia_smi=smi)
+
+
+def serve_telemetry(engine, params, cfg, dev, prompts, max_len,
+                    outs) -> dict:
+    """``serve_flagship``'s traffic through an engine with an enabled
+    telemetry registry, in turns with the untraced engine (untraced,
+    traced, traced, untraced, …): tokens equal to the untraced run's
+    (``outs``), tokens/s of each (the median of the turns) and their
+    ratio, the instruments' counts and the Prometheus exposition's line
+    count, and the three artifacts ``export_all`` writes."""
+    import tempfile
+
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import make_serve_engine
+    from nvidia_terraform_modules_tpu_torch.telemetry import (
+        Registry,
+        export_all,
+    )
+    from nvidia_terraform_modules_tpu_torch.utils.timing import sync
+
+    reg = Registry()
+    traced = make_serve_engine(params, cfg, max_len=max_len,
+                               kv_block=KV_BLOCK, telemetry=reg, device=dev)
+    traced(prompts[:SLOTS], 4, slots=SLOTS)       # capture, warm
+    sync()
+    walls = {"untraced": [], "traced": []}
+    equal = True
+    for turn in ("untraced", "traced", "traced", "untraced") * 2:
+        eng = traced if turn == "traced" else engine
+        t0 = time.monotonic()
+        got = eng(prompts, N_NEW, slots=SLOTS)
+        sync()
+        walls[turn].append(time.monotonic() - t0)
+        equal = equal and all(torch.equal(a, b) for a, b in zip(got, outs))
+    if not equal:
+        raise AssertionError("serve_telemetry: the traced engine's tokens "
+                             "differ from the untraced run's")
+    tps = {k: sorted(N_REQUESTS * N_NEW / w for w in v)
+           for k, v in walls.items()}
+    counters, gauges, hists = reg.instruments()
+    spans = [e["name"] for e in reg.events if e["kind"] == "span"]
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = export_all(reg, tmp)
+        sizes = {k: os.path.getsize(v) for k, v in paths.items()}
+    prom = reg.prometheus_text()
+    want_requests = len(walls["traced"]) * len(prompts) + SLOTS
+    if spans.count("serve_request") != want_requests or \
+            hists["serve_request_ms"].count != want_requests:
+        raise AssertionError(f"serve_telemetry: {spans.count('serve_request')}"
+                             f" request spans, expected {want_requests}")
+    mid = {k: v[len(v) // 2] for k, v in tps.items()}
+    return dict(tokens_equal_untraced=equal, turns=len(walls["traced"]),
+                untraced_tokens_per_s=mid["untraced"],
+                traced_tokens_per_s=mid["traced"],
+                untraced_tokens_per_s_min_max=[tps["untraced"][0],
+                                               tps["untraced"][-1]],
+                traced_tokens_per_s_min_max=[tps["traced"][0],
+                                             tps["traced"][-1]],
+                traced_over_untraced=mid["traced"] / mid["untraced"],
+                counters={k: c.value for k, c in counters.items()},
+                gauges={k: g.value for k, g in gauges.items()},
+                serve_request_ms_p50=hists["serve_request_ms"].quantile(0.5),
+                serve_request_ms_p99=hists["serve_request_ms"].quantile(
+                    0.99),
+                spans={n: spans.count(n) for n in sorted(set(spans))},
+                prometheus_lines=len(prom.splitlines()),
+                artifact_bytes=sizes)
+
+
+def train_telemetry(params, dev) -> dict:
+    """The flagship SGD step wrapped by ``instrument_step`` with an enabled
+    registry: the one-shot flash probe (K1 and K5 at the step's per-layer
+    shape, two-point chains) before the first of three steps, then each
+    step's ``train_step_ms``, ``train_mfu`` and ``train_tokens_per_s``."""
+    from nvidia_terraform_modules_tpu_torch.models import (
+        instrument_step,
+        make_train_step,
+    )
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+    from nvidia_terraform_modules_tpu_torch.telemetry import Registry
+
+    cfg, batch = _flagship_train(dev)
+    reg = Registry()
+    step = instrument_step(make_train_step(cfg, lr=TRAIN_LR, device=dev),
+                           cfg, reg, device=dev)
+    _build.reset_launches()
+    p = params
+    losses = []
+    for _ in range(3):
+        p, loss = step(p, batch)
+        losses.append(loss.item())
+    probe_launches = {k: n for k, n in _build.launches.items() if n}
+    counters, gauges, hists = reg.instruments()
+    if hists["train_step_ms"].count != 3 or \
+            hists["flash_fwd_ms"].count != 1 or \
+            not probe_launches.get("flash_bwd_fused"):
+        raise AssertionError(f"train_telemetry: {reg.summary()}")
+    return dict(
+        train_step_ms_p50=hists["train_step_ms"].quantile(0.5),
+        train_step_ms=hists["train_step_ms"].snapshot()["sum"] / 3,
+        **{k: g.value for k, g in gauges.items()},
+        flash_fwd_ms=hists["flash_fwd_ms"].quantile(0.5),
+        flash_bwd_ms=hists["flash_bwd_ms"].quantile(0.5),
+        train_steps=counters["train_steps"].value, losses=losses,
+        launches=probe_launches,
+        spans=sum(e["name"] == "train_step" for e in reg.events))
+
+
+def decode_graph_exact(dev) -> None:
+    """``make_decoder`` (an eager prefill, then one replay of the captured
+    steps) against the eager loop (``greedy_decode``) at f32, serve_exact's
+    config: bf16 and int8 caches, f32 and int8 weights, tokens equal bit
+    for bit on the capturing call and on a replay; the capture's tally is
+    ``n_new - 1`` times one step's K6 and K8 launches. Then a params swap —
+    another output norm, the int8 tree, back to the first — each call its
+    own tree's tokens, each tree its own capture."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        greedy_decode,
+        init_params,
+        make_decoder,
+        quantize_params,
+    )
+
+    cfg = _exact_cfg()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                         device=dev)
+    qparams = quantize_params(params, dtype=torch.float32)
+    # batch 4 x 40: the prefill's M = 160 takes the plain int8 product
+    prompt = torch.randint(0, cfg.vocab, (4, 40),
+                           generator=torch.Generator().manual_seed(4)).to(dev)
+    n_new = 12
+    for cache_dtype in ("bf16", "int8"):
+        for weights, p in (("f32", params), ("int8", qparams)):
+            want = greedy_decode(p, prompt, n_new, cfg,
+                                 cache_dtype=cache_dtype, device=dev)
+            dec = make_decoder(cfg, n_new=n_new, cache_dtype=cache_dtype,
+                               device=dev)
+            got = [dec(p, prompt) for _ in range(2)]
+            (graph,) = dec.graphs.values()
+            step = {}
+            if cache_dtype == "int8":
+                step["kv_decode"] = cfg.n_layers
+            if weights == "int8":
+                step["int8_matmul"] = 6 * cfg.n_layers + 1
+            tally = {k: (n_new - 1) * n for k, n in step.items()}
+            equal = [torch.equal(g, want) for g in got]
+            emit("decode_graph_exact", cache=cache_dtype, weights=weights,
+                 n_new=n_new, equal_capture_call=equal[0],
+                 equal_replay_call=equal[1], replay_launches=graph.launches,
+                 expected_launches=tally)
+            if not all(equal) or graph.launches != tally:
+                raise AssertionError(f"decode_graph_exact {cache_dtype} "
+                                     f"cache, {weights} weights: {equal}, "
+                                     f"tally {graph.launches} != {tally}")
+            del dec, graph
+    swapped = {**params, "out_norm": -params["out_norm"]}
+    dec = make_decoder(cfg, n_new=n_new, cache_dtype="int8", device=dev)
+    trees = (("first", params), ("swapped", swapped), ("int8", qparams),
+             ("first", params))
+    want = {name: greedy_decode(p, prompt, n_new, cfg, cache_dtype="int8",
+                                device=dev) for name, p in trees}
+    seen, equal = [], []
+    for name, p in trees:
+        equal.append(torch.equal(dec(p, prompt), want[name]))
+        seen.append(next(iter(dec.graphs.values())))
+    fresh = len({id(g) for g in seen}) == len(seen)
+    distinct = not torch.equal(want["first"], want["swapped"])
+    emit("decode_graph_exact", params_swap=[n for n, _ in trees],
+         equal=equal, capture_per_call=fresh, trees_differ=distinct)
+    if not (all(equal) and fresh and distinct):
+        raise AssertionError(f"decode_graph_exact swap: equal {equal}, "
+                             f"a capture per call {fresh}, trees differ "
+                             f"{distinct}")
+
+
+def decode_profile(run, prompt, launches: dict, decoder_ms: float) -> dict:
+    """One replayed decoder call traced by ``utils/profiling.trace_once``
+    (its Chrome trace read back): device time by kernel against the call's
+    median host-clock time, and K6 and K8 by name — one kernel a launch
+    the wrappers counted, replayed from the graph (an empty trace leaves
+    them "not measured")."""
+    import tempfile
+
+    from nvidia_terraform_modules_tpu_torch.utils.profiling import (
+        trace_artifacts,
+        trace_once,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _, path = trace_once(run, DECODE_NEW, prompt, log_dir=tmp)
+        (trace,) = trace_artifacts(path)
+        with open(trace) as fh:
+            events = json.load(fh)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        return {"device_ms": None, "note": "not measured: no kernel in the "
+                                          "trace"}
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        by_name.setdefault(e["name"], []).append(e["dur"] / 1e3)
+    k6 = sum(len(v) for n, v in by_name.items() if "kv_decode_kernel" in n)
+    k8 = sum(len(v) for n, v in by_name.items() if "int8_mm" in n)
+    if (k6, k8) != (launches["kv_decode"], launches["int8_matmul"]):
+        raise AssertionError(f"decode_profile: K6 {k6} and K8 {k8} kernels "
+                             f"in the trace, expected {launches}")
+    device_ms = sum(sum(v) for v in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]
+    return dict(device_ms=device_ms, decoder_ms=decoder_ms,
+                busy_share=device_ms / decoder_ms, kernels=len(kernels),
+                kv_decode_kernels=k6, int8_matmul_kernels=k8,
+                top_kernels=[{"name": n[:90], "ms": sum(v), "count": len(v)}
+                             for n, v in top])
+
+
 def decode_int8_flagship(params, cfg, dev) -> tuple[dict, dict]:
-    """``make_quantized_decoder`` at the flagship's decode shape (batch 8,
-    prompt 512, 64 new tokens, dense prefill) with the int8 cache and the
-    bf16 cache, beside the bf16 weights' ``greedy_decode``; decode
-    tokens/s by the two-point method (the decoder at ``n_new`` minus a
-    prefill-only twin at ``n_new=1``); the launch counts of each run; then
-    the long-context pair (prompt 3584, 32 new, flash prefill), bf16 cache
-    against int8 cache. Returns the phase record and the int8 run's
-    launch counts."""
+    """Greedy decode at the flagship's decode shape (batch 8, prompt 512,
+    64 new tokens, dense prefill) with int8 weights (``make_quantized_
+    decoder``) over the int8 and the bf16 cache, and with bf16 weights
+    (``make_decoder``): each through the replayed decoder (a prefill and
+    one replay a call) and through the eager loop (``greedy_decode``, a
+    host loop a token), in the same call. Decode tokens/s by the two-point
+    method (a call at ``n_new`` minus its prefill-only twin at ``n_new =
+    1``, back to back), the median of DECODE_RUNS turns with its min-max;
+    the launch counts of one replayed call; the replayed tokens against
+    the eager loop's. Then the long-context pair (prompt 3584, 32 new,
+    flash prefill), int8 weights, bf16 cache against int8 cache. Returns
+    the phase record and the replayed int8 run's launch counts."""
     import dataclasses
 
     import torch
 
     from nvidia_terraform_modules_tpu_torch.models import (
         greedy_decode,
+        make_decoder,
         make_quantized_decoder,
         quantize_params,
     )
@@ -1363,16 +1628,25 @@ def decode_int8_flagship(params, cfg, dev) -> tuple[dict, dict]:
     qparams = quantize_params(params, dtype=bf16)
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     steps_per_wave = len(params["layers"]) * 6 + 1
+    decoders: dict = {}
 
-    def two_point(run, n_new, prompt):
-        """Decode tokens/s: (decoder - prefill twin) over n_new - 1 steps;
-        the median of 3 timed runs of each after one warm run."""
+    def rates(run, n_new, prompt):
+        """Decode tokens/s of DECODE_RUNS turns, each the call at n_new and
+        its prefill twin back to back (after one warm call of each): the
+        median, min and max, with the median call and twin ms."""
         synced_ms(lambda: run(n_new, prompt), 1)
         synced_ms(lambda: run(1, prompt), 1)
-        _, total = synced_ms(lambda: run(n_new, prompt), 3)
-        _, pre = synced_ms(lambda: run(1, prompt), 3)
-        return (prompt.shape[0] * (n_new - 1) / ((total - pre) / 1e3),
-                total, pre)
+        turns = []
+        for _ in range(DECODE_RUNS):
+            _, total = synced_ms(lambda: run(n_new, prompt), 1)
+            _, pre = synced_ms(lambda: run(1, prompt), 1)
+            turns.append((prompt.shape[0] * (n_new - 1)
+                          / ((total - pre) / 1e3), total, pre))
+        tps, total, pre = (sorted(col) for col in zip(*turns))
+        mid = len(turns) // 2
+        return dict(tokens_per_s=tps[mid], tokens_per_s_min=tps[0],
+                    tokens_per_s_max=tps[-1], decoder_ms=total[mid],
+                    prefill_ms=pre[mid], runs=len(turns))
 
     def counted(run, n_new, prompt):
         _build.reset_launches()
@@ -1380,20 +1654,33 @@ def decode_int8_flagship(params, cfg, dev) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         return dict(_build.launches), toks
 
-    def variant(cfg_, cache_dtype, weights):
-        if weights == "bf16":
-            return lambda n, p: greedy_decode(params, p, n, cfg_,
-                                              cache_dtype=cache_dtype,
-                                              device=dev)
-        return lambda n, p: make_quantized_decoder(
-            cfg_, n_new=n, dtype=bf16, cache_dtype=cache_dtype,
-            device=dev)(qparams, p)
+    def weights_of(weights):
+        return params if weights == "bf16" else qparams
+
+    def replayed(cfg_, cache_dtype, weights):
+        """The compiled decoder, built once per (config, cache, weights,
+        n_new) and kept, as a caller keeps ``jax.jit``'s."""
+        def run(n, p):
+            key = (cfg_, cache_dtype, weights, n)
+            if key not in decoders:
+                decoders[key] = (
+                    make_decoder(cfg_, n_new=n, cache_dtype=cache_dtype,
+                                 device=dev) if weights == "bf16" else
+                    make_quantized_decoder(cfg_, n_new=n, dtype=bf16,
+                                           cache_dtype=cache_dtype,
+                                           device=dev))
+            return decoders[key](weights_of(weights), p)
+        return run
+
+    def eager(cfg_, cache_dtype, weights):
+        return lambda n, p: greedy_decode(weights_of(weights), p, n, cfg_,
+                                          cache_dtype=cache_dtype, device=dev)
 
     dcfg = dataclasses.replace(cfg, attn="dense", batch=DECODE_BATCH)
     prompt = torch.randint(0, cfg.vocab, (DECODE_BATCH, DECODE_PROMPT),
                            generator=g, device=dev)
     rec: dict = {"batch": DECODE_BATCH, "prompt": DECODE_PROMPT,
-                 "n_new": DECODE_NEW}
+                 "n_new": DECODE_NEW, "runs": DECODE_RUNS}
     toks = {}
     int8_launches = None
     for name, cache_dtype, weights in (("int8_weights_int8_cache", "int8",
@@ -1402,8 +1689,10 @@ def decode_int8_flagship(params, cfg, dev) -> tuple[dict, dict]:
                                         "int8"),
                                        ("bf16_weights_bf16_cache", "bf16",
                                         "bf16")):
-        run = variant(dcfg, cache_dtype, weights)
+        run = replayed(dcfg, cache_dtype, weights)
+        run(DECODE_NEW, prompt)            # the capture, outside the count
         launches, toks[name] = counted(run, DECODE_NEW, prompt)
+        graphs = decoders[(dcfg, cache_dtype, weights, DECODE_NEW)].graphs
         steps = DECODE_NEW - 1
         want = {"int8_matmul": steps * steps_per_wave if weights == "int8"
                 else 0,
@@ -1411,29 +1700,41 @@ def decode_int8_flagship(params, cfg, dev) -> tuple[dict, dict]:
                 if cache_dtype == "int8" else 0}
         got = {k_: launches[k_] for k_ in want}
         if got != want or launches["flash_fwd"] or launches["paged_decode"] \
-                or launches["paged_decode_int8"]:
+                or launches["paged_decode_int8"] or len(graphs) != 1:
             raise AssertionError(f"decode {name} launched {launches}, "
-                                 f"expected {want}")
+                                 f"expected {want} from one graph "
+                                 f"({len(graphs)} captured)")
+        eager_toks = eager(dcfg, cache_dtype, weights)(DECODE_NEW, prompt)
+        rep = rates(run, DECODE_NEW, prompt)
+        eag = rates(eager(dcfg, cache_dtype, weights), DECODE_NEW, prompt)
+        rec[name] = dict(
+            replayed=rep, eager=eag, launches=got,
+            replayed_over_eager=rep["tokens_per_s"] / eag["tokens_per_s"],
+            tokens_equal_eager_frac=(toks[name] == eager_toks)
+            .float().mean().item())
         if cache_dtype == "int8" and weights == "int8":
             int8_launches = launches
-        tps, total_ms, pre_ms = two_point(run, DECODE_NEW, prompt)
-        rec[name] = dict(tokens_per_s=tps, decoder_ms=total_ms,
-                         prefill_ms=pre_ms, launches=got)
+            rec[name]["profile"] = decode_profile(run, prompt, launches,
+                                                  rep["decoder_ms"])
     rec["int8_cache_tokens_match_bf16_cache_frac"] = (
         toks["int8_weights_int8_cache"] == toks["int8_weights_bf16_cache"]
     ).float().mean().item()
     rec["int8_weights_tokens_match_bf16_weights_frac"] = (
         toks["int8_weights_bf16_cache"] == toks["bf16_weights_bf16_cache"]
     ).float().mean().item()
+    decoders.clear()
+    torch.cuda.empty_cache()
     lcfg = dataclasses.replace(cfg, attn="flash", batch=DECODE_BATCH)
     lprompt = torch.randint(0, cfg.vocab, (DECODE_BATCH, LONG_PROMPT),
                             generator=g, device=dev)
     for cache_dtype in ("bf16", "int8"):
-        tps, total_ms, pre_ms = two_point(variant(lcfg, cache_dtype, "int8"),
-                                          LONG_NEW, lprompt)
+        rep = rates(replayed(lcfg, cache_dtype, "int8"), LONG_NEW, lprompt)
+        eag = rates(eager(lcfg, cache_dtype, "int8"), LONG_NEW, lprompt)
         rec[f"long_{cache_dtype}_cache"] = dict(
-            prompt=LONG_PROMPT, n_new=LONG_NEW, tokens_per_s=tps,
-            decoder_ms=total_ms, prefill_ms=pre_ms)
+            prompt=LONG_PROMPT, n_new=LONG_NEW, replayed=rep, eager=eag,
+            replayed_over_eager=rep["tokens_per_s"] / eag["tokens_per_s"])
+        decoders.clear()
+        torch.cuda.empty_cache()
     return rec, int8_launches
 
 
@@ -1772,7 +2073,8 @@ def train_flagship(params, dev) -> tuple[dict, dict]:
                params=sum(p.numel() for p in tree_leaves(params)),
                train_step_flops=flops, lr=TRAIN_LR, step_ms=step_ms,
                burnin_tokens_per_s=cfg.batch * cfg.seq_len / step_ms * 1e3,
-               burnin_mfu=flops / (step_ms / 1e3) / H100_PEAK["bf16"],
+               burnin_mfu=flops / (step_ms / 1e3)
+               / (card_spec().bf16_tflops * 1e12),
                max_memory_allocated=peak_sgd, first_loss=losses[0],
                last_loss=losses[-1], losses=losses, launches=launches,
                fused_step_launches=fused_launches,
@@ -2297,7 +2599,8 @@ def train_ring_flagship(params, dev, flash_step_ms) -> tuple[dict, dict]:
                mesh={"sp": RING_SP, "devices": [str(dev)] * RING_SP},
                train_step_flops=flops, lr=TRAIN_LR, step_ms=step_ms,
                burnin_tokens_per_s=cfg.batch * cfg.seq_len / step_ms * 1e3,
-               burnin_mfu=flops / (step_ms / 1e3) / H100_PEAK["bf16"],
+               burnin_mfu=flops / (step_ms / 1e3)
+               / (card_spec().bf16_tflops * 1e12),
                max_memory_allocated=torch.cuda.max_memory_allocated(),
                first_loss=losses[0], last_loss=losses[-1], losses=losses,
                launches=launches, fused_step_launches=fused_launches,
@@ -2596,6 +2899,7 @@ def main() -> int:
     kernel_decode_spans(randn, dev)
     k8_main, k8_decode = kernel_int8_matmul(randn, dev)
     d1_main = kernel_sample_draw(dev, smi)
+    emit("probes", **card_probes(smi))
 
     # ------------------------------------------------------- serve_exact
     cfg = BurnInConfig(vocab=512, d_model=256, n_heads=2, n_kv_heads=1,
@@ -2622,6 +2926,7 @@ def main() -> int:
     serve_levers_exact(dev)
     serve_sampled_exact(dev)
     serve_spec_exact(dev)
+    decode_graph_exact(dev)
 
     # ---------------------------------------------------- serve_flagship
     nt = -(-max_len // KV_BLOCK)
@@ -2754,6 +3059,8 @@ def main() -> int:
          busy_share_of_unprofiled_wall=(device_ms / (wall_s * 1e3)
                                         if device_ms is not None else None),
          paged_decode_kernels=k7_kernels, paged_decode_expected=k7_want)
+    emit("serve_telemetry", **serve_telemetry(engine, params, cfg, dev,
+                                              prompts, max_len, outs))
     del engine, poolw, pool1, graphw
 
     # --------------------------------------------- serve_levers_flagship
@@ -2877,6 +3184,7 @@ def main() -> int:
     train_exact(dev)
     rec, train_launches = train_flagship(params, dev)
     emit("train_flagship", **rec)
+    emit("train_telemetry", **train_telemetry(params, dev))
     emit("train_profile", **train_profile(params, dev))
 
     # -------------------------------------------- sequence-parallel train

@@ -6,7 +6,8 @@ dict layout), the inference-only :func:`forward` (the decode oracle), and
 the training side — the differentiable :func:`forward_and_aux`,
 :func:`loss_fn`, :func:`synthetic_batch`, :func:`grad_accum` /
 :func:`make_grads_fn`, the SGD :func:`make_train_step` and
-:func:`train_step_flops` (AdamW is in ``models/optimizer.py``).
+:func:`train_step_flops` (AdamW is in ``models/optimizer.py``) — and the
+telemetry wrapper :func:`instrument_step` with its one-shot flash probe.
 
 Parameters are a plain dict of tensors: ``embed [vocab, d]``, ``out_norm``
 and ``layers[i]`` holding ``attn_norm``/``wq``/``wk``/``wv``/``wo``/
@@ -25,9 +26,9 @@ ulysses run dense attention, as in the reference. A mesh with ``dp`` or
 ``tp`` (or any axis but ``sp``) above 1 raises ``NotImplementedError``: the
 port does not shard parameters or the batch yet.
 
-Not carried from the reference: the telemetry wrapper ``instrument_step``
-and the TPU's tile levers ``flash_pipeline`` / ``flash_block_q`` /
-``flash_block_k`` (the CUDA kernels have one fixed 64x64 tiling).
+Not carried from the reference: the TPU's tile levers ``flash_pipeline`` /
+``flash_block_q`` / ``flash_block_k`` (the CUDA kernels have one fixed
+64x64 tiling).
 """
 
 from __future__ import annotations
@@ -39,7 +40,13 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.flash_attention import MaskSpec, flash_attention, mask_live_frac
+from ..ops.flash_attention import (
+    MaskSpec,
+    flash_attention,
+    flash_attention_fwd,
+    flash_backward,
+    mask_live_frac,
+)
 from ..ops.ring_attention import dense_reference_attention, ring_self_attention
 from ..ops.ulysses_attention import ulysses_self_attention
 from ..utils.layers import dense_init
@@ -445,3 +452,140 @@ def make_train_step(cfg: BurnInConfig, rules=None, lr: float = 1e-3,
         return params, loss
 
     return step
+
+
+def _flash_kernel_probe(cfg: BurnInConfig, reg, dev: torch.device) -> None:
+    """One-shot per-kernel flash timing probe for the telemetry plane.
+
+    Times one per-layer flash forward (K1 on the card) and one backward
+    (K5, or K3 + K4 under ``flash_backward="split"``) at the config's
+    attention shape with the two-point chain of ``utils/timing.delta_time``
+    (chains of 1 and 3 dependent calls: the fixed cost of a call cancels),
+    then records the ``flash_fwd_ms``/``flash_bwd_ms`` histograms and the
+    ``flash_fwd_mxu_frac``/``flash_bwd_mxu_frac`` gauges — achieved matmul
+    FLOP/s over the card's dense bf16 peak, billing only mask-live tiles
+    (2 tile products forward; backward 5 fused — score remat, dP and the
+    three gradient products — or 7 split). The names are the reference's,
+    so dashboards read the same; on this card the share is of the
+    tensor-core peak, not the TPU's MXU."""
+    from ..utils.device import device_kind, device_spec
+    from ..utils.timing import delta_time
+
+    b, s, h, dh = cfg.batch, cfg.seq_len, cfg.n_heads, cfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(17)
+    q, k, v, do = (torch.randn((b, s, h, dh), generator=g,
+                               device=dev).to(cfg.dtype) for _ in range(4))
+    spec = (MaskSpec("window", cfg.flash_window)
+            if cfg.flash_window is not None else MaskSpec("causal"))
+    scale = 1.0 / (dh ** 0.5)
+
+    def fwd_chain(length):
+        def chain(q, k, v):
+            acc = q
+            for _ in range(length):
+                acc = flash_attention_fwd(acc, k, v, scale=scale,
+                                          mask=spec)[0]
+            return acc
+        return chain
+
+    def bwd_chain(length):
+        def chain(q, k, v, do):
+            o, lse = flash_attention_fwd(q, k, v, scale=scale, mask=spec)
+            carry = do
+            for _ in range(length):
+                carry = flash_backward(q, k, v, o, carry, lse, scale=scale,
+                                       mask=spec,
+                                       backward=cfg.flash_backward)[0]
+            return carry
+        return chain
+
+    with torch.no_grad():
+        t_fwd = delta_time(fwd_chain, q, k, v, iters_lo=1, iters_hi=3,
+                           samples=1)
+        t_bwd = delta_time(bwd_chain, q, k, v, do, iters_lo=1, iters_hi=3,
+                           samples=1)
+    peak = device_spec(device_kind(dev)).bf16_tflops * 1e12
+    flops_fwd = 4.0 * mask_live_frac(spec, s) * b * h * s * s * dh
+    bwd_dots = 2.5 if cfg.flash_backward == "fused" else 3.5  # x fwd's 2
+    reg.histogram("flash_fwd_ms").record(t_fwd * 1e3)
+    reg.histogram("flash_bwd_ms").record(t_bwd * 1e3)
+    reg.gauge("flash_fwd_mxu_frac").set(
+        flops_fwd / max(t_fwd, 1e-12) / peak)
+    reg.gauge("flash_bwd_mxu_frac").set(
+        bwd_dots * flops_fwd / max(t_bwd, 1e-12) / peak)
+
+
+def instrument_step(step: Callable, cfg: BurnInConfig, telemetry=None, *,
+                    rules=None, sync: bool = True,
+                    kernel_probe: bool | None = None,
+                    device="cuda") -> Callable:
+    """Wrap a train step with per-step telemetry.
+
+    Records a ``train_step_ms`` latency histogram (exact p50/p90/p99 in the
+    Prometheus dump), the ``train_steps`` counter, live
+    ``train_tokens_per_s`` and ``train_mfu`` gauges (``train_step_flops``
+    over the step time over the dense bf16 peak of ``utils/device``), and
+    one ``train_step`` span per call into the telemetry plane
+    (``telemetry/``). ``sync=True`` (default) synchronises the card after
+    each step so the clock covers device execution, not just the launches;
+    pass ``sync=False`` for callers that pipeline steps and synchronise
+    themselves.
+
+    ``kernel_probe`` adds the one-shot flash probe
+    (:func:`_flash_kernel_probe`) before the first instrumented step —
+    ``None`` (default) probes exactly when ``cfg.attn == "flash"``,
+    ``False`` never, ``True`` demands it (ValueError on other configs). It
+    runs on ``device`` (with ``rules``, the mesh's first device), the card
+    unless the caller asks for the CPU.
+
+    Pass the step's ``rules`` when it runs over a mesh: MFU is over the
+    aggregate peak of the distinct devices doing the work (a mesh that
+    names one card several times has one card's peak).
+
+    With telemetry disabled (the default — no ``TPU_TELEMETRY_DIR``, no
+    injected registry) the ORIGINAL ``step`` is returned unchanged."""
+    from ..telemetry import get_registry
+
+    if kernel_probe and cfg.attn != "flash":
+        raise ValueError(
+            f"kernel_probe=True needs attn='flash', got {cfg.attn!r} — "
+            f"the probe times the flash kernels the step runs")
+    reg = telemetry if telemetry is not None else get_registry()
+    if not reg.enabled:
+        return step
+    from ..utils.device import device_kind, device_spec
+    from ..utils.timing import sync as _sync
+
+    dev = _device(device, rules)
+    probe = cfg.attn == "flash" if kernel_probe is None else kernel_probe
+    probe_state = {"done": False}
+    hist = reg.histogram("train_step_ms")
+    steps_c = reg.counter("train_steps")
+    toks_g = reg.gauge("train_tokens_per_s")
+    mfu_g = reg.gauge("train_mfu")
+    flops = train_step_flops(cfg)
+    tokens = cfg.batch * cfg.seq_len
+    n_dev = (1 if rules is None
+             else len({str(d) for d in rules.mesh.devices.flat}))
+    peak = device_spec(device_kind(dev)).bf16_tflops * 1e12 * n_dev
+
+    def instrumented(*args):
+        if probe and not probe_state["done"]:
+            # before t0: the probe's launches stay out of the first
+            # step's sample
+            probe_state["done"] = True
+            _flash_kernel_probe(cfg, reg, dev)
+        t0 = reg.clock()
+        out = step(*args)
+        if sync:
+            _sync(out)
+        t1 = reg.clock()
+        dt = max(t1 - t0, 1e-9)
+        hist.record(dt * 1e3)
+        steps_c.inc()
+        toks_g.set(tokens / dt)
+        mfu_g.set(flops / dt / peak)
+        reg.emit_span("train_step", t0, t1, step_ms=round(dt * 1e3, 3))
+        return out
+
+    return instrumented

@@ -31,6 +31,12 @@ Attention paths:
 The reference's ``int8_kernel`` flag (the T=1 int8 kernel off for
 mesh-sharded pools) has no counterpart: the port has no sharded pools yet.
 
+:func:`make_decoder` is the compiled greedy decoder (the reference's
+``jax.jit`` over :func:`greedy_decode`): on the card one call is the eager
+prefill and one replay of a CUDA graph of the decode steps
+(:class:`_DecodeGraph`, over :class:`_Replayed`, which the serve engine's
+wave graphs share).
+
 Exactness contract (as the reference's): with the dense prefill and the
 bf16 cache, greedy tokens from the cache equal greedy tokens from
 re-running the full forward; the flash prefill matches within kernel float
@@ -39,10 +45,12 @@ tolerance. The int8 cache is lossy by construction.
 
 from __future__ import annotations
 
+import gc
 from typing import Any
 
 import torch
 
+from ..ops import _build
 from ..ops.decode_attention import gather_logical as _gather_logical
 from ..ops.decode_attention import (
     int8_kv_decode_attention,
@@ -58,6 +66,7 @@ from .burnin import (
     apply_rope,
     check_device,
     mlp,
+    tree_leaves,
 )
 
 
@@ -304,6 +313,72 @@ def forward_paged(params, tokens, cache, cfg: BurnInConfig, *,
     return logits, cache
 
 
+class _Replayed:
+    """``fn()`` — work over static buffers (a serve wave over its pool, a
+    decoder's steps over its cache) — run eagerly (``capture=False``, the
+    CPU path) or captured once as a CUDA graph and replayed.
+
+    It is captured, and replayed, on a stream of its own: the decode
+    kernels keep their span partials and counters in one scratch per
+    stream, so an eager launch on another stream can never race a replay
+    on them. Before capture ``fn`` runs twice eagerly on that stream (the
+    serve engine's waves with every slot dead, their writes in the garbage
+    block), which builds the kernels and allocates that stream's scratch
+    and cuBLAS workspace outside the capture. Python's cycle collector runs
+    before the capture and not during it: a collection inside it could
+    destroy an unreachable engine's graph, a call the capture forbids,
+    which invalidates it. A capture that fails raises.
+
+    A replay calls no kernel wrapper, so the wrappers' launch counts
+    (``ops._build.launches``) would miss it: the counts the wrappers added
+    during capture — the kernels the graph holds — are taken back out into
+    :attr:`launches` and added again at each replay."""
+
+    def __init__(self, fn, dev, capture: bool):
+        self.fn = fn
+        self.graph = None
+        self.launches: dict[str, int] = {}
+        if not capture:
+            return
+        self.stream = torch.cuda.Stream(dev)
+        cur = torch.cuda.current_stream(dev)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            for _ in range(2):
+                fn()
+        cur.wait_stream(self.stream)
+        before = dict(_build.launches)
+        self.graph = torch.cuda.CUDAGraph()
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, stream=self.stream):
+                fn()
+        finally:
+            if collecting:
+                gc.enable()
+            self.launches = {name: n - before.get(name, 0)
+                             for name, n in _build.launches.items()
+                             if n != before.get(name, 0)}
+            _build.launches.update(before)
+
+    def replay(self) -> None:
+        """One run of ``fn``: the graph's replay on its stream, ordered
+        after the current stream's work and before the current stream's
+        next (or, uncaptured, ``fn()``)."""
+        if self.graph is None:
+            self.fn()
+            return
+        cur = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            self.graph.replay()
+        cur.wait_stream(self.stream)
+        for name, n in self.launches.items():
+            _build.launches[name] += n
+
+
 def _select_prefill_impl(cfg: BurnInConfig, t: int, prefill: str,
                          device: torch.device | None = None) -> str:
     """Resolve the prefill attention: ``"auto"`` follows the training
@@ -402,6 +477,20 @@ def make_sampler(temperature: float = 1.0, top_k: int | None = None,
     return Sampler(max(float(temperature), 1e-6), top_k, top_p)
 
 
+def _decode_len(t: int, n_new: int, max_len: int | None) -> int:
+    """The cache length of a decode of ``n_new`` tokens after a ``t``-token
+    prompt: ``max_len``, by default ``t + n_new``; raises when it is too
+    short."""
+    if n_new < 1:
+        raise ValueError(f"n_new must be >= 1, got {n_new}")
+    if max_len is None:
+        max_len = t + n_new
+    if t + n_new > max_len:
+        raise ValueError(f"prompt ({t}) + n_new ({n_new}) exceeds "
+                         f"max_len ({max_len})")
+    return max_len
+
+
 @torch.no_grad()
 def _generate(params, prompt, n_new: int, cfg: BurnInConfig, max_len,
               pick_next, prefill: str, cache_dtype: str, dev):
@@ -410,13 +499,7 @@ def _generate(params, prompt, n_new: int, cfg: BurnInConfig, max_len,
     _check_params(params, dev)
     prompt = torch.as_tensor(prompt, device=dev).long()
     b, t = prompt.shape
-    if n_new < 1:
-        raise ValueError(f"n_new must be >= 1, got {n_new}")
-    if max_len is None:
-        max_len = t + n_new
-    if t + n_new > max_len:
-        raise ValueError(f"prompt ({t}) + n_new ({n_new}) exceeds "
-                         f"max_len ({max_len})")
+    max_len = _decode_len(t, n_new, max_len)
     cache = init_cache(cfg, b, max_len, cache_dtype=cache_dtype, device=dev)
     logits, cache = forward_cached(
         params, prompt, cache, cfg,
@@ -447,6 +530,127 @@ def greedy_decode(params, prompt, n_new: int, cfg: BurnInConfig,
     n_new]`` generated tokens (int64, on ``device``)."""
     return _generate(params, prompt, n_new, cfg, max_len, None, prefill,
                      cache_dtype, check_device(device))
+
+
+def _params_key(params) -> tuple:
+    """What a captured graph reads of a params tree: each leaf's tensors
+    at their addresses, with shape, strides and dtype (a ``QTensor``'s int8
+    values and scales, with its layout flags and compute dtype). Two trees
+    with equal keys are read identically by the graph; any other tree needs
+    its own capture."""
+    key = []
+    for leaf in tree_leaves(params):
+        if isinstance(leaf, torch.Tensor):
+            tensors, flags = (leaf,), ()
+        else:                                     # a QTensor
+            tensors = (leaf.q, leaf.scale)
+            flags = (leaf.scale_axis, leaf.transposed, leaf.dtype)
+        key.append(flags + tuple((t.data_ptr(), tuple(t.shape), t.stride(),
+                                  t.dtype) for t in tensors))
+    return tuple(key)
+
+
+class _DecodeGraph(_Replayed):
+    """The ``n_new - 1`` cached steps of one greedy decode — one batch,
+    prompt length, cache length and params tree — captured once as a CUDA
+    graph (:class:`_Replayed`) and replayed each call: the replayed
+    counterpart of :func:`_generate`'s loop.
+
+    Every position is fixed within it, so the host-int position that
+    :func:`forward_cached` reads and advances is baked in at capture: the
+    captured function sets the cache's position to the prompt length at
+    its start (the eager warm-ups before the capture run it too). The
+    eager prefill writes the first token into column 0 of :attr:`out`;
+    step ``i`` reads column ``i - 1`` and writes column ``i``. The graph
+    reads the weights at the addresses of the tree it was captured over
+    (:attr:`key`, :func:`_params_key`) and holds no reference to it.
+
+    Cache rows above the prompt keep the previous call's decode rows; no
+    read reaches them before the step that rewrites them (the masked
+    softmax gives them probability 0, K6 reads the live rows only)."""
+
+    def __init__(self, params, cfg: BurnInConfig, batch: int, t: int,
+                 max_len: int, n_new: int, cache_dtype: str, dev):
+        self.key = _params_key(params)
+        self.cfg = cfg
+        self.prefill_impl = _select_prefill_impl(cfg, t, "auto", dev)
+        self.cache = cache = init_cache(cfg, batch, max_len,
+                                        cache_dtype=cache_dtype, device=dev)
+        self.out = out = torch.zeros((batch, n_new), dtype=torch.long,
+                                     device=dev)
+        weights = [params]                  # the capture's only reference
+
+        @torch.no_grad()
+        def steps():
+            cache["pos"] = t
+            for i in range(1, n_new):
+                logits, _ = forward_cached(weights[0], out[:, i - 1:i], cache,
+                                           cfg)
+                out[:, i].copy_(logits[:, -1].argmax(dim=-1))
+
+        super().__init__(steps, dev, capture=True)
+        weights.clear()
+
+    @torch.no_grad()
+    def __call__(self, params, prompt):
+        """The eager prefill of ``prompt``, then one replay; the tokens are
+        a copy of :attr:`out`."""
+        self.cache["pos"] = 0
+        logits, _ = forward_cached(params, prompt, self.cache, self.cfg,
+                                   prefill_impl=self.prefill_impl)
+        self.out[:, 0].copy_(logits[:, -1].argmax(dim=-1))
+        self.replay()
+        return self.out.clone()
+
+
+def make_decoder(cfg: BurnInConfig, n_new: int = 32,
+                 max_len: int | None = None, cache_dtype: str = "bf16", *,
+                 device="cuda"):
+    """Compiled greedy decoder, the counterpart of the reference's
+    ``jax.jit`` over :func:`greedy_decode`: ``decoder(params, prompt) →
+    [B, n_new]`` int64, token for token ``greedy_decode(params, prompt,
+    n_new, cfg, max_len=max_len, cache_dtype=cache_dtype)``.
+
+    On a CUDA ``device`` one call is the eager prefill (K1 on a flash
+    prompt) and ONE replay of a CUDA graph of the ``n_new - 1`` decode
+    steps (:class:`_DecodeGraph`). As ``jax.jit`` keys its cache on static
+    shapes, the decoder keeps one graph per (batch, prompt length,
+    ``max_len``), captured at that shape's first call; it is captured over
+    one params tree and recaptured when a call passes a tree at other
+    addresses (a new tree, a ``quantize_params`` tree), so a graph never
+    replays stale weights. Weights are passed by argument, never closed
+    over. ``n_new == 1`` has no steps and captures nothing. A capture that
+    fails raises: nothing falls back to the eager loop. On the CPU (the
+    caller's ``device="cpu"``) a call is :func:`greedy_decode`'s eager
+    loop."""
+    dev = check_device(device)
+    check_cache_dtype(cache_dtype)
+    if n_new < 1:
+        raise ValueError(f"n_new must be >= 1, got {n_new}")
+    graphs: dict[tuple[int, int, int], _DecodeGraph] = {}
+
+    def decoder(params, prompt):
+        if dev.type != "cuda" or n_new == 1:
+            return greedy_decode(params, prompt, n_new, cfg, max_len=max_len,
+                                 cache_dtype=cache_dtype, device=dev)
+        _check_params(params, dev)
+        prompt = torch.as_tensor(prompt, device=dev).long()
+        b, t = prompt.shape
+        shape = (b, t, _decode_len(t, n_new, max_len))
+        graph = graphs.get(shape)
+        if graph is not None and graph.key != _params_key(params):
+            # another tree: its last replay may still be running, and its
+            # cache and pool return to the allocator when it goes
+            graph.stream.synchronize()
+            del graphs[shape], graph
+            graph = None
+        if graph is None:
+            graph = graphs[shape] = _DecodeGraph(params, cfg, *shape, n_new,
+                                                 cache_dtype, dev)
+        return graph(params, prompt)
+
+    decoder.graphs = graphs
+    return decoder
 
 
 def sample_decode(params, prompt, n_new: int, cfg: BurnInConfig, rng,

@@ -34,7 +34,7 @@ import torch
 
 from ..ops.int8_matmul import MAX_M, int8_matmul, int8_matmul_ref
 from .burnin import BurnInConfig, _tree_map, check_device, tree_leaves
-from .decode import greedy_decode
+from .decode import make_decoder
 
 
 class QTensor:
@@ -204,13 +204,17 @@ def make_quantized_decoder(cfg: BurnInConfig, n_new: int = 32,
                            cache_dtype: str = "bf16", device="cuda"):
     """Greedy decoder over int8-resident weights: ``decoder(qparams,
     prompt) → [B, n_new]`` with ``qparams`` from :func:`quantize_params`.
-    The decode is the stock ``greedy_decode``: QTensor leaves route every
+    The decode is :func:`..decode.make_decoder`'s (on the card one replay
+    of a captured graph of the steps a call): QTensor leaves route every
     decode-step matmul through the int8 kernel. ``fused=False``
     dequantises the whole tree first instead (the reference's A/B
-    baseline). ``dtype`` must match the QTensor leaves' compute dtype;
+    baseline; the dequantised copy is made each call, and a copy that
+    lands at other addresses than the last one is captured anew).
+    ``dtype`` must match the QTensor leaves' compute dtype;
     ``cache_dtype="int8"`` also quantises the KV cache — the full int8
     serving stack."""
     dev = check_device(device)
+    decode = make_decoder(cfg, n_new, max_len, cache_dtype, device=dev)
 
     def decoder(qparams, prompt):
         qleaves = [leaf for leaf in tree_leaves(qparams)
@@ -226,8 +230,8 @@ def make_quantized_decoder(cfg: BurnInConfig, n_new: int = 32,
                     f"decoder built for dtype {dtype}, but qparams carry "
                     f"{leaf.dtype} — rebuild with quantize_params(params, "
                     f"dtype={dtype})")
-        params = qparams if fused else dequantize_params(qparams)
-        return greedy_decode(params, prompt, n_new, cfg, max_len=max_len,
-                             cache_dtype=cache_dtype, device=dev)
+        return decode(qparams if fused else dequantize_params(qparams),
+                      prompt)
 
+    decoder.graphs = decode.graphs
     return decoder

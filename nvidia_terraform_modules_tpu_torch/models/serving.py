@@ -94,19 +94,19 @@ accepted at the reference's default value; any other value raises
 from __future__ import annotations
 
 import bisect
-import gc
 import time
 from typing import Any, Sequence
 
 import numpy as np
 import torch
 
-from ..ops import _build
 from ..ops.sampling import MASK32, key_data, threefry2x32
+from ..telemetry import get_registry
 from .burnin import BurnInConfig, check_device, tree_leaves
 from .decode import (
     Sampler,
     _check_params,
+    _Replayed,
     _select_prefill_impl,
     check_cache_dtype,
     forward_paged,
@@ -135,7 +135,6 @@ _DEFAULT_AGING = 512                   # waves; bounds starvation by default
 # TypeError.
 _FLEET = "Queue A item 9 (fleet stack)"
 _ENGINE_LATER = {
-    "telemetry": (None, "Queue A item 10 (bench + tracing)"),
     "host_spill": (False, f"{_FLEET}: host KV tier"),
     "host_blocks": (None, f"{_FLEET}: host KV tier"),
     "host_swap": ("async", f"{_FLEET}: host KV tier"),
@@ -313,72 +312,6 @@ def make_spec_step(params, cfg: BurnInConfig, k: int, *,
     return trip
 
 
-class _Replayed:
-    """``fn()`` — a wave over static buffers and a pool — run eagerly
-    (``capture=False``, the CPU path) or captured once as a CUDA graph and
-    replayed.
-
-    It is captured, and replayed, on a stream of its own: the decode
-    kernels keep their span partials and counters in one scratch per
-    stream, so an eager launch on another stream can never race a replay
-    on them. Before capture ``fn`` runs twice eagerly on that stream with
-    every slot dead (the writes land in the garbage block, no position
-    moves), which builds the kernels and allocates that stream's scratch
-    and cuBLAS workspace outside the capture. Python's cycle collector runs
-    before the capture and not during it: a collection inside it could
-    destroy an unreachable engine's graph, a call the capture forbids,
-    which invalidates it. A capture that fails raises.
-
-    A replay calls no kernel wrapper, so the wrappers' launch counts
-    (``ops._build.launches``) would miss it: the counts the wrappers added
-    during capture — the kernels the graph holds — are taken back out into
-    :attr:`launches` and added again at each replay."""
-
-    def __init__(self, fn, dev, capture: bool):
-        self.fn = fn
-        self.graph = None
-        self.launches: dict[str, int] = {}
-        if not capture:
-            return
-        self.stream = torch.cuda.Stream(dev)
-        cur = torch.cuda.current_stream(dev)
-        self.stream.wait_stream(cur)
-        with torch.cuda.stream(self.stream):
-            for _ in range(2):
-                fn()
-        cur.wait_stream(self.stream)
-        before = dict(_build.launches)
-        self.graph = torch.cuda.CUDAGraph()
-        gc.collect()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(self.graph, stream=self.stream):
-                fn()
-        finally:
-            if collecting:
-                gc.enable()
-            self.launches = {name: n - before.get(name, 0)
-                             for name, n in _build.launches.items()
-                             if n != before.get(name, 0)}
-            _build.launches.update(before)
-
-    def replay(self) -> None:
-        """One wave: the graph's replay on its stream, ordered after the
-        current stream's work and before the current stream's next (or,
-        uncaptured, ``fn()``)."""
-        if self.graph is None:
-            self.fn()
-            return
-        cur = torch.cuda.current_stream(self.stream.device)
-        self.stream.wait_stream(cur)
-        with torch.cuda.stream(self.stream):
-            self.graph.replay()
-        cur.wait_stream(self.stream)
-        for name, n in self.launches.items():
-            _build.launches[name] += n
-
-
 class WaveGraph(_Replayed):
     """The wave ``step`` over one pool, captured once as a CUDA graph and
     replayed each wave (``capture=False``: run eagerly, the CPU path).
@@ -452,7 +385,9 @@ class AdmissionSource:
       regenerate identically on re-admission.
     - ``tick()``: one wave passed (aging hooks).
     - ``waiting()`` → arrived, unadmitted requests (the speculative loop
-      sizes its multi-step by it).
+      sizes its multi-step by it; the queue-depth gauge reads it).
+    - ``wait_s(req)`` → seconds ``req`` has waited since its arrival (the
+      ``serve_request`` span's ``queue_wait_ms``).
     - ``exhausted()`` → True only when no candidate will ever come again.
     - ``idle_wait()``: nothing admissible and nothing computing — block
       until the next arrival instead of spinning.
@@ -477,6 +412,9 @@ class AdmissionSource:
 
     def waiting(self) -> int:
         return 0
+
+    def wait_s(self, req) -> float:
+        return 0.0
 
     def exhausted(self) -> bool:
         raise NotImplementedError
@@ -552,6 +490,13 @@ class _Sched(AdmissionSource):
         now = self._now()
         return sum(1 for r in self.pending if self.arrivals[r] <= now)
 
+    def wait_s(self, req) -> float:
+        """Queue wait against the request's arrival (the run's start when
+        there is no trace)."""
+        return max(0.0, time.monotonic() - self.t0
+                   - (self.arrivals[req] if self.arrivals is not None
+                      else 0.0))
+
     def next_arrival(self):
         """The request whose arrival unblocks admission: fifo's head, or
         the earliest arrival under the other policies."""
@@ -572,6 +517,121 @@ class _Sched(AdmissionSource):
             time.sleep(wait)
 
 
+class _ServeTelemetry:
+    """The engine's emissions into a telemetry registry (the reference's
+    ``_gauges``/``_note_*`` hooks, ``models/serving.py:1769-1896``), for
+    the levers the port has. Every timestamp comes from the registry's
+    clock; the host-stats latencies stay on ``time.monotonic``. Disabled
+    (the null registry) each hook returns at its first test. Nothing here
+    synchronises with the card or reads a tensor back: ``paged_decode_ms``
+    is the host time around a wave (wall time where the wave ends in a
+    readback — an eos check, the speculative trip's report — dispatch
+    time otherwise), as the reference documents it."""
+
+    def __init__(self, reg, share_prefix: bool, lazy_growth: bool):
+        self.reg = reg
+        self.enabled = reg.enabled
+        self.share_prefix = share_prefix
+        self.lazy_growth = lazy_growth
+        self.meta: dict[int, dict] = {}
+        self.join_clk0 = None
+        if self.enabled:
+            # handles resolved once: a per-wave gauge() call would take the
+            # registry's lock for nothing
+            self.g_queue = reg.gauge("serve_queue_depth")
+            self.g_occ = reg.gauge("serve_slot_occupancy")
+            self.g_kv = reg.gauge("kv_blocks_in_use")
+            self.g_hit = reg.gauge("prefix_hit_blocks")
+            self.g_hitf = reg.gauge("prefix_hit_frac")
+            self.g_lazy = reg.gauge("blocks_grown_lazy")
+            self.g_paged = reg.gauge("paged_decode_ms")
+
+    def start(self) -> None:
+        """A run begins: per-request records reset, and the join → first
+        token clock is armed (fired by the run's first prefill)."""
+        if self.enabled:
+            self.meta = {}
+            self.join_clk0 = self.reg.clock()
+
+    def clock(self):
+        return self.reg.clock() if self.enabled else None
+
+    def gauges(self, rstate, sched, busy: int) -> None:
+        """The per-wave gauges (``sched`` None: the run's end, nothing
+        waits)."""
+        if not self.enabled:
+            return
+        self.g_queue.set(0 if sched is None else sched.waiting())
+        self.g_occ.set(busy / rstate.slots)
+        self.g_kv.set(rstate.alloc.in_use)
+        if self.share_prefix:
+            ps = rstate.prefix_stats
+            self.g_hit.set(ps["hit_blocks"])
+            self.g_hitf.set(round(ps["hit_blocks"]
+                                  / max(ps["prompt_blocks"], 1), 4))
+        if self.lazy_growth:
+            self.g_lazy.set(rstate.grown_lazy)
+
+    def admit(self, req: int, sched) -> None:
+        if self.enabled:
+            self.meta[req] = {"clk": self.reg.clock(), "prefill_ms": 0.0,
+                              "queue_wait_ms": round(sched.wait_s(req) * 1e3,
+                                                     3)}
+            self.reg.counter("serve_admissions").inc()
+
+    def prefill(self, req: int, start_clk, prompt_len: int,
+                chunks: int | None = None) -> None:
+        """One ``serve_prefill`` span, from ``start_clk`` (the clock before
+        the admission's first launch) to now."""
+        if not self.enabled:
+            return
+        t1 = self.reg.clock()
+        if self.join_clk0 is not None:
+            self.reg.gauge("join_first_token_ms").set(
+                round((t1 - self.join_clk0) * 1e3, 3))
+            self.join_clk0 = None
+        self.meta[req]["prefill_ms"] += round((t1 - start_clk) * 1e3, 3)
+        args = {"prompt_len": prompt_len}
+        if chunks is not None:
+            args["chunks"] = chunks
+        self.reg.emit_span("serve_prefill", start_clk, t1, **args)
+
+    def drop(self, req: int) -> None:
+        """A preempted request: its record restarts at re-admission."""
+        self.meta.pop(req, None)
+
+    def retire(self, req: int, ntok: int, decode_steps: int) -> None:
+        """One ``serve_request`` span (admission → retirement) and its
+        ``serve_request_ms`` sample."""
+        m = self.meta.pop(req, None) if self.enabled else None
+        if m is None:
+            return
+        t1 = self.reg.clock()
+        self.reg.emit_span("serve_request", m["clk"], t1, request=req,
+                           tokens=int(ntok),
+                           queue_wait_ms=m["queue_wait_ms"],
+                           prefill_ms=round(m["prefill_ms"], 3),
+                           decode_steps=int(decode_steps))
+        self.reg.histogram("serve_request_ms").record((t1 - m["clk"]) * 1e3)
+        self.reg.counter("serve_generated_tokens").inc(int(ntok))
+
+    def wave_start(self) -> float:
+        return time.monotonic() if self.enabled else 0.0
+
+    def wave_end(self, t0: float) -> None:
+        if self.enabled:
+            self.g_paged.set(round((time.monotonic() - t0) * 1e3, 3))
+
+    def spec_totals(self, generated: int, admitted: int,
+                    slot_steps: int) -> None:
+        """The speculative run's draft counters: each verification
+        slot-step emits one model token plus its accepted drafts."""
+        if self.enabled:
+            self.reg.counter("serve_accepted_draft_tokens").inc(
+                max(0, (generated - admitted) - slot_steps))
+            self.reg.counter("serve_verify_slot_steps").inc(slot_steps)
+
+
 def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                       cache_dtype: str = "bf16", prefix=None, sampler=None,
                       prefill_chunk: int | None = None,
@@ -579,7 +639,8 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                       policy: str = "fifo", aging: int | None = None,
                       share_prefix: bool = False, lazy_growth: bool = False,
                       prefix_keep_blocks: int = 64,
-                      paged_kernel: str = "auto", device="cuda", **levers):
+                      paged_kernel: str = "auto", telemetry=None,
+                      device="cuda", **levers):
     """Reusable engine: ``run(prompts, n_new, *, slots, eos_id,
     eos_check_every, arrivals, kv_blocks, static_batching, priorities) →
     list of [n_i] int64 token tensors``.
@@ -630,8 +691,27 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
     waves (or speculative trips) replay a captured graph (``run.captures``
     counts the captures, one per ``(slots, kv_blocks)``;
     ``run.capture(pool)`` captures the wave over a caller's pool, for
-    timing)."""
+    timing).
+
+    ``telemetry`` injects a telemetry registry (default: the process
+    registry — the no-op unless ``TPU_TELEMETRY_DIR`` is set). When
+    enabled, every admission emits a ``serve_prefill`` span (with
+    ``chunks`` under chunked prefill), every retirement a
+    ``serve_request`` span (admission → retirement, recorded in the
+    ``serve_request_ms`` histogram) carrying ``request``, ``tokens``,
+    ``queue_wait_ms``, ``prefill_ms`` and ``decode_steps``; every wave
+    sets the queue, slot, KV-block, prefix-hit, lazy-growth and
+    ``paged_decode_ms`` gauges; ``serve_admissions``,
+    ``serve_generated_tokens`` and, under ``spec_k``,
+    ``serve_accepted_draft_tokens`` / ``serve_verify_slot_steps`` count.
+    Spans clock the host's view of the schedule (on the card a prefill
+    span covers its launches, a request span closes at the wave the host
+    retired it), and telemetry adds no synchronise or readback: the card
+    runs the same work either way."""
     _refuse_levers(levers, _ENGINE_LATER, "make_serve_engine")
+    tel = _ServeTelemetry(
+        telemetry if telemetry is not None else get_registry(),
+        share_prefix, lazy_growth)
     if isinstance(sampler, dict):
         sampler = make_sampler(**sampler)
     if sampler is not None and not isinstance(sampler, Sampler):
@@ -1064,7 +1144,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                            "tokens_saved": 0, "lookups": 0,
                            "reclaim_blocked": {"live": 0, "empty": 0}}}
 
-    def admit_spec(rstate, slot: int, req: int, prompt, length: int):
+    def admit_spec(rstate, sched, slot: int, req: int, prompt, length: int):
         """A speculative admission (greedy): a whole prefill, or the chunks
         swept one after another in this call (the speculative loop has no
         per-wave boundary to interleave them into). Returns ``(first,
@@ -1073,7 +1153,10 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
         if got is None:
             return None
         row, tail, start, cov, entries = got
+        tel.admit(req, sched)
+        clk0 = tel.clock()
         suffix = prompt[cov:]
+        chunks = None
         if prefill_chunk is None:
             impl = ("cached" if prefix is not None or cov else
                     _select_prefill_impl(cfg, length, "auto", dev))
@@ -1087,8 +1170,11 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                 logits_c = chunk_step(rstate.pool, slot, chunk)
             rstate.pool["pos"][slot].fill_(true_pos)     # past the pad
             logits_row = logits_c[last_idx]
+        first = logits_row.argmax(dim=-1)
         rstate.register_prefix(req)
-        return logits_row.argmax(dim=-1), entries
+        tel.prefill(req, clk0, length,
+                    chunks=None if chunks is None else len(chunks))
+        return first, entries
 
     def run_spec(rstate, sched, toks, lens, n_new_of, eos_id):
         """The speculative schedule: the plain loop's admission and
@@ -1133,10 +1219,11 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                 granted[slot] += 1
             return True
 
-        def retire(req: int) -> None:
+        def retire(req: int, ntok: int) -> None:
             rstate.retire_wave[req] = waves
             rstate.retire_blocks(req)
             latencies.append((time.monotonic() - admitted_at.pop(req)) * 1e3)
+            tel.retire(req, ntok, req_steps.get(req, 0))
 
         while not sched.exhausted() or active or stalled:
             if lazy_growth and stalled:
@@ -1154,7 +1241,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                 if req is None:
                     break                 # nothing arrived yet
                 length = lens[req]
-                got = admit_spec(rstate, slot, req, toks[req], length)
+                got = admit_spec(rstate, sched, slot, req, toks[req], length)
                 if got is None:
                     break                 # blocks exhausted: hold
                 first, entries = got
@@ -1179,12 +1266,13 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                                           and int(first) == eos_id):
                     out[req] = first.reshape(1)
                     req_steps[req] = 0
-                    retire(req)
+                    retire(req, 1)
                     continue
                 active[slot] = req
             waiting = sched.waiting()
             sched.tick()
             rstate.sample(len(active) + len(stalled))
+            tel.gauges(rstate, sched, len(active) + len(stalled))
             if not active:
                 if lazy_growth and stalled:
                     # every live request is stalled: preempt the YOUNGEST
@@ -1198,6 +1286,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                     start_of.pop(req, None)
                     granted.pop(slot, None)
                     req_steps.pop(req, None)
+                    tel.drop(req)
                     continue
                 if not sched.exhausted() and sched.candidate() is None:
                     sched.idle_wait()
@@ -1214,7 +1303,9 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
             # as requests wait (at least one), all when none is queued
             sb.stop.fill_(min(len(active), max(1, waiting))
                           if not sched.exhausted() else len(active))
+            tw0 = tel.wave_start()
             report = graph.multi_step().tolist()
+            tel.wave_end(tw0)
             fin_h, n_out_h, steps_h, need_h, pos_now = report[:5]
             waves += 1
             slot_steps += sum(steps_h)
@@ -1226,7 +1317,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                     n, start = n_out_h[slot], start_of[req]
                     out[req] = sb.ctx[slot, start:start + n].clone()
                     generated += n - 1           # the first counted above
-                    retire(req)
+                    retire(req, n)
                     del active[slot]
             if lazy_growth:
                 # growth after retirements: a slot at its boundary sees the
@@ -1237,6 +1328,8 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                         stalled[slot] = req       # state frozen meanwhile
                         del active[slot]
         rstate.close()
+        tel.gauges(rstate, None, 0)
+        tel.spec_totals(generated, admitted, slot_steps)
         lat = sorted(latencies)
 
         def q(p_):
@@ -1265,6 +1358,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
             static_batching: bool = False, priorities=None, **run_levers):
         _refuse_levers(run_levers, _RUN_LATER, "run")
         run.last_stats = None
+        tel.start()
         if not prompts:
             run.last_stats = empty_stats()
             return []
@@ -1369,11 +1463,12 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
         mask_key = None
         hist: list = []                          # one [slots] vector a wave
 
-        def retire(req: int, ntok: int) -> None:
+        def retire(req: int, ntok: int, steps: int) -> None:
             done_at[req] = ntok
             rstate.retire_wave[req] = len(hist)
             rstate.retire_blocks(req)
             latencies.append((time.monotonic() - admitted_at.pop(req)) * 1e3)
+            tel.retire(req, ntok, steps)
             set_fold(span[req][0], None)
 
         def activate(slot: int, req: int, first, entries: int) -> None:
@@ -1392,7 +1487,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
             if n_new_of[req] == 1 or (eos_id is not None
                                       and eos_check_every == 1
                                       and int(first) == eos_id):
-                retire(req, 1)
+                retire(req, 1, 0)
                 return
             active[slot] = req
 
@@ -1445,6 +1540,8 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                 row, tail, start, cov, entries = got
                 sched.pop(req)
                 admitted_at[req] = time.monotonic()
+                tel.admit(req, sched)
+                clk0 = tel.clock()
                 suffix = toks[req][cov:]
                 if prefill_chunk is None:
                     impl = ("cached" if prefix is not None or cov else
@@ -1452,15 +1549,19 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                     first = pick_first(admit_full(pool, slot, suffix, impl,
                                                   row, tail, start), req, rng)
                     rstate.register_prefix(req)
+                    tel.prefill(req, clk0, length)
                     activate(slot, req, first, entries)
                 else:
                     admit_table(pool, slot, row, tail, start)
                     chunks, last_idx, true_pos = chunk_split(
                         suffix, length - cov, start)
+                    # the span of an interleaved admission covers the
+                    # waves between its chunks (the host's view)
                     filling[slot] = {"req": req, "chunks": chunks,
                                      "last_idx": last_idx,
                                      "true_pos": true_pos,
-                                     "entries": entries, "next": 0}
+                                     "entries": entries, "next": 0,
+                                     "len": length, "clk0": clk0}
             # chunked prefill interleaved: ONE chunk per filling slot a
             # wave, while the active slots keep decoding
             for slot in list(filling):
@@ -1473,6 +1574,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                                        rng)
                     req = f["req"]
                     del filling[slot]
+                    tel.prefill(req, f["clk0"], f["len"], chunks=f["next"])
                     rstate.register_prefix(req)
                     activate(slot, req, first, f["entries"])
             if lazy_growth:
@@ -1486,7 +1588,9 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                         set_fold(slot, None)
                         del active[slot]
             sched.tick()
-            rstate.sample(len(active) + len(filling) + len(stalled))
+            busy = len(active) + len(filling) + len(stalled)
+            rstate.sample(busy)
+            tel.gauges(rstate, sched, busy)
             if not active:
                 if stalled and not filling:
                     # every live request is stalled and nothing else can
@@ -1502,6 +1606,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                     frag.pop(req, None)
                     admitted_at.pop(req, None)
                     granted.pop(slot, None)
+                    tel.drop(req)
                     continue
                 if not filling and not sched.exhausted() \
                         and sched.candidate() is None:
@@ -1512,6 +1617,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                 mask_key = live
                 graph.active.copy_(to_device(
                     [s in active for s in range(slots)], torch.bool))
+            tw0 = tel.wave_start()
             graph.replay()
             hist.append(tokens.clone())
             for slot, req in active.items():
@@ -1520,7 +1626,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
             for slot, req in list(active.items()):
                 count[req] += 1
                 if count[req] >= n_new_of[req]:
-                    retire(req, count[req])
+                    retire(req, count[req], count[req] - 1)
                     del active[slot]          # the slot recycles next wave
             if eos_id is not None:
                 eos_pending += 1
@@ -1529,7 +1635,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                     eos_pending = 0
                     for slot, req in list(active.items()):
                         if int(tok_h[slot]) == eos_id:
-                            retire(req, count[req])
+                            retire(req, count[req], count[req] - 1)
                             del active[slot]
                 elif eos_pending >= eos_check_every:
                     # one [W, slots] readback: each active request's FIRST
@@ -1543,10 +1649,12 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                         for j in range(block.shape[0]):
                             h = base + j
                             if h >= sw and int(block[j, slot]) == eos_id:
-                                retire(req, h - sw + 2)
+                                retire(req, h - sw + 2, h - sw + 1)
                                 del active[slot]
                                 break
+            tel.wave_end(tw0)
         rstate.close()
+        tel.gauges(rstate, None, 0)
 
         waves = torch.stack(hist) if hist else None      # [W, slots]
         outs = []

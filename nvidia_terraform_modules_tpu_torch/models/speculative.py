@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from ..telemetry import get_registry
 from .burnin import BurnInConfig, _check_params, check_device
 from .decode import _select_prefill_impl, forward_cached, init_cache
 
@@ -121,16 +122,34 @@ def make_speculative_decoder(cfg: BurnInConfig, n_new: int = 32, k: int = 4,
                              max_len: int | None = None, telemetry=None, *,
                              device="cuda"):
     """The speculative greedy decoder: ``decoder(params, prompt) →
-    (tokens [1, n_new], steps)``. ``telemetry`` (the reference's span and
-    draft-token counters) is not ported: any value but None raises."""
-    if telemetry is not None:
-        raise NotImplementedError(
-            "make_speculative_decoder(telemetry=...) is not ported yet — "
-            "ROADMAP.md, Queue A item 10 (bench + tracing)")
+    (tokens [1, n_new], steps)``.
+
+    With telemetry enabled (``telemetry=`` injection or
+    ``TPU_TELEMETRY_DIR``) each call emits a ``spec_decode`` span and
+    counts verification steps and accepted draft tokens: every
+    verification emits one model token plus its accepted drafts, so
+    ``n_new - steps`` is the draft-token count speculation bought (the
+    reference's count). ``steps`` is a host integer here (the loop reads
+    the accepted count back each verification), so the span adds no
+    readback; disabled, the bare decoder is returned."""
     dev = check_device(device)
 
     def decoder(params, prompt):
         return speculative_greedy_decode(params, prompt, n_new, cfg, k=k,
                                          max_len=max_len, device=dev)
 
-    return decoder
+    reg = telemetry if telemetry is not None else get_registry()
+    if not reg.enabled:
+        return decoder
+
+    def instrumented(params, prompt):
+        t0 = reg.clock()
+        toks, steps = decoder(params, prompt)
+        t1 = reg.clock()
+        reg.emit_span("spec_decode", t0, t1, n_new=n_new,
+                      verify_steps=steps)
+        reg.counter("spec_verify_steps").inc(steps)
+        reg.counter("spec_accepted_draft_tokens").inc(max(0, n_new - steps))
+        return toks, steps
+
+    return instrumented

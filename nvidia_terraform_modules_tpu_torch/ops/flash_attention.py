@@ -513,13 +513,15 @@ def _check_backward(backward: str) -> None:
 
 
 def flash_backward(q, k, v, o, do, lse, *, scale: float, mask=None,
-                   causal: bool = True, backward: str = "fused"):
-    """Full flash backward → ``(dQ, dK, dV)``: the delta reduction
-    ``rowsum(dO·O)`` in f32 (plain PyTorch, as the reference leaves it to
-    XLA), then the fused kernel (K5) or the split pair (K3, K4)."""
+                   causal: bool = True, backward: str = "fused",
+                   out_dtype=None):
+    """Full flash backward → ``(dQ, dK, dV)`` in ``out_dtype`` (q's, or
+    float32): the delta reduction ``rowsum(dO·O)`` in f32 (plain PyTorch,
+    as the reference leaves it to XLA), then the fused kernel (K5) or the
+    split pair (K3, K4)."""
     _check_backward(backward)
     delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
-    kw = dict(scale=scale, mask=mask, causal=causal)
+    kw = dict(scale=scale, mask=mask, causal=causal, out_dtype=out_dtype)
     if backward == "fused":
         return flash_dqdkv(q, k, v, do, lse, delta, **kw)
     dq = flash_dq(q, k, v, do, lse, delta, **kw)

@@ -12,6 +12,13 @@ launches) outlasts its kernels would be timed at its host cost.
 :func:`host_ms` is the other half: the host time to issue ``fn``.
 :func:`synced_ms` times whole steps on the host clock, synchronised. A
 measurement with no card fails: it never falls back to the CPU.
+
+:func:`timed`, :func:`median_time` and :func:`delta_time` are the
+reference's two-point helpers (the probes' and the train step's flash
+probe's method): ``delta_time`` times a chain of ``iters_lo`` and one of
+``iters_hi`` iterations and keeps the difference, which cancels the fixed
+cost of a call (launch, synchronise). They run wherever their function
+runs; the result names no device, so the caller states it.
 """
 
 from __future__ import annotations
@@ -28,9 +35,53 @@ _FLUSH_BYTES = 64 * 1024 * 1024
 _SPIN_CYCLES_PER_S = 2.0e9
 
 
-def sync() -> None:
-    """Wait for every kernel queued on the current CUDA device."""
-    torch.cuda.synchronize()
+def sync(out: Any = None) -> None:
+    """Wait for every kernel queued on the current CUDA device; a no-op
+    without a card, where PyTorch runs synchronously. ``out`` (the
+    reference's barrier argument) is accepted and ignored: the
+    synchronise covers every output."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def timed(fn: Callable[..., Any], *args: Any) -> tuple[Any, float]:
+    """Run ``fn(*args)``, wait for the device, return ``(out, seconds)``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    sync(out)
+    return out, time.perf_counter() - t0
+
+
+def median_time(fn: Callable[..., Any], *args: Any, iters: int = 5,
+                warmup: int = 2) -> float:
+    """Median wall-clock seconds of ``fn(*args)`` over ``iters`` timed
+    runs, after ``warmup`` untimed ones (kernel builds, cuBLAS heuristics,
+    the allocator's first blocks). Includes the fixed synchronise cost —
+    :func:`delta_time` cancels it."""
+    for _ in range(warmup):
+        timed(fn, *args)
+    samples = sorted(timed(fn, *args)[1] for _ in range(iters))
+    return samples[len(samples) // 2]
+
+
+def delta_time(make_fn: Callable[[int], Callable[..., Any]], *args: Any,
+               iters_lo: int, iters_hi: int, samples: int = 3) -> float:
+    """Per-iteration seconds by the two-point method: ``make_fn(n)``
+    returns a callable that runs ``n`` iterations of the work under test;
+    the medians at ``iters_lo`` and ``iters_hi`` iterations are
+    differenced, which removes the fixed cost of a call. When noise makes
+    the longer chain no slower, the bounded single-point estimate
+    ``t_hi / iters_hi`` (fixed cost included) is returned instead of a
+    nonsense near-zero time."""
+    if iters_hi <= iters_lo:
+        raise ValueError(f"iters_hi ({iters_hi}) must exceed iters_lo "
+                         f"({iters_lo})")
+    fn_lo, fn_hi = make_fn(iters_lo), make_fn(iters_hi)
+    t_lo = median_time(fn_lo, *args, iters=samples)
+    t_hi = median_time(fn_hi, *args, iters=samples)
+    if t_hi <= t_lo:
+        return t_hi / iters_hi
+    return (t_hi - t_lo) / (iters_hi - iters_lo)
 
 
 def host_ms(fn: Callable[[], Any], *, iters: int = 10,

@@ -32,7 +32,11 @@ serve engine's wave replayed from its captured CUDA graph equals the eager
 wave bit for bit: tokens, and every byte of the pool; so do the sampled wave
 (tokens, the slots' (request, position) rows) and the speculative trip
 (context, counts, report). D1, the keyed draw, equals its plain version bit
-for bit, tokens and Gumbel scores: both take libdevice's ``logf``.
+for bit, tokens and Gumbel scores: both take libdevice's ``logf``. The
+compiled greedy decoder (``make_decoder``: an eager prefill, then one
+replay of the captured steps) equals the eager loop bit for bit, its
+capture holds ``n_new - 1`` times one step's launches, a second params tree
+is captured anew, and the engine's telemetry adds no synchronise.
 """
 
 import dataclasses
@@ -45,7 +49,9 @@ from nvidia_terraform_modules_tpu_torch.models import (
     greedy_decode,
     init_paged_cache,
     init_params,
+    make_decoder,
     make_grads_fn,
+    make_quantized_decoder,
     make_serve_engine,
     quantize_kv,
     quantize_params,
@@ -1211,3 +1217,148 @@ def test_spec_engine_on_card_matches_greedy(cuda):
     assert launches["int8_matmul"] > before
     for a, b in zip(got, qgreedy):
         assert torch.equal(a, b)
+
+
+def _decode_prompt(cfg, dev, b=3, t=24, seed=9):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, cfg.vocab, (b, t), generator=g).to(dev)
+
+
+@pytest.mark.parametrize("cache_dtype,int8_weights", [
+    ("bf16", False), ("int8", False), ("bf16", True), ("int8", True)],
+    ids=["bf16", "int8_cache", "int8_weights", "int8_both"])
+def test_decoder_replay_equals_eager_loop(cuda, cache_dtype, int8_weights):
+    """One call = the eager prefill (K1) and one replay of the captured
+    steps: tokens equal ``greedy_decode``'s eager loop bit for bit, on the
+    first call (the capture) and the next (a replay of the same graph); the
+    capture's tally is ``n_new - 1`` times one step's K6 (int8 cache) and
+    K8 (int8 weights) launches, and a call adds the prefill's and that."""
+    cfg, params = _serve_params(cuda, int8_weights)
+    prompt = _decode_prompt(cfg, cuda)           # M = 72: no K8 in prefill
+    n_new = 10
+    want = greedy_decode(params, prompt, n_new, cfg, cache_dtype=cache_dtype,
+                         device=cuda)
+    dec = make_decoder(cfg, n_new=n_new, cache_dtype=cache_dtype,
+                       device=cuda)
+    assert torch.equal(dec(params, prompt), want)
+    (graph,) = dec.graphs.values()
+    step = {}
+    if cache_dtype == "int8":
+        step["kv_decode"] = cfg.n_layers
+    if int8_weights:
+        step["int8_matmul"] = 6 * cfg.n_layers + 1
+    assert graph.launches == {k: (n_new - 1) * n for k, n in step.items()}
+    before = dict(launches)
+    got = dec(params, prompt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert list(dec.graphs.values()) == [graph]          # no new capture
+    delta = {k: launches[k] - before.get(k, 0) for k in launches
+             if launches[k] != before.get(k, 0)}
+    assert delta == {"flash_fwd": cfg.n_layers, **graph.launches}
+
+
+def test_decoder_captures_anew_for_another_params_tree(cuda):
+    """A different tree (another output norm; the int8 tree of
+    ``quantize_params``) selects its own capture, never the stale graph;
+    back to the first tree, its tokens again. ``n_new == 1`` captures
+    nothing."""
+    cfg, params_a = _serve_params(cuda, False)
+    params_b = {**params_a, "out_norm": -params_a["out_norm"]}
+    qparams = quantize_params(params_a, dtype=torch.float32)
+    prompt = _decode_prompt(cfg, cuda, seed=10)
+    dec = make_decoder(cfg, n_new=8, cache_dtype="int8", device=cuda)
+    want = {name: greedy_decode(p, prompt, 8, cfg, cache_dtype="int8",
+                                device=cuda)
+            for name, p in (("a", params_a), ("b", params_b),
+                            ("q", qparams))}
+    assert not torch.equal(want["a"], want["b"])
+    graphs = []
+    for name, p in (("a", params_a), ("b", params_b), ("q", qparams),
+                    ("a", params_a)):
+        assert torch.equal(dec(p, prompt), want[name]), name
+        (graph,) = dec.graphs.values()
+        assert graph not in graphs
+        graphs.append(graph)
+    one = make_decoder(cfg, n_new=1, device=cuda)
+    assert torch.equal(one(params_a, prompt),
+                       greedy_decode(params_a, prompt, 1, cfg, device=cuda))
+    assert one.graphs == {}
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_quantized_decoder_replays_its_graph(cuda, fused):
+    cfg, params = _serve_params(cuda, False)
+    qparams = quantize_params(params, dtype=torch.float32)
+    prompt = _decode_prompt(cfg, cuda, seed=11)
+    dec = make_quantized_decoder(cfg, n_new=8, dtype=torch.float32,
+                                 fused=fused, cache_dtype="int8",
+                                 device=cuda)
+    want = greedy_decode(qparams, prompt, 8, cfg, cache_dtype="int8",
+                         device=cuda)
+    for _ in range(2):
+        assert torch.equal(dec(qparams, prompt), want)
+
+
+def test_decoder_capture_failure_raises(cuda, monkeypatch):
+    """A capture that fails raises; nothing runs the eager loop instead."""
+    cfg, params = _serve_params(cuda, False)
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("capture refused")
+
+    monkeypatch.setattr(torch.cuda, "graph", broken)
+    dec = make_decoder(cfg, n_new=4, device=cuda)
+    with pytest.raises(RuntimeError, match="capture refused"):
+        dec(params, _decode_prompt(cfg, cuda))
+    assert dec.graphs == {}
+
+
+def test_engine_telemetry_adds_no_synchronise(cuda):
+    """The flagship-shaped traffic with and without a telemetry registry:
+    the same tokens, and no stream synchronisation that PyTorch's sync
+    debug mode reports is raised from inside the telemetry hooks
+    (``serving._ServeTelemetry``: each warning's Python stack is read as
+    it is raised)."""
+    import inspect
+    import warnings
+
+    from nvidia_terraform_modules_tpu_torch.models.serving import (
+        _ServeTelemetry,
+    )
+    from nvidia_terraform_modules_tpu_torch.telemetry import Registry
+
+    cfg, params = _serve_params(cuda, False)
+    g = torch.Generator().manual_seed(12)
+    prompts = [torch.randint(0, cfg.vocab, (8 * (1 + i % 3),), generator=g)
+               for i in range(5)]
+    syncs = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        syncs.append(any(isinstance(f.frame.f_locals.get("self"),
+                                    _ServeTelemetry)
+                         for f in inspect.stack(0)))
+
+    runs = []
+    for reg in (None, Registry()):
+        engine = make_serve_engine(params, cfg, max_len=48, kv_block=16,
+                                   telemetry=reg, device=cuda)
+        engine(prompts, 4, slots=2)                  # capture, warm
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                torch.ones(1, device=cuda).item()    # the hook sees syncs
+                runs.append(engine(prompts, 12, slots=2))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert syncs and not any(syncs), \
+        f"{sum(syncs)} synchronisations from telemetry"
+    # the warm-up run and the measured one
+    assert reg.counter("serve_generated_tokens").value == \
+        (4 + 12) * len(prompts)
+    assert reg.histogram("serve_request_ms").count == 2 * len(prompts)

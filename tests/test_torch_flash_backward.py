@@ -210,3 +210,41 @@ def test_backward_validation():
 def test_mask_live_frac_matches_reference(mask, s):
     assert tfa.mask_live_frac(tfa.as_mask_spec(mask), s) == \
         jfa.mask_live_frac(jfa.as_mask_spec(mask), s)
+
+
+@pytest.mark.parametrize("backward", ["fused", "split"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_backward_f32_out_matches_reference(backward, dtype):
+    """``flash_backward(..., out_dtype=torch.float32)`` passes the dtype on
+    to K5 or K3 + K4 (their plain versions here): f32 dQ/dK/dV that match
+    the reference's ``flash_backward(out_dtype=float32)`` (interpret mode)
+    on the reference forward's O and LSE, bf16 and f32 inputs alike,
+    within 1e-5 of max(1, |ref|): both sums run in f32, in another order
+    (a few f32 ulps at these magnitudes)."""
+    b, s, h, d = 1, 48, 2, 16
+    q, k, v, do = _inputs(b, s, h, d, 11)
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    spec = jfa.as_mask_spec(None)
+    qj, kj, vj, doj, lse, _delta, lse_t, _ = _residuals(q, k, v, do, spec,
+                                                        jdt)
+    o, _ = jfa._fwd(qj, kj, vj, scale=d ** -0.5, spec=spec, block_q=BLOCK,
+                    block_k=BLOCK, pipe=False, interpret=True)
+    want = jfa.flash_backward(qj, kj, vj, o, doj, lse, scale=d ** -0.5,
+                              causal=True, block_q=BLOCK, block_k=BLOCK,
+                              interpret=True, backward=backward,
+                              out_dtype=jnp.float32)
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(tdt) for x in (q, k, v, do))
+    to = torch.from_numpy(_bshd(o.astype(jnp.float32), b, h).copy()).to(tdt)
+    got = tfa.flash_backward(tq, tk, tv, to, tdo, torch.from_numpy(lse_t),
+                             scale=d ** -0.5, backward=backward,
+                             out_dtype=torch.float32)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and w.dtype == jnp.float32
+        w = _bshd(w, b, h)
+        err = np.abs(g.numpy() - w).max()
+        assert err <= 1e-5 * max(1.0, np.abs(w).max()), err
+    # without out_dtype the gradients keep the inputs' dtype
+    assert all(g.dtype == tdt for g in tfa.flash_backward(
+        tq, tk, tv, to, tdo, torch.from_numpy(lse_t), scale=d ** -0.5,
+        backward=backward))

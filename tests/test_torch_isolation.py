@@ -23,7 +23,9 @@ from nvidia_terraform_modules_tpu_torch.models import (
     init_cache,
     init_paged_cache,
     init_params,
+    instrument_step,
     make_adamw_train_step,
+    make_decoder,
     make_quantized_decoder,
     make_serve_engine,
     make_speculative_decoder,
@@ -96,7 +98,8 @@ def test_importing_the_whole_port_loads_no_jax():
                                 params_from_numpy, opt_state_from_numpy,
                                 make_quantized_decoder, qparams_from_numpy,
                                 sample_decode, speculative_greedy_decode,
-                                make_speculative_decoder])
+                                make_speculative_decoder, make_decoder,
+                                instrument_step])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -116,6 +119,7 @@ def test_default_device_raises_without_a_card():
         lambda: make_adamw_train_step(cfg),
         lambda: synthetic_batch(torch.Generator().manual_seed(0), cfg),
         lambda: make_quantized_decoder(cfg),
+        lambda: make_decoder(cfg),
     ]
     if torch.cuda.is_available():
         assert init_params(cfg)["embed"].device.type == "cuda"

@@ -28,6 +28,7 @@ from nvidia_terraform_modules_tpu_torch.models import (
     make_serve_engine,
     params_from_numpy,
 )
+from nvidia_terraform_modules_tpu_torch.telemetry import Registry
 
 BASE = dict(vocab=64, d_model=32, n_heads=4, d_ff=64, n_layers=2,
             seq_len=16, batch=2)
@@ -139,12 +140,11 @@ def test_engine_validation_and_unported_levers():
     for lever, value in (("prefix", [1, 2]), ("prefill_chunk", 4),
                          ("policy", "sjf"), ("share_prefix", True),
                          ("lazy_growth", True), ("spec_k", 2),
-                         ("sampler", {"top_k": 1})):
+                         ("sampler", {"top_k": 1}),
+                         ("telemetry", Registry())):
         make_serve_engine(params, cfg, max_len=12, device="cpu",
                           **{lever: value})
-    for lever, value, item in (("telemetry", object(),
-                                "item 10 (bench + tracing)"),
-                               ("host_spill", True, "item 9 (fleet")):
+    for lever, value, item in (("host_spill", True, "item 9 (fleet"),):
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP.*{re.escape(item)}"):
             make_serve_engine(params, cfg, max_len=12, device="cpu",
@@ -168,18 +168,19 @@ def _keyword_defaults(fn) -> dict:
 # is not, and the ROADMAP item its NotImplementedError names
 _NOT_DEFAULT = {
     "make_serve_engine": {"host_blocks": (8, "item 9"),
-                          "host_swap": ("sync", "item 9"),
-                          "telemetry": (object(), "item 10")},
+                          "host_swap": ("sync", "item 9")},
     "run": {"rules": (object(), "item 6"),
             "admission": (object(), "item 9")},
 }
 # keywords the port now serves, at a value other than the reference's
 # default that leaves this traffic's tokens as they are (a top-k = 1
-# sampler is the greedy engine; speculation, greedy only and with per-trip
-# eos checks, is served by an engine of its own)
+# sampler is the greedy engine; a telemetry registry records, it changes
+# no token; speculation, greedy only and with per-trip eos checks, is
+# served by an engine of its own)
 _PORTED = {
     "make_serve_engine": {"aging": 4, "prefix_keep_blocks": 32,
-                          "sampler": {"top_k": 1}},
+                          "sampler": {"top_k": 1},
+                          "telemetry": Registry()},
     "run": {"eos_check_every": 4, "rng": 0},
 }
 _PORTED_SPEC = {"spec_k": 2}

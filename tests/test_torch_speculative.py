@@ -30,6 +30,7 @@ from nvidia_terraform_modules_tpu_torch.models import (
 )
 from nvidia_terraform_modules_tpu_torch.models import speculative as spec
 from nvidia_terraform_modules_tpu_torch.models.decode import make_sampler
+from nvidia_terraform_modules_tpu_torch.telemetry import Registry
 
 BASE = dict(vocab=64, d_model=32, n_heads=4, d_ff=64, n_layers=2,
             seq_len=16, batch=2)
@@ -186,8 +187,11 @@ def test_make_speculative_decoder_and_guards():
         jp, jnp.asarray(p.numpy()))
     assert np.array_equal(toks.numpy(), np.asarray(jt))
     assert steps == int(js) and steps < 12
-    with pytest.raises(NotImplementedError, match="item 10"):
-        spec.make_speculative_decoder(cfg, telemetry=object(), device="cpu")
+    reg = Registry()
+    toks_t, steps_t = spec.make_speculative_decoder(
+        cfg, n_new=12, k=3, telemetry=reg, device="cpu")(params, p)
+    assert torch.equal(toks_t, toks) and steps_t == steps
+    assert reg.counter("spec_verify_steps").value == steps
     with pytest.raises(ValueError, match="batch must be 1"):
         spec.speculative_greedy_decode(params, p.repeat(2, 1), 4, cfg,
                                        device="cpu")
