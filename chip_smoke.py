@@ -52,6 +52,17 @@ It builds the port's CUDA kernels from ``csrc/`` with nvcc (into
   loop at the flagship's decode shape (batch 8, prompt 512, 64 new tokens;
   K6 and K8 on every step) and at 3584 + 32, each rate the median of
   DECODE_RUNS turns with its min-max;
+- MoE serving (``models/moe.py``'s routed FFN, 8 experts, top-1): checks
+  at f32, top-1 and top-2, that the MoE engine equals solo decode and a
+  full re-forward, the replayed MoE wave the eager one (tokens and pool
+  bytes), ``make_decoder`` the eager loop, a 150-token prompt routed in
+  chunks the unchunked forward, and the int8 MoE engine its solo int8
+  decode; serves the flagship traffic on the flagship MoE configuration
+  (bf16; then int8 weights and pool: K1 each admission, K7 or K7-int8 and
+  33 K8 each wave, counted) beside the dense wave, with a profile of each;
+  and times ``make_decoder`` at ``bench.py``'s MoE decode shape (batch 8,
+  prompt 512, 64 new; K6 over the int8 cache, and the bf16 cache),
+  replayed and eager;
 - instruments: the probes (``ops/probes``: bf16 products, HBM read and
   triad, as shares of ``utils/device``'s peaks, which every bound here
   reads); the flagship traffic again through an engine with an enabled
@@ -150,6 +161,9 @@ RING_VS_FLASH = 1.5
 # uniform's bit steps and the running argmax (~15); counted at the CUDA
 # cores' f32 rate
 DRAW_OPS_PER_ELEMENT = 125
+# the flagship MoE configuration: bench.py section_decode_moe's experts and
+# top-k on FLAGSHIP_TRAIN (d_ff stays 8,192 an expert)
+MOE_EXPERTS, MOE_TOP_K = 8, 1
 
 
 def emit(phase: str, **fields) -> None:
@@ -1598,6 +1612,28 @@ def decode_profile(run, prompt, launches: dict, decoder_ms: float) -> dict:
                              for n, v in top])
 
 
+def decode_rates(run, n_new, prompt) -> dict:
+    """Decode tokens/s of DECODE_RUNS turns of ``run(n, prompt)``, each the
+    call at ``n_new`` and its prefill twin at ``n = 1`` back to back (after
+    one warm call of each): the median, min and max, with the median call
+    and twin ms."""
+    from nvidia_terraform_modules_tpu_torch.utils.timing import synced_ms
+
+    synced_ms(lambda: run(n_new, prompt), 1)
+    synced_ms(lambda: run(1, prompt), 1)
+    turns = []
+    for _ in range(DECODE_RUNS):
+        _, total = synced_ms(lambda: run(n_new, prompt), 1)
+        _, pre = synced_ms(lambda: run(1, prompt), 1)
+        turns.append((prompt.shape[0] * (n_new - 1)
+                      / ((total - pre) / 1e3), total, pre))
+    tps, total, pre = (sorted(col) for col in zip(*turns))
+    mid = len(turns) // 2
+    return dict(tokens_per_s=tps[mid], tokens_per_s_min=tps[0],
+                tokens_per_s_max=tps[-1], decoder_ms=total[mid],
+                prefill_ms=pre[mid], runs=len(turns))
+
+
 def decode_int8_flagship(params, cfg, dev) -> tuple[dict, dict]:
     """Greedy decode at the flagship's decode shape (batch 8, prompt 512,
     64 new tokens, dense prefill) with int8 weights (``make_quantized_
@@ -1622,31 +1658,12 @@ def decode_int8_flagship(params, cfg, dev) -> tuple[dict, dict]:
         quantize_params,
     )
     from nvidia_terraform_modules_tpu_torch.ops import _build
-    from nvidia_terraform_modules_tpu_torch.utils.timing import synced_ms
 
     bf16 = torch.bfloat16
     qparams = quantize_params(params, dtype=bf16)
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     steps_per_wave = len(params["layers"]) * 6 + 1
     decoders: dict = {}
-
-    def rates(run, n_new, prompt):
-        """Decode tokens/s of DECODE_RUNS turns, each the call at n_new and
-        its prefill twin back to back (after one warm call of each): the
-        median, min and max, with the median call and twin ms."""
-        synced_ms(lambda: run(n_new, prompt), 1)
-        synced_ms(lambda: run(1, prompt), 1)
-        turns = []
-        for _ in range(DECODE_RUNS):
-            _, total = synced_ms(lambda: run(n_new, prompt), 1)
-            _, pre = synced_ms(lambda: run(1, prompt), 1)
-            turns.append((prompt.shape[0] * (n_new - 1)
-                          / ((total - pre) / 1e3), total, pre))
-        tps, total, pre = (sorted(col) for col in zip(*turns))
-        mid = len(turns) // 2
-        return dict(tokens_per_s=tps[mid], tokens_per_s_min=tps[0],
-                    tokens_per_s_max=tps[-1], decoder_ms=total[mid],
-                    prefill_ms=pre[mid], runs=len(turns))
 
     def counted(run, n_new, prompt):
         _build.reset_launches()
@@ -1705,8 +1722,9 @@ def decode_int8_flagship(params, cfg, dev) -> tuple[dict, dict]:
                                  f"expected {want} from one graph "
                                  f"({len(graphs)} captured)")
         eager_toks = eager(dcfg, cache_dtype, weights)(DECODE_NEW, prompt)
-        rep = rates(run, DECODE_NEW, prompt)
-        eag = rates(eager(dcfg, cache_dtype, weights), DECODE_NEW, prompt)
+        rep = decode_rates(run, DECODE_NEW, prompt)
+        eag = decode_rates(eager(dcfg, cache_dtype, weights), DECODE_NEW,
+                           prompt)
         rec[name] = dict(
             replayed=rep, eager=eag, launches=got,
             replayed_over_eager=rep["tokens_per_s"] / eag["tokens_per_s"],
@@ -1728,11 +1746,393 @@ def decode_int8_flagship(params, cfg, dev) -> tuple[dict, dict]:
     lprompt = torch.randint(0, cfg.vocab, (DECODE_BATCH, LONG_PROMPT),
                             generator=g, device=dev)
     for cache_dtype in ("bf16", "int8"):
-        rep = rates(replayed(lcfg, cache_dtype, "int8"), LONG_NEW, lprompt)
-        eag = rates(eager(lcfg, cache_dtype, "int8"), LONG_NEW, lprompt)
+        rep = decode_rates(replayed(lcfg, cache_dtype, "int8"), LONG_NEW,
+                           lprompt)
+        eag = decode_rates(eager(lcfg, cache_dtype, "int8"), LONG_NEW,
+                           lprompt)
         rec[f"long_{cache_dtype}_cache"] = dict(
             prompt=LONG_PROMPT, n_new=LONG_NEW, replayed=rep, eager=eag,
             replayed_over_eager=rep["tokens_per_s"] / eag["tokens_per_s"])
+        decoders.clear()
+        torch.cuda.empty_cache()
+    return rec, int8_launches
+
+
+def _moe_exact_cfg(top_k: int):
+    """serve_exact's f32 configuration with 4 experts, top-``top_k``, at
+    ``capacity_factor=4.0``: the factor's capacity drops nothing there, so
+    the full ``forward`` routes as the drop-free cached paths do."""
+    import dataclasses
+
+    return dataclasses.replace(_exact_cfg(), n_experts=4, router_top_k=top_k,
+                               capacity_factor=4.0)
+
+
+def moe_exact(dev) -> None:
+    """The routed serve path's contracts at f32 on the card, top-1 and
+    top-2: (1) the engine's tokens equal solo ``greedy_decode`` and the
+    argmax of one full ``forward`` over each prompt and its tokens; (2) the
+    wave replayed from its captured graph equals the eager wave, tokens
+    every wave and pool bytes after; (3) ``make_decoder`` equals the eager
+    loop bit for bit, on the capturing call and a replay; (4) a 150-token
+    prompt, routed in two chunks, gives the unchunked ``forward``'s logits
+    within 1e-4; (5) the int8-weight engine over an int8 pool equals its
+    own solo int8 decode (prompts over 64 tokens: the solo prefill and the
+    admissions take the same dequantised product)."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        forward,
+        forward_cached,
+        greedy_decode,
+        init_cache,
+        init_params,
+        make_decoder,
+        make_serve_engine,
+        quantize_params,
+    )
+
+    pg = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(0, 512, (n,), generator=pg)
+               for n in (16, 24, 8, 32, 16)]
+    long_prompts = [torch.randint(0, 512, (n,), generator=pg)
+                    for n in (80, 96, 72, 128, 88)]
+    batch_prompt = torch.randint(0, 512, (4, 40), generator=pg).to(dev)
+    chunked = torch.randint(0, 512, (1, 150), generator=pg).to(dev)
+    for top_k in (1, 2):
+        cfg = _moe_exact_cfg(top_k)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                             device=dev)
+        engine = make_serve_engine(params, cfg, max_len=48, kv_block=KV_BLOCK,
+                                   device=dev)
+        got = engine(prompts, 8, slots=2)
+        solo_eq, full_eq = [], []
+        for p, toks in zip(prompts, got):
+            solo = greedy_decode(params, p[None], 8, cfg, device=dev)[0]
+            seq = torch.cat([p.to(dev), toks[:-1]])[None]
+            full = forward(params, seq, cfg)[0, p.shape[0] - 1:].argmax(-1)
+            solo_eq.append(torch.equal(toks, solo))
+            full_eq.append(torch.equal(toks, full))
+
+        pool = _seeded_pool(cfg, dev, 4, 48, "bf16", seed=3)
+        graph = engine.capture(pool)
+        twin = {k: ([t.clone() for t in v] if isinstance(v, list)
+                    else v.clone()) for k, v in pool.items()}
+        toks = torch.tensor([3, 77, 501, 9], device=dev)
+        active = torch.tensor([True, True, False, True], device=dev)
+        graph.tokens.copy_(toks)
+        graph.active.copy_(active)
+        waves_equal = []
+        for wave in range(6):
+            if wave == 3:
+                active = torch.tensor([False, True, True, True], device=dev)
+                graph.active.copy_(active)
+            graph.replay()
+            toks = engine.step(toks, active, twin)
+            waves_equal.append(torch.equal(graph.tokens, toks))
+        pool_equal = all(
+            torch.equal(a, b)
+            for key, val in pool.items()
+            for a, b in zip(val if isinstance(val, list) else [val],
+                            twin[key] if isinstance(val, list)
+                            else [twin[key]]))
+        tally = graph.launches
+        del engine, graph, pool, twin
+
+        want = greedy_decode(params, batch_prompt, 12, cfg, device=dev)
+        dec = make_decoder(cfg, n_new=12, device=dev)
+        dec_eq = [torch.equal(dec(params, batch_prompt), want)
+                  for _ in range(2)]
+        del dec
+
+        got_l, _ = forward_cached(params, chunked,
+                                  init_cache(cfg, 1, 150, device=dev), cfg,
+                                  prefill_impl="flash")
+        chunk_err = (got_l - forward(params, chunked, cfg)).abs().max().item()
+
+        qparams = quantize_params(params, dtype=torch.float32)
+        got8 = make_serve_engine(qparams, cfg, max_len=144, kv_block=KV_BLOCK,
+                                 cache_dtype="int8", device=dev)(
+            long_prompts, 8, slots=2)
+        int8_eq = [torch.equal(g, greedy_decode(qparams, p[None], 8, cfg,
+                                                cache_dtype="int8",
+                                                device=dev)[0])
+                   for g, p in zip(got8, long_prompts)]
+        emit("moe_exact", top_k=top_k, experts=cfg.n_experts,
+             engine_equal_solo=solo_eq, engine_equal_full_forward=full_eq,
+             replay_launches=tally,
+             waves_equal=waves_equal, pool_bytes_equal=pool_equal,
+             decoder_equal_eager_loop=dec_eq,
+             chunked_prefill_logit_max_abs_err=chunk_err,
+             int8_engine_equal_solo=int8_eq)
+        if not (all(solo_eq + full_eq + waves_equal + dec_eq + int8_eq)
+                and pool_equal and chunk_err <= 1e-4
+                and tally == {"paged_decode": cfg.n_layers}):
+            raise AssertionError(f"moe_exact top-{top_k}: a contract fails")
+
+
+def serve_moe_flagship(dev, lens, max_len, dense: dict,
+                       smi: str) -> tuple[dict, tuple, dict]:
+    """``serve_flagship``'s traffic on the flagship MoE configuration
+    (``FLAGSHIP_TRAIN`` with MOE_EXPERTS experts, top-1, bf16: the flagship
+    width, ``d_ff`` 8,192 an expert, nothing cut), first with bf16 weights
+    and pool, then with ``quantize_params`` and an int8 pool. Each run
+    counts its launches (K1 per admission and layer; K7, or K7-int8 and K8
+    for the 4 attention products a layer and the head, per wave and layer:
+    the capture's tally times the replays) and prints tokens/s, latency,
+    the replayed wave's device and host ms beside the eager step's and
+    ``dense``'s (the dense flagship wave of this call), and a profile of
+    one more run (top kernels, busy share; K7 or K8 by name). The bf16 run
+    adds the prefill ms an admission, the prefill logits of the flash
+    kernel against the plain masked softmax, and the share of requests
+    equal to their solo decode. Returns the record, the flagship MoE params
+    and config (for ``decode_moe_flagship``), and the launch counts of the
+    two runs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        FLAGSHIP_TRAIN,
+        BurnInConfig,
+        cache_rows,
+        forward_cached,
+        forward_paged,
+        greedy_decode,
+        init_cache,
+        init_paged_cache,
+        init_params,
+        make_serve_engine,
+        quantize_params,
+        tree_leaves,
+    )
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+    from nvidia_terraform_modules_tpu_torch.utils.timing import (
+        cuda_median_ms,
+        host_ms,
+        sync,
+    )
+
+    bf16 = torch.bfloat16
+    cfg = BurnInConfig(**FLAGSHIP_TRAIN, dtype=bf16, n_experts=MOE_EXPERTS,
+                       router_top_k=MOE_TOP_K)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         device=dev)
+    pg = torch.Generator().manual_seed(SEED + 1)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=pg).to(dev)
+               for n in lens]
+    mean_len = sum(lens) // len(lens)
+    toks = torch.zeros((SLOTS,), dtype=torch.long, device=dev)
+    active = torch.ones((SLOTS,), dtype=torch.bool, device=dev)
+    rec: dict = {"card": smi, "params": sum(p.numel() for p in
+                                            tree_leaves(params)),
+                 "experts": MOE_EXPERTS, "top_k": MOE_TOP_K,
+                 "expert_bytes": sum(
+                     layer["moe"][k].numel() * layer["moe"][k].element_size()
+                     for layer in params["layers"]
+                     for k in ("experts_up", "experts_down")),
+                 "prompt_lens": lens}
+    counts = {}
+    for name, p, cache_dtype in (("bf16", params, "bf16"),
+                                 ("int8", quantize_params(params, dtype=bf16),
+                                  "int8")):
+        quant = cache_dtype == "int8"
+        engine = make_serve_engine(p, cfg, max_len=max_len,
+                                   kv_block=KV_BLOCK, cache_dtype=cache_dtype,
+                                   device=dev)
+        engine(prompts[:SLOTS], 4, slots=SLOTS)    # warm-up, not counted
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.monotonic()
+        outs = engine(prompts, N_NEW, slots=SLOTS)
+        sync()
+        wall_s = time.monotonic() - t0
+        launches = dict(_build.launches)
+        peak = torch.cuda.max_memory_allocated()
+        st = engine.last_stats
+        adm, waves = st["requests"], st["waves"]
+        k7 = "paged_decode_int8" if quant else "paged_decode"
+        tally = {k7: cfg.n_layers}
+        if quant:
+            tally["int8_matmul"] = 4 * cfg.n_layers + 1
+        want = {**{k: 0 for k in launches},
+                "flash_fwd": adm * cfg.n_layers,
+                **{k: n * waves for k, n in tally.items()}}
+        if launches != want:
+            raise AssertionError(f"serve_moe_flagship {name} launched "
+                                 f"{launches}, expected {want}")
+        for o in outs:
+            if o.shape != (N_NEW,) or int(o.min()) < 0 \
+                    or int(o.max()) >= cfg.vocab:
+                raise AssertionError(f"bad MoE output {o.shape} {o}")
+        if st["generated"] != N_REQUESTS * N_NEW:
+            raise AssertionError(f"generated {st['generated']}")
+
+        nt = -(-cache_rows(max_len, cache_dtype) // KV_BLOCK)
+        pool = init_paged_cache(cfg, SLOTS, max_len, block_size=KV_BLOCK,
+                                num_blocks=1 + SLOTS * nt,
+                                cache_dtype=cache_dtype, device=dev)
+        for i in range(SLOTS):
+            pool["block_tables"][i] = torch.arange(
+                1 + i * nt, 1 + (i + 1) * nt, dtype=torch.int32)
+        graph = engine.capture(pool)
+        graph.active.fill_(True)
+        if graph.launches != tally:
+            raise AssertionError(f"serve_moe_flagship {name}: the wave's "
+                                 f"capture holds {graph.launches}, expected "
+                                 f"{tally}")
+
+        def wave_once():
+            pool["pos"].fill_(mean_len + N_NEW // 2)
+            engine.step(toks, active, pool)
+
+        def replay_once():
+            pool["pos"].fill_(mean_len + N_NEW // 2)
+            graph.replay()
+        eager_ms = cuda_median_ms(wave_once)
+        wave_ms = cuda_median_ms(replay_once)
+        r = dict(requests=adm, generated=st["generated"], waves=waves,
+                 wall_s=wall_s, tokens_per_s=st["generated"] / wall_s,
+                 latency_ms=st["latency_ms"], ms_per_wave=wave_ms,
+                 host_ms_per_wave=host_ms(replay_once),
+                 eager_ms_per_wave=eager_ms,
+                 eager_host_ms_per_wave=host_ms(wave_once),
+                 dense_ms_per_wave=dense[name]["ms_per_wave"],
+                 dense_host_ms_per_wave=dense[name]["host_ms_per_wave"],
+                 over_dense_wave=wave_ms / dense[name]["ms_per_wave"],
+                 replay_launches_per_wave=graph.launches,
+                 launches=launches, captures=engine.captures,
+                 kv=st["kv"], max_memory_allocated=peak)
+        del graph, pool
+        if not quant:
+            # one admission's prefill, event-timed, at each prompt's length
+            nt1 = -(-max_len // KV_BLOCK)
+            pool1 = init_paged_cache(cfg, 1, max_len, block_size=KV_BLOCK,
+                                     num_blocks=1 + nt1, device=dev)
+            pool1["block_tables"][0] = torch.arange(1, 1 + nt1,
+                                                    dtype=torch.int32)
+            prefill_ms = []
+            for q in prompts:
+                def admit_once(q=q):
+                    pool1["pos"].zero_()
+                    forward_paged(params, q[None], pool1, cfg,
+                                  prefill_impl="flash", paged_kernel="off")
+                prefill_ms.append(cuda_median_ms(admit_once, iters=5,
+                                                 warmup=1))
+            r["prefill_ms_per_admission"] = sum(prefill_ms) / len(prefill_ms)
+            del pool1
+            logit_err, logit_mag = 0.0, 0.0
+            for q in prompts[:2]:
+                got, _ = forward_cached(params, q[None], init_cache(
+                    cfg, 1, q.shape[0], device=dev), cfg,
+                    prefill_impl="flash")
+                ref, _ = forward_cached(params, q[None], init_cache(
+                    cfg, 1, q.shape[0], device=dev), cfg,
+                    prefill_impl="dense")
+                logit_err = max(logit_err, (got[0, -1].float() - ref[0, -1]
+                                            .float()).abs().max().item())
+                logit_mag = max(logit_mag,
+                                ref[0, -1].float().abs().max().item())
+            if not logit_err <= 6.25e-2 * max(1.0, logit_mag):
+                raise AssertionError(f"MoE prefill logits: flash vs plain "
+                                     f"err {logit_err} (|logit| <= "
+                                     f"{logit_mag})")
+            solo = [greedy_decode(params, q[None], N_NEW, cfg, device=dev)[0]
+                    for q in prompts]
+            r.update(prefill_logit_max_abs_err=logit_err,
+                     prefill_logit_max_abs=logit_mag,
+                     requests_equal_solo_frac=sum(
+                         torch.equal(a, b) for a, b in zip(outs, solo))
+                     / len(outs))
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            engine(prompts, N_NEW, slots=SLOTS)
+            sync()
+            prof_wall_ms = (time.monotonic() - t0) * 1e3
+        summary = profile_summary(prof, prof_wall_ms)
+        by_name = kernel_counts(prof, "int8_mm" if quant
+                                else "paged_decode_kernel")
+        expect = engine.last_stats["waves"] * (tally["int8_matmul"] if quant
+                                               else cfg.n_layers)
+        if summary["device_ms"] is not None \
+                and sum(by_name.values()) != expect:
+            raise AssertionError(f"serve_moe_flagship {name} profile: "
+                                 f"{by_name}, expected {expect}")
+        r["profile"] = {**summary, "by_name": by_name,
+                        "by_name_expected": expect}
+        rec[name] = r
+        counts[name] = launches
+        del engine
+        torch.cuda.empty_cache()
+    return rec, (params, cfg), counts
+
+
+def decode_moe_flagship(params, cfg, dev, smi: str) -> tuple[dict, dict]:
+    """``bench.py section_decode_moe``'s shape (batch 8, prompt 512, dense
+    prefill, 64 new tokens) on the flagship MoE configuration through
+    ``make_decoder`` (a prefill and one replay a call, the decoder built
+    once a shape and kept) and through the eager loop, bf16 weights over
+    the int8 cache (K6 each step and layer) and over the bf16 cache: decode
+    tokens/s by the two-point method, the median of DECODE_RUNS turns with
+    its min-max, the launch counts of one replayed call and the replayed
+    tokens against the eager loop's. Returns the record and the int8-cache
+    call's launch counts."""
+    import dataclasses
+
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        greedy_decode,
+        make_decoder,
+    )
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+
+    dcfg = dataclasses.replace(cfg, attn="dense", batch=DECODE_BATCH)
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    prompt = torch.randint(0, cfg.vocab, (DECODE_BATCH, DECODE_PROMPT),
+                           generator=g, device=dev)
+    rec: dict = {"card": smi, "batch": DECODE_BATCH, "prompt": DECODE_PROMPT,
+                 "n_new": DECODE_NEW, "runs": DECODE_RUNS,
+                 "experts": cfg.n_experts, "top_k": cfg.router_top_k}
+    int8_launches = None
+    for cache_dtype in ("int8", "bf16"):
+        decoders: dict = {}
+
+        def replayed(n, p, cache_dtype=cache_dtype, decoders=decoders):
+            if n not in decoders:
+                decoders[n] = make_decoder(dcfg, n_new=n,
+                                           cache_dtype=cache_dtype,
+                                           device=dev)
+            return decoders[n](params, p)
+
+        def eager(n, p, cache_dtype=cache_dtype):
+            return greedy_decode(params, p, n, dcfg, cache_dtype=cache_dtype,
+                                 device=dev)
+
+        replayed(DECODE_NEW, prompt)       # the capture, outside the count
+        _build.reset_launches()
+        toks = replayed(DECODE_NEW, prompt)
+        torch.cuda.synchronize()
+        launches = dict(_build.launches)
+        steps = (DECODE_NEW - 1) * dcfg.n_layers
+        want = {**{k: 0 for k in launches},
+                "kv_decode": steps if cache_dtype == "int8" else 0}
+        if launches != want or len(decoders[DECODE_NEW].graphs) != 1:
+            raise AssertionError(f"decode_moe_flagship {cache_dtype} cache "
+                                 f"launched {launches}, expected {want}")
+        eager_toks = eager(DECODE_NEW, prompt)
+        rep = decode_rates(replayed, DECODE_NEW, prompt)
+        eag = decode_rates(eager, DECODE_NEW, prompt)
+        rec[f"bf16_weights_{cache_dtype}_cache"] = dict(
+            replayed=rep, eager=eag, launches=launches,
+            step_ms=(rep["decoder_ms"] - rep["prefill_ms"]) / (DECODE_NEW - 1),
+            replayed_over_eager=rep["tokens_per_s"] / eag["tokens_per_s"],
+            tokens_equal_eager_frac=(toks == eager_toks).float().mean()
+            .item())
+        if cache_dtype == "int8":
+            int8_launches = launches
         decoders.clear()
         torch.cuda.empty_cache()
     return rec, int8_launches
@@ -3173,6 +3573,22 @@ def main() -> int:
     emit("decode_int8_flagship", **decode_rec)
     torch.cuda.empty_cache()
 
+    # ---------------------------------------------------------- MoE serve
+    # the routed FFN (models/moe.py) through the paged engine and the
+    # replayed decoder: exactness at f32, then the flagship MoE traffic
+    moe_exact(dev)
+    moe_rec, (moe_params, moe_cfg), moe_launches = serve_moe_flagship(
+        dev, lens, max_len,
+        {"bf16": {"ms_per_wave": wave_ms, "host_ms_per_wave": wave_host_ms},
+         "int8": {"ms_per_wave": wave8_ms,
+                  "host_ms_per_wave": wave8_host_ms}}, smi)
+    emit("serve_moe_flagship", **moe_rec)
+    moe_decode_rec, moe_decode_launches = decode_moe_flagship(
+        moe_params, moe_cfg, dev, smi)
+    emit("decode_moe_flagship", **moe_decode_rec)
+    del moe_params
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------------- train
     # the last main path: the flagship burn-in train step. The serve
     # state goes first (the train step needs the card's memory); the
@@ -3215,6 +3631,8 @@ def main() -> int:
          "bound_ms": k1_mean("bound_ms"),
          "bound_by": k1_main[0][1]["bound_by"],
          "library_ms": k1_mean("library_ms"),
+         "moe": {"launches": moe_launches["bf16"]["flash_fwd"],
+                 "int8_launches": moe_launches["int8"]["flash_fwd"]},
          # the serve prompts' mean rate, and K1 at the train step's shape
          "tflops": k1_mean("tflops"), "bound_share": k1_mean("bound_share"),
          "tiling": FWD_TILING,
@@ -3229,7 +3647,8 @@ def main() -> int:
          "max_abs_err": k7_rec["max_abs_err"], "ms": k7_rec["ms"],
          "plain_ms": k7_rec["plain_ms"], "bound_ms": k7_rec["bound_ms"],
          "bound_by": k7_rec["bound_by"],
-         "library_ms": k7_rec["library_ms"]},
+         "library_ms": k7_rec["library_ms"],
+         "moe": {"launches": moe_launches["bf16"]["paged_decode"]}},
         {"name": "paged_decode_int8", "route": "cuda",
          "source": "nvidia_terraform_modules_tpu_torch/csrc/paged_decode.cu",
          "replaces":
@@ -3237,7 +3656,8 @@ def main() -> int:
          "launches": launches8["paged_decode_int8"],
          **{key: k7i8_rec[key] for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms")}},
+             "library_ms")},
+         "moe": {"launches": moe_launches["int8"]["paged_decode_int8"]}},
         {"name": "kv_decode", "route": "cuda",
          "source": "nvidia_terraform_modules_tpu_torch/csrc/kv_decode.cu",
          "replaces":
@@ -3245,7 +3665,8 @@ def main() -> int:
          "launches": decode_launches["kv_decode"],
          **{key: k6_main["step"][key] for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms")}},
+             "library_ms")},
+         "moe": {"launches": moe_decode_launches["kv_decode"]}},
         # K8: the mean per launch over a wave's 49 products, and over a
         # decode step's (M = 8)
         {"name": "int8_matmul", "route": "cuda",
@@ -3260,6 +3681,9 @@ def main() -> int:
              layout: {key: k8_main[name][key] for key in (
                  "registers", "spill_bytes", "smem_bytes", "ctas_per_sm")}
              for layout, name in (("[K, N]", "square"), ("[N, K]", "head"))},
+         # the int8 MoE serve run: the 4 attention products a layer and
+         # the head (33 a wave; the expert stacks stay dense)
+         "moe": {"launches": moe_launches["int8"]["int8_matmul"]},
          "decode": {"launches": decode_launches["int8_matmul"],
                     "max_abs_err": max(r["max_abs_err"]
                                        for r in k8_decode.values()),

@@ -11,8 +11,10 @@ telemetry wrapper :func:`instrument_step` with its one-shot flash probe.
 
 Parameters are a plain dict of tensors: ``embed [vocab, d]``, ``out_norm``
 and ``layers[i]`` holding ``attn_norm``/``wq``/``wk``/``wv``/``wo``/
-``mlp_norm``/``up``/``down``; gradients and optimizer moments are dicts of
-the same shape. A train step is functional, as the reference's jitted step
+``mlp_norm`` and the FFN — ``up``/``down``, or with ``n_experts > 0`` a
+``moe`` dict (``models/moe.py``: an f32 ``router`` and the stacked
+``experts_up``/``experts_down``); gradients and optimizer moments are dicts
+of the same shape. A train step is functional, as the reference's jitted step
 is: it returns new parameters and leaves the caller's unchanged.
 
 Sharding ``rules`` (``parallel.make_rules``) carry a mesh. With a mesh of
@@ -51,6 +53,7 @@ from ..ops.ring_attention import dense_reference_attention, ring_self_attention
 from ..ops.ulysses_attention import ulysses_self_attention
 from ..utils.layers import dense_init
 from ..utils.layers import rmsnorm as _rmsnorm
+from .moe import init_moe_params, moe_layer
 
 # bench.py's flagship: the width both main paths run at, with its burn-in
 # train step's batch (bf16: 419,465,216 parameters)
@@ -86,7 +89,13 @@ class BurnInConfig:
     # recompute each block's activations in the backward
     # (torch.utils.checkpoint) instead of keeping them
     remat: bool = False
+    # n_experts > 0 swaps each block's dense FFN for the routed layer of
+    # models/moe.py; its Switch load-balance loss joins the training loss
     n_experts: int = 0
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 0.01
+    # experts per token: 1 = Switch (top-1), 2 = GShard top-2
+    router_top_k: int = 1
 
     def __post_init__(self):
         if self.attn not in ("dense", "ring", "ulysses", "flash"):
@@ -111,10 +120,15 @@ class BurnInConfig:
                             f"{self.dtype!r}")
         if self.n_experts < 0:
             raise ValueError(f"n_experts must be >= 0, got {self.n_experts}")
-        if self.n_experts > 0:
-            raise NotImplementedError(
-                "MoE (n_experts > 0) is not ported yet — ROADMAP.md, "
-                "Queue A: models/moe.py")
+        if self.router_top_k < 1 or (
+                self.n_experts and self.router_top_k > self.n_experts):
+            raise ValueError(
+                f"router_top_k must be in [1, n_experts], got "
+                f"{self.router_top_k} with {self.n_experts} experts")
+        if self.router_top_k > 1 and self.n_experts == 0:
+            raise ValueError(
+                f"router_top_k = {self.router_top_k} needs n_experts > 0 "
+                f"(a dense model has no router to take a top-k from)")
         if self.n_kv_heads is not None and (
                 self.n_kv_heads < 1 or self.n_heads % self.n_kv_heads):
             raise ValueError(
@@ -198,16 +212,20 @@ def init_params(cfg: BurnInConfig, generator: torch.Generator | None = None,
     params = {"embed": dense((cfg.vocab, cfg.d_model)),
               "out_norm": ones(cfg.d_model), "layers": []}
     for _ in range(cfg.n_layers):
-        params["layers"].append({
+        layer = {
             "attn_norm": ones(cfg.d_model),
             "wq": dense((cfg.d_model, cfg.d_model)),
             "wk": dense((cfg.d_model, kv_dim)),
             "wv": dense((cfg.d_model, kv_dim)),
             "wo": dense((cfg.d_model, cfg.d_model)),
             "mlp_norm": ones(cfg.d_model),
-            "up": dense((cfg.d_model, cfg.d_ff)),
-            "down": dense((cfg.d_ff, cfg.d_model)),
-        })
+        }
+        if cfg.n_experts > 0:
+            layer["moe"] = init_moe_params(cfg, generator)
+        else:
+            layer["up"] = dense((cfg.d_model, cfg.d_ff))
+            layer["down"] = dense((cfg.d_ff, cfg.d_model))
+        params["layers"].append(layer)
     return params
 
 
@@ -278,9 +296,10 @@ def _device(device, rules) -> torch.device:
 
 def forward_and_aux(params: dict, tokens: torch.Tensor, cfg: BurnInConfig,
                     rules=None):
-    """Differentiable forward → ``(logits [B, S, vocab], aux)``; ``aux``
-    (the MoE load-balance loss in the reference) is 0.0 for the dense
-    model. Attention runs through :class:`FlashAttention` (K1 forward; K5,
+    """Differentiable forward → ``(logits [B, S, vocab], aux)``; ``aux`` is
+    the layers' summed Switch load-balance loss (``models/moe.py``, each
+    layer routed at the factor capacity), 0.0 for the dense model.
+    Attention runs through :class:`FlashAttention` (K1 forward; K5,
     or K3 + K4, backward) with ``attn="flash"``, through the ring or
     Ulysses over ``rules.mesh`` with ``attn="ring"``/``"ulysses"`` and
     rules, and through :func:`dense_reference_attention` otherwise; GQA
@@ -321,24 +340,32 @@ def forward_and_aux(params: dict, tokens: torch.Tensor, cfg: BurnInConfig,
                                              scale=scale,
                                              window=cfg.flash_window)
         x = x + attn.reshape(b, s, cfg.d_model) @ layer["wo"]
-        return x + mlp(_rmsnorm(x, layer["mlp_norm"]), layer, cfg.dtype)
+        h = _rmsnorm(x, layer["mlp_norm"])
+        if cfg.n_experts > 0:
+            out, layer_aux = moe_layer(h, layer["moe"], cfg, rules)
+            return x + out, layer_aux
+        return x + mlp(h, layer, cfg.dtype), None
 
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     x = params["embed"][tokens]
     for layer in params["layers"]:
         if cfg.remat:
-            x = checkpoint(block, x, layer, use_reentrant=False)
+            x, layer_aux = checkpoint(block, x, layer, use_reentrant=False)
         else:
-            x = block(x, layer)
+            x, layer_aux = block(x, layer)
+        if layer_aux is not None:
+            aux = aux + layer_aux
     x = _rmsnorm(x, params["out_norm"])
     logits = x @ params["embed"].T                    # weight-tied head
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 def train_step_flops(cfg: BurnInConfig) -> float:
     """Model FLOPs for ONE train step (fwd + bwd), for MFU accounting — the
     reference's count: projections (K/V at the GQA width), the attention
     contractions at the mask's live fraction, the MLP and the tied head;
-    backward = 2× forward."""
+    backward = 2× forward. A top-k MoE token passes through k experts, so
+    the FFN term scales by k (the routing einsums are not billed)."""
     b, s, d, dff, v = (cfg.batch, cfg.seq_len, cfg.d_model, cfg.d_ff,
                        cfg.vocab)
     kv_frac = cfg.kv_heads / cfg.n_heads
@@ -347,19 +374,21 @@ def train_step_flops(cfg: BurnInConfig) -> float:
         if cfg.flash_window is not None else MaskSpec("causal"), s)
     per_layer = ((4.0 + 4.0 * kv_frac) * b * s * d * d
                  + 4.0 * live * b * s * s * d
-                 + 4.0 * b * s * d * dff)
+                 + 4.0 * b * s * d * dff * (
+                     cfg.router_top_k if cfg.n_experts else 1))
     fwd = cfg.n_layers * per_layer + 2.0 * b * s * d * v
     return 3.0 * fwd
 
 
 def loss_fn(params: dict, batch, cfg: BurnInConfig,
             rules=None) -> torch.Tensor:
-    """Mean next-token cross-entropy, the logits in f32."""
+    """Mean next-token cross-entropy, the logits in f32, plus
+    ``cfg.aux_loss_weight`` times the MoE load-balance loss."""
     tokens, targets = batch
-    logits, _aux = forward_and_aux(params, tokens, cfg, rules)
+    logits, aux = forward_and_aux(params, tokens, cfg, rules)
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, targets[..., None]).squeeze(-1)
-    return nll.mean()
+    return nll.mean() + cfg.aux_loss_weight * aux
 
 
 def synthetic_batch(generator: torch.Generator, cfg: BurnInConfig,

@@ -5,7 +5,8 @@
 ``params_from_numpy(tree, cfg, device)`` takes the reference's tree
 (``embed``, ``out_norm``, ``layers[i]`` dicts) with numpy leaves — e.g.
 ``jax.tree.map(numpy.asarray, params)`` on the reference side — and
-returns the port's dict on ``device`` in ``cfg.dtype``. This is how a
+returns the port's dict on ``device`` in ``cfg.dtype`` (an MoE layer's
+``moe`` subtree too, its router in f32). This is how a
 parity test gives both sides the same weights (the two frameworks draw
 different numbers from one seed). Leaves may be float32 or bfloat16
 (``ml_dtypes.bfloat16``, what ``numpy.asarray`` yields for a bf16 JAX
@@ -29,8 +30,9 @@ import torch
 from .burnin import BurnInConfig, _tree_map, check_device
 from .quantize import QTensor
 
-_LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "up",
-               "down")
+_LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm")
+_DENSE_KEYS = ("up", "down")
+_MOE_KEYS = ("router", "experts_up", "experts_down")
 
 
 def _leaf(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -46,24 +48,42 @@ def _leaf(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def params_from_numpy(tree, cfg: BurnInConfig, device="cuda") -> dict:
-    """The reference's parameter tree (numpy leaves) → the port's dict."""
-    dev = check_device(device)
+def _layers(tree, cfg: BurnInConfig, load, dev) -> list:
+    """Each layer of the reference's tree through ``load(leaf, dtype,
+    device)``: the attention keys and ``up``/``down``, or with
+    ``cfg.n_experts > 0`` the ``moe`` subtree — its router in f32 whatever
+    ``cfg.dtype`` is, as the reference keeps it."""
     layers = tree["layers"]
     if len(layers) != cfg.n_layers:
         raise ValueError(f"tree has {len(layers)} layers, cfg "
                          f"{cfg.n_layers}")
-    out = {"embed": _leaf(tree["embed"], cfg.dtype, dev),
-           "out_norm": _leaf(tree["out_norm"], cfg.dtype, dev),
-           "layers": []}
+    out = []
     for i, layer in enumerate(layers):
+        moe = layer.get("moe", {}) if cfg.n_experts else None
         missing = [k for k in _LAYER_KEYS if k not in layer]
+        if moe is None:
+            missing += [k for k in _DENSE_KEYS if k not in layer]
+        else:
+            missing += [f"moe/{k}" for k in _MOE_KEYS if k not in moe]
         if missing:
-            raise ValueError(f"layer {i} lacks {missing} (MoE trees are "
-                             f"not ported)")
-        out["layers"].append({k: _leaf(layer[k], cfg.dtype, dev)
-                              for k in _LAYER_KEYS})
+            raise ValueError(f"layer {i} lacks {missing} (cfg.n_experts = "
+                             f"{cfg.n_experts})")
+        keys = _LAYER_KEYS if moe is not None else _LAYER_KEYS + _DENSE_KEYS
+        ported = {k: load(layer[k], cfg.dtype, dev) for k in keys}
+        if moe is not None:
+            ported["moe"] = {
+                k: load(moe[k], torch.float32 if k == "router" else cfg.dtype,
+                        dev) for k in _MOE_KEYS}
+        out.append(ported)
     return out
+
+
+def params_from_numpy(tree, cfg: BurnInConfig, device="cuda") -> dict:
+    """The reference's parameter tree (numpy leaves) → the port's dict."""
+    dev = check_device(device)
+    return {"embed": _leaf(tree["embed"], cfg.dtype, dev),
+            "out_norm": _leaf(tree["out_norm"], cfg.dtype, dev),
+            "layers": _layers(tree, cfg, _leaf, dev)}
 
 
 def params_to_numpy(tree) -> dict:
@@ -102,11 +122,6 @@ def qparams_from_numpy(tree, cfg: BurnInConfig, device="cuda") -> dict:
     :class:`QTensor` leaves computing in ``cfg.dtype``, every other leaf
     loads as in :func:`params_from_numpy`."""
     dev = check_device(device)
-    layers = tree["layers"]
-    if len(layers) != cfg.n_layers:
-        raise ValueError(f"tree has {len(layers)} layers, cfg "
-                         f"{cfg.n_layers}")
     return {"embed": _qleaf(tree["embed"], cfg.dtype, dev),
             "out_norm": _qleaf(tree["out_norm"], cfg.dtype, dev),
-            "layers": [{k: _qleaf(layer[k], cfg.dtype, dev)
-                        for k in _LAYER_KEYS} for layer in layers]}
+            "layers": _layers(tree, cfg, _qleaf, dev)}

@@ -68,6 +68,7 @@ from .burnin import (
     mlp,
     tree_leaves,
 )
+from .moe import drop_free_capacity, routed_ffn
 
 
 CACHE_DTYPES = ("bf16", "int8")
@@ -145,13 +146,40 @@ def _cached_attention(q, k_cache, v_cache, q_pos, scale: float,
                             v_scale)
 
 
+_MOE_PREFILL_CHUNK = 128   # tokens per routed chunk along the sequence
+
+
+def _moe_ffn(h, layer, cfg: BurnInConfig):
+    """The routed FFN of the serve path: training's ``moe_layer`` (less its
+    aux loss, which serving drops) at drop-free capacity, so routing never
+    depends on how many tokens share the batch and cached decode routes as
+    a full re-forward does.
+
+    The dispatch tensor is ``[T, E, C]`` with drop-free C growing with T,
+    so a long prompt is routed in chunks of ``_MOE_PREFILL_CHUNK`` along
+    the sequence (zero-padded, routed chunk by chunk, sliced back): at
+    drop-free capacity each token routes on its own, so chunking changes
+    memory, never results. Every shape here follows from ``h``'s: the step
+    can be captured."""
+    b, t, d = h.shape
+    if t <= _MOE_PREFILL_CHUNK:
+        return routed_ffn(h, layer["moe"], cfg, drop_free_capacity(b * t))[0]
+    n = -(-t // _MOE_PREFILL_CHUNK)
+    hp = torch.nn.functional.pad(h, (0, 0, 0, n * _MOE_PREFILL_CHUNK - t))
+    cap = drop_free_capacity(b * _MOE_PREFILL_CHUNK)
+    outs = [routed_ffn(chunk, layer["moe"], cfg, cap)[0]
+            for chunk in hp.split(_MOE_PREFILL_CHUNK, dim=1)]
+    return torch.cat(outs, dim=1)[:, :t]
+
+
 def _transformer_body(params, tokens, cfg: BurnInConfig, q_pos, store,
                       attend):
     """The cached-transformer trunk shared by both storage layouts: per
     layer ``store(li, k, v) → handle`` writes the fresh rows and
     ``attend(li, q, k, v, handle) → [B, T, H, D]`` computes attention;
-    projections, rope at ``q_pos``, residuals, the MLP and the tied
-    unembedding are this one function."""
+    projections, rope at ``q_pos``, residuals, the MLP (the routed FFN of
+    :func:`_moe_ffn` with ``n_experts > 0``) and the tied unembedding are
+    this one function."""
     b, t = tokens.shape
     x = params["embed"][tokens]
     for li, layer in enumerate(params["layers"]):
@@ -167,7 +195,9 @@ def _transformer_body(params, tokens, cfg: BurnInConfig, q_pos, store,
         handle = store(li, k, v)
         attn = attend(li, q, k, v, handle)
         x = x + attn.reshape(b, t, cfg.d_model) @ layer["wo"]
-        x = x + mlp(_rmsnorm(x, layer["mlp_norm"]), layer, cfg.dtype)
+        h = _rmsnorm(x, layer["mlp_norm"])
+        x = x + (_moe_ffn(h, layer, cfg) if cfg.n_experts > 0
+                 else mlp(h, layer, cfg.dtype))
     x = _rmsnorm(x, params["out_norm"])
     return x @ params["embed"].T
 

@@ -142,10 +142,14 @@ def quantize_params(params, dtype=torch.bfloat16):
     """Params tree → the same tree with its matmul weights as
     :class:`QTensor` leaves computing in ``dtype``: the 2-D leaves quantise
     (per column; per vocab row for ``embed``, ``scale_axis=0``), every
-    other leaf passes through untouched."""
+    other leaf passes through untouched — norms, the MoE ``router`` (f32:
+    routing decisions are precision-sensitive) and the 3-D expert stacks
+    (their ``bmm`` consumers do not go through :class:`QTensor`). Leaves
+    are told apart by their exact key."""
 
     def leaf(name, x):
-        if not isinstance(x, torch.Tensor) or x.dim() != 2:
+        if not isinstance(x, torch.Tensor) or x.dim() != 2 \
+                or name == "router":
             return x
         axis = 0 if name == "embed" else 1
         q, s = quantize(x, axis=axis)

@@ -1362,3 +1362,144 @@ def test_engine_telemetry_adds_no_synchronise(cuda):
     assert reg.counter("serve_generated_tokens").value == \
         (4 + 12) * len(prompts)
     assert reg.histogram("serve_request_ms").count == 2 * len(prompts)
+
+
+# ------------------------------------------------------------------- MoE
+
+def _moe_params(dev, int8_weights, top_k=1, dtype=torch.float32):
+    """``_SERVE_CFG`` with 4 experts at ``capacity_factor=4.0`` (where the
+    factor's capacity drops nothing), its seeded params (int8 weights:
+    attention and head; the router and the expert stacks stay dense)."""
+    cfg = BurnInConfig(**{**_SERVE_CFG, "dtype": dtype}, n_experts=4,
+                       router_top_k=top_k, capacity_factor=4.0)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(13),
+                         device=dev)
+    if int8_weights:
+        params = quantize_params(params, dtype=dtype)
+    return cfg, params
+
+
+@pytest.mark.parametrize("cache_dtype,int8_weights,top_k", [
+    ("bf16", False, 1), ("int8", True, 2)], ids=["bf16-top1", "int8-top2"])
+def test_moe_wave_replay_equals_eager_wave(cuda, cache_dtype, int8_weights,
+                                           top_k):
+    """The routed wave replayed from its captured graph against the eager
+    step on a copy of the pool: the same tokens every wave and the same
+    pool bytes after, a slot going idle between replays; the capture holds
+    K7 (or K7-int8) once a layer and, with int8 weights, K8 for the four
+    attention products a layer and the head (the experts stay dense)."""
+    cfg, params = _moe_params(cuda, int8_weights, top_k)
+    engine = make_serve_engine(params, cfg, max_len=64, kv_block=16,
+                               cache_dtype=cache_dtype, device=cuda)
+    pool = _filled_pool(cfg, cuda, 4, 64, 16, cache_dtype, seed=14)
+    graph = engine.capture(pool)
+    twin = {k: ([t.clone() for t in v] if isinstance(v, list)
+                else v.clone()) for k, v in pool.items()}
+    k7 = "paged_decode_int8" if cache_dtype == "int8" else "paged_decode"
+    want = {k7: cfg.n_layers}
+    if int8_weights:
+        want["int8_matmul"] = 4 * cfg.n_layers + 1
+    assert graph.launches == want
+    toks = torch.tensor([3, 77, 501, 9], device=cuda)
+    active = torch.tensor([True, True, True, True], device=cuda)
+    graph.tokens.copy_(toks)
+    graph.active.copy_(active)
+    for wave in range(5):
+        if wave == 2:
+            active = torch.tensor([True, False, True, True], device=cuda)
+            graph.active.copy_(active)
+        graph.replay()
+        toks = engine.step(toks, active, twin)
+        assert torch.equal(graph.tokens, toks), wave
+    torch.cuda.synchronize()
+    for key, val in pool.items():
+        for a, b in zip(val if isinstance(val, list) else [val],
+                        twin[key] if isinstance(val, list) else [twin[key]]):
+            assert torch.equal(a, b), key
+
+
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_moe_router_stays_f32_and_tf32_free_under_capture(cuda, top_k):
+    """bf16 MoE: the router is f32 in ``init_params`` and
+    ``quantize_params``; with TF32 allowed for the process, ``moe_layer``
+    eager and replayed from a captured graph gives the bits it gives with
+    TF32 off (the bf16 expert products ignore the flag; a TF32 router
+    product would move the gates and so every output)."""
+    from nvidia_terraform_modules_tpu_torch.models import moe_layer
+
+    cfg, params = _moe_params(cuda, False, top_k, torch.bfloat16)
+    assert params["layers"][0]["moe"]["router"].dtype == torch.float32
+    qtree = quantize_params(params)
+    assert qtree["layers"][0]["moe"]["router"].dtype == torch.float32
+    moe = params["layers"][0]["moe"]
+    g = torch.Generator(device=cuda).manual_seed(15)
+    x = torch.randn((4, 1, cfg.d_model), generator=g,
+                    device=cuda).to(torch.bfloat16)
+    want, want_aux = moe_layer(x, moe, cfg, capacity=8)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        eager, _ = moe_layer(x, moe, cfg, capacity=8)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            moe_layer(x, moe, cfg, capacity=8)           # warm-up
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            out, aux = moe_layer(x, moe, cfg, capacity=8)
+        graph.replay()
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert torch.equal(eager, want)
+    assert torch.equal(out, want) and torch.equal(aux, want_aux)
+    assert torch.isfinite(out.float()).all()
+
+
+@pytest.mark.parametrize("cache_dtype,int8_weights", [
+    ("bf16", False), ("int8", True)], ids=["bf16", "int8_both"])
+def test_moe_decoder_replay_equals_eager_loop(cuda, cache_dtype,
+                                              int8_weights):
+    """``make_decoder`` over an MoE tree: the replayed steps give the eager
+    loop's tokens bit for bit, on the capturing call and a replay; the
+    capture's tally is ``n_new - 1`` steps of K6 (int8 cache) and K8 (the
+    attention products and the head)."""
+    cfg, params = _moe_params(cuda, int8_weights)
+    prompt = _decode_prompt(cfg, cuda)
+    n_new = 10
+    want = greedy_decode(params, prompt, n_new, cfg, cache_dtype=cache_dtype,
+                         device=cuda)
+    dec = make_decoder(cfg, n_new=n_new, cache_dtype=cache_dtype,
+                       device=cuda)
+    got = [dec(params, prompt) for _ in range(2)]
+    (graph,) = dec.graphs.values()
+    step = {}
+    if cache_dtype == "int8":
+        step["kv_decode"] = cfg.n_layers
+    if int8_weights:
+        step["int8_matmul"] = 4 * cfg.n_layers + 1
+    assert graph.launches == {k: (n_new - 1) * n for k, n in step.items()}
+    assert all(torch.equal(g, want) for g in got)
+
+
+def test_moe_engine_on_card_matches_solo_and_full_forward(cuda):
+    """More slots than requests, a 150-token prompt among them (its
+    admission routes in two chunks): every request's tokens equal its solo
+    greedy decode and the argmax of one full ``forward`` over the prompt
+    and its generated tokens (the factor capacity drops nothing here)."""
+    from nvidia_terraform_modules_tpu_torch.models import forward
+
+    cfg, params = _moe_params(cuda, False, 2)
+    g = torch.Generator().manual_seed(16)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g)
+               for n in (24, 150, 8)]
+    engine = make_serve_engine(params, cfg, max_len=176, kv_block=16,
+                               device=cuda)
+    got = engine(prompts, 8, slots=6)
+    for p, toks in zip(prompts, got):
+        solo = greedy_decode(params, p[None].to(cuda), 8, cfg,
+                             device=cuda)[0]
+        assert torch.equal(toks, solo)
+        seq = torch.cat([p.to(cuda), toks[:-1]])[None]
+        full = forward(params, seq, cfg)[0, p.shape[0] - 1:].argmax(-1)
+        assert torch.equal(full, toks)

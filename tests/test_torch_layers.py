@@ -100,15 +100,22 @@ def test_traffic_copies_draw_the_reference_traces(seed):
 
 
 def test_config_validation_matches_reference():
-    for kw in ({"n_heads": 4, "n_kv_heads": 3},
-               {"attn": "bogus"},
-               {"d_model": 36, "n_heads": 4, "rope": True}):
-        with pytest.raises(ValueError):
+    for kw, match in (({"n_heads": 4, "n_kv_heads": 3}, None),
+                      ({"attn": "bogus"}, None),
+                      ({"d_model": 36, "n_heads": 4, "rope": True}, None),
+                      # tests/test_moe.py:227-236
+                      ({"n_experts": 4, "router_top_k": 5}, "router_top_k"),
+                      ({"router_top_k": 0}, "router_top_k"),
+                      ({"router_top_k": 2}, "needs n_experts"),
+                      ({"n_experts": -1}, "n_experts")):
+        with pytest.raises(ValueError, match=match):
             jburnin.BurnInConfig(**kw)
-        with pytest.raises(ValueError):
+        with pytest.raises(ValueError, match=match):
             tburnin.BurnInConfig(**kw)
     t = tburnin.BurnInConfig(d_model=64, n_heads=8, n_kv_heads=2)
     j = jburnin.BurnInConfig(d_model=64, n_heads=8, n_kv_heads=2)
     assert (t.head_dim, t.kv_heads) == (j.head_dim, j.kv_heads) == (8, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tburnin.BurnInConfig(n_experts=2)
+    t = tburnin.BurnInConfig(n_experts=2, router_top_k=2)
+    j = jburnin.BurnInConfig(n_experts=2, router_top_k=2)
+    assert (t.capacity_factor, t.aux_loss_weight) == \
+        (j.capacity_factor, j.aux_loss_weight) == (1.25, 0.01)
