@@ -89,7 +89,20 @@ It builds the port's CUDA kernels from ``csrc/`` with nvcc (into
   gradients, with planted faults that the check must catch; runs the
   flagship step with ``attn="ring"`` on a mesh of sp = 4 (four ring
   members on the one card: the launch counts show every layer went
-  through K2 and K5, or K3 + K4) and profiles one step.
+  through K2 and K5, or K3 + K4) and profiles one step;
+- the validation Job's payload: runs ``python -m
+  nvidia_terraform_modules_tpu_torch.smoketest`` as the Job does, at
+  ``burnin`` with one expected device (a world of one over NCCL), and
+  requires every leg of its JSON line (the all-reduce, the sharded
+  burn-in, decode, the serve engine, its levers, the paged decode kernel
+  against the gather path); runs the same in this process under
+  ``torch.profiler``, its launch counts set to 0 first, where the
+  ``paged_decode`` leg must have launched K7; and runs the flagship SGD
+  step through ``make_train_step(cfg, rules)`` on the world-1 mesh
+  against the unsharded step (the split backward's parameters bit for
+  bit after 3 steps; the fused step's within the bf16 tolerance, K5's dQ
+  atomics varying its bits between runs), timing both and counting K1
+  and K5.
 
 Every phase prints one JSON line; any failure raises and the script exits
 non-zero. Without a CUDA device it exits 1 and prints no result; it
@@ -3032,6 +3045,223 @@ def train_ring_profile(params, dev) -> dict:
     return profile_summary(prof, wall_ms)
 
 
+# the validation Job's legs that the card must pass (the CLI's JSON line)
+SMOKETEST_LEGS = ("psum_ok", "burnin_ok", "decode_ok", "serve_engine_ok",
+                  "serve_sched_ok", "paged_decode_ok")
+# SGD steps from one set of weights for the sharded/unsharded comparison
+SHARDED_STEPS = 3
+# launcher variables the smoke test's CLI must not inherit: it runs here
+# as a world of one over NCCL
+_WORLD_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+               "MASTER_ADDR", "MASTER_PORT", "TPU_SMOKETEST_HOSTS",
+               "TPU_SMOKETEST_PLATFORM", "TPU_SMOKETEST_CHECKPOINT_DIR",
+               "TPU_SMOKETEST_SLICES", "TPU_TELEMETRY_DIR")
+
+
+def _smoketest_verdict(checks: dict, where: str) -> None:
+    bad = [k for k in SMOKETEST_LEGS if checks.get(k) is not True]
+    if not checks.get("ok") or bad or checks.get("backend") != "nccl" \
+            or checks.get("devices") != 1:
+        raise AssertionError(f"{where}: ok={checks.get('ok')}, legs not "
+                             f"passed {bad}, backend "
+                             f"{checks.get('backend')}: {checks}")
+
+
+def smoketest_cli() -> dict:
+    """``python -m nvidia_terraform_modules_tpu_torch.smoketest`` as the
+    validation Job runs it, at ``burnin`` with one expected device: a
+    world of one over NCCL on this card. Its one JSON line must pass every
+    leg of ``SMOKETEST_LEGS``."""
+    env = {k: v for k, v in os.environ.items() if k not in _WORLD_VARS}
+    env.update(TPU_SMOKETEST_LEVEL="burnin",
+               TPU_SMOKETEST_EXPECTED_DEVICES="1")
+    t0 = time.monotonic()
+    out = subprocess.run(
+        [sys.executable, "-m", "nvidia_terraform_modules_tpu_torch.smoketest"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=600)
+    wall_s = time.monotonic() - t0
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
+    if out.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"smoketest CLI exited {out.returncode} with "
+                             f"{len(lines)} JSON lines: {out.stdout[-3000:]}"
+                             f"{out.stderr[-3000:]}")
+    checks = json.loads(lines[0])
+    _smoketest_verdict(checks, "smoketest_cli")
+    return dict(wall_s=wall_s, seconds=checks["seconds"],
+                backend=checks["backend"], device_kind=checks["device_kind"],
+                legs={k: checks[k] for k in SMOKETEST_LEGS},
+                leg_seconds=checks["leg_seconds"],
+                leg_launches=checks["leg_launches"],
+                not_ported=sorted(checks["not_ported"]),
+                burnin_loss=[checks["burnin_first_loss"],
+                             checks["burnin_last_loss"]])
+
+
+def smoketest_inproc() -> tuple[dict, dict]:
+    """The same run in this process under ``torch.profiler``, the launch
+    counts set to 0 just before it: the ``paged_decode`` leg must have
+    launched K7 (its own count, and by name in the profile). Returns the
+    record and the run's launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+    from nvidia_terraform_modules_tpu_torch.smoketest import run_smoketest
+    from nvidia_terraform_modules_tpu_torch.utils.timing import sync
+
+    _build.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        result = run_smoketest(level="burnin", env={
+            "TPU_SMOKETEST_EXPECTED_DEVICES": "1"})
+        sync()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    launches = dict(_build.launches)
+    checks = {"ok": result.ok, **result.checks}
+    _smoketest_verdict(checks, "smoketest_inproc")
+    k7_leg = checks["leg_launches"].get("paged_decode", {}).get(
+        "paged_decode", 0)
+    k7_named = kernel_counts(prof, "paged_decode")
+    if k7_leg <= 0 or not sum(k7_named.values()):
+        raise AssertionError(f"smoketest_inproc: the paged_decode leg "
+                             f"launched K7 {k7_leg} times, the profile "
+                             f"names {k7_named}")
+    summary = profile_summary(prof, wall_ms)
+    return dict(seconds=result.seconds, leg_seconds=checks["leg_seconds"],
+                leg_launches=checks["leg_launches"], launches=launches,
+                paged_decode_k7=k7_leg, k7_kernels_by_name=k7_named,
+                device_ms=summary["device_ms"],
+                busy_share_profiled=summary["busy_share_profiled"],
+                top_kernels=summary["top_kernels"][:6]), launches
+
+
+def train_sharded_flagship(params, dev) -> tuple[dict, dict]:
+    """``FLAGSHIP_TRAIN`` through ``make_train_step(cfg, rules)`` on the
+    mesh of a world of one (NCCL) against ``make_train_step(cfg)``.
+
+    - Bit for bit: SHARDED_STEPS SGD steps with the split backward (K1,
+      K3 and K4 are deterministic) from the same weights give the same
+      losses and parameters.
+    - The fused backward (K1 + K5, the main path): K5 adds dQ with float
+      atomics, whose order varies from run to run, so two runs of the
+      SAME step differ; the first loss must still be equal bit for bit
+      (the forward is deterministic) and the parameters after
+      SHARDED_STEPS steps within the bf16 tolerance of the backward
+      kernels, beside the spread of two unsharded runs.
+    - Step ms of each (median of TIMED_STEPS, min–max, after WARM_STEPS)
+      and the K1/K5 launches of each timed run (counts set to 0 before).
+    Returns the record and the sharded timed run's launch counts."""
+    import dataclasses
+    import math
+
+    import torch
+    import torch.distributed as dist
+
+    from nvidia_terraform_modules_tpu_torch.models import make_train_step
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+    from nvidia_terraform_modules_tpu_torch.parallel import (
+        build_mesh,
+        make_rules,
+        maybe_initialize_distributed,
+        plan_mesh,
+    )
+    from nvidia_terraform_modules_tpu_torch.utils.timing import sync
+
+    cfg, batch = _flagship_train(dev)
+    owned = not dist.is_initialized()
+    maybe_initialize_distributed({}, device=dev)
+    try:
+        rules = make_rules(build_mesh(plan_mesh(1)))
+        if type(rules.mesh).__name__ != "WorldMesh" or \
+                dist.get_backend() != "nccl":
+            raise AssertionError(f"not a NCCL world mesh: {rules.mesh}")
+
+        def steps(step, n):
+            p, losses = params, []
+            for _ in range(n):
+                p, loss = step(p, batch)
+                losses.append(loss)
+            sync()
+            return p, losses
+
+        split = dataclasses.replace(cfg, flash_backward="split")
+        ps, ls = steps(make_train_step(split, rules, lr=TRAIN_LR),
+                       SHARDED_STEPS)
+        pu, lu = steps(make_train_step(split, lr=TRAIN_LR, device=dev),
+                       SHARDED_STEPS)
+        from nvidia_terraform_modules_tpu_torch.models import tree_leaves
+
+        split_bitwise = all(torch.equal(a, b) for a, b in zip(ls, lu)) and \
+            all(torch.equal(a, b)
+                for a, b in zip(tree_leaves(ps), tree_leaves(pu)))
+        if not split_bitwise:
+            raise AssertionError(
+                f"split backward: sharded step != unsharded, losses "
+                f"{[x.item() for x in ls]} vs {[x.item() for x in lu]}, "
+                f"max rel {max_rel_err(ps, pu, None)}")
+        del ps, pu
+        sharded = make_train_step(cfg, rules, lr=TRAIN_LR)
+        plain = make_train_step(cfg, lr=TRAIN_LR, device=dev)
+        ps, ls = steps(sharded, SHARDED_STEPS)
+        pu, lu = steps(plain, SHARDED_STEPS)
+        pu2, _ = steps(plain, SHARDED_STEPS)
+        err = max_rel_err(ps, pu, None)
+        spread = max_rel_err(pu2, pu, None)
+        tol = BWD_TOL["bf16"][1]
+        if not torch.equal(ls[0], lu[0]) or not err <= tol:
+            raise AssertionError(
+                f"fused backward: first loss {ls[0].item()} vs "
+                f"{lu[0].item()}, params max rel {err} (tol {tol}; two "
+                f"unsharded runs {spread})")
+        del ps, pu, pu2
+        state = {}
+
+        def timed(name, step):
+            state[name] = params
+            for _ in range(WARM_STEPS):
+                state[name], _ = step(state[name], batch)
+            sync()
+            _build.reset_launches()
+            times, losses = [], []
+            for _ in range(TIMED_STEPS):
+                t0 = time.monotonic()
+                state[name], loss = step(state[name], batch)
+                sync()
+                times.append((time.monotonic() - t0) * 1e3)
+                losses.append(loss.item())
+            launches = dict(_build.launches)
+            if not all(map(math.isfinite, losses)) or \
+                    not losses[-1] < losses[0]:
+                raise AssertionError(f"{name}: loss did not fall: {losses}")
+            state.pop(name)
+            times.sort()
+            return dict(step_ms=times[len(times) // 2], min_ms=times[0],
+                        max_ms=times[-1], losses=[losses[0], losses[-1]],
+                        launches={k: c for k, c in launches.items() if c})
+
+        rec_s = timed("sharded", sharded)
+        rec_u = timed("unsharded", plain)
+        expect = {"flash_fwd": cfg.n_layers * TIMED_STEPS,
+                  "flash_bwd_fused": cfg.n_layers * TIMED_STEPS}
+        for name, r in (("sharded", rec_s), ("unsharded", rec_u)):
+            if r["launches"] != expect:
+                raise AssertionError(f"{name} timed steps launched "
+                                     f"{r['launches']}, expected {expect}")
+        launches = {**{k: 0 for k in _build.launches}, **rec_s["launches"]}
+    finally:
+        if owned:
+            dist.destroy_process_group()
+    rec = dict(mesh=dict(rules.mesh.shape), backend="nccl",
+               split_bitwise=split_bitwise, split_losses=[x.item()
+                                                           for x in ls],
+               fused_first_loss_equal=True, fused_params_max_rel=err,
+               fused_two_unsharded_runs_max_rel=spread, fused_tol=tol,
+               sharded=rec_s, unsharded=rec_u,
+               sharded_over_unsharded=rec_s["step_ms"] / rec_u["step_ms"])
+    return rec, launches
+
+
 def flagship_lengths() -> list[int]:
     from nvidia_terraform_modules_tpu_torch.utils.traffic import (
         ragged_lengths,
@@ -3614,6 +3844,17 @@ def main() -> int:
                                                   rec["step_ms"])
     emit("train_ring_flagship", **ring_rec)
     emit("train_ring_profile", **train_ring_profile(params, dev))
+    torch.cuda.empty_cache()
+
+    # ------------------------------------- the validation Job's payload
+    # the smoke test as the Job runs it (a process of its own, a world of
+    # one over NCCL), then in this process with K7 counted; then the
+    # data/tensor-parallel step on the world-1 mesh against the unsharded
+    emit("smoketest_cli", **smoketest_cli())
+    st_rec, st_launches = smoketest_inproc()
+    emit("smoketest_inproc", **st_rec)
+    sh_rec, sh_launches = train_sharded_flagship(params, dev)
+    emit("train_sharded_flagship", **sh_rec)
 
     # --------------------------------------------------------- summary
     n_k1 = sum(c for c, _ in k1_main)
@@ -3633,6 +3874,8 @@ def main() -> int:
          "library_ms": k1_mean("library_ms"),
          "moe": {"launches": moe_launches["bf16"]["flash_fwd"],
                  "int8_launches": moe_launches["int8"]["flash_fwd"]},
+         # the sharded SGD step's timed run (a world of one, NCCL)
+         "sharded": {"launches": sh_launches["flash_fwd"]},
          # the serve prompts' mean rate, and K1 at the train step's shape
          "tflops": k1_mean("tflops"), "bound_share": k1_mean("bound_share"),
          "tiling": FWD_TILING,
@@ -3648,7 +3891,10 @@ def main() -> int:
          "plain_ms": k7_rec["plain_ms"], "bound_ms": k7_rec["bound_ms"],
          "bound_by": k7_rec["bound_by"],
          "library_ms": k7_rec["library_ms"],
-         "moe": {"launches": moe_launches["bf16"]["paged_decode"]}},
+         "moe": {"launches": moe_launches["bf16"]["paged_decode"]},
+         # the in-process smoke test (serve legs; paged_decode's "on")
+         "smoketest": {"launches": st_launches["paged_decode"],
+                       "paged_decode_leg": st_rec["paged_decode_k7"]}},
         {"name": "paged_decode_int8", "route": "cuda",
          "source": "nvidia_terraform_modules_tpu_torch/csrc/paged_decode.cu",
          "replaces":
@@ -3703,6 +3949,8 @@ def main() -> int:
             # path; K3's and K4's its split step's
             "launches": (train_launches[name] if name == "flash_bwd_fused"
                          else rec["split_step_launches"][name]),
+            **({"sharded": {"launches": sh_launches[name]}}
+               if name == "flash_bwd_fused" else {}),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -17,16 +17,32 @@ and ``layers[i]`` holding ``attn_norm``/``wq``/``wk``/``wv``/``wo``/
 of the same shape. A train step is functional, as the reference's jitted step
 is: it returns new parameters and leaves the caller's unchanged.
 
-Sharding ``rules`` (``parallel.make_rules``) carry a mesh. With a mesh of
-``sp`` alone, ``attn="ring"`` runs ``ring_self_attention`` (K2 per
-visiting block, K5 or K3 + K4 in the backward) and ``attn="ulysses"``
-``ulysses_self_attention``, the sequence sharded over the mesh's devices;
-every other op runs on the global tensors on the mesh's first device, where
-the parameters and the batch live (the reference's activation constraints
-are layout only, so the numbers are the same). Without rules, ring and
-ulysses run dense attention, as in the reference. A mesh with ``dp`` or
-``tp`` (or any axis but ``sp``) above 1 raises ``NotImplementedError``: the
-port does not shard parameters or the batch yet.
+Sharding ``rules`` (``parallel.make_rules``) carry a mesh, of one of two
+kinds (``parallel/mesh.py``):
+
+- a one-process ``Mesh`` of ``sp`` alone: ``attn="ring"`` runs
+  ``ring_self_attention`` (K2 per visiting block, K5 or K3 + K4 in the
+  backward) and ``attn="ulysses"`` ``ulysses_self_attention``, the
+  sequence sharded over the mesh's devices; every other op runs on the
+  global tensors on the mesh's first device, where the parameters and the
+  batch live. Without rules, ring and ulysses run dense attention, as in
+  the reference. Such a mesh with any other axis above 1 raises
+  ``NotImplementedError``.
+- a ``WorldMesh`` over the ranks of a ``torch.distributed`` world, one
+  device a rank: data and tensor parallelism (``dp``, ``slice`` × ``dp``,
+  ``tp``), Megatron style, where GSPMD would insert the collectives in the
+  reference. ``wq``/``wk``/``wv``/``up`` are split by columns over ``tp``
+  (heads over ``tp``), ``wo``/``down`` by rows and followed by an
+  all-reduce; the tied ``embed`` is split on ``d_model`` — the lookup is
+  all-gathered, the head's partial logits all-reduced; norms are
+  replicated. Each rank holds its shard of the parameters
+  (:func:`shard_params`; :func:`gather_params` joins them) and its rows of
+  the batch (:func:`shard_batch`); the gradients and the loss are
+  all-reduced and averaged in f32 over the data axes. A world of one runs
+  the unsharded step's operations, bit for bit. Still refused (ROADMAP.md,
+  Queue A item 6): ``sp`` above 1 on a world mesh (ring and Ulysses over
+  processes), ``ep`` (expert sharding), MoE over any axis above 1, and
+  ``rules`` on the decode and serve entry points.
 
 Not carried from the reference: the TPU's tile levers ``flash_pipeline`` /
 ``flash_block_q`` / ``flash_block_k`` (the CUDA kernels have one fixed
@@ -36,9 +52,11 @@ Not carried from the reference: the TPU's tile levers ``flash_pipeline`` /
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -51,6 +69,9 @@ from ..ops.flash_attention import (
 )
 from ..ops.ring_attention import dense_reference_attention, ring_self_attention
 from ..ops.ulysses_attention import ulysses_self_attention
+from ..parallel.collectives import enter_parallel, exit_parallel, gather_last
+from ..parallel.mesh import WorldMesh
+from ..parallel.sharding import gather_shards, local_shard
 from ..utils.layers import dense_init
 from ..utils.layers import rmsnorm as _rmsnorm
 from .moe import init_moe_params, moe_layer
@@ -192,11 +213,12 @@ def init_params(cfg: BurnInConfig, generator: torch.Generator | None = None,
                 device="cuda", rules=None) -> dict:
     """Seeded parameters in the reference's dict layout, drawn in f32 from
     ``generator`` (default: seed 0 on ``device``) and cast to
-    ``cfg.dtype``; with ``rules``, on the mesh's first device. The draws
-    differ from the reference's ``jax.random`` ones; parity tests load the
-    reference's weights through :func:`..convert.params_from_numpy`
-    instead."""
-    dev = _device(device, rules)
+    ``cfg.dtype``; with ``rules``, on the mesh's first device, or on a
+    world mesh this rank's shard of the same global draw
+    (:func:`shard_params`). The draws differ from the reference's
+    ``jax.random`` ones; parity tests load the reference's weights through
+    :func:`..convert.params_from_numpy` instead."""
+    dev = _device(device, rules, cfg)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     if generator.device.type != dev.type:
@@ -226,7 +248,50 @@ def init_params(cfg: BurnInConfig, generator: torch.Generator | None = None,
             layer["up"] = dense((cfg.d_model, cfg.d_ff))
             layer["down"] = dense((cfg.d_ff, cfg.d_model))
         params["layers"].append(layer)
+    if _world(rules):
+        params = shard_params(params, rules)
     return params
+
+
+def _tree_map_path(fn: Callable, tree, path: tuple = ()):
+    """:func:`_tree_map` with each leaf's path (its keys and list indices,
+    as strings) passed first."""
+    if isinstance(tree, dict):
+        return {k: _tree_map_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map_path(fn, v, path + (str(i),))
+                for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def param_shardings(params: dict, rules) -> dict:
+    """The spec of every leaf, by its path (``ShardingRules.param_sharding``),
+    in the params' dict layout."""
+    return _tree_map_path(lambda path, _: rules.param_sharding(path), params)
+
+
+def shard_params(params: dict, rules) -> dict:
+    """This rank's shard of every leaf of the global ``params`` on a world
+    mesh (``parallel.sharding.local_shard`` under its spec); a leaf that
+    is not split is the caller's tensor itself."""
+    return _tree_map_path(
+        lambda path, x: local_shard(x, rules.param_sharding(path),
+                                    rules.mesh), params)
+
+
+def gather_params(params: dict, rules) -> dict:
+    """The global ``params`` from every rank's shards (the inverse of
+    :func:`shard_params`; every rank gets the whole tree)."""
+    return _tree_map_path(
+        lambda path, x: gather_shards(x, rules.param_sharding(path),
+                                      rules.mesh), params)
+
+
+def shard_batch(batch, rules):
+    """This rank's rows of a global ``(tokens, targets)`` batch: the rows
+    split over the data axes (``rules.batch``)."""
+    return tuple(local_shard(x, rules.batch, rules.mesh) for x in batch)
 
 
 def mlp(h: torch.Tensor, layer: dict, dtype: torch.dtype) -> torch.Tensor:
@@ -272,26 +337,84 @@ def _tree_unflatten(tree, leaves):
     return _tree_map(lambda _: next(it), tree)
 
 
-def _check_rules(rules) -> None:
-    """Refuse what the port cannot run yet: a mesh with an axis other than
-    ``sp`` above 1 (parameter and batch sharding)."""
+def _world(rules) -> bool:
+    return rules is not None and isinstance(rules.mesh, WorldMesh)
+
+
+def _check_rules(rules, cfg: BurnInConfig | None = None) -> None:
+    """Refuse what the port cannot run yet (ROADMAP.md, Queue A item 6):
+    on a one-process mesh, any axis but ``sp`` above 1; on a world mesh,
+    ``sp`` or ``ep`` above 1 and the ring and Ulysses layouts; and with
+    ``cfg``, MoE over any axis above 1, and a ``tp`` or a batch that the
+    config's dimensions do not divide."""
     if rules is None:
         return
-    big = {a: n for a, n in rules.mesh.shape.items() if a != "sp" and n > 1}
-    if big:
+    shape = rules.mesh.shape
+    if not _world(rules):
+        big = {a: n for a, n in shape.items() if a != "sp" and n > 1}
+        if big:
+            raise NotImplementedError(
+                f"sharded training over {big} on a one-process mesh is not "
+                f"ported — ROADMAP.md, Queue A item 6: dp/tp run over a "
+                f"torch.distributed world, one process a device "
+                f"(parallel.build_mesh with a process group up); a "
+                f"one-process mesh shards the sequence (sp) alone")
+        return
+    sp, tp = shape.get("sp", 1), shape.get("tp", 1)
+    data = math.prod(shape.get(a, 1) for a in rules.data)
+    if sp > 1:
+        what = ("sp > 1 together with dp or tp" if data * tp > 1
+                else "sp > 1 (the ring and Ulysses over processes)")
         raise NotImplementedError(
-            f"sharded training over {big} (parameters and batch over dp/tp) "
-            f"is not ported yet — ROADMAP.md, Queue A item 6: parallel/; "
-            f"the port's meshes shard the sequence (sp) alone")
+            f"{what} on a torch.distributed mesh {shape} is not ported yet "
+            f"— ROADMAP.md, Queue A item 6; a one-process mesh runs sp "
+            f"alone")
+    if shape.get("ep", 1) > 1:
+        raise NotImplementedError(
+            f"expert sharding over ep ({shape}) is not ported yet — "
+            f"ROADMAP.md, Queue A item 6")
+    if cfg is None:
+        return
+    if cfg.n_experts > 0 and max(shape.values()) > 1:
+        raise NotImplementedError(
+            f"MoE over a mesh {shape} (experts sharded over ep) is not "
+            f"ported yet — ROADMAP.md, Queue A item 6")
+    if cfg.attn in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"attn={cfg.attn!r} over a torch.distributed mesh (the ring "
+            f"and Ulysses over processes) is not ported yet — ROADMAP.md, "
+            f"Queue A item 6")
+    if tp > 1 and (cfg.n_heads % tp or cfg.kv_heads % tp or cfg.d_ff % tp
+                   or cfg.d_model % tp):
+        raise ValueError(
+            f"tp = {tp} must divide n_heads ({cfg.n_heads}), n_kv_heads "
+            f"({cfg.kv_heads}), d_ff ({cfg.d_ff}), and d_model "
+            f"({cfg.d_model})")
+    if cfg.batch % data:
+        raise ValueError(
+            f"batch {cfg.batch} does not split over the data axes "
+            f"{rules.data} ({data} ways)")
 
 
-def _device(device, rules) -> torch.device:
+def _device(device, rules, cfg: BurnInConfig | None = None) -> torch.device:
     """The entry point's device: with ``rules``, the mesh's first device
-    (where parameters and batch live), otherwise ``device``."""
-    _check_rules(rules)
-    if rules is not None:
+    (where parameters and batch live) or, on a world mesh, this rank's;
+    otherwise ``device``."""
+    _check_rules(rules, cfg)
+    if _world(rules):
+        device = rules.mesh.device
+    elif rules is not None:
         device = rules.mesh.devices.flat[0]
     return check_device(device)
+
+
+def _tp(rules) -> tuple:
+    """``(group, n, i)`` of this rank's ``tp`` line on a world mesh (the
+    group ``None`` where ``tp`` is 1); ``(None, 1, 0)`` elsewhere."""
+    if not _world(rules):
+        return None, 1, 0
+    mesh = rules.mesh
+    return mesh.group("tp"), mesh.axis_size("tp"), mesh.index("tp")
 
 
 def forward_and_aux(params: dict, tokens: torch.Tensor, cfg: BurnInConfig,
@@ -305,22 +428,26 @@ def forward_and_aux(params: dict, tokens: torch.Tensor, cfg: BurnInConfig,
     rules, and through :func:`dense_reference_attention` otherwise; GQA
     repeats K/V to the query heads first, as the reference does, so
     autograd sums dK/dV over each group. ``cfg.remat`` recomputes each
-    block in the backward."""
-    _check_rules(rules)
-    sharded = None if rules is None else {
+    block in the backward. On a world mesh each rank runs its heads and
+    FFN columns (module docstring) and returns the full logits of its
+    batch rows."""
+    _check_rules(rules, cfg)
+    sharded = None if rules is None or _world(rules) else {
         "ring": ring_self_attention,
         "ulysses": ulysses_self_attention}.get(cfg.attn)
+    group, n_tp, i_tp = _tp(rules)
     b, s = tokens.shape
     scale = 1.0 / (cfg.head_dim ** 0.5)
     rep = cfg.n_heads // cfg.kv_heads
+    heads, kv_heads = cfg.n_heads // n_tp, cfg.kv_heads // n_tp
     mask = (MaskSpec("window", cfg.flash_window)
             if cfg.flash_window is not None else None)
 
     def block(x, layer):
-        h = _rmsnorm(x, layer["attn_norm"])
-        q = (h @ layer["wq"]).view(b, s, cfg.n_heads, cfg.head_dim)
-        k = (h @ layer["wk"]).view(b, s, cfg.kv_heads, cfg.head_dim)
-        v = (h @ layer["wv"]).view(b, s, cfg.kv_heads, cfg.head_dim)
+        h = enter_parallel(_rmsnorm(x, layer["attn_norm"]), group)
+        q = (h @ layer["wq"]).view(b, s, heads, cfg.head_dim)
+        k = (h @ layer["wk"]).view(b, s, kv_heads, cfg.head_dim)
+        v = (h @ layer["wv"]).view(b, s, kv_heads, cfg.head_dim)
         if cfg.rope:
             pos = torch.arange(s, device=x.device)
             q = apply_rope(q, pos, cfg.rope_theta)
@@ -339,15 +466,17 @@ def forward_and_aux(params: dict, tokens: torch.Tensor, cfg: BurnInConfig,
             attn = dense_reference_attention(q, k, v, causal=True,
                                              scale=scale,
                                              window=cfg.flash_window)
-        x = x + attn.reshape(b, s, cfg.d_model) @ layer["wo"]
+        x = x + exit_parallel(
+            attn.reshape(b, s, heads * cfg.head_dim) @ layer["wo"], group)
         h = _rmsnorm(x, layer["mlp_norm"])
         if cfg.n_experts > 0:
             out, layer_aux = moe_layer(h, layer["moe"], cfg, rules)
             return x + out, layer_aux
-        return x + mlp(h, layer, cfg.dtype), None
+        return x + exit_parallel(
+            mlp(enter_parallel(h, group), layer, cfg.dtype), group), None
 
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    x = params["embed"][tokens]
+    x = gather_last(params["embed"][tokens], group, n_tp, i_tp)
     for layer in params["layers"]:
         if cfg.remat:
             x, layer_aux = checkpoint(block, x, layer, use_reentrant=False)
@@ -356,7 +485,9 @@ def forward_and_aux(params: dict, tokens: torch.Tensor, cfg: BurnInConfig,
         if layer_aux is not None:
             aux = aux + layer_aux
     x = _rmsnorm(x, params["out_norm"])
-    logits = x @ params["embed"].T                    # weight-tied head
+    if group is not None:        # this rank's d_model columns of the head
+        x = enter_parallel(x, group).chunk(n_tp, dim=-1)[i_tp]
+    logits = exit_parallel(x @ params["embed"].T, group)   # weight-tied
     return logits, aux
 
 
@@ -396,14 +527,16 @@ def synthetic_batch(generator: torch.Generator, cfg: BurnInConfig,
     """Deterministic synthetic LM batch ``(tokens, targets)``, each
     ``[batch, seq_len]`` int64: the next token of a random stream drawn
     from ``generator`` (on ``device``; with ``rules``, on the mesh's first
-    device). Its numbers differ from the reference's ``jax.random``
-    ones."""
-    dev = _device(device, rules)
+    device, or on a world mesh this rank's rows of the same global draw,
+    :func:`shard_batch`). Its numbers differ from the reference's
+    ``jax.random`` ones."""
+    dev = _device(device, rules, cfg)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, batch on {dev}")
     stream = torch.randint(0, cfg.vocab, (cfg.batch, cfg.seq_len + 1),
                            generator=generator, device=dev)
-    return stream[:, :-1], stream[:, 1:]
+    batch = stream[:, :-1], stream[:, 1:]
+    return shard_batch(batch, rules) if _world(rules) else batch
 
 
 def _value_and_grad(cfg: BurnInConfig, rules=None) -> Callable:
@@ -455,21 +588,41 @@ def make_grads_fn(cfg: BurnInConfig, rules=None,
                   accum_steps: int = 1) -> Callable:
     """``(params, batch) → (loss, grads)`` — the gradient pass both train
     steps (SGD here, AdamW in ``models/optimizer.py``) share, with optional
-    microbatch accumulation."""
-    _check_rules(rules)
+    microbatch accumulation. On a world mesh with more than one data rank
+    the loss and the gradients are then all-reduced and averaged in f32
+    over the data axes (one flat buffer); they come back f32."""
+    _check_rules(rules, cfg)
     vg = _value_and_grad(cfg, rules)
-    return vg if accum_steps == 1 else grad_accum(vg, accum_steps)
+    fn = vg if accum_steps == 1 else grad_accum(vg, accum_steps)
+    group = rules.mesh.group(rules.data) if _world(rules) else None
+    if group is None:
+        return fn
+    inv = 1.0 / rules.mesh.axis_size(rules.data)
+
+    def data_mean(params, batch):
+        loss, grads = fn(params, batch)
+        leaves = tree_leaves(grads)
+        flat = torch.cat([g.float().reshape(-1) for g in leaves]
+                         + [loss.float().reshape(1)])
+        dist.all_reduce(flat, group=group)
+        flat = flat * inv
+        parts = flat[:-1].split([g.numel() for g in leaves])
+        return flat[-1], _tree_unflatten(
+            grads, [p.view(g.shape) for p, g in zip(parts, leaves)])
+
+    return data_mean
 
 
 def make_train_step(cfg: BurnInConfig, rules=None, lr: float = 1e-3,
                     accum_steps: int = 1, *, device="cuda") -> Callable:
     """SGD train step ``step(params, batch) → (params, loss)`` on
     ``device`` (with ``rules``: the mesh's first device, the attention
-    sharded over its ``sp`` axis): ``p − lr·g.to(p.dtype)`` for every leaf,
-    into new tensors. ``accum_steps > 1`` runs the batch as that many
-    microbatches through :func:`grad_accum`; it composes with
-    ``cfg.remat``."""
-    dev = _device(device, rules)
+    sharded over its ``sp`` axis; on a world mesh, this rank's card, with
+    this rank's parameter shards and batch rows, the loss the world's
+    mean): ``p − lr·g.to(p.dtype)`` for every leaf, into new tensors.
+    ``accum_steps > 1`` runs the batch as that many microbatches through
+    :func:`grad_accum`; it composes with ``cfg.remat``."""
+    dev = _device(device, rules, cfg)
     grads_of = make_grads_fn(cfg, rules, accum_steps)
 
     def step(params, batch):
@@ -594,7 +747,7 @@ def instrument_step(step: Callable, cfg: BurnInConfig, telemetry=None, *,
     mfu_g = reg.gauge("train_mfu")
     flops = train_step_flops(cfg)
     tokens = cfg.batch * cfg.seq_len
-    n_dev = (1 if rules is None
+    n_dev = (1 if rules is None else rules.mesh.size if _world(rules)
              else len({str(d) for d in rules.mesh.devices.flat}))
     peak = device_spec(device_kind(dev)).bf16_tflops * 1e12 * n_dev
 

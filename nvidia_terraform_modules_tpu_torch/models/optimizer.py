@@ -8,8 +8,9 @@ and :func:`make_adamw_train_step`.
 The state mirrors the params dict: ``{"step", "mu", "nu"}`` with an int32
 step counter and f32 moments of the params' shapes (f32 even for bf16
 params). Updates are functional: new tensors, the caller's left as they
-are. The ZeRO-1 moment shardings and ``abstract_train_state`` wait for the
-sharded layer (ROADMAP.md, Queue A item 6).
+are. The ZeRO-1 moment shardings and ``abstract_train_state`` are not
+ported (ROADMAP.md, Queue A item 6): the SGD step shards over dp and tp,
+this one does not.
 """
 
 from __future__ import annotations
@@ -111,7 +112,8 @@ def make_adamw_train_step(cfg: BurnInConfig, rules=None,
     if rules is not None:
         raise NotImplementedError(
             "the sharded AdamW step (rules=, ZeRO-1 moments over dp) is not "
-            "ported yet — ROADMAP.md, Queue A item 6: parallel/")
+            "ported yet — ROADMAP.md, Queue A item 6: ZeRO-1 AdamW (the "
+            "SGD step shards over dp and tp)")
     dev = check_device(device)
     opt = opt or AdamWConfig()
     grads_of = make_grads_fn(cfg, rules, accum_steps)

@@ -142,7 +142,8 @@ _ENGINE_LATER = {
     "aot_cache": (None, f"{_FLEET}: warm compile cache"),
 }
 _RUN_LATER = {
-    "rules": (None, "Queue A item 6 (parallel beyond sp)"),
+    "rules": (None, "Queue A item 6 (rules= on the decode and serve "
+                    "entry points)"),
     "admission": (None, f"{_FLEET}: the AdmissionSource seam"),
 }
 

@@ -18,7 +18,9 @@ reference's two-point helpers (the probes' and the train step's flash
 probe's method): ``delta_time`` times a chain of ``iters_lo`` and one of
 ``iters_hi`` iterations and keeps the difference, which cancels the fixed
 cost of a call (launch, synchronise). They run wherever their function
-runs; the result names no device, so the caller states it.
+runs; the result names no device, so the caller states it. Their clock is
+:func:`timed` (host, synchronised) unless the caller passes
+:func:`event_timed` (CUDA events on the current stream).
 """
 
 from __future__ import annotations
@@ -52,20 +54,33 @@ def timed(fn: Callable[..., Any], *args: Any) -> tuple[Any, float]:
     return out, time.perf_counter() - t0
 
 
+def event_timed(fn: Callable[..., Any], *args: Any) -> tuple[Any, float]:
+    """:func:`timed` on CUDA events: ``(out, seconds)`` between events
+    recorded on the current stream before and after ``fn(*args)``."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(*args)
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end) / 1e3
+
+
 def median_time(fn: Callable[..., Any], *args: Any, iters: int = 5,
-                warmup: int = 2) -> float:
-    """Median wall-clock seconds of ``fn(*args)`` over ``iters`` timed
+                warmup: int = 2, clock: Callable = timed) -> float:
+    """Median seconds of ``fn(*args)`` on ``clock`` over ``iters`` timed
     runs, after ``warmup`` untimed ones (kernel builds, cuBLAS heuristics,
-    the allocator's first blocks). Includes the fixed synchronise cost —
+    the allocator's first blocks). Includes the fixed cost of a call —
     :func:`delta_time` cancels it."""
     for _ in range(warmup):
-        timed(fn, *args)
-    samples = sorted(timed(fn, *args)[1] for _ in range(iters))
+        clock(fn, *args)
+    samples = sorted(clock(fn, *args)[1] for _ in range(iters))
     return samples[len(samples) // 2]
 
 
 def delta_time(make_fn: Callable[[int], Callable[..., Any]], *args: Any,
-               iters_lo: int, iters_hi: int, samples: int = 3) -> float:
+               iters_lo: int, iters_hi: int, samples: int = 3,
+               clock: Callable | None = None) -> float:
     """Per-iteration seconds by the two-point method: ``make_fn(n)``
     returns a callable that runs ``n`` iterations of the work under test;
     the medians at ``iters_lo`` and ``iters_hi`` iterations are
@@ -77,8 +92,9 @@ def delta_time(make_fn: Callable[[int], Callable[..., Any]], *args: Any,
         raise ValueError(f"iters_hi ({iters_hi}) must exceed iters_lo "
                          f"({iters_lo})")
     fn_lo, fn_hi = make_fn(iters_lo), make_fn(iters_hi)
-    t_lo = median_time(fn_lo, *args, iters=samples)
-    t_hi = median_time(fn_hi, *args, iters=samples)
+    kw = {} if clock is None else {"clock": clock}    # median_time's own
+    t_lo = median_time(fn_lo, *args, iters=samples, **kw)
+    t_hi = median_time(fn_hi, *args, iters=samples, **kw)
     if t_hi <= t_lo:
         return t_hi / iters_hi
     return (t_hi - t_lo) / (iters_hi - iters_lo)
