@@ -261,6 +261,37 @@ def kernel_counts(prof, name: str) -> dict:
             and name in evt.key}
 
 
+def profiled(run, name: str, expect, what: str) -> tuple[dict, dict, list]:
+    """``run()`` under ``torch.profiler`` (CPU and CUDA; ending in a
+    synchronise): its :func:`profile_summary`, the launches of the device
+    kernels whose name holds ``name``, and the count of each attempt.
+    ``expect()`` of them must show; an empty trace leaves the check "not
+    measured". A trace short of them is taken once more: one MoE serve
+    profile on an H100 held 248 of its 496 replayed K7 records, where
+    another run of the same code held all 496 and the launch counts were
+    right, so the tracer can drop a block of records — a path that
+    skipped the kernel would fall short in both traces."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nvidia_terraform_modules_tpu_torch.utils.timing import sync
+
+    attempts = []
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            run()
+            sync()
+            wall_ms = (time.monotonic() - t0) * 1e3
+        summary = profile_summary(prof, wall_ms)
+        by_name = kernel_counts(prof, name)
+        attempts.append(sum(by_name.values()))
+        if summary["device_ms"] is None or attempts[-1] == expect():
+            return summary, by_name, attempts
+    raise AssertionError(f"{what}: {name} kernels {by_name} in each of two "
+                         f"profiles {attempts}, expected {expect()}")
+
+
 def max_rel_err(got, want, floor: float | None = 1.0) -> float:
     """Max over the leaves of two params-shaped trees of
     ``max|got - want| / max(floor, max|want|)`` (``floor=None``: purely
@@ -1902,7 +1933,6 @@ def serve_moe_flagship(dev, lens, max_len, dense: dict,
     and config (for ``decode_moe_flagship``), and the launch counts of the
     two runs."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from nvidia_terraform_modules_tpu_torch.models import (
         FLAGSHIP_TRAIN,
@@ -2058,23 +2088,17 @@ def serve_moe_flagship(dev, lens, max_len, dense: dict,
                          torch.equal(a, b) for a, b in zip(outs, solo))
                      / len(outs))
 
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.monotonic()
-            engine(prompts, N_NEW, slots=SLOTS)
-            sync()
-            prof_wall_ms = (time.monotonic() - t0) * 1e3
-        summary = profile_summary(prof, prof_wall_ms)
-        by_name = kernel_counts(prof, "int8_mm" if quant
-                                else "paged_decode_kernel")
-        expect = engine.last_stats["waves"] * (tally["int8_matmul"] if quant
-                                               else cfg.n_layers)
-        if summary["device_ms"] is not None \
-                and sum(by_name.values()) != expect:
-            raise AssertionError(f"serve_moe_flagship {name} profile: "
-                                 f"{by_name}, expected {expect}")
+        def expect():
+            return engine.last_stats["waves"] * (
+                tally["int8_matmul"] if quant else cfg.n_layers)
+
+        summary, by_name, attempts = profiled(
+            lambda: engine(prompts, N_NEW, slots=SLOTS),
+            "int8_mm" if quant else "paged_decode_kernel", expect,
+            f"serve_moe_flagship {name} profile")
         r["profile"] = {**summary, "by_name": by_name,
-                        "by_name_expected": expect}
+                        "by_name_expected": expect(),
+                        "by_name_attempts": attempts}
         rec[name] = r
         counts[name] = launches
         del engine
@@ -3050,6 +3074,15 @@ SMOKETEST_LEGS = ("psum_ok", "burnin_ok", "decode_ok", "serve_engine_ok",
                   "serve_sched_ok", "paged_decode_ok")
 # SGD steps from one set of weights for the sharded/unsharded comparison
 SHARDED_STEPS = 3
+# the flagship train state through the checkpoint engine: AdamW steps of
+# the exact-resume comparison (a save after half of them); timed saves
+# (snapshot and commit apart) and steps, alone and with an async save
+# after each
+CKPT_RESUME_STEPS, CKPT_SAVES, CKPT_STEPS = 4, 3, 3
+# where the checkpoint phases write: a fresh directory under the checkout
+# (git-ignored), removed at the end of each phase
+CKPT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_checkpoints")
 # launcher variables the smoke test's CLI must not inherit: it runs here
 # as a world of one over NCCL
 _WORLD_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
@@ -3067,14 +3100,13 @@ def _smoketest_verdict(checks: dict, where: str) -> None:
                              f"{checks.get('backend')}: {checks}")
 
 
-def smoketest_cli() -> dict:
-    """``python -m nvidia_terraform_modules_tpu_torch.smoketest`` as the
-    validation Job runs it, at ``burnin`` with one expected device: a
-    world of one over NCCL on this card. Its one JSON line must pass every
-    leg of ``SMOKETEST_LEGS``."""
+def _run_cli(**extra) -> tuple[dict, float]:
+    """``python -m nvidia_terraform_modules_tpu_torch.smoketest`` at
+    ``burnin`` with one expected device (a world of one over NCCL on this
+    card) and ``extra`` variables: its one JSON line and wall seconds."""
     env = {k: v for k, v in os.environ.items() if k not in _WORLD_VARS}
     env.update(TPU_SMOKETEST_LEVEL="burnin",
-               TPU_SMOKETEST_EXPECTED_DEVICES="1")
+               TPU_SMOKETEST_EXPECTED_DEVICES="1", **extra)
     t0 = time.monotonic()
     out = subprocess.run(
         [sys.executable, "-m", "nvidia_terraform_modules_tpu_torch.smoketest"],
@@ -3086,7 +3118,15 @@ def smoketest_cli() -> dict:
         raise AssertionError(f"smoketest CLI exited {out.returncode} with "
                              f"{len(lines)} JSON lines: {out.stdout[-3000:]}"
                              f"{out.stderr[-3000:]}")
-    checks = json.loads(lines[0])
+    return json.loads(lines[0]), wall_s
+
+
+def smoketest_cli() -> dict:
+    """``python -m nvidia_terraform_modules_tpu_torch.smoketest`` as the
+    validation Job runs it, at ``burnin`` with one expected device: a
+    world of one over NCCL on this card. Its one JSON line must pass every
+    leg of ``SMOKETEST_LEGS``."""
+    checks, wall_s = _run_cli()
     _smoketest_verdict(checks, "smoketest_cli")
     return dict(wall_s=wall_s, seconds=checks["seconds"],
                 backend=checks["backend"], device_kind=checks["device_kind"],
@@ -3096,6 +3136,77 @@ def smoketest_cli() -> dict:
                 not_ported=sorted(checks["not_ported"]),
                 burnin_loss=[checks["burnin_first_loss"],
                              checks["burnin_last_loss"]])
+
+
+def smoketest_cli_checkpoint(root: str) -> dict:
+    """The CLI at ``burnin`` with ``TPU_SMOKETEST_CHECKPOINT_DIR`` set to
+    a fresh directory under ``root``, three times, as a spot pool's Job
+    meets it:
+
+    1. fresh: every leg passes, 5 steps saved, the directory cleared (no
+       step left in it);
+    2. step 3 of the runner's own config planted on the card with the
+       port's ``save_checkpoint`` (a preempted pod's leftover): the run
+       resumes at 3 and ends at step 8;
+    3. the same step planted with its shard file truncated: the run
+       passes, counts one quarantined step and starts fresh.
+
+    Returns each run's wall time, leg seconds and leg launches (K7 in
+    ``paged_decode``)."""
+    import shutil
+
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        BurnInConfig,
+        init_params,
+        latest_step,
+        save_checkpoint,
+    )
+
+    d = os.path.join(root, "smoketest")
+    shutil.rmtree(d, ignore_errors=True)
+
+    def plant():
+        # the runner's config in a world of one: batch max(8, 2 · 1)
+        cfg = BurnInConfig(batch=8)
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            0), device="cuda")
+        save_checkpoint(d, 3, params)
+
+    def truncate():
+        step = os.path.join(d, "step_00000003")
+        (shard,) = [os.path.join(step, f) for f in os.listdir(step)
+                    if f.endswith(".bin")]
+        with open(shard, "r+b") as fh:
+            fh.truncate(16)
+
+    runs = {}
+    for name, prepare, want in (
+            ("fresh", None, dict(burnin_step=5, burnin_checkpoint_saved=5)),
+            ("resume", plant, dict(burnin_resumed_step=3, burnin_step=8,
+                                   burnin_checkpoint_saved=8)),
+            ("quarantine", lambda: (plant(), truncate()),
+             dict(checkpoint_quarantined=1, burnin_step=5,
+                  burnin_checkpoint_saved=5))):
+        if prepare is not None:
+            prepare()
+        checks, wall_s = _run_cli(TPU_SMOKETEST_CHECKPOINT_DIR=d)
+        _smoketest_verdict(checks, f"smoketest_cli_checkpoint {name}")
+        got = {k: checks.get(k) for k in want}
+        if got != want or not checks.get("burnin_checkpoint_cleared", 0) \
+                >= 1 or latest_step(d) is not None or (
+                    name != "resume" and "burnin_resumed_step" in checks):
+            raise AssertionError(f"smoketest_cli_checkpoint {name}: {got}, "
+                                 f"want {want}; cleared "
+                                 f"{checks.get('burnin_checkpoint_cleared')},"
+                                 f" left {latest_step(d)}: {checks}")
+        runs[name] = dict(wall_s=wall_s, seconds=checks["seconds"],
+                          leg_seconds=checks["leg_seconds"],
+                          leg_launches=checks["leg_launches"],
+                          cleared=checks["burnin_checkpoint_cleared"], **got)
+    shutil.rmtree(d)
+    return runs
 
 
 def smoketest_inproc() -> tuple[dict, dict]:
@@ -3260,6 +3371,205 @@ def train_sharded_flagship(params, dev) -> tuple[dict, dict]:
                sharded=rec_s, unsharded=rec_u,
                sharded_over_unsharded=rec_s["step_ms"] / rec_u["step_ms"])
     return rec, launches
+
+
+def _host_free_bytes() -> int:
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise AssertionError("no MemAvailable in /proc/meminfo")
+
+
+def _bits_equal(a, b) -> bool:
+    """Same dtype, shape and bits (bf16 compared as int16)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return torch.equal(a, b)
+
+
+def train_checkpoint_flagship(params, dev, root: str) -> tuple[dict, dict]:
+    """The flagship AdamW train state (bf16 parameters, f32 moments, the
+    int32 step) at world 1 through ``Checkpointer`` in a fresh directory
+    under ``root``, removed at the end. First the directory's free space
+    and the host's free RAM; the phase fails if the disk cannot hold two
+    saves (one committed, one in flight).
+
+    - Exact resume, with the split backward (K3 + K4: K5's dQ atomics
+      vary bits between runs): CKPT_RESUME_STEPS uninterrupted steps
+      against half of them, a save, ``close()``, a fresh ``Checkpointer``
+      and ``restore_tree(abstract_train_state(cfg))`` into new tensors,
+      then the other half. The restored state equals the saved one, and
+      the final parameters, moments and step the uninterrupted run's, bit
+      for bit.
+    - Cost, with the fused step (K1 + K5): the step alone (median of
+      CKPT_STEPS), then CKPT_SAVES async saves, each timed apart — the
+      synchronous snapshot (what the loop waits for) and its commit
+      (write, crc32 beside the writes, fsync, rename) — a restore onto the
+      card, and CKPT_STEPS steps with an async save after each (the
+      checkpointed step, which waits for the previous commit). Bytes per
+      second beside each; the snapshot's median leaves out the first save,
+      which allocates the pinned staging buffers.
+    Returns the record and the launch counts of the checkpointed steps
+    (K1, K5) and of the exact-resume run (K1, K3, K4)."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        AdamWConfig,
+        Checkpointer,
+        abstract_train_state,
+        make_adamw_train_step,
+        tree_leaves,
+    )
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+    from nvidia_terraform_modules_tpu_torch.utils.timing import sync
+
+    cfg, batch = _flagship_train(dev)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in tree_leaves(params))
+    state_bytes = param_bytes + 2 * 4 * n_params + 4
+    d = os.path.join(root, "flagship")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    free_disk = shutil.disk_usage(d).free
+    free_ram = _host_free_bytes()
+    if free_disk < 2 * state_bytes:
+        raise AssertionError(
+            f"train_checkpoint_flagship: {d} has {free_disk} bytes free, "
+            f"two saves of the flagship state need {2 * state_bytes}")
+    rec = dict(n_params=n_params, param_bytes=param_bytes,
+               state_bytes=state_bytes, directory=d, disk_free=free_disk,
+               host_ram_free=free_ram)
+    opt = AdamWConfig(lr=1e-3)
+
+    def run(step, p, s, n):
+        for _ in range(n):
+            p, s, loss = step(p, s, batch)
+        sync()
+        return p, s, loss
+
+    def leaves(p, s):
+        return tree_leaves([p, s["mu"], s["nu"]]) + [s["step"]]
+
+    # -------- exact resume (split backward)
+    split = dataclasses.replace(cfg, flash_backward="split")
+    init_state, step = make_adamw_train_step(split, opt=opt, device=dev)
+    half = CKPT_RESUME_STEPS // 2
+    _build.reset_launches()
+    ref_p, ref_s, ref_loss = run(step, params, init_state(params),
+                                 CKPT_RESUME_STEPS)
+    p, s, _ = run(step, params, init_state(params), half)
+    with Checkpointer(d, max_to_keep=1) as ck:
+        ck.save(half, {"params": p, "opt": s})
+    with Checkpointer(d) as ck:
+        tree, at, _ = ck.restore_tree(abstract_train_state(cfg, device=dev))
+    restored_equal = at == half and all(
+        _bits_equal(a, b) for a, b in zip(leaves(p, s),
+                                          leaves(tree["params"],
+                                                 tree["opt"])))
+    del p, s
+    p, s, loss = run(step, tree["params"], tree["opt"],
+                     CKPT_RESUME_STEPS - half)
+    del tree
+    resume_launches = {k: c for k, c in _build.launches.items() if c}
+    final_equal = torch.equal(loss, ref_loss) and all(
+        _bits_equal(a, b) for a, b in zip(leaves(p, s), leaves(ref_p, ref_s)))
+    if not (restored_equal and final_equal):
+        raise AssertionError(
+            f"train_checkpoint_flagship: restored = saved {restored_equal}, "
+            f"resumed = uninterrupted {final_equal} (loss {loss.item()} vs "
+            f"{ref_loss.item()})")
+    rec.update(resume_steps=CKPT_RESUME_STEPS, saved_at=half,
+               restored_bitwise=restored_equal, final_bitwise=final_equal,
+               resume_loss=loss.item(), resume_launches=resume_launches)
+    del p, s, ref_p, ref_s
+    shutil.rmtree(d)
+    torch.cuda.empty_cache()
+
+    # -------- cost (fused backward)
+    init_state, step = make_adamw_train_step(cfg, opt=opt, device=dev)
+    p, s, _ = run(step, params, init_state(params), WARM_STEPS)
+    step_ms = []
+    for _ in range(CKPT_STEPS):
+        t0 = time.monotonic()
+        p, s, _ = run(step, p, s, 1)
+        step_ms.append((time.monotonic() - t0) * 1e3)
+    snapshot_ms, commits = [], []
+    with Checkpointer(d, max_to_keep=1, async_save=True) as ck:
+        for i in range(CKPT_SAVES):
+            ck.flush()
+            t0 = time.monotonic()
+            ck.save(i + 1, {"params": p, "opt": s})
+            snapshot_ms.append((time.monotonic() - t0) * 1e3)
+            ck.flush()
+            commits.append(ck.last_commit)
+        t0 = time.monotonic()
+        tree, _, _ = ck.restore_tree(abstract_train_state(cfg, device=dev))
+        sync()
+        restore_s = time.monotonic() - t0
+        del tree
+        _build.reset_launches()
+        ckpt_ms, stall_ms = [], []
+        for i in range(CKPT_STEPS):
+            t0 = time.monotonic()
+            p, s, loss = run(step, p, s, 1)
+            t1 = time.monotonic()
+            ck.save(CKPT_SAVES + i + 1, {"params": p, "opt": s})
+            t2 = time.monotonic()
+            ckpt_ms.append((t2 - t0) * 1e3)
+            stall_ms.append((t2 - t1) * 1e3)
+        launches = {k: c for k, c in _build.launches.items() if c}
+        t0 = time.monotonic()
+        ck.flush()
+        drain_s = time.monotonic() - t0
+    shutil.rmtree(d)
+    del p, s
+    torch.cuda.empty_cache()
+
+    def med(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    def per_s(seconds):
+        return state_bytes / max(seconds, 1e-12)
+
+    commit = {key: med([c[key] for c in commits])
+              for key in ("commit_s", "write_s", "crc_s", "fsync_s")}
+    if any(c["bytes"] != commits[0]["bytes"] for c in commits) or \
+            commits[0]["bytes"] + 4 < state_bytes:
+        raise AssertionError(f"commits wrote {[c['bytes'] for c in commits]}"
+                             f" bytes of a {state_bytes}-byte state")
+    step_med, ckpt_med = med(step_ms), med(ckpt_ms)
+    rec.update(
+        step_ms=step_med, step_ms_range=[min(step_ms), max(step_ms)],
+        snapshot_ms=med(snapshot_ms[1:]), snapshot_first_ms=snapshot_ms[0],
+        snapshot_bytes_per_s=per_s(med(snapshot_ms[1:]) / 1e3),
+        commit_s=commit["commit_s"],
+        commit_bytes_per_s=per_s(commit["commit_s"]),
+        write_s=commit["write_s"], write_bytes_per_s=per_s(commit["write_s"]),
+        crc32_s=commit["crc_s"], crc32_bytes_per_s=per_s(commit["crc_s"]),
+        fsync_s=commit["fsync_s"],
+        restore_s=restore_s, restore_bytes_per_s=per_s(restore_s),
+        checkpointed_step_ms=ckpt_med,
+        checkpointed_step_ms_range=[min(ckpt_ms), max(ckpt_ms)],
+        save_call_ms=med(stall_ms), drain_s=drain_s,
+        checkpointed_over_plain=ckpt_med / step_med,
+        checkpointed_bytes_per_s=per_s(ckpt_med / 1e3),
+        launches=launches)
+    expect = {"flash_fwd": cfg.n_layers * CKPT_STEPS,
+              "flash_bwd_fused": cfg.n_layers * CKPT_STEPS}
+    if launches != expect:
+        raise AssertionError(f"checkpointed steps launched {launches}, "
+                             f"expected {expect}")
+    return rec, {**launches, **{k: c for k, c in resume_launches.items()
+                                if k in ("flash_dq", "flash_dkv")}}
 
 
 def flagship_lengths() -> list[int]:
@@ -3667,28 +3977,18 @@ def main() -> int:
 
     # ----------------------------------------------------- serve_profile
     # where the serve time goes: the same run again under torch.profiler,
-    # device time summed by kernel against the run's own wall clock
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        engine(prompts, N_NEW, slots=SLOTS)
-        sync()
-        prof_wall_ms = (time.monotonic() - t0) * 1e3
-    summary = profile_summary(prof, prof_wall_ms)
+    # device time summed by kernel against the run's own wall clock;
+    # K7 by name: one kernel a layer a wave, replayed from the graph
+    summary, k7_kernels, attempts = profiled(
+        lambda: engine(prompts, N_NEW, slots=SLOTS), "paged_decode_kernel",
+        lambda: engine.last_stats["waves"] * cfg.n_layers, "serve_profile")
     device_ms = summary["device_ms"]
-    # K7 by name: one kernel a layer a wave, replayed from the graph (an
-    # empty trace leaves it "not measured")
-    k7_kernels = kernel_counts(prof, "paged_decode_kernel")
-    k7_want = engine.last_stats["waves"] * cfg.n_layers
-    if device_ms is not None and sum(k7_kernels.values()) != k7_want:
-        raise AssertionError(f"serve_profile: K7 kernels {k7_kernels}, "
-                             f"expected one a layer a wave ({k7_want})")
     emit("serve_profile", **summary,
          busy_share_of_unprofiled_wall=(device_ms / (wall_s * 1e3)
                                         if device_ms is not None else None),
-         paged_decode_kernels=k7_kernels, paged_decode_expected=k7_want)
+         paged_decode_kernels=k7_kernels,
+         paged_decode_expected=engine.last_stats["waves"] * cfg.n_layers,
+         paged_decode_attempts=attempts)
     emit("serve_telemetry", **serve_telemetry(engine, params, cfg, dev,
                                               prompts, max_len, outs))
     del engine, poolw, pool1, graphw
@@ -3776,25 +4076,17 @@ def main() -> int:
          latency_ms=st8["latency_ms"], kv=st8["kv"],
          max_memory_allocated=peak8)
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        engine8(prompts, N_NEW, slots=SLOTS)
-        sync()
-        prof_wall_ms = (time.monotonic() - t0) * 1e3
-    summary = profile_summary(prof, prof_wall_ms)
+    # K8's kernels by name: one launch a product
+    summary, k8_kernels, attempts = profiled(
+        lambda: engine8(prompts, N_NEW, slots=SLOTS), "int8_mm",
+        lambda: engine8.last_stats["waves"] * per_wave, "serve_int8_profile")
     device_ms = summary["device_ms"]
-    # K8's kernels by name: one launch a product when the trace saw the
-    # device (an empty trace leaves it "not measured")
-    k8_kernels = kernel_counts(prof, "int8_mm")
-    products = engine8.last_stats["waves"] * per_wave
-    if device_ms is not None and sum(k8_kernels.values()) != products:
-        raise AssertionError(f"serve_int8_profile: K8 kernels {k8_kernels}"
-                             f", expected one a product ({products})")
     emit("serve_int8_profile", **summary,
          busy_share_of_unprofiled_wall=(device_ms / (wall8_s * 1e3)
                                         if device_ms is not None else None),
-         int8_matmul_kernels=k8_kernels, int8_products=products)
+         int8_matmul_kernels=k8_kernels,
+         int8_products=engine8.last_stats["waves"] * per_wave,
+         int8_matmul_attempts=attempts)
     del engine8, poolw8, qparams, graphw8
     torch.cuda.empty_cache()
 
@@ -3856,6 +4148,23 @@ def main() -> int:
     sh_rec, sh_launches = train_sharded_flagship(params, dev)
     emit("train_sharded_flagship", **sh_rec)
 
+    # ---------------------------------------------- the durable train state
+    # the CLI with a checkpoint directory (fresh, resumed, quarantined),
+    # then the flagship AdamW state through the checkpoint engine
+    import shutil
+
+    os.makedirs(CKPT_ROOT, exist_ok=True)
+    try:
+        cli_ck = smoketest_cli_checkpoint(CKPT_ROOT)
+        emit("smoketest_cli_checkpoint", **cli_ck)
+        ck_rec, ck_launches = train_checkpoint_flagship(params, dev,
+                                                        CKPT_ROOT)
+        emit("train_checkpoint_flagship", **ck_rec)
+    finally:
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    k7_cli_ck = sum(run["leg_launches"].get("paged_decode", {}).get(
+        "paged_decode", 0) for run in cli_ck.values())
+
     # --------------------------------------------------------- summary
     n_k1 = sum(c for c, _ in k1_main)
 
@@ -3876,6 +4185,8 @@ def main() -> int:
                  "int8_launches": moe_launches["int8"]["flash_fwd"]},
          # the sharded SGD step's timed run (a world of one, NCCL)
          "sharded": {"launches": sh_launches["flash_fwd"]},
+         # the flagship AdamW steps with an async save after each
+         "checkpoint": {"launches": ck_launches["flash_fwd"]},
          # the serve prompts' mean rate, and K1 at the train step's shape
          "tflops": k1_mean("tflops"), "bound_share": k1_mean("bound_share"),
          "tiling": FWD_TILING,
@@ -3894,7 +4205,9 @@ def main() -> int:
          "moe": {"launches": moe_launches["bf16"]["paged_decode"]},
          # the in-process smoke test (serve legs; paged_decode's "on")
          "smoketest": {"launches": st_launches["paged_decode"],
-                       "paged_decode_leg": st_rec["paged_decode_k7"]}},
+                       "paged_decode_leg": st_rec["paged_decode_k7"]},
+         # the three checkpointed CLI runs' paged_decode legs
+         "checkpoint_cli": {"launches": k7_cli_ck}},
         {"name": "paged_decode_int8", "route": "cuda",
          "source": "nvidia_terraform_modules_tpu_torch/csrc/paged_decode.cu",
          "replaces":
@@ -3951,6 +4264,9 @@ def main() -> int:
                          else rec["split_step_launches"][name]),
             **({"sharded": {"launches": sh_launches[name]}}
                if name == "flash_bwd_fused" else {}),
+            # K5: the checkpointed AdamW steps; K3 and K4: the
+            # exact-resume comparison (split backward)
+            "checkpoint": {"launches": ck_launches[name]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

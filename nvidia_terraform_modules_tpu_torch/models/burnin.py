@@ -6,7 +6,9 @@ dict layout), the inference-only :func:`forward` (the decode oracle), and
 the training side — the differentiable :func:`forward_and_aux`,
 :func:`loss_fn`, :func:`synthetic_batch`, :func:`grad_accum` /
 :func:`make_grads_fn`, the SGD :func:`make_train_step` and
-:func:`train_step_flops` (AdamW is in ``models/optimizer.py``) — and the
+:func:`train_step_flops` (AdamW is in ``models/optimizer.py``), the
+parameters' shapes and placement without tensors (:func:`param_shapes`,
+:func:`abstract_params`) — and the
 telemetry wrapper :func:`instrument_step` with its one-shot flash probe.
 
 Parameters are a plain dict of tensors: ``embed [vocab, d]``, ``out_norm``
@@ -71,7 +73,7 @@ from ..ops.ring_attention import dense_reference_attention, ring_self_attention
 from ..ops.ulysses_attention import ulysses_self_attention
 from ..parallel.collectives import enter_parallel, exit_parallel, gather_last
 from ..parallel.mesh import WorldMesh
-from ..parallel.sharding import gather_shards, local_shard
+from ..parallel.sharding import ShapeDtypeStruct, gather_shards, local_shard
 from ..utils.layers import dense_init
 from ..utils.layers import rmsnorm as _rmsnorm
 from .moe import init_moe_params, moe_layer
@@ -251,6 +253,46 @@ def init_params(cfg: BurnInConfig, generator: torch.Generator | None = None,
     if _world(rules):
         params = shard_params(params, rules)
     return params
+
+
+def param_shapes(cfg: BurnInConfig) -> dict:
+    """The global ``(shape, dtype)`` of every leaf of :func:`init_params`,
+    in its layout, with nothing allocated (the router is f32, as
+    ``models/moe.py`` keeps it)."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    kv_dim = cfg.kv_heads * cfg.head_dim
+
+    def w(*shape, dtype=cfg.dtype):
+        return tuple(shape), dtype
+
+    def layer():
+        out = {"attn_norm": w(d), "wq": w(d, d), "wk": w(d, kv_dim),
+               "wv": w(d, kv_dim), "wo": w(d, d), "mlp_norm": w(d)}
+        if e > 0:
+            out["moe"] = {"router": w(d, e, dtype=torch.float32),
+                          "experts_up": w(e, d, f),
+                          "experts_down": w(e, f, d)}
+        else:
+            out.update(up=w(d, f), down=w(f, d))
+        return out
+
+    return {"embed": w(cfg.vocab, d), "out_norm": w(d),
+            "layers": [layer() for _ in range(cfg.n_layers)]}
+
+
+def abstract_params(cfg: BurnInConfig, rules=None, *,
+                    device="cuda") -> dict:
+    """A :class:`..parallel.sharding.ShapeDtypeStruct` for every leaf of
+    :func:`init_params` (with ``rules``, the same placement): the global
+    shape and dtype, and on a world mesh this rank's piece under the
+    leaf's spec. Nothing is allocated."""
+    dev = _device(device, rules, cfg)
+    mesh = rules.mesh if _world(rules) else None
+    return _tree_map_path(
+        lambda path, sd: ShapeDtypeStruct(
+            sd[0], sd[1], dev,
+            rules.param_sharding(path) if mesh is not None else (), mesh),
+        param_shapes(cfg))
 
 
 def _tree_map_path(fn: Callable, tree, path: tuple = ()):

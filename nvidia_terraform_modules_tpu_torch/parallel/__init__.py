@@ -40,7 +40,7 @@ from .multislice import (
     plan_elastic_multislice,
     plan_multislice,
 )
-from .sharding import ShardingRules, local_shard, make_rules
+from .sharding import ShapeDtypeStruct, ShardingRules, local_shard, make_rules
 
 __all__ = [
     "ALL_PROBES",
@@ -48,6 +48,7 @@ __all__ = [
     "JobEnv",
     "Mesh",
     "MeshPlan",
+    "ShapeDtypeStruct",
     "ShardingRules",
     "WorldMesh",
     "all_gather_probe",

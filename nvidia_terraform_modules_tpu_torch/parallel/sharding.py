@@ -11,6 +11,9 @@ D]`` tensors into per-device shards; the data- and tensor-parallel train
 step (``models/burnin.py``) reads the parameter specs, by each leaf's
 path (:meth:`ShardingRules.param_sharding`), and :func:`local_shard` cuts
 a global tensor into this rank's piece of a :class:`WorldMesh`.
+:class:`ShapeDtypeStruct` describes a leaf without holding it: its global
+shape and dtype, and where this rank's piece lives (the checkpoint
+engine's placement contract).
 """
 
 from __future__ import annotations
@@ -107,6 +110,34 @@ def _pieces(spec: tuple, mesh: WorldMesh, ndim: int) -> list[tuple]:
         axes = tuple(a for a in spec_axes(entry) if a in mesh.axis_names)
         out.append((axes, mesh.axis_size(axes), mesh.index(axes)))
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeDtypeStruct:
+    """A leaf's global ``shape`` and ``dtype``, and where this rank holds
+    it: on ``device``, its piece under ``spec`` over a :class:`WorldMesh`
+    (the bounds :func:`local_shard` cuts), or the whole leaf when ``mesh``
+    is ``None``. The counterpart of ``jax.ShapeDtypeStruct(...,
+    sharding=)``; it allocates nothing."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+    device: torch.device
+    spec: tuple = ()
+    mesh: WorldMesh | None = None
+
+    def bounds(self) -> list[list[int]]:
+        """This rank's ``[start, stop]`` in each dimension of the leaf."""
+        if self.mesh is None:
+            return [[0, d] for d in self.shape]
+        out = []
+        for d, (_, n, i) in zip(self.shape, _pieces(self.spec, self.mesh,
+                                                     len(self.shape))):
+            if d % n:
+                raise ValueError(f"dimension {d} of {self.shape} does not "
+                                 f"split {n} ways")
+            out.append([i * d // n, (i + 1) * d // n])
+        return out
 
 
 def local_shard(x: torch.Tensor, spec: tuple,

@@ -12,7 +12,13 @@ and, at deeper levels,
 3. the collective probes on every mesh axis pass and report bandwidth;
 4. a few steps of the sharded burn-in transformer lower the loss, and the
    serve shapes (greedy decode, the paged engine, its scheduler levers,
-   the paged decode kernel) are exact on the same pool.
+   the paged decode kernel) are exact on the same pool. With
+   ``TPU_SMOKETEST_CHECKPOINT_DIR`` (a spot pool's volume) the steps
+   resume from the newest valid checkpoint and run supervised
+   (``models/resilience.py``): a durable checkpoint each step, the SIGTERM
+   drain with an emergency checkpoint inside
+   ``TPU_SMOKETEST_GRACE_SECONDS``, heartbeats; a corrupt step is
+   quarantined and counted; a run that passes clears the directory.
 
 Output is ONE JSON line a host (its local rank 0 prints it:
 ``__main__.py``); exit 0 iff every check passed. Each rank runs on its
@@ -36,6 +42,9 @@ import torch.distributed as dist
 
 from ..models import (
     BurnInConfig,
+    CheckpointError,
+    Checkpointer,
+    SupervisedLoop,
     forward,
     gather_params,
     greedy_decode,
@@ -43,8 +52,10 @@ from ..models import (
     instrument_step,
     make_serve_engine,
     make_train_step,
+    resilience_from_env,
     synthetic_batch,
 )
+from ..models.checkpoint import _is_remote
 from ..ops import _build
 from ..parallel import (
     ALL_PROBES,
@@ -257,16 +268,11 @@ def _suite(expected_devices, level, e, job, dev) -> tuple[bool, dict]:
 
 def _burnin(checks, e, dev, ms_mesh, n_dev, leg, guarded) -> bool:
     """The burn-in legs: 5 SGD steps of the sharded transformer, then the
-    serve shapes on the trained weights and on small f32 engines."""
-    if e.get("TPU_SMOKETEST_CHECKPOINT_DIR"):
-        # a resumable burn-in is what the directory asks for: failing is
-        # honest, training without checkpoints would not be
-        checks["burnin_checkpoint_ok"] = False
-        checks["checkpoint_error"] = (
-            "checkpointed burn-in (TPU_SMOKETEST_CHECKPOINT_DIR) is not "
-            "ported yet — ROADMAP Queue A item 11")
-        return False
-
+    serve shapes on the trained weights and on small f32 engines. With
+    ``TPU_SMOKETEST_CHECKPOINT_DIR`` the steps resume from the directory's
+    newest valid step and checkpoint every step under the supervised loop
+    (:func:`_supervised_steps`); a run whose every leg passed clears the
+    directory."""
     mesh = ms_mesh if ms_mesh is not None else build_mesh(plan_mesh(n_dev))
     rules = make_rules(mesh)
     data_shards = mesh.shape["dp"] * mesh.shape.get("slice", 1)
@@ -275,30 +281,128 @@ def _burnin(checks, e, dev, ms_mesh, n_dev, leg, guarded) -> bool:
     def gen(seed):
         return torch.Generator(device=dev).manual_seed(seed)
 
-    params = init_params(cfg, gen(0), device=dev, rules=rules)
-    step = instrument_step(make_train_step(cfg, rules), cfg, rules=rules)
-    batch = synthetic_batch(gen(1), cfg, rules=rules)
-    losses: list[float] = []
+    ckpt_dir = e.get("TPU_SMOKETEST_CHECKPOINT_DIR")
+    ckpt, params, start = None, None, 0
+    try:
+        if ckpt_dir:
+            ckpt, restored = _restore(checks, ckpt_dir, cfg, rules)
+            if ckpt is None:
+                return False
+            if restored is not None:
+                params, start, _meta = restored
+        if params is None:
+            params = init_params(cfg, gen(0), device=dev, rules=rules)
+        step = instrument_step(make_train_step(cfg, rules), cfg, rules=rules)
+        batch = synthetic_batch(gen(1), cfg, rules=rules)
+        losses: list[float] = []
 
-    def train():
-        nonlocal params
-        for _ in range(5):
-            params, loss = step(params, batch)
-            losses.append(float(loss))
+        def train():
+            nonlocal params
+            if ckpt is None:
+                for _ in range(5):
+                    params, loss = step(params, batch)
+                    losses.append(float(loss))
+                return "completed"
+            params, status = _supervised_steps(
+                checks, e, ckpt, ckpt_dir, params, start, step, batch,
+                losses)
+            return status
 
-    leg("burnin", train)
-    checks["burnin_first_loss"] = round(losses[0], 4)
-    checks["burnin_last_loss"] = round(losses[-1], 4)
-    checks["burnin_step"] = len(losses)
-    guarded("burnin_ok", lambda: len(losses) == 5 and losses[-1] < losses[0])
-    ok = checks["burnin_ok"]
+        if leg("burnin", train) != "completed":
+            return False
+        checks["burnin_first_loss"] = round(losses[0], 4)
+        checks["burnin_last_loss"] = round(losses[-1], 4)
+        checks["burnin_step"] = start + len(losses)
+        guarded("burnin_ok",
+                lambda: len(losses) == 5 and losses[-1] < losses[0])
+        ok = checks["burnin_ok"] and _serve_legs(checks, cfg, params, batch,
+                                                 rules, dev, gen, leg,
+                                                 guarded)
+        if ckpt is not None and ok:
+            try:
+                checks["burnin_checkpoint_cleared"] = ckpt.clear()
+            except (CheckpointError, OSError) as exc:
+                checks["burnin_checkpoint_ok"] = False
+                checks["checkpoint_error"] = f"clear: {exc}"
+                ok = False
+        return bool(ok)
+    finally:
+        if ckpt is not None:
+            ckpt.close()
 
+
+def _restore(checks, ckpt_dir, cfg, rules):
+    """Open the checkpoint directory and restore its newest valid step:
+    ``(checkpointer, (params, step, meta) or None)``. A storage failure (a
+    remote prefix, an unreadable directory, a bounded rendezvous timeout)
+    fails the leg through the JSON contract — ``(None, None)`` — never as
+    a traceback; a corrupt step is quarantined inside the restore, counted
+    here, and the run falls back to the next older step or a fresh
+    start."""
+    ckpt = None
+    try:
+        ckpt = Checkpointer(ckpt_dir)
+        restored = ckpt.restore(cfg, rules)
+    except (CheckpointError, OSError) as exc:
+        if ckpt is not None:
+            ckpt.close()
+        checks["burnin_checkpoint_ok"] = False
+        checks["checkpoint_error"] = f"restore: {exc}"
+        return None, None
+    quarantined = ckpt.quarantined()
+    if quarantined:
+        checks["checkpoint_quarantined"] = len(quarantined)
+    if restored is not None:
+        checks["burnin_resumed_step"] = restored[1]
+    return ckpt, restored
+
+
+def _supervised_steps(checks, e, ckpt, ckpt_dir, params, start, step, batch,
+                      losses):
+    """Steps ``start + 1 … start + 5`` under ``SupervisedLoop``: a durable
+    checkpoint each step, the SIGTERM drain with an emergency checkpoint
+    inside ``TPU_SMOKETEST_GRACE_SECONDS``, heartbeat files beside the
+    checkpoints. Returns ``(params, "completed" | "preempted" | None)``;
+    ``None`` is a storage failure, reported under ``checkpoint_error``."""
+    def one_step(p, _step_no):
+        p, loss = step(p, batch)
+        losses.append(float(loss))
+        return p
+
+    loop = SupervisedLoop(
+        ckpt, resilience_from_env(e), total_steps=start + 5,
+        process_id=dist.get_rank(), num_processes=dist.get_world_size(),
+        heartbeat_dir=None if _is_remote(ckpt_dir) else ckpt_dir)
+    try:
+        params, outcome = loop.run(
+            params, one_step, start_step=start,
+            meta=lambda s, _p: {"last_loss": losses[-1]})
+    except (CheckpointError, OSError) as exc:
+        # storage-layer failures only (an unwritable volume, a bounded
+        # rendezvous timeout); a train step's error propagates
+        checks["burnin_checkpoint_ok"] = False
+        checks["checkpoint_error"] = f"save: {exc}"
+        checks["burnin_step"] = start + len(losses)
+        return params, None
+    if outcome.status == "preempted":
+        # drained + emergency checkpoint committed: the Job controller
+        # restarts the pod and the next attempt resumes
+        checks["burnin_preempted"] = outcome.step
+        checks["burnin_step"] = outcome.step
+        checks["burnin_ok"] = False
+        return params, "preempted"
+    checks["burnin_checkpoint_saved"] = outcome.step
+    return params, "completed"
+
+
+def _serve_legs(checks, cfg, params, batch, rules, dev, gen, leg,
+                guarded) -> bool:
+    """The serve shapes on the trained weights, and on small f32
+    engines."""
     # serve shape: a short greedy decode on the trained weights, its first
     # token equal to the forward's argmax. greedy_decode takes no rules
     # yet (ROADMAP Queue A item 6): each rank gathers the tp shards and
     # decodes its own batch rows unsharded on its device.
-    if not ok:
-        return False
     checks["decode_sharding"] = "gathered"
     full = gather_params(params, rules)
 
@@ -309,7 +413,7 @@ def _burnin(checks, e, dev, ms_mesh, n_dev, leg, guarded) -> bool:
         return (tuple(toks.shape) == (prompt.shape[0], 4)
                 and bool((toks[:, 0] == first_ref).all()))
 
-    ok &= leg("decode", lambda: guarded("decode_ok", decode))
+    ok = leg("decode", lambda: guarded("decode_ok", decode))
     del full
 
     # the continuous-batching engine, its scheduler levers and the paged

@@ -46,7 +46,13 @@ shows beside the difference. Each run prints one JSON line. The groups
   process, beside the greedy wave; and D1 and the plain draw alone on the
   wave's ``[4, 8192]`` logits;
 - ``train``: the median host time of a flagship bf16 SGD step ending in a
-  synchronise, and of the flagship ring SGD step (sp = 4 on the one card).
+  synchronise, and of the flagship ring SGD step (sp = 4 on the one card);
+- ``ckpt``: the flagship AdamW train state (bf16 parameters, f32 moments:
+  4.19 GB) through the tree's ``Checkpointer`` in a fresh directory under
+  the tree, removed after: CKPT_SAVES async saves, each the host time of
+  the ``save`` call (the snapshot the loop waits for) and the seconds of
+  its commit (``last_commit``: write, crc32, fsync, the whole), then one
+  restore onto the card.
 
 Kernel times are CUDA-event medians with a cold L2. A tree without a group's
 entry points (an earlier slice) skips that group.
@@ -62,7 +68,9 @@ import sys
 from pathlib import Path
 
 GROUPS = ("fwd", "decode", "int8", "bwd", "ring", "serve", "sample",
-          "train")
+          "train", "ckpt")
+# saves of the ckpt group (the first pays for any buffers it allocates)
+CKPT_SAVES = 3
 # the flagship serve wave the serve and sample groups time: 4 slots at
 # position 305 of a 456-row buffer
 WAVE_SLOTS, WAVE_MAX_LEN, WAVE_POS, WAVE_BLOCK = 4, 456, 305, 16
@@ -274,6 +282,40 @@ def int8_products(timing, dev) -> dict:
     return out
 
 
+def checkpoint_costs(models, dev, root: Path) -> dict:
+    """The ``ckpt`` group (module docstring): lists in save order."""
+    import shutil
+    import time
+
+    import torch
+
+    cfg = models.BurnInConfig(**models.FLAGSHIP_TRAIN, dtype=torch.bfloat16)
+    params = models.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    state = {"params": params, "opt": models.init_opt_state(params)}
+    d = root / "build" / "ab_checkpoints"
+    shutil.rmtree(d, ignore_errors=True)
+    out: dict = {"save_call_ms": []}
+    try:
+        with models.Checkpointer(str(d), max_to_keep=1,
+                                 async_save=True) as ck:
+            for i in range(CKPT_SAVES):
+                ck.flush()
+                t0 = time.monotonic()
+                ck.save(i + 1, state)
+                out["save_call_ms"].append((time.monotonic() - t0) * 1e3)
+                ck.flush()
+                for key, value in ck.last_commit.items():
+                    out.setdefault(key, []).append(value)
+            t0 = time.monotonic()
+            ck.restore_tree(models.abstract_train_state(cfg, device=dev))
+            torch.cuda.synchronize()
+            out["restore_s"] = time.monotonic() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return {f"ckpt_{k}": v for k, v in out.items()}
+
+
 def measure(tree: str, groups=GROUPS) -> dict:
     """Time the chosen groups of the package under ``tree``."""
     sys.path.insert(0, str(Path(tree).resolve()))
@@ -335,6 +377,8 @@ def measure(tree: str, groups=GROUPS) -> dict:
         out["kv_decode_int8_host_us"] = timing.host_ms(call6, iters=50) * 1e3
     if "int8" in groups:
         out.update(int8_products(timing, dev))
+    if "ckpt" in groups and hasattr(models, "Checkpointer"):
+        out.update(checkpoint_costs(models, dev, Path(tree).resolve()))
     if "serve" in groups:
         out.update(serve_wave(models, timing, dev))
     if "sample" in groups and hasattr(models, "make_sampler"):

@@ -172,6 +172,227 @@ def sharded_train(rank, n, args):
     return out
 
 
+def zero1_adamw(rank, n, args):
+    """The ZeRO-1 AdamW step for each case: ``steps`` steps from the
+    case's weights, the losses, the gathered parameters and moments (rank
+    0), and each rank's moment shapes and dtypes beside its parameters'."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        AdamWConfig,
+        BurnInConfig,
+        gather_params,
+        make_adamw_train_step,
+        opt_state_shardings,
+        params_from_numpy,
+        params_to_numpy,
+        shard_batch,
+        shard_params,
+        tree_leaves,
+    )
+    from nvidia_terraform_modules_tpu_torch.models.burnin import _tree_map
+    from nvidia_terraform_modules_tpu_torch.parallel import (
+        build_mesh,
+        make_rules,
+    )
+    from nvidia_terraform_modules_tpu_torch.parallel.mesh import plan_mesh
+    from nvidia_terraform_modules_tpu_torch.parallel.sharding import (
+        gather_shards,
+    )
+
+    out = {}
+    for case in args["cases"]:
+        dtype = getattr(torch, case.get("dtype", "float32"))
+        cfg = BurnInConfig(**case["cfg"], dtype=dtype)
+        rules = make_rules(build_mesh(plan_mesh(n, tp=case["tp"])))
+        full = params_from_numpy(case["params"], cfg, device="cpu")
+        params = shard_params(full, rules)
+        batch = shard_batch(tuple(torch.from_numpy(x).long()
+                                  for x in case["batch"]), rules)
+        init_state, step = make_adamw_train_step(
+            cfg, rules, AdamWConfig(**case["opt"]), device="cpu")
+        state = init_state(params)
+        losses = []
+        for _ in range(case["steps"]):
+            params, state, loss = step(params, state, batch)
+            losses.append(float(loss))
+        specs = opt_state_shardings(full, rules)["mu"]
+
+        def gathered(tree):
+            return params_to_numpy(_tree_map(
+                lambda m, spec: gather_shards(m, spec, rules.mesh), tree,
+                specs))
+
+        out[case["name"]] = {
+            "losses": losses, "step": int(state["step"]),
+            "params": params_to_numpy(gather_params(params, rules)),
+            "mu": gathered(state["mu"]), "nu": gathered(state["nu"]),
+            "local": [(tuple(p.shape), tuple(m.shape), str(m.dtype))
+                      for p, m in zip(tree_leaves(params),
+                                      tree_leaves(state["mu"]))],
+            "mesh": dict(rules.mesh.shape)}
+        if rank:
+            for key in ("params", "mu", "nu"):
+                out[case["name"]][key] = None
+    return out
+
+
+def checkpoint_ops(rank, n, args):
+    """Run ``args["ops"]`` in order in this world, each a dict with an
+    ``"op"``, and return each op's result (trees gathered on every rank):
+
+    - ``save_state``/``restore_state``: the AdamW train state of
+      ``args["cfg"]`` on ``plan_mesh(n, tp=op["tp"])`` — parameters from
+      ``args["params"]``, moments ``2·p + 1`` of the global parameter cut to
+      this rank's ZeRO-1 slice, step 7;
+    - ``save_leaves``/``restore_leaves``: ``{"w": args["w"] + step}``
+      placed by ``op["spec"]`` over ``plan_mesh(n, tp=1)``;
+    - ``adamw_resume``: 6 AdamW steps straight against 3, a save, a fresh
+      checkpointer's restore and 3 more — equal bit for bit?
+    """
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        AdamWConfig,
+        BurnInConfig,
+        Checkpointer,
+        abstract_train_state,
+        gather_params,
+        make_adamw_train_step,
+        opt_state_shardings,
+        params_from_numpy,
+        params_to_numpy,
+        shard_batch,
+        shard_params,
+        tree_leaves,
+    )
+    from nvidia_terraform_modules_tpu_torch.models.burnin import _tree_map
+    from nvidia_terraform_modules_tpu_torch.parallel import (
+        ShapeDtypeStruct,
+        build_mesh,
+        make_rules,
+    )
+    from nvidia_terraform_modules_tpu_torch.parallel.mesh import plan_mesh
+    from nvidia_terraform_modules_tpu_torch.parallel.sharding import (
+        gather_shards,
+        local_shard,
+    )
+
+    cpu = torch.device("cpu")
+    cfg = BurnInConfig(**args["cfg"], dtype=torch.float32)
+    full = params_from_numpy(args["params"], cfg, device="cpu")
+    w = torch.from_numpy(args["w"])
+    out = []
+    for op in args["ops"]:
+        kind = op["op"]
+        if kind.endswith("_state") or kind == "adamw_resume":
+            rules = make_rules(build_mesh(plan_mesh(n, tp=op["tp"])))
+            abstract = abstract_train_state(cfg, rules, device="cpu")
+            specs = opt_state_shardings(full, rules)["mu"]
+        else:
+            rules = make_rules(build_mesh(plan_mesh(n, tp=1)))
+            abstract = {"w": ShapeDtypeStruct(tuple(w.shape), w.dtype, cpu,
+                                              tuple(op["spec"]), rules.mesh)}
+        with Checkpointer(op["dir"], max_to_keep=8) as ck:
+            if kind == "save_state":
+                params = shard_params(full, rules)
+                mu = _tree_map(lambda p, spec: local_shard(
+                    p.float() * 2 + 1, spec, rules.mesh), full, specs)
+                state = {"params": params,
+                         "opt": {"step": torch.tensor(7, dtype=torch.int32),
+                                 "mu": mu, "nu": mu}}
+                ck.save(7, state, meta={"world": n}, layout=abstract)
+                out.append({"mesh": dict(rules.mesh.shape)})
+            elif kind == "restore_state":
+                tree, step, meta = ck.restore_tree(abstract)
+                out.append({
+                    "step": step, "meta": meta, "mesh": dict(rules.mesh.shape),
+                    "stored_world": ck.stored_world(step),
+                    "opt_step": int(tree["opt"]["step"]),
+                    "params": params_to_numpy(gather_params(tree["params"],
+                                                            rules)),
+                    "mu": params_to_numpy(_tree_map(
+                        lambda m, spec: gather_shards(m, spec, rules.mesh),
+                        tree["opt"]["mu"], specs)),
+                    "local_mu": [tuple(m.shape) for m in
+                                 tree_leaves(tree["opt"]["mu"])]})
+            elif kind == "save_leaves":
+                for step in op["steps"]:
+                    piece = local_shard(w + step, tuple(op["spec"]),
+                                        rules.mesh)
+                    ck.save(step, {"w": piece}, layout=abstract)
+                out.append({})
+            elif kind == "restore_leaves":
+                got = ck.restore_tree(abstract)
+                if got is None:
+                    out.append(None)
+                    continue
+                tree, step, _ = got
+                out.append({"step": step, "piece": tree["w"].numpy(),
+                            "bounds": abstract["w"].bounds(),
+                            "full": gather_shards(tree["w"],
+                                                  tuple(op["spec"]),
+                                                  rules.mesh).numpy(),
+                            "quarantined": ck.quarantined()})
+            else:                               # adamw_resume
+                init_state, step_fn = make_adamw_train_step(
+                    cfg, rules, AdamWConfig(lr=1e-2), device="cpu")
+                batch = shard_batch(tuple(torch.from_numpy(x).long()
+                                          for x in args["batch"]), rules)
+
+                def run(p, s, k):
+                    for _ in range(k):
+                        p, s, _loss = step_fn(p, s, batch)
+                    return p, s
+
+                p0 = shard_params(full, rules)
+                ref_p, ref_s = run(p0, init_state(p0), 6)
+                p, s = run(p0, init_state(p0), 3)
+                ck.save(3, {"params": p, "opt": s}, meta={"phase": "burnin"},
+                        layout=abstract)
+                with Checkpointer(op["dir"]) as fresh:
+                    tree, at, meta = fresh.restore_tree(abstract)
+                restored_equal = all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves([p, s["mu"], s["nu"]]),
+                    tree_leaves([tree["params"], tree["opt"]["mu"],
+                                 tree["opt"]["nu"]])))
+                p, s = run(tree["params"], tree["opt"], 3)
+                out.append({
+                    "at": at, "meta": meta, "restored_equal": restored_equal,
+                    "final_equal": all(torch.equal(a, b) for a, b in zip(
+                        tree_leaves([ref_p, ref_s["mu"], ref_s["nu"]]),
+                        tree_leaves([p, s["mu"], s["nu"]]))),
+                    "step_equal": torch.equal(ref_s["step"], s["step"])})
+    return out
+
+
+def plant_checkpoint(rank, n, args):
+    """Save step ``args["step"]`` of the smoke test's own burn-in config
+    (``BurnInConfig(batch=args["batch"])`` on ``plan_mesh(n)``) into
+    ``args["dir"]``, each rank its shards."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        BurnInConfig,
+        abstract_params,
+        init_params,
+        save_checkpoint,
+    )
+    from nvidia_terraform_modules_tpu_torch.parallel import (
+        build_mesh,
+        make_rules,
+        plan_mesh,
+    )
+
+    cfg = BurnInConfig(batch=args["batch"])
+    rules = make_rules(build_mesh(plan_mesh(n)))
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu", rules=rules)
+    save_checkpoint(args["dir"], args["step"], params,
+                    layout=abstract_params(cfg, rules, device="cpu"))
+    return dict(rules.mesh.shape)
+
+
 def smoketest(rank, n, args):
     """``run_smoketest`` at each of ``args["runs"]`` (level, env), in this
     world; the checks of each run."""

@@ -1503,3 +1503,95 @@ def test_moe_engine_on_card_matches_solo_and_full_forward(cuda):
         seq = torch.cat([p.to(cuda), toks[:-1]])[None]
         full = forward(params, seq, cfg)[0, p.shape[0] - 1:].argmax(-1)
         assert torch.equal(full, toks)
+
+
+def _train_state_cfg():
+    return BurnInConfig(vocab=256, d_model=128, n_heads=2, d_ff=256,
+                        n_layers=2, seq_len=64, batch=2, attn="flash",
+                        flash_backward="split", dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("async_save", [False, True])
+def test_train_state_checkpoint_on_card_is_bit_exact(cuda, tmp_path,
+                                                     async_save):
+    """A small bf16 AdamW train state (a step taken: bf16 parameters, f32
+    moments, the int32 step) saved from the card and restored onto it
+    through ``abstract_train_state``: every leaf's dtype and bits, on the
+    card."""
+    from nvidia_terraform_modules_tpu_torch.models import (
+        AdamWConfig,
+        Checkpointer,
+        abstract_train_state,
+        make_adamw_train_step,
+    )
+
+    cfg = _train_state_cfg()
+    init_state, step = make_adamw_train_step(cfg, opt=AdamWConfig(lr=1e-2),
+                                             device=cuda)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    batch = synthetic_batch(torch.Generator(device=cuda).manual_seed(1),
+                            cfg, device=cuda)
+    params, state, _ = step(params, init_state(params), batch)
+    with Checkpointer(str(tmp_path), async_save=async_save) as c:
+        c.save(1, {"params": params, "opt": state})
+    with Checkpointer(str(tmp_path)) as c:
+        tree, at, _ = c.restore_tree(abstract_train_state(cfg, device=cuda))
+    assert at == 1
+    want = tree_leaves([params, state["mu"], state["nu"], [state["step"]]])
+    got = tree_leaves([tree["params"], tree["opt"]["mu"],
+                       tree["opt"]["nu"], [tree["opt"]["step"]]])
+    assert len(got) == len(want)
+    for a, b in zip(want, got):
+        assert b.device.type == "cuda" and b.dtype == a.dtype
+        assert b.shape == a.shape
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        assert torch.equal(a, b)
+
+
+def test_zero1_world_of_one_on_card_equals_unsharded_step(cuda):
+    """``make_adamw_train_step(cfg, rules)`` on the mesh of an NCCL world
+    of one runs the unsharded step's operations: 3 steps (the split
+    backward, K3 + K4, deterministic) give the same losses, parameters
+    and moments, bit for bit."""
+    import torch.distributed as dist
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        AdamWConfig,
+        make_adamw_train_step,
+    )
+    from nvidia_terraform_modules_tpu_torch.parallel import (
+        make_rules,
+        maybe_initialize_distributed,
+    )
+
+    cfg = _train_state_cfg()
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(2),
+                         device=cuda)
+    batch = synthetic_batch(torch.Generator(device=cuda).manual_seed(3),
+                            cfg, device=cuda)
+    opt = AdamWConfig(lr=1e-2, warmup_steps=1)
+    owned = not dist.is_initialized()
+    maybe_initialize_distributed({}, device=cuda)
+    try:
+        rules = make_rules(build_mesh(plan_mesh(1)))
+        assert type(rules.mesh).__name__ == "WorldMesh"
+        runs = []
+        for r in (rules, None):
+            init_state, step = make_adamw_train_step(cfg, r, opt,
+                                                     device=cuda)
+            p, s, losses = params, init_state(params), []
+            for _ in range(3):
+                p, s, loss = step(p, s, batch)
+                losses.append(loss)
+            runs.append((p, s, losses))
+    finally:
+        if owned:
+            dist.destroy_process_group()
+    (ps, ss, ls), (pu, su, lu) = runs
+    assert all(torch.equal(a, b) for a, b in zip(ls, lu))
+    for a, b in zip(tree_leaves([ps, ss["mu"], ss["nu"]]),
+                    tree_leaves([pu, su["mu"], su["nu"]])):
+        assert torch.equal(a, b)
+    assert torch.equal(ss["step"], su["step"])

@@ -19,6 +19,8 @@ import torch
 import nvidia_terraform_modules_tpu_torch as port
 from nvidia_terraform_modules_tpu_torch.models import (
     BurnInConfig,
+    abstract_params,
+    abstract_train_state,
     greedy_decode,
     init_cache,
     init_paged_cache,
@@ -33,13 +35,20 @@ from nvidia_terraform_modules_tpu_torch.models import (
     opt_state_from_numpy,
     params_from_numpy,
     qparams_from_numpy,
+    restore_checkpoint,
     sample_decode,
     speculative_greedy_decode,
     synthetic_batch,
 )
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "nvidia_terraform_modules_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes",
+             "nvidia_terraform_modules_tpu"}
+# the durable-state slice's modules: held to the same rules by name, so a
+# rename cannot drop them from the scan
+DURABLE_STATE = ("models/optimizer.py", "models/checkpoint.py",
+                 "models/resilience.py", "smoketest/runner.py",
+                 "smoketest/chaos.py")
 
 
 def _port_files():
@@ -72,6 +81,12 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_the_durable_state_modules_are_scanned():
+    scanned = {p.relative_to(Path(port.__file__).parent).as_posix()
+               for p in _port_files()[:-1]}
+    assert set(DURABLE_STATE) <= scanned
+
+
 def test_importing_the_whole_port_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -99,7 +114,8 @@ def test_importing_the_whole_port_loads_no_jax():
                                 make_quantized_decoder, qparams_from_numpy,
                                 sample_decode, speculative_greedy_decode,
                                 make_speculative_decoder, make_decoder,
-                                instrument_step])
+                                instrument_step, abstract_params,
+                                abstract_train_state, restore_checkpoint])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -120,6 +136,8 @@ def test_default_device_raises_without_a_card():
         lambda: synthetic_batch(torch.Generator().manual_seed(0), cfg),
         lambda: make_quantized_decoder(cfg),
         lambda: make_decoder(cfg),
+        lambda: abstract_train_state(cfg),
+        lambda: restore_checkpoint("unused", cfg),
     ]
     if torch.cuda.is_available():
         assert init_params(cfg)["embed"].device.type == "cuda"

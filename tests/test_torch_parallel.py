@@ -252,7 +252,7 @@ def test_sharded_burnin_places_on_the_mesh_and_runs_its_attention(
     assert torch.allclose(logits, dense, atol=1e-5, rtol=0)
 
 
-def test_sharded_training_refusals():
+def test_sharded_training_refusals(jrules):
     cfg = BurnInConfig(**BASE, attn="ring", dtype=torch.float32)
     gen = torch.Generator().manual_seed(0)
     for kw in (dict(tp=2, sp=2), dict(tp=1, sp=2)):   # tp = 2, dp = 2
@@ -263,6 +263,32 @@ def test_sharded_training_refusals():
                      lambda: synthetic_batch(gen, cfg, rules=rules)):
             with pytest.raises(NotImplementedError, match="Queue A item 6"):
                 call()
+    # AdamW over an sp mesh is no longer refused (ZeRO-1 has no data axis
+    # to shard over there): two steps of the ring equal the reference's
+    # make_adamw_train_step(cfg, rules) on the same plan — losses 1e-5
+    # relative, parameters 5e-5 absolute (an AdamW update moves an element
+    # by up to lr whatever |g|, so where |g| is near eps the gradients'
+    # rounding moves it by a part of that)
+    from nvidia_terraform_modules_tpu.models import optimizer as jopt
+    from nvidia_terraform_modules_tpu_torch.models import AdamWConfig
+
+    jcfg = jburnin.BurnInConfig(**BASE, attn="ring", dtype=jnp.float32)
+    jp = jburnin.init_params(jax.random.PRNGKey(7), jcfg)
+    params = params_from_numpy(jax.tree.map(np.asarray, jp), cfg,
+                                device="cpu")
+    stream = np.random.default_rng(7).integers(
+        0, BASE["vocab"], size=(BASE["batch"], BASE["seq_len"] + 1))
+    jinit, jstep = jopt.make_adamw_train_step(
+        jcfg, jrules, jopt.AdamWConfig(lr=1e-2))
     rules = make_rules(_tmesh(4, tp=1, sp=4))
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        make_adamw_train_step(cfg, rules)
+    init_state, step = make_adamw_train_step(cfg, rules,
+                                             AdamWConfig(lr=1e-2))
+    js, state = jinit(jp), init_state(params)
+    jb = (jnp.asarray(stream[:, :-1]), jnp.asarray(stream[:, 1:]))
+    tb = tuple(torch.from_numpy(x).long() for x in (stream[:, :-1],
+                                                    stream[:, 1:]))
+    for _ in range(2):
+        jp, js, jloss = jstep(jp, js, jb)
+        params, state, loss = step(params, state, tb)
+        np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    _assert_trees_close(params_to_numpy(params), jp, atol=5e-5)

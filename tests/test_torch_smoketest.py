@@ -5,10 +5,14 @@ the cases of the reference's ``tests/test_smoketest.py`` that the port's
 levels cover, in a gloo world of 4 ranks (``_torch_world.py``; the
 reference's ``plan_mesh(4)``, so tp 4) and in a world of one in this
 process; the legs not run, listed under ``not_ported`` against the
-reference's runner; a checkpoint directory that fails the run; the CLI
-with no card and no CPU steer; and one 2-process CLI run over gloo in the
-manner of ``tests/test_multihost_e2e.py`` (two hosts of the indexed Job,
-so two slices).
+reference's runner; the checkpointed burn-in (``TPU_SMOKETEST_CHECKPOINT_DIR``)
+with the reference's keys and verdicts (``tests/test_checkpoint.py:128-189``:
+save and clear, resume at a planted step, quarantine and a fresh start, a
+store failure through the JSON contract), a ``gs://`` prefix, and a world
+of 2 resuming a step that a world of 4 planted; the CLI with no card and
+no CPU steer; and one 2-process CLI run over gloo in the manner of
+``tests/test_multihost_e2e.py`` (two hosts of the indexed Job, so two
+slices).
 """
 
 import json
@@ -22,6 +26,14 @@ from pathlib import Path
 import pytest
 from _torch_world import run_world
 
+import torch
+
+from nvidia_terraform_modules_tpu_torch.models import (
+    BurnInConfig,
+    init_params,
+    latest_step,
+    save_checkpoint,
+)
 from nvidia_terraform_modules_tpu_torch.smoketest import run_smoketest
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -106,10 +118,11 @@ def test_unknown_level_rejected():
         run_smoketest(level="nope", env=CPU)
 
 
-def test_every_reference_leg_runs_or_is_listed_not_ported():
+def test_every_reference_leg_runs_or_is_listed_not_ported(tmp_path):
     """Each ``*_ok`` key of the reference's runner is either run by the
-    port at ``full`` or listed under ``not_ported`` with its ROADMAP item;
-    the rest need more than one slice, a checkpoint directory, or an
+    port at ``full`` (with a checkpoint directory, so the supervised
+    burn-in runs) or listed under ``not_ported`` with its ROADMAP item;
+    the rest need more than one slice, a failing checkpoint store, or an
     ``ep`` axis (asserted elsewhere)."""
     import nvidia_terraform_modules_tpu.smoketest.runner as jrunner
 
@@ -117,11 +130,15 @@ def test_every_reference_leg_runs_or_is_listed_not_ported():
     ref_keys = set(re.findall(r'checks\["(\w+_ok)"\]', source))
     ref_keys |= {f"{p}_ok" for p in ("psum", "all_gather", "reduce_scatter",
                                      "ring_permute", "all_to_all")}
-    r = run_smoketest(level="full", env=CPU)
+    r = run_smoketest(level="full", env={
+        **CPU, "TPU_SMOKETEST_CHECKPOINT_DIR": str(tmp_path)})
     assert r.ok, r.checks
+    assert r.checks["burnin_checkpoint_saved"] == 5
+    assert r.checks["burnin_checkpoint_cleared"] >= 1
     listed = r.checks["not_ported"]
     assert all(re.match(r"ROADMAP Queue A item \d+|not queued", v)
                for v in listed.values())
+    assert not any("item 11" in v for v in listed.values())
     run_keys = {k for k in r.checks if k.endswith("_ok")}
     assert not run_keys & set(listed)
     conditional = {"dcn_psum_ok", "hier_psum_ok", "burnin_checkpoint_ok",
@@ -132,13 +149,98 @@ def test_every_reference_leg_runs_or_is_listed_not_ported():
             "serving_ok"} <= set(listed)
 
 
-def test_checkpoint_dir_fails_instead_of_training_without_it(tmp_path):
-    r = run_smoketest(level="burnin", env={
-        **CPU, "TPU_SMOKETEST_CHECKPOINT_DIR": str(tmp_path)})
+def _ckpt_env(d):
+    return {**CPU, "TPU_SMOKETEST_CHECKPOINT_DIR": str(d)}
+
+
+def _plant(d, step):
+    """Step ``step`` of the runner's own config (``BurnInConfig(batch=
+    max(8, 2·data_shards))``: 8 in a world of one), as a preempted pod
+    leaves it."""
+    params = init_params(BurnInConfig(batch=8),
+                         torch.Generator().manual_seed(0), device="cpu")
+    save_checkpoint(str(d), step, params)
+
+
+def test_smoketest_job_resume_contract(tmp_path):
+    """A fresh run saves each step then clears on success; a preempted
+    pod (a checkpoint left behind, no clear) resumes at the saved global
+    step and runs 5 more."""
+    env = _ckpt_env(tmp_path)
+    first = run_smoketest(level="burnin", env=env)
+    assert first.ok, first.checks
+    c = first.checks
+    assert "burnin_resumed_step" not in c
+    assert c["burnin_step"] == 5 and c["burnin_checkpoint_saved"] == 5
+    assert c["burnin_checkpoint_cleared"] >= 1
+    assert latest_step(str(tmp_path)) is None
+    assert "checkpoint_quarantined" not in c
+    _plant(tmp_path, 3)
+    second = run_smoketest(level="burnin", env=env)
+    assert second.ok, second.checks
+    assert second.checks["burnin_resumed_step"] == 3
+    assert second.checks["burnin_step"] == 8
+    assert second.checks["burnin_checkpoint_saved"] == 8
+    assert latest_step(str(tmp_path)) is None
+
+
+def test_smoketest_corrupt_checkpoint_quarantined_not_fatal(tmp_path):
+    """A truncated checkpoint does not wedge the Job: it is quarantined,
+    the run starts fresh, and the JSON line counts the quarantine."""
+    d = tmp_path / "ckpt"
+    _plant(d, 3)
+    shard = next((d / "step_00000003").glob("shards_p*.bin"))
+    shard.write_bytes(shard.read_bytes()[:16])
+    r = run_smoketest(level="burnin", env=_ckpt_env(d))
+    assert r.ok, r.checks
+    assert r.checks["checkpoint_quarantined"] == 1
+    assert "burnin_resumed_step" not in r.checks
+    assert r.checks["burnin_step"] == 5
+
+
+@pytest.mark.parametrize("where", ["file", "gs"])
+def test_smoketest_checkpoint_failure_keeps_json_contract(tmp_path, where):
+    """A broken checkpoint STORE (a file where the directory should be;
+    a gs:// prefix, whose backend the port does not have) fails through
+    the JSON contract — ok false and ``checkpoint_error`` — never as a
+    traceback, and never by training without checkpoints."""
+    if where == "file":     # no step to restore: the first save fails
+        d, stage = tmp_path / "ckpt", "save: "
+        d.write_text("not a directory")
+    else:                   # the constructor refuses the prefix
+        d, stage = "gs://bucket/smoketest", "restore: "
+    r = run_smoketest(level="burnin", env=_ckpt_env(d))
     assert r.ok is False
     assert r.checks["burnin_checkpoint_ok"] is False
-    assert "item 11" in r.checks["checkpoint_error"]
+    assert r.checks["checkpoint_error"].startswith(stage)
     assert "burnin_ok" not in r.checks
+    if where == "gs":
+        assert "Queue A item 13" in r.checks["checkpoint_error"]
+        assert not os.path.exists("gs:")
+
+
+def test_world_of_two_resumes_a_step_planted_by_a_world_of_four(
+        tmp_path_factory):
+    """Elastic resume through the Job contract: a world of 4 (tp 4)
+    plants step 3; a world of 2 (tp 2) re-shards it, resumes at 3, runs
+    to 8, passes every leg and clears the directory."""
+    d = tmp_path_factory.mktemp("planted") / "ckpt"
+    meshes = run_world("plant_checkpoint", 4,
+                       tmp_path_factory.mktemp("plant4"),
+                       {"dir": str(d), "step": 3, "batch": 8}, timeout=120)
+    assert meshes[0] == {"dp": 1, "sp": 1, "tp": 4}
+    ranks = run_world("smoketest", 2, tmp_path_factory.mktemp("resume2"),
+                      {"runs": [("burnin", {**_ckpt_env(d),
+                                            "LOCAL_WORLD_SIZE": "2"})]},
+                      timeout=180)
+    for r in ranks:
+        c = r[0]["checks"]
+        assert r[0]["ok"] is True, c
+        assert c["mesh"] == {"dp": 1, "sp": 1, "tp": 2}
+        assert c["burnin_resumed_step"] == 3 and c["burnin_step"] == 8
+        assert c["burnin_checkpoint_saved"] == 8
+        assert c["burnin_checkpoint_cleared"] >= 1
+    assert latest_step(str(d)) is None
 
 
 def test_a_failing_leg_is_recorded_and_fails_the_run(monkeypatch):
