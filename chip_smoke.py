@@ -102,7 +102,18 @@ It builds the port's CUDA kernels from ``csrc/`` with nvcc (into
   against the unsharded step (the split backward's parameters bit for
   bit after 3 steps; the fused step's within the bf16 tolerance, K5's dQ
   atomics varying its bits between runs), timing both and counting K1
-  and K5.
+  and K5;
+- the Job's ``full`` level: the MoE train step's f32 gradients (4
+  experts, top-2) against the dense-attention model; the flagship MoE
+  configuration (8 experts, top-1, 2.30 B parameters) trained through
+  ``make_train_step(cfg, rules)`` on the world-1 mesh — equal to the
+  unsharded step bit for bit with the split backward, then timed with the
+  fused one (step ms median and min–max, MFU, peak memory, K1 and K5
+  counted, the loss falling); the dense flagship engine under
+  ``run(rules=)``, its tokens equal to the ``rules=None`` engine's bit for
+  bit (K1 and K7 counted, its replayed wave timed), and at f32 equal to
+  solo decode; and the CLI at ``--level full`` as a world of one, which
+  skips the fabric legs with ``full_skipped``.
 
 Every phase prints one JSON line; any failure raises and the script exits
 non-zero. Without a CUDA device it exits 1 and prints no result; it
@@ -3100,16 +3111,17 @@ def _smoketest_verdict(checks: dict, where: str) -> None:
                              f"{checks.get('backend')}: {checks}")
 
 
-def _run_cli(**extra) -> tuple[dict, float]:
-    """``python -m nvidia_terraform_modules_tpu_torch.smoketest`` at
-    ``burnin`` with one expected device (a world of one over NCCL on this
+def _run_cli(level: str = "burnin", **extra) -> tuple[dict, float]:
+    """``python -m nvidia_terraform_modules_tpu_torch.smoketest --level
+    level`` with one expected device (a world of one over NCCL on this
     card) and ``extra`` variables: its one JSON line and wall seconds."""
-    env = {k: v for k, v in os.environ.items() if k not in _WORLD_VARS}
-    env.update(TPU_SMOKETEST_LEVEL="burnin",
-               TPU_SMOKETEST_EXPECTED_DEVICES="1", **extra)
+    env = {k: v for k, v in os.environ.items()
+           if k not in _WORLD_VARS + ("TPU_SMOKETEST_LEVEL",)}
+    env.update(TPU_SMOKETEST_EXPECTED_DEVICES="1", **extra)
     t0 = time.monotonic()
     out = subprocess.run(
-        [sys.executable, "-m", "nvidia_terraform_modules_tpu_torch.smoketest"],
+        [sys.executable, "-m", "nvidia_terraform_modules_tpu_torch.smoketest",
+         "--level", level],
         cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
         capture_output=True, text=True, timeout=600)
     wall_s = time.monotonic() - t0
@@ -3570,6 +3582,335 @@ def train_checkpoint_flagship(params, dev, root: str) -> tuple[dict, dict]:
                              f"expected {expect}")
     return rec, {**launches, **{k: c for k, c in resume_launches.items()
                                 if k in ("flash_dq", "flash_dkv")}}
+
+
+# the validation Job's full level on the card: the flagship MoE train step
+# (timed steps, median and min-max) and the rules= engine
+MOE_TRAIN_STEPS = 5
+
+
+def _world_of_one(dev):
+    """An NCCL world of one on this card (unless one is up) and its rules:
+    ``(rules, owned)``; the caller destroys the group when ``owned``."""
+    import torch.distributed as dist
+
+    from nvidia_terraform_modules_tpu_torch.parallel import (
+        build_mesh,
+        make_rules,
+        maybe_initialize_distributed,
+        plan_mesh,
+    )
+
+    owned = not dist.is_initialized()
+    maybe_initialize_distributed({}, device=dev)
+    rules = make_rules(build_mesh(plan_mesh(1)))
+    if type(rules.mesh).__name__ != "WorldMesh" or \
+            dist.get_backend() != "nccl":
+        raise AssertionError(f"not a NCCL world mesh: {rules.mesh}")
+    return rules, owned
+
+
+def train_moe_exact(dev) -> dict:
+    """The MoE train step's f32 gradients on the card (4 experts, top-2, at
+    a capacity factor of 1.25, so routing may drop assignments): the flash
+    kernels (fused and split backward) against the dense-attention model,
+    fused against split; five SGD steps lower the loss."""
+    import dataclasses
+
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        BurnInConfig,
+        init_params,
+        make_grads_fn,
+        make_train_step,
+        synthetic_batch,
+    )
+
+    cfg = BurnInConfig(vocab=512, d_model=256, n_heads=2, d_ff=512,
+                       n_layers=2, seq_len=128, batch=2, attn="flash",
+                       n_experts=4, router_top_k=2, dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(13),
+                         device=dev)
+    batch = synthetic_batch(torch.Generator(device=dev).manual_seed(14),
+                            cfg, device=dev)
+
+    def grads(**over):
+        return make_grads_fn(dataclasses.replace(cfg, **over))(params, batch)
+
+    runs = {"fused": grads(), "split": grads(flash_backward="split"),
+            "dense": grads(attn="dense")}
+    errs = {}
+    for name, (a, b, lim) in {"fused_vs_dense": ("fused", "dense", 1e-4),
+                              "split_vs_dense": ("split", "dense", 1e-4),
+                              "fused_vs_split": ("fused", "split", 1e-5)
+                              }.items():
+        (la, ga), (lb, gb) = runs[a], runs[b]
+        loss_err = abs(la.item() - lb.item()) / max(1.0, abs(lb.item()))
+        errs[name] = max(loss_err, max_rel_err(ga, gb))
+        if not errs[name] <= lim:
+            raise AssertionError(f"train_moe_exact {name}: {errs[name]} > "
+                                 f"{lim}")
+    step = make_train_step(cfg, lr=0.05, device=dev)
+    p, losses = params, []
+    for _ in range(5):
+        p, loss = step(p, batch)
+        losses.append(loss.item())
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train_moe_exact: loss did not fall {losses}")
+    return dict(errors=errs, losses=losses)
+
+
+def train_moe_flagship(dev, smi: str) -> tuple[dict, dict]:
+    """``FLAGSHIP_TRAIN`` with MOE_EXPERTS experts, top-1 (2.30 B
+    parameters; 8,192 tokens a step, the factor capacity 1,280 slots an
+    expert) through ``make_train_step(cfg, rules)`` on the mesh of an NCCL
+    world of one — the Job's path:
+
+    - two split-backward steps (K3 + K4, deterministic) equal to the
+      ``rules=None`` step's bit for bit, losses and parameters;
+    - then the fused step (K1 + K5): WARM_STEPS, and MOE_TRAIN_STEPS timed
+      on the host clock (each from a synchronise to a synchronise; the
+      median and min–max), the launch counts set to 0 just before them (K1
+      and K5 one a layer a step), the loss falling, MFU by
+      ``train_step_flops`` over the card's dense bf16 peak, and the peak
+      memory of the timed steps;
+    - one more step under ``torch.profiler``: device time by kernel (the
+      expert and routing products, the router's elementwise f32 work)
+      against the step's wall clock.
+    Returns the record and the timed run's launch counts."""
+    import dataclasses
+    import math
+
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        FLAGSHIP_TRAIN,
+        BurnInConfig,
+        init_params,
+        make_train_step,
+        synthetic_batch,
+        train_step_flops,
+        tree_leaves,
+    )
+    from nvidia_terraform_modules_tpu_torch.models.moe import (
+        expert_capacity,
+    )
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+    from nvidia_terraform_modules_tpu_torch.utils.timing import sync
+
+    cfg = BurnInConfig(**FLAGSHIP_TRAIN, dtype=torch.bfloat16,
+                       n_experts=MOE_EXPERTS, router_top_k=MOE_TOP_K)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         device=dev)
+    batch = synthetic_batch(torch.Generator(device=dev).manual_seed(
+        SEED + 2), cfg, device=dev)
+    rules, owned = _world_of_one(dev)
+    try:
+        def steps(step, n):
+            p, losses = params, []
+            for _ in range(n):
+                p, loss = step(p, batch)
+                losses.append(loss)
+            sync()
+            return p, losses
+
+        split = dataclasses.replace(cfg, flash_backward="split")
+        ps, ls = steps(make_train_step(split, rules, lr=TRAIN_LR), 2)
+        pu, lu = steps(make_train_step(split, lr=TRAIN_LR, device=dev), 2)
+        bitwise = all(torch.equal(a, b) for a, b in zip(ls, lu)) and all(
+            torch.equal(a, b)
+            for a, b in zip(tree_leaves(ps), tree_leaves(pu)))
+        if not bitwise:
+            raise AssertionError(
+                f"train_moe_flagship: the rules step != the unsharded step "
+                f"(split backward), losses {[x.item() for x in ls]} vs "
+                f"{[x.item() for x in lu]}, max rel "
+                f"{max_rel_err(ps, pu, None)}")
+        del ps, pu
+        step = make_train_step(cfg, rules, lr=TRAIN_LR)
+        p = params
+        for _ in range(WARM_STEPS):
+            p, _ = step(p, batch)
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        times, losses = [], []
+        for _ in range(MOE_TRAIN_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            p, loss = step(p, batch)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.item())
+        launches = dict(_build.launches)
+        peak = torch.cuda.max_memory_allocated()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            p, _ = step(p, batch)
+            sync()
+            wall_ms = (time.monotonic() - t0) * 1e3
+        summary = profile_summary(prof, wall_ms)
+    finally:
+        if owned:
+            dist.destroy_process_group()
+    expect = {**{k: 0 for k in launches},
+              "flash_fwd": cfg.n_layers * MOE_TRAIN_STEPS,
+              "flash_bwd_fused": cfg.n_layers * MOE_TRAIN_STEPS}
+    if launches != expect:
+        raise AssertionError(f"train_moe_flagship launched {launches}, "
+                             f"expected {expect}")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train_moe_flagship: loss did not fall "
+                             f"{losses}")
+    times.sort()
+    step_ms = times[len(times) // 2]
+    flops = train_step_flops(cfg)
+    tokens = cfg.batch * cfg.seq_len
+    rec = dict(config={**FLAGSHIP_TRAIN, "n_experts": MOE_EXPERTS,
+                       "router_top_k": MOE_TOP_K, "dtype": "bfloat16"},
+               nvidia_smi=smi, mesh=dict(rules.mesh.shape), backend="nccl",
+               params=sum(x.numel() for x in tree_leaves(params)),
+               capacity=expert_capacity(tokens * MOE_TOP_K, MOE_EXPERTS,
+                                        cfg.capacity_factor),
+               split_bitwise=bitwise, lr=TRAIN_LR, train_step_flops=flops,
+               step_ms=step_ms, min_ms=times[0], max_ms=times[-1],
+               tokens_per_s=tokens / step_ms * 1e3,
+               mfu=flops / (step_ms / 1e3) / (card_spec().bf16_tflops
+                                                * 1e12),
+               max_memory_allocated=peak, losses=losses,
+               launches={k: c for k, c in launches.items() if c},
+               profile=summary)
+    return rec, launches
+
+
+def serve_rules_flagship(params, cfg, dev, prompts, max_len,
+                         smi: str) -> tuple[dict, dict]:
+    """The dense flagship engine under ``run(rules=)`` of an NCCL world of
+    one, on the flagship prompts: its tokens equal the ``rules=None``
+    engine's bit for bit (the same operations: a world of one runs no
+    collective); the rules run's launches counted from 0 (K1 one an
+    admission and layer, K7 one a wave and layer, the capture's tally
+    times the replays); the replayed wave's device and host ms beside the
+    unsharded wave's on a pool of the same shape. Then serve_exact's f32
+    configuration under the same rules: every request equals its solo
+    greedy decode. Returns the record and the rules run's launches."""
+    import torch
+    import torch.distributed as dist
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        greedy_decode,
+        init_params,
+        init_paged_cache,
+        make_serve_engine,
+    )
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+    from nvidia_terraform_modules_tpu_torch.utils.timing import (
+        cuda_median_ms,
+        host_ms,
+        sync,
+    )
+
+    nt = -(-max_len // KV_BLOCK)
+    engine = make_serve_engine(params, cfg, max_len=max_len,
+                               kv_block=KV_BLOCK, device=dev)
+    toks = torch.zeros((SLOTS,), dtype=torch.long, device=dev)
+    mean_len = sum(p.shape[0] for p in prompts) // len(prompts)
+
+    def wave_ms(rules):
+        """The engine's wave (its step for ``rules``) captured over a pool
+        of SLOTS full tables at mid-generation: device and host ms."""
+        pool = init_paged_cache(cfg, SLOTS, max_len, block_size=KV_BLOCK,
+                                num_blocks=1 + SLOTS * nt, rules=rules,
+                                device=dev)
+        for i in range(SLOTS):
+            pool["block_tables"][i] = torch.arange(
+                1 + i * nt, 1 + (i + 1) * nt, dtype=torch.int32)
+        graph = engine.capture(pool)
+        graph.active.fill_(True)
+        graph.tokens.copy_(toks)
+
+        def once():
+            pool["pos"].fill_(mean_len + N_NEW // 2)
+            graph.replay()
+        return cuda_median_ms(once), host_ms(once), graph.launches
+
+    plain = engine(prompts, N_NEW, slots=SLOTS)
+    plain_ms, plain_host_ms, _ = wave_ms(None)
+    rules, owned = _world_of_one(dev)
+    try:
+        engine(prompts[:SLOTS], 4, slots=SLOTS, rules=rules)     # capture
+        sync()
+        _build.reset_launches()
+        t0 = time.monotonic()
+        outs = engine(prompts, N_NEW, slots=SLOTS, rules=rules)
+        sync()
+        wall_s = time.monotonic() - t0
+        launches = dict(_build.launches)
+        st = engine.last_stats
+        rules_ms, rules_host_ms, per_wave = wave_ms(rules)
+        ecfg = _exact_cfg()
+        eparams = init_params(ecfg, torch.Generator(device=dev).manual_seed(
+            1), device=dev)
+        pg = torch.Generator().manual_seed(2)
+        eprompts = [torch.randint(0, ecfg.vocab, (n,), generator=pg).to(dev)
+                    for n in (16, 24, 8, 32, 16)]
+        got = make_serve_engine(eparams, ecfg, max_len=48, kv_block=KV_BLOCK,
+                                device=dev)(eprompts, 8, slots=2,
+                                            rules=rules)
+    finally:
+        if owned:
+            dist.destroy_process_group()
+    solo = [greedy_decode(eparams, p[None], 8, ecfg, device=dev)[0]
+            for p in eprompts]
+    exact = [torch.equal(a, b) for a, b in zip(got, solo)]
+    equal = [torch.equal(a, b) for a, b in zip(outs, plain)]
+    admissions, waves = st["requests"], st["waves"]
+    expect = {**{k: 0 for k in launches},
+              "flash_fwd": admissions * cfg.n_layers,
+              "paged_decode": waves * cfg.n_layers}
+    if launches != expect:
+        raise AssertionError(f"serve_rules_flagship launched {launches}, "
+                             f"expected {expect}")
+    if not all(equal) or not all(exact):
+        raise AssertionError(f"serve_rules_flagship: rules tokens equal to "
+                             f"rules=None {equal}; f32 equal to solo decode "
+                             f"{exact}")
+    rec = dict(nvidia_smi=smi, mesh=dict(rules.mesh.shape), backend="nccl",
+               requests=admissions, waves=waves, generated=st["generated"],
+               wall_s=wall_s, tokens_per_s=st["generated"] / wall_s,
+               ms_per_wave=rules_ms, host_ms_per_wave=rules_host_ms,
+               unsharded_ms_per_wave=plain_ms,
+               unsharded_host_ms_per_wave=plain_host_ms,
+               replay_launches_per_wave=per_wave, captures=engine.captures,
+               tokens_equal_to_unsharded=equal, f32_equal_to_solo=exact,
+               launches={k: c for k, c in launches.items() if c})
+    return rec, launches
+
+
+def smoketest_cli_full() -> dict:
+    """The CLI at ``--level full`` as a world of one over NCCL: it exits
+    0, every burn-in leg passes, the full level's fabric legs are skipped
+    with ``full_skipped`` (one device has no ep fabric), and
+    ``pipeline_ok`` is the only full-level leg under ``not_ported``."""
+    checks, wall_s = _run_cli("full")
+    _smoketest_verdict(checks, "smoketest_cli_full")
+    full_legs = {"all_to_all_ep_ok", "moe_ok", "serving_ok", "pipeline_ok"}
+    listed = sorted(full_legs & set(checks["not_ported"]))
+    if checks.get("level") != "full" or "full_skipped" not in checks or \
+            listed != ["pipeline_ok"] or full_legs & {
+                k for k in checks if k.endswith("_ok")}:
+        raise AssertionError(f"smoketest_cli_full: level "
+                             f"{checks.get('level')}, full_skipped "
+                             f"{checks.get('full_skipped')}, listed "
+                             f"{listed}: {checks}")
+    return dict(wall_s=wall_s, seconds=checks["seconds"],
+                full_skipped=checks["full_skipped"],
+                full_legs_not_ported=listed,
+                leg_seconds=checks["leg_seconds"])
 
 
 def flagship_lengths() -> list[int]:
@@ -4165,6 +4506,18 @@ def main() -> int:
     k7_cli_ck = sum(run["leg_launches"].get("paged_decode", {}).get(
         "paged_decode", 0) for run in cli_ck.values())
 
+    # ----------------------------------- the validation Job's full level
+    # the flagship MoE train step on the Job's path (rules of a world of
+    # one), the flagship engine under rules=, and the CLI at --level full
+    emit("train_moe_exact", **train_moe_exact(dev))
+    moe_train_rec, moe_train_launches = train_moe_flagship(dev, smi)
+    emit("train_moe_flagship", **moe_train_rec)
+    torch.cuda.empty_cache()
+    sr_rec, sr_launches = serve_rules_flagship(params, cfg, dev, prompts,
+                                               max_len, smi)
+    emit("serve_rules_flagship", **sr_rec)
+    emit("smoketest_cli_full", **smoketest_cli_full())
+
     # --------------------------------------------------------- summary
     n_k1 = sum(c for c, _ in k1_main)
 
@@ -4187,6 +4540,9 @@ def main() -> int:
          "sharded": {"launches": sh_launches["flash_fwd"]},
          # the flagship AdamW steps with an async save after each
          "checkpoint": {"launches": ck_launches["flash_fwd"]},
+         # the flagship MoE train step's timed steps and the rules= engine
+         "moe_train": {"launches": moe_train_launches["flash_fwd"]},
+         "serve_rules": {"launches": sr_launches["flash_fwd"]},
          # the serve prompts' mean rate, and K1 at the train step's shape
          "tflops": k1_mean("tflops"), "bound_share": k1_mean("bound_share"),
          "tiling": FWD_TILING,
@@ -4207,7 +4563,9 @@ def main() -> int:
          "smoketest": {"launches": st_launches["paged_decode"],
                        "paged_decode_leg": st_rec["paged_decode_k7"]},
          # the three checkpointed CLI runs' paged_decode legs
-         "checkpoint_cli": {"launches": k7_cli_ck}},
+         "checkpoint_cli": {"launches": k7_cli_ck},
+         # the flagship engine under rules= (a world of one)
+         "serve_rules": {"launches": sr_launches["paged_decode"]}},
         {"name": "paged_decode_int8", "route": "cuda",
          "source": "nvidia_terraform_modules_tpu_torch/csrc/paged_decode.cu",
          "replaces":
@@ -4262,7 +4620,8 @@ def main() -> int:
             # path; K3's and K4's its split step's
             "launches": (train_launches[name] if name == "flash_bwd_fused"
                          else rec["split_step_launches"][name]),
-            **({"sharded": {"launches": sh_launches[name]}}
+            **({"sharded": {"launches": sh_launches[name]},
+                "moe_train": {"launches": moe_train_launches[name]}}
                if name == "flash_bwd_fused" else {}),
             # K5: the checkpointed AdamW steps; K3 and K4: the
             # exact-resume comparison (split backward)

@@ -31,20 +31,25 @@ kinds (``parallel/mesh.py``):
   the reference. Such a mesh with any other axis above 1 raises
   ``NotImplementedError``.
 - a ``WorldMesh`` over the ranks of a ``torch.distributed`` world, one
-  device a rank: data and tensor parallelism (``dp``, ``slice`` × ``dp``,
-  ``tp``), Megatron style, where GSPMD would insert the collectives in the
-  reference. ``wq``/``wk``/``wv``/``up`` are split by columns over ``tp``
-  (heads over ``tp``), ``wo``/``down`` by rows and followed by an
-  all-reduce; the tied ``embed`` is split on ``d_model`` — the lookup is
-  all-gathered, the head's partial logits all-reduced; norms are
-  replicated. Each rank holds its shard of the parameters
+  device a rank: data, tensor and expert parallelism (``dp``, ``slice`` ×
+  ``dp``, ``tp``, ``ep``), Megatron style, where GSPMD would insert the
+  collectives in the reference. ``wq``/``wk``/``wv``/``up`` are split by
+  columns over ``tp`` (heads over ``tp``), ``wo``/``down`` by rows and
+  followed by an all-reduce; the tied ``embed`` is split on ``d_model`` —
+  the lookup is all-gathered, the head's partial logits all-reduced; norms
+  and the router are replicated; the expert stacks split ``E`` over ``ep``
+  and ``d_ff`` over ``tp`` (``models/moe.py`` routes as the unsharded
+  model does). Each rank holds its shard of the parameters
   (:func:`shard_params`; :func:`gather_params` joins them) and its rows of
-  the batch (:func:`shard_batch`); the gradients and the loss are
-  all-reduced and averaged in f32 over the data axes. A world of one runs
-  the unsharded step's operations, bit for bit. Still refused (ROADMAP.md,
+  the batch (:func:`shard_batch`, over ``("dp", "ep")`` on an ``ep``
+  mesh); the loss and each gradient are all-reduced and averaged in f32
+  over the data axes its spec does not split — every data axis for the
+  dense leaves, ``dp`` alone for the experts. A world of one runs the
+  unsharded step's operations, bit for bit. Still refused (ROADMAP.md,
   Queue A item 6): ``sp`` above 1 on a world mesh (ring and Ulysses over
-  processes), ``ep`` (expert sharding), MoE over any axis above 1, and
-  ``rules`` on the decode and serve entry points.
+  processes). ``rules`` reach ``forward_paged`` and the serve engine
+  (``models/decode.py``, ``models/serving.py``), not the other decode entry
+  points.
 
 Not carried from the reference: the TPU's tile levers ``flash_pipeline`` /
 ``flash_block_q`` / ``flash_block_k`` (the CUDA kernels have one fixed
@@ -71,11 +76,17 @@ from ..ops.flash_attention import (
 )
 from ..ops.ring_attention import dense_reference_attention, ring_self_attention
 from ..ops.ulysses_attention import ulysses_self_attention
-from ..parallel.collectives import enter_parallel, exit_parallel, gather_last
+from ..parallel.collectives import (
+    enter_parallel,
+    exit_parallel,
+    gather_last,
+    spec_axes,
+)
 from ..parallel.mesh import WorldMesh
 from ..parallel.sharding import ShapeDtypeStruct, gather_shards, local_shard
 from ..utils.layers import dense_init
 from ..utils.layers import rmsnorm as _rmsnorm
+from .moe import check_rules as check_moe_rules
 from .moe import init_moe_params, moe_layer
 
 # bench.py's flagship: the width both main paths run at, with its burn-in
@@ -386,9 +397,9 @@ def _world(rules) -> bool:
 def _check_rules(rules, cfg: BurnInConfig | None = None) -> None:
     """Refuse what the port cannot run yet (ROADMAP.md, Queue A item 6):
     on a one-process mesh, any axis but ``sp`` above 1; on a world mesh,
-    ``sp`` or ``ep`` above 1 and the ring and Ulysses layouts; and with
-    ``cfg``, MoE over any axis above 1, and a ``tp`` or a batch that the
-    config's dimensions do not divide."""
+    ``sp`` above 1 and the ring and Ulysses layouts; and with ``cfg``, a
+    ``tp``, an ``ep`` or a batch that the config's dimensions do not
+    divide."""
     if rules is None:
         return
     shape = rules.mesh.shape
@@ -397,30 +408,24 @@ def _check_rules(rules, cfg: BurnInConfig | None = None) -> None:
         if big:
             raise NotImplementedError(
                 f"sharded training over {big} on a one-process mesh is not "
-                f"ported — ROADMAP.md, Queue A item 6: dp/tp run over a "
+                f"ported — ROADMAP.md, Queue A item 6: dp/tp/ep run over a "
                 f"torch.distributed world, one process a device "
                 f"(parallel.build_mesh with a process group up); a "
                 f"one-process mesh shards the sequence (sp) alone")
+        if cfg is not None and cfg.n_experts > 0:
+            check_moe_rules(rules, cfg)
         return
-    sp, tp = shape.get("sp", 1), shape.get("tp", 1)
+    sp, tp, ep = shape.get("sp", 1), shape.get("tp", 1), shape.get("ep", 1)
     data = math.prod(shape.get(a, 1) for a in rules.data)
     if sp > 1:
-        what = ("sp > 1 together with dp or tp" if data * tp > 1
+        what = ("sp > 1 together with dp or tp (or ep)" if data * tp > 1
                 else "sp > 1 (the ring and Ulysses over processes)")
         raise NotImplementedError(
             f"{what} on a torch.distributed mesh {shape} is not ported yet "
             f"— ROADMAP.md, Queue A item 6; a one-process mesh runs sp "
             f"alone")
-    if shape.get("ep", 1) > 1:
-        raise NotImplementedError(
-            f"expert sharding over ep ({shape}) is not ported yet — "
-            f"ROADMAP.md, Queue A item 6")
     if cfg is None:
         return
-    if cfg.n_experts > 0 and max(shape.values()) > 1:
-        raise NotImplementedError(
-            f"MoE over a mesh {shape} (experts sharded over ep) is not "
-            f"ported yet — ROADMAP.md, Queue A item 6")
     if cfg.attn in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attn={cfg.attn!r} over a torch.distributed mesh (the ring "
@@ -432,6 +437,10 @@ def _check_rules(rules, cfg: BurnInConfig | None = None) -> None:
             f"tp = {tp} must divide n_heads ({cfg.n_heads}), n_kv_heads "
             f"({cfg.kv_heads}), d_ff ({cfg.d_ff}), and d_model "
             f"({cfg.d_model})")
+    if ep > 1 and cfg.n_experts % ep:
+        raise ValueError(
+            f"ep = {ep} must divide n_experts ({cfg.n_experts}): each "
+            f"rank holds n_experts / ep experts")
     if cfg.batch % data:
         raise ValueError(
             f"batch {cfg.batch} does not split over the data axes "
@@ -632,25 +641,44 @@ def make_grads_fn(cfg: BurnInConfig, rules=None,
     steps (SGD here, AdamW in ``models/optimizer.py``) share, with optional
     microbatch accumulation. On a world mesh with more than one data rank
     the loss and the gradients are then all-reduced and averaged in f32
-    over the data axes (one flat buffer); they come back f32."""
+    over the data ranks: each leaf over the data axes its spec does not
+    split (every data axis for the dense leaves; ``dp`` alone for the
+    expert stacks, already split over ``ep``), one flat buffer a set of
+    axes; they come back f32."""
     _check_rules(rules, cfg)
     vg = _value_and_grad(cfg, rules)
     fn = vg if accum_steps == 1 else grad_accum(vg, accum_steps)
-    group = rules.mesh.group(rules.data) if _world(rules) else None
-    if group is None:
+    if not _world(rules) or rules.mesh.group(rules.data) is None:
         return fn
-    inv = 1.0 / rules.mesh.axis_size(rules.data)
+    mesh = rules.mesh
+    inv = 1.0 / mesh.axis_size(rules.data)
+
+    def axes_of(path, _):
+        used = {a for entry in rules.param_sharding(path)
+                for a in spec_axes(entry)}
+        return tuple(a for a in rules.data if a not in used)
 
     def data_mean(params, batch):
         loss, grads = fn(params, batch)
         leaves = tree_leaves(grads)
-        flat = torch.cat([g.float().reshape(-1) for g in leaves]
-                         + [loss.float().reshape(1)])
-        dist.all_reduce(flat, group=group)
-        flat = flat * inv
-        parts = flat[:-1].split([g.numel() for g in leaves])
-        return flat[-1], _tree_unflatten(
-            grads, [p.view(g.shape) for p, g in zip(parts, leaves)])
+        axes = tree_leaves(_tree_map_path(axes_of, grads))
+        out = [None] * len(leaves)
+        # the loss rides with the leaves reduced over every data axis
+        for key in dict.fromkeys([rules.data] + axes):
+            idx = [j for j, a in enumerate(axes) if a == key]
+            flat = torch.cat([leaves[j].float().reshape(-1) for j in idx]
+                             + ([loss.float().reshape(1)]
+                                if key == rules.data else []))
+            group = mesh.group(key) if key else None
+            if group is not None:
+                dist.all_reduce(flat, group=group)
+            flat = flat * inv
+            if key == rules.data:
+                loss, flat = flat[-1], flat[:-1]
+            for j, part in zip(idx, flat.split(
+                    [leaves[j].numel() for j in idx])):
+                out[j] = part.view(leaves[j].shape)
+        return loss, _tree_unflatten(grads, out)
 
     return data_mean
 

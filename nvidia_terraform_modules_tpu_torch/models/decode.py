@@ -28,8 +28,22 @@ Attention paths:
   (``paged_kernel="off"``), the CPU — is the masked softmax over the
   cache (``ops/decode_attention.masked_attention``).
 
-The reference's ``int8_kernel`` flag (the T=1 int8 kernel off for
-mesh-sharded pools) has no counterpart: the port has no sharded pools yet.
+Sharding (``rules`` over a ``torch.distributed`` world, one process a
+device; :func:`forward_paged` and ``paging.init_paged_cache`` only): the
+heads split over ``tp`` Megatron-style — ``wq``/``wk``/``wv``/``up`` by
+columns, ``wo``/``down`` by rows followed by an all-reduce, the tied
+``embed`` on ``d_model`` (the lookup all-gathered, the head's partial
+logits all-reduced) — as the reference's ``_transformer_body`` constrains
+its activations for GSPMD (``decode.py:280-299``). Each rank's pool holds
+its KV heads, ``kv_heads / tp``; where ``tp`` does not divide
+``kv_heads`` the pool holds them all, ``wk``/``wv`` come whole
+(:func:`paged_params`), and a rank's query heads attend from a zero-padded
+full set, its own sliced back out. The reference's ``int8_kernel`` flag
+(its T=1 int8 kernel off for mesh-sharded pools, since a ``pallas_call``
+cannot take a mesh-sharded operand) has no counterpart: each rank's pool
+is a plain local tensor, so the kernels stay on — a difference of
+mechanism, not of result. The other decode entry points take no
+``rules`` yet (ROADMAP Queue A item 6).
 
 :func:`make_decoder` is the compiled greedy decoder (the reference's
 ``jax.jit`` over :func:`greedy_decode`): on the card one call is the eager
@@ -59,6 +73,9 @@ from ..ops.decode_attention import (
 )
 from ..ops.flash_attention import flash_attention, pick_impl
 from ..ops.sampling import draw, key_data, split
+from ..parallel.collectives import exit_parallel, gather_dim
+from ..parallel.mesh import WorldMesh
+from ..parallel.sharding import gather_shards
 from ..utils.layers import rmsnorm as _rmsnorm
 from .burnin import (
     BurnInConfig,
@@ -172,34 +189,119 @@ def _moe_ffn(h, layer, cfg: BurnInConfig):
     return torch.cat(outs, dim=1)[:, :t]
 
 
+def check_serve_rules(rules, cfg: BurnInConfig) -> None:
+    """What the sharded decode path (:func:`forward_paged`, the paged
+    pool, the serve engine) takes: ``rules`` over a world mesh whose ``tp``
+    divides the heads, ``d_model`` and ``d_ff``; ``sp`` above 1, a
+    one-process mesh with an axis above 1 and MoE are refused (ROADMAP
+    Queue A item 6)."""
+    if rules is None:
+        return
+    shape = rules.mesh.shape
+    if not isinstance(rules.mesh, WorldMesh):
+        big = {a: n for a, n in shape.items() if n > 1}
+        if big:
+            raise NotImplementedError(
+                f"rules= over a one-process mesh {big} on the decode path "
+                f"is not ported — ROADMAP.md, Queue A item 6: the sharded "
+                f"engine runs over a torch.distributed world")
+        return
+    if shape.get("sp", 1) > 1:
+        raise NotImplementedError(
+            f"sp > 1 ({shape}) on the decode path is not ported yet — "
+            f"ROADMAP.md, Queue A item 6")
+    if cfg.n_experts > 0:
+        raise NotImplementedError(
+            "MoE serving under rules= (experts over ep in the engine) is "
+            "not ported yet — ROADMAP.md, Queue A item 6")
+    tp = shape.get("tp", 1)
+    if cfg.n_heads % tp or cfg.d_model % tp or cfg.d_ff % tp:
+        raise ValueError(
+            f"tp = {tp} must divide n_heads ({cfg.n_heads}), d_model "
+            f"({cfg.d_model}) and d_ff ({cfg.d_ff})")
+
+
+def _tp_line(rules) -> tuple:
+    """``(group, n, i)`` of this rank's ``tp`` line (``(None, 1, 0)``
+    without a world mesh)."""
+    if rules is None or not isinstance(rules.mesh, WorldMesh):
+        return None, 1, 0
+    mesh = rules.mesh
+    return mesh.group("tp"), mesh.axis_size("tp"), mesh.index("tp")
+
+
+def pool_kv_heads(cfg: BurnInConfig, rules=None) -> int:
+    """The KV heads a rank's paged pool holds: ``kv_heads / tp`` where
+    ``tp`` divides them, else all of them (the pool replicates the head
+    axis, as the reference's ``init_paged_cache`` does)."""
+    tp = _tp_line(rules)[1]
+    return cfg.kv_heads // tp if cfg.kv_heads % tp == 0 else cfg.kv_heads
+
+
+def paged_params(params, cfg: BurnInConfig, rules=None):
+    """The tree :func:`forward_paged` runs under ``rules``: ``params`` (this
+    rank's shards) as they are, except that where ``tp`` does not divide
+    ``kv_heads`` each layer's ``wk``/``wv`` are gathered whole (the pool
+    holds every KV head there). Collective: every rank of the ``tp`` line
+    calls it."""
+    tp = _tp_line(rules)[1]
+    if pool_kv_heads(cfg, rules) * tp == cfg.kv_heads:
+        return params
+    layers = []
+    for i, layer in enumerate(params["layers"]):
+        layer = dict(layer)
+        for name in ("wk", "wv"):
+            path = ("layers", str(i), name)
+            layer[name] = gather_shards(layer[name],
+                                        rules.param_sharding(path),
+                                        rules.mesh)
+        layers.append(layer)
+    return dict(params, layers=layers)
+
+
 def _transformer_body(params, tokens, cfg: BurnInConfig, q_pos, store,
-                      attend):
+                      attend, rules=None):
     """The cached-transformer trunk shared by both storage layouts: per
     layer ``store(li, k, v) → handle`` writes the fresh rows and
     ``attend(li, q, k, v, handle) → [B, T, H, D]`` computes attention;
     projections, rope at ``q_pos``, residuals, the MLP (the routed FFN of
     :func:`_moe_ffn` with ``n_experts > 0``) and the tied unembedding are
-    this one function."""
+    this one function. With ``rules`` this rank runs its heads and FFN
+    columns (module docstring) and returns the full logits."""
     b, t = tokens.shape
-    x = params["embed"][tokens]
+    group, n_tp, i_tp = _tp_line(rules)
+    heads = cfg.n_heads // n_tp
+    kv = pool_kv_heads(cfg, rules)
+    whole_kv = n_tp > 1 and kv == cfg.kv_heads
+    own = slice(i_tp * heads, (i_tp + 1) * heads)
+    x = gather_dim(params["embed"][tokens], group, n_tp, -1)
     for li, layer in enumerate(params["layers"]):
         h = _rmsnorm(x, layer["attn_norm"])
-        q = (h @ layer["wq"]).view(b, t, cfg.n_heads, cfg.head_dim)
-        k = (h @ layer["wk"]).view(b, t, cfg.kv_heads, cfg.head_dim)
-        v = (h @ layer["wv"]).view(b, t, cfg.kv_heads, cfg.head_dim)
+        q = (h @ layer["wq"]).view(b, t, heads, cfg.head_dim)
+        k = (h @ layer["wk"]).view(b, t, kv, cfg.head_dim)
+        v = (h @ layer["wv"]).view(b, t, kv, cfg.head_dim)
         if cfg.rope:
             # K rotates before the cache write: cached rows never need
             # re-rotation at later steps
             q = apply_rope(q, q_pos, cfg.rope_theta)
             k = apply_rope(k, q_pos, cfg.rope_theta)
         handle = store(li, k, v)
-        attn = attend(li, q, k, v, handle)
-        x = x + attn.reshape(b, t, cfg.d_model) @ layer["wo"]
+        if whole_kv:
+            # every KV head is here: this rank's query heads among zeros
+            full = q.new_zeros((b, t, cfg.n_heads, cfg.head_dim))
+            full[:, :, own] = q
+            attn = attend(li, full, k, v, handle)[:, :, own]
+        else:
+            attn = attend(li, q, k, v, handle)
+        x = x + exit_parallel(
+            attn.reshape(b, t, heads * cfg.head_dim) @ layer["wo"], group)
         h = _rmsnorm(x, layer["mlp_norm"])
         x = x + (_moe_ffn(h, layer, cfg) if cfg.n_experts > 0
-                 else mlp(h, layer, cfg.dtype))
+                 else exit_parallel(mlp(h, layer, cfg.dtype), group))
     x = _rmsnorm(x, params["out_norm"])
-    return x @ params["embed"].T
+    if group is not None:          # this rank's d_model columns of the head
+        x = x.chunk(n_tp, dim=-1)[i_tp]
+    return exit_parallel(x @ params["embed"].T, group)
 
 
 def _prompt_attention(q, k, v, q_pos, scale: float, prefill_impl: str,
@@ -275,7 +377,7 @@ def _paged_kernel_on(paged_kernel: str, t: int, device: torch.device) -> bool:
 
 
 @torch.no_grad()
-def forward_paged(params, tokens, cache, cfg: BurnInConfig, *,
+def forward_paged(params, tokens, cache, cfg: BurnInConfig, rules=None, *,
                   prefill_impl: str = "cached", active=None,
                   paged_kernel: str = "auto"):
     """Forward ``tokens`` ``[B, T]`` through the paged pool
@@ -288,7 +390,11 @@ def forward_paged(params, tokens, cache, cfg: BurnInConfig, *,
     KV]`` sidecars) quantises the fresh rows on write and stores their
     scales at the same places. Reads: see the module docstring; the
     sidecars ride the same tables. Precondition (the caller's): each
-    active row's ``pos + T`` stays within its allocated rows."""
+    active row's ``pos + T`` stays within its allocated rows. ``rules``
+    (a world mesh): ``params`` are :func:`paged_params` of this rank's
+    shards and the pool is ``init_paged_cache(..., rules=)``'s: this rank
+    runs its heads (module docstring); the logits are whole."""
+    check_serve_rules(rules, cfg)
     b, t = tokens.shape
     tables = cache["block_tables"]
     nt = tables.shape[1]
@@ -336,7 +442,8 @@ def forward_paged(params, tokens, cache, cfg: BurnInConfig, *,
             _gather_logical(cache["v"][li], tables, rows), q_pos, scale,
             ks, vs)
 
-    logits = _transformer_body(params, tokens, cfg, q_pos, store, attend)
+    logits = _transformer_body(params, tokens, cfg, q_pos, store, attend,
+                               rules)
     # in place: a captured CUDA graph of this step, and the engine's
     # admissions, keep addressing the pool's own pos tensor
     pos0.copy_(torch.where(active, pos0 + t, pos0))

@@ -24,8 +24,14 @@ from typing import Any, Sequence
 
 import torch
 
+from ..parallel.mesh import WorldMesh
 from .burnin import BurnInConfig, check_device
-from .decode import cache_rows, check_cache_dtype
+from .decode import (
+    cache_rows,
+    check_cache_dtype,
+    check_serve_rules,
+    pool_kv_heads,
+)
 
 
 def blocks_for_rows(rows: int, block_size: int) -> int:
@@ -324,7 +330,7 @@ def paged_pool_spec(cfg: BurnInConfig, max_len: int, block_size: int,
 
 
 def init_paged_cache(cfg: BurnInConfig, slots: int, max_len: int, *,
-                     block_size: int, num_blocks: int,
+                     block_size: int, num_blocks: int, rules=None,
                      cache_dtype: str = "bf16",
                      device="cuda") -> dict[str, Any]:
     """Zeroed paged pool on ``device``: per layer ``k``/``v``
@@ -334,11 +340,22 @@ def init_paged_cache(cfg: BurnInConfig, slots: int, max_len: int, *,
     (all 0: every slot points at the garbage block until its first
     admission) and ``pos`` ``[slots]`` int32. The forwards update the pool
     IN PLACE (the reference's functional update donated the buffers for
-    the same effect)."""
+    the same effect).
+
+    With ``rules`` (a ``torch.distributed`` world mesh) the pool is this
+    rank's, on its device: the KV-head axis holds ``kv_heads / tp`` heads
+    where ``tp`` divides them and all of them otherwise (the reference
+    replicates the head axis there); the block axis, the tables and the
+    positions are every slot's on every rank (blocks are assigned
+    dynamically, so a block-sharded pool would shuffle every gather)."""
+    check_serve_rules(rules, cfg)
+    if rules is not None and isinstance(rules.mesh, WorldMesh):
+        device = rules.mesh.device
     dev = check_device(device)
     quant = check_cache_dtype(cache_dtype)
     spec = paged_pool_spec(cfg, max_len, block_size, cache_dtype)
-    kv_shape = (num_blocks, block_size, cfg.kv_heads, cfg.head_dim)
+    kv_shape = (num_blocks, block_size, pool_kv_heads(cfg, rules),
+                cfg.head_dim)
 
     def zeros(shape, dtype):
         return [torch.zeros(shape, dtype=dtype, device=dev)

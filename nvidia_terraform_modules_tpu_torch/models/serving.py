@@ -69,6 +69,23 @@ exactly):
   the pool is dry, and the youngest request is preempted (its tokens
   regenerate identically) when every live request stalls.
 
+Sharded serving (``run(rules=)``, the rules of a ``torch.distributed``
+world, one process a device): every rank runs the same host scheduler;
+admissions and prefill chunks run on every rank, its heads over ``tp``
+(``decode.forward_paged(rules=)``), each rank's pool holding its KV heads
+(``paging.init_paged_cache(rules=)``); each wave runs each data rank's
+slots (``slots`` split in order over the data axes, which must divide it)
+and all-gathers the wave's tokens over the data axes, so every rank's
+scheduler sees every slot's token and takes the same decisions. The
+engine's ``params`` are then this rank's shards (``burnin.init_params(
+rules=)``). The reference demotes its paged kernel (K7, K7-int8) to the
+gather path under ``rules``, since a ``pallas_call`` cannot take a
+mesh-sharded operand; here each rank's pool is a plain local tensor, so
+the wave keeps K7 on the rank's heads — a difference of mechanism, not of
+result. On the card the wave is still captured and replayed (the world of
+one runs no collective). ``spec_k``, MoE and int8 weights under
+``rules`` raise ``NotImplementedError`` (ROADMAP Queue A item 6).
+
 Int8 serving: ``cache_dtype="int8"`` keeps the pool int8 with f32 scale
 sidecars riding the block tables (the wave then reads through the int8
 paged kernel), and int8-weight params (``quantize_params`` trees with
@@ -101,6 +118,8 @@ import numpy as np
 import torch
 
 from ..ops.sampling import MASK32, key_data, threefry2x32
+from ..parallel.collectives import gather_dim
+from ..parallel.mesh import WorldMesh
 from ..telemetry import get_registry
 from .burnin import BurnInConfig, check_device, tree_leaves
 from .decode import (
@@ -109,8 +128,10 @@ from .decode import (
     _Replayed,
     _select_prefill_impl,
     check_cache_dtype,
+    check_serve_rules,
     forward_paged,
     make_sampler,
+    paged_params,
 )
 from .paging import (
     BlockAllocator,
@@ -142,8 +163,6 @@ _ENGINE_LATER = {
     "aot_cache": (None, f"{_FLEET}: warm compile cache"),
 }
 _RUN_LATER = {
-    "rules": (None, "Queue A item 6 (rules= on the decode and serve "
-                    "entry points)"),
     "admission": (None, f"{_FLEET}: the AdmissionSource seam"),
 }
 
@@ -189,8 +208,18 @@ def _make_pick(sampler: Sampler | None):
     return pick
 
 
+def _data_line(rules) -> tuple:
+    """``(group, n, i)`` of this rank's line over the data axes
+    (``(None, 1, 0)`` without a world mesh)."""
+    if rules is None or not isinstance(rules.mesh, WorldMesh):
+        return None, 1, 0
+    mesh = rules.mesh
+    return (mesh.group(rules.data), mesh.axis_size(rules.data),
+            mesh.index(rules.data))
+
+
 def make_serve_step(params, cfg: BurnInConfig, sampler: Sampler | None = None,
-                    *, paged_kernel: str = "auto"):
+                    *, paged_kernel: str = "auto", rules=None):
     """The all-slots wave step, one batched ``[slots, 1]`` ``forward_paged``
     that updates the pool in place. ``paged_kernel`` picks the read path
     (``"auto"``: the paged decode kernel on the card; ``"off"``: the gather
@@ -201,23 +230,46 @@ def make_serve_step(params, cfg: BurnInConfig, sampler: Sampler | None = None,
     [slots, 2], key [2], pool) → next tokens``, slot ``s`` drawn with
     ``fold_in(fold_in(key, fold[s, 0]), fold[s, 1])`` — its request and
     position — after which the step advances the active slots' positions
-    in place (``fold[:, 1] += active``)."""
+    in place (``fold[:, 1] += active``).
+
+    ``rules`` (a world mesh; ``params`` are ``decode.paged_params`` of this
+    rank's shards, the pool ``init_paged_cache(rules=)``'s): this data
+    rank runs its own slots — the ``i``-th of ``n`` equal runs of them —
+    on its heads, and the next tokens are all-gathered over the data axes,
+    so every rank returns every slot's."""
+    group, n, i = _data_line(rules)
+
+    def own(x):
+        """This data rank's slots of a ``[slots, ...]`` tensor."""
+        m = x.shape[0] // n
+        return x if group is None else x[i * m:(i + 1) * m]
 
     def last_logits(tokens, active, pool):
-        logits, _ = forward_paged(params, tokens[:, None], pool, cfg,
-                                  prefill_impl="cached", active=active,
+        mine = pool
+        if group is not None:
+            # copies of this rank's table rows and positions (a kernel's
+            # operands start aligned); the advanced positions go back
+            mine = dict(pool, block_tables=own(pool["block_tables"]).clone(),
+                        pos=own(pool["pos"]).clone())
+        logits, _ = forward_paged(params, own(tokens)[:, None], mine, cfg,
+                                  rules, prefill_impl="cached",
+                                  active=own(active),
                                   paged_kernel=paged_kernel)
+        if mine is not pool:
+            own(pool["pos"]).copy_(mine["pos"])
         return logits[:, -1]
 
     if sampler is None:
         def wave(tokens, active, pool):
-            return last_logits(tokens, active, pool).argmax(dim=-1)
+            return gather_dim(last_logits(tokens, active, pool).argmax(
+                dim=-1), group, n, 0)
         return wave
 
     def sampled_wave(tokens, active, fold, key, pool):
-        toks = sampler.rows(last_logits(tokens, active, pool), key, fold)
+        toks = sampler.rows(last_logits(tokens, active, pool), key,
+                            own(fold))
         fold[:, 1].add_(active.long())
-        return toks
+        return gather_dim(toks, group, n, 0)
 
     return sampled_wave
 
@@ -770,8 +822,29 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
         prefix_impl = _select_prefill_impl(cfg, prefix_len, "auto", dev)
     need_prefix = full_blocks + (1 if tail_rows else 0)
 
-    # one pool and its wave (on the card captured) per (slots, kv_blocks)
-    pools: dict[tuple[int, int], tuple[dict, Any]] = {}
+    # one pool and its wave (on the card captured) per (slots, kv_blocks,
+    # rules)
+    pools: dict[tuple, tuple[dict, Any]] = {}
+    # the run's sharding: its rules, the trees its admissions and its wave
+    # run from (this rank's shards under rules), and its wave step
+    cur: dict[str, Any] = {"rules": None, "prefill": prefill_params,
+                           "step": step}
+    sharded: dict[int, dict] = {}
+
+    def use_rules(rules) -> None:
+        """Point the run at ``rules`` (None: unsharded), building the
+        sharded trees and wave step once per rules object."""
+        if rules is None:
+            cur.update(rules=None, prefill=prefill_params, step=step)
+            return
+        if id(rules) not in sharded:
+            tree = paged_params(params, cfg, rules)
+            sharded[id(rules)] = {
+                "rules": rules, "prefill": tree,
+                "step": make_serve_step(tree, cfg, sampler,
+                                        paged_kernel=paged_kernel,
+                                        rules=rules)}
+        cur.update(sharded[id(rules)])
 
     def capture(pool: dict, on_card: bool = True):
         """The engine's wave (the speculative trip under ``spec_k``) over
@@ -779,15 +852,16 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
         the card — what a run replays, for timing it alone."""
         if trip is not None:
             return SpecGraph(trip, pool, spec_width, capture=on_card)
-        return WaveGraph(step, pool, sampled=sampler is not None,
+        return WaveGraph(cur["step"], pool, sampled=sampler is not None,
                          capture=on_card)
 
     def pool_for(slots: int, kv_blocks: int):
         """The run's pool, zeroed as a fresh one would be, and its wave."""
-        key = (slots, kv_blocks)
+        rules = cur["rules"]
+        key = (slots, kv_blocks, None if rules is None else id(rules))
         if key not in pools:
             pool = init_paged_cache(cfg, slots, max_len, block_size=bs,
-                                    num_blocks=kv_blocks,
+                                    num_blocks=kv_blocks, rules=rules,
                                     cache_dtype=cache_dtype, device=dev)
             pools[key] = (pool, capture(pool, dev.type == "cuda"))
             run.captures += dev.type == "cuda"
@@ -837,8 +911,8 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
         suffix under sharing) from ``start``; the last position's
         logits."""
         admit_table(pool, slot, row, tail, start)
-        logits, _ = forward_paged(prefill_params, prompt[None],
-                                  slot_view(pool, slot), cfg,
+        logits, _ = forward_paged(cur["prefill"], prompt[None],
+                                  slot_view(pool, slot), cfg, cur["rules"],
                                   prefill_impl=impl, paged_kernel="off")
         return logits[0, -1]
 
@@ -856,8 +930,8 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
         """One ``[1, C]`` prefill chunk at the slot's position. Pad rows of
         the final chunk land in the cache but stay unreachable: the mask
         hides keys past a query, and ``pos`` rewinds to the true length."""
-        logits, _ = forward_paged(prefill_params, chunk,
-                                  slot_view(pool, slot), cfg,
+        logits, _ = forward_paged(cur["prefill"], chunk,
+                                  slot_view(pool, slot), cfg, cur["rules"],
                                   prefill_impl="cached", paged_kernel="off")
         return logits[0]
 
@@ -945,8 +1019,9 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                 sub = dict(self.pool, block_tables=row.to(dev),
                            pos=torch.zeros((1,), dtype=torch.int32,
                                            device=dev))
-                forward_paged(prefill_params, prefix[None], sub, cfg,
-                              prefill_impl=prefix_impl, paged_kernel="off")
+                forward_paged(cur["prefill"], prefix[None], sub, cfg,
+                              cur["rules"], prefill_impl=prefix_impl,
+                              paged_kernel="off")
 
         def _chunks_for(self, req: int, length: int) -> list:
             """The prompt's candidate chain chunks; at least one prompt
@@ -1356,8 +1431,19 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
     def run(prompts: Sequence[Any], n_new, *, slots: int = 4,
             eos_id: int | None = None, rng=None, eos_check_every: int = 1,
             arrivals=None, kv_blocks: int | None = None,
-            static_batching: bool = False, priorities=None, **run_levers):
+            static_batching: bool = False, priorities=None, rules=None,
+            **run_levers):
         _refuse_levers(run_levers, _RUN_LATER, "run")
+        if rules is not None:
+            check_serve_rules(rules, cfg)
+            if spec_k is not None:
+                raise NotImplementedError(
+                    "speculative serving (spec_k) under rules= is not "
+                    "ported yet — ROADMAP.md, Queue A item 6")
+            if prefill_params is not params:
+                raise NotImplementedError(
+                    "int8-weight serving under rules= is not ported yet — "
+                    "ROADMAP.md, Queue A item 6")
         run.last_stats = None
         tel.start()
         if not prompts:
@@ -1419,11 +1505,18 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                 check_chunk_bound(length)      # before any work
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
+        data_shards = _data_line(rules)[1]
+        if slots % data_shards:
+            # the wave batch IS the data-parallel dim at serve time
+            raise ValueError(
+                f"slots ({slots}) must divide over the data axes "
+                f"({data_shards} shards) — pad the pool")
         if static_batching and spec_k is not None:
             raise ValueError(
                 "static_batching is the plain loop's run-to-completion "
                 "A/B baseline — drop spec_k to use it")
         toks = [t.to(dev) for t in flat]
+        use_rules(rules)
         rstate = _Run(slots, kv_blocks, n_new_of, lens,
                       [t.tolist() for t in flat] if share_prefix else None)
         sched = _Sched(lens, n_new_of, policy, aging, priorities, arrivals,

@@ -31,7 +31,10 @@ the reference counts them. A line that is this rank alone launches no
 collective, except in a world of one, where the world's own group carries
 the probe (so a one-rank NCCL world still runs its all-reduce). Then the tensor-parallel pairs of the sharded train step
 (:func:`enter_parallel`, :func:`exit_parallel`, :func:`gather_last`):
-autograd functions over a ``tp`` group, Megatron's ``f``/``g``.
+autograd functions over a ``tp`` group, Megatron's ``f``/``g`` — and
+the expert-parallel ones of the MoE layer (:func:`data_exclusive_counts`,
+:func:`dispatch_experts`, :func:`gather_experts`, :func:`data_sum`),
+whose backward is each forward's transpose.
 """
 
 from __future__ import annotations
@@ -566,3 +569,107 @@ def gather_last(x: torch.Tensor, group, n: int, i: int) -> torch.Tensor:
     """The members' ``x`` joined along the last dimension, in line order
     (this member's is piece ``i`` of ``n``)."""
     return x if group is None else _GatherLast.apply(x, group, n, i)
+
+
+# ------------------------------------------ expert-parallel autograd pairs
+#
+# Over the data axes every rank holds tokens of its own, so each backward
+# here is the forward's true transpose (the gradient of the sum of the
+# data ranks' losses), where Megatron's ``f``/``g`` above take the one
+# loss that a tp line shares.
+
+
+def data_exclusive_counts(counts: torch.Tensor, group, n: int,
+                          i: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(before, total)`` of an integer ``counts`` tensor (an MoE layer's
+    ``[K, E]`` assignments) over the ``n`` members of a data line: the sum
+    over the members ahead of this one (piece ``i``) in line order, and
+    over all of them — one all-gather. ``group`` None: zeros and
+    ``counts``."""
+    if group is None:
+        return torch.zeros_like(counts), counts
+    every = _all_gather(counts, group, n)
+    return (every[:i].sum(dim=0, dtype=counts.dtype),
+            every.sum(dim=0, dtype=counts.dtype))
+
+
+class _DataSum(torch.autograd.Function):
+    """All-reduce forward; all-reduce backward (every member's loss reads
+    the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+class _Dispatch(torch.autograd.Function):
+    """``[E, ...]`` partial sums → this member's ``[E / n_ep, ...]`` summed
+    over every data rank: a reduce-scatter over ``ep`` along the first
+    dimension, then an all-reduce over the other data axes. Backward: the
+    all-reduce, then an all-gather over ``ep``."""
+
+    @staticmethod
+    def forward(ctx, x, ep_group, n_ep, rest_group):
+        ctx.groups = ep_group, n_ep, rest_group
+        y = x.contiguous()
+        if ep_group is not None:
+            y = _reduce_scatter(y.view(-1), ep_group, n_ep).view(
+                x.shape[0] // n_ep, *x.shape[1:])
+        elif rest_group is not None:
+            y = y.clone()
+        return _all_reduce(y, rest_group)
+
+    @staticmethod
+    def backward(ctx, g):
+        ep_group, n_ep, rest_group = ctx.groups
+        g = g.contiguous()
+        if rest_group is not None:
+            g = _all_reduce(g.clone(), rest_group)
+        if ep_group is not None:
+            g = _all_gather(g, ep_group, n_ep).view(n_ep * g.shape[0],
+                                                    *g.shape[1:])
+        return g, None, None, None
+
+
+class _GatherFirst(torch.autograd.Function):
+    """All-gather along the first dimension over ``ep``; backward the
+    reduce-scatter (each member's downstream gradient differs: its own
+    tokens')."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        return _all_gather(x, group, n).view(n * x.shape[0], *x.shape[1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        n = ctx.n
+        out = _reduce_scatter(g.contiguous().view(-1), ctx.group, n)
+        return out.view(g.shape[0] // n, *g.shape[1:]), None, None
+
+
+def data_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over a data line, forward and backward (``group``
+    None: ``x`` itself)."""
+    return x if group is None else _DataSum.apply(x, group)
+
+
+def dispatch_experts(x: torch.Tensor, ep_group, n_ep: int,
+                     rest_group) -> torch.Tensor:
+    """The MoE dispatch's partial expert batches ``[E, C, D]`` (this rank's
+    tokens only) → this rank's experts' ``[E / n_ep, C, D]``, summed over
+    every data rank (module comment above; both groups None: ``x``)."""
+    if ep_group is None and rest_group is None:
+        return x
+    return _Dispatch.apply(x, ep_group, n_ep, rest_group)
+
+
+def gather_experts(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """Every ``ep`` member's expert outputs ``[E / n, C, D]`` joined into
+    ``[E, C, D]``, in line order (the MoE combine's input)."""
+    return x if group is None else _GatherFirst.apply(x, group, n)

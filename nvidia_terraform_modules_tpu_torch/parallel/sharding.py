@@ -40,7 +40,8 @@ class ShardingRules:
     model: Megatron's column-parallel (``attn_qkv``, ``mlp_up``: heads and
     FFN columns over ``tp``) and row-parallel (``attn_out``, ``mlp_down``)
     projections, the tied ``embed`` split on ``d_model``, norms
-    replicated."""
+    replicated; the expert stacks and the expert batches (``moe_act``,
+    ``moe_hidden``: ``[E, capacity, ...]``) split on ``E`` over ``ep``."""
 
     mesh: Mesh | WorldMesh
     # mesh axes carrying the batch dimension: ("dp",), ("slice", "dp"),
@@ -53,6 +54,8 @@ class ShardingRules:
     mlp_down: tuple = ("tp", None)         # [d_ff, d_model]
     moe_up: tuple = ("ep", None, "tp")     # [E, d_model, d_ff]
     moe_down: tuple = ("ep", "tp", None)   # [E, d_ff, d_model]
+    moe_act: tuple = ("ep", None, None)    # [E, capacity, d_model]
+    moe_hidden: tuple = ("ep", None, "tp")  # [E, capacity, d_ff]
     replicated: tuple = ()
 
     @property
@@ -97,7 +100,8 @@ def make_rules(mesh: Mesh | WorldMesh) -> ShardingRules:
     # no expert axis: MoE tensors replicate their expert dim
     return ShardingRules(mesh=mesh, data=data,
                          moe_up=(None, None, "tp"),
-                         moe_down=(None, "tp", None))
+                         moe_down=(None, "tp", None),
+                         moe_act=(), moe_hidden=(None, None, "tp"))
 
 
 def _pieces(spec: tuple, mesh: WorldMesh, ndim: int) -> list[tuple]:

@@ -6,7 +6,8 @@ The command a validation Job's container runs, once a device (torchrun, or
 one process a host under the indexed Job). Environment:
 
 - ``TPU_SMOKETEST_EXPECTED_DEVICES`` — the devices the world must hold;
-- ``TPU_SMOKETEST_LEVEL`` — psum | probes | burnin | full;
+- ``TPU_SMOKETEST_LEVEL`` — psum | probes | burnin | full (``--level``
+  on the command line overrides it);
 - ``TPU_SMOKETEST_PLATFORM=cpu`` — run on the CPU over gloo; without it
   the run takes the card (NCCL) and, with no card, exits 1 with a
   message: it never falls back to the CPU;
@@ -20,6 +21,7 @@ Local rank 0 of each host prints the host's one JSON line; every rank
 exits 0 iff the world's verdict is ``ok``.
 """
 
+import argparse
 import json
 import os
 import sys
@@ -27,8 +29,14 @@ import sys
 from .runner import run_smoketest
 
 
-def main() -> int:
-    level = os.environ.get("TPU_SMOKETEST_LEVEL", "probes")
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m nvidia_terraform_modules_tpu_torch.smoketest")
+    parser.add_argument("--level",
+                        default=os.environ.get("TPU_SMOKETEST_LEVEL",
+                                               "probes"),
+                        help="psum | probes | burnin | full")
+    level = parser.parse_args(argv).level
     try:
         result = run_smoketest(level=level)
     except RuntimeError as exc:

@@ -12,7 +12,12 @@ and, at deeper levels,
 3. the collective probes on every mesh axis pass and report bandwidth;
 4. a few steps of the sharded burn-in transformer lower the loss, and the
    serve shapes (greedy decode, the paged engine, its scheduler levers,
-   the paged decode kernel) are exact on the same pool. With
+   the paged decode kernel) are exact on the same pool;
+5. at ``full``, on two devices or more, the expert fabric and serving on
+   the mesh: an all-to-all over ``ep``, three MoE train steps with the
+   experts sharded over ``ep``, and the paged engine under ``rules=``
+   (its first tokens against a batch-1 forward). A world of one has no
+   fabric to prove: it sets ``full_skipped``. With
    ``TPU_SMOKETEST_CHECKPOINT_DIR`` (a spot pool's volume) the steps
    resume from the newest valid checkpoint and run supervised
    (``models/resilience.py``): a durable checkpoint each step, the SIGTERM
@@ -70,7 +75,7 @@ from ..parallel import (
     plan_multislice,
     psum_probe,
 )
-from ..parallel.collectives import world_max
+from ..parallel.collectives import all_to_all_probe, world_max
 from ..parallel.multihost import rank_device
 from ..telemetry import get_registry
 from ..utils.traffic import shared_prefix_prompts
@@ -92,10 +97,7 @@ NOT_PORTED = {
     "fleet_scale_ok": (("burnin", "full"), _FLEET),
     "aot_warm_ok": (("burnin", "full"), _FLEET),
     "prefix_cdn_ok": (("burnin", "full"), _FLEET),
-    "all_to_all_ep_ok": (("full",), "ROADMAP Queue A item 6"),
-    "moe_ok": (("full",), "ROADMAP Queue A item 6"),
     "pipeline_ok": (("full",), "ROADMAP Queue A item 8"),
-    "serving_ok": (("full",), "ROADMAP Queue A item 6"),
 }
 
 
@@ -263,6 +265,8 @@ def _suite(expected_devices, level, e, job, dev) -> tuple[bool, dict]:
 
     if level in ("burnin", "full") and ok:
         ok &= _burnin(checks, e, dev, ms_mesh, n_dev, leg, guarded)
+    if level == "full" and ok:
+        ok &= _full(checks, dev, n_dev, leg, guarded)
     return bool(ok), checks
 
 
@@ -488,5 +492,84 @@ def _serve_legs(checks, cfg, params, batch, rules, dev, gen, leg,
                     ("paged_decode_ok", paged_decode)):
         if not ok:
             break
+        ok &= leg(key[:-3], lambda: guarded(key, fn))
+    return bool(ok)
+
+
+def _full(checks, dev, n_dev, leg, guarded) -> bool:
+    """The reference's ``_run_full_level`` legs that the port runs: the
+    all-to-all over ``ep``, three MoE train steps with the experts sharded
+    over ``ep`` (``plan_mesh(n, ep=2, tp=1)``), and the paged engine under
+    ``rules=`` on ``plan_mesh(n)``, twice as many requests as slots, each
+    first token against a batch-1 ``forward`` of the gathered weights (no
+    eos: the loop never waits on the device). A world of one has no
+    fabric: the legs are skipped with ``full_skipped``, never passed
+    vacuously. ``pipeline_ok`` stays under ``not_ported``."""
+    if n_dev < 2:
+        checks["full_skipped"] = "ep/pp fabric needs >= 2 devices"
+        return True
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    meshes: dict[str, Any] = {}
+
+    def ep_mesh():
+        if "ep" not in meshes:
+            meshes["ep"] = build_mesh(plan_mesh(n_dev, ep=2, tp=1))
+        return meshes["ep"]
+
+    def all_to_all_ep():
+        # ep-suffixed keys: the probes level recorded an all_to_all over
+        # its own axis already — both measurements stay
+        pr = all_to_all_probe(ep_mesh(), axis="ep", n_elems=1 << 14)
+        checks["all_to_all_ep_gibps"] = round(
+            pr["bytes"] / max(pr["seconds"], 1e-9) / (1 << 30), 3)
+        return pr["ok"]
+
+    def moe():
+        mesh = ep_mesh()
+        rules = make_rules(mesh)
+        cfg = BurnInConfig(n_experts=2, d_ff=256,
+                           batch=max(8, 2 * mesh.shape["dp"]))
+        params = init_params(cfg, gen(2), device=dev, rules=rules)
+        step = make_train_step(cfg, rules)
+        batch = synthetic_batch(gen(3), cfg, rules=rules)
+        losses = []
+        for _ in range(3):
+            params, loss = step(params, batch)
+            losses.append(float(loss))
+        checks["moe_first_loss"] = round(losses[0], 4)
+        checks["moe_last_loss"] = round(losses[-1], 4)
+        return losses[-1] < losses[0]
+
+    def serving():
+        mesh = build_mesh(plan_mesh(n_dev))
+        rules = make_rules(mesh)
+        slots = mesh.shape["dp"]
+        cfg = BurnInConfig(batch=max(2, slots))
+        params = init_params(cfg, gen(6), device=dev, rules=rules)
+        n_req, plen, n_new = 2 * slots, 8, 4
+        prompts = torch.randint(0, cfg.vocab, (n_req, plen),
+                                generator=gen(7), device=dev)
+        engine = make_serve_engine(params, cfg, max_len=plen + n_new,
+                                   device=dev)
+        outs = engine([prompts[i] for i in range(n_req)], n_new,
+                      slots=slots, rules=rules)
+        full = gather_params(params, rules)
+        ref_first = torch.stack([
+            forward(full, prompts[i:i + 1], cfg)[0, -1].argmax(dim=-1)
+            for i in range(n_req)])
+        firsts = torch.stack([o[0] for o in outs])
+        checks["serving_requests"] = n_req
+        checks["serving_slots"] = slots
+        checks["serving_kv_utilisation"] = \
+            engine.last_stats["kv"]["utilisation"]
+        return (all(tuple(o.shape) == (n_new,) for o in outs)
+                and bool((firsts == ref_first).all()))
+
+    ok = True
+    for key, fn in (("all_to_all_ep_ok", all_to_all_ep), ("moe_ok", moe),
+                    ("serving_ok", serving)):
         ok &= leg(key[:-3], lambda: guarded(key, fn))
     return bool(ok)

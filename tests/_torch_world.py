@@ -158,7 +158,8 @@ def sharded_train(rank, n, args):
             ("tp_heads", dict(n_heads=2, n_kv_heads=None), dict(tp=4)),
             ("tp_kv_heads", dict(n_kv_heads=2), dict(tp=4)),
             ("tp_d_ff", dict(d_ff=66), dict(tp=4)),
-            ("moe", dict(n_experts=2), dict(tp=2)),
+            # MoE runs over dp, ep and tp; over sp it is refused
+            ("moe", dict(n_experts=2), dict(tp=1, sp=2)),
             ("sp_with_tp", {}, dict(tp=2, sp=2)),
             ("sp_alone", {}, dict(tp=1, sp=4))):
         cfg = dataclasses.replace(base, **over)
@@ -391,6 +392,167 @@ def plant_checkpoint(rank, n, args):
     save_checkpoint(args["dir"], args["step"], params,
                     layout=abstract_params(cfg, rules, device="cpu"))
     return dict(rules.mesh.shape)
+
+
+def moe_ep(rank, n, args):
+    """MoE with experts over ``ep`` on ``args["plan"]`` (axis names and
+    shape): for each case, this rank's ``forward_and_aux`` logits (its
+    batch rows) and aux, one SGD step's gathered parameters, the losses of
+    ``args["train_steps"]`` steps and, with ``"adamw"``, a ZeRO-1 AdamW
+    step's gathered parameters; with ``args["ckpt"]``, a checkpoint round
+    trip of the case's sharded parameters."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        AdamWConfig,
+        BurnInConfig,
+        Checkpointer,
+        abstract_params,
+        forward_and_aux,
+        gather_params,
+        make_adamw_train_step,
+        make_train_step,
+        opt_state_shardings,
+        params_from_numpy,
+        params_to_numpy,
+        shard_batch,
+        shard_params,
+        tree_leaves,
+    )
+    from nvidia_terraform_modules_tpu_torch.models.burnin import _tree_map
+    from nvidia_terraform_modules_tpu_torch.parallel import (
+        MeshPlan,
+        build_mesh,
+        make_rules,
+    )
+    from nvidia_terraform_modules_tpu_torch.parallel.sharding import (
+        gather_shards,
+    )
+
+    names, shape = args["plan"]
+    rules = make_rules(build_mesh(MeshPlan(tuple(names), tuple(shape))))
+    out = {"mesh": dict(rules.mesh.shape),
+           "data_index": rules.mesh.index(rules.data)}
+    for case in args["cases"]:
+        cfg = BurnInConfig(**case["cfg"], dtype=torch.float32)
+        full = params_from_numpy(case["params"], cfg, device="cpu")
+        params = shard_params(full, rules)
+        batch = shard_batch(tuple(torch.from_numpy(x).long()
+                                  for x in case["batch"]), rules)
+        rec = {"local": [tuple(p.shape) for p in tree_leaves(params)]}
+        with torch.no_grad():
+            logits, aux = forward_and_aux(params, batch[0], cfg, rules)
+        rec["logits"], rec["aux"] = logits.numpy(), float(aux)
+        if "lr" in case:
+            step = make_train_step(cfg, rules, lr=case["lr"], device="cpu")
+            p, loss = step(params, batch)
+            rec["sgd_loss"] = float(loss)
+            rec["sgd"] = params_to_numpy(gather_params(p, rules))
+            losses = [float(loss)]
+            for _ in range(args["train_steps"] - 1):
+                p, loss = step(p, batch)
+                losses.append(float(loss))
+            rec["losses"] = losses
+        if "adamw" in case:
+            init_state, astep = make_adamw_train_step(
+                cfg, rules, AdamWConfig(**case["adamw"]), device="cpu")
+            state = init_state(params)
+            p = params
+            for _ in range(case["adamw_steps"]):
+                p, state, loss = astep(p, state, batch)
+            rec["adamw_loss"] = float(loss)
+            specs = opt_state_shardings(full, rules)["mu"]
+            rec["adamw"] = {
+                "params": params_to_numpy(gather_params(p, rules)),
+                **{k: params_to_numpy(_tree_map(
+                    lambda m, spec: gather_shards(m, spec, rules.mesh),
+                    state[k], specs)) for k in ("mu", "nu")}}
+            rec["zero1_specs"] = specs
+            rec["zero1_local"] = [tuple(m.shape)
+                                  for m in tree_leaves(state["mu"])]
+        if rank:
+            for key in ("sgd", "adamw"):
+                rec.pop(key, None)
+        out[case["name"]] = rec
+    if args.get("ckpt"):
+        case = args["cases"][0]
+        cfg = BurnInConfig(**case["cfg"], dtype=torch.float32)
+        params = shard_params(params_from_numpy(case["params"], cfg,
+                                                device="cpu"), rules)
+        with Checkpointer(args["ckpt"]) as ck:
+            ck.save(1, params, layout=abstract_params(cfg, rules,
+                                                      device="cpu"))
+        with Checkpointer(args["ckpt"]) as ck:
+            restored, at, _ = ck.restore(cfg, rules, device="cpu")
+        out["ckpt"] = {"step": at, "equal": all(
+            torch.equal(a, b) and a.shape == b.shape for a, b in zip(
+                tree_leaves(params), tree_leaves(restored)))}
+    return out
+
+
+def serve_sharded(rank, n, args):
+    """The serve engine under ``run(rules=)`` on ``plan_mesh(n,
+    tp=args["tp"])``: for each case, the tokens of a run from the case's
+    weights (this rank's shards), the shape of this rank's paged pool, and
+    the logits of ``forward_paged(rules=)`` over the first prompt — a
+    prefill of all but its last token, then a T=1 step through the
+    tables; then ``slots`` that the data axes do not divide, as its
+    exception."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        BurnInConfig,
+        forward_paged,
+        init_paged_cache,
+        make_serve_engine,
+        params_from_numpy,
+        shard_params,
+    )
+    from nvidia_terraform_modules_tpu_torch.models.decode import (
+        paged_params,
+    )
+    from nvidia_terraform_modules_tpu_torch.parallel import (
+        build_mesh,
+        make_rules,
+        plan_mesh,
+    )
+
+    rules = make_rules(build_mesh(plan_mesh(n, tp=args["tp"])))
+    out = {"mesh": dict(rules.mesh.shape)}
+    for case in args["cases"]:
+        cfg = BurnInConfig(**case["cfg"], dtype=torch.float32)
+        params = shard_params(params_from_numpy(case["params"], cfg,
+                                                device="cpu"), rules)
+        engine = make_serve_engine(params, cfg, device="cpu",
+                                   **case["engine"])
+        prompts = [torch.from_numpy(p).long() for p in case["prompts"]]
+        toks = engine(prompts, case["n_new"], rules=rules, **case["run"])
+        pool = init_paged_cache(cfg, 1, 16, block_size=4, num_blocks=5,
+                                rules=rules, device="cpu",
+                                cache_dtype=case["engine"].get(
+                                    "cache_dtype", "bf16"))
+        pool["block_tables"][0, :4] = torch.arange(1, 5, dtype=torch.int32)
+        tree = paged_params(params, cfg, rules)
+        seq = prompts[0][None]
+        head, _ = forward_paged(tree, seq[:, :-1], pool, cfg, rules)
+        last, _ = forward_paged(tree, seq[:, -1:], pool, cfg, rules,
+                                paged_kernel="on")
+        out[case["name"]] = {
+            "tokens": [t.tolist() for t in toks],
+            "pool": tuple(pool["k"][0].shape),
+            "logits": torch.cat([head, last], dim=1)[0].numpy(),
+            "kv": engine.last_stats["kv"]["high_water"]}
+    case = args["cases"][0]
+    cfg = BurnInConfig(**case["cfg"], dtype=torch.float32)
+    engine = make_serve_engine(shard_params(params_from_numpy(
+        case["params"], cfg, device="cpu"), rules), cfg, device="cpu",
+        max_len=16)
+    try:
+        engine([torch.tensor([1, 2])], 2, slots=3, rules=rules)
+        out["odd_slots"] = None
+    except ValueError as exc:
+        out["odd_slots"] = str(exc)
+    return out
 
 
 def smoketest(rank, n, args):

@@ -1595,3 +1595,90 @@ def test_zero1_world_of_one_on_card_equals_unsharded_step(cuda):
                     tree_leaves([pu, su["mu"], su["nu"]])):
         assert torch.equal(a, b)
     assert torch.equal(ss["step"], su["step"])
+
+
+def _nccl_world_of_one(cuda):
+    """An NCCL world of one on the card (or the one already up) and its
+    rules; returns ``(rules, owned)``."""
+    import torch.distributed as dist
+
+    from nvidia_terraform_modules_tpu_torch.parallel import (
+        make_rules,
+        maybe_initialize_distributed,
+    )
+
+    owned = not dist.is_initialized()
+    maybe_initialize_distributed({}, device=cuda)
+    rules = make_rules(build_mesh(plan_mesh(1)))
+    assert type(rules.mesh).__name__ == "WorldMesh"
+    return rules, owned
+
+
+@pytest.mark.parametrize("cache_dtype", ["bf16", "int8"])
+def test_serve_rules_world_of_one_on_card_equals_unsharded(cuda,
+                                                           cache_dtype):
+    """``run(rules=)`` of an NCCL world of one serves the unsharded
+    engine's tokens bit for bit (the same operations: no collective), its
+    waves replayed from a graph of their own that holds K7 (K7-int8 on
+    the int8 pool), one a layer."""
+    import torch.distributed as dist
+
+    cfg = BurnInConfig(vocab=256, d_model=128, n_heads=4, n_kv_heads=2,
+                       d_ff=256, n_layers=2, attn="flash", rope=True,
+                       dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(4),
+                         device=cuda)
+    g = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).to(cuda)
+               for n in (16, 24, 8, 32, 16)]
+    engine = make_serve_engine(params, cfg, max_len=48, kv_block=16,
+                               cache_dtype=cache_dtype, device=cuda)
+    plain = engine(prompts, 8, slots=2)
+    kernel = "paged_decode" + ("_int8" if cache_dtype == "int8" else "")
+    rules, owned = _nccl_world_of_one(cuda)
+    try:
+        engine(prompts[:2], 2, slots=2, rules=rules)     # capture, warm-up
+        before = launches[kernel]
+        sharded = engine(prompts, 8, slots=2, rules=rules)
+        waves = engine.last_stats["waves"]
+    finally:
+        if owned:
+            dist.destroy_process_group()
+    assert engine.captures == 2            # one graph each, kept
+    assert launches[kernel] - before == waves * cfg.n_layers
+    for a, b in zip(plain, sharded):
+        assert torch.equal(a, b)
+
+
+def test_moe_rules_world_of_one_on_card_equals_unsharded_step(cuda):
+    """``make_train_step(cfg, rules)`` of an MoE config (4 experts, top-2)
+    on an NCCL world of one runs the unsharded step's operations: 3 steps
+    (the split backward, K3 + K4, deterministic) give the same losses and
+    parameters bit for bit."""
+    import torch.distributed as dist
+
+    from nvidia_terraform_modules_tpu_torch.models import make_train_step
+
+    cfg = dataclasses.replace(_train_state_cfg(), n_experts=4,
+                              router_top_k=2)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(2),
+                         device=cuda)
+    batch = synthetic_batch(torch.Generator(device=cuda).manual_seed(3),
+                            cfg, device=cuda)
+    rules, owned = _nccl_world_of_one(cuda)
+    try:
+        runs = []
+        for r in (rules, None):
+            step = make_train_step(cfg, r, lr=0.1, device=cuda)
+            p, losses = params, []
+            for _ in range(3):
+                p, loss = step(p, batch)
+                losses.append(loss)
+            runs.append((p, losses))
+    finally:
+        if owned:
+            dist.destroy_process_group()
+    (ps, ls), (pu, lu) = runs
+    assert all(torch.equal(a, b) for a, b in zip(ls, lu))
+    for a, b in zip(tree_leaves(ps), tree_leaves(pu)):
+        assert torch.equal(a, b)

@@ -169,11 +169,11 @@ def _keyword_defaults(fn) -> dict:
 _NOT_DEFAULT = {
     "make_serve_engine": {"host_blocks": (8, "item 9"),
                           "host_swap": ("sync", "item 9")},
-    "run": {"rules": (object(), "item 6"),
-            "admission": (object(), "item 9")},
+    "run": {"admission": (object(), "item 9")},
 }
 # keywords the port now serves, at a value other than the reference's
-# default that leaves this traffic's tokens as they are (a top-k = 1
+# default that leaves this traffic's tokens as they are (run's rules=
+# needs a torch.distributed world: tests/test_torch_serving_sharded.py) (a top-k = 1
 # sampler is the greedy engine; a telemetry registry records, it changes
 # no token; speculation, greedy only and with per-trip eos checks, is
 # served by an engine of its own)

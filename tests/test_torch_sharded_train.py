@@ -8,7 +8,7 @@ attention (2 KV heads) — for 3 SGD steps each from the reference's
 ``init_params`` weights and one seeded numpy batch. It also checks that
 ``shard_params`` and ``gather_params`` reassemble the tree exactly, and
 the refusals (a ``tp`` that the heads, KV heads or FFN do not divide; MoE
-over an axis above 1; ``sp`` over the world). In this process, a world of
+over ``sp``, since it runs over dp, ep and tp; ``sp`` over the world). In this process, a world of
 one runs the unsharded step's operations bit for bit.
 
 Tolerances (f32): the tied head's partial logits and the mean over dp

@@ -46,9 +46,9 @@ SERVE_LEGS = ("decode_ok", "serve_engine_ok", "serve_sched_ok",
 
 @pytest.fixture(scope="module")
 def world4(tmp_path_factory):
-    """The world of 4: burnin, probes, and psum expecting 8 devices; each
-    rank's checks of each run."""
-    runs = [("burnin", WORLD4), ("probes", WORLD4),
+    """The world of 4: full (burnin's legs and the full level's), probes,
+    and psum expecting 8 devices; each rank's checks of each run."""
+    runs = [("full", WORLD4), ("probes", WORLD4),
             ("psum", {**WORLD4, "TPU_SMOKETEST_EXPECTED_DEVICES": "8"})]
     return run_world("smoketest", 4, tmp_path_factory.mktemp("smoke"),
                      {"runs": runs}, timeout=180)
@@ -77,6 +77,30 @@ def test_burnin_level_in_a_world_of_four(world4):
                             if k.endswith("_ok")}, sort_keys=True)
                 for runs in world4}
     assert len(verdicts) == 1
+
+
+def test_full_level_in_a_world_of_four(world4):
+    """The full level's legs as the reference's ``_run_full_level`` keys
+    them: the all-to-all over ``ep`` (dp 2 × ep 2), three MoE steps with
+    the experts over ``ep`` lowering the loss, and the engine under
+    ``rules=`` on ``plan_mesh(4)`` (tp 4, so one slot and 2 requests);
+    ``pipeline_ok`` alone stays under ``not_ported``."""
+    for runs in world4:
+        c = runs[0]["checks"]
+        assert c["level"] == "full"
+        assert c["all_to_all_ep_ok"] is True and c["all_to_all_ep_gibps"] > 0
+        assert c["moe_ok"] is True
+        assert c["moe_last_loss"] < c["moe_first_loss"]
+        assert c["serving_ok"] is True
+        assert c["serving_requests"] == 2 and c["serving_slots"] == 1
+        assert c["serving_kv_utilisation"] > 0
+        assert "full_skipped" not in c
+        full_listed = {k for k in c["not_ported"]
+                       if k in ("all_to_all_ep_ok", "moe_ok", "serving_ok",
+                                "pipeline_ok")}
+        assert full_listed == {"pipeline_ok"}
+        for leg in ("all_to_all_ep", "moe", "serving"):
+            assert leg in c["leg_seconds"]
 
 
 def test_probes_level_in_a_world_of_four(world4):
@@ -122,8 +146,9 @@ def test_every_reference_leg_runs_or_is_listed_not_ported(tmp_path):
     """Each ``*_ok`` key of the reference's runner is either run by the
     port at ``full`` (with a checkpoint directory, so the supervised
     burn-in runs) or listed under ``not_ported`` with its ROADMAP item;
-    the rest need more than one slice, a failing checkpoint store, or an
-    ``ep`` axis (asserted elsewhere)."""
+    the rest need more than one slice, a failing checkpoint store, an
+    ``ep`` axis, or — the full level's fabric legs — two devices (a world
+    of one sets ``full_skipped``; the world of 4 runs them)."""
     import nvidia_terraform_modules_tpu.smoketest.runner as jrunner
 
     source = Path(jrunner.__file__).read_text()
@@ -143,10 +168,12 @@ def test_every_reference_leg_runs_or_is_listed_not_ported(tmp_path):
     assert not run_keys & set(listed)
     conditional = {"dcn_psum_ok", "hier_psum_ok", "burnin_checkpoint_ok",
                    "device_count_ok", "all_gather_ok", "reduce_scatter_ok",
-                   "ring_permute_ok", "all_to_all_ok"}
+                   "ring_permute_ok", "all_to_all_ok", "all_to_all_ep_ok",
+                   "moe_ok", "serving_ok"}
     assert ref_keys - run_keys - set(listed) <= conditional
-    assert {"all_to_all_ep_ok", "moe_ok", "pipeline_ok",
-            "serving_ok"} <= set(listed)
+    assert r.checks["full_skipped"] == "ep/pp fabric needs >= 2 devices"
+    assert "pipeline_ok" in listed
+    assert not {"all_to_all_ep_ok", "moe_ok", "serving_ok"} & set(listed)
 
 
 def _ckpt_env(d):
