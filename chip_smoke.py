@@ -113,7 +113,20 @@ It builds the port's CUDA kernels from ``csrc/`` with nvcc (into
   ``run(rules=)``, its tokens equal to the ``rules=None`` engine's bit for
   bit (K1 and K7 counted, its replayed wave timed), and at f32 equal to
   solo decode; and the CLI at ``--level full`` as a world of one, which
-  skips the fabric legs with ``full_skipped``.
+  skips the fabric legs with ``full_skipped`` and lists no full-level leg
+  as not ported;
+- the pipeline and the sequence over processes: GPipe and 1F1B
+  (``parallel/pipeline.py``) at f32 on ``[cuda:0] * pp`` for pp 2 and 4
+  and on a world of one over NCCL, against the unpipelined model through
+  the same kernels (K1 and K5, counted by name), with planted faults (a
+  stage's layers reversed, a microbatch dropped) that the check must
+  catch; the flagship-width pipeline step (8 microbatches of one 4,096-row
+  sequence over 2 stages on the card: step ms, peak memory and K1/K5
+  launches of GPipe and 1F1B beside the unpipelined step, a falling
+  loss, MFU); and ``attn="ring"``/``"ulysses"`` through the world-of-one
+  rules (K2 and K5 with f32 outputs, or K1 and K5, by name; the f32 loss
+  equal to the flash step's bit for bit). One card holds one NCCL rank,
+  so the multi-rank hops are proven in gloo worlds on the CPU.
 
 Every phase prints one JSON line; any failure raises and the script exits
 non-zero. Without a CUDA device it exits 1 and prints no result; it
@@ -272,31 +285,43 @@ def kernel_counts(prof, name: str) -> dict:
             and name in evt.key}
 
 
-def profiled(run, name: str, expect, what: str) -> tuple[dict, dict, list]:
+def profiled(run, name: str, expect, what: str, roles=None,
+             warm: bool = False) -> tuple[dict, dict, list]:
     """``run()`` under ``torch.profiler`` (CPU and CUDA; ending in a
     synchronise): its :func:`profile_summary`, the launches of the device
-    kernels whose name holds ``name``, and the count of each attempt.
-    ``expect()`` of them must show; an empty trace leaves the check "not
-    measured". A trace short of them is taken once more: one MoE serve
-    profile on an H100 held 248 of its 496 replayed K7 records, where
-    another run of the same code held all 496 and the launch counts were
-    right, so the tracer can drop a block of records — a path that
-    skipped the kernel would fall short in both traces."""
-    from torch.profiler import ProfilerActivity, profile
+    kernels whose name holds ``name``, and what each attempt counted:
+    ``roles`` of those launches, by default their sum. That must equal
+    ``expect()``; an empty trace leaves the check "not measured". A trace
+    short of them is taken once more: one MoE serve profile on an H100
+    held 248 of its 496 replayed K7 records, where another run of the
+    same code held all 496 and the launch counts were right, so the
+    tracer can drop a block of records — a path that skipped the kernel
+    would fall short in both traces. ``warm``: ``run()`` once first in the
+    profiler's warm-up step, whose records are not kept — without it, each
+    of two profiles of one GPipe step on an H100 held 15 of its 16 K1
+    records, and a ring step's 7 of its 8 K2, though the wrappers counted
+    every launch."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from nvidia_terraform_modules_tpu_torch.utils.timing import sync
 
     attempts = []
     for _ in range(2):
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1) if warm else None) as prof:
+            if warm:
+                run()
+                sync()
+                prof.step()
             t0 = time.monotonic()
             run()
             sync()
             wall_ms = (time.monotonic() - t0) * 1e3
         summary = profile_summary(prof, wall_ms)
         by_name = kernel_counts(prof, name)
-        attempts.append(sum(by_name.values()))
+        attempts.append(roles(by_name) if roles else sum(by_name.values()))
         if summary["device_ms"] is None or attempts[-1] == expect():
             return summary, by_name, attempts
     raise AssertionError(f"{what}: {name} kernels {by_name} in each of two "
@@ -2935,6 +2960,69 @@ def _leaf_names(tree, prefix=""):
     return [prefix[:-1]]
 
 
+def _grads_of(params, batch, cfg, rules=None):
+    """One gradient pass: the loss and the gradient leaves, f32."""
+    from nvidia_terraform_modules_tpu_torch.models import (
+        make_grads_fn,
+        tree_leaves,
+    )
+
+    loss, grads = make_grads_fn(cfg, rules)(params, batch)
+    return loss.float(), [g.float() for g in tree_leaves(grads)]
+
+
+def _flash_grads(params, batch, cfg):
+    """The flash step's gradient pass (``attn="flash"``, no rules) in f32
+    and in bf16 on the same params and batch: :func:`_grads_vs_flash`'s
+    reference."""
+    import dataclasses
+
+    import torch
+
+    flash_cfg = dataclasses.replace(cfg, attn="flash")
+    return (_grads_of(_as_f32(params), batch, dataclasses.replace(
+        flash_cfg, dtype=torch.float32)), _grads_of(params, batch, flash_cfg))
+
+
+def _grads_vs_flash(params, batch, cfg, rules, label: str,
+                    ref=None) -> dict:
+    """One gradient pass of ``cfg`` under ``rules`` against the flash
+    step's in f32 and in bf16 on the same bf16 params and batch (``ref``,
+    or :func:`_flash_grads`). Two bf16 passes differ by their roundings by
+    about 1e-2 relative L2 on some gradients, so each gradient of the
+    ``label`` step is held to be no further (relative L2) from the f32
+    pass than the flash step's is, times ``RING_VS_FLASH``, and within
+    ``BWD_TOL["bf16"]``'s max-abs of it; its loss to the flash step's
+    within ``BWD_TOL["bf16"]``. Raises past either; returns the record."""
+    (loss32, g32), (loss_f, g_flash) = ref or _flash_grads(params, batch,
+                                                           cfg)
+    loss_r, g_ring = _grads_of(params, batch, cfg, rules)
+    grad_errors([loss_r], [loss_f], "bf16", f"{label} vs flash step loss")
+    tol_abs = BWD_TOL["bf16"][0]
+    leaves = []
+    for name, r, f, t in zip(_leaf_names(params), g_ring, g_flash, g32):
+        t_norm = t.norm().item()
+        ring_l2 = ((r - t).norm().item() / t_norm) if t_norm else 0.0
+        flash_l2 = ((f - t).norm().item() / t_norm) if t_norm else 0.0
+        err = (r - t).abs().max().item()
+        lim = tol_abs * max(1.0, t.abs().max().item())
+        l2_lim = max(BWD_TOL["f32"][1], RING_VS_FLASH * flash_l2)
+        leaves.append({"leaf": name, f"{label}_rel_l2": ring_l2,
+                       "flash_rel_l2": flash_l2, f"{label}_max_abs": err})
+        if not (err <= lim and ring_l2 <= l2_lim):
+            raise AssertionError(
+                f"{label} step gradient {name} against the f32 step: "
+                f"max-abs {err} (limit {lim}), relative L2 {ring_l2} (limit "
+                f"{l2_lim}; the flash step's {flash_l2})")
+    key = f"{label}_rel_l2"
+    return {"loss_f32": loss32.item(), "loss_flash": loss_f.item(),
+            f"loss_{label}": loss_r.item(),
+            f"worst_{label}_rel_l2": max(leaves, key=lambda x: x[key]),
+            "worst_ratio": max(leaves, key=lambda x: x[key]
+                               / max(x["flash_rel_l2"], 1e-30)),
+            f"{label}_vs_flash_limit": RING_VS_FLASH}
+
+
 def train_ring_flagship(params, dev, flash_step_ms) -> tuple[dict, dict]:
     """The flagship burn-in step with ``attn="ring"`` on a mesh of
     ``RING_SP`` ring members on the one card: its loss on the flash step's
@@ -2949,10 +3037,8 @@ def train_ring_flagship(params, dev, flash_step_ms) -> tuple[dict, dict]:
     import torch
 
     from nvidia_terraform_modules_tpu_torch.models import (
-        make_grads_fn,
         make_train_step,
         train_step_flops,
-        tree_leaves,
     )
     from nvidia_terraform_modules_tpu_torch.ops import _build
     from nvidia_terraform_modules_tpu_torch.utils.timing import (
@@ -2963,47 +3049,7 @@ def train_ring_flagship(params, dev, flash_step_ms) -> tuple[dict, dict]:
     cfg, batch, rules = _ring_train(dev)
     state = {"p": params}
 
-    # one gradient pass of the ring, of the flash step and of the flash
-    # step in f32 on the same params and batch. Two bf16 passes differ by
-    # their roundings by about 1e-2 relative L2 on some gradients, so each
-    # gradient of the ring is held to be no further from the f32 pass
-    # than the flash step's is (RING_VS_FLASH), and the loss to the flash
-    # step's within BWD_TOL["bf16"]
-    def grads_of(cfg_, rules_=None, p=params):
-        loss, grads = make_grads_fn(cfg_, rules_)(p, batch)
-        return loss.float(), [g.float() for g in tree_leaves(grads)]
-
-    flash_cfg = dataclasses.replace(cfg, attn="flash")
-    loss32, g32 = grads_of(dataclasses.replace(flash_cfg,
-                                               dtype=torch.float32),
-                           p=_as_f32(params))
-    loss_f, g_flash = grads_of(flash_cfg)
-    loss_r, g_ring = grads_of(cfg, rules)
-    grad_errors([loss_r], [loss_f], "bf16", "ring vs flash step loss")
-    tol_abs = BWD_TOL["bf16"][0]
-    leaves = []
-    for name, r, f, t in zip(_leaf_names(params), g_ring, g_flash, g32):
-        t_norm = t.norm().item()
-        ring_l2 = ((r - t).norm().item() / t_norm) if t_norm else 0.0
-        flash_l2 = ((f - t).norm().item() / t_norm) if t_norm else 0.0
-        err = (r - t).abs().max().item()
-        lim = tol_abs * max(1.0, t.abs().max().item())
-        l2_lim = max(BWD_TOL["f32"][1], RING_VS_FLASH * flash_l2)
-        leaves.append(dict(leaf=name, ring_rel_l2=ring_l2,
-                           flash_rel_l2=flash_l2, ring_max_abs=err))
-        if not (err <= lim and ring_l2 <= l2_lim):
-            raise AssertionError(
-                f"ring step gradient {name} against the f32 step: max-abs "
-                f"{err} (limit {lim}), relative L2 {ring_l2} (limit "
-                f"{l2_lim}; the flash step's {flash_l2})")
-    vs_flash = dict(
-        loss_f32=loss32.item(), loss_flash=loss_f.item(),
-        loss_ring=loss_r.item(),
-        worst_ring_rel_l2=max(leaves, key=lambda x: x["ring_rel_l2"]),
-        worst_ratio=max(leaves, key=lambda x: x["ring_rel_l2"]
-                        / max(x["flash_rel_l2"], 1e-30)),
-        ring_vs_flash_limit=RING_VS_FLASH)
-    del g32, g_flash, g_ring
+    vs_flash = _grads_vs_flash(params, batch, cfg, rules, "ring")
 
     def make_sgd(**over):
         step = make_train_step(dataclasses.replace(cfg, **over), rules,
@@ -3894,15 +3940,14 @@ def serve_rules_flagship(params, cfg, dev, prompts, max_len,
 def smoketest_cli_full() -> dict:
     """The CLI at ``--level full`` as a world of one over NCCL: it exits
     0, every burn-in leg passes, the full level's fabric legs are skipped
-    with ``full_skipped`` (one device has no ep fabric), and
-    ``pipeline_ok`` is the only full-level leg under ``not_ported``."""
+    with ``full_skipped`` (one device has no ep or pp fabric), and no
+    full-level leg is left under ``not_ported``."""
     checks, wall_s = _run_cli("full")
     _smoketest_verdict(checks, "smoketest_cli_full")
     full_legs = {"all_to_all_ep_ok", "moe_ok", "serving_ok", "pipeline_ok"}
     listed = sorted(full_legs & set(checks["not_ported"]))
     if checks.get("level") != "full" or "full_skipped" not in checks or \
-            listed != ["pipeline_ok"] or full_legs & {
-                k for k in checks if k.endswith("_ok")}:
+            listed or full_legs & {k for k in checks if k.endswith("_ok")}:
         raise AssertionError(f"smoketest_cli_full: level "
                              f"{checks.get('level')}, full_skipped "
                              f"{checks.get('full_skipped')}, listed "
@@ -3911,6 +3956,458 @@ def smoketest_cli_full() -> dict:
                 full_skipped=checks["full_skipped"],
                 full_legs_not_ported=listed,
                 leg_seconds=checks["leg_seconds"])
+
+
+# the pipeline's exactness config (f32) and its flagship: FLAGSHIP_TRAIN's
+# widths and depth, one row a microbatch, 8 microbatches (32,768 tokens a
+# step) over 2 stages on the one card
+PIPE_EXACT = dict(vocab=512, d_model=256, n_heads=4, d_ff=512, n_layers=4,
+                  seq_len=256, microbatch=2, n_microbatches=4)
+PIPE_FLAGSHIP_PP, PIPE_FLAGSHIP_M = 2, 8
+PIPE_WARM, PIPE_TIMED = 2, 5
+# the reference tests' tolerances (tests/test_pipeline.py): loss relative,
+# gradients (rtol, atol) — GPipe against the unpipelined model, 1F1B
+# against the microbatch mean
+PIPE_TOL = {"loss": 1e-5, "gpipe": (2e-4, 2e-5), "1f1b": (1e-4, 1e-5)}
+# train_ring_world_one: the ring's and Ulysses' losses over 2 bf16 SGD
+# steps against the flash step's (PR 16's runs differed by 9.5e-6)
+WORLD_ONE_LOSS_REL = 1e-3
+
+
+def _flash_named(by_name: dict) -> dict:
+    """The flash kernels of a profile by role, from their template
+    arguments: K1 and K2 share ``flash_fwd_*`` (K2 ``..., true>``), K5 and
+    K4 ``flash_bwd_kv_*`` (K5 ``..., true>``; its output type is the
+    instance's second argument, ``float`` for the ring's f32 outputs)."""
+    import re
+
+    out = {"k1": 0, "k2": 0, "k5": 0, "k5_f32_out": 0, "other": 0}
+    for key, n in by_name.items():
+        fwd = re.search(r"flash_fwd_\w+<(?:\d+, )?(true|false)>", key)
+        bwd = re.search(r"flash_bwd_kv_\w+<([^>]*?)(true|false)>", key)
+        if fwd:
+            out["k2" if fwd.group(1) == "true" else "k1"] += n
+        elif bwd and bwd.group(2) == "true":
+            args = [a.strip() for a in bwd.group(1).split(",")]
+            f32 = "float" in args or "mma" not in key
+            out["k5_f32_out" if f32 else "k5"] += n
+        else:
+            out["other"] += n
+    return out
+
+
+def _flash_profile(run, expect: dict, what: str) -> dict:
+    """The flash kernels of one ``run()`` by role (:func:`_flash_named`),
+    profiled after a warm-up step (:func:`profiled`): each role of
+    ``expect`` with exactly its count, no other flash kernel."""
+    want = {"k1": 0, "k2": 0, "k5": 0, "k5_f32_out": 0, "other": 0,
+            **expect}
+    summary, named, attempts = profiled(run, "flash_", lambda: want, what,
+                                        roles=_flash_named, warm=True)
+    if summary["device_ms"] is None:
+        return {"not_measured": True}
+    return {**_flash_named(named), "profiles": len(attempts)}
+
+
+def _pipe_check(got, ref, schedule: str, what: str) -> dict:
+    """The loss and every gradient of ``got`` against ``ref`` (both
+    ``(loss, grads)``) at ``PIPE_TOL``: elementwise ``|g - r| <= atol +
+    rtol·|r|``. Raises past it; returns the worst of each."""
+    from nvidia_terraform_modules_tpu_torch.parallel.pipeline import _flat
+
+    (loss, grads), (rloss, rgrads) = got, ref
+    rtol, atol = PIPE_TOL[schedule]
+    loss_rel = abs(float(loss) - float(rloss)) / abs(float(rloss))
+    worst = 0.0
+    for g, r in zip(_flat(grads), _flat(rgrads)):
+        g, r = g.float(), r.float()
+        worst = max(worst, ((g - r).abs() - rtol * r.abs()).max().item())
+    if not (loss_rel <= PIPE_TOL["loss"] and worst <= atol):
+        raise AssertionError(f"{what}: loss rel err {loss_rel} (limit "
+                             f"{PIPE_TOL['loss']}), gradient excess "
+                             f"{worst} over rtol {rtol} (limit {atol})")
+    return {"loss_rel_err": loss_rel, "grad_excess_over_rtol": worst}
+
+
+def _pipe_batch(cfg, rows: int, dev, seed: int):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    stream = torch.randint(0, cfg.vocab, (rows, cfg.seq_len + 1),
+                           generator=g, device=dev)
+    return stream[:, :-1], stream[:, 1:]
+
+
+def _pipe_reference(params, batch, cfg):
+    """The unpipelined model's loss and gradients (``reference_loss_fn``,
+    the stage's kernels on the card), in the pipeline's tree."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.parallel.pipeline import (
+        _flat,
+        _leaves,
+        _unflat,
+        reference_loss_fn,
+    )
+
+    with torch.enable_grad():
+        live = _leaves(params, True)
+        loss = reference_loss_fn(live, batch, cfg)
+        got = torch.autograd.grad(loss, _flat(live))
+    return loss.detach(), _unflat(params, got)
+
+
+def pipeline_exact(dev) -> tuple[dict, dict]:
+    """The pipeline on the card at f32 (``PIPE_EXACT``): GPipe and 1F1B on
+    ``[cuda:0] * pp`` for pp 2 and 4, and on a world of one over NCCL (pp
+    1: the world form, one rank its only stage), each against the
+    unpipelined ``reference_loss_fn`` through the same kernels at
+    ``PIPE_TOL``. Planted faults must fail that check: a stage's layers
+    applied in reverse order (both schedules) and the last microbatch
+    dropped from GPipe's ticks. K1 and K5 counted by name in a profile of
+    one GPipe and one 1F1B step at pp 2 (:func:`_flash_profile`). Returns
+    the record and the launch counts of the checked runs."""
+    import torch
+    import torch.distributed as dist
+
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+    from nvidia_terraform_modules_tpu_torch.parallel import (
+        MeshPlan,
+        PipelineConfig,
+        build_mesh,
+        init_pipeline_params,
+        maybe_initialize_distributed,
+    )
+    from nvidia_terraform_modules_tpu_torch.parallel import pipeline as pl
+
+    cfg = PipelineConfig(**PIPE_EXACT, dtype=torch.float32)
+    params = init_pipeline_params(cfg, torch.Generator(
+        device=dev).manual_seed(SEED + 40), device=dev)
+    batch = _pipe_batch(cfg, cfg.n_microbatches * cfg.microbatch, dev,
+                        SEED + 41)
+    ref = _pipe_reference(params, batch, cfg)
+    fns = {"gpipe": pl._gpipe_value_and_grad,
+           "1f1b": pl.pipeline_value_and_grad_1f1b}
+    rec = {"config": {**PIPE_EXACT, "dtype": "float32"}, "tolerance":
+           PIPE_TOL, "reference_loss": float(ref[0]), "runs": {}}
+    _build.reset_launches()
+    for pp in (2, 4):
+        mesh = build_mesh(MeshPlan(("pp", "dp"), (pp, 1)), devices=[dev] * pp)
+        for name, fn in fns.items():
+            rec["runs"][f"{name}_pp{pp}"] = _pipe_check(
+                fn(params, batch, cfg, mesh), ref, name, f"{name} pp {pp}")
+    launches = dict(_build.launches)
+    calls = cfg.n_layers * cfg.n_microbatches
+    want = {"flash_fwd": 2 * (calls + 2 * calls),
+            "flash_bwd_fused": 2 * 2 * calls}
+    if {k: launches.get(k, 0) for k in want} != want:
+        raise AssertionError(f"pipeline_exact launched {launches}, "
+                             f"expected {want}")
+    owned = not dist.is_initialized()
+    maybe_initialize_distributed({}, device=dev)
+    try:
+        world = build_mesh(MeshPlan(("pp", "dp"), (1, 1)))
+        if type(world).__name__ != "WorldMesh" or \
+                dist.get_backend() != "nccl":
+            raise AssertionError(f"not a NCCL world mesh: {world}")
+        for name, fn in fns.items():
+            rec["runs"][f"{name}_world_pp1"] = _pipe_check(
+                fn(params, batch, cfg, world), ref, name,
+                f"{name} world pp 1")
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+    # planted faults: each must fail the check
+    mesh = build_mesh(MeshPlan(("pp", "dp"), (2, 1)), devices=[dev] * 2)
+    real_stage, real_ticks = pl._stage, pl._gpipe_ticks
+
+    def reversed_stage(stage_layers, x, cfg, tp=1, group=None):
+        return real_stage({k: w.flip(0) for k, w in stage_layers.items()},
+                          x, cfg, tp, group)
+
+    def dropped_ticks(pp, M):
+        for t, pairs in real_ticks(pp, M):
+            yield t, [(i, f) for i, f in pairs if f != M - 1]
+
+    plants = [("layers reversed", "gpipe", "_stage", reversed_stage),
+              ("layers reversed", "1f1b", "_stage", reversed_stage),
+              ("last microbatch dropped", "gpipe", "_gpipe_ticks",
+               dropped_ticks)]
+    caught = []
+    for fault, name, attr, fake in plants:
+        real = getattr(pl, attr)
+        setattr(pl, attr, fake)
+        try:
+            got = fns[name](params, batch, cfg, mesh)
+        finally:
+            setattr(pl, attr, real)
+        try:
+            _pipe_check(got, ref, name, "planted")
+        except AssertionError as exc:
+            caught.append({"fault": fault, "schedule": name,
+                           "caught": True, "check": str(exc)[:200]})
+            continue
+        raise AssertionError(f"planted fault not caught: {fault} ({name})")
+    rec["planted_faults"] = caught
+
+    # K1 and K5 by name: one step of each schedule at pp 2 (the f32
+    # instances; K5's writes f32)
+    rec["by_name"] = {name: _flash_profile(
+        lambda fn=fn: fn(params, batch, cfg, mesh),
+        {"k1": calls * (1 if name == "gpipe" else 2), "k5_f32_out": calls},
+        f"pipeline_exact {name}") for name, fn in fns.items()}
+    rec["launches"] = launches
+    return rec, launches
+
+
+def pipeline_flagship(dev, smi: str) -> tuple[dict, dict]:
+    """The pipeline at ``FLAGSHIP_TRAIN``'s widths and depth (bf16; one
+    row a microbatch, PIPE_FLAGSHIP_M microbatches: 32,768 tokens a step)
+    over PIPE_FLAGSHIP_PP stages on ``[cuda:0] * pp`` — the mesh is the only
+    cut. For GPipe, 1F1B and the unpipelined step over the same rows
+    (``reference_loss_fn`` on the whole batch): PIPE_WARM steps, then
+    PIPE_TIMED steps on the host clock from a synchronise to a synchronise
+    (median and min-max), the launch counts set to 0 just before them (K1
+    and K5 a step: GPipe 64 and 64, 1F1B 128 and 64), peak memory of the
+    timed steps, the loss falling over the first 3 SGD steps, and MFU
+    with 1F1B's recompute not billed. Returns the record and the GPipe and
+    1F1B timed runs' launch counts."""
+    import math
+
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import FLAGSHIP_TRAIN
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+    from nvidia_terraform_modules_tpu_torch.parallel import (
+        MeshPlan,
+        PipelineConfig,
+        build_mesh,
+        init_pipeline_params,
+        make_pipeline_train_step,
+    )
+    from nvidia_terraform_modules_tpu_torch.parallel import pipeline as pl
+    from nvidia_terraform_modules_tpu_torch.utils.timing import sync
+
+    widths = {k: FLAGSHIP_TRAIN[k] for k in ("vocab", "d_model", "n_heads",
+                                             "d_ff", "n_layers", "seq_len")}
+    cfg = PipelineConfig(**widths, microbatch=1,
+                         n_microbatches=PIPE_FLAGSHIP_M, dtype=torch.bfloat16)
+    pp = PIPE_FLAGSHIP_PP
+    mesh = build_mesh(MeshPlan(("pp", "dp"), (pp, 1)), devices=[dev] * pp)
+    params0 = init_pipeline_params(cfg, torch.Generator(
+        device=dev).manual_seed(SEED + 42), device=dev)
+    batch = _pipe_batch(cfg, PIPE_FLAGSHIP_M, dev, SEED + 43)
+
+    def unpipelined_step(params, batch):
+        loss, grads = _pipe_reference(params, batch, cfg)
+        with torch.no_grad():
+            new = {"embed": params["embed"] - TRAIN_LR * grads["embed"],
+                   "out_norm": params["out_norm"]
+                   - TRAIN_LR * grads["out_norm"],
+                   "layers": {k: w - TRAIN_LR * grads["layers"][k]
+                              for k, w in params["layers"].items()}}
+        return new, loss
+
+    steps = {"gpipe": make_pipeline_train_step(cfg, mesh, lr=TRAIN_LR,
+                                               schedule="gpipe"),
+             "1f1b": make_pipeline_train_step(cfg, mesh, lr=TRAIN_LR,
+                                              schedule="1f1b"),
+             "unpipelined": unpipelined_step}
+    calls = cfg.n_layers * cfg.n_microbatches
+    expect = {"gpipe": (calls, calls), "1f1b": (2 * calls, calls),
+              "unpipelined": (cfg.n_layers, cfg.n_layers)}
+    flops = pl.pipeline_step_flops(cfg)
+    peak = card_spec().bf16_tflops * 1e12
+    rec = {"config": {**widths, "microbatch": 1,
+                      "n_microbatches": PIPE_FLAGSHIP_M, "pp": pp,
+                      "dtype": "bfloat16"},
+           "tokens_per_step": PIPE_FLAGSHIP_M * cfg.seq_len,
+           "step_flops": flops, "lr": TRAIN_LR, "card": smi}
+    counts = {}
+    for name, step in steps.items():
+        params, losses, times = params0, [], []
+        for _ in range(PIPE_WARM):
+            params, loss = step(params, batch)
+            losses.append(float(loss))
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        for _ in range(PIPE_TIMED):
+            sync()
+            t0 = time.perf_counter()
+            params, loss = step(params, batch)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+        launches = dict(_build.launches)
+        k1, k5 = expect[name]
+        got = (launches.get("flash_fwd", 0), launches.get("flash_bwd_fused",
+                                                          0))
+        if got != (k1 * PIPE_TIMED, k5 * PIPE_TIMED):
+            raise AssertionError(f"pipeline_flagship {name}: K1, K5 "
+                                 f"launched {got}, expected "
+                                 f"{(k1 * PIPE_TIMED, k5 * PIPE_TIMED)}")
+        if not all(map(math.isfinite, losses)) or \
+                not losses[2] < losses[0]:
+            raise AssertionError(f"pipeline_flagship {name}: the loss did "
+                                 f"not fall over 3 SGD steps: {losses}")
+        times.sort()
+        ms = times[len(times) // 2]
+        rec[name] = {"step_ms": ms, "step_ms_min": times[0],
+                     "step_ms_max": times[-1],
+                     "tokens_per_s": rec["tokens_per_step"] / ms * 1e3,
+                     "mfu": flops / (ms / 1e3) / peak,
+                     "max_memory_allocated":
+                         torch.cuda.max_memory_allocated(),
+                     "k1_per_step": k1, "k5_per_step": k5,
+                     "losses": losses, "launches": launches}
+        counts[name] = launches
+        del params
+        torch.cuda.empty_cache()
+    for name in ("gpipe", "1f1b"):
+        rec[name]["vs_unpipelined"] = (rec[name]["step_ms"]
+                                       / rec["unpipelined"]["step_ms"])
+    return rec, counts
+
+
+def train_ring_world_one(dev) -> tuple[dict, dict]:
+    """``attn="ring"`` and ``"ulysses"`` through ``make_train_step(cfg,
+    rules)`` on the mesh of an NCCL world of one: a ring of one member (K2
+    on the diagonal block, K5 with f32 outputs) and Ulysses without an
+    all-to-all (K1, K5). At f32 on a small config the first loss equals the
+    flash step's bit for bit. At the flagship (bf16) each one's loss and
+    gradients on the flash step's params and batch are held to the f32
+    flash step's as closely as the bf16 flash step's
+    (:func:`_grads_vs_flash`), a check that two planted faults of the
+    ring's K2 and K5 must fail; then 2 SGD steps each, their losses within
+    ``WORLD_ONE_LOSS_REL`` of the flash step's from the same weights, with
+    the launch counts set to 0 before them, and the kernels counted by
+    name in a profile of one more step. Returns the record and the
+    flagship steps' launch counts."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        BurnInConfig,
+        init_params,
+        make_train_step,
+        synthetic_batch,
+    )
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+    from nvidia_terraform_modules_tpu_torch.utils.timing import sync
+
+    rules, owned = _world_of_one(dev)
+    rec, counts = {}, {}
+    try:
+        small = BurnInConfig(vocab=512, d_model=256, n_heads=2, d_ff=512,
+                             n_layers=2, seq_len=256, batch=2, attn="flash",
+                             dtype=torch.float32)
+        p = init_params(small, torch.Generator(device=dev).manual_seed(44),
+                        device=dev)
+        b = synthetic_batch(torch.Generator(device=dev).manual_seed(45),
+                            small, device=dev)
+        flash_loss = make_train_step(small, lr=0.05, device=dev)(p, b)[1]
+        exact = {}
+        for attn in ("ring", "ulysses"):
+            loss = make_train_step(dataclasses.replace(small, attn=attn),
+                                   rules, lr=0.05, device=dev)(p, b)[1]
+            exact[attn] = {"loss": float(loss),
+                           "equal": torch.equal(loss, flash_loss)}
+            if not exact[attn]["equal"]:
+                raise AssertionError(f"train_ring_world_one f32 {attn}: "
+                                     f"loss {float(loss)} against the "
+                                     f"flash step's {float(flash_loss)}")
+        rec["f32_first_loss"] = {"flash": float(flash_loss), **exact}
+        del p
+
+        cfg, batch = _flagship_train(dev)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+            SEED + 46), device=dev)
+        flash_step = make_train_step(cfg, lr=TRAIN_LR, device=dev)
+        q, flash_losses = params, []
+        for _ in range(2):
+            q, loss = flash_step(q, batch)
+            flash_losses.append(float(loss))
+        rec["flash_losses"] = flash_losses
+        ref = _flash_grads(params, batch, cfg)
+        rec["planted_faults"] = _world_one_plants(
+            params, batch, dataclasses.replace(cfg, attn="ring"), rules, ref)
+        roles = {"ring": ("k2", "k5_f32_out", "flash_partial"),
+                 "ulysses": ("k1", "k5", "flash_fwd")}
+        for attn, (fwd_role, bwd_role, fwd_key) in roles.items():
+            acfg = dataclasses.replace(cfg, attn=attn)
+            grads = _grads_vs_flash(params, batch, acfg, rules, attn, ref)
+            step = make_train_step(acfg, rules, lr=TRAIN_LR, device=dev)
+            sync()
+            _build.reset_launches()
+            q, losses = params, []
+            for _ in range(2):
+                q, loss = step(q, batch)
+                losses.append(float(loss))
+            sync()
+            launches = dict(_build.launches)
+            want = {fwd_key: 2 * cfg.n_layers,
+                    "flash_bwd_fused": 2 * cfg.n_layers}
+            if {k: launches.get(k, 0) for k in want} != want or \
+                    sum(launches.values()) != sum(want.values()):
+                raise AssertionError(f"train_ring_world_one {attn} launched "
+                                     f"{launches}, expected {want}")
+            rel = [abs(a - f) / abs(f) for a, f in zip(losses,
+                                                       flash_losses)]
+            if not max(rel) <= WORLD_ONE_LOSS_REL:
+                raise AssertionError(f"train_ring_world_one {attn}: losses "
+                                     f"{losses} against the flash step's "
+                                     f"{flash_losses}")
+            by_role = _flash_profile(
+                lambda step=step, q=q: step(q, batch),
+                {fwd_role: cfg.n_layers, bwd_role: cfg.n_layers},
+                f"train_ring_world_one {attn}")
+            rec[attn] = {"grads_vs_flash_step": grads, "losses": losses,
+                         "loss_rel_vs_flash": rel, "launches": launches,
+                         "by_name": by_role}
+            counts[attn] = launches
+        del params, q, ref
+    finally:
+        if owned:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return rec, counts
+
+
+def _world_one_plants(params, batch, cfg, rules, ref) -> list[dict]:
+    """The world-of-one ring step's check (:func:`_grads_vs_flash`) against
+    known faults: K2's accumulator, or K5's dK, with its rows from S/2 on
+    halved (a kernel wrong only far along the sequence) must fail it."""
+    from nvidia_terraform_modules_tpu_torch.ops import ring_attention
+
+    def halved(x):
+        x = x.clone()
+        x[:, x.shape[1] // 2:] *= 0.5
+        return x
+
+    plants = {
+        "K2 acc rows from S/2 halved": ("flash_partial", lambda out: (
+            halved(out[0]), *out[1:])),
+        "K5 dK rows from S/2 halved": ("_block_grads", lambda out: (
+            out[0], halved(out[1]), out[2]))}
+    caught = []
+    for fault, (attr, spoil) in plants.items():
+        real = getattr(ring_attention, attr)
+        setattr(ring_attention, attr,
+                lambda *a, real=real, spoil=spoil, **kw: spoil(real(*a, **kw)))
+        try:
+            _grads_vs_flash(params, batch, cfg, rules, "ring", ref)
+        except AssertionError as exc:
+            caught.append({"fault": fault, "caught": True,
+                           "check": str(exc)[:200]})
+            continue
+        finally:
+            setattr(ring_attention, attr, real)
+        raise AssertionError(f"planted fault not caught: {fault}")
+    return caught
 
 
 def flagship_lengths() -> list[int]:
@@ -4518,6 +5015,17 @@ def main() -> int:
     emit("serve_rules_flagship", **sr_rec)
     emit("smoketest_cli_full", **smoketest_cli_full())
 
+    # ------------------------------- the pipeline and sp over processes
+    # GPipe and 1F1B at f32 against the unpipelined model (pp 2 and 4 on
+    # the card, pp 1 on a world of one), then at the flagship width on
+    # [cuda:0] * 2; the ring and Ulysses through the world-of-one rules
+    pipe_exact, pipe_exact_launches = pipeline_exact(dev)
+    emit("pipeline_exact", **pipe_exact)
+    pipe_rec, pipe_launches = pipeline_flagship(dev, smi)
+    emit("pipeline_flagship", **pipe_rec)
+    rw1_rec, rw1_launches = train_ring_world_one(dev)
+    emit("train_ring_world_one", **rw1_rec)
+
     # --------------------------------------------------------- summary
     n_k1 = sum(c for c, _ in k1_main)
 
@@ -4543,6 +5051,14 @@ def main() -> int:
          # the flagship MoE train step's timed steps and the rules= engine
          "moe_train": {"launches": moe_train_launches["flash_fwd"]},
          "serve_rules": {"launches": sr_launches["flash_fwd"]},
+         # the flagship pipeline's timed steps (K1 a layer a microbatch;
+         # 1F1B twice: forward and recompute), the f32 pipeline checks,
+         # and Ulysses on the world-of-one rules
+         "pipeline": {"gpipe_launches": pipe_launches["gpipe"]["flash_fwd"],
+                      "1f1b_launches": pipe_launches["1f1b"]["flash_fwd"],
+                      "exact_launches": pipe_exact_launches["flash_fwd"]},
+         "ulysses_world_one": {"launches":
+                               rw1_launches["ulysses"]["flash_fwd"]},
          # the serve prompts' mean rate, and K1 at the train step's shape
          "tflops": k1_mean("tflops"), "bound_share": k1_mean("bound_share"),
          "tiling": FWD_TILING,
@@ -4621,7 +5137,13 @@ def main() -> int:
             "launches": (train_launches[name] if name == "flash_bwd_fused"
                          else rec["split_step_launches"][name]),
             **({"sharded": {"launches": sh_launches[name]},
-                "moe_train": {"launches": moe_train_launches[name]}}
+                "moe_train": {"launches": moe_train_launches[name]},
+                "pipeline": {
+                    "gpipe_launches": pipe_launches["gpipe"][name],
+                    "1f1b_launches": pipe_launches["1f1b"][name],
+                    "exact_launches": pipe_exact_launches[name]},
+                "ulysses_world_one": {
+                    "launches": rw1_launches["ulysses"][name]}}
                if name == "flash_bwd_fused" else {}),
             # K5: the checkpointed AdamW steps; K3 and K4: the
             # exact-resume comparison (split backward)
@@ -4654,6 +5176,10 @@ def main() -> int:
 
     k2_row = ring_row("flash_partial", "flash_fwd.cu", 420,
                       ring_launches["flash_partial"], k2)
+    # the ring of one member on the world-of-one rules: one diagonal block
+    # a layer
+    k2_row["ring_world_one"] = {
+        "launches": rw1_launches["ring"]["flash_partial"]}
     k2_row.update(
         {key: ring_mix(k2, key) for key in ("tflops", "bound_share")},
         tiling=FWD_TILING,
@@ -4669,6 +5195,9 @@ def main() -> int:
             f"{name}_f32_out", "flash_bwd.cu", line,
             ring_launches[name] if name == "flash_bwd_fused"
             else ring_rec["split_step_launches"][name], bwd_f32[name]),
+            **({"ring_world_one": {
+                "launches": rw1_launches["ring"][name]}}
+               if name == "flash_bwd_fused" else {}),
             **_resources(bwd_res, name, f32)})
     # D1 is not the port of a TPU kernel: the reference draws in XLA
     # (jax.random.categorical in make_sampler); its launches are the

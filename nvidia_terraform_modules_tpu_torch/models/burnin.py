@@ -31,23 +31,26 @@ kinds (``parallel/mesh.py``):
   the reference. Such a mesh with any other axis above 1 raises
   ``NotImplementedError``.
 - a ``WorldMesh`` over the ranks of a ``torch.distributed`` world, one
-  device a rank: data, tensor and expert parallelism (``dp``, ``slice`` ×
-  ``dp``, ``tp``, ``ep``), Megatron style, where GSPMD would insert the
-  collectives in the reference. ``wq``/``wk``/``wv``/``up`` are split by
-  columns over ``tp`` (heads over ``tp``), ``wo``/``down`` by rows and
-  followed by an all-reduce; the tied ``embed`` is split on ``d_model`` —
-  the lookup is all-gathered, the head's partial logits all-reduced; norms
-  and the router are replicated; the expert stacks split ``E`` over ``ep``
-  and ``d_ff`` over ``tp`` (``models/moe.py`` routes as the unsharded
-  model does). Each rank holds its shard of the parameters
+  device a rank: data, sequence, tensor and expert parallelism (``dp``,
+  ``slice`` × ``dp``, ``sp``, ``tp``, ``ep``), Megatron style, where GSPMD
+  would insert the collectives in the reference. ``wq``/``wk``/``wv``/
+  ``up`` are split by columns over ``tp`` (heads over ``tp``),
+  ``wo``/``down`` by rows and followed by an all-reduce; the tied ``embed``
+  is split on ``d_model`` — the lookup is all-gathered, the head's partial
+  logits all-reduced; norms and the router are replicated; the expert stacks
+  split ``E`` over ``ep`` and ``d_ff`` over ``tp`` (``models/moe.py`` routes
+  as the unsharded model does). Each rank holds its shard of the parameters
   (:func:`shard_params`; :func:`gather_params` joins them) and its rows of
-  the batch (:func:`shard_batch`, over ``("dp", "ep")`` on an ``ep``
-  mesh); the loss and each gradient are all-reduced and averaged in f32
-  over the data axes its spec does not split — every data axis for the
+  the batch (:func:`shard_batch`, over ``("dp", "ep")`` on an ``ep`` mesh)
+  with its piece of the sequence over ``sp`` (:func:`forward_and_aux` says
+  how each attention layout and MoE meet it); the loss and each gradient are
+  all-reduced and averaged in f32 over the ranks holding other tokens — over
+  ``sp`` and the data axes its spec does not split: every data axis for the
   dense leaves, ``dp`` alone for the experts. A world of one runs the
-  unsharded step's operations, bit for bit. Still refused (ROADMAP.md,
-  Queue A item 6): ``sp`` above 1 on a world mesh (ring and Ulysses over
-  processes). ``rules`` reach ``forward_paged`` and the serve engine
+  unsharded step's operations, bit for bit (``attn="ring"``/``"ulysses"``
+  there run a ring of one member and Ulysses without an all-to-all, where
+  the unsharded step runs dense attention, as the reference's does).
+  ``rules`` reach ``forward_paged`` and the serve engine
   (``models/decode.py``, ``models/serving.py``), not the other decode entry
   points.
 
@@ -74,12 +77,17 @@ from ..ops.flash_attention import (
     flash_backward,
     mask_live_frac,
 )
-from ..ops.ring_attention import dense_reference_attention, ring_self_attention
+from ..ops.ring_attention import (
+    dense_reference_attention,
+    ring_self_attention,
+    shard_flash_attention,
+)
 from ..ops.ulysses_attention import ulysses_self_attention
 from ..parallel.collectives import (
     enter_parallel,
     exit_parallel,
     gather_last,
+    gather_seq,
     spec_axes,
 )
 from ..parallel.mesh import WorldMesh
@@ -342,9 +350,10 @@ def gather_params(params: dict, rules) -> dict:
 
 
 def shard_batch(batch, rules):
-    """This rank's rows of a global ``(tokens, targets)`` batch: the rows
-    split over the data axes (``rules.batch``)."""
-    return tuple(local_shard(x, rules.batch, rules.mesh) for x in batch)
+    """This rank's piece of a global ``(tokens, targets)`` batch: the rows
+    split over the data axes and the sequence over ``sp``
+    (``rules.act("sp")``; an ``sp`` of 1 leaves the sequence whole)."""
+    return tuple(local_shard(x, rules.act("sp"), rules.mesh) for x in batch)
 
 
 def mlp(h: torch.Tensor, layer: dict, dtype: torch.dtype) -> torch.Tensor:
@@ -395,11 +404,10 @@ def _world(rules) -> bool:
 
 
 def _check_rules(rules, cfg: BurnInConfig | None = None) -> None:
-    """Refuse what the port cannot run yet (ROADMAP.md, Queue A item 6):
-    on a one-process mesh, any axis but ``sp`` above 1; on a world mesh,
-    ``sp`` above 1 and the ring and Ulysses layouts; and with ``cfg``, a
-    ``tp``, an ``ep`` or a batch that the config's dimensions do not
-    divide."""
+    """Refuse what the port cannot run: on a one-process mesh, any axis but
+    ``sp`` above 1 (ROADMAP.md, Queue A item 6); and with ``cfg``, a
+    ``tp``, an ``ep``, an ``sp`` or a batch that the config's dimensions
+    do not divide."""
     if rules is None:
         return
     shape = rules.mesh.shape
@@ -417,20 +425,21 @@ def _check_rules(rules, cfg: BurnInConfig | None = None) -> None:
         return
     sp, tp, ep = shape.get("sp", 1), shape.get("tp", 1), shape.get("ep", 1)
     data = math.prod(shape.get(a, 1) for a in rules.data)
-    if sp > 1:
-        what = ("sp > 1 together with dp or tp (or ep)" if data * tp > 1
-                else "sp > 1 (the ring and Ulysses over processes)")
-        raise NotImplementedError(
-            f"{what} on a torch.distributed mesh {shape} is not ported yet "
-            f"— ROADMAP.md, Queue A item 6; a one-process mesh runs sp "
-            f"alone")
     if cfg is None:
         return
-    if cfg.attn in ("ring", "ulysses"):
+    if cfg.seq_len % sp:
+        raise ValueError(
+            f"seq_len {cfg.seq_len} does not split over sp = {sp}")
+    if sp > 1 and cfg.attn == "flash" and cfg.flash_window is not None:
         raise NotImplementedError(
-            f"attn={cfg.attn!r} over a torch.distributed mesh (the ring "
-            f"and Ulysses over processes) is not ported yet — ROADMAP.md, "
-            f"Queue A item 6")
+            f"flash_window with sp = {sp} over processes is not ported — "
+            f"ROADMAP.md, Queue A: K2 masks a window in its block's own "
+            f"positions, so the blocks before a shard's own cannot carry "
+            f"it (attn='dense' can)")
+    if cfg.attn == "ulysses" and cfg.n_heads % (sp * tp):
+        raise ValueError(
+            f"Ulysses layout needs heads divisible by sp×tp: "
+            f"{cfg.n_heads} heads vs sp={sp} × tp={tp}")
     if tp > 1 and (cfg.n_heads % tp or cfg.kv_heads % tp or cfg.d_ff % tp
                    or cfg.d_model % tp):
         raise ValueError(
@@ -459,13 +468,20 @@ def _device(device, rules, cfg: BurnInConfig | None = None) -> torch.device:
     return check_device(device)
 
 
-def _tp(rules) -> tuple:
-    """``(group, n, i)`` of this rank's ``tp`` line on a world mesh (the
-    group ``None`` where ``tp`` is 1); ``(None, 1, 0)`` elsewhere."""
-    if not _world(rules):
+def _tp(rules, axis: str = "tp") -> tuple:
+    """``(group, n, i)`` of this rank's line along ``axis`` on a world mesh
+    (the group ``None`` where the axis is 1 or absent); ``(None, 1, 0)``
+    elsewhere."""
+    if not _world(rules) or axis not in rules.mesh.axis_names:
         return None, 1, 0
     mesh = rules.mesh
-    return mesh.group("tp"), mesh.axis_size("tp"), mesh.index("tp")
+    return mesh.group(axis), mesh.axis_size(axis), mesh.index(axis)
+
+
+def _seq_offset(rules, s_local: int) -> int:
+    """The global position of this rank's first sequence row: its index
+    along ``sp`` times the local length (0 off a world mesh)."""
+    return _tp(rules, "sp")[2] * s_local
 
 
 def forward_and_aux(params: dict, tokens: torch.Tensor, cfg: BurnInConfig,
@@ -480,48 +496,81 @@ def forward_and_aux(params: dict, tokens: torch.Tensor, cfg: BurnInConfig,
     repeats K/V to the query heads first, as the reference does, so
     autograd sums dK/dV over each group. ``cfg.remat`` recomputes each
     block in the backward. On a world mesh each rank runs its heads and
-    FFN columns (module docstring) and returns the full logits of its
-    batch rows."""
+    FFN columns (module docstring) on its batch rows and its piece of the
+    sequence, and returns the logits of those rows and positions: RoPE
+    takes the global positions; the ring passes K/V blocks along ``sp``
+    and Ulysses swaps sequence for heads; ``"flash"`` and ``"dense"``
+    gather the normed input over ``sp`` (the reference's ``act(h, None,
+    None)``) and attend with this rank's queries at their global offsets
+    (flash: K2 on the blocks up to this rank's own, no later one) — and
+    MoE routes the gathered sequence (a token's slot depends on every
+    earlier token) and keeps this rank's rows of the combine."""
     _check_rules(rules, cfg)
-    sharded = None if rules is None or _world(rules) else {
+    world = _world(rules)
+    sharded = None if rules is None or (world and cfg.attn not in (
+        "ring", "ulysses")) else {
         "ring": ring_self_attention,
         "ulysses": ulysses_self_attention}.get(cfg.attn)
     group, n_tp, i_tp = _tp(rules)
+    sp_group, n_sp, i_sp = _tp(rules, "sp")
     b, s = tokens.shape
+    off = _seq_offset(rules, s)
+    s_all = s * n_sp
     scale = 1.0 / (cfg.head_dim ** 0.5)
     rep = cfg.n_heads // cfg.kv_heads
     heads, kv_heads = cfg.n_heads // n_tp, cfg.kv_heads // n_tp
     mask = (MaskSpec("window", cfg.flash_window)
             if cfg.flash_window is not None else None)
+    pos = torch.arange(s, device=tokens.device) + off
+    pos_all = torch.arange(s_all, device=tokens.device)
 
-    def block(x, layer):
-        h = enter_parallel(_rmsnorm(x, layer["attn_norm"]), group)
-        q = (h @ layer["wq"]).view(b, s, heads, cfg.head_dim)
-        k = (h @ layer["wk"]).view(b, s, kv_heads, cfg.head_dim)
-        v = (h @ layer["wv"]).view(b, s, kv_heads, cfg.head_dim)
+    def project(layer, hq, hkv, q_pos, k_pos):
+        q = (hq @ layer["wq"]).view(b, hq.shape[1], heads, cfg.head_dim)
+        k = (hkv @ layer["wk"]).view(b, hkv.shape[1], kv_heads,
+                                      cfg.head_dim)
+        v = (hkv @ layer["wv"]).view(b, hkv.shape[1], kv_heads,
+                                      cfg.head_dim)
         if cfg.rope:
-            pos = torch.arange(s, device=x.device)
-            q = apply_rope(q, pos, cfg.rope_theta)
-            k = apply_rope(k, pos, cfg.rope_theta)
+            q = apply_rope(q, q_pos, cfg.rope_theta)
+            k = apply_rope(k, k_pos, cfg.rope_theta)
         if rep > 1:
             k = k.repeat_interleave(rep, dim=2)
             v = v.repeat_interleave(rep, dim=2)
+        return q, k, v
+
+    def attend(layer, h):
         if sharded is not None:
-            attn = sharded(q, k, v, rules.mesh, causal=True, scale=scale,
+            q, k, v = project(layer, h, h, pos, pos)
+            return sharded(q, k, v, rules.mesh, causal=True, scale=scale,
                            spec=rules.act("sp", "tp", None),
                            backward=cfg.flash_backward)
-        elif cfg.attn == "flash":
-            attn = flash_attention(q, k, v, causal=True, scale=scale,
+        if sp_group is not None:          # the whole sequence's K/V
+            q, k, v = project(layer, h, gather_seq(h, sp_group, n_sp), pos,
+                              pos_all)
+            if cfg.attn == "dense":
+                return dense_reference_attention(
+                    q, k, v, causal=True, scale=scale,
+                    window=cfg.flash_window, q_offset=off)
+            return shard_flash_attention(q, k, v, i_sp, scale=scale,
+                                         backward=cfg.flash_backward)
+        q, k, v = project(layer, h, h, pos, pos)
+        if cfg.attn == "flash":
+            return flash_attention(q, k, v, causal=True, scale=scale,
                                    mask=mask, backward=cfg.flash_backward)
-        else:
-            attn = dense_reference_attention(q, k, v, causal=True,
-                                             scale=scale,
-                                             window=cfg.flash_window)
+        return dense_reference_attention(q, k, v, causal=True, scale=scale,
+                                         window=cfg.flash_window)
+
+    def block(x, layer):
+        attn = attend(layer, enter_parallel(_rmsnorm(x, layer["attn_norm"]),
+                                            group))
         x = x + exit_parallel(
             attn.reshape(b, s, heads * cfg.head_dim) @ layer["wo"], group)
         h = _rmsnorm(x, layer["mlp_norm"])
         if cfg.n_experts > 0:
-            out, layer_aux = moe_layer(h, layer["moe"], cfg, rules)
+            out, layer_aux = moe_layer(gather_seq(h, sp_group, n_sp),
+                                       layer["moe"], cfg, rules)
+            if sp_group is not None:      # this rank's rows of the combine
+                out = out.narrow(1, off, s)
             return x + out, layer_aux
         return x + exit_parallel(
             mlp(enter_parallel(h, group), layer, cfg.dtype), group), None
@@ -639,41 +688,46 @@ def make_grads_fn(cfg: BurnInConfig, rules=None,
                   accum_steps: int = 1) -> Callable:
     """``(params, batch) → (loss, grads)`` — the gradient pass both train
     steps (SGD here, AdamW in ``models/optimizer.py``) share, with optional
-    microbatch accumulation. On a world mesh with more than one data rank
-    the loss and the gradients are then all-reduced and averaged in f32
-    over the data ranks: each leaf over the data axes its spec does not
-    split (every data axis for the dense leaves; ``dp`` alone for the
-    expert stacks, already split over ``ep``), one flat buffer a set of
-    axes; they come back f32."""
+    microbatch accumulation. On a world mesh with more than one data or
+    ``sp`` rank the loss and the gradients are then all-reduced and
+    averaged in f32 over the ranks that hold other tokens (each rank's loss
+    is the mean over its own): each leaf over the data axes its spec does
+    not split and over ``sp`` (every data axis for the dense leaves; ``dp``
+    alone for the expert stacks, already split over ``ep``), one flat
+    buffer a set of axes; they come back f32."""
     _check_rules(rules, cfg)
     vg = _value_and_grad(cfg, rules)
     fn = vg if accum_steps == 1 else grad_accum(vg, accum_steps)
-    if not _world(rules) or rules.mesh.group(rules.data) is None:
+    if not _world(rules):
         return fn
     mesh = rules.mesh
-    inv = 1.0 / mesh.axis_size(rules.data)
+    tokens = tuple(rules.data) + tuple(
+        a for a in ("sp",) if a in mesh.axis_names)
+    if mesh.group(tokens) is None:
+        return fn
+    inv = 1.0 / mesh.axis_size(tokens)
 
     def axes_of(path, _):
         used = {a for entry in rules.param_sharding(path)
                 for a in spec_axes(entry)}
-        return tuple(a for a in rules.data if a not in used)
+        return tuple(a for a in tokens if a not in used)
 
     def data_mean(params, batch):
         loss, grads = fn(params, batch)
         leaves = tree_leaves(grads)
         axes = tree_leaves(_tree_map_path(axes_of, grads))
         out = [None] * len(leaves)
-        # the loss rides with the leaves reduced over every data axis
-        for key in dict.fromkeys([rules.data] + axes):
+        # the loss rides with the leaves reduced over every such axis
+        for key in dict.fromkeys([tokens] + axes):
             idx = [j for j, a in enumerate(axes) if a == key]
             flat = torch.cat([leaves[j].float().reshape(-1) for j in idx]
                              + ([loss.float().reshape(1)]
-                                if key == rules.data else []))
+                                if key == tokens else []))
             group = mesh.group(key) if key else None
             if group is not None:
                 dist.all_reduce(flat, group=group)
             flat = flat * inv
-            if key == rules.data:
+            if key == tokens:
                 loss, flat = flat[-1], flat[:-1]
             for j, part in zip(idx, flat.split(
                     [leaves[j].numel() for j in idx])):

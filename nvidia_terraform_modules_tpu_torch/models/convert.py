@@ -13,13 +13,14 @@ different numbers from one seed). Leaves may be float32 or bfloat16
 array); bf16 → f32 → bf16 is exact, so an f32 copy of bf16 weights loads
 bit-identically.
 
-``params_to_numpy`` goes the other way (params, gradients: any dict of
-the same shape → f32 numpy leaves), ``opt_state_from_numpy`` loads the
-reference's AdamW state ``{"step", "mu", "nu"}``, and
-``qparams_from_numpy`` the reference's ``quantize_params`` tree, each
-quantised leaf given as ``{"q": int8 array, "scale": f32 array,
-"scale_axis": int}`` — so both sides hold the same int8 weights and
-scales.
+``pipeline_params_from_numpy`` / ``pipeline_params_to_numpy`` do the same
+for the pipeline's tree (``parallel/pipeline.py``: ``layers`` is one dict of
+``[L, ...]`` stacks). ``params_to_numpy`` goes the other way (params,
+gradients: any dict of the same shape → f32 numpy leaves),
+``opt_state_from_numpy`` loads the reference's AdamW state ``{"step", "mu",
+"nu"}``, and ``qparams_from_numpy`` the reference's ``quantize_params``
+tree, each quantised leaf given as ``{"q": int8 array, "scale": f32 array,
+"scale_axis": int}`` — so both sides hold the same int8 weights and scales.
 """
 
 from __future__ import annotations
@@ -84,6 +85,31 @@ def params_from_numpy(tree, cfg: BurnInConfig, device="cuda") -> dict:
     return {"embed": _leaf(tree["embed"], cfg.dtype, dev),
             "out_norm": _leaf(tree["out_norm"], cfg.dtype, dev),
             "layers": _layers(tree, cfg, _leaf, dev)}
+
+
+def pipeline_params_from_numpy(tree, cfg, device="cuda") -> dict:
+    """The reference's pipeline tree (``parallel/pipeline.py``'s
+    ``init_pipeline_params``: ``embed``, ``out_norm`` and the stacked
+    ``layers`` dict, numpy leaves) → the port's, in ``cfg.dtype`` on
+    ``device`` (a ``PipelineConfig``)."""
+    dev = check_device(device)
+    layers = tree["layers"]
+    if layers["wq"].shape[0] != cfg.n_layers:
+        raise ValueError(f"tree has {layers['wq'].shape[0]} layers, cfg "
+                         f"{cfg.n_layers}")
+    return {"embed": _leaf(tree["embed"], cfg.dtype, dev),
+            "out_norm": _leaf(tree["out_norm"], cfg.dtype, dev),
+            "layers": {k: _leaf(w, cfg.dtype, dev)
+                       for k, w in layers.items()}}
+
+
+def pipeline_params_to_numpy(tree) -> dict:
+    """The port's pipeline tree (parameters or gradients) → the
+    reference's layout with f32 numpy leaves."""
+    return {"embed": tree["embed"].detach().float().cpu().numpy(),
+            "out_norm": tree["out_norm"].detach().float().cpu().numpy(),
+            "layers": {k: w.detach().float().cpu().numpy()
+                       for k, w in tree["layers"].items()}}
 
 
 def params_to_numpy(tree) -> dict:

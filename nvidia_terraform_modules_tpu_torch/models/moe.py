@@ -40,9 +40,11 @@ and all-reduces them over the other data axes (each ``(expert, slot)``
 holds one token, so the sums add zeros: exact), the expert FFN runs
 Megatron-style over ``tp``, and the combine all-gathers the expert outputs
 over ``ep`` (``dispatch_experts``, ``gather_experts``; each backward is its
-forward's transpose). A world of one runs no collective. ``sp`` above 1
-is refused (ROADMAP Queue A item 6), as is a one-process mesh with an
-axis above 1.
+forward's transpose). A world of one runs no collective. With ``sp``
+above 1 the burn-in model gathers the sequence over ``sp`` before the
+layer (``models/burnin.py``), so every ``sp`` member routes its data
+rank's whole rows, in the flattened ``[B, S]`` order the slots follow. A
+one-process mesh with an axis above 1 is refused (ROADMAP Queue A item 6).
 """
 
 from __future__ import annotations
@@ -94,10 +96,9 @@ def init_moe_params(cfg, generator: torch.Generator) -> dict:
 
 
 def check_rules(rules, cfg=None) -> None:
-    """Refuse what the layer cannot run: ``sp`` above 1, and any axis above
-    1 on a one-process mesh (ROADMAP Queue A item 6); with ``cfg``, an
-    ``ep`` that does not divide the experts or a ``tp`` that does not
-    divide ``d_ff``."""
+    """Refuse what the layer cannot run: any axis above 1 on a one-process
+    mesh (ROADMAP Queue A item 6); with ``cfg``, an ``ep`` that does not
+    divide the experts or a ``tp`` that does not divide ``d_ff``."""
     if rules is None:
         return
     shape = rules.mesh.shape
@@ -110,10 +111,6 @@ def check_rules(rules, cfg=None) -> None:
                 f"torch.distributed world (parallel.build_mesh with a "
                 f"process group up)")
         return
-    if shape.get("sp", 1) > 1:
-        raise NotImplementedError(
-            f"MoE with sp > 1 ({shape}) is not ported yet — ROADMAP.md, "
-            f"Queue A item 6: parallel/")
     if cfg is None:
         return
     ep, tp = shape.get("ep", 1), shape.get("tp", 1)

@@ -34,7 +34,12 @@ the probe (so a one-rank NCCL world still runs its all-reduce). Then the tensor-
 autograd functions over a ``tp`` group, Megatron's ``f``/``g`` — and
 the expert-parallel ones of the MoE layer (:func:`data_exclusive_counts`,
 :func:`dispatch_experts`, :func:`gather_experts`, :func:`data_sum`),
-whose backward is each forward's transpose.
+whose backward is each forward's transpose. The sequence and stage lines
+(since the pipeline port): :func:`hop`, the directed hop along ``sp`` or
+``pp`` (backward: the hop the other way), :func:`gather_seq` (backward: a
+reduce-scatter), :func:`all_to_all_world` (backward: the mirror
+all-to-all), and :func:`exchange`, the point-to-point transfers a static
+schedule posts (nothing where nothing is carried).
 """
 
 from __future__ import annotations
@@ -204,10 +209,12 @@ def _reduce_scatter(x: torch.Tensor, group, n: int) -> torch.Tensor:
     return out
 
 
-def _ring_hop(x: torch.Tensor, mesh: WorldMesh, axis: str) -> torch.Tensor:
-    """Send ``x`` to the next member of this rank's line along ``axis``
-    and receive the previous member's (``ppermute`` by one). A line of
-    one copies: no rank ever sends to itself."""
+def _ring_hop(x: torch.Tensor, mesh: WorldMesh, axis: str,
+              shift: int = 1) -> torch.Tensor:
+    """Send ``x`` to the member ``shift`` places on along this rank's line
+    along ``axis`` (cyclically) and receive the one ``shift`` places back
+    (``ppermute`` by ``shift``). A line of one copies: no rank ever sends
+    to itself."""
     line = mesh.line(axis)
     n, i = len(line), mesh.index(axis)
     if n == 1:
@@ -215,12 +222,74 @@ def _ring_hop(x: torch.Tensor, mesh: WorldMesh, axis: str) -> torch.Tensor:
     out = torch.empty_like(x)
     group = mesh.group(axis)
     reqs = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, x.contiguous(), line[(i + 1) % n],
+        dist.P2POp(dist.isend, x.contiguous(), line[(i + shift) % n],
                    group=group),
-        dist.P2POp(dist.irecv, out, line[(i - 1) % n], group=group)])
+        dist.P2POp(dist.irecv, out, line[(i - shift) % n], group=group)])
     for req in reqs:
         req.wait()
     return out
+
+
+class _Hop(torch.autograd.Function):
+    """The directed hop forward; backward the same hop the other way (the
+    gradient of what was received goes back to its sender)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, shift):
+        ctx.args = mesh, axis, shift
+        return _ring_hop(x, mesh, axis, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, shift = ctx.args
+        return _ring_hop(g, mesh, axis, -shift), None, None, None
+
+
+def hop(x: torch.Tensor, mesh: WorldMesh, axis: str = "sp",
+        shift: int = 1) -> torch.Tensor:
+    """The directed hop along ``axis`` (``"sp"``, ``"pp"``, ...) on a world
+    mesh: every member of this rank's line sends ``x`` ``shift`` places up
+    the line (``-1``: down), cyclically, and returns what the member
+    ``shift`` places back sent — ``jax.lax.ppermute`` by ``shift``, inside
+    autograd (the backward is the hop by ``-shift``). A line of one makes
+    no call: ``x`` is copied."""
+    return _Hop.apply(x, mesh, axis, shift)
+
+
+def exchange(mesh: WorldMesh, axis: str, sends=(), recvs=()) -> list:
+    """Point-to-point traffic along this rank's line along ``axis``, posted
+    together and waited for: ``sends`` is ``(tensor, offset)`` pairs, each
+    sent to the member ``offset`` places on; ``recvs`` is ``(shape, dtype,
+    offset)`` triples, each received from the member ``offset`` places on.
+    Returns the received tensors in ``recvs``' order. No wrap-around: a
+    peer off the line raises. Nothing is posted for a send or receive the
+    caller leaves out, so a static schedule that both neighbours derive
+    alike posts only the transfers that carry something (no garbage on a
+    wrap-around edge, as the reference's stage ring sends); a line of one
+    has no peer, and no call is made."""
+    line = mesh.line(axis)
+    i = mesh.index(axis)
+    group = mesh.group(axis)
+
+    def peer(offset):
+        j = i + offset
+        if offset == 0 or not 0 <= j < len(line):
+            raise ValueError(f"{axis} member {i} has no peer {offset:+d} on "
+                             f"a line of {len(line)}")
+        return line[j]
+
+    ops, outs = [], []
+    for x, offset in sends:
+        ops.append(dist.P2POp(dist.isend, x.contiguous(), peer(offset),
+                              group=group))
+    for shape, dtype, offset in recvs:
+        out = torch.empty(shape, dtype=dtype, device=mesh.device)
+        ops.append(dist.P2POp(dist.irecv, out, peer(offset), group=group))
+        outs.append(out)
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return outs
 
 
 def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
@@ -550,6 +619,71 @@ class _GatherLast(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g.chunk(ctx.n, dim=-1)[ctx.i].contiguous(), None, None, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    """All-gather along ``dim`` over a line whose members hold different
+    rows of one tensor (a sequence over ``sp``); backward the
+    reduce-scatter: every member's loss reads every row, so each member's
+    slice of the gradient is summed over the line. (``_GatherLast`` keeps
+    this member's slice instead: right for a ``tp`` line, whose members
+    share one downstream gradient, wrong here.)"""
+
+    @staticmethod
+    def forward(ctx, x, group, n, dim):
+        ctx.group, ctx.n, ctx.dim = group, n, dim
+        return gather_dim(x, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = torch.stack(g.chunk(ctx.n, dim=ctx.dim))
+        out = _reduce_scatter(parts.reshape(-1), ctx.group, ctx.n)
+        return out.view(parts.shape[1:]), None, None, None
+
+
+def gather_seq(x: torch.Tensor, group, n: int, dim: int = 1) -> torch.Tensor:
+    """The ``n`` members' pieces of a sequence joined along ``dim``, in line
+    order, with the reduce-scatter as its backward (``group`` None: ``x``
+    itself)."""
+    return x if group is None else _GatherSeq.apply(x, group, n, dim)
+
+
+def _a2a_dims(x: torch.Tensor, group, n: int, split: int,
+              concat: int) -> torch.Tensor:
+    """``jax.lax.all_to_all(..., tiled=True)`` over ``group``: cut ``x``
+    into ``n`` chunks along ``split``, send chunk ``j`` to member ``j``,
+    and join the received chunks along ``concat`` in member order."""
+    parts = torch.stack(x.chunk(n, dim=split))
+    got = _all_to_all(parts, group)
+    return torch.cat(list(got.unbind(0)), dim=concat)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The all-to-all forward; backward its mirror (split and concat
+    swapped), which is its transpose."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, split, concat):
+        ctx.args = group, n, split, concat
+        return _a2a_dims(x, group, n, split, concat)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, n, split, concat = ctx.args
+        return _a2a_dims(g, group, n, concat, split), None, None, None, None
+
+
+def all_to_all_world(x: torch.Tensor, group, n: int, *, split_axis: int,
+                     concat_axis: int) -> torch.Tensor:
+    """:func:`all_to_all` for one member of a world line (this rank's
+    block in, its block out, ``all_to_all_single`` on the line's group),
+    inside autograd; ``group`` None: ``x`` itself."""
+    if group is None:
+        return x
+    if x.shape[split_axis] % n:
+        raise ValueError(f"all_to_all: dimension {split_axis} of "
+                         f"{tuple(x.shape)} does not split {n} ways")
+    return _AllToAll.apply(x, group, n, split_axis, concat_axis)
 
 
 def enter_parallel(x: torch.Tensor, group) -> torch.Tensor:

@@ -188,22 +188,26 @@ class WorldMesh:
         return self.groups[key]
 
 
-def build_world_mesh(plan: MeshPlan | None = None) -> WorldMesh:
+def build_world_mesh(plan: MeshPlan | None = None, *,
+                     subset: bool = False) -> WorldMesh | None:
     """A :class:`WorldMesh` for ``plan`` (default: :func:`plan_mesh` of the
     world size) over the initialised process group. Creates a group for
     every line along every set of the plan's axes of size above one (a
     line that spans the world is the world's own group); every rank must
-    call this, in the same order as its peers."""
+    call this, in the same order as its peers. ``subset=True`` lets a plan
+    smaller than the world take its first ``plan.n_devices`` ranks (the
+    reference's ``devices=jax.devices()[:k]``): a rank outside it gets
+    ``None``, after making the groups with the others."""
     if not dist.is_initialized():
         raise RuntimeError("build_world_mesh: no torch.distributed process "
                            "group is up (parallel.maybe_initialize_distributed)")
     world, rank = dist.get_world_size(), dist.get_rank()
     if plan is None:
         plan = plan_mesh(world)
-    if plan.n_devices != world:
+    if plan.n_devices != world and not (subset and plan.n_devices < world):
         raise ValueError(
             f"plan wants {plan.n_devices} devices, the world has {world}")
-    ranks = np.arange(world).reshape(plan.shape)
+    ranks = np.arange(plan.n_devices).reshape(plan.shape)
     big = [a for a, n in zip(plan.axis_names, plan.shape) if n > 1]
     groups = {}
     for k in range(1, len(big) + 1):
@@ -218,6 +222,8 @@ def build_world_mesh(plan: MeshPlan | None = None) -> WorldMesh:
                     grp = dist.new_group(members)
                 if rank in members:
                     groups[axes] = grp
+    if rank >= plan.n_devices:
+        return None
     if dist.get_backend() == "nccl":
         device = torch.device("cuda", torch.cuda.current_device())
     else:

@@ -13,10 +13,11 @@ and, at deeper levels,
 4. a few steps of the sharded burn-in transformer lower the loss, and the
    serve shapes (greedy decode, the paged engine, its scheduler levers,
    the paged decode kernel) are exact on the same pool;
-5. at ``full``, on two devices or more, the expert fabric and serving on
-   the mesh: an all-to-all over ``ep``, three MoE train steps with the
-   experts sharded over ``ep``, and the paged engine under ``rules=``
-   (its first tokens against a batch-1 forward). A world of one has no
+5. at ``full``, on two devices or more, the expert and stage fabric and
+   serving on the mesh: an all-to-all over ``ep``, three MoE train steps
+   with the experts sharded over ``ep``, three 2-stage GPipe steps (the
+   activations and their gradients hop stage to stage), and the paged
+   engine under ``rules=`` (its first tokens against a batch-1 forward). A world of one has no
    fabric to prove: it sets ``full_skipped``. With
    ``TPU_SMOKETEST_CHECKPOINT_DIR`` (a spot pool's volume) the steps
    resume from the newest valid checkpoint and run supervised
@@ -64,13 +65,19 @@ from ..models.checkpoint import _is_remote
 from ..ops import _build
 from ..parallel import (
     ALL_PROBES,
+    MeshPlan,
+    PipelineConfig,
     build_mesh,
     build_multislice_mesh,
+    build_world_mesh,
     dcn_slice_count,
     hierarchical_psum_probe,
+    init_pipeline_params,
     job_env_from_environ,
+    make_pipeline_train_step,
     make_rules,
     maybe_initialize_distributed,
+    place_pipeline_params,
     plan_mesh,
     plan_multislice,
     psum_probe,
@@ -97,7 +104,6 @@ NOT_PORTED = {
     "fleet_scale_ok": (("burnin", "full"), _FLEET),
     "aot_warm_ok": (("burnin", "full"), _FLEET),
     "prefix_cdn_ok": (("burnin", "full"), _FLEET),
-    "pipeline_ok": (("full",), "ROADMAP Queue A item 8"),
 }
 
 
@@ -497,14 +503,15 @@ def _serve_legs(checks, cfg, params, batch, rules, dev, gen, leg,
 
 
 def _full(checks, dev, n_dev, leg, guarded) -> bool:
-    """The reference's ``_run_full_level`` legs that the port runs: the
-    all-to-all over ``ep``, three MoE train steps with the experts sharded
-    over ``ep`` (``plan_mesh(n, ep=2, tp=1)``), and the paged engine under
-    ``rules=`` on ``plan_mesh(n)``, twice as many requests as slots, each
-    first token against a batch-1 ``forward`` of the gathered weights (no
-    eos: the loop never waits on the device). A world of one has no
-    fabric: the legs are skipped with ``full_skipped``, never passed
-    vacuously. ``pipeline_ok`` stays under ``not_ported``."""
+    """The reference's ``_run_full_level`` legs: the all-to-all over
+    ``ep``, three MoE train steps with the experts sharded over ``ep``
+    (``plan_mesh(n, ep=2, tp=1)``), three 2-stage GPipe steps over a
+    ``("pp", "dp")`` world of ``(2, n // 2)`` (``parallel/pipeline.py``),
+    and the paged engine under ``rules=`` on ``plan_mesh(n)``, twice as
+    many requests as slots, each first token against a batch-1 ``forward``
+    of the gathered weights (no eos: the loop never waits on the device).
+    A world of one has no fabric: the legs are skipped with
+    ``full_skipped``, never passed vacuously."""
     if n_dev < 2:
         checks["full_skipped"] = "ep/pp fabric needs >= 2 devices"
         return True
@@ -543,6 +550,32 @@ def _full(checks, dev, n_dev, leg, guarded) -> bool:
         checks["moe_last_loss"] = round(losses[-1], 4)
         return losses[-1] < losses[0]
 
+    def pipeline():
+        # a 2-stage GPipe train step over a ("pp", "dp") world of the
+        # first 2·(n // 2) ranks (gradients flow back stage to stage); a
+        # rank outside it (an odd world's last) has nothing to run
+        mesh = build_world_mesh(MeshPlan(("pp", "dp"), (2, n_dev // 2)),
+                                subset=True)
+        if mesh is None:
+            return True
+        pcfg = PipelineConfig(vocab=64, d_model=32, n_heads=2, d_ff=64,
+                              n_layers=2, seq_len=16, microbatch=2,
+                              n_microbatches=2)
+        pparams = place_pipeline_params(
+            init_pipeline_params(pcfg, gen(4), device=dev), mesh)
+        pstep = make_pipeline_train_step(pcfg, mesh)
+        total = pcfg.n_microbatches * pcfg.microbatch * mesh.shape["dp"]
+        stream = torch.randint(0, pcfg.vocab, (total, pcfg.seq_len + 1),
+                               generator=gen(5), device=dev)
+        pbatch = (stream[:, :-1], stream[:, 1:])
+        plosses = []
+        for _ in range(3):
+            pparams, ploss = pstep(pparams, pbatch)
+            plosses.append(float(ploss))
+        checks["pipeline_first_loss"] = round(plosses[0], 4)
+        checks["pipeline_last_loss"] = round(plosses[-1], 4)
+        return plosses[-1] < plosses[0]
+
     def serving():
         mesh = build_mesh(plan_mesh(n_dev))
         rules = make_rules(mesh)
@@ -570,6 +603,6 @@ def _full(checks, dev, n_dev, leg, guarded) -> bool:
 
     ok = True
     for key, fn in (("all_to_all_ep_ok", all_to_all_ep), ("moe_ok", moe),
-                    ("serving_ok", serving)):
+                    ("pipeline_ok", pipeline), ("serving_ok", serving)):
         ok &= leg(key[:-3], lambda: guarded(key, fn))
     return bool(ok)

@@ -108,9 +108,10 @@ def collectives(rank, n, args):
 
 
 def sharded_train(rank, n, args):
-    """The sharded SGD step for each case: ``shard_params`` and back,
-    ``steps`` steps, the losses and the gathered parameters; then the
-    refusals, each as its exception's type and message."""
+    """The sharded SGD step for each case (its mesh ``plan_mesh(n,
+    **case["plan"])``): ``shard_params`` and back, ``steps`` steps, the
+    losses and the gathered parameters; then the refusals, each as its
+    exception's type and message."""
     import dataclasses
 
     import torch
@@ -134,7 +135,7 @@ def sharded_train(rank, n, args):
     out = {}
     for case in args["cases"]:
         cfg = BurnInConfig(**case["cfg"], dtype=torch.float32)
-        rules = make_rules(build_mesh(plan_mesh(n, tp=case["tp"])))
+        rules = make_rules(build_mesh(plan_mesh(n, **case["plan"])))
         full = params_from_numpy(case["params"], cfg, device="cpu")
         params = shard_params(full, rules)
         back = gather_params(params, rules)
@@ -151,6 +152,7 @@ def sharded_train(rank, n, args):
         out[case["name"]] = {"roundtrip": roundtrip, "losses": losses,
                              "params": final if rank == 0 else None,
                              "local_rows": int(batch[0].shape[0]),
+                             "local_seq": int(batch[0].shape[1]),
                              "mesh": dict(rules.mesh.shape)}
     refusals = {}
     base = BurnInConfig(**args["cases"][0]["cfg"], dtype=torch.float32)
@@ -158,10 +160,8 @@ def sharded_train(rank, n, args):
             ("tp_heads", dict(n_heads=2, n_kv_heads=None), dict(tp=4)),
             ("tp_kv_heads", dict(n_kv_heads=2), dict(tp=4)),
             ("tp_d_ff", dict(d_ff=66), dict(tp=4)),
-            # MoE runs over dp, ep and tp; over sp it is refused
-            ("moe", dict(n_experts=2), dict(tp=1, sp=2)),
-            ("sp_with_tp", {}, dict(tp=2, sp=2)),
-            ("sp_alone", {}, dict(tp=1, sp=4))):
+            ("sp_flash_window", dict(attn="flash", flash_window=4),
+             dict(tp=1, sp=2))):
         cfg = dataclasses.replace(base, **over)
         rules = make_rules(build_mesh(plan_mesh(n, **plan)))
         try:
@@ -552,6 +552,130 @@ def serve_sharded(rank, n, args):
         out["odd_slots"] = None
     except ValueError as exc:
         out["odd_slots"] = str(exc)
+    return out
+
+
+def pipeline_world(rank, n, args):
+    """For each case (axis names and shape of a world mesh over all ``n``
+    ranks, or with ``"subset"`` over the first ranks: the others report
+    ``None``): this rank's GPipe and 1F1B loss and gathered gradients from
+    the case's reference weights and global batch, and the losses of
+    ``steps`` SGD steps of each schedule; the gradients on rank 0 only."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        pipeline_params_from_numpy,
+        pipeline_params_to_numpy,
+    )
+    from nvidia_terraform_modules_tpu_torch.parallel import (
+        MeshPlan,
+        PipelineConfig,
+        build_world_mesh,
+        gather_pipeline_params,
+        make_pipeline_train_step,
+        place_pipeline_params,
+    )
+    from nvidia_terraform_modules_tpu_torch.parallel.pipeline import (
+        _gpipe_value_and_grad,
+        pipeline_loss_fn,
+        pipeline_value_and_grad_1f1b,
+    )
+
+    cfg = PipelineConfig(**args["cfg"])
+    out = {}
+    for case in args["cases"]:
+        mesh = build_world_mesh(MeshPlan(tuple(case["names"]),
+                                         tuple(case["shape"])),
+                                subset=case.get("subset", False))
+        if mesh is None:
+            out[case["name"]] = None
+            continue
+        full = pipeline_params_from_numpy(args["params"], cfg, device="cpu")
+        params = place_pipeline_params(full, mesh)
+        batch = tuple(torch.from_numpy(x).long() for x in case["batch"])
+        rec = {"mesh": dict(mesh.shape),
+               "local_wq": tuple(params["layers"]["wq"].shape),
+               "forward": float(pipeline_loss_fn(params, batch, cfg, mesh))}
+        for name, fn in (("gpipe", _gpipe_value_and_grad),
+                         ("1f1b", pipeline_value_and_grad_1f1b)):
+            loss, grads = fn(params, batch, cfg, mesh)
+            grads = pipeline_params_to_numpy(gather_pipeline_params(grads,
+                                                                    mesh))
+            rec[name] = {"loss": float(loss),
+                         "grads": grads if rank == 0 else None}
+            step = make_pipeline_train_step(cfg, mesh, lr=args["lr"],
+                                            schedule=name)
+            p, losses = params, []
+            for _ in range(args["steps"]):
+                p, loss = step(p, batch)
+                losses.append(float(loss))
+            rec[name]["losses"] = losses
+        out[case["name"]] = rec
+    return out
+
+
+def sp_world(rank, n, args):
+    """The burn-in with ``sp`` over processes: for each case (a mesh plan:
+    ``plan_mesh(n, **case["plan"])``, or with ``"slices"`` the multislice
+    plan), this rank's ``forward_and_aux`` logits and aux on its rows and
+    sequence piece with its coordinates, the world's loss and gradients
+    (gathered; rank 0 only) from the case's weights and global batch, and
+    the losses of ``steps`` SGD steps. A case with ``"planted_rope"``
+    runs with every rank's RoPE offset planted at 0."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        BurnInConfig,
+        forward_and_aux,
+        gather_params,
+        make_grads_fn,
+        make_train_step,
+        params_from_numpy,
+        params_to_numpy,
+        shard_batch,
+        shard_params,
+    )
+    from nvidia_terraform_modules_tpu_torch.models import burnin
+    from nvidia_terraform_modules_tpu_torch.parallel import (
+        build_mesh,
+        build_multislice_mesh,
+        make_rules,
+        plan_mesh,
+        plan_multislice,
+    )
+
+    real_offset = burnin._seq_offset
+    out = {}
+    for case in args["cases"]:
+        burnin._seq_offset = ((lambda rules, s: 0) if case.get("planted_rope")
+                              else real_offset)
+        if "slices" in case:
+            mesh = build_multislice_mesh(plan_multislice(
+                n, case["slices"], **case["plan"]))
+        else:
+            mesh = build_mesh(plan_mesh(n, **case["plan"]))
+        rules = make_rules(mesh)
+        cfg = BurnInConfig(**case["cfg"], dtype=torch.float32)
+        full = params_from_numpy(case["params"], cfg, device="cpu")
+        params = shard_params(full, rules)
+        batch = shard_batch(tuple(torch.from_numpy(x).long()
+                                  for x in case["batch"]), rules)
+        with torch.no_grad():
+            logits, aux = forward_and_aux(params, batch[0], cfg, rules)
+        loss, grads = make_grads_fn(cfg, rules)(params, batch)
+        grads = params_to_numpy(gather_params(grads, rules))
+        step = make_train_step(cfg, rules, lr=args["lr"], device="cpu")
+        p, losses = params, []
+        for _ in range(args["steps"]):
+            p, step_loss = step(p, batch)
+            losses.append(float(step_loss))
+        out[case["name"]] = {
+            "mesh": dict(mesh.shape), "logits": logits.numpy(),
+            "aux": float(aux), "loss": float(loss), "losses": losses,
+            "data": (mesh.index(rules.data), mesh.axis_size(rules.data)),
+            "sp": (mesh.index("sp"), mesh.axis_size("sp")),
+            "grads": grads if rank == 0 else None}
+    burnin._seq_offset = real_offset
     return out
 
 

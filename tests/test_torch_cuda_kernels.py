@@ -36,7 +36,12 @@ for bit, tokens and Gumbel scores: both take libdevice's ``logf``. The
 compiled greedy decoder (``make_decoder``: an eager prefill, then one
 replay of the captured steps) equals the eager loop bit for bit, its
 capture holds ``n_new - 1`` times one step's launches, a second params tree
-is captured anew, and the engine's telemetry adds no synchronise.
+is captured anew, and the engine's telemetry adds no synchronise. The
+pipeline's stages attend through K1 and K5 within 1e-4 (f32) of the plain
+dense stage, the ring and Ulysses on an NCCL world of one launch K2
+and K5, or K1 and K5, once a layer, and a sequence shard's flash
+attention against the gathered K/V (flash over ``sp``) runs K2 and K5 on
+the blocks up to its own within 1e-4 (f32) of the plain dense math.
 """
 
 import dataclasses
@@ -1682,3 +1687,125 @@ def test_moe_rules_world_of_one_on_card_equals_unsharded_step(cuda):
     assert all(torch.equal(a, b) for a, b in zip(ls, lu))
     for a, b in zip(tree_leaves(ps), tree_leaves(pu)):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------- the pipeline and sp world
+
+def _pipe_cfg(**over):
+    from nvidia_terraform_modules_tpu_torch.parallel import PipelineConfig
+
+    return PipelineConfig(**{**dict(vocab=128, d_model=128, n_heads=2,
+                                    d_ff=256, n_layers=4, seq_len=128,
+                                    microbatch=2, n_microbatches=4,
+                                    dtype=torch.float32), **over})
+
+
+@pytest.mark.parametrize("schedule", ["gpipe", "1f1b"])
+def test_pipeline_stage_kernels_match_plain_dense_stage(cuda, schedule,
+                                                        monkeypatch):
+    """The pipeline's stages on ``[cuda:0] * 2`` attend through K1 (and
+    K5 in the backward; 1F1B's recompute adds a K1 a layer a microbatch):
+    loss and gradients at f32 equal the same schedule with the stage's
+    attention swapped for the plain dense math within 1e-4 relative."""
+    from nvidia_terraform_modules_tpu_torch.parallel import (
+        MeshPlan,
+        init_pipeline_params,
+    )
+    from nvidia_terraform_modules_tpu_torch.parallel import pipeline as tp
+
+    cfg = _pipe_cfg()
+    mesh = build_mesh(MeshPlan(("pp", "dp"), (2, 1)), devices=[cuda] * 2)
+    params = init_pipeline_params(cfg, torch.Generator(
+        device=cuda).manual_seed(4), device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    stream = torch.randint(0, cfg.vocab, (8, cfg.seq_len + 1), generator=g,
+                           device=cuda)
+    batch = (stream[:, :-1], stream[:, 1:])
+    fn = (tp._gpipe_value_and_grad if schedule == "gpipe"
+          else tp.pipeline_value_and_grad_1f1b)
+    before = dict(launches)
+    loss, grads = fn(params, batch, cfg, mesh)
+    torch.cuda.synchronize()
+    got = {k: launches[k] - before.get(k, 0) for k in ("flash_fwd",
+                                                       "flash_bwd_fused")}
+    calls = cfg.n_layers * cfg.n_microbatches
+    assert got == {"flash_fwd": calls * (1 if schedule == "gpipe" else 2),
+                   "flash_bwd_fused": calls}
+    monkeypatch.setattr(tp, "_attention", lambda q, k, v:
+                        dense_reference_attention(q, k, v, causal=True))
+    loss_d, grads_d = fn(params, batch, cfg, mesh)
+    assert abs(float(loss) - float(loss_d)) <= 1e-5 * abs(float(loss_d))
+    for a, b in zip(tp._flat(grads), tp._flat(grads_d)):
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= 1e-4 * max(1e-3, b.float().abs().max().item())
+
+
+@pytest.mark.parametrize("attn,kernels", [
+    ("ring", ("flash_partial", "flash_bwd_fused")),
+    ("ulysses", ("flash_fwd", "flash_bwd_fused"))])
+def test_sp_world_of_one_runs_its_kernels(cuda, attn, kernels):
+    """``attn="ring"``/``"ulysses"`` through ``make_grads_fn(cfg, rules)``
+    on an NCCL world of one: a ring of one member (K2 on the diagonal
+    block, K5 with f32 outputs) and Ulysses without an all-to-all (K1, K5),
+    at f32 within 1e-4 of the flash step's loss and gradients."""
+    import torch.distributed as dist
+
+    cfg = dataclasses.replace(_train_state_cfg(), attn=attn,
+                              flash_backward="fused", dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(2),
+                         device=cuda)
+    batch = synthetic_batch(torch.Generator(device=cuda).manual_seed(3),
+                            cfg, device=cuda)
+    rules, owned = _nccl_world_of_one(cuda)
+    try:
+        before = dict(launches)
+        loss, grads = make_grads_fn(cfg, rules)(params, batch)
+        torch.cuda.synchronize()
+        got = {k: launches[k] - before.get(k, 0) for k in kernels}
+    finally:
+        if owned:
+            dist.destroy_process_group()
+    assert got == dict.fromkeys(kernels, cfg.n_layers)
+    loss_f, grads_f = make_grads_fn(dataclasses.replace(cfg, attn="flash"))(
+        params, batch)
+    assert abs(float(loss) - float(loss_f)) <= 1e-5 * abs(float(loss_f))
+    for a, b in zip(tree_leaves(grads), tree_leaves(grads_f)):
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= 1e-4 * max(1e-3, b.float().abs().max().item())
+
+
+@pytest.mark.parametrize("i", [0, 1, 3])
+def test_shard_flash_on_card_matches_dense(cuda, i):
+    """Flash over ``sp`` on a world mesh (``shard_flash_attention``: shard
+    ``i`` of 4's queries against the gathered K/V) on the card: K2 and K5
+    (f32 outputs) once each for blocks ``0 ... i`` and no later one;
+    output and gradients at f32 within 1e-4 of the plain dense attention
+    at the shard's offset."""
+    from nvidia_terraform_modules_tpu_torch.ops.ring_attention import (
+        shard_flash_attention,
+    )
+
+    s, shape = 256, (2, 1024, 4, 64)
+    g = torch.Generator(device=cuda).manual_seed(6 + i)
+    q, k, v, w = (torch.randn(shape, generator=g, device=cuda)
+                  for _ in range(4))
+    rows = slice(i * s, (i + 1) * s)
+
+    def grads(fn):
+        ins = [x.clone().requires_grad_(True) for x in (q[:, rows], k, v)]
+        out = fn(*ins)
+        return [out.detach(), *torch.autograd.grad((out * w[:, rows]).sum(),
+                                                   ins)]
+
+    before = dict(launches)
+    got = grads(lambda q_, k_, v_: shard_flash_attention(q_, k_, v_, i))
+    torch.cuda.synchronize()
+    counted = {key: launches[key] - before.get(key, 0)
+               for key in ("flash_partial", "flash_bwd_fused")}
+    assert counted == dict.fromkeys(counted, i + 1)
+    want = grads(lambda q_, k_, v_: dense_reference_attention(
+        q_, k_, v_, causal=True, q_offset=i * s))
+    for a, b in zip(got, want):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-4 * max(1.0, b.abs().max().item())
+    assert not got[2][:, (i + 1) * s:].any()

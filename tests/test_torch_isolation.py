@@ -49,6 +49,9 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes",
 DURABLE_STATE = ("models/optimizer.py", "models/checkpoint.py",
                  "models/resilience.py", "smoketest/runner.py",
                  "smoketest/chaos.py")
+# the pipeline slice's modules: the pipeline and the world's hops
+PIPELINE = ("parallel/pipeline.py", "parallel/collectives.py",
+            "ops/ring_attention.py", "ops/ulysses_attention.py")
 
 
 def _port_files():
@@ -85,6 +88,21 @@ def test_the_durable_state_modules_are_scanned():
     scanned = {p.relative_to(Path(port.__file__).parent).as_posix()
                for p in _port_files()[:-1]}
     assert set(DURABLE_STATE) <= scanned
+
+
+def test_the_pipeline_modules_are_scanned():
+    scanned = {p.relative_to(Path(port.__file__).parent).as_posix()
+               for p in _port_files()[:-1]}
+    assert set(PIPELINE) <= scanned
+    from nvidia_terraform_modules_tpu_torch.parallel import (
+        collectives,
+        pipeline,
+    )
+
+    for fn in (collectives.hop, collectives.exchange, collectives.gather_seq,
+               collectives.all_to_all_world, pipeline.make_pipeline_train_step,
+               pipeline.pipeline_value_and_grad_1f1b):
+        assert fn.__module__.startswith(port.__name__ + ".parallel.")
 
 
 def test_importing_the_whole_port_loads_no_jax():
@@ -148,5 +166,28 @@ def test_default_device_raises_without_a_card():
             make_train_step(cfg)(cpu_params, batch)
         return
     for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_pipeline_entry_points_target_the_card():
+    """``init_pipeline_params`` defaults to the card, and a pipeline mesh
+    built without ``devices=`` is the card's: without one both raise."""
+    from nvidia_terraform_modules_tpu_torch.parallel import (
+        MeshPlan,
+        PipelineConfig,
+        build_mesh,
+        init_pipeline_params,
+    )
+
+    assert inspect.signature(init_pipeline_params).parameters[
+        "device"].default == "cuda"
+    cfg = PipelineConfig(vocab=16, d_model=8, n_heads=2, d_ff=16,
+                         n_layers=2)
+    if torch.cuda.is_available():
+        assert init_pipeline_params(cfg)["embed"].device.type == "cuda"
+        return
+    for call in (lambda: init_pipeline_params(cfg),
+                 lambda: build_mesh(MeshPlan(("pp", "dp"), (1, 1)))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -3,13 +3,18 @@
 """PyTorch port, the data- and tensor-parallel SGD step over a
 ``torch.distributed`` world against the JAX reference's unsharded
 ``make_train_step``: one gloo world of 4 CPU ranks (``_torch_world.py``)
-runs three meshes — dp 2 × tp 2, tp 4, and dp 2 × tp 2 with grouped-query
-attention (2 KV heads) — for 3 SGD steps each from the reference's
-``init_params`` weights and one seeded numpy batch. It also checks that
-``shard_params`` and ``gather_params`` reassemble the tree exactly, and
-the refusals (a ``tp`` that the heads, KV heads or FFN do not divide; MoE
-over ``sp``, since it runs over dp, ep and tp; ``sp`` over the world). In this process, a world of
-one runs the unsharded step's operations bit for bit.
+runs seven meshes — dp 2 × tp 2, tp 4, dp 2 × tp 2 with grouped-query
+attention (2 KV heads), the three that the port refused before the
+sequence ran over processes: MoE on dp 2 × sp 2, the ring on sp 2 × tp 2
+and Ulysses on sp 4 (both with RoPE), and flash on sp 4 (each shard's
+queries against the gathered K/V) — for 3 SGD steps each from the
+reference's ``init_params`` weights and one seeded numpy batch. It also
+checks that ``shard_params`` and ``gather_params`` reassemble the tree
+exactly, that ``shard_batch`` cuts rows over the data axes and the
+sequence over ``sp``, and the refusals that remain (a ``tp`` that the
+heads, KV heads or FFN do not divide; a flash window with ``sp``). In
+this process, a world of one runs the unsharded step's operations bit
+for bit.
 
 Tolerances (f32): the tied head's partial logits and the mean over dp
 change the order of sums, so losses agree within 1e-5 relative and each
@@ -46,11 +51,17 @@ BASE = dict(vocab=64, d_model=64, n_heads=4, d_ff=128, n_layers=2,
             seq_len=16, batch=4)
 LR = 0.05
 STEPS = 3
-# name → (tp of the world of 4, config changes)
+# name → (plan_mesh keywords for the world of 4, config changes)
 CASES = {
-    "dp2xtp2": (2, dict(attn="dense")),
-    "tp4": (4, dict(attn="flash")),
-    "gqa_dp2xtp2": (2, dict(attn="dense", n_kv_heads=2, rope=True)),
+    "dp2xtp2": (dict(tp=2), dict(attn="dense")),
+    "tp4": (dict(tp=4), dict(attn="flash")),
+    "gqa_dp2xtp2": (dict(tp=2), dict(attn="dense", n_kv_heads=2, rope=True)),
+    # refused until sp ran over processes: MoE over sp, sp with tp, sp alone
+    "moe_dp2xsp2": (dict(tp=1, sp=2), dict(attn="ring", n_experts=2)),
+    "sp2xtp2": (dict(tp=2, sp=2), dict(attn="ring", rope=True)),
+    "sp4": (dict(tp=1, sp=4), dict(attn="ulysses", rope=True)),
+    # flash over sp: each shard's queries against the gathered K/V
+    "flash_sp4": (dict(tp=1, sp=4), dict(attn="flash", rope=True)),
 }
 
 
@@ -79,9 +90,9 @@ def world(tmp_path_factory):
     """The world of 4's results (one spawn for the module) beside the
     reference's."""
     refs = {name: _reference(name) for name in CASES}
-    cases = [{"name": name, "tp": tp, "cfg": {**BASE, **over},
+    cases = [{"name": name, "plan": plan, "cfg": {**BASE, **over},
               "params": refs[name][0], "batch": refs[name][1], "lr": LR,
-              "steps": STEPS} for name, (tp, over) in CASES.items()]
+              "steps": STEPS} for name, (plan, over) in CASES.items()]
     ranks = run_world("sharded_train", 4, tmp_path_factory.mktemp("tp"),
                       {"cases": cases}, timeout=150)
     return ranks, refs
@@ -107,20 +118,21 @@ def test_sharded_step_matches_reference(world, name):
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_shard_params_reassembles_and_rows_split(world, name):
     ranks, _ = world
-    tp = CASES[name][0]
+    tp, sp = CASES[name][0]["tp"], CASES[name][0].get("sp", 1)
+    dp = 4 // (tp * sp)
     for r in ranks:
         assert r[name]["roundtrip"] is True
-        assert r[name]["mesh"] == {"dp": 4 // tp, "sp": 1, "tp": tp}
-        assert r[name]["local_rows"] == BASE["batch"] // (4 // tp)
+        assert r[name]["mesh"] == {"dp": dp, "sp": sp, "tp": tp}
+        assert r[name]["local_rows"] == BASE["batch"] // dp
+        assert r[name]["local_seq"] == BASE["seq_len"] // sp
 
 
 @pytest.mark.parametrize("case, kind, words", [
     ("tp_heads", "ValueError", "tp = 4 must divide n_heads (2)"),
     ("tp_kv_heads", "ValueError", "n_kv_heads (2)"),
     ("tp_d_ff", "ValueError", "d_ff (66)"),
-    ("moe", "NotImplementedError", "Queue A item 6"),
-    ("sp_with_tp", "NotImplementedError", "sp > 1 together with dp or tp"),
-    ("sp_alone", "NotImplementedError", "ring and Ulysses over processes"),
+    ("sp_flash_window", "NotImplementedError",
+     "flash_window with sp = 2 over processes is not ported"),
 ])
 def test_refusals(world, case, kind, words):
     ranks, _ = world

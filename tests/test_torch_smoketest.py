@@ -82,9 +82,10 @@ def test_burnin_level_in_a_world_of_four(world4):
 def test_full_level_in_a_world_of_four(world4):
     """The full level's legs as the reference's ``_run_full_level`` keys
     them: the all-to-all over ``ep`` (dp 2 × ep 2), three MoE steps with
-    the experts over ``ep`` lowering the loss, and the engine under
-    ``rules=`` on ``plan_mesh(4)`` (tp 4, so one slot and 2 requests);
-    ``pipeline_ok`` alone stays under ``not_ported``."""
+    the experts over ``ep`` lowering the loss, three 2-stage GPipe steps
+    over a (pp 2, dp 2) world lowering theirs, and the engine under
+    ``rules=`` on ``plan_mesh(4)`` (tp 4, so one slot and 2 requests); no
+    full-level leg is left under ``not_ported``."""
     for runs in world4:
         c = runs[0]["checks"]
         assert c["level"] == "full"
@@ -94,12 +95,14 @@ def test_full_level_in_a_world_of_four(world4):
         assert c["serving_ok"] is True
         assert c["serving_requests"] == 2 and c["serving_slots"] == 1
         assert c["serving_kv_utilisation"] > 0
+        assert c["pipeline_ok"] is True, c.get("pipeline_error")
+        assert c["pipeline_last_loss"] < c["pipeline_first_loss"]
         assert "full_skipped" not in c
         full_listed = {k for k in c["not_ported"]
                        if k in ("all_to_all_ep_ok", "moe_ok", "serving_ok",
                                 "pipeline_ok")}
-        assert full_listed == {"pipeline_ok"}
-        for leg in ("all_to_all_ep", "moe", "serving"):
+        assert full_listed == set()
+        for leg in ("all_to_all_ep", "moe", "pipeline", "serving"):
             assert leg in c["leg_seconds"]
 
 
@@ -169,10 +172,10 @@ def test_every_reference_leg_runs_or_is_listed_not_ported(tmp_path):
     conditional = {"dcn_psum_ok", "hier_psum_ok", "burnin_checkpoint_ok",
                    "device_count_ok", "all_gather_ok", "reduce_scatter_ok",
                    "ring_permute_ok", "all_to_all_ok", "all_to_all_ep_ok",
-                   "moe_ok", "serving_ok"}
+                   "moe_ok", "pipeline_ok", "serving_ok"}
     assert ref_keys - run_keys - set(listed) <= conditional
     assert r.checks["full_skipped"] == "ep/pp fabric needs >= 2 devices"
-    assert "pipeline_ok" in listed
+    assert "pipeline_ok" not in listed and "pipeline_ok" in ref_keys
     assert not {"all_to_all_ep_ok", "moe_ok", "serving_ok"} & set(listed)
 
 
