@@ -113,8 +113,19 @@ It builds the port's CUDA kernels from ``csrc/`` with nvcc (into
   ``run(rules=)``, its tokens equal to the ``rules=None`` engine's bit for
   bit (K1 and K7 counted, its replayed wave timed), and at f32 equal to
   solo decode; and the CLI at ``--level full`` as a world of one, which
-  skips the fabric legs with ``full_skipped`` and lists no full-level leg
-  as not ported;
+  skips the fabric legs with ``full_skipped``, lists no full-level leg as
+  not ported and decodes on the trained shards (no ``decode_sharding``);
+- ``rules=`` on the other decode entry points and the engine's levers
+  (the NCCL world of one): ``make_decoder(cfg, rules)`` over the bf16
+  cache and ``make_quantized_decoder(cfg, rules, cache_dtype="int8")`` at
+  the flagship decode shape, tokens equal to the ``rules=None`` decoders'
+  bit for bit, one call's K1/K6/K8 counted, tokens/s beside the unsharded
+  decoder's; the flagship MoE, int8-weight and ``spec_k=4`` engines under
+  ``run(rules=)``, tokens and K1/K7/K7-int8/K8 launches equal to the
+  ``rules=None`` runs', and their f32 configurations equal to solo
+  ``greedy_decode(..., rules)``; K8 and K6 at the shapes a tp 2 or tp 4
+  rank gives them (``kernel_shard_shapes``), against their plain
+  versions;
 - the pipeline and the sequence over processes: GPipe and 1F1B
   (``parallel/pipeline.py``) at f32 on ``[cuda:0] * pp`` for pp 2 and 4
   and on a world of one over NCCL, against the unpipelined model through
@@ -1836,6 +1847,37 @@ def decode_int8_flagship(params, cfg, dev) -> tuple[dict, dict]:
         decoders.clear()
         torch.cuda.empty_cache()
     return rec, int8_launches
+
+
+def decode_rates_ab(run_a, run_b, n_new, prompt) -> dict:
+    """:func:`decode_rates` of two decoders in turns (a b, then b a, ...)
+    within one call, DECODE_RUNS turns each after one warm call of each:
+    each decoder's median tokens/s with its min-max, and the median (min,
+    max) of the turns' b ÷ a ratios — a comparison the card's drift
+    between two back-to-back series would blur."""
+    from nvidia_terraform_modules_tpu_torch.utils.timing import synced_ms
+
+    def rate(run):
+        _, total = synced_ms(lambda: run(n_new, prompt), 1)
+        _, pre = synced_ms(lambda: run(1, prompt), 1)
+        return prompt.shape[0] * (n_new - 1) / ((total - pre) / 1e3)
+
+    for run in (run_a, run_b):
+        rate(run)
+    turns = []
+    for i in range(DECODE_RUNS):
+        if i % 2:
+            b = rate(run_b)
+            a = rate(run_a)
+        else:
+            a = rate(run_a)
+            b = rate(run_b)
+        turns.append((a, b, b / a))
+    cols = [sorted(col) for col in zip(*turns)]
+    mid = len(turns) // 2
+    return {key: {"median": col[mid], "min": col[0], "max": col[-1]}
+            for key, col in zip(("a_tokens_per_s", "b_tokens_per_s",
+                                 "b_over_a"), cols)}
 
 
 def _moe_exact_cfg(top_k: int):
@@ -3937,24 +3979,371 @@ def serve_rules_flagship(params, cfg, dev, prompts, max_len,
     return rec, launches
 
 
+def _shard_products(tp: int) -> list[tuple[str, int, int, bool]]:
+    """``(name, K, N, [N, K] storage)`` of the flagship's weight products
+    at one rank's shard under ``tp``: wq (and wk, wv), wo, up, down and the
+    tied head (the embedding split on ``d_model``, read through its
+    transpose)."""
+    d, f, vocab = 2048, 8192, 8192
+    return [("wq", d, d // tp, False), ("wo", d // tp, d, False),
+            ("up", d, f // tp, False), ("down", f // tp, d, False),
+            ("head", d // tp, vocab, True)]
+
+
+def kernel_shard_shapes(randn, dev) -> dict:
+    """K8 and K6 at the shapes one rank of a tp 2 or tp 4 world gives them
+    at the flagship's widths — one card holds one NCCL rank, so this is
+    where the kernels meet a multi-card run's shapes: K8 for each of
+    :func:`_shard_products` at M = 1, 4 and 8 (the K split
+    ``int8_slices`` picks for the shape beside it), and K6 over an int8
+    cache of the rank's ``16 / tp`` KV heads at the decode step (batch 8,
+    768 rows at positions 512-568). Each against its plain version within
+    the int8 kernels' limit, timed beside it and its bound."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import quantize_kv
+    from nvidia_terraform_modules_tpu_torch.ops.decode_attention import (
+        kv_decode_attention,
+        kv_decode_attention_ref,
+    )
+    from nvidia_terraform_modules_tpu_torch.ops.int8_matmul import (
+        int8_matmul,
+        int8_matmul_ref,
+        int8_slices,
+    )
+    from nvidia_terraform_modules_tpu_torch.utils.timing import (
+        cuda_median_ms,
+        sync,
+    )
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    rec: dict = {"int8_matmul": [], "kv_decode": []}
+    for tp in (2, 4):
+        for name, k, n, trans in _shard_products(tp):
+            w = torch.randint(-127, 128, (n, k) if trans else (k, n),
+                              generator=randn.gen, device=dev,
+                              dtype=torch.int8)
+            scale = torch.rand((n,), generator=randn.gen, device=dev) \
+                * 2e-3 + 1e-4
+            for m in (1, 4, 8):
+                x = randn((m, k), bf16)
+
+                def call(x=x, w=w, scale=scale, trans=trans):
+                    return int8_matmul(x, w, scale, transpose_rhs=trans)
+                out = call()
+                ref = int8_matmul_ref(x, w, scale, transpose_rhs=trans)
+                sync()
+                err = limit_err(out, ref, "bf16",
+                                f"int8_matmul tp {tp} {name} M={m}")
+                nbytes = k * n + 4 * n + 2 * m * k + 2 * m * n
+                bound_ms, bound_by = bound(2.0 * m * k * n, nbytes, "bf16")
+                rec["int8_matmul"].append(dict(
+                    tp=tp, shape=name, m=m, k=k, n=n, transposed=trans,
+                    slices=int8_slices(k, n), max_abs_err=err,
+                    ms=cuda_median_ms(call),
+                    plain_ms=cuda_median_ms(lambda: int8_matmul_ref(
+                        x, w, scale, transpose_rhs=trans)),
+                    bound_ms=bound_ms, bound_by=bound_by))
+            del w
+        b, d, rows, heads = DECODE_BATCH, 128, 768, 16 // tp
+        pos_list = [DECODE_PROMPT + 8 * i for i in range(b)]
+        q = randn((b, heads, d), bf16)
+        (k, ks), (v, vs) = (quantize_kv(randn((b, rows, heads, d), f32))
+                            for _ in range(2))
+        for i, p_ in enumerate(pos_list):      # rows past pos: planted
+            for t in (k, v):
+                t[i, p_ + 1:] = 127
+            ks[i, p_ + 1:] = 1e4
+            vs[i, p_ + 1:] = 1e4
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+        kw = dict(scale=d ** -0.5, k_scale=ks, v_scale=vs)
+        out = kv_decode_attention(q, k, v, pos, **kw)
+        ref = kv_decode_attention_ref(q, k, v, pos, **kw)
+        sync()
+        err = limit_err(out, ref, "bf16", f"kv_decode tp {tp}")
+        live = sum(p_ + 1 for p_ in pos_list)
+        nbytes = 2 * live * heads * (d + 4) + 2 * b * heads * d * 2 + b * 4
+        bound_ms, bound_by = bound(4.0 * heads * d * live, nbytes, "bf16")
+        rec["kv_decode"].append(dict(
+            tp=tp, b=b, heads=heads, kv_heads=heads, rows=rows,
+            max_abs_err=err,
+            ms=cuda_median_ms(lambda: kv_decode_attention(q, k, v, pos,
+                                                          **kw)),
+            plain_ms=cuda_median_ms(lambda: kv_decode_attention_ref(
+                q, k, v, pos, **kw), iters=5, warmup=1),
+            bound_ms=bound_ms, bound_by=bound_by))
+        del q, k, v, ks, vs
+    return rec
+
+
+def decode_rules_flagship(params, cfg, dev, smi: str) -> tuple[dict, dict]:
+    """``make_decoder(cfg, rules)`` over the bf16 cache and
+    ``make_quantized_decoder(cfg, rules, cache_dtype="int8")`` (weights
+    from ``quantize_params(params, rules=)``) on the NCCL world of one, at
+    ``decode_int8_flagship``'s shape (batch 8, prompt 512, 64 new) with
+    the flash prefill: the tokens equal the ``rules=None`` decoders' bit
+    for bit (a world of one runs no collective; its quantised tree equals
+    the unsharded one bit for bit); one call's launches counted from 0 —
+    K1 once a layer in the prefill, then per step nothing else on the bf16
+    cache (the plain masked softmax), 49 K8 and 8 K6 on the int8 stack;
+    decode tokens/s of both beside the unsharded decoder's, in turns
+    (:func:`decode_rates_ab`). Then ``sample_decode(..., rules)`` (top-p
+    0.95 at 0.8; the eager loop, D1 once a token) against ``rules=None``:
+    the tokens and launches equal. Returns the record and the launches by
+    run."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        make_decoder,
+        make_quantized_decoder,
+        quantize_params,
+        sample_decode,
+        tree_leaves,
+    )
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+    from nvidia_terraform_modules_tpu_torch.utils.timing import sync
+
+    bf16 = torch.bfloat16
+    dcfg = dataclasses.replace(cfg, attn="flash", batch=DECODE_BATCH)
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    prompt = torch.randint(0, cfg.vocab, (DECODE_BATCH, DECODE_PROMPT),
+                           generator=g, device=dev)
+    steps = DECODE_NEW - 1
+    per_step = dcfg.n_layers * 6 + 1
+    rules, owned = _world_of_one(dev)
+    rec: dict = {"nvidia_smi": smi, "mesh": dict(rules.mesh.shape),
+                 "batch": DECODE_BATCH, "prompt": DECODE_PROMPT,
+                 "n_new": DECODE_NEW, "prefill": "flash"}
+    launches: dict = {}
+    try:
+        qparams = quantize_params(params, bf16)
+        q_rules = quantize_params(params, bf16, rules)
+        rec["quantized_tree_equal"] = all(
+            torch.equal(a.q, b.q) and torch.equal(a.scale, b.scale)
+            for a, b in zip(tree_leaves(qparams), tree_leaves(q_rules))
+            if hasattr(a, "q"))
+        decoders: dict = {}
+
+        def run_of(stack, r):
+            weights = params if stack == "bf16" else (
+                qparams if r is None else q_rules)
+
+            def run(n, p):
+                key = (stack, r is None, n)
+                if key not in decoders:
+                    decoders[key] = (
+                        make_decoder(dcfg, r, n, device=dev)
+                        if stack == "bf16" else
+                        make_quantized_decoder(dcfg, r, n, dtype=bf16,
+                                               cache_dtype="int8",
+                                               device=dev))
+                return decoders[key](weights, p)
+            return run
+
+        for stack in ("bf16", "int8"):
+            plain, sharded = run_of(stack, None), run_of(stack, rules)
+            want = plain(DECODE_NEW, prompt)
+            sharded(DECODE_NEW, prompt)            # the capture
+            sync()
+            _build.reset_launches()
+            got = sharded(DECODE_NEW, prompt)
+            sync()
+            counted = {k_: c for k_, c in _build.launches.items() if c}
+            expect = {"flash_fwd": dcfg.n_layers}
+            if stack == "int8":
+                expect.update(int8_matmul=steps * per_step,
+                              kv_decode=steps * dcfg.n_layers)
+            graphs = decoders[(stack, False, DECODE_NEW)].graphs
+            if counted != expect or len(graphs) != 1:
+                raise AssertionError(
+                    f"decode_rules_flagship {stack}: launched {counted}, "
+                    f"expected {expect} from one graph ({len(graphs)})")
+            if not torch.equal(got, want):
+                raise AssertionError(f"decode_rules_flagship {stack}: the "
+                                     f"rules decoder's tokens differ")
+            ab = decode_rates_ab(plain, sharded, DECODE_NEW, prompt)
+            rec[stack] = dict(launches=counted, tokens_equal=True,
+                              unsharded_tokens_per_s=ab["a_tokens_per_s"],
+                              rules_tokens_per_s=ab["b_tokens_per_s"],
+                              rules_over_unsharded=ab["b_over_a"])
+            launches[stack] = counted
+            decoders.clear()
+        # sample_decode (the eager loop; D1 a token) under the rules
+        sampled = {}
+        for key, r in (("unsharded", None), ("rules", rules)):
+            sync()
+            _build.reset_launches()
+            sampled[key] = sample_decode(params, prompt, DECODE_NEW, dcfg,
+                                         SEED, r, temperature=0.8,
+                                         top_p=0.95, device=dev)
+            sync()
+            launches[f"sample_{key}"] = {k_: c for k_, c in
+                                         _build.launches.items() if c}
+        if not torch.equal(sampled["rules"], sampled["unsharded"]) or \
+                launches["sample_rules"] != launches["sample_unsharded"] or \
+                launches["sample_rules"].get("sample_draw") != DECODE_NEW:
+            raise AssertionError(f"decode_rules_flagship sample_decode: "
+                                 f"launches {launches}")
+        rec["sample_decode"] = dict(tokens_equal=True,
+                                    launches=launches["sample_rules"])
+        if not rec["quantized_tree_equal"]:
+            raise AssertionError("decode_rules_flagship: quantize_params("
+                                 "rules=) differs on a world of one")
+    finally:
+        if owned:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def serve_rules_levers_flagship(params, cfg, dev, prompts, max_len,
+                                smi: str) -> tuple[dict, dict]:
+    """The engine's levers under ``run(rules=)`` on the NCCL world of one,
+    on the flagship prompts: the flagship MoE engine (MOE_EXPERTS experts,
+    top-1, bf16), the int8-weight engine (``quantize_params(params,
+    rules=)``, int8 pool), the ``spec_k=4`` engine and the sampled engine
+    (top-p 0.95 at 0.8), each run with ``rules=None`` and with the rules,
+    each run's launches counted from 0 after a warm-up: the tokens equal
+    bit for bit and so do the launch counts (K1 an admission and layer;
+    K7, or K7-int8 and K8, a wave; D1 a wave and an admission).
+    Then ``moe_exact``'s (top-1 and top-2), ``serve_int8_exact``'s and a
+    speculative f32 configuration under the same rules: every request
+    equals its solo ``greedy_decode(..., rules)``. Returns the record and
+    the rules runs' launches by lever."""
+    import torch
+    import torch.distributed as dist
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        FLAGSHIP_TRAIN,
+        BurnInConfig,
+        greedy_decode,
+        init_params,
+        make_serve_engine,
+        quantize_params,
+    )
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+    from nvidia_terraform_modules_tpu_torch.utils.timing import sync
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    rules, owned = _world_of_one(dev)
+    rec: dict = {"nvidia_smi": smi, "mesh": dict(rules.mesh.shape)}
+    launches: dict = {}
+    try:
+        moe_cfg = BurnInConfig(**FLAGSHIP_TRAIN, dtype=bf16,
+                               n_experts=MOE_EXPERTS, router_top_k=MOE_TOP_K)
+        levers = {
+            "moe": (lambda: init_params(
+                moe_cfg, torch.Generator(device=dev).manual_seed(SEED),
+                device=dev), moe_cfg, dict(max_len=max_len), "paged_decode"),
+            "int8_weights": (lambda: quantize_params(params, bf16, rules),
+                             cfg, dict(max_len=max_len, cache_dtype="int8"),
+                             "paged_decode_int8"),
+            "spec_k": (lambda: params, cfg,
+                       dict(max_len=max_len + 4, spec_k=4), "flash_fwd"),
+            "sampled": (lambda: params, cfg, dict(
+                max_len=max_len, sampler={"temperature": 0.8,
+                                          "top_p": 0.95}), "sample_draw")}
+        for name, (make, lcfg, kw, needed) in levers.items():
+            weights = make()
+            engine = make_serve_engine(weights, lcfg, kv_block=KV_BLOCK,
+                                       device=dev, **kw)
+            run_kw = {"rng": SEED} if "sampler" in kw else {}
+            outs, counts, stats = {}, {}, {}
+            t0 = time.monotonic()
+            for key, r in (("unsharded", None), ("rules", rules)):
+                engine(prompts[:SLOTS], 4, slots=SLOTS, rules=r,
+                       **run_kw)                              # warm-up
+                sync()
+                _build.reset_launches()
+                outs[key] = engine(prompts, N_NEW, slots=SLOTS, rules=r,
+                                   **run_kw)
+                sync()
+                counts[key] = {k_: c for k_, c in _build.launches.items()
+                               if c}
+                stats[key] = engine.last_stats
+            equal = [torch.equal(a, b_) for a, b_ in
+                     zip(outs["rules"], outs["unsharded"])]
+            if not all(equal) or counts["rules"] != counts["unsharded"] \
+                    or not counts["rules"].get(needed):
+                raise AssertionError(
+                    f"serve_rules_levers_flagship {name}: tokens equal "
+                    f"{equal}; launches {counts}")
+            rec[name] = dict(
+                requests=stats["rules"]["requests"],
+                waves=stats["rules"]["waves"],
+                generated=stats["rules"]["generated"],
+                tokens_equal_to_unsharded=equal, launches=counts["rules"],
+                captures=engine.captures,
+                wall_s=time.monotonic() - t0)
+            launches[name] = counts["rules"]
+            del engine, weights
+            torch.cuda.empty_cache()
+        pg = torch.Generator().manual_seed(2)
+        eprompts = [torch.randint(0, 512, (n,), generator=pg).to(dev)
+                    for n in (16, 24, 8, 32, 16)]
+        long_prompts = [torch.randint(0, 512, (n,), generator=pg).to(dev)
+                        for n in (80, 96, 72, 128, 88)]
+        periodic = [torch.arange(a, a + per, device=dev).repeat(reps)
+                    for a, per, reps in ((3, 4, 5), (40, 3, 6), (7, 5, 4),
+                                         (100, 2, 9))]
+        exact_cases = {
+            "moe_top1": (_moe_exact_cfg(1), False, {}, eprompts),
+            "moe_top2": (_moe_exact_cfg(2), False, {}, eprompts),
+            "int8_weights": (_exact_cfg(), True,
+                             dict(max_len=144, cache_dtype="int8"),
+                             long_prompts),
+            "spec_k": (_exact_cfg(), False, dict(spec_k=2), periodic)}
+        exact = {}
+        for name, (ecfg, quant, kw, eps) in exact_cases.items():
+            eparams = init_params(ecfg, torch.Generator(
+                device=dev).manual_seed(1), device=dev)
+            if quant:
+                eparams = quantize_params(eparams, f32, rules)
+            kw = {"max_len": 48, **kw}
+            got = make_serve_engine(eparams, ecfg, kv_block=KV_BLOCK,
+                                    device=dev, **kw)(eps, 8, slots=2,
+                                                      rules=rules)
+            cache_dtype = kw.get("cache_dtype", "bf16")
+            exact[name] = [
+                torch.equal(a, greedy_decode(eparams, p_[None], 8, ecfg,
+                                             rules, cache_dtype=cache_dtype,
+                                             device=dev)[0])
+                for a, p_ in zip(got, eps)]
+        rec["f32_equal_to_solo"] = exact
+        if not all(all(v) for v in exact.values()):
+            raise AssertionError(f"serve_rules_levers_flagship: f32 tokens "
+                                 f"equal to solo decode {exact}")
+    finally:
+        if owned:
+            dist.destroy_process_group()
+    return rec, launches
+
+
 def smoketest_cli_full() -> dict:
     """The CLI at ``--level full`` as a world of one over NCCL: it exits
-    0, every burn-in leg passes, the full level's fabric legs are skipped
-    with ``full_skipped`` (one device has no ep or pp fabric), and no
-    full-level leg is left under ``not_ported``."""
+    0, every burn-in leg passes (``decode_ok`` from the trained shards:
+    the line has no ``decode_sharding``), the full level's fabric legs
+    are skipped with ``full_skipped`` (one device has no ep or pp
+    fabric), and no full-level leg is left under ``not_ported``."""
     checks, wall_s = _run_cli("full")
     _smoketest_verdict(checks, "smoketest_cli_full")
     full_legs = {"all_to_all_ep_ok", "moe_ok", "serving_ok", "pipeline_ok"}
     listed = sorted(full_legs & set(checks["not_ported"]))
     if checks.get("level") != "full" or "full_skipped" not in checks or \
-            listed or full_legs & {k for k in checks if k.endswith("_ok")}:
+            listed or full_legs & {k for k in checks if k.endswith("_ok")} \
+            or checks.get("decode_ok") is not True \
+            or "decode_sharding" in checks:
         raise AssertionError(f"smoketest_cli_full: level "
                              f"{checks.get('level')}, full_skipped "
                              f"{checks.get('full_skipped')}, listed "
                              f"{listed}: {checks}")
     return dict(wall_s=wall_s, seconds=checks["seconds"],
                 full_skipped=checks["full_skipped"],
-                full_legs_not_ported=listed,
+                full_legs_not_ported=listed, decode_ok=checks["decode_ok"],
+                decode_sharding_key="decode_sharding" in checks,
                 leg_seconds=checks["leg_seconds"])
 
 
@@ -4676,6 +5065,8 @@ def main() -> int:
     k6_main = kernel_kv_decode(randn, dev)
     kernel_decode_spans(randn, dev)
     k8_main, k8_decode = kernel_int8_matmul(randn, dev)
+    shard_rec = kernel_shard_shapes(randn, dev)
+    emit("kernel_shard_shapes", **shard_rec)
     d1_main = kernel_sample_draw(dev, smi)
     emit("probes", **card_probes(smi))
 
@@ -5013,6 +5404,13 @@ def main() -> int:
     sr_rec, sr_launches = serve_rules_flagship(params, cfg, dev, prompts,
                                                max_len, smi)
     emit("serve_rules_flagship", **sr_rec)
+    # the other decode entry points and the engine's levers under rules=
+    dr_rec, dr_launches = decode_rules_flagship(params, cfg, dev, smi)
+    emit("decode_rules_flagship", **dr_rec)
+    srl_rec, srl_launches = serve_rules_levers_flagship(
+        params, cfg, dev, prompts, max_len, smi)
+    emit("serve_rules_levers_flagship", **srl_rec)
+    torch.cuda.empty_cache()
     emit("smoketest_cli_full", **smoketest_cli_full())
 
     # ------------------------------- the pipeline and sp over processes
@@ -5051,6 +5449,12 @@ def main() -> int:
          # the flagship MoE train step's timed steps and the rules= engine
          "moe_train": {"launches": moe_train_launches["flash_fwd"]},
          "serve_rules": {"launches": sr_launches["flash_fwd"]},
+         # the decoders under rules (one call each: the flash prefill) and
+         # the engine's levers under rules= (admissions)
+         "decode_rules": {stack: dr_launches[stack]["flash_fwd"]
+                          for stack in ("bf16", "int8")},
+         "serve_rules_levers": {lever: c.get("flash_fwd", 0)
+                                for lever, c in srl_launches.items()},
          # the flagship pipeline's timed steps (K1 a layer a microbatch;
          # 1F1B twice: forward and recompute), the f32 pipeline checks,
          # and Ulysses on the world-of-one rules
@@ -5080,8 +5484,11 @@ def main() -> int:
                        "paged_decode_leg": st_rec["paged_decode_k7"]},
          # the three checkpointed CLI runs' paged_decode legs
          "checkpoint_cli": {"launches": k7_cli_ck},
-         # the flagship engine under rules= (a world of one)
-         "serve_rules": {"launches": sr_launches["paged_decode"]}},
+         # the flagship engine under rules= (a world of one), and the MoE
+         # engine under rules=
+         "serve_rules": {"launches": sr_launches["paged_decode"]},
+         "serve_rules_levers": {
+             "moe_launches": srl_launches["moe"]["paged_decode"]}},
         {"name": "paged_decode_int8", "route": "cuda",
          "source": "nvidia_terraform_modules_tpu_torch/csrc/paged_decode.cu",
          "replaces":
@@ -5090,7 +5497,9 @@ def main() -> int:
          **{key: k7i8_rec[key] for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")},
-         "moe": {"launches": moe_launches["int8"]["paged_decode_int8"]}},
+         "moe": {"launches": moe_launches["int8"]["paged_decode_int8"]},
+         "serve_rules_levers": {"int8_weights_launches": srl_launches[
+             "int8_weights"]["paged_decode_int8"]}},
         {"name": "kv_decode", "route": "cuda",
          "source": "nvidia_terraform_modules_tpu_torch/csrc/kv_decode.cu",
          "replaces":
@@ -5099,7 +5508,13 @@ def main() -> int:
          **{key: k6_main["step"][key] for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")},
-         "moe": {"launches": moe_decode_launches["kv_decode"]}},
+         "moe": {"launches": moe_decode_launches["kv_decode"]},
+         # the int8 stack's decoder under rules (one call), and K6 over a
+         # tp 2 / tp 4 rank's KV heads
+         "decode_rules": {"launches": dr_launches["int8"]["kv_decode"]},
+         "shards": [{key: r[key] for key in (
+             "tp", "heads", "max_abs_err", "ms", "plain_ms", "bound_ms")}
+             for r in shard_rec["kv_decode"]]},
         # K8: the mean per launch over a wave's 49 products, and over a
         # decode step's (M = 8)
         {"name": "int8_matmul", "route": "cuda",
@@ -5117,6 +5532,17 @@ def main() -> int:
          # the int8 MoE serve run: the 4 attention products a layer and
          # the head (33 a wave; the expert stacks stay dense)
          "moe": {"launches": moe_launches["int8"]["int8_matmul"]},
+         # the int8 decoder under rules (one call) and the int8-weight
+         # engine under rules=; K8 at a tp 2 / tp 4 rank's shard shapes
+         "decode_rules": {"launches": dr_launches["int8"]["int8_matmul"]},
+         "serve_rules_levers": {"int8_weights_launches": srl_launches[
+             "int8_weights"]["int8_matmul"]},
+         "shards": {
+             "max_abs_err": max(r["max_abs_err"]
+                                for r in shard_rec["int8_matmul"]),
+             **{key: sum(r[key] for r in shard_rec["int8_matmul"])
+                / len(shard_rec["int8_matmul"])
+                for key in ("ms", "plain_ms", "bound_ms")}},
          "decode": {"launches": decode_launches["int8_matmul"],
                     "max_abs_err": max(r["max_abs_err"]
                                        for r in k8_decode.values()),
@@ -5208,6 +5634,12 @@ def main() -> int:
         "replaces": "nvidia_terraform_modules_tpu/models/decode.py:810",
         "tpu_kernel": False,
         "launches": sampled["top_p"]["launches"]["sample_draw"],
+        # sample_decode under rules (one call, a draw a token) and the
+        # sampled engine under rules=
+        "decode_rules": {"launches": dr_launches["sample_rules"][
+            "sample_draw"]},
+        "serve_rules_levers": {"launches": srl_launches["sampled"][
+            "sample_draw"]},
         **{key: d1_main[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},

@@ -364,13 +364,14 @@ def mlp(h: torch.Tensor, layer: dict, dtype: torch.dtype) -> torch.Tensor:
 
 
 @torch.inference_mode()
-def forward(params: dict, tokens: torch.Tensor,
-            cfg: BurnInConfig) -> torch.Tensor:
-    """Decoder-only forward → logits ``[batch, seq, vocab]`` (unsharded,
-    inference only): the oracle cached decoding is held against. It is
-    :func:`forward_and_aux`'s logits; with no gradient to keep, the flash
+def forward(params: dict, tokens: torch.Tensor, cfg: BurnInConfig,
+            rules=None) -> torch.Tensor:
+    """Decoder-only forward → logits ``[batch, seq, vocab]`` (inference
+    only): the oracle cached decoding is held against. It is
+    :func:`forward_and_aux`'s logits (under ``rules``, of this rank's rows
+    and positions, from its shards); with no gradient to keep, the flash
     path runs K1 alone."""
-    return forward_and_aux(params, tokens, cfg)[0]
+    return forward_and_aux(params, tokens, cfg, rules)[0]
 
 
 # ------------------------------------------------------------- training

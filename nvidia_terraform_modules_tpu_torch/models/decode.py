@@ -29,21 +29,33 @@ Attention paths:
   cache (``ops/decode_attention.masked_attention``).
 
 Sharding (``rules`` over a ``torch.distributed`` world, one process a
-device; :func:`forward_paged` and ``paging.init_paged_cache`` only): the
+device), on every entry point — :func:`init_cache`, :func:`forward_cached`,
+:func:`greedy_decode`, :func:`sample_decode`, :func:`make_decoder`,
+:func:`forward_paged`, ``paging.init_paged_cache`` and the speculative and
+int8-weight decoders — with ``rules`` at the reference's name and
+position. ``params`` are this rank's shards (``burnin.init_params(
+rules=)``) and a prompt batch is this rank's rows over the data axes
+(``burnin.shard_batch``); the tokens that come back are those rows'. The
 heads split over ``tp`` Megatron-style — ``wq``/``wk``/``wv``/``up`` by
 columns, ``wo``/``down`` by rows followed by an all-reduce, the tied
 ``embed`` on ``d_model`` (the lookup all-gathered, the head's partial
 logits all-reduced) — as the reference's ``_transformer_body`` constrains
-its activations for GSPMD (``decode.py:280-299``). Each rank's pool holds
+its activations for GSPMD (``decode.py:280-299``). Each rank's cache holds
 its KV heads, ``kv_heads / tp``; where ``tp`` does not divide
-``kv_heads`` the pool holds them all, ``wk``/``wv`` come whole
-(:func:`paged_params`), and a rank's query heads attend from a zero-padded
-full set, its own sliced back out. The reference's ``int8_kernel`` flag
-(its T=1 int8 kernel off for mesh-sharded pools, since a ``pallas_call``
-cannot take a mesh-sharded operand) has no counterpart: each rank's pool
-is a plain local tensor, so the kernels stay on — a difference of
-mechanism, not of result. The other decode entry points take no
-``rules`` yet (ROADMAP Queue A item 6).
+``kv_heads`` the cache holds them all, ``wk``/``wv`` are gathered whole
+(once a call by :func:`paged_params` in every decoder and the engine; a
+direct :func:`forward_cached` call gathers them itself), and a rank's query
+heads attend from a zero-padded full set, its own sliced back out. ``sp``
+is a replicated axis here (the reference's decode specs never name it):
+each ``sp`` member decodes the same rows. MoE layers route through
+:func:`_moe_ffn`: experts over ``ep``, their ``d_ff`` over ``tp``. The
+reference's ``int8_kernel`` flag turns its T=1 int8 kernel off under
+``rules`` (a ``pallas_call`` cannot take a mesh-sharded operand); here
+each rank's cache is a plain local tensor, so the guard has no
+counterpart: :func:`forward_cached` takes the keyword for the reference's
+signature and K6 stays on either way — a difference of mechanism, not of
+result. A one-process mesh with an axis above 1 is refused (ROADMAP
+Queue A item 6).
 
 :func:`make_decoder` is the compiled greedy decoder (the reference's
 ``jax.jit`` over :func:`greedy_decode`): on the card one call is the eager
@@ -85,6 +97,7 @@ from .burnin import (
     mlp,
     tree_leaves,
 )
+from .moe import check_rules as _check_moe_rules
 from .moe import drop_free_capacity, routed_ffn
 
 
@@ -119,16 +132,18 @@ def quantize_kv(x):
     return q.to(torch.int8), scale
 
 
-def init_cache(cfg: BurnInConfig, batch: int, max_len: int, *,
+def init_cache(cfg: BurnInConfig, batch: int, max_len: int, rules=None, *,
                cache_dtype: str = "bf16", device="cuda") -> dict[str, Any]:
     """Zeroed KV cache: per layer ``[B, cache_rows(max_len), KV, D]`` k/v
     buffers in ``cfg.dtype``, or int8 with f32 ``k_scale``/``v_scale``
     ``[B, rows, KV]`` sidecars under ``cache_dtype="int8"``; ``pos`` (a
-    host int) is the number of valid rows."""
+    host int) is the number of valid rows. Under ``rules`` ``batch`` is
+    this rank's rows and ``KV`` its heads, :func:`pool_kv_heads`."""
     dev = check_device(device)
     quant = check_cache_dtype(cache_dtype)
-    shape = (batch, cache_rows(max_len, cache_dtype), cfg.kv_heads,
-             cfg.head_dim)
+    check_serve_rules(rules, cfg)
+    shape = (batch, cache_rows(max_len, cache_dtype),
+             pool_kv_heads(cfg, rules), cfg.head_dim)
     buf = torch.int8 if quant else cfg.dtype
     cache: dict[str, Any] = {
         "k": [torch.zeros(shape, dtype=buf, device=dev)
@@ -166,11 +181,34 @@ def _cached_attention(q, k_cache, v_cache, q_pos, scale: float,
 _MOE_PREFILL_CHUNK = 128   # tokens per routed chunk along the sequence
 
 
-def _moe_ffn(h, layer, cfg: BurnInConfig):
+def _moe_lines(rules):
+    """``((ep_group, n_ep, i_ep), tp_group)`` of this rank on a world mesh
+    (``moe.routed_ffn``'s ``serve``); ``None`` off one."""
+    if rules is None or not isinstance(rules.mesh, WorldMesh):
+        return None
+    mesh = rules.mesh
+    ep = ("ep",) if "ep" in mesh.axis_names else ()
+    return ((mesh.group(ep), mesh.axis_size(ep), mesh.index(ep)),
+            mesh.group("tp"))
+
+
+def _moe_ffn(h, layer, cfg: BurnInConfig, rules=None,
+             replicated: bool = False):
     """The routed FFN of the serve path: training's ``moe_layer`` (less its
     aux loss, which serving drops) at drop-free capacity, so routing never
     depends on how many tokens share the batch and cached decode routes as
     a full re-forward does.
+
+    Under ``rules`` the experts shard over ``ep`` and their ``d_ff`` over
+    ``tp`` (``moe.routed_ffn``'s serve form): each member of an ``ep``
+    line runs its experts on the line's tokens. Where the rows differ
+    along the line (``h`` is this rank's rows of a data-sharded batch: a
+    decode's, a wave's) they are all-gathered over ``ep`` first and this
+    rank's rows kept from the combine; ``replicated`` says that ``h`` is
+    already the same on every data rank (an engine's admission or prefill
+    chunk), so nothing is gathered. Drop-free capacity keeps each token's
+    routing independent of the rows beside it, so either form routes as
+    the unsharded model does.
 
     The dispatch tensor is ``[T, E, C]`` with drop-free C growing with T,
     so a long prompt is routed in chunks of ``_MOE_PREFILL_CHUNK`` along
@@ -178,23 +216,35 @@ def _moe_ffn(h, layer, cfg: BurnInConfig):
     drop-free capacity each token routes on its own, so chunking changes
     memory, never results. Every shape here follows from ``h``'s: the step
     can be captured."""
+    serve = _moe_lines(rules)
+    rows = h.shape[0]
+    gathered = serve is not None and serve[0][1] > 1 and not replicated
+    if gathered:
+        (ep, n_ep, _), _ = serve
+        h = gather_dim(h, ep, n_ep, 0)
     b, t, d = h.shape
     if t <= _MOE_PREFILL_CHUNK:
-        return routed_ffn(h, layer["moe"], cfg, drop_free_capacity(b * t))[0]
-    n = -(-t // _MOE_PREFILL_CHUNK)
-    hp = torch.nn.functional.pad(h, (0, 0, 0, n * _MOE_PREFILL_CHUNK - t))
-    cap = drop_free_capacity(b * _MOE_PREFILL_CHUNK)
-    outs = [routed_ffn(chunk, layer["moe"], cfg, cap)[0]
-            for chunk in hp.split(_MOE_PREFILL_CHUNK, dim=1)]
-    return torch.cat(outs, dim=1)[:, :t]
+        out = routed_ffn(h, layer["moe"], cfg, drop_free_capacity(b * t),
+                         serve)[0]
+    else:
+        n = -(-t // _MOE_PREFILL_CHUNK)
+        hp = torch.nn.functional.pad(h, (0, 0, 0,
+                                         n * _MOE_PREFILL_CHUNK - t))
+        cap = drop_free_capacity(b * _MOE_PREFILL_CHUNK)
+        outs = [routed_ffn(chunk, layer["moe"], cfg, cap, serve)[0]
+                for chunk in hp.split(_MOE_PREFILL_CHUNK, dim=1)]
+        out = torch.cat(outs, dim=1)[:, :t]
+    if gathered:
+        out = out.narrow(0, serve[0][2] * rows, rows)
+    return out
 
 
 def check_serve_rules(rules, cfg: BurnInConfig) -> None:
-    """What the sharded decode path (:func:`forward_paged`, the paged
+    """What the sharded decode path (every decode entry point, the paged
     pool, the serve engine) takes: ``rules`` over a world mesh whose ``tp``
-    divides the heads, ``d_model`` and ``d_ff``; ``sp`` above 1, a
-    one-process mesh with an axis above 1 and MoE are refused (ROADMAP
-    Queue A item 6)."""
+    divides the heads, ``d_model`` and ``d_ff`` (and, with experts, whose
+    ``ep`` divides them); ``sp`` replicates. A one-process mesh with an
+    axis above 1 is refused (ROADMAP Queue A item 6)."""
     if rules is None:
         return
     shape = rules.mesh.shape
@@ -204,16 +254,10 @@ def check_serve_rules(rules, cfg: BurnInConfig) -> None:
             raise NotImplementedError(
                 f"rules= over a one-process mesh {big} on the decode path "
                 f"is not ported — ROADMAP.md, Queue A item 6: the sharded "
-                f"engine runs over a torch.distributed world")
+                f"decode path runs over a torch.distributed world")
         return
-    if shape.get("sp", 1) > 1:
-        raise NotImplementedError(
-            f"sp > 1 ({shape}) on the decode path is not ported yet — "
-            f"ROADMAP.md, Queue A item 6")
     if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "MoE serving under rules= (experts over ep in the engine) is "
-            "not ported yet — ROADMAP.md, Queue A item 6")
+        _check_moe_rules(rules, cfg)
     tp = shape.get("tp", 1)
     if cfg.n_heads % tp or cfg.d_model % tp or cfg.d_ff % tp:
         raise ValueError(
@@ -238,36 +282,59 @@ def pool_kv_heads(cfg: BurnInConfig, rules=None) -> int:
     return cfg.kv_heads // tp if cfg.kv_heads % tp == 0 else cfg.kv_heads
 
 
+def _gather_leaf(leaf, path: tuple, rules):
+    """The whole leaf at ``path`` from every rank's shard of it (a tensor,
+    or a ``quantize.QTensor``: its values by the leaf's spec, its scales by
+    the spec's entry on the scale axis)."""
+    spec = rules.param_sharding(path)
+    if isinstance(leaf, torch.Tensor):
+        return gather_shards(leaf, spec, rules.mesh)
+    entry = (tuple(spec) + (None, None))[leaf.scale_axis]
+    return type(leaf)(gather_shards(leaf.q, spec, rules.mesh),
+                      gather_shards(leaf.scale, (entry,), rules.mesh),
+                      scale_axis=leaf.scale_axis, dtype=leaf.dtype,
+                      transposed=leaf.transposed)
+
+
+def _whole_kv(layer, li: int, cfg: BurnInConfig, rules):
+    """A layer's ``wk``/``wv`` whole, for a rank whose cache holds every KV
+    head: as they are when they are already whole (:func:`paged_params`),
+    else gathered from the ``tp`` line's shards."""
+    out = []
+    for name in ("wk", "wv"):
+        w = layer[name]
+        if w.shape[-1] != cfg.kv_heads * cfg.head_dim:
+            w = _gather_leaf(w, ("layers", str(li), name), rules)
+        out.append(w)
+    return out
+
+
 def paged_params(params, cfg: BurnInConfig, rules=None):
-    """The tree :func:`forward_paged` runs under ``rules``: ``params`` (this
+    """The tree the sharded engine runs under ``rules``: ``params`` (this
     rank's shards) as they are, except that where ``tp`` does not divide
-    ``kv_heads`` each layer's ``wk``/``wv`` are gathered whole (the pool
-    holds every KV head there). Collective: every rank of the ``tp`` line
-    calls it."""
+    ``kv_heads`` each layer's ``wk``/``wv`` are gathered whole once (the
+    cache holds every KV head there; without this tree each step gathers
+    them). Collective: every rank of the ``tp`` line calls it."""
     tp = _tp_line(rules)[1]
     if pool_kv_heads(cfg, rules) * tp == cfg.kv_heads:
         return params
     layers = []
     for i, layer in enumerate(params["layers"]):
-        layer = dict(layer)
-        for name in ("wk", "wv"):
-            path = ("layers", str(i), name)
-            layer[name] = gather_shards(layer[name],
-                                        rules.param_sharding(path),
-                                        rules.mesh)
-        layers.append(layer)
+        wk, wv = _whole_kv(layer, i, cfg, rules)
+        layers.append(dict(layer, wk=wk, wv=wv))
     return dict(params, layers=layers)
 
 
 def _transformer_body(params, tokens, cfg: BurnInConfig, q_pos, store,
-                      attend, rules=None):
+                      attend, rules=None, replicated: bool = False):
     """The cached-transformer trunk shared by both storage layouts: per
     layer ``store(li, k, v) → handle`` writes the fresh rows and
     ``attend(li, q, k, v, handle) → [B, T, H, D]`` computes attention;
     projections, rope at ``q_pos``, residuals, the MLP (the routed FFN of
-    :func:`_moe_ffn` with ``n_experts > 0``) and the tied unembedding are
-    this one function. With ``rules`` this rank runs its heads and FFN
-    columns (module docstring) and returns the full logits."""
+    :func:`_moe_ffn` with ``n_experts > 0``; ``replicated`` as there) and
+    the tied unembedding are this one function. With ``rules`` this rank
+    runs its heads and FFN columns (module docstring) and returns the full
+    logits of its rows."""
     b, t = tokens.shape
     group, n_tp, i_tp = _tp_line(rules)
     heads = cfg.n_heads // n_tp
@@ -277,9 +344,11 @@ def _transformer_body(params, tokens, cfg: BurnInConfig, q_pos, store,
     x = gather_dim(params["embed"][tokens], group, n_tp, -1)
     for li, layer in enumerate(params["layers"]):
         h = _rmsnorm(x, layer["attn_norm"])
+        wk, wv = (_whole_kv(layer, li, cfg, rules) if whole_kv
+                  else (layer["wk"], layer["wv"]))
         q = (h @ layer["wq"]).view(b, t, heads, cfg.head_dim)
-        k = (h @ layer["wk"]).view(b, t, kv, cfg.head_dim)
-        v = (h @ layer["wv"]).view(b, t, kv, cfg.head_dim)
+        k = (h @ wk).view(b, t, kv, cfg.head_dim)
+        v = (h @ wv).view(b, t, kv, cfg.head_dim)
         if cfg.rope:
             # K rotates before the cache write: cached rows never need
             # re-rotation at later steps
@@ -296,7 +365,8 @@ def _transformer_body(params, tokens, cfg: BurnInConfig, q_pos, store,
         x = x + exit_parallel(
             attn.reshape(b, t, heads * cfg.head_dim) @ layer["wo"], group)
         h = _rmsnorm(x, layer["mlp_norm"])
-        x = x + (_moe_ffn(h, layer, cfg) if cfg.n_experts > 0
+        x = x + (_moe_ffn(h, layer, cfg, rules, replicated)
+                 if cfg.n_experts > 0
                  else exit_parallel(mlp(h, layer, cfg.dtype), group))
     x = _rmsnorm(x, params["out_norm"])
     if group is not None:          # this rank's d_model columns of the head
@@ -322,13 +392,29 @@ def _prompt_attention(q, k, v, q_pos, scale: float, prefill_impl: str,
     return None
 
 
-@torch.no_grad()
-def forward_cached(params, tokens, cache, cfg: BurnInConfig, *,
-                   prefill_impl: str = "dense"):
+def forward_cached(params, tokens, cache, cfg: BurnInConfig, rules=None, *,
+                   prefill_impl: str = "dense", int8_kernel: bool = True):
     """Forward ``tokens`` ``[B, T]`` starting at ``cache["pos"]``: writes
     the new K/V rows into the cache (in place) and returns ``(logits
     [B, T, vocab], cache)``. ``prefill_impl="flash"`` is valid only at
-    ``pos == 0`` (``greedy_decode`` selects it exactly there)."""
+    ``pos == 0`` (``greedy_decode`` selects it exactly there).
+    ``int8_kernel`` is the reference's keyword and changes nothing here:
+    it guards a ``pallas_call`` on mesh-sharded operands, which has no
+    counterpart (module docstring); the T=1 int8-cache step runs K6 on
+    the card either way. ``rules``: ``params`` are this rank's shards,
+    ``tokens`` its rows and the cache ``init_cache(..., rules)``'s (module
+    docstring)."""
+    del int8_kernel
+    return _forward_cached(params, tokens, cache, cfg, rules, prefill_impl)
+
+
+@torch.no_grad()
+def _forward_cached(params, tokens, cache, cfg: BurnInConfig, rules,
+                    prefill_impl: str = "dense", replicated: bool = False):
+    """:func:`forward_cached`, with ``replicated`` (:func:`_moe_ffn`'s):
+    ``tokens`` are the same on every data rank, as the speculative
+    decoder's batch of one is."""
+    check_serve_rules(rules, cfg)
     b, t = tokens.shape
     pos0 = cache["pos"]
     s_max = cache["k"][0].shape[1]
@@ -358,7 +444,8 @@ def forward_cached(params, tokens, cache, cfg: BurnInConfig, *,
             cache["k_scale"][li] if quant else None,
             cache["v_scale"][li] if quant else None)
 
-    logits = _transformer_body(params, tokens, cfg, q_pos, store, attend)
+    logits = _transformer_body(params, tokens, cfg, q_pos, store, attend,
+                               rules, replicated)
     cache["pos"] = pos0 + t
     return logits, cache
 
@@ -379,7 +466,7 @@ def _paged_kernel_on(paged_kernel: str, t: int, device: torch.device) -> bool:
 @torch.no_grad()
 def forward_paged(params, tokens, cache, cfg: BurnInConfig, rules=None, *,
                   prefill_impl: str = "cached", active=None,
-                  paged_kernel: str = "auto"):
+                  paged_kernel: str = "auto", replicated: bool = False):
     """Forward ``tokens`` ``[B, T]`` through the paged pool
     (``cache["block_tables"]`` ``[B, NT]``, per-row ``cache["pos"]``
     ``[B]``), writing the fresh rows to ``(table[pos // bs], pos % bs)``
@@ -391,9 +478,12 @@ def forward_paged(params, tokens, cache, cfg: BurnInConfig, rules=None, *,
     scales at the same places. Reads: see the module docstring; the
     sidecars ride the same tables. Precondition (the caller's): each
     active row's ``pos + T`` stays within its allocated rows. ``rules``
-    (a world mesh): ``params`` are :func:`paged_params` of this rank's
-    shards and the pool is ``init_paged_cache(..., rules=)``'s: this rank
-    runs its heads (module docstring); the logits are whole."""
+    (a world mesh): ``params`` are this rank's shards (best
+    :func:`paged_params` of them) and the pool is ``init_paged_cache(...,
+    rules=)``'s: this rank runs its heads (module docstring); the logits
+    are whole. ``tokens`` are this rank's rows of a batch split over the
+    data axes, or, with ``replicated``, the same on every rank (the
+    engine's admissions: :func:`_moe_ffn` then gathers nothing)."""
     check_serve_rules(rules, cfg)
     b, t = tokens.shape
     tables = cache["block_tables"]
@@ -443,7 +533,7 @@ def forward_paged(params, tokens, cache, cfg: BurnInConfig, rules=None, *,
             ks, vs)
 
     logits = _transformer_body(params, tokens, cfg, q_pos, store, attend,
-                               rules)
+                               rules, replicated)
     # in place: a captured CUDA graph of this step, and the engine's
     # admissions, keep addressing the pool's own pos tensor
     pos0.copy_(torch.where(active, pos0 + t, pos0))
@@ -577,16 +667,17 @@ class Sampler:
             logits = torch.where(keep, logits, -torch.inf)
         return logits
 
-    def __call__(self, logits, key):
+    def __call__(self, logits, key, row0: int = 0):
         """One ``[2]`` key for the whole ``[B, V]`` batch, as
         ``jax.random.categorical(key, logits)``: row ``b`` counts its
-        elements from ``b·V``."""
+        elements from ``(row0 + b)·V`` — ``row0`` the first row's place in
+        the whole batch, when ``logits`` are a data rank's rows of it."""
         logits = self.filter(logits)
         if self.top_k == 1:
             return logits.argmax(dim=-1)              # no tie-break draw
         b, v = logits.shape
-        offsets = torch.arange(b, dtype=torch.int64,
-                               device=logits.device) * v
+        offsets = (torch.arange(b, dtype=torch.int64, device=logits.device)
+                   + row0) * v
         return draw(logits, key, offsets)
 
     def rows(self, logits, key, fold):
@@ -628,45 +719,72 @@ def _decode_len(t: int, n_new: int, max_len: int | None) -> int:
     return max_len
 
 
+def _data_line(rules) -> tuple:
+    """``(group, n, i)`` of this rank's line over the data axes
+    (``(None, 1, 0)`` without a world mesh): a batch's rows split into
+    ``n`` pieces in line order, this rank holding piece ``i``."""
+    if rules is None or not isinstance(rules.mesh, WorldMesh):
+        return None, 1, 0
+    mesh = rules.mesh
+    return (mesh.group(rules.data), mesh.axis_size(rules.data),
+            mesh.index(rules.data))
+
+
 @torch.no_grad()
-def _generate(params, prompt, n_new: int, cfg: BurnInConfig, max_len,
+def _generate(params, prompt, n_new: int, cfg: BurnInConfig, rules, max_len,
               pick_next, prefill: str, cache_dtype: str, dev):
     """Shared prefill + decode loop; ``pick_next`` is None (greedy) or
-    ``(key, pick)``, token ``i`` drawn with ``split(key, n_new)[i]``."""
+    ``(key, pick)``, token ``i`` drawn with ``split(key, n_new)[i]`` (rows
+    keyed at their place in the whole batch under ``rules``)."""
     _check_params(params, dev)
+    params = paged_params(params, cfg, rules)
     prompt = torch.as_tensor(prompt, device=dev).long()
     b, t = prompt.shape
     max_len = _decode_len(t, n_new, max_len)
-    cache = init_cache(cfg, b, max_len, cache_dtype=cache_dtype, device=dev)
+    cache = init_cache(cfg, b, max_len, rules, cache_dtype=cache_dtype,
+                       device=dev)
     logits, cache = forward_cached(
-        params, prompt, cache, cfg,
+        params, prompt, cache, cfg, rules,
         prefill_impl=_select_prefill_impl(cfg, t, prefill, dev))
     if pick_next is None:
         def pick(lg, i):
             return lg.argmax(dim=-1)
     else:
         keys = split(pick_next[0], n_new)             # one per token
+        row0 = _data_line(rules)[2] * b         # place in the whole batch
 
         def pick(lg, i):
-            return pick_next[1](lg, keys[i])
+            return pick_next[1](lg, keys[i], row0)
     tok = pick(logits[:, -1], 0)
     toks = [tok]
     for i in range(1, n_new):
-        logits, cache = forward_cached(params, tok[:, None], cache, cfg)
+        logits, cache = forward_cached(params, tok[:, None], cache, cfg,
+                                       rules)
         tok = pick(logits[:, -1], i)
         toks.append(tok)
     return torch.stack(toks, dim=1)
 
 
-def greedy_decode(params, prompt, n_new: int, cfg: BurnInConfig,
+def greedy_decode(params, prompt, n_new: int, cfg: BurnInConfig, rules=None,
                   max_len: int | None = None, prefill: str = "auto",
                   cache_dtype: str = "bf16", *, device="cuda"):
     """Greedy generation: prefill ``prompt`` ``[B, T]``, then ``n_new - 1``
     cached steps over a ``cache_dtype`` cache. ``params`` may hold int8
     ``QTensor`` weights (``models/quantize.py``). Returns the ``[B,
-    n_new]`` generated tokens (int64, on ``device``)."""
-    return _generate(params, prompt, n_new, cfg, max_len, None, prefill,
-                     cache_dtype, check_device(device))
+    n_new]`` generated tokens (int64, on ``device``). ``rules``: this
+    rank's shards and rows (module docstring)."""
+    return _generate(params, prompt, n_new, cfg, rules, max_len, None,
+                     prefill, cache_dtype, check_device(device))
+
+
+def _copy_leaf(dst, src) -> None:
+    """``src``'s values into ``dst`` in place (tensors, or ``QTensor``
+    values and scales)."""
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+    else:
+        dst.q.copy_(src.q)
+        dst.scale.copy_(src.scale)
 
 
 def _params_key(params) -> tuple:
@@ -700,53 +818,79 @@ class _DecodeGraph(_Replayed):
     eager prefill writes the first token into column 0 of :attr:`out`;
     step ``i`` reads column ``i - 1`` and writes column ``i``. The graph
     reads the weights at the addresses of the tree it was captured over
-    (:attr:`key`, :func:`_params_key`) and holds no reference to it.
+    (:attr:`key`, :func:`_params_key`) and holds no reference to it
+    beyond the whole ``wk``/``wv`` it owns (below).
 
     Cache rows above the prompt keep the previous call's decode rows; no
     read reaches them before the step that rewrites them (the masked
-    softmax gives them probability 0, K6 reads the live rows only)."""
+    softmax gives them probability 0, K6 reads the live rows only).
 
-    def __init__(self, params, cfg: BurnInConfig, batch: int, t: int,
+    Where the cache holds every KV head (``tp`` does not divide them) the
+    steps read whole ``wk``/``wv`` that the graph owns (:attr:`kv`): each
+    call gathers them from the tree's shards once, eagerly, and copies
+    them in before the replay, so the graph holds no gather. Off the card
+    nothing is captured and :meth:`replay` runs the steps over the call's
+    tree."""
+
+    def __init__(self, params, cfg: BurnInConfig, rules, batch: int, t: int,
                  max_len: int, n_new: int, cache_dtype: str, dev):
         self.key = _params_key(params)
-        self.cfg = cfg
+        self.cfg, self.rules = cfg, rules
         self.prefill_impl = _select_prefill_impl(cfg, t, "auto", dev)
-        self.cache = cache = init_cache(cfg, batch, max_len,
+        self.cache = cache = init_cache(cfg, batch, max_len, rules,
                                         cache_dtype=cache_dtype, device=dev)
         self.out = out = torch.zeros((batch, n_new), dtype=torch.long,
                                      device=dev)
-        weights = [params]                  # the capture's only reference
+        whole = paged_params(params, cfg, rules)
+        self.kv = None if whole is params else [
+            (layer["wk"], layer["wv"]) for layer in whole["layers"]]
+        # the tree the steps read: the capture's only reference, and each
+        # uncaptured replay's
+        self.weights = weights = [whole]
 
         @torch.no_grad()
         def steps():
             cache["pos"] = t
             for i in range(1, n_new):
                 logits, _ = forward_cached(weights[0], out[:, i - 1:i], cache,
-                                           cfg)
+                                           cfg, rules)
                 out[:, i].copy_(logits[:, -1].argmax(dim=-1))
 
-        super().__init__(steps, dev, capture=True)
+        super().__init__(steps, dev, capture=dev.type == "cuda")
         weights.clear()
 
     @torch.no_grad()
     def __call__(self, params, prompt):
         """The eager prefill of ``prompt``, then one replay; the tokens are
         a copy of :attr:`out`."""
+        if self.kv is not None:
+            fresh = paged_params(params, self.cfg, self.rules)["layers"]
+            for (wk, wv), layer in zip(self.kv, fresh):
+                _copy_leaf(wk, layer["wk"])
+                _copy_leaf(wv, layer["wv"])
+            params = dict(params, layers=[
+                dict(layer, wk=wk, wv=wv)
+                for layer, (wk, wv) in zip(params["layers"], self.kv)])
         self.cache["pos"] = 0
         logits, _ = forward_cached(params, prompt, self.cache, self.cfg,
+                                   self.rules,
                                    prefill_impl=self.prefill_impl)
         self.out[:, 0].copy_(logits[:, -1].argmax(dim=-1))
-        self.replay()
+        self.weights.append(params)
+        try:
+            self.replay()
+        finally:
+            self.weights.clear()
         return self.out.clone()
 
 
-def make_decoder(cfg: BurnInConfig, n_new: int = 32,
+def make_decoder(cfg: BurnInConfig, rules=None, n_new: int = 32,
                  max_len: int | None = None, cache_dtype: str = "bf16", *,
                  device="cuda"):
     """Compiled greedy decoder, the counterpart of the reference's
     ``jax.jit`` over :func:`greedy_decode`: ``decoder(params, prompt) →
     [B, n_new]`` int64, token for token ``greedy_decode(params, prompt,
-    n_new, cfg, max_len=max_len, cache_dtype=cache_dtype)``.
+    n_new, cfg, rules, max_len=max_len, cache_dtype=cache_dtype)``.
 
     On a CUDA ``device`` one call is the eager prefill (K1 on a flash
     prompt) and ONE replay of a CUDA graph of the ``n_new - 1`` decode
@@ -759,7 +903,8 @@ def make_decoder(cfg: BurnInConfig, n_new: int = 32,
     over. ``n_new == 1`` has no steps and captures nothing. A capture that
     fails raises: nothing falls back to the eager loop. On the CPU (the
     caller's ``device="cpu"``) a call is :func:`greedy_decode`'s eager
-    loop."""
+    loop. Under ``rules`` the graph holds this rank's steps, collectives
+    included (a world of one launches none)."""
     dev = check_device(device)
     check_cache_dtype(cache_dtype)
     if n_new < 1:
@@ -768,8 +913,9 @@ def make_decoder(cfg: BurnInConfig, n_new: int = 32,
 
     def decoder(params, prompt):
         if dev.type != "cuda" or n_new == 1:
-            return greedy_decode(params, prompt, n_new, cfg, max_len=max_len,
-                                 cache_dtype=cache_dtype, device=dev)
+            return greedy_decode(params, prompt, n_new, cfg, rules,
+                                 max_len=max_len, cache_dtype=cache_dtype,
+                                 device=dev)
         _check_params(params, dev)
         prompt = torch.as_tensor(prompt, device=dev).long()
         b, t = prompt.shape
@@ -782,8 +928,8 @@ def make_decoder(cfg: BurnInConfig, n_new: int = 32,
             del graphs[shape], graph
             graph = None
         if graph is None:
-            graph = graphs[shape] = _DecodeGraph(params, cfg, *shape, n_new,
-                                                 cache_dtype, dev)
+            graph = graphs[shape] = _DecodeGraph(params, cfg, rules, *shape,
+                                                 n_new, cache_dtype, dev)
         return graph(params, prompt)
 
     decoder.graphs = graphs
@@ -791,15 +937,16 @@ def make_decoder(cfg: BurnInConfig, n_new: int = 32,
 
 
 def sample_decode(params, prompt, n_new: int, cfg: BurnInConfig, rng,
-                  max_len: int | None = None, temperature: float = 1.0,
-                  top_k: int | None = None, top_p: float | None = None,
-                  prefill: str = "auto", cache_dtype: str = "bf16", *,
-                  device="cuda"):
+                  rules=None, max_len: int | None = None,
+                  temperature: float = 1.0, top_k: int | None = None,
+                  top_p: float | None = None, prefill: str = "auto",
+                  cache_dtype: str = "bf16", *, device="cuda"):
     """Temperature / top-k / nucleus sampling over the cached loop
     (:func:`make_sampler`'s filters). ``rng`` is an int seed or ``[2]`` key
     data (``ops/sampling.key_data``); one key per generated token, split
-    from it, so the same ``rng`` gives the reference's tokens."""
+    from it, so the same ``rng`` gives the reference's tokens — under
+    ``rules`` too, each row drawn at its place in the whole batch."""
     dev = check_device(device)
     pick = make_sampler(temperature=temperature, top_k=top_k, top_p=top_p)
-    return _generate(params, prompt, n_new, cfg, max_len,
+    return _generate(params, prompt, n_new, cfg, rules, max_len,
                      (key_data(rng, dev), pick), prefill, cache_dtype, dev)

@@ -185,20 +185,33 @@ def moe_layer(x: torch.Tensor, params: dict, cfg, rules=None, *,
     return out, aux
 
 
-def routed_ffn(x: torch.Tensor, params: dict, cfg, capacity: int):
+def routed_ffn(x: torch.Tensor, params: dict, cfg, capacity: int,
+               serve=None):
     """:func:`moe_layer`'s routing and expert FFN at ``capacity`` slots an
-    expert, on one process, without the aux loss (which the serve path,
-    like XLA's dead-code elimination in the reference, never computes) →
-    ``(out [B, S, D], probs [T, E], top_e [T, k])``."""
-    return _route(x, params, cfg, capacity, None)[:3]
+    expert, without the aux loss (which the serve path, like XLA's
+    dead-code elimination in the reference, never computes) → ``(out
+    [B, S, D], probs [T, E], top_e [T, k])``.
+
+    ``serve`` (the serve path on a world mesh, ``((ep_group, n_ep, i_ep),
+    tp_group)``): ``x`` is the same on every member of this rank's ``ep``
+    line, and ``params`` this rank's expert shard. Every member routes all
+    of ``x`` (so no count crosses a rank), runs its ``E / n_ep`` experts'
+    ``d_ff / tp`` columns on their slots, and the expert outputs are
+    all-reduced over ``tp`` and all-gathered over ``ep`` before the
+    combine. No sum runs over the data axes: unlike training's dispatch,
+    which adds every data rank's own tokens, this form is right for a
+    batch that the ranks share."""
+    return _route(x, params, cfg, capacity, None, serve)[:3]
 
 
-def _route(x: torch.Tensor, params: dict, cfg, capacity: int, lines):
+def _route(x: torch.Tensor, params: dict, cfg, capacity: int, lines,
+           serve=None):
     """Routing, dispatch, the expert FFN and the combine → ``(out
     [B, S, D], probs [T, E], top_e [T, k], total [k, E])``: this rank's
     rows, their router probabilities and choices, and the world's
     assignment counts by top-k rank
-    (:func:`_lines`' groups; ``None``: one process)."""
+    (:func:`_lines`' groups; ``None``: one process, or the serve form of
+    :func:`routed_ffn` under ``serve``)."""
     b, s, d = x.shape
     e, k, c = cfg.n_experts, cfg.router_top_k, capacity
     t = b * s
@@ -233,6 +246,9 @@ def _route(x: torch.Tensor, params: dict, cfg, capacity: int, lines):
         combine = combine + d_r * top_p[:, r, None, None]
         used = used + total[r]
 
+    if serve is not None:        # this rank's experts' slots only
+        (ep, n_ep, i_ep), tp = serve
+        dispatch = dispatch.chunk(n_ep, dim=1)[i_ep]
     xin = torch.einsum("tec,td->ecd", dispatch.to(cfg.dtype), tokens)
     if lines is not None:       # this rank's experts, every rank's tokens
         (_, (ep, n_ep), rest, tp) = lines
@@ -240,7 +256,7 @@ def _route(x: torch.Tensor, params: dict, cfg, capacity: int, lines):
     h = torch.bmm(xin, params["experts_up"])
     h = F.gelu(h.float(), approximate="tanh").to(cfg.dtype)
     xout = torch.bmm(h, params["experts_down"])
-    if lines is not None:
+    if lines is not None or serve is not None:
         xout = gather_experts(exit_parallel(xout, tp), ep, n_ep)
     out = torch.einsum("tec,ecd->td", combine.to(cfg.dtype), xout)
     return out.reshape(b, s, d), probs, top_e, total

@@ -32,7 +32,11 @@ from typing import Any
 
 import torch
 
+import torch.distributed as dist
+
 from ..ops.int8_matmul import MAX_M, int8_matmul, int8_matmul_ref
+from ..parallel.collectives import spec_axes
+from ..parallel.mesh import WorldMesh
 from .burnin import BurnInConfig, _tree_map, check_device, tree_leaves
 from .decode import make_decoder
 
@@ -111,14 +115,19 @@ def _kernel_ok(m: int, k: int, n: int) -> bool:
     return m <= MAX_M and k % 128 == 0 and n % 128 == 0
 
 
-def quantize(w, axis: int = -1):
+def quantize(w, axis: int = -1, group=None):
     """Symmetric per-channel int8: ``(q int8, scale f32)``, one scale per
     slice along ``axis`` (max over every other axis, kept as size 1) — one
-    per output channel of an ``[in, out]`` weight with ``axis=-1``."""
+    per output channel of an ``[in, out]`` weight with ``axis=-1``.
+    ``group``: ``w`` is one member's piece of a weight split along the
+    other axes over that process group, whose maxima are reduced first, so
+    each member's scales are the whole weight's."""
     w32 = w.float()
     axis = axis % w32.dim()
     amax = w32.abs().amax(dim=tuple(i for i in range(w32.dim())
                                     if i != axis), keepdim=True)
+    if group is not None:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
     scale = amax.clamp_min(1e-12) / 127.0
     q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -128,31 +137,53 @@ def dequantize(q, scale, dtype=torch.bfloat16):
     return (q.float() * scale).to(dtype)
 
 
-def _walk(fn, tree, name=None):
-    """Map ``fn(name, leaf)`` over a params tree, ``name`` being the
-    leaf's own dict key (``None`` inside a list)."""
+def _walk(fn, tree, path=()):
+    """Map ``fn(path, leaf)`` over a params tree, ``path`` being the
+    leaf's keys from the root (list indices as strings)."""
     if isinstance(tree, dict):
-        return {k: _walk(fn, v, k) for k, v in tree.items()}
+        return {k: _walk(fn, v, path + (k,)) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_walk(fn, v) for v in tree]
-    return fn(name, tree)
+        return [_walk(fn, v, path + (str(i),)) for i, v in enumerate(tree)]
+    return fn(path, tree)
 
 
-def quantize_params(params, dtype=torch.bfloat16):
+def _split_group(rules, path: tuple, axis: int):
+    """The process group over which the leaf at ``path`` splits the axis
+    that its scales reduce (the one that is not ``axis``); ``None`` when
+    it is whole there or there is no world mesh."""
+    if rules is None or not isinstance(rules.mesh, WorldMesh):
+        return None
+    spec = tuple(rules.param_sharding(path)) + (None, None)
+    mesh = rules.mesh
+    return mesh.group(tuple(a for a in spec_axes(spec[1 - axis])
+                            if a in mesh.axis_names))
+
+
+def quantize_params(params, dtype=torch.bfloat16, rules=None):
     """Params tree → the same tree with its matmul weights as
     :class:`QTensor` leaves computing in ``dtype``: the 2-D leaves quantise
     (per column; per vocab row for ``embed``, ``scale_axis=0``), every
     other leaf passes through untouched — norms, the MoE ``router`` (f32:
     routing decisions are precision-sensitive) and the 3-D expert stacks
     (their ``bmm`` consumers do not go through :class:`QTensor`). Leaves
-    are told apart by their exact key."""
+    are told apart by their exact key.
 
-    def leaf(name, x):
+    ``rules`` (a world mesh): ``params`` are this rank's shards, and each
+    leaf split along the axis its scales reduce — ``wo`` and ``down`` by
+    rows, ``embed`` on ``d_model`` — takes the maximum over its ``tp``
+    line, so the tree is, bit for bit, this rank's slice of the whole
+    tree's quantisation (a shard quantised alone would have scales of its
+    own, other numbers than the reference's global ``quantize_params``).
+    Collective: every rank calls it."""
+
+    def leaf(path, x):
+        name = path[-1] if path else None
         if not isinstance(x, torch.Tensor) or x.dim() != 2 \
                 or name == "router":
             return x
         axis = 0 if name == "embed" else 1
-        q, s = quantize(x, axis=axis)
+        q, s = quantize(x, axis=axis,
+                        group=_split_group(rules, path, axis))
         return QTensor(q, s.reshape(-1), scale_axis=axis, dtype=dtype)
 
     return _walk(leaf, params)
@@ -202,10 +233,10 @@ def dequantize_params(qparams):
         lambda x: x.dequantize() if isinstance(x, QTensor) else x, qparams)
 
 
-def make_quantized_decoder(cfg: BurnInConfig, n_new: int = 32,
+def make_quantized_decoder(cfg: BurnInConfig, rules=None, n_new: int = 32,
                            max_len: int | None = None,
                            dtype=torch.bfloat16, fused: bool = True,
-                           cache_dtype: str = "bf16", device="cuda"):
+                           cache_dtype: str = "bf16", *, device="cuda"):
     """Greedy decoder over int8-resident weights: ``decoder(qparams,
     prompt) → [B, n_new]`` with ``qparams`` from :func:`quantize_params`.
     The decode is :func:`..decode.make_decoder`'s (on the card one replay
@@ -216,9 +247,12 @@ def make_quantized_decoder(cfg: BurnInConfig, n_new: int = 32,
     lands at other addresses than the last one is captured anew).
     ``dtype`` must match the QTensor leaves' compute dtype;
     ``cache_dtype="int8"`` also quantises the KV cache — the full int8
-    serving stack."""
+    serving stack. ``rules``: ``qparams`` are this rank's shards of the
+    whole tree's quantisation (``quantize_params(shards, rules=rules)``),
+    and K8 runs at the shards' shapes."""
     dev = check_device(device)
-    decode = make_decoder(cfg, n_new, max_len, cache_dtype, device=dev)
+    decode = make_decoder(cfg, rules, n_new, max_len, cache_dtype,
+                          device=dev)
 
     def decoder(qparams, prompt):
         qleaves = [leaf for leaf in tree_leaves(qparams)

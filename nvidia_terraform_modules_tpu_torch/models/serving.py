@@ -72,19 +72,28 @@ exactly):
 Sharded serving (``run(rules=)``, the rules of a ``torch.distributed``
 world, one process a device): every rank runs the same host scheduler;
 admissions and prefill chunks run on every rank, its heads over ``tp``
-(``decode.forward_paged(rules=)``), each rank's pool holding its KV heads
-(``paging.init_paged_cache(rules=)``); each wave runs each data rank's
-slots (``slots`` split in order over the data axes, which must divide it)
-and all-gathers the wave's tokens over the data axes, so every rank's
-scheduler sees every slot's token and takes the same decisions. The
-engine's ``params`` are then this rank's shards (``burnin.init_params(
-rules=)``). The reference demotes its paged kernel (K7, K7-int8) to the
-gather path under ``rules``, since a ``pallas_call`` cannot take a
-mesh-sharded operand; here each rank's pool is a plain local tensor, so
-the wave keeps K7 on the rank's heads — a difference of mechanism, not of
-result. On the card the wave is still captured and replayed (the world of
-one runs no collective). ``spec_k``, MoE and int8 weights under
-``rules`` raise ``NotImplementedError`` (ROADMAP Queue A item 6).
+(``decode.forward_paged(rules=, replicated=True)``), each rank's pool
+holding its KV heads (``paging.init_paged_cache(rules=)``); each wave runs
+each data rank's slots (``slots`` split in order over the data axes,
+which must divide it) and all-gathers the wave's tokens over the data
+axes, so every rank's scheduler sees every slot's token and takes the
+same decisions. The engine's ``params`` are then this rank's shards
+(``burnin.init_params(rules=)``; int8 weights: ``quantize_params(shards,
+rules=)``, the whole tree's scales, whose dequantised admission tree is
+this rank's shard of the whole dequantisation). MoE layers run their
+experts over ``ep`` (``decode._moe_ffn``: an admission's tokens are the
+same on every rank, a wave's rows are gathered over the ``ep`` line).
+Speculative serving keeps the :class:`SpecState` whole on every rank:
+each trip verifies this data rank's slots and all-gathers their
+predictions, so the acceptance, the stop rule (finished slots counted
+over all slots, as the reference counts them) and the number of trips
+are the same everywhere. The reference demotes its paged kernel (K7,
+K7-int8) to the gather path under ``rules``, since a ``pallas_call``
+cannot take a mesh-sharded operand; here each rank's pool is a plain
+local tensor, so the wave keeps K7 on the rank's heads — a difference of
+mechanism, not of result. On the card the wave (and the speculative
+trip) is still captured and replayed (the world of one runs no
+collective).
 
 Int8 serving: ``cache_dtype="int8"`` keeps the pool int8 with f32 scale
 sidecars riding the block tables (the wave then reads through the int8
@@ -119,12 +128,12 @@ import torch
 
 from ..ops.sampling import MASK32, key_data, threefry2x32
 from ..parallel.collectives import gather_dim
-from ..parallel.mesh import WorldMesh
 from ..telemetry import get_registry
 from .burnin import BurnInConfig, check_device, tree_leaves
 from .decode import (
     Sampler,
     _check_params,
+    _data_line,
     _Replayed,
     _select_prefill_impl,
     check_cache_dtype,
@@ -208,16 +217,6 @@ def _make_pick(sampler: Sampler | None):
     return pick
 
 
-def _data_line(rules) -> tuple:
-    """``(group, n, i)`` of this rank's line over the data axes
-    (``(None, 1, 0)`` without a world mesh)."""
-    if rules is None or not isinstance(rules.mesh, WorldMesh):
-        return None, 1, 0
-    mesh = rules.mesh
-    return (mesh.group(rules.data), mesh.axis_size(rules.data),
-            mesh.index(rules.data))
-
-
 def make_serve_step(params, cfg: BurnInConfig, sampler: Sampler | None = None,
                     *, paged_kernel: str = "auto", rules=None):
     """The all-slots wave step, one batched ``[slots, 1]`` ``forward_paged``
@@ -297,7 +296,7 @@ class SpecState:
 
 
 def make_spec_step(params, cfg: BurnInConfig, k: int, *,
-                   paged_kernel: str = "auto"):
+                   paged_kernel: str = "auto", rules=None):
     """The all-slots SPECULATIVE trip on the paged pool: ``trip(state:
     SpecState, pool)``, in place. One trip is one test and one body of the
     reference's device loop (``make_spec_step``'s ``while_loop``): the loop
@@ -314,7 +313,31 @@ def make_spec_step(params, cfg: BurnInConfig, k: int, *,
     Frozen slots — finished, inactive, or growth-blocked (their grant does
     not cover ``pos + k + 1`` rows) — write to the garbage block and keep
     their state. The rollback ``pos = cur - 1`` is written into the pool's
-    own ``pos`` in place."""
+    own ``pos`` in place.
+
+    ``rules`` (a world mesh; ``params`` are ``decode.paged_params`` of this
+    rank's shards): the state stays whole on every rank; the verification
+    runs this data rank's slots (copies of their table rows and positions)
+    and its argmax chains are all-gathered over the data axes, so every
+    rank takes the same decisions."""
+    group, n, i = _data_line(rules)
+
+    def verify(tokens, pool, active):
+        """The model's argmax chain ``[slots, k+1]`` after ``tokens``."""
+        if group is None:
+            logits, _ = forward_paged(params, tokens, pool, cfg, rules,
+                                      prefill_impl="cached", active=active,
+                                      paged_kernel=paged_kernel)
+            return logits.argmax(dim=-1)
+        m = tokens.shape[0] // n
+        own = slice(i * m, (i + 1) * m)
+        # the pool's own positions are rolled back by the trip itself
+        mine = dict(pool, block_tables=pool["block_tables"][own].clone(),
+                    pos=pool["pos"][own].clone())
+        logits, _ = forward_paged(params, tokens[own], mine, cfg, rules,
+                                  prefill_impl="cached", active=active[own],
+                                  paged_kernel=paged_kernel)
+        return gather_dim(logits.argmax(dim=-1), group, n, 0)
 
     def blocked_of(s, pos):
         # the next verification writes pos..pos+k: a slot whose grant does
@@ -332,10 +355,8 @@ def make_spec_step(params, cfg: BurnInConfig, k: int, *,
         frozen = s.fin | ~s.active | blocked | ~go
         last = torch.gather(s.ctx, 1, (s.cur - 1).clamp_min(0)[:, None])
         draft = _ngram_draft(s.ctx, s.cur, k, cfg.vocab)        # [S, k]
-        logits, _ = forward_paged(params, torch.cat([last, draft], 1), pool,
-                                  cfg, prefill_impl="cached", active=~frozen,
-                                  paged_kernel=paged_kernel)
-        new_toks, n_acc = accept_drafts(draft, logits.argmax(dim=-1))
+        new_toks, n_acc = accept_drafts(
+            draft, verify(torch.cat([last, draft], 1), pool, ~frozen))
         idx = torch.arange(k + 1, device=pos.device)
         emit = torch.minimum(n_acc + 1, (s.n_new - s.n_out).clamp_min(0))
         is_eos = (new_toks == s.eos) & (s.eos >= 0) & (idx < emit[:, None])
@@ -799,9 +820,16 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
     geom = paged_pool_spec(cfg, max_len, kv_block, cache_dtype)
     bs, nt = kv_block, geom["tables"]
     pool_keys = ("k", "v") + (("k_scale", "v_scale") if quant else ())
-    step = make_serve_step(params, cfg, sampler, paged_kernel=paged_kernel)
-    trip = (None if spec_k is None else
-            make_spec_step(params, cfg, spec_k, paged_kernel=paged_kernel))
+
+    def steps_for(tree, rules=None) -> dict:
+        """The wave step and the speculative trip over ``tree``."""
+        return {"step": make_serve_step(tree, cfg, sampler,
+                                        paged_kernel=paged_kernel,
+                                        rules=rules),
+                "trip": None if spec_k is None else make_spec_step(
+                    tree, cfg, spec_k, paged_kernel=paged_kernel,
+                    rules=rules)}
+
     headroom = spec_k or 0
     spec_width = max_len + headroom + 1     # the window at cur always fits
     # the phase split: admissions from a dequantised copy, built once
@@ -826,32 +854,34 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
     # rules)
     pools: dict[tuple, tuple[dict, Any]] = {}
     # the run's sharding: its rules, the trees its admissions and its wave
-    # run from (this rank's shards under rules), and its wave step
-    cur: dict[str, Any] = {"rules": None, "prefill": prefill_params,
-                           "step": step}
+    # run from (this rank's shards under rules), its wave step and trip
+    unsharded = {"rules": None, "prefill": prefill_params,
+                 **steps_for(params)}
+    cur: dict[str, Any] = dict(unsharded)
+    step = unsharded["step"]
     sharded: dict[int, dict] = {}
 
     def use_rules(rules) -> None:
         """Point the run at ``rules`` (None: unsharded), building the
-        sharded trees and wave step once per rules object."""
+        sharded trees, wave step and trip once per rules object."""
         if rules is None:
-            cur.update(rules=None, prefill=prefill_params, step=step)
+            cur.update(unsharded)
             return
         if id(rules) not in sharded:
             tree = paged_params(params, cfg, rules)
             sharded[id(rules)] = {
-                "rules": rules, "prefill": tree,
-                "step": make_serve_step(tree, cfg, sampler,
-                                        paged_kernel=paged_kernel,
-                                        rules=rules)}
+                "rules": rules,
+                "prefill": (tree if prefill_params is params else
+                            paged_params(prefill_params, cfg, rules)),
+                **steps_for(tree, rules)}
         cur.update(sharded[id(rules)])
 
     def capture(pool: dict, on_card: bool = True):
         """The engine's wave (the speculative trip under ``spec_k``) over
         ``pool``: a :class:`WaveGraph` or :class:`SpecGraph`, captured on
         the card — what a run replays, for timing it alone."""
-        if trip is not None:
-            return SpecGraph(trip, pool, spec_width, capture=on_card)
+        if spec_k is not None:
+            return SpecGraph(cur["trip"], pool, spec_width, capture=on_card)
         return WaveGraph(cur["step"], pool, sampled=sampler is not None,
                          capture=on_card)
 
@@ -913,7 +943,8 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
         admit_table(pool, slot, row, tail, start)
         logits, _ = forward_paged(cur["prefill"], prompt[None],
                                   slot_view(pool, slot), cfg, cur["rules"],
-                                  prefill_impl=impl, paged_kernel="off")
+                                  prefill_impl=impl, paged_kernel="off",
+                                  replicated=True)
         return logits[0, -1]
 
     pick = _make_pick(sampler)
@@ -932,7 +963,8 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
         hides keys past a query, and ``pos`` rewinds to the true length."""
         logits, _ = forward_paged(cur["prefill"], chunk,
                                   slot_view(pool, slot), cfg, cur["rules"],
-                                  prefill_impl="cached", paged_kernel="off")
+                                  prefill_impl="cached", paged_kernel="off",
+                                  replicated=True)
         return logits[0]
 
     def check_chunk_bound(length: int, start: int | None = None) -> int:
@@ -1021,7 +1053,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                                            device=dev))
                 forward_paged(cur["prefill"], prefix[None], sub, cfg,
                               cur["rules"], prefill_impl=prefix_impl,
-                              paged_kernel="off")
+                              paged_kernel="off", replicated=True)
 
         def _chunks_for(self, req: int, length: int) -> list:
             """The prompt's candidate chain chunks; at least one prompt
@@ -1434,16 +1466,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
             static_batching: bool = False, priorities=None, rules=None,
             **run_levers):
         _refuse_levers(run_levers, _RUN_LATER, "run")
-        if rules is not None:
-            check_serve_rules(rules, cfg)
-            if spec_k is not None:
-                raise NotImplementedError(
-                    "speculative serving (spec_k) under rules= is not "
-                    "ported yet — ROADMAP.md, Queue A item 6")
-            if prefill_params is not params:
-                raise NotImplementedError(
-                    "int8-weight serving under rules= is not ported yet — "
-                    "ROADMAP.md, Queue A item 6")
+        check_serve_rules(rules, cfg)
         run.last_stats = None
         tel.start()
         if not prompts:

@@ -19,6 +19,16 @@ dimension, so the serve engine's speculative iteration
 The reference's loop is a device ``while_loop``; this one is a host loop
 over the cached forward, one readback of the accepted count a
 verification.
+
+Under ``rules`` (a ``torch.distributed`` world) ``params`` are this
+rank's shards and the cache holds its KV heads (``decode.init_cache``);
+the batch of one is the same on every rank, so every rank drafts from the
+same context and takes the same number of verification steps — which the
+collectives of each step (the ``tp`` all-reduces, the MoE exchange over
+``ep``) need. The batch being replicated, each ``ep`` member runs its
+experts on the one row as it is (``decode._moe_ffn``'s ``replicated``:
+nothing gathered over ``ep``), and whole ``wk``/``wv`` where ``tp`` does
+not divide the KV heads are gathered once a call (``paged_params``).
 """
 
 from __future__ import annotations
@@ -27,7 +37,12 @@ import torch
 
 from ..telemetry import get_registry
 from .burnin import BurnInConfig, _check_params, check_device
-from .decode import _select_prefill_impl, forward_cached, init_cache
+from .decode import (
+    _forward_cached,
+    _select_prefill_impl,
+    init_cache,
+    paged_params,
+)
 
 
 def _ngram_draft(ctx, cur_len, k: int, vocab: int):
@@ -67,14 +82,17 @@ def accept_drafts(draft, preds):
 
 @torch.no_grad()
 def speculative_greedy_decode(params, prompt, n_new: int, cfg: BurnInConfig,
-                              k: int = 4, max_len: int | None = None,
+                              rules=None, k: int = 4,
+                              max_len: int | None = None,
                               prefill: str = "auto", *, device="cuda"):
     """Greedy generation through prompt-lookup speculation. Returns
     ``(tokens [1, n_new], steps)``, ``steps`` the verification forwards
     run (``n_new / steps`` is the realised speedup over greedy decode's
-    one forward a token). Batch must be 1."""
+    one forward a token). Batch must be 1; under ``rules`` every rank
+    passes the same prompt (module docstring)."""
     dev = check_device(device)
     _check_params(params, dev)
+    params = paged_params(params, cfg, rules)
     prompt = torch.as_tensor(prompt, device=dev).long()
     if prompt.shape[0] != 1:
         raise ValueError(
@@ -90,10 +108,10 @@ def speculative_greedy_decode(params, prompt, n_new: int, cfg: BurnInConfig,
             f"prompt ({t0}) + n_new ({n_new}) + k ({k}) exceeds max_len "
             f"({max_len}) — speculation writes up to k draft rows past the "
             f"accepted position")
-    cache = init_cache(cfg, 1, max_len, device=dev)
-    logits, cache = forward_cached(
-        params, prompt, cache, cfg,
-        prefill_impl=_select_prefill_impl(cfg, t0, prefill, dev))
+    cache = init_cache(cfg, 1, max_len, rules, device=dev)
+    logits, cache = _forward_cached(
+        params, prompt, cache, cfg, rules,
+        _select_prefill_impl(cfg, t0, prefill, dev), replicated=True)
     ctx = torch.zeros((max_len,), dtype=torch.long, device=dev)
     ctx[:t0] = prompt[0]
     ctx[t0] = logits[0, -1].argmax()
@@ -104,8 +122,8 @@ def speculative_greedy_decode(params, prompt, n_new: int, cfg: BurnInConfig,
         block = torch.cat([ctx[cur - 1:cur], draft])[None]      # [1, k+1]
         # "cached": a mid-stream T > 1 forward over the cache, never a
         # pos-0 prefill
-        logits, cache = forward_cached(params, block, cache, cfg,
-                                       prefill_impl="cached")
+        logits, cache = _forward_cached(params, block, cache, cfg, rules,
+                                        "cached", replicated=True)
         new_toks, n_acc = accept_drafts(draft, logits[0].argmax(dim=-1))
         emit = min(int(n_acc) + 1, n_new - n_out)
         ctx[cur:cur + emit] = new_toks[:emit]
@@ -118,9 +136,9 @@ def speculative_greedy_decode(params, prompt, n_new: int, cfg: BurnInConfig,
     return ctx[t0:t0 + n_new][None], steps
 
 
-def make_speculative_decoder(cfg: BurnInConfig, n_new: int = 32, k: int = 4,
-                             max_len: int | None = None, telemetry=None, *,
-                             device="cuda"):
+def make_speculative_decoder(cfg: BurnInConfig, rules=None, n_new: int = 32,
+                             k: int = 4, max_len: int | None = None,
+                             telemetry=None, *, device="cuda"):
     """The speculative greedy decoder: ``decoder(params, prompt) →
     (tokens [1, n_new], steps)``.
 
@@ -135,8 +153,8 @@ def make_speculative_decoder(cfg: BurnInConfig, n_new: int = 32, k: int = 4,
     dev = check_device(device)
 
     def decoder(params, prompt):
-        return speculative_greedy_decode(params, prompt, n_new, cfg, k=k,
-                                         max_len=max_len, device=dev)
+        return speculative_greedy_decode(params, prompt, n_new, cfg, rules,
+                                         k=k, max_len=max_len, device=dev)
 
     reg = telemetry if telemetry is not None else get_registry()
     if not reg.enabled:

@@ -409,22 +409,17 @@ def _serve_legs(checks, cfg, params, batch, rules, dev, gen, leg,
                 guarded) -> bool:
     """The serve shapes on the trained weights, and on small f32
     engines."""
-    # serve shape: a short greedy decode on the trained weights, its first
-    # token equal to the forward's argmax. greedy_decode takes no rules
-    # yet (ROADMAP Queue A item 6): each rank gathers the tp shards and
-    # decodes its own batch rows unsharded on its device.
-    checks["decode_sharding"] = "gathered"
-    full = gather_params(params, rules)
-
+    # serve shape: a short greedy decode on the trained shards (the
+    # tp-sharded cache, this rank's batch rows), its first token equal to
+    # the sharded forward's argmax
     def decode():
         prompt = batch[0][:, :8]
-        toks = greedy_decode(full, prompt, 4, cfg, device=dev)
-        first_ref = forward(full, prompt, cfg)[:, -1].argmax(dim=-1)
+        toks = greedy_decode(params, prompt, 4, cfg, rules, device=dev)
+        first_ref = forward(params, prompt, cfg, rules)[:, -1].argmax(dim=-1)
         return (tuple(toks.shape) == (prompt.shape[0], 4)
                 and bool((toks[:, 0] == first_ref).all()))
 
     ok = leg("decode", lambda: guarded("decode_ok", decode))
-    del full
 
     # the continuous-batching engine, its scheduler levers and the paged
     # decode kernel: tiny, unsharded, process-local (every rank checks its

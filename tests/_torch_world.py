@@ -492,12 +492,13 @@ def moe_ep(rank, n, args):
 
 def serve_sharded(rank, n, args):
     """The serve engine under ``run(rules=)`` on ``plan_mesh(n,
-    tp=args["tp"])``: for each case, the tokens of a run from the case's
-    weights (this rank's shards), the shape of this rank's paged pool, and
-    the logits of ``forward_paged(rules=)`` over the first prompt — a
-    prefill of all but its last token, then a T=1 step through the
-    tables; then ``slots`` that the data axes do not divide, as its
-    exception."""
+    **args["plan"])``: for each case, the tokens of a run from the case's
+    weights (this rank's shards; with ``"quantized"`` among the engine's
+    keywords, ``quantize_params(shards, rules=)``), and, for the cases
+    that ask for it, the shape of this rank's paged pool and the logits of
+    ``forward_paged(rules=)`` over the first prompt — a prefill of all but
+    its last token, then a T=1 step through the tables; then ``slots``
+    that the data axes do not divide, as its exception."""
     import torch
 
     from nvidia_terraform_modules_tpu_torch.models import (
@@ -506,6 +507,7 @@ def serve_sharded(rank, n, args):
         init_paged_cache,
         make_serve_engine,
         params_from_numpy,
+        quantize_params,
         shard_params,
     )
     from nvidia_terraform_modules_tpu_torch.models.decode import (
@@ -517,31 +519,37 @@ def serve_sharded(rank, n, args):
         plan_mesh,
     )
 
-    rules = make_rules(build_mesh(plan_mesh(n, tp=args["tp"])))
+    rules = make_rules(build_mesh(plan_mesh(n, **args["plan"])))
     out = {"mesh": dict(rules.mesh.shape)}
     for case in args["cases"]:
         cfg = BurnInConfig(**case["cfg"], dtype=torch.float32)
         params = shard_params(params_from_numpy(case["params"], cfg,
                                                 device="cpu"), rules)
-        engine = make_serve_engine(params, cfg, device="cpu",
-                                   **case["engine"])
+        engine_kw = dict(case["engine"])
+        if engine_kw.pop("quantized", False):
+            params = quantize_params(params, torch.float32, rules)
+        engine = make_serve_engine(params, cfg, device="cpu", **engine_kw)
         prompts = [torch.from_numpy(p).long() for p in case["prompts"]]
         toks = engine(prompts, case["n_new"], rules=rules, **case["run"])
-        pool = init_paged_cache(cfg, 1, 16, block_size=4, num_blocks=5,
-                                rules=rules, device="cpu",
-                                cache_dtype=case["engine"].get(
-                                    "cache_dtype", "bf16"))
-        pool["block_tables"][0, :4] = torch.arange(1, 5, dtype=torch.int32)
-        tree = paged_params(params, cfg, rules)
-        seq = prompts[0][None]
-        head, _ = forward_paged(tree, seq[:, :-1], pool, cfg, rules)
-        last, _ = forward_paged(tree, seq[:, -1:], pool, cfg, rules,
-                                paged_kernel="on")
-        out[case["name"]] = {
-            "tokens": [t.tolist() for t in toks],
-            "pool": tuple(pool["k"][0].shape),
-            "logits": torch.cat([head, last], dim=1)[0].numpy(),
-            "kv": engine.last_stats["kv"]["high_water"]}
+        rec = {"tokens": [t.tolist() for t in toks],
+               "kv": engine.last_stats["kv"]["high_water"]}
+        if "steps" in case:
+            rec["decode_steps"] = engine.last_stats["decode_steps"]
+        if case.get("logits"):
+            pool = init_paged_cache(cfg, 1, 16, block_size=4, num_blocks=5,
+                                    rules=rules, device="cpu",
+                                    cache_dtype=engine_kw.get(
+                                        "cache_dtype", "bf16"))
+            pool["block_tables"][0, :4] = torch.arange(1, 5,
+                                                       dtype=torch.int32)
+            tree = paged_params(params, cfg, rules)
+            seq = prompts[0][None]
+            head, _ = forward_paged(tree, seq[:, :-1], pool, cfg, rules)
+            last, _ = forward_paged(tree, seq[:, -1:], pool, cfg, rules,
+                                    paged_kernel="on")
+            rec.update(pool=tuple(pool["k"][0].shape),
+                       logits=torch.cat([head, last], dim=1)[0].numpy())
+        out[case["name"]] = rec
     case = args["cases"][0]
     cfg = BurnInConfig(**case["cfg"], dtype=torch.float32)
     engine = make_serve_engine(shard_params(params_from_numpy(
@@ -552,6 +560,147 @@ def serve_sharded(rank, n, args):
         out["odd_slots"] = None
     except ValueError as exc:
         out["odd_slots"] = str(exc)
+    return out
+
+
+def decode_sharded(rank, n, args):
+    """The decode entry points under ``rules`` on ``plan_mesh(n,
+    **args["plan"])``, from each case's whole weights (this rank's shards)
+    and global prompt batch (this rank's rows, ``rows``): the
+    tokens of every run the case names, the cache's shape, and the logits
+    of ``forward_cached(rules=)`` over a prefill of all but the last token
+    and one T=1 step (bf16-layout cache; with int8 weights too, and with a
+    planted fault: each shard quantised alone). ``gathers`` counts, per
+    decoder call, the leaf gathers (whole ``wk``/``wv``) and the gathers
+    of rows over ``ep`` (the MoE exchange of a data-sharded batch)."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import decode as dmod
+    from nvidia_terraform_modules_tpu_torch.models import (
+        BurnInConfig,
+        forward_cached,
+        greedy_decode,
+        init_cache,
+        make_decoder,
+        make_quantized_decoder,
+        make_speculative_decoder,
+        param_shardings,
+        params_from_numpy,
+        quantize_params,
+        sample_decode,
+        shard_params,
+        speculative_greedy_decode,
+        tree_leaves,
+    )
+    from nvidia_terraform_modules_tpu_torch.parallel import (
+        build_mesh,
+        make_rules,
+        plan_mesh,
+    )
+    from nvidia_terraform_modules_tpu_torch.parallel.sharding import (
+        local_shard,
+    )
+
+    rules = make_rules(build_mesh(plan_mesh(n, **args["plan"])))
+    out = {"mesh": dict(rules.mesh.shape)}
+
+    def counted(fn):
+        """``fn()`` and its ``{"leaves", "rows"}`` gather counts."""
+        calls = {"leaves": 0, "rows": 0}
+        leaves, dim = dmod.gather_shards, dmod.gather_dim
+
+        def gather_leaf(*a):
+            calls["leaves"] += 1
+            return leaves(*a)
+
+        def gather_dim(x, group, n_, d):
+            calls["rows"] += d == 0
+            return dim(x, group, n_, d)
+
+        dmod.gather_shards, dmod.gather_dim = gather_leaf, gather_dim
+        try:
+            result = fn()
+        finally:
+            dmod.gather_shards, dmod.gather_dim = leaves, dim
+        return result, calls
+
+    def logits_of(tree, prompt, cfg, cache_dtype="bf16"):
+        cache = init_cache(cfg, prompt.shape[0], prompt.shape[1], rules,
+                           cache_dtype=cache_dtype, device="cpu")
+        head, _ = forward_cached(tree, prompt[:, :-1], cache, cfg, rules)
+        last, _ = forward_cached(tree, prompt[:, -1:], cache, cfg, rules)
+        return torch.cat([head, last], dim=1).numpy(), cache
+
+    for case in args["cases"]:
+        cfg = BurnInConfig(**case["cfg"], dtype=torch.float32)
+        whole = params_from_numpy(case["params"], cfg, device="cpu")
+        params = shard_params(whole, rules)
+        # this rank's rows (sp replicates on the decode path: whole rows)
+        prompt = local_shard(torch.from_numpy(case["prompts"]).long(),
+                             rules.batch, rules.mesh)
+        i = rules.mesh.index(rules.data)
+        out["rows"] = (i * prompt.shape[0], (i + 1) * prompt.shape[0])
+        n_new, runs = case["n_new"], case["runs"]
+        rec = {}
+        for cache_dtype in ("bf16", "int8"):
+            rec[f"greedy_{cache_dtype}"] = greedy_decode(
+                params, prompt, n_new, cfg, rules, cache_dtype=cache_dtype,
+                device="cpu").tolist()
+        if "decoder" in runs:
+            for cache_dtype in ("bf16", "int8"):
+                dec = make_decoder(cfg, rules, n_new, cache_dtype=cache_dtype,
+                                   device="cpu")
+                rec[f"decoder_{cache_dtype}"] = dec(params, prompt).tolist()
+        if "sample" in runs:
+            for cache_dtype in ("bf16", "int8"):
+                rec[f"sample_{cache_dtype}"] = sample_decode(
+                    params, prompt, n_new, cfg, args["seed"], rules,
+                    temperature=2.0, top_k=40, cache_dtype=cache_dtype,
+                    device="cpu").tolist()
+        rec["logits"], cache = logits_of(params, prompt, cfg)
+        rec["cache"] = tuple(cache["k"][0].shape)
+        if "int8_weights" in runs:
+            q = quantize_params(params, torch.float32, rules)
+            sliced = quantize_params(whole, torch.float32)
+            rec["q_is_slice"] = all(
+                torch.equal(a.q, local_shard(b.q, spec, rules.mesh))
+                and torch.equal(a.scale, local_shard(
+                    b.scale, ((tuple(spec) + (None, None))[a.scale_axis],),
+                    rules.mesh))
+                for a, b, spec in zip(
+                    tree_leaves(q), tree_leaves(sliced),
+                    tree_leaves(param_shardings(whole, rules)))
+                if hasattr(a, "q"))
+            rec["int8_logits"] = logits_of(q, prompt, cfg)[0]
+            rec["int8_planted_logits"] = logits_of(
+                quantize_params(params, torch.float32), prompt, cfg)[0]
+            dec = make_quantized_decoder(cfg, rules, n_new,
+                                         dtype=torch.float32,
+                                         cache_dtype="int8", device="cpu")
+            rec["int8_weights"] = dec(q, prompt).tolist()
+        if "spec" in runs:
+            one = torch.from_numpy(case["prompts"][:1]).long()
+            toks, steps = speculative_greedy_decode(
+                params, one, n_new, cfg, rules, k=2, device="cpu")
+            rec["spec"] = (toks.tolist(), steps)
+            toks, steps = make_speculative_decoder(
+                cfg, rules, n_new, 2, device="cpu")(params, one)
+            rec["spec_decoder"] = (toks.tolist(), steps)
+        if "gathers" in runs:
+            one = torch.from_numpy(case["prompts"][:1]).long()
+            cpu = torch.device("cpu")
+            t = prompt.shape[1]
+            graph = dmod._DecodeGraph(params, cfg, rules, prompt.shape[0],
+                                      t, t + n_new, n_new, "bf16", cpu)
+            rec["gathers"] = {
+                "greedy": counted(lambda: greedy_decode(
+                    params, prompt, n_new, cfg, rules, device=cpu))[1],
+                "graph": [(toks.tolist(), calls) for toks, calls in (
+                    counted(lambda: graph(params, prompt))
+                    for _ in range(2))],
+                "spec": counted(lambda: speculative_greedy_decode(
+                    params, one, n_new, cfg, rules, k=2, device=cpu))[1]}
+        out[case["name"]] = rec
     return out
 
 

@@ -51,7 +51,9 @@ import torch
 
 from nvidia_terraform_modules_tpu_torch.models import (
     BurnInConfig,
+    forward_cached,
     greedy_decode,
+    init_cache,
     init_paged_cache,
     init_params,
     make_decoder,
@@ -411,6 +413,41 @@ def test_int8_matmul_matches_plain(cuda, m, k, n, trans, dtype):
     assert torch.equal(out, rows)            # a row's bits do not depend on M
 
 
+def _shard_products(tp: int) -> list[tuple[int, int, bool]]:
+    """``(K, N, [N, K] storage)`` of the flagship's weight products at one
+    rank's shard under ``tp``: wq, wo, up, down and the tied head (the
+    embedding split on ``d_model``, read through its transpose)."""
+    d, f, vocab = 2048, 8192, 8192
+    return [(d, d // tp, False), (d // tp, d, False), (d, f // tp, False),
+            (f // tp, d, False), (d // tp, vocab, True)]
+
+
+@pytest.mark.parametrize("m", [1, 4, 8])
+@pytest.mark.parametrize("tp", [2, 4])
+def test_int8_matmul_at_shard_shapes(cuda, tp, m):
+    """K8 at the shapes a sharded int8 decoder gives it — one launch a
+    product, each within the plain version's tolerance, the K split the
+    wrapper picks for that shape."""
+    for k, n, trans in _shard_products(tp):
+        x, w, scale = _int8_case(tp * 1000 + m + k, m, k, n, trans, cuda)
+        before = launches["int8_matmul"]
+        out = int8_matmul(x, w, scale, transpose_rhs=trans)
+        torch.cuda.synchronize()
+        assert launches["int8_matmul"] == before + 1
+        ref = int8_matmul_ref(x, w, scale, transpose_rhs=trans).float()
+        lim = 1e-2 * max(1.0, ref.abs().max().item())
+        assert (out.float() - ref).abs().max().item() <= lim, (k, n, trans)
+        assert int8_grid(m, k, n)[1] == int8_slices(k, n)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_kv_decode_at_shard_heads(cuda, tp):
+    """K6 over an int8 cache holding one rank's KV heads (the flagship's
+    16 over ``tp``), at the decode batch and a 768-row cache."""
+    test_kv_decode_matches_plain(cuda, 8, 16 // tp, 16 // tp, 128, 768,
+                                 torch.bfloat16, True)
+
+
 @pytest.mark.parametrize("k,n", [(2048, 2048), (2048, 8192), (8192, 2048),
                                  (1536, 2048), (3584, 640), (128, 64)])
 def test_int8_grid_is_the_launch(cuda, k, n):
@@ -598,6 +635,31 @@ def test_greedy_decode_ragged_prompt_runs_flash_prefill(cuda, t):
     want = greedy_decode(params, prompt, 6, cfg, prefill="dense",
                          device=cuda)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("int8_kernel", [True, False])
+def test_forward_cached_int8_step_runs_k6_whatever_int8_kernel(cuda,
+                                                              int8_kernel):
+    """``forward_cached``'s ``int8_kernel`` (the reference's keyword)
+    routes nothing: the T=1 step over an int8 cache launches K6 once a
+    layer either way, with the same logits."""
+    cfg = BurnInConfig(vocab=512, d_model=256, n_heads=2, n_kv_heads=1,
+                       d_ff=512, n_layers=2, dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(8),
+                         device=cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 9),
+                         generator=torch.Generator().manual_seed(9)).to(cuda)
+    out = []
+    for flag in (True, int8_kernel):
+        cache = init_cache(cfg, 2, 9, cache_dtype="int8", device=cuda)
+        forward_cached(params, toks[:, :-1], cache, cfg)
+        before = launches["kv_decode"]
+        lg, _ = forward_cached(params, toks[:, -1:], cache, cfg,
+                               int8_kernel=flag)
+        torch.cuda.synchronize()
+        assert launches["kv_decode"] == before + cfg.n_layers
+        out.append(lg)
+    assert torch.equal(out[0], out[1])
 
 
 @pytest.mark.parametrize("backward", ["fused", "split"])

@@ -15,14 +15,21 @@ which tp 2 does not divide (each rank's pool holds it whole); and
 step through the tables) must agree with the reference's ``forward``
 within 1e-5 — tokens alone would miss a small error in attention, which
 the residual stream outweighs at these widths. The int8
-pool under ``rules`` must equal the port's unsharded int8 engine. Slots
-that the data axes do not divide are refused; in this process, a world of
-one runs the unsharded engine's tokens, and ``spec_k``, MoE and int8
-weights under ``rules`` raise ``NotImplementedError`` naming ROADMAP
-Queue A item 6.
+pool under ``rules`` must equal the port's unsharded int8 engine. The
+engine's levers under ``rules`` equal the JAX engine unsharded too:
+``spec_k=2`` (every rank the same verification steps), int8 weights
+(``quantize_params(shards, rules=)``, the phase split from the shards)
+and MoE (2 experts top-1, 4 experts top-2; ``spec_k`` over MoE), the
+experts replicated with their ``d_ff`` over ``tp`` in those worlds, and
+over ``ep`` in worlds of 4 (``plan_mesh(4, ep=2, tp=2)``) and 2
+(``plan_mesh(2, ep=2, tp=1)``). Slots that the data axes do not divide
+are refused; in this process, a world of one runs the unsharded engine's
+tokens.
 """
 
+import concurrent.futures
 import datetime
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -33,10 +40,10 @@ import torch.distributed as dist
 from _torch_world import run_world
 
 from nvidia_terraform_modules_tpu.models import burnin as jburnin
+from nvidia_terraform_modules_tpu.models import quantize as jquant
 from nvidia_terraform_modules_tpu.models import serving as jserving
 from nvidia_terraform_modules_tpu_torch.models import (
     BurnInConfig,
-    init_params,
     make_serve_engine,
     params_from_numpy,
     quantize_params,
@@ -52,16 +59,45 @@ BASE = dict(vocab=64, d_model=32, n_heads=4, d_ff=64, n_layers=2,
 ENGINE = dict(max_len=16, kv_block=4)
 N_NEW = 6
 SEED = 7
-# name → (config changes, engine keywords, run keywords)
+MOE1 = dict(n_experts=2, router_top_k=1)
+MOE2 = dict(n_experts=4, router_top_k=2)
+# name → (config changes, engine keywords, run keywords); "quantized":
+# the engine serves quantize_params(shards, rules=)
 CASES = {
     "greedy": ({}, {}, {}),
     "sampled": ({}, {"sampler": {"temperature": 5.0}}, {"rng": SEED}),
     "gqa_rope": (dict(n_kv_heads=2, rope=True), {}, {}),
     "kv_replicated": (dict(n_kv_heads=1), {}, {}),
     "int8_pool": ({}, {"cache_dtype": "int8"}, {}),
+    "spec_k": ({}, {"spec_k": 2}, {}),
+    "int8_weights": ({}, {"quantized": True}, {}),
+    "moe_top1": (MOE1, {}, {}),
+    "moe_top2": (MOE2, {}, {}),
+    "moe_spec_k": (MOE1, {"spec_k": 2}, {}),
 }
-# world name → (world size, tp, slots)
-WORLDS = {"tp2": (2, 2, 2), "dp2xtp2": (4, 2, 4)}
+# the cases whose world also records the pool's shape and the logits
+LOGITS = ("greedy", "gqa_rope", "kv_replicated", "int8_pool")
+LEVERS = ("spec_k", "int8_weights", "moe_top1", "moe_top2")
+MOE = ("moe_top1", "moe_top2", "moe_spec_k")
+# world name → (world size, plan_mesh keywords, slots, cases)
+WORLDS = {
+    "tp2": (2, dict(tp=2), 2, tuple(CASES)[:5] + LEVERS),
+    "dp2xtp2": (4, dict(tp=2), 4, tuple(CASES)[:5] + LEVERS),
+    "ep2xtp2": (4, dict(tp=2, ep=2), 4, MOE),
+    "ep2": (2, dict(tp=1, ep=2), 2, MOE),
+}
+DENSE_WORLDS = ("dp2xtp2", "tp2")
+LEVER_PAIRS = [(w, c) for w, (_, _, _, cases) in WORLDS.items()
+               for c in cases if c in LEVERS + MOE]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Tiny tensors on a shared CPU: one intra-op thread a process."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _weights(name):
@@ -74,11 +110,15 @@ def _weights(name):
     return jcfg, jp, prompts
 
 
+@functools.lru_cache(maxsize=None)
 def _jax_tokens(name, slots):
     """The JAX engine's tokens, unsharded (the int8 pool's case: none —
     it is held to the port's unsharded int8 engine)."""
     jcfg, jp, prompts = _weights(name)
     over, engine_kw, run_kw = CASES[name]
+    engine_kw = dict(engine_kw)
+    if engine_kw.pop("quantized", False):
+        jp = jquant.quantize_params(jp, dtype=jnp.float32)
     jeng = jserving.make_serve_engine(jp, jcfg, **ENGINE, **engine_kw)
     run = dict(run_kw)
     if "rng" in run:
@@ -101,33 +141,62 @@ def _port_unsharded(name, slots):
 
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
-    out = {}
-    for world, (n, tp, slots) in WORLDS.items():
+    """Every world's results; the JAX engine's tokens are computed in this
+    process while the worlds run in theirs."""
+    jobs = []
+    for world, (n, plan, slots, names) in WORLDS.items():
         cases = []
-        for name, (over, engine_kw, run_kw) in CASES.items():
+        for name in names:
+            over, engine_kw, run_kw = CASES[name]
             _, jp, prompts = _weights(name)
             cases.append({"name": name, "cfg": {**BASE, **over},
                           "params": jax.tree.map(np.asarray, jp),
                           "prompts": prompts, "n_new": N_NEW,
                           "engine": {**ENGINE, **engine_kw},
-                          "run": {**run_kw, "slots": slots}})
-        out[world] = run_world("serve_sharded", n,
-                               tmp_path_factory.mktemp(world),
-                               {"tp": tp, "cases": cases}, timeout=150)
-    return out
+                          "run": {**run_kw, "slots": slots},
+                          "logits": name in LOGITS,
+                          **({"steps": True} if "spec_k" in engine_kw
+                             else {})})
+        jobs.append((world, n, tmp_path_factory.mktemp(world),
+                     {"plan": plan, "cases": cases}))
+
+    def run_all():
+        return {world: run_world("serve_sharded", n, tmp, args, timeout=150)
+                for world, n, tmp, args in jobs}
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        future = pool.submit(run_all)
+        for world, (_, _, slots, names) in WORLDS.items():
+            for name in names:
+                if name != "int8_pool":
+                    _jax_tokens(name, slots)
+        return future.result()
 
 
 @pytest.mark.parametrize("name", ["greedy", "sampled", "gqa_rope",
                                   "kv_replicated"])
-@pytest.mark.parametrize("world", sorted(WORLDS))
+@pytest.mark.parametrize("world", DENSE_WORLDS)
 def test_sharded_run_matches_unsharded_jax_engine(worlds, world, name):
     want = _jax_tokens(name, WORLDS[world][2])
     for rank, r in enumerate(worlds[world]):
         assert r[name]["tokens"] == want, (rank, name)
 
 
+@pytest.mark.parametrize("world,name", LEVER_PAIRS)
+def test_sharded_levers_match_unsharded_jax_engine(worlds, world, name):
+    """``spec_k``, int8 weights and MoE under ``run(rules=)``: each
+    request equals the JAX engine's, unsharded; under ``spec_k`` every
+    rank counts the same verification steps."""
+    want = _jax_tokens(name, WORLDS[world][2])
+    for rank, r in enumerate(worlds[world]):
+        assert r[name]["tokens"] == want, (rank, name)
+        if "spec_k" in CASES[name][1]:
+            assert r[name]["decode_steps"] == \
+                worlds[world][0][name]["decode_steps"]
+
+
 @pytest.mark.parametrize("name", ["greedy", "gqa_rope", "kv_replicated"])
-@pytest.mark.parametrize("world", sorted(WORLDS))
+@pytest.mark.parametrize("world", DENSE_WORLDS)
 def test_sharded_forward_paged_logits_match_reference(worlds, world, name):
     """``forward_paged(rules=)`` over the first prompt (a prefill, then a
     T=1 step through the tables) against the reference's ``forward`` on
@@ -141,7 +210,7 @@ def test_sharded_forward_paged_logits_match_reference(worlds, world, name):
                                    atol=1e-5)
 
 
-@pytest.mark.parametrize("world", sorted(WORLDS))
+@pytest.mark.parametrize("world", DENSE_WORLDS)
 def test_sharded_int8_pool_matches_unsharded_port_engine(worlds, world):
     want = _port_unsharded("int8_pool", WORLDS[world][2])
     for r in worlds[world]:
@@ -149,11 +218,11 @@ def test_sharded_int8_pool_matches_unsharded_port_engine(worlds, world):
         assert r["int8_pool"]["kv"] > 0
 
 
-@pytest.mark.parametrize("world", sorted(WORLDS))
+@pytest.mark.parametrize("world", DENSE_WORLDS)
 def test_pool_holds_this_ranks_kv_heads(worlds, world):
     """``tp`` divides the KV heads: a rank's pool holds ``kv / tp`` of
     them; it does not (one KV head, tp 2): the pool holds them all."""
-    tp = WORLDS[world][1]
+    tp = WORLDS[world][1]["tp"]
     head_dim = BASE["d_model"] // BASE["n_heads"]
     for r in worlds[world]:
         assert r["mesh"]["tp"] == tp
@@ -183,37 +252,19 @@ def world_of_one():
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("name", ["greedy", "sampled", "int8_pool"])
+@pytest.mark.parametrize("name", ["greedy", "sampled", "int8_pool",
+                                  "spec_k", "int8_weights", "moe_top2"])
 def test_world_of_one_rules_run_equals_unsharded(world_of_one, name):
     _, jp, prompts = _weights(name)
     over, engine_kw, run_kw = CASES[name]
     cfg = BurnInConfig(**BASE, **over, dtype=torch.float32)
     params = params_from_numpy(jax.tree.map(np.asarray, jp), cfg,
                                device="cpu")
+    engine_kw = dict(engine_kw)
+    if engine_kw.pop("quantized", False):
+        params = quantize_params(params, torch.float32, world_of_one)
     eng = make_serve_engine(params, cfg, device="cpu", **ENGINE, **engine_kw)
     plain = eng(prompts, N_NEW, slots=2, **run_kw)
     sharded = eng(prompts, N_NEW, slots=2, rules=world_of_one, **run_kw)
     for a, b in zip(plain, sharded):
         assert torch.equal(a, b)
-
-
-def test_spec_k_moe_and_int8_weights_under_rules_refuse(world_of_one):
-    _, jp, prompts = _weights("greedy")
-    cfg = BurnInConfig(**BASE, dtype=torch.float32)
-    params = params_from_numpy(jax.tree.map(np.asarray, jp), cfg,
-                               device="cpu")
-    spec = make_serve_engine(params, cfg, device="cpu", spec_k=2, **ENGINE)
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        spec(prompts, 2, rules=world_of_one)
-    q = make_serve_engine(quantize_params(params, dtype=torch.float32), cfg,
-                          device="cpu", **ENGINE)
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        q(prompts, 2, rules=world_of_one)
-    mcfg = BurnInConfig(**BASE, n_experts=2, capacity_factor=4.0,
-                        dtype=torch.float32)
-    moe = make_serve_engine(init_params(mcfg, torch.Generator().manual_seed(0),
-                                        device="cpu"), mcfg, device="cpu",
-                            **ENGINE)
-    with pytest.raises(NotImplementedError,
-                       match="MoE serving under rules=.*Queue A item 6"):
-        moe(prompts, 2, rules=world_of_one)

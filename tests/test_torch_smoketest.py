@@ -69,7 +69,7 @@ def test_burnin_level_in_a_world_of_four(world4):
         assert c["burnin_ok"] and c["burnin_step"] == 5
         assert c["burnin_last_loss"] < c["burnin_first_loss"]
         assert all(c[key] is True for key in SERVE_LEGS)
-        assert c["decode_sharding"] == "gathered"
+        assert "decode_sharding" not in c      # decoded on the shards
         assert c["serve_sched_prefix_hit_blocks"] > 0
         assert "slices" not in c            # one host
     # every rank's line carries the world's verdicts
@@ -104,6 +104,39 @@ def test_full_level_in_a_world_of_four(world4):
         assert full_listed == set()
         for leg in ("all_to_all_ep", "moe", "pipeline", "serving"):
             assert leg in c["leg_seconds"]
+
+
+def test_full_level_in_a_world_of_two_decodes_on_the_shards(
+        tmp_path_factory):
+    """A gloo world of 2 at ``full`` (tp 2): the decode leg runs
+    ``greedy_decode`` and ``forward`` on the trained shards, so the line
+    has no ``decode_sharding`` and ``decode_ok`` is true; the line's
+    ``*_ok`` keys are the reference runner's less ``NOT_PORTED`` and the
+    four that need an expected device count, a checkpoint store or more
+    than one slice."""
+    import nvidia_terraform_modules_tpu.smoketest.runner as jrunner
+    from nvidia_terraform_modules_tpu_torch.smoketest.runner import (
+        NOT_PORTED,
+    )
+
+    source = Path(jrunner.__file__).read_text()
+    ref_keys = set(re.findall(r'checks\["(\w+_ok)"\]', source))
+    ref_keys |= {f"{p}_ok" for p in ("psum", "all_gather", "reduce_scatter",
+                                     "ring_permute", "all_to_all")}
+    conditional = {"device_count_ok", "burnin_checkpoint_ok", "dcn_psum_ok",
+                   "hier_psum_ok"}
+    ranks = run_world("smoketest", 2, tmp_path_factory.mktemp("full2"),
+                      {"runs": [("full", {**CPU,
+                                          "LOCAL_WORLD_SIZE": "2"})]},
+                      timeout=180)
+    for r in ranks:
+        c = r[0]["checks"]
+        assert r[0]["ok"] is True, c
+        assert c["mesh"] == {"dp": 1, "sp": 1, "tp": 2}
+        assert c["decode_ok"] is True and "decode_sharding" not in c
+        got = {k for k in c if k.endswith("_ok")}
+        assert got == ref_keys - set(NOT_PORTED) - conditional
+        assert set(c["not_ported"]) == set(NOT_PORTED)
 
 
 def test_probes_level_in_a_world_of_four(world4):
