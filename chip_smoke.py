@@ -36,6 +36,18 @@ It builds the port's CUDA kernels from ``csrc/`` with nvcc (into
   unlevered engine and solo decode; then all of them composed at the
   flagship width on Zipf template traffic with a pool at ~60 % of full
   provisioning;
+- the host KV tier (``host_spill``): at f32 on template traffic with a
+  keep-cap of 0 (every retirement spills), slots 1 and 2, async and sync
+  swaps, the f32 pool and the int8 cache, tokens equal to the engine's
+  without the tier and solo decoding bit for bit, with swap-ins, both
+  pools drained, K7/K7-int8 once a layer a wave and every import in place
+  (the captured wave's pool addresses); a planted flipped host byte must
+  end in one classified drop with the tokens unchanged. At the flagship
+  width on the lever traffic: the spilling engine (async and sync swaps,
+  a 512-block pinned host pool), the engine without the tier and one
+  that keeps the whole working set, in turns — swap and spill ms a block,
+  crc ms a block, prefill device ms an admission, tokens/s and latency,
+  and which requests equal the keep-everything engine's;
 - int8 serving: holds K8 (int8-weight matmul), K6 (contiguous int8
   decode) and K7-int8 (the paged kernel on an int8 pool) against their
   plain versions, and the decode kernels' split at its seams (positions on
@@ -161,6 +173,9 @@ N_REQUESTS, SLOTS, KV_BLOCK, N_NEW, SEED = 8, 4, 16, 32, 0
 # templates, ragged budgets, chunked prefill and the pool's share of full
 # provisioning
 LEVER_REQUESTS, LEVER_CHUNK, LEVER_POOL_SHARE = 16, 64, 0.6
+# the host KV tier at the flagship: the host pool's blocks (1 MiB each at
+# bf16) and the turns of its four engines
+SPILL_HOST_BLOCKS, SPILL_TURNS = 512, 3
 # the flagship's SGD rate: at make_train_step's default of 1e-3, lr·g is
 # below half a bf16 step of most weights (a weight near 0.02 moves only for
 # |g| > 0.06), so most of the update rounds away
@@ -1043,6 +1058,400 @@ def serve_levers_flagship(params, cfg, dev) -> dict:
                 tokens_equal_unlevered_frac=tok_eq / sum(budgets),
                 requests_equal_unlevered=sum(
                     torch.equal(a, b) for a, b in zip(outs, plain)))
+
+
+def _watch(module, owner: str, name: str, wrap):
+    """Replace ``module.owner.name`` (a class attribute) by ``wrap(orig)``;
+    returns a function that puts the original back."""
+    cls = getattr(module, owner)
+    orig = getattr(cls, name)
+    setattr(cls, name, wrap(orig))
+    return lambda: setattr(cls, name, orig)
+
+
+def serve_spill_exact(dev) -> dict:
+    """The host KV tier at f32 on the card (dense-attention config, where
+    every prefill path is the same exact math): the reference's gate —
+    template traffic, ``prefix_keep_blocks=0`` so every retirement spills —
+    at slots 1 and 2, async and sync swaps, the f32 pool and the int8
+    cache. Each run's tokens must equal the engine's without the tier and
+    solo greedy decoding (int8: solo int8-cache decoding) bit for bit, with
+    swap-ins and spilled blocks, both pools drained, K7 (K7-int8) launched
+    once a layer a wave, and the pool's tensors at the addresses the
+    captured wave reads (checked at every import). Then a planted fault:
+    one byte of the first stored host block flipped after its stamp must
+    end in ``corrupt_dropped == 1`` with the tokens unchanged. Returns the
+    record (with the int8 runs' K7-int8 launches)."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        greedy_decode,
+        hostkv,
+        init_params,
+        make_serve_engine,
+    )
+    from nvidia_terraform_modules_tpu_torch.models import serving as smod
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+
+    cfg = _exact_cfg("dense")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(8),
+                         device=dev)
+    pg = torch.Generator().manual_seed(9)
+    tmpl = [torch.randint(0, cfg.vocab, (40,), generator=pg)
+            for _ in range(2)]
+    prompts = [torch.cat([tmpl[i % 2], torch.randint(
+        0, cfg.vocab, (3 + 5 * (i % 3),), generator=pg)]).to(dev)
+        for i in range(6)]
+    budgets = [6, 9, 4, 8, 5, 7]
+    max_len = 80
+    spill = dict(max_len=max_len, kv_block=KV_BLOCK, share_prefix=True,
+                 prefix_keep_blocks=0, device=dev)
+    # every import must write into the pool's own tensors
+    in_place = []
+    orig_import = smod.import_block_rows
+
+    def watched(pool, ids, payload):
+        ptrs = [b.data_ptr() for k in ("k", "v") for b in pool[k]]
+        out = orig_import(pool, ids, payload)
+        in_place.append(out is pool and ptrs == [
+            b.data_ptr() for k in ("k", "v") for b in pool[k]])
+        return out
+    smod.import_block_rows = watched
+    records, k7i8 = {}, 0
+    try:
+        for cache_dtype in ("bf16", "int8"):
+            kernel = "paged_decode" + ("_int8" if cache_dtype == "int8"
+                                       else "")
+            solo = [greedy_decode(params, p[None], n, cfg,
+                                  cache_dtype=cache_dtype, device=dev)[0]
+                    for p, n in zip(prompts, budgets)]
+            base = make_serve_engine(params, cfg, cache_dtype=cache_dtype,
+                                     **spill)
+            for host_swap in ("async", "sync"):
+                engine = make_serve_engine(
+                    params, cfg, cache_dtype=cache_dtype, host_spill=True,
+                    host_swap=host_swap, **spill)
+                for slots in (1, 2):
+                    plain = base(prompts, budgets, slots=slots)
+                    engine(prompts[:1], 2, slots=slots)   # capture, warm-up
+                    before = _build.launches[kernel]
+                    got = engine(prompts, budgets, slots=slots)
+                    st = engine.last_stats
+                    sp = st["prefix"]["spill"]
+                    k7 = _build.launches[kernel] - before
+                    if cache_dtype == "int8":
+                        k7i8 += k7
+                    rec = dict(
+                        equal_no_spill=[torch.equal(a, b)
+                                        for a, b in zip(got, plain)],
+                        equal_solo=[torch.equal(a, b)
+                                    for a, b in zip(got, solo)],
+                        waves=st["waves"], launches=k7,
+                        **{k: sp[k] for k in (
+                            "spilled_blocks", "swapins", "swapped_blocks",
+                            "host_hit_blocks", "corrupt_dropped",
+                            "host_in_use", "host_high_water")},
+                        kv_in_use=st["kv"]["in_use"])
+                    records[f"{cache_dtype}_{host_swap}_slots{slots}"] = rec
+                    if not (all(rec["equal_no_spill"])
+                            and all(rec["equal_solo"])
+                            and sp["swapins"] >= 1
+                            and sp["spilled_blocks"] > 0
+                            and sp["corrupt_dropped"] == 0
+                            and sp["host_in_use"] == 0
+                            and st["kv"]["in_use"] == 0
+                            and k7 == st["waves"] * cfg.n_layers
+                            and in_place and all(in_place)):
+                        emit("serve_spill_exact", runs=records)
+                        raise AssertionError(
+                            f"serve_spill_exact {cache_dtype} {host_swap} "
+                            f"slots {slots}: {rec}, imports in place "
+                            f"{in_place}")
+                del engine
+        # the planted fault: one byte of the first stored block flipped
+        planted = []
+
+        def flipping(store):
+            def wrapped(self, pool, dev_blocks):
+                hids = store(self, pool, dev_blocks)
+                if hids and not planted:
+                    self._bufs["k"][0][hids[0]].view(torch.uint8).view(
+                        -1)[0] ^= 1
+                    planted.append(hids[0])
+                return hids
+            return wrapped
+        faults = {}
+        base = make_serve_engine(params, cfg, **spill)
+        plain = base(prompts, budgets, slots=1)
+        for host_swap in ("async", "sync"):
+            planted.clear()
+            restore = _watch(hostkv, "HostBlockPool", "store", flipping)
+            try:
+                engine = make_serve_engine(params, cfg, host_spill=True,
+                                           host_swap=host_swap, **spill)
+                got = engine(prompts, budgets, slots=1)
+            finally:
+                restore()
+            sp = engine.last_stats["prefix"]["spill"]
+            faults[host_swap] = dict(
+                planted=bool(planted), corrupt_dropped=sp["corrupt_dropped"],
+                equal_no_spill=[torch.equal(a, b)
+                                for a, b in zip(got, plain)],
+                swapins=sp["swapins"])
+            if not (planted and sp["corrupt_dropped"] == 1
+                    and all(faults[host_swap]["equal_no_spill"])):
+                emit("serve_spill_exact", runs=records, faults=faults)
+                raise AssertionError(f"serve_spill_exact: the planted crc "
+                                     f"fault was not classified: {faults}")
+    finally:
+        smod.import_block_rows = orig_import
+    return dict(requests=len(prompts), budgets=budgets,
+                imports_in_place=len(in_place), runs=records,
+                planted_faults=faults, int8_launches=k7i8)
+
+
+def serve_spill_flagship(params, cfg, dev, smi: str) -> tuple[dict, dict]:
+    """The host KV tier at the flagship width (bf16, nothing cut) on
+    ``serve_levers_flagship``'s traffic (16 requests, 4 Zipf templates of
+    256 tokens, suffixes of 16–128, budgets 16–64), 4 slots, a pool at
+    ``LEVER_POOL_SHARE`` of full provisioning, ``prefix_keep_blocks=0`` so
+    every eviction crosses the tier, ``host_blocks=512``. Four engines in
+    turns, ``SPILL_TURNS`` times: the spilling engine (async, then sync
+    swaps), the same engine without the tier (every repeat prefilled
+    again) and one whose index keeps the whole working set (keep 512, a
+    pool that holds it). Each run's launch counts start at 0; held: every
+    budget served, tokens in the vocabulary, both pools drained, no
+    corrupt drop, swap-ins, K7 once a layer a wave. Reported: the tier's
+    counts, ms a block swapped in (host clock, the engine's ``swap_ms``)
+    and spilled (timed around the index's spill adapter), crc ms a block,
+    device ms of prefill an admission (CUDA events around each prefill
+    forward), tokens/s and latency of each engine (median and min–max),
+    and which requests equal the keep-everything engine's, with the blocks
+    each matched in both. Returns the record and the spilling engine's
+    last launch counts."""
+    import threading
+
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        hostkv,
+        make_serve_engine,
+        paging,
+    )
+    from nvidia_terraform_modules_tpu_torch.models import serving as smod
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+    from nvidia_terraform_modules_tpu_torch.utils.timing import sync
+    from nvidia_terraform_modules_tpu_torch.utils.traffic import (
+        ragged_lengths,
+        shared_prefix_prompts,
+    )
+
+    pairs = shared_prefix_prompts(LEVER_REQUESTS, SEED, n_templates=4,
+                                  template_len=256, suffix_lo=16,
+                                  suffix_hi=128, vocab=cfg.vocab,
+                                  block_size=KV_BLOCK)
+    prompts = [torch.tensor(p, device=dev) for _, p in pairs]
+    budgets = ragged_lengths(LEVER_REQUESTS, SEED, lo=16, hi=64)
+    max_len = max(len(p) + n for (_, p), n in zip(pairs, budgets))
+    nt = -(-max_len // KV_BLOCK)
+    full = 1 + SLOTS * nt
+    kv_blocks = max(round(LEVER_POOL_SHARE * full), 1 + nt)
+    kw = dict(max_len=max_len, kv_block=KV_BLOCK, share_prefix=True,
+              device=dev)
+    engines = {
+        "spill_async": (make_serve_engine(
+            params, cfg, prefix_keep_blocks=0, host_spill=True,
+            host_blocks=SPILL_HOST_BLOCKS, host_swap="async", **kw),
+            kv_blocks),
+        "spill_sync": (make_serve_engine(
+            params, cfg, prefix_keep_blocks=0, host_spill=True,
+            host_blocks=SPILL_HOST_BLOCKS, host_swap="sync", **kw),
+            kv_blocks),
+        "no_spill": (make_serve_engine(params, cfg, prefix_keep_blocks=0,
+                                       **kw), kv_blocks),
+        # every request's whole table can stay retained
+        "keep_all": (make_serve_engine(params, cfg,
+                                       prefix_keep_blocks=SPILL_HOST_BLOCKS,
+                                       **kw),
+                     full + LEVER_REQUESTS * nt)}
+    # instruments: the spill adapter's host time and blocks, the crc's
+    # host time and blocks (store stamps and load checks, the worker's
+    # too), each prefill forward's device time, each match's blocks
+    lock = threading.Lock()
+    meter = {"spill_ms": 0.0, "spill_blocks": 0, "crc_ms": 0.0,
+             "crc_blocks": 0}
+    events: list = []
+    matched: dict = {}
+
+    def time_spill(store):
+        def wrapped(self, dev_blocks):
+            t0 = time.monotonic()
+            hids = store(self, dev_blocks)
+            if hids:
+                meter["spill_ms"] += (time.monotonic() - t0) * 1e3
+                meter["spill_blocks"] += len(hids)
+            return hids
+        return wrapped
+
+    def time_crc(crc):
+        def wrapped(self, bufs, i):
+            t0 = time.monotonic()
+            out = crc(self, bufs, i)
+            with lock:
+                meter["crc_ms"] += (time.monotonic() - t0) * 1e3
+                meter["crc_blocks"] += 1
+            return out
+        return wrapped
+
+    def note_match(match_tiered):
+        def wrapped(self, chunks, *, host=True):
+            blocks, tail = match_tiered(self, chunks, host=host)
+            matched[tuple(chunks)] = (len(blocks), len(tail))
+            return blocks, tail
+        return wrapped
+
+    orig_fp = smod.forward_paged
+
+    def timed_forward(p, tokens, *a, **k):
+        if tokens.shape[-1] == 1:
+            return orig_fp(p, tokens, *a, **k)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        out = orig_fp(p, tokens, *a, **k)
+        end.record()
+        events.append((start, end))
+        return out
+
+    restores = [_watch(hostkv, "IndexSpill", "store", time_spill),
+                _watch(hostkv, "HostBlockPool", "_block_crc", time_crc),
+                _watch(paging, "PrefixIndex", "match_tiered", note_match)]
+    smod.forward_paged = timed_forward
+    try:
+        for name, (engine, blocks) in engines.items():
+            engine(prompts[:SLOTS], 4, slots=SLOTS, kv_blocks=blocks)
+        sync()
+        runs = {name: [] for name in engines}
+        last = {}
+        for _turn in range(SPILL_TURNS):
+            for name, (engine, blocks) in engines.items():
+                for key in meter:
+                    meter[key] = 0 if isinstance(meter[key], int) else 0.0
+                events.clear()
+                matched.clear()
+                _build.reset_launches()
+                t0 = time.monotonic()
+                outs = engine(prompts, budgets, slots=SLOTS,
+                              kv_blocks=blocks)
+                sync()
+                wall_s = time.monotonic() - t0
+                launches = dict(_build.launches)
+                st = engine.last_stats
+                prefill_ms = sum(a.elapsed_time(b) for a, b in events)
+                sp = st["prefix"]["spill"]
+                for o, n in zip(outs, budgets):
+                    if o.shape != (n,) or int(o.min()) < 0 \
+                            or int(o.max()) >= cfg.vocab:
+                        raise AssertionError(f"serve_spill_flagship {name}: "
+                                             f"bad output {o.shape}")
+                if st["kv"]["in_use"] != 0 or sp["host_in_use"] != 0 \
+                        or sp["corrupt_dropped"] != 0 \
+                        or launches["paged_decode"] != \
+                        st["waves"] * cfg.n_layers \
+                        or launches["flash_fwd"] <= 0 \
+                        or (sp["enabled"] and sp["swapins"] < 1):
+                    raise AssertionError(
+                        f"serve_spill_flagship {name}: kv {st['kv']}, "
+                        f"spill {sp}, launches {launches}")
+                runs[name].append(dict(
+                    wall_s=wall_s, tokens_per_s=st["generated"] / wall_s,
+                    latency_ms=st["latency_ms"], waves=st["waves"],
+                    prefill_ms_per_admission=prefill_ms / len(events),
+                    prefill_forwards=len(events),
+                    tokens_saved=st["prefix"]["tokens_saved"],
+                    hit_blocks=st["prefix"]["hit_blocks"],
+                    launches=launches, spill=sp, **{
+                        k: meter[k] for k in meter}))
+                last[name] = (outs, dict(matched))
+    finally:
+        for restore in restores:
+            restore()
+        smod.forward_paged = orig_fp
+        del engines
+
+    def chunks_of(p):
+        toks = [int(t) for t in p]
+        chunks = paging.chain_chunks(toks, KV_BLOCK)
+        while chunks and len(chunks) * KV_BLOCK > len(toks) - 1:
+            chunks.pop()
+        return tuple(chunks)
+
+    keep_outs, keep_match = last["keep_all"]
+    per_request = {}
+    for name in ("spill_async", "spill_sync", "no_spill"):
+        outs, m = last[name]
+        rows = []
+        for i, (p, a, b) in enumerate(zip(prompts, outs, keep_outs)):
+            c = chunks_of(p)
+            rows.append(dict(request=i, equal=bool(torch.equal(a, b)),
+                             matched=sum(m.get(c, (0, 0))),
+                             matched_keep_all=keep_match.get(c, (0, 0))[0]))
+        per_request[name] = rows
+
+    def summary(name):
+        recs = runs[name]
+
+        def med(key, sub=None):
+            vals = sorted(r[key] if sub is None else r[key][sub]
+                          for r in recs)
+            return {"median": vals[len(vals) // 2], "min": vals[0],
+                    "max": vals[-1]}
+        out = dict(tokens_per_s=med("tokens_per_s"),
+                   p50_ms=med("latency_ms", "p50"),
+                   p99_ms=med("latency_ms", "p99"),
+                   prefill_ms_per_admission=med("prefill_ms_per_admission"),
+                   tokens_saved=recs[-1]["tokens_saved"],
+                   hit_blocks=recs[-1]["hit_blocks"],
+                   prefill_forwards=recs[-1]["prefill_forwards"],
+                   waves=recs[-1]["waves"], launches=recs[-1]["launches"])
+        if name != "keep_all":
+            rows = per_request[name]
+            out["tokens_equal_keep_all_frac"] = sum(
+                int((a == b).sum()) for a, b in zip(
+                    last[name][0], keep_outs)) / sum(budgets)
+            out["requests_equal_keep_all"] = sum(r["equal"] for r in rows)
+            out["same_match_not_equal"] = [
+                r["request"] for r in rows
+                if r["matched"] == r["matched_keep_all"] and not r["equal"]]
+        if name.startswith("spill"):
+            sp = recs[-1]["spill"]
+            out.update(
+                {k: sp[k] for k in ("spilled_blocks", "spill_dropped",
+                                    "swapins", "swapped_blocks",
+                                    "host_hit_blocks", "host_hit_frac",
+                                    "swap_tokens_saved",
+                                    "host_high_water")},
+                swap_ms_per_block=med("spill", "swap_ms"),
+                spill_ms_per_block=sorted(
+                    r["spill_ms"] / max(r["spill_blocks"], 1)
+                    for r in recs)[len(recs) // 2],
+                crc_ms_per_block=sorted(
+                    r["crc_ms"] / max(r["crc_blocks"], 1)
+                    for r in recs)[len(recs) // 2])
+            out["swap_ms_per_block"] = {
+                k: v / max(sp["swapped_blocks"], 1)
+                for k, v in out["swap_ms_per_block"].items()}
+        return out
+
+    rec = dict(nvidia_smi=smi, requests=LEVER_REQUESTS, budgets=budgets,
+               prompt_lens=[len(p) for _, p in pairs],
+               templates=[t for t, _ in pairs], max_len=max_len,
+               kv_blocks=kv_blocks, kv_blocks_full=full,
+               host_blocks=SPILL_HOST_BLOCKS,
+               host_block_bytes=2 * cfg.n_layers * KV_BLOCK * cfg.kv_heads
+               * cfg.head_dim * 2, turns=SPILL_TURNS,
+               engines={name: summary(name) for name in runs},
+               per_request=per_request)
+    return rec, runs["spill_async"][-1]["launches"]
 
 
 def kernel_sample_draw(dev, card: str) -> dict:
@@ -3170,7 +3579,7 @@ def train_ring_profile(params, dev) -> dict:
 
 # the validation Job's legs that the card must pass (the CLI's JSON line)
 SMOKETEST_LEGS = ("psum_ok", "burnin_ok", "decode_ok", "serve_engine_ok",
-                  "serve_sched_ok", "paged_decode_ok")
+                  "serve_sched_ok", "paged_decode_ok", "kv_spill_ok")
 # SGD steps from one set of weights for the sharded/unsharded comparison
 SHARDED_STEPS = 3
 # the flagship train state through the checkpoint engine: AdamW steps of
@@ -3233,6 +3642,8 @@ def smoketest_cli() -> dict:
                 legs={k: checks[k] for k in SMOKETEST_LEGS},
                 leg_seconds=checks["leg_seconds"],
                 leg_launches=checks["leg_launches"],
+                kv_spill={k: checks[k] for k in ("kv_spill_swapins",
+                                                 "kv_spill_spilled_blocks")},
                 not_ported=sorted(checks["not_ported"]),
                 burnin_loss=[checks["burnin_first_loss"],
                              checks["burnin_last_loss"]])
@@ -5093,6 +5504,8 @@ def main() -> int:
     serve_int8_exact(dev)
     serve_graph_exact(dev)
     serve_levers_exact(dev)
+    spill_exact = serve_spill_exact(dev)
+    emit("serve_spill_exact", **spill_exact)
     serve_sampled_exact(dev)
     serve_spec_exact(dev)
     decode_graph_exact(dev)
@@ -5224,6 +5637,11 @@ def main() -> int:
 
     # --------------------------------------------- serve_levers_flagship
     emit("serve_levers_flagship", **serve_levers_flagship(params, cfg, dev))
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------- serve_spill_flagship
+    spill_rec, spill_launches = serve_spill_flagship(params, cfg, dev, smi)
+    emit("serve_spill_flagship", **spill_rec)
     torch.cuda.empty_cache()
 
     # ------------------------------------- sampled and speculative serving
@@ -5463,6 +5881,8 @@ def main() -> int:
                       "exact_launches": pipe_exact_launches["flash_fwd"]},
          "ulysses_world_one": {"launches":
                                rw1_launches["ulysses"]["flash_fwd"]},
+         # the flagship spilling engine's last timed run (host_spill)
+         "spill": {"launches": spill_launches["flash_fwd"]},
          # the serve prompts' mean rate, and K1 at the train step's shape
          "tflops": k1_mean("tflops"), "bound_share": k1_mean("bound_share"),
          "tiling": FWD_TILING,
@@ -5488,7 +5908,9 @@ def main() -> int:
          # engine under rules=
          "serve_rules": {"launches": sr_launches["paged_decode"]},
          "serve_rules_levers": {
-             "moe_launches": srl_launches["moe"]["paged_decode"]}},
+             "moe_launches": srl_launches["moe"]["paged_decode"]},
+         # the flagship spilling engine's last timed run
+         "spill": {"launches": spill_launches["paged_decode"]}},
         {"name": "paged_decode_int8", "route": "cuda",
          "source": "nvidia_terraform_modules_tpu_torch/csrc/paged_decode.cu",
          "replaces":
@@ -5499,7 +5921,9 @@ def main() -> int:
              "library_ms")},
          "moe": {"launches": moe_launches["int8"]["paged_decode_int8"]},
          "serve_rules_levers": {"int8_weights_launches": srl_launches[
-             "int8_weights"]["paged_decode_int8"]}},
+             "int8_weights"]["paged_decode_int8"]},
+         # the int8-cache spilling runs of serve_spill_exact
+         "spill_exact": {"launches": spill_exact["int8_launches"]}},
         {"name": "kv_decode", "route": "cuda",
          "source": "nvidia_terraform_modules_tpu_torch/csrc/kv_decode.cu",
          "replaces":

@@ -2,9 +2,11 @@
 # SPDX-License-Identifier: Apache-2.0
 """Block/paged KV-cache allocation — the port of the reference's
 ``models/paging.py`` (``blocks_for_rows``, :class:`BlockAllocator`,
-``paged_pool_spec``, ``init_paged_cache`` for the bf16 and the int8 pool,
-and the device tier of cross-request prefix sharing: ``chain_chunks``,
-``chunk_tokens_covered``, ``chain_key`` and :class:`PrefixIndex`).
+``paged_pool_spec``, ``init_paged_cache`` for the bf16 and the int8 pool;
+cross-request prefix sharing: ``chain_chunks``, ``chunk_tokens_covered``,
+``chain_key`` and :class:`PrefixIndex` with its host-RAM tier; and the
+block transfer: ``pool_transfer_keys``, ``export_block_rows``,
+``transfer_crc`` and ``import_block_rows``).
 
 The physical cache is one ``[num_blocks, block_size, kv_heads, D]`` buffer
 per layer shared by every request; each request owns a block table (the
@@ -19,6 +21,7 @@ can never scribble over a block recycled to another request.
 from __future__ import annotations
 
 import hashlib
+import zlib
 from collections import OrderedDict
 from typing import Any, Sequence
 
@@ -180,24 +183,40 @@ class PrefixIndex:
     blocks (refcount 1, the index's own) evicts it. A match touches its
     entries leaf-first, so eviction takes chain suffixes before the
     prefixes that reach them; evicting an entry drops its descendants too.
-    This is the reference's device tier; its host-RAM spill tier is not
-    ported."""
 
-    def __init__(self, alloc: BlockAllocator, capacity: int):
+    TIERED (the host-RAM spill, ``models/hostkv.py``): with a ``spill``
+    adapter (``store(dev_blocks) → host_ids | None`` and ``free``), an
+    eviction COPIES the entry's device-tier subtree host-side instead of
+    dropping it — the entries stay indexed at ``tier="host"`` with their
+    device references released — or, when the host pool cannot hold the
+    whole subtree, drops it plainly (billed in :attr:`spill_dropped`). An
+    unreferenced interior entry implies an unreferenced subtree (a reader
+    references every ancestor), so a host entry never has a device-tier
+    descendant and every matched chain is a device prefix followed by a
+    host tail (:meth:`match_tiered`); the engine grants fresh device
+    blocks, imports the rows and :meth:`promote`\\ s the entries back."""
+
+    def __init__(self, alloc: BlockAllocator, capacity: int, *,
+                 spill=None):
         if capacity < 0:
             raise ValueError(f"capacity must be >= 0, got {capacity}")
         self.alloc = alloc
         self.capacity = capacity
-        # key → (block, token chunk, parent key) in LRU order
-        self._entries: OrderedDict[bytes, tuple[int, tuple,
-                                                bytes | None]] = \
-            OrderedDict()
+        self.spill = spill
+        # key → (block, token chunk, parent key, tier) in LRU order; tier
+        # "dev": a device block carrying one allocator reference; "host": a
+        # host-pool id (the bytes live in the spill adapter's pool)
+        self._entries: OrderedDict[bytes, tuple[int, tuple, bytes | None,
+                                                str]] = OrderedDict()
         self._children: dict[bytes, set[bytes]] = {}
         self.hit_blocks = 0
         self.lookups = 0
-        # why the last reclaim() freed nothing (None after a fruitful
-        # one): "live" = indexed blocks exist but tables reference every
-        # one; "empty" = nothing indexed
+        self.spilled_blocks = 0        # entries spilled, cumulative
+        self.spill_dropped = 0         # evictions a full host pool dropped
+        self.host_hit_blocks = 0       # host-tier entries matched
+        # why the last reclaim() freed nothing (None after a fruitful one):
+        # "live" = device-tier entries exist but tables reference every one;
+        # "empty" = nothing device-resident is retained
         self.reclaim_blocked: str | None = None
 
     def __len__(self) -> int:
@@ -205,10 +224,17 @@ class PrefixIndex:
 
     @property
     def retained_unreferenced(self) -> list[bytes]:
-        """Indexed blocks no table references (refcount 1 = ours only), in
-        LRU order — the eviction candidates the cap bounds."""
-        return [k for k, (b, _t, _p) in self._entries.items()
-                if self.alloc.refcount(b) == 1]
+        """DEVICE-tier indexed blocks no table references (refcount 1 =
+        ours only), in LRU order — the eviction candidates the cap
+        bounds."""
+        return [k for k, (b, _t, _p, tier) in self._entries.items()
+                if tier == "dev" and self.alloc.refcount(b) == 1]
+
+    @property
+    def host_tier(self) -> list[bytes]:
+        """Spilled entries (host-resident chains), in LRU order."""
+        return [k for k, (_b, _t, _p, tier) in self._entries.items()
+                if tier == "host"]
 
     @staticmethod
     def _key(parent: bytes | None, chunk: tuple) -> bytes:
@@ -217,52 +243,116 @@ class PrefixIndex:
         return h.digest()
 
     def match(self, chunks: Sequence[tuple]) -> list[int]:
-        """Longest indexed chain prefix of ``chunks`` → its physical blocks,
-        with one reference ADDED to each (the caller maps them into a table
-        and frees them at retirement like any owned block). Matched entries
-        become most recent, the leaf last."""
-        self.lookups += 1
-        keys, blocks = [], []
+        """Longest DEVICE-resident indexed chain prefix of ``chunks`` → its
+        physical blocks, with one reference ADDED to each (the caller maps
+        them into a table and frees them at retirement like any owned
+        block). Matched entries become most recent, the leaf last. A
+        host-tier entry ends the walk (:meth:`match_tiered` goes on)."""
+        return self.match_tiered(chunks, host=False)[0]
+
+    def _walk(self, chunks: Sequence[tuple]
+              ) -> tuple[list[tuple[bytes, int]], list[tuple[bytes, int]]]:
+        """The tier-aware chain walk, shared by the admission match and the
+        prefetch probe: ``(dev, tail)`` as ``(key, id)`` pairs, the
+        device-resident prefix and then the spilled continuation. No
+        references, no LRU touch, no statistics."""
+        dev: list[tuple[bytes, int]] = []
+        tail: list[tuple[bytes, int]] = []
         parent: bytes | None = None
         for chunk in chunks:
             key = self._key(parent, chunk)
             ent = self._entries.get(key)
             if ent is None or ent[1] != chunk:
                 break
-            keys.append(key)
-            blocks.append(ent[0])
+            if ent[3] == "host":
+                tail.append((key, ent[0]))
+            elif tail:
+                break          # never a device entry below a host one
+            else:
+                dev.append((key, ent[0]))
             parent = key
-        for key in reversed(keys):              # leaf ends most recent
-            self._entries.move_to_end(key)
+        return dev, tail
+
+    def match_tiered(self, chunks: Sequence[tuple], *, host: bool = True
+                     ) -> tuple[list[int], list[tuple[bytes, int]]]:
+        """``(dev_blocks, host_tail)``: the device-resident chain prefix
+        (one reference added to each, as :meth:`match`) and the spilled
+        continuation as ``(key, host_id)`` pairs, deepest last. Host
+        entries take no reference: the caller that swaps them in grants
+        device blocks, imports the rows and calls :meth:`promote`; one that
+        cannot just walks away."""
+        self.lookups += 1
+        dev, tail = self._walk(chunks)
+        if not host:
+            tail = []
+        blocks = [b for _k, b in dev]
+        for key in reversed([k for k, _b in dev] + [k for k, _h in tail]):
+            self._entries.move_to_end(key)      # the leaf ends most recent
         if blocks:
             self.alloc.share(blocks)
             self.hit_blocks += len(blocks)
-        return blocks
+        self.host_hit_blocks += len(tail)
+        return blocks, tail
+
+    def peek_host_tail(self, chunks: Sequence[tuple]
+                       ) -> list[tuple[bytes, int]]:
+        """The spilled continuation :meth:`match_tiered` of ``chunks``
+        would return — read-only (no reference, no LRU touch, no
+        statistics): the swap-in prefetch's probe, which must never move
+        the eviction order."""
+        return self._walk(chunks)[1]
+
+    def promote(self, keys: Sequence[bytes], blocks: Sequence[int]) -> None:
+        """Re-register swapped-in entries as device-resident: ``blocks[i]``
+        (a freshly granted block whose rows the caller imported) replaces
+        ``keys[i]``'s host id; the index takes one reference to it and
+        frees the host copy. Keys must be host-tier, in chain order."""
+        if len(keys) != len(blocks):
+            raise ValueError(f"{len(keys)} keys for {len(blocks)} blocks")
+        for key, block in zip(keys, blocks):
+            ent = self._entries.get(key)
+            if ent is None or ent[3] != "host":
+                raise ValueError(
+                    "promote() takes host-tier entries — the chain moved "
+                    "under the caller (evicted or already promoted); "
+                    "re-match before swapping in")
+            self.alloc.share([block])
+            if self.spill is not None:
+                self.spill.free([ent[0]])
+            self._entries[key] = (block, ent[1], ent[2], "dev")
 
     def register(self, chunks: Sequence[tuple],
                  blocks: Sequence[int]) -> None:
         """Index ``blocks[i]`` as holding ``chunks[i]`` (a prefilled
-        request's full own blocks, in chain order). Chain nodes already
-        indexed are skipped (the donor matched them); each new entry takes
-        one reference."""
+        request's full own blocks, in chain order). Device-tier nodes
+        already indexed are skipped (the donor matched them); each new
+        entry takes one reference. A host-tier node the donor prefilled
+        again is promoted in place: the donor's block replaces the host
+        copy (the same content)."""
         if len(chunks) != len(blocks):
             raise ValueError(
                 f"{len(chunks)} chunks for {len(blocks)} blocks")
         parent: bytes | None = None
         for chunk, block in zip(chunks, blocks):
             key = self._key(parent, chunk)
-            if key not in self._entries:
+            ent = self._entries.get(key)
+            if ent is None:
                 self.alloc.share([block])
-                self._entries[key] = (block, chunk, parent)
+                self._entries[key] = (block, chunk, parent, "dev")
                 if parent is not None:
                     self._children.setdefault(parent, set()).add(key)
+            elif ent[3] == "host":
+                self.alloc.share([block])
+                if self.spill is not None:
+                    self.spill.free([ent[0]])
+                self._entries[key] = (block, chunk, parent, "dev")
             self._entries.move_to_end(key)
             parent = key
 
     def _drop(self, key: bytes) -> int:
         """Drop ``key`` and every descendant (unreachable once the parent
-        is gone), freeing the index's reference on each. Returns the
-        number of entries dropped."""
+        is gone), releasing the index's device reference or host copy on
+        each. Returns the number of entries dropped."""
         n = 0
         stack = [key]
         while stack:
@@ -270,29 +360,73 @@ class PrefixIndex:
             ent = self._entries.pop(k, None)
             if ent is None:
                 continue
-            block, _chunk, parent = ent
-            self.alloc.free([block])
+            block, _chunk, parent, tier = ent
+            if tier == "dev":
+                self.alloc.free([block])
+            elif self.spill is not None:
+                self.spill.free([block])
             if parent is not None and parent in self._children:
                 self._children[parent].discard(k)
             stack.extend(self._children.pop(k, ()))
             n += 1
         return n
 
+    def discard(self, key: bytes) -> int:
+        """Drop ``key`` and its whole subtree, NO spill — the quarantine of
+        a spilled chain whose rows failed their crc (the request prefills
+        from tokens; the suspect bytes are never spilled again)."""
+        return self._drop(key)
+
+    def _evict(self, key: bytes) -> int:
+        """Evict ``key``: spill its device-tier subtree host-side when a
+        spill adapter is wired (all or nothing — a half-spilled chain would
+        strand its tail), else, or when the host pool cannot hold it, drop
+        it. Returns the device-tier entries released either way (what
+        ``reclaim``'s callers budget against)."""
+        if self.spill is None:
+            return self._drop(key)
+        sub: list[bytes] = []          # the device-tier subtree, parents first
+        stack = [key]
+        while stack:
+            k = stack.pop()
+            ent = self._entries.get(k)
+            if ent is None:
+                continue
+            if ent[3] == "dev":
+                sub.append(k)
+            stack.extend(self._children.get(k, ()))
+        if not sub:
+            return 0
+        hids = self.spill.store([self._entries[k][0] for k in sub])
+        if hids is None:
+            # the host pool is full: drop plainly, billed; host-tier
+            # descendants free no device block, so count the device ones
+            self.spill_dropped += len(sub)
+            self._drop(key)
+            return len(sub)
+        for k, hid in zip(sub, hids):
+            block, chunk, parent, _tier = self._entries[k]
+            self.alloc.free([block])
+            self._entries[k] = (hid, chunk, parent, "host")
+        self.spilled_blocks += len(sub)
+        return len(sub)
+
     def trim(self) -> int:
         """Enforce the LRU cap: evict least-recently-used retained-but-
         unreferenced entries (NEVER a block a live table references) until
-        at most ``capacity`` remain. Returns the entries evicted."""
+        at most ``capacity`` remain — spilled when the tier is wired.
+        Returns the entries evicted."""
         n = 0
         while True:
             cands = self.retained_unreferenced
             if len(cands) <= self.capacity:
                 return n
-            n += self._drop(cands[0])
+            n += self._evict(cands[0])
 
     def reclaim(self, n: int) -> int:
         """Evict up to ``n`` retained-but-unreferenced entries now
         (allocation pressure: a block a new admission needs beats a
-        retained prefix, whatever the cap says). Returns the blocks
+        retained prefix, whatever the cap says). Returns the device blocks
         released; 0 means the caller should queue, and
         :attr:`reclaim_blocked` says why."""
         freed = 0
@@ -300,20 +434,127 @@ class PrefixIndex:
             cands = self.retained_unreferenced
             if not cands:
                 break
-            freed += self._drop(cands[0])
+            freed += self._evict(cands[0])
         if freed == 0:
-            self.reclaim_blocked = "live" if self._entries else "empty"
+            self.reclaim_blocked = (
+                "live" if any(tier == "dev" for _b, _t, _p, tier
+                              in self._entries.values()) else "empty")
         else:
             self.reclaim_blocked = None
         return freed
 
     def release(self) -> int:
-        """Drop every entry (end of a run). Returns the entries dropped."""
+        """Drop every entry, device references and host copies (end of a
+        run). Returns the entries dropped."""
         n = 0
         while self._entries:
             n += self._drop(next(iter(self._entries)))
         self._children.clear()
         return n
+
+
+_POOL_KEYS = ("k", "v", "k_scale", "v_scale")
+
+
+def pool_transfer_keys(pool: dict) -> list[str]:
+    """The pool entries a block transfer moves: the per-layer physical
+    buffers (``k``/``v``, and the int8 scale sidecars when present) —
+    never ``block_tables``/``pos``, the receiver's own bookkeeping."""
+    return [k for k in _POOL_KEYS if k in pool]
+
+
+def _ids_on(ids: list[int], dev: torch.device) -> torch.Tensor:
+    """Block ids as an index on ``dev``; on the card from pinned memory
+    without blocking (a pageable copy would wait for every queued wave)."""
+    t = torch.tensor(ids, dtype=torch.long)
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t
+
+
+def export_block_rows(pool: dict, block_ids: Sequence[int]) -> dict:
+    """Copy the physical content of ``block_ids`` out of ``pool``: ``{key:
+    [per-layer [n, block_size, ...] tensors]}`` in block-id order, on the
+    pool's device, for every transferable key — the transfer unit a
+    different pool imports with :func:`import_block_rows` (rows past a
+    request's position in its last block ride along as unreachable
+    garbage on both sides). On the card the gathers are queued on the
+    current stream, after every wave queued before them."""
+    ids_h = [int(b) for b in block_ids]
+    if len(ids_h) < 1:
+        raise ValueError("export_block_rows needs >= 1 block id")
+    ids = _ids_on(ids_h, pool["k"][0].device)
+    return {k: [buf.index_select(0, ids) for buf in pool[k]]
+            for k in pool_transfer_keys(pool)}
+
+
+def _crc_bytes(buf: torch.Tensor) -> memoryview:
+    """The bytes of ``buf`` in C order, as ``np.asarray(buf).tobytes()``
+    gives them (bf16 has no numpy dtype: it goes through a byte view)."""
+    t = buf.detach()
+    if t.device.type != "cpu":
+        t = t.cpu()
+    t = t.contiguous().reshape(-1).view(torch.uint8)
+    return memoryview(t.numpy())
+
+
+def transfer_crc(payload: dict) -> int:
+    """crc32 over an :func:`export_block_rows` payload's wire content —
+    buffers in key-sorted, layer order — the reference's integrity
+    primitive: the same rows give the same crc in both packages, on the
+    card or on the host. A mismatch at the receiving side is a classified
+    transfer failure, never a silent import of garbage rows."""
+    crc = 0
+    for k in sorted(payload):
+        for buf in payload[k]:
+            crc = zlib.crc32(_crc_bytes(buf), crc)
+    return crc
+
+
+def import_block_rows(pool: dict, block_ids: Sequence[int],
+                      payload: dict) -> dict:
+    """Write :func:`export_block_rows` ``payload`` into ``pool`` at
+    ``block_ids`` (the receiver's own allocated blocks) IN PLACE
+    (``index_copy_`` into the pool's own tensors) and return the same
+    dict. The reference returns a new dict of donated buffers; here the
+    captured wave graphs read the pool's tensors by address, so the
+    buffers must stay the same tensors. A host payload is copied to the
+    pool's device first (from pinned memory without blocking); the
+    copies and writes are queued on the current stream. Importing into a
+    reserved block is refused: the garbage block is every fenced write's
+    target."""
+    ids_h = [int(b) for b in block_ids]
+    if any(b < 1 for b in ids_h):
+        raise ValueError(
+            f"cannot import into reserved block(s) "
+            f"{sorted(set(b for b in ids_h if b < 1))} "
+            f"— block 0 is the garbage block every fenced write targets")
+    keys = pool_transfer_keys(pool)
+    if sorted(payload) != sorted(keys):
+        raise ValueError(
+            f"payload keys {sorted(payload)} do not match the pool's "
+            f"transferable keys {sorted(keys)} (cache_dtype mismatch "
+            f"between the exporting and importing pools?)")
+    n = len(ids_h)
+    for k in keys:
+        for buf in payload[k]:
+            if int(buf.shape[0]) != n:
+                raise ValueError(
+                    f"payload[{k!r}] carries {int(buf.shape[0])} blocks "
+                    f"for {n} block ids")
+    dev = pool["k"][0].device
+    ids = _ids_on(ids_h, dev)
+    cur = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+    for k in keys:
+        for buf, src in zip(pool[k], payload[k]):
+            if src.device != dev:
+                src = src.to(dev, non_blocking=True)
+            elif cur is not None:
+                # a staged payload came from another stream's allocation:
+                # keep its memory until this stream has read it
+                src.record_stream(cur)
+            buf.index_copy_(0, ids, src)
+    return pool
 
 
 def paged_pool_spec(cfg: BurnInConfig, max_len: int, block_size: int,

@@ -67,7 +67,16 @@ exactly):
 - ``lazy_growth``: admission grants the prompt's blocks plus one decode
   block; a slot's table grows as it crosses block boundaries, stalls when
   the pool is dry, and the youngest request is preempted (its tokens
-  regenerate identically) when every live request stalls.
+  regenerate identically) when every live request stalls;
+- ``host_spill`` (with ``share_prefix``): the prefix index's host-RAM tier
+  (``models/hostkv.py``). An evicted chain is copied into a host block pool
+  (crc-stamped) instead of dropped; a later hit on it grants fresh device
+  blocks, re-checks the rows' crc and imports them in place, then prefills
+  only the rest of the prompt. A crc failure drops the chain and the
+  request prefills from tokens (billed in ``corrupt_dropped``). Under
+  ``host_swap="async"`` the next queued request's spilled rows are staged
+  (verified and copied to the card on a worker thread) while the wave
+  runs.
 
 Sharded serving (``run(rules=)``, the rules of a ``torch.distributed``
 world, one process a device): every rank runs the same host scheduler;
@@ -141,13 +150,16 @@ from .decode import (
     forward_paged,
     make_sampler,
     paged_params,
+    pool_kv_heads,
 )
+from .hostkv import HostBlockPool, HostSpillCorruptError, IndexSpill
 from .paging import (
     BlockAllocator,
     PrefixIndex,
     blocks_for_rows,
     chain_chunks,
     chunk_tokens_covered,
+    import_block_rows,
     init_paged_cache,
     paged_pool_spec,
 )
@@ -165,9 +177,6 @@ _DEFAULT_AGING = 512                   # waves; bounds starvation by default
 # TypeError.
 _FLEET = "Queue A item 9 (fleet stack)"
 _ENGINE_LATER = {
-    "host_spill": (False, f"{_FLEET}: host KV tier"),
-    "host_blocks": (None, f"{_FLEET}: host KV tier"),
-    "host_swap": ("async", f"{_FLEET}: host KV tier"),
     "shared_store": (None, f"{_FLEET}: prefix CDN"),
     "aot_cache": (None, f"{_FLEET}: warm compile cache"),
 }
@@ -602,11 +611,13 @@ class _ServeTelemetry:
     readback — an eos check, the speculative trip's report — dispatch
     time otherwise), as the reference documents it."""
 
-    def __init__(self, reg, share_prefix: bool, lazy_growth: bool):
+    def __init__(self, reg, share_prefix: bool, lazy_growth: bool,
+                 host_spill: bool):
         self.reg = reg
         self.enabled = reg.enabled
         self.share_prefix = share_prefix
         self.lazy_growth = lazy_growth
+        self.host_spill = host_spill
         self.meta: dict[int, dict] = {}
         self.join_clk0 = None
         if self.enabled:
@@ -618,6 +629,11 @@ class _ServeTelemetry:
             self.g_hit = reg.gauge("prefix_hit_blocks")
             self.g_hitf = reg.gauge("prefix_hit_frac")
             self.g_lazy = reg.gauge("blocks_grown_lazy")
+            # the host tier's: blocks spilled, swap-in time, and the share
+            # of prompt blocks the host tier served
+            self.g_spill = reg.gauge("prefix_spilled_blocks")
+            self.g_swapms = reg.gauge("prefix_swapin_ms")
+            self.g_hosthitf = reg.gauge("prefix_host_hit_frac")
             self.g_paged = reg.gauge("paged_decode_ms")
 
     def start(self) -> None:
@@ -643,6 +659,11 @@ class _ServeTelemetry:
             self.g_hit.set(ps["hit_blocks"])
             self.g_hitf.set(round(ps["hit_blocks"]
                                   / max(ps["prompt_blocks"], 1), 4))
+            if self.host_spill:
+                self.g_spill.set(rstate.index.spilled_blocks)
+                self.g_swapms.set(round(ps["swap_ms"], 3))
+                self.g_hosthitf.set(round(ps["host_hit_blocks"]
+                                          / max(ps["prompt_blocks"], 1), 4))
         if self.lazy_growth:
             self.g_lazy.set(rstate.grown_lazy)
 
@@ -713,7 +734,9 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                       policy: str = "fifo", aging: int | None = None,
                       share_prefix: bool = False, lazy_growth: bool = False,
                       prefix_keep_blocks: int = 64,
-                      paged_kernel: str = "auto", telemetry=None,
+                      paged_kernel: str = "auto", host_spill: bool = False,
+                      host_blocks: int | None = None,
+                      host_swap: str = "async", telemetry=None,
                       device="cuda", **levers):
     """Reusable engine: ``run(prompts, n_new, *, slots, eos_id,
     eos_check_every, arrivals, kv_blocks, static_batching, priorities) →
@@ -740,6 +763,17 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
     ``prefix_keep_blocks``: cross-request prefix-block sharing and the LRU
     cap on retained blocks. ``lazy_growth``: per-wave block grants (needs
     ``eos_check_every == 1``). See the module docstring.
+
+    ``host_spill`` (needs ``share_prefix``) turns on the tiered KV cache:
+    the index's evictions spill into a host block pool of ``host_blocks``
+    blocks (default ``max(4·prefix_keep_blocks, 64)``; built once here,
+    pinned on the card, holding the run's KV heads) and a later hit swaps
+    the rows back in, crc-verified. ``host_swap="async"`` (default) stages
+    the next queued request's spilled rows while the wave runs;
+    ``"sync"`` loads them at its admission. The tier is a cache: tokens
+    equal the engine's without it. ``last_stats["prefix"]["spill"]``
+    carries the spill, host-hit and swap-in counts and ``swap_ms`` (host
+    clock).
 
     ``sampler`` (:func:`..decode.make_sampler`'s, or the dict of its
     keyword arguments) makes the engine sampled; ``run`` then needs
@@ -785,7 +819,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
     _refuse_levers(levers, _ENGINE_LATER, "make_serve_engine")
     tel = _ServeTelemetry(
         telemetry if telemetry is not None else get_registry(),
-        share_prefix, lazy_growth)
+        share_prefix, lazy_growth, host_spill)
     if isinstance(sampler, dict):
         sampler = make_sampler(**sampler)
     if sampler is not None and not isinstance(sampler, Sampler):
@@ -816,6 +850,19 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
     if prefix_keep_blocks < 0:
         raise ValueError(
             f"prefix_keep_blocks must be >= 0, got {prefix_keep_blocks}")
+    if host_swap not in ("async", "sync"):
+        raise ValueError(
+            f"unknown host_swap {host_swap!r}: use async|sync")
+    if host_blocks is not None and host_blocks < 1:
+        raise ValueError(f"host_blocks must be >= 1, got {host_blocks}")
+    if host_spill and not share_prefix:
+        raise ValueError(
+            "host_spill is the prefix index's second tier — enable "
+            "share_prefix=True alongside it (there is nothing to spill "
+            "without an index)")
+    if host_blocks is None:
+        # the tier exists because the working set dwarfs the device cap
+        host_blocks = max(4 * prefix_keep_blocks, 64)
     quant = check_cache_dtype(cache_dtype)
     geom = paged_pool_spec(cfg, max_len, kv_block, cache_dtype)
     bs, nt = kv_block, geom["tables"]
@@ -853,6 +900,22 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
     # one pool and its wave (on the card captured) per (slots, kv_blocks,
     # rules)
     pools: dict[tuple, tuple[dict, Any]] = {}
+    # the host tier's pool, one per KV-head count a run's rules give: built
+    # here for the unsharded run (an oversized host_blocks fails now, not
+    # mid-serving), reset at each run
+    host_pools: dict[int, HostBlockPool] = {}
+    if host_spill:
+        host_pools[pool_kv_heads(cfg)] = HostBlockPool(
+            cfg, host_blocks, block_size=bs, cache_dtype=cache_dtype,
+            device=dev)
+
+    def host_pool_for(rules, device) -> HostBlockPool:
+        heads = pool_kv_heads(cfg, rules)
+        if heads not in host_pools:
+            host_pools[heads] = HostBlockPool(
+                cfg, host_blocks, block_size=bs, cache_dtype=cache_dtype,
+                rules=rules, device=device)
+        return host_pools[heads]
     # the run's sharding: its rules, the trees its admissions and its wave
     # run from (this rank's shards under rules), its wave step and trip
     unsharded = {"rules": None, "prefill": prefill_params,
@@ -1022,9 +1085,22 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                     + " + the reserved garbage block) — the queue would "
                     "deadlock; raise kv_blocks")
             self.alloc = BlockAllocator(kv_blocks)
-            self.index = (PrefixIndex(self.alloc, prefix_keep_blocks)
-                          if share_prefix else None)
             self.pool, self.graph = pool_for(slots, kv_blocks)
+            # the tiered index: evictions spill into the host pool
+            self.host = spill = None
+            if host_spill:
+                self.host = host_pool_for(cur["rules"],
+                                          self.pool["k"][0].device)
+                self.host.reset()
+                spill = IndexSpill(self.host, lambda: self.pool)
+            self.index = (PrefixIndex(self.alloc, prefix_keep_blocks,
+                                      spill=spill)
+                          if share_prefix else None)
+            # the async swap-in's staging: at most one prefetched chain,
+            # keyed by its exact (key, host id) tail, so a chain that moved
+            # under the prefetch falls back to the synchronous load
+            self._staged_sig: tuple | None = None
+            self._staged_fut = None
             self.owned: dict[int, list[int]] = {}     # req → blocks
             self.prefix_blocks: list[int] = []
             self.tail_src = 0
@@ -1039,7 +1115,15 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
             self.prefix_stats = {"hit_blocks": 0, "lookups": 0,
                                  "prompt_blocks": 0, "tokens_saved": 0,
                                  "reclaim_blocked_live": 0,
-                                 "reclaim_blocked_empty": 0}
+                                 "reclaim_blocked_empty": 0,
+                                 # the host tier: blocks served from it,
+                                 # the swap-ins, their blocks and host
+                                 # time, the prefill tokens they saved,
+                                 # and the chains dropped for a bad crc
+                                 "host_hit_blocks": 0, "swapins": 0,
+                                 "swapped_blocks": 0, "swap_ms": 0.0,
+                                 "swap_tokens_saved": 0,
+                                 "corrupt_dropped": 0}
             self._row_np: dict[int, np.ndarray] = {}
             if prefix is not None:
                 blocks = self.alloc.alloc(need_prefix)
@@ -1072,11 +1156,22 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
             or None, the prefill start position, the prompt tokens the
             shared blocks cover, and the table entries granted."""
             shared: list[int] = []
-            cov = n_chunks = 0
+            cov = n_chunks = dev_k = 0
             if self.index is not None:
                 chunks = self._chunks_for(req, length)
                 n_chunks = len(chunks)
-                shared = self.index.match(chunks)
+                if self.host is not None:
+                    # the device-resident prefix is shared like any match;
+                    # a spilled continuation swaps back in, extending the
+                    # hit (or stays host-side when the pool cannot spare
+                    # the blocks)
+                    shared, tail = self.index.match_tiered(chunks)
+                    dev_k = len(shared)
+                    if tail:
+                        shared = shared + self._swap_in(tail)
+                else:
+                    shared = self.index.match(chunks)
+                    dev_k = len(shared)
                 cov = chunk_tokens_covered(len(shared), bs, tail_rows)
                 if prefill_chunk is not None:
                     # the PADDED unshared suffix must stay within the
@@ -1110,6 +1205,13 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                 ps["prompt_blocks"] += n_chunks
                 ps["hit_blocks"] += k
                 ps["tokens_saved"] += cov
+                if k > dev_k:
+                    # hits the device cap alone would have missed, and the
+                    # prefill tokens the host tier saved past the device
+                    # prefix
+                    ps["host_hit_blocks"] += k - dev_k
+                    ps["swap_tokens_saved"] += cov - chunk_tokens_covered(
+                        dev_k, bs, tail_rows)
             self.owned[req] = shared + blocks
             row = np.zeros((nt,), np.int32)
             row[:full_blocks] = self.prefix_blocks[:full_blocks]
@@ -1125,6 +1227,57 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
             self.logical_peak = max(self.logical_peak, self.logical_now)
             self._row_np[req] = row
             return row, tail, prefix_len + cov, cov, entries
+
+        def _swap_in(self, tail: list) -> list[int]:
+            """Swap a spilled chain continuation back to the device tier:
+            grant fresh blocks, import the host rows in place (the staged
+            payload when the prefetch named this chain, else a synchronous
+            crc-verified load — the same bytes either way) and promote the
+            entries. Returns the blocks, carrying this request's reference
+            like matched ones; ``[]`` when the pool cannot spare them (the
+            chain stays host-side) or the rows failed their crc (the chain
+            is dropped and the request prefills from tokens)."""
+            keys = [key for key, _hid in tail]
+            blocks = self._alloc_reclaiming(len(tail))
+            if blocks is None:
+                return []
+            staged = None
+            if self._staged_sig == tuple(tail) and \
+                    self._staged_fut is not None:
+                # consume the prefetch; one for another chain stays staged
+                # for the admission it belongs to
+                staged = self._staged_fut
+                self._staged_sig, self._staged_fut = None, None
+            t0 = time.monotonic()
+            try:
+                payload = (staged.result() if staged is not None
+                           else self.host.load([h for _k, h in tail],
+                                               device=self.host.device))
+            except HostSpillCorruptError:
+                self.alloc.free(blocks)
+                self.index.discard(keys[0])       # quarantine the chain
+                self.prefix_stats["corrupt_dropped"] += 1
+                return []
+            import_block_rows(self.pool, blocks, payload)
+            self.index.promote(keys, blocks)
+            ps = self.prefix_stats
+            ps["swapins"] += 1
+            ps["swapped_blocks"] += len(blocks)
+            ps["swap_ms"] += (time.monotonic() - t0) * 1e3
+            return blocks
+
+        def prefetch_swap(self, req: int, length: int) -> None:
+            """The double buffer (``host_swap="async"``): probe the next
+            admission's spilled continuation read-only and stage its rows
+            on the host pool's worker, so the verification and the copy to
+            the card overlap this wave."""
+            if self.host is None or self.index is None:
+                return
+            tail = self.index.peek_host_tail(self._chunks_for(req, length))
+            if not tail or self._staged_sig == tuple(tail):
+                return
+            self._staged_fut = self.host.stage([h for _k, h in tail])
+            self._staged_sig = tuple(tail)
 
         def register_prefix(self, req: int) -> None:
             """Index the request's prefilled FULL prompt blocks so later
@@ -1171,10 +1324,14 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                 self.index.trim()
 
         def close(self) -> None:
-            """End of run: the index's retained blocks go back, so the
-            pool drains to its prefix blocks."""
+            """End of run: the index's retained blocks and host copies go
+            back, so both pools drain (the device pool to its prefix
+            blocks), and the swap worker shuts down."""
             if self.index is not None:
                 self.index.release()
+            self._staged_sig, self._staged_fut = None, None
+            if self.host is not None:
+                self.host.close()
 
         def sample(self, live: int) -> None:
             self.in_use_sum += self.alloc.in_use
@@ -1221,6 +1378,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
 
         def prefix_summary(self) -> dict:
             ps = self.prefix_stats
+            idx, host = self.index, self.host
             return {
                 "enabled": share_prefix,
                 "hit_blocks": ps["hit_blocks"],
@@ -1231,6 +1389,27 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                 "lookups": ps["lookups"],
                 "reclaim_blocked": {"live": ps["reclaim_blocked_live"],
                                     "empty": ps["reclaim_blocked_empty"]},
+                "spill": {
+                    "enabled": host is not None,
+                    "host_blocks": (host.host_blocks if host is not None
+                                    else 0),
+                    "spilled_blocks": (idx.spilled_blocks if idx is not None
+                                       else 0),
+                    "spill_dropped": (idx.spill_dropped if idx is not None
+                                      else 0),
+                    "host_hit_blocks": ps["host_hit_blocks"],
+                    "host_hit_frac": round(ps["host_hit_blocks"]
+                                           / max(ps["prompt_blocks"], 1),
+                                           4),
+                    "swapins": ps["swapins"],
+                    "swapped_blocks": ps["swapped_blocks"],
+                    "swap_ms": round(ps["swap_ms"], 3),
+                    "swap_tokens_saved": ps["swap_tokens_saved"],
+                    "corrupt_dropped": ps["corrupt_dropped"],
+                    "host_in_use": host.in_use if host is not None else 0,
+                    "host_high_water": (host.high_water if host is not None
+                                        else 0),
+                },
             }
 
     def empty_stats() -> dict:
@@ -1250,7 +1429,30 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                 "prefix": {"enabled": share_prefix, "hit_blocks": 0,
                            "prompt_blocks": 0, "hit_frac": 0.0,
                            "tokens_saved": 0, "lookups": 0,
-                           "reclaim_blocked": {"live": 0, "empty": 0}}}
+                           "reclaim_blocked": {"live": 0, "empty": 0},
+                           "spill": {"enabled": host_spill,
+                                     "host_blocks": (host_blocks
+                                                     if host_spill else 0),
+                                     "spilled_blocks": 0,
+                                     "spill_dropped": 0,
+                                     "host_hit_blocks": 0,
+                                     "host_hit_frac": 0.0,
+                                     "swapins": 0, "swapped_blocks": 0,
+                                     "swap_ms": 0.0,
+                                     "swap_tokens_saved": 0,
+                                     "corrupt_dropped": 0,
+                                     "host_in_use": 0,
+                                     "host_high_water": 0}}}
+
+    def prefetch_next(rstate, sched, lens) -> None:
+        """Between admission and the wave: stage the next queued request's
+        spilled rows (async swaps only; the scheduler's ``candidate()`` and
+        the index's probe are read-only)."""
+        if not host_spill or host_swap != "async" or sched.exhausted():
+            return
+        req = sched.candidate()
+        if req is not None:
+            rstate.prefetch_swap(req, lens[req])
 
     def admit_spec(rstate, sched, slot: int, req: int, prompt, length: int):
         """A speculative admission (greedy): a whole prefill, or the chunks
@@ -1381,6 +1583,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
             sched.tick()
             rstate.sample(len(active) + len(stalled))
             tel.gauges(rstate, sched, len(active) + len(stalled))
+            prefetch_next(rstate, sched, lens)
             if not active:
                 if lazy_growth and stalled:
                     # every live request is stalled: preempt the YOUNGEST
@@ -1708,6 +1911,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
             busy = len(active) + len(filling) + len(stalled)
             rstate.sample(busy)
             tel.gauges(rstate, sched, busy)
+            prefetch_next(rstate, sched, lens)
             if not active:
                 if stalled and not filling:
                     # every live request is stalled and nothing else can

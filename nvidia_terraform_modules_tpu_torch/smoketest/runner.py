@@ -12,7 +12,8 @@ and, at deeper levels,
 3. the collective probes on every mesh axis pass and report bandwidth;
 4. a few steps of the sharded burn-in transformer lower the loss, and the
    serve shapes (greedy decode, the paged engine, its scheduler levers,
-   the paged decode kernel) are exact on the same pool;
+   the paged decode kernel, the prefix index's host-RAM tier) are exact on
+   the same pool;
 5. at ``full``, on two devices or more, the expert and stage fabric and
    serving on the mesh: an all-to-all over ``ep``, three MoE train steps
    with the experts sharded over ``ep``, three 2-stage GPipe steps (the
@@ -100,7 +101,6 @@ NOT_PORTED = {
                           "pipeline keyword)"),
     "serve_fleet_ok": (("burnin", "full"), _FLEET),
     "fleet_chaos_ok": (("burnin", "full"), _FLEET),
-    "kv_spill_ok": (("burnin", "full"), _FLEET),
     "fleet_scale_ok": (("burnin", "full"), _FLEET),
     "aot_warm_ok": (("burnin", "full"), _FLEET),
     "prefix_cdn_ok": (("burnin", "full"), _FLEET),
@@ -488,13 +488,51 @@ def _serve_legs(checks, cfg, params, batch, rules, dev, gen, leg,
             outs[mode] = eng(prompts, budgets, slots=2)
         return all(torch.equal(a, b) for a, b in zip(outs["on"], outs["off"]))
 
+    def kv_spill():
+        kcfg, kparams = small(14)
+        flag, rec = kv_spill_leg(kparams, kcfg, dev)
+        checks.update(rec)
+        return flag
+
     for key, fn in (("serve_engine_ok", serve_engine),
                     ("serve_sched_ok", serve_sched),
-                    ("paged_decode_ok", paged_decode)):
+                    ("paged_decode_ok", paged_decode),
+                    ("kv_spill_ok", kv_spill)):
         if not ok:
             break
         ok &= leg(key[:-3], lambda: guarded(key, fn))
     return bool(ok)
+
+
+def kv_spill_leg(params, cfg: BurnInConfig, dev) -> tuple[bool, dict]:
+    """The reference's tiered-KV gate: a template wave whose working set
+    (4 blocks a template) overflows a device keep-cap of 0, through a
+    spilling engine at a tight ``kv_blocks``, must equal the unconstrained
+    engine without the tier token for token, with at least one swap-in,
+    blocks spilled, no corrupt drop, and both pools drained. Returns the
+    verdict and the line's ``kv_spill_*`` counts."""
+    pairs = shared_prefix_prompts(6, seed=3, template_len=8, suffix_lo=1,
+                                  suffix_hi=4, vocab=cfg.vocab,
+                                  working_set_blocks=4, block_size=4)
+    prompts = [torch.tensor(p, dtype=torch.long, device=dev)
+               for _t, p in pairs]
+    budgets = [3, 4, 2, 4, 3, 2]
+    max_len = max(int(p.shape[-1]) + n for p, n in zip(prompts, budgets))
+    want = make_serve_engine(params, cfg, max_len=max_len, kv_block=4,
+                             device=dev)(prompts, budgets, slots=1)
+    spill = make_serve_engine(params, cfg, max_len=max_len, kv_block=4,
+                              share_prefix=True, prefix_keep_blocks=0,
+                              host_spill=True, device=dev)
+    got = spill(prompts, budgets, slots=1,
+                kv_blocks=1 + -(-max_len // 4) + 2)
+    st = spill.last_stats
+    sp = st["prefix"]["spill"]
+    flag = (all(torch.equal(a, b) for a, b in zip(got, want))
+            and sp["swapins"] >= 1 and sp["spilled_blocks"] > 0
+            and sp["corrupt_dropped"] == 0 and st["kv"]["in_use"] == 0
+            and sp["host_in_use"] == 0)
+    return flag, {"kv_spill_swapins": sp["swapins"],
+                  "kv_spill_spilled_blocks": sp["spilled_blocks"]}
 
 
 def _full(checks, dev, n_dev, leg, guarded) -> bool:

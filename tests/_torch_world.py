@@ -494,7 +494,8 @@ def serve_sharded(rank, n, args):
     """The serve engine under ``run(rules=)`` on ``plan_mesh(n,
     **args["plan"])``: for each case, the tokens of a run from the case's
     weights (this rank's shards; with ``"quantized"`` among the engine's
-    keywords, ``quantize_params(shards, rules=)``), and, for the cases
+    keywords, ``quantize_params(shards, rules=)``; under ``host_spill`` its
+    spill record, less the host time, and the pool's blocks in use), and, for the cases
     that ask for it, the shape of this rank's paged pool and the logits of
     ``forward_paged(rules=)`` over the first prompt — a prefill of all but
     its last token, then a T=1 step through the tables; then ``slots``
@@ -533,6 +534,10 @@ def serve_sharded(rank, n, args):
         toks = engine(prompts, case["n_new"], rules=rules, **case["run"])
         rec = {"tokens": [t.tolist() for t in toks],
                "kv": engine.last_stats["kv"]["high_water"]}
+        if engine_kw.get("host_spill"):
+            rec["spill"] = {k: v for k, v in engine.last_stats["prefix"][
+                "spill"].items() if k != "swap_ms"}
+            rec["in_use"] = engine.last_stats["kv"]["in_use"]
         if "steps" in case:
             rec["decode_steps"] = engine.last_stats["decode_steps"]
         if case.get("logits"):

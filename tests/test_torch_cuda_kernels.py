@@ -1871,3 +1871,124 @@ def test_shard_flash_on_card_matches_dense(cuda, i):
         err = (a - b).abs().max().item()
         assert err <= 1e-4 * max(1.0, b.abs().max().item())
     assert not got[2][:, (i + 1) * s:].any()
+
+
+def _seeded_card_pools(cuda, cache_dtype, seed):
+    """Two pools on the card (bf16 rows, or int8 rows with f32 scales) of
+    seeded content, and their config."""
+    from nvidia_terraform_modules_tpu_torch.models import pool_transfer_keys
+
+    cfg = BurnInConfig(vocab=64, d_model=256, n_heads=2, n_kv_heads=2,
+                       d_ff=256, n_layers=2, dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(seed)
+    pools = []
+    for _ in range(2):
+        pool = init_paged_cache(cfg, 2, 64, block_size=16, num_blocks=9,
+                                cache_dtype=cache_dtype, device=cuda)
+        for key in pool_transfer_keys(pool):
+            for buf in pool[key]:
+                if buf.dtype == torch.int8:
+                    buf.copy_(torch.randint(-128, 128, buf.shape,
+                                            generator=g))
+                else:
+                    buf.copy_(torch.randn(buf.shape, generator=g))
+        pools.append(pool)
+    return cfg, pools
+
+
+@pytest.mark.parametrize("cache_dtype", ["bf16", "int8"])
+def test_block_transfer_on_card_writes_in_place(cuda, cache_dtype):
+    """Export from one CUDA pool and import into another: the rows land bit
+    for bit, the receiving pool's tensors keep their addresses (a captured
+    wave reads them by address), and the crc of the CUDA payload equals
+    the crc of the same rows on the host."""
+    from nvidia_terraform_modules_tpu_torch.models import (
+        export_block_rows,
+        import_block_rows,
+        pool_transfer_keys,
+    )
+    from nvidia_terraform_modules_tpu_torch.models.paging import transfer_crc
+
+    _, (src, dst) = _seeded_card_pools(cuda, cache_dtype, 1)
+    keys = pool_transfer_keys(src)
+    ptrs = {k: [b.data_ptr() for b in dst[k]] for k in keys}
+    payload = export_block_rows(src, [3, 5, 1])
+    assert import_block_rows(dst, [7, 2, 8], payload) is dst
+    torch.cuda.synchronize()
+    for k in keys:
+        assert [b.data_ptr() for b in dst[k]] == ptrs[k]
+        for s_buf, d_buf in zip(src[k], dst[k]):
+            assert torch.equal(s_buf[[3, 5, 1]], d_buf[[7, 2, 8]])
+    host = {k: [b.cpu() for b in v] for k, v in payload.items()}
+    assert transfer_crc(payload) == transfer_crc(host)
+
+
+@pytest.mark.parametrize("cache_dtype", ["bf16", "int8"])
+def test_pinned_host_pool_round_trip_is_bitwise(cuda, cache_dtype):
+    """The host pool of a CUDA engine is pinned; a spill of a CUDA pool's
+    blocks and a swap-in (``load`` to the card, and ``stage``'s copy on
+    its worker's stream, which equals it) into fresh blocks reproduce the
+    rows bit for bit; each stamp is the crc of the CUDA export."""
+    from nvidia_terraform_modules_tpu_torch.models import (
+        HostBlockPool,
+        export_block_rows,
+        import_block_rows,
+        pool_transfer_keys,
+    )
+    from nvidia_terraform_modules_tpu_torch.models.paging import transfer_crc
+
+    cfg, (pool, _) = _seeded_card_pools(cuda, cache_dtype, 2)
+    host = HostBlockPool(cfg, 6, block_size=16, cache_dtype=cache_dtype,
+                         device=cuda)
+    assert all(b.is_pinned() for bufs in host._bufs.values() for b in bufs)
+    want = export_block_rows(pool, [2, 4, 6])
+    hids = host.store(pool, [2, 4, 6])
+    for j, hid in enumerate(hids):
+        one = {k: [b[j:j + 1] for b in v] for k, v in want.items()}
+        assert host._crc[hid] == transfer_crc(one)
+    loaded = host.load(hids, device=cuda)
+    staged = host.stage(hids).result()
+    host.close()
+    for k in pool_transfer_keys(pool):
+        for a, b in zip(loaded[k], staged[k]):
+            assert a.is_cuda and b.is_cuda and torch.equal(a, b)
+    import_block_rows(pool, [1, 3, 5], staged)
+    torch.cuda.synchronize()
+    for k in pool_transfer_keys(pool):
+        for buf in pool[k]:
+            assert torch.equal(buf[[1, 3, 5]], buf[[2, 4, 6]])
+
+
+@pytest.mark.parametrize("host_swap", ["async", "sync"])
+def test_spilling_engine_on_card_equals_engine_without_the_tier(cuda,
+                                                                host_swap):
+    """The host tier on the card (every wave a replay, every retirement a
+    spill at keep 0): tokens equal the engine's without the tier and solo
+    decoding, with swap-ins, both pools drained, K7 once a layer a wave."""
+    cfg = BurnInConfig(vocab=256, d_model=128, n_heads=2, n_kv_heads=1,
+                       d_ff=256, n_layers=2, attn="dense",
+                       dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(6),
+                         device=cuda)
+    g = torch.Generator().manual_seed(7)
+    tmpl = [torch.randint(0, cfg.vocab, (32,), generator=g)
+            for _ in range(2)]
+    prompts = [torch.cat([tmpl[i % 2], torch.randint(
+        0, cfg.vocab, (3 + i,), generator=g)]).to(cuda) for i in range(6)]
+    kw = dict(max_len=64, kv_block=16, share_prefix=True,
+              prefix_keep_blocks=0, device=cuda)
+    plain = make_serve_engine(params, cfg, **kw)(prompts, 6, slots=1)
+    engine = make_serve_engine(params, cfg, host_spill=True,
+                               host_swap=host_swap, **kw)
+    engine(prompts[:1], 2, slots=1)                  # capture, warm-up
+    before = launches["paged_decode"]
+    got = engine(prompts, 6, slots=1)
+    st = engine.last_stats
+    sp = st["prefix"]["spill"]
+    assert launches["paged_decode"] - before == st["waves"] * cfg.n_layers
+    assert sp["swapins"] >= 1 and sp["spilled_blocks"] > 0
+    assert sp["corrupt_dropped"] == 0 and sp["host_in_use"] == 0
+    assert st["kv"]["in_use"] == 0
+    for p, a, b in zip(prompts, got, plain):
+        solo = greedy_decode(params, p[None], 6, cfg, device=cuda)[0]
+        assert torch.equal(a, b) and torch.equal(a, solo)

@@ -24,9 +24,53 @@ from nvidia_terraform_modules_tpu_torch.models.paging import (
     chain_chunks,
     chain_key,
     chunk_tokens_covered,
+    export_block_rows,
+    import_block_rows,
     init_paged_cache,
     paged_pool_spec,
+    pool_transfer_keys,
+    transfer_crc,
 )
+
+TRANSFER_CFG = dict(vocab=64, d_model=32, n_heads=4, d_ff=64, n_layers=2,
+                    seq_len=16, batch=2)
+# (the config's dtype, the cache dtype): the f32 and bf16 pools, and the
+# int8 pool with its f32 scale sidecars
+TRANSFER_DTYPES = {"f32": (torch.float32, "bf16"),
+                   "bf16": (torch.bfloat16, "bf16"),
+                   "int8": (torch.float32, "int8")}
+
+
+def seeded_pools(kind: str, seed: int, num_blocks: int = 9):
+    """The same seeded content in a port pool (CPU) and a reference pool:
+    ``(cfg, pool, jax_pool)``. bf16 rows cross as their bit patterns."""
+    dtype, cache_dtype = TRANSFER_DTYPES[kind]
+    cfg = BurnInConfig(**TRANSFER_CFG, dtype=dtype)
+    jcfg = jburnin.BurnInConfig(**TRANSFER_CFG, dtype={
+        torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[dtype])
+    pool = init_paged_cache(cfg, 2, 24, block_size=4, num_blocks=num_blocks,
+                            cache_dtype=cache_dtype, device="cpu")
+    jpool = jpaging.init_paged_cache(jcfg, 2, 24, block_size=4,
+                                     num_blocks=num_blocks,
+                                     cache_dtype=cache_dtype)
+    rng = np.random.default_rng(seed)
+    for key in pool_transfer_keys(pool):
+        for li, buf in enumerate(pool[key]):
+            if buf.dtype == torch.int8:
+                buf.copy_(torch.from_numpy(rng.integers(
+                    -128, 128, buf.shape).astype(np.int8)))
+            else:
+                buf.copy_(torch.from_numpy(rng.standard_normal(
+                    buf.shape).astype(np.float32)).to(buf.dtype))
+            jpool[key][li] = jnp.asarray(to_numpy(buf))
+    return cfg, pool, jpool
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as the reference's numpy array (bf16 as ml_dtypes')."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(jnp.bfloat16)
+    return t.numpy()
 
 
 def test_alloc_is_all_or_nothing_and_exhaustion_returns_none():
@@ -306,3 +350,87 @@ def test_prefix_index_never_evicts_a_referenced_block():
     assert idx.reclaim(1) == 0 and idx.reclaim_blocked == "empty"
     with pytest.raises(ValueError, match="capacity"):
         PrefixIndex(a, capacity=-1)
+
+
+@pytest.mark.parametrize("kind", sorted(TRANSFER_DTYPES))
+def test_export_import_round_trip_in_place_and_equal_to_reference(kind):
+    """Blocks exported from one pool land bit for bit in another pool at
+    other ids, in place (the pool's tensors and their addresses stay, the
+    same dict comes back), untouched blocks keep their bytes, and the
+    payload equals the reference's export of the same rows."""
+    cfg, src, jsrc = seeded_pools(kind, 1)
+    _, dst, _ = seeded_pools(kind, 2)
+    keys = pool_transfer_keys(src)
+    assert keys == jpaging.pool_transfer_keys(jsrc)
+    before = {k: [b.clone() for b in dst[k]] for k in keys}
+    ptrs = {k: [b.data_ptr() for b in dst[k]] for k in keys}
+    payload = export_block_rows(src, [3, 5, 1])
+    want = jpaging.export_block_rows(jsrc, [3, 5, 1])
+    assert sorted(payload) == sorted(want)
+    for k in keys:
+        for got, ref in zip(payload[k], want[k]):
+            assert tuple(got.shape) == ref.shape
+            assert to_numpy(got).tobytes() == np.asarray(ref).tobytes()
+    out = import_block_rows(dst, [7, 2, 8], payload)
+    assert out is dst
+    for k in keys:
+        assert [b.data_ptr() for b in dst[k]] == ptrs[k]
+        for li in range(cfg.n_layers):
+            for s_b, d_b in zip((3, 5, 1), (7, 2, 8)):
+                assert torch.equal(src[k][li][s_b].view(torch.uint8),
+                                   dst[k][li][d_b].view(torch.uint8))
+            assert torch.equal(dst[k][li][4], before[k][li][4])
+    assert not dst["block_tables"].any() and not dst["pos"].any()
+
+
+@pytest.mark.parametrize("kind", sorted(TRANSFER_DTYPES))
+def test_transfer_crc_equals_the_reference_over_the_same_rows(kind):
+    """``transfer_crc`` of the port's payload is the reference's crc of the
+    reference's payload of the same rows; it survives a round trip, and a
+    flipped element or another block order changes it."""
+    _, src, jsrc = seeded_pools(kind, 4)
+    _, dst, _ = seeded_pools(kind, 5)
+    payload = export_block_rows(src, [3, 5, 1])
+    crc = transfer_crc(payload)
+    assert crc == jpaging.transfer_crc(
+        jpaging.export_block_rows(jsrc, [3, 5, 1]))
+    import_block_rows(dst, [7, 2, 8], payload)
+    assert transfer_crc(export_block_rows(dst, [7, 2, 8])) == crc
+    key = pool_transfer_keys(src)[0]
+    bent = {k: [b.clone() for b in v] for k, v in payload.items()}
+    bent[key][0].view(torch.uint8).view(-1)[0] ^= 1
+    assert transfer_crc(bent) != crc
+    assert transfer_crc(export_block_rows(src, [1, 5, 3])) != crc
+
+
+def test_import_block_rows_refuses_as_the_reference():
+    """The reserved block, a payload whose keys do not match the pool (a
+    bf16 payload into an int8 pool) and a block-count mismatch refuse with
+    the reference's messages, and an empty export too; nothing is
+    written."""
+    cfg = BurnInConfig(**TRANSFER_CFG, dtype=torch.float32)
+    jcfg = jburnin.BurnInConfig(**TRANSFER_CFG, dtype=jnp.float32)
+    bf = init_paged_cache(cfg, 1, 16, block_size=4, num_blocks=6,
+                          device="cpu")
+    q = init_paged_cache(cfg, 1, 16, block_size=4, num_blocks=6,
+                         cache_dtype="int8", device="cpu")
+    jbf = jpaging.init_paged_cache(jcfg, 1, 16, block_size=4, num_blocks=6)
+    jq = jpaging.init_paged_cache(jcfg, 1, 16, block_size=4, num_blocks=6,
+                                  cache_dtype="int8")
+    payload = export_block_rows(bf, [2, 3])
+    for k in payload:
+        for b in payload[k]:
+            b.fill_(1)
+    jpayload = jpaging.export_block_rows(jbf, [2, 3])
+    cases = ((bf, jbf, [0, 1]), (q, jq, [1, 2]), (bf, jbf, [1, 2, 3]))
+    for (pool, jpool, ids), match in zip(cases, ("reserved block",
+                                                 "transferable keys",
+                                                 "block ids")):
+        with pytest.raises(ValueError, match=match) as got:
+            import_block_rows(pool, ids, payload)
+        with pytest.raises(ValueError) as want:
+            jpaging.import_block_rows(jpool, ids, jpayload)
+        assert str(got.value) == str(want.value)
+    assert not any(b.any() for k in ("k", "v") for b in bf[k] + q[k])
+    with pytest.raises(ValueError, match=">= 1 block id"):
+        export_block_rows(bf, [])

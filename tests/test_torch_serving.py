@@ -144,7 +144,15 @@ def test_engine_validation_and_unported_levers():
                          ("telemetry", Registry())):
         make_serve_engine(params, cfg, max_len=12, device="cpu",
                           **{lever: value})
-    for lever, value, item in (("host_spill", True, "item 9 (fleet"),):
+    # the host KV tier builds beside the prefix index, and refuses without
+    # it with the reference's message
+    make_serve_engine(params, cfg, max_len=12, device="cpu",
+                      host_spill=True, share_prefix=True)
+    with pytest.raises(ValueError, match="share_prefix=True alongside"):
+        make_serve_engine(params, cfg, max_len=12, device="cpu",
+                          host_spill=True)
+    for lever, value, item in (("shared_store", object(), "item 9 (fleet"),
+                               ("aot_cache", "dir", "item 9 (fleet")):
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP.*{re.escape(item)}"):
             make_serve_engine(params, cfg, max_len=12, device="cpu",
@@ -167,8 +175,8 @@ def _keyword_defaults(fn) -> dict:
 # keywords the port accepts only at the reference's default: a value that
 # is not, and the ROADMAP item its NotImplementedError names
 _NOT_DEFAULT = {
-    "make_serve_engine": {"host_blocks": (8, "item 9"),
-                          "host_swap": ("sync", "item 9")},
+    "make_serve_engine": {"shared_store": (object(), "item 9"),
+                          "aot_cache": ("dir", "item 9")},
     "run": {"admission": (object(), "item 9")},
 }
 # keywords the port now serves, at a value other than the reference's
@@ -180,7 +188,8 @@ _NOT_DEFAULT = {
 _PORTED = {
     "make_serve_engine": {"aging": 4, "prefix_keep_blocks": 32,
                           "sampler": {"top_k": 1},
-                          "telemetry": Registry()},
+                          "telemetry": Registry(), "host_blocks": 8,
+                          "host_swap": "sync"},
     "run": {"eos_check_every": 4, "rng": 0},
 }
 _PORTED_SPEC = {"spec_k": 2}

@@ -87,8 +87,10 @@ def _pair(jp, jcfg, params, cfg, prompts, n_new, engine_kw, run_kw=None,
     return got, eng.last_stats, jeng.last_stats
 
 
+# the reference's prefix record less its fleet-only parts ("cdn", "warm");
+# "spill" is the host tier's record, all zeros without host_spill
 _PREFIX_KEYS = ("enabled", "hit_blocks", "prompt_blocks", "hit_frac",
-                "tokens_saved", "lookups", "reclaim_blocked")
+                "tokens_saved", "lookups", "reclaim_blocked", "spill")
 
 
 def _same_schedule(mine, ref):

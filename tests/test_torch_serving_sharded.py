@@ -22,7 +22,10 @@ engine's levers under ``rules`` equal the JAX engine unsharded too:
 and MoE (2 experts top-1, 4 experts top-2; ``spec_k`` over MoE), the
 experts replicated with their ``d_ff`` over ``tp`` in those worlds, and
 over ``ep`` in worlds of 4 (``plan_mesh(4, ep=2, tp=2)``) and 2
-(``plan_mesh(2, ep=2, tp=1)``). Slots that the data axes do not divide
+(``plan_mesh(2, ep=2, tp=1)``). The host KV tier (``host_spill`` with a
+keep-cap of 0, on template prompts) under ``rules`` in the world of 2:
+each rank's host pool holds its KV heads, and the tokens and the spill
+counts equal the JAX engine's unsharded. Slots that the data axes do not divide
 are refused; in this process, a world of one runs the unsharded engine's
 tokens.
 """
@@ -74,6 +77,8 @@ CASES = {
     "moe_top1": (MOE1, {}, {}),
     "moe_top2": (MOE2, {}, {}),
     "moe_spec_k": (MOE1, {"spec_k": 2}, {}),
+    "host_spill": ({}, {"share_prefix": True, "prefix_keep_blocks": 0,
+                        "host_spill": True}, {}),
 }
 # the cases whose world also records the pool's shape and the logits
 LOGITS = ("greedy", "gqa_rope", "kv_replicated", "int8_pool")
@@ -81,7 +86,7 @@ LEVERS = ("spec_k", "int8_weights", "moe_top1", "moe_top2")
 MOE = ("moe_top1", "moe_top2", "moe_spec_k")
 # world name → (world size, plan_mesh keywords, slots, cases)
 WORLDS = {
-    "tp2": (2, dict(tp=2), 2, tuple(CASES)[:5] + LEVERS),
+    "tp2": (2, dict(tp=2), 2, tuple(CASES)[:5] + LEVERS + ("host_spill",)),
     "dp2xtp2": (4, dict(tp=2), 4, tuple(CASES)[:5] + LEVERS),
     "ep2xtp2": (4, dict(tp=2, ep=2), 4, MOE),
     "ep2": (2, dict(tp=1, ep=2), 2, MOE),
@@ -105,9 +110,19 @@ def _weights(name):
     jcfg = jburnin.BurnInConfig(**BASE, **over, dtype=jnp.float32)
     jp = jburnin.init_params(jax.random.PRNGKey(len(name)), jcfg)
     rng = np.random.default_rng(len(name))
+    if "host_spill" in CASES[name][1]:
+        # two 8-token templates (two blocks of 4) and short suffixes
+        tmpl = [rng.integers(0, BASE["vocab"], size=(8,)) for _ in range(2)]
+        return jcfg, jp, [np.concatenate([tmpl[i % 2], rng.integers(
+            0, BASE["vocab"], size=(1 + i % 2,))]).astype(np.int32)
+            for i in range(6)]
     prompts = [rng.integers(0, BASE["vocab"], size=(4 + (i % 3) * 2,))
                .astype(np.int32) for i in range(5)]
     return jcfg, jp, prompts
+
+
+# (case, slots) → the JAX engine's spill record, less its host time
+_JAX_SPILL: dict = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -125,6 +140,10 @@ def _jax_tokens(name, slots):
         run["rng"] = jax.random.PRNGKey(run["rng"])
     outs = jeng([jnp.asarray(p) for p in prompts], N_NEW, slots=slots,
                 **run)
+    if engine_kw.get("host_spill"):
+        _JAX_SPILL[name, slots] = {
+            k: v for k, v in jeng.last_stats["prefix"]["spill"].items()
+            if k != "swap_ms"}
     return [np.asarray(o).tolist() for o in outs]
 
 
@@ -195,6 +214,19 @@ def test_sharded_levers_match_unsharded_jax_engine(worlds, world, name):
                 worlds[world][0][name]["decode_steps"]
 
 
+def test_sharded_host_spill_matches_unsharded_jax_engine(worlds):
+    """The host KV tier under ``run(rules=)`` (tp 2, each rank spilling
+    and swapping in its own KV head): tokens and spill counts equal the
+    JAX engine's unsharded, with swap-ins, and both pools drain."""
+    want = _jax_tokens("host_spill", 2)
+    spill = _JAX_SPILL["host_spill", 2]
+    assert spill["swapins"] > 0
+    for rank, r in enumerate(worlds["tp2"]):
+        assert r["host_spill"]["tokens"] == want, rank
+        assert r["host_spill"]["spill"] == spill, rank
+        assert r["host_spill"]["in_use"] == 0
+
+
 @pytest.mark.parametrize("name", ["greedy", "gqa_rope", "kv_replicated"])
 @pytest.mark.parametrize("world", DENSE_WORLDS)
 def test_sharded_forward_paged_logits_match_reference(worlds, world, name):
@@ -253,7 +285,8 @@ def world_of_one():
 
 
 @pytest.mark.parametrize("name", ["greedy", "sampled", "int8_pool",
-                                  "spec_k", "int8_weights", "moe_top2"])
+                                  "spec_k", "int8_weights", "moe_top2",
+                                  "host_spill"])
 def test_world_of_one_rules_run_equals_unsharded(world_of_one, name):
     _, jp, prompts = _weights(name)
     over, engine_kw, run_kw = CASES[name]

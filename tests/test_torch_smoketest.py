@@ -41,7 +41,7 @@ CPU = {"TPU_SMOKETEST_PLATFORM": "cpu"}
 # four ranks on one host: one slice
 WORLD4 = {**CPU, "LOCAL_WORLD_SIZE": "4"}
 SERVE_LEGS = ("decode_ok", "serve_engine_ok", "serve_sched_ok",
-              "paged_decode_ok")
+              "paged_decode_ok", "kv_spill_ok")
 
 
 @pytest.fixture(scope="module")
@@ -164,6 +164,57 @@ def test_psum_level_world_of_one():
     assert r.checks["device_count_ok"]
     assert r.checks["not_ported"] == {
         "lint_runtime_ok": r.checks["not_ported"]["lint_runtime_ok"]}
+
+
+def test_kv_spill_leg_at_burnin_equals_the_jax_runner_leg():
+    """``kv_spill_ok`` runs at ``burnin`` (no longer under ``not_ported``,
+    its seconds recorded), and the leg on the reference runner's config
+    and weights (``init_params(PRNGKey(14))``) counts the swap-ins and
+    spilled blocks the reference's leg counts, both verdicts true."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from nvidia_terraform_modules_tpu.models import burnin as jburnin
+    from nvidia_terraform_modules_tpu.models.serving import (
+        make_serve_engine as jax_engine,
+    )
+    from nvidia_terraform_modules_tpu.utils.traffic import (
+        shared_prefix_prompts,
+    )
+    from nvidia_terraform_modules_tpu_torch.models import params_from_numpy
+    from nvidia_terraform_modules_tpu_torch.smoketest.runner import (
+        kv_spill_leg,
+    )
+
+    r = run_smoketest(level="burnin", env=CPU)
+    assert r.ok and r.checks["kv_spill_ok"] is True, r.checks
+    assert "kv_spill_ok" not in r.checks["not_ported"]
+    assert "kv_spill" in r.checks["leg_seconds"]
+    assert r.checks["kv_spill_swapins"] >= 1
+    kw = dict(vocab=128, d_model=32, n_heads=4, d_ff=64, n_layers=2,
+              seq_len=16, batch=2)
+    jcfg = jburnin.BurnInConfig(**kw, dtype=jnp.float32)
+    jp = jburnin.init_params(jax.random.PRNGKey(14), jcfg)
+    cfg = BurnInConfig(**kw, dtype=torch.float32)
+    flag, rec = kv_spill_leg(params_from_numpy(
+        jax.tree.map(np.asarray, jp), cfg, device="cpu"), cfg, "cpu")
+    # the reference runner's leg, as it runs it
+    prompts = [jnp.asarray(p, jnp.int32) for _t, p in shared_prefix_prompts(
+        6, seed=3, template_len=8, suffix_lo=1, suffix_hi=4,
+        vocab=jcfg.vocab, working_set_blocks=4, block_size=4)]
+    budgets = [3, 4, 2, 4, 3, 2]
+    ml = max(int(p.shape[-1]) + n for p, n in zip(prompts, budgets))
+    want = jax_engine(jp, jcfg, max_len=ml, kv_block=4)(prompts, budgets,
+                                                        slots=1)
+    spill = jax_engine(jp, jcfg, max_len=ml, kv_block=4, share_prefix=True,
+                       prefix_keep_blocks=0, host_spill=True)
+    got = spill(prompts, budgets, slots=1, kv_blocks=1 + -(-ml // 4) + 2)
+    sp = spill.last_stats["prefix"]["spill"]
+    assert all(bool(jnp.array_equal(a, b)) for a, b in zip(got, want))
+    assert flag is True
+    assert rec == {"kv_spill_swapins": sp["swapins"],
+                   "kv_spill_spilled_blocks": sp["spilled_blocks"]}
 
 
 def test_json_line_contract():

@@ -293,13 +293,13 @@ def test_get_registry_defaults_to_null_and_env_enables(tel, tmp_path,
 
 _BASE = dict(vocab=64, d_model=32, n_heads=2, d_ff=64, n_layers=1,
              seq_len=16, batch=2)
-# gauges of the reference's engine whose levers (host_spill, shared_store)
-# the port refuses
-_LEFT_OUT = {"prefix_spilled_blocks", "prefix_swapin_ms",
-             "prefix_host_hit_frac", "prefix_disk_hit_frac",
-             "prefix_disk_swapin_ms"}
-# instruments whose values are times
+# gauges of the reference's engine whose lever (shared_store) the port
+# refuses
+_LEFT_OUT = {"prefix_disk_hit_frac", "prefix_disk_swapin_ms"}
+# instruments whose values are times; the host tier's swap-in time is one
+# where the engine spills (and 0 on both sides where it does not)
 _TIMED = {"paged_decode_ms", "join_first_token_ms"}
+_SPILL_TIMED = {"prefix_swapin_ms"}
 
 
 def _models(seed=0):
@@ -335,6 +335,12 @@ ENGINE_CASES = {
     "spec_k2": ("four", 6, 2, dict(max_len=24, spec_k=2)),
     "chunked_prefill": ("four", 4, 2, dict(max_len=16, kv_block=4,
                                            prefill_chunk=4)),
+    # the host KV tier: keep 0 and one slot, so every retirement spills and
+    # each repeated template swaps back in
+    "host_spill": ("shared", 4, 1, dict(max_len=16, kv_block=4,
+                                        share_prefix=True,
+                                        prefix_keep_blocks=0,
+                                        host_spill=True)),
     # eos retirements, per wave and from the lagged scan (the eos is a
     # token the first request emits mid-stream)
     "eos_every_wave": ("four", 6, 2, dict(max_len=16, eos_check_every=1)),
@@ -381,8 +387,9 @@ def test_engine_telemetry_equals_jax_engine(case):
     jreg, preg = jtel.Registry(), ptel.Registry()
     jout = jserving.make_serve_engine(jp, jcfg, telemetry=jreg, **kw)(
         jprompts, n_new, slots=slots, **run_kw)
-    pout = make_serve_engine(params, cfg, telemetry=preg, device="cpu",
-                             **kw)(prompts, n_new, slots=slots, **run_kw)
+    engine = make_serve_engine(params, cfg, telemetry=preg, device="cpu",
+                               **kw)
+    pout = engine(prompts, n_new, slots=slots, **run_kw)
     for a, b in zip(pout, jout):
         assert a.tolist() == np.asarray(b).tolist()
     want, got = _plane(jreg), _plane(preg)
@@ -395,10 +402,18 @@ def test_engine_telemetry_equals_jax_engine(case):
                                              len(prompts)}
     assert set(want["gauges"]) - set(got["gauges"]) == _LEFT_OUT
     for name, value in got["gauges"].items():
-        if name in _TIMED:
+        if name in _TIMED or (name in _SPILL_TIMED and "host_spill" in kw):
             assert value > 0 and want["gauges"][name] > 0, name
         else:
             assert value == want["gauges"][name], name
+    if "host_spill" in kw:
+        # the tier's gauges agree with the run's own spill record
+        sp = engine.last_stats["prefix"]["spill"]
+        assert sp["spilled_blocks"] > 0 and sp["swapins"] > 0
+        assert got["gauges"]["prefix_spilled_blocks"] == sp["spilled_blocks"]
+        assert got["gauges"]["prefix_swapin_ms"] == sp["swap_ms"]
+        assert got["gauges"]["prefix_host_hit_frac"] == \
+            sp["host_hit_frac"] > 0
     for args in got["request_args"]:
         assert args["prefill_ms"] > 0 and args["queue_wait_ms"] >= 0
     if "spec_k" in kw:
