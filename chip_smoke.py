@@ -1454,6 +1454,422 @@ def serve_spill_flagship(params, cfg, dev, smi: str) -> tuple[dict, dict]:
     return rec, runs["spill_async"][-1]["launches"]
 
 
+# the fleet phases: the requests of fleet_exact's flash wave, its budgets,
+# and the kill of its chaos fleets (the victim's first wave stalled past
+# it, so the kill lands mid-run however fast the card serves)
+FLEET_BUDGETS = [6, 9, 4, 7, 5, 8, 3, 6]
+FLEET_KILL_S = 0.05
+FLEET_TURNS = 3
+
+
+def _fleet_equal(outs, want) -> list[bool]:
+    """Request by request: the fleet's tokens (on the card, or on the host
+    from a process fleet) equal ``want``'s."""
+    import torch
+
+    return [o is not None and bool(torch.equal(o.to(w.device), w))
+            for o, w in zip(outs, want)]
+
+
+def _bring_up_behind(fleet, replicas: int):
+    """Start a process fleet's children in a thread (their interpreter
+    start, device set-up and weight stream overlap the work before the
+    fleet's first call); join it before that call."""
+    import threading
+
+    thread = threading.Thread(target=fleet.transport.bring_up,
+                              args=(range(replicas),), daemon=True)
+    thread.start()
+    return thread
+
+
+def _fleet_sum(launches_by_fleet: dict, kernel: str) -> int:
+    """A kernel's launches summed over every worker of every fleet."""
+    return sum(t.get(kernel, 0) for per in launches_by_fleet.values()
+               if per for t in per.values())
+
+
+def _fleet_kernels(where: str, st: dict, n_layers: int, *, warm: int = 0,
+                   all_flash: bool = False) -> int:
+    """Hold a fleet's per-worker launch tallies against its workers' own
+    records (``per_replica``): each decode worker K7 (or K7-int8) once a
+    layer a wave (plus ``warm`` eager warm-up waves of a first call), a
+    prefill worker none; every worker K1 once a layer a flash prefill it
+    recorded, a disaggregated decode worker none (each of its admissions an
+    import) and, with ``all_flash``, every prefilled admission a flash
+    one. A killed worker's counts died with it. Returns K1 summed, which
+    must not be 0."""
+    per = st["fleet"]["launches"]
+    dis = st["fleet"]["mode"] == "disaggregated"
+    k1 = 0
+    for rec in st["fleet"]["per_replica"]:
+        if rec["flash_prefills"] is None:
+            continue
+        mine = per[rec["replica"]]
+        k7 = mine.get("paged_decode", 0) + mine.get("paged_decode_int8", 0)
+        decode = rec["role"] == "decode"
+        prefilled = 0 if decode and dis else rec["requests"]
+        ok = (k7 == ((rec["waves"] + warm) * n_layers if decode else 0)
+              and mine.get("flash_fwd", 0) == rec["flash_prefills"] * n_layers
+              and rec["flash_prefills"] <= prefilled
+              and (not all_flash or rec["flash_prefills"] == prefilled)
+              and (not (decode and dis)
+                   or rec["kv_imports"] == rec["requests"]))
+        if not ok:
+            raise AssertionError(f"{where} {rec['replica']}: launches "
+                                 f"{mine}, record {rec} (+{warm} warm "
+                                 f"waves)")
+        k1 += mine.get("flash_fwd", 0)
+    if k1 == 0:
+        raise AssertionError(f"{where}: no K1 launch")
+    return k1
+
+
+def fleet_exact(dev) -> tuple[dict, dict]:
+    """The fleet router on the card at f32, exact. First the validation
+    Job's two fleet legs on the reference's config (``serve_fleet_leg``,
+    ``fleet_chaos_leg``). Then, on ``serve_exact``'s flash config (K1 in
+    every whole-prompt prefill) and 8 two-template requests: a 2-replica
+    affinity fleet, a disaggregated 1 + 1 fleet, a 3-replica fleet with a
+    seeded ``kill_replica``, a 2-replica ``transport="multiproc"`` fleet
+    whose replica 0 takes a real ``SIGKILL`` (its children brought up
+    while the others run; then a single engine on the same card must still
+    serve exactly), and an int8-cache 2-replica fleet
+    (K7-int8). Each request's tokens must equal the single engine's and
+    its solo greedy decode; each pool drains; the per-worker launch
+    tallies hold (``_fleet_kernels``; in-process fleets on their second
+    call, when the graphs exist). Returns the record and the launch
+    tallies by fleet."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        BurnInConfig,
+        greedy_decode,
+        init_params,
+        make_fleet,
+        make_serve_engine,
+    )
+    from nvidia_terraform_modules_tpu_torch.models.fleet import (
+        FleetFault,
+        FleetFaultProfile,
+        HashRing,
+        affinity_key,
+    )
+    from nvidia_terraform_modules_tpu_torch.smoketest.runner import (
+        fleet_chaos_leg,
+        serve_fleet_leg,
+    )
+    from nvidia_terraform_modules_tpu_torch.utils.timing import sync
+
+    t_phase = time.monotonic()
+    cfg = _exact_cfg()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(8),
+                         device=dev)
+    pg = torch.Generator().manual_seed(9)
+    tmpl = [torch.randint(0, cfg.vocab, (32,), generator=pg)
+            for _ in range(2)]
+    prompts = [torch.cat([tmpl[i % 2], torch.randint(
+        0, cfg.vocab, (3 + i % 5,), generator=pg)]).to(dev)
+        for i in range(len(FLEET_BUDGETS))]
+    budgets = FLEET_BUDGETS
+    max_len = max(len(p) + n for p, n in zip(prompts, budgets))
+    kw = dict(max_len=max_len, kv_block=16, device=dev)
+
+    def kill(target):
+        return FleetFaultProfile(
+            [FleetFault("kill_replica", target=target, at_s=FLEET_KILL_S),
+             FleetFault("slow_replica", target=target, at_s=0.0,
+                        stall_s=2 * FLEET_KILL_S + 0.05, waves=1)], seed=0)
+
+    # the process fleet's children come up while the rest runs (its victim
+    # stalls too: with its child up before the call, the kill must still
+    # find it mid-run)
+    sigkill = make_fleet(params, cfg, **kw, replicas=2, steal=False,
+                         transport="multiproc", join_timeout_s=300.0,
+                         faults=kill(0))
+    spawning = _bring_up_behind(sigkill, 2)
+
+    jcfg = BurnInConfig(vocab=128, d_model=32, n_heads=4, d_ff=64,
+                        n_layers=2, seq_len=16, batch=2, dtype=torch.float32)
+    jparams = init_params(jcfg, torch.Generator(device=dev).manual_seed(13),
+                          device=dev)
+    ok_fleet, rec_fleet, state = serve_fleet_leg(jparams, jcfg, dev)
+    ok_chaos, rec_chaos = fleet_chaos_leg(jparams, jcfg, dev,
+                                          state["prompts"], state["base"])
+    record = {"job_legs": {"serve_fleet_ok": ok_fleet,
+                           "fleet_chaos_ok": ok_chaos, **rec_fleet,
+                           **rec_chaos}}
+    if not (ok_fleet and ok_chaos):
+        raise AssertionError(f"fleet_exact: the Job's fleet legs {record}")
+
+    want = {}
+    for cache in ("bf16", "int8"):
+        single = make_serve_engine(params, cfg, cache_dtype=cache, **kw)(
+            prompts, budgets, slots=2)
+        solo = [greedy_decode(params, p[None], n, cfg, cache_dtype=cache,
+                              device=dev)[0]
+                for p, n in zip(prompts, budgets)]
+        if not all(torch.equal(a, b) for a, b in zip(single, solo)):
+            raise AssertionError(f"fleet_exact: the single {cache} engine "
+                                 f"differs from solo decoding")
+        want[cache] = single
+    victim = HashRing(3).target(affinity_key(prompts[0], 16))
+    fleets = {
+        "affinity": (dict(replicas=2, steal=False), "bf16", 2),
+        "disaggregated": (dict(replicas=2, disaggregate=True), "bf16", 2),
+        "kill": (dict(replicas=3, steal=False, faults=kill(victim)), "bf16",
+                 2),
+        "multiproc_sigkill": (sigkill, "bf16", 1),
+        "int8_cache": (dict(replicas=2, steal=False, cache_dtype="int8"),
+                       "int8", 2),
+    }
+    launches = {}
+    for name, (spec, cache, calls) in fleets.items():
+        t0 = time.monotonic()
+        if isinstance(spec, dict):
+            fleet = make_fleet(params, cfg, **kw, **spec)
+        else:                                    # the process fleet
+            fleet = spec
+            spawning.join()
+        try:
+            # no synchronize: the outputs reach this stream through the
+            # fleet's own stream join
+            for _ in range(calls):
+                outs = fleet(prompts, budgets, slots=2)
+            st = fleet.last_stats
+            spawns = list(getattr(fleet.transport, "spawns", []))
+        finally:
+            fleet.close()
+        equal = _fleet_equal(outs, want[cache])
+        fst = st["fleet"]
+        drained = all(rs["kv"]["in_use"] == 0
+                      for rs in st["replica_stats"] if rs is not None)
+        down = (fst["faults"] or {}).get("replica_down", 0)
+        record[name] = dict(
+            seconds=time.monotonic() - t0, calls=calls, equal=equal,
+            served=fst["served"], drained=drained, replica_down=down,
+            killed=(fst["faults"] or {}).get("killed"),
+            redriven=(fst["faults"] or {}).get("redriven"),
+            launches=fst["launches"],
+            waves=[None if rs is None else rs["waves"]
+                   for rs in st["replica_stats"]],
+            spawn_s=[s["spawn_s"] for s in spawns])
+        if not all(equal) or not drained or fst["served"] != len(prompts) \
+                or down != (1 if "kill" in name else 0):
+            emit("fleet_exact", **record)
+            raise AssertionError(f"fleet_exact {name}: {record[name]}")
+        _fleet_kernels(f"fleet_exact {name}", st, cfg.n_layers,
+                       warm=2 if calls == 1 else 0, all_flash=True)
+        launches[name] = fst["launches"]
+        if name == "multiproc_sigkill":
+            # the killed child held a context on this card: the card must
+            # still serve, exactly
+            again = make_serve_engine(params, cfg, **kw)(prompts, budgets,
+                                                         slots=2)
+            sync()
+            record[name]["card_serves_after_sigkill"] = all(
+                torch.equal(a, b) for a, b in zip(again, want["bf16"]))
+            if not record[name]["card_serves_after_sigkill"]:
+                raise AssertionError("fleet_exact: the card serves "
+                                     "differently after the SIGKILL")
+    record["seconds"] = time.monotonic() - t_phase
+    return record, launches
+
+
+def serve_fleet_flagship(params, cfg, dev, smi: str) -> tuple[dict, dict]:
+    """The fleet at the flagship width (bf16, nothing cut) on
+    ``serve_spill_flagship``'s traffic (16 requests, 4 Zipf templates of
+    256 tokens, suffixes 16–128, budgets 16–64, ``kv_block=16``), 4 slots a
+    replica, ``share_prefix=True``. Five runs: the single engine, a
+    2-replica affinity fleet, a 2-replica ``routing="random"`` fleet, a
+    disaggregated 1 + 1 fleet and a 2-replica ``transport="multiproc"``
+    fleet; each warmed once (every replica captures its wave; the process
+    fleet spawns its children, their seconds and the weight stream's
+    recorded), then ``FLEET_TURNS`` timed turns in rotation. Reported:
+    tokens/s (median and min–max), p50/p99 latency from the call's start
+    to each request's completion (every request arrives at the start: the
+    fleet's arrival → completion, the single engine's ``retired_ms``), hit
+    blocks and stolen requests, the share of tokens equal to the single
+    engine's, the handoff's device ms a request (export and import, as the
+    prefill session and the decode engine record them) and host ms of its
+    crc (``_payload_crc``, the rows read back), each worker's launch
+    tally, and one more turn of the single engine and of the affinity
+    fleet under the profiler (device ms and busy share). Held: every
+    budget served with tokens in the vocabulary, pools drained, and the
+    launch tallies against the workers' records (``_fleet_kernels``)."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        make_fleet,
+        make_serve_engine,
+    )
+    from nvidia_terraform_modules_tpu_torch.models import fleet as fmod
+    from nvidia_terraform_modules_tpu_torch.utils.timing import sync
+    from nvidia_terraform_modules_tpu_torch.utils.traffic import (
+        ragged_lengths,
+        shared_prefix_prompts,
+    )
+
+    t_phase = time.monotonic()
+    pairs = shared_prefix_prompts(LEVER_REQUESTS, SEED, n_templates=4,
+                                  template_len=256, suffix_lo=16,
+                                  suffix_hi=128, vocab=cfg.vocab,
+                                  block_size=KV_BLOCK)
+    prompts = [torch.tensor(p, device=dev) for _, p in pairs]
+    budgets = ragged_lengths(LEVER_REQUESTS, SEED, lo=16, hi=64)
+    max_len = max(len(p) + n for (_, p), n in zip(pairs, budgets))
+    kw = dict(max_len=max_len, kv_block=KV_BLOCK, share_prefix=True)
+    single = make_serve_engine(params, cfg, device=dev, **kw)
+    runners = {"single": None,
+               "affinity": make_fleet(params, cfg, replicas=2, **kw),
+               "random": make_fleet(params, cfg, replicas=2,
+                                    routing="random", **kw),
+               "disaggregated": make_fleet(params, cfg, replicas=2,
+                                           disaggregate=True, **kw),
+               "multiproc": make_fleet(params, cfg, replicas=2,
+                                       transport="multiproc",
+                                       join_timeout_s=600.0, **kw)}
+
+    def run(name, prompts_, budgets_):
+        if name == "single":
+            return single(prompts_, budgets_, slots=SLOTS), \
+                single.last_stats
+        fl = runners[name]
+        return fl(prompts_, budgets_, slots=SLOTS), fl.last_stats
+
+    turns = {name: [] for name in runners}
+    last = {}
+    try:
+        # the process fleet's children come up behind the other warm-ups
+        spawning = _bring_up_behind(runners["multiproc"], 2)
+        warm = {}
+        for name in runners:
+            if name == "multiproc":
+                spawning.join()
+            t0 = time.monotonic()
+            run(name, prompts, [4] * len(prompts))
+            sync()
+            warm[name] = time.monotonic() - t0
+        spawns = list(runners["multiproc"].transport.spawns)
+        for _turn in range(FLEET_TURNS):
+            for name in runners:
+                sync()
+                t0 = time.monotonic()
+                outs, st = run(name, prompts, budgets)
+                sync()
+                wall_s = time.monotonic() - t0
+                gen = sum(int(o.shape[0]) for o in outs)
+                for o, n in zip(outs, budgets):
+                    if o is None or o.shape != (n,) or int(o.min()) < 0 \
+                            or int(o.max()) >= cfg.vocab:
+                        raise AssertionError(f"serve_fleet_flagship {name}: "
+                                             f"bad output")
+                lat = (st["retired_ms"] if name == "single"
+                       else st["fleet"]["latency_ms"])
+                rec = dict(wall_s=wall_s, tokens_per_s=gen / wall_s,
+                           p50_ms=lat["p50"], p99_ms=lat["p99"])
+                if name != "single":
+                    fst = st["fleet"]
+                    workers = fst["per_replica"]
+                    rec.update(hit_blocks=fst["affinity_hit_blocks"],
+                               hit_frac=fst["affinity_hit_frac"],
+                               stolen=fst["stolen"],
+                               launches=fst["launches"],
+                               waves=[rs["waves"]
+                                      for rs in st["replica_stats"]],
+                               flash_prefills=sum(
+                                   r["flash_prefills"] for r in workers))
+                    if name == "disaggregated":
+                        n_imp = sum(r["kv_imports"] for r in workers
+                                    if r["role"] == "decode")
+                        rec["export_ms"] = sum(
+                            r["export_ms"] for r in workers
+                            if r["role"] == "prefill") / n_imp
+                        rec["import_ms"] = sum(
+                            r["import_ms"] for r in workers
+                            if r["role"] == "decode") / n_imp
+                    _fleet_kernels(f"serve_fleet_flagship {name}", st,
+                                   cfg.n_layers)
+                    if any(rs["kv"]["in_use"] for rs in st["replica_stats"]):
+                        raise AssertionError(f"serve_fleet_flagship {name}: "
+                                             f"a pool did not drain")
+                else:
+                    rec.update(hit_blocks=st["prefix"]["hit_blocks"],
+                               waves=st["waves"],
+                               flash_prefills=st["flash_prefills"])
+                turns[name].append(rec)
+                last[name] = outs
+        # where the time goes: the single engine and the affinity fleet
+        # once more each under the profiler (device time summed over the
+        # replicas' streams, against the wall clock)
+        from torch.profiler import ProfilerActivity, profile
+
+        profiles = {}
+        for name in ("single", "affinity"):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.monotonic()
+                run(name, prompts, budgets)
+                sync()
+                wall_ms = (time.monotonic() - t0) * 1e3
+            summary = profile_summary(prof, wall_ms)
+            profiles[name] = {k: summary[k] for k in (
+                "wall_ms", "device_ms", "busy_share_profiled", "gemm_ms")}
+            profiles[name]["top_kernels"] = summary["top_kernels"][:5]
+            profiles[name]["top_host_ops"] = summary["top_host_ops"][:6]
+        # the handoff's crc, as the fault plane checks it: one session's
+        # payloads, each crc read back to the host and summed
+        session = runners["disaggregated"].transport.prefill_engine(
+            0).prefill_session()
+        crc_ms, payload_bytes = [], []
+        for p in prompts:
+            payload = session.prefill(p)
+            payload["ready"].synchronize()
+            t0 = time.monotonic()
+            fmod._payload_crc(payload)
+            crc_ms.append((time.monotonic() - t0) * 1e3)
+            payload_bytes.append(sum(b.numel() * b.element_size()
+                                     for bufs in payload["blocks"].values()
+                                     for b in bufs))
+        session.close()
+    finally:
+        runners["multiproc"].close()
+    ref = last["single"]
+
+    def med(vals):
+        vals = sorted(vals)
+        return {"median": vals[len(vals) // 2], "min": vals[0],
+                "max": vals[-1]}
+
+    summary = {}
+    for name, recs in turns.items():
+        outs = last[name]
+        summary[name] = dict(
+            tokens_per_s=med([r["tokens_per_s"] for r in recs]),
+            p50_ms=med([r["p50_ms"] for r in recs]),
+            p99_ms=med([r["p99_ms"] for r in recs]),
+            hit_blocks=recs[-1]["hit_blocks"], waves=recs[-1]["waves"],
+            flash_prefills=recs[-1]["flash_prefills"], warm_s=warm[name],
+            tokens_equal_single_frac=sum(
+                int((a.to(dev) == b).sum()) for a, b in zip(outs, ref))
+            / sum(budgets),
+            requests_equal_single=sum(_fleet_equal(outs, ref)),
+            **({k: recs[-1][k] for k in ("stolen", "launches")}
+               if name != "single" else {}))
+    dis = turns["disaggregated"]
+    summary["disaggregated"]["handoff_ms"] = {
+        "export": med([r["export_ms"] for r in dis]),
+        "import": med([r["import_ms"] for r in dis]),
+        "crc": med(crc_ms), "payload_bytes_mean":
+            sum(payload_bytes) / len(payload_bytes)}
+    summary["multiproc"]["spawns"] = spawns
+    rec = dict(nvidia_smi=smi, requests=LEVER_REQUESTS, budgets=budgets,
+               prompt_lens=[len(p) for _, p in pairs], max_len=max_len,
+               slots=SLOTS, turns=FLEET_TURNS, runs=summary,
+               profiles=profiles, seconds=time.monotonic() - t_phase)
+    return rec, {name: turns[name][-1].get("launches") for name in runners}
+
+
 def kernel_sample_draw(dev, card: str) -> dict:
     """D1 (the keyed Gumbel-max draw) against the plain draw on the card:
     seeded logits with -inf entries, a row of -inf only and an exact tie of
@@ -3579,7 +3995,8 @@ def train_ring_profile(params, dev) -> dict:
 
 # the validation Job's legs that the card must pass (the CLI's JSON line)
 SMOKETEST_LEGS = ("psum_ok", "burnin_ok", "decode_ok", "serve_engine_ok",
-                  "serve_sched_ok", "paged_decode_ok", "kv_spill_ok")
+                  "serve_sched_ok", "paged_decode_ok", "serve_fleet_ok",
+                  "fleet_chaos_ok", "kv_spill_ok")
 # SGD steps from one set of weights for the sharded/unsharded comparison
 SHARDED_STEPS = 3
 # the flagship train state through the checkpoint engine: AdamW steps of
@@ -5506,6 +5923,8 @@ def main() -> int:
     serve_levers_exact(dev)
     spill_exact = serve_spill_exact(dev)
     emit("serve_spill_exact", **spill_exact)
+    fleet_rec, fleet_launches = fleet_exact(dev)
+    emit("fleet_exact", nvidia_smi=smi, **fleet_rec)
     serve_sampled_exact(dev)
     serve_spec_exact(dev)
     decode_graph_exact(dev)
@@ -5642,6 +6061,12 @@ def main() -> int:
     # ---------------------------------------------- serve_spill_flagship
     spill_rec, spill_launches = serve_spill_flagship(params, cfg, dev, smi)
     emit("serve_spill_flagship", **spill_rec)
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------- serve_fleet_flagship
+    fleet_flag, fleet_flag_launches = serve_fleet_flagship(params, cfg, dev,
+                                                           smi)
+    emit("serve_fleet_flagship", **fleet_flag)
     torch.cuda.empty_cache()
 
     # ------------------------------------- sampled and speculative serving
@@ -5883,6 +6308,12 @@ def main() -> int:
                                rw1_launches["ulysses"]["flash_fwd"]},
          # the flagship spilling engine's last timed run (host_spill)
          "spill": {"launches": spill_launches["flash_fwd"]},
+         # the fleets: fleet_exact's last calls, and the flagship fleets'
+         # last timed turns (the prefill side's workers)
+         "fleet": {"exact_launches": _fleet_sum(fleet_launches,
+                                                "flash_fwd"),
+                   "flagship_launches": _fleet_sum(fleet_flag_launches,
+                                                   "flash_fwd")},
          # the serve prompts' mean rate, and K1 at the train step's shape
          "tflops": k1_mean("tflops"), "bound_share": k1_mean("bound_share"),
          "tiling": FWD_TILING,
@@ -5910,7 +6341,12 @@ def main() -> int:
          "serve_rules_levers": {
              "moe_launches": srl_launches["moe"]["paged_decode"]},
          # the flagship spilling engine's last timed run
-         "spill": {"launches": spill_launches["paged_decode"]}},
+         "spill": {"launches": spill_launches["paged_decode"]},
+         # the fleets' decode workers (as K1's "fleet")
+         "fleet": {"exact_launches": _fleet_sum(fleet_launches,
+                                                "paged_decode"),
+                   "flagship_launches": _fleet_sum(fleet_flag_launches,
+                                                   "paged_decode")}},
         {"name": "paged_decode_int8", "route": "cuda",
          "source": "nvidia_terraform_modules_tpu_torch/csrc/paged_decode.cu",
          "replaces":
@@ -5923,7 +6359,10 @@ def main() -> int:
          "serve_rules_levers": {"int8_weights_launches": srl_launches[
              "int8_weights"]["paged_decode_int8"]},
          # the int8-cache spilling runs of serve_spill_exact
-         "spill_exact": {"launches": spill_exact["int8_launches"]}},
+         "spill_exact": {"launches": spill_exact["int8_launches"]},
+         # fleet_exact's int8-cache fleet
+         "fleet": {"exact_launches": _fleet_sum(fleet_launches,
+                                                "paged_decode_int8")}},
         {"name": "kv_decode", "route": "cuda",
          "source": "nvidia_terraform_modules_tpu_torch/csrc/kv_decode.cu",
          "replaces":

@@ -72,6 +72,7 @@ tolerance. The int8 cache is lossy by construction.
 from __future__ import annotations
 
 import gc
+import threading
 from typing import Any
 
 import torch
@@ -540,6 +541,10 @@ def forward_paged(params, tokens, cache, cfg: BurnInConfig, rules=None, *,
     return logits, cache
 
 
+# one graph capture at a time in a process (see _Replayed)
+_CAPTURE_LOCK = threading.Lock()
+
+
 class _Replayed:
     """``fn()`` — work over static buffers (a serve wave over its pool, a
     decoder's steps over its cache) — run eagerly (``capture=False``, the
@@ -556,10 +561,17 @@ class _Replayed:
     destroy an unreachable engine's graph, a call the capture forbids,
     which invalidates it. A capture that fails raises.
 
+    Captures in one process take turns (``_CAPTURE_LOCK``: a fleet's
+    in-process replicas are threads that each capture their waves), and
+    each is ``thread_local``: another thread's launches, allocations and
+    readbacks on its own stream go on while a capture runs, where the
+    default global mode would fail them or break the capture.
+
     A replay calls no kernel wrapper, so the wrappers' launch counts
-    (``ops._build.launches``) would miss it: the counts the wrappers added
-    during capture — the kernels the graph holds — are taken back out into
-    :attr:`launches` and added again at each replay."""
+    (``ops._build.launches``) would miss it: the capture's calls go to a
+    tally of their own (``_build.capture_tally``, this thread's only) —
+    the kernels the graph holds — kept as :attr:`launches` and counted
+    again at each replay."""
 
     def __init__(self, fn, dev, capture: bool):
         self.fn = fn
@@ -574,21 +586,20 @@ class _Replayed:
             for _ in range(2):
                 fn()
         cur.wait_stream(self.stream)
-        before = dict(_build.launches)
         self.graph = torch.cuda.CUDAGraph()
-        gc.collect()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(self.graph, stream=self.stream):
-                fn()
-        finally:
-            if collecting:
-                gc.enable()
-            self.launches = {name: n - before.get(name, 0)
-                             for name, n in _build.launches.items()
-                             if n != before.get(name, 0)}
-            _build.launches.update(before)
+        with _CAPTURE_LOCK:
+            gc.collect()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with _build.capture_tally() as held, torch.cuda.graph(
+                        self.graph, stream=self.stream,
+                        capture_error_mode="thread_local"):
+                    fn()
+            finally:
+                if collecting:
+                    gc.enable()
+        self.launches = {name: n for name, n in held.items() if n}
 
     def replay(self) -> None:
         """One run of ``fn``: the graph's replay on its stream, ordered
@@ -603,7 +614,7 @@ class _Replayed:
             self.graph.replay()
         cur.wait_stream(self.stream)
         for name, n in self.launches.items():
-            _build.launches[name] += n
+            _build.count(name, n)
 
 
 def _select_prefill_impl(cfg: BurnInConfig, t: int, prefill: str,

@@ -327,3 +327,107 @@ class IndexSpill:
 
     def free(self, host_ids: Sequence[int]) -> None:
         self.host.free(host_ids)
+
+
+class SnapshotCorruptError(RuntimeError):
+    """A streamed param leaf's bytes no longer match their snapshot-time
+    crc — a CLASSIFIED integrity failure: the receiver refuses the tree,
+    never builds an engine on corrupt weights."""
+
+
+def _snapshot_leaves(tree, leaves: list):
+    """The tree's skeleton with each tensor replaced by its index in
+    ``leaves`` (appended in ``jax.tree.leaves`` order: dict keys sorted,
+    lists in order; a ``QTensor`` is its ``q`` then its ``scale``)."""
+    from .quantize import QTensor
+
+    if isinstance(tree, dict):
+        out = {k: _snapshot_leaves(tree[k], leaves) for k in sorted(tree)}
+        return {k: out[k] for k in tree}          # the tree's own key order
+    if isinstance(tree, (list, tuple)):
+        return [_snapshot_leaves(t, leaves) for t in tree]
+    if isinstance(tree, QTensor):
+        return {"__qtensor__": {
+            "q": _snapshot_leaves(tree.q, leaves),
+            "scale": _snapshot_leaves(tree.scale, leaves),
+            "scale_axis": tree.scale_axis, "transposed": tree.transposed,
+            "dtype": str(tree.dtype).removeprefix("torch.")}}
+    leaves.append(tree)
+    return len(leaves) - 1
+
+
+def _host_bytes(t: torch.Tensor):
+    """``(numpy array, torch dtype name)`` of a tensor's host copy; bf16 (no
+    numpy dtype) as its 16-bit patterns, so its bytes — and their crc — are
+    the reference's."""
+    h = t.detach().to("cpu").contiguous()
+    name = str(h.dtype).removeprefix("torch.")
+    if h.dtype == torch.bfloat16:
+        h = h.view(torch.int16)
+    return h.numpy(), name
+
+
+class HostParamSnapshot:
+    """Donor weights for a fleet's replica processes: ONE contiguous host
+    copy of the param tree with a crc32 a leaf (the reference's
+    ``HostParamSnapshot``), built once and sent to every replica child.
+    The leaves go in ``jax.tree.leaves`` order and their bytes are the
+    reference's, so each leaf's crc equals the reference's for the same
+    weights. :meth:`decode` verifies every leaf on the receiving side
+    before the tree is rebuilt on its device."""
+
+    def __init__(self, params):
+        leaves: list = []
+        self.skeleton = _snapshot_leaves(params, leaves)
+        self.leaves = [_host_bytes(t) for t in leaves]
+        self.crcs = [zlib.crc32(a.tobytes()) & 0xFFFFFFFF
+                     for a, _ in self.leaves]
+        self.nbytes = int(sum(a.nbytes for a, _ in self.leaves))
+
+    def encode(self) -> dict:
+        """The wire form: host arrays as they are (pickling them once is
+        the transport's job)."""
+        return {"skeleton": self.skeleton, "leaves": self.leaves,
+                "crcs": list(self.crcs), "nbytes": self.nbytes}
+
+    @staticmethod
+    def decode(wire: dict, device="cuda"):
+        """Verify every leaf's crc and rebuild the tree on ``device``; a
+        mismatch or a leaf-count drift raises
+        :class:`SnapshotCorruptError`."""
+        from .quantize import QTensor
+
+        leaves, crcs = wire["leaves"], wire["crcs"]
+        if len(leaves) != len(crcs):
+            raise SnapshotCorruptError(
+                f"snapshot carries {len(crcs)} leaf crcs for "
+                f"{len(leaves)} leaves — foreign or truncated stream")
+        for i, ((arr, _), crc) in enumerate(zip(leaves, crcs)):
+            got = zlib.crc32(arr.tobytes()) & 0xFFFFFFFF
+            if got != crc:
+                raise SnapshotCorruptError(
+                    f"param leaf {i}: crc {got:#010x} does not match "
+                    f"snapshot crc {crc:#010x}")
+        dev = check_device(device)
+
+        def leaf(i):
+            arr, name = leaves[i]
+            t = torch.from_numpy(arr.copy())
+            if name == "bfloat16":
+                t = t.view(torch.bfloat16)
+            return t.to(dev)
+
+        def build(node):
+            if isinstance(node, int):
+                return leaf(node)
+            if isinstance(node, list):
+                return [build(n) for n in node]
+            if "__qtensor__" in node:
+                q = node["__qtensor__"]
+                return QTensor(build(q["q"]), build(q["scale"]),
+                               scale_axis=q["scale_axis"],
+                               dtype=getattr(torch, q["dtype"]),
+                               transposed=q["transposed"])
+            return {k: build(v) for k, v in node.items()}
+
+        return build(wire["skeleton"])

@@ -159,6 +159,7 @@ from .paging import (
     blocks_for_rows,
     chain_chunks,
     chunk_tokens_covered,
+    export_block_rows,
     import_block_rows,
     init_paged_cache,
     paged_pool_spec,
@@ -172,16 +173,11 @@ _DEFAULT_AGING = 512                   # waves; bounds starvation by default
 # keyword arguments of the reference engine that this port does not serve
 # yet: name → (the reference's default, its ROADMAP item). The default is
 # the engine as it is and passes; any other value raises
-# NotImplementedError naming the item. make_serve_engine's and run's are
-# apart, as in the reference's signatures; any other keyword is a
-# TypeError.
-_FLEET = "Queue A item 9 (fleet stack)"
+# NotImplementedError naming the item; any other keyword is a TypeError.
+_ELASTIC = "Queue A item 9c (fleet stack: elastic plane and prefix CDN)"
 _ENGINE_LATER = {
-    "shared_store": (None, f"{_FLEET}: prefix CDN"),
-    "aot_cache": (None, f"{_FLEET}: warm compile cache"),
-}
-_RUN_LATER = {
-    "admission": (None, f"{_FLEET}: the AdmissionSource seam"),
+    "shared_store": (None, _ELASTIC),
+    "aot_cache": (None, "Queue A item 9d (fleet stack: AOT warm cache)"),
 }
 
 
@@ -474,12 +470,27 @@ class AdmissionSource:
     - ``exhausted()`` → True only when no candidate will ever come again.
     - ``idle_wait()``: nothing admissible and nothing computing — block
       until the next arrival instead of spinning.
+    - ``kv_import(req)`` → ``None`` for a normal admission, or a
+      prefill→decode handoff payload (``prefill_session``'s): the engine
+      allocates the request's blocks, imports the payload's rows in place
+      (``paging.import_block_rows``) and decodes from the payload's first
+      token at its position — no prefill here. The source keeps the
+      payload until retirement (a preempted import imports again).
+    - ``retired(req, tokens)``: the engine retired ``req`` after
+      ``tokens`` tokens (the router's completion signal).
+    - ``draining()`` → True: stop admitting, finish what is in flight (a
+      planned removal).
+    - ``warm_chains()`` / ``chain_sink()``: the elastic fleet's warm
+      bring-up chains and drain-time sink. The port serves neither yet: a
+      source returning anything but ``None`` raises
+      ``NotImplementedError`` (ROADMAP Queue A item 9c).
 
-    The built-in :class:`_Sched` implements it. Handing the engine an
-    external source (the reference's ``run(admission=)``), and the hooks
-    only such a source needs (queue waits, retirement and drain
-    notifications, prefill→decode imports, warm chains), belong to the
-    fleet stack and are not ported."""
+    The built-in :class:`_Sched` implements it; ``run(admission=source)``
+    takes any other (the fleet's router queues, ``models/fleet.py``).
+    FAULT SEAM: the engine does not catch what these hooks raise — a
+    ``candidate()`` or ``tick()`` that raises ends the run mid-wave with
+    its outputs lost, as a dead process would (the fleet's fault plane
+    injects replica deaths that way and redrives the requests)."""
 
     def candidate(self):
         raise NotImplementedError
@@ -504,6 +515,21 @@ class AdmissionSource:
 
     def idle_wait(self) -> None:
         pass
+
+    def kv_import(self, req):
+        return None
+
+    def retired(self, req, tokens: int) -> None:
+        pass
+
+    def draining(self) -> bool:
+        return False
+
+    def warm_chains(self):
+        return None
+
+    def chain_sink(self):
+        return None
 
 
 class _Sched(AdmissionSource):
@@ -691,6 +717,12 @@ class _ServeTelemetry:
             args["chunks"] = chunks
         self.reg.emit_span("serve_prefill", start_clk, t1, **args)
 
+    def handoff(self, start_clk, prompt_len: int) -> None:
+        """A prefill session's ``serve_prefill`` span (``handoff=True``)."""
+        if self.enabled:
+            self.reg.emit_span("serve_prefill", start_clk, self.reg.clock(),
+                               prompt_len=prompt_len, handoff=True)
+
     def drop(self, req: int) -> None:
         """A preempted request: its record restarts at re-admission."""
         self.meta.pop(req, None)
@@ -750,7 +782,11 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
     traces) gates admission; ``static_batching`` admits only when the
     engine is idle (the run-to-completion baseline). After each call
     ``run.last_stats`` holds ``requests``, ``generated``, ``waves``,
-    ``latency_ms`` (admission → retirement, host clock), ``kv`` (allocator
+    ``latency_ms`` (admission → retirement, host clock), ``retired_ms``
+    (the call's start → retirement, host clock), ``flash_prefills`` (the
+    prefills through flash attention: K1 once a layer each on the card),
+    ``kv_imports`` and ``import_ms`` (handoff admissions and their device
+    ms on the card, else None), ``kv`` (allocator
     high-water, physical and logical blocks, utilisation against the dense
     ``slots × max_len`` reservation, lazily grown blocks), ``sched``
     (policy, preemptions, admit and turnaround waves) and ``prefix``
@@ -1019,6 +1055,58 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
             _request_key(rng, req, 0), torch.long)
         return pick(logits_row, key)
 
+    def admit_imported(rstate, slot: int, req: int, length: int, payload):
+        """An admission from a prefill→decode handoff payload (another
+        engine's ``prefill_session``): the full block grant, the table with
+        the position at the payload's length, and the payload's rows
+        imported in place into the first ``ceil(length / kv_block)``
+        blocks — no prefill. Returns ``(first token, entries)``, or None
+        when the blocks do not fit (hold; the source keeps the payload)."""
+        if prefix is not None:
+            raise ValueError(
+                "imported admissions need an engine without a template "
+                "prefix= — the payload's rows start at position 0")
+        if sampler is not None:
+            raise ValueError(
+                "imported admissions are greedy-only: the handoff "
+                "payload's first token was picked by the (greedy) "
+                "prefill worker")
+        if int(payload["n_tokens"]) != length:
+            raise ValueError(
+                f"handoff payload covers {payload['n_tokens']} tokens "
+                f"for a {length}-token prompt — foreign payload?")
+        got = rstate.admit_blocks(req, length, share=False)
+        if got is None:
+            return None
+        row, tail, _start, _cov, entries = got
+        first = torch.as_tensor(payload["first"])
+        ready = payload.get("ready")
+        timed = None
+        if dev.type == "cuda":
+            here = torch.cuda.current_stream(dev)
+            if ready is not None:
+                # the exporting worker's stream wrote the rows and the
+                # token: this stream waits for them, and the allocator
+                # keeps their memory until this stream's reads are done
+                here.wait_event(ready)
+            for buf in [first, *(b for bufs in payload["blocks"].values()
+                                 for b in bufs)]:
+                if buf.is_cuda:
+                    buf.record_stream(here)
+            timed = (torch.cuda.Event(enable_timing=True),
+                     torch.cuda.Event(enable_timing=True))
+            timed[0].record(here)
+        admit_table(rstate.pool, slot, row, tail, length)
+        nb = blocks_for_rows(length, bs)
+        import_block_rows(rstate.pool, rstate.owned[req][:nb],
+                          payload["blocks"])
+        rstate.n_imports += 1
+        if timed is not None:
+            timed[1].record(here)
+            rstate.imports.append(timed)
+        return (first.to(dev, non_blocking=True) if first.device != dev
+                else first), entries
+
     @torch.no_grad()
     def chunk_step(pool, slot: int, chunk):
         """One ``[1, C]`` prefill chunk at the slot's position. Pad rows of
@@ -1112,6 +1200,15 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
             self.preempted = 0
             self.admit_wave: dict[int, int] = {}
             self.retire_wave: dict[int, int] = {}
+            # the call's start (every arrival's origin) and each
+            # retirement's ms from it; the prefills run through flash
+            # attention (K1 once a layer each on the card); the handoff
+            # imports and, on the card, their (start, end) events
+            self.t0 = time.monotonic()
+            self.retired_ms: list[float] = []
+            self.flash_prefills = 0
+            self.imports: list = []
+            self.n_imports = 0
             self.prefix_stats = {"hit_blocks": 0, "lookups": 0,
                                  "prompt_blocks": 0, "tokens_saved": 0,
                                  "reclaim_blocked_live": 0,
@@ -1138,6 +1235,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                 forward_paged(cur["prefill"], prefix[None], sub, cfg,
                               cur["rules"], prefill_impl=prefix_impl,
                               paged_kernel="off", replicated=True)
+                self.flash_prefills += prefix_impl == "flash"
 
         def _chunks_for(self, req: int, length: int) -> list:
             """The prompt's candidate chain chunks; at least one prompt
@@ -1148,16 +1246,18 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                 chunks.pop()
             return chunks
 
-        def admit_blocks(self, req: int, length: int):
+        def admit_blocks(self, req: int, length: int, *, share: bool = True):
             """Allocate the request's blocks, sharing indexed full leading
             prompt blocks first (refcount++, read-only for this request);
             None = hold in queue. Returns ``(row, tail, start, covered,
             entries)``: the table row, the prefix tail copy ``(src, dst)``
             or None, the prefill start position, the prompt tokens the
-            shared blocks cover, and the table entries granted."""
+            shared blocks cover, and the table entries granted.
+            ``share=False`` leaves the index out (an imported admission's
+            rows arrive as bytes, not as tokens this engine hashed)."""
             shared: list[int] = []
             cov = n_chunks = dev_k = 0
-            if self.index is not None:
+            if share and self.index is not None:
                 chunks = self._chunks_for(req, length)
                 n_chunks = len(chunks)
                 if self.host is not None:
@@ -1199,7 +1299,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                     self.alloc.free(shared)       # undo the shares
                 return None
             # stats count admissions, not the probes of a held request
-            if self.index is not None:
+            if share and self.index is not None:
                 ps = self.prefix_stats
                 ps["lookups"] += 1
                 ps["prompt_blocks"] += n_chunks
@@ -1358,6 +1458,31 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                 "blocks_grown_lazy": self.grown_lazy,
             }
 
+        def retired(self) -> None:
+            self.retired_ms.append((time.monotonic() - self.t0) * 1e3)
+
+        def run_stats(self) -> dict:
+            """The call's own records: call start → retirement ms
+            (arrival → completion when every request arrives at the
+            start), the flash prefills, and the handoff imports with
+            their device ms (None off the card)."""
+            done = sorted(self.retired_ms)
+
+            def q(p):
+                return (round(done[min(len(done) - 1, int(p * len(done)))],
+                              3) if done else None)
+
+            import_ms = None
+            if self.imports:
+                self.imports[-1][1].synchronize()
+                import_ms = round(sum(a.elapsed_time(b)
+                                      for a, b in self.imports), 3)
+            return {"retired_ms": {"p50": q(0.5), "p99": q(0.99),
+                                   "max": (round(done[-1], 3) if done
+                                           else None)},
+                    "flash_prefills": self.flash_prefills,
+                    "kv_imports": self.n_imports, "import_ms": import_ms}
+
         def sched_stats(self) -> dict:
             rw = sorted(self.retire_wave.values())
             aw = sorted(self.admit_wave.values())
@@ -1415,6 +1540,8 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
     def empty_stats() -> dict:
         return {"requests": 0, "generated": 0, "waves": 0,
                 "latency_ms": {"p50": None, "p99": None, "max": None},
+                "retired_ms": {"p50": None, "p99": None, "max": None},
+                "flash_prefills": 0, "kv_imports": 0, "import_ms": None,
                 "kv": {"num_blocks": 0, "reserved": 0, "in_use": 0,
                        "free": 0, "high_water": 0, "refs_total": 0,
                        "block_size": bs, "peak_rows": 0, "dense_rows": 0,
@@ -1472,6 +1599,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                     _select_prefill_impl(cfg, length, "auto", dev))
             logits_row = admit_full(rstate.pool, slot, suffix, impl, row,
                                     tail, start)
+            rstate.flash_prefills += impl == "flash"
         else:
             admit_table(rstate.pool, slot, row, tail, start)
             chunks, last_idx, true_pos = chunk_split(suffix, length - cov,
@@ -1533,6 +1661,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
             rstate.retire_wave[req] = waves
             rstate.retire_blocks(req)
             latencies.append((time.monotonic() - admitted_at.pop(req)) * 1e3)
+            rstate.retired()
             tel.retire(req, ntok, req_steps.get(req, 0))
 
         while not sched.exhausted() or active or stalled:
@@ -1650,6 +1779,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
             "requests": len(toks), "generated": generated, "waves": waves,
             "latency_ms": {"p50": q(0.5), "p99": q(0.99),
                            "max": round(lat[-1], 3)},
+            **rstate.run_stats(),
             "kv": rstate.kv_stats(), "sched": rstate.sched_stats(),
             "prefix": rstate.prefix_summary(),
             "slot_steps": slot_steps,
@@ -1667,14 +1797,36 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
             eos_id: int | None = None, rng=None, eos_check_every: int = 1,
             arrivals=None, kv_blocks: int | None = None,
             static_batching: bool = False, priorities=None, rules=None,
-            **run_levers):
-        _refuse_levers(run_levers, _RUN_LATER, "run")
+            admission: AdmissionSource | None = None):
         check_serve_rules(rules, cfg)
         run.last_stats = None
         tel.start()
+        if admission is not None:
+            # an injected source owns order, timing and the imports: the
+            # knobs that overlap it must be absent, not ignored
+            if arrivals is not None:
+                raise ValueError(
+                    "admission= owns arrival gating — drop arrivals")
+            if static_batching:
+                raise ValueError(
+                    "admission= replaces the engine's scheduler; "
+                    "static_batching configures the built-in one")
+            if priorities is not None:
+                raise ValueError(
+                    "admission= replaces the engine's policy order; "
+                    "priorities configure the built-in one")
+            if spec_k is not None:
+                raise ValueError(
+                    "external admission drives the plain wave loop "
+                    "only — drop spec_k")
+            if admission.warm_chains() is not None \
+                    or admission.chain_sink() is not None:
+                raise NotImplementedError(
+                    "warm bring-up chains and a drain-time chain sink are "
+                    f"not ported yet — ROADMAP.md, {_ELASTIC}")
         if not prompts:
             run.last_stats = empty_stats()
-            return []
+            return {} if admission is not None else []
         if eos_check_every < 1:
             raise ValueError(
                 f"eos_check_every must be >= 1, got {eos_check_every}")
@@ -1745,8 +1897,9 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
         use_rules(rules)
         rstate = _Run(slots, kv_blocks, n_new_of, lens,
                       [t.tolist() for t in flat] if share_prefix else None)
-        sched = _Sched(lens, n_new_of, policy, aging, priorities, arrivals,
-                       time.monotonic())
+        sched = admission if admission is not None else _Sched(
+            lens, n_new_of, policy, aging, priorities, arrivals,
+            time.monotonic())
         if spec_k is not None:
             return run_spec(rstate, sched, toks, lens, n_new_of, eos_id)
         pool, graph = rstate.pool, rstate.graph
@@ -1788,8 +1941,10 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
             rstate.retire_wave[req] = len(hist)
             rstate.retire_blocks(req)
             latencies.append((time.monotonic() - admitted_at.pop(req)) * 1e3)
+            rstate.retired()
             tel.retire(req, ntok, steps)
             set_fold(span[req][0], None)
+            sched.retired(req, ntok)
 
         def activate(slot: int, req: int, first, entries: int) -> None:
             nonlocal admit_counter
@@ -1846,6 +2001,8 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                         del stalled[slot]
             admit_ok = not static_batching or (not active and not filling
                                                and not stalled)
+            # the drain hook: no new admissions, the active slots step on
+            admit_ok = admit_ok and not sched.draining()
             for slot in range(slots):
                 if not admit_ok or slot in active or slot in filling \
                         or slot in stalled:
@@ -1854,6 +2011,17 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                 if req is None:
                     break                 # empty, or nothing arrived yet
                 length = lens[req]
+                payload = sched.kv_import(req)
+                if payload is not None:
+                    # a prefill→decode handoff: import, no prefill here
+                    got = admit_imported(rstate, slot, req, length, payload)
+                    if got is None:
+                        break             # blocks exhausted: hold
+                    sched.pop(req)
+                    admitted_at[req] = time.monotonic()
+                    tel.admit(req, sched)
+                    activate(slot, req, *got)
+                    continue
                 got = rstate.admit_blocks(req, length)
                 if got is None:
                     break                 # blocks exhausted: hold
@@ -1868,6 +2036,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                             _select_prefill_impl(cfg, length, "auto", dev))
                     first = pick_first(admit_full(pool, slot, suffix, impl,
                                                   row, tail, start), req, rng)
+                    rstate.flash_prefills += impl == "flash"
                     rstate.register_prefix(req)
                     tel.prefill(req, clk0, length)
                     activate(slot, req, first, entries)
@@ -1978,23 +2147,25 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
         tel.gauges(rstate, None, 0)
 
         waves = torch.stack(hist) if hist else None      # [W, slots]
-        outs = []
-        for req in range(len(toks)):
+        # an injected source's run serves only what it yielded: a dict
+        # keyed by request (the router merges its replicas')
+        outs: dict[int, Any] = {}
+        for req in sorted(done_at):
             n, (slot, sw) = done_at[req], span[req]
             head = firsts[req].reshape(1)
             if n == 1:
-                outs.append(head)
+                outs[req] = head
             elif req in frag:
                 idx = torch.tensor(frag[req][:n - 1], device=dev)
-                outs.append(torch.cat([head, waves[idx, slot]]))
+                outs[req] = torch.cat([head, waves[idx, slot]])
             else:
                 # the n - 1 waves while req held its slot: one emission each
-                outs.append(torch.cat([head, waves[sw:sw + n - 1, slot]]))
+                outs[req] = torch.cat([head, waves[sw:sw + n - 1, slot]])
         if eos_id is not None and eos_check_every > 1:
             # a count-cap retirement can precede the scan that would have
             # seen an eos (and a first-token eos is never scanned): cut at
             # the first eos, as the per-wave check would have
-            for i, o in enumerate(outs):
+            for i, o in outs.items():
                 vals = o.tolist()
                 n = next((j + 1 for j, t in enumerate(vals) if t == eos_id),
                          len(vals))
@@ -2002,24 +2173,186 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
         lat = sorted(latencies)
 
         def q(p):
-            return round(lat[min(len(lat) - 1, int(p * len(lat)))], 3)
+            return (round(lat[min(len(lat) - 1, int(p * len(lat)))], 3)
+                    if lat else None)
 
         run.last_stats = {
             "requests": len(outs),
-            "generated": sum(int(o.shape[0]) for o in outs),
+            "generated": sum(int(o.shape[0]) for o in outs.values()),
             "waves": len(hist),
             "latency_ms": {"p50": q(0.5), "p99": q(0.99),
-                           "max": round(lat[-1], 3)},
+                           "max": round(lat[-1], 3) if lat else None},
+            **rstate.run_stats(),
             "kv": rstate.kv_stats(),
             "sched": rstate.sched_stats(),
             "prefix": rstate.prefix_summary(),
         }
-        return outs
+        if admission is not None:
+            return outs
+        return [outs[i] for i in range(len(toks))]
+
+    class _PrefillSession:
+        """A prefill worker's state for the disaggregated fleet
+        (``models/fleet.py``): a one-slot paged pool that prefills one
+        prompt a call and exports its blocks as a handoff payload
+        (``paging.export_block_rows``) for a decode engine's ``kv_import``
+        admission. Under ``share_prefix`` its index keeps template blocks
+        across calls (up to ``prefix_keep_blocks``), so a repeated template
+        prefills once a worker."""
+
+        def __init__(self, kv_blocks: int | None):
+            if kv_blocks is None:
+                kv_blocks = 1 + nt + (prefix_keep_blocks if share_prefix
+                                      else 0)
+            if kv_blocks < 1 + nt:
+                raise ValueError(
+                    f"prefill session needs >= {1 + nt} blocks (one full "
+                    f"table + the garbage block), got {kv_blocks}")
+            self.alloc = BlockAllocator(kv_blocks)
+            self.index = (PrefixIndex(self.alloc, prefix_keep_blocks)
+                          if share_prefix else None)
+            self.pool = init_paged_cache(cfg, 1, max_len, block_size=bs,
+                                         num_blocks=kv_blocks,
+                                         cache_dtype=cache_dtype, device=dev)
+            self.stats = {"requests": 0, "hit_blocks": 0,
+                          "prompt_blocks": 0, "tokens_saved": 0,
+                          "flash_prefills": 0}
+            self._exports: list = []      # (start, ready) on the card
+
+        def _alloc_reclaiming(self, n: int) -> list[int]:
+            blocks = self.alloc.alloc(n)
+            while blocks is None and self.index is not None:
+                if not self.index.reclaim(n - self.alloc.free_blocks):
+                    break
+                blocks = self.alloc.alloc(n)
+            if blocks is None:
+                # sized for a full table, so only a caller-shrunk pool gets
+                # here: loud, there is no queue to hold in
+                raise ValueError(
+                    f"prefill session pool exhausted allocating {n} "
+                    f"blocks — raise its kv_blocks")
+            return blocks
+
+        @torch.no_grad()
+        def prefill(self, prompt) -> dict:
+            """Prefill ``prompt`` (``[L]`` tokens) and return the handoff
+            payload ``{"first", "n_tokens", "blocks"}`` — the whole blocks
+            over rows ``0..L-1`` and the greedy first token — plus, on the
+            card, ``"ready"``: an event on this thread's stream after the
+            export, which the importer's stream waits on. The math of a
+            colocated admission (the same prefill choice, the same
+            unshared-suffix start), so the importer continues exactly."""
+            prompt = torch.as_tensor(prompt).long().reshape(-1)
+            length = int(prompt.shape[0])
+            if length < 1:
+                raise ValueError("prompts must have at least one token")
+            if length >= max_len:
+                raise ValueError(
+                    f"prompt ({length}) must leave room for at least one "
+                    f"generated token under max_len ({max_len})")
+            shared: list[int] = []
+            cov = 0
+            chunks: list = []
+            if self.index is not None:
+                chunks = chain_chunks(prompt.tolist(), bs)
+                # one prompt token stays to forward: its logits pick the
+                # first generated token
+                while chunks and chunk_tokens_covered(
+                        len(chunks), bs) > length - 1:
+                    chunks.pop()
+                shared = self.index.match(chunks)
+                cov = chunk_tokens_covered(len(shared), bs)
+            k = len(shared)
+            own = self._alloc_reclaiming(blocks_for_rows(length - k * bs,
+                                                         bs))
+            row = np.zeros((nt,), np.int32)
+            row[:k] = shared
+            row[k:k + len(own)] = own
+            impl = ("cached" if cov
+                    else _select_prefill_impl(cfg, length, "auto", dev))
+            clk0 = tel.clock()
+            first = admit_full(self.pool, 0, prompt.to(dev)[cov:], impl, row,
+                               None, cov).argmax(dim=-1)
+            self.stats["flash_prefills"] += impl == "flash"
+            if self.index is not None:
+                self.index.register(
+                    chunks, [int(row[j]) for j in range(len(chunks))])
+                self.stats["hit_blocks"] += k
+                self.stats["prompt_blocks"] += len(chunks)
+                self.stats["tokens_saved"] += cov
+            self.stats["requests"] += 1
+            tel.handoff(clk0, length)
+            nb = blocks_for_rows(length, bs)
+            if dev.type == "cuda":
+                here = torch.cuda.current_stream(dev)
+                start = torch.cuda.Event(enable_timing=True)
+                start.record(here)
+            payload = {"first": first, "n_tokens": length,
+                       "blocks": export_block_rows(
+                           self.pool, [int(row[j]) for j in range(nb)])}
+            if dev.type == "cuda":
+                payload["ready"] = torch.cuda.Event(enable_timing=True)
+                payload["ready"].record(here)
+                self._exports.append((start, payload["ready"]))
+            # this request's references drop; registered template blocks
+            # stay through the index's own (LRU capped)
+            self.alloc.free(shared + own)
+            if self.index is not None:
+                self.index.trim()
+            return payload
+
+        def export_ms(self) -> float | None:
+            """Device ms of this session's exports, summed (None off the
+            card)."""
+            if not self._exports:
+                return None
+            self._exports[-1][1].synchronize()
+            return round(sum(a.elapsed_time(b) for a, b in self._exports),
+                         3)
+
+        def close(self) -> None:
+            if self.index is not None:
+                self.index.release()
+
+    def prefill_session(*, kv_blocks: int | None = None):
+        """Open a prefill-worker session (:class:`_PrefillSession`): greedy
+        engines without ``prefix``, ``prefill_chunk``, ``spec_k`` or
+        ``host_spill`` — the payload carries one greedy first token and
+        device rows from position 0. It prefills through the unsharded
+        tree, with the colocated admission's prefill choice (K1 on the
+        card)."""
+        if sampler is not None:
+            raise ValueError("prefill sessions are greedy-only — the "
+                             "payload's first token has no rng lane")
+        if spec_k is not None:
+            raise ValueError("prefill sessions prefill and hand off — "
+                             "spec_k belongs to the decode engine")
+        if prefix is not None:
+            raise ValueError("prefill sessions need prefix=None: the "
+                             "payload's rows must start at position 0")
+        if prefill_chunk is not None:
+            raise ValueError(
+                "prefill sessions use the one-forward prefill — "
+                "prefill_chunk's interleaving needs the wave loop; build "
+                "the prefill-worker engine without it")
+        if host_spill:
+            # a payload exports DEVICE rows; a spilled chain's bytes live on
+            # the host, so its donation would export whatever now sits in
+            # the recycled device blocks
+            raise ValueError(
+                "prefill sessions hand off device-resident blocks — a "
+                "host-spilled chain has no device rows to export, so "
+                "host_spill does not compose with kv_import donation; "
+                "build the prefill-worker engine without host_spill "
+                "(decode-side engines may still spill)")
+        use_rules(None)
+        return _PrefillSession(kv_blocks)
 
     run.last_stats = None
     run.step = step
     run.captures = 0
     run.capture = capture
+    run.prefill_session = prefill_session
     return run
 
 

@@ -15,13 +15,23 @@ C entry points take device pointers and the stream as ``c_void_p`` and
 return ``cudaGetLastError()`` after the launch; :func:`check` raises on a
 non-zero code, so a refused launch can never pass silently.
 
-``launches`` holds one launch count per kernel: each wrapper adds one
-where it launches its kernel, and nowhere else.
+``launches`` holds one launch count per kernel: each wrapper adds one,
+through :func:`count`, where it launches its kernel, and nowhere else.
+:func:`count` is atomic across threads (a fleet's replicas are threads
+launching at once); :func:`tally` gives one thread its own counts beside
+the process's, and :func:`capture_tally` takes a graph capture's calls
+out of them (a capture records kernels, it runs none).
+
+Processes that build at once (a fleet's replica children) take an
+``fcntl`` lock on the build directory, so one compiles and the others find
+its library.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -43,6 +53,8 @@ launches: dict[str, int] = {"flash_fwd": 0, "flash_partial": 0,
                             "sample_draw": 0}
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
+_local = threading.local()
 _lib: ctypes.CDLL | None = None
 
 _P = ctypes.c_void_p
@@ -96,8 +108,52 @@ _SIGNATURES = {
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    for name in launches:
-        launches[name] = 0
+    with _count_lock:
+        for name in launches:
+            launches[name] = 0
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` launches of kernel ``name``: to ``launches`` (under a
+    lock) and to each :func:`tally` this thread holds open — or, while this
+    thread captures a graph (:func:`capture_tally`), to the capture's tally
+    alone."""
+    cap = getattr(_local, "capture", None)
+    if cap is not None:
+        cap[name] = cap.get(name, 0) + n
+        return
+    with _count_lock:
+        launches[name] += n
+    for t in getattr(_local, "tallies", ()):
+        t[name] = t.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def tally():
+    """Yield a dict of the launches this thread makes inside the block,
+    kernel by kernel (the process's ``launches`` still count them)."""
+    own: dict[str, int] = {}
+    stack = _local.__dict__.setdefault("tallies", [])
+    stack.append(own)
+    try:
+        yield own
+    finally:
+        # by identity: an equal dict of an enclosing tally stays open
+        del stack[next(i for i in range(len(stack) - 1, -1, -1)
+                       if stack[i] is own)]
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """Yield a dict that takes this thread's launch counts while a graph is
+    captured, instead of ``launches`` and the open tallies."""
+    prev = getattr(_local, "capture", None)
+    cap: dict[str, int] = {}
+    _local.capture = cap
+    try:
+        yield cap
+    finally:
+        _local.capture = prev
 
 
 def sources() -> list[Path]:
@@ -126,7 +182,19 @@ def _digest(srcs: list[Path]) -> str:
 
 def build() -> Path:
     """Compile ``csrc/*.cu`` (in parallel) and link the shared library;
-    a no-op when the stamp matches. Returns the library path."""
+    a no-op when the stamp matches. Returns the library path. The check
+    and the build hold an exclusive ``fcntl`` lock on the build directory,
+    so processes that build at once build once."""
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    with open(_BUILD / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _build_locked()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build_locked() -> Path:
     srcs = sources()
     lib_path = _BUILD / _LIB_NAME
     stamp = _BUILD / "stamp"
@@ -134,7 +202,6 @@ def build() -> Path:
     if lib_path.exists() and stamp.exists() \
             and stamp.read_text() == digest:
         return lib_path
-    _BUILD.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = []
     for src in srcs:

@@ -236,7 +236,7 @@ def kv_decode_attention(q, k_cache, v_cache, pos, *, scale: float,
         s_total, shape[2], float(scale), _build.dtype_code(q.dtype),
         int(quant), stream)
     _build.check(rc, "kv_decode")
-    _build.launches["kv_decode"] += 1
+    _build.count("kv_decode")
     return out
 
 
@@ -305,5 +305,5 @@ def paged_decode_attention(q, k_pool, v_pool, tables, pos, *,
         _build.dtype_code(q.dtype), stream)
     name = "paged_decode_int8" if quant else "paged_decode"
     _build.check(rc, name)
-    _build.launches[name] += 1
+    _build.count(name)
     return out

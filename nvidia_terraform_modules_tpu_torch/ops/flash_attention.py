@@ -248,7 +248,7 @@ def _flash_cuda(q, k, v, scale: float, spec: MaskSpec, partial: bool):
             *[t.data_ptr() for t in stats], b, s, k.shape[1], h,
             k.shape[2], d, *strides, *tail)
         _build.check(rc, "flash_partial")
-        _build.launches["flash_partial"] += 1
+        _build.count("flash_partial")
         return acc, *stats
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     rc = _build.lib().tk_flash_fwd(
@@ -256,7 +256,7 @@ def _flash_cuda(q, k, v, scale: float, spec: MaskSpec, partial: bool):
         stats[0].data_ptr(), b, s, h, k.shape[2], d, *strides,
         *[o.stride(i) for i in (0, 1, 2)], *tail)
     _build.check(rc, "flash_fwd")
-    _build.launches["flash_fwd"] += 1
+    _build.count("flash_fwd")
     return o, stats[0]
 
 
@@ -435,7 +435,7 @@ def _bwd_cuda(kernel: str, q, k, v, do, lse, delta, scale: float,
         (out,) = empty(1)
         rc = lib.tk_flash_dq(*ptrs, out.data_ptr(), *tail)
     _build.check(rc, kernel)
-    _build.launches[kernel] += 1
+    _build.count(kernel)
     return out
 
 

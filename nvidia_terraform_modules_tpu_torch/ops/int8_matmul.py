@@ -142,5 +142,5 @@ def int8_matmul(x, w, scale, *, transpose_rhs: bool = False):
         _build.dtype_code(x.dtype),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "int8_matmul")
-    _build.launches["int8_matmul"] += 1
+    _build.count("int8_matmul")
     return out

@@ -217,7 +217,7 @@ def _launch(logits, keys, offsets, fold, scores):
         None if sc is None else sc.data_ptr(), s, v,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "sample_draw")
-    _build.launches["sample_draw"] += 1
+    _build.count("sample_draw")
     return (out, sc) if scores else out
 
 

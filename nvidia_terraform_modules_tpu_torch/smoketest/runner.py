@@ -90,7 +90,7 @@ from ..utils.traffic import shared_prefix_prompts
 
 LEVELS = ("psum", "probes", "burnin", "full")
 
-_FLEET = "ROADMAP Queue A item 9"
+_ELASTIC = "ROADMAP Queue A item 9c (fleet stack: elastic plane and prefix CDN)"
 # legs of the reference's runner that this port does not run yet: key →
 # (the levels it belongs to, where it is queued)
 NOT_PORTED = {
@@ -99,11 +99,10 @@ NOT_PORTED = {
     "flash_pipeline_ok": (("burnin", "full"),
                           "not queued (the port's kernels have no "
                           "pipeline keyword)"),
-    "serve_fleet_ok": (("burnin", "full"), _FLEET),
-    "fleet_chaos_ok": (("burnin", "full"), _FLEET),
-    "fleet_scale_ok": (("burnin", "full"), _FLEET),
-    "aot_warm_ok": (("burnin", "full"), _FLEET),
-    "prefix_cdn_ok": (("burnin", "full"), _FLEET),
+    "fleet_scale_ok": (("burnin", "full"), _ELASTIC),
+    "aot_warm_ok": (("burnin", "full"),
+                    "ROADMAP Queue A item 9d (fleet stack: AOT warm cache)"),
+    "prefix_cdn_ok": (("burnin", "full"), _ELASTIC),
 }
 
 
@@ -494,14 +493,118 @@ def _serve_legs(checks, cfg, params, batch, rules, dev, gen, leg,
         checks.update(rec)
         return flag
 
+    fleet_state: dict = {}
+
+    def serve_fleet():
+        fcfg, fparams = small(13)
+        flag, rec, state = serve_fleet_leg(fparams, fcfg, dev)
+        checks.update(rec)
+        fleet_state.update(state, cfg=fcfg, params=fparams)
+        return flag
+
+    def fleet_chaos():
+        flag, rec = fleet_chaos_leg(fleet_state["params"], fleet_state["cfg"],
+                                    dev, fleet_state["prompts"],
+                                    fleet_state["base"])
+        checks.update(rec)
+        return flag
+
     for key, fn in (("serve_engine_ok", serve_engine),
                     ("serve_sched_ok", serve_sched),
                     ("paged_decode_ok", paged_decode),
+                    ("serve_fleet_ok", serve_fleet),
+                    ("fleet_chaos_ok", fleet_chaos),
                     ("kv_spill_ok", kv_spill)):
         if not ok:
             break
         ok &= leg(key[:-3], lambda: guarded(key, fn))
     return bool(ok)
+
+
+def _fleet_wave(cfg: BurnInConfig, dev):
+    """The reference's fleet legs' wave: ``shared_prefix_prompts(6,
+    seed=2)`` over 2 templates of 8 tokens, budgets ``[3, 5, 2, 4, 3,
+    2]``."""
+    prompts = [torch.tensor(p, dtype=torch.long, device=dev)
+               for _t, p in shared_prefix_prompts(
+                   6, seed=2, n_templates=2, template_len=8, suffix_lo=1,
+                   suffix_hi=4, vocab=cfg.vocab)]
+    budgets = [3, 5, 2, 4, 3, 2]
+    max_len = max(int(p.shape[-1]) + n for p, n in zip(prompts, budgets))
+    return prompts, budgets, max_len
+
+
+def serve_fleet_leg(params, cfg: BurnInConfig, dev):
+    """The reference's fleet router gate: a 2-replica affinity fleet on
+    the shared-prefix wave must equal the single engine token for token,
+    shed nothing, place every request by affinity and drain both pools.
+    Returns the verdict, the line's ``serve_fleet_*`` fields, and the
+    prompts and single-engine outputs the chaos leg reuses."""
+    from ..models import make_fleet
+
+    prompts, budgets, max_len = _fleet_wave(cfg, dev)
+    base = make_serve_engine(params, cfg, max_len=max_len, kv_block=4,
+                             share_prefix=True, device=dev)
+    b_outs = base(prompts, budgets, slots=2)
+    fleet = make_fleet(params, cfg, max_len=max_len, replicas=2, kv_block=4,
+                       share_prefix=True, steal=False, device=dev)
+    f_outs = fleet(prompts, budgets, slots=2)
+    fst = fleet.last_stats["fleet"]
+    flag = (all(o is not None and torch.equal(o, b)
+                for o, b in zip(f_outs, b_outs))
+            and fst["shed"] == 0 and fst["affinity_routed_frac"] == 1.0
+            and all(rs["kv"]["in_use"] == 0
+                    for rs in fleet.last_stats["replica_stats"]))
+    return flag, {"serve_fleet_hit_blocks": fst["affinity_hit_blocks"],
+                  "serve_fleet_replicas": fst["replicas"]}, {
+        "prompts": prompts, "base": b_outs}
+
+
+# the chaos leg's kill, and its victim's first-wave stall past it (beyond
+# the reference's schedule): the kill lands while the victim holds requests
+# however fast the device serves the wave
+CHAOS_KILL_S = 0.05
+CHAOS_STALL_S = 2 * CHAOS_KILL_S
+
+
+def fleet_chaos_leg(params, cfg: BurnInConfig, dev, prompts, base_outs):
+    """The reference's fleet chaos gate: a 3-replica fleet with a seeded
+    kill of the replica the first prompt routes to, at ``CHAOS_KILL_S``,
+    must serve every request equal to the single engine, shed nothing, lose
+    exactly one replica and drain the survivors' pools. The victim also
+    stalls its first wave by ``2 * CHAOS_KILL_S`` (a ``slow_replica``), so
+    the kill always finds it mid-run — a departure from the reference's
+    schedule, which arms the kill alone; the line's
+    ``fleet_chaos_stall_s`` states it. Returns the verdict and the line's
+    ``fleet_chaos_redriven`` and ``fleet_chaos_stall_s``."""
+    from ..models.fleet import (
+        FleetFault,
+        FleetFaultProfile,
+        HashRing,
+        affinity_key,
+        make_fleet,
+    )
+
+    _prompts, budgets, max_len = _fleet_wave(cfg, dev)
+    victim = HashRing(3).target(affinity_key(prompts[0], 4))
+    chaos = make_fleet(
+        params, cfg, max_len=max_len, replicas=3, kv_block=4,
+        share_prefix=True, steal=False, device=dev,
+        faults=FleetFaultProfile(
+            [FleetFault("kill_replica", target=victim, at_s=CHAOS_KILL_S),
+             FleetFault("slow_replica", target=victim, at_s=0.0,
+                        stall_s=CHAOS_STALL_S, waves=1)], seed=0))
+    c_outs = chaos(prompts, budgets, slots=2)
+    cst = chaos.last_stats["fleet"]
+    flag = (all(o is not None and torch.equal(o, b)
+                for o, b in zip(c_outs, base_outs))
+            and cst["served"] == len(prompts) and cst["shed"] == 0
+            and cst["faults"]["replica_down"] == 1
+            and all(rs["kv"]["in_use"] == 0
+                    for rs in chaos.last_stats["replica_stats"]
+                    if rs is not None))
+    return flag, {"fleet_chaos_redriven": cst["faults"]["redriven"],
+                  "fleet_chaos_stall_s": CHAOS_STALL_S}
 
 
 def kv_spill_leg(params, cfg: BurnInConfig, dev) -> tuple[bool, dict]:

@@ -3,8 +3,9 @@
 """Seeded workload draws — a stdlib copy of the reference's
 ``utils/traffic.py``: arrival traces (``poisson_trace``, ``diurnal_trace``,
 ``spike_trace``, the string-keyed ``make_trace``, ``trace_summary``),
-``ragged_lengths`` and the Zipf template workload
-``shared_prefix_prompts``.
+``ragged_lengths``, the Zipf template workload
+``shared_prefix_prompts``, and the fleet's SLO deadlines
+(``slo_deadlines``) and mid-trace fault instants (``fault_times``).
 
 Kept byte-for-byte in behaviour: one ``(seed, params)`` yields the same
 trace, lengths and prompts as the reference, so a port run and a
@@ -201,6 +202,47 @@ def shared_prefix_prompts(n: int, seed: int = 0, *,
                   for _ in range(r.randint(suffix_lo, suffix_hi))]
         out.append((tid, templates[tid] + suffix))
     return out
+
+
+def slo_deadlines(budgets: Sequence[int], seed: int = 0, *,
+                  base_s: float = 0.05, per_token_s: float = 0.01,
+                  jitter: float = 0.25) -> list[float]:
+    """Per-request SLO deadlines, in seconds from each request's arrival:
+    ``(base_s + per_token_s * budgets[i]) * u_i`` with ``u_i`` uniform on
+    ``[1 - jitter, 1 + jitter]`` — proportional to the work, with seeded
+    per-request slack. The fleet router sheds a request whose predicted
+    completion blows its deadline (``models/fleet.py``)."""
+    if base_s <= 0 or per_token_s < 0:
+        raise ValueError(
+            f"need base_s > 0 and per_token_s >= 0, got "
+            f"base_s={base_s} per_token_s={per_token_s}")
+    if not 0.0 <= jitter < 1.0:
+        raise ValueError(f"jitter must be in [0, 1), got {jitter}")
+    for b in budgets:
+        if b < 1:
+            raise ValueError(f"budgets must be >= 1, got {b}")
+    r = _rng(seed, salt="slo")
+    return [(base_s + per_token_s * int(b))
+            * (1.0 + jitter * (2.0 * r.random() - 1.0))
+            for b in budgets]
+
+
+def fault_times(times: Sequence[float], n: int = 1, seed: int = 0, *,
+                lo: float = 0.25, hi: float = 0.75) -> list[float]:
+    """``n`` seeded fault instants inside an arrival trace: uniform over the
+    ``[lo, hi]`` fraction of its horizon, ascending — kills that land
+    while requests are in flight (the fleet's ``FleetFaultProfile``)."""
+    if n < 0:
+        raise ValueError(f"n must be >= 0, got {n}")
+    if not times:
+        raise ValueError("fault_times needs a non-empty arrival trace")
+    if not 0.0 <= lo <= hi <= 1.0:
+        raise ValueError(
+            f"need 0 <= lo <= hi <= 1, got lo={lo} hi={hi}")
+    horizon = max(times)
+    r = _rng(seed, salt="fault")
+    return sorted(horizon * (lo + (hi - lo) * r.random())
+                  for _ in range(n))
 
 
 def trace_summary(times: Sequence[float]) -> dict[str, float]:

@@ -41,7 +41,10 @@ pipeline's stages attend through K1 and K5 within 1e-4 (f32) of the plain
 dense stage, the ring and Ulysses on an NCCL world of one launch K2
 and K5, or K1 and K5, once a layer, and a sequence shard's flash
 attention against the gathered K/V (flash over ``sp``) runs K2 and K5 on
-the blocks up to its own within 1e-4 (f32) of the plain dense math.
+the blocks up to its own within 1e-4 (f32) of the plain dense math. The
+fleet's replicas capture their waves at once on their own streams, and the
+router hands their outputs, and a prefill worker its handoff, to the
+stream that reads them: stalled streams change no token.
 """
 
 import dataclasses
@@ -1992,3 +1995,155 @@ def test_spilling_engine_on_card_equals_engine_without_the_tier(cuda,
     for p, a, b in zip(prompts, got, plain):
         solo = greedy_decode(params, p[None], 6, cfg, device=cuda)[0]
         assert torch.equal(a, b) and torch.equal(a, solo)
+
+
+def _fleet_case(cuda):
+    """A flash f32 config (K1 prefills, K7 waves) and two-template
+    prompts."""
+    cfg = BurnInConfig(vocab=256, d_model=128, n_heads=2, n_kv_heads=1,
+                       d_ff=256, n_layers=2, attn="flash",
+                       dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(8),
+                         device=cuda)
+    g = torch.Generator().manual_seed(9)
+    tmpl = [torch.randint(0, cfg.vocab, (16,), generator=g)
+            for _ in range(2)]
+    prompts = [torch.cat([tmpl[i % 2], torch.randint(
+        0, cfg.vocab, (2 + i,), generator=g)]).to(cuda) for i in range(8)]
+    return cfg, params, prompts
+
+
+def test_fleet_replicas_capture_their_graphs_at_once(cuda):
+    """Two in-process replicas (threads, a stream each) build and capture
+    their wave graphs at the same time on one card: every request equals
+    the single engine and solo greedy, and each replica's own launch tally
+    is its waves times the layers of K7 (plus the two eager warm-up waves
+    of its first call) and its admissions times the layers of K1; the
+    tallies add up to the process's counts."""
+    from nvidia_terraform_modules_tpu_torch.models import make_fleet
+
+    cfg, params, prompts = _fleet_case(cuda)
+    want = make_serve_engine(params, cfg, max_len=48, kv_block=8,
+                             device=cuda)(prompts, 6, slots=2)
+    fleet = make_fleet(params, cfg, max_len=48, replicas=2, kv_block=8,
+                       steal=False)
+    for call in range(2):
+        before = dict(launches)
+        got = fleet(prompts, 6, slots=2)
+        torch.cuda.synchronize()
+        st = fleet.last_stats
+        per = st["fleet"]["launches"]
+        for name in ("paged_decode", "flash_fwd"):
+            assert launches[name] - before[name] == sum(
+                t.get(name, 0) for t in per.values())
+        for i, rs in enumerate(st["replica_stats"]):
+            warm = 2 if call == 0 else 0
+            mine = per[f"replica-{i}"]
+            assert mine["paged_decode"] == (rs["waves"] + warm) \
+                * cfg.n_layers, (call, i, mine, rs["waves"])
+            assert mine["flash_fwd"] == rs["requests"] * cfg.n_layers
+        for p, a, b in zip(prompts, got, want):
+            solo = greedy_decode(params, p[None], 6, cfg, device=cuda)[0]
+            assert torch.equal(a, b) and torch.equal(a, solo)
+
+
+def test_fleet_multiproc_child_loads_the_parents_library(cuda):
+    """A replica process on the card loads the library its parent built
+    (no rebuild: the library file is untouched), serves solo-exact tokens
+    through K1 and K7, and ships its launch counts home."""
+    import os
+
+    from nvidia_terraform_modules_tpu_torch.models import make_fleet
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+
+    cfg, params, prompts = _fleet_case(cuda)
+    lib_path = _build.build()
+    stamp = os.stat(lib_path).st_mtime_ns
+    fleet = make_fleet(params, cfg, max_len=48, replicas=1, kv_block=8,
+                       transport="multiproc", join_timeout_s=300.0)
+    try:
+        got = fleet(prompts, 6, slots=2)
+        st = fleet.last_stats
+    finally:
+        fleet.close()
+    assert os.stat(lib_path).st_mtime_ns == stamp
+    for p, a in zip(prompts, got):
+        solo = greedy_decode(params, p[None], 6, cfg, device=cuda)[0]
+        assert torch.equal(a.to(cuda), solo)
+    mine = st["fleet"]["launches"]["replica-0"]
+    assert mine["flash_fwd"] == len(prompts) * cfg.n_layers
+    assert mine["paged_decode"] == (st["replica_stats"][0]["waves"] + 2) \
+        * cfg.n_layers
+
+
+# about half a second of a stream's time on an H100: far longer than the
+# fleet's host work between a replica's last launch and the caller's read
+_STREAM_STALL_CYCLES = 10**9
+
+
+class _LateOutputs:
+    """A replica's engine whose outputs are written late on its stream:
+    fresh tensors filled with -1, a stall, then the tokens copied in."""
+
+    def __init__(self, engine):
+        self.engine = engine
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+    def __call__(self, *args, **kwargs):
+        out = self.engine(*args, **kwargs)
+        late = {r: torch.full_like(o, -1) for r, o in out.items()}
+        torch.cuda._sleep(_STREAM_STALL_CYCLES)
+        for r, o in out.items():
+            late[r].copy_(o)
+        return late
+
+
+def test_fleet_outputs_reach_the_callers_stream_without_a_sync(cuda):
+    """The router hands each replica's outputs to the caller's stream: with
+    every replica's stream stalled before its outputs are written, the
+    caller reads them on its own stream, with no synchronize in between,
+    and gets the single engine's tokens."""
+    from nvidia_terraform_modules_tpu_torch.models import make_fleet
+
+    cfg, params, prompts = _fleet_case(cuda)
+    want = make_serve_engine(params, cfg, max_len=48, kv_block=8,
+                             device=cuda)(prompts, 6, slots=2)
+    fleet = make_fleet(params, cfg, max_len=48, replicas=2, kv_block=8,
+                       steal=False)
+    fleet(prompts, 6, slots=2)            # builds the engines, kept after
+    engines = fleet.transport.dec_engines
+    engines[:] = [_LateOutputs(e) for e in engines]
+    torch.cuda.synchronize()
+    got = fleet(prompts, 6, slots=2)
+    assert [bool(torch.equal(a, b)) for a, b in zip(got, want)] \
+        == [True] * len(prompts)
+
+
+def test_fleet_handoff_waits_for_the_prefill_stream(cuda, monkeypatch):
+    """A decode worker imports a handoff only after the prefill worker's
+    stream has written it: with that stream stalled before each export,
+    the disaggregated fleet still equals the single engine."""
+    from nvidia_terraform_modules_tpu_torch.models import make_fleet
+    from nvidia_terraform_modules_tpu_torch.models import serving
+
+    cfg, params, prompts = _fleet_case(cuda)
+    want = make_serve_engine(params, cfg, max_len=48, kv_block=8,
+                             device=cuda)(prompts, 6, slots=2)
+    export = serving.export_block_rows
+
+    def late_export(pool, ids):
+        torch.cuda._sleep(_STREAM_STALL_CYCLES // 8)
+        return export(pool, ids)
+
+    monkeypatch.setattr(serving, "export_block_rows", late_export)
+    fleet = make_fleet(params, cfg, max_len=48, replicas=2, kv_block=8,
+                       disaggregate=True)
+    got = fleet(prompts, 6, slots=2)
+    assert [bool(torch.equal(a, b)) for a, b in zip(got, want)] \
+        == [True] * len(prompts)
+    dec = [r for r in fleet.last_stats["fleet"]["per_replica"]
+           if r["role"] == "decode"]
+    assert sum(r["kv_imports"] for r in dec) == len(prompts)
+    assert all(r["flash_prefills"] == 0 and r["import_ms"] > 0 for r in dec)

@@ -23,6 +23,7 @@ from nvidia_terraform_modules_tpu.models.serving import (
     make_serve_engine as jax_engine,
 )
 from nvidia_terraform_modules_tpu_torch.models import (
+    AdmissionSource,
     BurnInConfig,
     greedy_decode,
     make_serve_engine,
@@ -151,15 +152,22 @@ def test_engine_validation_and_unported_levers():
     with pytest.raises(ValueError, match="share_prefix=True alongside"):
         make_serve_engine(params, cfg, max_len=12, device="cpu",
                           host_spill=True)
-    for lever, value, item in (("shared_store", object(), "item 9 (fleet"),
-                               ("aot_cache", "dir", "item 9 (fleet")):
+    for lever, value, item in (("shared_store", object(), "item 9c (fleet"),
+                               ("aot_cache", "dir", "item 9d (fleet")):
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP.*{re.escape(item)}"):
             make_serve_engine(params, cfg, max_len=12, device="cpu",
                               **{lever: value})
+
+    # run(admission=) is served; a source's warm bring-up chains (the
+    # elastic fleet's) are not yet
+    class WarmSource(AdmissionSource):
+        def warm_chains(self):
+            return [((1, 2, 3, 4),)]
+
     with pytest.raises(NotImplementedError,
-                       match="item 9 .fleet stack.: the AdmissionSource"):
-        engine(prompts, 2, admission=object())
+                       match="ROADMAP.*item 9c .fleet stack: elastic"):
+        engine(prompts, 2, admission=WarmSource())
     with pytest.raises(TypeError):
         make_serve_engine(params, cfg, max_len=12, device="cpu", bogus=1)
     # the reference's baseline values of a lever are the engine as it is
@@ -175,9 +183,9 @@ def _keyword_defaults(fn) -> dict:
 # keywords the port accepts only at the reference's default: a value that
 # is not, and the ROADMAP item its NotImplementedError names
 _NOT_DEFAULT = {
-    "make_serve_engine": {"shared_store": (object(), "item 9"),
-                          "aot_cache": ("dir", "item 9")},
-    "run": {"admission": (object(), "item 9")},
+    "make_serve_engine": {"shared_store": (object(), "item 9c"),
+                          "aot_cache": ("dir", "item 9d")},
+    "run": {},
 }
 # keywords the port now serves, at a value other than the reference's
 # default that leaves this traffic's tokens as they are (run's rules=

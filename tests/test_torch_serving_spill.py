@@ -29,6 +29,7 @@ from nvidia_terraform_modules_tpu.models.serving import (
     make_serve_engine as jax_engine,
 )
 from nvidia_terraform_modules_tpu_torch.models import (
+    AdmissionSource,
     BurnInConfig,
     greedy_decode,
     hostkv,
@@ -259,8 +260,16 @@ def test_spill_validation_defaults_and_unported_keywords(model):
     assert tier([], 3) == []
     assert tier.last_stats["prefix"]["spill"]["host_blocks"] == 80
     assert tier.last_stats["prefix"]["spill"]["enabled"] is True
-    for kw in ({"shared_store": object()}, {"aot_cache": "dir"}):
-        with pytest.raises(NotImplementedError, match="item 9"):
+    for kw, item in (({"shared_store": object()}, "item 9c"),
+                     ({"aot_cache": "dir"}, "item 9d")):
+        with pytest.raises(NotImplementedError, match=item):
             make_serve_engine(params, cfg, max_len=16, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tier(short, 2, admission=object())
+
+    class WarmSource(AdmissionSource):
+        """A source with warm bring-up chains for the host tier."""
+
+        def warm_chains(self):
+            return [((1, 2, 3, 4),)]
+
+    with pytest.raises(NotImplementedError, match="item 9c"):
+        tier(short, 2, admission=WarmSource())
