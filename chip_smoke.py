@@ -149,7 +149,18 @@ It builds the port's CUDA kernels from ``csrc/`` with nvcc (into
   loss, MFU); and ``attn="ring"``/``"ulysses"`` through the world-of-one
   rules (K2 and K5 with f32 outputs, or K1 and K5, by name; the f32 loss
   equal to the flash step's bit for bit). One card holds one NCCL rank,
-  so the multi-rank hops are proven in gloo worlds on the CPU.
+  so the multi-rank hops are proven in gloo worlds on the CPU;
+- the fleet's elastic plane and durable prefix CDN (``fleet_scale_exact``,
+  f32): the Job's ``fleet_scale_ok`` and ``prefix_cdn_ok`` legs, an
+  autoscaled fleet with no event equal to the fixed fleet byte for byte, a
+  seeded up → down run and its replay with warm joins (K1/K7 counted a
+  worker), a process fleet's warm join with a planted corrupt chain, and
+  2-replica ``disk_spill=`` fleets restarted over their directory (one
+  planted corrupt frame) at the f32 pool and the int8 cache; at the
+  flagship width (``serve_cdn_flagship``): the cold, restarted and
+  store-less fleets in turns and an autoscaled fleet's warm joiner —
+  restore seconds, disk bytes, swap ms a MiB off disk and off the store,
+  tokens/s, latency and flash prefills.
 
 Every phase prints one JSON line; any failure raises and the script exits
 non-zero. Without a CUDA device it exits 1 and prints no result; it
@@ -1490,7 +1501,7 @@ def _fleet_sum(launches_by_fleet: dict, kernel: str) -> int:
 
 
 def _fleet_kernels(where: str, st: dict, n_layers: int, *, warm: int = 0,
-                   all_flash: bool = False) -> int:
+                   all_flash: bool = False, need_k1: bool = True) -> int:
     """Hold a fleet's per-worker launch tallies against its workers' own
     records (``per_replica``): each decode worker K7 (or K7-int8) once a
     layer a wave (plus ``warm`` eager warm-up waves of a first call), a
@@ -1498,7 +1509,8 @@ def _fleet_kernels(where: str, st: dict, n_layers: int, *, warm: int = 0,
     recorded, a disaggregated decode worker none (each of its admissions an
     import) and, with ``all_flash``, every prefilled admission a flash
     one. A killed worker's counts died with it. Returns K1 summed, which
-    must not be 0."""
+    must not be 0 unless ``need_k1`` is off (a fleet whose every admission
+    hit a store)."""
     per = st["fleet"]["launches"]
     dis = st["fleet"]["mode"] == "disaggregated"
     k1 = 0
@@ -1520,7 +1532,7 @@ def _fleet_kernels(where: str, st: dict, n_layers: int, *, warm: int = 0,
                                  f"{mine}, record {rec} (+{warm} warm "
                                  f"waves)")
         k1 += mine.get("flash_fwd", 0)
-    if k1 == 0:
+    if k1 == 0 and need_k1:
         raise AssertionError(f"{where}: no K1 launch")
     return k1
 
@@ -1868,6 +1880,604 @@ def serve_fleet_flagship(params, cfg, dev, smi: str) -> tuple[dict, dict]:
                slots=SLOTS, turns=FLEET_TURNS, runs=summary,
                profiles=profiles, seconds=time.monotonic() - t_phase)
     return rec, {name: turns[name][-1].get("launches") for name in runners}
+
+
+# the elastic plane's and the prefix CDN's phases: the Job's burst → sparse
+# arrivals for the autoscaled fleets, and the flagship CDN store's RAM rows
+# (fewer than the working set's, so a restarted fleet reads its tail off
+# the disk tier)
+SCALE_POLICY = dict(min_replicas=1, max_replicas=3, up_backlog=2.0,
+                    down_backlog=0.5, cooldown_s=0.05, seed=0)
+CDN_FLAGSHIP_BLOCKS, CDN_TURNS = 32, 3
+
+
+def _filesystem(path: str) -> str:
+    """The filesystem type ``path`` lies on, from ``/proc/mounts`` (the
+    longest mount point that prefixes it)."""
+    best, kind = "", "unknown"
+    try:
+        with open("/proc/mounts") as f:
+            for line in f:
+                parts = line.split()
+                if len(parts) > 2 and path.startswith(parts[1]) \
+                        and len(parts[1]) > len(best):
+                    best, kind = parts[1], parts[2]
+    except OSError:
+        pass
+    return f"{kind} ({best})"
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, n))
+               for root, _dirs, names in os.walk(path) for n in names)
+
+
+def _joiner_hits(st: dict) -> int:
+    reps = st["replica_stats"]
+    initial = st["fleet"]["scale"]["initial"]
+    return sum(rs["prefix"]["hit_blocks"] for i, rs in enumerate(reps)
+               if rs is not None and i >= initial)
+
+
+def fleet_scale_exact(dev) -> tuple[dict, dict]:
+    """The elastic plane and the durable prefix CDN on the card at f32,
+    exact (``fleet_exact``'s flash config and 8 two-template requests).
+    First the Job's two legs (``fleet_scale_leg``, ``prefix_cdn_leg``).
+    Then: an autoscaled fleet whose policy emits no event equals the fixed
+    fleet byte for byte; a seeded up → down run (burst, then a sparse tail)
+    equals solo decoding, and a second identical call replays the same
+    events with a warm join (warm blocks seeded, joiner hits), each
+    worker's K1 = flash prefills × layers and K7 = waves × layers, the
+    joiners prefilling fewer of their admissions; a process fleet's warm
+    join with one chain corrupted on the wire (planted: dropped and billed
+    in ``seed_dropped``, tokens equal); the CDN — 2 replicas with
+    ``disk_spill=`` in a temp dir, a brand-new fleet over the same dir
+    restoring chains and hitting more, then one frame bitflipped (planted:
+    quarantined with its reason, its chain prefilled again) — at the f32
+    pool and the int8 cache (K7-int8), on ``serve_levers_exact``'s
+    dense-attention config, each fleet equal to a single engine over a
+    copy of its store directory (the same hits) and, at the f32 pool, to
+    solo decoding. No ``degraded`` or ``quarantined`` count but the
+    planted one. Returns the record and the launch tallies by fleet."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        AutoscalePolicy,
+        BurnInConfig,
+        DiskChainStore,
+        WarmChainStore,
+        greedy_decode,
+        init_params,
+        make_fleet,
+        make_serve_engine,
+    )
+    from nvidia_terraform_modules_tpu_torch.models import transport as tmod
+    from nvidia_terraform_modules_tpu_torch.smoketest.runner import (
+        fleet_scale_leg,
+        prefix_cdn_leg,
+    )
+
+    t_phase = time.monotonic()
+    cfg = _exact_cfg()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(8),
+                         device=dev)
+    pg = torch.Generator().manual_seed(9)
+    tmpl = [torch.randint(0, cfg.vocab, (32,), generator=pg)
+            for _ in range(2)]
+    prompts = [torch.cat([tmpl[i % 2], torch.randint(
+        0, cfg.vocab, (3 + i % 5,), generator=pg)]).to(dev)
+        for i in range(len(FLEET_BUDGETS))]
+    budgets = FLEET_BUDGETS
+    max_len = max(len(p) + n for p, n in zip(prompts, budgets))
+    arrivals = [0.0] * 6 + [0.4, 0.6]
+    kw = dict(max_len=max_len, kv_block=16, device=dev, steal=False)
+    warm_kw = dict(kw, share_prefix=True, host_spill=True, host_blocks=64,
+                   prefix_keep_blocks=16, est_token_s=0.02,
+                   autoscale=AutoscalePolicy(**SCALE_POLICY))
+    # the process fleet's children (the base and the plan's two joiners)
+    # come up while the rest runs; each joiner's spawn then finds its
+    # child live
+    proc = make_fleet(params, cfg, **dict(warm_kw, autoscale=AutoscalePolicy(
+        **dict(SCALE_POLICY, max_replicas=2))), transport="multiproc",
+        join_timeout_s=300.0)
+    spawning = _bring_up_behind(proc, 3)
+
+    jcfg = BurnInConfig(vocab=128, d_model=32, n_heads=4, d_ff=64,
+                        n_layers=2, seq_len=16, batch=2, dtype=torch.float32)
+
+    def small(seed):
+        return init_params(jcfg, torch.Generator(device=dev).manual_seed(
+            seed), device=dev)
+
+    ok_scale, rec_scale = fleet_scale_leg(small(13), jcfg, dev)
+    ok_cdn, rec_cdn = prefix_cdn_leg(small(23), jcfg, dev)
+    record = {"job_legs": {"fleet_scale_ok": ok_scale,
+                           "prefix_cdn_ok": ok_cdn, **rec_scale, **rec_cdn}}
+    if not (ok_scale and ok_cdn):
+        raise AssertionError(f"fleet_scale_exact: the Job's legs {record}")
+
+    # the CDN fleets run serve_levers_exact's dense-attention config: a
+    # store hit prefills its suffix by the cached math, which equals a
+    # dense solo decode, a cold admission on a flash config runs K1 — at
+    # the int8 cache the two round apart
+    dcfg = _exact_cfg("dense")
+    dparams = init_params(dcfg, torch.Generator(device=dev).manual_seed(8),
+                          device=dev)
+    want = {}
+    for attn, c_, p_ in (("flash", cfg, params), ("dense", dcfg, dparams)):
+        for cache in ("bf16", "int8"):
+            single = make_serve_engine(p_, c_, cache_dtype=cache,
+                                       **{k: v for k, v in kw.items()
+                                          if k != "steal"})(
+                prompts, budgets, slots=2)
+            solo = [greedy_decode(p_, p[None], n, c_, cache_dtype=cache,
+                                  device=dev)[0]
+                    for p, n in zip(prompts, budgets)]
+            if not all(torch.equal(a, b) for a, b in zip(single, solo)):
+                raise AssertionError(f"fleet_scale_exact: the single "
+                                     f"{attn} {cache} engine differs from "
+                                     f"solo decoding")
+            want[attn, cache] = single
+    launches = {}
+
+    def check(name, outs, cache="bf16", attn="flash"):
+        equal = _fleet_equal(outs, want[attn, cache])
+        if not all(equal):
+            emit("fleet_scale_exact", **record)
+            raise AssertionError(f"fleet_scale_exact {name}: {equal}")
+        return equal
+
+    # an armed policy that never fires: the fixed fleet, byte for byte
+    t0 = time.monotonic()
+    fixed = make_fleet(params, cfg, replicas=2, est_token_s=0.02, **kw)
+    still = make_fleet(params, cfg, replicas=2, est_token_s=0.02,
+                       autoscale=AutoscalePolicy(
+                           min_replicas=2, max_replicas=4, up_backlog=1e9,
+                           down_backlog=0.0, seed=3), **kw)
+    a, b = fixed(prompts, budgets, slots=2), still(prompts, budgets, slots=2)
+    same = [bool(torch.equal(x, y)) for x, y in zip(a, b)]
+    sst = still.last_stats["fleet"]
+    record["no_event"] = dict(
+        seconds=time.monotonic() - t0, equal_fixed=same,
+        routed_equal=sst["routed_to"] == fixed.last_stats["fleet"][
+            "routed_to"], events=sst["scale"]["events"])
+    check("no_event", b)
+    if not all(same) or sst["scale"]["events"] \
+            or not record["no_event"]["routed_equal"]:
+        raise AssertionError(f"fleet_scale_exact no_event: "
+                             f"{record['no_event']}")
+
+    # up → down, twice: the second call replays the events, joiners warm
+    t0 = time.monotonic()
+    elastic = make_fleet(params, cfg, replicas=1, **warm_kw)
+    rounds = []
+    for _ in range(2):
+        outs = elastic(prompts, budgets, slots=2, arrivals=arrivals)
+        st = elastic.last_stats
+        sc = st["fleet"]["scale"]
+        rounds.append(dict(
+            equal=check("elastic", outs), events=sc["events"],
+            ups=sc["ups_executed"], downs=sc["downs"],
+            warm_joins=sc["warm_joins"],
+            warm_blocks=sum(rs["prefix"]["warm"]["seeded_blocks"]
+                            for rs in st["replica_stats"] if rs),
+            joiner_hits=_joiner_hits(st),
+            flash_prefills={r["replica"]: r["flash_prefills"]
+                            for r in st["fleet"]["per_replica"]},
+            admissions={r["replica"]: r["requests"]
+                        for r in st["fleet"]["per_replica"]},
+            drained=all(rs["kv"]["in_use"] == 0
+                        and rs["prefix"]["spill"]["host_in_use"] == 0
+                        for rs in st["replica_stats"] if rs)))
+    r1, r2 = rounds
+    joiners = [f"replica-{i}" for i in range(1, SCALE_POLICY[
+        "max_replicas"])]
+    record["elastic"] = dict(seconds=time.monotonic() - t0, rounds=rounds)
+    if not (r1["ups"] >= 1 and r1["downs"] >= 1 and r2["events"]
+            == r1["events"] and r2["warm_joins"] >= 1
+            and r2["warm_blocks"] >= 1 and r2["joiner_hits"] > 0
+            and r1["drained"] and r2["drained"]
+            and sum(r2["flash_prefills"].get(j, 0) for j in joiners)
+            < sum(r2["admissions"].get(j, 0) for j in joiners)):
+        raise AssertionError(f"fleet_scale_exact elastic: "
+                             f"{record['elastic']}")
+    _fleet_kernels("fleet_scale_exact elastic", st, cfg.n_layers)
+    launches["elastic"] = st["fleet"]["launches"]
+
+    # the process fleet's warm join, one chain corrupted on the wire
+    t0 = time.monotonic()
+    encode = tmod.encode_warm_chains
+    planted = []
+
+    def corrupt_first(chains):
+        wire = encode(chains)
+        if wire and not planted:
+            data = bytearray(wire[0][1]["data"][0])
+            data[0] ^= 0x10
+            wire[0][1]["data"][0] = bytes(data)
+            planted.append(wire[0][0])
+        return wire
+
+    spawning.join()
+    try:
+        proc(prompts, budgets, slots=2, arrivals=arrivals)   # seeds store
+        tmod.encode_warm_chains = corrupt_first
+        try:
+            outs = proc(prompts, budgets, slots=2, arrivals=arrivals)
+        finally:
+            tmod.encode_warm_chains = encode
+        st = proc.last_stats
+        spawns = list(proc.transport.spawns)
+    finally:
+        proc.close()
+    sc = st["fleet"]["scale"]
+    dropped = sum(rs["prefix"]["warm"]["seed_dropped"]
+                  for rs in st["replica_stats"] if rs)
+    record["multiproc_warm"] = dict(
+        seconds=time.monotonic() - t0, equal=check("multiproc_warm", outs),
+        warm_joins=sc["warm_joins"], primed=sc["warm_chains_primed"],
+        seed_dropped=dropped, planted=len(planted),
+        spawn_s=[(s["replica"], s["spawn_s"]) for s in spawns])
+    if not (planted and dropped == 1 and sc["warm_joins"] >= 1):
+        raise AssertionError(f"fleet_scale_exact multiproc_warm: "
+                             f"{record['multiproc_warm']}")
+    _fleet_kernels("fleet_scale_exact multiproc_warm", st, cfg.n_layers)
+    launches["multiproc_warm"] = st["fleet"]["launches"]
+
+    # the CDN: a fleet over a temp dir, a brand-new fleet over it, then a
+    # planted bitflip in one frame. Each fleet equals a single engine over
+    # a copy of the same store state (the same chains resident, so the same
+    # hits); at the f32 pool that is solo decoding too. At the int8 cache a
+    # hit's suffix prefill reads the prefix's quantised rows where a cold
+    # whole-prompt prefill reads full-precision ones (the reference's
+    # _prompt_attention): a request's tokens follow its hits.
+    def single_over(cache, root):
+        store = WarmChainStore(dcfg, 64, block_size=16, cache_dtype=cache,
+                               disk=DiskChainStore(root), device=dev)
+        return make_serve_engine(
+            dparams, dcfg, max_len=max_len, kv_block=16, share_prefix=True,
+            prefix_keep_blocks=0, cache_dtype=cache, shared_store=store,
+            device=dev)(prompts, budgets, slots=2)
+
+    def cdn_check(name, outs, ref, cache):
+        equal = [bool(torch.equal(a.to(b.device), b))
+                 for a, b in zip(outs, ref)]
+        if cache == "bf16":
+            equal = [e and s_ for e, s_ in zip(
+                equal, _fleet_equal(outs, want["dense", cache]))]
+        if not all(equal):
+            emit("fleet_scale_exact", **record)
+            raise AssertionError(f"fleet_scale_exact {name}: {equal}")
+
+    for cache in ("bf16", "int8"):
+        t0 = time.monotonic()
+        spill = tempfile.mkdtemp(prefix="chip_cdn_")
+        fleet_dir = os.path.join(spill, "fleet")
+        ckw = dict(kw, replicas=2, share_prefix=True, prefix_keep_blocks=0,
+                   cache_dtype=cache, disk_spill=fleet_dir)
+
+        def twin(name):
+            """A copy of the fleet's store directory, for a single engine."""
+            root = os.path.join(spill, name)
+            shutil.copytree(os.path.join(fleet_dir, "objects"),
+                            os.path.join(root, "objects"))
+            return root
+
+        try:
+            first = make_fleet(dparams, dcfg, **ckw)
+            cdn_check(f"cdn_{cache}", first(prompts, budgets, slots=2),
+                      single_over(cache, os.path.join(spill, "single0")),
+                      cache)
+            st1 = first.last_stats
+            _fleet_kernels(f"fleet_scale_exact cdn_{cache} first", st1,
+                           dcfg.n_layers, warm=2, need_k1=False)
+            ref_restart = single_over(cache, twin("single1"))
+            again = make_fleet(dparams, dcfg, **ckw)
+            restored = again.cdn_store.disk_restored
+            outs = again(prompts, budgets, slots=2)
+            cdn_check(f"cdn_{cache}_restart", outs, ref_restart, cache)
+            st = again.last_stats
+            store = st["fleet"]["cdn"]["store"]
+            frames = sorted(os.path.join(root, n)
+                            for root, _d, names in os.walk(
+                                os.path.join(fleet_dir, "objects"))
+                            for n in names if n.endswith(".pcd"))
+            raw = bytearray(open(frames[0], "rb").read())
+            raw[-8] ^= 0x40
+            open(frames[0], "wb").write(bytes(raw))
+            ref_quarantine = single_over(cache, twin("single2"))
+            third = make_fleet(dparams, dcfg, **ckw)
+            cdn_check(f"cdn_{cache}_quarantine",
+                      third(prompts, budgets, slots=2), ref_quarantine,
+                      cache)
+            disk3 = third.last_stats["fleet"]["cdn"]["store"]["disk"]
+        finally:
+            shutil.rmtree(spill, ignore_errors=True)
+        # the blocks the admissions shared (a restored template is a hit
+        # from the first admission on): more after the restart
+        hits = [sum(rs["prefix"]["hit_blocks"]
+                    for rs in x["replica_stats"] if rs) for x in (st1, st)]
+        record[f"cdn_{cache}"] = dict(
+            seconds=time.monotonic() - t0, restored=restored,
+            hit_blocks_first_restart=hits,
+            fetch_blocks=store["fetch_blocks"],
+            disk_quarantined=store["disk"]["quarantined"],
+            disk_degraded=store["disk"]["degraded"],
+            planted_quarantined=disk3["quarantined"],
+            planted_reasons=disk3["quarantine_reasons"],
+            planted_degraded=disk3["degraded"], filesystem=_filesystem(
+                tempfile.gettempdir()))
+        if not (restored > 0 and store["fetch_blocks"] > 0
+                and store["disk"]["quarantined"] == 0
+                and store["disk"]["degraded"] == 0
+                and disk3["quarantined"] == 1 and disk3["degraded"] == 0
+                and "crc mismatch" in disk3["quarantine_reasons"][0]
+                and hits[1] > hits[0]):
+            raise AssertionError(f"fleet_scale_exact cdn_{cache}: "
+                                 f"{record[f'cdn_{cache}']}")
+        _fleet_kernels(f"fleet_scale_exact cdn_{cache} restart", st,
+                       dcfg.n_layers, warm=2, need_k1=False)
+        launches[f"cdn_{cache}"] = st["fleet"]["launches"]
+    record["seconds"] = time.monotonic() - t_phase
+    return record, launches
+
+
+def serve_cdn_flagship(params, cfg, dev, smi: str) -> tuple[dict, dict]:
+    """The durable prefix CDN and the warm join at the flagship width
+    (bf16, nothing cut) on ``serve_fleet_flagship``'s traffic (16 requests,
+    4 Zipf templates of 256 tokens, suffixes 16–128, budgets 16–64,
+    ``kv_block=16``, 4 slots a replica). Fleets of 2 in-process replicas
+    (both on this one card — no deployment's layout): with ``disk_spill=``
+    in a temp dir and a ``CDN_FLAGSHIP_BLOCKS``-block RAM store, run cold
+    once (it files the chains); then ``CDN_TURNS`` brand-new fleets over
+    the same dir (the restart: restored from disk, the tail fetched off
+    it), each warmed on unrelated prompts (its graphs captured) before its
+    timed call; against the same fleet without ``disk_spill`` (warmed once,
+    ``CDN_TURNS`` timed calls). Then an autoscaled fleet (1 to 2 replicas,
+    ``host_spill`` engines) called twice, its second joiner warm. Reported:
+    restore seconds and frames, bytes on disk and the filesystem, ms a
+    1 MiB block swapped in from disk and from the RAM store (the engines'
+    host clock), disk hit blocks, tokens/s and p50/p99 from the call's
+    start (median and min–max), flash prefills of each fleet, the joiner's
+    seconds from its spawn to its first admission, the tokens equal to the
+    single engine's, and the host seconds of the disk tier's writes and
+    reads and of the store's publishes and fetches (class-level wrappers,
+    the cold call and the last restart). Held: every budget served in the vocabulary,
+    pools drained, no quarantine or degraded op, the launch tallies."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        AutoscalePolicy,
+        make_fleet,
+        make_serve_engine,
+    )
+    from nvidia_terraform_modules_tpu_torch.models import fleet as fmod
+    from nvidia_terraform_modules_tpu_torch.models import transport as tmod
+    from nvidia_terraform_modules_tpu_torch.utils.timing import sync
+    from nvidia_terraform_modules_tpu_torch.utils.traffic import (
+        ragged_lengths,
+        shared_prefix_prompts,
+    )
+
+    t_phase = time.monotonic()
+    pairs = shared_prefix_prompts(LEVER_REQUESTS, SEED, n_templates=4,
+                                  template_len=256, suffix_lo=16,
+                                  suffix_hi=128, vocab=cfg.vocab,
+                                  block_size=KV_BLOCK)
+    prompts = [torch.tensor(p, device=dev) for _, p in pairs]
+    budgets = ragged_lengths(LEVER_REQUESTS, SEED, lo=16, hi=64)
+    max_len = max(len(p) + n for (_, p), n in zip(pairs, budgets))
+    pg = torch.Generator().manual_seed(SEED + 7)
+    # unrelated prompts for the warm-ups: they capture each engine's graph
+    # and share no block with the timed traffic
+    warmups = [torch.randint(0, cfg.vocab, (48,), generator=pg).to(dev)
+               for _ in range(2)]
+    kw = dict(max_len=max_len, kv_block=KV_BLOCK, share_prefix=True,
+              steal=False)
+    block_bytes = (cfg.n_layers * 2 * KV_BLOCK * cfg.kv_heads
+                   * cfg.head_dim * 2)
+    single = make_serve_engine(params, cfg, max_len=max_len,
+                               kv_block=KV_BLOCK, share_prefix=True,
+                               device=dev)(prompts, budgets, slots=SLOTS)
+    sync()
+
+    def run(fleet):
+        sync()
+        t0 = time.monotonic()
+        outs = fleet(prompts, budgets, slots=SLOTS)
+        sync()
+        wall_s = time.monotonic() - t0
+        st = fleet.last_stats
+        for o, n in zip(outs, budgets):
+            if o is None or o.shape != (n,) or int(o.min()) < 0 \
+                    or int(o.max()) >= cfg.vocab:
+                raise AssertionError("serve_cdn_flagship: bad output")
+        if any(rs["kv"]["in_use"] for rs in st["replica_stats"] if rs):
+            raise AssertionError("serve_cdn_flagship: a pool did not drain")
+        lat = st["fleet"]["latency_ms"]
+        cdn = [rs["prefix"]["cdn"] for rs in st["replica_stats"] if rs]
+        spill = [rs["prefix"]["spill"] for rs in st["replica_stats"] if rs]
+        return outs, st, dict(
+            wall_s=wall_s,
+            tokens_per_s=sum(int(o.shape[0]) for o in outs) / wall_s,
+            p50_ms=lat["p50"], p99_ms=lat["p99"],
+            flash_prefills=sum(r["flash_prefills"]
+                               for r in st["fleet"]["per_replica"]),
+            hit_blocks=st["fleet"]["affinity_hit_blocks"],
+            disk_hit_blocks=sum(c["disk_hit_blocks"] for c in cdn),
+            disk_swap_ms=sum(c["disk_swap_ms"] for c in cdn),
+            store_blocks=sum(s["swapped_blocks"] for s in spill)
+            - sum(c["disk_hit_blocks"] for c in cdn),
+            store_swap_ms=sum(s["swap_ms"] for s in spill)
+            - sum(c["disk_swap_ms"] for c in cdn),
+            tokens_equal_single=sum(int((a.to(dev) == b).sum())
+                                    for a, b in zip(outs, single)))
+
+    def med(vals):
+        vals = sorted(vals)
+        return {"median": vals[len(vals) // 2], "min": vals[0],
+                "max": vals[-1]}
+
+    def per_mib(ms, blocks):
+        return ms / blocks / (block_bytes / 2 ** 20) if blocks else None
+
+    # where the CDN's host time goes: the disk tier's writes (pickle, crc,
+    # write, fsync, rename) and verified reads, and the RAM store's publishes
+    # (the rows' copy to pinned memory, adopt and crc stamps) and fetches
+    from nvidia_terraform_modules_tpu_torch.models import hostkv
+
+    meter: dict = {}
+
+    def timed(key):
+        def wrap(fn):
+            def inner(*a, **k):
+                t0 = time.monotonic()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    meter[key] = meter.get(key, 0.0) + time.monotonic() - t0
+            return inner
+        return wrap
+
+    undo = [_watch(hostkv, "DiskChainStore", "put", timed("disk_put_s")),
+            _watch(hostkv, "DiskChainStore", "get", timed("disk_get_s")),
+            _watch(hostkv, "WarmChainStore", "publish", timed("publish_s")),
+            _watch(hostkv, "WarmChainStore", "fetch", timed("fetch_s"))]
+    host_s = {}
+    spill = tempfile.mkdtemp(prefix="chip_cdn_flagship_")
+    launches = {}
+    try:
+        cdn_kw = dict(kw, disk_spill=spill, cdn_blocks=CDN_FLAGSHIP_BLOCKS)
+        cold = make_fleet(params, cfg, **cdn_kw)
+        cold(warmups, 4, slots=SLOTS)
+        meter.clear()
+        _outs, st, cold_rec = run(cold)
+        host_s["cold"] = dict(meter)
+        _fleet_kernels("serve_cdn_flagship cold", st, cfg.n_layers)
+        launches["cold"] = st["fleet"]["launches"]
+        disk_bytes = _dir_bytes(spill)
+        frames = st["fleet"]["cdn"]["store"]["disk"]["chains"]
+        del cold
+        restart, restore_s, restored = [], [], []
+        for _turn in range(CDN_TURNS):
+            t0 = time.monotonic()
+            fleet = make_fleet(params, cfg, **cdn_kw)
+            restore_s.append(time.monotonic() - t0)
+            restored.append(fleet.cdn_store.disk_restored)
+            fleet(warmups, 4, slots=SLOTS)
+            meter.clear()
+            _outs, st, rec = run(fleet)
+            host_s["restart"] = dict(meter)
+            disk = st["fleet"]["cdn"]["store"]["disk"]
+            if disk["quarantined"] or disk["degraded"]:
+                raise AssertionError(f"serve_cdn_flagship restart: {disk}")
+            _fleet_kernels("serve_cdn_flagship restart", st, cfg.n_layers,
+                           need_k1=False)
+            restart.append(rec)
+            launches["restart"] = st["fleet"]["launches"]
+            del fleet
+        plain = make_fleet(params, cfg, **kw)
+        plain(warmups, 4, slots=SLOTS)
+        baseline = []
+        for _turn in range(CDN_TURNS):
+            _outs, st, rec = run(plain)
+            baseline.append(rec)
+        del plain
+    finally:
+        for put_back in undo:
+            put_back()
+        shutil.rmtree(spill, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # the warm join: spawn and first admission of the joiner, timed
+    marks: dict = {}
+    ensure = tmod.InProcTransport.ensure_engine
+    pop = fmod._FleetQueue.pop
+
+    def timed_ensure(self, i):
+        marks.setdefault(("spawn", i), time.monotonic())
+        return ensure(self, i)
+
+    def timed_pop(self, req):
+        marks.setdefault(("admit", self.label), time.monotonic())
+        return pop(self, req)
+
+    elastic = make_fleet(params, cfg, replicas=1, host_spill=True,
+                         host_blocks=SPILL_HOST_BLOCKS,
+                         prefix_keep_blocks=64, est_token_s=0.01,
+                         autoscale=AutoscalePolicy(min_replicas=1,
+                                                   max_replicas=2,
+                                                   up_backlog=2.0,
+                                                   down_backlog=0.25,
+                                                   cooldown_s=0.0, seed=0),
+                         **kw)
+    joins = []
+    tmod.InProcTransport.ensure_engine = timed_ensure
+    fmod._FleetQueue.pop = timed_pop
+    try:
+        for _call in range(2):
+            marks.clear()
+            _outs, st, rec = run(elastic)
+            sc = st["fleet"]["scale"]
+            joins.append(dict(
+                rec, warm_joins=sc["warm_joins"],
+                primed=sc["warm_chains_primed"], events=sc["events"],
+                joiner_hits=_joiner_hits(st),
+                spawn_to_admit_s=(marks[("admit", "replica-1")]
+                                  - marks[("spawn", 1)]
+                                  if ("spawn", 1) in marks
+                                  and ("admit", "replica-1") in marks
+                                  else None)))
+    finally:
+        tmod.InProcTransport.ensure_engine = ensure
+        fmod._FleetQueue.pop = pop
+    if not (joins[1]["warm_joins"] >= 1 and joins[1]["events"]
+            == joins[0]["events"]):
+        raise AssertionError(f"serve_cdn_flagship elastic: {joins}")
+    _fleet_kernels("serve_cdn_flagship elastic", st, cfg.n_layers)
+    launches["elastic"] = st["fleet"]["launches"]
+    del elastic
+    torch.cuda.empty_cache()
+
+    def summary(recs):
+        last = recs[-1]
+        return dict(
+            tokens_per_s=med([r["tokens_per_s"] for r in recs]),
+            p50_ms=med([r["p50_ms"] for r in recs]),
+            p99_ms=med([r["p99_ms"] for r in recs]),
+            flash_prefills=[r["flash_prefills"] for r in recs],
+            hit_blocks=last["hit_blocks"],
+            disk_hit_blocks=[r["disk_hit_blocks"] for r in recs],
+            tokens_equal_single=[r["tokens_equal_single"] for r in recs])
+
+    rec = dict(
+        nvidia_smi=smi, layout="2 replicas on one card (no deployment's)",
+        requests=LEVER_REQUESTS, budgets=budgets,
+        prompt_lens=[len(p) for _, p in pairs], max_len=max_len,
+        slots=SLOTS, tokens=sum(budgets), block_bytes=block_bytes,
+        cdn_blocks=CDN_FLAGSHIP_BLOCKS,
+        filesystem=_filesystem(tempfile.gettempdir()),
+        disk_bytes=disk_bytes, frames=frames,
+        restore_s=med(restore_s), restored_chains=restored,
+        disk_ms_per_mib=per_mib(sum(r["disk_swap_ms"] for r in restart),
+                                sum(r["disk_hit_blocks"] for r in restart)),
+        store_ms_per_mib=per_mib(sum(r["store_swap_ms"] for r in restart),
+                                 sum(r["store_blocks"] for r in restart)),
+        cold=summary([cold_rec]), restart=summary(restart),
+        host_s=host_s,
+        no_disk=summary(baseline),
+        elastic=[{k: j[k] for k in (
+            "tokens_per_s", "p50_ms", "p99_ms", "flash_prefills",
+            "warm_joins", "primed", "joiner_hits", "spawn_to_admit_s",
+            "tokens_equal_single")} for j in joins],
+        seconds=time.monotonic() - t_phase)
+    return rec, launches
 
 
 def kernel_sample_draw(dev, card: str) -> dict:
@@ -5925,6 +6535,8 @@ def main() -> int:
     emit("serve_spill_exact", **spill_exact)
     fleet_rec, fleet_launches = fleet_exact(dev)
     emit("fleet_exact", nvidia_smi=smi, **fleet_rec)
+    scale_rec, scale_launches = fleet_scale_exact(dev)
+    emit("fleet_scale_exact", nvidia_smi=smi, **scale_rec)
     serve_sampled_exact(dev)
     serve_spec_exact(dev)
     decode_graph_exact(dev)
@@ -6067,6 +6679,11 @@ def main() -> int:
     fleet_flag, fleet_flag_launches = serve_fleet_flagship(params, cfg, dev,
                                                            smi)
     emit("serve_fleet_flagship", **fleet_flag)
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ serve_cdn_flagship
+    cdn_flag, cdn_flag_launches = serve_cdn_flagship(params, cfg, dev, smi)
+    emit("serve_cdn_flagship", **cdn_flag)
     torch.cuda.empty_cache()
 
     # ------------------------------------- sampled and speculative serving
@@ -6314,6 +6931,12 @@ def main() -> int:
                                                 "flash_fwd"),
                    "flagship_launches": _fleet_sum(fleet_flag_launches,
                                                    "flash_fwd")},
+         # the elastic plane's and the CDN's fleets: fleet_scale_exact's
+         # checked calls and serve_cdn_flagship's last timed calls
+         "fleet_scale": {"exact_launches": _fleet_sum(scale_launches,
+                                                      "flash_fwd"),
+                         "flagship_launches": _fleet_sum(
+                             cdn_flag_launches, "flash_fwd")},
          # the serve prompts' mean rate, and K1 at the train step's shape
          "tflops": k1_mean("tflops"), "bound_share": k1_mean("bound_share"),
          "tiling": FWD_TILING,
@@ -6346,7 +6969,11 @@ def main() -> int:
          "fleet": {"exact_launches": _fleet_sum(fleet_launches,
                                                 "paged_decode"),
                    "flagship_launches": _fleet_sum(fleet_flag_launches,
-                                                   "paged_decode")}},
+                                                   "paged_decode")},
+         "fleet_scale": {"exact_launches": _fleet_sum(scale_launches,
+                                                      "paged_decode"),
+                         "flagship_launches": _fleet_sum(
+                             cdn_flag_launches, "paged_decode")}},
         {"name": "paged_decode_int8", "route": "cuda",
          "source": "nvidia_terraform_modules_tpu_torch/csrc/paged_decode.cu",
          "replaces":
@@ -6362,7 +6989,10 @@ def main() -> int:
          "spill_exact": {"launches": spill_exact["int8_launches"]},
          # fleet_exact's int8-cache fleet
          "fleet": {"exact_launches": _fleet_sum(fleet_launches,
-                                                "paged_decode_int8")}},
+                                                "paged_decode_int8")},
+         # fleet_scale_exact's int8-cache CDN fleet
+         "fleet_scale": {"exact_launches": _fleet_sum(
+             scale_launches, "paged_decode_int8")}},
         {"name": "kv_decode", "route": "cuda",
          "source": "nvidia_terraform_modules_tpu_torch/csrc/kv_decode.cu",
          "replaces":

@@ -37,21 +37,41 @@ serves which request and when, driving each through the engine's
   original prompt. Tokens are schedule-invariant, so a redriven request's
   tokens equal the undisturbed run's.
 
+- **The elastic plane** (``autoscale=``, off by default): a string-seeded
+  :class:`AutoscalePolicy` evaluated on the routing plan's virtual clock
+  emits a deterministic scale schedule (the reference's, event for event),
+  executed at monitor polls as kills are. A scale-up spawns the joiner
+  (``utils/retry``; a spawn that fails every attempt is classified dead
+  and its requests redrive), adds it to the ring and, with the engines'
+  tiered index, seeds its host tier with its keyspace share of the
+  fleet-shared :class:`~.hostkv.WarmChainStore` (a warm join). A
+  scale-down is a planned drain; the drained replica publishes its
+  retained chains into the store.
+- **The durable prefix CDN** (``disk_spill=<dir>``): one fleet-shared
+  store (``cdn_blocks`` rows) with a crash-safe
+  :class:`~.hostkv.DiskChainStore` under ``<dir>``. In-process replicas
+  mount it (``shared_store``); process replicas run a private host tier
+  seeded from it at bring-up and publish back at close. A new fleet over
+  the same directory comes up warm from disk, and a store-resident chain
+  may leave a backlogged affinity target (``_CDN_QUEUE_BOUND``).
+
 The router is scheduling, never a different model: a 1-replica fleet
 equals the bare engine request for request, and N replicas equal solo
-greedy decoding whatever the placement, steals, kills or drains.
-Telemetry: a ``fleet_route`` span a request on the registry the engines
-share, the ``fleet_queue_depth``/``fleet_affinity_hit_frac`` gauges, and
-the ``fleet_shed_total``/``fleet_steal_total``/``fleet_replica_down``/
-``fleet_redrive_total``/``fleet_circuit_open_total`` counters.
+greedy decoding whatever the placement, steals, kills, drains or scale
+events. Telemetry: a ``fleet_route`` span a request on the registry the
+engines share, the ``fleet_queue_depth``/``fleet_affinity_hit_frac``
+gauges, the ``fleet_shed_total``/``fleet_steal_total``/
+``fleet_replica_down``/``fleet_redrive_total``/``fleet_circuit_open_total``
+counters and, with ``autoscale``, the ``fleet_size`` gauge, the
+``fleet_scale_up_total``/``fleet_scale_down_total`` counters and a
+``fleet_scale`` span an executed event.
 
 Each call's ``last_stats["fleet"]["launches"]`` holds every worker's kernel
 launches (``ops._build`` names; a killed process's are lost with it).
 
-Not ported yet: the elastic plane and the durable prefix CDN
-(``autoscale``, ``warm_join``, ``warm_blocks``, ``disk_spill``,
-``cdn_blocks``; ROADMAP Queue A item 9c). Those keywords take the
-reference's defaults; any other value raises ``NotImplementedError``.
+Not ported yet: the AOT warm of a bring-up (``aot_cache``, ROADMAP Queue A
+item 9d): ``_warm_compile`` does nothing and the ledger's
+``warm_compiles`` stays 0.
 """
 
 from __future__ import annotations
@@ -73,7 +93,7 @@ from ..utils.retry import RetryPolicy, retry_call
 from .burnin import BurnInConfig, tree_leaves
 from .paging import PrefixIndex, chain_chunks, transfer_crc
 from .resilience import LivenessBreaker
-from .serving import _ELASTIC, AdmissionSource, _refuse_levers
+from .serving import AdmissionSource
 from .transport import (
     InProcTransport,
     MultiProcTransport,
@@ -83,11 +103,11 @@ from .transport import (
 
 _ROUTINGS = ("affinity", "random")
 
-# make_fleet's keywords that wait for the elastic plane: name → (the
-# reference's default, its ROADMAP item)
-_FLEET_LATER = {name: (default, _ELASTIC) for name, default in (
-    ("autoscale", None), ("warm_join", True), ("warm_blocks", None),
-    ("disk_spill", None), ("cdn_blocks", None))}
+# the CDN's residency routing: how deep an affinity target's predicted
+# backlog may grow before a STORE-RESIDENT chain goes least-loaded (any
+# replica admits it warm from the store); affinity_queue_bound= overrides
+# it for every chain
+_CDN_QUEUE_BOUND = 4
 
 
 def _blake_int(data: bytes) -> int:
@@ -157,6 +177,64 @@ class HashRing:
         i = bisect.bisect_right(self._points, _blake_int(key)) \
             % len(self._points)
         return self._targets[i]
+
+
+# --------------------------------------------------------- elastic plane
+
+
+@dataclasses.dataclass(frozen=True)
+class AutoscalePolicy:
+    """The fleet's deterministic autoscaler (the reference's, field for
+    field): evaluated on the routing plan's virtual clock at every arrival,
+    after the arrival lands, against the mean backlog a live replica (its
+    queued-but-unfinished virtual jobs).
+
+    - ``up_backlog``: a mean at or above it (live count below
+      ``max_replicas``) joins a new replica — trigger ``"backlog"``; with
+      deadlines and ``deadline_slack``, an arrival that would be shed joins
+      one first — ``"deadline_slack"``.
+    - ``down_backlog``: a mean at or below it (live count above
+      ``min_replicas``) drains the least-loaded replica — ``"low_load"``;
+      ties draw from the policy's seeded stream.
+
+    ``cooldown_s`` (virtual seconds) spaces events. The schedule is a pure
+    function of (policy, seed, trace, ``est_token_s``, fault capacity
+    schedule); an up spawns its replica at the first monitor poll past its
+    time, a down drains it through ``AdmissionSource.draining()``."""
+
+    min_replicas: int = 1
+    max_replicas: int = 4
+    up_backlog: float = 3.0
+    down_backlog: float = 0.5
+    cooldown_s: float = 0.05
+    deadline_slack: bool = True
+    seed: str | int = 0
+
+    def __post_init__(self):
+        if self.min_replicas < 1:
+            raise ValueError(
+                f"min_replicas must be >= 1, got {self.min_replicas}")
+        if self.max_replicas < self.min_replicas:
+            raise ValueError(
+                f"max_replicas ({self.max_replicas}) must be >= "
+                f"min_replicas ({self.min_replicas})")
+        if self.up_backlog <= self.down_backlog:
+            raise ValueError(
+                f"up_backlog ({self.up_backlog}) must exceed "
+                f"down_backlog ({self.down_backlog}) — equal or "
+                f"inverted thresholds oscillate")
+        if self.down_backlog < 0:
+            raise ValueError(
+                f"down_backlog must be >= 0, got {self.down_backlog}")
+        if self.cooldown_s < 0:
+            raise ValueError(
+                f"cooldown_s must be >= 0, got {self.cooldown_s}")
+
+
+# a joiner's spawn retried with backoff: a transient build failure costs a
+# retry; one that fails every attempt classifies the target dead
+_SPAWN_RETRY = RetryPolicy(initial_s=0.002, multiplier=2.0,
+                           cap_s=0.05, max_attempts=3, jitter=False)
 
 
 # ------------------------------------------------------------ fault plane
@@ -258,10 +336,14 @@ class FleetFaultProfile:
         self.faults = faults
         self.seed = str(seed)
 
-    def resolve(self, n_dec: int, n_pre: int) -> dict:
+    def resolve(self, n_dec: int, n_pre: int, *,
+                elastic_dec: bool = False) -> dict:
         """The concrete schedule: ``kills_dec``/``drains_dec``/
         ``kills_pre``/``drains_pre`` (target → at_s), ``slow_dec`` (target →
-        (at_s, stall_s, waves)) and ``corrupt`` (prefill target → nth)."""
+        (at_s, stall_s, waves)) and ``corrupt`` (prefill target → nth).
+        ``elastic_dec`` (an autoscaled fleet): explicit decode targets may
+        name scale-up joiners beyond ``n_dec``, checked per call against
+        the realised fleet; seeded draws still come from the base range."""
         rnd = random.Random(f"fleet-fault-{self.seed}")
         out: dict[str, dict] = {
             "kills_dec": {}, "drains_dec": {},
@@ -280,7 +362,7 @@ class FleetFaultProfile:
                     f"faults[{i}] ({f.kind}) needs disaggregate=True "
                     f"(there are no prefill workers to target)")
             t = f.target if f.target is not None else drawn
-            if t >= pool:
+            if t >= pool and not (elastic_dec and not pre_side):
                 raise ValueError(
                     f"faults[{i}] ({f.kind}) targets replica {t} but "
                     f"the role has only {pool}")
@@ -309,7 +391,7 @@ class FleetFaultProfile:
                         f"to die/drain")
                 out[key][t] = f.at_s
         gone_dec = set(out["kills_dec"]) | set(out["drains_dec"])
-        if gone_dec and len(gone_dec) >= n_dec:
+        if gone_dec and len(gone_dec) >= n_dec and not elastic_dec:
             raise ValueError(
                 f"the fault schedule removes all {n_dec} decode "
                 f"replica(s) — the fleet must keep >= 1 survivor to "
@@ -365,8 +447,13 @@ class _FleetQueue(AdmissionSource):
 
     def __init__(self, t0: float, poll_s: float, on_retire, *,
                  label: str = "", kill_at: float | None = None,
-                 stall: tuple | None = None):
+                 stall: tuple | None = None, sink=None):
         self._lock = threading.Lock()
+        # warm bring-up chains the router primes before the spawn (read
+        # once, at the run's start) and the store the retained chains
+        # publish into at close
+        self._warm: list | None = None
+        self._sink = sink
         self._pending: list[int] = []            # arrival-ascending
         self._arrival: dict[int, float] = {}
         self._payload: dict[int, Any] = {}
@@ -546,6 +633,20 @@ class _FleetQueue(AdmissionSource):
     def kv_import(self, req):
         return self._payload.get(req)
 
+    def set_warm(self, chains) -> None:
+        with self._lock:
+            self._warm = chains
+
+    def warm_chains(self):
+        """One-shot: the engine reads the primed chains at its run's start
+        (a second run through the same queue starts cold)."""
+        with self._lock:
+            warm, self._warm = self._warm, None
+            return warm
+
+    def chain_sink(self):
+        return self._sink
+
     def retired(self, req, tokens: int) -> None:
         with self._lock:
             self._payload.pop(req, None)
@@ -575,7 +676,8 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
                faults: FleetFaultProfile | None = None,
                health_timeout_s: float = 0.25,
                quarantine_polls: int = 16,
-               autoscale=None, warm_join: bool = True,
+               autoscale: AutoscalePolicy | None = None,
+               warm_join: bool = True,
                warm_blocks: int | None = None,
                disk_spill: str | None = None,
                cdn_blocks: int | None = None,
@@ -609,10 +711,25 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
     :class:`FleetWorkerHung`) are the reference's. ``**engine_kw`` goes to
     every ``make_serve_engine``; an engine driven by the router never uses
     its own ``policy``. ``telemetry`` (default the process registry) is
-    shared with every engine."""
-    _refuse_levers(dict(autoscale=autoscale, warm_join=warm_join,
-                        warm_blocks=warm_blocks, disk_spill=disk_spill,
-                        cdn_blocks=cdn_blocks), _FLEET_LATER, "make_fleet")
+    shared with every engine.
+
+    ``autoscale`` (an :class:`AutoscalePolicy`; colocated fleets, needs
+    ``est_token_s``) makes ``replicas`` the initial size inside the
+    policy's bounds; the plan's scale schedule runs at monitor polls. With
+    ``share_prefix`` + ``host_spill`` engines, affinity routing and
+    ``warm_join``, a joiner's host tier is seeded with its keyspace share
+    of the fleet's warm store (``warm_blocks`` rows, default
+    ``max(4·prefix_keep_blocks, 64)``). ``last_stats["fleet"]["scale"]``
+    holds the events, joins (warm and cold), drains and the store's
+    ledger.
+
+    ``disk_spill=<dir>`` (``share_prefix``, affinity routing, colocated;
+    without ``host_spill``/``shared_store`` in ``engine_kw``) arms the
+    durable prefix CDN: one shared store of ``cdn_blocks`` rows (default as
+    ``warm_blocks``) with its disk tier under ``<dir>``, restored at build;
+    ``last_stats["fleet"]["cdn"]`` holds its ledger, the residency
+    reroutes and the host-bytes bill, and ``fleet.cdn_store`` is the
+    store."""
     if replicas < 1:
         raise ValueError(f"replicas must be >= 1, got {replicas}")
     if routing not in _ROUTINGS:
@@ -632,6 +749,55 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
     if faults is not None and not isinstance(faults, FleetFaultProfile):
         raise ValueError(
             f"faults must be a FleetFaultProfile, got {type(faults)}")
+    if autoscale is not None:
+        if not isinstance(autoscale, AutoscalePolicy):
+            raise ValueError(
+                f"autoscale must be an AutoscalePolicy, got "
+                f"{type(autoscale)}")
+        if disaggregate:
+            raise ValueError(
+                "autoscale applies to colocated fleets — the elastic "
+                "ring is the decode ring; run disaggregated pools at "
+                "fixed size (scale the colocated fleet instead)")
+        if est_token_s is None:
+            raise ValueError(
+                "autoscale needs est_token_s — the policy's virtual "
+                "clock predicts backlog as est_token_s × budget, "
+                "exactly like SLO shedding")
+        if not (autoscale.min_replicas <= replicas
+                <= autoscale.max_replicas):
+            raise ValueError(
+                f"replicas ({replicas}) must start inside the "
+                f"autoscale bounds [{autoscale.min_replicas}, "
+                f"{autoscale.max_replicas}]")
+    if warm_blocks is not None and warm_blocks < 1:
+        raise ValueError(f"warm_blocks must be >= 1, got {warm_blocks}")
+    if cdn_blocks is not None and cdn_blocks < 1:
+        raise ValueError(f"cdn_blocks must be >= 1, got {cdn_blocks}")
+    cdn_on = disk_spill is not None
+    if cdn_on:
+        if routing != "affinity":
+            raise ValueError(
+                "disk_spill arms the prefix CDN — its residency map is "
+                "keyed on the affinity chain key; use routing='affinity'")
+        if disaggregate:
+            raise ValueError(
+                "disk_spill applies to colocated fleets — the prefix "
+                "CDN rides the decode replicas' tiered index (see "
+                "host_spill × disaggregate)")
+        if not engine_kw.get("share_prefix"):
+            raise ValueError(
+                "disk_spill is the prefix index's CDN tier — pass "
+                "share_prefix=True (there is nothing to publish "
+                "without an index)")
+        if engine_kw.get("host_spill") or \
+                engine_kw.get("shared_store") is not None:
+            raise ValueError(
+                "disk_spill owns the tier wiring: the fleet decides "
+                "per transport whether replicas mount the shared store "
+                "directly (in-proc) or run a seeded private host tier "
+                "(process-isolated) — drop host_spill/shared_store "
+                "from engine_kw")
     if join_timeout_s <= 0:
         raise ValueError(
             f"join_timeout_s must be > 0, got {join_timeout_s}")
@@ -683,17 +849,59 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
     kv_block = engine_kw.get("kv_block", 16)
     n_pre = prefill_workers if disaggregate else 0
     n_dec = replicas - n_pre
-    resolved = faults.resolve(n_dec, n_pre) if faults is not None else None
-    route_events = [] if resolved is None else sorted(
-        [(ts, t, "kill") for t, ts in resolved[
-            f"kills_{'pre' if disaggregate else 'dec'}"].items()]
-        + [(ts, t, "drain") for t, ts in resolved[
-            f"drains_{'pre' if disaggregate else 'dec'}"].items()])
+    scale_on = autoscale is not None
+    # a fixed fleet resolves its faults now; an elastic one per call
+    # (explicit targets may name joiners the plan realises)
+    resolved = (faults.resolve(n_dec, n_pre)
+                if faults is not None and not scale_on else None)
+
+    def _route_events(res):
+        """The capacity schedule the plan's clock degrades against: kills
+        and drains of the routing side's targets, in time order."""
+        if res is None:
+            return []
+        side = "pre" if disaggregate else "dec"
+        return sorted(
+            [(ts, t, "kill") for t, ts in res[f"kills_{side}"].items()]
+            + [(ts, t, "drain") for t, ts in res[f"drains_{side}"].items()])
+    default_blocks = max(4 * engine_kw.get("prefix_keep_blocks", 64), 64)
+    cache_dtype = engine_kw.get("cache_dtype", "bf16")
+    # the durable prefix CDN: one shared store with its disk tier, built
+    # (and restored from disk) before the engines, whose levers it sets
+    cdn_store = None
+    if cdn_on:
+        from .hostkv import DiskChainStore, WarmChainStore
+
+        cb = (cdn_blocks if cdn_blocks is not None
+              else warm_blocks if warm_blocks is not None
+              else default_blocks)
+        cdn_store = WarmChainStore(
+            cfg, cb, block_size=kv_block, cache_dtype=cache_dtype,
+            disk=DiskChainStore(disk_spill, telemetry=reg), device=dev)
+        if tr.process_isolated:
+            # the store does not cross the pipe: children run a private
+            # host tier seeded from it at bring-up, published back at close
+            engine_kw = dict(engine_kw, host_spill=True)
+        else:
+            # replicas mount the store: one copy of the working set
+            engine_kw = dict(engine_kw, shared_store=cdn_store)
     # the transport builds the engines (in-process: here, all of them;
     # processes: at the first launch, kept across calls)
     tr.configure(params=params, cfg=cfg, max_len=max_len,
                  engine_kw=engine_kw, registry=reg, n_dec=n_dec,
                  n_pre=n_pre)
+    # the fleet's warm store: replicas publish their retained chains at
+    # close or drain, joiners take their keyspace share at bring-up; kept
+    # across calls. With the CDN it is the CDN's store.
+    warm_store = cdn_store
+    if not cdn_on and scale_on and warm_join and routing == "affinity" \
+            and engine_kw.get("share_prefix") \
+            and engine_kw.get("host_spill"):
+        from .hostkv import WarmChainStore
+
+        warm_store = WarmChainStore(
+            cfg, warm_blocks if warm_blocks is not None else default_blocks,
+            block_size=kv_block, cache_dtype=cache_dtype, device=dev)
     # each prefill worker's stream on the card, kept across calls
     pre_streams = [torch.cuda.Stream(dev) if dev.type == "cuda" else None
                    for _ in range(n_pre)]
@@ -705,15 +913,25 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
         _c_down = reg.counter("fleet_replica_down")
         _c_redrive = reg.counter("fleet_redrive_total")
         _c_circuit = reg.counter("fleet_circuit_open_total")
+        _g_size = reg.gauge("fleet_size")
+        _c_scale_up = reg.counter("fleet_scale_up_total")
+        _c_scale_down = reg.counter("fleet_scale_down_total")
 
-    def _plan(prompts, budgets, arrivals, deadlines):
-        """Deterministic routing and shed plan — a pure function of the
-        trace, the route seed and the fault profile's capacity schedule.
-        The virtual clock runs each target as a serial server at
-        ``est_token_s`` a budgeted token; under a fault schedule a killed
-        target takes no arrivals after its death and its unfinished
-        virtual work re-places on the least-loaded survivor (a drain moves
-        only what it had not started), deadlines checked again."""
+    def _plan(prompts, budgets, arrivals, deadlines, route_events,
+              cdn_res=None):
+        """Deterministic routing, shed and SCALE plan — a pure function of
+        the trace, the route seed, the fault profile's capacity schedule
+        and the autoscale policy (the reference's, placement for placement
+        and event for event). The virtual clock runs each target as a
+        serial server at ``est_token_s`` a budgeted token; under a fault
+        schedule a killed target takes no arrivals after its death and its
+        unfinished virtual work re-places on the least-loaded survivor (a
+        drain moves only what it had not started), deadlines checked again.
+        Under a policy every arrival is a tick that may join a target (ids
+        never reused) or drain the least-loaded one; a fault aimed at a
+        joiner not yet joined waits for its join. With ``cdn_res`` (the
+        store's residency at the call's start) a store-resident chain may
+        leave a backlogged affinity target."""
         n0 = n_pre if disaggregate else n_dec
         rnd = random.Random(f"fleet-route-{route_seed}")
         ring_plan = HashRing(n0)
@@ -724,7 +942,13 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
         placed: dict[int, tuple[int, bool]] = {}
         shed: list[int] = []
         dead_plan: set[int] = set()
-        ev = list(route_events)
+        ev = sorted(route_events)
+        pending_ev: dict[int, list[tuple[float, str]]] = {}
+        scale_events: list[dict] = []
+        res_routed = [0]
+        last_scale = [float("-inf")]
+        rnd_scale = (random.Random(f"fleet-scale-{autoscale.seed}")
+                     if scale_on else None)
 
         def arr(req):
             return arrivals[req] if arrivals is not None else 0.0
@@ -733,7 +957,15 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
             return (est_token_s or 0.0) * budgets[req]
 
         def least_loaded(ready):
+            if not live:
+                raise ValueError(
+                    "the capacity schedule removed every live replica "
+                    "mid-trace — keep >= 1 survivor (or raise "
+                    "max_replicas so the policy can rejoin)")
             return min(live, key=lambda j: (max(busy_until[j], ready), j))
+
+        def backlog(j, now):
+            return sum(1 for f in finishes[j] if f > now)
 
         def replace(req, ready):
             t = least_loaded(ready)
@@ -766,16 +998,67 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
         def advance(now):
             while ev and ev[0][0] <= now:
                 ts, t, kind = ev.pop(0)
+                if t >= len(busy_until):
+                    # aimed at a joiner not yet joined: wait for its join
+                    pending_ev.setdefault(t, []).append((ts, kind))
+                    continue
                 take_down(t, ts, kind)
+
+        def join(a, trigger):
+            t = len(busy_until)
+            busy_until.append(0.0)
+            finishes.append([])
+            live_jobs.append([])
+            live.add(t)
+            ring_plan.add(t)
+            scale_events.append({"ts": a, "kind": "up", "target": t,
+                                 "trigger": trigger})
+            last_scale[0] = a
+            for ts, kind in sorted(pending_ev.pop(t, [])):
+                if ts <= a:
+                    take_down(t, a, kind)    # dies during its bring-up
+                else:
+                    bisect.insort(ev, (ts, t, kind))
+            return t
+
+        def can_up(a):
+            return (scale_on and len(live) < autoscale.max_replicas
+                    and a - last_scale[0] >= autoscale.cooldown_s)
+
+        def eval_policy(a):
+            """One tick an arrival: the thresholds against the mean
+            backlog a live target."""
+            if not scale_on \
+                    or a - last_scale[0] < autoscale.cooldown_s \
+                    or not live:
+                return
+            b = {j: backlog(j, a) for j in live}
+            nlive = len(b)
+            mean_b = sum(b.values()) / nlive
+            if nlive < autoscale.max_replicas \
+                    and mean_b >= autoscale.up_backlog:
+                join(a, "backlog")
+            elif nlive > autoscale.min_replicas \
+                    and mean_b <= autoscale.down_backlog:
+                # the least-loaded live target; ties from the seeded stream
+                min_b = min(b.values())
+                ties = sorted(j for j in b if b[j] == min_b)
+                t = ties[rnd_scale.randrange(len(ties))]
+                take_down(t, a, "drain")
+                scale_events.append({"ts": a, "kind": "down", "target": t,
+                                     "trigger": "low_load"})
+                last_scale[0] = a
 
         for req in range(len(prompts)):
             a = arr(req)
             advance(a)
             aff_ok = routing == "affinity"
+            root_key = None
             if routing == "affinity":
-                t_aff = ring_plan.target(affinity_key(prompts[req],
-                                                      kv_block))
+                root_key = affinity_key(prompts[req], kv_block)
+                t_aff = ring_plan.target(root_key)
                 if t_aff not in live:
+                    # churn can leave the ring's last entry a dead target
                     t_aff = least_loaded(a)
                     aff_ok = False
             else:
@@ -788,17 +1071,40 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
                 if backlog_t >= affinity_queue_bound:
                     t = least_loaded(a)
                     by_aff = by_aff and t == t_aff
+            elif (cdn_res is not None and root_key is not None
+                  and root_key in cdn_res):
+                # the chain is warm in the shared store: any replica admits
+                # it without a prefill, so a backlogged target may be left
+                backlog_t = sum(1 for f in finishes[t_aff] if f > a)
+                if backlog_t >= _CDN_QUEUE_BOUND:
+                    t2 = least_loaded(a)
+                    if t2 != t_aff:
+                        t, by_aff = t2, False
+                        res_routed[0] += 1
             start = max(a, busy_until[t])
             finish = start + svc(req)
             if deadlines is not None and finish - a > deadlines[req]:
-                shed.append(req)
-                continue
+                if scale_on and autoscale.deadline_slack and can_up(a):
+                    # capacity before a blown deadline: join, place on the
+                    # least-loaded target, shed only if still late
+                    join(a, "deadline_slack")
+                    t, by_aff = least_loaded(a), False
+                    start = max(a, busy_until[t])
+                    finish = start + svc(req)
+                if finish - a > deadlines[req]:
+                    shed.append(req)
+                    eval_policy(a)
+                    continue
             busy_until[t] = finish
             finishes[t].append(finish)
             live_jobs[t].append([req, start, finish])
             placed[req] = (t, by_aff)
+            # the tick after the arrival lands: an arrival is load too
+            eval_policy(a)
         advance(float("inf"))
-        return [(req, *placed[req]) for req in sorted(placed)], sorted(shed)
+        plan = [(req, *placed[req]) for req in sorted(placed)]
+        return (plan, sorted(shed), scale_events, len(busy_until),
+                res_routed[0])
 
     def fleet(prompts: Sequence[Any], n_new, *, slots: int = 4,
               eos_id: int | None = None, rng=None, arrivals=None,
@@ -832,12 +1138,42 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
                     "a measured run of this config")
         # host copies: routing keys and prefill workers read tokens
         host_prompts = [_host_tokens(p) for p in prompts]
-        plan, shed = _plan(host_prompts, budgets, arrivals, deadlines)
+        # an elastic fleet resolves its faults per call (explicit targets
+        # may name joiners the plan realises); a fixed one reuses its own
+        resolved_call = (faults.resolve(n_dec, n_pre, elastic_dec=True)
+                         if scale_on and faults is not None else resolved)
+        # the store's residency, read once: placements replay exactly for
+        # a given store state
+        plan, shed, scale_events, n_total, res_routed_n = _plan(
+            host_prompts, budgets, arrivals, deadlines,
+            _route_events(resolved_call),
+            cdn_res=cdn_store.residency() if cdn_on else None)
+        if scale_on and resolved_call is not None:
+            targeted = (set(resolved_call["kills_dec"])
+                        | set(resolved_call["drains_dec"])
+                        | set(resolved_call["slow_dec"]))
+            bad = sorted(t for t in targeted if t >= n_total)
+            if bad:
+                raise ValueError(
+                    f"fault schedule targets decode replica(s) {bad} "
+                    f"but this call realises only {n_total} (base "
+                    f"{n_dec} + {n_total - n_dec} scale-up joiner(s))")
+            gone = (set(resolved_call["kills_dec"])
+                    | set(resolved_call["drains_dec"]))
+            if gone and len(gone) >= n_total:
+                raise ValueError(
+                    f"the fault schedule removes all {n_total} decode "
+                    f"replica(s) this call realises — the fleet must "
+                    f"keep >= 1 survivor to redrive onto")
+        n_dec_run = n_total if scale_on else n_dec
+        scale_ups = sorted((e for e in scale_events if e["kind"] == "up"),
+                           key=lambda e: (e["ts"], e["target"]))
+        scale_downs = [e for e in scale_events if e["kind"] == "down"]
         n_planned = len(plan)
-        fault_on = resolved is not None
+        fault_on = resolved_call is not None
         # a process replica can die for real with no profile armed: the
         # recovery runtime always runs then
-        managed = fault_on or tr.process_isolated
+        managed = fault_on or scale_on or tr.process_isolated
         t0 = time.monotonic()
         retire_at: dict[int, float] = {}
         retire_tok: dict[int, int] = {}
@@ -859,15 +1195,17 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
             kill_at = stall = None
             if fault_on:
                 if role == "dec":
-                    kill_at = resolved["kills_dec"].get(i)
-                    stall = resolved["slow_dec"].get(i)
+                    kill_at = resolved_call["kills_dec"].get(i)
+                    stall = resolved_call["slow_dec"].get(i)
                 else:
-                    kill_at = resolved["kills_pre"].get(i)
+                    kill_at = resolved_call["kills_pre"].get(i)
             return _FleetQueue(t0, steal_poll_s, make_on_retire(label),
-                               label=label, kill_at=kill_at, stall=stall)
+                               label=label, kill_at=kill_at, stall=stall,
+                               sink=warm_store)
 
         dec_queues = [q_for("dec", i, f"decode-{i}" if disaggregate
-                            else f"replica-{i}") for i in range(n_dec)]
+                            else f"replica-{i}")
+                      for i in range(n_dec_run)]
         pre_queues = [q_for("pre", i, f"prefill-{i}")
                       for i in range(n_pre)]
         routed_to: dict[int, str] = {}
@@ -910,6 +1248,11 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
         run_kw = dict(prompts=prompts, budgets=budgets, slots=slots,
                       eos_id=eos_id, rng=rng, kv_blocks=kv_blocks)
 
+        def _warm_compile(_i) -> bool:
+            """The AOT warm of a bring-up (``aot_cache``, ROADMAP Queue A
+            item 9d) is not ported: every replica launches without it."""
+            return False
+
         def _on_dec_error(label, exc):
             errors.append((label, exc))
             _abort_all()
@@ -947,7 +1290,8 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
                               retryable=(HandoffCorruptError,))
 
         def pre_worker(i):
-            corrupt_nth = (resolved["corrupt"].get(i) if fault_on else None)
+            corrupt_nth = (resolved_call["corrupt"].get(i) if fault_on
+                           else None)
             served = [0]
             try:
                 with _build.tally() as own, _on_stream(pre_streams[i]):
@@ -988,29 +1332,48 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
                        for i in range(n_pre)]
         for th in pre_threads:
             th.start()
-        dec_handles: list[Any] = [None] * n_dec
+        dec_handles: list[Any] = [None] * n_dec_run
+        base_seeded = [0]
+        if cdn_on and tr.process_isolated:
+            # the store cannot be mounted across the pipe: each base
+            # replica's private host tier is seeded with its keyspace share
+            # before launch (take copies; the store keeps its rows)
+            ring_seed = HashRing(n_dec)
+            for i in range(n_dec):
+                chains = warm_store.take(
+                    lambda root, i=i: ring_seed.target(root) == i)
+                if chains:
+                    dec_queues[i].set_warm(chains)
+                    base_seeded[0] += len(chains)
         try:
             tr.bring_up(range(n_dec))
             for i in range(n_dec):
+                _warm_compile(i)
                 dec_handles[i] = tr.launch_decode(
                     i, dec_queues[i], run_kw, on_error=_on_dec_error)
         except BaseException:
             _abort_all()
             raise
+        spawned: set[int] = set(range(n_dec))
 
-        # ---- the fault plane's recovery runtime (router-side state; it
-        # stays empty on the fault-free path)
+        # ---- the fault plane's and the elastic plane's recovery runtime
+        # (router-side state; it stays empty on the fixed, fault-free path)
         ring_run = (HashRing(n_pre if disaggregate else n_dec)
                     if managed else None)
         down_seen: set[tuple[str, int]] = set()
         redriven: list[int] = []
         killed_labels: list[str] = []
         drained_labels: list[str] = []
+        scaled_down_labels: list[str] = []
         drain_state: dict[tuple[str, int], str] = {}
-        drain_specs = (
-            [("dec", t, ts) for t, ts in resolved["drains_dec"].items()]
-            + [("pre", t, ts) for t, ts in resolved["drains_pre"].items()]
-        ) if fault_on else []
+        drain_why: dict[tuple[str, int], str] = {}
+        drain_specs = ((
+            [("dec", t, ts, "fault")
+             for t, ts in resolved_call["drains_dec"].items()]
+            + [("pre", t, ts, "fault")
+               for t, ts in resolved_call["drains_pre"].items()]
+        ) if fault_on else []) + [("dec", e["target"], e["ts"], "scale")
+                                  for e in scale_downs]
         breaker = LivenessBreaker(
             quarantine_polls,
             on_open=((lambda _key: _c_circuit.inc())
@@ -1018,6 +1381,69 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
         degraded = [False]
         degraded_clk = [None]
         closed_out = [False]
+        up_idx = [0]
+        live_size = [n_dec]
+        spawn_retries = [0]
+        spawn_failures = [0]
+        warm_joins = [0]
+        cold_joins = [0]
+        warm_chains_primed = [0]
+
+        def _set_size():
+            if reg.enabled and scale_on:
+                _g_size.set(live_size[0])
+
+        def _spawn_dec(ev_):
+            """One scale-UP at a monitor poll: build (or reuse) the joiner
+            under ``utils/retry``, add it to the run ring, prime its warm
+            chains from the fleet store and launch it. A spawn that fails
+            every attempt classifies the target dead (its planned requests
+            redrive); a joiner enters the health monitor like any replica
+            (its build and captures excused until its first wave)."""
+            i, trigger = ev_["target"], ev_["trigger"]
+            q = dec_queues[i]
+            attempts = [0]
+
+            def build():
+                attempts[0] += 1
+                tr.ensure_engine(i)
+
+            clk0 = reg.clock() if reg.enabled else None
+            try:
+                retry_call(build, policy=_SPAWN_RETRY,
+                           what=f"{q.label} spawn", retryable=(Exception,))
+            except Exception:            # noqa: BLE001 — classified
+                spawn_retries[0] += max(attempts[0] - 1, 0)
+                spawn_failures[0] += 1
+                q.dead = True            # _process_downs redrives
+                return
+            spawn_retries[0] += attempts[0] - 1
+            if ring_run is not None and i not in ring_run.targets():
+                ring_run.add(i)
+            chains = (warm_store.take(lambda root: ring_run.target(root) == i)
+                      if warm_store is not None
+                      and (not cdn_on or tr.process_isolated) else [])
+            if chains:
+                q.set_warm(chains)
+                warm_joins[0] += 1
+                warm_chains_primed[0] += len(chains)
+            else:
+                cold_joins[0] += 1
+            warm_compiled = _warm_compile(i)
+            dec_handles[i] = tr.launch_decode(i, q, run_kw,
+                                              on_error=_on_dec_error)
+            spawned.add(i)
+            live_size[0] += 1
+            if reg.enabled:
+                _c_scale_up.inc()
+                tc = reg.clock()
+                reg.emit_span("fleet_scale",
+                              clk0 if clk0 is not None else tc, tc,
+                              kind="up", replica=q.label, trigger=trigger,
+                              warm=bool(chains),
+                              warm_compile=warm_compiled,
+                              transport=tr.name)
+            _set_size()
 
         def _mark_degraded():
             degraded[0] = True
@@ -1035,13 +1461,19 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
         def _pick(role, req):
             """A redrive target: the ring's pick when healthy, else the
             least-loaded healthy survivor (any live one when all are
-            quarantined)."""
+            quarantined; a joiner still spawning when every spawned one is
+            down)."""
             queues = dec_queues if role == "dec" else pre_queues
-            cands = [j for j in range(len(queues)) if _avail(role, j)]
+            cands = [j for j in range(len(queues)) if _avail(role, j)
+                     and (role != "dec" or j in spawned)]
+            if not cands and role == "dec":
+                cands = [j for j in range(len(queues)) if _avail(role, j)]
             if not cands:
                 raise RuntimeError(
                     f"no live {role} replica to redrive onto — every "
-                    f"candidate is dead or draining")
+                    f"candidate is dead or draining (the fault schedule "
+                    f"plus failed spawns removed the last survivor; keep "
+                    f">= 1 spawnable replica)")
             healthy = [j for j in cands if _health_ok(role, j)] or cands
             if routing == "affinity" \
                     and role == ("pre" if disaggregate else "dec"):
@@ -1086,7 +1518,7 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
                 ring_run.remove(i)
 
         def _process_downs():
-            for role, queues, nn in (("dec", dec_queues, n_dec),
+            for role, queues, nn in (("dec", dec_queues, n_dec_run),
                                      ("pre", pre_queues, n_pre)):
                 for i in range(nn):
                     q = queues[i]
@@ -1101,6 +1533,11 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
                         continue
                     down_seen.add((role, i))
                     killed_labels.append(q.label)
+                    if role == "dec" and i in spawned:
+                        # fleet_size is the LIVE count (a failed spawn
+                        # never entered it)
+                        live_size[0] -= 1
+                        _set_size()
                     pend, popped = q.take_lost()
                     if role == "pre":
                         # a popped prefill request was handed off already
@@ -1123,11 +1560,14 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
         def _process_drains(rel_now):
             if closed_out[0]:
                 return
-            for role, i, at in drain_specs:
+            for role, i, at, why in drain_specs:
                 key = (role, i)
                 q = (dec_queues if role == "dec" else pre_queues)[i]
                 st = drain_state.get(key, "armed")
                 if q.dead:
+                    continue
+                if role == "dec" and i not in spawned:
+                    # a joiner not up yet (the spawns run first each poll)
                     continue
                 if st == "done":
                     # a handoff that picked this queue just before the
@@ -1141,15 +1581,32 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
                         continue
                     q.set_draining()
                     drain_state[key] = "draining"
+                    # a fault drain and a scale-down may name one replica:
+                    # the spec that armed it owns the accounting
+                    drain_why[key] = why
                     _ring_remove(role, i)
-                    _mark_degraded()
+                    if why == "fault":
+                        _mark_degraded()   # a scale-down is planned
                 moved = q.drain_pending()
                 if moved:
                     _redrive(role, moved, "drained")
                 if q.pending_count() == 0:
                     q.close()
                     drain_state[key] = "done"
-                    drained_labels.append(q.label)
+                    if role == "dec" and i in spawned:
+                        live_size[0] -= 1
+                        _set_size()
+                    if drain_why[key] == "scale":
+                        scaled_down_labels.append(q.label)
+                        if reg.enabled:
+                            _c_scale_down.inc()
+                            tc = reg.clock()
+                            reg.emit_span("fleet_scale", tc, tc,
+                                          kind="down", replica=q.label,
+                                          trigger="low_load",
+                                          transport=tr.name)
+                    else:
+                        drained_labels.append(q.label)
 
         def _check_health():
             """One ``LivenessBreaker`` observation a live replica that has
@@ -1160,7 +1617,7 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
             process is gone)."""
             now = time.monotonic()
             for role, queues, workers, nn in (
-                    ("dec", dec_queues, dec_handles, n_dec),
+                    ("dec", dec_queues, dec_handles, n_dec_run),
                     ("pre", pre_queues, pre_threads, n_pre)):
                 for i in range(nn):
                     q = queues[i]
@@ -1181,12 +1638,21 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
                 for role, qs in (("dec", dec_queues), ("pre", pre_queues))
                 for j, qq in enumerate(qs))
 
-        # ---- the router's monitor loop: the depth gauge, stealing, fault
-        # recovery, and the close once no add can come. An exception here
-        # closes every queue and is raised after the workers are joined.
+        # ---- the router's monitor loop: scale-ups, the depth gauge,
+        # stealing, fault recovery, and the close once no add can come. An
+        # exception here closes every queue and is raised after the workers
+        # are joined.
+        _set_size()
         hung_workers: list[str] = []
         try:
             while True:
+                # scale-ups first each poll: a joiner is up before its own
+                # drain or kill can arm
+                rel_now = time.monotonic() - t0
+                while up_idx[0] < len(scale_ups) \
+                        and scale_ups[up_idx[0]]["ts"] <= rel_now:
+                    _spawn_dec(scale_ups[up_idx[0]])
+                    up_idx[0] += 1
                 if managed:
                     _process_downs()
                     _process_drains(time.monotonic() - t0)
@@ -1206,22 +1672,25 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
                 elif not closed_out[0] and _all_retired() \
                         and not _pending_downs():
                     # the run's end: disarm first (a kill past the last
-                    # retirement is a no-op), then close — unless a kill
-                    # fired during the disarm sweep, which the next pass
-                    # redrives onto still-open survivors
+                    # retirement is a no-op; so are scale events), then
+                    # close — unless a kill fired during the disarm sweep,
+                    # which the next pass redrives onto open survivors
                     for q in pre_queues + dec_queues:
                         q.disarm()
+                    up_idx[0] = len(scale_ups)
                     if not _pending_downs():
                         for q in pre_queues + dec_queues:
                             q.close()
                         closed_out[0] = True
-                if steal and n_dec > 1:
+                if steal and n_dec_run > 1:
                     receivers = [i for i, d in enumerate(depths)
-                                 if d == 0 and _avail("dec", i)
+                                 if d == 0 and i in spawned
+                                 and _avail("dec", i)
                                  and _health_ok("dec", i)
                                  and dec_handles[i] is not None
                                  and dec_handles[i].is_alive()]
-                    donors = [i for i in range(n_dec) if _avail("dec", i)]
+                    donors = [i for i in range(n_dec_run)
+                              if _avail("dec", i)]
                     if receivers and donors:
                         donor = max(donors, key=lambda i: depths[i])
                         if depths[donor] >= 2 and donor not in receivers:
@@ -1236,7 +1705,8 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
                                     _c_steal.inc()
                 if not any(h is not None and h.is_alive()
                            for h in dec_handles) \
-                        and not _pending_downs():
+                        and not _pending_downs() \
+                        and up_idx[0] >= len(scale_ups):
                     break
                 time.sleep(steal_poll_s)
         except BaseException:
@@ -1298,9 +1768,22 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
                      "corrupt_dropped": 0}
         spill_on = bool(engine_kw.get("host_spill"))
         launches: dict[str, dict] = {}
-        for i in range(n_dec):
+        for i in range(n_dec_run):
             h = dec_handles[i]
             label = (f"decode-{i}" if disaggregate else f"replica-{i}")
+            if i not in spawned or h is None:
+                # a joiner whose spawn never ran (the run ended first, or
+                # every attempt failed): no engine, no stats
+                launches[label] = {}
+                per_replica.append({
+                    "role": "decode", "replica": label,
+                    "requests": 0, "waves": None, "occupancy": None,
+                    "kv_peak_blocks": None, "preempted": 0,
+                    "dead": dec_queues[i].dead, "spawned": False,
+                    "flash_prefills": None, "kv_imports": None,
+                    "import_ms": None,
+                })
+                continue
             launches[label] = h.launches()
             st = h.stats()
             if st is None:
@@ -1406,6 +1889,17 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
                 "spill": ({**spill_agg,
                            "swap_ms": round(spill_agg["swap_ms"], 3)}
                           if spill_on else None),
+                # the prefix CDN (None without disk_spill): the store's
+                # ledger, the residency reroutes, and the host bytes of one
+                # shared store against n private pools of its size
+                "cdn": (None if not cdn_on else {
+                    "residency_routed": res_routed_n,
+                    "base_seeded_chains": base_seeded[0],
+                    "host_bytes_shared": cdn_store.pool.nbytes,
+                    "host_bytes_private_equiv":
+                        n_dec_run * cdn_store.pool.nbytes,
+                    "store": cdn_store.stats(),
+                }),
                 "faults": (None if not fault_on else {
                     "profile_seed": faults.seed,
                     "replica_down": len(killed_labels),
@@ -1417,11 +1911,37 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
                     "handoff_retries": handoff_retries[0],
                     "degraded": degraded[0],
                 }),
+                # the elastic plane's ledger (None on a fixed fleet)
+                "scale": (None if not scale_on else {
+                    "policy_seed": str(autoscale.seed),
+                    "initial": n_dec,
+                    "final_live": live_size[0],
+                    "min": autoscale.min_replicas,
+                    "max": autoscale.max_replicas,
+                    "events": scale_events,
+                    "ups_planned": len(scale_ups),
+                    "ups_executed": len(spawned) - n_dec,
+                    # executed drains only: a planned down whose target was
+                    # killed first never ran
+                    "downs": len(scaled_down_labels),
+                    "downs_planned": len(scale_downs),
+                    "warm_joins": warm_joins[0],
+                    "cold_joins": cold_joins[0],
+                    "warm_chains_primed": warm_chains_primed[0],
+                    "warm_compiles": 0,
+                    "warm_compile_errors": [],
+                    "spawn_retries": spawn_retries[0],
+                    "spawn_failures": spawn_failures[0],
+                    "scaled_down": sorted(scaled_down_labels),
+                    "warm_store": (warm_store.stats()
+                                   if warm_store is not None else None),
+                }),
                 "launches": launches,
             },
             "replica_stats": [
-                dec_handles[i].stats() if dec_handles[i] is not None
-                else None for i in range(n_dec)],
+                dec_handles[i].stats()
+                if i in spawned and dec_handles[i] is not None
+                else None for i in range(n_dec_run)],
         }
         out: list[Any] = [None] * n
         for req, toks in merged.items():
@@ -1433,4 +1953,6 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
     # make_fleet calls, close() reaps them
     fleet.transport = tr
     fleet.close = tr.close
+    # the CDN's store (None without disk_spill)
+    fleet.cdn_store = cdn_store
     return fleet

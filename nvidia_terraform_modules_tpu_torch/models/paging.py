@@ -25,6 +25,7 @@ import zlib
 from collections import OrderedDict
 from typing import Any, Sequence
 
+import numpy as np
 import torch
 
 from ..parallel.mesh import WorldMesh
@@ -349,6 +350,62 @@ class PrefixIndex:
             self._entries.move_to_end(key)
             parent = key
 
+    def seed_host(self, chunks: Sequence[tuple],
+                  host_ids: Sequence[int]) -> int:
+        """Warm bring-up: register ``chunks[i]`` as a HOST-tier entry
+        holding ``host_ids[i]`` — rows the caller already adopted into this
+        index's spill pool (``HostBlockPool.adopt``). The first admission
+        that matches a seeded chain swaps it in through the tiered path
+        (crc-verified load, import, :meth:`promote`). A node already
+        indexed (either tier) keeps its entry and the duplicate row goes
+        back to the spill pool. Returns the NEW host-tier entries."""
+        if self.spill is None:
+            raise ValueError(
+                "seed_host needs a spill adapter — the seeded entries "
+                "live in the host tier")
+        if len(chunks) != len(host_ids):
+            raise ValueError(
+                f"{len(chunks)} chunks for {len(host_ids)} host ids")
+        seeded = 0
+        parent: bytes | None = None
+        for chunk, hid in zip(chunks, host_ids):
+            key = self._key(parent, chunk)
+            if key not in self._entries:
+                self._entries[key] = (int(hid), chunk, parent, "host")
+                if parent is not None:
+                    self._children.setdefault(parent, set()).add(key)
+                seeded += 1
+            else:
+                self.spill.free([int(hid)])
+            self._entries.move_to_end(key)
+            parent = key
+        return seeded
+
+    def export_chains(self) -> list[tuple[list[tuple],
+                                          list[tuple[str, int]]]]:
+        """Every maximal indexed chain as ``(chunks, [(tier, id), …])``,
+        root-first within a chain and most-recently-used LEAF first across
+        chains (``id`` a device block for ``"dev"``, a host-pool row for
+        ``"host"``). Read-only: no references, no LRU touch, no eviction
+        counts — the close-time publish walk into a warm store, whose
+        capacity then keeps the popular head."""
+        out: list[tuple[list[tuple], list[tuple[str, int]]]] = []
+        for leaf in reversed(self._entries):
+            if self._children.get(leaf):
+                continue
+            chunks: list[tuple] = []
+            ids: list[tuple[str, int]] = []
+            k: bytes | None = leaf
+            while k is not None:
+                block, chunk, parent, tier = self._entries[k]
+                chunks.append(chunk)
+                ids.append((tier, block))
+                k = parent
+            chunks.reverse()
+            ids.reverse()
+            out.append((chunks, ids))
+        return out
+
     def _drop(self, key: bytes) -> int:
         """Drop ``key`` and every descendant (unreachable once the parent
         is gone), releasing the index's device reference or host copy on
@@ -385,6 +442,8 @@ class PrefixIndex:
         ``reclaim``'s callers budget against)."""
         if self.spill is None:
             return self._drop(key)
+        if getattr(self.spill, "chain_level", False):
+            return self._evict_chain_level(key)
         sub: list[bytes] = []          # the device-tier subtree, parents first
         stack = [key]
         while stack:
@@ -410,6 +469,45 @@ class PrefixIndex:
             self._entries[k] = (hid, chunk, parent, "host")
         self.spilled_blocks += len(sub)
         return len(sub)
+
+    def _evict_chain_level(self, key: bytes) -> int:
+        """Chain-level eviction (a ``chain_level`` spill: the fleet-shared
+        store, ``hostkv.ChainSpill``): hand every root→leaf chain through
+        the evicted subtree, ancestors included, to the adapter's
+        ``store_chains`` — the store files whole content-addressed chains
+        and shares their common rows — then drop the subtree. No host-tier
+        entry is made; a later hit comes back through the store's
+        ``fetch`` at admission. Returns the device entries released."""
+        if key not in self._entries:
+            return 0
+        prefix: list[tuple] = []        # (chunk, block), root → parent
+        k = self._entries[key][2]
+        while k is not None:
+            ent = self._entries[k]
+            prefix.append((ent[1], ent[0]))
+            k = ent[2]
+        prefix.reverse()
+        chains: list[tuple[list, list]] = []
+        released = 0
+        stack: list[tuple[bytes, list]] = [(key, prefix)]
+        while stack:
+            k, path = stack.pop()
+            ent = self._entries.get(k)
+            if ent is None:
+                continue
+            path = path + [(ent[1], ent[0])]
+            released += 1
+            kids = [c for c in self._children.get(k, ())
+                    if c in self._entries]
+            if kids:
+                stack.extend((c, path) for c in kids)
+            else:
+                chains.append(([c for c, _b in path],
+                               [b for _c, b in path]))
+        self.spill.store_chains(chains)
+        self.spilled_blocks += released
+        self._drop(key)
+        return released
 
     def trim(self) -> int:
         """Enforce the LRU cap: evict least-recently-used retained-but-
@@ -491,6 +589,9 @@ def export_block_rows(pool: dict, block_ids: Sequence[int]) -> dict:
 def _crc_bytes(buf: torch.Tensor) -> memoryview:
     """The bytes of ``buf`` in C order, as ``np.asarray(buf).tobytes()``
     gives them (bf16 has no numpy dtype: it goes through a byte view)."""
+    if isinstance(buf, np.ndarray):
+        return memoryview(np.ascontiguousarray(buf).reshape(-1).view(
+            np.uint8))
     t = buf.detach()
     if t.device.type != "cpu":
         t = t.cpu()

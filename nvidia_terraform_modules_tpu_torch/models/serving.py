@@ -77,6 +77,13 @@ exactly):
   ``host_swap="async"`` the next queued request's spilled rows are staged
   (verified and copied to the card on a worker thread) while the wave
   runs.
+- ``shared_store`` (with ``share_prefix``, not with ``host_spill``): the
+  fleet-shared prefix CDN (``hostkv.WarmChainStore``, its disk tier
+  behind it). Evictions publish whole root→leaf chains into the store
+  (``hostkv.ChainSpill``); an admission whose device match ends early
+  fetches the chain's next rows from the store (RAM, or the disk's
+  verified frame), imports them in place and registers them. Tokens equal
+  the engine's without it.
 
 Sharded serving (``run(rules=)``, the rules of a ``torch.distributed``
 world, one process a device): every rank runs the same host scheduler;
@@ -152,7 +159,12 @@ from .decode import (
     paged_params,
     pool_kv_heads,
 )
-from .hostkv import HostBlockPool, HostSpillCorruptError, IndexSpill
+from .hostkv import (
+    ChainSpill,
+    HostBlockPool,
+    HostSpillCorruptError,
+    IndexSpill,
+)
 from .paging import (
     BlockAllocator,
     PrefixIndex,
@@ -174,9 +186,7 @@ _DEFAULT_AGING = 512                   # waves; bounds starvation by default
 # yet: name → (the reference's default, its ROADMAP item). The default is
 # the engine as it is and passes; any other value raises
 # NotImplementedError naming the item; any other keyword is a TypeError.
-_ELASTIC = "Queue A item 9c (fleet stack: elastic plane and prefix CDN)"
 _ENGINE_LATER = {
-    "shared_store": (None, _ELASTIC),
     "aot_cache": (None, "Queue A item 9d (fleet stack: AOT warm cache)"),
 }
 
@@ -480,10 +490,16 @@ class AdmissionSource:
       ``tokens`` tokens (the router's completion signal).
     - ``draining()`` → True: stop admitting, finish what is in flight (a
       planned removal).
-    - ``warm_chains()`` / ``chain_sink()``: the elastic fleet's warm
-      bring-up chains and drain-time sink. The port serves neither yet: a
-      source returning anything but ``None`` raises
-      ``NotImplementedError`` (ROADMAP Queue A item 9c).
+    - ``warm_chains()`` → ``None`` for a cold start, or ``(chunks,
+      payload)`` prefix chains the engine seeds into its HOST tier before
+      the first admission (``HostBlockPool.adopt`` +
+      ``PrefixIndex.seed_host``; needs ``share_prefix`` + ``host_spill``,
+      else each chain is dropped and billed in
+      ``last_stats["prefix"]["warm"]``). Read once a run.
+    - ``chain_sink()`` → ``None``, or an object with ``publish(chains) →
+      stored`` (a ``hostkv.WarmChainStore``) that takes the index's
+      retained chains at the end of the run, before the pools are
+      released.
 
     The built-in :class:`_Sched` implements it; ``run(admission=source)``
     takes any other (the fleet's router queues, ``models/fleet.py``).
@@ -638,12 +654,13 @@ class _ServeTelemetry:
     time otherwise), as the reference documents it."""
 
     def __init__(self, reg, share_prefix: bool, lazy_growth: bool,
-                 host_spill: bool):
+                 host_spill: bool, cdn: bool = False):
         self.reg = reg
         self.enabled = reg.enabled
         self.share_prefix = share_prefix
         self.lazy_growth = lazy_growth
         self.host_spill = host_spill
+        self.cdn = cdn
         self.meta: dict[int, dict] = {}
         self.join_clk0 = None
         if self.enabled:
@@ -660,6 +677,10 @@ class _ServeTelemetry:
             self.g_spill = reg.gauge("prefix_spilled_blocks")
             self.g_swapms = reg.gauge("prefix_swapin_ms")
             self.g_hosthitf = reg.gauge("prefix_host_hit_frac")
+            # the shared store's (shared_store): the disk tail's share of
+            # prompt blocks and its swap-in time
+            self.g_diskhitf = reg.gauge("prefix_disk_hit_frac")
+            self.g_diskms = reg.gauge("prefix_disk_swapin_ms")
             self.g_paged = reg.gauge("paged_decode_ms")
 
     def start(self) -> None:
@@ -690,6 +711,12 @@ class _ServeTelemetry:
                 self.g_swapms.set(round(ps["swap_ms"], 3))
                 self.g_hosthitf.set(round(ps["host_hit_blocks"]
                                           / max(ps["prompt_blocks"], 1), 4))
+            if self.cdn:
+                self.g_spill.set(rstate.index.spilled_blocks)
+                self.g_swapms.set(round(ps["swap_ms"], 3))
+                self.g_diskhitf.set(round(ps["disk_hit_blocks"]
+                                          / max(ps["prompt_blocks"], 1), 4))
+                self.g_diskms.set(round(ps["disk_swap_ms"], 3))
         if self.lazy_growth:
             self.g_lazy.set(rstate.grown_lazy)
 
@@ -716,6 +743,13 @@ class _ServeTelemetry:
         if chunks is not None:
             args["chunks"] = chunks
         self.reg.emit_span("serve_prefill", start_clk, t1, **args)
+
+    def disk_swap(self, start_clk, blocks: int) -> None:
+        """A ``prefix_disk_swap`` span: a chain swapped in off the shared
+        store's disk tier."""
+        if self.enabled:
+            self.reg.emit_span("prefix_disk_swap", start_clk,
+                               self.reg.clock(), blocks=blocks)
 
     def handoff(self, start_clk, prompt_len: int) -> None:
         """A prefill session's ``serve_prefill`` span (``handoff=True``)."""
@@ -768,8 +802,8 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                       prefix_keep_blocks: int = 64,
                       paged_kernel: str = "auto", host_spill: bool = False,
                       host_blocks: int | None = None,
-                      host_swap: str = "async", telemetry=None,
-                      device="cuda", **levers):
+                      host_swap: str = "async", shared_store=None,
+                      telemetry=None, device="cuda", **levers):
     """Reusable engine: ``run(prompts, n_new, *, slots, eos_id,
     eos_check_every, arrivals, kv_blocks, static_batching, priorities) →
     list of [n_i] int64 token tensors``.
@@ -810,6 +844,14 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
     equal the engine's without it. ``last_stats["prefix"]["spill"]``
     carries the spill, host-hit and swap-in counts and ``swap_ms`` (host
     clock).
+
+    ``shared_store`` (a ``hostkv.WarmChainStore``; with ``share_prefix``,
+    without ``host_spill``) mounts the fleet-shared prefix CDN in place of
+    a private host tier; ``last_stats["prefix"]["cdn"]`` carries the
+    blocks it served, the disk tail's share and its swap ms, and the
+    store's ledger. ``run(admission=)``'s ``warm_chains()`` seed the host
+    tier before the first admission and its ``chain_sink()`` takes the
+    retained chains at close (``last_stats["prefix"]["warm"]``).
 
     ``sampler`` (:func:`..decode.make_sampler`'s, or the dict of its
     keyword arguments) makes the engine sampled; ``run`` then needs
@@ -855,7 +897,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
     _refuse_levers(levers, _ENGINE_LATER, "make_serve_engine")
     tel = _ServeTelemetry(
         telemetry if telemetry is not None else get_registry(),
-        share_prefix, lazy_growth, host_spill)
+        share_prefix, lazy_growth, host_spill, shared_store is not None)
     if isinstance(sampler, dict):
         sampler = make_sampler(**sampler)
     if sampler is not None and not isinstance(sampler, Sampler):
@@ -896,6 +938,17 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
             "host_spill is the prefix index's second tier — enable "
             "share_prefix=True alongside it (there is nothing to spill "
             "without an index)")
+    if shared_store is not None:
+        if host_spill:
+            raise ValueError(
+                "shared_store replaces the private host tier — a "
+                "replica cannot spill both to its own HostBlockPool "
+                "and to the fleet CDN; drop host_spill")
+        if not share_prefix:
+            raise ValueError(
+                "shared_store is the prefix index's CDN tier — enable "
+                "share_prefix=True alongside it (there is nothing to "
+                "publish without an index)")
     if host_blocks is None:
         # the tier exists because the working set dwarfs the device cap
         host_blocks = max(4 * prefix_keep_blocks, 64)
@@ -1176,11 +1229,17 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
             self.pool, self.graph = pool_for(slots, kv_blocks)
             # the tiered index: evictions spill into the host pool
             self.host = spill = None
+            self.store = shared_store
             if host_spill:
                 self.host = host_pool_for(cur["rules"],
                                           self.pool["k"][0].device)
                 self.host.reset()
                 spill = IndexSpill(self.host, lambda: self.pool)
+            elif self.store is not None:
+                # the fleet-shared CDN: evictions hand whole root→leaf
+                # chains to the store (no host-tier entries); a later hit
+                # comes back at admission (_cdn_swap_in)
+                spill = ChainSpill(self.store, lambda: self.pool)
             self.index = (PrefixIndex(self.alloc, prefix_keep_blocks,
                                       spill=spill)
                           if share_prefix else None)
@@ -1220,7 +1279,17 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                                  "host_hit_blocks": 0, "swapins": 0,
                                  "swapped_blocks": 0, "swap_ms": 0.0,
                                  "swap_tokens_saved": 0,
-                                 "corrupt_dropped": 0}
+                                 "corrupt_dropped": 0,
+                                 # warm bring-up: chains seeded into the
+                                 # host tier, seeds refused, and chains
+                                 # published to a drain sink at close
+                                 "warm_chains": 0, "warm_blocks": 0,
+                                 "warm_dropped": 0, "published_chains": 0,
+                                 # the shared store: blocks swapped in from
+                                 # it, those off its disk tail, and their
+                                 # host time
+                                 "cdn_hit_blocks": 0, "disk_hit_blocks": 0,
+                                 "disk_swap_ms": 0.0}
             self._row_np: dict[int, np.ndarray] = {}
             if prefix is not None:
                 blocks = self.alloc.alloc(need_prefix)
@@ -1272,6 +1341,12 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                 else:
                     shared = self.index.match(chunks)
                     dev_k = len(shared)
+                    if self.store is not None and dev_k < n_chunks:
+                        # the shared store (its disk tail behind it) may
+                        # hold the rest of the chain: swap it in and
+                        # register it, so the next admission hits it here
+                        shared = shared + self._cdn_swap_in(chunks, dev_k,
+                                                            shared)
                 cov = chunk_tokens_covered(len(shared), bs, tail_rows)
                 if prefill_chunk is not None:
                     # the PADDED unshared suffix must stay within the
@@ -1366,6 +1441,39 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
             ps["swap_ms"] += (time.monotonic() - t0) * 1e3
             return blocks
 
+        def _cdn_swap_in(self, chunks: list, dev_k: int,
+                         shared: list[int]) -> list[int]:
+            """Swap a chain continuation in from the shared store: fetch
+            its crc-verified rows (RAM, or the disk tail's verified frame —
+            the store promotes disk hits itself), grant fresh blocks,
+            import the rows in place and ``register`` the chain (the index
+            then holds one reference past this request, as a host-tier
+            swap-in's ``promote`` leaves it). Returns the blocks, carrying
+            this request's reference; ``[]`` on a miss, a corrupt drop or a
+            dry pool (the request prefills from tokens)."""
+            t0 = time.monotonic()
+            clk0 = tel.clock()
+            got = self.store.fetch(chunks, start=dev_k)
+            if got is None:
+                return []
+            n, payload, from_disk = got
+            blocks = self._alloc_reclaiming(n)
+            if blocks is None:
+                return []
+            import_block_rows(self.pool, blocks, payload)
+            self.index.register(chunks[:dev_k + n], shared + blocks)
+            ms = (time.monotonic() - t0) * 1e3
+            ps = self.prefix_stats
+            ps["swapins"] += 1
+            ps["swapped_blocks"] += n
+            ps["swap_ms"] += ms
+            ps["cdn_hit_blocks"] += n
+            if from_disk:
+                ps["disk_hit_blocks"] += n
+                ps["disk_swap_ms"] += ms
+                tel.disk_swap(clk0, n)
+            return blocks
+
         def prefetch_swap(self, req: int, length: int) -> None:
             """The double buffer (``host_swap="async"``): probe the next
             admission's spilled continuation read-only and stage its rows
@@ -1423,10 +1531,67 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
             if self.index is not None:
                 self.index.trim()
 
-        def close(self) -> None:
-            """End of run: the index's retained blocks and host copies go
-            back, so both pools drain (the device pool to its prefix
-            blocks), and the swap worker shuts down."""
+        def seed_warm(self, chains) -> None:
+            """Warm bring-up: adopt ``(chunks, payload)`` chains into the
+            HOST tier and index them (``PrefixIndex.seed_host``) before the
+            first admission. A chain the host pool cannot hold (or an
+            engine with no host tier) is dropped and billed; seeded rows
+            swap in through the crc-verified tiered path like spilled
+            ones."""
+            ps = self.prefix_stats
+            for chunks, payload in chains:
+                if self.host is None or self.index is None:
+                    ps["warm_dropped"] += 1
+                    continue
+                hids = self.host.adopt(payload)
+                if hids is None:
+                    ps["warm_dropped"] += 1
+                    continue
+                ps["warm_blocks"] += self.index.seed_host(
+                    [tuple(c) for c in chunks], hids)
+                ps["warm_chains"] += 1
+
+        def publish_chains(self, sink) -> None:
+            """The close-time publish: every retained indexed chain (device
+            rows exported from the live pool, host rows loaded
+            crc-verified) into ``sink`` (``publish(chains) → stored``).
+            Read-only against the index: no reference moves and no
+            eviction is billed; a chain whose host rows fail their crc is
+            left out (``corrupt_dropped``)."""
+            if self.index is None:
+                return
+            chains = []
+            for chunks, ids in self.index.export_chains():
+                dev_ids = [b for t, b in ids if t == "dev"]
+                host_ids = [b for t, b in ids if t == "host"]
+                parts = []
+                if dev_ids:
+                    parts.append(export_block_rows(self.pool, dev_ids))
+                if host_ids:
+                    try:
+                        parts.append(self.host.load(host_ids,
+                                                    device=self.host.device))
+                    except HostSpillCorruptError:
+                        self.prefix_stats["corrupt_dropped"] += 1
+                        continue
+                if not parts:
+                    continue
+                payload = parts[0] if len(parts) == 1 else {
+                    k: [torch.cat([a, b]) for a, b in zip(parts[0][k],
+                                                          parts[1][k])]
+                    for k in parts[0]}
+                chains.append((chunks, payload))
+            if chains:
+                self.prefix_stats["published_chains"] += sink.publish(chains)
+
+        def close(self, sink=None) -> None:
+            """End of run: the retained chains go to the drain ``sink``
+            when one is wired (before the release tears the tiers down);
+            the index's retained blocks and host copies go back, so both
+            pools drain (the device pool to its prefix blocks), and the
+            swap worker shuts down."""
+            if sink is not None and self.index is not None:
+                self.publish_chains(sink)
             if self.index is not None:
                 self.index.release()
             self._staged_sig, self._staged_fut = None, None
@@ -1535,6 +1700,26 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                     "host_high_water": (host.high_water if host is not None
                                         else 0),
                 },
+                # the shared store: blocks it served, the disk tail's
+                # share, and the store's own ledger
+                "cdn": {
+                    "enabled": self.store is not None,
+                    "hit_blocks": ps["cdn_hit_blocks"],
+                    "disk_hit_blocks": ps["disk_hit_blocks"],
+                    "disk_hit_frac": round(ps["disk_hit_blocks"]
+                                           / max(ps["prompt_blocks"], 1),
+                                           4),
+                    "disk_swap_ms": round(ps["disk_swap_ms"], 3),
+                    "store": (self.store.stats() if self.store is not None
+                              else None),
+                },
+                # warm bring-up (zeros outside a scale event)
+                "warm": {
+                    "seeded_chains": ps["warm_chains"],
+                    "seeded_blocks": ps["warm_blocks"],
+                    "seed_dropped": ps["warm_dropped"],
+                    "published_chains": ps["published_chains"],
+                },
             }
 
     def empty_stats() -> dict:
@@ -1569,7 +1754,17 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                                      "swap_tokens_saved": 0,
                                      "corrupt_dropped": 0,
                                      "host_in_use": 0,
-                                     "host_high_water": 0}}}
+                                     "host_high_water": 0},
+                           "cdn": {"enabled": shared_store is not None,
+                                   "hit_blocks": 0, "disk_hit_blocks": 0,
+                                   "disk_hit_frac": 0.0,
+                                   "disk_swap_ms": 0.0,
+                                   "store": (shared_store.stats()
+                                             if shared_store is not None
+                                             else None)},
+                           "warm": {"seeded_chains": 0, "seeded_blocks": 0,
+                                    "seed_dropped": 0,
+                                    "published_chains": 0}}}
 
     def prefetch_next(rstate, sched, lens) -> None:
         """Between admission and the wave: stage the next queued request's
@@ -1819,11 +2014,6 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                 raise ValueError(
                     "external admission drives the plain wave loop "
                     "only — drop spec_k")
-            if admission.warm_chains() is not None \
-                    or admission.chain_sink() is not None:
-                raise NotImplementedError(
-                    "warm bring-up chains and a drain-time chain sink are "
-                    f"not ported yet — ROADMAP.md, {_ELASTIC}")
         if not prompts:
             run.last_stats = empty_stats()
             return {} if admission is not None else []
@@ -1894,12 +2084,23 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                 "static_batching is the plain loop's run-to-completion "
                 "A/B baseline — drop spec_k to use it")
         toks = [t.to(dev) for t in flat]
+        if shared_store is not None and rules is not None \
+                and pool_kv_heads(cfg, rules) != pool_kv_heads(cfg):
+            raise ValueError(
+                "shared_store holds every KV head; a run whose rules "
+                "split the pool's heads cannot publish into it")
         use_rules(rules)
         rstate = _Run(slots, kv_blocks, n_new_of, lens,
                       [t.tolist() for t in flat] if share_prefix else None)
         sched = admission if admission is not None else _Sched(
             lens, n_new_of, policy, aging, priorities, arrivals,
             time.monotonic())
+        if admission is not None:
+            # warm bring-up chains seed the host tier before any admission
+            # (the hooks through getattr: a minimal source stays valid)
+            warm = getattr(sched, "warm_chains", lambda: None)()
+            if warm:
+                rstate.seed_warm(warm)
         if spec_k is not None:
             return run_spec(rstate, sched, toks, lens, n_new_of, eos_id)
         pool, graph = rstate.pool, rstate.graph
@@ -2143,7 +2344,8 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                                 del active[slot]
                                 break
             tel.wave_end(tw0)
-        rstate.close()
+        rstate.close(sink=(getattr(sched, "chain_sink", lambda: None)()
+                           if admission is not None else None))
         tel.gauges(rstate, None, 0)
 
         waves = torch.stack(hist) if hist else None      # [W, slots]

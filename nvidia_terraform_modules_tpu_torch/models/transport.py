@@ -38,6 +38,11 @@ The wire carries:
   stamps ``paging.transfer_crc`` over the exported rows (bf16 as its 16-bit
   patterns) and :func:`decode_block_payload` verifies it on the far side;
 - the per-call sampling key as its ``[2]`` key data (:func:`encode_rng`);
+- a warm join's chains (:func:`encode_warm_chains`: each chain's rows
+  crc-stamped on their own, so a corrupt one is dropped and billed in the
+  engine's ``warm.seed_dropped`` while the rest seed), and at close the
+  retained chains home to the parent's store through the
+  ``publish_chains`` RPC, verified the same way;
 - each run's launch counts (``ops._build.tally``) home in the DONE frame.
 
 A child builds no kernel: the parent builds the library before it spawns
@@ -45,9 +50,8 @@ A child builds no kernel: the parent builds the library before it spawns
 loads it. A child asked for the card that finds none raises
 :class:`ReplicaDeviceError` at bring-up; it never serves from the CPU.
 
-Not ported yet (ROADMAP Queue A items 9c and 9d, refused where reached):
-the warm-chain codec and the drain-time chain sink of the elastic fleet,
-and the AOT warm of a replica (``Transport.warm_replica``).
+Not ported yet (ROADMAP Queue A item 9d, refused where reached): the AOT
+warm of a replica (``Transport.warm_replica``).
 """
 
 from __future__ import annotations
@@ -177,8 +181,9 @@ class TransportMetrics:
     ``transport_bytes_total``/``transport_frames_total`` (every frame
     through the parent side of a channel), ``transport_rtt_ms`` (the
     replica-measured poll round trips), ``transport_retries_total`` (reply
-    retries) and ``transport_child_respawn_total`` (a dead child replaced).
-    A disabled registry costs nothing."""
+    retries), ``transport_child_respawn_total`` (a dead child replaced) and
+    ``warm_chains_bytes_total`` (warm-chain rows over the pipes, either
+    way). A disabled registry costs nothing."""
 
     def __init__(self, registry=None):
         self.enabled = registry is not None and registry.enabled
@@ -189,6 +194,7 @@ class TransportMetrics:
             self._rtt = registry.histogram("transport_rtt_ms")
             self._respawn = registry.counter(
                 "transport_child_respawn_total")
+            self._warm_bytes = registry.counter("warm_chains_bytes_total")
 
     def frame(self, nbytes: int) -> None:
         if self.enabled:
@@ -207,6 +213,10 @@ class TransportMetrics:
     def respawn(self) -> None:
         if self.enabled:
             self._respawn.inc()
+
+    def warm_bytes(self, nbytes: int) -> None:
+        if self.enabled and nbytes:
+            self._warm_bytes.inc(nbytes)
 
 
 class FrameChannel:
@@ -362,6 +372,34 @@ def decode_block_payload(wire: dict) -> dict:
             f"side of the wire: got {got:#010x}, stamped "
             f"{wire['crc']:#010x}")
     return payload
+
+
+def encode_warm_chains(chains) -> list:
+    """Warm ``(chunks, payload)`` chains for the wire, each payload stamped
+    on its own (:func:`encode_block_payload`): the receiver verifies, and
+    can drop, one chain at a time."""
+    return [(tuple(tuple(int(t) for t in c) for c in chunks),
+             encode_block_payload(payload))
+            for chunks, payload in chains]
+
+
+def decode_warm_chains(wire_chains) -> tuple[list, int]:
+    """The chains back, each payload's ``transfer_crc`` verified; a chain
+    that fails is DROPPED and counted. Returns ``(chains, dropped)``."""
+    chains: list = []
+    dropped = 0
+    for chunks, enc in wire_chains:
+        try:
+            chains.append((chunks, decode_block_payload(enc)))
+        except TransportCorruptFrame:
+            dropped += 1
+    return chains, dropped
+
+
+def warm_chains_nbytes(wire_chains) -> int:
+    """Row bytes in an encoded warm-chain batch (the
+    ``warm_chains_bytes_total`` unit: KV rows, not pickle framing)."""
+    return sum(len(d) for _, enc in wire_chains for d in enc["data"])
 
 
 def encode_rng(rng):
@@ -644,6 +682,7 @@ class _RPCAdmission(AdmissionSource):
         self._reply_timeout_s = reply_timeout_s
         self.rtt_ms: list[float] = []
         self.retries = 0
+        self.warm_dropped = 0            # warm chains corrupt on the wire
 
     def _call(self, method: str, *args):
         t0 = time.monotonic()
@@ -706,6 +745,35 @@ class _RPCAdmission(AdmissionSource):
 
     def retired(self, req, tokens: int) -> None:
         self._call("retired", int(req), int(tokens))
+
+    def warm_chains(self):
+        """The joiner's warm chains over the wire, each verified here; a
+        corrupt one is dropped and counted (folded into the engine's
+        ``warm.seed_dropped`` in the DONE frame)."""
+        wire = self._call("warm_chains")
+        if not wire:
+            return None
+        chains, dropped = decode_warm_chains(wire)
+        self.warm_dropped += dropped
+        return chains or None
+
+    def chain_sink(self):
+        """The store stays with the router (its locks and host pool do not
+        cross the pipe): when the router's queue has a sink, a proxy whose
+        ``publish`` ships the chains home through ``publish_chains``."""
+        return _ChainSinkProxy(self) if self._call("chain_sink") else None
+
+
+class _ChainSinkProxy:
+    """The child's stand-in for the router's chain sink: ``publish(chains)
+    → stored``, each chain crc-stamped on its own, verified again
+    router-side before it reaches the store."""
+
+    def __init__(self, adm: _RPCAdmission):
+        self._adm = adm
+
+    def publish(self, chains) -> int:
+        return self._adm._call("publish_chains", encode_warm_chains(chains))
 
 
 def _recv_params(chan: FrameChannel, timeout_s: float, device):
@@ -795,8 +863,16 @@ def _replica_child_main(conn, index: int, cfg, max_len: int,
                            adm.rtt_ms, adm.retries))
                 continue
             out = {int(r): v.cpu().numpy() for r, v in res.items()}
-            chan.send(("DONE", out, engine.last_stats, adm.rtt_ms,
-                       adm.retries, dict(own)))
+            stats = engine.last_stats
+            if adm.warm_dropped:
+                # chains corrupt on the wire never reached seed_warm: the
+                # engine could not bill them, so they are billed here
+                prefix = dict(stats["prefix"])
+                prefix["warm"] = dict(prefix["warm"], seed_dropped=(
+                    prefix["warm"]["seed_dropped"] + adm.warm_dropped))
+                stats = dict(stats, prefix=prefix)
+            chan.send(("DONE", out, stats, adm.rtt_ms, adm.retries,
+                       dict(own)))
     except (TransportError, RetriesExhausted):
         os._exit(EXIT_PEER_DEAD)
     finally:
@@ -833,8 +909,16 @@ class _ProcHandle(ReplicaHandle):
         self._thread.start()
 
     def _answer(self, method: str, args):
+        if method == "chain_sink":
+            # the replica learns only whether a sink exists
+            return self._queue.chain_sink() is not None
+        if method == "publish_chains":
+            return self._publish(args[0])
         value = getattr(self._queue, method)(*args)
-        if method == "kv_import" and value is not None:
+        if method == "warm_chains" and value:
+            value = encode_warm_chains(value)
+            self._transport.metrics.warm_bytes(warm_chains_nbytes(value))
+        elif method == "kv_import" and value is not None:
             ready = value.get("ready")
             if ready is not None:
                 ready.synchronize()       # the prefill worker's stream
@@ -904,6 +988,17 @@ class _ProcHandle(ReplicaHandle):
                 self._transport._discard_child(self._i)
         finally:
             self._done.set()
+
+    def _publish(self, wire_chains) -> int:
+        """``publish_chains`` landing router-side: each chain's crc checked
+        again before it touches the store (a corrupt one is dropped here),
+        the rest handed to the real sink."""
+        sink = self._queue.chain_sink()
+        if sink is None:
+            return 0
+        self._transport.metrics.warm_bytes(warm_chains_nbytes(wire_chains))
+        chains, _dropped = decode_warm_chains(wire_chains)
+        return sink.publish(chains)
 
     def _sigkill(self) -> None:
         try:

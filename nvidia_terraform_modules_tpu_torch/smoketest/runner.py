@@ -12,8 +12,10 @@ and, at deeper levels,
 3. the collective probes on every mesh axis pass and report bandwidth;
 4. a few steps of the sharded burn-in transformer lower the loss, and the
    serve shapes (greedy decode, the paged engine, its scheduler levers,
-   the paged decode kernel, the prefix index's host-RAM tier) are exact on
-   the same pool;
+   the paged decode kernel, the prefix index's host-RAM tier, the fleet
+   router with its fault plane, its autoscaler's warm joins and its
+   durable prefix CDN — ``TPU_PREFIX_DISK_SPILL`` points that leg at a
+   durable directory, else a temporary one) are exact on the same pool;
 5. at ``full``, on two devices or more, the expert and stage fabric and
    serving on the mesh: an all-to-all over ``ep``, three MoE train steps
    with the experts sharded over ``ep``, three 2-stage GPipe steps (the
@@ -90,7 +92,6 @@ from ..utils.traffic import shared_prefix_prompts
 
 LEVELS = ("psum", "probes", "burnin", "full")
 
-_ELASTIC = "ROADMAP Queue A item 9c (fleet stack: elastic plane and prefix CDN)"
 # legs of the reference's runner that this port does not run yet: key →
 # (the levels it belongs to, where it is queued)
 NOT_PORTED = {
@@ -99,10 +100,8 @@ NOT_PORTED = {
     "flash_pipeline_ok": (("burnin", "full"),
                           "not queued (the port's kernels have no "
                           "pipeline keyword)"),
-    "fleet_scale_ok": (("burnin", "full"), _ELASTIC),
     "aot_warm_ok": (("burnin", "full"),
                     "ROADMAP Queue A item 9d (fleet stack: AOT warm cache)"),
-    "prefix_cdn_ok": (("burnin", "full"), _ELASTIC),
 }
 
 
@@ -326,7 +325,7 @@ def _burnin(checks, e, dev, ms_mesh, n_dev, leg, guarded) -> bool:
                 lambda: len(losses) == 5 and losses[-1] < losses[0])
         ok = checks["burnin_ok"] and _serve_legs(checks, cfg, params, batch,
                                                  rules, dev, gen, leg,
-                                                 guarded)
+                                                 guarded, e)
         if ckpt is not None and ok:
             try:
                 checks["burnin_checkpoint_cleared"] = ckpt.clear()
@@ -405,7 +404,7 @@ def _supervised_steps(checks, e, ckpt, ckpt_dir, params, start, step, batch,
 
 
 def _serve_legs(checks, cfg, params, batch, rules, dev, gen, leg,
-                guarded) -> bool:
+                guarded, e) -> bool:
     """The serve shapes on the trained weights, and on small f32
     engines."""
     # serve shape: a short greedy decode on the trained shards (the
@@ -509,12 +508,27 @@ def _serve_legs(checks, cfg, params, batch, rules, dev, gen, leg,
         checks.update(rec)
         return flag
 
+    def fleet_scale():
+        flag, rec = fleet_scale_leg(fleet_state["params"], fleet_state["cfg"],
+                                    dev)
+        checks.update(rec)
+        return flag
+
+    def prefix_cdn():
+        ccfg, cparams = small(23)
+        flag, rec = prefix_cdn_leg(cparams, ccfg, dev,
+                                   e.get("TPU_PREFIX_DISK_SPILL"))
+        checks.update(rec)
+        return flag
+
     for key, fn in (("serve_engine_ok", serve_engine),
                     ("serve_sched_ok", serve_sched),
                     ("paged_decode_ok", paged_decode),
                     ("serve_fleet_ok", serve_fleet),
                     ("fleet_chaos_ok", fleet_chaos),
-                    ("kv_spill_ok", kv_spill)):
+                    ("kv_spill_ok", kv_spill),
+                    ("fleet_scale_ok", fleet_scale),
+                    ("prefix_cdn_ok", prefix_cdn)):
         if not ok:
             break
         ok &= leg(key[:-3], lambda: guarded(key, fn))
@@ -636,6 +650,113 @@ def kv_spill_leg(params, cfg: BurnInConfig, dev) -> tuple[bool, dict]:
             and sp["host_in_use"] == 0)
     return flag, {"kv_spill_swapins": sp["swapins"],
                   "kv_spill_spilled_blocks": sp["spilled_blocks"]}
+
+
+def fleet_scale_leg(params, cfg: BurnInConfig, dev) -> tuple[bool, dict]:
+    """The reference's elastic-fleet gate: on ``shared_prefix_prompts(12,
+    seed=6)`` (4 templates of 8 tokens), a burst of 8 then a sparse tail,
+    an autoscaled fleet (1 to 3 replicas, ``host_spill`` engines) must
+    scale up and down, equal the single engine token for token and drain
+    its pools; a second identical call must replay the same events with a
+    warm join whose seeded chains turn into prefix hits. Returns the
+    verdict and the line's ``fleet_scale_warm_blocks`` and
+    ``fleet_scale_joiner_hits``."""
+    from ..models.fleet import AutoscalePolicy, make_fleet
+
+    prompts = [torch.tensor(p, dtype=torch.long, device=dev)
+               for _t, p in shared_prefix_prompts(
+                   12, seed=6, n_templates=4, template_len=8, suffix_lo=1,
+                   suffix_hi=4, vocab=cfg.vocab)]
+    budgets = [3, 4, 2, 4, 3, 2, 4, 3, 2, 3, 4, 2]
+    max_len = max(int(p.shape[-1]) + n for p, n in zip(prompts, budgets))
+    base = make_serve_engine(params, cfg, max_len=max_len, kv_block=4,
+                             share_prefix=True, device=dev)(
+        prompts, budgets, slots=2)
+    arrivals = [0.0] * 8 + [0.5 + 0.25 * i for i in range(4)]
+    elastic = make_fleet(
+        params, cfg, max_len=max_len, replicas=1, kv_block=4,
+        share_prefix=True, host_spill=True, host_blocks=64,
+        prefix_keep_blocks=16, est_token_s=0.02, steal=False, device=dev,
+        autoscale=AutoscalePolicy(min_replicas=1, max_replicas=3,
+                                  up_backlog=2.0, down_backlog=0.5,
+                                  cooldown_s=0.05, seed=0))
+    rounds = []
+    for _ in range(2):
+        outs = elastic(prompts, budgets, slots=2, arrivals=arrivals)
+        sc = elastic.last_stats["fleet"]["scale"]
+        reps = elastic.last_stats["replica_stats"]
+        rounds.append({
+            "match": all(o is not None and torch.equal(o, b)
+                         for o, b in zip(outs, base)),
+            "scale": sc,
+            "drained": all(rs["kv"]["in_use"] == 0
+                           and rs["prefix"]["spill"]["host_in_use"] == 0
+                           for rs in reps if rs is not None),
+            "joiner_hits": sum(rs["prefix"]["hit_blocks"]
+                               for i, rs in enumerate(reps)
+                               if rs is not None and i >= sc["initial"]),
+            "warm_blocks": sum(rs["prefix"]["warm"]["seeded_blocks"]
+                               for rs in reps if rs is not None)})
+    r1, r2 = rounds
+    flag = (r1["match"] and r2["match"] and r1["drained"] and r2["drained"]
+            and r1["scale"]["ups_executed"] >= 1
+            and r1["scale"]["downs"] >= 1
+            and r2["scale"]["events"] == r1["scale"]["events"]
+            and r2["scale"]["warm_joins"] >= 1 and r2["warm_blocks"] >= 1
+            and r2["joiner_hits"] > 0)
+    return flag, {"fleet_scale_warm_blocks": r2["warm_blocks"],
+                  "fleet_scale_joiner_hits": r2["joiner_hits"]}
+
+
+def prefix_cdn_leg(params, cfg: BurnInConfig, dev,
+                   spill_dir: str | None = None) -> tuple[bool, dict]:
+    """The reference's durable prefix CDN gate: a 2-replica fleet with
+    ``disk_spill=`` on ``shared_prefix_prompts(6, seed=7)`` must equal the
+    single engine; a brand-new fleet over the same directory (every byte of
+    RAM state gone: a whole-fleet restart) must come back warm from disk
+    (chains restored, store hits) and equal it again, nothing quarantined
+    and the tier alive. ``spill_dir`` (``TPU_PREFIX_DISK_SPILL``) names a
+    durable directory; without it a temporary one is made and removed.
+    Returns the verdict and the line's ``prefix_cdn_*`` fields."""
+    import shutil
+    import tempfile
+
+    from ..models.fleet import make_fleet
+
+    prompts = [torch.tensor(p, dtype=torch.long, device=dev)
+               for _t, p in shared_prefix_prompts(
+                   6, seed=7, n_templates=2, template_len=8, suffix_lo=1,
+                   suffix_hi=4, vocab=cfg.vocab)]
+    budgets = [3, 4, 2, 4, 3, 2]
+    max_len = max(int(p.shape[-1]) + n for p, n in zip(prompts, budgets))
+    base = make_serve_engine(params, cfg, max_len=max_len, kv_block=4,
+                             share_prefix=True, device=dev)(
+        prompts, budgets, slots=2)
+    ddir = spill_dir or tempfile.mkdtemp(prefix="smoke_cdn_")
+    try:
+        def cdn_run():
+            fleet = make_fleet(params, cfg, max_len=max_len, replicas=2,
+                               kv_block=4, share_prefix=True, steal=False,
+                               disk_spill=ddir, device=dev)
+            outs = fleet(prompts, budgets, slots=2)
+            return (all(o is not None and torch.equal(o, b)
+                        for o, b in zip(outs, base)),
+                    fleet.cdn_store.disk_restored,
+                    fleet.last_stats["fleet"]["cdn"])
+
+        m1, _r1, cdn1 = cdn_run()                 # seeds the disk
+        m2, restored, cdn2 = cdn_run()            # the restart
+    finally:
+        if spill_dir is None:
+            shutil.rmtree(ddir, ignore_errors=True)
+    flag = (m1 and m2 and restored > 0
+            and cdn1["store"]["disk"]["stored_chains"] > 0
+            and cdn2["store"]["fetch_blocks"] > 0
+            and cdn2["store"]["disk"]["quarantined"] == 0
+            and not cdn2["store"]["disk"]["dead"])
+    return flag, {"prefix_cdn_durable_dir": spill_dir is not None,
+                  "prefix_cdn_restored_chains": restored,
+                  "prefix_cdn_hit_blocks": cdn2["store"]["fetch_blocks"]}
 
 
 def _full(checks, dev, n_dev, leg, guarded) -> bool:

@@ -2147,3 +2147,128 @@ def test_fleet_handoff_waits_for_the_prefill_stream(cuda, monkeypatch):
            if r["role"] == "decode"]
     assert sum(r["kv_imports"] for r in dec) == len(prompts)
     assert all(r["flash_prefills"] == 0 and r["import_ms"] > 0 for r in dec)
+
+
+def test_shared_store_fetch_never_reads_a_row_in_flight(cuda):
+    """Two replica streams share one ``WarmChainStore``: replica A's stream
+    is stalled before it writes the rows its ``ChainSpill`` then publishes;
+    replica B, on its own stream, polls ``fetch`` meanwhile and imports
+    what it gets. The store files A's rows only once their copy to the host
+    has landed, so B sees nothing or the written rows — never stale ones."""
+    import threading
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        ChainSpill,
+        WarmChainStore,
+        chain_chunks,
+        import_block_rows,
+        pool_transfer_keys,
+    )
+
+    cfg, (pool, other) = _seeded_card_pools(cuda, "bf16", 3)
+    store = WarmChainStore(cfg, 16, block_size=16, device=cuda)
+    chunks = chain_chunks(list(range(48)), 16)
+    side_a, side_b = torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)
+    torch.cuda.synchronize()
+    fetched: list = []
+
+    def replica_a():
+        with torch.cuda.stream(side_a):
+            torch.cuda._sleep(_STREAM_STALL_CYCLES)
+            for k in pool_transfer_keys(pool):
+                for buf in pool[k]:
+                    buf[1:4].fill_(7.0)
+            ChainSpill(store, lambda: pool).store_chains(
+                [(chunks, [1, 2, 3])])
+
+    def replica_b():
+        with torch.cuda.stream(side_b):
+            while not fetched:
+                got = store.fetch(chunks)
+                if got is not None:
+                    n, rows, disk = got
+                    import_block_rows(other, [4, 5, 6][:n], rows)
+                    fetched.append((n, disk))
+
+    threads = [threading.Thread(target=f) for f in (replica_a, replica_b)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(60.0)
+    torch.cuda.synchronize()
+    assert fetched == [(3, False)]
+    for k in pool_transfer_keys(other):
+        for buf in other[k]:
+            assert bool((buf[4:7] == 7.0).all())
+
+
+def _cdn_case(cuda):
+    cfg, params, prompts = _fleet_case(cuda)
+    want = make_serve_engine(params, cfg, max_len=48, kv_block=8,
+                             device=cuda)(prompts, 6, slots=2)
+    return cfg, params, prompts, want
+
+
+def test_restarted_cdn_fleet_equals_the_first_without_a_sync(cuda,
+                                                             tmp_path):
+    """A 2-replica fleet with ``disk_spill=`` on the card, then a brand-new
+    fleet over the same directory: the second comes up with chains
+    restored, hits the store, and its outputs — read on the caller's
+    stream with no synchronize — equal the first fleet's and the single
+    engine's."""
+    from nvidia_terraform_modules_tpu_torch.models import make_fleet
+
+    cfg, params, prompts, want = _cdn_case(cuda)
+    kw = dict(max_len=48, replicas=2, kv_block=8, share_prefix=True,
+              prefix_keep_blocks=0, steal=False,
+              disk_spill=str(tmp_path / "cdn"))
+    first = make_fleet(params, cfg, **kw)(prompts, 6, slots=2)
+    again = make_fleet(params, cfg, **kw)
+    assert again.cdn_store.disk_restored > 0
+    got = again(prompts, 6, slots=2)
+    assert [bool(torch.equal(a, b)) and bool(torch.equal(a, c))
+            for a, b, c in zip(got, first, want)] == [True] * len(prompts)
+    cdn = again.last_stats["fleet"]["cdn"]
+    assert cdn["store"]["fetch_blocks"] > 0
+    assert cdn["store"]["disk"]["quarantined"] == 0
+
+
+def test_warm_join_worker_tallies_on_card(cuda):
+    """An autoscaled fleet on the card (1 → 3 replicas, ``host_spill``
+    engines): its second call replays the same events with warm joins, and
+    each worker's own tally is K7 once a layer a wave and K1 once a layer a
+    flash prefill, the joiners prefilling fewer of their admissions than a
+    cold run would; every request equals the single engine."""
+    from nvidia_terraform_modules_tpu_torch.models import (
+        AutoscalePolicy,
+        make_fleet,
+    )
+
+    cfg, params, prompts, want = _cdn_case(cuda)
+    fleet = make_fleet(params, cfg, max_len=48, replicas=1, kv_block=8,
+                       share_prefix=True, host_spill=True, host_blocks=64,
+                       prefix_keep_blocks=16, est_token_s=0.01,
+                       steal=False, autoscale=AutoscalePolicy(
+                           min_replicas=1, max_replicas=3, up_backlog=2.0,
+                           down_backlog=0.25, cooldown_s=0.0, seed=0))
+    events = None
+    for call in range(2):
+        got = fleet(prompts, 6, slots=2)
+        st = fleet.last_stats
+        sc = st["fleet"]["scale"]
+        assert [bool(torch.equal(a, b)) for a, b in zip(got, want)] \
+            == [True] * len(prompts)
+        events = events or sc["events"]
+        assert sc["events"] == events and sc["ups_executed"] >= 1
+    assert sc["warm_joins"] >= 1
+    per = st["fleet"]["launches"]
+    joiner_admits = joiner_flash = 0
+    for rec in st["fleet"]["per_replica"]:
+        mine = per[rec["replica"]]
+        assert mine.get("paged_decode", 0) == rec["waves"] * cfg.n_layers
+        assert mine.get("flash_fwd", 0) == \
+            rec["flash_prefills"] * cfg.n_layers
+        if int(rec["replica"].split("-")[1]) >= sc["initial"]:
+            joiner_admits += rec["requests"]
+            joiner_flash += rec["flash_prefills"]
+    assert joiner_flash < joiner_admits

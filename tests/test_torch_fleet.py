@@ -21,6 +21,7 @@ items 9c and 9d. Each JAX reference is computed once (``lru_cache``).
 import dataclasses
 import functools
 import threading
+import types
 
 import jax
 import jax.numpy as jnp
@@ -461,16 +462,25 @@ def test_fleet_validation():
     with pytest.raises(ValueError, match="arrivals"):
         fleet(prompts, 4, arrivals=[0.0])
     assert fleet([], 4) == []
-    # the elastic plane's keywords: the reference's defaults pass, any
-    # other value names ROADMAP item 9c
+    # the elastic plane's keywords: the reference's defaults pass, a fleet
+    # without the tiered index takes warm_join / warm_blocks / cdn_blocks
+    # and ignores them as the reference's does, and the refusals are the
+    # reference's messages
     make_fleet(params, cfg, max_len=16, replicas=1, autoscale=None,
                warm_join=True, warm_blocks=None, disk_spill=None,
                cdn_blocks=None)
-    for kw in ({"autoscale": object()}, {"warm_join": False},
-               {"warm_blocks": 8}, {"disk_spill": "/tmp/x"},
-               {"cdn_blocks": 8}):
-        with pytest.raises(NotImplementedError, match="item 9c"):
+    make_fleet(params, cfg, max_len=16, replicas=1, warm_join=False,
+               warm_blocks=8, cdn_blocks=8)
+    jcfg, jp = _setup()[:2]
+    for kw in ({"autoscale": object()}, {"warm_blocks": 0},
+               {"cdn_blocks": 0}, {"disk_spill": "unused"},
+               {"disk_spill": "unused", "share_prefix": True,
+                "routing": "random"}):
+        with pytest.raises(ValueError) as got:
             make_fleet(params, cfg, max_len=16, replicas=1, **kw)
+        with pytest.raises(ValueError) as want:
+            jfleet.make_fleet(jp, jcfg, max_len=16, replicas=1, **kw)
+        assert str(got.value) == str(want.value)
 
 
 def test_fleet_consistent_hash_ring_equals_the_reference():
@@ -620,9 +630,10 @@ def test_kv_import_admissions_run_no_prefill(monkeypatch):
 
 
 def test_prefill_session_refusals_and_the_elastic_hooks():
-    """``prefill_session`` refuses what the reference's refuses; a source
-    with warm chains or a chain sink, and the engine's ``shared_store`` /
-    ``aot_cache``, name ROADMAP items 9c / 9d."""
+    """``prefill_session`` refuses what the reference's refuses; a source's
+    warm chains (no host tier: dropped, billed) and its chain sink (the
+    retained chains published at close) are served; ``aot_cache`` still
+    names ROADMAP item 9d."""
     _, _, cfg, params, prompts = _setup()
     for kw, match in (({"sampler": make_sampler(top_k=2)}, "greedy-only"),
                       ({"spec_k": 2, "max_len": 24}, "spec_k"),
@@ -641,18 +652,23 @@ def test_prefill_session_refusals_and_the_elastic_hooks():
 
     class Warm(_Queue):
         def warm_chains(self):
-            return [((1, 2, 3, 4),), {}]
+            return [(((1, 2, 3, 4),), {})]
+
+    published = []
 
     class Sink(_Queue):
         def chain_sink(self):
-            return object()
+            return types.SimpleNamespace(
+                publish=lambda chains: published.extend(chains) or 0)
 
-    for src in (Warm([0]), Sink([0])):
-        with pytest.raises(NotImplementedError, match="item 9c"):
-            eng(prompts, 2, admission=src)
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        make_serve_engine(params, cfg, max_len=16, device="cpu",
-                          shared_store=object())
+    eng(prompts, 2, admission=Warm([0]))
+    assert eng.last_stats["prefix"]["warm"]["seed_dropped"] == 1
+    shared = make_serve_engine(params, cfg, max_len=16, kv_block=4,
+                               share_prefix=True, device="cpu")
+    shared(prompts[:2], 2, admission=Sink([0, 1]))
+    # two prompts of 4 and 6 tokens: one full block each, two chains
+    assert sorted(len(c) for c, _p in published) == [1, 1]
+    assert all(p["k"][0].shape[0] == 1 for _c, p in published)
     with pytest.raises(NotImplementedError, match="item 9d"):
         make_serve_engine(params, cfg, max_len=16, device="cpu",
                           aot_cache="dir")

@@ -415,3 +415,114 @@ def test_host_pool_validation_reset_and_layout():
                             "loaded_blocks": 0}
     with pytest.raises(ValueError, match="foreign"):
         host.load([0])
+
+
+# ------------------------------------------ warm bring-up and the CDN tier
+
+
+@pytest.mark.parametrize("kind", sorted(TRANSFER_DTYPES))
+def test_adopt_stamps_rows_as_the_reference(kind):
+    """``adopt`` of an exported payload (the warm join's door into a host
+    pool): the same host ids, crc stamps and statistics as the reference's
+    adopt of the same rows, all or nothing, and ``load`` returns the rows
+    bit for bit."""
+    cfg, ss = sides(kind, host_blocks=5)
+    port = ss[1]
+    got = both(ss, lambda s: s.host.adopt(
+        (export_block_rows if s is port else jpaging.export_block_rows)(
+            s.pool, [2, 3, 5])))
+    assert got == [0, 1, 2]
+    assert both(ss, lambda s: s.host.adopt(
+        (export_block_rows if s is port else jpaging.export_block_rows)(
+            s.pool, [1, 4, 6]))) is None
+    want = export_block_rows(port.pool, [2, 3, 5])
+    back = port.host.load(got)
+    for k in want:
+        for g, w in zip(back[k], want[k]):
+            assert torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+    # numpy rows as a disk record holds them (bf16 as 16-bit patterns)
+    rec = {k: [hostkv._record_array(b) for b in v] for k, v in want.items()}
+    assert port.host.adopt({k: [b[:1] for b in v]
+                            for k, v in rec.items()}) == [3]
+    assert port.host._crc[3] == port.host._crc[0]
+
+
+def test_seed_host_and_export_chains_equal_the_reference():
+    """Warm seeding: ``seed_host`` files adopted rows as host-tier entries
+    (a node already indexed keeps its entry and the duplicate row goes
+    back), the tiered match swaps them in, and ``export_chains`` lists
+    every maximal chain MRU-leaf first, read-only — state equal to the
+    reference's after each step."""
+    cfg, ss = sides("f32", host_blocks=8, cap=4)
+    port = ss[1]
+    toks = list(range(12))
+    a = chain_chunks(toks, 4)
+    b = chain_chunks(toks[:8] + [60, 61, 62, 63], 4)
+
+    def seed(s, chunks, blocks):
+        ex = (export_block_rows if s is port else jpaging.export_block_rows)
+        return s.idx.seed_host(chunks, s.host.adopt(ex(s.pool, blocks)))
+    assert both(ss, lambda s: seed(s, a, [1, 2, 3])) == 3
+    assert both(ss, lambda s: seed(s, b, [1, 2, 4])) == 1
+    assert port.host.in_use == 4
+    donor = both(ss, lambda s: s.a.alloc(2))
+    both(ss, lambda s: s.idx.register(chain_chunks([9] * 8, 4), donor))
+    both(ss, lambda s: s.a.free(donor))
+    got = both(ss, lambda s: s.idx.export_chains())
+    assert [len(c) for c, _ids in got] == [2, 3, 3]
+    assert got[0][1] == [("dev", donor[0]), ("dev", donor[1])]
+    dev, tail = both(ss, lambda s: s.idx.match_tiered(a))
+    assert dev == [] and len(tail) == 3
+    with pytest.raises(ValueError, match="seed_host needs a spill"):
+        paging.PrefixIndex(port.a, 2).seed_host(a, [0, 1, 2])
+    both(ss, lambda s: s.idx.release())
+    assert port.host.in_use == 0 and port.a.in_use == 0
+
+
+@pytest.mark.parametrize("kind", ["f32", "int8"])
+def test_chain_level_eviction_publishes_whole_chains(kind):
+    """A ``ChainSpill`` index (the shared-store engine's): eviction hands
+    every root→leaf chain through the evicted subtree to the store — the
+    shared template rows filed once — then drops it, no host-tier entry
+    made; index state and store ledger equal the reference's, and a fetch
+    returns the evicted rows bit for bit."""
+    cfg, pool, jpool = seeded_pools(kind, 5, num_blocks=12)
+    jcfg = types.SimpleNamespace(kv_heads=cfg.kv_heads,
+                                 head_dim=cfg.head_dim,
+                                 n_layers=cfg.n_layers, dtype=jnp.float32)
+    cache_dtype = TRANSFER_DTYPES[kind][1]
+    stores = [jhostkv.WarmChainStore(jcfg, 16, block_size=4,
+                                     cache_dtype=cache_dtype),
+              hostkv.WarmChainStore(cfg, 16, block_size=4,
+                                    cache_dtype=cache_dtype, device="cpu")]
+    ss = []
+    for pg, hk, st, pl in ((jpaging, jhostkv, stores[0], jpool),
+                           (paging, hostkv, stores[1], pool)):
+        s = types.SimpleNamespace(a=pg.BlockAllocator(12), pool=pl,
+                                  host=st.pool)
+        s.idx = pg.PrefixIndex(s.a, 0, spill=hk.ChainSpill(
+            st, lambda s=s: s.pool))
+        ss.append(s)
+    tmpl = list(range(8))
+    chains = [chain_chunks(tmpl + [40 + i] * 4, 4) for i in range(2)]
+    want = export_block_rows(pool, [1, 2, 3])
+    both(ss, lambda s: s.a.alloc(3))
+    both(ss, lambda s: s.idx.register(chains[0], [1, 2, 3]))
+    # a second request shares the template's two blocks
+    assert both(ss, lambda s: s.idx.match(chains[1])) == [1, 2]
+    both(ss, lambda s: s.a.alloc(1))
+    both(ss, lambda s: s.idx.register(chains[1], [1, 2, 4]))
+    both(ss, lambda s: s.a.free([1, 2, 3]))
+    both(ss, lambda s: s.a.free([1, 2, 4]))
+    assert both(ss, lambda s: s.idx.trim()) == 4
+    assert len(ss[1].idx) == 0 and ss[1].a.in_use == 0
+    got = [st.stats() for st in stores]
+    assert got[0] == got[1]
+    assert got[1]["chains"] == 2 and got[1]["blocks_in_use"] == 4
+    n, rows, disk = stores[1].fetch(chains[0])
+    assert (n, disk) == (3, False)
+    for k in want:
+        for g, w in zip(rows[k], want[k]):
+            assert torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+    with pytest.raises(ValueError, match="leaked"):
+        ss[1].idx.spill.free([0])

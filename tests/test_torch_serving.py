@@ -25,6 +25,7 @@ from nvidia_terraform_modules_tpu.models.serving import (
 from nvidia_terraform_modules_tpu_torch.models import (
     AdmissionSource,
     BurnInConfig,
+    WarmChainStore,
     greedy_decode,
     make_serve_engine,
     params_from_numpy,
@@ -152,22 +153,45 @@ def test_engine_validation_and_unported_levers():
     with pytest.raises(ValueError, match="share_prefix=True alongside"):
         make_serve_engine(params, cfg, max_len=12, device="cpu",
                           host_spill=True)
-    for lever, value, item in (("shared_store", object(), "item 9c (fleet"),
-                               ("aot_cache", "dir", "item 9d (fleet")):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.*{re.escape(item)}"):
-            make_serve_engine(params, cfg, max_len=12, device="cpu",
-                              **{lever: value})
-
-    # run(admission=) is served; a source's warm bring-up chains (the
-    # elastic fleet's) are not yet
-    class WarmSource(AdmissionSource):
-        def warm_chains(self):
-            return [((1, 2, 3, 4),)]
-
+    # the shared store builds beside the prefix index, without the private
+    # host tier, and refuses otherwise with the reference's messages; the
+    # AOT cache refuses any value, naming its item
+    store = WarmChainStore(cfg, 8, block_size=16, device="cpu")
+    make_serve_engine(params, cfg, max_len=12, device="cpu",
+                      share_prefix=True, shared_store=store)
+    with pytest.raises(ValueError, match="CDN tier — enable share_prefix"):
+        make_serve_engine(params, cfg, max_len=12, device="cpu",
+                          shared_store=store)
+    with pytest.raises(ValueError, match="replaces the private host tier"):
+        make_serve_engine(params, cfg, max_len=12, device="cpu",
+                          share_prefix=True, host_spill=True,
+                          shared_store=store)
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP.*item 9c .fleet stack: elastic"):
-        engine(prompts, 2, admission=WarmSource())
+                       match=f"ROADMAP.*{re.escape('item 9d (fleet')}"):
+        make_serve_engine(params, cfg, max_len=12, device="cpu",
+                          aot_cache="dir")
+
+    # run(admission=) takes a source's warm bring-up chains: an engine
+    # without a host tier drops each one and bills it
+    class WarmSource(AdmissionSource):
+        def __init__(self):
+            self.left = [0, 1]
+
+        def candidate(self):
+            return self.left[0] if self.left else None
+
+        def pop(self, req):
+            self.left.remove(req)
+
+        def exhausted(self):
+            return not self.left
+
+        def warm_chains(self):
+            return [(((1, 2, 3, 4),), {})]
+
+    got = engine(prompts, 2, admission=WarmSource())
+    assert sorted(got) == [0, 1]
+    assert engine.last_stats["prefix"]["warm"]["seed_dropped"] == 1
     with pytest.raises(TypeError):
         make_serve_engine(params, cfg, max_len=12, device="cpu", bogus=1)
     # the reference's baseline values of a lever are the engine as it is
@@ -183,8 +207,7 @@ def _keyword_defaults(fn) -> dict:
 # keywords the port accepts only at the reference's default: a value that
 # is not, and the ROADMAP item its NotImplementedError names
 _NOT_DEFAULT = {
-    "make_serve_engine": {"shared_store": (object(), "item 9c"),
-                          "aot_cache": ("dir", "item 9d")},
+    "make_serve_engine": {"aot_cache": ("dir", "item 9d")},
     "run": {},
 }
 # keywords the port now serves, at a value other than the reference's
@@ -230,6 +253,12 @@ def test_reference_keywords_at_their_defaults_serve_the_same_tokens():
     speculative = make_serve_engine(params, cfg, max_len=16, device="cpu",
                                     **_PORTED_SPEC)
     for g, w in zip(speculative(prompts, 4), want):
+        assert torch.equal(g, w)
+    # the shared store serves beside the prefix index, tokens unchanged
+    cdn = make_serve_engine(params, cfg, max_len=16, device="cpu",
+                            share_prefix=True, shared_store=WarmChainStore(
+                                cfg, 8, block_size=16, device="cpu"))
+    for g, w in zip(cdn(prompts, 4), want):
         assert torch.equal(g, w)
     for name, (value, item) in _NOT_DEFAULT["make_serve_engine"].items():
         with pytest.raises(NotImplementedError,

@@ -87,10 +87,12 @@ def _pair(jp, jcfg, params, cfg, prompts, n_new, engine_kw, run_kw=None,
     return got, eng.last_stats, jeng.last_stats
 
 
-# the reference's prefix record less its fleet-only parts ("cdn", "warm");
-# "spill" is the host tier's record, all zeros without host_spill
+# the reference's prefix record: "spill" is the host tier's record, all
+# zeros without host_spill; "cdn" (the shared store's) and "warm" (warm
+# bring-up) are zeros and disabled outside a fleet
 _PREFIX_KEYS = ("enabled", "hit_blocks", "prompt_blocks", "hit_frac",
-                "tokens_saved", "lookups", "reclaim_blocked", "spill")
+                "tokens_saved", "lookups", "reclaim_blocked", "spill",
+                "cdn", "warm")
 
 
 def _same_schedule(mine, ref):

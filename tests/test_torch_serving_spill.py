@@ -25,12 +25,14 @@ import pytest
 import torch
 
 from nvidia_terraform_modules_tpu.models import burnin as jburnin
+from nvidia_terraform_modules_tpu.models import hostkv as jhostkv
 from nvidia_terraform_modules_tpu.models.serving import (
     make_serve_engine as jax_engine,
 )
 from nvidia_terraform_modules_tpu_torch.models import (
     AdmissionSource,
     BurnInConfig,
+    WarmChainStore,
     greedy_decode,
     hostkv,
     make_serve_engine,
@@ -131,8 +133,7 @@ def test_spilling_engine_equals_jax_engine_and_solo(model, slots, host_swap,
     assert st["kv"]["in_use"] == 0 and sp["host_in_use"] == 0
     assert sp["host_high_water"] > 0 and sp["host_blocks"] == 64
     assert {k: v for k, v in st["prefix"].items() if k != "spill"} == \
-        {k: v for k, v in jst["prefix"].items()
-         if k not in ("spill", "cdn", "warm")}
+        {k: v for k, v in jst["prefix"].items() if k != "spill"}
     if slots == 1:
         for p, n, g in zip(prompts, BUDGETS, got):
             solo = greedy_decode(params, torch.from_numpy(p)[None].long(), n,
@@ -234,7 +235,8 @@ def test_spill_validation_defaults_and_unported_keywords(model):
     bad ``host_swap`` refuse with the reference's messages; the engine
     without the tier bills it disabled, as the JAX engine does; the
     default host pool is ``max(4·prefix_keep_blocks, 64)`` blocks; the
-    fleet's keywords still raise their ROADMAP item."""
+    shared store's refusals are the reference's, the AOT cache still
+    names its ROADMAP item, and a source's warm chains seed the tier."""
     jcfg, jp, cfg, params, prompts = model
     for kw in ({"host_spill": True},
                {"share_prefix": True, "host_spill": True, "host_blocks": 0},
@@ -260,16 +262,48 @@ def test_spill_validation_defaults_and_unported_keywords(model):
     assert tier([], 3) == []
     assert tier.last_stats["prefix"]["spill"]["host_blocks"] == 80
     assert tier.last_stats["prefix"]["spill"]["enabled"] is True
-    for kw, item in (({"shared_store": object()}, "item 9c"),
-                     ({"aot_cache": "dir"}, "item 9d")):
-        with pytest.raises(NotImplementedError, match=item):
+    # the shared store refuses beside the private tier and without the
+    # index, with the reference's messages; the AOT cache names item 9d
+    store = WarmChainStore(cfg, 8, block_size=4, device="cpu")
+    jstore = jhostkv.WarmChainStore(jcfg, 8, block_size=4)
+    for kw, jkw in (({"shared_store": store}, {"shared_store": jstore}),
+                    ({"share_prefix": True, "host_spill": True,
+                      "shared_store": store},
+                     {"share_prefix": True, "host_spill": True,
+                      "shared_store": jstore})):
+        with pytest.raises(ValueError) as got:
             make_serve_engine(params, cfg, max_len=16, device="cpu", **kw)
+        with pytest.raises(ValueError) as want:
+            jax_engine(jp, jcfg, max_len=16, **jkw)
+        assert str(got.value) == str(want.value)
+    with pytest.raises(NotImplementedError, match="item 9d"):
+        make_serve_engine(params, cfg, max_len=16, device="cpu",
+                          aot_cache="dir")
 
     class WarmSource(AdmissionSource):
-        """A source with warm bring-up chains for the host tier."""
+        """The requests in order, and one warm chain for the host tier
+        (tokens no prompt holds, so it seeds and is never hit)."""
+
+        def __init__(self, n):
+            self.left = list(range(n))
+
+        def candidate(self):
+            return self.left[0] if self.left else None
+
+        def pop(self, req):
+            self.left.remove(req)
+
+        def exhausted(self):
+            return not self.left
 
         def warm_chains(self):
-            return [((1, 2, 3, 4),)]
+            rows = {k: [torch.zeros((1, 4, cfg.kv_heads, cfg.head_dim))
+                        for _ in range(cfg.n_layers)] for k in ("k", "v")}
+            return [(((999,) * 4,), rows)]
 
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        tier(short, 2, admission=WarmSource())
+    base = tier(short, 2)
+    got = tier(short, 2, admission=WarmSource(len(short)))
+    assert all(torch.equal(got[i], base[i]) for i in range(len(short)))
+    warm = tier.last_stats["prefix"]["warm"]
+    assert warm["seeded_chains"] == 1 and warm["seeded_blocks"] == 1
+    assert tier.last_stats["prefix"]["spill"]["host_in_use"] == 0

@@ -123,3 +123,49 @@ def test_forward_cached_int8_kernel_keyword_as_the_reference():
     np.testing.assert_allclose(np.concatenate(got, 1),
                                np.concatenate(want, 1), rtol=1e-5,
                                atol=1e-5)
+
+
+ELASTIC_ENTRY_POINTS = [
+    ("models.fleet", "make_fleet"),
+    ("models.fleet", "AutoscalePolicy"),
+    ("models.fleet", "FleetFaultProfile.resolve"),
+    ("models.hostkv", "WarmChainStore"),
+    ("models.hostkv", "WarmChainStore.publish"),
+    ("models.hostkv", "WarmChainStore.take"),
+    ("models.hostkv", "WarmChainStore.fetch"),
+    ("models.hostkv", "DiskChainStore"),
+    ("models.hostkv", "DiskChainStore.put"),
+    ("models.hostkv", "ChainSpill"),
+    ("models.hostkv", "HostBlockPool.adopt"),
+    ("models.paging", "PrefixIndex.seed_host"),
+    ("models.paging", "PrefixIndex.export_chains"),
+    ("models.transport", "encode_warm_chains"),
+    ("models.transport", "decode_warm_chains"),
+    ("models.transport", "warm_chains_nbytes"),
+]
+
+
+def _attr(module: str, path: str, package: str):
+    obj = importlib.import_module(f"{package}.{module}")
+    for part in path.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+@pytest.mark.parametrize("module,path", ELASTIC_ENTRY_POINTS,
+                         ids=[p for _m, p in ELASTIC_ENTRY_POINTS])
+def test_elastic_entry_point_matches_reference_signature(module, path):
+    """The elastic plane's and the prefix CDN's entry points (``make_fleet``
+    with ``autoscale``, ``warm_join``, ``warm_blocks``, ``disk_spill`` and
+    ``cdn_blocks``; the stores, the policy, the index and codec hooks) take
+    the reference's parameters in its order and kinds, the port's
+    keyword-only ``device`` set aside."""
+    port = _attr(module, path, "nvidia_terraform_modules_tpu_torch")
+    ref = _attr(module, path, "nvidia_terraform_modules_tpu")
+    assert _mismatch(port, ref) == []
+    if path == "make_fleet":
+        names = inspect.signature(port).parameters
+        for kw in ("autoscale", "warm_join", "warm_blocks", "disk_spill",
+                   "cdn_blocks"):
+            assert names[kw].default == inspect.signature(
+                ref).parameters[kw].default

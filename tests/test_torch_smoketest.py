@@ -217,6 +217,107 @@ def test_kv_spill_leg_at_burnin_equals_the_jax_runner_leg():
                    "kv_spill_spilled_blocks": sp["spilled_blocks"]}
 
 
+def test_fleet_scale_and_prefix_cdn_legs_equal_the_jax_runner_legs(
+        tmp_path):
+    """``fleet_scale_ok`` and ``prefix_cdn_ok`` run at ``burnin`` (off
+    ``not_ported``, their seconds recorded; the CDN leg on the durable
+    directory ``TPU_PREFIX_DISK_SPILL`` names, which it keeps), and the
+    legs on the reference runner's configs and weights
+    (``init_params(PRNGKey(13))`` and ``(23)``) report the warm blocks,
+    restored chains and store hits the reference's legs report, the
+    joiner hitting on both, every verdict true."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from nvidia_terraform_modules_tpu.models import burnin as jburnin
+    from nvidia_terraform_modules_tpu.models.fleet import (
+        AutoscalePolicy,
+    )
+    from nvidia_terraform_modules_tpu.models.fleet import (
+        make_fleet as jax_fleet,
+    )
+    from nvidia_terraform_modules_tpu.utils.traffic import (
+        shared_prefix_prompts,
+    )
+    from nvidia_terraform_modules_tpu_torch.models import params_from_numpy
+    from nvidia_terraform_modules_tpu_torch.smoketest.runner import (
+        fleet_scale_leg,
+        prefix_cdn_leg,
+    )
+
+    spill = tmp_path / "cdn"
+    r = run_smoketest(level="burnin", env={
+        **CPU, "TPU_PREFIX_DISK_SPILL": str(spill)})
+    assert r.ok, r.checks
+    for key in ("fleet_scale", "prefix_cdn"):
+        assert r.checks[f"{key}_ok"] is True
+        assert f"{key}_ok" not in r.checks["not_ported"]
+        assert key in r.checks["leg_seconds"]
+    assert r.checks["prefix_cdn_durable_dir"] is True
+    assert (spill / "objects").is_dir()
+    kw = dict(vocab=128, d_model=32, n_heads=4, d_ff=64, n_layers=2,
+              seq_len=16, batch=2)
+    jcfg = jburnin.BurnInConfig(**kw, dtype=jnp.float32)
+    cfg = BurnInConfig(**kw, dtype=torch.float32)
+
+    def weights(seed):
+        jp = jburnin.init_params(jax.random.PRNGKey(seed), jcfg)
+        return jp, params_from_numpy(jax.tree.map(np.asarray, jp), cfg,
+                                     device="cpu")
+
+    def wave(n, seed, templates, budgets):
+        prompts = [jnp.asarray(p, jnp.int32) for _t, p in
+                   shared_prefix_prompts(n, seed=seed,
+                                         n_templates=templates,
+                                         template_len=8, suffix_lo=1,
+                                         suffix_hi=4, vocab=jcfg.vocab)]
+        return prompts, max(int(p.shape[-1]) + b
+                            for p, b in zip(prompts, budgets))
+
+    # the reference runner's fleet_scale leg, as it runs it
+    jp, params = weights(13)
+    budgets = [3, 4, 2, 4, 3, 2, 4, 3, 2, 3, 4, 2]
+    prompts, ml = wave(12, 6, 4, budgets)
+    elastic = jax_fleet(
+        jp, jcfg, max_len=ml, replicas=1, kv_block=4, share_prefix=True,
+        host_spill=True, host_blocks=64, prefix_keep_blocks=16,
+        est_token_s=0.02, steal=False,
+        autoscale=AutoscalePolicy(min_replicas=1, max_replicas=3,
+                                  up_backlog=2.0, down_backlog=0.5,
+                                  cooldown_s=0.05, seed=0))
+    arrivals = [0.0] * 8 + [0.5 + 0.25 * i for i in range(4)]
+    for _ in range(2):
+        elastic(prompts, budgets, slots=2, arrivals=arrivals)
+    sc = elastic.last_stats["fleet"]["scale"]
+    reps = elastic.last_stats["replica_stats"]
+    flag, rec = fleet_scale_leg(params, cfg, "cpu")
+    assert flag is True
+    assert rec["fleet_scale_warm_blocks"] == sum(
+        rs["prefix"]["warm"]["seeded_blocks"] for rs in reps if rs)
+    # the joiner's hits depend on which of its admissions share a wave (a
+    # chain registers once its prefill ran): both sides hit, counts vary
+    assert rec["fleet_scale_joiner_hits"] > 0 and sum(
+        rs["prefix"]["hit_blocks"] for i, rs in enumerate(reps)
+        if rs and i >= sc["initial"]) > 0
+    # the reference runner's prefix_cdn leg, over a directory of its own
+    jp, params = weights(23)
+    budgets = [3, 4, 2, 4, 3, 2]
+    prompts, ml = wave(6, 7, 2, budgets)
+    for _ in range(2):
+        fl = jax_fleet(jp, jcfg, max_len=ml, replicas=2, kv_block=4,
+                       share_prefix=True, steal=False,
+                       disk_spill=str(tmp_path / "jax_cdn"))
+        fl(prompts, budgets, slots=2)
+    flag, rec = prefix_cdn_leg(params, cfg, "cpu")
+    assert flag is True
+    assert rec == {"prefix_cdn_durable_dir": False,
+                   "prefix_cdn_restored_chains": fl.cdn_store.disk_restored,
+                   "prefix_cdn_hit_blocks":
+                       fl.last_stats["fleet"]["cdn"]["store"][
+                           "fetch_blocks"]}
+
+
 def test_json_line_contract():
     r = run_smoketest(level="psum", env=CPU)
     parsed = json.loads(r.to_json())

@@ -32,10 +32,12 @@ import torch
 import nvidia_terraform_modules_tpu.telemetry as jtel
 import nvidia_terraform_modules_tpu_torch.telemetry as ptel
 from nvidia_terraform_modules_tpu.models import burnin as jburnin
+from nvidia_terraform_modules_tpu.models import hostkv as jhostkv
 from nvidia_terraform_modules_tpu.models import serving as jserving
 from nvidia_terraform_modules_tpu.models import speculative as jspec
 from nvidia_terraform_modules_tpu_torch.models import (
     BurnInConfig,
+    WarmChainStore,
     init_params,
     instrument_step,
     make_serve_engine,
@@ -293,9 +295,9 @@ def test_get_registry_defaults_to_null_and_env_enables(tel, tmp_path,
 
 _BASE = dict(vocab=64, d_model=32, n_heads=2, d_ff=64, n_layers=1,
              seq_len=16, batch=2)
-# gauges of the reference's engine whose lever (shared_store) the port
-# refuses
-_LEFT_OUT = {"prefix_disk_hit_frac", "prefix_disk_swapin_ms"}
+# gauges of the reference's engine the port leaves out (none since the
+# shared store's two, prefix_disk_hit_frac and prefix_disk_swapin_ms)
+_LEFT_OUT: set = set()
 # instruments whose values are times; the host tier's swap-in time is one
 # where the engine spills (and 0 on both sides where it does not)
 _TIMED = {"paged_decode_ms", "join_first_token_ms"}
@@ -341,6 +343,12 @@ ENGINE_CASES = {
                                         share_prefix=True,
                                         prefix_keep_blocks=0,
                                         host_spill=True)),
+    # the shared store (a fresh RAM store a side): keep 0 publishes every
+    # retirement's chain, each repeated template swaps back in from it
+    "shared_store": ("shared", 4, 1, dict(max_len=16, kv_block=4,
+                                          share_prefix=True,
+                                          prefix_keep_blocks=0,
+                                          shared_store=True)),
     # eos retirements, per wave and from the lagged scan (the eos is a
     # token the first request emits mid-stream)
     "eos_every_wave": ("four", 6, 2, dict(max_len=16, eos_check_every=1)),
@@ -385,7 +393,12 @@ def test_engine_telemetry_equals_jax_engine(case):
             jprompts, n_new, slots=slots)[0]
         run_kw["eos_id"] = int(first[2])
     jreg, preg = jtel.Registry(), ptel.Registry()
-    jout = jserving.make_serve_engine(jp, jcfg, telemetry=jreg, **kw)(
+    jkw = dict(kw)
+    if kw.get("shared_store"):
+        jkw["shared_store"] = jhostkv.WarmChainStore(jcfg, 16, block_size=4)
+        kw["shared_store"] = WarmChainStore(cfg, 16, block_size=4,
+                                            device="cpu")
+    jout = jserving.make_serve_engine(jp, jcfg, telemetry=jreg, **jkw)(
         jprompts, n_new, slots=slots, **run_kw)
     engine = make_serve_engine(params, cfg, telemetry=preg, device="cpu",
                                **kw)
@@ -402,7 +415,8 @@ def test_engine_telemetry_equals_jax_engine(case):
                                              len(prompts)}
     assert set(want["gauges"]) - set(got["gauges"]) == _LEFT_OUT
     for name, value in got["gauges"].items():
-        if name in _TIMED or (name in _SPILL_TIMED and "host_spill" in kw):
+        if name in _TIMED or (name in _SPILL_TIMED and (
+                "host_spill" in kw or "shared_store" in kw)):
             assert value > 0 and want["gauges"][name] > 0, name
         else:
             assert value == want["gauges"][name], name

@@ -65,9 +65,12 @@ from nvidia_terraform_modules_tpu_torch.models.transport import (
     _close_at_exit,
     decode_block_payload,
     decode_rng,
+    decode_warm_chains,
     encode_block_payload,
     encode_rng,
+    encode_warm_chains,
     start_parent_watchdog,
+    warm_chains_nbytes,
 )
 from nvidia_terraform_modules_tpu_torch.ops import _build
 from nvidia_terraform_modules_tpu_torch.utils.retry import (
@@ -251,6 +254,38 @@ def test_block_payload_codec_stamps_the_reference_crc(dtype):
     corrupt["data"] = [bytes(buf)] + list(corrupt["data"][1:])
     with pytest.raises(TransportCorruptFrame, match="transfer_crc"):
         decode_block_payload(corrupt)
+
+
+def test_warm_chain_codec_drops_only_the_corrupt_chain():
+    """The warm join's wire: each chain stamped on its own with the
+    reference's ``transfer_crc`` of its rows, the byte count the
+    ``warm_chains_bytes_total`` unit (rows, not framing), and a flipped
+    byte drops that chain alone, counted."""
+    rng = np.random.default_rng(3)
+    chains = []
+    for i in range(3):
+        ref = {k: [rng.standard_normal((2, 4, 2, 8)).astype(np.float32)
+                   for _ in range(2)] for k in ("k", "v")}
+        chains.append(((tuple(range(i, i + 4)), (9, 9, 9, 9)), ref))
+    port = [(c, {k: [torch.from_numpy(b) for b in v] for k, v in p.items()})
+            for c, p in chains]
+    wire = encode_warm_chains(port)
+    want = jtransport.encode_warm_chains(chains)
+    assert [w[0] for w in wire] == [w[0] for w in want]
+    assert [w[1]["crc"] for w in wire] == [w[1]["crc"] for w in want]
+    assert warm_chains_nbytes(wire) == jtransport.warm_chains_nbytes(want) \
+        == 3 * 4 * 2 * 4 * 2 * 8 * 4
+    bad = pickle.loads(pickle.dumps(wire))
+    buf = bytearray(bad[1][1]["data"][0])
+    buf[0] ^= 0x10
+    bad[1][1]["data"][0] = bytes(buf)
+    back, dropped = decode_warm_chains(bad)
+    assert dropped == 1 and [c for c, _p in back] == [chains[0][0],
+                                                       chains[2][0]]
+    for (_c, got), (_c2, src) in zip(back, [port[0], port[2]]):
+        for k in src:
+            for g, w in zip(got[k], src[k]):
+                assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("rng", [7, 2 ** 33 + 5, np.array([3, 99])])
