@@ -160,15 +160,29 @@ It builds the port's CUDA kernels from ``csrc/`` with nvcc (into
   flagship width (``serve_cdn_flagship``): the cold, restarted and
   store-less fleets in turns and an autoscaled fleet's warm joiner —
   restore seconds, disk bytes, swap ms a MiB off disk and off the store,
-  tokens/s, latency and flash prefills.
+  tokens/s, latency and flash prefills;
+- the warm cache (``models/aotcache.py``; ``aot_warm_exact``, f32): the
+  Job's ``aot_warm_ok`` leg, a warmed engine whose first run captures
+  nothing and serves the cold engine's tokens and K1/K7 launches, a second
+  bring-up hitting every entry, a flipped and a truncated entry (planted)
+  quarantined and rewritten, an autoscaled fleet with ``aot_cache`` whose
+  ``warm_compiles`` are its bring-ups; at the flagship width
+  (``serve_aot_flagship``): cold and warmed bring-ups (build → tokens,
+  ``join_first_token_ms``, ``warm_ms``, hits), the kernel library installed
+  from the cache in a fresh process with an empty build directory beside
+  the run's ``nvcc`` build, and an autoscaled fleet's joiner with and
+  without the cache (spawn → first admission, the warm, launch → first
+  admission).
 
 Every phase prints one JSON line; any failure raises and the script exits
 non-zero. Without a CUDA device it exits 1 and prints no result; it
 imports nothing of JAX.
 
-The last three lines are: the kernels' JSON record (times, bounds, launch
-counts), the card's ``name, power.limit`` as nvidia-smi reports them, and
-``{"ok": true, "device": {...}}``.
+Before them, one line holds every phase's seconds (``phase_seconds``: the
+time up to each phase's line, summed by phase). The last three lines are:
+the kernels' JSON record (times, bounds, launch counts), the card's
+``name, power.limit`` as nvidia-smi reports them, and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -197,7 +211,7 @@ WARM_STEPS, TIMED_STEPS, ADAMW_STEPS = 2, 10, 3
 DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 8, 512, 64
 LONG_PROMPT, LONG_NEW = 3584, 32
 # turns of each decode rate (replayed and eager): the median and min-max
-DECODE_RUNS = 5
+DECODE_RUNS = 3
 # the int8 kernels' limits: max-abs error over max(1, max|ref|) — an int8
 # decode output over a few keys reaches |out| > 2, where one bf16 rounding
 # is 0.0156, and the int8 matmul's plain version scales before the
@@ -240,7 +254,17 @@ DRAW_OPS_PER_ELEMENT = 125
 MOE_EXPERTS, MOE_TOP_K = 8, 1
 
 
+# each phase's seconds: the time since the previous line a phase printed
+# (a phase prints when it ends), summed by phase name
+PHASE_SECONDS: dict[str, float] = {}
+_PHASE_CLOCK = [time.monotonic()]
+
+
 def emit(phase: str, **fields) -> None:
+    now = time.monotonic()
+    PHASE_SECONDS[phase] = PHASE_SECONDS.get(phase, 0.0) + (
+        now - _PHASE_CLOCK[0])
+    _PHASE_CLOCK[0] = now
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
@@ -1470,7 +1494,16 @@ def serve_spill_flagship(params, cfg, dev, smi: str) -> tuple[dict, dict]:
 # it, so the kill lands mid-run however fast the card serves)
 FLEET_BUDGETS = [6, 9, 4, 7, 5, 8, 3, 6]
 FLEET_KILL_S = 0.05
-FLEET_TURNS = 3
+FLEET_TURNS = 2
+
+
+def _median(vals) -> dict:
+    """The median (of the middle two for an even count), min and max."""
+    vals = sorted(vals)
+    n = len(vals)
+    mid = (vals[n // 2] if n % 2
+           else (vals[n // 2 - 1] + vals[n // 2]) / 2)
+    return {"median": mid, "min": vals[0], "max": vals[-1]}
 
 
 def _fleet_equal(outs, want) -> list[bool]:
@@ -1849,9 +1882,7 @@ def serve_fleet_flagship(params, cfg, dev, smi: str) -> tuple[dict, dict]:
     ref = last["single"]
 
     def med(vals):
-        vals = sorted(vals)
-        return {"median": vals[len(vals) // 2], "min": vals[0],
-                "max": vals[-1]}
+        return _median(vals)
 
     summary = {}
     for name, recs in turns.items():
@@ -1888,7 +1919,7 @@ def serve_fleet_flagship(params, cfg, dev, smi: str) -> tuple[dict, dict]:
 # the disk tier)
 SCALE_POLICY = dict(min_replicas=1, max_replicas=3, up_backlog=2.0,
                     down_backlog=0.5, cooldown_s=0.05, seed=0)
-CDN_FLAGSHIP_BLOCKS, CDN_TURNS = 32, 3
+CDN_FLAGSHIP_BLOCKS, CDN_TURNS = 32, 2
 
 
 def _filesystem(path: str) -> str:
@@ -2320,9 +2351,7 @@ def serve_cdn_flagship(params, cfg, dev, smi: str) -> tuple[dict, dict]:
                                     for a, b in zip(outs, single)))
 
     def med(vals):
-        vals = sorted(vals)
-        return {"median": vals[len(vals) // 2], "min": vals[0],
-                "max": vals[-1]}
+        return _median(vals)
 
     def per_mib(ms, blocks):
         return ms / blocks / (block_bytes / 2 ** 20) if blocks else None
@@ -2478,6 +2507,531 @@ def serve_cdn_flagship(params, cfg, dev, smi: str) -> tuple[dict, dict]:
             "tokens_equal_single")} for j in joins],
         seconds=time.monotonic() - t_phase)
     return rec, launches
+
+
+# the warm cache's phases: the f32 fleet's autoscaler (fleet_scale_exact's
+# process fleet's plan), and a fresh process's install of the library
+AOT_POLICY = dict(SCALE_POLICY, max_replicas=2)
+AOT_NAMES = ("flash_fwd", "paged_decode")
+
+
+def _k1_k7(tally: dict) -> dict:
+    return {name: tally.get(name, 0) for name in AOT_NAMES}
+
+
+def aot_warm_exact(dev) -> tuple[dict, dict]:
+    """The warm cache (``models/aotcache.py``) at f32 on the card, exact.
+    First the Job's ``aot_warm_ok`` leg (``aot_warm_leg``, the reference
+    leg's tiny config). Then, on ``fleet_exact``'s flash config and 8
+    two-template requests (2 slots): a cold engine run twice against solo
+    decoding; an engine warmed against a temporary directory, whose first
+    run captures nothing (its one capture made by the warm), serves the
+    cold engine's tokens bit for bit and launches K1 and K7 as the cold
+    engine's steady (second) run does — the cold first run adds its two
+    eager warm-up waves before the capture; a second bring-up that hits
+    every entry (the kernel library's among them); one entry's body byte
+    flipped and another truncated (planted): both quarantined with their
+    reasons and rewritten, the rest hits, then all hits again. Last, an
+    in-process fleet autoscaled 1 → 2 with ``aot_cache``: ``warm_compiles``
+    = its bring-ups, no ``warm_compile_errors``, tokens equal to the fixed
+    fleet's and the single engine's, and every worker's K7 = waves × layers
+    (no eager warm-up wave in any worker's run: the warm captured its
+    graph first). Returns the record and the launch tallies."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        AutoscalePolicy,
+        BurnInConfig,
+        greedy_decode,
+        init_params,
+        make_fleet,
+        make_serve_engine,
+    )
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+    from nvidia_terraform_modules_tpu_torch.smoketest.runner import (
+        aot_warm_leg,
+    )
+
+    t_phase = time.monotonic()
+    jcfg = BurnInConfig(vocab=128, d_model=32, n_heads=4, d_ff=64,
+                        n_layers=2, seq_len=16, batch=2, dtype=torch.float32)
+    ok_leg, rec_leg = aot_warm_leg(init_params(
+        jcfg, torch.Generator(device=dev).manual_seed(21), device=dev),
+        jcfg, dev)
+    record = {"job_leg": {"aot_warm_ok": ok_leg, **rec_leg}}
+    if not ok_leg:
+        raise AssertionError(f"aot_warm_exact: the Job's leg {record}")
+
+    cfg = _exact_cfg()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(8),
+                         device=dev)
+    pg = torch.Generator().manual_seed(9)
+    tmpl = [torch.randint(0, cfg.vocab, (32,), generator=pg)
+            for _ in range(2)]
+    prompts = [torch.cat([tmpl[i % 2], torch.randint(
+        0, cfg.vocab, (3 + i % 5,), generator=pg)]).to(dev)
+        for i in range(len(FLEET_BUDGETS))]
+    budgets = FLEET_BUDGETS
+    max_len = max(len(p) + n for p, n in zip(prompts, budgets))
+    lens = sorted({len(p) for p in prompts})
+    kw = dict(max_len=max_len, kv_block=16, device=dev)
+    warm_kw = dict(slots=2, prompt_lens=lens, n_new=max(budgets))
+    layers = cfg.n_layers
+
+    def fail(what):
+        emit("aot_warm_exact", **record)
+        raise AssertionError(f"aot_warm_exact {what}")
+
+    cold = make_serve_engine(params, cfg, **kw)
+    with _build.tally() as cold_first:
+        want = cold(prompts, budgets, slots=2)
+    with _build.tally() as cold_steady:
+        again = cold(prompts, budgets, slots=2)
+    solo = [greedy_decode(params, p[None], n, cfg, device=dev)[0]
+            for p, n in zip(prompts, budgets)]
+    record["cold"] = dict(first=_k1_k7(cold_first),
+                          steady=_k1_k7(cold_steady),
+                          waves=cold.last_stats["waves"])
+    if not all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(want, again, solo)):
+        fail("cold: tokens differ from solo decoding")
+    del cold
+    prev = _build.set_library_cache(None)
+    _build.set_library_cache(prev)
+    root = tempfile.mkdtemp(prefix="chip_aot_exact_")
+    cache_dir = os.path.join(root, "gac")
+    engines = []
+    launches = {}
+
+    def bring_up():
+        engines.append(make_serve_engine(params, cfg, aot_cache=cache_dir,
+                                         **kw))
+        return engines[-1]
+
+    def stats(w):
+        return {k: w[k] for k in ("registered", "hits", "misses",
+                                  "serialized", "traceonly", "demoted",
+                                  "quarantined", "primed", "errors",
+                                  "warm_ms")}
+    try:
+        first = bring_up()
+        w1 = first.warm(**warm_kw)
+        captured = first.captures
+        with _build.tally() as warm_first:
+            got = first(prompts, budgets, slots=2)
+        launches["warmed"] = dict(warm_first)
+        names = [n for n, _f, _a in first.aot_registrations(
+            slots=2, prompt_lens=lens)]
+        record["warmed"] = dict(
+            warm=stats(w1), names=names, captures_after_warm=captured,
+            captures_after_run=first.captures,
+            equal=[bool(torch.equal(a, b)) for a, b in zip(got, want)],
+            launches=_k1_k7(warm_first))
+        if not (not w1["errors"] and w1["misses"] == w1["registered"]
+                == len(names) and w1["serialized"] == 1
+                and names[0] == "kernel_library" and captured == 1
+                and first.captures == captured
+                and all(record["warmed"]["equal"])
+                and _k1_k7(warm_first) == _k1_k7(cold_steady)
+                and _k1_k7(cold_first)["paged_decode"]
+                == _k1_k7(cold_steady)["paged_decode"] + 2 * layers
+                and _k1_k7(warm_first)["flash_fwd"] > 0):
+            fail(f"warmed: {record['warmed']}")
+        second = bring_up()
+        w2 = second.warm(**warm_kw)
+        got2 = second(prompts, budgets, slots=2)
+        record["second"] = dict(warm=stats(w2), equal=[
+            bool(torch.equal(a, b)) for a, b in zip(got2, want)])
+        if w2["errors"] or w2["hits"] != w2["registered"] \
+                or not all(record["second"]["equal"]):
+            fail(f"second: {record['second']}")
+
+        # planted: a flipped body byte and a truncation
+        cache = first.aot_cache
+        keyed = {n: cache.entry_key(first.aot_scope, n, a)
+                 for n, _f, a in first.aot_registrations(
+                     slots=2, prompt_lens=lens)}
+        flip_name, cut_name = "wave_step", f"admit_full_L{lens[0]}"
+        flip = cache._entry_path(keyed[flip_name])
+        raw = bytearray(open(flip, "rb").read())
+        raw[-1] ^= 0x40
+        open(flip, "wb").write(bytes(raw))
+        cut = cache._entry_path(keyed[cut_name])
+        raw = open(cut, "rb").read()
+        open(cut, "wb").write(raw[:len(raw) // 2])
+        third = bring_up()
+        w3 = third.warm(**warm_kw)
+        reasons = third.aot_cache.quarantine_reasons[-2:]
+        rewritten = all(third.aot_cache.probe(keyed[n]) is not None
+                        for n in (flip_name, cut_name))
+        got3 = third(prompts, budgets, slots=2)
+        fourth = bring_up()
+        w4 = fourth.warm(**warm_kw, prime=False)
+        record["planted"] = dict(
+            warm=stats(w3), reasons=reasons, rewritten=rewritten,
+            equal=[bool(torch.equal(a, b)) for a, b in zip(got3, want)],
+            next_warm=stats(w4))
+        if not (w3["quarantined"] == 2 and w3["misses"] == 2
+                and w3["hits"] == w3["registered"] - 2
+                and not w3["errors"] and rewritten
+                and any("crc mismatch" in r for r in reasons)
+                and any("truncated" in r for r in reasons)
+                and all(record["planted"]["equal"])
+                and w4["hits"] == w4["registered"]):
+            fail(f"planted: {record['planted']}")
+
+        # the autoscaled fleet with aot_cache against the fixed fleet
+        t0 = time.monotonic()
+        arrivals = [0.0] * 6 + [0.4, 0.6]
+        fkw = dict(kw, est_token_s=0.02, steal=False)
+        fixed = make_fleet(params, cfg, replicas=2, **fkw)
+        f_outs = fixed(prompts, budgets, slots=2, arrivals=arrivals)
+        del fixed
+        elastic = make_fleet(params, cfg, replicas=1,
+                             autoscale=AutoscalePolicy(**AOT_POLICY),
+                             aot_cache=os.path.join(root, "fleet"), **fkw)
+        e_outs = elastic(prompts, budgets, slots=2, arrivals=arrivals)
+        st = elastic.last_stats
+        sc = st["fleet"]["scale"]
+        record["fleet"] = dict(
+            seconds=time.monotonic() - t0, events=sc["events"],
+            ups=sc["ups_executed"], warm_compiles=sc["warm_compiles"],
+            warm_compile_errors=sc["warm_compile_errors"],
+            equal_fixed=_fleet_equal(e_outs, f_outs),
+            equal_single=_fleet_equal(e_outs, want))
+        if not (sc["ups_executed"] >= 1
+                and sc["warm_compiles"] == 1 + sc["ups_executed"]
+                and not sc["warm_compile_errors"]
+                and all(record["fleet"]["equal_fixed"])
+                and all(record["fleet"]["equal_single"])):
+            fail(f"fleet: {record['fleet']}")
+        _fleet_kernels("aot_warm_exact fleet", st, layers)
+        launches["fleet"] = st["fleet"]["launches"]
+        del elastic
+    finally:
+        for engine in reversed(engines):
+            engine.aot_cache.deactivate()
+        _build.set_library_cache(prev)
+        shutil.rmtree(root, ignore_errors=True)
+    record["seconds"] = time.monotonic() - t_phase
+    return record, launches
+
+
+def _library_from_cache(cache_dir: str, build_dir: str) -> dict:
+    """A fresh Python process with an empty build directory and the
+    populated warm cache: the kernel library installed from the cache (no
+    object file compiled), then one K1 call against its plain version.
+    Returns the child's seconds and checks."""
+    code = f"""
+import json, time
+t0 = time.monotonic()
+from pathlib import Path
+import torch
+from nvidia_terraform_modules_tpu_torch.models import AotCompileCache
+from nvidia_terraform_modules_tpu_torch.ops import _build
+from nvidia_terraform_modules_tpu_torch.ops.flash_attention import (
+    flash_attention_fwd, flash_attention_ref)
+t1 = time.monotonic()
+torch.zeros(1, device="cuda")
+_build._BUILD = Path({build_dir!r})
+cache = AotCompileCache({cache_dir!r})
+cache.activate()
+t2 = time.monotonic()
+_build.lib()
+t3 = time.monotonic()
+g = torch.Generator(device="cuda").manual_seed(0)
+q, k, v = (torch.randn((1, 256, 2, 128), generator=g,
+                       device="cuda").to(torch.bfloat16) for _ in range(3))
+o, _ = flash_attention_fwd(q, k, v, causal=True)
+r, _ = flash_attention_ref(q, k, v, causal=True)
+err = (o.float() - r.float()).abs().max().item()
+print(json.dumps(dict(
+    import_s=t1 - t0, cuda_init_s=t2 - t1, install_s=t3 - t2,
+    source=_build._last_source, installed=cache.installed,
+    objects=len(list(_build._BUILD.glob("*.o"))),
+    k1_launches=_build.launches["flash_fwd"], k1_max_abs_err=err,
+    quarantined=cache.stats()["quarantined"])))
+"""
+    t0 = time.monotonic()
+    out = subprocess.run([sys.executable, "-c", code],
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=600)
+    wall_s = time.monotonic() - t0
+    if out.returncode:
+        raise AssertionError(f"serve_aot_flagship library: the fresh "
+                             f"process failed:\n{out.stderr[-3000:]}")
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    rec["process_wall_s"] = wall_s
+    if not (rec["source"] == "cache" and rec["installed"] == 1
+            and rec["objects"] == 0 and rec["k1_launches"] == 1
+            and rec["k1_max_abs_err"] <= 2e-2 and rec["quarantined"] == 0):
+        raise AssertionError(f"serve_aot_flagship library: {rec}")
+    return rec
+
+
+def serve_aot_flagship(params, cfg, dev, smi: str, prompts, max_len: int,
+                       build_s: float) -> tuple[dict, dict]:
+    """The warm cache at the flagship width (bf16, the dense
+    ``FLAGSHIP_TRAIN`` config, nothing cut) on ``serve_flagship``'s
+    traffic (8 requests of 152–424 tokens, 32 new, 4 slots,
+    ``kv_block=16``). A cold engine's build → tokens seconds and its first
+    call's ``join_first_token_ms``; an engine built with ``aot_cache`` (a
+    temporary directory) and warmed at that geometry — ``warm_ms``,
+    registered, hits, misses — whose first call captures nothing, serves
+    the cold engine's tokens bit for bit and launches K1 once a layer an
+    admission and K7 once a layer a wave (no eager warm-up wave); a second
+    bring-up's hits. Then a fresh process with an empty build directory
+    and the populated cache: the library installed from the cache
+    (seconds) beside this run's ``nvcc`` build (``build_s``), one K1 call
+    held to its plain version. Then ``serve_cdn_flagship``'s autoscaled
+    fleet (1 → 2, ``host_spill``) on its traffic, one call with
+    ``aot_cache`` and one without: the joiner's spawn → first admission
+    seconds, its warm's seconds and its launch → first admission seconds,
+    tokens/s, the tokens equal to the single engine's. Every worker's K7
+    is waves × layers with the cache, plus two eager warm-up waves a worker
+    without it. Each part prints a line with the card's name and power
+    limit; returns the record and the launch tallies."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        AutoscalePolicy,
+        make_fleet,
+        make_serve_engine,
+    )
+    from nvidia_terraform_modules_tpu_torch.models import fleet as fmod
+    from nvidia_terraform_modules_tpu_torch.models import transport as tmod
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+    from nvidia_terraform_modules_tpu_torch.telemetry import Registry
+    from nvidia_terraform_modules_tpu_torch.utils.timing import sync
+    from nvidia_terraform_modules_tpu_torch.utils.traffic import (
+        ragged_lengths,
+        shared_prefix_prompts,
+    )
+
+    t_phase = time.monotonic()
+    lens = sorted({len(p) for p in prompts})
+    kw = dict(max_len=max_len, kv_block=KV_BLOCK, device=dev)
+    warm_kw = dict(slots=SLOTS, prompt_lens=lens, n_new=N_NEW)
+    layers = cfg.n_layers
+    prev = _build.set_library_cache(None)
+    _build.set_library_cache(prev)
+    root = tempfile.mkdtemp(prefix="chip_aot_flagship_")
+    cache_dir = os.path.join(root, "gac")
+    record = {"nvidia_smi": smi, "requests": len(prompts),
+              "prompt_lens": [len(p) for p in prompts], "n_new": N_NEW,
+              "slots": SLOTS}
+    launches = {}
+    engines = []
+
+    def gauge(reg, name):
+        return reg.instruments()[1][name].value
+
+    try:
+        # the cold bring-up: build → the first call's tokens
+        reg_cold = Registry()
+        sync()
+        t0 = time.monotonic()
+        cold = make_serve_engine(params, cfg, telemetry=reg_cold, **kw)
+        want = cold(prompts, N_NEW, slots=SLOTS)
+        sync()
+        cold_s = time.monotonic() - t0
+        record["cold"] = dict(build_to_tokens_s=cold_s,
+                              join_first_token_ms=gauge(
+                                  reg_cold, "join_first_token_ms"),
+                              captures=cold.captures)
+        del cold
+        torch.cuda.empty_cache()
+        # the warmed bring-up
+        reg_warm = Registry()
+        sync()
+        t0 = time.monotonic()
+        engines.append(make_serve_engine(params, cfg, telemetry=reg_warm,
+                                         aot_cache=cache_dir, **kw))
+        warmed = engines[-1]
+        w1 = warmed.warm(**warm_kw)
+        sync()
+        warm_s = time.monotonic() - t0
+        captured = warmed.captures
+        with _build.tally() as first:
+            t0 = time.monotonic()
+            got = warmed(prompts, N_NEW, slots=SLOTS)
+            sync()
+            first_s = time.monotonic() - t0
+        st = warmed.last_stats
+        launches["warmed"] = dict(first)
+        record["warmed"] = dict(
+            build_and_warm_s=warm_s, first_call_s=first_s,
+            join_first_token_ms=gauge(reg_warm, "join_first_token_ms"),
+            captures_after_warm=captured,
+            captures_after_call=warmed.captures,
+            **{k: w1[k] for k in ("warm_ms", "registered", "hits", "misses",
+                                  "serialized", "traceonly", "primed",
+                                  "errors")},
+            tokens_equal_cold=[bool(torch.equal(a, b))
+                               for a, b in zip(got, want)],
+            launches=_k1_k7(first), waves=st["waves"])
+        emit("serve_aot_flagship", part="engine", nvidia_smi=smi,
+             cold=record["cold"], warmed=record["warmed"])
+        if not (not w1["errors"] and captured == 1
+                and warmed.captures == captured
+                and all(record["warmed"]["tokens_equal_cold"])
+                and first.get("flash_fwd", 0) == len(prompts) * layers
+                and first.get("paged_decode", 0) == st["waves"] * layers):
+            raise AssertionError(f"serve_aot_flagship warmed: "
+                                 f"{record['warmed']}")
+        warmed.aot_cache.deactivate()
+        del warmed
+        engines.clear()
+        torch.cuda.empty_cache()
+        engines.append(make_serve_engine(params, cfg, aot_cache=cache_dir,
+                                         **kw))
+        t0 = time.monotonic()
+        w2 = engines[-1].warm(**warm_kw)
+        sync()
+        record["second"] = dict(seconds=time.monotonic() - t0,
+                                **{k: w2[k] for k in (
+                                    "warm_ms", "registered", "hits",
+                                    "misses", "errors")})
+        if w2["errors"] or w2["hits"] != w2["registered"]:
+            raise AssertionError(f"serve_aot_flagship second: "
+                                 f"{record['second']}")
+        engines[-1].aot_cache.deactivate()
+        engines.clear()
+        torch.cuda.empty_cache()
+
+        # a fresh process: the library from the cache, not from nvcc
+        lib = _library_from_cache(cache_dir, os.path.join(root, "build"))
+        record["library"] = dict(lib, nvcc_build_s=build_s)
+        emit("serve_aot_flagship", part="library", nvidia_smi=smi,
+             **record["library"])
+
+        # the autoscaled fleet's joiner, with and without the cache
+        pairs = shared_prefix_prompts(LEVER_REQUESTS, SEED, n_templates=4,
+                                      template_len=256, suffix_lo=16,
+                                      suffix_hi=128, vocab=cfg.vocab,
+                                      block_size=KV_BLOCK)
+        fprompts = [torch.tensor(p, device=dev) for _, p in pairs]
+        budgets = ragged_lengths(LEVER_REQUESTS, SEED, lo=16, hi=64)
+        fmax = max(len(p) + n for (_, p), n in zip(pairs, budgets))
+        single = make_serve_engine(params, cfg, max_len=fmax,
+                                   kv_block=KV_BLOCK, share_prefix=True,
+                                   device=dev)(fprompts, budgets,
+                                               slots=SLOTS)
+        marks: dict = {}
+
+        def mark(key, fn):
+            def inner(self, i, *a, **k):
+                marks.setdefault((key, i), time.monotonic())
+                out = fn(self, i, *a, **k)
+                marks.setdefault((key + "_end", i), time.monotonic())
+                return out
+            return inner
+
+        def mark_pop(fn):
+            def inner(self, req):
+                marks.setdefault(("admit", self.label), time.monotonic())
+                return fn(self, req)
+            return inner
+
+        undo = [_watch(tmod, "InProcTransport", "ensure_engine",
+                       lambda fn: mark("spawn", fn)),
+                _watch(tmod, "InProcTransport", "warm_replica",
+                       lambda fn: mark("warm", fn)),
+                _watch(tmod, "InProcTransport", "launch_decode",
+                       lambda fn: mark("launch", fn)),
+                _watch(fmod, "_FleetQueue", "pop", mark_pop)]
+        joins = {}
+        try:
+            for name in ("aot", "plain"):
+                extra = ({"aot_cache": os.path.join(root, "fleet")}
+                         if name == "aot" else {})
+                fleet = make_fleet(
+                    params, cfg, replicas=1, max_len=fmax,
+                    kv_block=KV_BLOCK, share_prefix=True, steal=False,
+                    host_spill=True, host_blocks=SPILL_HOST_BLOCKS,
+                    prefix_keep_blocks=64, est_token_s=0.01,
+                    autoscale=AutoscalePolicy(
+                        min_replicas=1, max_replicas=2, up_backlog=2.0,
+                        down_backlog=0.25, cooldown_s=0.0, seed=0), **extra)
+                marks.clear()
+                sync()
+                t0 = time.monotonic()
+                outs = fleet(fprompts, budgets, slots=SLOTS)
+                sync()
+                wall_s = time.monotonic() - t0
+                fst = fleet.last_stats
+                sc = fst["fleet"]["scale"]
+
+                def since(a, b):
+                    return (marks[b] - marks[a]
+                            if a in marks and b in marks else None)
+                joins[name] = dict(
+                    wall_s=wall_s,
+                    tokens_per_s=sum(int(o.shape[0]) for o in outs)
+                    / wall_s,
+                    events=sc["events"], ups=sc["ups_executed"],
+                    warm_compiles=sc["warm_compiles"],
+                    warm_compile_errors=sc["warm_compile_errors"],
+                    spawn_to_admit_s=since(("spawn", 1),
+                                           ("admit", "replica-1")),
+                    warm_s=since(("warm", 1), ("warm_end", 1)),
+                    launch_to_admit_s=since(("launch", 1),
+                                            ("admit", "replica-1")),
+                    base_warm_s=since(("warm", 0), ("warm_end", 0)),
+                    tokens_equal_single=sum(
+                        int((a.to(dev) == b).sum())
+                        for a, b in zip(outs, single)),
+                    tokens=sum(budgets))
+                _fleet_kernels(f"serve_aot_flagship {name} fleet", fst,
+                               layers, warm=0 if name == "aot" else 2)
+                launches[f"fleet_{name}"] = fst["fleet"]["launches"]
+                if name == "aot":
+                    # a second call: the replicas' engines kept their warm
+                    # (InProcTransport), so no warm runs in the router's
+                    # call
+                    marks.clear()
+                    sync()
+                    t0 = time.monotonic()
+                    again = fleet(fprompts, budgets, slots=SLOTS)
+                    sync()
+                    sc2 = fleet.last_stats["fleet"]["scale"]
+                    joins[name]["again"] = dict(
+                        wall_s=time.monotonic() - t0,
+                        warm_s=since(("warm", 1), ("warm_end", 1)),
+                        base_warm_s=since(("warm", 0), ("warm_end", 0)),
+                        warm_compiles=sc2["warm_compiles"],
+                        warm_compile_errors=sc2["warm_compile_errors"],
+                        tokens_equal_first=sum(
+                            int((a == b).sum())
+                            for a, b in zip(again, outs)))
+                del fleet
+                torch.cuda.empty_cache()
+        finally:
+            for put_back in undo:
+                put_back()
+        record["fleet"] = joins
+        emit("serve_aot_flagship", part="fleet", nvidia_smi=smi,
+             pr20_spawn_to_admit_s=[0.685, 0.405], **joins)
+        aot = joins["aot"]
+        if not (aot["ups"] >= 1 and aot["warm_compiles"] == 1 + aot["ups"]
+                and not aot["warm_compile_errors"]
+                and not aot["again"]["warm_compile_errors"]
+                and aot["events"] == joins["plain"]["events"]
+                and aot["spawn_to_admit_s"] is not None):
+            raise AssertionError(f"serve_aot_flagship fleet: {joins}")
+    finally:
+        for engine in reversed(engines):
+            engine.aot_cache.deactivate()
+        _build.set_library_cache(prev)
+        shutil.rmtree(root, ignore_errors=True)
+    record["seconds"] = time.monotonic() - t_phase
+    return record, launches
 
 
 def kernel_sample_draw(dev, card: str) -> dict:
@@ -4606,14 +5160,14 @@ def train_ring_profile(params, dev) -> dict:
 # the validation Job's legs that the card must pass (the CLI's JSON line)
 SMOKETEST_LEGS = ("psum_ok", "burnin_ok", "decode_ok", "serve_engine_ok",
                   "serve_sched_ok", "paged_decode_ok", "serve_fleet_ok",
-                  "fleet_chaos_ok", "kv_spill_ok")
+                  "fleet_chaos_ok", "kv_spill_ok", "aot_warm_ok")
 # SGD steps from one set of weights for the sharded/unsharded comparison
 SHARDED_STEPS = 3
 # the flagship train state through the checkpoint engine: AdamW steps of
 # the exact-resume comparison (a save after half of them); timed saves
 # (snapshot and commit apart) and steps, alone and with an async save
 # after each
-CKPT_RESUME_STEPS, CKPT_SAVES, CKPT_STEPS = 4, 3, 3
+CKPT_RESUME_STEPS, CKPT_SAVES, CKPT_STEPS = 4, 2, 2
 # where the checkpoint phases write: a fresh directory under the checkout
 # (git-ignored), removed at the end of each phase
 CKPT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
@@ -6318,7 +6872,8 @@ def main() -> int:
     # ------------------------------------------------------------- build
     t0 = time.monotonic()
     _build.lib()
-    emit("build", seconds=round(time.monotonic() - t0, 3),
+    build_s = time.monotonic() - t0
+    emit("build", seconds=round(build_s, 3),
          sources=[p.name for p in _build.sources()])
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -6537,6 +7092,8 @@ def main() -> int:
     emit("fleet_exact", nvidia_smi=smi, **fleet_rec)
     scale_rec, scale_launches = fleet_scale_exact(dev)
     emit("fleet_scale_exact", nvidia_smi=smi, **scale_rec)
+    aot_rec, aot_launches = aot_warm_exact(dev)
+    emit("aot_warm_exact", nvidia_smi=smi, **aot_rec)
     serve_sampled_exact(dev)
     serve_spec_exact(dev)
     decode_graph_exact(dev)
@@ -6684,6 +7241,12 @@ def main() -> int:
     # ------------------------------------------------ serve_cdn_flagship
     cdn_flag, cdn_flag_launches = serve_cdn_flagship(params, cfg, dev, smi)
     emit("serve_cdn_flagship", **cdn_flag)
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ serve_aot_flagship
+    aot_flag, aot_flag_launches = serve_aot_flagship(
+        params, cfg, dev, smi, prompts, max_len, build_s)
+    emit("serve_aot_flagship", part="summary", **aot_flag)
     torch.cuda.empty_cache()
 
     # ------------------------------------- sampled and speculative serving
@@ -6887,6 +7450,13 @@ def main() -> int:
     # --------------------------------------------------------- summary
     n_k1 = sum(c for c, _ in k1_main)
 
+    def aot_sum(by_part: dict, kernel: str) -> int:
+        """A kernel's launches over the warm cache phase's runs: its
+        engine runs' tallies and its fleets' workers'."""
+        return sum(t.get(kernel, 0) if not part.startswith("fleet")
+                   else _fleet_sum({part: t}, kernel)
+                   for part, t in by_part.items())
+
     def k1_mean(key):
         return sum(c * r[key] for c, r in k1_main) / n_k1
 
@@ -6937,6 +7507,12 @@ def main() -> int:
                                                       "flash_fwd"),
                          "flagship_launches": _fleet_sum(
                              cdn_flag_launches, "flash_fwd")},
+         # the warm cache: aot_warm_exact's warmed engine's first run and
+         # autoscaled fleet, serve_aot_flagship's warmed engine's first
+         # call and its two autoscaled fleets
+         "aot": {"exact_launches": aot_sum(aot_launches, "flash_fwd"),
+                 "flagship_launches": aot_sum(aot_flag_launches,
+                                              "flash_fwd")},
          # the serve prompts' mean rate, and K1 at the train step's shape
          "tflops": k1_mean("tflops"), "bound_share": k1_mean("bound_share"),
          "tiling": FWD_TILING,
@@ -6973,7 +7549,10 @@ def main() -> int:
          "fleet_scale": {"exact_launches": _fleet_sum(scale_launches,
                                                       "paged_decode"),
                          "flagship_launches": _fleet_sum(
-                             cdn_flag_launches, "paged_decode")}},
+                             cdn_flag_launches, "paged_decode")},
+         "aot": {"exact_launches": aot_sum(aot_launches, "paged_decode"),
+                 "flagship_launches": aot_sum(aot_flag_launches,
+                                              "paged_decode")}},
         {"name": "paged_decode_int8", "route": "cuda",
          "source": "nvidia_terraform_modules_tpu_torch/csrc/paged_decode.cu",
          "replaces":
@@ -7138,6 +7717,9 @@ def main() -> int:
             "library_ms")},
         "plain_ms_in_wave": (sampled["top_p"]["plain_draw_ms_per_wave"]
                              - sampled["top_p"]["ms_per_wave"])})
+    print(json.dumps({"phase_seconds": {
+        name: round(sec, 3) for name, sec in PHASE_SECONDS.items()},
+        "total_s": round(sum(PHASE_SECONDS.values()), 3)}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

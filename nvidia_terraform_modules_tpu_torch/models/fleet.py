@@ -69,9 +69,12 @@ counters and, with ``autoscale``, the ``fleet_size`` gauge, the
 Each call's ``last_stats["fleet"]["launches"]`` holds every worker's kernel
 launches (``ops._build`` names; a killed process's are lost with it).
 
-Not ported yet: the AOT warm of a bring-up (``aot_cache``, ROADMAP Queue A
-item 9d): ``_warm_compile`` does nothing and the ledger's
-``warm_compiles`` stays 0.
+With ``aot_cache`` among the engine levers, every bring-up — a base
+replica at the call's start, a joiner at its poll — warms its engine
+against the call's schedule (``Transport.warm_replica``,
+``models/aotcache.py``) before its first wave; the scale ledger counts
+``warm_compiles`` and ``warm_compile_errors`` and the ``fleet_scale`` span
+carries ``warm_compile=``.
 """
 
 from __future__ import annotations
@@ -729,7 +732,17 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
     ``warm_blocks``) with its disk tier under ``<dir>``, restored at build;
     ``last_stats["fleet"]["cdn"]`` holds its ledger, the residency
     reroutes and the host-bytes bill, and ``fleet.cdn_store`` is the
-    store."""
+    store.
+
+    ``aot_cache=<dir>`` (an engine lever) warms every replica bring-up —
+    a base replica at the call's start, an elastic joiner at its poll —
+    against the call's schedule (its slots, ``kv_blocks``, prompt lengths
+    and largest budget) through ``Transport.warm_replica`` before its
+    first wave, so the wave replays graphs the warm captured and the
+    library comes from the cache. The ``fleet_scale`` span carries
+    ``warm_compile=`` and the scale ledger counts ``warm_compiles`` /
+    ``warm_compile_errors``; a warm that fails is recorded there and the
+    replica launches cold, never dead."""
     if replicas < 1:
         raise ValueError(f"replicas must be >= 1, got {replicas}")
     if routing not in _ROUTINGS:
@@ -1248,9 +1261,36 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
         run_kw = dict(prompts=prompts, budgets=budgets, slots=slots,
                       eos_id=eos_id, rng=rng, kv_blocks=kv_blocks)
 
-        def _warm_compile(_i) -> bool:
-            """The AOT warm of a bring-up (``aot_cache``, ROADMAP Queue A
-            item 9d) is not ported: every replica launches without it."""
+        # the warm of a bring-up (models/aotcache.py): with an aot_cache
+        # among the engine levers, every bring-up warms against THIS call's
+        # schedule before its first wave. Advisory: a failure is recorded
+        # in the scale ledger and the replica launches cold, never dead.
+        aot_on = engine_kw.get("aot_cache") is not None
+        warm_kw = dict(
+            slots=slots, kv_blocks=kv_blocks,
+            prompt_lens=tuple(sorted({len(p) for p in host_prompts})),
+            n_new=max(budgets) if budgets else 2)
+        warm_compiles = [0]
+        warm_compile_errors: list[str] = []
+
+        def _warm_compile(i) -> bool:
+            if not aot_on:
+                return False
+            try:
+                info = tr.warm_replica(i, warm_kw)
+            except Exception as exc:     # noqa: BLE001 — classified
+                warm_compile_errors.append(f"{type(exc).__name__}: {exc}")
+                return False
+            if info.get("error"):
+                warm_compile_errors.append(str(info["error"]))
+                return False
+            # a piece whose first use raised: the warm is not done, and
+            # the ledger names the replica and the piece
+            piece_errors = [f"replica-{i}: {e}" for e in info.get("errors", ())]
+            warm_compile_errors.extend(piece_errors)
+            if info.get("registered") and not piece_errors:
+                warm_compiles[0] += 1
+                return True
             return False
 
         def _on_dec_error(label, exc):
@@ -1928,8 +1968,8 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
                     "warm_joins": warm_joins[0],
                     "cold_joins": cold_joins[0],
                     "warm_chains_primed": warm_chains_primed[0],
-                    "warm_compiles": 0,
-                    "warm_compile_errors": [],
+                    "warm_compiles": warm_compiles[0],
+                    "warm_compile_errors": list(warm_compile_errors),
                     "spawn_retries": spawn_retries[0],
                     "spawn_failures": spawn_failures[0],
                     "scaled_down": sorted(scaled_down_labels),

@@ -128,9 +128,14 @@ different model. Chunked and shared-suffix prefills run the exact cached
 ``prefill="dense"``. Under an int8 cache the engine quantises the same rows
 at the same positions as a solo int8-cache decode.
 
-Keyword arguments of the reference engine that are not ported yet are
-accepted at the reference's default value; any other value raises
-``NotImplementedError`` naming its ROADMAP item.
+The warm surface (``aot_cache``, ``models/aotcache.py``): ``run.warm()``
+moves a bring-up's first-use work — the kernel library's load, each
+piece's first launch, the graph captures — ahead of the first request,
+and ``run.aot_registrations()`` enumerates that work piece by piece. A
+warmed engine's first ``run()`` at the warmed geometry captures nothing
+and serves the tokens an unwarmed engine serves.
+
+The engine takes every keyword argument of the reference's.
 """
 
 from __future__ import annotations
@@ -142,10 +147,18 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from ..ops import _build
 from ..ops.sampling import MASK32, key_data, threefry2x32
 from ..parallel.collectives import gather_dim
 from ..telemetry import get_registry
 from .burnin import BurnInConfig, check_device, tree_leaves
+from .aotcache import (
+    KERNEL_LIBRARY,
+    AotCompileCache,
+    engine_fingerprint,
+    library_key,
+    warm_engine,
+)
 from .decode import (
     Sampler,
     _check_params,
@@ -181,31 +194,6 @@ from .speculative import _ngram_draft, accept_drafts
 
 _POLICIES = ("fifo", "sjf", "priority")
 _DEFAULT_AGING = 512                   # waves; bounds starvation by default
-
-# keyword arguments of the reference engine that this port does not serve
-# yet: name → (the reference's default, its ROADMAP item). The default is
-# the engine as it is and passes; any other value raises
-# NotImplementedError naming the item; any other keyword is a TypeError.
-_ENGINE_LATER = {
-    "aot_cache": (None, "Queue A item 9d (fleet stack: AOT warm cache)"),
-}
-
-
-def _refuse_levers(levers: dict, later: dict, where: str) -> None:
-    for name, value in levers.items():
-        if name not in later:
-            raise TypeError(f"{where}() got an unexpected keyword argument "
-                            f"{name!r}")
-        default, item = later[name]
-        if default is None or isinstance(default, bool):
-            same = value is default
-        else:
-            same = type(value) is type(default) and value == default
-        if not same:
-            raise NotImplementedError(
-                f"{where}({name}=...) is not ported yet — ROADMAP.md, "
-                f"{item}")
-
 
 def _request_key(rng, req: int, pos: int) -> torch.Tensor:
     """THE sampled-token key contract, as the reference's: ``fold_in(
@@ -803,7 +791,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                       paged_kernel: str = "auto", host_spill: bool = False,
                       host_blocks: int | None = None,
                       host_swap: str = "async", shared_store=None,
-                      telemetry=None, device="cuda", **levers):
+                      telemetry=None, aot_cache=None, device="cuda"):
     """Reusable engine: ``run(prompts, n_new, *, slots, eos_id,
     eos_check_every, arrivals, kv_blocks, static_batching, priorities) →
     list of [n_i] int64 token tensors``.
@@ -893,11 +881,20 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
     Spans clock the host's view of the schedule (on the card a prefill
     span covers its launches, a request span closes at the wave the host
     retired it), and telemetry adds no synchronise or readback: the card
-    runs the same work either way."""
-    _refuse_levers(levers, _ENGINE_LATER, "make_serve_engine")
-    tel = _ServeTelemetry(
-        telemetry if telemetry is not None else get_registry(),
-        share_prefix, lazy_growth, host_spill, shared_store is not None)
+    runs the same work either way.
+
+    ``aot_cache`` (a ``models/aotcache.AotCompileCache``, or its directory
+    as a string) is attached as ``run.aot_cache`` and activated at build:
+    process-wide and sticky, the kernel library's build installs from it
+    and banks into it. ``run.warm(slots=, kv_blocks=, prompt_lens=,
+    n_new=)`` warms the engine at that geometry against it
+    (``aotcache.warm_engine``: hits, misses and ``warm_ms``; a no-op
+    without a cache); ``run.aot_registrations`` lists the pieces,
+    ``run.aot_prime`` drives the priming schedule and ``run.aot_scope`` is
+    the key scope (computed with or without a cache)."""
+    reg = telemetry if telemetry is not None else get_registry()
+    tel = _ServeTelemetry(reg, share_prefix, lazy_growth, host_spill,
+                          shared_store is not None)
     if isinstance(sampler, dict):
         sampler = make_sampler(**sampler)
     if sampler is not None and not isinstance(sampler, Sampler):
@@ -985,6 +982,31 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
         tail_rows = prefix_len % bs             # copied per admission
         prefix_impl = _select_prefill_impl(cfg, prefix_len, "auto", dev)
     need_prefix = full_blocks + (1 if tail_rows else 0)
+
+    # the warm cache (models/aotcache.py): a string is its directory (the
+    # form a process transport ships). Activation is sticky by design: a
+    # fleet child puts the shared directory behind its kernel build once.
+    if isinstance(aot_cache, str):
+        aot_cache = AotCompileCache(aot_cache, telemetry=reg)
+    if aot_cache is not None:
+        aot_cache.activate()
+    # the cache SCOPE, from the reference's levers (computed without a
+    # cache too, so warm_engine(engine, cache) can warm any engine); the
+    # sampler by its parameters, never a repr carrying an address
+    sampler_fp = "none" if sampler is None else (
+        f"spec(temperature={sampler.temperature!r},top_k={sampler.top_k!r},"
+        f"top_p={sampler.top_p!r})")
+    aot_scope = engine_fingerprint(cfg, max_len, dict(
+        cache_dtype=cache_dtype, sampler=sampler_fp,
+        prefill_chunk=prefill_chunk, spec_k=spec_k, kv_block=kv_block,
+        policy=policy, aging=aging, share_prefix=share_prefix,
+        lazy_growth=lazy_growth, prefix_keep_blocks=prefix_keep_blocks,
+        paged_kernel=paged_kernel, host_spill=host_spill,
+        host_blocks=host_blocks, host_swap=host_swap,
+        # the CDN lever as a boolean: the store's repr carries an address
+        shared_store=shared_store is not None,
+        prefix_len=prefix_len,
+        quant_weights=prefill_params is not params), device=dev)
 
     # one pool and its wave (on the card captured) per (slots, kv_blocks,
     # rules)
@@ -2550,11 +2572,153 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
         use_rules(None)
         return _PrefillSession(kv_blocks)
 
+    # ------------------------------------------------ the warm surface
+    # (models/aotcache.py): the engine's first-use work, enumerable as
+    # (name, fn, example args) so warm_engine can do it ahead of the first
+    # request. Nothing below runs unless something calls it: an unwarmed
+    # engine is the engine as it was.
+
+    def aot_registrations(*, slots: int = 4, kv_blocks=None, prompt_lens=(),
+                          n_new: int = 2):
+        """The engine's warm family at a serving geometry, under the
+        reference's names and conditions, plus ``kernel_library`` on the
+        card (its args: the library's key and the sources' digest). The
+        example args are the pieces' abstract signatures (meta tensors for
+        the pool), which key their entries. A piece's ``fn`` is the work a
+        bring-up cannot leave to the call path: the library's load, and
+        for the wave (the sampled wave, the speculative trip) the capture
+        into the engine's pool cache, which the next ``run()`` at
+        ``(slots, kv_blocks)`` replays. Every other piece's first use is
+        the call path's, which :func:`aot_prime` drives through the real
+        ``run()``. Admissions are registered at full length; the unsharded
+        steps only."""
+        del n_new                       # a runtime value, not a geometry
+        kvb = (1 + need_prefix + slots * nt if kv_blocks is None
+               else int(kv_blocks))
+        lens = sorted({int(x) for x in prompt_lens})
+        pool_av = init_paged_cache(cfg, slots, max_len, block_size=bs,
+                                   num_blocks=kvb, cache_dtype=cache_dtype,
+                                   device="meta")
+
+        def av(shape, dtype=torch.long):
+            return torch.empty(shape, dtype=dtype, device="meta")
+        one, row_av, key_av, tail_av = av(()), av((nt,)), av((2,)), av((2,))
+        s_long, s_bool = av((slots,)), av((slots,), torch.bool)
+
+        def captured() -> None:
+            """The geometry's unsharded pool and its wave (on the card:
+            captured) into the pool cache."""
+            use_rules(None)
+            pool_for(slots, kvb)
+
+        def call_path() -> None:
+            """A piece whose first use the prime's ``run()`` makes."""
+
+        regs: list[tuple] = []
+        if dev.type == "cuda":
+            digest = _build.library_digest()
+            regs.append((KERNEL_LIBRARY, _build.lib,
+                         (library_key(digest), digest)))
+        if prefill_chunk is None:
+            for length in lens:
+                impl = ("cached" if prefix is not None else
+                        _select_prefill_impl(cfg, length, "auto", dev))
+                regs.append((f"admit_full_L{length}", call_path,
+                             (prefill_params, av((1, length)), impl, one,
+                              row_av, key_av, tail_av, one, pool_av)))
+        else:
+            c = prefill_chunk
+            regs.append(("admit_table", call_path,
+                         (one, row_av, tail_av, one, pool_av)))
+            if spec_k is None:
+                regs.append(("chunk_step", call_path,
+                             (prefill_params, av((1, c)), one, pool_av)))
+                regs.append(("chunk_finish", call_path,
+                             (av((c, cfg.vocab), cfg.dtype), one, key_av,
+                              one, pool_av, one)))
+            else:
+                mc = max(1, (max_len - prefix_len) // c)
+                regs.append(("chunk_sweep", call_path,
+                             (prefill_params, av((1, mc, c)), one, one,
+                              pool_av, one, key_av, one)))
+        if lazy_growth:
+            regs.append(("grow_table", call_path, (one, one, one, pool_av)))
+        if prefix is not None:
+            regs.append(("prefix_fill", call_path,
+                         (prefill_params, av((1, prefix_len)), row_av,
+                          pool_av)))
+        if spec_k is not None:
+            ctx_av = av((slots, spec_width))
+            for length in lens:
+                regs.append((f"spec_admit_row_L{length}", call_path,
+                             (av((length,)), one, one, ctx_av, s_long,
+                              s_long)))
+            regs.append(("spec_step", captured,
+                         (params, ctx_av, s_long, s_long, s_long, one,
+                          s_bool, one, s_long, pool_av)))
+        elif sampler is None:
+            regs.append(("wave_step", captured,
+                         (params, s_long, s_bool, pool_av)))
+        else:
+            regs.append(("wave_step_sampled", captured,
+                         (params, s_long, s_bool, s_long, s_long, key_av,
+                          pool_av)))
+        # the fleet handoff pair: the block export and the in-place
+        # import, per distinct block count the prompt lengths export
+        if lens:
+            bufs = [pool_av[k][layer] for k in pool_keys
+                    for layer in range(cfg.n_layers)]
+            for nxf in sorted({blocks_for_rows(x, bs) for x in lens}):
+                payload = [av((nxf,) + tuple(b.shape[1:]), b.dtype)
+                           for b in bufs]
+                ids = av((nxf,))
+                regs.append((f"xfer_export_N{nxf}", call_path, (bufs, ids)))
+                regs.append((f"xfer_import_N{nxf}", call_path,
+                             (bufs, ids, payload)))
+        return regs
+
+    def aot_prime(*, slots: int = 4, kv_blocks=None, prompt_lens=(),
+                  n_new: int = 2) -> int:
+        """The call-path warm: ONE tiny seeded schedule through the real
+        ``run()`` — each length's admission, the eager waves and the
+        captures an earlier hit skipped. Lengths and budget are clamped
+        into the engine's envelope as the reference clamps them (the
+        caller hands the serving schedule's; priming needs the call path,
+        not the whole decode). Leaves no cross-run state but the pool
+        cache (every ``run()`` zeroes its pool), so a primed engine's
+        later runs serve an unprimed engine's tokens. Returns the prompts
+        run."""
+        lens = sorted({int(x) for x in prompt_lens
+                       if prefix_len + int(x) < max_len})
+        if not lens:
+            return 0
+        n_new = max(1, min(int(n_new), max_len - prefix_len - lens[-1]))
+        prompts = [torch.arange(1, x + 1, dtype=torch.long) % cfg.vocab
+                   for x in lens]
+        run(prompts, n_new, slots=slots, kv_blocks=kv_blocks,
+            rng=0 if sampler is not None else None)
+        return len(prompts)
+
+    def warm(cache=None, *, slots: int = 4, kv_blocks=None, prompt_lens=(),
+             n_new: int = 2, prime: bool = True) -> dict:
+        """One-call cold-start warm (:func:`..aotcache.warm_engine`); a
+        no-op stats dict when the engine has no cache and none is
+        passed."""
+        return warm_engine(
+            run, cache if cache is not None else aot_cache, slots=slots,
+            kv_blocks=kv_blocks, prompt_lens=prompt_lens, n_new=n_new,
+            prime=prime, telemetry=reg)
+
     run.last_stats = None
     run.step = step
     run.captures = 0
     run.capture = capture
     run.prefill_session = prefill_session
+    run.aot_scope = aot_scope
+    run.aot_cache = aot_cache
+    run.aot_registrations = aot_registrations
+    run.aot_prime = aot_prime
+    run.warm = warm
     return run
 
 

@@ -50,8 +50,9 @@ A child builds no kernel: the parent builds the library before it spawns
 loads it. A child asked for the card that finds none raises
 :class:`ReplicaDeviceError` at bring-up; it never serves from the CPU.
 
-Not ported yet (ROADMAP Queue A item 9d, refused where reached): the AOT
-warm of a replica (``Transport.warm_replica``).
+A replica warms before its first run (``Transport.warm_replica``,
+``models/aotcache.py``): a thread replica on its own stream, a process
+replica over the wire (a ``WARM`` frame, its stats home in ``WARMED``).
 """
 
 from __future__ import annotations
@@ -76,8 +77,6 @@ from ..ops import _build
 from ..utils.retry import RetriesExhausted, RetryPolicy, retry_call
 from .resilience import EXIT_PEER_DEAD
 from .serving import AdmissionSource, make_serve_engine
-
-_AOT = "ROADMAP.md, Queue A item 9d (fleet stack: AOT warm cache)"
 
 # ------------------------------------------------------ classified errors
 
@@ -480,8 +479,13 @@ class Transport:
         raise NotImplementedError
 
     def warm_replica(self, i: int, warm_kw: dict) -> dict:
-        raise NotImplementedError(
-            f"the AOT warm of a replica is not ported yet — {_AOT}")
+        """Warm replica ``i``'s engine ahead of its first run
+        (``models/aotcache.py``: probe or do the warm family's first uses,
+        then prime the call path). Returns the warm stats; ``{}`` on a
+        transport that cannot warm. An engine without an ``aot_cache``
+        returns ``{"enabled": False}`` having run nothing, so the fleet's
+        bit-match contracts are untouched."""
+        return {}
 
     def close(self) -> None:
         """Release replica resources."""
@@ -602,7 +606,8 @@ class InProcTransport(Transport):
     """Engines in this process, replicas as threads polling the queues
     directly — the exactness reference for every other transport. On the
     card each decode replica (and each prefill worker, through the fleet)
-    gets a stream of its own, kept across calls."""
+    gets a stream of its own, kept across calls, and an engine warmed at a
+    schedule keeps its warm across calls (its pool cache)."""
 
     name = "inproc"
     process_isolated = False
@@ -613,6 +618,8 @@ class InProcTransport(Transport):
         self.dec_engines: list = []
         self.pre_engines: list = []
         self.streams: dict[int, torch.cuda.Stream] = {}
+        # replica → (engine, warm schedule, stats) of its last clean warm
+        self._warmed: dict[int, tuple] = {}
 
     def configure(self, *, params, cfg, max_len, engine_kw, registry,
                   n_dec, n_pre) -> None:
@@ -628,6 +635,7 @@ class InProcTransport(Transport):
                 self.pre_engines.append(self._build())
             return
         self._key = key
+        self._warmed.clear()
         self._params, self._cfg, self._max_len = params, cfg, max_len
         self._engine_kw = dict(engine_kw)
         self._dev = _engine_device(engine_kw)
@@ -663,6 +671,23 @@ class InProcTransport(Transport):
     def launch_decode(self, i, queue, run_kw, *, on_error):
         return _ThreadHandle(f"decode-{i}", self.dec_engines[i], queue,
                              run_kw, on_error, stream=self.stream(i))
+
+    def warm_replica(self, i, warm_kw):
+        """Build (or reuse) replica ``i``'s engine and warm it on the
+        replica's own stream, where its run will launch. The same engine
+        warmed cleanly at the same schedule is warm already — its graphs
+        sit in its pool cache and the call path has run — so that warm's
+        stats are returned and nothing runs again."""
+        engine = self.ensure_engine(i)
+        schedule = tuple(sorted(warm_kw.items()))
+        done = self._warmed.get(i)
+        if done is not None and done[0] is engine and done[1] == schedule:
+            return done[2]
+        with _on_stream(self.stream(i)):
+            stats = engine.warm(**warm_kw)
+        if stats.get("registered") and not stats.get("errors"):
+            self._warmed[i] = (engine, schedule, stats)
+        return stats
 
 
 # ---------------------------------------------------------- multi-process
@@ -802,7 +827,7 @@ def _replica_child_main(conn, index: int, cfg, max_len: int,
                         parent_pid: int | None = None,
                         threads: int | None = None) -> None:
     """The replica process: check its device, receive the weight stream,
-    build the engine once, then serve RUN frames until EXIT (children
+    build the engine once, then serve WARM/RUN frames until EXIT (children
     persist across fleet calls). Every receive is bounded; a dead or
     desynchronised router exits ``EXIT_PEER_DEAD``. The parent-pid
     watchdog starts first, so a parent that dies mid-spawn still reaps
@@ -839,6 +864,18 @@ def _replica_child_main(conn, index: int, cfg, max_len: int,
             if msg[0] == "MODULES":
                 chan.send(("MODULES", sorted(
                     {m.split(".")[0] for m in list(sys.modules)})))
+                continue
+            if msg[0] == "WARM":
+                # the warm (models/aotcache.py) before the first RUN: a
+                # failure ships home in the stats and never kills the
+                # child — an unwarmed replica is slow, not wrong
+                try:
+                    stats = engine.warm(**msg[1])
+                except Exception as exc:  # noqa: BLE001 — shipped home
+                    stats = {"enabled": False, "registered": 0, "hits": 0,
+                             "misses": 0,
+                             "error": f"{type(exc).__name__}: {exc}"}
+                chan.send(("WARMED", stats))
                 continue
             if msg[0] != "RUN":
                 raise TransportProtocolError(
@@ -1249,6 +1286,21 @@ class MultiProcTransport(Transport):
             "kv_blocks": run_kw["kv_blocks"],
         }
         return _ProcHandle(self, i, proc, chan, queue, wire_kw, on_error)
+
+    def warm_replica(self, i, warm_kw):
+        """Warm replica ``i``'s child over the wire: bring it up (spawn,
+        weight stream, READY) if it is not, send WARM and wait for WARMED
+        under the spawn budget (the warm is bring-up work). The stats come
+        home; a child-side failure arrives as ``{"error": ...}``, never as
+        a dead child."""
+        _proc, chan = self.ensure_engine(i)
+        chan.send(("WARM", dict(warm_kw)))
+        msg = chan.recv(self.spawn_timeout_s)
+        if msg[0] != "WARMED":
+            raise TransportProtocolError(
+                f"replica-{i}: unexpected frame {msg[0]!r} while waiting "
+                f"for WARMED")
+        return msg[1]
 
     def child_modules(self, i: int) -> list[str]:
         """The top-level module names loaded in replica ``i``'s child (the

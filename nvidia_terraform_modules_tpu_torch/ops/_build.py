@@ -25,6 +25,15 @@ out of them (a capture records kernels, it runs none).
 Processes that build at once (a fleet's replica children) take an
 ``fcntl`` lock on the build directory, so one compiles and the others find
 its library.
+
+A warm cache (``models/aotcache.AotCompileCache.activate``) can stand
+behind the build, process-wide: :func:`set_library_cache`. Before ``nvcc``
+runs, under the same lock and stamp rule, the cache installs a library it
+holds for these sources, flags, ``nvcc`` and card; after a build it banks
+the new library. A library from the cache is loaded under a name of its
+own before it takes the library's place: one that fails to load is refused
+to the cache (which quarantines its entry) and the library is built by
+``nvcc``, so a refused library's file is never the one later bound.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
@@ -56,6 +66,11 @@ _lock = threading.Lock()
 _count_lock = threading.Lock()
 _local = threading.local()
 _lib: ctypes.CDLL | None = None
+# the warm cache behind the build (None: nvcc only) and where the last
+# build's library came from: "stamp" (already built), "cache" or "nvcc"
+_library_cache = None
+_last_source: str | None = None
+_nvcc_release: str | None = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -180,11 +195,48 @@ def _digest(srcs: list[Path]) -> str:
     return h.hexdigest()
 
 
+def library_digest() -> str:
+    """The digest of the kernel sources and ``NVCC_FLAGS`` (the stamp)."""
+    return _digest(sources())
+
+
+def nvcc_release() -> str:
+    """The ``nvcc --version`` release line (read once a process)."""
+    global _nvcc_release
+    if _nvcc_release is None:
+        out = subprocess.run([_nvcc(), "--version"], capture_output=True,
+                             text=True, check=True, timeout=60).stdout
+        lines = [ln for ln in out.splitlines() if "release" in ln]
+        _nvcc_release = (lines or out.splitlines() or ["?"])[-1].strip()
+    return _nvcc_release
+
+
+def library_path() -> Path | None:
+    """The built library when its stamp matches the sources, else None."""
+    lib_path, stamp = _BUILD / _LIB_NAME, _BUILD / "stamp"
+    if lib_path.exists() and stamp.exists() \
+            and stamp.read_text() == library_digest():
+        return lib_path
+    return None
+
+
+def set_library_cache(cache):
+    """Put ``cache`` (an object with ``install_library(digest, dest) →
+    bool``, ``bank_library(digest, path)`` and ``refuse_library(digest,
+    reason)``; None: none) behind every later build of this process.
+    Returns the previous one."""
+    global _library_cache
+    prev, _library_cache = _library_cache, cache
+    return prev
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` (in parallel) and link the shared library;
     a no-op when the stamp matches. Returns the library path. The check
     and the build hold an exclusive ``fcntl`` lock on the build directory,
-    so processes that build at once build once."""
+    so processes that build at once build once. With a warm cache set, a
+    library the cache holds for these sources, and that loads with every
+    entry point, is installed in place of the build."""
     _BUILD.mkdir(parents=True, exist_ok=True)
     with open(_BUILD / ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
@@ -194,13 +246,43 @@ def build() -> Path:
             fcntl.flock(lock, fcntl.LOCK_UN)
 
 
+def _install_cached(digest: str, lib_path: Path) -> bool:
+    """Install the warm cache's library for ``digest`` at ``lib_path``:
+    written to a fresh name and loaded there first, so a library that
+    fails to load (not a shared object, an entry point missing) is refused
+    to the cache and never takes ``lib_path`` — whose later load must find
+    a new file, not the refused one the loader already holds."""
+    fd, name = tempfile.mkstemp(dir=_BUILD, prefix=_LIB_NAME + ".cache")
+    os.close(fd)
+    tmp = Path(name)
+    try:
+        if not _library_cache.install_library(digest, tmp):
+            return False
+        try:
+            _bind(tmp)
+        except (OSError, AttributeError) as exc:
+            _library_cache.refuse_library(
+                digest, f"library failed to load: {exc!r}")
+            return False
+        os.replace(tmp, lib_path)
+        return True
+    finally:
+        tmp.unlink(missing_ok=True)
+
+
 def _build_locked() -> Path:
+    global _last_source
     srcs = sources()
     lib_path = _BUILD / _LIB_NAME
     stamp = _BUILD / "stamp"
     digest = _digest(srcs)
     if lib_path.exists() and stamp.exists() \
             and stamp.read_text() == digest:
+        _last_source = "stamp"
+        return lib_path
+    if _library_cache is not None and _install_cached(digest, lib_path):
+        stamp.write_text(digest)
+        _last_source = "cache"
         return lib_path
     nvcc = _nvcc()
     procs = []
@@ -227,22 +309,30 @@ def _build_locked() -> Path:
                            + link.stdout.decode(errors="replace"))
     os.replace(tmp, lib_path)
     stamp.write_text(digest)
+    _last_source = "nvcc"
+    if _library_cache is not None:
+        _library_cache.bank_library(digest, lib_path)
     return lib_path
 
 
+def _bind(path: Path) -> ctypes.CDLL:
+    handle = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    handle.tk_error_string.argtypes = [ctypes.c_int]
+    handle.tk_error_string.restype = ctypes.c_char_p
+    return handle
+
+
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
+    """The loaded kernel library (built, or installed from the warm cache,
+    on first use)."""
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(handle, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            handle.tk_error_string.argtypes = [ctypes.c_int]
-            handle.tk_error_string.restype = ctypes.c_char_p
-            _lib = handle
+            _lib = _bind(build())
         return _lib
 
 

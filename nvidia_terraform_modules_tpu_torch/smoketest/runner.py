@@ -13,9 +13,10 @@ and, at deeper levels,
 4. a few steps of the sharded burn-in transformer lower the loss, and the
    serve shapes (greedy decode, the paged engine, its scheduler levers,
    the paged decode kernel, the prefix index's host-RAM tier, the fleet
-   router with its fault plane, its autoscaler's warm joins and its
-   durable prefix CDN — ``TPU_PREFIX_DISK_SPILL`` points that leg at a
-   durable directory, else a temporary one) are exact on the same pool;
+   router with its fault plane, its autoscaler's warm joins, the warm
+   cache's bring-up and its durable prefix CDN — ``TPU_PREFIX_DISK_SPILL``
+   points that leg at a durable directory, else a temporary one) are exact
+   on the same pool;
 5. at ``full``, on two devices or more, the expert and stage fabric and
    serving on the mesh: an all-to-all over ``ep``, three MoE train steps
    with the experts sharded over ``ep``, three 2-stage GPipe steps (the
@@ -100,8 +101,6 @@ NOT_PORTED = {
     "flash_pipeline_ok": (("burnin", "full"),
                           "not queued (the port's kernels have no "
                           "pipeline keyword)"),
-    "aot_warm_ok": (("burnin", "full"),
-                    "ROADMAP Queue A item 9d (fleet stack: AOT warm cache)"),
 }
 
 
@@ -514,6 +513,12 @@ def _serve_legs(checks, cfg, params, batch, rules, dev, gen, leg,
         checks.update(rec)
         return flag
 
+    def aot_warm():
+        acfg, aparams = small(21)
+        flag, rec = aot_warm_leg(aparams, acfg, dev)
+        checks.update(rec)
+        return flag
+
     def prefix_cdn():
         ccfg, cparams = small(23)
         flag, rec = prefix_cdn_leg(cparams, ccfg, dev,
@@ -528,6 +533,7 @@ def _serve_legs(checks, cfg, params, batch, rules, dev, gen, leg,
                     ("fleet_chaos_ok", fleet_chaos),
                     ("kv_spill_ok", kv_spill),
                     ("fleet_scale_ok", fleet_scale),
+                    ("aot_warm_ok", aot_warm),
                     ("prefix_cdn_ok", prefix_cdn)):
         if not ok:
             break
@@ -706,6 +712,49 @@ def fleet_scale_leg(params, cfg: BurnInConfig, dev) -> tuple[bool, dict]:
             and r2["joiner_hits"] > 0)
     return flag, {"fleet_scale_warm_blocks": r2["warm_blocks"],
                   "fleet_scale_joiner_hits": r2["joiner_hits"]}
+
+
+def aot_warm_leg(params, cfg: BurnInConfig, dev) -> tuple[bool, dict]:
+    """The reference's cold-start gate: the warm cache is a bring-up
+    change, never different tokens. On ``shared_prefix_prompts(6,
+    seed=5)`` (templates of 8 tokens) a cold engine, an engine warmed
+    against a temporary cache directory and a second bring-up over the
+    same directory (``share_prefix`` engines, ``kv_block=4``, 2 slots):
+    the warmed engine's tokens must equal the cold engine's, the first
+    warm register ≥ 1 pieces, neither warm report an error, and the
+    second land ≥ 1 hits. The directory is deactivated (in reverse order
+    of activation: activation is sticky) and removed. Returns the verdict
+    and the line's ``aot_warm_registered`` and ``aot_warm_second_hits``."""
+    import shutil
+    import tempfile
+
+    prompts = [torch.tensor(p, dtype=torch.long, device=dev)
+               for _t, p in shared_prefix_prompts(
+                   6, seed=5, template_len=8, suffix_lo=1, suffix_hi=4,
+                   vocab=cfg.vocab)]
+    budgets = [3, 4, 2, 4, 3, 2]
+    max_len = max(int(p.shape[-1]) + n for p, n in zip(prompts, budgets))
+    lens = tuple(sorted({int(p.shape[-1]) for p in prompts}))
+    kw = dict(max_len=max_len, kv_block=4, share_prefix=True, device=dev)
+    cold = make_serve_engine(params, cfg, **kw)(prompts, budgets, slots=2)
+    adir = tempfile.mkdtemp(prefix="smoke_aot_")
+    engines = []
+    try:
+        engines.append(make_serve_engine(params, cfg, aot_cache=adir, **kw))
+        ws1 = engines[0].warm(slots=2, prompt_lens=lens, n_new=max(budgets))
+        warmed = engines[0](prompts, budgets, slots=2)
+        engines.append(make_serve_engine(params, cfg, aot_cache=adir, **kw))
+        ws2 = engines[1].warm(slots=2, prompt_lens=lens, n_new=max(budgets))
+    finally:
+        for engine in reversed(engines):
+            engine.aot_cache.deactivate()
+        shutil.rmtree(adir, ignore_errors=True)
+    flag = (all(torch.equal(a, b) for a, b in zip(warmed, cold))
+            and ws1["enabled"] and ws2["enabled"]
+            and ws1["registered"] >= 1 and not ws1["errors"]
+            and not ws2["errors"] and ws2["hits"] >= 1)
+    return flag, {"aot_warm_registered": ws1["registered"],
+                  "aot_warm_second_hits": ws2["hits"]}
 
 
 def prefix_cdn_leg(params, cfg: BurnInConfig, dev,

@@ -47,6 +47,15 @@ Instrumented layers of the port (all emit here when enabled):
                                       draft / verify-step counters, queue,
                                       slot, KV-block, prefix-hit, lazy-
                                       growth and ``paged_decode_ms`` gauges
+``models/aotcache``                  ``aot_cache_hit_total`` /
+                                      ``aot_cache_miss_total`` counters (a
+                                      registration probe at every
+                                      ``warm_engine`` bring-up),
+                                      ``engine_warmup_ms`` gauge (the
+                                      whole probe, first-use and prime
+                                      window) and — set by the engine's
+                                      first prefill of a run —
+                                      ``join_first_token_ms`` gauge
 ``models/speculative``                one ``spec_decode`` span a call,
                                       ``spec_verify_steps`` /
                                       ``spec_accepted_draft_tokens``

@@ -2272,3 +2272,89 @@ def test_warm_join_worker_tallies_on_card(cuda):
             joiner_admits += rec["requests"]
             joiner_flash += rec["flash_prefills"]
     assert joiner_flash < joiner_admits
+
+
+def test_library_installs_from_the_warm_cache_and_refuses_a_stale_one(
+        cuda, tmp_path, monkeypatch):
+    """The kernel library banked in a warm cache installs into an empty
+    build directory without a compile (no object file, the stamp written)
+    and loads with every entry point; a library banked for other sources
+    is quarantined as stale and the build goes back to ``nvcc`` (stubbed
+    here to raise)."""
+    import ctypes
+
+    from nvidia_terraform_modules_tpu_torch.models import AotCompileCache
+    from nvidia_terraform_modules_tpu_torch.models import aotcache
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+
+    built = _build.build()
+    digest = _build.library_digest()
+    cache = AotCompileCache(str(tmp_path / "gac"))
+    key = aotcache.library_key(digest)          # reads nvcc --version once
+    assert cache.bank_library(digest, built) == "serialized"
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not run (test)")
+    monkeypatch.setattr(_build, "_nvcc", no_nvcc)
+    monkeypatch.setattr(_build, "_BUILD", tmp_path / "build")
+    prev = _build.set_library_cache(None)
+    cache.activate()
+    try:
+        path = _build.build()
+        assert _build._last_source == "cache"
+        assert path.read_bytes() == built.read_bytes()
+        assert not list((tmp_path / "build").glob("*.o"))
+        handle = ctypes.CDLL(str(path))
+        for name in _build._SIGNATURES:
+            assert getattr(handle, name)
+        (tmp_path / "build" / "stamp").unlink()
+        body = cache.probe(key)
+        cache.store(key, "serialized", dict(body["payload"],
+                                            digest="0" * 64))
+        with pytest.raises(RuntimeError, match="nvcc not run"):
+            _build.build()
+        assert "stale library" in cache.quarantine_reasons[-1]
+    finally:
+        cache.deactivate()
+        _build.set_library_cache(prev)
+
+
+def test_warmed_engine_first_run_captures_nothing(cuda, tmp_path):
+    """After ``warm()`` at a geometry the engine's first run there captures
+    no graph and builds nothing: its tokens and its K1/K7 launches equal a
+    never-warmed engine's steady run (its second: the first adds the two
+    eager waves before its capture), and a second bring-up hits every
+    entry, the kernel library's among them."""
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+
+    cfg, params, prompts = _fleet_case(cuda)
+    lens = sorted({len(p) for p in prompts})
+    cold = make_serve_engine(params, cfg, max_len=48, kv_block=8,
+                             device=cuda)
+    cold(prompts, 6, slots=2)
+    with _build.tally() as steady:
+        want = cold(prompts, 6, slots=2)
+    engines = []
+    try:
+        for _ in range(2):
+            engines.append(make_serve_engine(
+                params, cfg, max_len=48, kv_block=8, device=cuda,
+                aot_cache=str(tmp_path / "gac")))
+        w1 = engines[0].warm(slots=2, prompt_lens=lens, n_new=6)
+        captures = engines[0].captures
+        with _build.tally() as first:
+            got = engines[0](prompts, 6, slots=2)
+        w2 = engines[1].warm(slots=2, prompt_lens=lens, n_new=6)
+    finally:
+        for engine in reversed(engines):
+            engine.aot_cache.deactivate()
+    names = [n for n, _f, _a in engines[0].aot_registrations(
+        slots=2, prompt_lens=lens)]
+    assert names[0] == "kernel_library" and "wave_step" in names
+    assert not w1["errors"] and w1["serialized"] == 1
+    assert captures == 1 and engines[0].captures == captures
+    assert [bool(torch.equal(a, b)) for a, b in zip(got, want)] \
+        == [True] * len(prompts)
+    assert {k: first.get(k, 0) for k in ("flash_fwd", "paged_decode")} \
+        == {k: steady.get(k, 0) for k in ("flash_fwd", "paged_decode")}
+    assert w2["hits"] == w2["registered"] == w1["registered"]

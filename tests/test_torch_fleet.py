@@ -629,11 +629,11 @@ def test_kv_import_admissions_run_no_prefill(monkeypatch):
     assert dec.last_stats["kv"]["in_use"] == 0
 
 
-def test_prefill_session_refusals_and_the_elastic_hooks():
+def test_prefill_session_refusals_and_the_elastic_hooks(tmp_path):
     """``prefill_session`` refuses what the reference's refuses; a source's
     warm chains (no host tier: dropped, billed) and its chain sink (the
-    retained chains published at close) are served; ``aot_cache`` still
-    names ROADMAP item 9d."""
+    retained chains published at close) are served; an engine with an
+    ``aot_cache`` warms and serves a source's requests as before."""
     _, _, cfg, params, prompts = _setup()
     for kw, match in (({"sampler": make_sampler(top_k=2)}, "greedy-only"),
                       ({"spec_k": 2, "max_len": 24}, "spec_k"),
@@ -669,9 +669,18 @@ def test_prefill_session_refusals_and_the_elastic_hooks():
     # two prompts of 4 and 6 tokens: one full block each, two chains
     assert sorted(len(c) for c, _p in published) == [1, 1]
     assert all(p["k"][0].shape[0] == 1 for _c, p in published)
-    with pytest.raises(NotImplementedError, match="item 9d"):
-        make_serve_engine(params, cfg, max_len=16, device="cpu",
-                          aot_cache="dir")
+    cached = make_serve_engine(params, cfg, max_len=16, kv_block=4,
+                               share_prefix=True, device="cpu",
+                               aot_cache=str(tmp_path))
+    try:
+        assert cached.warm(slots=4, prompt_lens=[len(p) for p in prompts],
+                           n_new=2)["errors"] == []
+        got = cached(prompts[:2], 2, admission=Sink([0, 1]))
+        want = shared(prompts[:2], 2, admission=_Queue([0, 1]))
+        assert sorted(got) == [0, 1]
+        assert all(torch.equal(got[r], want[r]) for r in (0, 1))
+    finally:
+        cached.aot_cache.deactivate()
 
 
 def test_fleet_replicas_run_in_their_own_threads():

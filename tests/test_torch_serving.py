@@ -10,7 +10,6 @@ the bf16 pool, the int8 pool, and int8 weights through the phase split.
 """
 
 import inspect
-import re
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +23,7 @@ from nvidia_terraform_modules_tpu.models.serving import (
 )
 from nvidia_terraform_modules_tpu_torch.models import (
     AdmissionSource,
+    AotCompileCache,
     BurnInConfig,
     WarmChainStore,
     greedy_decode,
@@ -128,7 +128,7 @@ def test_arrivals_and_static_batching_are_scheduling_only():
         assert torch.equal(a, b) and torch.equal(a, c)
 
 
-def test_engine_validation_and_unported_levers():
+def test_engine_validation_and_unported_levers(tmp_path):
     _, _, cfg, params, prompts = _setup(n=2)
     engine = make_serve_engine(params, cfg, max_len=12, device="cpu")
     assert engine([], 4) == []
@@ -155,7 +155,7 @@ def test_engine_validation_and_unported_levers():
                           host_spill=True)
     # the shared store builds beside the prefix index, without the private
     # host tier, and refuses otherwise with the reference's messages; the
-    # AOT cache refuses any value, naming its item
+    # warm cache builds from a directory, activated and warmable
     store = WarmChainStore(cfg, 8, block_size=16, device="cpu")
     make_serve_engine(params, cfg, max_len=12, device="cpu",
                       share_prefix=True, shared_store=store)
@@ -166,10 +166,17 @@ def test_engine_validation_and_unported_levers():
         make_serve_engine(params, cfg, max_len=12, device="cpu",
                           share_prefix=True, host_spill=True,
                           shared_store=store)
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.*{re.escape('item 9d (fleet')}"):
-        make_serve_engine(params, cfg, max_len=12, device="cpu",
-                          aot_cache="dir")
+    warmed = make_serve_engine(params, cfg, max_len=12, device="cpu",
+                               aot_cache=str(tmp_path / "aot"))
+    try:
+        assert isinstance(warmed.aot_cache, AotCompileCache)
+        assert warmed.aot_cache.stats()["active"]
+        st = warmed.warm(slots=1, prompt_lens=[len(p) for p in prompts],
+                         n_new=1)
+        assert st["registered"] >= 1 and not st["errors"]
+        assert warmed.aot_cache.stats()["entries"] == st["registered"]
+    finally:
+        warmed.aot_cache.deactivate()
 
     # run(admission=) takes a source's warm bring-up chains: an engine
     # without a host tier drops each one and bills it
@@ -204,12 +211,6 @@ def _keyword_defaults(fn) -> dict:
             if p.default is not inspect.Parameter.empty}
 
 
-# keywords the port accepts only at the reference's default: a value that
-# is not, and the ROADMAP item its NotImplementedError names
-_NOT_DEFAULT = {
-    "make_serve_engine": {"aot_cache": ("dir", "item 9d")},
-    "run": {},
-}
 # keywords the port now serves, at a value other than the reference's
 # default that leaves this traffic's tokens as they are (run's rules=
 # needs a torch.distributed world: tests/test_torch_serving_sharded.py) (a top-k = 1
@@ -226,13 +227,14 @@ _PORTED = {
 _PORTED_SPEC = {"spec_k": 2}
 
 
-def test_reference_keywords_at_their_defaults_serve_the_same_tokens():
+def test_reference_keywords_at_their_defaults_serve_the_same_tokens(
+        tmp_path):
     """The port's engine takes every keyword of the reference's
     ``make_serve_engine`` and ``run`` (read from their signatures) at the
     reference's default and serves the same tokens as without them; a
-    ported lever at another value serves them too; a keyword it does not
-    serve yet refuses any other value, naming its ROADMAP item; a keyword
-    the reference's function lacks is a TypeError."""
+    ported lever at another value serves them too — the warm cache
+    (``aot_cache``, a directory) warmed first; a keyword the reference's
+    function lacks is a TypeError."""
     jcfg, jp, cfg, params, prompts = _setup(n=3, seed=11)
     engine_kw = _keyword_defaults(jax_engine)
     run_kw = _keyword_defaults(jax_engine(jp, jcfg, max_len=16, kv_block=4))
@@ -260,15 +262,18 @@ def test_reference_keywords_at_their_defaults_serve_the_same_tokens():
                                 cfg, 8, block_size=16, device="cpu"))
     for g, w in zip(cdn(prompts, 4), want):
         assert torch.equal(g, w)
-    for name, (value, item) in _NOT_DEFAULT["make_serve_engine"].items():
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md, Queue A {item}"):
-            make_serve_engine(params, cfg, max_len=16, device="cpu",
-                              **{name: value})
-    for name, (value, item) in _NOT_DEFAULT["run"].items():
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md, Queue A {item}"):
-            base(prompts, 4, **{name: value})
+    assert set(engine_kw) <= set(inspect.signature(
+        make_serve_engine).parameters)
+    cached = make_serve_engine(params, cfg, max_len=16, device="cpu",
+                               aot_cache=str(tmp_path))
+    try:
+        st = cached.warm(slots=4, prompt_lens=[len(p) for p in prompts],
+                         n_new=4)
+        assert st["misses"] == st["registered"] >= 1 and not st["errors"]
+        for g, w in zip(cached(prompts, 4), want):
+            assert torch.equal(g, w)
+    finally:
+        cached.aot_cache.deactivate()
     with pytest.raises(TypeError):
         base(prompts, 4, aging=None)      # make_serve_engine's, not run's
     with pytest.raises(TypeError):

@@ -230,13 +230,14 @@ def test_flipped_host_byte_is_a_classified_drop(model, monkeypatch,
     assert sp["host_in_use"] == 0 and eng.last_stats["kv"]["in_use"] == 0
 
 
-def test_spill_validation_defaults_and_unported_keywords(model):
+def test_spill_validation_defaults_and_unported_keywords(model, tmp_path):
     """``host_spill`` without ``share_prefix``, a bad ``host_blocks`` and a
     bad ``host_swap`` refuse with the reference's messages; the engine
     without the tier bills it disabled, as the JAX engine does; the
     default host pool is ``max(4·prefix_keep_blocks, 64)`` blocks; the
-    shared store's refusals are the reference's, the AOT cache still
-    names its ROADMAP item, and a source's warm chains seed the tier."""
+    shared store's refusals are the reference's, a spilling engine with
+    the warm cache warms without an error, and a source's warm chains seed
+    the tier."""
     jcfg, jp, cfg, params, prompts = model
     for kw in ({"host_spill": True},
                {"share_prefix": True, "host_spill": True, "host_blocks": 0},
@@ -276,9 +277,15 @@ def test_spill_validation_defaults_and_unported_keywords(model):
         with pytest.raises(ValueError) as want:
             jax_engine(jp, jcfg, max_len=16, **jkw)
         assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="item 9d"):
-        make_serve_engine(params, cfg, max_len=16, device="cpu",
-                          aot_cache="dir")
+    cached = make_serve_engine(params, cfg, max_len=16, kv_block=4,
+                               share_prefix=True, host_spill=True,
+                               device="cpu", aot_cache=str(tmp_path))
+    try:
+        st = cached.warm(slots=2, prompt_lens=[len(p) for p in prompts],
+                         n_new=2)
+        assert st["registered"] >= 1 and not st["errors"]
+    finally:
+        cached.aot_cache.deactivate()
 
     class WarmSource(AdmissionSource):
         """The requests in order, and one warm chain for the host tier

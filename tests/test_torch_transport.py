@@ -43,6 +43,7 @@ from nvidia_terraform_modules_tpu_torch.models import (
     HostParamSnapshot,
     MultiProcTransport,
     SnapshotCorruptError,
+    Transport,
     TransportCorruptFrame,
     TransportDead,
     TransportError,
@@ -389,8 +390,8 @@ def test_fleet_worker_hung_classification_and_refusals():
         MultiProcTransport(reply_timeout_s=0.0)
     with pytest.raises(ValueError, match="spawn_timeout_s"):
         MultiProcTransport(spawn_timeout_s=-1.0)
-    with pytest.raises(NotImplementedError, match="item 9d"):
-        MultiProcTransport().warm_replica(0, {})
+    # a transport that cannot warm reports nothing, as the reference's
+    assert Transport().warm_replica(0, {}) == {}
 
 
 def test_launch_tally_is_exact_under_threads():
