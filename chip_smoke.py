@@ -150,6 +150,25 @@ It builds the port's CUDA kernels from ``csrc/`` with nvcc (into
   rules (K2 and K5 with f32 outputs, or K1 and K5, by name; the f32 loss
   equal to the flash step's bit for bit). One card holds one NCCL rank,
   so the multi-rank hops are proven in gloo worlds on the CPU;
+- a sliding window across sequence shards and the one-process mesh
+  (``kernel_flash_window_shards``, after the ring phases): one 4,096-row
+  sequence in four shards of the ring's block, bf16 and f32, windows of
+  1,024, 1,500 and 3,000 rows — K2 at each live block's key offset
+  against its plain version, each shard's fold against K1's windowed
+  output, K5 and K3 + K4 with f32 outputs at the offsets against theirs,
+  the shard path's gradients against K5 on the whole sequence, a launch a
+  live block and none for a dead one — and the offset blocks timed
+  (partly masked, fully visible); ``train_one_process_flagship``: the
+  flagship step on ``[cuda:0] * 2`` (tp 2) and ``[cuda:0] * 4`` (dp 2 ×
+  tp 2) held to the unsharded flash step's loss and gradients, its K1/K5
+  launches a member and its step ms; ``serve_one_process_exact``: the
+  engine's ``run(rules=)`` (f32) on ``[cuda:0] * 2`` (tp 2; MHA, one KV
+  head, int8 weights with K8 a product a member) and ``[cuda:0] * 4`` (dp
+  2 × tp 2; MoE on ep 2 × tp 2) equal to the unsharded engine and each
+  request's solo decode (K7 a layer a position), and ``make_decoder(cfg,
+  rules)`` at the flagship width equal to the unsharded decoder (the
+  int8 cache: K6 a layer a member a step, teacher-forced logits held to
+  the unsharded int8 cache's, a planted scale mix-up caught);
 - the fleet's elastic plane and durable prefix CDN (``fleet_scale_exact``,
   f32): the Job's ``fleet_scale_ok`` and ``prefix_cdn_ok`` legs, an
   autoscaled fleet with no event equal to the fixed fleet byte for byte, a
@@ -5180,6 +5199,517 @@ _WORLD_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
                "TPU_SMOKETEST_SLICES", "TPU_TELEMETRY_DIR")
 
 
+# the window across sequence shards: one sequence of RING_SP blocks of the
+# ring's flagship block, at windows of one block, of a ragged length (not a
+# multiple of the 64-row tile) and of three blocks
+WINDOW_SHARD_WINDOWS = (1024, 1500, 3000)
+
+
+def kernel_flash_window_shards(randn, dev, block) -> dict:
+    """A sliding window across sequence shards at the ring's flagship block:
+    one ``RING_SP · S``-row sequence cut into ``RING_SP`` shards of
+    ``block``'s S rows, bf16 and f32, windows ``WINDOW_SHARD_WINDOWS``.
+    For each shard and each live block (``ring_attention.shard_block_live``)
+    K2 at the block's key offset against its plain version
+    (``PARTIAL_TOL``; rows that see no key of the block must hold
+    ``m = -1e30``, ``l = 0`` in both), the shard's fold against K1's
+    windowed output on the same rows (``BWD_TOL``'s max-abs and relative L2,
+    the LSE within 1e-5 of max(1, |LSE|)), and K5 and K3 + K4 with f32
+    outputs at the offset against their plain versions (``BWD_TOL``). The
+    shard path (``shard_flash_attention``, fused and split) through
+    autograd: its dQ/dK/dV against K5 on the whole windowed sequence, and
+    its launches equal to the live blocks — a dead block launches nothing.
+    Then K2 and the f32-output K5/K3/K4 timed at offset S on a partly
+    masked block (window 1500) and a fully visible one (window 3000), each
+    beside its plain version, SDPA with the same boolean mask and the
+    bound of its live pairs. Returns the record."""
+    import torch
+    import torch.nn.functional as F
+
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+    from nvidia_terraform_modules_tpu_torch.ops.flash_attention import (
+        flash_attention_fwd,
+        flash_backward,
+        flash_dkv,
+        flash_dkv_ref,
+        flash_dq,
+        flash_dq_ref,
+        flash_dqdkv,
+        flash_dqdkv_ref,
+        flash_partial,
+        flash_partial_ref,
+    )
+    from nvidia_terraform_modules_tpu_torch.ops.ring_attention import (
+        _delta,
+        _finish,
+        _fold,
+        _fold_start,
+        shard_block_live,
+        shard_flash_attention,
+    )
+    from nvidia_terraform_modules_tpu_torch.utils.timing import (
+        cuda_median_ms,
+        sync,
+    )
+
+    b, s, h, d = block
+    n, scale = RING_SP, d ** -0.5
+    checks, shard_launches = [], {}
+    for dtype in (torch.bfloat16, torch.float32):
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        for w in WINDOW_SHARD_WINDOWS:
+            mask = ("window", w)
+            q, k, v, do = (randn((b, n * s, h, d), dtype) for _ in range(4))
+            o1, lse1 = flash_attention_fwd(q, k, v, scale=scale, mask=mask)
+            worst = {"k2": 0.0, "fold": 0.0, "fold_lse": 0.0, "bwd": 0.0}
+            blocks = 0
+            for i in range(n):
+                rows = slice(i * s, (i + 1) * s)
+                qi, doi = q[:, rows].contiguous(), do[:, rows].contiguous()
+                state, live = _fold_start(qi), []
+                for j in range(i, -1, -1):
+                    if not shard_block_live(i, j, s, w):
+                        break
+                    kj = k[:, j * s:(j + 1) * s].contiguous()
+                    vj = v[:, j * s:(j + 1) * s].contiguous()
+                    kw = dict(scale=scale, mask=mask, q_offset=(i - j) * s)
+                    got = flash_partial(qi, kj, vj, **kw)
+                    ref = flash_partial_ref(qi, kj, vj, **kw)
+                    sync()
+                    seen = ref[1] > -1e29           # rows that see a key
+                    if not (torch.equal(seen, got[1] > -1e29)
+                            and bool((got[2][~seen] == 0).all())):
+                        raise AssertionError(
+                            f"window shards {kind} W={w} shard {i} block "
+                            f"{j}: rows that see no key differ")
+                    for name, a, r in (("acc", got[0], ref[0]),
+                                       ("m", got[1][seen], ref[1][seen]),
+                                       ("l", got[2], ref[2])):
+                        err = (a - r).abs().max().item() if r.numel() else 0
+                        lim = PARTIAL_TOL[kind] * max(
+                            1.0, r.abs().max().item() if r.numel() else 0)
+                        if not err <= lim:
+                            raise AssertionError(
+                                f"window shards {kind} W={w} K2 shard {i} "
+                                f"block {j} {name}: err {err} (limit {lim})")
+                        if name == "acc":
+                            worst["k2"] = max(worst["k2"], err)
+                    state = _fold(state, got)
+                    live.append((j, kj, vj, kw))
+                    blocks += 1
+                out_i, lse_i = _finish(state, dtype)
+                fold_abs, _ = grad_errors([out_i], [o1[:, rows]], kind,
+                                          f"window shards {kind} W={w} "
+                                          f"shard {i} fold vs K1")
+                lse_err = ((lse_i - lse1[..., rows]).abs()
+                           / lse1[..., rows].abs().clamp_min(1.0)
+                           ).max().item()
+                if not lse_err <= 1e-5:
+                    raise AssertionError(f"window shards {kind} W={w} shard "
+                                         f"{i} LSE vs K1: {lse_err}")
+                worst["fold"] = max(worst["fold"], fold_abs)
+                worst["fold_lse"] = max(worst["fold_lse"], lse_err)
+                delta = _delta(doi, out_i)
+                for j, kj, vj, kw in live:
+                    args = (qi, kj, vj, doi, lse_i, delta)
+                    f32 = dict(kw, out_dtype=torch.float32)
+                    ref = flash_dqdkv_ref(*args, **f32)
+                    for label, got in (
+                            ("K5", flash_dqdkv(*args, **f32)),
+                            ("K3 + K4", (flash_dq(*args, **f32),
+                                         *flash_dkv(*args, **f32)))):
+                        err, _ = grad_errors(
+                            got, ref, kind, f"window shards {kind} W={w} "
+                                            f"{label} shard {i} block {j}")
+                        worst["bwd"] = max(worst["bwd"], err)
+                    del ref, got
+            # the shard path through autograd against K5 on the whole
+            # sequence; its launches are the live blocks
+            whole = flash_backward(q, k, v, o1, do, lse1, scale=scale,
+                                   mask=mask, backward="fused")
+            path = {}
+            for backward in ("fused", "split"):
+                qs, ks, vs = (x.detach().requires_grad_(True)
+                              for x in (q, k, v))
+                _build.reset_launches()
+                outs = [shard_flash_attention(
+                    qs[:, i * s:(i + 1) * s], ks, vs, i, scale=scale,
+                    backward=backward, window=w) for i in range(n)]
+                grads = torch.autograd.grad(torch.cat(outs, dim=1),
+                                            (qs, ks, vs), do)
+                sync()
+                launches = {name: c for name, c in _build.launches.items()
+                            if c}
+                expect = {"flash_partial": blocks, **(
+                    {"flash_bwd_fused": blocks} if backward == "fused"
+                    else {"flash_dq": blocks, "flash_dkv": blocks})}
+                if launches != expect:
+                    raise AssertionError(
+                        f"window shards {kind} W={w} {backward}: launches "
+                        f"{launches}, expected {expect} (the live blocks)")
+                err_abs, err_l2 = grad_errors(
+                    grads, whole, kind, f"window shards {kind} W={w} "
+                                        f"{backward} path vs K5 whole")
+                path[backward] = dict(max_abs_err=err_abs,
+                                      rel_l2_err=err_l2, launches=launches)
+                del outs, grads, qs, ks, vs
+            shard_launches[f"{kind} W={w}"] = blocks
+            rec = dict(dtype=kind, window=w, shape=[b, n * s, h, d],
+                       shards=n, live_blocks=blocks,
+                       dead_blocks=n * (n + 1) // 2 - blocks,
+                       k2_max_abs_err=worst["k2"],
+                       fold_vs_k1_max_abs_err=worst["fold"],
+                       fold_lse_vs_k1=worst["fold_lse"],
+                       bwd_max_abs_err=worst["bwd"], path=path)
+            emit("kernel_flash_window_shards", **rec)
+            checks.append(rec)
+            del q, k, v, do, o1, lse1, whole
+            torch.cuda.empty_cache()
+
+    # timed at offset S: a partly masked block and a visible one
+    timed = {}
+    for label, w in (("partial", 1500), ("visible", 3000)):
+        q, k, v, do = (randn((b, s, h, d), torch.bfloat16) for _ in range(4))
+        kw = dict(scale=scale, mask=("window", w), q_offset=s)
+        keep = (torch.arange(s, device=dev)[:, None] + s
+                - torch.arange(s, device=dev)[None, :]) < w
+        live = int(keep.sum().item())
+        elt = q.element_size()
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        k2_flops = 4.0 * b * h * d * live
+        k2_bytes = 3 * b * s * h * d * elt + b * s * h * d * 4 \
+            + 2 * b * h * s * 4
+        k2_bound, k2_by = bound(k2_flops, k2_bytes, "bf16")
+        acc, m, l_ = flash_partial(q, k, v, **kw)
+        lm = l_.clamp_min(1e-30)
+        out = (acc / lm.transpose(1, 2)[..., None]).to(q.dtype)
+        lse = m + torch.log(lm)
+        delta = _delta(do, out)
+        args = (q, k, v, do, lse, delta)
+        recs = {"flash_partial": dict(
+            ms=cuda_median_ms(lambda: flash_partial(q, k, v, **kw)),
+            plain_ms=cuda_median_ms(lambda: flash_partial_ref(q, k, v, **kw),
+                                    iters=5, warmup=1),
+            library_ms=cuda_median_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=keep)),
+            bound_ms=k2_bound, bound_by=k2_by)}
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+        sdpa = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=keep)
+        dot = do.transpose(1, 2)
+        library_bwd = cuda_median_ms(lambda: torch.autograd.grad(
+            sdpa, (qg, kg, vg), dot, retain_graph=True))
+        n_el = b * s * h * d
+        f32 = dict(kw, out_dtype=torch.float32)
+        for name, kernel, plain in (
+                ("flash_bwd_fused", flash_dqdkv, flash_dqdkv_ref),
+                ("flash_dq", flash_dq, flash_dq_ref),
+                ("flash_dkv", flash_dkv, flash_dkv_ref)):
+            bwd_bound, bwd_by = bound(
+                BWD_FACTOR[name] * k2_flops,
+                4 * n_el * elt + BWD_OUTPUTS[name] * n_el * 4
+                + 2 * b * h * s * 4, "bf16")
+            recs[name] = dict(
+                ms=cuda_median_ms(lambda kernel=kernel: kernel(*args, **f32)),
+                ms_bf16_out=cuda_median_ms(
+                    lambda kernel=kernel: kernel(*args, **kw)),
+                plain_ms=cuda_median_ms(lambda plain=plain: plain(
+                    *args, **f32), iters=5, warmup=1),
+                library_ms=library_bwd, bound_ms=bwd_bound, bound_by=bwd_by)
+        timed[label] = dict(window=w, q_offset=s, live_pairs=live,
+                            live_frac=live / (s * s), kernels=recs)
+        emit("kernel_flash_window_shards_timed", block=list(block),
+             dtype="bf16", label=label, **timed[label])
+        del sdpa, qg, kg, vg
+    return {"checks": checks, "timed": timed,
+            "launches": shard_launches}
+
+
+def train_one_process_flagship(params, dev, flash_step_ms) -> dict:
+    """One ``FLAGSHIP_TRAIN`` SGD step on one-process meshes of the card —
+    ``[cuda:0] * 2`` (tp 2) and ``[cuda:0] * 4`` (dp 2 × tp 2), the
+    lock-step form (``parallel.sharding.Lockstep``): each position runs its
+    heads and FFN columns (and dp rows) — its gradient pass held against
+    the unsharded flash step's on the same params and batch through
+    :func:`_grads_vs_flash` (the loss, and every gradient's max-abs and
+    relative L2 against the f32 pass), its launches per step (K1 and K5 once
+    a layer a position: ``n_layers`` a member), then ``TIMED_STEPS``
+    SGD steps timed on the host clock beside the unsharded step's
+    ``flash_step_ms``, their loss falling. Returns the record."""
+    import math
+
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import make_train_step
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+    from nvidia_terraform_modules_tpu_torch.parallel import (
+        Lockstep,
+        build_mesh,
+        make_rules,
+        plan_mesh,
+    )
+    from nvidia_terraform_modules_tpu_torch.utils.timing import (
+        sync,
+        synced_ms,
+    )
+
+    cfg, batch = _flagship_train(dev)
+    ref = _flash_grads(params, batch, cfg)
+    out = {}
+    for label, n, tp in (("tp2", 2, 2), ("dp2xtp2", 4, 2)):
+        rules = make_rules(build_mesh(plan_mesh(n, tp=tp),
+                                      devices=[dev] * n))
+        ls = Lockstep(rules)
+        positions = ls.n_data * ls.tp
+        check = _grads_vs_flash(params, batch, cfg, rules, label, ref=ref)
+        torch.cuda.empty_cache()
+        step = make_train_step(cfg, rules, lr=TRAIN_LR, device=dev)
+        state = {"p": params}
+
+        def run():
+            state["p"], loss = step(state["p"], batch)
+            return loss
+
+        synced_ms(run, 1)                    # warm: allocator, cuBLAS plans
+        expect = {"flash_fwd": cfg.n_layers * positions,
+                  "flash_bwd_fused": cfg.n_layers * positions}
+        _build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms = synced_ms(run, TIMED_STEPS)
+        sync()
+        launches = {name: c for name, c in _build.launches.items() if c}
+        if launches != {k: c * TIMED_STEPS for k, c in expect.items()}:
+            raise AssertionError(f"one-process {label} steps launched "
+                                 f"{launches}, expected {expect} a step")
+        losses = [x.item() for x in losses]
+        if not all(map(math.isfinite, losses)) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"one-process {label} loss did not fall: "
+                                 f"{losses}")
+        out[label] = dict(
+            mesh=dict(rules.mesh.shape), positions=positions,
+            step_ms=step_ms, flash_step_ms=flash_step_ms,
+            vs_flash_step=step_ms / flash_step_ms,
+            launches_per_step={k: c // TIMED_STEPS
+                               for k, c in launches.items()},
+            launches_per_member_per_step={
+                k: c // TIMED_STEPS // positions
+                for k, c in launches.items()},
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            first_loss=losses[0], last_loss=losses[-1], **check)
+        del state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def _int8_cache_logit_err(params, cfg, rules, prompt, tokens,
+                          plant: bool = False) -> float:
+    """Teacher-forced logits of the int8 cache on a one-process mesh
+    against the unsharded int8 cache: ``prompt`` then each of ``tokens``'
+    columns but the last through ``forward_cached`` (K6 in every T = 1
+    step), both caches quantising their own K/V → the largest
+    ``|Δ logits| / max(1, max |unsharded logits|)`` over the steps. With
+    ``plant`` member 1's scale sidecars are member 0's (one member reads
+    and writes the other's ``k_scale``/``v_scale``), the fault this check
+    is to catch."""
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        forward_cached,
+        init_cache,
+    )
+
+    b, t = prompt.shape
+    max_len = t + tokens.shape[1]
+    caches = [init_cache(cfg, b, max_len, rules, cache_dtype="int8",
+                         device=prompt.device),
+              init_cache(cfg, b, max_len, cache_dtype="int8",
+                         device=prompt.device)]
+    if plant:
+        for key in ("k_scale", "v_scale"):
+            for buf in caches[0][key]:
+                buf.replicas[0][1] = buf.replicas[0][0]
+    err = 0.0
+    with torch.no_grad():
+        sides = [forward_cached(params, prompt, c, cfg, r)[0][:, -1]
+                 for c, r in zip(caches, (rules, None))]
+        for i in range(tokens.shape[1]):
+            got, want = sides
+            err = max(err, float((got - want).abs().max())
+                      / max(1.0, float(want.abs().max())))
+            if i + 1 < tokens.shape[1]:
+                sides = [forward_cached(params, tokens[:, i:i + 1], c, cfg,
+                                        r)[0][:, -1]
+                         for c, r in zip(caches, (rules, None))]
+    return err
+
+
+# an int8 cache's lock-step logits against the unsharded int8 cache's:
+# the members' column products round some K/V elements to the next int8
+# step apart from the whole product's, a small change in the logits; a
+# member reading another's scales moves them by far more
+INT8_CACHE_LOGIT_TOL = 2e-2
+
+
+def serve_one_process_exact(dev) -> tuple[dict, dict]:
+    """The decode path on one-process meshes of the card (the lock-step
+    form: each member's KV heads in its own pool buffers, a replica of
+    the pool for each data coordinate). (1) serve_exact's f32 widths
+    (head_dim 128, 2 layers): ``run(rules=)`` on ``[cuda:0] * 2`` (tp 2:
+    MHA, one KV head — each member's pool holds it whole — and int8
+    weights) and on ``[cuda:0] * 4`` (dp 2 × tp 2; ep 2 × tp 2 with four
+    experts, top-2): tokens equal to the unsharded engine's (int8
+    weights: the unsharded int8-weight engine's) and each request's solo
+    greedy decode; the replayed waves launch K7 once a layer a position,
+    and the int8-weight engine K8 once a product a member (twice the
+    unsharded engine's count). (2) ``make_decoder(cfg, rules)`` at the
+    flagship width on tp 2 (f32, 2 layers): with the f32 cache, tokens
+    equal to the unsharded decoder's; with the int8 cache, K6 once a layer
+    a member a step, its teacher-forced logits within
+    ``INT8_CACHE_LOGIT_TOL`` of the unsharded int8 cache's, and a planted
+    scale mix-up outside it. Returns the record and the launches of the
+    rules runs."""
+    import dataclasses
+
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        FLAGSHIP_TRAIN,
+        BurnInConfig,
+        greedy_decode,
+        init_params,
+        make_decoder,
+        make_serve_engine,
+        quantize_params,
+    )
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+    from nvidia_terraform_modules_tpu_torch.parallel import (
+        Lockstep,
+        build_mesh,
+        make_rules,
+        plan_mesh,
+    )
+    from nvidia_terraform_modules_tpu_torch.utils.timing import sync
+
+    def mesh(n, **plan):
+        return make_rules(build_mesh(plan_mesh(n, **plan),
+                                     devices=[dev] * n))
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    prompts = [torch.randint(0, 512, (n,), generator=g, device=dev)
+               for n in (5, 12, 7, 20, 3, 9)]
+    max_len, n_new, slots = 48, 12, 4
+    out, launches = {}, {}
+    cases = (("mha", mesh(2, tp=2), {}, False),
+             ("kv_one", mesh(2, tp=2), dict(n_kv_heads=1), False),
+             ("int8_weights", mesh(2, tp=2), {}, True),
+             ("dp2xtp2", mesh(4, tp=2), {}, False),
+             ("moe_ep2xtp2", mesh(4, tp=2, ep=2),
+              dict(n_experts=4, router_top_k=2), False))
+    for label, rules, over, quant in cases:
+        cfg = dataclasses.replace(_exact_cfg(), **{"n_kv_heads": 2, **over})
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+            SEED + 41), device=dev)
+        if quant:
+            params = quantize_params(params, torch.float32, rules)
+        engine = make_serve_engine(params, cfg, max_len=max_len,
+                                   kv_block=KV_BLOCK, device=dev)
+        plain = engine(prompts, n_new, slots=slots)
+        sync()
+        _build.reset_launches()
+        engine(prompts, n_new, slots=slots)
+        sync()
+        plain_counts = {k: c for k, c in _build.launches.items() if c}
+        engine(prompts, n_new, slots=slots, rules=rules)   # warm: capture
+        sync()
+        _build.reset_launches()
+        got = engine(prompts, n_new, slots=slots, rules=rules)
+        sync()
+        counts = {k: c for k, c in _build.launches.items() if c}
+        equal = [bool(torch.equal(a, b)) for a, b in zip(got, plain)]
+        solo_equal = None
+        if not quant:
+            solo = [greedy_decode(params, p[None], n_new, cfg,
+                                  max_len=max_len, device=dev)[0]
+                    for p in prompts]
+            solo_equal = [bool(torch.equal(a, b)) for a, b in zip(got, solo)]
+        if not all(equal) or not all(solo_equal or [True]):
+            raise AssertionError(
+                f"serve_one_process_exact {label}: rules run vs unsharded "
+                f"{equal}, vs solo decode {solo_equal}")
+        ls = Lockstep(rules)
+        positions = ls.n_data * ls.tp
+        k7 = counts.get("paged_decode", 0)
+        if not k7 or k7 % (positions * cfg.n_layers):
+            raise AssertionError(f"serve_one_process_exact {label}: K7 "
+                                 f"launched {k7} times (a layer a position)")
+        waves = k7 // (positions * cfg.n_layers)
+        if quant and (not plain_counts.get("int8_matmul") or counts.get(
+                "int8_matmul") != ls.tp * plain_counts["int8_matmul"]):
+            raise AssertionError(
+                f"serve_one_process_exact {label}: K8 launched "
+                f"{counts.get('int8_matmul')} times, the unsharded engine "
+                f"{plain_counts.get('int8_matmul')} (once a product a "
+                f"member)")
+        out[label] = dict(mesh=dict(rules.mesh.shape), positions=positions,
+                          requests=len(prompts), tokens_equal=equal,
+                          solo_equal=solo_equal, launches=counts,
+                          unsharded_launches=plain_counts, waves=waves)
+        launches[label] = counts
+        del engine
+    # make_decoder at the flagship width (f32, 2 layers) on tp 2: the f32
+    # cache's tokens equal the unsharded decoder's; the int8 cache rounds
+    # K/V that the members' column products round apart from the whole
+    # product's, so its logits are held to the unsharded int8 cache's
+    rules = mesh(2, tp=2)
+    cfg = BurnInConfig(**{**FLAGSHIP_TRAIN, "n_layers": 2},
+                       dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 42), device=dev)
+    prompt = torch.randint(0, cfg.vocab, (8, 128), generator=g, device=dev)
+    steps = 32
+    rec = dict(config={**FLAGSHIP_TRAIN, "n_layers": 2, "dtype": "float32"},
+               batch=8, prompt=128, n_new=steps)
+    for cache_dtype in ("f32", "int8"):
+        kind = "int8" if cache_dtype == "int8" else "bf16"
+        plain = make_decoder(cfg, None, steps, cache_dtype=kind,
+                             device=dev)(params, prompt)
+        dec = make_decoder(cfg, rules, steps, cache_dtype=kind, device=dev)
+        dec(params, prompt)                      # warm: capture
+        sync()
+        _build.reset_launches()
+        got = dec(params, prompt)
+        sync()
+        counts = {k: c for k, c in _build.launches.items() if c}
+        rows_equal = int((got == plain).all(dim=1).sum())
+        if cache_dtype == "f32" and rows_equal != 8:
+            raise AssertionError(
+                f"serve_one_process_exact decoder: tp 2 tokens differ from "
+                f"the unsharded decoder's in {8 - rows_equal} of 8 rows")
+        want_k6 = (steps - 1) * cfg.n_layers * 2 if kind == "int8" else 0
+        if counts.get("kv_decode", 0) != want_k6 or not counts.get(
+                "flash_fwd"):
+            raise AssertionError(
+                f"serve_one_process_exact decoder {cache_dtype}: launches "
+                f"{counts}, expected K6 {want_k6} and a K1 prefill a "
+                f"layer a member")
+        rec[cache_dtype] = dict(rows_equal=rows_equal, launches=counts)
+        if kind == "int8":
+            err = _int8_cache_logit_err(params, cfg, rules, prompt, plain)
+            planted = _int8_cache_logit_err(params, cfg, rules, prompt,
+                                            plain, plant=True)
+            if not err <= INT8_CACHE_LOGIT_TOL < planted:
+                raise AssertionError(
+                    f"serve_one_process_exact decoder int8: logits "
+                    f"{err:.3g} from the unsharded int8 cache's (planted "
+                    f"scale mix-up {planted:.3g}), tolerance "
+                    f"{INT8_CACHE_LOGIT_TOL}")
+            rec[cache_dtype].update(logit_err=err, planted_logit_err=planted,
+                                    tolerance=INT8_CACHE_LOGIT_TOL)
+        launches[f"decoder_{cache_dtype}"] = counts
+    out["decoder"] = rec
+    return out, launches
+
+
 def _smoketest_verdict(checks: dict, where: str) -> None:
     bad = [k for k in SMOKETEST_LEGS if checks.get(k) is not True]
     if not checks.get("ok") or bad or checks.get("backend") != "nccl" \
@@ -7389,6 +7919,19 @@ def main() -> int:
     emit("train_ring_flagship", **ring_rec)
     emit("train_ring_profile", **train_ring_profile(params, dev))
     torch.cuda.empty_cache()
+    # a window across the shards (K2, K5, K3 + K4 at key offsets), and the
+    # flagship step on one-process meshes of the card (tp 2, dp 2 × tp 2)
+    win = kernel_flash_window_shards(randn, dev, ring_block)
+    torch.cuda.empty_cache()
+    one = train_one_process_flagship(params, dev, rec["step_ms"])
+    emit("train_one_process_flagship", **one)
+    torch.cuda.empty_cache()
+    # the decode path on one-process meshes (tp 2, dp 2 × tp 2, ep 2 ×
+    # tp 2): the engine and the compiled decoder against their unsharded
+    # runs
+    one_serve, one_serve_launches = serve_one_process_exact(dev)
+    emit("serve_one_process_exact", **one_serve)
+    torch.cuda.empty_cache()
 
     # ------------------------------------- the validation Job's payload
     # the smoke test as the Job runs it (a process of its own, a world of
@@ -7493,6 +8036,10 @@ def main() -> int:
                       "exact_launches": pipe_exact_launches["flash_fwd"]},
          "ulysses_world_one": {"launches":
                                rw1_launches["ulysses"]["flash_fwd"]},
+         # the flagship step on one-process meshes of the card: K1 a layer
+         # a position, per step
+         "one_process": {label: r["launches_per_step"]["flash_fwd"]
+                         for label, r in one.items()},
          # the flagship spilling engine's last timed run (host_spill)
          "spill": {"launches": spill_launches["flash_fwd"]},
          # the fleets: fleet_exact's last calls, and the flagship fleets'
@@ -7541,6 +8088,11 @@ def main() -> int:
              "moe_launches": srl_launches["moe"]["paged_decode"]},
          # the flagship spilling engine's last timed run
          "spill": {"launches": spill_launches["paged_decode"]},
+         # the engine's run(rules=) on a one-process tp 2 mesh: a layer a
+         # member a wave
+         "one_process": {label: one_serve_launches[label]["paged_decode"]
+                         for label in ("mha", "kv_one", "int8_weights",
+                                       "dp2xtp2", "moe_ep2xtp2")},
          # the fleets' decode workers (as K1's "fleet")
          "fleet": {"exact_launches": _fleet_sum(fleet_launches,
                                                 "paged_decode"),
@@ -7584,6 +8136,10 @@ def main() -> int:
          # the int8 stack's decoder under rules (one call), and K6 over a
          # tp 2 / tp 4 rank's KV heads
          "decode_rules": {"launches": dr_launches["int8"]["kv_decode"]},
+         # make_decoder on a one-process tp 2 mesh (one call, the int8
+         # cache): a layer a member a step
+         "one_process": {"launches": one_serve_launches["decoder_int8"][
+             "kv_decode"]},
          "shards": [{key: r[key] for key in (
              "tp", "heads", "max_abs_err", "ms", "plain_ms", "bound_ms")}
              for r in shard_rec["kv_decode"]]},
@@ -7609,6 +8165,10 @@ def main() -> int:
          "decode_rules": {"launches": dr_launches["int8"]["int8_matmul"]},
          "serve_rules_levers": {"int8_weights_launches": srl_launches[
              "int8_weights"]["int8_matmul"]},
+         # the int8-weight engine's run(rules=) on a one-process tp 2
+         # mesh: once a product a member
+         "one_process": {"launches": one_serve_launches["int8_weights"][
+             "int8_matmul"]},
          "shards": {
              "max_abs_err": max(r["max_abs_err"]
                                 for r in shard_rec["int8_matmul"]),
@@ -7641,7 +8201,10 @@ def main() -> int:
                     "1f1b_launches": pipe_launches["1f1b"][name],
                     "exact_launches": pipe_exact_launches[name]},
                 "ulysses_world_one": {
-                    "launches": rw1_launches["ulysses"][name]}}
+                    "launches": rw1_launches["ulysses"][name]},
+                "one_process": {
+                    label: r["launches_per_step"][name]
+                    for label, r in one.items()}}
                if name == "flash_bwd_fused" else {}),
             # K5: the checkpointed AdamW steps; K3 and K4: the
             # exact-resume comparison (split backward)
@@ -7678,6 +8241,13 @@ def main() -> int:
     # a layer
     k2_row["ring_world_one"] = {
         "launches": rw1_launches["ring"]["flash_partial"]}
+    # K2 at key offsets: the window-shards phase's launches (its live
+    # blocks) and its timed blocks at offset S
+    k2_row["window_shards"] = {
+        "launches": win["launches"],
+        **{label: {"window": t["window"], "live_frac": t["live_frac"],
+                   **t["kernels"]["flash_partial"]}
+           for label, t in win["timed"].items()}}
     k2_row.update(
         {key: ring_mix(k2, key) for key in ("tflops", "bound_share")},
         tiling=FWD_TILING,
@@ -7696,6 +8266,14 @@ def main() -> int:
             **({"ring_world_one": {
                 "launches": rw1_launches["ring"][name]}}
                if name == "flash_bwd_fused" else {}),
+            # at key offsets: the window-shards phase (a launch a live
+            # block, fused or split) and its timed blocks at offset S
+            "window_shards": {
+                "launches": win["launches"],
+                **{label: {"window": t["window"],
+                           "live_frac": t["live_frac"],
+                           **t["kernels"][name]}
+                   for label, t in win["timed"].items()}},
             **_resources(bwd_res, name, f32)})
     # D1 is not the port of a TPU kernel: the reference draws in XLA
     # (jax.random.categorical in make_sampler); its launches are the

@@ -121,6 +121,14 @@
 //   columns;
 // - the fused dQ adds each tile's dS K with atomicAdd into the workspace;
 // - a ragged S tail is zero-filled and masked; its rows are never written.
+//
+// Every kernel takes a key offset for the ring's and the sequence shards'
+// blocks, `q_offset` = the global row of q's first row less that of k's
+// first row (q and the block keep one length): query qp sees key kp iff
+// qp + q_offset >= kp and, under a window, qp + q_offset - kp < window. The
+// tile bounds and the dead / visible classes move by the same offset; a
+// block that no query sees loops over nothing and writes zero dK / dV.
+// q_offset = 0 is the diagonal block's local mask.
 // Not done here: wgmma and TMA.
 
 #include "flash_tiles.cuh"
@@ -165,9 +173,11 @@ __device__ void dq_atomic(const float* dst, const float* ks, float* ws,
   }
 }
 
+// query qp (local) against key kp; qp + off is the query in the keys' rows
 __device__ __forceinline__ bool live(int qp, int kp, int seq, int mask,
-                                     int window) {
+                                     int window, int off) {
   bool keep = qp < seq && kp < seq;
+  qp += off;
   if (mask != kFull) keep = keep && kp <= qp;
   if (mask == kWindow) keep = keep && (qp - kp) < window;
   return keep;
@@ -204,7 +214,8 @@ flash_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ ws,
                     float* __restrict__ dk, float* __restrict__ dv, int seq,
-                    int heads, int d, float scale, int mask, int window) {
+                    int heads, int d, float scale, int mask, int window,
+                    int q_offset) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* ks = reinterpret_cast<float*>(smem);
   float* vs = ks + kBK * d;
@@ -235,10 +246,11 @@ flash_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // queries that see any key of this block: [q_lo, q_hi)
   const int k_last = min(k0 + kBK, seq) - 1;
-  const int q_lo = (mask == kFull) ? 0 : k0;
-  const int q_hi = (mask == kWindow) ? min(seq, k_last + window) : seq;
+  const int q_lo = (mask == kFull) ? 0 : max(0, k0 - q_offset);
+  const int q_hi =
+      (mask == kWindow) ? min(seq, k_last + window - q_offset) : seq;
 
-  for (int qt = q_lo / kBQ; qt * kBQ < q_hi; ++qt) {
+  for (int qt = q_lo / kBQ; q_lo < q_hi && qt * kBQ < q_hi; ++qt) {
     const int q0 = qt * kBQ;
     __syncthreads();   // the previous tile's readers are done
     load_tile<kThreads>(qs, q + base, ss, q0, seq, d, d);
@@ -255,7 +267,8 @@ flash_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int c = w.nb0 * 16 + lane;
       float p, ds;
       p_ds(st[r * kBQ + c], dpt[r * kBQ + c],
-           live(q0 + c, k0 + r, seq, mask, window), scale, lse_s[c],
+           live(q0 + c, k0 + r, seq, mask, window, q_offset), scale,
+           lse_s[c],
            delta_s[c], p, ds);
       st[r * kBQ + c] = p;
       dpt[r * kBQ + c] = ds;
@@ -284,7 +297,7 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, float* __restrict__ dq,
                 int seq, int heads, int d, float scale, int mask,
-                int window) {
+                int window, int q_offset) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
   float* dos = qs + kBQ * d;
@@ -312,10 +325,11 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // keys any row of this block can see: [k_lo, k_hi)
   const int q_last = min(q0 + kBQ, seq) - 1;
-  const int k_hi = (mask == kFull) ? seq : q_last + 1;
-  const int k_lo = (mask == kWindow) ? max(0, q0 - (window - 1)) : 0;
+  const int k_hi = (mask == kFull) ? seq : min(seq, q_last + q_offset + 1);
+  const int k_lo =
+      (mask == kWindow) ? max(0, q0 + q_offset - (window - 1)) : 0;
 
-  for (int kt = k_lo / kBK; kt * kBK < k_hi; ++kt) {
+  for (int kt = k_lo / kBK; k_lo < k_hi && kt * kBK < k_hi; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();   // the previous tile's readers are done
     load_tile<kThreads>(ks, k + base, ss, k0, seq, d, d);
@@ -330,7 +344,8 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int c = w.nb0 * 16 + lane;
       float p, ds;
       p_ds(ss_[r * kBK + c], dps[r * kBK + c],
-           live(q0 + r, k0 + c, seq, mask, window), scale, lse_s[r],
+           live(q0 + r, k0 + c, seq, mask, window, q_offset), scale,
+           lse_s[r],
            delta_s[r], p, ds);
       ss_[r * kBK + c] = ds;
     }
@@ -368,6 +383,7 @@ struct BwdArgs {
   void *dq, *dk, *dv;   // K3 writes dq, K5 and K4 dk and dv
   int batch, seq, heads, d, mask, window;
   float scale, scale_log2;   // scale, and scale · log2(e)
+  int q_offset;              // q's first row in the keys' rows
 };
 
 // dynamic shared memory: K and V resident, two stages of Q and dO, two of
@@ -391,7 +407,8 @@ __device__ __forceinline__ void store2(bf16* p, float x, float y) {
 // queries qa + 8 j + 2 t + {0, 1} of n-tile j. P = exp(S scale - LSE),
 // taken in base 2, and dS = P (dP - delta) overwrite s and dp; lse_s and
 // delta_s are the staged rows from query qa. With kMask, elements outside
-// the mask or past the sequence get P = 0 (the reference forces P to 0
+// the mask (the queries shifted by `off` into the keys' rows) or past the
+// sequence get P = 0 (the reference forces P to 0
 // where its masked score is -1e30); a fully visible tile skips the test.
 template <int kNT, bool kMask>
 __device__ __forceinline__ void p_ds_tile(float (&s)[kNT][4],
@@ -400,7 +417,7 @@ __device__ __forceinline__ void p_ds_tile(float (&s)[kNT][4],
                                           const float* delta_s,
                                           float scale_log2, int qa, int kw0,
                                           int seq, int mask, int window,
-                                          int lane) {
+                                          int off, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int j = 0; j < kNT; ++j) {
@@ -417,8 +434,8 @@ __device__ __forceinline__ void p_ds_tile(float (&s)[kNT][4],
         const int qp = qa + 8 * j + 2 * t + (e & 1);
         const int kp = kw0 + g + 8 * (e >> 1);
         bool keep = qp < seq && kp < seq;
-        if (mask != kFull) keep = keep && kp <= qp;
-        if (mask == kWindow) keep = keep && qp - kp < window;
+        if (mask != kFull) keep = keep && kp <= qp + off;
+        if (mask == kWindow) keep = keep && qp + off - kp < window;
         p = keep ? p : 0.f;
       }
       s[j][e] = p;
@@ -515,11 +532,15 @@ flash_bwd_kv_mma(BwdArgs a) {
   const long long row0 = static_cast<long long>(bh) * a.seq;
   const int kw0 = k0 + 16 * warp;      // this warp's keys [kw0, kw0 + 16)
 
-  // queries that see any key of this block: tiles [t_lo, t_hi)
+  // queries that see any key of this block: tiles [t_lo, t_hi) (query qp
+  // is key row qp + q_offset)
   const int k_last = min(k0 + kBK, a.seq) - 1;
-  const int q_lo = a.mask == kFull ? 0 : k0;
-  const int q_hi = a.mask == kWindow ? min(a.seq, k_last + a.window) : a.seq;
-  const int t_lo = q_lo / kBQ, t_hi = (q_hi + kBQ - 1) / kBQ;
+  const int q_lo = a.mask == kFull ? 0 : max(0, k0 - a.q_offset);
+  const int q_hi = a.mask == kWindow
+                       ? min(a.seq, k_last + a.window - a.q_offset)
+                       : a.seq;
+  const int t_lo = q_lo / kBQ;
+  const int t_hi = q_lo < q_hi ? (q_hi + kBQ - 1) / kBQ : t_lo;
 
   auto load_q = [&](int qt, int stage) {
     bf16* st = ring + stage * 2 * kTile;
@@ -567,12 +588,13 @@ flash_bwd_kv_mma(BwdArgs a) {
     const int q0 = qt * kBQ;
 #pragma unroll
     for (int c0 = 0; c0 < kBQ; c0 += kQS) {
-      // this warp's keys against the sub-tile's queries [qa, qz]: dead
-      // (skip), fully visible, or masked
+      // this warp's keys against the sub-tile's queries [qa, qz] (in the
+      // keys' rows [ga, gz]): dead (skip), fully visible, or masked
       const int qa = q0 + c0, qz = qa + kQS - 1, kz = kw0 + 15;
+      const int ga = qa + a.q_offset, gz = qz + a.q_offset;
       const bool dead = kw0 >= a.seq || qa >= a.seq ||
-                        (a.mask != kFull && kw0 > qz) ||
-                        (a.mask == kWindow && qa - kz >= a.window);
+                        (a.mask != kFull && kw0 > gz) ||
+                        (a.mask == kWindow && ga - kz >= a.window);
       if (dead) {
         if constexpr (kFused) {   // its dS^T rows are zeros for the dQ
 #pragma unroll
@@ -589,7 +611,7 @@ flash_bwd_kv_mma(BwdArgs a) {
       const bool visible =
           qz < a.seq && kz < a.seq &&
           (a.mask == kFull ||
-           (kz <= qa && (a.mask != kWindow || qz - kw0 < a.window)));
+           (kz <= ga && (a.mask != kWindow || gz - kw0 < a.window)));
       // S^T = K Q^T and dP^T = V dO^T: 16 keys x kQS queries each
       float s[kNT][4], dp[kNT][4];
 #pragma unroll
@@ -617,10 +639,12 @@ flash_bwd_kv_mma(BwdArgs a) {
       }
       if (visible)
         p_ds_tile<kNT, false>(s, dp, lse_s + c0, delta_s + c0, a.scale_log2,
-                              qa, kw0, a.seq, a.mask, a.window, lane);
+                              qa, kw0, a.seq, a.mask, a.window, a.q_offset,
+                              lane);
       else
         p_ds_tile<kNT, true>(s, dp, lse_s + c0, delta_s + c0, a.scale_log2,
-                             qa, kw0, a.seq, a.mask, a.window, lane);
+                             qa, kw0, a.seq, a.mask, a.window, a.q_offset,
+                             lane);
       // dV += P^T dO and dK += dS^T Q, 16 queries a k-step: P^T and dS^T
       // are packed from the accumulators into bf16 A fragments
 #pragma unroll
@@ -722,11 +746,15 @@ flash_dq_mma(BwdArgs a) {
   const int r0 = q0 + 16 * warp;       // this warp's queries [r0, r0 + 16)
   const int r1 = r0 + 15;
 
-  // keys any row of this block can see: tiles [t_lo, t_hi)
+  // keys any row of this block can see: tiles [t_lo, t_hi) (query qp is
+  // key row qp + q_offset)
   const int q_last = min(q0 + kBQ, a.seq) - 1;
-  const int k_hi = a.mask == kFull ? a.seq : q_last + 1;
-  const int k_lo = a.mask == kWindow ? max(0, q0 - (a.window - 1)) : 0;
-  const int t_lo = k_lo / kBK, t_hi = (k_hi + kBK - 1) / kBK;
+  const int k_hi =
+      a.mask == kFull ? a.seq : min(a.seq, q_last + a.q_offset + 1);
+  const int k_lo =
+      a.mask == kWindow ? max(0, q0 + a.q_offset - (a.window - 1)) : 0;
+  const int t_lo = k_lo / kBK;
+  const int t_hi = k_lo < k_hi ? (k_hi + kBK - 1) / kBK : t_lo;
 
   auto load_kv = [&](int kt, int stage) {
     bf16* st = ring + stage * 2 * kTile;
@@ -771,16 +799,17 @@ flash_dq_mma(BwdArgs a) {
     cp_async_commit();
     const bf16* ks = ring + stage * 2 * kTile;
     const bf16* vs = ks + kTile;
-    // this warp's queries against the tile's keys [k0, k1]: dead (skip),
-    // fully visible, or masked
+    // this warp's queries (in the keys' rows [g0, g1]) against the tile's
+    // keys [k0, k1]: dead (skip), fully visible, or masked
     const int k0 = kt * kBK, k1 = k0 + kBK - 1;
-    const bool dead = r0 >= a.seq || (a.mask != kFull && k0 > r1) ||
-                      (a.mask == kWindow && r0 - k1 >= a.window);
+    const int g0 = r0 + a.q_offset, g1 = r1 + a.q_offset;
+    const bool dead = r0 >= a.seq || (a.mask != kFull && k0 > g1) ||
+                      (a.mask == kWindow && g0 - k1 >= a.window);
     if (dead) continue;
     const bool visible =
         k1 < a.seq && r1 < a.seq &&
         (a.mask == kFull ||
-         (k1 <= r0 && (a.mask != kWindow || r1 - k0 < a.window)));
+         (k1 <= g0 && (a.mask != kWindow || g1 - k0 < a.window)));
     // S = Q K^T and dP = dO V^T: 16 queries x 64 keys each. Q and dO come
     // back by ldmatrix every k-step; the k-step loop is unrolled by 2 (a
     // full unroll reaches 255 registers and spills at d = 128)
@@ -819,8 +848,9 @@ flash_dq_mma(BwdArgs a) {
           const int qp = r0 + g + 8 * (e >> 1);
           const int kp = k0 + 8 * j + 2 * t + (e & 1);
           bool keep = qp < a.seq && kp < a.seq;
-          if (a.mask != kFull) keep = keep && kp <= qp;
-          if (a.mask == kWindow) keep = keep && qp - kp < a.window;
+          if (a.mask != kFull) keep = keep && kp <= qp + a.q_offset;
+          if (a.mask == kWindow)
+            keep = keep && qp + a.q_offset - kp < a.window;
           p = keep ? p : 0.f;
         }
         dp[j][e] = p * (dp[j][e] - dl[e >> 1]);
@@ -878,7 +908,7 @@ struct Args {
   const float *lse, *delta;
   int batch, seq, heads, d;
   float scale;
-  int mask, window;
+  int mask, window, q_offset;
   cudaStream_t stream;
 };
 
@@ -887,7 +917,7 @@ BwdArgs mma_args(const Args& a, float* ws, void* dq, void* dk, void* dv) {
                  static_cast<const bf16*>(a.v),
                  static_cast<const bf16*>(a.dout), a.lse, a.delta, ws, dq,
                  dk, dv, a.batch, a.seq, a.heads, a.d, a.mask, a.window,
-                 a.scale, a.scale * kLog2e};
+                 a.scale, a.scale * kLog2e, a.q_offset};
 }
 
 // The dynamic shared memory and the SM's carveout one bf16 sweep kernel
@@ -961,7 +991,7 @@ int launch_kv(const Args& a, float* ws, void* dk, void* dv) {
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
         a.lse, a.delta, ws, static_cast<float*>(dk),
         static_cast<float*>(dv), a.seq, a.heads, a.d, a.scale, a.mask,
-        a.window);
+        a.window, a.q_offset);
     return static_cast<int>(cudaGetLastError());
   }
 }
@@ -1003,7 +1033,7 @@ int launch_dq(const Args& a, void* dq) {
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
         a.lse, a.delta, static_cast<float*>(dq), a.seq, a.heads, a.d,
-        a.scale, a.mask, a.window);
+        a.scale, a.mask, a.window, a.q_offset);
     return static_cast<int>(cudaGetLastError());
   }
 }
@@ -1012,7 +1042,8 @@ int launch_dq(const Args& a, void* dq) {
 // (f32, f32)
 bool valid(const Args& a, int dtype, int out_dtype) {
   return a.d % 16 == 0 && a.d >= 16 && a.d <= 128 && a.seq >= 1 &&
-         a.batch >= 1 && a.heads >= 1 && a.mask >= kCausal &&
+         a.batch >= 1 && a.heads >= 1 && a.q_offset >= 0 &&
+         a.mask >= kCausal &&
          a.mask <= kWindow && (a.mask != kWindow || a.window >= 1) &&
          (dtype == kF32 || dtype == kBF16) &&
          (out_dtype == dtype || out_dtype == kF32);
@@ -1061,17 +1092,19 @@ int info_at(int kernel, int* out) {
 
 // q, k, v, dout: contiguous [B, S, H, D]; lse, delta: [B, H, S] f32;
 // outputs in the inputs' layout, in the dtype of `out_dtype`; ws: f32
-// [B, S, H, D] scratch.
+// [B, S, H, D] scratch; q_offset >= 0: query qp is key row qp + q_offset.
 extern "C" int tk_flash_bwd_fused(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta,
                                   void* ws, void* dq, void* dk, void* dv,
                                   int batch, int seq, int heads, int d,
                                   float scale, int mask, int window,
-                                  int dtype, int out_dtype, void* stream) {
+                                  int q_offset, int dtype, int out_dtype,
+                                  void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta), batch, seq, heads, d,
-               scale, mask, window, static_cast<cudaStream_t>(stream)};
+               scale, mask, window, q_offset,
+               static_cast<cudaStream_t>(stream)};
   if (!valid(a, dtype, out_dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<Fused>(dtype, out_dtype, a, static_cast<float*>(ws), dq,
@@ -1082,11 +1115,12 @@ extern "C" int tk_flash_dkv(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dk, void* dv, int batch,
                             int seq, int heads, int d, float scale, int mask,
-                            int window, int dtype, int out_dtype,
-                            void* stream) {
+                            int window, int q_offset, int dtype,
+                            int out_dtype, void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta), batch, seq, heads, d,
-               scale, mask, window, static_cast<cudaStream_t>(stream)};
+               scale, mask, window, q_offset,
+               static_cast<cudaStream_t>(stream)};
   if (!valid(a, dtype, out_dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<Dkv>(dtype, out_dtype, a, dk, dv);
@@ -1096,11 +1130,12 @@ extern "C" int tk_flash_dq(const void* q, const void* k, const void* v,
                            const void* dout, const void* lse,
                            const void* delta, void* dq, int batch, int seq,
                            int heads, int d, float scale, int mask,
-                           int window, int dtype, int out_dtype,
-                           void* stream) {
+                           int window, int q_offset, int dtype,
+                           int out_dtype, void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta), batch, seq, heads, d,
-               scale, mask, window, static_cast<cudaStream_t>(stream)};
+               scale, mask, window, q_offset,
+               static_cast<cudaStream_t>(stream)};
   if (!valid(a, dtype, out_dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<Dq>(dtype, out_dtype, a, dq);

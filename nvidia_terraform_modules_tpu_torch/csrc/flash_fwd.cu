@@ -10,9 +10,15 @@
 //   the input dtype and the f32 log-sum-exp LSE = m + log(max(l, 1e-30));
 // - K2 `flash_partial` (pallas_call of `_fwd_partial_kernel`): the same
 //   sweep of q over one visiting K/V block of ring attention (whose length
-//   may differ from q's; causal masks in local positions) WITHOUT the
-//   normalisation: the f32 accumulator, the running max m and the running
-//   sum l, which the ring folds across blocks exactly.
+//   may differ from q's) WITHOUT the normalisation: the f32 accumulator,
+//   the running max m and the running sum l, which the ring folds across
+//   blocks exactly. Its causal and window masks take a key offset,
+//   `q_offset` = the global row of q's first row less that of the block's
+//   first key: key kp is live for query qp iff qp + q_offset >= kp (and,
+//   under a window, qp + q_offset - kp < window), so a block before a
+//   sequence shard's own carries the window; the tile bounds and classes
+//   move by the same offset. q_offset = 0 is the local mask of the
+//   diagonal block, and K1 always passes 0.
 // The two are one template (`kPartial`), as the reference shares
 // `_fwd_sweep` between its two kernels: only the epilogue differs, so K2's
 // acc / max(l, 1e-30), rounded to q's dtype, equals K1's output bit for bit.
@@ -107,7 +113,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  float* __restrict__ lse, float* __restrict__ l_out,
                  int seq, int kseq, int heads, int kv_heads, int d,
                  Strides tq, Strides tk, Strides tv, Strides to, float scale,
-                 int mask, int window) {
+                 int mask, int window, int q_offset) {
   const int ldt = d, lda = d;
   constexpr int lds = kBK, ldp = kBK;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -136,12 +142,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   load_tile<kThreads>(qs, qb, tq.s, q0, seq, d, ldt);
 
-  // keys any row of this block can see: [k_lo, k_hi)
+  // keys any row of this block can see: [k_lo, k_hi), in the keys' rows
   const int q_last = min(q0 + kBQ, seq) - 1;
-  const int k_hi = (mask == kFull) ? kseq : min(kseq, q_last + 1);
-  const int k_lo = (mask == kWindow) ? max(0, q0 - (window - 1)) : 0;
+  const int k_hi =
+      (mask == kFull) ? kseq : min(kseq, q_last + q_offset + 1);
+  const int k_lo =
+      (mask == kWindow) ? max(0, q0 + q_offset - (window - 1)) : 0;
 
-  for (int kt = k_lo / kBK; kt * kBK < k_hi; ++kt) {
+  for (int kt = k_lo / kBK; k_lo < k_hi && kt * kBK < k_hi; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();   // the previous tile's readers are done
     load_tile<kThreads>(ks, kb, tk.s, k0, kseq, d, ldt);
@@ -153,7 +161,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // lane + 32 of the tile
     for (int rr = 0; rr < kRowsPerWarp; ++rr) {
       const int r = warp * kRowsPerWarp + rr;
-      const int qp = q0 + r;
+      const int qp = q0 + r + q_offset;   // in the keys' rows
       float s[2];
 #pragma unroll
       for (int jj = 0; jj < 2; ++jj) {
@@ -215,17 +223,18 @@ struct FwdArgs {
   int batch, seq, kseq, heads, kv_heads, d, mask, window;
   Strides tq, tk, tv, to;
   float scale_log2;   // scale · log2(e)
+  int q_offset;       // q's first row in the keys' rows (K1: 0)
 };
 
 // One tile's online-softmax fold on the S registers of a warp: thread
 // (g = lane / 4, t = lane % 4) holds rows g and g + 8 of the warp's band,
 // keys 8 j + 2 t + {0, 1} of n-tile j. Scales to base 2, masks when kMask
-// (key `k0 + ...` against query `r0 + ...`), folds the row max across the
-// quad, rescales O and the lane's partial sums, and leaves P in s. A fully
-// visible tile (no kMask) takes its max on the raw scores (rounding is
-// monotonic, so max(fl(s c)) = fl(max(s) c)) and exponentiates
-// fma(s, c, -m) in one rounding. O is rescaled only when a row max of the
-// warp moved: multiplying by 1 changes nothing.
+// (key `k0 + ...` against query `r0 + ...`, r0 in the keys' rows), folds
+// the row max across the quad, rescales O and the lane's partial sums, and
+// leaves P in s. A fully visible tile (no kMask) takes its max on the raw
+// scores (rounding is monotonic, so max(fl(s c)) = fl(max(s) c)) and
+// exponentiates fma(s, c, -m) in one rounding. O is rescaled only when a
+// row max of the warp moved: multiplying by 1 changes nothing.
 template <int kNT, int kOT, bool kMask>
 __device__ __forceinline__ void fold_tile(float (&s)[kNT][4],
                                           float (&o)[kOT][4], float (&m)[2],
@@ -397,10 +406,13 @@ flash_fwd_mma(FwdArgs a) {
   const bf16* kbase = a.k + b * a.tk.b + kvh * a.tk.h;
   const bf16* vbase = a.v + b * a.tv.b + kvh * a.tv.h;
 
-  // keys any row of this block can see: tiles [t_lo, t_hi)
+  // keys any row of this block can see: tiles [t_lo, t_hi), in the keys'
+  // rows (a row qp is key row qp + q_offset)
   const int q_last = min(q0 + kBQ, a.seq) - 1;
-  const int k_hi = a.mask == kFull ? a.kseq : min(a.kseq, q_last + 1);
-  const int k_lo = a.mask == kWindow ? max(0, q0 - (a.window - 1)) : 0;
+  const int k_hi =
+      a.mask == kFull ? a.kseq : min(a.kseq, q_last + a.q_offset + 1);
+  const int k_lo =
+      a.mask == kWindow ? max(0, q0 + a.q_offset - (a.window - 1)) : 0;
   const int t_lo = k_lo / kBK;
   const int t_hi = k_lo < k_hi ? (k_hi + kBK - 1) / kBK : t_lo;
 
@@ -458,13 +470,15 @@ flash_fwd_mma(FwdArgs a) {
     }
     cp_async_commit();
 
-    // this warp against the tile: dead (skip), fully visible, or masked
-    const int k0 = kt * kBK, k1 = k0 + kBK - 1, r1 = r0 + 15;
-    const bool dead = r0 >= a.seq || (a.mask != kFull && k0 > r1) ||
-                      (a.mask == kWindow && r0 - k1 >= a.window);
+    // this warp against the tile: dead (skip), fully visible, or masked;
+    // g0, g1 are the warp's first and last rows in the keys' rows
+    const int k0 = kt * kBK, k1 = k0 + kBK - 1;
+    const int g0 = r0 + a.q_offset, g1 = g0 + 15;
+    const bool dead = r0 >= a.seq || (a.mask != kFull && k0 > g1) ||
+                      (a.mask == kWindow && g0 - k1 >= a.window);
     const bool visible = k1 < a.kseq &&
         (a.mask == kFull ||
-         (k1 <= r0 && (a.mask != kWindow || r1 - k0 < a.window)));
+         (k1 <= g0 && (a.mask != kWindow || g1 - k0 < a.window)));
     if (!dead) {
       float s[kNT][4];
 #pragma unroll
@@ -481,10 +495,10 @@ flash_fwd_mma(FwdArgs a) {
         }
       }
       if (visible)
-        fold_tile<kNT, kOT, false>(s, o, m, l, a.scale_log2, r0, k0, a.kseq,
+        fold_tile<kNT, kOT, false>(s, o, m, l, a.scale_log2, g0, k0, a.kseq,
                                    a.mask, a.window, lane);
       else
-        fold_tile<kNT, kOT, true>(s, o, m, l, a.scale_log2, r0, k0, a.kseq,
+        fold_tile<kNT, kOT, true>(s, o, m, l, a.scale_log2, g0, k0, a.kseq,
                                   a.mask, a.window, lane);
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
@@ -539,7 +553,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
                float* lse, float* l_out, int batch, int seq, int kseq,
                int heads, int kv_heads, int d, Strides tq, Strides tk,
                Strides tv, Strides to, float scale, int mask, int window,
-               cudaStream_t stream) {
+               int q_offset, cudaStream_t stream) {
   const size_t smem = (static_cast<size_t>(kBQ + 2 * kBK) * d  // Q, K, V
                        + 2 * static_cast<size_t>(kBQ) * kBK     // S, P
                        + static_cast<size_t>(kBQ) * d           // O acc
@@ -552,13 +566,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   flash_fwd_kernel<kPartial><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, l_out, seq,
-      kseq, heads, kv_heads, d, tq, tk, tv, to, scale, mask, window);
+      kseq, heads, kv_heads, d, tq, tk, tv, to, scale, mask, window,
+      q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
 bool valid(int batch, int seq, int kseq, int heads, int kv_heads, int d,
-           int mask, int window) {
+           int mask, int window, int q_offset) {
   return d % 16 == 0 && d >= 16 && d <= 128 && kv_heads >= 1 &&
+         q_offset >= 0 &&
          heads % kv_heads == 0 && seq >= 1 && kseq >= 1 && batch >= 1 &&
          mask >= kCausal && mask <= kWindow &&
          (mask != kWindow || window >= 1);
@@ -575,7 +591,7 @@ extern "C" int tk_flash_fwd(const void* q, const void* k, const void* v,
                             long long o_ss, long long o_sh, float scale,
                             int mask, int window, int dtype,
                             void* stream) {
-  if (!valid(batch, seq, seq, heads, kv_heads, d, mask, window))
+  if (!valid(batch, seq, seq, heads, kv_heads, d, mask, window, 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides tq{q_sb, q_ss, q_sh}, tk{k_sb, k_ss, k_sh},
       tv{v_sb, v_ss, v_sh}, to{o_sb, o_ss, o_sh};
@@ -585,17 +601,19 @@ extern "C" int tk_flash_fwd(const void* q, const void* k, const void* v,
     const FwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                     static_cast<const bf16*>(v), o, l, nullptr, batch, seq,
                     seq, heads, kv_heads, d, mask, window, tq, tk, tv, to,
-                    scale * kLog2e};
+                    scale * kLog2e, 0};
     return dispatch_bf16<false>(a, st);
   }
   if (dtype == kF32)
     return launch_f32<false>(q, k, v, o, l, nullptr, batch, seq, seq,
                               heads, kv_heads, d, tq, tk, tv, to, scale,
-                              mask, window, st);
+                              mask, window, 0, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K2: acc is f32 contiguous [B, seq, H, d]; m and l are f32 [B, H, seq].
+// K2: acc is f32 contiguous [B, seq, H, d]; m and l are f32 [B, H, seq];
+// q_offset >= 0 moves the causal / window mask (q row qp is key row
+// qp + q_offset).
 extern "C" int tk_flash_partial(const void* q, const void* k, const void* v,
                                 void* acc, void* m, void* l, int batch,
                                 int seq, int kseq, int heads, int kv_heads,
@@ -604,9 +622,9 @@ extern "C" int tk_flash_partial(const void* q, const void* k, const void* v,
                                 long long k_ss, long long k_sh,
                                 long long v_sb, long long v_ss,
                                 long long v_sh, float scale, int mask,
-                                int window, int dtype,
+                                int window, int q_offset, int dtype,
                                 void* stream) {
-  if (!valid(batch, seq, kseq, heads, kv_heads, d, mask, window))
+  if (!valid(batch, seq, kseq, heads, kv_heads, d, mask, window, q_offset))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides tq{q_sb, q_ss, q_sh}, tk{k_sb, k_ss, k_sh},
       tv{v_sb, v_ss, v_sh},
@@ -619,13 +637,13 @@ extern "C" int tk_flash_partial(const void* q, const void* k, const void* v,
     const FwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                     static_cast<const bf16*>(v), acc, mp, lp, batch, seq,
                     kseq, heads, kv_heads, d, mask, window, tq, tk, tv, to,
-                    scale * kLog2e};
+                    scale * kLog2e, q_offset};
     return dispatch_bf16<true>(a, st);
   }
   if (dtype == kF32)
     return launch_f32<true>(q, k, v, acc, mp, lp, batch, seq, kseq,
                              heads, kv_heads, d, tq, tk, tv, to, scale,
-                             mask, window, st);
+                             mask, window, q_offset, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

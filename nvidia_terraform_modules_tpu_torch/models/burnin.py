@@ -22,14 +22,29 @@ is: it returns new parameters and leaves the caller's unchanged.
 Sharding ``rules`` (``parallel.make_rules``) carry a mesh, of one of two
 kinds (``parallel/mesh.py``):
 
-- a one-process ``Mesh`` of ``sp`` alone: ``attn="ring"`` runs
-  ``ring_self_attention`` (K2 per visiting block, K5 or K3 + K4 in the
-  backward) and ``attn="ulysses"`` ``ulysses_self_attention``, the
-  sequence sharded over the mesh's devices; every other op runs on the
-  global tensors on the mesh's first device, where the parameters and the
-  batch live. Without rules, ring and ulysses run dense attention, as in
-  the reference. Such a mesh with any other axis above 1 raises
-  ``NotImplementedError``.
+- a one-process ``Mesh`` (``[cuda:0] * n``, ``[cpu] * n``: any plan of
+  ``plan_mesh``, ``dp``, ``tp``, ``ep``, ``sp`` and their products), run
+  in lock step (:func:`_lockstep_forward`; ``parallel.sharding.Lockstep``):
+  the parameters and the batch stay global on the mesh's first device, and
+  the process steps every position — a data coordinate (its rows of the
+  batch) and a ``tp`` member — in turn. Each member computes its heads and
+  FFN columns on its own device from its pieces of the tree (the column
+  and row splits of :func:`shard_params`); the row-parallel partial
+  products and the tied head's partial logits are summed in member order
+  on the coordinate's home device, where the residual stream, the norms
+  and the loss live; MoE routes as the unsharded layer does
+  (``moe.lockstep_moe``: the ``ep`` members hold their experts). With
+  ``attn="ring"``/``"ulysses"`` each member's attention is the ring or
+  Ulysses over the ``sp`` devices of its line; flash and dense attend the
+  member's whole sequence (``sp`` replicates). Every collective is a plain
+  tensor operation — a sum, a ``cat``, ``.to(device)`` — so one autograd
+  graph holds every position, and the pieces are views of the leaves, so
+  autograd assembles each leaf's gradient (:func:`position_trees`); over
+  more than one data coordinate each cuts its pieces from leaves of its
+  own and the coordinates' gradients are averaged in f32 with the loss,
+  as the world's all-reduce averages them. The decode path runs the same
+  layers (:func:`lockstep_model`). Without rules, ring and ulysses run
+  dense attention, as in the reference.
 - a ``WorldMesh`` over the ranks of a ``torch.distributed`` world, one
   device a rank: data, sequence, tensor and expert parallelism (``dp``,
   ``slice`` × ``dp``, ``sp``, ``tp``, ``ep``), Megatron style, where GSPMD
@@ -50,9 +65,8 @@ kinds (``parallel/mesh.py``):
   unsharded step's operations, bit for bit (``attn="ring"``/``"ulysses"``
   there run a ring of one member and Ulysses without an all-to-all, where
   the unsharded step runs dense attention, as the reference's does).
-  ``rules`` reach ``forward_paged`` and the serve engine
-  (``models/decode.py``, ``models/serving.py``), not the other decode entry
-  points.
+  ``rules`` reach every decode entry point and the serve engine
+  (``models/decode.py``, ``models/serving.py``) on both kinds of mesh.
 
 Not carried from the reference: the TPU's tile levers ``flash_pipeline`` /
 ``flash_block_q`` / ``flash_block_k`` (the CUDA kernels have one fixed
@@ -88,14 +102,21 @@ from ..parallel.collectives import (
     exit_parallel,
     gather_last,
     gather_seq,
+    member_cat,
+    member_sum,
     spec_axes,
 )
 from ..parallel.mesh import WorldMesh
-from ..parallel.sharding import ShapeDtypeStruct, gather_shards, local_shard
+from ..parallel.sharding import (
+    Lockstep,
+    ShapeDtypeStruct,
+    gather_shards,
+    local_shard,
+)
 from ..utils.layers import dense_init
 from ..utils.layers import rmsnorm as _rmsnorm
 from .moe import check_rules as check_moe_rules
-from .moe import init_moe_params, moe_layer
+from .moe import init_moe_params, lockstep_moe, moe_layer
 
 # bench.py's flagship: the width both main paths run at, with its burn-in
 # train step's batch (bf16: 419,465,216 parameters)
@@ -404,39 +425,27 @@ def _world(rules) -> bool:
     return rules is not None and isinstance(rules.mesh, WorldMesh)
 
 
+def _lockstep(rules) -> bool:
+    """A one-process mesh: the lock-step form (:func:`_lockstep_forward`)."""
+    return rules is not None and not isinstance(rules.mesh, WorldMesh)
+
+
 def _check_rules(rules, cfg: BurnInConfig | None = None) -> None:
-    """Refuse what the port cannot run: on a one-process mesh, any axis but
-    ``sp`` above 1 (ROADMAP.md, Queue A item 6); and with ``cfg``, a
-    ``tp``, an ``ep``, an ``sp`` or a batch that the config's dimensions
-    do not divide."""
-    if rules is None:
+    """Refuse what the port cannot run: with ``cfg``, a ``tp``, an ``ep``,
+    an ``sp`` or a batch that the config's dimensions do not divide (on a
+    one-process mesh, ``sp`` only where the ring or Ulysses shards the
+    sequence)."""
+    if rules is None or cfg is None:
         return
     shape = rules.mesh.shape
-    if not _world(rules):
-        big = {a: n for a, n in shape.items() if a != "sp" and n > 1}
-        if big:
-            raise NotImplementedError(
-                f"sharded training over {big} on a one-process mesh is not "
-                f"ported — ROADMAP.md, Queue A item 6: dp/tp/ep run over a "
-                f"torch.distributed world, one process a device "
-                f"(parallel.build_mesh with a process group up); a "
-                f"one-process mesh shards the sequence (sp) alone")
-        if cfg is not None and cfg.n_experts > 0:
-            check_moe_rules(rules, cfg)
-        return
     sp, tp, ep = shape.get("sp", 1), shape.get("tp", 1), shape.get("ep", 1)
     data = math.prod(shape.get(a, 1) for a in rules.data)
-    if cfg is None:
-        return
-    if cfg.seq_len % sp:
+    if cfg.n_experts > 0:
+        check_moe_rules(rules, cfg)
+    if cfg.seq_len % sp and (_world(rules) or cfg.attn in ("ring",
+                                                           "ulysses")):
         raise ValueError(
             f"seq_len {cfg.seq_len} does not split over sp = {sp}")
-    if sp > 1 and cfg.attn == "flash" and cfg.flash_window is not None:
-        raise NotImplementedError(
-            f"flash_window with sp = {sp} over processes is not ported — "
-            f"ROADMAP.md, Queue A: K2 masks a window in its block's own "
-            f"positions, so the blocks before a shard's own cannot carry "
-            f"it (attn='dense' can)")
     if cfg.attn == "ulysses" and cfg.n_heads % (sp * tp):
         raise ValueError(
             f"Ulysses layout needs heads divisible by sp×tp: "
@@ -503,15 +512,22 @@ def forward_and_aux(params: dict, tokens: torch.Tensor, cfg: BurnInConfig,
     and Ulysses swaps sequence for heads; ``"flash"`` and ``"dense"``
     gather the normed input over ``sp`` (the reference's ``act(h, None,
     None)``) and attend with this rank's queries at their global offsets
-    (flash: K2 on the blocks up to this rank's own, no later one) — and
-    MoE routes the gathered sequence (a token's slot depends on every
-    earlier token) and keeps this rank's rows of the combine."""
+    (flash: K2 on the blocks up to this rank's own, no later one, and
+    under ``flash_window`` only those the window reaches, each masked at
+    its key offset) — and MoE routes the gathered sequence (a token's slot
+    depends on every earlier token) and keeps this rank's rows of the
+    combine. On a one-process mesh: :func:`_lockstep_forward`, the global
+    logits joined on ``tokens``' device."""
     _check_rules(rules, cfg)
+    if _lockstep(rules):
+        ls = Lockstep(rules)
+        logits, aux = _lockstep_forward(position_trees(params, rules, ls),
+                                        tokens, cfg, ls)
+        return member_cat(logits, 0, tokens.device), aux.to(tokens.device)
     world = _world(rules)
-    sharded = None if rules is None or (world and cfg.attn not in (
-        "ring", "ulysses")) else {
-        "ring": ring_self_attention,
-        "ulysses": ulysses_self_attention}.get(cfg.attn)
+    sharded = None if not world or cfg.attn not in ("ring", "ulysses") \
+        else {"ring": ring_self_attention,
+              "ulysses": ulysses_self_attention}[cfg.attn]
     group, n_tp, i_tp = _tp(rules)
     sp_group, n_sp, i_sp = _tp(rules, "sp")
     b, s = tokens.shape
@@ -553,7 +569,8 @@ def forward_and_aux(params: dict, tokens: torch.Tensor, cfg: BurnInConfig,
                     q, k, v, causal=True, scale=scale,
                     window=cfg.flash_window, q_offset=off)
             return shard_flash_attention(q, k, v, i_sp, scale=scale,
-                                         backward=cfg.flash_backward)
+                                         backward=cfg.flash_backward,
+                                         window=cfg.flash_window)
         q, k, v = project(layer, h, h, pos, pos)
         if cfg.attn == "flash":
             return flash_attention(q, k, v, causal=True, scale=scale,
@@ -592,6 +609,238 @@ def forward_and_aux(params: dict, tokens: torch.Tensor, cfg: BurnInConfig,
     return logits, aux
 
 
+# ---------------------------------------------- the one-process lock step
+
+def member_kv_heads(cfg: BurnInConfig, tp: int) -> int:
+    """The KV heads a ``tp`` member holds: ``kv_heads / tp`` where ``tp``
+    divides them, else all of them (the decode path then keeps ``wk`` and
+    ``wv`` whole, :func:`position_trees`' ``whole_kv``)."""
+    return cfg.kv_heads // tp if cfg.kv_heads % tp == 0 else cfg.kv_heads
+
+
+def _cut_piece(x, spec: tuple, ls: Lockstep, c: int, j: int,
+               contiguous: bool, memo: dict):
+    """Position ``(c, j)``'s piece of one leaf on its device
+    (:func:`position_trees`); an int8 ``QTensor``'s values are cut by
+    ``spec`` and its scales by the spec's entry on its scale axis."""
+    if not isinstance(x, torch.Tensor):
+        entry = (tuple(spec) + (None, None))[x.scale_axis]
+        return type(x)(_cut_piece(x.q, spec, ls, c, j, contiguous, memo),
+                       _cut_piece(x.scale, (entry,), ls, c, j, contiguous,
+                                  memo),
+                       scale_axis=x.scale_axis, dtype=x.dtype,
+                       transposed=x.transposed)
+    dev = ls.device(c, j)
+    if not contiguous:
+        return ls.piece(x, spec, c, j).to(dev)
+    idx = ls.slices(tuple(x.shape), spec, c, j)
+    key = (id(x), tuple((s.start, s.stop) for s in idx), dev)
+    if key not in memo:     # positions on one device share a piece
+        memo[key] = ls.piece(x, spec, c, j).contiguous().to(dev)
+    return memo[key]
+
+
+def position_trees(params: dict, rules, ls: Lockstep, *, coords=None,
+                   contiguous: bool = False,
+                   whole_kv: bool = False) -> dict:
+    """``{(c, j): tree}``: the pieces of the global ``params`` that each
+    position of the data coordinates ``coords`` (default all) runs on, on
+    its device (``Lockstep.piece`` under each leaf's spec, the cut
+    :func:`shard_params` makes for the rank at the same coordinates). The
+    pieces are views of ``params`` where they share its device, so
+    autograd reaches ``params`` through them; with ``contiguous`` (the
+    decode path's kernels) each is laid out alone, once a device. With
+    ``whole_kv`` ``wk`` and ``wv`` stay whole (the decode path where
+    ``tp`` does not divide ``kv_heads``)."""
+    memo: dict = {}
+    out = {}
+    for c in range(ls.n_data) if coords is None else coords:
+        for j in range(ls.tp):
+            def cut(path, x, c=c, j=j):
+                spec = (() if whole_kv and path[-1] in ("wk", "wv")
+                        else rules.param_sharding(path))
+                return _cut_piece(x, spec, ls, c, j, contiguous, memo)
+
+            out[c, j] = _tree_map_path(cut, params)
+    return out
+
+
+def lockstep_model(trees: dict, toks: list, cfg: BurnInConfig,
+                   ls: Lockstep, attend: Callable, pos: list, *,
+                   moe: Callable | None = None, remat: bool = False):
+    """The transformer over a one-process mesh's positions, in lock step —
+    the one body that the lock-step train step and decode path share →
+    ``(logits, aux)``: each data coordinate's logits on its home, in
+    coordinate order, and the layers' summed MoE load-balance loss on
+    coordinate 0's home.
+
+    ``toks[c]`` are data coordinate ``c``'s token rows on its home
+    (``ls.home(c)``: its ``tp`` member 0's device, where its residual
+    stream and norms live), ``pos[c]`` their RoPE positions, ``trees[c,
+    j]`` position ``(c, j)``'s pieces (:func:`position_trees`). Member
+    ``j`` looks the tokens up in its ``d_model`` columns of ``embed``
+    (joined in member order), runs its heads' projections, RoPE and
+    ``attend(li, q, k, v, c, j) → [b, t, heads, head_dim]`` and its rows
+    of ``wo``, and its FFN columns, on its device; the row-parallel
+    partial products and the tied head's partial logits are summed in
+    member order on the home. MoE: ``moe(hs, pieces) → (outs, aux)`` over
+    every coordinate's normed rows and every position's ``moe`` leaves
+    (default :func:`..moe.lockstep_moe`). ``remat`` recomputes each layer
+    in the backward."""
+    n_tp, hd = ls.tp, cfg.head_dim
+    heads, kv = cfg.n_heads // n_tp, member_kv_heads(cfg, n_tp)
+    coords = range(len(toks))
+    if moe is None:
+        def moe(hs, pieces):
+            return lockstep_moe(hs, pieces, cfg, ls)
+
+    def member_attention(li, p, h, c, j):
+        dev = ls.device(c, j)
+        h = h.to(dev)
+        b, t = h.shape[:2]
+        q = (h @ p["wq"]).view(b, t, heads, hd)
+        k = (h @ p["wk"]).view(b, t, kv, hd)
+        v = (h @ p["wv"]).view(b, t, kv, hd)
+        if cfg.rope:
+            at = pos[c].to(dev)
+            q = apply_rope(q, at, cfg.rope_theta)
+            k = apply_rope(k, at, cfg.rope_theta)
+        return attend(li, q, k, v, c, j).reshape(b, t, heads * hd) @ p["wo"]
+
+    def block(li, xs, layer):
+        hs = [_rmsnorm(x, layer[c, 0]["attn_norm"]) for c, x in zip(coords,
+                                                                    xs)]
+        xs = [x + member_sum([member_attention(li, layer[c, j], h, c, j)
+                              for j in range(n_tp)], x.device)
+              for c, x, h in zip(coords, xs, hs)]
+        hs = [_rmsnorm(x, layer[c, 0]["mlp_norm"]) for c, x in zip(coords,
+                                                                   xs)]
+        if cfg.n_experts > 0:
+            ffn, aux = moe(hs, {key: p["moe"] for key, p in layer.items()})
+        else:
+            ffn, aux = [member_sum(
+                [mlp(h.to(ls.device(c, j)), layer[c, j], cfg.dtype)
+                 for j in range(n_tp)], h.device)
+                for c, h in zip(coords, hs)], None
+        return [x + f for x, f in zip(xs, ffn)], aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=ls.home(0))
+    xs = [member_cat([trees[c, j]["embed"][x.to(ls.device(c, j))]
+                      for j in range(n_tp)], -1, ls.home(c))
+          for c, x in zip(coords, toks)]
+    for li in range(cfg.n_layers):
+        layer = {key: tree["layers"][li] for key, tree in trees.items()}
+        if remat:
+            xs, layer_aux = checkpoint(block, li, xs, layer,
+                                       use_reentrant=False)
+        else:
+            xs, layer_aux = block(li, xs, layer)
+        if layer_aux is not None:
+            aux = aux + layer_aux.to(aux.device)
+    logits = []
+    for c, x in zip(coords, xs):
+        h = _rmsnorm(x, trees[c, 0]["out_norm"]).chunk(n_tp, dim=-1)
+        # a member's columns laid out alone: an int8 head (K8) takes only
+        # a contiguous, aligned operand
+        logits.append(member_sum(
+            [h[j].to(ls.device(c, j)).contiguous() @ trees[c, j]["embed"].T
+             for j in range(n_tp)], x.device))
+    return logits, aux
+
+
+def _lockstep_forward(trees: dict, tokens: torch.Tensor, cfg: BurnInConfig,
+                      ls: Lockstep):
+    """The train forward over a one-process mesh's positions
+    (:func:`lockstep_model`): data coordinate ``c`` takes its rows of
+    ``tokens``; each member attends with its heads through the ring or
+    Ulysses over the ``sp`` devices of its line (``coords``), or flash
+    (K1; K5 or K3 + K4 backward) or dense on its whole sequence."""
+    rep = cfg.n_heads // cfg.kv_heads
+    scale = 1.0 / (cfg.head_dim ** 0.5)
+    mask = (MaskSpec("window", cfg.flash_window)
+            if cfg.flash_window is not None else None)
+    sharded = {"ring": ring_self_attention,
+               "ulysses": ulysses_self_attention}.get(cfg.attn)
+    toks = [ls.rows(tokens, c).to(ls.home(c)) for c in range(ls.n_data)]
+    pos = [torch.arange(tokens.shape[1], device=ls.home(c))
+           for c in range(ls.n_data)]
+
+    def attend(li, q, k, v, c, j):
+        if rep > 1:
+            k = k.repeat_interleave(rep, dim=2)
+            v = v.repeat_interleave(rep, dim=2)
+        if sharded is not None:
+            return sharded(q, k, v, ls.mesh, causal=True, scale=scale,
+                           spec=(None, "sp", None, None),
+                           coords=ls.coords(c, j),
+                           backward=cfg.flash_backward)
+        if cfg.attn == "flash":
+            return flash_attention(q, k, v, causal=True, scale=scale,
+                                   mask=mask, backward=cfg.flash_backward)
+        return dense_reference_attention(q, k, v, causal=True, scale=scale,
+                                         window=cfg.flash_window)
+
+    return lockstep_model(trees, toks, cfg, ls, attend, pos,
+                          remat=cfg.remat)
+
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy, the logits in f32."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, targets[..., None]).squeeze(-1).mean()
+
+
+def _lockstep_losses(trees: dict, batch, cfg: BurnInConfig,
+                     ls: Lockstep) -> list:
+    """Each data coordinate's loss (f32, on its home): the mean over its
+    tokens plus ``cfg.aux_loss_weight`` times the layers' aux loss of all
+    the tokens — the loss a world rank at that coordinate reports."""
+    tokens, targets = batch
+    logits, aux = _lockstep_forward(trees, tokens, cfg, ls)
+    return [_nll(lg, ls.rows(targets, c).to(lg.device))
+            + cfg.aux_loss_weight * aux.to(lg.device)
+            for c, lg in enumerate(logits)]
+
+
+def _lockstep_value_and_grad(cfg: BurnInConfig, rules) -> Callable:
+    """``(params, batch) → (loss, grads)`` over a one-process mesh. With
+    one data coordinate this is :func:`_value_and_grad`: the positions'
+    pieces are views of one set of leaves, and autograd assembles each
+    leaf's gradient in the params' dtype. With more, each coordinate cuts
+    its pieces from a set of leaves of its own, so autograd gives each
+    coordinate's gradient as a world rank's backward does, and those are
+    averaged in f32, the loss too, as the world's all-reduce averages
+    them."""
+    ls = Lockstep(rules)
+    if ls.n_data == 1:
+        return _value_and_grad(cfg, rules)
+
+    def vg(params, batch):
+        with torch.enable_grad():
+            lives = [_tree_map(lambda p: p.detach().requires_grad_(True),
+                               params) for _ in range(ls.n_data)]
+            trees = {}
+            for c, live in enumerate(lives):
+                trees.update(position_trees(live, rules, ls, coords=[c]))
+            losses = _lockstep_losses(trees, batch, cfg, ls)
+            flat = [x for live in lives for x in tree_leaves(live)]
+            got = torch.autograd.grad(
+                member_sum([x.float() for x in losses], ls.home(0)), flat,
+                allow_unused=True)
+        n, inv = len(flat) // ls.n_data, 1.0 / ls.n_data
+        out = []
+        for li, p in enumerate(tree_leaves(params)):
+            parts = [g.float() for g in got[li::n] if g is not None]
+            out.append(member_sum(parts, p.device) * inv if parts else
+                       torch.zeros(p.shape, dtype=torch.float32,
+                                   device=p.device))
+        loss = member_sum([x.detach().float() for x in losses],
+                          ls.home(0))
+        return loss * inv, _tree_unflatten(params, out)
+
+    return vg
+
+
 def train_step_flops(cfg: BurnInConfig) -> float:
     """Model FLOPs for ONE train step (fwd + bwd), for MFU accounting — the
     reference's count: projections (K/V at the GQA width), the attention
@@ -616,11 +865,16 @@ def loss_fn(params: dict, batch, cfg: BurnInConfig,
             rules=None) -> torch.Tensor:
     """Mean next-token cross-entropy, the logits in f32, plus
     ``cfg.aux_loss_weight`` times the MoE load-balance loss."""
+    if _lockstep(rules):
+        _check_rules(rules, cfg)
+        ls = Lockstep(rules)
+        losses = _lockstep_losses(position_trees(params, rules, ls), batch,
+                                  cfg, ls)
+        home = batch[0].device
+        return member_sum([x.float() for x in losses], home) / ls.n_data
     tokens, targets = batch
     logits, aux = forward_and_aux(params, tokens, cfg, rules)
-    logp = F.log_softmax(logits.float(), dim=-1)
-    nll = -logp.gather(-1, targets[..., None]).squeeze(-1)
-    return nll.mean() + cfg.aux_loss_weight * aux
+    return _nll(logits, targets) + cfg.aux_loss_weight * aux
 
 
 def synthetic_batch(generator: torch.Generator, cfg: BurnInConfig,
@@ -697,7 +951,8 @@ def make_grads_fn(cfg: BurnInConfig, rules=None,
     alone for the expert stacks, already split over ``ep``), one flat
     buffer a set of axes; they come back f32."""
     _check_rules(rules, cfg)
-    vg = _value_and_grad(cfg, rules)
+    vg = (_lockstep_value_and_grad(cfg, rules) if _lockstep(rules)
+          else _value_and_grad(cfg, rules))
     fn = vg if accum_steps == 1 else grad_accum(vg, accum_steps)
     if not _world(rules):
         return fn

@@ -54,8 +54,28 @@ reference's ``int8_kernel`` flag turns its T=1 int8 kernel off under
 each rank's cache is a plain local tensor, so the guard has no
 counterpart: :func:`forward_cached` takes the keyword for the reference's
 signature and K6 stays on either way — a difference of mechanism, not of
-result. A one-process mesh with an axis above 1 is refused (ROADMAP
-Queue A item 6).
+result.
+
+On a one-process mesh (``[cuda:0] * n``, ``[cpu] * n``) the same entry
+points run the lock-step layers that the train step runs
+(``burnin.lockstep_model``, ``parallel.sharding.Lockstep``): ``params``
+and the prompt batch are global, :func:`paged_params` gives a
+:class:`LockstepParams` tree whose ``members`` are each position's
+contiguous pieces on its device (int8 ``QTensor`` pieces cut from the
+whole tree's quantisation, as the world's shards are), and the cache or
+pool holds each layer's buffers as a :class:`HeadSplit`: a replica for
+each data coordinate (as each data rank holds its own pool), and in it
+each ``tp`` member's KV heads, contiguous on its device, so K6, K7 and K8
+launch per member on the member's heads and columns. The rows split in
+order over the data coordinates (an engine's admissions and the
+speculative decoders' batch of one, the same on every data rank of a
+world, run once, on coordinate 0); each coordinate's members run its rows
+in turn and write their fresh K/V rows into every replica, so the
+replicas stay equal. The row-parallel partial products and the head's
+partial logits are summed in member order on the coordinate's home, the
+lookup joined; ``sp`` replicates. MoE runs each ``ep`` position's
+experts' ``d_ff / tp`` columns over every coordinate's rows at drop-free
+capacity (:func:`..moe.lockstep_moe`).
 
 :func:`make_decoder` is the compiled greedy decoder (the reference's
 ``jax.jit`` over :func:`greedy_decode`): on the card one call is the eager
@@ -86,20 +106,24 @@ from ..ops.decode_attention import (
 )
 from ..ops.flash_attention import flash_attention, pick_impl
 from ..ops.sampling import draw, key_data, split
-from ..parallel.collectives import exit_parallel, gather_dim
+from ..parallel.collectives import exit_parallel, gather_dim, member_cat
 from ..parallel.mesh import WorldMesh
-from ..parallel.sharding import gather_shards
+from ..parallel.sharding import Lockstep, gather_shards
 from ..utils.layers import rmsnorm as _rmsnorm
 from .burnin import (
     BurnInConfig,
     _check_params,
+    _lockstep,
     apply_rope,
     check_device,
+    lockstep_model,
+    member_kv_heads,
     mlp,
+    position_trees,
     tree_leaves,
 )
 from .moe import check_rules as _check_moe_rules
-from .moe import drop_free_capacity, routed_ffn
+from .moe import drop_free_capacity, lockstep_moe, routed_ffn
 
 
 CACHE_DTYPES = ("bf16", "int8")
@@ -133,31 +157,156 @@ def quantize_kv(x):
     return q.to(torch.int8), scale
 
 
+class HeadSplit:
+    """One layer's K or V buffer, or int8 scale sidecar, of a cache or a
+    paged pool on a one-process mesh. It holds a replica for each data
+    coordinate (:attr:`replicas`, as each data rank of a world holds its
+    own pool), and each replica holds the ``tp`` members' pieces, each
+    member's KV heads contiguous on the position's device (or every head
+    on each, ``whole_heads``, where ``tp`` does not divide them). The
+    lock-step forwards read position ``(c, j)``'s own piece
+    (:meth:`member`) and write member ``j``'s fresh rows into every
+    replica (:meth:`write`), so the replicas stay equal. To the host-side
+    code (zeroing, a block's copy, block export and import) it is the
+    whole buffer, every KV head along :attr:`axis` in member order: reads
+    take replica 0 and writes go to every replica."""
+
+    def __init__(self, replicas, axis: int = 2, whole_heads: bool = False):
+        self.replicas = [list(r) for r in replicas]
+        self.axis, self.whole_heads = axis, whole_heads
+
+    @property
+    def members(self) -> list:
+        """Replica 0's member pieces."""
+        return self.replicas[0]
+
+    def member(self, c: int, j: int) -> torch.Tensor:
+        """Position ``(c, j)``'s piece: member ``j`` of replica ``c``."""
+        return self.replicas[c][j]
+
+    @property
+    def device(self) -> torch.device:
+        return self.members[0].device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.members[0].dtype
+
+    @property
+    def shape(self) -> torch.Size:
+        shape = list(self.members[0].shape)
+        if not self.whole_heads:
+            shape[self.axis] = sum(m.shape[self.axis] for m in self.members)
+        return torch.Size(shape)
+
+    def _axis_after(self, idx) -> int:
+        if isinstance(idx, int):
+            return self.axis - 1
+        if isinstance(idx, slice):
+            return self.axis
+        raise TypeError(f"HeadSplit takes an int or a slice on its first "
+                        f"axis, got {idx!r}")
+
+    def _pieces(self, x, axis: int) -> list:
+        """The members' parts of ``x``, whole along ``axis``."""
+        if self.whole_heads:
+            return [x] * len(self.members)
+        return list(x.split([m.shape[axis] for m in self.members], dim=axis))
+
+    def write(self, j: int, idx: tuple, value: torch.Tensor) -> None:
+        """``value`` (member ``j``'s heads) into member ``j`` of every
+        replica at ``idx``."""
+        for rep in self.replicas:
+            m = rep[j]
+            at = tuple(i.to(m.device) if isinstance(i, torch.Tensor) else i
+                       for i in idx)
+            m[at] = value.to(m.device)
+
+    def __getitem__(self, idx) -> "HeadSplit":
+        return HeadSplit([[m[idx] for m in rep] for rep in self.replicas],
+                         self._axis_after(idx), self.whole_heads)
+
+    def __setitem__(self, idx, value) -> None:
+        for r, rep in enumerate(self.replicas):
+            parts = (value.replicas[r] if isinstance(value, HeadSplit)
+                     else self._pieces(value, self._axis_after(idx)))
+            for m, part in zip(rep, parts):
+                m[idx] = part.to(m.device)
+
+    def zero_(self) -> "HeadSplit":
+        for rep in self.replicas:
+            for m in rep:
+                m.zero_()
+        return self
+
+    def whole(self) -> torch.Tensor:
+        """Every head in one tensor on the first member's device."""
+        if self.whole_heads:
+            return self.members[0]
+        return member_cat(self.members, self.axis, self.device)
+
+    def index_select(self, dim: int, ids: torch.Tensor) -> torch.Tensor:
+        return HeadSplit([[m.index_select(dim, ids.to(m.device))
+                           for m in self.members]], self.axis,
+                         self.whole_heads).whole()
+
+    def index_copy_(self, dim: int, ids: torch.Tensor,
+                    src: torch.Tensor) -> "HeadSplit":
+        parts = self._pieces(src, self.axis)
+        for rep in self.replicas:
+            for m, part in zip(rep, parts):
+                m.index_copy_(dim, ids.to(m.device), part.to(m.device))
+        return self
+
+
+def split_buffers(shape: tuple, dtype, rules, n: int) -> list:
+    """``n`` layers' zeroed :class:`HeadSplit` buffers of the whole
+    ``shape`` (every KV head on axis 2) for a one-process mesh: a replica
+    for each data coordinate, and in it ``kv_heads / tp`` heads for each
+    ``tp`` member (all of them where ``tp`` does not divide them), each
+    on its position's device."""
+    ls = Lockstep(rules)
+    kv = shape[2] // ls.tp if shape[2] % ls.tp == 0 else shape[2]
+    part = (*shape[:2], kv, *shape[3:])
+    return [HeadSplit([[torch.zeros(part, dtype=dtype,
+                                    device=ls.device(c, j))
+                        for j in range(ls.tp)] for c in range(ls.n_data)],
+                      whole_heads=ls.tp > 1 and kv == shape[2])
+            for _ in range(n)]
+
+
 def init_cache(cfg: BurnInConfig, batch: int, max_len: int, rules=None, *,
                cache_dtype: str = "bf16", device="cuda") -> dict[str, Any]:
     """Zeroed KV cache: per layer ``[B, cache_rows(max_len), KV, D]`` k/v
     buffers in ``cfg.dtype``, or int8 with f32 ``k_scale``/``v_scale``
     ``[B, rows, KV]`` sidecars under ``cache_dtype="int8"``; ``pos`` (a
     host int) is the number of valid rows. Under ``rules`` ``batch`` is
-    this rank's rows and ``KV`` its heads, :func:`pool_kv_heads`."""
-    dev = check_device(device)
+    this rank's rows and ``KV`` its heads, :func:`pool_kv_heads`; on a
+    one-process mesh ``batch`` is the whole batch and each buffer a
+    :class:`HeadSplit` (a replica a data coordinate, each over the ``tp``
+    members: every KV head in all, on the mesh's devices; ``device`` is
+    not read)."""
     quant = check_cache_dtype(cache_dtype)
     check_serve_rules(rules, cfg)
     shape = (batch, cache_rows(max_len, cache_dtype),
              pool_kv_heads(cfg, rules), cfg.head_dim)
     buf = torch.int8 if quant else cfg.dtype
-    cache: dict[str, Any] = {
-        "k": [torch.zeros(shape, dtype=buf, device=dev)
-              for _ in range(cfg.n_layers)],
-        "v": [torch.zeros(shape, dtype=buf, device=dev)
-              for _ in range(cfg.n_layers)],
-        "pos": 0,
-    }
+    if _lockstep(rules):        # each tp member's heads on its device
+        check_device(rules.mesh.devices.flat[0])
+
+        def zeros(shape, dtype):
+            return split_buffers(shape, dtype, rules, cfg.n_layers)
+    else:
+        dev = check_device(device)
+
+        def zeros(shape, dtype):
+            return [torch.zeros(shape, dtype=dtype, device=dev)
+                    for _ in range(cfg.n_layers)]
+    cache: dict[str, Any] = {"k": zeros(shape, buf), "v": zeros(shape, buf),
+                             "pos": 0}
     if quant:
         for key in ("k_scale", "v_scale"):
-            cache[key] = [torch.zeros(shape[:3], dtype=torch.float32,
-                                      device=dev)
-                          for _ in range(cfg.n_layers)]
+            cache[key] = zeros(shape[:3], torch.float32)
     return cache
 
 
@@ -240,23 +389,38 @@ def _moe_ffn(h, layer, cfg: BurnInConfig, rules=None,
     return out
 
 
+def _lockstep_moe_ffn(hs: list, pieces: dict, cfg: BurnInConfig,
+                      ls: Lockstep) -> list:
+    """:func:`_moe_ffn` on a one-process mesh: the data coordinates' rows
+    ``hs`` through :func:`..moe.lockstep_moe` at drop-free capacity (each
+    ``ep`` position's experts over every coordinate's slots, ``tp``
+    members over ``d_ff``), a long prompt in chunks of
+    ``_MOE_PREFILL_CHUNK`` as there → each coordinate's output."""
+    b = sum(h.shape[0] for h in hs)
+    t = hs[0].shape[1]
+    if t <= _MOE_PREFILL_CHUNK:
+        return lockstep_moe(hs, pieces, cfg, ls,
+                            capacity=drop_free_capacity(b * t))[0]
+    n = -(-t // _MOE_PREFILL_CHUNK)
+    chunks = [torch.nn.functional.pad(h, (0, 0, 0, n * _MOE_PREFILL_CHUNK
+                                          - t)).split(_MOE_PREFILL_CHUNK,
+                                                      dim=1) for h in hs]
+    cap = drop_free_capacity(b * _MOE_PREFILL_CHUNK)
+    outs = [lockstep_moe([ch[i] for ch in chunks], pieces, cfg, ls,
+                         capacity=cap)[0] for i in range(n)]
+    return [torch.cat([o[c] for o in outs], dim=1)[:, :t]
+            for c in range(len(hs))]
+
+
 def check_serve_rules(rules, cfg: BurnInConfig) -> None:
     """What the sharded decode path (every decode entry point, the paged
-    pool, the serve engine) takes: ``rules`` over a world mesh whose ``tp``
-    divides the heads, ``d_model`` and ``d_ff`` (and, with experts, whose
-    ``ep`` divides them); ``sp`` replicates. A one-process mesh with an
-    axis above 1 is refused (ROADMAP Queue A item 6)."""
+    pool, the serve engine) takes: ``rules`` over a world mesh or a
+    one-process mesh whose ``tp`` divides the heads, ``d_model`` and
+    ``d_ff`` (and, with experts, whose ``ep`` divides them); ``sp``
+    replicates."""
     if rules is None:
         return
     shape = rules.mesh.shape
-    if not isinstance(rules.mesh, WorldMesh):
-        big = {a: n for a, n in shape.items() if n > 1}
-        if big:
-            raise NotImplementedError(
-                f"rules= over a one-process mesh {big} on the decode path "
-                f"is not ported — ROADMAP.md, Queue A item 6: the sharded "
-                f"decode path runs over a torch.distributed world")
-        return
     if cfg.n_experts > 0:
         _check_moe_rules(rules, cfg)
     tp = shape.get("tp", 1)
@@ -278,7 +442,9 @@ def _tp_line(rules) -> tuple:
 def pool_kv_heads(cfg: BurnInConfig, rules=None) -> int:
     """The KV heads a rank's paged pool holds: ``kv_heads / tp`` where
     ``tp`` divides them, else all of them (the pool replicates the head
-    axis, as the reference's ``init_paged_cache`` does)."""
+    axis, as the reference's ``init_paged_cache`` does). On a one-process
+    mesh the pool's whole view (its :class:`HeadSplit` buffers) holds every
+    KV head."""
     tp = _tp_line(rules)[1]
     return cfg.kv_heads // tp if cfg.kv_heads % tp == 0 else cfg.kv_heads
 
@@ -310,12 +476,41 @@ def _whole_kv(layer, li: int, cfg: BurnInConfig, rules):
     return out
 
 
+class LockstepParams(dict):
+    """The tree the decode path runs over a one-process mesh: the global
+    params (the dict itself, what the host-side code reads) and
+    :attr:`members`, each lock-step position's pieces of it
+    (:func:`_member_trees`)."""
+
+    members: dict
+
+
+def _member_trees(params, cfg: BurnInConfig, rules) -> dict:
+    """Every lock-step position's pieces of the global ``params``,
+    contiguous on its device (``burnin.position_trees``; int8 ``QTensor``
+    pieces cut from the whole tree's quantisation, as a world's shards
+    are), ``wk`` and ``wv`` whole where ``tp`` does not divide
+    ``kv_heads``."""
+    ls = Lockstep(rules)
+    return position_trees(params, rules, ls, contiguous=True,
+                          whole_kv=ls.tp > 1 and member_kv_heads(
+                              cfg, ls.tp) == cfg.kv_heads)
+
+
 def paged_params(params, cfg: BurnInConfig, rules=None):
     """The tree the sharded engine runs under ``rules``: ``params`` (this
     rank's shards) as they are, except that where ``tp`` does not divide
     ``kv_heads`` each layer's ``wk``/``wv`` are gathered whole once (the
     cache holds every KV head there; without this tree each step gathers
-    them). Collective: every rank of the ``tp`` line calls it."""
+    them). Collective: every rank of the ``tp`` line calls it. On a
+    one-process mesh: a :class:`LockstepParams` over the global
+    ``params``, its members' pieces cut once."""
+    if _lockstep(rules):
+        if isinstance(params, LockstepParams):
+            return params
+        tree = LockstepParams(params)
+        tree.members = _member_trees(params, cfg, rules)
+        return tree
     tp = _tp_line(rules)[1]
     if pool_kv_heads(cfg, rules) * tp == cfg.kv_heads:
         return params
@@ -335,7 +530,12 @@ def _transformer_body(params, tokens, cfg: BurnInConfig, q_pos, store,
     :func:`_moe_ffn` with ``n_experts > 0``; ``replicated`` as there) and
     the tied unembedding are this one function. With ``rules`` this rank
     runs its heads and FFN columns (module docstring) and returns the full
-    logits of its rows."""
+    logits of its rows; on a one-process mesh :func:`_lockstep_body` steps
+    every position (``store`` and ``attend`` then take the position and
+    its rows last)."""
+    if _lockstep(rules):
+        return _lockstep_body(params, tokens, cfg, q_pos, store, attend,
+                              rules, replicated)
     b, t = tokens.shape
     group, n_tp, i_tp = _tp_line(rules)
     heads = cfg.n_heads // n_tp
@@ -373,6 +573,50 @@ def _transformer_body(params, tokens, cfg: BurnInConfig, q_pos, store,
     if group is not None:          # this rank's d_model columns of the head
         x = x.chunk(n_tp, dim=-1)[i_tp]
     return exit_parallel(x @ params["embed"].T, group)
+
+
+def _lockstep_body(params, tokens, cfg: BurnInConfig, q_pos, store, attend,
+                   rules, replicated: bool):
+    """:func:`_transformer_body` over a one-process mesh's positions, the
+    train step's :func:`..burnin.lockstep_model` with the cache's attention
+    (module docstring). The rows split in order over the data coordinates
+    (with ``replicated`` coordinate 0 runs them all, once), each
+    coordinate's on its positions' devices from ``params.members``
+    (:func:`paged_params`; a plain tree is cut on the spot); member ``j``
+    of coordinate ``c`` writes and reads its own cache buffers through
+    ``store(li, k, v, c, j, rows)`` and ``attend(li, q, k, v, handle, c,
+    j, rows)``. The logits of every row are joined on ``tokens``'
+    device."""
+    ls = Lockstep(rules)
+    trees = (params.members if isinstance(params, LockstepParams)
+             else _member_trees(params, cfg, rules))
+    n = 1 if replicated else ls.n_data
+    b = tokens.shape[0]
+    if b % n:
+        raise ValueError(f"{b} rows do not split over the data axes "
+                         f"{ls.data_axes} ({n} ways)")
+    rows = [slice(c * b // n, (c + 1) * b // n) for c in range(n)]
+    heads = cfg.n_heads // ls.tp
+    whole_kv = ls.tp > 1 and member_kv_heads(cfg, ls.tp) == cfg.kv_heads
+
+    def member_attend(li, q, k, v, c, j):
+        handle = store(li, k, v, c, j, rows[c])
+        if not whole_kv:
+            return attend(li, q, k, v, handle, c, j, rows[c])
+        # every KV head is here: this member's query heads among zeros
+        own = slice(j * heads, (j + 1) * heads)
+        full = q.new_zeros((*q.shape[:2], cfg.n_heads, cfg.head_dim))
+        full[:, :, own] = q
+        return attend(li, full, k, v, handle, c, j, rows[c])[:, :, own]
+
+    def moe(hs, pieces):
+        return _lockstep_moe_ffn(hs, pieces, cfg, ls), None
+
+    toks = [tokens[r].to(ls.home(c)) for c, r in enumerate(rows)]
+    pos = [q_pos[r] if q_pos.dim() > 1 else q_pos for r in rows]
+    logits, _ = lockstep_model(trees, toks, cfg, ls, member_attend, pos,
+                               moe=moe)
+    return member_cat(logits, 0, tokens.device)
 
 
 def _prompt_attention(q, k, v, q_pos, scale: float, prefill_impl: str,
@@ -426,24 +670,38 @@ def _forward_cached(params, tokens, cache, cfg: BurnInConfig, rules,
     scale = 1.0 / (cfg.head_dim ** 0.5)
     quant = "k_scale" in cache
 
-    def store(li, k, v):
+    def buf(key, li, c, j, rows):
+        """Layer ``li``'s buffer (a one-process mesh: position ``(c, j)``'s
+        piece, its ``rows``)."""
+        out = cache[key][li]
+        return out if j is None else out.member(c, j)[rows]
+
+    def put(key, li, j, rows, x):
+        at = (rows, slice(pos0, pos0 + t))
+        if j is None:
+            cache[key][li][at] = x
+        else:           # member j's rows, in every replica
+            cache[key][li].write(j, at, x)
+
+    def store(li, k, v, c=None, j=None, rows=slice(None)):
         if quant:
             # the cache never holds the full-precision rows
             k, k_s = quantize_kv(k)
             v, v_s = quantize_kv(v)
-            cache["k_scale"][li][:, pos0:pos0 + t] = k_s
-            cache["v_scale"][li][:, pos0:pos0 + t] = v_s
-        cache["k"][li][:, pos0:pos0 + t] = k
-        cache["v"][li][:, pos0:pos0 + t] = v
+            put("k_scale", li, j, rows, k_s)
+            put("v_scale", li, j, rows, v_s)
+        put("k", li, j, rows, k)
+        put("v", li, j, rows, v)
 
-    def attend(li, q, k, v, handle):
-        attn = _prompt_attention(q, k, v, q_pos, scale, prefill_impl, quant)
+    def attend(li, q, k, v, handle, c=None, j=None, rows=slice(None)):
+        at = q_pos.to(q.device)
+        attn = _prompt_attention(q, k, v, at, scale, prefill_impl, quant)
         if attn is not None:
             return attn
         return _cached_attention(
-            q, cache["k"][li], cache["v"][li], q_pos, scale,
-            cache["k_scale"][li] if quant else None,
-            cache["v_scale"][li] if quant else None)
+            q, buf("k", li, c, j, rows), buf("v", li, c, j, rows), at, scale,
+            buf("k_scale", li, c, j, rows) if quant else None,
+            buf("v_scale", li, c, j, rows) if quant else None)
 
     logits = _transformer_body(params, tokens, cfg, q_pos, store, attend,
                                rules, replicated)
@@ -503,35 +761,57 @@ def forward_paged(params, tokens, cache, cfg: BurnInConfig, rules=None, *,
     pb = torch.where(active[:, None], pb, 0)          # dead → garbage
     pr = q_pos % bs
 
-    def store(li, k, v):
+    def buf(key, li, c, j):
+        """Layer ``li``'s buffer (a one-process mesh: position ``(c, j)``'s
+        piece)."""
+        out = cache[key][li]
+        return out if j is None else out.member(c, j)
+
+    def own(x, rows, d):
+        """``rows`` of a per-row tensor on ``d`` (a copy for a part of
+        them: a kernel's operands start aligned)."""
+        part = x[rows]
+        return part.to(d) if part.shape[0] == x.shape[0] else \
+            part.to(d, copy=True)
+
+    def put(key, li, j, at, x):
+        if j is None:
+            cache[key][li][at] = x
+        else:           # member j's rows, in every replica
+            cache[key][li].write(j, at, x)
+
+    def store(li, k, v, c=None, j=None, rows=slice(None)):
+        at = (own(pb, rows, k.device), own(pr, rows, k.device))
         if quant:
             k, k_s = quantize_kv(k)
             v, v_s = quantize_kv(v)
-            cache["k_scale"][li][pb, pr] = k_s
-            cache["v_scale"][li][pb, pr] = v_s
-        cache["k"][li][pb, pr] = k
-        cache["v"][li][pb, pr] = v
+            put("k_scale", li, j, at, k_s)
+            put("v_scale", li, j, at, v_s)
+        put("k", li, j, at, k)
+        put("v", li, j, at, v)
 
-    def attend(li, q, k, v, handle):
-        attn = _prompt_attention(q, k, v, q_pos, scale, prefill_impl, quant)
+    def attend(li, q, k, v, handle, c=None, j=None, rows=slice(None)):
+        d = q.device
+        at, tab = own(q_pos, rows, d), own(tables, rows, d)
+        attn = _prompt_attention(q, k, v, at, scale, prefill_impl, quant)
         if attn is not None:
             return attn
-        ks = cache["k_scale"][li] if quant else None
-        vs = cache["v_scale"][li] if quant else None
+        ks = buf("k_scale", li, c, j) if quant else None
+        vs = buf("v_scale", li, c, j) if quant else None
         if kernel_on:
             # through the tables, after this step's store: a frozen row
             # reads what the gather path would (same tables, same pos)
             return paged_decode_attention(
-                q[:, 0], cache["k"][li], cache["v"][li], tables, pos0,
-                scale=scale, k_scale=ks, v_scale=vs)[:, None]
-        rows = nt * bs
+                q[:, 0], buf("k", li, c, j), buf("v", li, c, j), tab,
+                own(pos0, rows, d), scale=scale, k_scale=ks,
+                v_scale=vs)[:, None]
+        n = nt * bs
         if quant:
-            ks = _gather_logical(ks, tables, rows)
-            vs = _gather_logical(vs, tables, rows)
+            ks = _gather_logical(ks, tab, n)
+            vs = _gather_logical(vs, tab, n)
         return _cached_attention(
-            q, _gather_logical(cache["k"][li], tables, rows),
-            _gather_logical(cache["v"][li], tables, rows), q_pos, scale,
-            ks, vs)
+            q, _gather_logical(buf("k", li, c, j), tab, n),
+            _gather_logical(buf("v", li, c, j), tab, n), at, scale, ks, vs)
 
     logits = _transformer_body(params, tokens, cfg, q_pos, store, attend,
                                rules, replicated)
@@ -853,8 +1133,11 @@ class _DecodeGraph(_Replayed):
         self.out = out = torch.zeros((batch, n_new), dtype=torch.long,
                                      device=dev)
         whole = paged_params(params, cfg, rules)
-        self.kv = None if whole is params else [
-            (layer["wk"], layer["wv"]) for layer in whole["layers"]]
+        # a one-process mesh: the members' pieces the graph reads, kept
+        # here and refreshed from each call's tree
+        self.lockstep = whole if isinstance(whole, LockstepParams) else None
+        self.kv = None if whole is params or self.lockstep is not None \
+            else [(layer["wk"], layer["wv"]) for layer in whole["layers"]]
         # the tree the steps read: the capture's only reference, and each
         # uncaptured replay's
         self.weights = weights = [whole]
@@ -874,6 +1157,13 @@ class _DecodeGraph(_Replayed):
     def __call__(self, params, prompt):
         """The eager prefill of ``prompt``, then one replay; the tokens are
         a copy of :attr:`out`."""
+        if self.lockstep is not None:
+            fresh = _member_trees(params, self.cfg, self.rules)
+            for key, tree in self.lockstep.members.items():
+                for dst, src in zip(tree_leaves(tree),
+                                    tree_leaves(fresh[key])):
+                    _copy_leaf(dst, src)
+            params = self.lockstep
         if self.kv is not None:
             fresh = paged_params(params, self.cfg, self.rules)["layers"]
             for (wk, wv), layer in zip(self.kv, fresh):

@@ -102,6 +102,7 @@ from .transport import (
     MultiProcTransport,
     Transport,
     _on_stream,
+    start_worker,
 )
 
 _ROUTINGS = ("affinity", "random")
@@ -468,6 +469,7 @@ class _FleetQueue(AdmissionSource):
         self.admitted = 0
         self.label = label
         self.dead = False
+        self.halted = False
         self.killed_at: float | None = None
         self._kill_at = kill_at
         self._stall = stall                      # (at_s, stall_s, waves)
@@ -511,6 +513,14 @@ class _FleetQueue(AdmissionSource):
     def close(self) -> None:
         with self._lock:
             self._closed = True
+
+    def halt(self) -> None:
+        """The process is exiting: the next engine-facing poll raises
+        :class:`ReplicaKilled`, so the worker polling this queue returns
+        (``transport.start_worker``)."""
+        with self._lock:
+            self.halted = True
+            self._kill_at = float("-inf")
 
     def disarm(self) -> None:
         """Clear armed faults: the run ended before they could fire."""
@@ -1367,11 +1377,9 @@ def make_fleet(params, cfg: BurnInConfig, *, max_len: int,
                 if sessions[i] is not None:
                     sessions[i].close()
 
-        pre_threads = [threading.Thread(target=pre_worker, args=(i,),
-                                        daemon=True, name=f"fleet-pre-{i}")
+        pre_threads = [start_worker(pre_worker, f"fleet-pre-{i}", (i,),
+                                    queue=pre_queues[i])
                        for i in range(n_pre)]
-        for th in pre_threads:
-            th.start()
         dec_handles: list[Any] = [None] * n_dec_run
         base_seeded = [0]
         if cdn_on and tr.process_isolated:

@@ -43,8 +43,19 @@ over ``ep`` (``dispatch_experts``, ``gather_experts``; each backward is its
 forward's transpose). A world of one runs no collective. With ``sp``
 above 1 the burn-in model gathers the sequence over ``sp`` before the
 layer (``models/burnin.py``), so every ``sp`` member routes its data
-rank's whole rows, in the flattened ``[B, S]`` order the slots follow. A
-one-process mesh with an axis above 1 is refused (ROADMAP Queue A item 6).
+rank's whole rows, in the flattened ``[B, S]`` order the slots follow.
+
+On a one-process mesh (:func:`lockstep_moe`, ``parallel.sharding.
+Lockstep``) the process steps the same ranks in turn: each data
+coordinate routes its rows on its home device, the counts ahead of it
+are the plain sum over the coordinates before it
+(``parallel.collectives.exclusive_sums``), each position runs its
+``E / ep`` experts' ``d_ff / tp`` columns on its device over the slots of
+every data coordinate (their partial batches summed in coordinate order),
+the ``tp`` partial products are summed in member order and the ``ep``
+members' outputs joined for the combine — plain tensor operations, so
+autograd runs through them, and the routing is the unsharded routing. The
+decode path runs the same function at drop-free capacity.
 """
 
 from __future__ import annotations
@@ -59,8 +70,11 @@ from ..parallel.collectives import (
     data_sum,
     dispatch_experts,
     enter_parallel,
+    exclusive_sums,
     exit_parallel,
     gather_experts,
+    member_cat,
+    member_sum,
 )
 from ..parallel.mesh import WorldMesh
 from ..utils.layers import dense_init
@@ -96,23 +110,11 @@ def init_moe_params(cfg, generator: torch.Generator) -> dict:
 
 
 def check_rules(rules, cfg=None) -> None:
-    """Refuse what the layer cannot run: any axis above 1 on a one-process
-    mesh (ROADMAP Queue A item 6); with ``cfg``, an ``ep`` that does not
-    divide the experts or a ``tp`` that does not divide ``d_ff``."""
-    if rules is None:
+    """Refuse what the layer cannot run: with ``cfg``, an ``ep`` that does
+    not divide the experts or a ``tp`` that does not divide ``d_ff``."""
+    if rules is None or cfg is None:
         return
     shape = rules.mesh.shape
-    if not isinstance(rules.mesh, WorldMesh):
-        big = {a: n for a, n in shape.items() if n > 1}
-        if big:
-            raise NotImplementedError(
-                f"MoE over a one-process mesh {big} is not ported — "
-                f"ROADMAP.md, Queue A item 6: experts shard over ep in a "
-                f"torch.distributed world (parallel.build_mesh with a "
-                f"process group up)")
-        return
-    if cfg is None:
-        return
     ep, tp = shape.get("ep", 1), shape.get("tp", 1)
     if cfg.n_experts % ep or cfg.d_ff % tp:
         raise ValueError(
@@ -171,6 +173,8 @@ def moe_layer(x: torch.Tensor, params: dict, cfg, rules=None, *,
     ``x`` is this rank's rows and ``params`` its expert shard; ``T``, the
     slots and the aux are the world's (module docstring)."""
     check_rules(rules, cfg)
+    if rules is not None and not isinstance(rules.mesh, WorldMesh):
+        return _moe_one_process(x, params, cfg, rules, capacity)
     lines = _lines(rules)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.router_top_k
@@ -204,6 +208,55 @@ def routed_ffn(x: torch.Tensor, params: dict, cfg, capacity: int,
     return _route(x, params, cfg, capacity, None, serve)[:3]
 
 
+def _choose(tokens: torch.Tensor, router: torch.Tensor, cfg):
+    """The router's choice for ``tokens [T, D]`` → ``(probs [T, E], top_p
+    [T, k], top_e [T, k], one-hots [k × [T, E]] int32, counts [k, E]
+    int32)``."""
+    e, k = cfg.n_experts, cfg.router_top_k
+    logits = (tokens.float()[:, :, None] * router.float()).sum(dim=1)
+    probs = torch.softmax(logits, dim=-1)                     # [T, E]
+    top_p, top_e = _top_k(probs, k)                           # [T, K]
+    if k > 1:
+        top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    # int32 counts: f32 would lose integer exactness past 2^24 tokens
+    ohs = [_one_hot(top_e[:, r], e, torch.int32) for r in range(k)]
+    counts = torch.stack([oh.sum(dim=0, dtype=torch.int32) for oh in ohs])
+    return probs, top_p, top_e, ohs, counts
+
+
+def _slots(ohs, top_p, before, total, capacity: int):
+    """The dispatch and combine tensors ``[T, E, C]`` (f32) of one set of
+    tokens: assignment ``r`` of a token takes the slot after the lower
+    ranks' per-expert totals ``total`` and the same rank's ``before``
+    (the assignments of the tokens ahead of these; ``None``: none)."""
+    t, e = ohs[0].shape
+    dispatch = torch.zeros((t, e, capacity), dtype=torch.float32,
+                           device=top_p.device)
+    combine = torch.zeros_like(dispatch)
+    used = torch.zeros((e,), dtype=torch.int32, device=top_p.device)
+    for r, oh in enumerate(ohs):
+        # the slot within the expert's batch: an exclusive cumsum along the
+        # tokens, behind the lower ranks' per-expert totals (and, on a
+        # world, this rank's assignments on earlier data ranks)
+        base = used if before is None else used + before[r]
+        pos = (torch.cumsum(oh, dim=0, dtype=torch.int32) * oh - oh
+               + base[None] * oh)
+        within = ((pos < capacity) & (oh == 1)).float()
+        d_r = _one_hot(pos, capacity, torch.float32) * within[..., None]
+        dispatch = dispatch + d_r
+        combine = combine + d_r * top_p[:, r, None, None]
+        used = used + total[r]
+    return dispatch, combine
+
+
+def _expert_ffn(xin: torch.Tensor, params: dict, cfg) -> torch.Tensor:
+    """The experts' FFN on their batches ``[E, C, D]`` (any split of the
+    experts or of ``d_ff``: the row-parallel part of the down product)."""
+    h = torch.bmm(xin, params["experts_up"])
+    h = F.gelu(h.float(), approximate="tanh").to(cfg.dtype)
+    return torch.bmm(h, params["experts_down"])
+
+
 def _route(x: torch.Tensor, params: dict, cfg, capacity: int, lines,
            serve=None):
     """Routing, dispatch, the expert FFN and the combine → ``(out
@@ -213,38 +266,14 @@ def _route(x: torch.Tensor, params: dict, cfg, capacity: int, lines,
     (:func:`_lines`' groups; ``None``: one process, or the serve form of
     :func:`routed_ffn` under ``serve``)."""
     b, s, d = x.shape
-    e, k, c = cfg.n_experts, cfg.router_top_k, capacity
     t = b * s
     tokens = x.reshape(t, d)
-    router = params["router"]
-    logits = (tokens.float()[:, :, None] * router.float()).sum(dim=1)
-    probs = torch.softmax(logits, dim=-1)                     # [T, E]
-    top_p, top_e = _top_k(probs, k)                           # [T, K]
-    if k > 1:
-        top_p = top_p / top_p.sum(dim=-1, keepdim=True)
-
-    # int32 counts: f32 would lose integer exactness past 2^24 tokens
-    ohs = [_one_hot(top_e[:, r], e, torch.int32) for r in range(k)]
-    counts = torch.stack([oh.sum(dim=0, dtype=torch.int32) for oh in ohs])
+    probs, top_p, top_e, ohs, counts = _choose(tokens, params["router"], cfg)
     if lines is None:
         before, total = None, counts
     else:                  # the data ranks ahead hold the earlier tokens
         before, total = data_exclusive_counts(counts, *lines[0])
-    dispatch = torch.zeros((t, e, c), dtype=torch.float32, device=x.device)
-    combine = torch.zeros_like(dispatch)
-    used = torch.zeros((e,), dtype=torch.int32, device=x.device)
-    for r, oh in enumerate(ohs):
-        # the slot within the expert's batch: an exclusive cumsum along the
-        # tokens, behind the lower ranks' per-expert totals (and, on a
-        # world, this rank's assignments on earlier data ranks)
-        base = used if before is None else used + before[r]
-        pos = (torch.cumsum(oh, dim=0, dtype=torch.int32) * oh - oh
-               + base[None] * oh)
-        within = ((pos < c) & (oh == 1)).float()
-        d_r = _one_hot(pos, c, torch.float32) * within[..., None]
-        dispatch = dispatch + d_r
-        combine = combine + d_r * top_p[:, r, None, None]
-        used = used + total[r]
+    dispatch, combine = _slots(ohs, top_p, before, total, capacity)
 
     if serve is not None:        # this rank's experts' slots only
         (ep, n_ep, i_ep), tp = serve
@@ -253,10 +282,71 @@ def _route(x: torch.Tensor, params: dict, cfg, capacity: int, lines,
     if lines is not None:       # this rank's experts, every rank's tokens
         (_, (ep, n_ep), rest, tp) = lines
         xin = enter_parallel(dispatch_experts(xin, ep, n_ep, rest), tp)
-    h = torch.bmm(xin, params["experts_up"])
-    h = F.gelu(h.float(), approximate="tanh").to(cfg.dtype)
-    xout = torch.bmm(h, params["experts_down"])
+    xout = _expert_ffn(xin, params, cfg)
     if lines is not None or serve is not None:
         xout = gather_experts(exit_parallel(xout, tp), ep, n_ep)
     out = torch.einsum("tec,ecd->td", combine.to(cfg.dtype), xout)
     return out.reshape(b, s, d), probs, top_e, total
+
+
+def lockstep_moe(hs: list, pieces: dict, cfg, ls, *,
+                 capacity: int | None = None):
+    """The MoE layer over a one-process mesh's positions
+    (``parallel.sharding.Lockstep`` ``ls``; module docstring): ``hs`` is
+    each data coordinate's rows ``[b, S, D]`` on its home device, in
+    coordinate order, ``pieces[c, j]`` position ``(c, j)``'s pieces of the
+    layer's ``router`` / ``experts_up`` / ``experts_down``, on its device
+    → ``(outs, aux)``: each coordinate's output on its home, and the
+    load-balance loss of all the tokens on coordinate 0's home. Routing,
+    slots and capacity are the unsharded layer's."""
+    e, k = cfg.n_experts, cfg.router_top_k
+    t = sum(h.shape[0] * h.shape[1] for h in hs)
+    cap = capacity if capacity is not None else \
+        expert_capacity(t * k, e, cfg.capacity_factor)
+    toks = [h.reshape(-1, h.shape[-1]) for h in hs]
+    chosen = [_choose(x, pieces[c, 0]["router"], cfg)
+              for c, x in enumerate(toks)]
+    before, total = exclusive_sums([ch[4] for ch in chosen])
+    xin, combine = [], []
+    for c, (x, ch) in enumerate(zip(toks, chosen)):
+        d_c, c_c = _slots(ch[3], ch[1], before[c], total.to(x.device), cap)
+        xin.append(torch.einsum("tec,td->ecd", d_c.to(cfg.dtype), x))
+        combine.append(c_c)
+    # each position's experts over every coordinate's slots, then the tp
+    # partial products summed on the coordinate's home
+    xout = []
+    for c in range(ls.n_data):
+        i = ls.data[c].get("ep", 0)
+        parts = []
+        for j in range(ls.tp):
+            dev = ls.device(c, j)
+            batch = member_sum([x.chunk(ls.ep, dim=0)[i] for x in xin], dev)
+            parts.append(_expert_ffn(batch, pieces[c, j], cfg))
+        xout.append(member_sum(parts, ls.home(c)))
+    outs = []
+    for c, (h, comb) in enumerate(zip(hs, combine)):
+        every = member_cat([xout[ls.index(**{**ls.data[c], "ep": i})]
+                            for i in range(ls.ep)], 0, ls.home(c))
+        out = torch.einsum("tec,ecd->td", comb.to(cfg.dtype), every)
+        outs.append(out.reshape(h.shape))
+    home = ls.home(0)
+    load = total[0].float() / t
+    prob = member_sum([ch[0].sum(dim=0) for ch in chosen], home) / t
+    return outs, e * (load.to(home) * prob).sum()
+
+
+def _moe_one_process(x, params, cfg, rules, capacity):
+    """:func:`moe_layer` on a one-process mesh: the global ``x`` and
+    ``params`` cut into the positions' rows and pieces, through
+    :func:`lockstep_moe`, the output joined on ``x``'s device."""
+    from ..parallel.sharding import Lockstep
+
+    ls = Lockstep(rules)
+    hs = [ls.rows(x, c).to(ls.home(c)) for c in range(ls.n_data)]
+    pieces = {(c, j): {name: ls.piece(w, rules.param_sharding(("moe", name)),
+                                      c, j).to(ls.device(c, j))
+                       for name, w in params.items()}
+              for c in range(ls.n_data) for j in range(ls.tp)}
+    outs, aux = lockstep_moe(hs, pieces, cfg, ls, capacity=capacity)
+    return member_cat(outs, 0, x.device), aux.to(x.device)
+

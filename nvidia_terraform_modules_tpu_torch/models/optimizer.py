@@ -24,6 +24,12 @@ all-gathers the updated slices over the data axes back into the
 parameter's own (``tp``) shard. So a rank holds ``1 / data`` of the
 moments; a world of one runs the unsharded step's operations, bit for
 bit.
+
+On a one-process mesh (the lock-step form, ``parallel.sharding.
+Lockstep``) the parameters are global, so the state keeps the reference's
+layout, whole moments beside the whole parameters on the mesh's first
+device, and the update is the unsharded one: the arithmetic is
+elementwise, so it equals the ZeRO-1 slices' updates bit for bit.
 """
 
 from __future__ import annotations
@@ -238,7 +244,9 @@ def make_adamw_train_step(cfg: BurnInConfig, rules=None,
     ``step(params, opt_state, batch) → (params, opt_state, loss)``;
     ``accum_steps > 1`` microbatches the gradient pass. On a world mesh
     ``init_state(params)`` makes the f32 moments of this rank's ZeRO-1
-    slices (module docstring) and the step updates those slices only."""
+    slices (module docstring) and the step updates those slices only; on
+    a one-process mesh the moments are whole and the update unsharded
+    (module docstring)."""
     dev = _device(device, rules, cfg)
     opt = opt or AdamWConfig()
     grads_of = make_grads_fn(cfg, rules, accum_steps)

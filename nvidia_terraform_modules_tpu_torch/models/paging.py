@@ -28,13 +28,13 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from ..parallel.mesh import WorldMesh
-from .burnin import BurnInConfig, check_device
+from .burnin import BurnInConfig, _lockstep, check_device
 from .decode import (
     cache_rows,
     check_cache_dtype,
     check_serve_rules,
     pool_kv_heads,
+    split_buffers,
 )
 
 
@@ -689,10 +689,17 @@ def init_paged_cache(cfg: BurnInConfig, slots: int, max_len: int, *,
     where ``tp`` divides them and all of them otherwise (the reference
     replicates the head axis there); the block axis, the tables and the
     positions are every slot's on every rank (blocks are assigned
-    dynamically, so a block-sharded pool would shuffle every gather)."""
+    dynamically, so a block-sharded pool would shuffle every gather). On a
+    one-process mesh the pool, its tables and positions live on the mesh's
+    first device, and each layer's buffers are ``decode.HeadSplit``
+    buffers: a replica for each data coordinate, each over the ``tp``
+    members (each member's KV heads on its position's device; ``device``
+    is not read)."""
     check_serve_rules(rules, cfg)
-    if rules is not None and isinstance(rules.mesh, WorldMesh):
-        device = rules.mesh.device
+    lockstep = _lockstep(rules)
+    if rules is not None:
+        device = (rules.mesh.devices.flat[0] if lockstep
+                  else rules.mesh.device)
     dev = check_device(device)
     quant = check_cache_dtype(cache_dtype)
     spec = paged_pool_spec(cfg, max_len, block_size, cache_dtype)
@@ -700,6 +707,8 @@ def init_paged_cache(cfg: BurnInConfig, slots: int, max_len: int, *,
                 cfg.head_dim)
 
     def zeros(shape, dtype):
+        if lockstep:
+            return split_buffers(shape, dtype, rules, cfg.n_layers)
         return [torch.zeros(shape, dtype=dtype, device=dev)
                 for _ in range(cfg.n_layers)]
 

@@ -68,7 +68,7 @@ import threading
 import time
 import weakref
 import zlib
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -134,6 +134,45 @@ _HEADER = struct.Struct(">4sIIQ")
 # snapshot (0.84 GB at the flagship) is read by ``Connection.recv_bytes`` in
 # socket-sized pieces, each ``os.read`` asking for the whole remainder
 _WIRE_CHUNK = 8 << 20
+
+
+# The threads that run engine work (PyTorch operations) on a replica's
+# behalf, each with the admission queue it polls. A daemon thread that
+# comes back from a PyTorch operation once the interpreter has begun to
+# finalize is ended by pthread_exit, whose unwinding through PyTorch's
+# noexcept frames aborts the process ("terminate called without an active
+# exception", SIGABRT): a run whose work is done would exit as a crash. So
+# at exit each live worker's queue is halted (its next poll raises
+# ReplicaKilled, and the worker returns) and the worker joined; the bound
+# is for one that polls no more (a kernel build, a hung peer).
+_WORKERS: "weakref.WeakKeyDictionary[threading.Thread, Any]" = \
+    weakref.WeakKeyDictionary()
+WORKER_EXIT_JOIN_S = 60.0
+
+
+def start_worker(target, name: str, args: tuple = (), *,
+                 queue=None) -> threading.Thread:
+    """A daemon thread running ``target(*args)``, started; at the
+    process's exit ``queue`` (the admission queue it polls, if any) is
+    halted and the thread joined (within ``WORKER_EXIT_JOIN_S`` for all of
+    them)."""
+    thread = threading.Thread(target=target, args=args, daemon=True,
+                              name=name)
+    _WORKERS[thread] = queue
+    thread.start()
+    return thread
+
+
+@atexit.register
+def _join_workers_at_exit() -> None:
+    live = [(t, q) for t, q in list(_WORKERS.items()) if t.is_alive()]
+    for _, queue in live:
+        halt = getattr(queue, "halt", None)
+        if halt is not None:
+            halt()
+    deadline = time.monotonic() + WORKER_EXIT_JOIN_S
+    for thread, _ in live:
+        thread.join(max(0.0, deadline - time.monotonic()))
 
 
 def pack_frame(seq: int, payload: bytes) -> bytes:
@@ -564,9 +603,7 @@ class _ThreadHandle(ReplicaHandle):
                 self.error = exc
                 on_error(self.label, exc)
 
-        self._thread = threading.Thread(target=work, daemon=True,
-                                        name=f"fleet-{label}")
-        self._thread.start()
+        self._thread = start_worker(work, f"fleet-{label}", queue=queue)
 
     def is_alive(self) -> bool:
         return self._thread.is_alive()
@@ -941,9 +978,8 @@ class _ProcHandle(ReplicaHandle):
         self._stats = None
         self._launches: dict = {}
         self._done = threading.Event()
-        self._thread = threading.Thread(target=self._serve, daemon=True,
-                                        name=f"fleet-rpc-{self.label}")
-        self._thread.start()
+        self._thread = start_worker(self._serve, f"fleet-rpc-{self.label}",
+                                    queue=queue)
 
     def _answer(self, method: str, args):
         if method == "chain_sink":
@@ -974,6 +1010,8 @@ class _ProcHandle(ReplicaHandle):
                     try:
                         msg = self._chan.recv(self.poll_s)
                     except TransportTimeout:
+                        if getattr(self._queue, "halted", False):
+                            return            # the process is exiting
                         if not self._proc.is_alive():
                             raise TransportDead(
                                 f"{self.label}: replica process "

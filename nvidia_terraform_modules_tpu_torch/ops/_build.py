@@ -82,10 +82,10 @@ _SIGNATURES = {
     "tk_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
     + [_L] * 12 + [_F, _I, _I, _I, _P],
     # q, k, v, acc (f32, contiguous), m, l, B, Sq, Sk, H, KV, D, 3×3
-    # strides (q, k, v: b, s, h), scale, mask kind, window, dtype code,
-    # stream
+    # strides (q, k, v: b, s, h), scale, mask kind, window, key offset,
+    # dtype code, stream
     "tk_flash_partial": [_P] * 6 + [_I] * 6 + [_L] * 9
-    + [_F, _I, _I, _I, _P],
+    + [_F, _I, _I, _I, _I, _P],
     # q, k_pool, v_pool, k_scale, v_scale (None: a bf16/f32 pool), tables,
     # pos, out, span partials (f32), span counters (int32), B, H, KV, D,
     # block size, table width, spans, scale, dtype code, stream
@@ -102,14 +102,14 @@ _SIGNATURES = {
     # shared memory, CTAs per SM)
     "tk_int8_matmul_info": [_I, _I, _P],
     # q, k, v, dout, lse, delta, ws, dq, dk, dv, B, S, H, D, scale,
-    # mask kind, window, dtype code, output dtype code, stream
-    "tk_flash_bwd_fused": [_P] * 10 + [_I] * 4 + [_F, _I, _I, _I, _I, _P],
+    # mask kind, window, key offset, dtype code, output dtype code, stream
+    "tk_flash_bwd_fused": [_P] * 10 + [_I] * 4 + [_F] + [_I] * 5 + [_P],
     # q, k, v, dout, lse, delta, dk, dv, B, S, H, D, scale, mask kind,
-    # window, dtype code, output dtype code, stream
-    "tk_flash_dkv": [_P] * 8 + [_I] * 4 + [_F, _I, _I, _I, _I, _P],
+    # window, key offset, dtype code, output dtype code, stream
+    "tk_flash_dkv": [_P] * 8 + [_I] * 4 + [_F] + [_I] * 5 + [_P],
     # q, k, v, dout, lse, delta, dq, B, S, H, D, scale, mask kind, window,
-    # dtype code, output dtype code, stream
-    "tk_flash_dq": [_P] * 7 + [_I] * 4 + [_F, _I, _I, _I, _I, _P],
+    # key offset, dtype code, output dtype code, stream
+    "tk_flash_dq": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 5 + [_P],
     # kernel (0 K5, 1 K4, 2 K3), head dim, output dtype code, int[4] out
     # (registers, local bytes, dynamic shared memory, CTAs per SM)
     "tk_flash_bwd_info": [_I, _I, _I, _P],

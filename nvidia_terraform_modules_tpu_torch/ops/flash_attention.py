@@ -171,28 +171,47 @@ def _check_qkv(q, k, v, same_len: bool = True):
         raise ValueError("q, k and v must be on one device")
 
 
+def _check_offset(q_offset) -> int:
+    """A key offset: a non-negative int."""
+    if isinstance(q_offset, bool) or not isinstance(q_offset, int) \
+            or q_offset < 0:
+        raise ValueError(f"q_offset must be an int >= 0, got {q_offset!r}")
+    return q_offset
+
+
+def _keep(sq: int, sk: int, spec: MaskSpec, q_offset: int, device):
+    """The ``[Sq, Sk]`` mask of a causal or window ``spec``: query ``i``
+    (key row ``i + q_offset``) keeps key ``j`` iff ``i + q_offset >= j``
+    and, under a window, ``i + q_offset - j < window``."""
+    qi = torch.arange(sq, device=device)[:, None] + q_offset
+    ki = torch.arange(sk, device=device)[None, :]
+    keep = qi >= ki
+    if spec.kind == "window":
+        keep &= (qi - ki) < spec.window
+    return keep
+
+
 def flash_partial_ref(q, k, v, *, scale: float, causal: bool = True,
-                      mask=None):
+                      mask=None, q_offset: int = 0):
     """The plain version of K2 (:func:`flash_partial`): the UNNORMALISED
     online-softmax state ``(acc f32 [B,Sq,H,D], m f32 [B,H,Sq], l f32
     [B,H,Sq])`` in one tile — f32 scores from input-dtype operands, the
-    scale after the product, finite -1e30 masking in LOCAL positions
-    (query ``i`` against key ``j``), ``p = 0`` where ``s <= -1e30 / 2``,
-    P rounded to ``v.dtype`` before the PV product, no final division.
-    ``k``/``v`` may be longer or shorter than ``q``."""
+    scale after the product, finite -1e30 masking with query ``i`` at key
+    row ``i + q_offset`` against key ``j`` (``q_offset = 0``: LOCAL
+    positions), ``p = 0`` where ``s <= -1e30 / 2``, P rounded to
+    ``v.dtype`` before the PV product, no final division. ``k``/``v`` may
+    be longer or shorter than ``q``. A row that sees no key keeps
+    ``m = -1e30``, ``l = 0`` and a zero accumulator."""
     _check_qkv(q, k, v, same_len=False)
     spec = as_mask_spec(mask, causal)
+    q_offset = _check_offset(q_offset)
     rep = q.shape[2] // k.shape[2]
     if rep > 1:
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
     sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if spec.kind != "full":
-        qi = torch.arange(q.shape[1], device=q.device)[:, None]
-        ki = torch.arange(k.shape[1], device=q.device)[None, :]
-        keep = qi >= ki
-        if spec.kind == "window":
-            keep &= (qi - ki) < spec.window
+        keep = _keep(q.shape[1], k.shape[1], spec, q_offset, q.device)
         sc = torch.where(keep, sc, torch.full_like(sc, NEG_INF))
     m = sc.amax(dim=-1)
     p = torch.where(sc <= NEG_INF / 2, torch.zeros_like(sc),
@@ -217,10 +236,11 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     return o, m + torch.log(l_)
 
 
-def _flash_cuda(q, k, v, scale: float, spec: MaskSpec, partial: bool):
+def _flash_cuda(q, k, v, scale: float, spec: MaskSpec, partial: bool,
+                q_offset: int = 0):
     """Launch K1 (``tk_flash_fwd`` → ``(o, lse)``) or, with ``partial``,
-    K2 (``tk_flash_partial`` → ``(acc, m, l)``) of ``csrc/flash_fwd.cu``;
-    the outputs are allocated here."""
+    K2 (``tk_flash_partial`` → ``(acc, m, l)``, its mask at ``q_offset``)
+    of ``csrc/flash_fwd.cu``; the outputs are allocated here."""
     b, s, h, d = q.shape
     if d % 16 or d > 128:
         raise ValueError(f"the flash kernel takes head_dim % 16 == 0 and "
@@ -237,8 +257,8 @@ def _flash_cuda(q, k, v, scale: float, spec: MaskSpec, partial: bool):
     q, k, v = aligned(q), aligned(k), aligned(v)
     strides = [t.stride(i) for t in (q, k, v) for i in (0, 1, 2)]
     window = spec.window if spec.kind == "window" else 0
-    tail = [float(scale), _MASK_CODE[spec.kind], window, code,
-            torch.cuda.current_stream(q.device).cuda_stream]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tail = [float(scale), _MASK_CODE[spec.kind], window]
     stats = [torch.empty((b, h, s), dtype=torch.float32, device=q.device)
              for _ in range(1 + partial)]
     if partial:
@@ -246,7 +266,7 @@ def _flash_cuda(q, k, v, scale: float, spec: MaskSpec, partial: bool):
         rc = _build.lib().tk_flash_partial(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
             *[t.data_ptr() for t in stats], b, s, k.shape[1], h,
-            k.shape[2], d, *strides, *tail)
+            k.shape[2], d, *strides, *tail, q_offset, code, stream)
         _build.check(rc, "flash_partial")
         _build.count("flash_partial")
         return acc, *stats
@@ -254,7 +274,7 @@ def _flash_cuda(q, k, v, scale: float, spec: MaskSpec, partial: bool):
     rc = _build.lib().tk_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         stats[0].data_ptr(), b, s, h, k.shape[2], d, *strides,
-        *[o.stride(i) for i in (0, 1, 2)], *tail)
+        *[o.stride(i) for i in (0, 1, 2)], *tail, code, stream)
     _build.check(rc, "flash_fwd")
     _build.count("flash_fwd")
     return o, stats[0]
@@ -278,14 +298,16 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     return _flash_cuda(q, k, v, scale, spec, partial=False)
 
 
-def flash_partial(q, k, v, *, scale: float, causal: bool = True, mask=None):
+def flash_partial(q, k, v, *, scale: float, causal: bool = True, mask=None,
+                  q_offset: int = 0):
     """K2: one flash sweep of ``q`` over (``k``, ``v``) WITHOUT the final
     normalisation → ``(acc f32 [B,Sq,H,D], m f32 [B,H,Sq], l f32
     [B,H,Sq])``, the unnormalised accumulator, running max and running sum
     — what ring attention folds across visiting K/V blocks. ``k``/``v``
     may have another sequence length than ``q``; ``causal`` (and a window
-    ``mask``) work in LOCAL positions, right for the ring's diagonal
-    block.
+    ``mask``) place query ``i`` at key row ``i + q_offset``: 0 (LOCAL
+    positions) for the ring's diagonal block, ``(i - j)·S`` for sequence
+    shard ``i``'s queries against block ``j`` of a windowed sequence.
 
     A CUDA tensor launches ``csrc/flash_fwd.cu``'s partial instance of the
     forward kernel (K1's sweep with another epilogue, so
@@ -293,11 +315,14 @@ def flash_partial(q, k, v, *, scale: float, causal: bool = True, mask=None):
     runs :func:`flash_partial_ref`."""
     _check_qkv(q, k, v, same_len=False)
     spec = as_mask_spec(mask, causal)
+    q_offset = _check_offset(q_offset)
     if q.device.type == "cpu":
-        return flash_partial_ref(q, k, v, scale=scale, mask=spec)
+        return flash_partial_ref(q, k, v, scale=scale, mask=spec,
+                                 q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"no flash kernel for device {q.device}")
-    return _flash_cuda(q, k, v, scale, spec, partial=True)
+    return _flash_cuda(q, k, v, scale, spec, partial=True,
+                       q_offset=q_offset)
 
 
 # ------------------------------------------------------------- backward
@@ -320,18 +345,17 @@ def _check_bwd(q, k, v, do, lse, delta):
         raise ValueError("the backward's inputs must be on one device")
 
 
-def _bwd_tile_ref(q, k, v, do, lse, delta, scale: float, spec: MaskSpec):
+def _bwd_tile_ref(q, k, v, do, lse, delta, scale: float, spec: MaskSpec,
+                  q_offset: int = 0):
     """``_bwd_tile`` over the whole sequence as one tile → ``(p, ds)``
     ``[B, H, Sq, Sk]`` f32: scores from input-dtype operands, the scale
-    after the product, finite -1e30 masking, P from the saved LSE (0 where
-    masked), ``dP = dO·Vᵀ`` and ``dS = P·(dP − delta)`` in f32."""
+    after the product, finite -1e30 masking (query ``i`` at key row
+    ``i + q_offset``), P from the saved LSE (0 where masked),
+    ``dP = dO·Vᵀ`` and ``dS = P·(dP − delta)`` in f32."""
     s = q.shape[1]
     sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if spec.kind != "full":
-        idx = torch.arange(s, device=q.device)
-        keep = idx[:, None] >= idx[None, :]
-        if spec.kind == "window":
-            keep &= (idx[:, None] - idx[None, :]) < spec.window
+        keep = _keep(s, s, spec, q_offset, q.device)
         sc = torch.where(keep, sc, torch.full_like(sc, NEG_INF))
     p = torch.where(sc <= NEG_INF / 2, torch.zeros_like(sc),
                     torch.exp(sc - lse[..., None]))
@@ -366,46 +390,46 @@ def _out_dtype(q, out_dtype):
 
 
 def flash_dq_ref(q, k, v, do, lse, delta, *, scale: float, mask=None,
-                 causal: bool = True, out_dtype=None):
+                 causal: bool = True, out_dtype=None, q_offset: int = 0):
     """The plain version of K3 (``flash_dq``): ``dQ = (dS→k.dtype)·K·scale``
     in ``out_dtype`` (default q's). ``lse`` and ``delta`` are ``[B, H, S]``
     f32."""
     _check_bwd(q, k, v, do, lse, delta)
     _, ds = _bwd_tile_ref(q, k, v, do, lse, delta, scale,
-                          as_mask_spec(mask, causal))
+                          as_mask_spec(mask, causal), q_offset)
     return _dq_of(ds, k, scale).to(_out_dtype(q, out_dtype))
 
 
 def flash_dkv_ref(q, k, v, do, lse, delta, *, scale: float, mask=None,
-                  causal: bool = True, out_dtype=None):
+                  causal: bool = True, out_dtype=None, q_offset: int = 0):
     """The plain version of K4 (``flash_dkv``): ``(dK, dV)`` with
     ``dK = (dS→q.dtype)ᵀ·Q·scale`` and ``dV = (P→dO.dtype)ᵀ·dO``, in
     ``out_dtype`` (default the inputs')."""
     _check_bwd(q, k, v, do, lse, delta)
     p, ds = _bwd_tile_ref(q, k, v, do, lse, delta, scale,
-                          as_mask_spec(mask, causal))
+                          as_mask_spec(mask, causal), q_offset)
     out = _out_dtype(q, out_dtype)
     return _dk_of(ds, q, scale).to(out), _dv_of(p, do).to(out)
 
 
 def flash_dqdkv_ref(q, k, v, do, lse, delta, *, scale: float, mask=None,
-                    causal: bool = True, out_dtype=None):
+                    causal: bool = True, out_dtype=None, q_offset: int = 0):
     """The plain version of K5 (``flash_dqdkv``): ``(dQ, dK, dV)`` from one
     P/dS — the same numbers as :func:`flash_dq_ref` and
     :func:`flash_dkv_ref`."""
     _check_bwd(q, k, v, do, lse, delta)
     p, ds = _bwd_tile_ref(q, k, v, do, lse, delta, scale,
-                          as_mask_spec(mask, causal))
+                          as_mask_spec(mask, causal), q_offset)
     out = _out_dtype(q, out_dtype)
     return (_dq_of(ds, k, scale).to(out), _dk_of(ds, q, scale).to(out),
             _dv_of(p, do).to(out))
 
 
 def _bwd_cuda(kernel: str, q, k, v, do, lse, delta, scale: float,
-              spec: MaskSpec, out_dtype):
+              spec: MaskSpec, out_dtype, q_offset: int = 0):
     """Launch one of the backward kernels of ``csrc/flash_bwd.cu`` on
-    contiguous inputs; outputs are allocated here, in q's layout and
-    ``out_dtype``."""
+    contiguous inputs (the mask at ``q_offset``); outputs are allocated
+    here, in q's layout and ``out_dtype``."""
     b, s, h, d = q.shape
     if d % 16 or d > 128:
         raise ValueError(f"the flash backward kernels take head_dim % 16 == "
@@ -414,7 +438,7 @@ def _bwd_cuda(kernel: str, q, k, v, do, lse, delta, scale: float,
                                for t in (q, k, v, do, lse, delta))
     ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
     tail = [b, s, h, d, float(scale), _MASK_CODE[spec.kind],
-            spec.window if spec.kind == "window" else 0,
+            spec.window if spec.kind == "window" else 0, q_offset,
             _build.dtype_code(q.dtype), _build.dtype_code(out_dtype),
             torch.cuda.current_stream(q.device).cuda_stream]
     lib = _build.lib()
@@ -466,44 +490,47 @@ def flash_bwd_resources(kernel: str, head_dim: int, *,
 
 
 def _bwd_dispatch(kernel, ref, q, k, v, do, lse, delta, scale, mask,
-                  causal, out_dtype):
+                  causal, out_dtype, q_offset):
     _check_bwd(q, k, v, do, lse, delta)
     spec = as_mask_spec(mask, causal)
     out_dtype = _out_dtype(q, out_dtype)
+    q_offset = _check_offset(q_offset)
     if q.device.type == "cpu":
         return ref(q, k, v, do, lse, delta, scale=scale, mask=spec,
-                   out_dtype=out_dtype)
+                   out_dtype=out_dtype, q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"no flash backward kernel for device {q.device}")
     return _bwd_cuda(kernel, q, k, v, do, lse, delta, scale, spec,
-                     out_dtype)
+                     out_dtype, q_offset)
 
 
 def flash_dq(q, k, v, do, lse, delta, *, scale: float, mask=None,
-             causal: bool = True, out_dtype=None):
-    """K3: dQ of the split backward, in ``out_dtype`` (q's, or float32).
+             causal: bool = True, out_dtype=None, q_offset: int = 0):
+    """K3: dQ of the split backward, in ``out_dtype`` (q's, or float32),
+    the mask at ``q_offset`` (:func:`flash_partial`).
     A CUDA tensor launches ``csrc/flash_bwd.cu``'s ``flash_dq_mma`` (bf16,
     bitwise deterministic) or ``flash_dq_kernel`` (f32), ``head_dim % 16
     == 0`` and ``<= 128``; a CPU tensor runs :func:`flash_dq_ref`."""
     return _bwd_dispatch("flash_dq", flash_dq_ref, q, k, v, do, lse, delta,
-                         scale, mask, causal, out_dtype)
+                         scale, mask, causal, out_dtype, q_offset)
 
 
 def flash_dkv(q, k, v, do, lse, delta, *, scale: float, mask=None,
-              causal: bool = True, out_dtype=None):
+              causal: bool = True, out_dtype=None, q_offset: int = 0):
     """K4: ``(dK, dV)`` of the split backward (``flash_bwd_kv_kernel``
     without the dQ atomics); a CPU tensor runs :func:`flash_dkv_ref`."""
     return _bwd_dispatch("flash_dkv", flash_dkv_ref, q, k, v, do, lse,
-                         delta, scale, mask, causal, out_dtype)
+                         delta, scale, mask, causal, out_dtype, q_offset)
 
 
 def flash_dqdkv(q, k, v, do, lse, delta, *, scale: float, mask=None,
-                causal: bool = True, out_dtype=None):
+                causal: bool = True, out_dtype=None, q_offset: int = 0):
     """K5: ``(dQ, dK, dV)`` from the fused single-pass kernel (dQ summed
     with atomics, so its rounding order varies from run to run); a CPU
     tensor runs :func:`flash_dqdkv_ref`."""
     return _bwd_dispatch("flash_bwd_fused", flash_dqdkv_ref, q, k, v, do,
-                         lse, delta, scale, mask, causal, out_dtype)
+                         lse, delta, scale, mask, causal, out_dtype,
+                         q_offset)
 
 
 def _check_backward(backward: str) -> None:

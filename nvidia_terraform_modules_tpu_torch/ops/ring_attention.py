@@ -43,6 +43,7 @@ from ..parallel.collectives import ring_map, ring_permute, spec_axes
 from ..parallel.mesh import WorldMesh
 from .flash_attention import (
     NEG_INF,
+    MaskSpec,
     _check_backward,
     flash_dkv,
     flash_dq,
@@ -198,10 +199,13 @@ def _finish(state, dtype):
     return (o / _t(lm)).to(dtype), m + torch.log(lm)
 
 
-def _block_grads(args, scale: float, diag: bool, backward: str):
+def _block_grads(args, scale: float, diag: bool, backward: str, *,
+                 mask=None, q_offset: int = 0):
     """One visited block's (dQ, dK, dV) with f32 outputs: K5, or K3 + K4
-    (``args`` = q, k, v, dO, LSE, delta)."""
-    kw = dict(scale=scale, causal=diag, out_dtype=torch.float32)
+    (``args`` = q, k, v, dO, LSE, delta); causal when ``diag``, else
+    unmasked, unless ``mask`` (a window) at ``q_offset`` says otherwise."""
+    kw = dict(scale=scale, causal=diag, mask=mask, q_offset=q_offset,
+              out_dtype=torch.float32)
     if backward == "fused":
         return flash_dqdkv(*args, **kw)
     return (flash_dq(*args, **kw), *flash_dkv(*args, **kw))
@@ -316,7 +320,8 @@ def ring_self_attention(q, k, v, mesh, *, causal: bool = True,
                         spec=("dp", "sp", "tp", None),
                         scale: float | None = None,
                         impl: str | None = None,
-                        backward: str = "fused"):
+                        backward: str = "fused",
+                        coords: dict[str, int] | None = None):
     """Exact attention on global ``[B, S, H, D]`` tensors with the sequence
     sharded over ``axis_name``: ``spec`` maps batch → dp, sequence → the
     ring, heads → tp, and every (dp, tp) group runs its own ring; each
@@ -328,7 +333,9 @@ def ring_self_attention(q, k, v, mesh, *, causal: bool = True,
     ``backward`` picks the flash impl's backward kernels
     (fused|split). On a :class:`..parallel.mesh.WorldMesh` the tensors are
     this rank's shards and the output is its shard: the rank is one member
-    of its ring (:func:`_world_ring`)."""
+    of its ring (:func:`_world_ring`). ``coords``: where the axes ``spec``
+    leaves out place the shards (default 0; ``..parallel.collectives.
+    ring_map``)."""
     _check_backward(backward)
     if spec_axes(spec[1]) != (axis_name,):
         raise ValueError(f"spec {tuple(spec)} must shard the sequence "
@@ -349,7 +356,7 @@ def ring_self_attention(q, k, v, mesh, *, causal: bool = True,
                                            causal=causal, scale=scale,
                                            backward=backward)
 
-    return ring_map(kernel, (q, k, v), mesh, spec, axis_name)
+    return ring_map(kernel, (q, k, v), mesh, spec, axis_name, coords=coords)
 
 
 def _world_ring(q, k, v, mesh: WorldMesh, *, causal: bool, axis_name: str,
@@ -378,20 +385,21 @@ def _world_ring(q, k, v, mesh: WorldMesh, *, causal: bool, axis_name: str,
 
 
 class ShardFlash(torch.autograd.Function):
-    """Causal attention of sequence shard ``i``'s queries against the whole
-    sequence's K/V (:func:`shard_flash_attention`)."""
+    """Causal (or sliding-window) attention of sequence shard ``i``'s
+    queries against the whole sequence's K/V
+    (:func:`shard_flash_attention`)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, i, scale, backward):
+    def forward(ctx, q, k, v, i, scale, backward, window):
         q = q.contiguous()
-        blocks = _shard_blocks(k, v, q.shape[1], i)
         state = _fold_start(q)
-        for j, k_j, v_j in blocks:
+        for j, k_j, v_j, kw in _shard_blocks(k, v, q.shape[1], i, window):
             state = _fold(state, flash_partial(q, k_j, v_j, scale=scale,
-                                               causal=j == i))
+                                               **kw))
         out, lse = _finish(state, q.dtype)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.i, ctx.scale, ctx.backward = i, scale, backward
+        ctx.window = window
         return out
 
     @staticmethod
@@ -401,38 +409,63 @@ class ShardFlash(torch.autograd.Function):
         delta = _delta(do, out)
         dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
         dk, dv = torch.zeros_like(k), torch.zeros_like(v)
-        for j, k_j, v_j in _shard_blocks(k, v, s, i):
-            dq_t, dk_t, dv_t = _block_grads((q, k_j, v_j, do, lse, delta),
-                                            ctx.scale, j == i, ctx.backward)
+        for j, k_j, v_j, kw in _shard_blocks(k, v, s, i, ctx.window):
+            dq_t, dk_t, dv_t = _block_grads(
+                (q, k_j, v_j, do, lse, delta), ctx.scale, kw["causal"],
+                ctx.backward, mask=kw["mask"], q_offset=kw["q_offset"])
             dq += dq_t
             dk[:, j * s:(j + 1) * s] = dk_t
             dv[:, j * s:(j + 1) * s] = dv_t
-        return dq.to(q.dtype), dk, dv, None, None, None
+        return dq.to(q.dtype), dk, dv, None, None, None, None
 
 
-def _shard_blocks(k, v, s: int, i: int):
-    """``(j, K_j, V_j)`` of the blocks shard ``i``'s queries see, in the
-    ring's visiting order: its own block, then ``i - 1`` down to 0."""
+def shard_block_live(i: int, j: int, s: int, window: int | None) -> bool:
+    """Whether any query of sequence shard ``i`` sees a key of block ``j``
+    (blocks of ``s`` rows): ``j <= i`` and, under a window ``W``, the
+    nearest pair's distance ``(i − j)·s − (s − 1)`` is below ``W``."""
+    return j <= i and (window is None or (i - j) * s - (s - 1) < window)
+
+
+def _shard_blocks(k, v, s: int, i: int, window: int | None = None):
+    """``(j, K_j, V_j, mask kwargs)`` of the live blocks shard ``i``'s
+    queries see (:func:`shard_block_live`), in the ring's visiting order:
+    its own block, then ``i - 1`` down to 0. Without a window the own
+    block is causal and the earlier ones unmasked; with one every block
+    takes the window mask at its key offset ``(i − j)·s``."""
     for j in range(i, -1, -1):
+        if not shard_block_live(i, j, s, window):
+            break
+        if window is None:
+            kw = dict(causal=j == i, mask=None, q_offset=0)
+        else:
+            kw = dict(causal=True, mask=MaskSpec("window", window),
+                      q_offset=(i - j) * s)
         yield (j, k[:, j * s:(j + 1) * s].contiguous(),
-               v[:, j * s:(j + 1) * s].contiguous())
+               v[:, j * s:(j + 1) * s].contiguous(), kw)
 
 
 def shard_flash_attention(q, k, v, i: int, *, scale: float | None = None,
-                          backward: str = "fused"):
+                          backward: str = "fused",
+                          window: int | None = None):
     """Causal attention of the queries ``q [B, S, H, D]`` of sequence shard
     ``i`` (global rows ``i·S ...``) against the whole sequence's ``k``,
     ``v`` ``[B, n·S, H, D]`` (gathered over the shards): the blocks ring
     member ``i`` folds, taken from the gathered K/V with no hop — K2 on
     its own block (causal) and on each earlier one (unmasked), in the
     ring's order, so the output equals the world ring's bit for bit; the
-    later blocks are fully masked and launch nothing. Backward: K5 (or
-    K3 + K4, ``backward``) with f32 outputs a block; the later blocks'
-    dK/dV are zero. Returns ``[B, S, H, D]`` in q's dtype."""
+    later blocks are fully masked and launch nothing. ``window`` (keys with
+    ``q − k < window``): every visited block takes K2's window mask at its
+    key offset ``(i − j)·S``, and a block no query of the shard reaches
+    (:func:`shard_block_live`) launches nothing, forward or backward.
+    Backward: K5 (or K3 + K4, ``backward``) with f32 outputs a block, at
+    the same masks; the unvisited blocks' dK/dV are zero. Returns
+    ``[B, S, H, D]`` in q's dtype."""
     _check_backward(backward)
     if k.shape[1] % q.shape[1] or k.shape[1] // q.shape[1] <= i:
         raise ValueError(f"{k.shape[1]} keys hold no shard {i} of "
                          f"{q.shape[1]} queries")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
-    return ShardFlash.apply(q, k, v, i, scale, backward)
+    return ShardFlash.apply(q, k, v, i, scale, backward, window)

@@ -79,7 +79,8 @@ def ulysses_self_attention(q, k, v, mesh, *, causal: bool = True,
                            spec=("dp", "sp", "tp", None),
                            scale: float | None = None,
                            impl: str | None = None,
-                           backward: str = "fused"):
+                           backward: str = "fused",
+                           coords: dict[str, int] | None = None):
     """Exact attention on global ``[B, S, H, D]`` tensors with the sequence
     sharded on ``axis_name``, through head-scatter / sequence-gather
     all-to-alls (the DeepSpeed-Ulysses layout). ``spec`` maps batch → dp,
@@ -90,7 +91,8 @@ def ulysses_self_attention(q, k, v, mesh, *, causal: bool = True,
     flash impl's backward kernels (fused|split). On a
     :class:`..parallel.mesh.WorldMesh` the tensors are this rank's shards
     (heads already cut over ``tp``) and the output is its shard
-    (:func:`_world_ulysses`)."""
+    (:func:`_world_ulysses`). ``coords``: where the axes ``spec`` leaves
+    out place the shards (default 0; ``parallel.collectives.ring_map``)."""
     _check_backward(backward)
     if spec_axes(spec[1]) != (axis_name,):
         raise ValueError(f"spec {tuple(spec)} must shard the sequence "
@@ -115,7 +117,7 @@ def ulysses_self_attention(q, k, v, mesh, *, causal: bool = True,
                                         scale=scale, impl=impl,
                                         backward=backward)
 
-    return ring_map(kernel, (q, k, v), mesh, spec, axis_name)
+    return ring_map(kernel, (q, k, v), mesh, spec, axis_name, coords=coords)
 
 
 def _world_ulysses(q, k, v, mesh: WorldMesh, *, causal: bool,

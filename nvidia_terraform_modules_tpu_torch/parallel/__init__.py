@@ -38,6 +38,7 @@ from .multihost import (
     JobEnv,
     job_env_from_environ,
     maybe_initialize_distributed,
+    shutdown_distributed,
 )
 from .multislice import (
     build_multislice_mesh,
@@ -58,12 +59,19 @@ from .pipeline import (
     reference_loss_fn,
     stack_sharding,
 )
-from .sharding import ShapeDtypeStruct, ShardingRules, local_shard, make_rules
+from .sharding import (
+    Lockstep,
+    ShapeDtypeStruct,
+    ShardingRules,
+    local_shard,
+    make_rules,
+)
 
 __all__ = [
     "ALL_PROBES",
     "DistributedInitError",
     "JobEnv",
+    "Lockstep",
     "Mesh",
     "MeshPlan",
     "PipelineConfig",
@@ -92,6 +100,7 @@ __all__ = [
     "make_pipeline_train_step",
     "make_rules",
     "maybe_initialize_distributed",
+    "shutdown_distributed",
     "pipeline_loss_fn",
     "pipeline_value_and_grad_1f1b",
     "place_pipeline_params",

@@ -12,7 +12,15 @@ returns one per position, each moved with ``.to(device)`` to the device
 that owns it. On a mesh that names one device more than once (the CPU
 tests' ``[cpu] * n``, one card's ``[cuda:0] * 4``) the move is a no-op and
 nothing is copied. Every step is a PyTorch operation, so autograd runs
-through it: the backward of a hop is the hop the other way.
+through it: the backward of a hop is the hop the other way. The
+lock-step train step and decode path (``parallel/sharding.Lockstep``)
+meet through three more, each over a list of positions in line order:
+:func:`member_sum` (a row-parallel product's partial sums, added in
+member order on one device — the all-reduce's one-process twin; backward:
+the gradient sent back to each member), :func:`member_cat` (pieces joined
+along a dimension — the all-gather's twin; backward: each member's slice)
+and :func:`exclusive_sums` (the sum over the positions ahead of each one,
+and over all — ``data_exclusive_counts``' twin).
 
 **One process a device** (:class:`WorldMesh`, ``torch.distributed``) — the
 reference's timed probes (``psum_probe``, ``all_gather_probe``,
@@ -96,6 +104,40 @@ def all_to_all(blocks: Sequence[torch.Tensor], mesh: Mesh,
                       dim=concat_axis) for j in range(n)]
 
 
+def member_sum(parts: Sequence[torch.Tensor],
+               device: torch.device) -> torch.Tensor:
+    """The members' partial sums added in member order, on ``device``
+    (each moved there first): a row-parallel product's reduction on a
+    one-process mesh."""
+    out = parts[0].to(device)
+    for part in parts[1:]:
+        out = out + part.to(device)
+    return out
+
+
+def member_cat(parts: Sequence[torch.Tensor], dim: int,
+               device: torch.device) -> torch.Tensor:
+    """The members' pieces joined along ``dim`` in member order, on
+    ``device``."""
+    if len(parts) == 1:
+        return parts[0].to(device)
+    return torch.cat([p.to(device) for p in parts], dim=dim)
+
+
+def exclusive_sums(
+        values: Sequence[torch.Tensor]) -> tuple[list, torch.Tensor]:
+    """``(before, total)`` of a list of same-shape tensors (one a position,
+    in line order): ``before[i]`` the sum over the positions ahead of
+    ``i`` and ``total`` the sum over all of them, each on
+    ``values[i]``'s device (``total`` on the first's). Integer sums stay
+    in the values' dtype."""
+    before, acc = [], torch.zeros_like(values[0])
+    for x in values:
+        before.append(acc.to(x.device))
+        acc = acc + x.to(acc.device)
+    return before, acc
+
+
 def spec_axes(entry) -> tuple[str, ...]:
     """A spec entry (``None``, an axis name, or a tuple of them) → the
     tuple of axis names it splits its dimension over."""
@@ -107,7 +149,8 @@ def spec_axes(entry) -> tuple[str, ...]:
 
 
 def ring_map(kernel: Callable, tensors: Sequence[torch.Tensor], mesh: Mesh,
-             spec: Sequence, axis: str = "sp") -> torch.Tensor:
+             spec: Sequence, axis: str = "sp", *,
+             coords: dict[str, int] | None = None) -> torch.Tensor:
     """``shard_map`` for a kernel written over one ring: cut each global
     tensor by ``spec`` (the same spec in and out), place every shard on its
     mesh device, and call ``kernel(*shards, coords=...)`` once per group of
@@ -116,7 +159,8 @@ def ring_map(kernel: Callable, tensors: Sequence[torch.Tensor], mesh: Mesh,
     ``coords`` the group's coordinates. The kernel returns the output's
     shards in the same order; they are joined into one tensor on the first
     input's device. Mesh axes that ``spec`` leaves out replicate the work:
-    only their coordinate 0 runs."""
+    only one coordinate of them runs, ``coords``' (default 0) — a
+    lock-step position's ring runs on its own devices."""
     dims = [spec_axes(e) for e in spec]
     ndim = tensors[0].dim()
     if len(dims) > ndim:
@@ -160,15 +204,16 @@ def ring_map(kernel: Callable, tensors: Sequence[torch.Tensor], mesh: Mesh,
 
     home = tensors[0].device
     others = [a for a in mesh.axis_names if a != axis and a in used]
+    fixed = {a: i for a, i in (coords or {}).items() if a not in used}
     cuts = [cut(t) for t in tensors]
     grid = np.empty(pieces, dtype=object)
     for group in np.ndindex(*[sizes[a] for a in others]):
-        coords = dict(zip(others, group))
-        ring = [{**coords, axis: r} for r in range(sizes[axis])]
+        at = {**fixed, **dict(zip(others, group))}
+        ring = [{**at, axis: r} for r in range(sizes[axis])]
         devs = [mesh.device_at(**c) for c in ring]
         shards = [[parts[piece_of(c)].to(dev) for c, dev in zip(ring, devs)]
                   for parts in cuts]
-        outs = kernel(*shards, coords=coords)
+        outs = kernel(*shards, coords=at)
         for c, out in zip(ring, outs):
             grid[piece_of(c)] = out.to(home)
     for i in reversed(range(ndim)):

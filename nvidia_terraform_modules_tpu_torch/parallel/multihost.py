@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import gc
 import os
 import random
 import socket
@@ -192,6 +193,18 @@ def maybe_initialize_distributed(env: dict[str, str] | None = None, *,
             f"matches the Job's completions. Last error: {exc}") from exc
     return job
 
+
+
+def shutdown_distributed() -> None:
+    """Take the ``torch.distributed`` world down, then collect the cyclic
+    garbage while the interpreter is whole. Meshes, rules and engines
+    form reference cycles (a ``WorldMesh`` holds its process groups), so
+    without the collection the last references to the groups go in the
+    interpreter's final collection, and the groups' teardown there can
+    abort the process after its work is done ("terminate called without
+    an active exception", SIGABRT: one loaded gloo world in six)."""
+    dist.destroy_process_group()
+    gc.collect()
 
 def _preflight_coordinator(job: JobEnv, budget_s: float) -> float:
     """Bounded, classified wait for rank 0's store to be dialable: a plain

@@ -13,13 +13,18 @@ path (:meth:`ShardingRules.param_sharding`), and :func:`local_shard` cuts
 a global tensor into this rank's piece of a :class:`WorldMesh`.
 :class:`ShapeDtypeStruct` describes a leaf without holding it: its global
 shape and dtype, and where this rank's piece lives (the checkpoint
-engine's placement contract).
+engine's placement contract). :class:`Lockstep` is the one-process
+mesh's counterpart of a world's ranks: the positions that one process
+steps in turn, each with its device and its pieces of the global
+tensors.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
+import numpy as np
 import torch
 
 from .collectives import gather_dim, spec_axes
@@ -169,3 +174,90 @@ def gather_shards(x: torch.Tensor, spec: tuple,
         if n > 1:
             x = gather_dim(x, mesh.group(axes), n, dim)
     return x
+
+
+class Lockstep:
+    """The positions of a one-process :class:`Mesh` that the lock-step
+    form steps in turn — the counterpart of a world's ranks for the train
+    step and the decode path. A position is a data coordinate ``c`` (the
+    row-major index over the rules' data axes, the order in which
+    ``local_shard`` cuts a batch over them) and a ``tp`` member ``j``; it
+    sits at those coordinates with ``sp`` at 0 (``sp`` replicates outside
+    the attention, whose ring or all-to-all runs over the ``sp`` devices
+    of the position's line). Position ``(c, j)`` computes on its device
+    with its pieces of each global tensor (:meth:`piece`, the cut that
+    ``local_shard`` makes for the rank at the same coordinates); ``(c, 0)``
+    is data coordinate ``c``'s home, where its rows, its residual stream
+    and its loss live."""
+
+    def __init__(self, rules: ShardingRules):
+        mesh = rules.mesh
+        if isinstance(mesh, WorldMesh):
+            raise TypeError("a world mesh's ranks are processes: Lockstep "
+                            "steps a one-process mesh")
+        self.rules, self.mesh = rules, mesh
+        self.data_axes = tuple(a for a in rules.data if a in mesh.axis_names)
+        sizes = [mesh.shape[a] for a in self.data_axes]
+        self.n_data = math.prod(sizes)
+        self.tp = mesh.shape.get("tp", 1)
+        self.ep = mesh.shape.get("ep", 1)
+        self.data = [dict(zip(self.data_axes,
+                              (int(i) for i in np.unravel_index(c, sizes))))
+                     for c in range(self.n_data)]
+
+    def coords(self, c: int, j: int = 0) -> dict[str, int]:
+        """Position ``(c, j)``'s mesh coordinates (``sp`` 0)."""
+        out = dict(self.data[c])
+        if "tp" in self.mesh.axis_names:
+            out["tp"] = j
+        return out
+
+    def device(self, c: int, j: int = 0) -> torch.device:
+        return self.mesh.device_at(**self.coords(c, j))
+
+    def home(self, c: int) -> torch.device:
+        """Data coordinate ``c``'s home device: its ``tp`` member 0's."""
+        return self.device(c, 0)
+
+    def index(self, **coords: int) -> int:
+        """The data coordinate at ``coords`` (axes left out: 0)."""
+        return self.data.index({a: coords.get(a, 0) for a in self.data_axes})
+
+    def rows(self, x: torch.Tensor, c: int) -> torch.Tensor:
+        """Data coordinate ``c``'s rows of a global batch tensor (a view)."""
+        if x.shape[0] % self.n_data:
+            raise ValueError(f"{x.shape[0]} rows do not split over the data "
+                             f"axes {self.data_axes} ({self.n_data} ways)")
+        return x.chunk(self.n_data, dim=0)[c]
+
+    def slices(self, shape: tuple, spec: tuple, c: int,
+               j: int = 0) -> tuple:
+        """Position ``(c, j)``'s index (a slice a dimension) into a global
+        tensor of ``shape`` under ``spec``: each split dimension cut into
+        equal contiguous pieces in the line order of its axes, as
+        :func:`local_shard` cuts it (``sp`` is 0)."""
+        at = self.coords(c, j)
+        entries = tuple(spec) + (None,) * (len(shape) - len(spec))
+        out = []
+        for d, entry in zip(shape, entries):
+            axes = tuple(a for a in spec_axes(entry)
+                         if a in self.mesh.axis_names)
+            n = math.prod(self.mesh.shape[a] for a in axes)
+            if d % n:
+                raise ValueError(f"dimension {d} of {tuple(shape)} does not "
+                                 f"split {n} ways")
+            i = int(np.ravel_multi_index([at.get(a, 0) for a in axes],
+                                         [self.mesh.shape[a] for a in axes])
+                    ) if axes else 0
+            out.append(slice(i * d // n, (i + 1) * d // n))
+        return tuple(out)
+
+    def piece(self, x: torch.Tensor, spec: tuple, c: int,
+              j: int = 0) -> torch.Tensor:
+        """Position ``(c, j)``'s piece of the global tensor ``x`` under
+        ``spec`` (a view, :meth:`slices`; ``x`` itself where the piece is
+        the whole tensor, so that autograd adds no slice)."""
+        idx = self.slices(tuple(x.shape), spec, c, j)
+        if all(s.stop - s.start == d for s, d in zip(idx, x.shape)):
+            return x
+        return x[idx]

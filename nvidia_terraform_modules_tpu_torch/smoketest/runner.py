@@ -85,6 +85,7 @@ from ..parallel import (
     plan_mesh,
     plan_multislice,
     psum_probe,
+    shutdown_distributed,
 )
 from ..parallel.collectives import all_to_all_probe, world_max
 from ..parallel.multihost import rank_device
@@ -163,7 +164,7 @@ def _run_smoketest(
         ok, checks = _suite(expected_devices, level, e, job, dev)
     finally:
         if owned:
-            dist.destroy_process_group()
+            shutdown_distributed()
     return SmokeResult(bool(ok), checks, time.perf_counter() - t0)
 
 

@@ -98,6 +98,8 @@ from nvidia_terraform_modules_tpu_torch.ops.int8_matmul import (
 )
 from nvidia_terraform_modules_tpu_torch.ops.ring_attention import (
     dense_reference_attention,
+    shard_block_live,
+    shard_flash_attention,
 )
 from nvidia_terraform_modules_tpu_torch.parallel import build_mesh, plan_mesh
 
@@ -2358,3 +2360,173 @@ def test_warmed_engine_first_run_captures_nothing(cuda, tmp_path):
     assert {k: first.get(k, 0) for k in ("flash_fwd", "paged_decode")} \
         == {k: steady.get(k, 0) for k in ("flash_fwd", "paged_decode")}
     assert w2["hits"] == w2["registered"] == w1["registered"]
+
+
+# ------------------------------------------------- key offsets (windows)
+
+@pytest.mark.parametrize("s,h,d,dtype,window,offset", [
+    (128, 4, 128, torch.bfloat16, 100, 128),      # a window edge mid-block
+    (128, 4, 128, torch.bfloat16, 300, 128),      # fully visible
+    (128, 4, 128, torch.bfloat16, 190, 256),      # a corner of two blocks
+    (200, 2, 64, torch.bfloat16, 150, 200),       # ragged length
+    (128, 4, 128, torch.float32, 100, 128),
+    (200, 2, 64, torch.float32, 150, 200),
+    (128, 2, 128, torch.bfloat16, 1, 128),        # no row sees a key
+    (128, 2, 128, torch.bfloat16, None, 128),     # causal at an offset
+])
+def test_offset_kernels_match_plain(cuda, s, h, d, dtype, window, offset):
+    """K2, K5, K3 and K4 (f32 and input-dtype outputs) at a key offset
+    against their plain versions (the tolerances above); rows that see no
+    key keep m = -1e30 and l = 0 in both."""
+    g = torch.Generator().manual_seed(s + offset + (window or 0))
+    q, k, v, do = (_randn(g, (2, s, h, d), dtype, cuda) for _ in range(4))
+    mask = ("window", window) if window else "causal"
+    kw = dict(scale=d ** -0.5, mask=mask, q_offset=offset)
+    got = flash_partial(q, k, v, **kw)
+    ref = flash_partial_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    seen = ref[1] > -1e29
+    assert torch.equal(seen, got[1] > -1e29)
+    assert bool((got[2][~seen] == 0).all())
+    for a, r in ((got[0], ref[0]), (got[1][seen], ref[1][seen]),
+                 (got[2], ref[2])):
+        if r.numel():
+            lim = tol * max(1.0, r.abs().max().item())
+            assert (a - r).abs().max().item() <= lim
+    # the backward from a plausible LSE and delta (those of the block alone)
+    lm = ref[2].clamp_min(1e-30)
+    lse = ref[1] + torch.log(lm)
+    o = (ref[0] / lm.transpose(1, 2)[..., None]).to(dtype)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta)
+    btol = (2e-2, 1e-2) if dtype == torch.bfloat16 else (1e-4, 1e-4)
+    for out_dtype in {torch.float32, dtype}:
+        okw = dict(kw, out_dtype=out_dtype)
+        want = flash_dqdkv_ref(*args, **okw)
+        for got_b in (flash_dqdkv(*args, **okw),
+                      (flash_dq(*args, **okw), *flash_dkv(*args, **okw))):
+            torch.cuda.synchronize()
+            for a, r in zip(got_b, want):
+                assert a.dtype == out_dtype
+                diff = a.float() - r.float()
+                assert diff.abs().max().item() <= btol[0] * max(
+                    1.0, r.float().abs().max().item())
+                norm = r.float().norm().item()
+                if norm:
+                    assert diff.norm().item() / norm <= btol[1]
+
+
+def test_offset_zero_kernels_are_the_kernels_without_it(cuda):
+    """``q_offset=0`` is the kernels as they were: the same bits as the
+    call without the keyword (K2, and K3/K4, which have no atomics)."""
+    g = torch.Generator().manual_seed(23)
+    for mask in ("causal", ("window", 70)):
+        q, k, v, do = (_randn(g, (1, 200, 4, 128), torch.bfloat16, cuda)
+                       for _ in range(4))
+        a = flash_partial(q, k, v, scale=0.1, mask=mask)
+        b = flash_partial(q, k, v, scale=0.1, mask=mask, q_offset=0)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        args = _bwd_inputs(g, 1, 200, 4, 128, torch.bfloat16, cuda, mask)
+        assert torch.equal(flash_dq(*args, scale=0.1, mask=mask),
+                           flash_dq(*args, scale=0.1, mask=mask, q_offset=0))
+        assert all(torch.equal(x, y) for x, y in zip(
+            flash_dkv(*args, scale=0.1, mask=mask),
+            flash_dkv(*args, scale=0.1, mask=mask, q_offset=0)))
+
+
+@pytest.mark.parametrize("window", [64, 150, 1000])
+@pytest.mark.parametrize("backward", ["fused", "split"])
+def test_shard_flash_window_matches_whole_sequence(cuda, window, backward):
+    """Four 128-row shards of one sequence, windowed: the shard path's
+    outputs and dQ/dK/dV (K2, and K5 or K3 + K4, at key offsets) against
+    K1 and K5 on the whole sequence (f32: 1e-4), with a launch a live
+    block and none for a dead one."""
+    g = torch.Generator().manual_seed(window)
+    n, s = 4, 128
+    q, k, v, do = (_randn(g, (1, n * s, 4, 64), torch.float32, cuda)
+                   for _ in range(4))
+    mask = ("window", window)
+    o1, lse1 = flash_attention_fwd(q, k, v, mask=mask)
+    want = flash_dqdkv(q, k, v, do, lse1, (do * o1).sum(-1).transpose(
+        1, 2).contiguous(), scale=64 ** -0.5, mask=mask)
+    qs, ks, vs = (x.clone().requires_grad_(True) for x in (q, k, v))
+    live = sum(shard_block_live(i, j, s, window) for i in range(n)
+               for j in range(n))
+    before = dict(launches)
+    outs = [shard_flash_attention(qs[:, i * s:(i + 1) * s], ks, vs, i,
+                                  window=window, backward=backward)
+            for i in range(n)]
+    out = torch.cat(outs, dim=1)
+    grads = torch.autograd.grad(out, (qs, ks, vs), do)
+    torch.cuda.synchronize()
+    names = (["flash_partial", "flash_bwd_fused"] if backward == "fused"
+             else ["flash_partial", "flash_dq", "flash_dkv"])
+    assert {n_: launches[n_] - before[n_] for n_ in names} == {
+        n_: live for n_ in names}
+    assert live < n * (n + 1) // 2 or window >= 2 * s
+    for a, r in ((out, o1), *zip(grads, want)):
+        assert (a - r).abs().max().item() <= 1e-4 * max(
+            1.0, r.abs().max().item())
+
+
+# ------------------------------------------ the one-process decode path
+
+def _one_process_rules(dev, n=2, **plan):
+    from nvidia_terraform_modules_tpu_torch.parallel import make_rules
+
+    return make_rules(build_mesh(plan_mesh(n, **plan), devices=[dev] * n))
+
+
+@pytest.mark.parametrize("kv", [4, 1])
+def test_one_process_engine_equals_unsharded(cuda, kv):
+    """The engine's ``run(rules=)`` on ``[cuda:0] * 2`` (tp 2: each
+    member's KV heads in its own pool buffers, K7 a layer a member a wave)
+    serves the unsharded engine's f32 tokens."""
+    cfg = BurnInConfig(vocab=128, d_model=256, n_heads=4, n_kv_heads=kv,
+                       d_ff=256, n_layers=2, dtype=torch.float32,
+                       attn="flash")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(3),
+                         device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    prompts = [torch.randint(0, 128, (n,), generator=g, device=cuda)
+               for n in (5, 9, 3, 14)]
+    engine = make_serve_engine(params, cfg, max_len=40, kv_block=8,
+                               device=cuda)
+    plain = engine(prompts, 8, slots=2)
+    rules = _one_process_rules(cuda, tp=2)
+    before = launches["paged_decode"]
+    got = engine(prompts, 8, slots=2, rules=rules)
+    torch.cuda.synchronize()
+    assert launches["paged_decode"] > before
+    assert (launches["paged_decode"] - before) % (2 * cfg.n_layers) == 0
+    assert all(torch.equal(a, b) for a, b in zip(got, plain))
+
+
+def test_one_process_decoder_graph_equals_eager(cuda):
+    """``make_decoder(cfg, rules)`` on ``[cuda:0] * 2``: the replayed
+    graph of the lock-step steps (the int8 cache: K6 a layer a member a
+    step) equals the eager ``greedy_decode(rules=)`` and the unsharded
+    decode, call after call — also after the weights change in place."""
+    cfg = BurnInConfig(vocab=128, d_model=256, n_heads=4, d_ff=256,
+                       n_layers=2, dtype=torch.float32, attn="flash")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(5),
+                         device=cuda)
+    prompt = torch.randint(0, 128, (3, 16), device=cuda,
+                           generator=torch.Generator(
+                               device=cuda).manual_seed(6))
+    rules = _one_process_rules(cuda, tp=2)
+    dec = make_decoder(cfg, rules, 10, cache_dtype="int8", device=cuda)
+    dec(params, prompt)        # the first call's eager warm-ups and capture
+    for _ in range(2):
+        want = greedy_decode(params, prompt, 10, cfg, cache_dtype="int8",
+                             device=cuda)
+        eager = greedy_decode(params, prompt, 10, cfg, rules,
+                              cache_dtype="int8", device=cuda)
+        before = launches["kv_decode"]
+        got = dec(params, prompt)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(eager, want)
+        assert launches["kv_decode"] - before == 9 * cfg.n_layers * 2
+        with torch.no_grad():                 # new values, same tensors
+            params["layers"][0]["wq"].mul_(-1.0)

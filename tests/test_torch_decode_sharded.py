@@ -303,14 +303,62 @@ def test_worlds_meshes(worlds):
 
 
 def test_check_serve_rules_refuses_a_one_process_mesh():
-    """A one-process mesh with an axis above 1 (``tp`` 2 over one CPU
-    named twice) stays refused on the decode path, naming its ROADMAP
-    item; one whose axes are all 1 passes."""
-    cfg = BurnInConfig(**BASE, dtype=torch.float32)
-    rules = make_rules(build_mesh(plan_mesh(2, tp=2),
-                                  devices=[torch.device("cpu")] * 2))
-    with pytest.raises(NotImplementedError,
-                       match=r"one-process mesh \{'tp': 2\}.*Queue A item 6"):
+    """A one-process mesh (one CPU named twice or four times) is no longer
+    refused on the decode path: the lock-step form (``tp`` members in
+    turn, ``sp`` and the data axes replicated) gives the reference's
+    tokens — ``greedy_decode`` and ``make_decoder`` over the bf16 and the
+    int8 cache, ``sample_decode``, int8 weights through
+    ``make_quantized_decoder`` and the speculative decoder's tokens and
+    verification steps — for MHA and one KV head (which tp 2 does not
+    divide: each member's cache holds it whole) on tp 2, on dp 2 × tp 2,
+    and for MoE on ep 2 × tp 2. A ``tp`` that does not divide the heads
+    is still a ValueError."""
+    from nvidia_terraform_modules_tpu_torch.models import (
+        greedy_decode,
+        make_decoder,
+        make_quantized_decoder,
+        params_from_numpy,
+        quantize_params,
+        sample_decode,
+        speculative_greedy_decode,
+    )
+
+    cpu = torch.device("cpu")
+    for n, plan, name in ((2, dict(tp=2), "mha"), (2, dict(tp=2), "kv_one"),
+                          (4, dict(tp=2), "mha"),
+                          (4, dict(tp=2, ep=2), "moe_e4_top2")):
+        rules = make_rules(build_mesh(plan_mesh(n, **plan),
+                                      devices=[cpu] * n))
+        runs = CASES[name][1]
+        cfg = BurnInConfig(**BASE, **CASES[name][0], dtype=torch.float32)
         check_serve_rules(rules, cfg)
-    check_serve_rules(make_rules(build_mesh(
-        plan_mesh(1), devices=[torch.device("cpu")])), cfg)
+        _, jp, prompts = _case(name)
+        params = params_from_numpy(jax.tree.map(np.asarray, jp), cfg,
+                                   device="cpu")
+        prompt = torch.from_numpy(prompts).long()
+        for cache_dtype in ("bf16", "int8"):
+            want = _want(name, f"greedy_{cache_dtype}").tolist()
+            assert greedy_decode(params, prompt, N_NEW, cfg, rules,
+                                 cache_dtype=cache_dtype,
+                                 device=cpu).tolist() == want
+            assert make_decoder(cfg, rules, N_NEW, cache_dtype=cache_dtype,
+                                device=cpu)(params, prompt).tolist() == want
+        if "sample" in runs:
+            assert sample_decode(
+                params, prompt, N_NEW, cfg, SEED, rules, temperature=2.0,
+                top_k=40, device=cpu).tolist() == _want(
+                name, "sample_bf16").tolist()
+        if "int8_weights" in runs:
+            q = quantize_params(params, torch.float32, rules)
+            assert make_quantized_decoder(
+                cfg, rules, N_NEW, dtype=torch.float32, cache_dtype="int8",
+                device=cpu)(q, prompt).tolist() == _want(
+                name, "int8_weights").tolist()
+        if "spec" in runs:
+            toks, steps = speculative_greedy_decode(
+                params, prompt[:1], N_NEW, cfg, rules, k=2, device=cpu)
+            assert (toks.tolist(), steps) == tuple(_want(name, "spec"))
+    bad = BurnInConfig(**{**BASE, "n_heads": 2}, dtype=torch.float32)
+    with pytest.raises(ValueError, match="tp = 4 must divide"):
+        check_serve_rules(make_rules(build_mesh(
+            plan_mesh(4, tp=4), devices=[cpu] * 4)), bad)

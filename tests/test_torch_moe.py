@@ -136,14 +136,28 @@ def test_capacity_matches_reference():
                     jmoe.expert_capacity(tokens, e, factor)
 
 
-def test_moe_layer_refuses_a_sharded_mesh():
-    _, cfg = _cfgs(n_layers=1)
-    params = init_params(cfg, torch.Generator().manual_seed(0),
-                         device="cpu")["layers"][0]["moe"]
-    rules = make_rules(build_mesh(plan_mesh(2, sp=2),
-                                  devices=[torch.device("cpu")] * 2))
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        moe_layer(torch.zeros((1, 4, 32)), params, cfg, rules)
+@pytest.mark.parametrize("plan", [dict(sp=2), dict(tp=2), dict(ep=2, tp=1),
+                                  dict(ep=2, tp=2)],
+                         ids=["sp2", "dp2", "ep2", "ep2xtp2"])
+def test_moe_layer_refuses_a_sharded_mesh(plan):
+    """A one-process mesh is no longer refused: the lock-step layer
+    (``lockstep_moe``; rows over the data axes, experts over ``ep``,
+    ``d_ff`` over ``tp``) gives the reference's unsharded ``moe_layer``
+    output and aux (atol 1e-5, as above), top-2 at a capacity that
+    drops tokens."""
+    jcfg, cfg = _cfgs(n_layers=1, batch=4, seq_len=8, router_top_k=2,
+                      capacity_factor=0.5)
+    jp = jmoe.init_moe_params(jax.random.PRNGKey(5), jcfg)
+    x = np.random.default_rng(5).normal(size=(4, 8, 32)).astype(np.float32)
+    want, want_aux = jax.jit(jmoe.moe_layer, static_argnums=2)(
+        jnp.asarray(x), jp, jcfg)
+    n = 4 if len(plan) > 1 or "tp" in plan else 2
+    rules = make_rules(build_mesh(plan_mesh(n, **plan),
+                                  devices=[torch.device("cpu")] * n))
+    got, aux = moe_layer(torch.from_numpy(x), _layer_params(jp), cfg, rules)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_allclose(aux.item(), float(want_aux), atol=1e-5)
 
 
 # ------------------------------------------------------------ the trees

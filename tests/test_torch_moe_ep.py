@@ -40,8 +40,10 @@ from nvidia_terraform_modules_tpu.models import burnin as jburnin
 from nvidia_terraform_modules_tpu.models import optimizer as jopt
 from nvidia_terraform_modules_tpu_torch.models import (
     BurnInConfig,
+    make_grads_fn,
     make_train_step,
     params_from_numpy,
+    params_to_numpy,
     synthetic_batch,
     tree_leaves,
 )
@@ -296,18 +298,43 @@ def test_world_of_one_moe_step_equals_unsharded_bitwise(world_of_one, case):
 
 
 def test_moe_refuses_sp_and_an_ep_that_does_not_divide():
-    """``sp > 1`` with MoE stays refused on a one-process mesh, and an
-    ``ep`` that does not divide the experts is a ValueError; on a world
-    mesh ``sp > 1`` is now accepted (the burn-in gathers the sequence
+    """``sp > 1`` with MoE is accepted on a one-process mesh too (the
+    lock-step form routes each data coordinate's whole rows): on sp 2 and
+    on ep 2 × sp 2 the loss and every gradient equal the reference's
+    unsharded ones, top-2 at a capacity that drops (atol 1e-5, rtol
+    1e-4). An ``ep`` that does not divide the experts is a ValueError; on
+    a world mesh ``sp > 1`` is accepted (the burn-in gathers the sequence
     before routing: ``tests/test_torch_sp_world.py`` holds it to the
     reference)."""
     from nvidia_terraform_modules_tpu_torch.models.moe import check_rules
 
     cfg = BurnInConfig(**BASE, dtype=torch.float32)
-    rules = make_rules(build_mesh(plan_mesh(2, sp=2),
-                                  devices=[torch.device("cpu")] * 2))
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+    over = CASES["top2_drop"]
+    jcfg = jburnin.BurnInConfig(**BASE, **over, dtype=jnp.float32)
+    jp = jburnin.init_params(jax.random.PRNGKey(9), jcfg)
+    stream = np.random.default_rng(9).integers(
+        0, BASE["vocab"], size=(BASE["batch"], BASE["seq_len"] + 1),
+        dtype=np.int32)
+    jb = (jnp.asarray(stream[:, :-1]), jnp.asarray(stream[:, 1:]))
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda q: jburnin.loss_fn(q, jb, jcfg)))(jp)
+    tcfg = BurnInConfig(**BASE, **over, dtype=torch.float32)
+    params = params_from_numpy(jax.tree.map(np.asarray, jp), tcfg,
+                               device="cpu")
+    tb = tuple(torch.from_numpy(x).long() for x in (stream[:, :-1],
+                                                    stream[:, 1:]))
+    for n, plan in ((2, dict(sp=2)), (4, dict(ep=2, sp=2))):
+        rules = make_rules(build_mesh(plan_mesh(n, **plan),
+                                      devices=[torch.device("cpu")] * n))
         check_rules(rules, cfg)
+        loss, grads = make_grads_fn(tcfg, rules)(params, tb)
+        np.testing.assert_allclose(float(loss), float(jloss), atol=1e-5,
+                                   rtol=1e-4)
+        for (path, w), g in zip(jax.tree_util.tree_leaves_with_path(jgrads),
+                                jax.tree_util.tree_leaves(
+                                    params_to_numpy(grads))):
+            np.testing.assert_allclose(g, np.asarray(w), atol=1e-5,
+                                       rtol=1e-4, err_msg=str(path))
 
     from nvidia_terraform_modules_tpu_torch.parallel.mesh import WorldMesh
 

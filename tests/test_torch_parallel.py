@@ -13,7 +13,9 @@ the JAX reference:
   ``build_mesh(plan_mesh(4, tp=1, sp=4), devices=jax.devices()[:4])``:
   loss and every gradient (f32, weights carried by ``params_from_numpy``),
   then three SGD steps;
-- the refusals: dp or tp above 1, and the sharded AdamW step.
+- the burn-in on one-process meshes with dp or tp above 1 beside sp
+  (tp 2 × sp 2, dp 2 × sp 2: the lock-step form), loss and gradients
+  against the reference's on the same plan, and the sharded AdamW step.
 
 Tolerances (f32): loss and gradients atol 1e-5, rtol 1e-4 (the reference's
 8-row shards run its interpret-mode flash sweeps, the port's the plain
@@ -246,7 +248,8 @@ def test_sharded_burnin_places_on_the_mesh_and_runs_its_attention(
 
     monkeypatch.setattr(tburnin, "ring_self_attention", spy)
     logits, _ = forward_and_aux(params, batch[0], cfg, rules)
-    assert calls == [("dp", "sp", "tp", None)] * cfg.n_layers
+    # one ring a lock-step position, over the sp line at its coordinates
+    assert calls == [(None, "sp", None, None)] * cfg.n_layers
     dense, _ = forward_and_aux(params, batch[0], cfg)
     assert len(calls) == cfg.n_layers
     assert torch.allclose(logits, dense, atol=1e-5, rtol=0)
@@ -254,15 +257,34 @@ def test_sharded_burnin_places_on_the_mesh_and_runs_its_attention(
 
 def test_sharded_training_refusals(jrules):
     cfg = BurnInConfig(**BASE, attn="ring", dtype=torch.float32)
+    jcfg = jburnin.BurnInConfig(**BASE, attn="ring", dtype=jnp.float32)
+    # tp 2 × sp 2 and dp 2 × sp 2 on one process are no longer refused:
+    # the lock-step form runs the ring over each position's sp line; the
+    # loss and gradients equal the reference's (unsharded: its ring without
+    # rules is the same dense function; atol 1e-5, rtol 1e-4), and
+    # init_params / synthetic_batch stay global on the mesh's first device
+    jp = jburnin.init_params(jax.random.PRNGKey(5), jcfg)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    stream = np.random.default_rng(5).integers(
+        0, BASE["vocab"], size=(BASE["batch"], BASE["seq_len"] + 1),
+        dtype=np.int32)
+    jb = (jnp.asarray(stream[:, :-1]), jnp.asarray(stream[:, 1:]))
+    tb = tuple(torch.from_numpy(x.astype(np.int64))
+               for x in (stream[:, :-1], stream[:, 1:]))
     gen = torch.Generator().manual_seed(0)
+    jloss, jgrads = jax.jit(jax.value_and_grad(jburnin.loss_fn),
+                            static_argnums=2)(jp, jb, jcfg)
     for kw in (dict(tp=2, sp=2), dict(tp=1, sp=2)):   # tp = 2, dp = 2
         rules = make_rules(_tmesh(4, **kw))
-        for call in (lambda: make_train_step(cfg, rules),
-                     lambda: make_grads_fn(cfg, rules),
-                     lambda: init_params(cfg, gen, rules=rules),
-                     lambda: synthetic_batch(gen, cfg, rules=rules)):
-            with pytest.raises(NotImplementedError, match="Queue A item 6"):
-                call()
+        loss, grads = make_grads_fn(cfg, rules)(tp, tb)
+        np.testing.assert_allclose(float(loss), float(jloss), atol=1e-5,
+                                   rtol=1e-4)
+        _assert_trees_close(params_to_numpy(grads), jgrads, atol=1e-5,
+                            rtol=1e-4)
+        assert init_params(cfg, gen, rules=rules)["embed"].device == CPU
+        assert synthetic_batch(gen, cfg, rules=rules)[0].shape == (
+            BASE["batch"], BASE["seq_len"])
+        make_train_step(cfg, rules)
     # AdamW over an sp mesh is no longer refused (ZeRO-1 has no data axis
     # to shard over there): two steps of the ring equal the reference's
     # make_adamw_train_step(cfg, rules) on the same plan — losses 1e-5

@@ -3,18 +3,20 @@
 """PyTorch port, the data- and tensor-parallel SGD step over a
 ``torch.distributed`` world against the JAX reference's unsharded
 ``make_train_step``: one gloo world of 4 CPU ranks (``_torch_world.py``)
-runs seven meshes — dp 2 × tp 2, tp 4, dp 2 × tp 2 with grouped-query
+runs nine meshes — dp 2 × tp 2, tp 4, dp 2 × tp 2 with grouped-query
 attention (2 KV heads), the three that the port refused before the
 sequence ran over processes: MoE on dp 2 × sp 2, the ring on sp 2 × tp 2
-and Ulysses on sp 4 (both with RoPE), and flash on sp 4 (each shard's
-queries against the gathered K/V) — for 3 SGD steps each from the
-reference's ``init_params`` weights and one seeded numpy batch. It also
-checks that ``shard_params`` and ``gather_params`` reassemble the tree
-exactly, that ``shard_batch`` cuts rows over the data axes and the
+and Ulysses on sp 4 (both with RoPE), flash on sp 4 (each shard's
+queries against the gathered K/V), and flash with a sliding window on
+sp 4 and on sp 2 × tp 2 (K2 and the backward kernels at each block's key
+offset; the window of 6 spans two of sp 4's 4-row shards, the window of
+5 reaches into the block before an 8-row shard) — for 3 SGD steps each
+from the reference's ``init_params`` weights and one seeded numpy batch.
+It also checks that ``shard_params`` and ``gather_params`` reassemble the
+tree exactly, that ``shard_batch`` cuts rows over the data axes and the
 sequence over ``sp``, and the refusals that remain (a ``tp`` that the
-heads, KV heads or FFN do not divide; a flash window with ``sp``). In
-this process, a world of one runs the unsharded step's operations bit
-for bit.
+heads, KV heads or FFN do not divide). In this process, a world of one
+runs the unsharded step's operations bit for bit.
 
 Tolerances (f32): the tied head's partial logits and the mean over dp
 change the order of sums, so losses agree within 1e-5 relative and each
@@ -62,6 +64,11 @@ CASES = {
     "sp4": (dict(tp=1, sp=4), dict(attn="ulysses", rope=True)),
     # flash over sp: each shard's queries against the gathered K/V
     "flash_sp4": (dict(tp=1, sp=4), dict(attn="flash", rope=True)),
+    # a sliding window across the shards: K2 and K5 at key offsets
+    "flash_window_sp4": (dict(tp=1, sp=4),
+                         dict(attn="flash", flash_window=6, rope=True)),
+    "flash_window_sp2xtp2": (dict(tp=2, sp=2),
+                             dict(attn="flash", flash_window=5)),
 }
 
 
@@ -131,8 +138,6 @@ def test_shard_params_reassembles_and_rows_split(world, name):
     ("tp_heads", "ValueError", "tp = 4 must divide n_heads (2)"),
     ("tp_kv_heads", "ValueError", "n_kv_heads (2)"),
     ("tp_d_ff", "ValueError", "d_ff (66)"),
-    ("sp_flash_window", "NotImplementedError",
-     "flash_window with sp = 2 over processes is not ported"),
 ])
 def test_refusals(world, case, kind, words):
     ranks, _ = world

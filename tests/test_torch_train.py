@@ -202,11 +202,21 @@ def test_config_validation_and_unported_levers():
             BurnInConfig(**kw)
         with pytest.raises(ValueError, match=match):
             jburnin.BurnInConfig(**kw)
-    cfg = BurnInConfig(**BASE, dtype=torch.float32)
-    # rules over a mesh with dp = 2: the port does not shard the batch yet
+    # rules over a one-process mesh with dp = 2 (one CPU named twice): the
+    # lock-step form cuts the batch rows over dp; the loss and every
+    # gradient equal the reference's unsharded value_and_grad (atol 1e-5,
+    # rtol 1e-4, as above)
+    jcfg, jp, tcfg, tp = _pair(seed=4, attn="dense")
+    batch = _batch(tcfg, 4)
     rules = make_rules(build_mesh(plan_mesh(2, tp=1),
                                   devices=[torch.device("cpu")] * 2))
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        make_grads_fn(cfg, rules=rules)
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        loss_fn({}, (None, None), cfg, rules=rules)
+    jloss, jgrads = jax.value_and_grad(jburnin.loss_fn)(
+        jp, tuple(jnp.asarray(x) for x in batch), jcfg)
+    loss, grads = make_grads_fn(tcfg, rules=rules)(tp, _tbatch(batch))
+    np.testing.assert_allclose(float(loss), float(jloss), atol=1e-5,
+                               rtol=1e-4)
+    _assert_trees_close(params_to_numpy(grads), jgrads, atol=1e-5,
+                        rtol=1e-4)
+    np.testing.assert_allclose(
+        float(loss_fn(tp, _tbatch(batch), tcfg, rules=rules)), float(jloss),
+        atol=1e-5, rtol=1e-4)

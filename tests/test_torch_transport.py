@@ -23,6 +23,7 @@ import multiprocessing as mp
 import pickle
 import threading
 import weakref
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -584,3 +585,53 @@ def test_fleet_multiproc_seed_by_killstep_matrix_slow():
                 _assert_all_equal(out, want, label)
     finally:
         tr.close()
+
+
+_EXIT_SCRIPT = """
+import sys, threading, time, torch
+from nvidia_terraform_modules_tpu_torch.models.fleet import (
+    _FleetQueue, _take_next)
+from nvidia_terraform_modules_tpu_torch.models.transport import start_worker
+torch.set_num_threads(1)
+x = torch.randn(512, 512)
+
+def busy():
+    for _ in range(400):
+        x @ x
+
+mode = sys.argv[1]
+if mode == "daemon":
+    threading.Thread(target=busy, daemon=True).start()
+elif mode == "worker":
+    start_worker(busy, "busy")
+else:           # a prefill worker idle on an open, empty queue
+    q = _FleetQueue(time.monotonic(), 0.01, lambda *a: None)
+    start_worker(_take_next, "idle", (q,), queue=q)
+time.sleep(0.3)
+"""
+
+
+@pytest.mark.parametrize("mode", ["daemon", "worker", "idle"])
+def test_workers_are_joined_before_the_interpreter_finalizes(mode):
+    """A daemon thread still inside a PyTorch operation when the main
+    thread exits aborts the process as the interpreter finalizes
+    ("terminate called without an active exception", -6): the fault a
+    gloo rank showed after its work was done. ``start_worker`` threads are
+    joined at exit, so such a process exits 0; one idle on an open queue
+    is halted at its next poll, so the exit does not wait out the join's
+    bound."""
+    import subprocess
+    import sys
+    import time
+
+    t0 = time.monotonic()
+    done = subprocess.run([sys.executable, "-c", _EXIT_SCRIPT, mode],
+                          capture_output=True, text=True, timeout=120,
+                          cwd=str(Path(__file__).resolve().parents[1]))
+    took = time.monotonic() - t0
+    if mode == "daemon":
+        assert done.returncode == -6, (done.returncode, done.stderr[-500:])
+        assert "terminate called without an active exception" in done.stderr
+    else:
+        assert done.returncode == 0, done.stderr[-2000:]
+        assert took < 30, took
