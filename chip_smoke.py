@@ -191,7 +191,24 @@ It builds the port's CUDA kernels from ``csrc/`` with nvcc (into
   from the cache in a fresh process with an empty build directory beside
   the run's ``nvcc`` build, and an autoscaled fleet's joiner with and
   without the cache (spawn → first admission, the warm, launch → first
-  admission).
+  admission);
+- the last modules (``analysis/``, ``utils/data.py``, the remote
+  checkpoint backend): first of all, ``lint_runtime`` — the port's
+  graftlint over the installed package, as the Job's preflight runs it
+  (no finding, at most 10 suppressions), and every CLI run's line shows
+  ``lint_runtime_ok``; ``train_stream_flagship`` — the flagship fused step
+  (K1 + K5, a layer a step) fed by ``input_pipeline`` on the card in turns
+  with the fixed batch, every batch the host stream's arrays bit for bit,
+  the pinned copies on a stream of their own (profiled), the host draw's
+  ms and whether the host sits on the step's critical path;
+  ``train_checkpoint_remote_flagship`` — the flagship AdamW state through
+  the ``fsspec`` backend at a ``file://`` URL (restored bit for bit, the
+  split step's exact resume through K3 + K4, save and restore bytes a
+  second beside the local backend's), a truncated shard quarantined, a
+  step without a manifest never listed, ``gs://`` without ``gcsfs``
+  refused with nothing written locally; and the checkpointed CLI's fresh
+  and resumed runs on a ``file://`` URL
+  (``smoketest_cli_checkpoint_remote``).
 
 Every phase prints one JSON line; any failure raises and the script exits
 non-zero. Without a CUDA device it exits 1 and prints no result; it
@@ -5177,9 +5194,10 @@ def train_ring_profile(params, dev) -> dict:
 
 
 # the validation Job's legs that the card must pass (the CLI's JSON line)
-SMOKETEST_LEGS = ("psum_ok", "burnin_ok", "decode_ok", "serve_engine_ok",
-                  "serve_sched_ok", "paged_decode_ok", "serve_fleet_ok",
-                  "fleet_chaos_ok", "kv_spill_ok", "aot_warm_ok")
+SMOKETEST_LEGS = ("lint_runtime_ok", "psum_ok", "burnin_ok", "decode_ok",
+                  "serve_engine_ok", "serve_sched_ok", "paged_decode_ok",
+                  "serve_fleet_ok", "fleet_chaos_ok", "kv_spill_ok",
+                  "aot_warm_ok")
 # SGD steps from one set of weights for the sharded/unsharded comparison
 SHARDED_STEPS = 3
 # the flagship train state through the checkpoint engine: AdamW steps of
@@ -5196,7 +5214,8 @@ CKPT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
 _WORLD_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
                "MASTER_ADDR", "MASTER_PORT", "TPU_SMOKETEST_HOSTS",
                "TPU_SMOKETEST_PLATFORM", "TPU_SMOKETEST_CHECKPOINT_DIR",
-               "TPU_SMOKETEST_SLICES", "TPU_TELEMETRY_DIR")
+               "TPU_SMOKETEST_SLICES", "TPU_TELEMETRY_DIR",
+               "TPU_SMOKETEST_LINT_DIR")
 
 
 # the window across sequence shards: one sequence of RING_SP blocks of the
@@ -5760,10 +5779,11 @@ def smoketest_cli() -> dict:
                              checks["burnin_last_loss"]])
 
 
-def smoketest_cli_checkpoint(root: str) -> dict:
+def smoketest_cli_checkpoint(root: str, remote: bool = False) -> dict:
     """The CLI at ``burnin`` with ``TPU_SMOKETEST_CHECKPOINT_DIR`` set to
-    a fresh directory under ``root``, three times, as a spot pool's Job
-    meets it:
+    a fresh directory under ``root`` (``remote``: a ``file://`` URL of
+    one, the remote backend, runs 1 and 2 only), three times, as a spot
+    pool's Job meets it:
 
     1. fresh: every leg passes, 5 steps saved, the directory cleared (no
        step left in it);
@@ -5786,8 +5806,10 @@ def smoketest_cli_checkpoint(root: str) -> dict:
         save_checkpoint,
     )
 
-    d = os.path.join(root, "smoketest")
-    shutil.rmtree(d, ignore_errors=True)
+    local = os.path.join(root, "smoketest_remote" if remote
+                         else "smoketest")
+    shutil.rmtree(local, ignore_errors=True)
+    d = f"file://{local}" if remote else local
 
     def plant():
         # the runner's config in a world of one: batch max(8, 2 · 1)
@@ -5797,7 +5819,7 @@ def smoketest_cli_checkpoint(root: str) -> dict:
         save_checkpoint(d, 3, params)
 
     def truncate():
-        step = os.path.join(d, "step_00000003")
+        step = os.path.join(local, "step_00000003")
         (shard,) = [os.path.join(step, f) for f in os.listdir(step)
                     if f.endswith(".bin")]
         with open(shard, "r+b") as fh:
@@ -5810,7 +5832,7 @@ def smoketest_cli_checkpoint(root: str) -> dict:
                                    burnin_checkpoint_saved=8)),
             ("quarantine", lambda: (plant(), truncate()),
              dict(checkpoint_quarantined=1, burnin_step=5,
-                  burnin_checkpoint_saved=5))):
+                  burnin_checkpoint_saved=5)))[:2 if remote else 3]:
         if prepare is not None:
             prepare()
         checks, wall_s = _run_cli(TPU_SMOKETEST_CHECKPOINT_DIR=d)
@@ -5826,8 +5848,9 @@ def smoketest_cli_checkpoint(root: str) -> dict:
         runs[name] = dict(wall_s=wall_s, seconds=checks["seconds"],
                           leg_seconds=checks["leg_seconds"],
                           leg_launches=checks["leg_launches"],
+                          lint_runtime_ok=checks["lint_runtime_ok"],
                           cleared=checks["burnin_checkpoint_cleared"], **got)
-    shutil.rmtree(d)
+    shutil.rmtree(local)
     return runs
 
 
@@ -6192,6 +6215,352 @@ def train_checkpoint_flagship(params, dev, root: str) -> tuple[dict, dict]:
                              f"expected {expect}")
     return rec, {**launches, **{k: c for k, c in resume_launches.items()
                                 if k in ("flash_dq", "flash_dkv")}}
+
+
+# the stream-fed flagship step: the input pipeline's seed, prefetch depth
+# and timed steps (each run of them ends in one synchronise, so the
+# pipeline's copies and the next batch's host draw can overlap the step)
+STREAM_SEED, STREAM_PREFETCH, STREAM_STEPS = 5, 2, 8
+# host draws of token_stream timed for its per-batch cost (median)
+STREAM_HOST_DRAWS = 5
+
+
+def lint_runtime() -> dict:
+    """The port's graftlint over the installed package, as the Job's
+    preflight runs it (no device needed): seconds, rules run, findings
+    (none allowed) and inline suppressions (at most 10, each with a
+    reason)."""
+    import nvidia_terraform_modules_tpu_torch as port
+    from nvidia_terraform_modules_tpu_torch.analysis import (
+        PyContext,
+        list_rules,
+        run_graftlint,
+    )
+
+    pkg = os.path.dirname(os.path.abspath(port.__file__))
+    t0 = time.monotonic()
+    ctx = PyContext(pkg)
+    findings = run_graftlint(pkg, ctx=ctx)
+    seconds = time.monotonic() - t0
+    subs = ctx.count_suppressions()
+    if findings or len(subs) > 10 or not all(r for _, _, r in subs):
+        raise AssertionError(
+            f"lint_runtime: {len(findings)} finding(s) "
+            f"{[str(f) for f in findings][:10]}, suppressions {subs}")
+    return dict(seconds=seconds, files=len(ctx.files),
+                rules=len(list_rules()), findings=0,
+                suppressions=len(subs))
+
+
+def _stream_profile(run) -> dict:
+    """``run()`` under torch.profiler (a second profile if the first holds
+    no pinned copy or no flash kernel: the tracer can drop a block of
+    records, ``profiled``): the device streams of the pinned host→device
+    copies and of the flash kernels (K1, K5). A pinned copy on a stream
+    of the step's kernels fails the phase."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nvidia_terraform_modules_tpu_torch.utils.timing import sync
+
+    copies, steps, memcpys = set(), set(), set()
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            sync()
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            if "Memcpy" in e.name:
+                memcpys.add(e.name)
+            if "HtoD" in e.name and "Pinned" in e.name:
+                copies.add(e.device_resource_id)
+            elif "flash_fwd" in e.name or "flash_bwd" in e.name:
+                steps.add(e.device_resource_id)
+        if copies and steps:
+            break
+    rec = {"copy_streams": sorted(copies), "step_streams": sorted(steps),
+           "memcpy_names": sorted(memcpys), "profiles": attempt + 1}
+    if copies & steps:
+        raise AssertionError(f"train_stream_flagship: pinned copies on "
+                             f"the step's streams: {rec}")
+    if not copies or not steps:
+        return {"not_measured": True, **rec}
+    return {"separate": True, **rec}
+
+
+def train_stream_flagship(params, dev, fixed_step_ms: float) -> tuple[dict,
+                                                                       dict]:
+    """The flagship fused SGD step (K1 + K5) fed by
+    ``utils/data.input_pipeline`` on the card — token_stream's host draw,
+    pinned staging, copies on the pipeline's stream — against the same
+    step on the fixed ``synthetic_batch``, in turns (fixed, stream,
+    stream, fixed), each run STREAM_STEPS steps ending in one synchronise.
+    Every batch the step took equals the host stream's arrays bit for
+    bit; K1 and K5 launch a layer a step; the copies run on a stream of
+    their own (a profiled step). Also the host ms of one token_stream
+    batch, and whether the host sits on the step's critical path: the
+    host's loop (the draw, the copies' issue, the step's launches) takes
+    90 % or more of the step's time, so the card waits on it. Returns the
+    record and the stream runs' launches."""
+    import numpy as np
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import make_train_step
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+    from nvidia_terraform_modules_tpu_torch.utils import (
+        input_pipeline,
+        token_stream,
+    )
+    from nvidia_terraform_modules_tpu_torch.utils.timing import sync
+
+    cfg, fixed = _flagship_train(dev)
+    step = make_train_step(cfg, lr=TRAIN_LR, device=dev)
+    stream = input_pipeline(cfg, seed=STREAM_SEED, prefetch=STREAM_PREFETCH)
+    host = token_stream(cfg, seed=STREAM_SEED)
+    taken: list = []
+
+    host_loop: dict = {"fixed": [], "stream": []}
+
+    def run(batches, label=None) -> float:
+        p = params
+        t0 = time.monotonic()
+        for _ in range(STREAM_STEPS):
+            batch = next(batches)
+            taken.append(batch)
+            p, loss = step(p, batch)
+        t1 = time.monotonic()
+        sync()
+        if label is not None:
+            host_loop[label].append((t1 - t0) * 1e3 / STREAM_STEPS)
+        return (time.monotonic() - t0) * 1e3 / STREAM_STEPS
+
+    def fixed_batches():
+        while True:
+            yield fixed
+
+    for _ in range(WARM_STEPS):
+        step(params, fixed)
+    run(stream)                                  # warm the pipeline
+    sync()
+    runs = {"fixed": [], "stream": []}
+    _build.reset_launches()
+    for label in ("fixed", "stream", "stream", "fixed"):
+        before = dict(_build.launches)
+        runs[label].append(run(stream if label == "stream"
+                               else fixed_batches(), label))
+        if label == "stream":
+            got = {k: n - before.get(k, 0) for k, n in
+                   _build.launches.items() if n != before.get(k, 0)}
+            want = {"flash_fwd": cfg.n_layers * STREAM_STEPS,
+                    "flash_bwd_fused": cfg.n_layers * STREAM_STEPS}
+            if got != want:
+                raise AssertionError(f"train_stream_flagship: a stream run "
+                                     f"launched {got}, expected {want}")
+    launches = {k: 2 * c for k, c in want.items()}
+    # every batch the step took, against the host stream's arrays
+    stream_batches = [b for b in taken if b is not fixed]
+    n_equal = 0
+    for b in stream_batches:
+        t, y = next(host)
+        n_equal += bool(np.array_equal(b[0].cpu().numpy(), t)
+                        and np.array_equal(b[1].cpu().numpy(), y))
+    if n_equal != len(stream_batches):
+        raise AssertionError(f"train_stream_flagship: {n_equal} of "
+                             f"{len(stream_batches)} batches equal the "
+                             f"host stream's")
+    def three_steps():
+        p = params
+        for _ in range(3):
+            p, _ = step(p, next(stream))
+
+    streams = _stream_profile(three_steps)
+    draws = []
+    probe = token_stream(cfg, seed=STREAM_SEED + 1)
+    for _ in range(STREAM_HOST_DRAWS):
+        t0 = time.monotonic()
+        next(probe)
+        draws.append((time.monotonic() - t0) * 1e3)
+    host_ms = sorted(draws)[len(draws) // 2]
+    stream_ms = sorted(runs["stream"])[0]
+    fixed_ms = sorted(runs["fixed"])[0]
+    return dict(
+        config={**{k: getattr(cfg, k) for k in (
+            "vocab", "d_model", "n_heads", "d_ff", "n_layers", "seq_len",
+            "batch")}, "dtype": "bfloat16"},
+        seed=STREAM_SEED, prefetch=STREAM_PREFETCH, steps=STREAM_STEPS,
+        stream_step_ms=stream_ms, fixed_step_ms=fixed_ms,
+        stream_step_ms_runs=runs["stream"], fixed_step_ms_runs=runs["fixed"],
+        stream_over_fixed=stream_ms / fixed_ms,
+        train_flagship_step_ms=fixed_step_ms,
+        stream_over_train_flagship=stream_ms / fixed_step_ms,
+        batches_checked=len(stream_batches), batches_equal=n_equal,
+        launches=launches, launches_per_step={
+            k: c // (2 * STREAM_STEPS) for k, c in launches.items()},
+        host_batch_ms=host_ms, host_batch_ms_draws=draws,
+        host_loop_ms_per_step=host_loop,
+        host_on_critical_path=min(host_loop["stream"]) >= 0.9 * stream_ms,
+        streams=streams,
+        peak_bytes=torch.cuda.max_memory_allocated()), launches
+
+
+def train_checkpoint_remote_flagship(params, dev, root: str,
+                                     local: dict) -> tuple[dict, dict]:
+    """The flagship AdamW state through the remote backend (``fsspec``) at
+    ``file://<root>/remote``, with the split step (K3 + K4: K5's dQ
+    atomics vary bits between runs): two steps straight against one step,
+    a save, a fresh ``Checkpointer``'s ``restore_tree`` (the restored
+    state equal to the saved one, bit for bit) and one more step (the
+    final state equal to the straight run's). Save and restore bytes a
+    second beside the local backend's (``train_checkpoint_flagship``).
+    Planted faults on a small tree: a truncated shard is quarantined and
+    restore falls back to the previous step; a step directory without a
+    manifest is never listed. ``Checkpointer("gs://…")`` and a save raise
+    :class:`CheckpointError` and write nothing locally (without
+    ``gcsfs``, as on this machine; were it installed, the check is not
+    made: no call leaves the machine)."""
+    import dataclasses
+    import importlib.util
+    import shutil
+
+    import torch
+
+    from nvidia_terraform_modules_tpu_torch.models import (
+        AdamWConfig,
+        CheckpointError,
+        Checkpointer,
+        abstract_train_state,
+        make_adamw_train_step,
+        tree_leaves,
+    )
+    from nvidia_terraform_modules_tpu_torch.ops import _build
+    from nvidia_terraform_modules_tpu_torch.parallel import ShapeDtypeStruct
+    from nvidia_terraform_modules_tpu_torch.utils.timing import sync
+
+    import fsspec
+
+    cfg, batch = _flagship_train(dev)
+    base = os.path.join(root, "remote")
+    shutil.rmtree(base, ignore_errors=True)
+    url = f"file://{base}"
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    state_bytes = sum(p.numel() * p.element_size()
+                      for p in tree_leaves(params)) + 2 * 4 * n_params + 4
+    split = dataclasses.replace(cfg, flash_backward="split")
+    init_state, step = make_adamw_train_step(split, opt=AdamWConfig(lr=1e-3),
+                                             device=dev)
+
+    def leaves(p, s):
+        return tree_leaves([p, s["mu"], s["nu"]]) + [s["step"]]
+
+    _build.reset_launches()
+    ref_p, ref_s, _ = step(params, init_state(params), batch)
+    ref_p, ref_s, ref_loss = step(ref_p, ref_s, batch)
+    p, s, _ = step(params, init_state(params), batch)
+    sync()
+    t0 = time.monotonic()
+    with Checkpointer(url, max_to_keep=2) as ck:
+        ck.save(1, {"params": p, "opt": s})
+        commit = ck.last_commit
+    save_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    with Checkpointer(url) as ck:
+        tree, at, _ = ck.restore_tree(abstract_train_state(cfg, device=dev))
+    sync()
+    restore_s = time.monotonic() - t0
+    restored_equal = at == 1 and all(
+        _bits_equal(a, b) for a, b in zip(leaves(p, s),
+                                          leaves(tree["params"],
+                                                 tree["opt"])))
+    del p, s
+    p, s, loss = step(tree["params"], tree["opt"], batch)
+    del tree
+    sync()
+    launches = {k: c for k, c in _build.launches.items() if c}
+    final_equal = torch.equal(loss, ref_loss) and all(
+        _bits_equal(a, b) for a, b in zip(leaves(p, s), leaves(ref_p, ref_s)))
+    if not (restored_equal and final_equal):
+        raise AssertionError(
+            f"train_checkpoint_remote_flagship: restored = saved "
+            f"{restored_equal}, resumed = straight {final_equal}")
+    expect = {"flash_fwd": 4 * cfg.n_layers, "flash_dq": 4 * cfg.n_layers,
+              "flash_dkv": 4 * cfg.n_layers}
+    if launches != expect:
+        raise AssertionError(f"train_checkpoint_remote_flagship: launched "
+                             f"{launches}, expected {expect}")
+    files = sorted(os.listdir(os.path.join(base, "step_00000001")))
+    del p, s, ref_p, ref_s
+    shutil.rmtree(base)
+    torch.cuda.empty_cache()
+
+    # planted faults, on a small tree
+    w = torch.arange(1 << 20, dtype=torch.float32, device=dev).reshape(
+        1024, 1024)
+    small = {"w": ShapeDtypeStruct((1024, 1024), torch.float32, dev)}
+    with Checkpointer(url, max_to_keep=4) as ck:
+        ck.save(1, {"w": w})
+        ck.save(2, {"w": w + 1})
+    shard = os.path.join(base, "step_00000002", "shards_p00000.bin")
+    with open(shard, "r+b") as fh:
+        fh.truncate(16)
+    os.makedirs(os.path.join(base, "step_00000009"))
+    with open(os.path.join(base, "step_00000009", "shards_p00000.bin"),
+              "wb") as fh:
+        fh.write(b"a save that died before its manifest")
+    with Checkpointer(url) as ck:
+        listed = ck.all_steps()
+        fallback, fb_step, _ = ck.restore_tree(small)
+        quarantined = ck.quarantined()
+    if listed != [1, 2] or fb_step != 1 or not torch.equal(
+            fallback["w"], w) or [q.split(".")[0] for q in quarantined] \
+            != ["step_00000002"]:
+        raise AssertionError(
+            f"train_checkpoint_remote_flagship: listed {listed}, fell back "
+            f"to {fb_step}, quarantined {quarantined}")
+    shutil.rmtree(base)
+
+    # gs:// without its filesystem package: classified, nothing local
+    gcsfs = importlib.util.find_spec("gcsfs") is not None
+    gs = {"gcsfs_installed": gcsfs}
+    if not gcsfs:
+        empty = os.path.join(root, "gs_cwd")
+        os.makedirs(empty, exist_ok=True)
+        here = os.getcwd()
+        os.chdir(empty)
+        try:
+            ck = Checkpointer("gs://bucket/ckpt")
+            try:
+                ck.save(1, {"w": w})
+                raise AssertionError("a gs:// save without gcsfs passed")
+            except CheckpointError as exc:
+                gs["error"] = str(exc)[:160]
+        finally:
+            os.chdir(here)
+        gs["local_files"] = os.listdir(empty)
+        shutil.rmtree(empty)
+        if gs["local_files"] or "gs:// protocol" not in gs["error"]:
+            raise AssertionError(f"train_checkpoint_remote_flagship: {gs}")
+
+    def per_s(seconds):
+        return state_bytes / max(seconds, 1e-12)
+
+    return dict(
+        url_scheme="file", fsspec=fsspec.__version__,
+        filesystem=_filesystem(root), state_bytes=state_bytes,
+        saved_at=1, restored_bitwise=restored_equal,
+        final_bitwise=final_equal, resume_loss=loss.item(),
+        step_files=files, save_s=save_s, save_bytes_per_s=per_s(save_s),
+        write_s=commit["write_s"], crc32_s=commit["crc_s"],
+        close_s=commit["fsync_s"], restore_s=restore_s,
+        restore_bytes_per_s=per_s(restore_s),
+        local_commit_bytes_per_s=local["commit_bytes_per_s"],
+        local_restore_bytes_per_s=local["restore_bytes_per_s"],
+        save_over_local=per_s(save_s) / local["commit_bytes_per_s"],
+        restore_over_local=per_s(restore_s) / local["restore_bytes_per_s"],
+        planted={"listed": listed, "fallback_step": fb_step,
+                 "quarantined": quarantined},
+        gs=gs, launches=launches), launches
 
 
 # the validation Job's full level on the card: the flagship MoE train step
@@ -6863,6 +7232,7 @@ def smoketest_cli_full() -> dict:
                              f"{checks.get('full_skipped')}, listed "
                              f"{listed}: {checks}")
     return dict(wall_s=wall_s, seconds=checks["seconds"],
+                lint_runtime_ok=checks["lint_runtime_ok"],
                 full_skipped=checks["full_skipped"],
                 full_legs_not_ported=listed, decode_ok=checks["decode_ok"],
                 decode_sharding_key="decode_sharding" in checks,
@@ -7349,6 +7719,11 @@ def main() -> int:
               file=sys.stderr)
         return 1
     import torch.nn.functional as F
+
+    # ----------------------------------------------------- lint_runtime
+    # graftlint over the installed package first, as the Job's preflight:
+    # no device needed
+    emit("lint_runtime", **lint_runtime())
 
     from nvidia_terraform_modules_tpu_torch.models import (
         FLAGSHIP_TRAIN,
@@ -7906,6 +8281,11 @@ def main() -> int:
     emit("train_flagship", **rec)
     emit("train_telemetry", **train_telemetry(params, dev))
     emit("train_profile", **train_profile(params, dev))
+    # the same step fed by the host input pipeline (utils/data.py)
+    stream_rec, stream_launches = train_stream_flagship(params, dev,
+                                                        rec["step_ms"])
+    emit("train_stream_flagship", **stream_rec)
+    torch.cuda.empty_cache()
 
     # -------------------------------------------- sequence-parallel train
     # the ring's per-member block at the flagship: [B, S / sp, H, D]
@@ -7955,10 +8335,19 @@ def main() -> int:
         ck_rec, ck_launches = train_checkpoint_flagship(params, dev,
                                                         CKPT_ROOT)
         emit("train_checkpoint_flagship", **ck_rec)
+        # the remote backend (fsspec) at a file:// URL: the flagship
+        # state, then the checkpointed CLI's fresh and resumed runs
+        remote_rec, remote_launches = train_checkpoint_remote_flagship(
+            params, dev, CKPT_ROOT, ck_rec)
+        emit("train_checkpoint_remote_flagship", **remote_rec)
+        cli_remote = smoketest_cli_checkpoint(CKPT_ROOT, remote=True)
+        emit("smoketest_cli_checkpoint_remote", **cli_remote)
     finally:
         shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     k7_cli_ck = sum(run["leg_launches"].get("paged_decode", {}).get(
         "paged_decode", 0) for run in cli_ck.values())
+    k7_cli_remote = sum(run["leg_launches"].get("paged_decode", {}).get(
+        "paged_decode", 0) for run in cli_remote.values())
 
     # ----------------------------------- the validation Job's full level
     # the flagship MoE train step on the Job's path (rules of a world of
@@ -8019,6 +8408,10 @@ def main() -> int:
          "sharded": {"launches": sh_launches["flash_fwd"]},
          # the flagship AdamW steps with an async save after each
          "checkpoint": {"launches": ck_launches["flash_fwd"]},
+         # the stream-fed flagship step's timed runs, and the remote
+         # backend's exact resume (split steps)
+         "stream": {"launches": stream_launches["flash_fwd"]},
+         "checkpoint_remote": {"launches": remote_launches["flash_fwd"]},
          # the flagship MoE train step's timed steps and the rules= engine
          "moe_train": {"launches": moe_train_launches["flash_fwd"]},
          "serve_rules": {"launches": sr_launches["flash_fwd"]},
@@ -8079,8 +8472,10 @@ def main() -> int:
          # the in-process smoke test (serve legs; paged_decode's "on")
          "smoketest": {"launches": st_launches["paged_decode"],
                        "paged_decode_leg": st_rec["paged_decode_k7"]},
-         # the three checkpointed CLI runs' paged_decode legs
+         # the three checkpointed CLI runs' paged_decode legs, and the
+         # two on the remote backend's file:// URL
          "checkpoint_cli": {"launches": k7_cli_ck},
+         "checkpoint_cli_remote": {"launches": k7_cli_remote},
          # the flagship engine under rules= (a world of one), and the MoE
          # engine under rules=
          "serve_rules": {"launches": sr_launches["paged_decode"]},
@@ -8207,8 +8602,12 @@ def main() -> int:
                     for label, r in one.items()}}
                if name == "flash_bwd_fused" else {}),
             # K5: the checkpointed AdamW steps; K3 and K4: the
-            # exact-resume comparison (split backward)
+            # exact-resume comparison (split backward); K5: the
+            # stream-fed steps; K3 and K4: the remote backend's resume
             "checkpoint": {"launches": ck_launches[name]},
+            **({"stream": {"launches": stream_launches[name]}}
+               if name == "flash_bwd_fused" else
+               {"checkpoint_remote": {"launches": remote_launches[name]}}),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

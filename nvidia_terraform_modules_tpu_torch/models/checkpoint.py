@@ -54,10 +54,29 @@ needed. Restore-time reads retry transient I/O with capped exponential
 backoff and jitter (``utils/retry.py``) before a step is classified
 corrupt.
 
-Remote prefixes (``gs://…``): the reference keeps orbax for them; the
-port has no remote backend, and the constructor raises
-:class:`CheckpointError` (ROADMAP Queue A item 13) — it never falls back
-to a local path.
+Remote prefixes (any ``<protocol>://…``: ``gs://``, ``s3://``,
+``file://``, ``memory://``): the reference sends them to orbax, which
+needs JAX; the port writes the same layout as the local store, file for
+file and byte for byte, over an ``fsspec`` filesystem (imported lazily,
+at the first read or write — the constructor touches no storage).
+Object stores cannot rename a directory, so the remote commit keeps
+these invariants instead:
+
+- ``manifest.json`` is written last (through a temporary object moved
+  into place) and is the commit point: a step directory without one is
+  an unfinished or crashed save, never listed, and removed by a later
+  age-gated sweep (each save of process 0, and :meth:`Checkpointer.clear`);
+- retention and re-saves delete a step's manifest before its data;
+- restore reads each record as a verified byte range (the same retry
+  policy, the same quarantine and fall-back to the previous step);
+- each rank writes its own ``shards_p*.bin`` and part, and process 0
+  merges the parts and writes the manifest after the same bounded
+  rendezvous, through the filesystem.
+
+A missing ``fsspec``, or a protocol it cannot load (``gs://`` without
+``gcsfs``), raises :class:`CheckpointError` naming the protocol; no path
+ever falls back to local storage. A committed step copied to a local
+directory restores through either package's local ``Checkpointer``.
 
 On-disk layout of a committed step::
 
@@ -65,6 +84,7 @@ On-disk layout of a committed step::
         manifest.json     # step, world size, per-leaf shard records + crc32
         meta.json         # the caller's JSON metadata
         shards_p00000.bin # rank 0's raw shard bytes (one file a rank)
+        part_p00000.json  # rank 0's shard records (merged into the manifest)
     <root>/quarantine/
         step_00000041.bad-crc/   # quarantined, never restored
 """
@@ -100,7 +120,6 @@ _MANIFEST = "manifest.json"
 _META = "meta.json"
 _TOKEN = "token.json"
 _FORMAT = 1
-_REMOTE_ITEM = "ROADMAP Queue A item 13"
 
 # bounded rendezvous: how long a process waits for its peers' part files
 # (or the committed step) before failing with a classified error instead
@@ -190,6 +209,12 @@ def _fsync_dir(path: str) -> None:
             os.fsync(fd)
         finally:
             os.close(fd)
+
+
+def _age_s(mtime: float) -> float:
+    """Seconds since ``mtime``, a storage timestamp in epoch seconds."""
+    # graftlint: ignore[graft-wallclock-nondeterminism] — mtime ages
+    return time.time() - mtime
 
 
 def _wait_for(predicate: Callable[[], Any], timeout_s: float, what: str,
@@ -396,42 +421,19 @@ class _LocalStore:
         releases the interpreter lock): ``crc_s`` is the wall time until
         the last crc32 is done, ``write_s`` that of the writes."""
         shard_file = f"shards_p{pid:05d}.bin"
-        pieces = [(path, shape, dtype, bounds, _host_bytes(host))
-                  for path, (shape, dtype, shards) in snapshot
-                  for bounds, host in shards]
-        t0 = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(_CRC_THREADS) as pool:
-            crcs = [pool.submit(zlib.crc32, raw) for *_, raw in pieces]
-            with open(os.path.join(tmp, shard_file), "wb") as fh:
-                for *_, raw in pieces:
-                    fh.write(raw)
-                fh.flush()
-                write_s = time.perf_counter() - t0
-                crcs = [f.result() & 0xFFFFFFFF for f in crcs]
-                crc_s = time.perf_counter() - t0
-                t = time.perf_counter()
-                os.fsync(fh.fileno())
-                fsync_s = time.perf_counter() - t
-        records = []
-        offset = 0
-        for (path, shape, dtype, bounds, raw), crc in zip(pieces, crcs):
-            records.append({
-                "path": path,
-                "shape": list(shape),
-                "dtype": dtype,
-                "bounds": bounds,
-                "file": shard_file,
-                "offset": offset,
-                "nbytes": raw.nbytes,
-                "crc32": crc,
-            })
-            offset += raw.nbytes
+        pieces = _pieces(snapshot)
+        with open(os.path.join(tmp, shard_file), "wb") as fh:
+            crcs, stats = _write_shards(fh, pieces)
+            fh.flush()
+            t = time.perf_counter()
+            os.fsync(fh.fileno())
+            stats["fsync_s"] = time.perf_counter() - t
+        records = _records(pieces, crcs, shard_file)
         _atomic_write_json(
             os.path.join(tmp, f"part_p{pid:05d}.json"),
             {"nonce": nonce, "step": step, "process": pid,
              "records": records})
-        return {"crc_s": crc_s, "write_s": write_s, "fsync_s": fsync_s,
-                "bytes": float(offset)}
+        return {**stats, "bytes": float(sum(r["nbytes"] for r in records))}
 
     @staticmethod
     def _all_parts(tmp: str, nonce: str, nprocs: int):
@@ -488,13 +490,7 @@ class _LocalStore:
         except Exception as exc:  # noqa: BLE001 — classified below
             raise CorruptCheckpointError(
                 step, f"unreadable manifest/meta ({exc})") from exc
-        if manifest.get("format") != _FORMAT or \
-                manifest.get("step") != step:
-            raise CorruptCheckpointError(
-                step, f"manifest format/step mismatch "
-                      f"(format={manifest.get('format')}, "
-                      f"step={manifest.get('step')})")
-        return meta, manifest
+        return meta, _checked_manifest(step, manifest)
 
     def record_reader(self, step: int) -> "_RecordReader":
         return _RecordReader(
@@ -511,9 +507,7 @@ class _LocalStore:
         src = os.path.join(self.root, _step_dirname(step))
         qdir = os.path.join(self.root, _QUARANTINE)
         os.makedirs(qdir, exist_ok=True)
-        slug = "".join(c if c.isalnum() or c in "-_" else "-"
-                       for c in reason.split("(")[0].strip())[:48].rstrip("-")
-        dst = os.path.join(qdir, f"{_step_dirname(step)}.{slug or 'bad'}")
+        dst = os.path.join(qdir, _quarantine_name(step, reason))
         if os.path.exists(dst):
             dst = f"{dst}.{uuid.uuid4().hex[:8]}"
         with contextlib.suppress(FileNotFoundError):
@@ -527,16 +521,83 @@ class _LocalStore:
         age-gated so an in-flight save on a peer is never swept."""
         if not os.path.isdir(self.root):
             return
-        # ages are computed against filesystem mtimes; epoch time is
-        # the only clock comparable to them
-        now = time.time()
         for name in os.listdir(self.root):
             if not name.startswith(_TMP_PREFIX):
                 continue
             path = os.path.join(self.root, name)
             with contextlib.suppress(OSError):
-                if now - os.path.getmtime(path) >= min_age_s:
+                if _age_s(os.path.getmtime(path)) >= min_age_s:
                     shutil.rmtree(path, ignore_errors=True)
+
+    # ---- the clear rendezvous's files --------------------------------
+    def put_json(self, rel: str, payload: dict) -> None:
+        path = os.path.join(self.root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        _atomic_write_json(path, payload)
+
+    def isfile(self, rel: str) -> bool:
+        return os.path.isfile(os.path.join(self.root, rel))
+
+    def isdir(self, rel: str) -> bool:
+        return os.path.isdir(os.path.join(self.root, rel))
+
+    def rmtree(self, rel: str) -> None:
+        shutil.rmtree(os.path.join(self.root, rel), ignore_errors=True)
+
+
+def _pieces(snapshot) -> list[tuple]:
+    """``(path, shape, dtype, bounds, raw bytes)`` of each piece of a
+    snapshot, in the shard file's order."""
+    return [(path, shape, dtype, bounds, _host_bytes(host))
+            for path, (shape, dtype, shards) in snapshot
+            for bounds, host in shards]
+
+
+def _write_shards(fh, pieces) -> tuple[list[int], dict[str, float]]:
+    """Write the pieces to ``fh`` while their crc32s run on a thread pool
+    (``zlib.crc32`` releases the interpreter lock): the crcs, and
+    ``write_s`` (the writes) and ``crc_s`` (until the last crc)."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(_CRC_THREADS) as pool:
+        futures = [pool.submit(zlib.crc32, raw) for *_, raw in pieces]
+        for *_, raw in pieces:
+            fh.write(raw)
+        write_s = time.perf_counter() - t0
+        crcs = [f.result() & 0xFFFFFFFF for f in futures]
+    return crcs, {"write_s": write_s, "crc_s": time.perf_counter() - t0}
+
+
+def _records(pieces, crcs, shard_file: str) -> list[dict]:
+    """The manifest records of one shard file's pieces."""
+    records, offset = [], 0
+    for (path, shape, dtype, bounds, raw), crc in zip(pieces, crcs):
+        records.append({
+            "path": path,
+            "shape": list(shape),
+            "dtype": dtype,
+            "bounds": bounds,
+            "file": shard_file,
+            "offset": offset,
+            "nbytes": raw.nbytes,
+            "crc32": crc,
+        })
+        offset += raw.nbytes
+    return records
+
+
+def _checked_manifest(step: int, manifest: dict) -> dict:
+    if manifest.get("format") != _FORMAT or manifest.get("step") != step:
+        raise CorruptCheckpointError(
+            step, f"manifest format/step mismatch "
+                  f"(format={manifest.get('format')}, "
+                  f"step={manifest.get('step')})")
+    return manifest
+
+
+def _quarantine_name(step: int, reason: str) -> str:
+    slug = "".join(c if c.isalnum() or c in "-_" else "-"
+                   for c in reason.split("(")[0].strip())[:48].rstrip("-")
+    return f"{_step_dirname(step)}.{slug or 'bad'}"
 
 
 def _atomic_write_json(path: str, payload: dict) -> None:
@@ -582,20 +643,9 @@ class _RecordReader:
         self.step = step
         self._handles: dict[str, Any] = {}
 
-    def close(self) -> None:
-        for fh in self._handles.values():
-            with contextlib.suppress(OSError):
-                fh.close()
-        self._handles.clear()
-
-    def __enter__(self) -> "_RecordReader":
-        return self
-
-    def __exit__(self, *exc) -> None:
-        self.close()
-
-    def read(self, rec: dict) -> torch.Tensor:
-        """One record as a host tensor of its piece's shape (checked)."""
+    def _ranged(self, rec: dict) -> tuple[Any, int]:
+        """One record's bytes and how many arrived (retried; raises
+        :class:`CorruptCheckpointError` once the retries are spent)."""
         fname = rec["file"]
         fh = self._handles.get(fname)
         if fh is None:
@@ -629,6 +679,24 @@ class _RecordReader:
                 self.step, f"unreadable shard range "
                            f"{fname}[{rec['offset']}:+{rec['nbytes']}] "
                            f"for {rec['path']} ({exc})") from exc
+        return buf, got
+
+    def close(self) -> None:
+        for fh in self._handles.values():
+            with contextlib.suppress(OSError):
+                fh.close()
+        self._handles.clear()
+
+    def __enter__(self) -> "_RecordReader":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def read(self, rec: dict) -> torch.Tensor:
+        """One record as a host tensor of its piece's shape (checked)."""
+        fname = rec["file"]
+        buf, got = self._ranged(rec)
         if got != rec["nbytes"]:
             raise CorruptCheckpointError(
                 self.step, f"shard file {fname} truncated at offset "
@@ -742,6 +810,313 @@ def _assemble_leaf(path: str, abstract: ShapeDtypeStruct, records,
     return out.to(abstract.device)
 
 
+# -------------------------------------------------------------- remote store
+
+
+def _filesystem(url: str):
+    """``(filesystem, root path)`` of a ``<protocol>://`` URL through
+    ``fsspec``; a missing package or a protocol it cannot load is a
+    :class:`CheckpointError` naming the protocol."""
+    protocol = url.split("://", 1)[0]
+    try:
+        from fsspec.core import url_to_fs
+
+        fs, root = url_to_fs(url)
+    except (ImportError, ValueError) as exc:
+        raise CheckpointError(
+            f"checkpoint directory {url!r}: no filesystem for the "
+            f"{protocol}:// protocol ({type(exc).__name__}: {exc}) — the "
+            f"remote backend needs fsspec and the protocol's package; "
+            f"nothing falls back to a local path") from exc
+    return fs, root.rstrip("/")
+
+
+def _join(*parts: str) -> str:
+    return "/".join(parts)
+
+
+def _basename(path: str) -> str:
+    return path.rstrip("/").rsplit("/", 1)[-1]
+
+
+class _RemoteStore:
+    """The local store's commit protocol and layout over an ``fsspec``
+    filesystem (module docstring): no directory rename, the manifest the
+    commit point. The filesystem is resolved at the first operation.
+
+    ``last_commit`` as the local store's, with ``fsync_s`` the shard
+    file's close (the write's durability point on an object store)."""
+
+    def __init__(self, url: str, max_to_keep: int,
+                 sync_timeout_s: Optional[float] = None):
+        self.url = url
+        self.max_to_keep = max_to_keep
+        self.sync_timeout_s = sync_timeout_s if sync_timeout_s is not None \
+            else float(os.environ.get("TPU_CHECKPOINT_SYNC_TIMEOUT_S",
+                                      DEFAULT_SYNC_TIMEOUT_S))
+        self.last_commit: dict[str, float] = {}
+        self._fs = None
+        self._root = ""
+
+    @property
+    def fs(self):
+        if self._fs is None:
+            self._fs, self._root = _filesystem(self.url)
+        return self._fs
+
+    @property
+    def root(self) -> str:
+        _ = self.fs
+        return self._root
+
+    def _path(self, *rel: str) -> str:
+        return _join(self.root, *rel)
+
+    def _names(self, rel: str = "") -> list[str]:
+        try:
+            entries = self.fs.ls(self._path(rel) if rel else self.root,
+                                 detail=False)
+        except FileNotFoundError:
+            return []
+        return sorted(_basename(e) for e in entries)
+
+    def _exists(self, *rel: str) -> bool:
+        return self.fs.exists(self._path(*rel))
+
+    def _put(self, data: bytes, *rel: str) -> None:
+        """``data`` at ``rel``, whole or not at all: written to a
+        temporary name, then moved into place."""
+        path = self._path(*rel)
+        tmp = f"{path}{_TMP_PREFIX}{uuid.uuid4().hex[:8]}"
+        with self.fs.open(tmp, "wb") as fh:
+            fh.write(data)
+        self.fs.mv(tmp, path)
+
+    def _put_json(self, payload: dict, *rel: str) -> None:
+        self._put(json.dumps(payload).encode(), *rel)
+
+    def _get_json(self, *rel: str, key: Optional[str] = None):
+        try:
+            data = json.loads(self.fs.cat_file(self._path(*rel)))
+        except (OSError, ValueError):
+            return None
+        return data.get(key) if key is not None else data
+
+    # ---- listing ----------------------------------------------------
+    def committed_steps(self) -> list[int]:
+        """Steps whose manifest exists — the commit marker."""
+        return sorted(step for name in self._names()
+                      if (step := _parse_step(name)) is not None
+                      and self._exists(name, _MANIFEST))
+
+    def quarantined(self) -> list[str]:
+        return self._names(_QUARANTINE)
+
+    # ---- save -------------------------------------------------------
+    def save(self, step: int, snapshot, meta: dict) -> None:
+        """Commit one step (the local store's :meth:`_LocalStore.save`,
+        with the manifest as the commit point). Process 0 first removes
+        an earlier copy of the step (its manifest first) and sweeps
+        crashed saves older than an hour, then writes the step's token;
+        the others write against it."""
+        t0 = time.perf_counter()
+        pid, nprocs = _world()
+        name = _step_dirname(step)
+        if pid == 0:
+            self.sweep_stale_tmp()
+            self._remove_step(step)
+            self.fs.makedirs(self._path(name), exist_ok=True)
+            nonce = uuid.uuid4().hex
+            self._put_json({"nonce": nonce, "step": step, "nprocs": nprocs},
+                           name, _TOKEN)
+        else:
+            nonce = _wait_for(
+                lambda: self._get_json(name, _TOKEN, key="nonce"),
+                self.sync_timeout_s,
+                f"the save token of step {step} from process 0")
+
+        stats = self._write_part(name, step, pid, nonce, snapshot)
+
+        if pid == 0:
+            parts = _wait_for(
+                lambda: self._all_parts(name, nonce, nprocs),
+                self.sync_timeout_s,
+                f"{nprocs} shard part file(s) of step {step}")
+            manifest = {
+                "format": _FORMAT,
+                "step": step,
+                "nprocs": nprocs,
+                "leaves": _merge_parts(parts),
+            }
+            self._put_json(dict(meta or {}), name, _META)
+            self.fs.rm(self._path(name, _TOKEN))
+            self._put_json(manifest, name, _MANIFEST)      # the commit
+            self._enforce_retention()
+        else:
+            def committed_or_token_changed():
+                current = self._get_json(name, _TOKEN, key="nonce")
+                if current is not None and current != nonce:
+                    return "restarted"
+                if current is None and self._exists(name, _MANIFEST):
+                    return "committed"
+                return None
+
+            outcome = _wait_for(
+                committed_or_token_changed, self.sync_timeout_s,
+                f"process 0 to commit step {step}")
+            if outcome == "restarted":
+                self.save(step, snapshot, meta)
+                return
+        self.last_commit = {**stats, "commit_s": time.perf_counter() - t0}
+
+    def _write_part(self, name: str, step: int, pid: int, nonce: str,
+                    snapshot) -> dict[str, float]:
+        """This rank's shard file and part record, as the local store
+        writes them (crc32s on a thread pool beside the writes)."""
+        shard_file = f"shards_p{pid:05d}.bin"
+        pieces = _pieces(snapshot)
+        fh = self.fs.open(self._path(name, shard_file), "wb")
+        try:
+            crcs, stats = _write_shards(fh, pieces)
+        finally:
+            t = time.perf_counter()
+            fh.close()
+            close_s = time.perf_counter() - t
+        records = _records(pieces, crcs, shard_file)
+        self._put_json({"nonce": nonce, "step": step, "process": pid,
+                        "records": records}, name, f"part_p{pid:05d}.json")
+        return {**stats, "fsync_s": close_s,
+                "bytes": float(sum(r["nbytes"] for r in records))}
+
+    def _all_parts(self, name: str, nonce: str, nprocs: int):
+        parts = []
+        for k in range(nprocs):
+            data = self._get_json(name, f"part_p{k:05d}.json")
+            if data is None or data.get("nonce") != nonce:
+                return None
+            parts.append(data)
+        return parts
+
+    _enforce_retention = _LocalStore._enforce_retention
+
+    def _remove_step(self, step: int) -> None:
+        """The manifest first (the step leaves the committed namespace),
+        then its data."""
+        name = _step_dirname(step)
+        with contextlib.suppress(FileNotFoundError):
+            self.fs.rm(self._path(name, _MANIFEST))
+        self.rmtree(name)
+
+    # ---- verify / quarantine ---------------------------------------
+    def read_manifest(self, step: int) -> tuple[dict, dict]:
+        """As :meth:`_LocalStore.read_manifest`."""
+        name = _step_dirname(step)
+
+        def read(fname):
+            return retry_call(lambda: self.fs.cat_file(self._path(name,
+                                                                  fname)),
+                              policy=_READ_RETRY, what=f"read {fname}",
+                              retryable=(OSError,))
+
+        try:
+            manifest = json.loads(read(_MANIFEST))
+            meta = json.loads(read(_META))
+        except Exception as exc:  # noqa: BLE001 — classified below
+            raise CorruptCheckpointError(
+                step, f"unreadable manifest/meta ({exc})") from exc
+        return meta, _checked_manifest(step, manifest)
+
+    def record_reader(self, step: int) -> "_RemoteRecordReader":
+        return _RemoteRecordReader(self.fs, self._path(_step_dirname(step)),
+                                   step)
+
+    def quarantine(self, step: int, reason: str) -> None:
+        """The step's files copied under ``quarantine/`` (the evidence),
+        then its manifest and data deleted. Process 0 moves it; the
+        others, which reached the same verdict, fall back without it."""
+        if _world()[0] != 0:
+            return
+        name = _step_dirname(step)
+        dst = _quarantine_name(step, reason)
+        if dst in self.quarantined():
+            dst = f"{dst}.{uuid.uuid4().hex[:8]}"
+        self.fs.makedirs(self._path(_QUARANTINE, dst), exist_ok=True)
+        for fname in self._names(name):
+            with contextlib.suppress(FileNotFoundError):
+                self.fs.copy(self._path(name, fname),
+                             self._path(_QUARANTINE, dst, fname))
+        self._remove_step(step)
+        log.warning("quarantined checkpoint step %d -> %s/%s (%s)", step,
+                    _QUARANTINE, dst, reason)
+
+    def _mtime(self, rel: str) -> Optional[float]:
+        """The newest modification time under ``rel``, in epoch seconds;
+        None when the filesystem does not keep one."""
+        try:
+            paths = self.fs.find(self._path(rel)) or [self._path(rel)]
+            return max(self.fs.modified(p).timestamp() for p in paths)
+        except (OSError, NotImplementedError):
+            return None
+
+    def sweep_stale_tmp(self, min_age_s: float = 3600.0) -> None:
+        """Remove crashed saves — step directories without a manifest —
+        and leftover temporaries, age-gated (by the newest file in each)
+        so a save in flight on a peer is never swept."""
+        for name in self._names():
+            step = _parse_step(name)
+            stale = name.startswith(_TMP_PREFIX) or (
+                step is not None and not self._exists(name, _MANIFEST))
+            if not stale:
+                continue
+            if min_age_s > 0:
+                mtime = self._mtime(name)
+                if mtime is None or _age_s(mtime) < min_age_s:
+                    continue
+            self.rmtree(name)
+
+    # ---- the clear rendezvous's files --------------------------------
+    def put_json(self, rel: str, payload: dict) -> None:
+        self.fs.makedirs(self._path(rel.rsplit("/", 1)[0]), exist_ok=True)
+        self._put_json(payload, rel)
+
+    def isfile(self, rel: str) -> bool:
+        return self.fs.isfile(self._path(rel))
+
+    def isdir(self, rel: str) -> bool:
+        return self.fs.isdir(self._path(rel))
+
+    def rmtree(self, rel: str) -> None:
+        with contextlib.suppress(FileNotFoundError):
+            self.fs.rm(self._path(rel), recursive=True)
+
+
+class _RemoteRecordReader(_RecordReader):
+    """:class:`_RecordReader` over a filesystem: each record one ranged
+    read (``cat_file`` of its byte range), retried, then length- and
+    crc32-checked as the local reads are."""
+
+    def __init__(self, fs, stepdir: str, step: int):
+        super().__init__(stepdir, step)
+        self._fs = fs
+
+    def _ranged(self, rec: dict) -> tuple[Any, int]:
+        fname, start = rec["file"], rec["offset"]
+        try:
+            buf = retry_call(
+                lambda: self._fs.cat_file(_join(self.stepdir, fname),
+                                          start=start,
+                                          end=start + rec["nbytes"]),
+                policy=_READ_RETRY,
+                what=f"read {fname}[{start}:+{rec['nbytes']}]",
+                retryable=(OSError,))
+        except Exception as exc:  # noqa: BLE001 — classified, as local
+            raise CorruptCheckpointError(
+                self.step, f"unreadable shard range "
+                           f"{fname}[{start}:+{rec['nbytes']}] "
+                           f"for {rec['path']} ({exc})") from exc
+        return bytearray(buf), len(buf)
+
+
 # ------------------------------------------------------------ async writer
 
 
@@ -827,11 +1202,6 @@ class Checkpointer:
         keeps the blocking default: it may be preempted right after a
         step, and an uncommitted async write racing pod teardown would
         lose the step."""
-        if _is_remote(directory):
-            raise CheckpointError(
-                f"checkpoint directory {directory!r}: the remote (gs://) "
-                f"backend is not ported — {_REMOTE_ITEM}; give a local "
-                f"path (a mounted volume)")
         self.directory = directory
         self._max_to_keep = max_to_keep
         self._async = async_save
@@ -842,8 +1212,11 @@ class Checkpointer:
         self._layout = None
         # pinned host copies of device leaves, by path, reused by saves
         self._staging: dict[str, torch.Tensor] = {}
-        self._store = _LocalStore(_root(directory), max_to_keep,
-                                  sync_timeout_s)
+        # a remote URL's store resolves its filesystem at the first
+        # read or write: constructing touches no storage
+        self._store = (_RemoteStore if _is_remote(directory)
+                       else _LocalStore)(_root(directory), max_to_keep,
+                                         sync_timeout_s)
 
     @property
     def _reg(self):
@@ -894,7 +1267,8 @@ class Checkpointer:
         return self._store.committed_steps()
 
     def quarantined(self) -> list[str]:
-        """Quarantined step directory names (never restorable)."""
+        """Quarantined step directory names (never restorable), a remote
+        store's included (the reference's orbax branch answers [])."""
         if _no_checkpoint_possible(self.directory):
             return []
         return self._store.quarantined()
@@ -954,7 +1328,9 @@ class Checkpointer:
         """
         reg = self._reg
         with reg.span("checkpoint_save", step=step,
-                      asynchronous=self._async, backend="local"):
+                      asynchronous=self._async,
+                      backend="fsspec" if _is_remote(self.directory)
+                      else "local"):
             reg.counter("checkpoint_saves").inc()
             if self._writer is not None:
                 # one commit at a time, none queued behind it: the host
@@ -1006,11 +1382,11 @@ class Checkpointer:
         if _no_checkpoint_possible(self.directory):
             return None
         with self._reg.span("checkpoint_restore") as sp:
-            out = self._restore_local(abstract, step)
+            out = self._restore_steps(abstract, step)
             sp.args["step"] = out[1] if out is not None else None
             return out
 
-    def _restore_local(self, abstract: Any, step: Optional[int],
+    def _restore_steps(self, abstract: Any, step: Optional[int],
                        ) -> Optional[tuple[Any, int, dict[str, Any]]]:
         if step is not None:
             if step not in self._store.committed_steps():
@@ -1081,7 +1457,8 @@ class Checkpointer:
     def stored_world(self, step: int) -> Optional[int]:
         """Rank count of the world that WROTE ``step`` — the resume
         journal's evidence that a re-sharding restore crossed world
-        sizes."""
+        sizes. A remote store answers from its manifest too (the
+        reference's orbax branch keeps no manifest and answers None)."""
         if _no_checkpoint_possible(self.directory):
             return None
         try:
@@ -1118,28 +1495,23 @@ class Checkpointer:
                 store._remove_step(s)
             store.sweep_stale_tmp(min_age_s=0.0)
             return len(steps)
-        sync_dir = os.path.join(store.root, f"{_TMP_PREFIX}clear")
-        os.makedirs(sync_dir, exist_ok=True)
-        _atomic_write_json(
-            os.path.join(sync_dir, f"clear_p{pid:05d}.json"),
-            {"process": pid, "steps": steps})
+        sync_dir = f"{_TMP_PREFIX}clear"
+        store.put_json(f"{sync_dir}/clear_p{pid:05d}.json",
+                       {"process": pid, "steps": steps})
         if pid == 0:
             _wait_for(
-                lambda: all(
-                    os.path.isfile(os.path.join(
-                        sync_dir, f"clear_p{k:05d}.json"))
-                    for k in range(nprocs)),
+                lambda: all(store.isfile(f"{sync_dir}/clear_p{k:05d}.json")
+                            for k in range(nprocs)),
                 store.sync_timeout_s, "every process's clear snapshot")
             for s in steps:
                 store._remove_step(s)
-            shutil.rmtree(sync_dir, ignore_errors=True)
+            store.rmtree(sync_dir)
             store.sweep_stale_tmp(min_age_s=0.0)
         else:
             _wait_for(
-                lambda: not any(
-                    os.path.isdir(os.path.join(
-                        store.root, _step_dirname(s)))
-                    for s in steps) and not os.path.isdir(sync_dir),
+                lambda: not any(store.isdir(_step_dirname(s))
+                                for s in steps)
+                and not store.isdir(sync_dir),
                 store.sync_timeout_s, "process 0 to finish clearing")
         return len(steps)
 

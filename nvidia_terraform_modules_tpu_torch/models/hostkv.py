@@ -119,11 +119,14 @@ class HostBlockPool:
     def reset(self) -> None:
         """A fresh run over the SAME buffers: a new allocator, no crc
         stamps, zeroed traffic counters (a row is only read after a new
-        store stamps it)."""
+        store stamps it). The allocator, the stamps and ``stored_blocks``
+        have one writer, the engine's thread; ``loaded_blocks`` is also
+        counted by the swap worker, under the lock."""
         self._alloc = BlockAllocator(self.host_blocks, reserved=0)
         self._crc.clear()
         self.stored_blocks = 0
-        self.loaded_blocks = 0
+        with self._lock:
+            self.loaded_blocks = 0
 
     # ------------------------------------------------------- accounting
 

@@ -2344,6 +2344,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
             if eos_id is not None:
                 eos_pending += 1
                 if eos_check_every == 1:
+                    # graftlint: ignore[graft-host-sync-in-loop] — exact eos
                     tok_h = hist[-1].cpu()
                     eos_pending = 0
                     for slot, req in list(active.items()):
@@ -2354,6 +2355,7 @@ def make_serve_engine(params, cfg: BurnInConfig, *, max_len: int,
                     # one [W, slots] readback: each active request's FIRST
                     # eos since its admission fixes its length; only the
                     # retirement is late
+                    # graftlint: ignore[graft-host-sync-in-loop] — amortised
                     block = torch.stack(hist[-eos_pending:]).cpu()
                     base = len(hist) - eos_pending
                     eos_pending = 0

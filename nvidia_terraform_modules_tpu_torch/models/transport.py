@@ -1221,8 +1221,22 @@ class MultiProcTransport(Transport):
                                     name=f"fleet-spawn-{i}") for i in todo]
         for th in threads:
             th.start()
-        for th in threads:
-            th.join()
+        # BOUNDED joins: each spawn waits at most spawn_timeout_s an
+        # attempt for its READY, so a thread still alive past every
+        # attempt's wait is wedged — classified, never waited on forever
+        deadline = time.monotonic() + self.spawn_timeout_s * (
+            _SPAWN_PROC_RETRY.max_attempts + 1)
+        hung = []
+        for i, th in zip(todo, threads):
+            th.join(max(0.0, deadline - time.monotonic()))
+            if th.is_alive():
+                hung.append(f"replica-{i}")
+        if hung:
+            raise TransportDead(
+                f"{', '.join(hung)}: bring-up did not end within "
+                f"{_SPAWN_PROC_RETRY.max_attempts} attempts of "
+                f"spawn_timeout_s={self.spawn_timeout_s:.1f}s — classified "
+                f"dead (the spawn threads are abandoned)")
         if errors:
             raise errors[0]
 

@@ -282,10 +282,9 @@ def int8_products(timing, dev) -> dict:
     return out
 
 
-def checkpoint_costs(models, dev, root: Path) -> dict:
+def checkpoint_costs(models, timing, dev, root: Path) -> dict:
     """The ``ckpt`` group (module docstring): lists in save order."""
     import shutil
-    import time
 
     import torch
 
@@ -301,16 +300,13 @@ def checkpoint_costs(models, dev, root: Path) -> dict:
                                  async_save=True) as ck:
             for i in range(CKPT_SAVES):
                 ck.flush()
-                t0 = time.monotonic()
-                ck.save(i + 1, state)
-                out["save_call_ms"].append((time.monotonic() - t0) * 1e3)
+                _, save_s = timing.timed(ck.save, i + 1, state)
+                out["save_call_ms"].append(save_s * 1e3)
                 ck.flush()
                 for key, value in ck.last_commit.items():
                     out.setdefault(key, []).append(value)
-            t0 = time.monotonic()
-            ck.restore_tree(models.abstract_train_state(cfg, device=dev))
-            torch.cuda.synchronize()
-            out["restore_s"] = time.monotonic() - t0
+            _, out["restore_s"] = timing.timed(
+                ck.restore_tree, models.abstract_train_state(cfg, device=dev))
     finally:
         shutil.rmtree(d, ignore_errors=True)
     return {f"ckpt_{k}": v for k, v in out.items()}
@@ -378,7 +374,8 @@ def measure(tree: str, groups=GROUPS) -> dict:
     if "int8" in groups:
         out.update(int8_products(timing, dev))
     if "ckpt" in groups and hasattr(models, "Checkpointer"):
-        out.update(checkpoint_costs(models, dev, Path(tree).resolve()))
+        out.update(checkpoint_costs(models, timing, dev,
+                                    Path(tree).resolve()))
     if "serve" in groups:
         out.update(serve_wave(models, timing, dev))
     if "sample" in groups and hasattr(models, "make_sampler"):

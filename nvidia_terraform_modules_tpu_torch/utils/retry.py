@@ -50,6 +50,7 @@ class RetryPolicy:
         them). Deterministic under a seeded ``rng``."""
         # decorrelated full-jitter default is the point here;
         # replay-sensitive callers pass a seeded rng
+        # graftlint: ignore[graft-unseeded-rng] — entropy jitter by design
         rng = rng or random.Random()
         backoff = self.initial_s
         for _ in range(max(0, self.max_attempts - 1)):

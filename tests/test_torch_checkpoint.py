@@ -13,6 +13,14 @@ grown (1 → 4), and AdamW resumes bit for bit in a world of 4. Interop:
 a step the JAX package's ``Checkpointer`` writes restores in the port bit
 for bit, and the reverse, at f32 and bf16, with the same leaf paths.
 
+The remote backend (``memory://`` and ``file://`` through ``fsspec``; no
+test builds a ``gs://`` filesystem): round trips, the manifest as the
+commit point (a crash before it leaves no visible step, and the sweep's
+age gate), quarantine of truncated and flipped steps, retention, clear,
+async saves, the layout byte for byte (a step copied to a local
+directory restores in both packages' local ``Checkpointer``), a missing
+protocol, and a world of 2 on a shared ``file://`` directory.
+
 Every comparison here is exact (bytes in, bytes out).
 """
 
@@ -183,18 +191,38 @@ def test_clear_checkpoints(tmp_path):
     assert clear_checkpoints(str(tmp_path / "nope")) == 0
 
 
+def _no_gcsfs(monkeypatch):
+    """``gs://`` as on a machine without ``gcsfs``: fsspec's import error
+    for the protocol (no test builds a real ``gs://`` filesystem)."""
+    import fsspec.core
+
+    real = fsspec.core.url_to_fs
+
+    def url_to_fs(url, **kw):
+        if url.startswith("gs://"):
+            raise ImportError("Install gcsfs to access Google Storage")
+        return real(url, **kw)
+
+    monkeypatch.setattr(fsspec.core, "url_to_fs", url_to_fs)
+
+
 def test_remote_paths_never_touch_local_fs(tmp_path, monkeypatch):
-    """A gs:// URI is not mangled into <cwd>/gs:/…, and since the port has
-    no remote backend the constructor refuses it with the ROADMAP item —
-    it never falls back to a local directory."""
+    """A gs:// URI is not mangled into <cwd>/gs:/…; the constructor
+    touches no storage (its filesystem is resolved at the first read or
+    write), and where the protocol's package is missing a save raises
+    :class:`CheckpointError` naming the protocol — it never falls back to
+    a local directory."""
     monkeypatch.chdir(tmp_path)
+    _no_gcsfs(monkeypatch)
     assert ckpt_mod._root("gs://bucket/ckpt") == "gs://bucket/ckpt"
     assert not ckpt_mod._no_checkpoint_possible("gs://bucket/ckpt")
     assert ckpt_mod._root("rel/path").startswith("/")
-    with pytest.raises(CheckpointError, match="Queue A item 13"):
-        Checkpointer("gs://bucket/ckpt")
-    with pytest.raises(CheckpointError, match="not ported"):
+    ck = Checkpointer("gs://bucket/ckpt")
+    assert ck._store._fs is None
+    with pytest.raises(CheckpointError, match="gs:// protocol"):
         save_checkpoint("gs://bucket/ckpt", 1, _params(_tiny_cfg()))
+    with pytest.raises(CheckpointError, match="gs:// protocol"):
+        ck.latest_step()
     assert os.listdir(tmp_path) == []
 
 
@@ -552,7 +580,7 @@ def worlds(tmp_path_factory, jax8):
         0, STATE_CFG["vocab"], size=(8, 17), dtype=np.int32)
     w = np.arange(96.0, dtype=np.float32).reshape(24, 4)
     d = {k: str(root / k) for k in ("one", "four", "rows", "rows_bad",
-                                    "adamw", "two")}
+                                    "adamw", "two", "two_remote")}
     # a world of one writes (in this process: no process group)
     cfg = BurnInConfig(**STATE_CFG, dtype=torch.float32)
     full = params_from_numpy(params, cfg, device="cpu")
@@ -584,6 +612,10 @@ def worlds(tmp_path_factory, jax8):
         {"op": "save_state", "dir": d["two"], "tp": 1},
         {"op": "restore_leaves", "dir": d["rows"],             # cross axis
          "spec": (None, "dp")},
+        {"op": "save_state", "dir": f"file://{d['two_remote']}",
+         "tp": 1},                                  # the remote backend
+        {"op": "restore_state", "dir": f"file://{d['two_remote']}",
+         "tp": 1},
     ]}, timeout=150)
     three = run_world("checkpoint_ops", 3, root / "w3", {**common, "ops": [
         {"op": "restore_leaves", "dir": d["rows_bad"],         # 4 → 3
@@ -690,3 +722,206 @@ def test_world_writes_one_shard_file_a_rank(worlds):
         assert manifest["nprocs"] == n
     with Checkpointer(d["two"]) as c:
         assert c.stored_world(7) == 2
+
+
+# ------------------------------------------------------- the remote backend
+
+
+def _url(tmp_path, kind="memory"):
+    """A fresh remote directory: ``memory://`` (per process, named after
+    the test's directory) or ``file://``."""
+    if kind == "memory":
+        return f"memory://{tmp_path.name}-{os.getpid()}/ck"
+    return f"file://{tmp_path / 'remote'}"
+
+
+def _remote_files(url, step=None):
+    import fsspec.core
+
+    fs, root = fsspec.core.url_to_fs(url)
+    sub = f"{root}/step_{step:08d}" if step is not None else root
+    return fs, sorted(p[len(sub) + 1:] for p in fs.find(sub))
+
+
+@pytest.mark.parametrize("kind", ["memory", "file"])
+def test_remote_roundtrip_and_layout(tmp_path, kind):
+    """A remote step round-trips exactly, bf16 bits included, and holds
+    the local layout file for file: manifest, meta, the rank's shard file
+    and its part record."""
+    cfg = _tiny_cfg(torch.bfloat16)
+    params = _params(cfg)
+    url = _url(tmp_path, kind)
+    save_checkpoint(url, 3, params, meta={"last_loss": 1.25})
+    assert latest_step(url) == 3
+    restored, step, meta = restore_checkpoint(url, cfg, device="cpu")
+    assert step == 3 and meta == {"last_loss": 1.25}
+    assert _leaves_equal(params, restored)
+    _, files = _remote_files(url, 3)
+    assert files == ["manifest.json", "meta.json", "part_p00000.json",
+                     "shards_p00000.bin"]
+    with Checkpointer(url) as c:
+        assert c.stored_world(3) == 1 and c.quarantined() == []
+
+
+def test_remote_step_copied_local_restores_in_both_packages(tmp_path, jax8):
+    """A ``memory://`` step of the AdamW train state, copied file by file
+    to a local directory, is byte for byte what the local store writes
+    (but the part record's nonce), and restores in the port's local
+    ``Checkpointer`` and the JAX package's to equal arrays."""
+    cfg = BurnInConfig(**INTEROP, dtype=torch.float32)
+    init_state, _ = make_adamw_train_step(cfg, device="cpu")
+    params = _params(cfg, seed=4)
+    state = {"params": params, "opt": init_state(params)}
+    url = _url(tmp_path)
+    with Checkpointer(url) as c:
+        c.save(5, state, meta={"from": "remote"})
+    local = tmp_path / "local"
+    with Checkpointer(str(local)) as c:
+        c.save(5, state, meta={"from": "remote"})
+    fs, files = _remote_files(url, 5)
+    copy = tmp_path / "copy" / "step_00000005"
+    copy.mkdir(parents=True)
+    root = fsspec_root(url)
+    for name in files:
+        (copy / name).write_bytes(fs.cat_file(f"{root}/step_00000005/{name}"))
+        if name != "part_p00000.json":
+            assert (copy / name).read_bytes() == \
+                (local / "step_00000005" / name).read_bytes(), name
+    with Checkpointer(str(copy.parent)) as c:
+        tree, step, meta = c.restore_tree(abstract_train_state(
+            cfg, device="cpu"))
+    assert step == 5 and meta == {"from": "remote"}
+    assert _leaves_equal(state, tree)
+    jcfg = jburnin.BurnInConfig(**INTEROP, dtype=jnp.float32)
+    with jckpt.Checkpointer(str(copy.parent)) as c:
+        jtree, at, _ = c.restore_tree(jopt.abstract_train_state(jcfg))
+    assert at == 5
+    got = dict(ckpt_mod._flatten(state))
+    for path, w in jax.tree_util.tree_leaves_with_path(jtree):
+        np.testing.assert_array_equal(
+            _np_bits(w), _torch_bits(got[jax.tree_util.keystr(path)]))
+
+
+def fsspec_root(url):
+    import fsspec.core
+
+    return fsspec.core.url_to_fs(url)[1]
+
+
+def test_remote_crash_before_the_manifest_leaves_no_step(tmp_path,
+                                                         monkeypatch):
+    """The manifest is the commit point: a save that dies before writing
+    it leaves a step directory with shards but no manifest, which is never
+    listed or restored; the next save's sweep keeps it while it is young,
+    and a clear removes it."""
+    cfg = _tiny_cfg()
+    url = _url(tmp_path)
+    trees = _save_steps(url, cfg, (1,))
+    real = ckpt_mod._RemoteStore._put_json
+
+    def dies_at_commit(self, payload, *rel):
+        if rel[-1] == ckpt_mod._MANIFEST:
+            raise OSError("preempted mid-save")
+        return real(self, payload, *rel)
+
+    monkeypatch.setattr(ckpt_mod._RemoteStore, "_put_json", dies_at_commit)
+    with pytest.raises(OSError, match="preempted"):
+        save_checkpoint(url, 2, _params(cfg))
+    monkeypatch.setattr(ckpt_mod._RemoteStore, "_put_json", real)
+    fs, files = _remote_files(url)
+    assert "step_00000002/shards_p00000.bin" in files
+    assert "step_00000002/manifest.json" not in files
+    with Checkpointer(url) as c:
+        assert c.latest_step() == 1 and c.all_steps() == [1]
+        restored, step, _ = c.restore(cfg, device="cpu")
+        assert step == 1 and _leaves_equal(trees[1], restored)
+        c.save(3, trees[1])                   # sweeps only old crashes
+        assert "step_00000002/shards_p00000.bin" in _remote_files(url)[1]
+        assert c.clear() == 2
+    assert _remote_files(url)[1] == []
+
+
+@pytest.mark.parametrize("fault", ["truncate", "flip"])
+def test_remote_corrupt_step_is_quarantined(tmp_path, fault):
+    """A truncated shard or a flipped byte (the ranged read's length and
+    crc32 checks) sends the step to ``quarantine/`` with its evidence,
+    and restore falls back to the previous committed step."""
+    cfg = _tiny_cfg()
+    url = _url(tmp_path)
+    trees = _save_steps(url, cfg, (1, 2))
+    fs = _remote_files(url)[0]
+    shard = f"{fsspec_root(url)}/step_00000002/shards_p00000.bin"
+    raw = bytearray(fs.cat_file(shard))
+    if fault == "truncate":
+        raw = raw[:10]
+    else:
+        raw[len(raw) // 2] ^= 0xFF
+    fs.pipe_file(shard, bytes(raw))
+    with Checkpointer(url) as c:
+        restored, step, _ = c.restore(cfg, device="cpu")
+        assert step == 1 and _leaves_equal(trees[1], restored)
+        assert c.all_steps() == [1]
+        (q,) = c.quarantined()
+        assert q.startswith("step_00000002.")
+    evidence = _remote_files(url)[1]
+    assert f"quarantine/{q}/shards_p00000.bin" in evidence
+    assert f"quarantine/{q}/manifest.json" in evidence
+
+
+def test_remote_retention_clear_and_async(tmp_path):
+    """Retention keeps the newest steps (each old step's manifest goes
+    first); async saves commit at flush; clear removes every committed
+    step and keeps the quarantine."""
+    cfg = _tiny_cfg()
+    params = _params(cfg)
+    url = _url(tmp_path)
+    with Checkpointer(url, max_to_keep=2, async_save=True) as c:
+        for s in (1, 2, 3, 4):
+            c.save(s, _tree_map(lambda x: x + float(s), params),
+                   meta={"s": s})
+        c.flush()
+        assert c.all_steps() == [3, 4]
+        assert c.last_commit["bytes"] == sum(
+            x.numel() * x.element_size() for x in tree_leaves(params))
+        restored, step, meta = c.restore(cfg, device="cpu")
+        assert step == 4 and meta == {"s": 4}
+        assert _leaves_equal(_tree_map(lambda x: x + 4.0, params), restored)
+        with pytest.raises(MissingStepError):
+            c.restore(cfg, step=1, device="cpu")
+        c._store.quarantine(3, "planted (for the test)")
+        assert c.clear() == 1
+        assert c.all_steps() == [] and len(c.quarantined()) == 1
+    assert [f.split("/")[0] for f in _remote_files(url)[1]] == \
+        ["quarantine"] * 4
+
+
+def test_unknown_protocol_raises_naming_it(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    ck = Checkpointer("nosuchfs://bucket/ck")
+    for call in (ck.latest_step, ck.all_steps, ck.quarantined,
+                 lambda: ck.save(1, _params(_tiny_cfg())),
+                 lambda: ck.restore(_tiny_cfg(), device="cpu")):
+        with pytest.raises(CheckpointError, match="nosuchfs:// protocol"):
+            call()
+    assert os.listdir(tmp_path) == []
+
+
+def test_world_of_two_on_a_shared_file_url(worlds):
+    """The world of 2 saves its train state through the remote backend on
+    a shared ``file://`` directory (each rank its shard file and part,
+    rank 0 the manifest after the rendezvous) and restores it; the step's
+    manifest, meta and shards are the local world's byte for byte."""
+    d = worlds["dirs"]
+    for r in worlds["two"]:
+        _assert_state(r[4], worlds, 2)
+    remote = os.path.join(d["two_remote"], "step_00000007")
+    local = os.path.join(d["two"], "step_00000007")
+    names = sorted(os.listdir(remote))
+    assert names == sorted(os.listdir(local)) == [
+        "manifest.json", "meta.json", "part_p00000.json", "part_p00001.json",
+        "shards_p00000.bin", "shards_p00001.bin"]
+    for name in ("manifest.json", "meta.json", "shards_p00000.bin",
+                 "shards_p00001.bin"):
+        with open(os.path.join(remote, name), "rb") as a, \
+                open(os.path.join(local, name), "rb") as b:
+            assert a.read() == b.read(), name

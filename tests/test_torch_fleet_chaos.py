@@ -11,7 +11,7 @@ stalling replica opens the circuit breaker and loses nothing; a corrupt
 handoff retries from prefill once. The shed set under a capacity schedule
 and the profile's resolved schedule equal the JAX fleet's. The monitor's
 failure joins every worker, and a kill and its redrive run clean under the
-reference's lock-order watchdog (``analysis.lockwatch``, pure Python).
+port's lock-order watchdog (``analysis.lockwatch``).
 
 The port serves this config in a few milliseconds a wave, so a kill at
 ``at_s=0.05`` could find its victim done; each kill case therefore also
@@ -422,16 +422,18 @@ def test_fleet_monitor_failure_propagates_and_joins_workers(monkeypatch):
             if t.name.startswith("fleet-")] == []
 
 
-# the port's modules, by the basename lockwatch names their locks with
-_PORT_MODULES = ("fleet.py", "transport.py", "serving.py", "hostkv.py",
-                 "decode.py", "paging.py", "_build.py")
+# the port's modules, by the package-relative path lockwatch names their
+# locks with
+_PORT_MODULES = ("models/fleet.py", "models/transport.py",
+                 "models/serving.py", "models/hostkv.py", "models/decode.py",
+                 "models/paging.py", "ops/_build.py")
 
 
 def test_fleet_chaos_kill_redrive_under_lockwatch_tier1():
-    """The seeded kill and its redrive under the reference's lock-order
+    """The seeded kill and its redrive under the port's lock-order
     watchdog: the port's locks are watched, and the run has no ordering
     cycle and no ``time.sleep`` while holding one — and stays exact."""
-    from nvidia_terraform_modules_tpu.analysis import lockwatch
+    from nvidia_terraform_modules_tpu_torch.analysis import lockwatch
 
     _, _, cfg, params, prompts = _setup()
     want = _want(6)
@@ -445,7 +447,9 @@ def test_fleet_chaos_kill_redrive_under_lockwatch_tier1():
     assert fleet.last_stats["fleet"]["faults"]["replica_down"] == 1
 
     def ours(name):
-        return name.split(":")[0] in _PORT_MODULES
+        path = name.split(":")[0]
+        return path.startswith("nvidia_terraform_modules_tpu_torch/") and \
+            path.endswith(_PORT_MODULES)
 
     assert [n for n in watch.lock_names if ours(n)], \
         "no port lock observed under the watchdog"

@@ -52,6 +52,13 @@ DURABLE_STATE = ("models/optimizer.py", "models/checkpoint.py",
 # the pipeline slice's modules: the pipeline and the world's hops
 PIPELINE = ("parallel/pipeline.py", "parallel/collectives.py",
             "ops/ring_attention.py", "ops/ulysses_attention.py")
+# the last modules ported: graftlint (its own copy of the reference's
+# pure-Python analysis package) and the host input pipeline
+LAST_MODULES = ("analysis/__init__.py", "analysis/__main__.py",
+                "analysis/core.py", "analysis/pysrc.py",
+                "analysis/graftlint.py", "analysis/rules_graft.py",
+                "analysis/lockgraph.py", "analysis/lockwatch.py",
+                "utils/data.py")
 
 
 def _port_files():
@@ -88,6 +95,17 @@ def test_the_durable_state_modules_are_scanned():
     scanned = {p.relative_to(Path(port.__file__).parent).as_posix()
                for p in _port_files()[:-1]}
     assert set(DURABLE_STATE) <= scanned
+
+
+def test_the_last_modules_are_scanned():
+    scanned = {p.relative_to(Path(port.__file__).parent).as_posix()
+               for p in _port_files()[:-1]}
+    assert set(LAST_MODULES) <= scanned
+    from nvidia_terraform_modules_tpu_torch import analysis, utils
+
+    assert analysis.run_graftlint.__module__ == port.__name__ + \
+        ".analysis.graftlint"
+    assert utils.input_pipeline.__module__ == port.__name__ + ".utils.data"
 
 
 def test_the_pipeline_modules_are_scanned():

@@ -8,11 +8,17 @@ process; the legs not run, listed under ``not_ported`` against the
 reference's runner; the checkpointed burn-in (``TPU_SMOKETEST_CHECKPOINT_DIR``)
 with the reference's keys and verdicts (``tests/test_checkpoint.py:128-189``:
 save and clear, resume at a planted step, quarantine and a fresh start, a
-store failure through the JSON contract), a ``gs://`` prefix, and a world
-of 2 resuming a step that a world of 4 planted; the CLI with no card and
-no CPU steer; and one 2-process CLI run over gloo in the manner of
-``tests/test_multihost_e2e.py`` (two hosts of the indexed Job, so two
-slices).
+store failure through the JSON contract), a ``gs://`` prefix without its
+filesystem package, the resume and quarantine legs on a ``file://`` URL
+(the remote backend), and a world of 2 resuming a step that a world of 4
+planted; the CLI with no card and no CPU steer; and one 2-process CLI run
+over gloo in the manner of ``tests/test_multihost_e2e.py`` (two hosts of
+the indexed Job, so two slices).
+
+The graftlint preflight runs at every level: one case here scans the real
+package (``lint_runtime_ok``); the others point ``TPU_SMOKETEST_LINT_DIR``
+at one small clean file of it, and ``tests/test_torch_analysis.py``
+plants a bad tree.
 """
 
 import json
@@ -37,7 +43,12 @@ from nvidia_terraform_modules_tpu_torch.models import (
 from nvidia_terraform_modules_tpu_torch.smoketest import run_smoketest
 
 ROOT = Path(__file__).resolve().parent.parent
-CPU = {"TPU_SMOKETEST_PLATFORM": "cpu"}
+# the preflight's scan redirected to one small clean file of the package:
+# the whole package's scan takes seconds, and runs once (the JSON line's
+# contract below)
+CLEAN_LINT = str(ROOT / "nvidia_terraform_modules_tpu_torch" / "analysis"
+                 / "__init__.py")
+CPU = {"TPU_SMOKETEST_PLATFORM": "cpu", "TPU_SMOKETEST_LINT_DIR": CLEAN_LINT}
 # four ranks on one host: one slice
 WORLD4 = {**CPU, "LOCAL_WORLD_SIZE": "4"}
 SERVE_LEGS = ("decode_ok", "serve_engine_ok", "serve_sched_ok",
@@ -158,12 +169,14 @@ def test_device_count_mismatch_fails(world4):
 
 
 def test_psum_level_world_of_one():
+    """The psum level runs the graftlint preflight and lists nothing under
+    ``not_ported`` (``flash_pipeline_ok`` belongs to burnin and full)."""
     r = run_smoketest(expected_devices=1, level="psum", env=CPU)
     assert r.ok
     assert r.checks["psum_ok"] and r.checks["psum_participants"] == 1
     assert r.checks["device_count_ok"]
-    assert r.checks["not_ported"] == {
-        "lint_runtime_ok": r.checks["not_ported"]["lint_runtime_ok"]}
+    assert r.checks["lint_runtime_ok"] is True
+    assert r.checks["not_ported"] == {}
 
 
 def test_kv_spill_leg_at_burnin_equals_the_jax_runner_leg():
@@ -319,10 +332,15 @@ def test_fleet_scale_and_prefix_cdn_legs_equal_the_jax_runner_legs(
 
 
 def test_json_line_contract():
-    r = run_smoketest(level="psum", env=CPU)
+    """The one run here whose preflight scans the whole installed package:
+    clean, so ``lint_runtime_ok`` and no findings or error."""
+    r = run_smoketest(level="psum", env={"TPU_SMOKETEST_PLATFORM": "cpu"})
     parsed = json.loads(r.to_json())
     assert parsed["ok"] is True
     assert "seconds" in parsed and "leg_seconds" in parsed
+    assert parsed["lint_runtime_ok"] is True
+    assert "lint_runtime_findings" not in parsed
+    assert "lint_runtime_error" not in parsed
 
 
 def test_unknown_level_rejected():
@@ -349,8 +367,10 @@ def test_every_reference_leg_runs_or_is_listed_not_ported(tmp_path):
     assert r.checks["burnin_checkpoint_saved"] == 5
     assert r.checks["burnin_checkpoint_cleared"] >= 1
     listed = r.checks["not_ported"]
+    assert set(listed) == {"flash_pipeline_ok"}
     assert all(re.match(r"ROADMAP Queue A item \d+|not queued", v)
                for v in listed.values())
+    assert r.checks["lint_runtime_ok"] is True
     assert not any("item 11" in v for v in listed.values())
     run_keys = {k for k in r.checks if k.endswith("_ok")}
     assert not run_keys & set(listed)
@@ -414,15 +434,28 @@ def test_smoketest_corrupt_checkpoint_quarantined_not_fatal(tmp_path):
 
 
 @pytest.mark.parametrize("where", ["file", "gs"])
-def test_smoketest_checkpoint_failure_keeps_json_contract(tmp_path, where):
+def test_smoketest_checkpoint_failure_keeps_json_contract(
+        tmp_path, where, monkeypatch):
     """A broken checkpoint STORE (a file where the directory should be;
-    a gs:// prefix, whose backend the port does not have) fails through
-    the JSON contract — ok false and ``checkpoint_error`` — never as a
-    traceback, and never by training without checkpoints."""
+    a gs:// prefix whose filesystem package is missing, as on a machine
+    without ``gcsfs`` — stood in for here, so no run ever builds a real
+    ``gs://`` filesystem) fails through the JSON contract — ok false and
+    ``checkpoint_error`` naming the protocol — never as a traceback, never
+    by training without checkpoints, and never on a local path."""
     if where == "file":     # no step to restore: the first save fails
         d, stage = tmp_path / "ckpt", "save: "
         d.write_text("not a directory")
-    else:                   # the constructor refuses the prefix
+    else:                   # the first read finds no filesystem
+        import fsspec.core
+
+        def no_gcsfs(url, **kw):
+            if url.startswith("gs://"):
+                raise ImportError("Install gcsfs to access Google Storage")
+            return real(url, **kw)
+
+        real = fsspec.core.url_to_fs
+        monkeypatch.setattr(fsspec.core, "url_to_fs", no_gcsfs)
+        monkeypatch.chdir(tmp_path)
         d, stage = "gs://bucket/smoketest", "restore: "
     r = run_smoketest(level="burnin", env=_ckpt_env(d))
     assert r.ok is False
@@ -430,8 +463,30 @@ def test_smoketest_checkpoint_failure_keeps_json_contract(tmp_path, where):
     assert r.checks["checkpoint_error"].startswith(stage)
     assert "burnin_ok" not in r.checks
     if where == "gs":
-        assert "Queue A item 13" in r.checks["checkpoint_error"]
-        assert not os.path.exists("gs:")
+        assert "gs:// protocol" in r.checks["checkpoint_error"]
+        assert os.listdir(tmp_path) == []
+
+
+def test_smoketest_resume_and_quarantine_on_a_file_url(tmp_path):
+    """The checkpointed Job on the remote backend (a ``file://`` URL), in
+    one run: of two planted steps the newer (4) has a truncated shard, so
+    it is quarantined and counted, and the run resumes at 3, runs to 8
+    and clears the directory."""
+    url = f"file://{tmp_path / 'remote'}"
+    _plant(url, 3)
+    _plant(url, 4)
+    shard = next((tmp_path / "remote" / "step_00000004").glob(
+        "shards_p*.bin"))
+    shard.write_bytes(shard.read_bytes()[:16])
+    r = run_smoketest(level="burnin", env=_ckpt_env(url))
+    assert r.ok, r.checks
+    assert r.checks["checkpoint_quarantined"] == 1
+    assert r.checks["burnin_resumed_step"] == 3
+    assert r.checks["burnin_step"] == 8
+    assert r.checks["burnin_checkpoint_saved"] == 8
+    assert r.checks["burnin_checkpoint_cleared"] >= 1
+    assert latest_step(url) is None
+    assert len(os.listdir(tmp_path / "remote" / "quarantine")) == 1
 
 
 def test_world_of_two_resumes_a_step_planted_by_a_world_of_four(
@@ -480,7 +535,8 @@ def test_cli_without_a_card_or_a_cpu_steer_exits_non_zero():
         [sys.executable, "-m", "nvidia_terraform_modules_tpu_torch.smoketest"],
         cwd=ROOT, env={**env, "PYTHONPATH": str(ROOT),
                        "CUDA_VISIBLE_DEVICES": "", "TPU_SMOKETEST_LEVEL":
-                       "psum"}, capture_output=True, text=True, timeout=120)
+                       "psum", "TPU_SMOKETEST_LINT_DIR": CLEAN_LINT},
+        capture_output=True, text=True, timeout=120)
     assert out.returncode == 1
     assert "no CUDA device" in out.stderr
     line = json.loads(out.stdout.strip().splitlines()[-1])

@@ -635,3 +635,24 @@ def test_workers_are_joined_before_the_interpreter_finalizes(mode):
     else:
         assert done.returncode == 0, done.stderr[-2000:]
         assert took < 30, took
+
+
+def test_a_wedged_bring_up_is_classified_not_waited_on(monkeypatch):
+    """``MultiProcTransport.bring_up`` joins its spawn threads against a
+    deadline (``spawn_timeout_s`` for each attempt and one more): a
+    bring-up that never returns raises ``TransportDead`` naming the
+    replica instead of hanging the caller."""
+    import time
+
+    release = threading.Event()
+    tr = MultiProcTransport(spawn_timeout_s=0.05)
+    monkeypatch.setattr(tr, "_param_wire", lambda: b"")
+    monkeypatch.setattr(tr, "ensure_engine",
+                        lambda i: release.wait(timeout=10.0))
+    t0 = time.monotonic()
+    try:
+        with pytest.raises(TransportDead, match="replica-1: bring-up"):
+            tr.bring_up([1])
+        assert time.monotonic() - t0 < 5.0
+    finally:
+        release.set()
